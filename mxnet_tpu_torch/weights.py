@@ -1,0 +1,63 @@
+"""Parameters from the JAX package (or any name -> numpy dict) onto a
+device.
+
+Both packages use MXNet's parameter names and layouts (FullyConnected
+weights ``(num_hidden, in_dim)``, the packed qkv ``(3d, d)``), so the
+conversion is a checked copy: every parameter the mixed decode step
+binds must be present with the shape the symbol infers, and each is
+copied as float32 onto the context.  Extra names (optimizer state,
+training-only heads) are ignored.
+"""
+from __future__ import annotations
+
+import numpy as _np
+import torch
+
+from .base import MXNetError
+from .ndarray.ndarray import NDArray
+
+__all__ = ["convert_params", "param_shapes"]
+
+
+def param_shapes(model_config):
+    """``{name: shape}`` of every parameter of the mixed decode step for
+    ``model_config`` (the ``transformer`` kwargs)."""
+    from .models import transformer
+    cfg = {k: v for k, v in model_config.items() if k != "dropout"}
+    msym = transformer.get_mixed_step_symbol(block_size=1, num_blocks=1,
+                                             **cfg)
+    arg_shapes, _, _ = msym.infer_shape(
+        data=(1, 1), positions=(1, 1), block_table=(1, 1),
+        chunk_data=(1, 1), chunk_positions=(1, 1), chunk_start=(1,),
+        chunk_len=(1,), chunk_table=(1, 1))
+    return {n: s for n, s in zip(msym.list_arguments(), arg_shapes)
+            if n not in transformer.MIXED_STEP_INPUTS
+            and not n.endswith("_cache")}
+
+
+def convert_params(np_params, ctx, model_config):
+    """Copy ``np_params`` (name -> numpy array, or anything with
+    ``asnumpy()``, such as the JAX package's NDArrays) onto ``ctx`` as
+    float32 NDArrays, after checking names and shapes against the mixed
+    decode step of ``model_config``.  Raises ``MXNetError`` naming every
+    missing or misshapen parameter."""
+    expected = param_shapes(model_config)
+    missing = sorted(n for n in expected if n not in np_params)
+    if missing:
+        raise MXNetError("convert_params: missing parameters %s" % missing)
+    arrays = {}
+    bad = []
+    for name, shape in expected.items():
+        v = np_params[name]
+        arr = _np.asarray(v.asnumpy() if hasattr(v, "asnumpy") else v,
+                          dtype=_np.float32)
+        if arr.shape != tuple(shape):
+            bad.append("%s %s (expected %s)" % (name, arr.shape,
+                                                 tuple(shape)))
+        arrays[name] = arr
+    if bad:
+        raise MXNetError("convert_params: misshapen parameters: %s"
+                         % "; ".join(bad))
+    dev = ctx.torch_device
+    return {n: NDArray(torch.from_numpy(_np.ascontiguousarray(a)).to(dev))
+            for n, a in arrays.items()}

@@ -1,0 +1,134 @@
+#!/usr/bin/env python3
+"""Where the time of one mixed decode step goes, on the GPU.
+
+    python3 tools/torch_decode_profile.py
+
+Builds the PyTorch port's DecodeEngine at chip_smoke.py's full-width
+configuration (same seeded weights and geometry), then drives its bound
+mixed step directly from this thread in two forms: a decode-only step
+(8 active slots, no chunk) and a mixed step (8 active slots plus a full
+64-row chunk at start 320).  For each it prints one JSON line with:
+
+* the wall time of one step (forward plus the greedy-token readback,
+  which synchronizes), median of 20;
+* the device time per step by kernel group, from ``torch.profiler``
+  over 5 steps, and the device's idle share of the wall time;
+* the host time to enqueue one step (forward without synchronizing),
+  and the calls in one forward that synchronize the host with the
+  device (``torch.cuda.set_sync_debug_mode``).
+
+Needs one CUDA device; exits non-zero without one.
+"""
+import json
+import os
+import statistics
+import sys
+import time
+import warnings
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def group(name):
+    n = name.lower()
+    for key, label in (("paged_decode", "paged_decode_attend"),
+                       ("paged_chunk", "paged_chunk_prefill_attend"),
+                       ("layernorm_fwd", "layernorm_fused"),
+                       ("gemm", "matmul"), ("gemv", "matmul"),
+                       ("sm90", "matmul"), ("cutlass", "matmul"),
+                       ("memcpy", "copies"), ("memset", "copies"),
+                       ("index", "indexing"), ("gather", "indexing"),
+                       ("scatter", "indexing")):
+        if key in n:
+            return label
+    return "elementwise/other"
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.decode import DecodeEngine
+    from mxnet_tpu_torch.weights import convert_params
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cs.phase_device(torch)
+    eng = DecodeEngine(convert_params(cs.seeded_params(cs.FULL), mx.gpu(0),
+                                      cs.FULL), cs.FULL, ctx=mx.gpu(0),
+                       start=False, warmup=True, **cs.GEOMETRY)
+    rng = np.random.RandomState(cs.SEED)
+    C, K = eng.capacity, eng._chunk_tokens
+    blocks = rng.permutation(eng.cache.num_blocks)
+    feeds = eng._idle_feeds()
+    for c in range(C):                   # 8 slots at position 400 each
+        feeds["data"][c, 0] = rng.randint(cs.FULL["num_classes"])
+        feeds["positions"][c, 0] = 400
+        feeds["block_table"][c, :26] = blocks[c * 26:(c + 1) * 26]
+    mixed = {k: v.copy() for k, v in feeds.items()}
+    mixed["chunk_data"][0] = rng.randint(cs.FULL["num_classes"], size=K)
+    mixed["chunk_positions"][0] = np.arange(320, 320 + K)
+    mixed["chunk_start"][0] = 320
+    mixed["chunk_len"][0] = K
+    mixed["chunk_table"][0, :24] = blocks[C * 26:C * 26 + 24]
+
+    for kind, f in (("decode_only", feeds), ("mixed", mixed)):
+        def step():
+            outs = eng._exe.forward(is_train=False, **f)
+            outs[1].asnumpy()
+            return outs
+        for _ in range(3):
+            step()
+        walls, enq = [], []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs = eng._exe.forward(is_train=False, **f)
+            enq.append((time.perf_counter() - t0) * 1e3)
+            outs[1].asnumpy()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                eng._exe.forward(is_train=False, **f)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs = sorted({str(w.message).splitlines()[0][:80] for w in caught})
+        n = 5
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                step()
+        by_group = {}
+        kernels = 0
+        for ev in prof.key_averages():
+            dt = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+            if dt and ev.device_type == torch.autograd.DeviceType.CUDA:
+                g = group(ev.key)
+                by_group[g] = by_group.get(g, 0.0) + dt / 1e3 / n
+                kernels += ev.count
+        device_ms = sum(by_group.values())
+        wall = statistics.median(walls)
+        print(json.dumps({
+            "phase": "profile", "step": kind, "wall_ms_p50": wall,
+            "enqueue_ms_p50": statistics.median(enq),
+            "device_ms": device_ms, "device_idle_share": 1 - device_ms / wall,
+            "device_ms_by_group": {k: round(v, 4) for k, v in
+                                   sorted(by_group.items(),
+                                          key=lambda kv: -kv[1])},
+            "device_launches_per_step": kernels / n,
+            "host_syncs_in_forward": len(caught), "sync_kinds": syncs}),
+            flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
