@@ -27,7 +27,26 @@ Phases, each printed as one JSON line:
 5. agreement: the same engine at 2 layers on the card and on the CPU
    (plain versions) over 3 requests: per-step logits within rtol 1e-4 /
    atol 1e-4 and equal greedy streams (a stream is compared only up to
-   a step where the CPU's top-2 logit margin is inside that tolerance).
+   a step where the CPU's top-2 logit margin is inside that tolerance);
+6. layernorm_bwd, flash_fwd, flash_bwd: the training kernels at the
+   training shapes (LayerNorm backward on 4096 x 2048, with and without
+   a residual, two runs bit-identical; causal flash attention on
+   (4, 16, 1024, 128)), each against its plain version, timed as in 3,
+   beside ``native_layer_norm_backward`` and
+   ``scaled_dot_product_attention`` (forward, and its backward) as the
+   library yardsticks;
+7. train: the same full-width model trained through ``Module.fit``
+   (SGD, momentum 0.9, learning rate 0.05, perplexity metric) over two
+   fixed batches of 4 x 1024 random tokens for 5 epochs: the loss must
+   be finite and fall on the repeated batch, every step must launch
+   LayerNorm forward and backward 25 times and each flash kernel 12
+   times, and no plain version may run; step time p50 over the last 8
+   steps, tokens/s and peak device memory are printed;
+8. train_agreement: the model at 2 layers, batch 2, seq 256, from the
+   same numpy weights on the card and on the CPU: the loss, every
+   parameter's gradient after one forward/backward and every
+   parameter's change after 2 SGD steps agree within 1e-3 of the CPU's
+   largest value of that quantity.
 
 Then the kernels' JSON line, and last ``{"ok": true, "device": ...}``.
 Any failed check raises, so the script exits non-zero and prints no
@@ -35,6 +54,7 @@ result; it also exits non-zero when no CUDA device is present.
 TF32 is off for every matrix product.
 """
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -52,6 +72,12 @@ FULL = dict(num_classes=16384, num_layers=12, d_model=2048, num_heads=16,
             ffn_dim=8192, seq_len=1024)
 GEOMETRY = dict(capacity=8, block_size=16, num_blocks=512, chunk_tokens=64)
 RTOL, ATOL = 1e-4, 1e-5
+TRAIN = dict(batch=4, lr=0.05, momentum=0.9, batches=2, epochs=5, warmup=2)
+AGREE = dict(num_layers=2, seq_len=256, batch=2, rtol=1e-3)
+# kernel launches of one training step of the full-width model
+TRAIN_LAUNCHES = {"layernorm_fused": 25, "layernorm_fused_bwd": 25,
+                  "flash_attention_fwd": 12, "flash_attention_bwd_dkv": 12,
+                  "flash_attention_bwd_dq": 12}
 
 
 class SmokeFailure(RuntimeError):
@@ -322,12 +348,12 @@ def seeded_params(cfg):
     return out
 
 
-def phase_serve(torch, mx):
+def phase_serve(torch, mx, np_params):
     from mxnet_tpu_torch.decode import DecodeEngine
     from mxnet_tpu_torch.kernels import LAUNCHES, PLAIN_CALLS, reset_counts
     from mxnet_tpu_torch.weights import convert_params
     t0 = time.perf_counter()
-    params = convert_params(seeded_params(FULL), mx.gpu(0), FULL)
+    params = convert_params(np_params, mx.gpu(0), FULL)
     eng = DecodeEngine(params, FULL, ctx=mx.gpu(0), warmup=True,
                        **GEOMETRY)
     del params
@@ -377,7 +403,7 @@ def phase_serve(torch, mx):
           "plain_calls": plain, "peak_mem_gb":
               torch.cuda.max_memory_allocated() / 1e9,
           "deterministic_resubmit": True})
-    return launches
+    return launches, steps
 
 
 def phase_agreement(torch, mx):
@@ -420,6 +446,319 @@ def phase_agreement(torch, mx):
           "cut_at_small_margin": cut})
 
 
+# ----------------------------------------------------------------------
+# training kernels
+# ----------------------------------------------------------------------
+def phase_layernorm_bwd(torch, mxk, dev, flush):
+    """LayerNorm backward at the training shape.  dx is held at rtol
+    1e-4 / atol 1e-5.  dgamma and dbeta are sums over 4096 rows whose
+    partial sums reach ~64 in magnitude, taken in another order than the
+    plain version's: their rounding error is of order 1e-5 whatever the
+    size of the result, so they are held at rtol 1e-4 / atol 2e-4, and
+    whether the strict bound held too is printed."""
+    rows, cols = 4096, 2048
+    g = torch.Generator(device="cpu").manual_seed(SEED + 4)
+    x = torch.randn(rows, cols, generator=g).to(dev)
+    res = torch.randn(rows, cols, generator=g).to(dev)
+    dy = torch.randn(rows, cols, generator=g).to(dev)
+    gamma = (1 + 0.02 * torch.randn(cols, generator=g)).to(dev)
+    beta = (0.02 * torch.randn(cols, generator=g)).to(dev)
+    errs, strict = {}, True
+    for r in (None, res):
+        _, mean, rstd = mxk.layernorm_plain(x, gamma, beta, residual=r)
+        got = mxk.layernorm_fused_bwd(x, gamma, mean, rstd, dy, residual=r)
+        again = mxk.layernorm_fused_bwd(x, gamma, mean, rstd, dy, residual=r)
+        ref = mxk.layernorm_bwd_plain(x, gamma, mean, rstd, dy, residual=r)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              "layernorm_fused_bwd (residual %s): two runs differ"
+              % (r is not None))
+        for a, b, what in zip(got, ref, ("dx", "dgamma", "dbeta")):
+            atol = ATOL if what == "dx" else 2e-4
+            check(bool(torch.allclose(a, b, rtol=RTOL, atol=atol)),
+                  "layernorm_fused_bwd %s (residual %s) disagrees with its "
+                  "plain version (max abs err %g)"
+                  % (what, r is not None, max_err(a, b)))
+            strict = strict and close(torch, a, b)
+            errs["%s%s" % (what, "_res" if r is not None else "")] = \
+                max_err(a, b)
+    _, mean, rstd = mxk.layernorm_plain(x, gamma, beta)
+    ms = time_ms(torch, lambda: mxk.layernorm_fused_bwd(x, gamma, mean, rstd,
+                                                        dy), flush)
+    plain_ms = time_ms(torch, lambda: mxk.layernorm_bwd_plain(
+        x, gamma, mean, rstd, dy), flush)
+    m2, r2 = mean.reshape(rows, 1), rstd.reshape(rows, 1)
+    lib_ms = time_ms(torch, lambda: torch.ops.aten.native_layer_norm_backward(
+        dy, x, [cols], m2, r2, gamma, beta, [True, True, True]), flush)
+    # x and dy read, dx written, gamma and the stats read, dgamma/dbeta
+    # written; ~12 flops per element
+    nbytes = 3 * rows * cols * 4 + 3 * cols * 4 + 2 * rows * 4
+    b_ms, b_by = bound(nbytes, 12 * rows * cols)
+    out = {"name": "layernorm_fused_bwd", "route": "cuda",
+           "source": "mxnet_tpu_torch/csrc/layernorm.cu",
+           "replaces": "mxnet_tpu/pallas/layernorm.py:158",
+           "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+    emit({"phase": "kernel", **out, "rows": rows, "cols": cols,
+          "errors": errs, "strict_tolerance_held": strict,
+          "deterministic": True,
+          "library_call": "aten.native_layer_norm_backward"})
+    return out
+
+
+def phase_flash(torch, mxk, dev, flush):
+    """Causal flash attention at the training shape: each kernel against
+    its plain version on the same inputs (rtol 1e-4 / atol 1e-5), and
+    FlashAttentionFn's output and gradients against autograd through
+    the materialised reference.  Returns the three kernel rows."""
+    import torch.nn.functional as F
+    B, H, S, D = 4, 16, 1024, 128
+    sc = 1.0 / D ** 0.5
+    g = torch.Generator(device="cpu").manual_seed(SEED + 5)
+    q, k, v, do = (torch.randn(B, H, S, D, generator=g).to(dev)
+                   for _ in range(4))
+    o, lse = mxk.flash_attention_fwd(q, k, v, scale=sc)
+    o_ref, lse_ref = mxk.flash_attention_fwd_plain(q, k, v, scale=sc)
+    delta = (do * o_ref).sum(-1)
+    dk, dv = mxk.flash_attention_bwd_dkv(q, k, v, do, lse_ref, delta,
+                                         scale=sc)
+    dk_ref, dv_ref = mxk.flash_attention_bwd_dkv_plain(q, k, v, do, lse_ref,
+                                                       delta, scale=sc)
+    dq = mxk.flash_attention_bwd_dq(q, k, v, do, lse_ref, delta, scale=sc)
+    dq_ref = mxk.flash_attention_bwd_dq_plain(q, k, v, do, lse_ref, delta,
+                                              scale=sc)
+    torch.cuda.synchronize()
+    errs = {}
+    for what, a, b in (("out", o, o_ref), ("lse", lse, lse_ref),
+                       ("dk", dk, dk_ref), ("dv", dv, dv_ref),
+                       ("dq", dq, dq_ref)):
+        check(close(torch, a, b), "flash attention %s disagrees with its "
+              "plain version (max abs err %g)" % (what, max_err(a, b)))
+        errs[what] = max_err(a, b)
+    del o_ref, lse_ref, dk_ref, dv_ref, dq_ref
+    # the autograd Function end to end against the reference's autograd
+    ends = []
+    for fn in (mxk.flash_attention, mxk.flash_attention_plain):
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*ins, scale=sc)
+        ends.append([out.detach()] + list(torch.autograd.grad(out, ins, do)))
+        del out, ins
+    for what, a, b in zip(("out", "dq", "dk", "dv"), *ends):
+        check(close(torch, a, b), "FlashAttentionFn %s disagrees with "
+              "autograd through the reference (max abs err %g)"
+              % (what, max_err(a, b)))
+        errs["fn_" + what] = max_err(a, b)
+    del ends
+
+    ms_f = time_ms(torch, lambda: mxk.flash_attention_fwd(q, k, v, scale=sc),
+                   flush)
+    ms_dkv = time_ms(torch, lambda: mxk.flash_attention_bwd_dkv(
+        q, k, v, do, lse, delta, scale=sc), flush)
+    ms_dq = time_ms(torch, lambda: mxk.flash_attention_bwd_dq(
+        q, k, v, do, lse, delta, scale=sc), flush)
+    pl_f = time_ms(torch, lambda: mxk.flash_attention_fwd_plain(
+        q, k, v, scale=sc), flush, reps=20)
+    pl_dkv = time_ms(torch, lambda: mxk.flash_attention_bwd_dkv_plain(
+        q, k, v, do, lse, delta, scale=sc), flush, reps=20)
+    pl_dq = time_ms(torch, lambda: mxk.flash_attention_bwd_dq_plain(
+        q, k, v, do, lse, delta, scale=sc), flush, reps=20)
+    lib_f = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, scale=sc), flush)
+    qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+    o_lib = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True,
+                                           scale=sc)
+    lib_b = time_ms(torch, lambda: torch.autograd.grad(
+        o_lib, (qr, kr, vr), do, retain_graph=True), flush)
+    del o_lib, qr, kr, vr
+    # one causal product over the lower triangle, diagonal included
+    tri = 2.0 * B * H * D * S * (S + 1) / 2
+    io = B * H * S * D * 4
+    rows = []
+    for name, ms, plain_ms, n_prod, nbytes, lib in (
+            ("flash_attention_fwd", ms_f, pl_f, 2, 4 * io + B * H * S * 4,
+             lib_f),
+            ("flash_attention_bwd_dkv", ms_dkv, pl_dkv, 4,
+             6 * io + 2 * B * H * S * 4, lib_b),
+            ("flash_attention_bwd_dq", ms_dq, pl_dq, 3,
+             5 * io + 2 * B * H * S * 4, lib_b)):
+        b_ms, b_by = bound(nbytes, n_prod * tri)
+        rows.append({"name": name, "route": "cuda",
+                     "source": "mxnet_tpu_torch/csrc/flash_attention.cu",
+                     "replaces": "mxnet_tpu/ops/nn.py:744",
+                     "max_abs_err": max(errs.values()), "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": lib})
+    emit({"phase": "flash_fwd", **rows[0], "shape": [B, H, S, D],
+          "scale": sc, "errors": errs,
+          "library_call": "F.scaled_dot_product_attention(is_causal=True)"})
+    emit({"phase": "flash_bwd", "kernels": rows[1:], "shape": [B, H, S, D],
+          "library_call": "autograd backward of F.scaled_dot_product_attention"
+                          " (dq, dk and dv together: the library_ms of both "
+                          "rows)"})
+    return rows
+
+
+# ----------------------------------------------------------------------
+# training through Module.fit
+# ----------------------------------------------------------------------
+class FlatLabels:
+    """An NDArrayIter whose (B, S) label batches are flattened to the
+    (B * S,) next-token targets that SoftmaxOutput over the (B * S,
+    vocab) logits takes."""
+
+    def __init__(self, mx, it):
+        self.mx, self.it = mx, it
+
+    @property
+    def provide_data(self):
+        return self.it.provide_data
+
+    @property
+    def provide_label(self):
+        return [self.mx.io.DataDesc(d.name, (d.shape[0] * d.shape[1],))
+                for d in self.it.provide_label]
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        b = next(self.it)
+        return self.mx.io.DataBatch(
+            data=b.data, pad=b.pad,
+            label=[self.mx.nd.NDArray(x._data.reshape(-1)) for x in b.label])
+
+    def reset(self):
+        self.it.reset()
+
+
+def _token_batches(cfg, n, seed):
+    rng = np.random.RandomState(seed)
+    x = rng.randint(0, cfg["num_classes"], (n, cfg["seq_len"]))
+    return x.astype(np.float32), np.roll(x, -1, axis=1).astype(np.float32)
+
+
+def phase_train(torch, mx, np_params, cfg=FULL, ctx=None):
+    """Module.fit on the full-width model; returns the launch counts of
+    the fit run."""
+    from mxnet_tpu_torch.kernels import LAUNCHES, PLAIN_CALLS, reset_counts
+    from mxnet_tpu_torch.models import transformer
+    from mxnet_tpu_torch.weights import convert_params
+    ctx = ctx or mx.gpu(0)
+    on_card = ctx.device_type == "gpu"
+    B, S = TRAIN["batch"], cfg["seq_len"]
+    x, y = _token_batches(cfg, B * TRAIN["batches"], SEED + 6)
+    t0 = time.perf_counter()
+    mod = mx.Module(transformer.get_symbol(**cfg), context=ctx)
+    mod.bind(data_shapes=[("data", (B, S))],
+             label_shapes=[("softmax_label", (B * S,))])
+    mod.set_params(convert_params(np_params, ctx, cfg), {})
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    sync()
+    setup_s = time.perf_counter() - t0
+    ppl, stamps = [], []
+
+    def per_step(param):
+        sync()
+        stamps.append(time.perf_counter())
+        ppl.append(param.eval_metric.get()[1])
+        param.eval_metric.reset()
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    stamps.append(time.perf_counter())
+    mod.fit(FlatLabels(mx, mx.io.NDArrayIter(x, y, batch_size=B)),
+            num_epoch=TRAIN["epochs"], optimizer="sgd",
+            optimizer_params={"learning_rate": TRAIN["lr"],
+                              "momentum": TRAIN["momentum"]},
+            eval_metric="perplexity", batch_end_callback=per_step)
+    sync()
+    launches, plain = dict(LAUNCHES), dict(PLAIN_CALLS)
+    steps = len(ppl)
+    check(steps == TRAIN["batches"] * TRAIN["epochs"],
+          "train: %d steps ran" % steps)
+    check(all(np.isfinite(ppl)), "train: non-finite loss %s" % ppl)
+    first, last = ppl[0], ppl[-TRAIN["batches"]]      # batch 0, epochs 0, -1
+    check(last < first, "train: the loss on the repeated batch did not fall "
+          "(perplexity %g -> %g)" % (first, last))
+    for name, per in TRAIN_LAUNCHES.items():
+        check(launches[name] == per * steps,
+              "train: %s launched %d times over %d steps (want %d per step)"
+              % (name, launches[name], steps, per))
+    check(not any(plain.values()), "train: plain versions ran on the main "
+          "path: %s" % plain)
+    step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    timed = sorted(step_ms[TRAIN["warmup"]:])
+    p50 = statistics.median(timed)
+    emit({"phase": "train", "config": cfg, "train": TRAIN,
+          "setup_s": setup_s, "steps": steps,
+          "step_ms": step_ms, "step_ms_p50": p50,
+          "tokens_per_s": B * S / (p50 / 1e3),
+          "perplexity": ppl, "loss_first": math.log(first),
+          "loss_last_same_batch": math.log(last),
+          "final_perplexity": ppl[-1],
+          "launches": {k: launches[k] for k in TRAIN_LAUNCHES},
+          "launches_per_step": {k: launches[k] / steps
+                                for k in TRAIN_LAUNCHES},
+          "plain_calls": plain,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9
+          if on_card else None})
+    return launches, steps
+
+
+def phase_train_agreement(torch, mx, cfg=None, ctxs=None):
+    """Gradients after one forward/backward and parameter changes after
+    two SGD steps, card against CPU, from the same numpy weights."""
+    from mxnet_tpu_torch.models import transformer
+    from mxnet_tpu_torch.weights import convert_params
+    cfg = cfg or dict(FULL, num_layers=AGREE["num_layers"],
+                      seq_len=AGREE["seq_len"])
+    ctxs = ctxs or (mx.gpu(0), mx.cpu())
+    B, S, rtol = AGREE["batch"], cfg["seq_len"], AGREE["rtol"]
+    np_params = seeded_params(cfg)
+    x, y = _token_batches(cfg, B, SEED + 7)
+    batch = mx.io.DataBatch(data=[mx.nd.array(x, ctx=mx.cpu())],
+                            label=[mx.nd.array(y.reshape(-1), ctx=mx.cpu())])
+    runs = []
+    for ctx in ctxs:
+        mod = mx.Module(transformer.get_symbol(**cfg), context=ctx)
+        mod.bind(data_shapes=[("data", (B, S))],
+                 label_shapes=[("softmax_label", (B * S,))])
+        mod.set_params(convert_params(np_params, ctx, cfg), {})
+        mod.init_optimizer(optimizer="sgd", optimizer_params={
+            "learning_rate": TRAIN["lr"], "momentum": TRAIN["momentum"]})
+        mod.forward_backward(batch)
+        prob = mod.get_outputs()[0].asnumpy()
+        loss = float(-np.log(prob[np.arange(B * S), y.reshape(-1)
+                                  .astype(int)]).mean())
+        group = mod._exec_group
+        grads = {n: g[0].asnumpy() for n, g in zip(group.param_names,
+                                                   group.grad_arrays)}
+        mod.update()
+        mod.forward_backward(batch)
+        mod.update()
+        moved = {n: v.asnumpy() - np_params[n]
+                 for n, v in mod.get_params()[0].items()}
+        runs.append((loss, grads, moved))
+        del mod
+    (gl, gg, gm), (cl, cg, cm) = runs
+    check(abs(gl - cl) <= rtol * abs(cl), "train_agreement: loss %g on the "
+          "card, %g on the CPU" % (gl, cl))
+    worst = {"grad": {}, "step": {}}
+    for kind, a, b in (("grad", gg, cg), ("step", gm, cm)):
+        for name in b:
+            scale = float(np.abs(b[name]).max())
+            err = float(np.abs(a[name] - b[name]).max())
+            check(err <= rtol * scale, "train_agreement: %s of %s differs "
+                  "by %g (largest CPU value %g)" % (kind, name, err, scale))
+            grp = name.split("_", 1)[1] if name.startswith("layer") else name
+            worst[kind][grp] = max(worst[kind].get(grp, 0.0),
+                                   err / scale if scale else 0.0)
+    emit({"phase": "train_agreement", "config": cfg, "batch": B,
+          "loss_card": gl, "loss_cpu": cl, "rtol": rtol,
+          "worst_rel_err_by_group": worst})
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -437,17 +776,35 @@ def main():
     phase_build()
     flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32,
                         device=dev)     # 256 MB: well past the 50 MB L2
-    kernels = [phase_decode(torch, mxk, dev, flush),
-               phase_chunk(torch, mxk, dev, flush),
-               phase_layernorm(torch, mxk, dev, flush)]
+    serve_kernels = [phase_decode(torch, mxk, dev, flush),
+                     phase_chunk(torch, mxk, dev, flush),
+                     phase_layernorm(torch, mxk, dev, flush)]
+    train_kernels = [phase_layernorm_bwd(torch, mxk, dev, flush)] + \
+        phase_flash(torch, mxk, dev, flush)
     del flush
-    launches = phase_serve(torch, mx)
+    full = seeded_params(FULL)
+    serve_launches, serve_steps = phase_serve(torch, mx, full)
     phase_agreement(torch, mx)
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
+    train_launches, train_steps = phase_train(torch, mx, full)
+    del full
+    phase_train_agreement(torch, mx)
+    # launches: the count of each kernel's main-path run (serve for the
+    # serving kernels, Module.fit for the training ones); LayerNorm's
+    # forward runs on both and carries the train count beside it
+    for k in serve_kernels:
+        k["launches"] = serve_launches[k["name"]]
+        k["launches_per_step"] = serve_launches[k["name"]] / serve_steps
+    serve_kernels[2]["train_launches"] = train_launches["layernorm_fused"]
+    for k in train_kernels:
+        k["launches"] = train_launches[k["name"]]
+        k["launches_per_step"] = train_launches[k["name"]] / train_steps
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    emit({"kernels": [{key: k[key] for key in keys} for k in kernels]})
+    emit({"kernels": [{**{key: k[key] for key in keys},
+                       **{key: k[key] for key in ("launches_per_step",
+                                                  "train_launches")
+                          if key in k}}
+                      for k in serve_kernels + train_kernels]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,10 +1,12 @@
 """mxnet_tpu_torch: the PyTorch/CUDA port of mxnet_tpu for NVIDIA Hopper.
 
 A second package beside ``mxnet_tpu`` (the JAX reference), with the same
-MXNet-shaped API.  This slice serves the decoder-only transformer LM
-through the paged decode engine; the paged decode attention, the
-chunked-prefill attention and LayerNorm run in hand-written CUDA kernels
-(``csrc/``), built for ``sm_90a`` on first use.
+MXNet-shaped API.  It serves the decoder-only transformer LM through the
+paged decode engine, and trains it through ``Module.fit``.  The paged
+decode attention, the chunked-prefill attention, LayerNorm (forward and
+backward) and causal flash attention (forward and backward) run in
+hand-written CUDA kernels (``csrc/``), built for ``sm_90a`` on first
+use.
 
 Entry points run on the card (``gpu(0)``, i.e. ``cuda:0``) unless the
 caller passes ``ctx=mx.cpu()``; with no GPU and no CPU request they
@@ -12,12 +14,18 @@ raise.  On CPU tensors every kernel takes its plain PyTorch version.
 """
 from . import base, context, kernels, ndarray, ops, symbol  # noqa: F401
 from . import decode, models, weights  # noqa: F401
+from . import (callback, initializer, io, metric, model, module,  # noqa: F401
+               optimizer, random)
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu
+from .module import Module
 
 nd = ndarray
 sym = symbol
+init = initializer
+mod = module
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context", "nd",
            "sym", "ndarray", "symbol", "decode", "models", "weights",
-           "kernels"]
+           "kernels", "callback", "init", "initializer", "io", "metric",
+           "model", "module", "mod", "Module", "optimizer", "random"]

@@ -1,13 +1,17 @@
-"""Decoder-only transformer LM: the mixed decode step.
+"""Decoder-only transformer LM (GPT-style, pre-LN): the training
+symbol and the mixed decode step.
 
-Counterpart of ``mxnet_tpu/models/transformer.py``
-``get_mixed_step_symbol``, with the same variable names, so the JAX
-package's parameters bind unchanged (``weights.convert_params`` is a
-checked copy).  Training graphs (``get_symbol``), MoE layers and tensor
-parallelism come with later slices.
+Counterpart of ``mxnet_tpu/models/transformer.py`` ``get_symbol`` and
+``get_mixed_step_symbol``, with the same variable names and ``init=``
+attributes, so the JAX package's parameters bind unchanged in both
+directions (``weights.convert_params`` / ``weights.export_params``) and
+a model trained by the port serves in the port's ``DecodeEngine``.
+MoE layers, tensor parallelism, bf16 and dropout come with later
+slices.
 """
 from __future__ import annotations
 
+from .. import initializer as _init
 from .. import symbol as sym
 from ..base import MXNetError
 
@@ -16,6 +20,72 @@ from ..base import MXNetError
 MIXED_STEP_INPUTS = ("data", "positions", "block_table", "chunk_data",
                      "chunk_positions", "chunk_start", "chunk_len",
                      "chunk_table")
+
+
+def get_symbol(num_classes=16384, num_layers=12, d_model=2048, num_heads=16,
+               ffn_dim=None, seq_len=1024, dtype="float32", dropout=0.0,
+               moe_experts=0, moe_every=2, moe_aux_coeff=0.01,
+               tensor_parallel=None, **kwargs):
+    """The training graph: ``data`` (B, seq_len) token ids through the
+    token and position embeddings, ``num_layers`` pre-LN blocks (LN ->
+    FusedCausalSelfAttention -> residual, LN -> FFN with tanh-GELU ->
+    residual), the final LN and the LM head, ending in SoftmaxOutput
+    (``normalization='batch'``) over the (B * seq_len, vocab) logits
+    with ``softmax_label`` (B * seq_len,) next-token targets.
+    ``num_classes`` is the vocabulary size."""
+    later = []
+    if moe_experts:
+        later.append("MoE layers (moe_experts=%s): the MoE slice" % moe_experts)
+    if tensor_parallel:
+        later.append("tensor_parallel=%r: the multi-GPU slice"
+                     % (tensor_parallel,))
+    if dtype != "float32":
+        later.append("dtype=%r: the bf16 training slice" % (dtype,))
+    if float(dropout) > 0:
+        later.append("dropout=%s: the Dropout op comes with the vision "
+                     "training slice" % dropout)
+    if later:
+        raise MXNetError("transformer.get_symbol: %s; not in the PyTorch "
+                         "port yet (ROADMAP)" % "; ".join(later))
+    vocab = int(num_classes)
+    d = int(d_model)
+    ffn = int(ffn_dim) if ffn_dim else 4 * d
+
+    data = sym.Variable("data")                      # (B, S) token ids
+    tok = sym.Embedding(data, input_dim=vocab, output_dim=d,
+                        name="tok_embed")
+    pos = sym.Variable("pos_embed_weight", shape=(1, int(seq_len), d))
+    x = sym.broadcast_add(tok, pos, name="embed_add")
+
+    for i in range(int(num_layers)):
+        pre = "layer%d_" % i
+        ln1 = sym.LayerNorm(data=x, name=pre + "ln1")
+        proj = sym.contrib.FusedCausalSelfAttention(
+            ln1,
+            sym.Variable(pre + "qkv_weight"),
+            sym.Variable(pre + "qkv_bias", init=_init.Zero()),
+            sym.Variable(pre + "proj_weight"),
+            sym.Variable(pre + "proj_bias", init=_init.Zero()),
+            num_heads=int(num_heads), name=pre + "attn")
+        x = x + proj
+        ln2 = sym.LayerNorm(data=x, name=pre + "ln2")
+        h = sym.FullyConnected(
+            data=ln2, weight=sym.Variable(pre + "ffn_up_weight"),
+            bias=sym.Variable(pre + "ffn_up_bias", init=_init.Zero()),
+            num_hidden=ffn, flatten=False, name=pre + "ffn_up")
+        h = sym.LeakyReLU(data=h, act_type="gelu_tanh", name=pre + "gelu")
+        h = sym.FullyConnected(
+            data=h, weight=sym.Variable(pre + "ffn_down_weight"),
+            bias=sym.Variable(pre + "ffn_down_bias", init=_init.Zero()),
+            num_hidden=d, flatten=False, name=pre + "ffn_down")
+        x = x + h
+
+    x = sym.LayerNorm(data=x, name="ln_f")
+    logits = sym.FullyConnected(data=x, num_hidden=vocab, flatten=False,
+                                name="lm_head")
+    flat = sym.Reshape(data=logits, shape=(-1, vocab), name="logits_2d")
+    return sym.SoftmaxOutput(data=flat, name="softmax",
+                             normalization="batch")
 
 
 def _decode_trunk_vars(pre):

@@ -1,0 +1,6 @@
+"""Module: the mid-level training API (counterpart of
+``mxnet_tpu/module``)."""
+from .base_module import BaseModule
+from .module import Module
+
+__all__ = ["BaseModule", "Module"]

@@ -1,4 +1,4 @@
 """NDArray over torch tensors (counterpart of ``mxnet_tpu/ndarray``)."""
-from .ndarray import NDArray
+from .ndarray import NDArray, array, zeros
 
-__all__ = ["NDArray"]
+__all__ = ["NDArray", "array", "zeros"]

@@ -1,11 +1,14 @@
-"""Neural-network operators of the serving slice.
+"""Neural-network operators of the serving and training slices.
 
 Counterpart of ``mxnet_tpu/ops/nn.py`` for the ops the transformer's
-mixed decode step uses, with the same weight layouts.  The projections
-and the FFN are plain matrix products (``torch.matmul``, as the JAX
-package left them to XLA); LayerNorm and the two paged attentions go
-through the hand-written kernels in ``..kernels``, which take the plain
-PyTorch versions only for tensors on the CPU.
+mixed decode step and training symbol use, with the same weight
+layouts.  The projections and the FFN are plain matrix products
+(``torch.matmul``, as the JAX package left them to XLA); LayerNorm, the
+causal training attention and the two paged attentions go through the
+hand-written kernels in ``..kernels``, which take the plain PyTorch
+versions only for tensors on the CPU.  Gradients are autograd's, with
+``torch.autograd.Function``s where the JAX package had a custom VJP
+(LayerNorm, flash attention, SoftmaxOutput).
 """
 from __future__ import annotations
 
@@ -13,7 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from ..base import MXNetError
-from ..kernels import (layernorm_fused, paged_chunk_prefill_attend,
+from ..kernels import (flash_attention, layernorm, paged_chunk_prefill_attend,
                        paged_decode_attend)
 from .registry import register
 
@@ -37,13 +40,15 @@ def fully_connected(data, weight, bias=None, *, num_hidden, no_bias=False,
           num_visible_outputs=lambda a: 3 if a.get("output_mean_var") else 1)
 def layer_norm(data, gamma, beta, *, axis=-1, eps=1e-5,
                output_mean_var=False):
-    """Layer normalization over the last axis through the fused kernel
-    (``kernels/layernorm.py``).  Returns ``(out, mean, inv_std)``."""
+    """Layer normalization over the last axis through the fused kernels
+    (``kernels/layernorm.py``), differentiable through
+    ``LayerNormFn``.  Returns ``(out, mean, inv_std)``; gradients flow
+    through ``out`` only."""
     if int(axis) % data.dim() != data.dim() - 1:
         raise MXNetError("LayerNorm over a non-last axis is not in the "
                          "PyTorch port yet (axis=%s)" % (axis,))
-    return layernorm_fused(data, gamma.reshape(-1), beta.reshape(-1),
-                           eps=float(eps))
+    return layernorm(data.contiguous(), gamma.reshape(-1), beta.reshape(-1),
+                     eps=float(eps))
 
 
 @register("LeakyReLU")
@@ -64,6 +69,107 @@ def embedding(data, weight, *, input_dim, output_dim, dtype="float32",
               sparse_grad=False):
     """Row gather with ids clipped into range (ref indexing_op.cc)."""
     return weight[data.long().clamp(0, weight.shape[0] - 1)]
+
+
+# ----------------------------------------------------------------------
+# SoftmaxOutput: softmax forward, the reference's fused softmax +
+# cross-entropy gradient backward (src/operator/softmax_output-inl.h)
+# ----------------------------------------------------------------------
+def _softmax_grad(prob, label, attrs):
+    """``ops/nn.py`` ``_softmax_grad`` of the JAX package: (prob -
+    one_hot(label)) with label smoothing, ignored labels masked, then
+    normalised by ``null`` (1), ``batch`` (prob.shape[0]) or ``valid``
+    (the count of labels not ignored), times ``grad_scale``."""
+    if attrs["multi_output"]:
+        caxis, nclass = 1, prob.shape[1]
+    else:
+        caxis, nclass = prob.dim() - 1, prob.shape[-1]
+    lab = label.long()
+    oh = F.one_hot(lab.clamp(0, nclass - 1), nclass).to(prob.dtype)
+    # out-of-range labels (the ignore label -1) one-hot to zeros, as
+    # jax.nn.one_hot gives
+    oh = oh * ((lab >= 0) & (lab < nclass)).unsqueeze(-1).to(prob.dtype)
+    if attrs["multi_output"]:
+        oh = oh.movedim(-1, 1)
+    alpha = attrs["smooth_alpha"]
+    if alpha:
+        oh = oh * (1.0 - alpha) + alpha / (nclass - 1) * (1.0 - oh)
+    grad = prob - oh
+    valid = torch.ones(lab.shape, dtype=prob.dtype, device=prob.device)
+    if attrs["use_ignore"]:
+        valid = (lab != int(attrs["ignore_label"])).to(prob.dtype)
+        grad = grad * valid.unsqueeze(caxis)
+    if attrs["normalization"] == "valid":
+        grad = grad / torch.clamp(valid.sum(), min=1.0)
+    elif attrs["normalization"] == "batch":
+        grad = grad / prob.shape[0]
+    return grad * attrs["grad_scale"]
+
+
+class _SoftmaxOutputFn(torch.autograd.Function):
+    """Softmax forward; the backward ignores the incoming gradient and
+    returns ``_softmax_grad`` (as the reference does unless
+    ``out_grad``)."""
+
+    @staticmethod
+    def forward(ctx, data, label, attrs):
+        prob = torch.softmax(data, dim=1 if attrs["multi_output"] else -1)
+        ctx.save_for_backward(prob, label)
+        ctx.attrs = attrs
+        return prob
+
+    @staticmethod
+    def backward(ctx, _grad):
+        prob, label = ctx.saved_tensors
+        return _softmax_grad(prob, label, ctx.attrs).to(prob.dtype), None, \
+            None
+
+
+@register("SoftmaxOutput", aliases=("Softmax",))
+def softmax_output(data, label, *, grad_scale=1.0, ignore_label=-1.0,
+                   multi_output=False, use_ignore=False, preserve_shape=False,
+                   normalization="null", out_grad=False, smooth_alpha=0.0):
+    """Softmax over the last axis (axis 1 with ``multi_output``), with
+    the fused softmax + cross-entropy gradient as its backward."""
+    if out_grad:
+        raise MXNetError("SoftmaxOutput(out_grad=True) is not in the "
+                         "PyTorch port yet")
+    if normalization not in ("null", "batch", "valid"):
+        raise MXNetError("SoftmaxOutput: unknown normalization %r"
+                         % (normalization,))
+    attrs = dict(grad_scale=float(grad_scale),
+                 ignore_label=float(ignore_label),
+                 multi_output=bool(multi_output), use_ignore=bool(use_ignore),
+                 normalization=normalization, smooth_alpha=float(smooth_alpha))
+    return _SoftmaxOutputFn.apply(data, label, attrs)
+
+
+# ----------------------------------------------------------------------
+# Causal self-attention of the training symbol
+# ----------------------------------------------------------------------
+@register("_contrib_FusedCausalSelfAttention",
+          aliases=("FusedCausalSelfAttention",))
+def fused_causal_self_attention(data, qkv_weight, qkv_bias, proj_weight,
+                                proj_bias, *, num_heads, scale=None,
+                                head_axis=None):
+    """The whole attention sublayer, (B, S, d) -> (B, S, d): the packed
+    (3d, d) QKV projection viewed head-major (rows ``[j*d, (j+1)*d)``
+    are q/k/v, each ordered (head, head_dim), the JAX op's
+    ``qkv_weight.reshape(3, H, D, d)``), causal attention through the
+    flash kernels on (B, H, S, D), and the (d, d) output projection.
+    ``head_axis`` (tensor parallelism) comes with the multi-GPU
+    slice."""
+    if head_axis is not None:
+        raise MXNetError("FusedCausalSelfAttention(head_axis=%r): tensor "
+                         "parallelism comes with the multi-GPU slice of the "
+                         "PyTorch port" % (head_axis,))
+    B, S, d = data.shape
+    H, D, sc = _heads(d, num_heads, scale)
+    qkv = _linear(data, qkv_weight, qkv_bias).view(B, S, 3, H, D)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4).contiguous().unbind(0)
+    o = flash_attention(q, k, v, scale=sc)                  # (B, H, S, D)
+    return _linear(o.transpose(1, 2).reshape(B, S, d), proj_weight,
+                   proj_bias)
 
 
 # ----------------------------------------------------------------------

@@ -31,6 +31,7 @@ def _fc_out(ins, a):
 
 
 def _paged_params(ins, a):
+    """The packed qkv and output projections of the attention ops."""
     d = ins["data"][-1]
     return {"qkv_weight": (3 * d, d), "qkv_bias": (3 * d,),
             "proj_weight": (d, d), "proj_bias": (d,)}
@@ -67,6 +68,10 @@ PARAM_SHAPES = {
                                             a["output_dim"])},
     "_contrib_PagedDecodeAttention": _paged_params,
     "_contrib_PagedChunkPrefillAttention": _paged_params,
+    "_contrib_FusedCausalSelfAttention": _paged_params,
+    "SoftmaxOutput": lambda ins, a: {
+        "label": ins["data"][:1] + ins["data"][2:] if a["multi_output"]
+        else ins["data"][:-1]},
 }
 
 OUT_SHAPES = {
@@ -79,6 +84,8 @@ OUT_SHAPES = {
         lambda ins, a: [ins["data"], ins["k_cache"], ins["v_cache"]],
     "_contrib_PagedChunkPrefillAttention":
         lambda ins, a: [ins["data"], ins["k_cache"], ins["v_cache"]],
+    "_contrib_FusedCausalSelfAttention": lambda ins, a: [ins["data"]],
+    "SoftmaxOutput": lambda ins, a: [ins["data"]],
     "_contrib_GatherTimestep":
         lambda ins, a: [(ins["data"][0], ins["data"][2])],
     "Reshape": _reshape_out,

@@ -1,10 +1,13 @@
 """Symbol: the declarative graph.
 
 Counterpart of ``mxnet_tpu/symbol/symbol.py``, reduced to what the
-serving slice uses: ``Variable``, ``Group``, composition through the
-generated op functions and ``+``/``-``, ``list_arguments``,
-``infer_shape`` and ``simple_bind``.  JSON serialization, attribute
-scopes and control flow come with later slices.
+serving and training slices use: ``Variable`` (with ``init=``,
+``lr_mult`` and ``wd_mult`` stored as the JAX package stores them),
+``Group``, composition through the generated op functions and
+``+``/``-``, ``list_arguments``, ``list_outputs``,
+``list_auxiliary_states``, ``attr_dict``, ``infer_shape`` and
+``simple_bind``.  JSON serialization, attribute scopes, sharding
+annotations and control flow come with later slices.
 """
 from __future__ import annotations
 
@@ -15,14 +18,25 @@ __all__ = ["Symbol", "Variable", "Group"]
 
 
 class _Node:
-    __slots__ = ("op", "name", "attrs", "inputs", "shape")
+    __slots__ = ("op", "name", "attrs", "inputs", "shape", "str_attrs")
 
-    def __init__(self, op, name, attrs, inputs, shape=None):
+    def __init__(self, op, name, attrs, inputs, shape=None, str_attrs=None):
         self.op = op            # OpDef, or None for a variable
         self.name = name
         self.attrs = attrs      # typed op attributes
         self.inputs = inputs    # [(node, out_idx)]
         self.shape = shape      # a variable's declared shape
+        self.str_attrs = str_attrs or {}    # a variable's user attributes
+
+    def output_name(self, idx):
+        """The reference's output naming: a variable's own name,
+        ``{name}_output`` for one visible output, else
+        ``{name}_output{idx}``."""
+        if self.is_var:
+            return self.name
+        if self.op.visible_out_count(self.attrs) == 1:
+            return self.name + "_output"
+        return "%s_output%d" % (self.name, idx)
 
     @property
     def is_var(self):
@@ -57,6 +71,27 @@ class Symbol:
             if node.is_var and node.name not in seen:
                 seen.add(node.name)
                 out.append(node.name)
+        return out
+
+    def list_outputs(self):
+        return [node.output_name(idx) for node, idx in self._entries]
+
+    def list_auxiliary_states(self):
+        """Always empty: no op of the port mutates an auxiliary state
+        yet (BatchNorm's moving statistics come with the vision
+        slice)."""
+        return []
+
+    def attr_dict(self):
+        """``{variable name: {attribute: string}}`` for every variable
+        carrying user attributes (``__init__``, ``__shape__``,
+        ``__lr_mult__``, ``__wd_mult__``, ...), the entries the JAX
+        package's ``attr_dict`` gives for variables.  Op parameters are
+        not listed: the port keeps them typed."""
+        out = {}
+        for node in self._topo():
+            if node.is_var and node.str_attrs:
+                out.setdefault(node.name, {}).update(node.str_attrs)
         return out
 
     def __len__(self):
@@ -107,7 +142,9 @@ class Symbol:
 
     def simple_bind(self, ctx=None, grad_req="null", **shapes):
         """Allocate every argument (float32, zeros) on ``ctx`` from the
-        inferred shapes and return an inference Executor."""
+        inferred shapes and return an Executor.  ``grad_req`` is
+        ``'write'``, ``'add'`` or ``'null'``, one value for every
+        argument or a dict per argument (missing names: ``'null'``)."""
         from ..executor import Executor
         return Executor(self, ctx, grad_req, shapes)
 
@@ -127,17 +164,47 @@ class Symbol:
         return self._binop(o, "broadcast_sub", "_minus_scalar")
 
 
-def Variable(name, shape=None, **kwargs):
-    """A graph input.  ``shape`` declares its shape (the cache
-    variables carry theirs); other keyword attributes of the JAX
-    package (init, sharding annotations) belong to later slices."""
+# sharding annotations: tensor parallelism comes with the multi-GPU slice
+_SHARDING_ATTRS = ("__sharding__",)
+
+
+def Variable(name, attr=None, shape=None, lr_mult=None, wd_mult=None,
+             init=None, **kwargs):
+    """A graph input.  ``shape`` declares its shape (the cache and
+    position variables carry theirs); ``init`` (an Initializer or its
+    ``dumps()`` string), ``lr_mult`` and ``wd_mult`` are stored as the
+    string attributes ``__init__``, ``__lr_mult__`` and ``__wd_mult__``,
+    as the JAX package stores them.  Other attributes must be dunder
+    names; a sharding annotation raises (multi-GPU slice)."""
     if not isinstance(name, str):
         raise TypeError("Variable name must be a string")
-    if kwargs:
-        raise MXNetError("Variable attribute(s) %s are not in the PyTorch "
-                         "port yet" % sorted(kwargs))
+    str_attrs = {k: str(v) for k, v in (attr or {}).items()}
+    for key in ("lr_mult", "wd_mult"):       # mirrored as in the JAX package
+        if key in str_attrs:
+            str_attrs.setdefault("__%s__" % key, str_attrs[key])
+    bad = [k for k in kwargs if not (k.startswith("__") and k.endswith("__"))]
+    if bad:
+        raise MXNetError("Variable attribute(s) %s are not supported; "
+                         "additional attributes must be __dunder__ names"
+                         % sorted(bad))
+    str_attrs.update({k: str(v) for k, v in kwargs.items()})
+    tp = [k for k in str_attrs if k in _SHARDING_ATTRS]
+    if tp:
+        raise MXNetError("Variable %s: sharding annotation(s) %s come with "
+                         "the multi-GPU slice of the PyTorch port"
+                         % (name, tp))
+    if shape is not None:
+        str_attrs["__shape__"] = str(tuple(shape))
+    if lr_mult is not None:
+        str_attrs["__lr_mult__"] = str(lr_mult)
+    if wd_mult is not None:
+        str_attrs["__wd_mult__"] = str(wd_mult)
+    if init is not None:
+        str_attrs["__init__"] = init if isinstance(init, str) \
+            else init.dumps()
     return Symbol([(_Node(None, name, {}, [],
-                          tuple(shape) if shape is not None else None), 0)])
+                          tuple(shape) if shape is not None else None,
+                          str_attrs), 0)])
 
 
 def Group(symbols):

@@ -1,12 +1,15 @@
-"""Parameters from the JAX package (or any name -> numpy dict) onto a
-device.
+"""Parameters between the JAX package (or any name -> numpy dict) and
+a device, in both directions.
 
 Both packages use MXNet's parameter names and layouts (FullyConnected
-weights ``(num_hidden, in_dim)``, the packed qkv ``(3d, d)``), so the
-conversion is a checked copy: every parameter the mixed decode step
-binds must be present with the shape the symbol infers, and each is
-copied as float32 onto the context.  Extra names (optimizer state,
-training-only heads) are ignored.
+weights ``(num_hidden, in_dim)``, the packed qkv ``(3d, d)``), and the
+training symbol (``transformer.get_symbol``) binds the same parameter
+set as the mixed decode step.  So ``convert_params`` is a checked copy
+(every parameter must be present with the shape the symbol infers; each
+is copied as float32 onto the context; extra names such as optimizer
+state are ignored), and ``export_params`` turns the port's parameters
+back into numpy under the same names: a model trained by the port loads
+into the JAX package and into the port's ``DecodeEngine``.
 """
 from __future__ import annotations
 
@@ -16,12 +19,13 @@ import torch
 from .base import MXNetError
 from .ndarray.ndarray import NDArray
 
-__all__ = ["convert_params", "param_shapes"]
+__all__ = ["convert_params", "export_params", "param_shapes"]
 
 
 def param_shapes(model_config):
     """``{name: shape}`` of every parameter of the mixed decode step for
-    ``model_config`` (the ``transformer`` kwargs)."""
+    ``model_config`` (the ``transformer`` kwargs); the training symbol
+    binds the same set."""
     from .models import transformer
     cfg = {k: v for k, v in model_config.items() if k != "dropout"}
     msym = transformer.get_mixed_step_symbol(block_size=1, num_blocks=1,
@@ -61,3 +65,14 @@ def convert_params(np_params, ctx, model_config):
     dev = ctx.torch_device
     return {n: NDArray(torch.from_numpy(_np.ascontiguousarray(a)).to(dev))
             for n, a in arrays.items()}
+
+
+def export_params(params):
+    """``{name: float32 numpy array}`` from the port's parameters (a
+    dict of NDArrays or tensors on any device, such as
+    ``Module.get_params()[0]``)."""
+    out = {}
+    for name, v in params.items():
+        t = v._data if isinstance(v, NDArray) else v
+        out[name] = t.detach().float().cpu().numpy()
+    return out

@@ -1,5 +1,5 @@
-"""PyTorch port: the three kernels' plain versions against the JAX
-package's Pallas kernels.
+"""PyTorch port: the kernels' plain versions against the JAX package's
+Pallas kernels (and, for causal attention, its XLA reference path).
 
 Each case makes its inputs with a seeded numpy RandomState, runs the JAX
 kernel the way the JAX suite runs it on the CPU (Pallas interpret mode,
@@ -13,14 +13,17 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
+from mxnet_tpu.ops.registry import get_op as jget_op
 from mxnet_tpu.pallas import (layernorm_fused as jax_layernorm,
                               paged_chunk_prefill_attend as jax_chunk,
                               paged_decode_attend as jax_decode)
 from mxnet_tpu_torch.base import MXNetError
-from mxnet_tpu_torch.kernels import (LAUNCHES, PLAIN_CALLS, layernorm_fused,
-                                     paged_chunk_prefill_attend,
+from mxnet_tpu_torch.kernels import (LAUNCHES, PLAIN_CALLS, flash_attention,
+                                     flash_attention_plain, layernorm,
+                                     layernorm_fused, paged_chunk_prefill_attend,
                                      paged_decode_attend, reset_counts)
 
 RTOL, ATOL = 2e-5, 1e-6
@@ -184,6 +187,86 @@ def test_layernorm_matches_pallas(shape, with_res):
         assert a.shape == r.shape
         np.testing.assert_allclose(a.numpy(), np.asarray(r), rtol=RTOL,
                                    atol=ATOL)
+
+
+@pytest.mark.parametrize("shape,with_res", [((6, 40), False),
+                                            ((6, 40), True),
+                                            ((3, 5, 130), True),
+                                            ((13, 2048), False)])
+def test_layernorm_backward_matches_pallas(monkeypatch, shape, with_res):
+    """dx, dgamma, dbeta and dres of the port's LayerNormFn (its backward
+    is layernorm_bwd_plain on CPU tensors) against jax.vjp of the Pallas
+    kernel pair in interpret mode; rows not a multiple of 8, features
+    not a multiple of 128.  dgamma/dbeta sum over the rows in another
+    order: the f32 bound holds at these row counts."""
+    monkeypatch.setenv("MXNET_LN_IMPL", "pallas")
+    rng = np.random.RandomState(12)
+    x = (rng.randn(*shape) * 2 + 0.5).astype(np.float32)
+    res = rng.randn(*shape).astype(np.float32) if with_res else None
+    g = rng.randn(shape[-1]).astype(np.float32)
+    b = rng.randn(shape[-1]).astype(np.float32)
+    dy = rng.randn(*shape).astype(np.float32)
+
+    def f(x, g, b, *r):
+        return jax_layernorm(x, g, b, residual=r[0] if r else None,
+                             eps=1e-5)[0]
+
+    jargs = [jnp.asarray(a) for a in (x, g, b) + ((res,) if with_res else ())]
+    _, vjp = jax.vjp(f, *jargs)
+    ref = vjp(jnp.asarray(dy))
+
+    targs = [_t(a).requires_grad_() for a in (x, g, b)
+             + ((res,) if with_res else ())]
+    reset_counts()
+    out = layernorm(*targs[:3], residual=targs[3] if with_res else None,
+                    eps=1e-5)[0]
+    got = torch.autograd.grad(out, targs, _t(dy))
+    assert PLAIN_CALLS["layernorm_fused_bwd"] == 1
+    for a, r in zip(got, ref):
+        assert a.shape == r.shape
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), rtol=RTOL,
+                                   atol=ATOL)
+
+
+def _jax_causal_attention(q, k, v, scale):
+    """The JAX package's XLA attention path (what ``_use_flash_attention``
+    picks off a TPU), through ``_contrib_CausalSelfAttention`` on the
+    packed (B, S, 3d) layout; (B, H, S, D) in and out."""
+    B, H, S, D = q.shape
+    pack = lambda t: t.transpose(0, 2, 1, 3).reshape(B, S, H * D)
+    qkv = jnp.concatenate([pack(q), pack(k), pack(v)], axis=-1)
+    o = jget_op("_contrib_CausalSelfAttention").fn(qkv, num_heads=H,
+                                                   scale=scale)
+    return o.reshape(B, S, H, D).transpose(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("B,H,S,D", [(2, 2, 16, 8), (1, 3, 23, 16),
+                                     (2, 1, 65, 4)])
+def test_flash_attention_matches_jax(B, H, S, D):
+    """Forward and dq/dk/dv of the port's causal attention against
+    jax.vjp of the JAX package's XLA path, for both the reference
+    (flash_attention_plain, autograd's backward) and FlashAttentionFn,
+    whose forward and two backward wrappers take their plain versions
+    on CPU tensors; odd S and S past one 64-row tile.  rtol 2e-5 /
+    atol 1e-6, the reference's own bound."""
+    rng = np.random.RandomState(B * 100 + S)
+    q, k, v, do = (_rand(rng, B, H, S, D) for _ in range(4))
+    sc = 1.0 / np.sqrt(D)
+    ref_o, vjp = jax.vjp(lambda q, k, v: _jax_causal_attention(q, k, v, sc),
+                         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    ref = (ref_o,) + vjp(jnp.asarray(do))
+    reset_counts()
+    for fn in (flash_attention_plain, flash_attention):
+        ins = [_t(a).requires_grad_() for a in (q, k, v)]
+        out = fn(*ins, scale=sc)
+        got = (out,) + torch.autograd.grad(out, ins, _t(do))
+        for a, r in zip(got, ref):
+            np.testing.assert_allclose(a.detach().numpy(), np.asarray(r),
+                                       rtol=RTOL, atol=ATOL)
+    assert PLAIN_CALLS["flash_attention_fwd"] == 1
+    assert PLAIN_CALLS["flash_attention_bwd_dkv"] == 1
+    assert PLAIN_CALLS["flash_attention_bwd_dq"] == 1
+    assert not any(LAUNCHES.values())
 
 
 # ----------------------------------------------------------------------

@@ -257,3 +257,92 @@ def test_mixed_step_matches_jax(pallas):
     np.testing.assert_array_equal(got[3], ref[3])
     for g, r in zip(got[4:], ref[4:]):
         np.testing.assert_allclose(g, r, rtol=RTOL, atol=ATOL)
+
+
+# ----------------------------------------------------------------------
+# the training slice's ops, values and gradients
+# ----------------------------------------------------------------------
+def _jax_vjp(fn, ins, ct):
+    import jax
+    out, vjp = jax.vjp(fn, *(jnp.asarray(a) for a in ins))
+    return out, vjp(jnp.asarray(ct))
+
+
+def _port_vjp(fn, ins, ct, n_diff=None):
+    ts = [_t(a).requires_grad_() for a in ins[:n_diff]] + \
+        [_t(a) for a in ins[len(ins[:n_diff]):]]
+    out = fn(*ts)
+    return out, torch.autograd.grad(out, ts[:n_diff], _t(ct))
+
+
+@pytest.mark.parametrize("normalization,use_ignore",
+                         [("null", False), ("batch", False),
+                          ("valid", False), ("valid", True),
+                          ("batch", True)])
+def test_softmax_output_matches_jax(normalization, use_ignore):
+    """Forward probabilities and the data gradient (the fused softmax +
+    cross-entropy gradient, which ignores the incoming one) against the
+    JAX op; the labels include the ignore label -1 twice."""
+    rng = np.random.RandomState(17)
+    data = _rand(rng, 9, 7) * 3
+    label = rng.randint(0, 7, 9).astype(np.float32)
+    label[[2, 5]] = -1.0
+    ct = _rand(rng, 9, 7)                     # ignored by both
+    attrs = dict(normalization=normalization, use_ignore=use_ignore,
+                 grad_scale=1.5)
+    ref, (rd, _) = _jax_vjp(
+        lambda d, l: jnn.softmax_output(d, l, **attrs), [data, label], ct)
+    got, (gd,) = _port_vjp(
+        lambda d, l: nn.softmax_output(d, l, **attrs), [data, label], ct,
+        n_diff=1)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(gd.numpy(), np.asarray(rd), rtol=RTOL,
+                               atol=ATOL)
+
+
+def test_fused_causal_self_attention_op_matches_jax():
+    """The attention sublayer (qkv projection, causal attention through
+    the flash wrappers' plain versions, output projection): output and
+    the gradients of data and all four weights against jax.vjp of the
+    JAX op (its XLA path on the CPU).  The weight gradients are sums
+    over the B * S = 22 rows in another order, so their absolute bound
+    is 4e-6 (a few f32 ulps of the O(1) terms); values and the data
+    gradient hold the f32 bound."""
+    rng = np.random.RandomState(23)
+    B, S, d, H = 2, 11, 16, 4
+    ins = [_rand(rng, B, S, d)] + _weights(rng, d)
+    ct = _rand(rng, B, S, d)
+    ref, rgrads = _jax_vjp(
+        lambda *a: jnn.fused_causal_self_attention(*a, num_heads=H), ins, ct)
+    got, grads = _port_vjp(
+        lambda *a: nn.fused_causal_self_attention(*a, num_heads=H), ins, ct)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(grads[0].numpy(), np.asarray(rgrads[0]),
+                               rtol=RTOL, atol=ATOL)
+    for a, r in zip(grads[1:], rgrads[1:]):
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), rtol=RTOL,
+                                   atol=4e-6)
+
+
+def test_fused_causal_self_attention_rejects_head_axis():
+    rng = np.random.RandomState(1)
+    ins = [_t(_rand(rng, 1, 4, 8))] + [_t(a) for a in _weights(rng, 8)]
+    with pytest.raises(mx.MXNetError, match="multi-GPU"):
+        nn.fused_causal_self_attention(*ins, num_heads=2, head_axis="mp")
+
+
+def test_layernorm_op_gradients_match_jax(pallas):
+    """The LayerNorm op's data, gamma and beta gradients against the
+    JAX op routed through its Pallas kernel pair (interpret mode)."""
+    rng = np.random.RandomState(29)
+    ins = [_rand(rng, 2, 5, 24) * 3, _rand(rng, 24), _rand(rng, 24)]
+    ct = _rand(rng, 2, 5, 24)
+    ref, rgrads = _jax_vjp(lambda *a: jnn.layer_norm(*a)[0], ins, ct)
+    got, grads = _port_vjp(lambda *a: nn.layer_norm(*a)[0], ins, ct)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref),
+                               rtol=RTOL, atol=ATOL)
+    for a, r in zip(grads, rgrads):
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), rtol=RTOL,
+                                   atol=ATOL)

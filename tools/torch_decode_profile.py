@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Where the time of one mixed decode step goes, on the GPU.
+"""Where the time of one mixed decode step, or of one training step,
+goes on the GPU.
 
-    python3 tools/torch_decode_profile.py
+    python3 tools/torch_decode_profile.py            # decode steps
+    python3 tools/torch_decode_profile.py --train    # one Module.fit step
 
 Builds the PyTorch port's DecodeEngine at chip_smoke.py's full-width
 configuration (same seeded weights and geometry), then drives its bound
@@ -16,6 +18,13 @@ mixed step directly from this thread in two forms: a decode-only step
 * the host time to enqueue one step (forward without synchronizing),
   and the calls in one forward that synchronize the host with the
   device (``torch.cuda.set_sync_debug_mode``).
+
+With ``--train`` it instead binds chip_smoke.py's full-width training
+Module (same seeded weights, batch 4 x 1024 tokens, SGD with momentum),
+runs two warm-up steps (forward, backward, update) and prints one JSON
+line with the wall time of a step (median of 5, ending in a
+synchronize), the device time per step by kernel group over 3
+profiled steps and the device's idle share.
 
 Needs one CUDA device; exits non-zero without one.
 """
@@ -36,6 +45,10 @@ def group(name):
     for key, label in (("paged_decode", "paged_decode_attend"),
                        ("paged_chunk", "paged_chunk_prefill_attend"),
                        ("layernorm_fwd", "layernorm_fused"),
+                       ("layernorm_bwd", "layernorm_fused_bwd"),
+                       ("flash_fwd", "flash_attention_fwd"),
+                       ("flash_bwd_dkv", "flash_attention_bwd_dkv"),
+                       ("flash_bwd_dq", "flash_attention_bwd_dq"),
                        ("gemm", "matmul"), ("gemv", "matmul"),
                        ("sm90", "matmul"), ("cutlass", "matmul"),
                        ("memcpy", "copies"), ("memset", "copies"),
@@ -44,6 +57,65 @@ def group(name):
         if key in n:
             return label
     return "elementwise/other"
+
+
+def device_ms_by_group(torch, prof, n):
+    """``({group: device ms per step}, kernel launches)`` of a profile
+    over ``n`` steps."""
+    by_group, kernels = {}, 0
+    for ev in prof.key_averages():
+        dt = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0))
+        if dt and ev.device_type == torch.autograd.DeviceType.CUDA:
+            g = group(ev.key)
+            by_group[g] = by_group.get(g, 0.0) + dt / 1e3 / n
+            kernels += ev.count
+    return by_group, kernels
+
+
+def profile_train(torch, cs, mx):
+    from mxnet_tpu_torch.models import transformer
+    from mxnet_tpu_torch.weights import convert_params
+    from torch.profiler import ProfilerActivity, profile
+    cfg, B = cs.FULL, cs.TRAIN["batch"]
+    S = cfg["seq_len"]
+    mod = mx.Module(transformer.get_symbol(**cfg), context=mx.gpu(0))
+    mod.bind(data_shapes=[("data", (B, S))],
+             label_shapes=[("softmax_label", (B * S,))])
+    mod.set_params(convert_params(cs.seeded_params(cfg), mx.gpu(0), cfg), {})
+    mod.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": cs.TRAIN["lr"], "momentum": cs.TRAIN["momentum"]})
+    x, y = cs._token_batches(cfg, B, cs.SEED + 6)
+    batch = mx.io.DataBatch(data=[mx.nd.array(x, ctx=mx.cpu())],
+                            label=[mx.nd.array(y.reshape(-1), ctx=mx.cpu())])
+
+    def step():
+        mod.fit_step(batch)
+        torch.cuda.synchronize()
+
+    for _ in range(2):
+        step()
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        step()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    n = 3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
+    by_group, kernels = device_ms_by_group(torch, prof, n)
+    device_ms = sum(by_group.values())
+    wall = statistics.median(walls)
+    print(json.dumps({
+        "phase": "profile", "step": "train", "config": cfg, "batch": B,
+        "wall_ms_p50": wall, "wall_ms": walls, "device_ms": device_ms,
+        "device_idle_share": 1 - device_ms / wall,
+        "device_ms_by_group": {k: round(v, 4) for k, v in
+                               sorted(by_group.items(),
+                                      key=lambda kv: -kv[1])},
+        "device_launches_per_step": kernels / n}), flush=True)
 
 
 def main():
@@ -60,6 +132,9 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     cs.phase_device(torch)
+    if "--train" in sys.argv[1:]:
+        profile_train(torch, cs, mx)
+        return 0
     eng = DecodeEngine(convert_params(cs.seeded_params(cs.FULL), mx.gpu(0),
                                       cs.FULL), cs.FULL, ctx=mx.gpu(0),
                        start=False, warmup=True, **cs.GEOMETRY)
@@ -106,15 +181,7 @@ def main():
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 step()
-        by_group = {}
-        kernels = 0
-        for ev in prof.key_averages():
-            dt = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0))
-            if dt and ev.device_type == torch.autograd.DeviceType.CUDA:
-                g = group(ev.key)
-                by_group[g] = by_group.get(g, 0.0) + dt / 1e3 / n
-                kernels += ev.count
+        by_group, kernels = device_ms_by_group(torch, prof, n)
         device_ms = sum(by_group.values())
         wall = statistics.median(walls)
         print(json.dumps({
