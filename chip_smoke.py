@@ -46,12 +46,40 @@ Phases, each printed as one JSON line:
    same numpy weights on the card and on the CPU: the loss, every
    parameter's gradient after one forward/backward and every
    parameter's change after 2 SGD steps agree within 1e-3 of the CPU's
-   largest value of that quantity.
+   largest value of that quantity;
+9. quant: the 2-bit quantizer against its plain version, bit for bit
+   (int32 views, so NaN and -0.0 count) at the lengths of ``QUANT``, a
+   4-byte-offset view and the edge values (NaN, +-inf, -0.0, sums at
+   +-t and one ulp either side), thresholds 0.5 and 0.1; timed at a full
+   4 MiB bucket and at ResNet-50's largest array (16 bytes per element
+   over 3.35 TB/s bound it);
+10. kvstore: the same numpy gradient streams (3 per key, 4 steps, the
+   shapes of ``KV``, one key above the 4 MiB bucket cap) through a
+   2-bit store on the card and one on the CPU: with no updater the
+   pulled values and residuals are bit-identical, card against CPU and
+   bucketed against eager; with SGD they agree within rtol/atol 5e-7;
+11. train_resnet: ResNet-50 v2 (3x224x224, 1000 classes, seeded weights
+   and BatchNorm statistics) through ``Module.fit`` with
+   ``mx.kv.create('device')``, batch 128, two fixed synthetic batches
+   for 5 epochs (SGD, learning rate 0.05, momentum 0.9, wd 1e-4,
+   accuracy metric), a dense arm (the loss must be finite and fall on
+   the repeated batch, the quantizer never runs) and a 2-bit arm
+   (threshold 0.5: each step launches the quantizer once per bucket the
+   engine dispatched, the same count every step after the first, the
+   flat residuals stay finite, no plain version runs); step p50,
+   images/s, peak memory and buckets per step are printed;
+12. resnet_agreement: ResNet-18 (7x7 stem and max-pool) at 3x64x64, 10
+   classes, batch 4, card against CPU from the same numpy weights: loss
+   (rtol 1e-3), every gradient and moving statistic after the train
+   forward (within 1e-3 and 1e-4 of the CPU's largest value of each),
+   and one 2-bit update at the median |g|: q equal wherever the CPU's
+   |g| lies farther than 1e-4 t from t, the elements inside that band
+   counted and under 1e-4 of all.
 
 Then the kernels' JSON line, and last ``{"ok": true, "device": ...}``.
 Any failed check raises, so the script exits non-zero and prints no
 result; it also exits non-zero when no CUDA device is present.
-TF32 is off for every matrix product.
+TF32 is off for every matrix product and convolution.
 """
 import json
 import math
@@ -78,6 +106,24 @@ AGREE = dict(num_layers=2, seq_len=256, batch=2, rtol=1e-3)
 TRAIN_LAUNCHES = {"layernorm_fused": 25, "layernorm_fused_bwd": 25,
                   "flash_attention_fwd": 12, "flash_attention_bwd_dkv": 12,
                   "flash_attention_bwd_dq": 12}
+# the 2-bit quantizer: lengths checked bit for bit (0 to a 4 MiB bucket,
+# ResNet-50's largest array, an odd length) and the two timed
+QUANT = dict(lengths=(0, 1, 7, 1048576, 2359296, 1000003),
+             timed=(1048576, 2359296), thresholds=(0.5, 0.1))
+# card store against CPU store: tests/test_kvstore_fused.py's shapes plus
+# one key above the 4 MiB bucket cap
+KV = dict(shapes=[(64, 32), (128,), (3, 3, 8, 8), (500, 10), (7,),
+                  (1100, 1000)], streams=3, steps=4, threshold=0.1,
+          sgd=dict(learning_rate=0.05, momentum=0.9, wd=1e-4,
+                   rescale_grad=0.5), rtol=5e-7, atol=5e-7)
+# ResNet-50 v2 through Module.fit: common/fit.py's batch and the repo's
+# compressed-training configuration (bench.py bench_checkpoint)
+RESNET = dict(num_classes=1000, num_layers=50, image_shape=(3, 224, 224))
+RESNET_TRAIN = dict(batch=128, lr=0.05, momentum=0.9, wd=1e-4, batches=2,
+                    epochs=5, warmup=2, threshold=0.5)
+RESNET_AGREE = dict(num_classes=10, num_layers=18, image_shape=(3, 64, 64),
+                    batch=4, loss_rtol=1e-3, grad_rtol=1e-3, aux_rtol=1e-4,
+                    band=1e-4, band_share=1e-4)
 
 
 class SmokeFailure(RuntimeError):
@@ -759,6 +805,376 @@ def phase_train_agreement(torch, mx, cfg=None, ctxs=None):
           "worst_rel_err_by_group": worst})
 
 
+# ----------------------------------------------------------------------
+# the 2-bit quantizer and the kvstore
+# ----------------------------------------------------------------------
+def _bits(torch, t):
+    return t.contiguous().view(torch.int32)
+
+
+def phase_quant(torch, mxk, dev, flush):
+    """two_bit_quantize_fused against its plain version on the card, bit
+    for bit (int32 views, so NaN and -0.0 count): the lengths of QUANT,
+    a view at a 4-byte offset, and the edge values (NaN, +-inf, -0.0,
+    sums exactly at +-t and one ulp either side), at both thresholds;
+    then the times of the two timed lengths."""
+    g = torch.Generator(device="cpu").manual_seed(SEED + 8)
+    cases = 0
+    for t in QUANT["thresholds"]:
+        t32 = np.float32(t)
+        up = float(np.nextafter(t32, np.float32(np.inf)))
+        dn = float(np.nextafter(t32, np.float32(0)))
+        edge = torch.tensor([float("nan"), float("inf"), -float("inf"), -0.0,
+                             0.0, float(t32), -float(t32), up, -up, dn, -dn],
+                            device=dev)
+        zero = torch.zeros_like(edge)
+        ins = [(zero, edge), (edge, zero), (edge, edge)]
+        for n in QUANT["lengths"]:
+            ins.append(tuple((torch.randn(n, generator=g) * t).to(dev)
+                             for _ in range(2)))
+        base = (torch.randn(2, 1001, generator=g) * t).to(dev)
+        ins.append((base[0, 1:], base[1, 1:]))          # 4-byte offset
+        for r, gr in ins:
+            got = mxk.two_bit_quantize_fused(r, gr, t)
+            ref = mxk.two_bit_quantize_plain(r, gr, t)
+            torch.cuda.synchronize()
+            check(all(torch.equal(_bits(torch, a), _bits(torch, b))
+                      for a, b in zip(got, ref)),
+                  "two_bit_quantize_fused (n %d, threshold %g) differs from "
+                  "its plain version" % (r.numel(), t))
+            cases += 1
+    per_len = []
+    for n in QUANT["timed"]:
+        r, gr = ((torch.randn(n, generator=g) * 0.5).to(dev) for _ in range(2))
+        ms = time_ms(torch, lambda: mxk.two_bit_quantize_fused(r, gr, 0.5),
+                     flush)
+        plain_ms = time_ms(torch, lambda: mxk.two_bit_quantize_plain(
+            r, gr, 0.5), flush)
+        # r and g read, q and the new residual written; 4 ops per element
+        b_ms, b_by = bound(16 * n, 4 * n)
+        row = {"n": n, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+               "bound_by": b_by}
+        emit({"phase": "kernel", "name": "two_bit_quantize_fused", **row})
+        per_len.append(row)
+    mean = {k: statistics.mean(s[k] for s in per_len)
+            for k in ("ms", "plain_ms", "bound_ms")}
+    emit({"phase": "quant", "cases_bit_identical": cases,
+          "lengths": list(QUANT["lengths"]),
+          "thresholds": list(QUANT["thresholds"])})
+    return {"name": "two_bit_quantize_fused", "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/quant.cu",
+            "replaces": "mxnet_tpu/pallas/quant.py:44", "max_abs_err": 0.0,
+            "bound_by": per_len[0]["bound_by"], "library_ms": None, **mean}
+
+
+def _kv_run(mx, ctx, bucketed, updater):
+    """KV's gradient streams through a 2-bit device store on ``ctx``:
+    the pulled values and the per-(key, stream) residuals, as numpy."""
+    kv = mx.kv.create("device")
+    kv.set_bucketing(bucketed)
+    kv.set_gradient_compression({"type": "2bit",
+                                 "threshold": KV["threshold"]})
+    if updater:
+        kv.set_optimizer(mx.optimizer.SGD(**KV["sgd"]))
+    keys = ["p%d" % i for i in range(len(KV["shapes"]))]
+    rng = np.random.RandomState(SEED + 9)
+    for k, s in zip(keys, KV["shapes"]):
+        kv.init(k, mx.nd.array(rng.normal(0, 1, s), ctx=ctx))
+    r = np.random.RandomState(SEED + 10)
+    for _ in range(KV["steps"]):
+        grads = [[mx.nd.array(r.normal(0, 0.3, s), ctx=ctx)
+                  for _ in range(KV["streams"])] for s in KV["shapes"]]
+        kv.push(keys, grads, priority=[-i for i in range(len(keys))])
+    outs = [mx.nd.zeros(s, ctx=ctx) for s in KV["shapes"]]
+    kv.pull(keys, out=outs)
+    if kv._engine is not None:
+        kv._engine.spill_residuals()
+    res = {k: v.asnumpy() for k, v in kv._compression_residuals.items()}
+    stats = dict(kv._engine.stats) if kv._engine is not None else None
+    return [o.asnumpy() for o in outs], res, stats
+
+
+def phase_kvstore(torch, mx):
+    """The same numpy gradient streams through a store on the card and
+    one on the CPU: with no updater the pulled values and the residuals
+    are bit-identical, card against CPU and bucketed against eager on
+    the card; with SGD they agree within KV's rtol/atol (FMA contraction
+    in the update)."""
+    from mxnet_tpu_torch.kernels import LAUNCHES, reset_counts
+    reset_counts()
+    card, card_res, stats = _kv_run(mx, mx.gpu(0), True, False)
+    launches = LAUNCHES["two_bit_quantize_fused"]
+    check(launches == KV["streams"] * stats["buckets"],
+          "kvstore: %d quantize launches for %d buckets of %d streams"
+          % (launches, stats["buckets"], KV["streams"]))
+    eager, eager_res, _ = _kv_run(mx, mx.gpu(0), False, False)
+    cpu, cpu_res, _ = _kv_run(mx, mx.cpu(), True, False)
+    for what, (a, ar), (b, br) in (
+            ("card vs CPU", (card, card_res), (cpu, cpu_res)),
+            ("bucketed vs eager", (card, card_res), (eager, eager_res))):
+        check(sorted(ar) == sorted(br), "kvstore %s: residual keys differ"
+              % what)
+        check(all(np.array_equal(x.view(np.int32), y.view(np.int32))
+                  for x, y in zip(a, b))
+              and all(np.array_equal(ar[k].view(np.int32),
+                                     br[k].view(np.int32)) for k in ar),
+              "kvstore %s: values or residuals not bit-identical" % what)
+    sgd_card, sgd_res, _ = _kv_run(mx, mx.gpu(0), True, True)
+    sgd_cpu, sgd_cpu_res, _ = _kv_run(mx, mx.cpu(), True, True)
+    worst = 0.0
+    for a, b in zip(sgd_card, sgd_cpu):
+        check(np.allclose(a, b, rtol=KV["rtol"], atol=KV["atol"]),
+              "kvstore SGD: card and CPU differ by %g"
+              % float(np.abs(a - b).max()))
+        worst = max(worst, float(np.abs(a - b).max()))
+    emit({"phase": "kvstore", "shapes": KV["shapes"],
+          "streams": KV["streams"], "steps": KV["steps"],
+          "threshold": KV["threshold"], "buckets": stats["buckets"],
+          "flushes": stats["flushes"], "quantize_launches": launches,
+          "no_updater_bit_identical": True,
+          "sgd_max_abs_diff": worst,
+          "sgd_residuals_bit_identical": all(
+              np.array_equal(sgd_res[k].view(np.int32),
+                             sgd_cpu_res[k].view(np.int32))
+              for k in sgd_res)})
+
+
+# ----------------------------------------------------------------------
+# ResNet training through Module.fit
+# ----------------------------------------------------------------------
+def seeded_resnet_params(sym, batch, image):
+    """Random weights and BatchNorm statistics from a numpy seed, one
+    stream per name: He-normal convolution and FC weights (fan-in),
+    gammas 1 + N(0, 0.1), betas and biases N(0, 0.1) and 0, moving means
+    N(0, 0.1), moving variances 1 + |N(0, 0.1)|."""
+    from mxnet_tpu_torch.weights import symbol_shapes
+    args, auxs = symbol_shapes(sym, data=(batch,) + tuple(image),
+                               softmax_label=(batch,))
+    out = ({}, {})
+    for i, shapes in enumerate((args, auxs)):
+        for name, shape in shapes.items():
+            rng = np.random.default_rng([SEED, zlib.crc32(name.encode())])
+            z = rng.standard_normal(shape, dtype=np.float32)
+            if name.endswith("_weight"):
+                a = z * np.float32(np.sqrt(2.0 / np.prod(shape[1:])))
+            elif name.endswith("_gamma"):
+                a = 1 + z * np.float32(0.1)
+            elif name.endswith("_bias"):
+                a = np.zeros(shape, np.float32)
+            elif name.endswith("_var"):
+                a = 1 + np.abs(z) * np.float32(0.1)
+            else:                                # betas, moving means
+                a = z * np.float32(0.1)
+            out[i][name] = a
+    return out
+
+
+def _image_batches(image, n, seed, classes):
+    """common/fit.py's synthetic data: uniform(-1, 1) images and random
+    labels."""
+    rng = np.random.RandomState(seed)
+    return (rng.uniform(-1, 1, (n,) + tuple(image)).astype(np.float32),
+            rng.randint(0, classes, n).astype(np.float32))
+
+
+def phase_train_resnet(torch, mx, ctx=None, cfg=RESNET, train=RESNET_TRAIN):
+    """ResNet-50 through Module.fit with mx.kv.create('device'), a dense
+    arm and a 2-bit arm from the same seeded weights.  Returns the 2-bit
+    arm's launch counts."""
+    from mxnet_tpu_torch.kernels import LAUNCHES, PLAIN_CALLS, reset_counts
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.weights import convert_symbol_params
+    ctx = ctx or mx.gpu(0)
+    on_card = ctx.device_type == "gpu"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    B = train["batch"]
+    sym = resnet.get_symbol(**cfg)
+    np_args, np_aux = seeded_resnet_params(sym, B, cfg["image_shape"])
+    x, y = _image_batches(cfg["image_shape"], B * train["batches"],
+                          SEED + 11, cfg["num_classes"])
+    arms = {}
+    for arm, comp in (("dense", None),
+                      ("2bit", {"type": "2bit",
+                                "threshold": train["threshold"]})):
+        t0 = time.perf_counter()
+        args, auxs = convert_symbol_params(
+            np_args, np_aux, ctx, sym, data=(B,) + tuple(cfg["image_shape"]),
+            softmax_label=(B,))
+        mod = mx.Module(resnet.get_symbol(**cfg), context=ctx,
+                        compression_params=comp)
+        kv = mx.kv.create("device")
+        sync()
+        setup_s = time.perf_counter() - t0
+        labels = torch.from_numpy(y).long()
+        losses, stamps, buckets, quant = [], [], [], []
+        # launches on the card; on the CPU (a rehearsal) the plain calls
+        counts = LAUNCHES if on_card else PLAIN_CALLS
+
+        def per_step(param):
+            sync()
+            stamps.append(time.perf_counter())
+            prob = mod.get_outputs()[0]._data
+            lab = labels[param.nbatch * B:(param.nbatch + 1) * B] \
+                .to(prob.device)
+            losses.append(float(-torch.log(prob.gather(
+                1, lab[:, None]).clamp(min=1e-30)).mean()))
+            buckets.append(kv._engine.stats["buckets"])
+            quant.append(counts["two_bit_quantize_fused"])
+
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        stamps.append(time.perf_counter())
+        mod.fit(mx.io.NDArrayIter(x, y, batch_size=B),
+                num_epoch=train["epochs"], kvstore=kv, optimizer="sgd",
+                optimizer_params={"learning_rate": train["lr"],
+                                  "momentum": train["momentum"],
+                                  "wd": train["wd"]},
+                initializer=mx.init.Xavier(rnd_type="gaussian",
+                                           factor_type="in", magnitude=2),
+                arg_params=args, aux_params=auxs, eval_metric="acc",
+                batch_end_callback=per_step)
+        sync()
+        launches, plain = dict(LAUNCHES), dict(PLAIN_CALLS)
+        steps = len(losses)
+        check(steps == train["batches"] * train["epochs"],
+              "train_resnet %s: %d steps ran" % (arm, steps))
+        check(all(np.isfinite(losses)), "train_resnet %s: non-finite loss %s"
+              % (arm, losses))
+        step_buckets = np.diff([0] + buckets).tolist()
+        step_quant = np.diff([0] + quant).tolist()
+        stats = kv._engine.stats
+        check(stats["flushes"] > 0, "train_resnet %s: the bucketed kvstore "
+              "never flushed" % arm)
+        if comp is None:
+            check(quant[-1] == 0, "train_resnet dense: the quantizer ran %d "
+                  "times" % quant[-1])
+            first, last = losses[0], losses[-train["batches"]]
+            check(last < first, "train_resnet dense: the loss on the "
+                  "repeated batch did not fall (%g -> %g)" % (first, last))
+        else:
+            check(step_quant == step_buckets,
+                  "train_resnet 2bit: quantize launches per step %s, "
+                  "buckets per step %s" % (step_quant, step_buckets))
+            check(len(set(step_buckets[1:])) == 1,
+                  "train_resnet 2bit: buckets per step vary after the first "
+                  "%s" % step_buckets)
+            flat = kv._engine._flat_res
+            check(all(bool(torch.isfinite(r).all()) for rec in flat.values()
+                      for r in rec["res"]),
+                  "train_resnet 2bit: a flat residual is not finite")
+            if on_card:
+                check(not any(plain.values()), "train_resnet 2bit: plain "
+                      "versions ran on the main path: %s" % plain)
+            arms["launches"] = launches
+        step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+        p50 = statistics.median(sorted(step_ms[train["warmup"]:]))
+        arms[arm] = {"setup_s": setup_s, "step_ms": step_ms,
+                     "step_ms_p50": p50, "images_per_s": B / (p50 / 1e3),
+                     "loss": losses, "buckets_per_step": step_buckets,
+                     "quantize_launches_per_step": step_quant,
+                     "kv_stats": dict(stats),
+                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9
+                     if on_card else None}
+        del mod, kv, args, auxs
+    emit({"phase": "train_resnet", "config": cfg, "train": train,
+          "dense": arms["dense"], "2bit": arms["2bit"]})
+    return arms["launches"], train["batches"] * train["epochs"]
+
+
+def phase_resnet_agreement(torch, mx, ctxs=None, cfg=RESNET_AGREE):
+    """ResNet-18 (ImageNet layout, 7x7 stem and max-pool) at 3x64x64 from
+    the same numpy weights on the card and on the CPU: the loss, every
+    parameter's gradient and moving statistic after the train forward
+    (within grad_rtol and aux_rtol of the CPU's largest value of that
+    array), and
+    one 2-bit Module.update with the threshold at the median of the
+    CPU's |g|: q is equal wherever the CPU's |acc| lies farther than
+    band * t from t, and the elements inside that band are counted."""
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.weights import convert_symbol_params
+    ctxs = ctxs or (mx.gpu(0), mx.cpu())
+    B, image = cfg["batch"], cfg["image_shape"]
+    kw = {k: cfg[k] for k in ("num_classes", "num_layers", "image_shape")}
+    sym = resnet.get_symbol(**kw)
+    np_args, np_aux = seeded_resnet_params(sym, B, image)
+    x, y = _image_batches(image, B, SEED + 12, cfg["num_classes"])
+    batch = mx.io.DataBatch(data=[mx.nd.array(x, ctx=mx.cpu())],
+                            label=[mx.nd.array(y, ctx=mx.cpu())])
+    shapes = dict(data=(B,) + tuple(image), softmax_label=(B,))
+
+    def run(ctx, threshold):
+        mod = mx.Module(resnet.get_symbol(**kw), context=ctx,
+                        compression_params=None if threshold is None else
+                        {"type": "2bit", "threshold": threshold})
+        mod.bind(data_shapes=[("data", shapes["data"])],
+                 label_shapes=[("softmax_label", shapes["softmax_label"])])
+        mod.set_params(*convert_symbol_params(np_args, np_aux, ctx, sym,
+                                              **shapes))
+        kv = mx.kv.create("device")
+        mod.init_optimizer(kvstore=kv, optimizer="sgd", optimizer_params={
+            "learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4})
+        mod.forward_backward(batch)
+        prob = mod.get_outputs()[0].asnumpy()
+        loss = float(-np.log(prob[np.arange(B), y.astype(int)]).mean())
+        group = mod._exec_group
+        grads = {n: g[0].asnumpy() for n, g in zip(group.param_names,
+                                                   group.grad_arrays)}
+        aux = {n: a[0].asnumpy() for n, a in zip(group.aux_names,
+                                                 group.aux_arrays)}
+        q = None
+        if threshold is not None:
+            mod.update()
+            kv._engine.spill_residuals()
+            # residuals start at zero, so acc = g and new_r = g - q:
+            # (g - new_r) / t rounds to q's sign class, -1, 0 or +1
+            q = {n: np.rint((grads[n] - kv._compression_residuals[(n, 0)]
+                             .asnumpy()) / np.float32(threshold))
+                 for n in grads}
+        return loss, grads, aux, q
+
+    _, cpu_grads, _, _ = run(ctxs[1], None)
+    t = float(np.median(np.abs(np.concatenate(
+        [g.ravel() for g in cpu_grads.values()]))))
+    (gl, gg, ga, gq), (cl, cg, ca, cq) = (run(c, t) for c in ctxs)
+    check(abs(gl - cl) <= cfg["loss_rtol"] * abs(cl),
+          "resnet_agreement: loss %g on the card, %g on the CPU" % (gl, cl))
+    worst_grad = 0.0
+    for name, ref in cg.items():
+        scale = float(np.abs(ref).max())
+        err = float(np.abs(gg[name] - ref).max())
+        check(err <= cfg["grad_rtol"] * scale, "resnet_agreement: gradient "
+              "of %s differs by %g (largest CPU value %g)" % (name, err, scale))
+        worst_grad = max(worst_grad, err / scale if scale else 0.0)
+    worst_aux = 0.0
+    for name, ref in ca.items():
+        scale = float(np.abs(ref).max())
+        err = float(np.abs(ga[name] - ref).max())
+        check(err <= cfg["aux_rtol"] * scale, "resnet_agreement: %s differs "
+              "by %g after the train forward (largest CPU value %g)"
+              % (name, err, scale))
+        worst_aux = max(worst_aux, err / scale if scale else 0.0)
+    band = total = 0
+    t32 = np.float32(t)
+    for name, ref in cq.items():
+        near = np.abs(np.abs(cg[name]) - t32) <= cfg["band"] * t32
+        band += int(near.sum())
+        total += near.size
+        diff = int((gq[name] != ref)[~near].sum())
+        check(diff == 0, "resnet_agreement: q of %s differs in %d elements "
+              "outside the band" % (name, diff))
+    share = band / total
+    check(share < cfg["band_share"], "resnet_agreement: %d of %d elements (%g) lie "
+          "inside the band" % (band, total, share))
+    emit({"phase": "resnet_agreement", "config": cfg, "loss_card": gl,
+          "loss_cpu": cl, "worst_grad_rel_err": worst_grad,
+          "worst_aux_rel_err": worst_aux, "threshold": t,
+          "q_elements": total, "q_in_band": band, "q_in_band_share": share,
+          "q_plus_minus_share": float(sum(int((v != 0).sum())
+                                          for v in cq.values())) / total})
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -781,6 +1197,7 @@ def main():
                      phase_layernorm(torch, mxk, dev, flush)]
     train_kernels = [phase_layernorm_bwd(torch, mxk, dev, flush)] + \
         phase_flash(torch, mxk, dev, flush)
+    quant_kernel = phase_quant(torch, mxk, dev, flush)
     del flush
     full = seeded_params(FULL)
     serve_launches, serve_steps = phase_serve(torch, mx, full)
@@ -788,9 +1205,14 @@ def main():
     train_launches, train_steps = phase_train(torch, mx, full)
     del full
     phase_train_agreement(torch, mx)
+    phase_kvstore(torch, mx)
+    resnet_launches, resnet_steps = phase_train_resnet(torch, mx)
+    phase_resnet_agreement(torch, mx)
     # launches: the count of each kernel's main-path run (serve for the
-    # serving kernels, Module.fit for the training ones); LayerNorm's
-    # forward runs on both and carries the train count beside it
+    # serving kernels, the transformer's Module.fit for its training
+    # kernels, the 2-bit ResNet-50 fit for the quantizer); LayerNorm's
+    # forward runs on both of the first two and carries the train count
+    # beside it
     for k in serve_kernels:
         k["launches"] = serve_launches[k["name"]]
         k["launches_per_step"] = serve_launches[k["name"]] / serve_steps
@@ -798,13 +1220,16 @@ def main():
     for k in train_kernels:
         k["launches"] = train_launches[k["name"]]
         k["launches_per_step"] = train_launches[k["name"]] / train_steps
+    quant_kernel["launches"] = resnet_launches[quant_kernel["name"]]
+    quant_kernel["launches_per_step"] = quant_kernel["launches"] / resnet_steps
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{**{key: k[key] for key in keys},
                        **{key: k[key] for key in ("launches_per_step",
                                                   "train_launches")
                           if key in k}}
-                      for k in serve_kernels + train_kernels]})
+                      for k in serve_kernels + train_kernels
+                      + [quant_kernel]]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

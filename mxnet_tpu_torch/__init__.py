@@ -2,11 +2,13 @@
 
 A second package beside ``mxnet_tpu`` (the JAX reference), with the same
 MXNet-shaped API.  It serves the decoder-only transformer LM through the
-paged decode engine, and trains it through ``Module.fit``.  The paged
-decode attention, the chunked-prefill attention, LayerNorm (forward and
-backward) and causal flash attention (forward and backward) run in
-hand-written CUDA kernels (``csrc/``), built for ``sm_90a`` on first
-use.
+paged decode engine, and trains it, LeNet and ResNet through
+``Module.fit``, optionally through the device kvstore with 2-bit
+gradient compression (``mx.kv.create('device')``).  The paged decode
+attention, the chunked-prefill attention, LayerNorm (forward and
+backward), causal flash attention (forward and backward) and the 2-bit
+quantizer run in hand-written CUDA kernels (``csrc/``), built for
+``sm_90a`` on first use.
 
 Entry points run on the card (``gpu(0)``, i.e. ``cuda:0``) unless the
 caller passes ``ctx=mx.cpu()``; with no GPU and no CPU request they
@@ -14,8 +16,8 @@ raise.  On CPU tensors every kernel takes its plain PyTorch version.
 """
 from . import base, context, kernels, ndarray, ops, symbol  # noqa: F401
 from . import decode, models, weights  # noqa: F401
-from . import (callback, initializer, io, metric, model, module,  # noqa: F401
-               optimizer, random)
+from . import (callback, initializer, io, kvstore, lr_scheduler,  # noqa: F401
+               metric, model, module, optimizer, parallel, random)
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu
 from .module import Module
@@ -24,8 +26,10 @@ nd = ndarray
 sym = symbol
 init = initializer
 mod = module
+kv = kvstore
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context", "nd",
            "sym", "ndarray", "symbol", "decode", "models", "weights",
-           "kernels", "callback", "init", "initializer", "io", "metric",
-           "model", "module", "mod", "Module", "optimizer", "random"]
+           "kernels", "callback", "init", "initializer", "io", "kv",
+           "kvstore", "lr_scheduler", "metric", "model", "module", "mod",
+           "Module", "optimizer", "parallel", "random"]

@@ -14,6 +14,12 @@ place.  ``forward(is_train=True)`` records the graph with autograd;
 replaces it, ``'add'`` accumulates).  A loss head such as SoftmaxOutput
 ignores its seed, as in MXNet.  Inference forwards record nothing.
 
+Auxiliary states (BatchNorm's moving statistics) live in ``aux_dict``,
+f32 zeros at bind, and take no gradient.  Ops that declare ``is_train``
+are handed the forward's flag; after a train forward, each output an op
+declares in ``mutate_inputs`` is copied into its auxiliary state in
+place (the JAX package's executor returns the new states instead).
+
 Cache arguments (the paged K/V caches) are updated IN PLACE by the ops
 that write them, and the outputs that carry the "new" caches are those
 same tensors.  That is the counterpart of the JAX package's buffer
@@ -54,7 +60,11 @@ class Executor:
         dev = self._ctx.torch_device
         self._arg_names = symbol.list_arguments()
         self._grad_req = _normalize_grad_req(grad_req, self._arg_names)
-        arg_shapes, _, _ = symbol.infer_shape(**shapes)
+        arg_shapes, _, aux_shapes = symbol.infer_shape(**shapes)
+        self._aux_names = symbol.list_auxiliary_states()
+        self.aux_dict = {name: NDArray(torch.zeros(shape, dtype=torch.float32,
+                                                   device=dev))
+                         for name, shape in zip(self._aux_names, aux_shapes)}
         self.arg_dict = {}
         self.grad_dict = {}
         for name, shape in zip(self._arg_names, arg_shapes):
@@ -73,22 +83,28 @@ class Executor:
         'null'), in ``list_arguments`` order."""
         return [self.grad_dict.get(n) for n in self._arg_names]
 
+    @property
+    def aux_arrays(self):
+        """The auxiliary states, in ``list_auxiliary_states`` order."""
+        return [self.aux_dict[n] for n in self._aux_names]
+
     def copy_params_from(self, arg_params, aux_params=None,
                          allow_extra_params=False):
         """Copy parameter values (NDArrays, tensors or numpy arrays)
-        into the bound arguments of the same names."""
-        for name, value in arg_params.items():
-            dst = self.arg_dict.get(name)
-            if dst is None:
-                if allow_extra_params:
-                    continue
-                raise MXNetError("copy_params_from: %s is not an argument "
-                                 "of the bound symbol" % name)
-            with torch.no_grad():
-                dst._data.copy_(_as_tensor(value, dst.shape, name))
-        if aux_params and not allow_extra_params:
-            raise MXNetError("copy_params_from: the bound symbol has no "
-                             "auxiliary states, got %s" % sorted(aux_params))
+        into the bound arguments and auxiliary states of the same
+        names."""
+        for params, bound, kind in ((arg_params, self.arg_dict, "argument"),
+                                    (aux_params or {}, self.aux_dict,
+                                     "auxiliary state")):
+            for name, value in params.items():
+                dst = bound.get(name)
+                if dst is None:
+                    if allow_extra_params:
+                        continue
+                    raise MXNetError("copy_params_from: %s is not an %s of "
+                                     "the bound symbol" % (name, kind))
+                with torch.no_grad():
+                    dst._data.copy_(_as_tensor(value, dst.shape, name))
 
     def _feed(self, feeds):
         for name, value in feeds.items():
@@ -104,19 +120,36 @@ class Executor:
         With ``is_train`` the graph is recorded for :meth:`backward`."""
         self._feed(feeds)
         self._heads = None
-        record = bool(is_train) and bool(self.grad_dict)
+        is_train = bool(is_train)
+        record = is_train and bool(self.grad_dict)
+        new_aux = {}
         with torch.set_grad_enabled(record):
             env = {}
             for node in self._nodes:
                 if node.is_var:
-                    env[(id(node), 0)] = self.arg_dict[node.name]._data
+                    src = self.arg_dict.get(node.name)
+                    if src is None:
+                        src = self.aux_dict[node.name]
+                    env[(id(node), 0)] = src._data
                     continue
+                kw = dict(node.attrs, is_train=is_train) \
+                    if node.op.takes_is_train else node.attrs
                 out = node.op.fn(*[env[(id(n), i)] for n, i in node.inputs],
-                                 **node.attrs)
-                for i, t in enumerate(out if isinstance(out, tuple)
-                                      else (out,)):
+                                 **kw)
+                outs = out if isinstance(out, tuple) else (out,)
+                for i, t in enumerate(outs):
                     env[(id(node), i)] = t
+                if is_train:
+                    for (inp, _), nm in zip(node.inputs,
+                                            node.op.input_names):
+                        for mut, idx in node.op.mutate_inputs:
+                            if nm == mut and inp.is_var \
+                                    and inp.name in self.aux_dict:
+                                new_aux[inp.name] = outs[idx]
             heads = [env[(id(n), i)] for n, i in self._symbol._entries]
+        with torch.no_grad():
+            for name, t in new_aux.items():
+                self.aux_dict[name]._data.copy_(t)
         if record:
             self._heads = heads
         self.outputs = [NDArray(t.detach()) for t in heads]

@@ -15,6 +15,7 @@ from .layernorm import (LayerNormFn, layernorm, layernorm_bwd_plain,
 from .paged_attention import (paged_chunk_prefill_attend,
                               paged_chunk_prefill_attend_plain,
                               paged_decode_attend, paged_decode_attend_plain)
+from .quant import two_bit_quantize_fused, two_bit_quantize_plain
 
 __all__ = ["LAUNCHES", "PLAIN_CALLS", "reset_counts", "layernorm_fused",
            "layernorm_plain", "layernorm_fused_bwd", "layernorm_bwd_plain",
@@ -24,4 +25,5 @@ __all__ = ["LAUNCHES", "PLAIN_CALLS", "reset_counts", "layernorm_fused",
            "flash_attention_bwd_dkv_plain", "flash_attention_bwd_dq",
            "flash_attention_bwd_dq_plain", "paged_decode_attend",
            "paged_decode_attend_plain", "paged_chunk_prefill_attend",
-           "paged_chunk_prefill_attend_plain"]
+           "paged_chunk_prefill_attend_plain", "two_bit_quantize_fused",
+           "two_bit_quantize_plain"]

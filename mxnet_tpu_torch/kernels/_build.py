@@ -29,7 +29,7 @@ __all__ = ["SOURCES", "build_all", "load", "check"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("paged_attention", "layernorm", "flash_attention")
+SOURCES = ("paged_attention", "layernorm", "flash_attention", "quant")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -3,8 +3,8 @@
 Counterpart of ``mxnet_tpu/module/executor_group.py``
 ``DataParallelExecutorGroup``, on exactly one context: one executor,
 with gradients for every parameter that is not fixed (data and label
-inputs get none).  Several contexts (data
-parallelism over GPUs) come with the multi-GPU slice.
+inputs get none), and the auxiliary states beside them.  Several
+contexts (data parallelism over GPUs) come with the multi-GPU slice.
 """
 from __future__ import annotations
 
@@ -27,6 +27,7 @@ class DataParallelExecutorGroup:
         self.symbol = symbol
         self.contexts = contexts
         self.param_names = param_names
+        self.aux_names = symbol.list_auxiliary_states()
         self.for_training = for_training
         self.data_names = [d.name for d in data_shapes]
         self.label_names = [d.name for d in (label_shapes or [])]
@@ -49,6 +50,15 @@ class DataParallelExecutorGroup:
         # Module-facing views: one entry per device (one device here)
         self.param_arrays = [[exe.arg_dict[n]] for n in param_names]
         self.grad_arrays = [[exe.grad_dict.get(n)] for n in param_names]
+        self.aux_arrays = [[exe.aux_dict[n]] for n in self.aux_names]
+
+    @property
+    def push_order(self):
+        """``param_arrays`` indices in backward gradient-availability
+        order: the arguments list in forward order, so backward produces
+        the last parameters' gradients first (the bucketed kvstore's
+        streaming flush dispatches buckets in this order)."""
+        return list(range(len(self.param_arrays)))[::-1]
 
     def forward(self, data_batch, is_train=None):
         feeds = dict(zip(self.data_names, data_batch.data))
@@ -71,9 +81,12 @@ class DataParallelExecutorGroup:
         self._exec.copy_params_from(arg_params, aux_params, allow_extra)
 
     def get_params(self, arg_params, aux_params):
-        """Copy the bound parameters into host (CPU) NDArrays."""
+        """Copy the bound parameters and auxiliary states into host (CPU)
+        NDArrays."""
         for name in self.param_names:
             arg_params[name] = array(self._exec.arg_dict[name], ctx=cpu())
+        for name in self.aux_names:
+            aux_params[name] = array(self._exec.aux_dict[name], ctx=cpu())
 
     def update_metric(self, eval_metric, labels):
         eval_metric.update_dict(

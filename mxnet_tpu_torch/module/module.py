@@ -2,11 +2,18 @@
 
 Counterpart of ``mxnet_tpu/module/module.py`` (reference
 python/mxnet/module/module.py: bind :364, init_params :270,
-init_optimizer :465, forward :570, update :643).  The parameters live
-on the bound device; ``get_params`` copies them to host NDArrays.
-``Module(sym)`` with no context runs on ``gpu(0)`` and raises without a
-card.  Several contexts, gradient compression, checkpoint files and the
-fused fit step come with later slices.
+init_optimizer :465, forward :570, update :643).  The parameters and
+auxiliary states live on the bound device; ``get_params`` copies them
+to host NDArrays.  ``Module(sym)`` with no context runs on ``gpu(0)``
+and raises without a card.
+
+With a kvstore instance (``mx.kv.create('device')``), ``update`` pushes
+every gradient in one batched call in backward order and pulls the
+updated weights back (``update_on_kvstore``); ``compression_params``
+(``{'type': '2bit', 'threshold': t}``) is handed to that store.  With
+one device the strings ``'local'`` and ``'device'`` give no store, so
+nothing is compressed (the JAX package's rule).  Several contexts,
+checkpoint files and the fused fit step come with later slices.
 """
 from __future__ import annotations
 
@@ -16,7 +23,8 @@ from .. import optimizer as opt
 from ..base import MXNetError
 from ..context import Context, current_context
 from ..initializer import InitDesc, Uniform
-from ..model import _create_kvstore, _update_params
+from ..model import (_create_kvstore, _initialize_kvstore, _update_params,
+                     _update_params_on_kvstore)
 from .base_module import BaseModule
 from .executor_group import DataParallelExecutorGroup, as_descs
 
@@ -31,9 +39,6 @@ class Module(BaseModule):
                  context=None, fixed_param_names=None,
                  compression_params=None):
         super().__init__(logger=logger)
-        if compression_params is not None:
-            raise MXNetError("gradient compression comes with the kvstore "
-                             "slice of the PyTorch port")
         if context is None:
             context = current_context()
         contexts = [context] if isinstance(context, Context) \
@@ -55,8 +60,12 @@ class Module(BaseModule):
         self._fixed_param_names = list(fixed_param_names or [])
         inputs = set(self._data_names + self._label_names)
         self._param_names = [a for a in args if a not in inputs]
+        self._aux_names = symbol.list_auxiliary_states()
         self._output_names = symbol.list_outputs()
+        self._compression_params = compression_params
         self._optimizer = None
+        self._kvstore = None
+        self._update_on_kvstore = None
         self._updater = None
         self._exec_group = None
         self._data_shapes = None
@@ -88,46 +97,51 @@ class Module(BaseModule):
         from the device."""
         if not self.params_initialized:
             raise MXNetError("get_params() before init_params()")
-        arg_params = {}
-        self._exec_group.get_params(arg_params, {})
-        return arg_params, {}
+        arg_params, aux_params = {}, {}
+        self._exec_group.get_params(arg_params, aux_params)
+        return arg_params, aux_params
 
     def init_params(self, initializer=Uniform(0.01), arg_params=None,
                     aux_params=None, allow_missing=False, force_init=False,
                     allow_extra=False):
-        """Fill every parameter on the device: from ``arg_params`` where
-        given, else (when ``allow_missing`` or no ``arg_params``) by
-        ``initializer`` with the variable's attributes."""
+        """Fill every parameter and auxiliary state on the device: from
+        ``arg_params`` / ``aux_params`` where given, else (when
+        ``allow_missing`` or none are given) by ``initializer`` with the
+        variable's attributes (moving means zero, moving variances
+        one)."""
         if self.params_initialized and not force_init:
             self.logger.warning("Parameters already initialized and "
                                 "force_init=False; init_params ignored")
             return
         if not self.binded:
             raise MXNetError("call bind before initializing the parameters")
-        if aux_params:
-            raise MXNetError("the bound symbol has no auxiliary states, got "
-                             "%s" % sorted(aux_params))
-        bound = self._exec_group._exec.arg_dict
-        if arg_params and not allow_extra:
-            extra = sorted(n for n in arg_params if n not in self._param_names)
+        exe = self._exec_group._exec
+        if not allow_extra:
+            extra = sorted([n for n in (arg_params or {})
+                            if n not in self._param_names]
+                           + [n for n in (aux_params or {})
+                              if n not in self._aux_names])
             if extra:
                 raise MXNetError("set_params/init_params got extra "
                                  "parameter(s) %s (pass allow_extra=True to "
                                  "ignore)" % extra)
         attrs = self._symbol.attr_dict()
-        for name in sorted(self._param_names):
-            target = bound[name]
-            if arg_params is not None and name in arg_params:
-                given = arg_params[name]
-                if tuple(given.shape) != target.shape:
-                    raise MXNetError("shape mismatch for %s: %s vs %s"
-                                     % (name, tuple(given.shape),
-                                        target.shape))
-                target[:] = given
-            elif arg_params is not None and not allow_missing:
-                raise MXNetError("%s is not presented" % name)
-            elif initializer is not None:
-                initializer(InitDesc(name, attrs.get(name)), target)
+        for names, bound, given in (
+                (self._param_names, exe.arg_dict, arg_params),
+                (self._aux_names, exe.aux_dict, aux_params)):
+            for name in sorted(names):
+                target = bound[name]
+                if given is not None and name in given:
+                    value = given[name]
+                    if tuple(value.shape) != target.shape:
+                        raise MXNetError("shape mismatch for %s: %s vs %s"
+                                         % (name, tuple(value.shape),
+                                            target.shape))
+                    target[:] = value
+                elif given is not None and not allow_missing:
+                    raise MXNetError("%s is not presented" % name)
+                elif initializer is not None:
+                    initializer(InitDesc(name, attrs.get(name)), target)
         self.params_initialized = True
 
     # -- binding --------------------------------------------------------
@@ -161,13 +175,17 @@ class Module(BaseModule):
     def init_optimizer(self, kvstore="local", optimizer="sgd",
                        optimizer_params=(("learning_rate", 0.01),),
                        force_init=False):
+        """Create the optimizer (``rescale_grad = 1 / batch``) and, with a
+        kvstore instance, hand it the compression config, initialize
+        every key from the bound parameters and let it apply the
+        optimizer (reference module.py:465)."""
         if not (self.binded and self.params_initialized):
             raise MXNetError("init_optimizer() requires bind() and "
                              "init_params()")
         if self.optimizer_initialized and not force_init:
             self.logger.warning("optimizer already initialized, ignoring...")
             return
-        _create_kvstore(kvstore, len(self._context))
+        kv, update_on_kvstore = _create_kvstore(kvstore, len(self._context))
         rescale_grad = 1.0 / self._data_shapes[0].shape[0]
         if isinstance(optimizer, str):
             config = dict(optimizer_params)
@@ -183,7 +201,22 @@ class Module(BaseModule):
                 "is not normalized to 1.0/batch_size (%s vs. %s). Is this "
                 "intended?", optimizer.rescale_grad, rescale_grad)
         self._optimizer = optimizer
-        self._updater = opt.get_updater(optimizer)
+        self._kvstore = kv
+        self._update_on_kvstore = update_on_kvstore
+        self._updater = None
+        group = self._exec_group
+        if kv is not None:
+            if self._compression_params:
+                kv.set_gradient_compression(self._compression_params)
+            exe = group._exec
+            _initialize_kvstore(
+                kv, group.param_arrays,
+                {n: exe.arg_dict[n] for n in group.param_names},
+                group.param_names, update_on_kvstore)
+        if update_on_kvstore:
+            kv.set_optimizer(optimizer)
+        else:
+            self._updater = opt.get_updater(optimizer)
         self.optimizer_initialized = True
 
     # -- execution ------------------------------------------------------
@@ -204,13 +237,23 @@ class Module(BaseModule):
         self._exec_group.backward(out_grads=out_grads)
 
     def update(self):
-        """Apply one optimizer step to every parameter with a
-        gradient."""
+        """Apply one optimizer step to every parameter with a gradient:
+        through the kvstore (push, then pull) when it updates, else by
+        the local updater, after a reduce through the store if there is
+        one (reference module.py:643)."""
         if not self.optimizer_initialized:
             raise MXNetError("update() requires init_optimizer()")
         group = self._exec_group
-        _update_params(group.param_arrays, group.grad_arrays,
-                       updater=self._updater, num_device=1)
+        if self._update_on_kvstore:
+            _update_params_on_kvstore(group.param_arrays, group.grad_arrays,
+                                      self._kvstore, group.param_names,
+                                      push_order=group.push_order)
+        else:
+            _update_params(group.param_arrays, group.grad_arrays,
+                           updater=self._updater, num_device=1,
+                           kvstore=self._kvstore,
+                           param_names=group.param_names,
+                           push_order=group.push_order)
 
     def get_outputs(self, merge_multi_context=True):
         outs = self._exec_group.get_outputs()

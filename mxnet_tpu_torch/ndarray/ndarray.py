@@ -3,7 +3,7 @@
 Counterpart of ``mxnet_tpu/ndarray/ndarray.py``, reduced to what the
 serving and training slices use: construction from numpy or a tensor
 onto a context (``array``, ``zeros``), ``shape``/``context``,
-``asnumpy``, ``copyto``, whole-array assignment
+``asnumpy``, ``copy``, ``copyto``, whole-array assignment
 (``arr[:] = value``, as the initializers write) and ``_set_data``.
 Imperative operators and autograd come with the imperative slice.
 """
@@ -73,6 +73,10 @@ class NDArray:
 
     def _set_data(self, t):
         self._data = t
+
+    def copy(self):
+        """A new NDArray holding a copy, on the same device."""
+        return NDArray(self._data.detach().clone())
 
     def copyto(self, other):
         """Copy into another NDArray of the same shape, or onto a

@@ -1,14 +1,16 @@
-"""Neural-network operators of the serving and training slices.
+"""Neural-network operators of the serving, training and vision slices.
 
 Counterpart of ``mxnet_tpu/ops/nn.py`` for the ops the transformer's
-mixed decode step and training symbol use, with the same weight
-layouts.  The projections and the FFN are plain matrix products
-(``torch.matmul``, as the JAX package left them to XLA); LayerNorm, the
-causal training attention and the two paged attentions go through the
-hand-written kernels in ``..kernels``, which take the plain PyTorch
-versions only for tensors on the CPU.  Gradients are autograd's, with
-``torch.autograd.Function``s where the JAX package had a custom VJP
-(LayerNorm, flash attention, SoftmaxOutput).
+mixed decode step and training symbol and the LeNet and ResNet symbols
+use, with the same weight layouts (NCHW data, (num_filter, C / groups,
+kh, kw) convolution weights).  The projections, the FFN and the
+convolutions are plain PyTorch calls (``torch.matmul``,
+``F.conv2d``: the JAX package left them to XLA, in no Pallas kernel);
+LayerNorm, the causal training attention and the two paged attentions
+go through the hand-written kernels in ``..kernels``, which take the
+plain PyTorch versions only for tensors on the CPU.  Gradients are
+autograd's, with ``torch.autograd.Function``s where the JAX package had
+a custom VJP (LayerNorm, flash attention, SoftmaxOutput, BatchNorm).
 """
 from __future__ import annotations
 
@@ -19,6 +21,18 @@ from ..base import MXNetError
 from ..kernels import (flash_attention, layernorm, paged_chunk_prefill_attend,
                        paged_decode_attend)
 from .registry import register
+
+
+def _tuple(v, n):
+    """An int or int sequence as an ``n``-tuple (``()`` gives ones)."""
+    if isinstance(v, (tuple, list)):
+        t = tuple(int(x) for x in v)
+        return t if t else (1,) * n
+    return (int(v),) * n
+
+
+def _channel_last(layout):
+    return layout is not None and str(layout).endswith("C")
 
 
 def _linear(x, weight, bias=None):
@@ -49,6 +63,221 @@ def layer_norm(data, gamma, beta, *, axis=-1, eps=1e-5,
                          "PyTorch port yet (axis=%s)" % (axis,))
     return layernorm(data.contiguous(), gamma.reshape(-1), beta.reshape(-1),
                      eps=float(eps))
+
+
+@register("Flatten", aliases=("flatten",))
+def flatten(data):
+    """(N, ...) -> (N, prod(...)) (ref src/operator/tensor/matrix_op.cc)."""
+    return data.reshape(data.shape[0], -1)
+
+
+# ----------------------------------------------------------------------
+# Convolution
+# ----------------------------------------------------------------------
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+
+
+@register("Convolution", aliases=("convolution",))
+def convolution(data, weight, bias=None, *, kernel, num_filter, stride=(),
+                dilate=(), pad=(), num_group=1, no_bias=False, cudnn_tune=None,
+                cudnn_off=False, workspace=1024, layout=None):
+    """1-, 2- or 3-D convolution over channels-first data (ref
+    src/operator/nn/convolution.cc), with groups, dilation and symmetric
+    padding; the bias, when there is one, is added per output channel.
+    ``layout='NHWC'`` (channel-last data and weights) comes with a later
+    slice."""
+    if _channel_last(layout):
+        raise MXNetError("Convolution(layout=%r): channel-last training "
+                         "comes with a later slice of the PyTorch port"
+                         % (layout,))
+    nd = len(kernel)
+    if nd not in _CONV or data.dim() != nd + 2:
+        raise MXNetError("Convolution: a %d-D kernel over %d-D data is not "
+                         "in the PyTorch port" % (nd, data.dim()))
+    return _CONV[nd](data, weight, None if no_bias else bias,
+                     stride=_tuple(stride, nd), padding=_tuple(pad or 0, nd),
+                     dilation=_tuple(dilate, nd), groups=int(num_group))
+
+
+# ----------------------------------------------------------------------
+# BatchNorm: the JAX package's _bn_train_fused, statistics and backward
+# ----------------------------------------------------------------------
+class _BatchNormTrainFn(torch.autograd.Function):
+    """Training-mode batch norm with the JAX package's arithmetic
+    (``_bn_train_fused``): the statistics are ``sum(x)`` and
+    ``sum(x^2)`` in f32, ``var = max(E[x^2] - mean^2, 0)`` (biased);
+    the output is ``x * scale + shift`` per channel.  The backward is the
+    hand-derived one: two channel sums of ``dy`` and ``dy * x``, then
+    ``dx = dy * scale + x * b + c`` per channel.  Returns ``(out, mean,
+    var)``; mean and var take no cotangent.  (Not ``F.batch_norm``: it
+    computes the variance another way and keeps an unbiased running
+    variance.)"""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps, fix_gamma, red, bshape, n):
+        xf = x.float()
+        mean = xf.sum(dim=red) / n
+        var = torch.clamp(xf.square().sum(dim=red) / n - mean.square(),
+                          min=0.0)
+        inv_std = torch.rsqrt(var + eps)
+        g32 = torch.ones_like(inv_std) if fix_gamma else gamma.float()
+        scale = g32 * inv_std
+        shift = beta.float() - mean * scale
+        out = (xf * scale.view(bshape) + shift.view(bshape)).to(x.dtype)
+        ctx.save_for_backward(x, mean, inv_std, g32)
+        ctx.fix_gamma, ctx.red, ctx.bshape, ctx.n = fix_gamma, red, bshape, n
+        ctx.gamma_dtype = gamma.dtype
+        ctx.mark_non_differentiable(mean, var)
+        return out, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, mean, inv_std, g32 = ctx.saved_tensors
+        red, bshape, n = ctx.red, ctx.bshape, ctx.n
+        dyf, xf = dy.float(), x.float()
+        t1 = dyf.sum(dim=red)
+        t2 = (dyf * xf).sum(dim=red)
+        dgamma = (t2 - mean * t1) * inv_std
+        dbeta = t1
+        scale = g32 * inv_std
+        bcoef = -scale * inv_std * dgamma / n
+        ccoef = (scale * inv_std * dgamma * mean - scale * dbeta) / n
+        dx = (dyf * scale.view(bshape) + xf * bcoef.view(bshape)
+              + ccoef.view(bshape)).to(x.dtype)
+        if ctx.fix_gamma:
+            dgamma = torch.zeros_like(dgamma)
+        return (dx, dgamma.to(ctx.gamma_dtype), dbeta.to(ctx.gamma_dtype),
+                None, None, None, None, None)
+
+
+@register("BatchNorm", aliases=("batch_norm", "CuDNNBatchNorm"),
+          num_outputs=5,
+          num_visible_outputs=lambda a: 3 if a.get("output_mean_var") else 1,
+          mutate_inputs=(("moving_mean", 3), ("moving_var", 4)))
+def batch_norm(data, gamma, beta, moving_mean, moving_var, *, eps=1e-3,
+               momentum=0.9, fix_gamma=True, use_global_stats=False,
+               output_mean_var=False, axis=1, cudnn_off=False,
+               is_train=False):
+    """Batch normalization over every axis but ``axis`` (ref
+    src/operator/nn/batch_norm.cc).  Returns ``(out, mean, inv_std,
+    new_moving_mean, new_moving_var)``; the executor writes the last two
+    into the moving statistics after a train forward.  Training mode
+    (``is_train`` and not ``use_global_stats``) normalizes with the
+    batch statistics through :class:`_BatchNormTrainFn` and moves the
+    statistics by ``momentum`` in f32 (the biased variance); otherwise
+    the moving statistics normalize and stay as they are.
+    ``fix_gamma`` uses a scale of one and gives gamma a zero
+    gradient."""
+    ax = int(axis) % data.dim()
+    red = tuple(i for i in range(data.dim()) if i != ax)
+    bshape = tuple(data.shape[i] if i == ax else 1 for i in range(data.dim()))
+    eps, momentum = float(eps), float(momentum)
+    if is_train and not use_global_stats:
+        n = float(data.numel() // data.shape[ax])    # elements per channel
+        out, mean, var = _BatchNormTrainFn.apply(
+            data, gamma, beta, eps, bool(fix_gamma), red, bshape, n)
+        with torch.no_grad():
+            inv_std = torch.rsqrt(var + eps)
+            new_mm = (moving_mean.float() * momentum
+                      + mean * (1 - momentum)).to(moving_mean.dtype)
+            new_mv = (moving_var.float() * momentum
+                      + var * (1 - momentum)).to(moving_var.dtype)
+        return out, mean, inv_std, new_mm, new_mv
+    mean = moving_mean.detach().float()
+    var = moving_var.detach().float()
+    inv_std = torch.rsqrt(var + eps)
+    g32 = torch.ones_like(inv_std) if fix_gamma else gamma.float()
+    scale = g32 * inv_std
+    shift = beta.float() - mean * scale
+    out = (data.float() * scale.view(bshape)
+           + shift.view(bshape)).to(data.dtype)
+    return out, mean, inv_std, moving_mean, moving_var
+
+
+# ----------------------------------------------------------------------
+# Pooling
+# ----------------------------------------------------------------------
+_MAX_POOL = {2: F.max_pool2d, 3: F.max_pool3d}
+_AVG_POOL = {2: F.avg_pool2d, 3: F.avg_pool3d}
+
+
+@register("Pooling", aliases=("pooling",))
+def pooling(data, *, kernel=(), pool_type="max", global_pool=False,
+            stride=(), pad=(), pooling_convention="valid", cudnn_off=False,
+            count_include_pad=True, p_value=2, layout=None):
+    """Max, average or sum pooling over 2-D or 3-D channels-first data
+    (ref src/operator/nn/pooling.cc).  ``pooling_convention='full'``
+    rounds the output size up, padding the far edge as needed.  The
+    padding is explicit (``-inf`` for max, zeros otherwise), so every
+    window is a whole kernel: ``avg`` divides by the kernel size, or,
+    without ``count_include_pad``, by its count of real elements.  The
+    max-pool gradient goes to the first maximum of each window in
+    row-major order, as XLA's select-and-scatter gives it (ties are
+    common: ReLU outputs tie at 0)."""
+    if _channel_last(layout):
+        raise MXNetError("Pooling(layout=%r): channel-last training comes "
+                         "with a later slice of the PyTorch port" % (layout,))
+    nd = data.dim() - 2
+    if global_pool:
+        red = tuple(range(2, 2 + nd))
+        if pool_type == "max":
+            return data.amax(dim=red, keepdim=True)
+        if pool_type == "sum":
+            return data.sum(dim=red, keepdim=True)
+        return data.mean(dim=red, keepdim=True)
+    if nd not in _MAX_POOL:
+        raise MXNetError("Pooling over %d-D data is not in the PyTorch port"
+                         % data.dim())
+    if pool_type not in ("max", "avg", "sum"):
+        raise MXNetError("Pooling pool_type=%r is not in the PyTorch port"
+                         % (pool_type,))
+    kernel = _tuple(kernel, nd)
+    stride = _tuple(stride, nd)
+    pad = _tuple(pad or 0, nd)
+    lo_hi = []
+    for i in range(nd):
+        hi = pad[i]
+        if pooling_convention == "full":
+            size = data.shape[2 + i] + 2 * pad[i]
+            out_sz = -(-(size - kernel[i]) // stride[i]) + 1
+            hi += max(0, (out_sz - 1) * stride[i] + kernel[i] - size)
+        lo_hi.append((pad[i], hi))
+    # F.pad takes (lo, hi) pairs from the last axis back
+    fpad = [p for pair in reversed(lo_hi) for p in pair]
+    if pool_type == "max":
+        x = F.pad(data, fpad, value=float("-inf")) if any(fpad) else data
+        return _MAX_POOL[nd](x, kernel, stride)
+    x = F.pad(data, fpad) if any(fpad) else data
+    summed = _AVG_POOL[nd](x, kernel, stride, divisor_override=1)
+    if pool_type == "sum":
+        return summed
+    if count_include_pad:
+        denom = 1
+        for k in kernel:
+            denom *= k
+        return summed / denom
+    ones = torch.ones_like(data)
+    counts = _AVG_POOL[nd](F.pad(ones, fpad) if any(fpad) else ones, kernel,
+                           stride, divisor_override=1)
+    return summed / counts
+
+
+# ----------------------------------------------------------------------
+# Activations
+# ----------------------------------------------------------------------
+_ACTIVATIONS = {"relu": torch.relu, "sigmoid": torch.sigmoid,
+                "tanh": torch.tanh, "softrelu": F.softplus,
+                "softsign": F.softsign}
+
+
+@register("Activation", aliases=("activation",))
+def activation(data, *, act_type):
+    """relu, sigmoid, tanh, softrelu (softplus) or softsign (ref
+    src/operator/nn/activation.cc)."""
+    fn = _ACTIVATIONS.get(act_type)
+    if fn is None:
+        raise MXNetError("unknown act_type %s" % act_type)
+    return fn(data)
 
 
 @register("LeakyReLU")

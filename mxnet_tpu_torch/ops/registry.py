@@ -3,7 +3,14 @@
 Counterpart of ``mxnet_tpu/ops/registry.py``.  Each operator is one
 function on torch tensors; its signature declares the interface:
 positional-or-keyword parameters are tensor inputs (``=None`` marks one
-optional), keyword-only parameters are attributes.  Shape inference uses
+optional), keyword-only parameters are attributes, except ``is_train``:
+an op that declares it is handed the executor's train flag (the JAX
+package's ``current_op_context().is_train``).  ``mutate_inputs`` names
+the inputs an op updates, each with the output that carries its new
+value (BatchNorm's moving statistics, the reference's FMutateInputs):
+the symbol lists those variables as auxiliary states and the executor
+writes the outputs back into them after a train forward.  Shape
+inference uses
 the explicit rules in ``shape_rules.py`` (the JAX package traced the
 function with ``jax.eval_shape`` instead).
 """
@@ -21,11 +28,13 @@ _OP_REGISTRY: dict = {}
 class OpDef:
     """One registered operator."""
 
-    def __init__(self, name, fn, num_outputs=1, num_visible_outputs=None):
+    def __init__(self, name, fn, num_outputs=1, num_visible_outputs=None,
+                 mutate_inputs=()):
         self.name = name
         self.fn = fn
         self._num_outputs = num_outputs
         self._num_visible = num_visible_outputs
+        self.mutate_inputs = tuple(mutate_inputs)
         sig = inspect.signature(fn)
         self.input_names = [p.name for p in sig.parameters.values()
                             if p.kind is p.POSITIONAL_OR_KEYWORD]
@@ -35,6 +44,8 @@ class OpDef:
         self.attr_defaults = {p.name: p.default
                               for p in sig.parameters.values()
                               if p.kind is p.KEYWORD_ONLY}
+        self.takes_is_train = "is_train" in self.attr_defaults
+        self.attr_defaults.pop("is_train", None)
         self.__doc__ = fn.__doc__
 
     def out_count(self, attrs):
@@ -62,10 +73,11 @@ class OpDef:
         return out
 
 
-def register(name, aliases=(), num_outputs=1, num_visible_outputs=None):
+def register(name, aliases=(), num_outputs=1, num_visible_outputs=None,
+             mutate_inputs=()):
     """Decorator: register ``fn`` under ``name`` (and ``aliases``)."""
     def deco(fn):
-        op = OpDef(name, fn, num_outputs, num_visible_outputs)
+        op = OpDef(name, fn, num_outputs, num_visible_outputs, mutate_inputs)
         for n in (name,) + tuple(aliases):
             if n in _OP_REGISTRY:
                 raise MXNetError("operator %s registered twice" % n)

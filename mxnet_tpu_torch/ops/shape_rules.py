@@ -60,8 +60,70 @@ def _same(ins, a):
     return [next(iter(ins.values()))]
 
 
+def _ints(v, n, empty):
+    """An int or int sequence as an ``n``-tuple; ``()`` gives ``empty``."""
+    if isinstance(v, (tuple, list)):
+        t = tuple(int(x) for x in v)
+        return t if t else (empty,) * n
+    return (int(v),) * n
+
+
+def _conv_params(ins, a):
+    x = ins["data"]
+    w = (a["num_filter"], x[1] // int(a["num_group"])) + \
+        tuple(int(k) for k in a["kernel"])
+    return {"weight": w, "bias": (a["num_filter"],)}
+
+
+def _conv_out(ins, a):
+    x = ins["data"]
+    nd = len(a["kernel"])
+    k = _ints(a["kernel"], nd, 1)
+    s, d = _ints(a["stride"], nd, 1), _ints(a["dilate"], nd, 1)
+    p = _ints(a["pad"], nd, 0)
+    sp = tuple((x[2 + i] + 2 * p[i] - d[i] * (k[i] - 1) - 1) // s[i] + 1
+               for i in range(nd))
+    return [(x[0], a["num_filter"]) + sp]
+
+
+def _bn_params(ins, a):
+    c = (ins["data"][int(a["axis"]) % len(ins["data"])],)
+    return {"gamma": c, "beta": c, "moving_mean": c, "moving_var": c}
+
+
+def _bn_out(ins, a):
+    x = ins["data"]
+    c = (x[int(a["axis"]) % len(x)],)
+    return [x, c, c, c, c]
+
+
+def _pool_out(ins, a):
+    x = ins["data"]
+    nd = len(x) - 2
+    if a["global_pool"]:
+        return [x[:2] + (1,) * nd]
+    k = _ints(a["kernel"], nd, 1)
+    s, p = _ints(a["stride"], nd, 1), _ints(a["pad"], nd, 0)
+    sp = []
+    for i in range(nd):
+        span = x[2 + i] + 2 * p[i] - k[i]
+        sp.append((-(-span // s[i]) if a["pooling_convention"] == "full"
+                   else span // s[i]) + 1)
+    return [x[:2] + tuple(sp)]
+
+
+def _flatten_out(ins, a):
+    x = ins["data"]
+    n = 1
+    for d in x[1:]:
+        n *= d
+    return [(x[0], n)]
+
+
 PARAM_SHAPES = {
     "FullyConnected": _fc_params,
+    "Convolution": _conv_params,
+    "BatchNorm": _bn_params,
     "LayerNorm": lambda ins, a: {"gamma": (ins["data"][-1],),
                                  "beta": (ins["data"][-1],)},
     "Embedding": lambda ins, a: {"weight": (a["input_dim"],
@@ -76,6 +138,11 @@ PARAM_SHAPES = {
 
 OUT_SHAPES = {
     "FullyConnected": _fc_out,
+    "Convolution": _conv_out,
+    "BatchNorm": _bn_out,
+    "Pooling": _pool_out,
+    "Activation": _same,
+    "Flatten": _flatten_out,
     "LayerNorm": lambda ins, a: [ins["data"], ins["data"][:-1],
                                  ins["data"][:-1]],
     "LeakyReLU": lambda ins, a: [ins["data"]],

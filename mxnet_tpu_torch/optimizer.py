@@ -7,9 +7,11 @@ slice uses: the ``Optimizer`` base (``lr``, ``wd``, ``rescale_grad``,
 attributes, wd 0 for parameters not named ``*_weight``/``*_gamma``, an
 ``lr_scheduler`` hook), ``SGD`` (momentum), ``Adam``, ``Updater``,
 ``get_updater``, ``create`` and ``register``.  Each update is the
-in-place operator of ``ops/optimizer_ops.py``.  The JAX package's fused
-single-program update (``_fused_sig``) has no counterpart yet: the fit
-step is the eager pair (ROADMAP).
+in-place operator of ``ops/optimizer_ops.py``.  ``bucketable`` tells
+the kvstore's bucketed path which optimizers it may apply (SGD and Adam:
+the optimizers of the port that have a fused signature in the JAX
+package); the JAX package's single-program update has no counterpart
+yet: the fit step is the eager pair (ROADMAP).
 """
 from __future__ import annotations
 
@@ -73,6 +75,11 @@ class Optimizer:
     def create_state(self, index, weight):
         return None
 
+    # whether the kvstore's bucketed path may apply this optimizer per
+    # key (kvstore_fused.py); False keeps a store's pushes on the eager
+    # per-key path (the JAX package's optimizers without _fused_sig)
+    bucketable = False
+
     def update(self, index, weight, grad, state):
         raise NotImplementedError
 
@@ -132,6 +139,8 @@ class SGD(Optimizer):
         super().__init__(**kwargs)
         self.momentum = momentum
 
+    bucketable = True
+
     def create_state(self, index, weight):
         if self.momentum == 0.0:
             return None
@@ -160,6 +169,8 @@ class Adam(Optimizer):
         self.beta1 = beta1
         self.beta2 = beta2
         self.epsilon = epsilon
+
+    bucketable = True
 
     def create_state(self, index, weight):
         return (zeros(weight.shape, weight.context),

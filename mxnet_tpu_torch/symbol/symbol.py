@@ -5,7 +5,8 @@ serving and training slices use: ``Variable`` (with ``init=``,
 ``lr_mult`` and ``wd_mult`` stored as the JAX package stores them),
 ``Group``, composition through the generated op functions and
 ``+``/``-``, ``list_arguments``, ``list_outputs``,
-``list_auxiliary_states``, ``attr_dict``, ``infer_shape`` and
+``list_auxiliary_states`` (the variables an op mutates, such as
+BatchNorm's moving statistics), ``attr_dict``, ``infer_shape`` and
 ``simple_bind``.  JSON serialization, attribute scopes, sharding
 annotations and control flow come with later slices.
 """
@@ -65,22 +66,39 @@ class Symbol:
             visit(node)
         return order
 
-    def list_arguments(self):
+    def _aux_names_set(self):
+        """Names of the variables fed to an op input it mutates
+        (``OpDef.mutate_inputs``)."""
+        aux = set()
+        for node in self._topo():
+            if node.is_var or not node.op.mutate_inputs:
+                continue
+            mut = {nm for nm, _ in node.op.mutate_inputs}
+            for (inp, _), nm in zip(node.inputs, node.op.input_names):
+                if nm in mut and inp.is_var:
+                    aux.add(inp.name)
+        return aux
+
+    def _variables(self, aux):
+        """Variable names in topological order: the auxiliary states
+        when ``aux``, else the arguments."""
+        names = self._aux_names_set()
         out, seen = [], set()
         for node in self._topo():
-            if node.is_var and node.name not in seen:
+            if node.is_var and (node.name in names) == aux \
+                    and node.name not in seen:
                 seen.add(node.name)
                 out.append(node.name)
         return out
+
+    def list_arguments(self):
+        return self._variables(aux=False)
 
     def list_outputs(self):
         return [node.output_name(idx) for node, idx in self._entries]
 
     def list_auxiliary_states(self):
-        """Always empty: no op of the port mutates an auxiliary state
-        yet (BatchNorm's moving statistics come with the vision
-        slice)."""
-        return []
+        return self._variables(aux=True)
 
     def attr_dict(self):
         """``{variable name: {attribute: string}}`` for every variable
@@ -133,12 +151,14 @@ class Symbol:
             for i, s in enumerate(outs):
                 env[(id(node), i)] = tuple(s)
         args = self.list_arguments()
-        missing = [n for n in args if shapes.get(n) is None]
+        auxs = self.list_auxiliary_states()
+        missing = [n for n in args + auxs if shapes.get(n) is None]
         if missing:
             raise MXNetError("infer_shape: cannot determine shapes of %s"
                              % missing)
         return ([shapes[n] for n in args],
-                [env[(id(n), i)] for n, i in self._entries], [])
+                [env[(id(n), i)] for n, i in self._entries],
+                [shapes[n] for n in auxs])
 
     def simple_bind(self, ctx=None, grad_req="null", **shapes):
         """Allocate every argument (float32, zeros) on ``ctx`` from the

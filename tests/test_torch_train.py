@@ -381,15 +381,21 @@ def test_module_without_context_raises_without_gpu(monkeypatch):
 
 
 def test_module_rejects_later_slices(params):
+    """Several contexts, monitors and the multi-GPU stores raise.
+    Gradient compression is in the port now: the Module hands its
+    ``compression_params`` to the kvstore instance at init_optimizer,
+    which rejects a type other than 2bit."""
     sym = transformer.get_symbol(**CFG)
     with pytest.raises(mx.MXNetError, match="multi-GPU"):
         mx.Module(sym, context=[mx.cpu(), mx.cpu(1)])
-    with pytest.raises(mx.MXNetError, match="kvstore slice"):
-        mx.Module(sym, context=mx.cpu(),
-                  compression_params={"type": "2bit"})
-    mod = mx.Module(sym, context=mx.cpu())
     it = _FlatLabels(mx.io.NDArrayIter(*_tokens(np.random.RandomState(2), B),
                                        batch_size=B), mx, _port_flat)
+    one_bit = mx.Module(sym, context=mx.cpu(),
+                        compression_params={"type": "1bit"})
+    with pytest.raises(mx.MXNetError, match="unsupported compression"):
+        one_bit.fit(it, num_epoch=1, kvstore=mx.kv.create("device"),
+                    arg_params=params)
+    mod = mx.Module(sym, context=mx.cpu())
     with pytest.raises(mx.MXNetError, match="monitor"):
         mod.fit(it, num_epoch=1, monitor=object())
     for kv in ("dist_sync", "tpu", "nccl"):

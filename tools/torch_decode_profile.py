@@ -4,6 +4,7 @@ goes on the GPU.
 
     python3 tools/torch_decode_profile.py            # decode steps
     python3 tools/torch_decode_profile.py --train    # one Module.fit step
+    python3 tools/torch_decode_profile.py --resnet   # one 2-bit ResNet step
 
 Builds the PyTorch port's DecodeEngine at chip_smoke.py's full-width
 configuration (same seeded weights and geometry), then drives its bound
@@ -25,6 +26,17 @@ runs two warm-up steps (forward, backward, update) and prints one JSON
 line with the wall time of a step (median of 5, ending in a
 synchronize), the device time per step by kernel group over 3
 profiled steps and the device's idle share.
+
+With ``--resnet`` it binds chip_smoke.py's ResNet-50 (same seeded
+weights and BatchNorm statistics, batch 128) with 2-bit compression
+through ``mx.kv.create('device')``, runs two warm-up steps and prints
+one JSON line with the wall time of a step (median of 5), the device
+time per step by group over 3 profiled steps (convolution, BatchNorm,
+the quantize kernel, the bucket's ``torch.cat`` and the pull's copies,
+the optimizer, the rest), the device launches and host syncs per step,
+and the device's idle share.  The groups come from ``record_function``
+ranges this tool wraps around the ops, the bucket dispatch, the
+optimizer and the pull in its own process.
 
 Needs one CUDA device; exits non-zero without one.
 """
@@ -59,6 +71,16 @@ def group(name):
     return "elementwise/other"
 
 
+_RANGES = ("op:", "kv:")
+
+
+def _is_range(ev):
+    """A ``record_function`` range (its device-side copy spans kernels
+    already counted one by one)."""
+    return getattr(ev, "is_user_annotation", False) \
+        or ev.key.startswith(_RANGES)
+
+
 def device_ms_by_group(torch, prof, n):
     """``({group: device ms per step}, kernel launches)`` of a profile
     over ``n`` steps."""
@@ -66,7 +88,8 @@ def device_ms_by_group(torch, prof, n):
     for ev in prof.key_averages():
         dt = getattr(ev, "self_device_time_total",
                      getattr(ev, "self_cuda_time_total", 0))
-        if dt and ev.device_type == torch.autograd.DeviceType.CUDA:
+        if dt and ev.device_type == torch.autograd.DeviceType.CUDA \
+                and not _is_range(ev):
             g = group(ev.key)
             by_group[g] = by_group.get(g, 0.0) + dt / 1e3 / n
             kernels += ev.count
@@ -118,6 +141,129 @@ def profile_train(torch, cs, mx):
         "device_launches_per_step": kernels / n}), flush=True)
 
 
+def _labelled(fn, label):
+    """``fn`` inside a profiler range named ``label``."""
+    from torch.autograd.profiler import record_function
+
+    def wrapped(*args, **kwargs):
+        with record_function(label):
+            return fn(*args, **kwargs)
+    return wrapped
+
+
+def profile_resnet(torch, cs, mx):
+    from mxnet_tpu_torch import kvstore, kvstore_fused, optimizer
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.ops import nn as ops_nn
+    from mxnet_tpu_torch.ops.registry import get_op
+    from mxnet_tpu_torch.weights import convert_symbol_params
+    from torch.profiler import ProfilerActivity, profile
+    for name in ("BatchNorm", "Convolution"):
+        op = get_op(name)
+        op.fn = _labelled(op.fn, "op:" + name)
+    bn_fn = ops_nn._BatchNormTrainFn
+    bn_fn.backward = staticmethod(_labelled(bn_fn.backward,
+                                            "op:BatchNorm_backward"))
+    eng = kvstore_fused.FusedBucketEngine
+    eng._dispatch = _labelled(eng._dispatch, "kv:bucket")
+    optimizer.Updater.__call__ = _labelled(optimizer.Updater.__call__,
+                                           "kv:optimizer")
+    kvstore.KVStore.pull = _labelled(kvstore.KVStore.pull, "kv:pull")
+
+    cfg, train = cs.RESNET, cs.RESNET_TRAIN
+    B = train["batch"]
+    shapes = dict(data=(B,) + tuple(cfg["image_shape"]), softmax_label=(B,))
+    sym = resnet.get_symbol(**cfg)
+    np_args, np_aux = cs.seeded_resnet_params(sym, B, cfg["image_shape"])
+    mod = mx.Module(sym, context=mx.gpu(0), compression_params={
+        "type": "2bit", "threshold": train["threshold"]})
+    mod.bind(data_shapes=[("data", shapes["data"])],
+             label_shapes=[("softmax_label", (B,))])
+    mod.set_params(*convert_symbol_params(np_args, np_aux, mx.gpu(0), sym,
+                                          **shapes))
+    kv = mx.kv.create("device")
+    mod.init_optimizer(kvstore=kv, optimizer="sgd", optimizer_params={
+        "learning_rate": train["lr"], "momentum": train["momentum"],
+        "wd": train["wd"]})
+    x, y = cs._image_batches(cfg["image_shape"], B, cs.SEED + 11,
+                             cfg["num_classes"])
+    batch = mx.io.DataBatch(data=[mx.nd.array(x, ctx=mx.cpu())],
+                            label=[mx.nd.array(y, ctx=mx.cpu())])
+
+    def step():
+        mod.fit_step(batch)
+        torch.cuda.synchronize()
+
+    for _ in range(2):
+        step()
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        step()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    b0 = kv._engine.stats["buckets"]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            mod.fit_step(batch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    # each synchronizing call as the Python line that made it
+    syncs = ["%s:%d" % (os.path.relpath(w.filename, ROOT), w.lineno)
+             for w in caught if "called a synchronizing" in str(w.message)]
+    buckets = kv._engine.stats["buckets"] - b0
+    n = 3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
+    total, kernels = device_ms_by_group(torch, prof, n)
+    device_ms = sum(total.values())
+    # host-side ranges and ops carry the device time of the kernels
+    # launched inside them
+    ranges, quant = {}, 0.0
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CPU and (
+                ev.key.startswith(_RANGES)
+                or ev.key == "aten::convolution_backward"):
+            ranges[ev.key] = ranges.get(ev.key, 0.0) + getattr(
+                ev, "device_time_total", getattr(ev, "cuda_time_total", 0)) \
+                / 1e3 / n
+        if "two_bit_quantize" in ev.key and \
+                ev.device_type == torch.autograd.DeviceType.CUDA:
+            quant += getattr(ev, "self_device_time_total",
+                             getattr(ev, "self_cuda_time_total", 0)) / 1e3 / n
+    # the quantize kernel, launched through ctypes, is not attributed to
+    # the bucket range that launches it: the range holds the cat, the
+    # sums and the optimizer
+    bucket = ranges.get("kv:bucket", 0.0)
+    opt_ms = ranges.get("kv:optimizer", 0.0)
+    groups = {
+        "convolution": ranges.get("op:Convolution", 0.0)
+        + ranges.get("aten::convolution_backward", 0.0),
+        "batchnorm": ranges.get("op:BatchNorm", 0.0)
+        + ranges.get("op:BatchNorm_backward", 0.0),
+        "quantize": quant,
+        "bucket_cat_and_sums": bucket - opt_ms,
+        "optimizer": opt_ms,
+        "pull_copies": ranges.get("kv:pull", 0.0)}
+    groups["elementwise/other"] = device_ms - sum(groups.values())
+    wall = statistics.median(walls)
+    print(json.dumps({
+        "phase": "profile", "step": "resnet50_2bit", "config": cfg,
+        "batch": B, "threshold": train["threshold"], "wall_ms_p50": wall,
+        "wall_ms": walls, "device_ms": device_ms,
+        "device_idle_share": 1 - device_ms / wall,
+        "device_ms_by_group": {k: round(v, 4) for k, v in
+                               sorted(groups.items(), key=lambda kv: -kv[1])},
+        "device_launches_per_step": kernels / n,
+        "buckets_per_step": buckets,
+        "host_syncs_per_step": len(syncs),
+        "sync_sites": sorted(set(syncs))}), flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -131,7 +277,11 @@ def main():
     from torch.profiler import ProfilerActivity, profile
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     cs.phase_device(torch)
+    if "--resnet" in sys.argv[1:]:
+        profile_resnet(torch, cs, mx)
+        return 0
     if "--train" in sys.argv[1:]:
         profile_train(torch, cs, mx)
         return 0
