@@ -74,7 +74,31 @@ Phases, each printed as one JSON line:
    forward (within 1e-3 and 1e-4 of the CPU's largest value of each),
    and one 2-bit update at the median |g|: q equal wherever the CPU's
    |g| lies farther than 1e-4 t from t, the elements inside that band
-   counted and under 1e-4 of all.
+   counted and under 1e-4 of all;
+13. fused_matmul: the fused BN-apply/ReLU/1x1-convolution kernel against
+   its plain version (rtol 1e-4 / atol 1e-5) at the 8 (M, K, N) shapes of
+   ResNet-50's 28 fused sites at batch 128 and one odd shape, two runs
+   bit-identical; timed as in 3 beside ``torch.addmm``/``torch.matmul``
+   on the already activated input (the product alone: a yardstick that
+   skips the activation pass the kernel fuses);
+14. train_resnet_nhwc: ResNet-50 v2 through ``parallel.TrainStep`` from
+   the same numpy weights (OIHW transposed to OHWI for the channel-last
+   arms) in three arms, NCHW, NHWC, and NHWC after ``fuse_conv_bn``:
+   batch 128, SGD (learning rate 0.05, momentum 0.9, wd 1e-4, gradients
+   rescaled by 1/batch as bench.py and Module.fit do), 10 steps over two
+   fixed batches; the first-step losses agree within 1e-3, the
+   loss falls on the repeated batch, the fused arm launches the kernel
+   exactly 28 times per step and no plain version, the others never
+   launch it; step p50, images/s and peak memory are printed per arm;
+15. resnet_nhwc_agreement: one fused site's backward (16384 x 64 ->
+   256 with a residual) card against CPU, each gradient within 1e-4 of
+   its largest CPU value; then the fused NHWC ResNet-50 at 3x64x64, 10
+   classes, batch 4, one TrainStep step on the card and on the CPU from
+   the same numpy weights: loss (rtol 1e-3), probabilities (atol 1e-4),
+   every moving statistic (1e-4 of its largest CPU value) and the whole
+   gradient's relative L2 error (0.1: at random initialisation the
+   gradient moves by percents under rounding-level changes, so a CPU run
+   on the input scaled by 1 + 2^-22 is printed beside it).
 
 Then the kernels' JSON line, and last ``{"ok": true, "device": ...}``.
 Any failed check raises, so the script exits non-zero and prints no
@@ -124,6 +148,20 @@ RESNET_TRAIN = dict(batch=128, lr=0.05, momentum=0.9, wd=1e-4, batches=2,
 RESNET_AGREE = dict(num_classes=10, num_layers=18, image_shape=(3, 64, 64),
                     batch=4, loss_rtol=1e-3, grad_rtol=1e-3, aux_rtol=1e-4,
                     band=1e-4, band_share=1e-4)
+# bench.py's channel-last ResNet-50 through TrainStep (f32, train_resnet's
+# batch); the fused arm has 28 BN -> ReLU -> Conv1x1 sites
+NHWC_TRAIN = dict(batch=128, lr=0.05, momentum=0.9, wd=1e-4, batches=2,
+                  steps=10, warmup=2, sites=28, loss_rtol=1e-3)
+NHWC_AGREE = dict(num_classes=10, num_layers=50, image_shape=(3, 64, 64),
+                  batch=4, loss_rtol=1e-3, prob_atol=1e-4, aux_rtol=1e-4,
+                  grad_l2=0.1, perturb=2.0 ** -22, site=(16384, 64, 256),
+                  site_rtol=1e-4)
+# (M, K, N, residual): site count, for ResNet-50's fused sites at batch 128
+FUSED_SHAPES = {(401408, 256, 64, False): 2, (401408, 64, 256, True): 3,
+                (100352, 512, 128, False): 3, (100352, 128, 512, True): 4,
+                (25088, 1024, 256, False): 5, (25088, 256, 1024, True): 6,
+                (6272, 2048, 512, False): 2, (6272, 512, 2048, True): 3}
+FUSED_ODD = (1000, 37, 93, True)
 
 
 class SmokeFailure(RuntimeError):
@@ -1175,6 +1213,278 @@ def phase_resnet_agreement(torch, mx, ctxs=None, cfg=RESNET_AGREE):
                                           for v in cq.values())) / total})
 
 
+# ----------------------------------------------------------------------
+# channel-last ResNet-50 through TrainStep, with the fused kernel
+# ----------------------------------------------------------------------
+def phase_fused_matmul(torch, mxk, dev, flush):
+    """fused_scale_relu_matmul against its plain version at every shape
+    of FUSED_SHAPES and FUSED_ODD, two runs bit-identical; times at the
+    ResNet-50 shapes.  Returns the kernels-line row: times per launch
+    averaged over one step's 28 launches."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    rows, errs = [], []
+    for shape in list(FUSED_SHAPES) + [FUSED_ODD]:
+        M, K, N, with_res = shape
+        x = torch.randn(M, K, device=dev, generator=g)
+        sc = 1 + 0.2 * torch.randn(K, device=dev, generator=g)
+        sh = 0.2 * torch.randn(K, device=dev, generator=g)
+        w = torch.randn(N, K, device=dev, generator=g) / K ** 0.5
+        res = torch.randn(M, N, device=dev, generator=g) if with_res \
+            else None
+        got = mxk.fused_scale_relu_matmul_fwd(x, sc, sh, w, res)
+        again = mxk.fused_scale_relu_matmul_fwd(x, sc, sh, w, res)
+        ref = mxk.fused_scale_relu_matmul_plain(x, sc, sh, w, res)
+        torch.cuda.synchronize()
+        check(close(torch, got, ref), "fused_scale_relu_matmul %s disagrees "
+              "with its plain version (max abs err %g)"
+              % (shape, max_err(got, ref)))
+        check(torch.equal(got, again), "fused_scale_relu_matmul %s: two "
+              "runs differ" % (shape,))
+        errs.append(max_err(got, ref))
+        del got, again, ref
+        if shape == FUSED_ODD:
+            continue
+        a = torch.relu(x * sc + sh)
+        ms = time_ms(torch, lambda: mxk.fused_scale_relu_matmul_fwd(
+            x, sc, sh, w, res), flush)
+        plain_ms = time_ms(torch, lambda: mxk.fused_scale_relu_matmul_plain(
+            x, sc, sh, w, res), flush)
+        wt = w.t()
+        lib_ms = time_ms(torch, (lambda: torch.addmm(res, a, wt))
+                         if with_res else (lambda: torch.matmul(a, wt)),
+                         flush)
+        # x, w, scale, shift (and the residual) read once, y written once;
+        # the product's 2MNK, the prologue's 3 per x element, the add
+        nbytes = 4 * (M * K + N * K + 2 * K + M * N * (2 if with_res else 1))
+        flops = 2 * M * N * K + 3 * M * K + (M * N if with_res else 0)
+        b_ms, b_by = bound(nbytes, flops)
+        row = {"M": M, "K": K, "N": N, "residual": with_res,
+               "sites": FUSED_SHAPES[shape], "max_abs_err": errs[-1],
+               "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+               "bound_ms": b_ms, "bound_by": b_by,
+               "tflops": 2 * M * N * K / ms / 1e9}
+        emit({"phase": "kernel", "name": "fused_scale_relu_matmul", **row})
+        rows.append(row)
+        del x, a, res, w
+    sites = sum(FUSED_SHAPES.values())
+    per_launch = {k: sum(r[k] * r["sites"] for r in rows) / sites
+                  for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    # the step's bound is by operations when the sites bound by
+    # operations make up most of it
+    ops_ms = sum(r["sites"] * r["bound_ms"] for r in rows
+                 if r["bound_by"] == "operations")
+    emit({"phase": "fused_matmul", "shapes_checked": len(FUSED_SHAPES) + 1,
+          "odd_shape": list(FUSED_ODD), "deterministic": True,
+          "step_ms": per_launch["ms"] * sites,
+          "step_plain_ms": per_launch["plain_ms"] * sites,
+          "step_library_ms": per_launch["library_ms"] * sites,
+          "step_bound_ms": per_launch["bound_ms"] * sites,
+          "library_call": "torch.addmm / torch.matmul on relu(x*scale+shift)"
+                          " (the product alone)"})
+    return {"name": "fused_scale_relu_matmul", "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/fused_matmul.cu",
+            "replaces": "mxnet_tpu/ops/fused.py:91",
+            "max_abs_err": max(errs),
+            "bound_by": "operations" if ops_ms * 2 >= per_launch["bound_ms"]
+            * sites else "bytes", **per_launch}
+
+
+def _nhwc(a):
+    """An NCHW array or OIHW weight as contiguous NHWC / OHWI."""
+    return np.ascontiguousarray(a.transpose(0, 2, 3, 1)) if a.ndim == 4 \
+        else a
+
+
+def phase_train_resnet_nhwc(torch, mx, ctx=None, cfg=RESNET,
+                            train=NHWC_TRAIN):
+    """ResNet-50 through TrainStep in three arms from the same seeded
+    weights: NCHW, NHWC, NHWC with the fusion pass.  Returns the fused
+    arm's launch counts and step count."""
+    from mxnet_tpu_torch.kernels import LAUNCHES, PLAIN_CALLS, reset_counts
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.parallel import TrainStep
+    from mxnet_tpu_torch.symbol.fuse import count_fused, fuse_conv_bn
+    ctx = ctx or mx.gpu(0)
+    on_card = ctx.device_type == "gpu"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    dev = ctx.torch_device
+    B, steps, name = train["batch"], train["steps"], "fused_scale_relu_matmul"
+    np_args, np_aux = seeded_resnet_params(resnet.get_symbol(**cfg), B,
+                                           cfg["image_shape"])
+    x, y = _image_batches(cfg["image_shape"], B * train["batches"],
+                          SEED + 14, cfg["num_classes"])
+    arms, result = {}, None
+    for arm, layout, fuse in (("nchw", "NCHW", False), ("nhwc", "NHWC", False),
+                              ("nhwc_fused", "NHWC", True)):
+        t0 = time.perf_counter()
+        sym = resnet.get_symbol(layout=layout, **cfg)
+        if fuse:
+            sym = fuse_conv_bn(sym)
+            check(count_fused(sym) == train["sites"], "train_resnet_nhwc: "
+                  "%d fused sites, not %d" % (count_fused(sym),
+                                              train["sites"]))
+        conv = _nhwc if layout == "NHWC" else (lambda a: a)
+        data = conv(x)
+        batches = [{"data": torch.from_numpy(data[i * B:(i + 1) * B]).to(dev),
+                    "softmax_label": torch.from_numpy(
+                        y[i * B:(i + 1) * B]).to(dev)}
+                   for i in range(train["batches"])]
+        ts = TrainStep(sym, mx.optimizer.SGD(
+            learning_rate=train["lr"], momentum=train["momentum"],
+            wd=train["wd"], rescale_grad=1.0 / B),
+            data_shapes={"data": data[:B].shape},
+            label_shapes={"softmax_label": (B,)}, ctx=ctx)
+        ts.init_params(mx.init.Xavier(), arg_params={
+            n: conv(a) for n, a in np_args.items()}, aux_params=np_aux)
+        sync()
+        setup_s = time.perf_counter() - t0
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        losses, stamps = [], [time.perf_counter()]
+        reset_counts()
+        for i in range(steps):
+            batch = batches[i % train["batches"]]
+            prob = ts.step(batch)[0]
+            lab = batch["softmax_label"].long()
+            losses.append(float(-torch.log(prob.gather(
+                1, lab[:, None]).clamp(min=1e-30)).mean()))
+            stamps.append(time.perf_counter())
+        sync()
+        launches, plain = dict(LAUNCHES), dict(PLAIN_CALLS)
+        check(all(np.isfinite(losses)), "train_resnet_nhwc %s: non-finite "
+              "loss %s" % (arm, losses))
+        first, last = losses[0], losses[-train["batches"]]
+        check(last < first, "train_resnet_nhwc %s: the loss on the repeated "
+              "batch did not fall (%g -> %g)" % (arm, first, last))
+        counts = launches if on_card else plain
+        want = train["sites"] * steps if fuse else 0
+        check(counts[name] == want, "train_resnet_nhwc %s: %d %s calls over "
+              "%d steps, want %d" % (arm, counts[name], name, steps, want))
+        if on_card:
+            check(not any(plain.values()), "train_resnet_nhwc %s: plain "
+                  "versions ran on the main path: %s" % (arm, plain))
+        step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+        p50 = statistics.median(step_ms[train["warmup"]:])
+        arms[arm] = {"layout": layout, "fused_sites": train["sites"] if fuse
+                     else 0, "setup_s": setup_s, "step_ms": step_ms,
+                     "step_ms_p50": p50, "images_per_s": B / (p50 / 1e3),
+                     "loss": losses, "kernel_launches_per_step":
+                         launches[name] / steps,
+                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9
+                     if on_card else None}
+        if fuse:
+            result = (launches, steps)
+        del ts, batches
+    firsts = [a["loss"][0] for a in arms.values()]
+    check(max(firsts) - min(firsts) <= train["loss_rtol"] * abs(firsts[0]),
+          "train_resnet_nhwc: first-step losses differ across arms: %s"
+          % firsts)
+    emit({"phase": "train_resnet_nhwc", "config": cfg, "train": train,
+          **arms})
+    return result
+
+
+def phase_resnet_nhwc_agreement(torch, mx, ctxs=None, cfg=NHWC_AGREE):
+    """Card against CPU on the fused path, in two parts.
+
+    1. One fused site's backward (the autograd Function's dx, dscale,
+       dshift, dW and dres for a fixed cotangent at the shape
+       ``cfg['site']``) from the same numpy inputs: each within
+       site_rtol of its largest CPU value (sums in another order).
+    2. The fused NHWC ResNet-50 at 3x64x64, batch 4, one TrainStep step
+       from the same numpy weights on the card and on the CPU, and once
+       more on the CPU with the input scaled by 1 + perturb (a change
+       at the rounding level): the loss (loss_rtol), the output
+       probabilities (prob_atol) and every moving statistic after the
+       train forward (aux_rtol of its largest CPU value) are held as in
+       resnet_agreement.  The whole gradient is held by its relative L2
+       error (grad_l2): at random initialisation the gradient of a
+       BatchNorm ResNet-50 moves by percents under rounding-level
+       changes (ReLU masks flip and BatchNorm's backward amplifies the
+       difference), and the perturbed CPU run's own distance is printed
+       beside the card's, so an element bound cannot hold."""
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.ops.fused import fused_scale_relu_matmul
+    from mxnet_tpu_torch.parallel import TrainStep
+    from mxnet_tpu_torch.symbol.fuse import count_fused, fuse_conv_bn
+    ctxs = ctxs or (mx.gpu(0), mx.cpu())
+    rng = np.random.default_rng(SEED + 16)
+    M, K, N = cfg["site"]
+    x2d, sc, sh, w, res, dy = (rng.standard_normal(s, dtype=np.float32)
+                               for s in ((M, K), (K,), (K,), (N, K), (M, N),
+                                         (M, N)))
+    site = [x2d, 1 + 0.2 * sc, 0.2 * sh, w / np.float32(np.sqrt(K)), res]
+    site_grads = []
+    for ctx in ctxs:
+        dev = ctx.torch_device
+        ins = [torch.from_numpy(a).to(dev).requires_grad_() for a in site]
+        out = fused_scale_relu_matmul(*ins)
+        site_grads.append([g.cpu().numpy() for g in torch.autograd.grad(
+            out, ins, torch.from_numpy(dy).to(dev))])
+    site_worst = {}
+    for name, a, b in zip(("dx", "dscale", "dshift", "dW", "dres"),
+                          *site_grads):
+        scale = float(np.abs(b).max())
+        err = float(np.abs(a - b).max())
+        check(err <= cfg["site_rtol"] * scale, "resnet_nhwc_agreement: "
+              "fused site %s differs by %g (largest CPU value %g)"
+              % (name, err, scale))
+        site_worst[name] = err / scale
+
+    B, image = cfg["batch"], cfg["image_shape"]
+    kw = {k: cfg[k] for k in ("num_classes", "num_layers", "image_shape")}
+    np_args, np_aux = seeded_resnet_params(resnet.get_symbol(**kw), B, image)
+    np_args = {n: _nhwc(a) for n, a in np_args.items()}
+    x, y = _image_batches(image, B, SEED + 15, cfg["num_classes"])
+    runs = []
+    for ctx, scale in ((ctxs[0], 1.0), (ctxs[1], 1.0),
+                       (ctxs[1], 1.0 + cfg["perturb"])):
+        sym = fuse_conv_bn(resnet.get_symbol(layout="NHWC", **kw))
+        ts = TrainStep(sym, mx.optimizer.SGD(learning_rate=0.05,
+                                             momentum=0.9, wd=1e-4,
+                                             rescale_grad=1.0 / B),
+                       data_shapes={"data": (B,) + _nhwc(x).shape[1:]},
+                       label_shapes={"softmax_label": (B,)}, ctx=ctx)
+        ts.init_params(mx.init.Xavier(), arg_params=np_args,
+                       aux_params=np_aux)
+        prob = ts.step({"data": _nhwc(x) * np.float32(scale),
+                        "softmax_label": y})[0].cpu().numpy()
+        loss = float(-np.log(prob[np.arange(B), y.astype(int)]).mean())
+        grad = np.concatenate([g.cpu().numpy().ravel()
+                               for g in ts.grads.values()])
+        runs.append((loss, prob, grad,
+                     {n: a.cpu().numpy() for n, a in ts.auxs.items()}))
+        del ts
+    (gl, gp, gg, ga), (cl, cp, cg, ca), (_, _, pg, _) = runs
+    check(abs(gl - cl) <= cfg["loss_rtol"] * abs(cl),
+          "resnet_nhwc_agreement: loss %g on the card, %g on the CPU"
+          % (gl, cl))
+    check(np.allclose(gp, cp, rtol=0, atol=cfg["prob_atol"]),
+          "resnet_nhwc_agreement: probabilities differ by %g"
+          % float(np.abs(gp - cp).max()))
+    worst_aux = 0.0
+    for name, ref in ca.items():
+        scale = float(np.abs(ref).max())
+        err = float(np.abs(ga[name] - ref).max())
+        check(err <= cfg["aux_rtol"] * scale, "resnet_nhwc_agreement: %s "
+              "differs by %g after the train forward (largest CPU value %g)"
+              % (name, err, scale))
+        worst_aux = max(worst_aux, err / scale if scale else 0.0)
+    norm = float(np.linalg.norm(cg))
+    grad_l2 = float(np.linalg.norm(gg - cg)) / norm
+    check(grad_l2 <= cfg["grad_l2"], "resnet_nhwc_agreement: the gradient "
+          "differs by %g (relative L2) between the card and the CPU"
+          % grad_l2)
+    emit({"phase": "resnet_nhwc_agreement", "config": cfg,
+          "fused_sites": count_fused(sym), "site_worst_rel_err": site_worst,
+          "loss_card": gl, "loss_cpu": cl,
+          "prob_max_abs_err": float(np.abs(gp - cp).max()),
+          "worst_aux_rel_err": worst_aux, "grad_rel_l2_card_vs_cpu": grad_l2,
+          "grad_rel_l2_cpu_vs_perturbed_cpu":
+              float(np.linalg.norm(pg - cg)) / norm})
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1198,6 +1508,7 @@ def main():
     train_kernels = [phase_layernorm_bwd(torch, mxk, dev, flush)] + \
         phase_flash(torch, mxk, dev, flush)
     quant_kernel = phase_quant(torch, mxk, dev, flush)
+    fused_kernel = phase_fused_matmul(torch, mxk, dev, flush)
     del flush
     full = seeded_params(FULL)
     serve_launches, serve_steps = phase_serve(torch, mx, full)
@@ -1208,11 +1519,13 @@ def main():
     phase_kvstore(torch, mx)
     resnet_launches, resnet_steps = phase_train_resnet(torch, mx)
     phase_resnet_agreement(torch, mx)
+    nhwc_launches, nhwc_steps = phase_train_resnet_nhwc(torch, mx)
+    phase_resnet_nhwc_agreement(torch, mx)
     # launches: the count of each kernel's main-path run (serve for the
     # serving kernels, the transformer's Module.fit for its training
-    # kernels, the 2-bit ResNet-50 fit for the quantizer); LayerNorm's
-    # forward runs on both of the first two and carries the train count
-    # beside it
+    # kernels, the 2-bit ResNet-50 fit for the quantizer, the fused NHWC
+    # ResNet-50 TrainStep arm for the fused kernel); LayerNorm's forward
+    # runs on both of the first two and carries the train count beside it
     for k in serve_kernels:
         k["launches"] = serve_launches[k["name"]]
         k["launches_per_step"] = serve_launches[k["name"]] / serve_steps
@@ -1222,6 +1535,8 @@ def main():
         k["launches_per_step"] = train_launches[k["name"]] / train_steps
     quant_kernel["launches"] = resnet_launches[quant_kernel["name"]]
     quant_kernel["launches_per_step"] = quant_kernel["launches"] / resnet_steps
+    fused_kernel["launches"] = nhwc_launches[fused_kernel["name"]]
+    fused_kernel["launches_per_step"] = fused_kernel["launches"] / nhwc_steps
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{**{key: k[key] for key in keys},
@@ -1229,7 +1544,7 @@ def main():
                                                   "train_launches")
                           if key in k}}
                       for k in serve_kernels + train_kernels
-                      + [quant_kernel]]})
+                      + [quant_kernel, fused_kernel]]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

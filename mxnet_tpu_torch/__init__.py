@@ -4,11 +4,14 @@ A second package beside ``mxnet_tpu`` (the JAX reference), with the same
 MXNet-shaped API.  It serves the decoder-only transformer LM through the
 paged decode engine, and trains it, LeNet and ResNet through
 ``Module.fit``, optionally through the device kvstore with 2-bit
-gradient compression (``mx.kv.create('device')``).  The paged decode
-attention, the chunked-prefill attention, LayerNorm (forward and
-backward), causal flash attention (forward and backward) and the 2-bit
-quantizer run in hand-written CUDA kernels (``csrc/``), built for
-``sm_90a`` on first use.
+gradient compression (``mx.kv.create('device')``), and trains the
+channel-last ResNet through ``parallel.TrainStep``, optionally after
+the BN -> ReLU -> Conv1x1 fusion pass (``symbol.fuse``).  The paged
+decode attention, the chunked-prefill attention, LayerNorm (forward and
+backward), causal flash attention (forward and backward), the 2-bit
+quantizer and the fused BN-apply/ReLU/1x1 convolution run in
+hand-written CUDA kernels (``csrc/``), built for ``sm_90a`` on first
+use.
 
 Entry points run on the card (``gpu(0)``, i.e. ``cuda:0``) unless the
 caller passes ``ctx=mx.cpu()``; with no GPU and no CPU request they

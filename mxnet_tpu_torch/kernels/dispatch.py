@@ -26,7 +26,7 @@ __all__ = ["KERNELS", "LAUNCHES", "PLAIN_CALLS", "on_cpu", "count_launch",
 KERNELS = ("paged_decode_attend", "paged_chunk_prefill_attend",
            "layernorm_fused", "layernorm_fused_bwd", "flash_attention_fwd",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
-           "two_bit_quantize_fused")
+           "two_bit_quantize_fused", "fused_scale_relu_matmul")
 LAUNCHES = {k: 0 for k in KERNELS}
 PLAIN_CALLS = {k: 0 for k in KERNELS}
 _lock = threading.Lock()

@@ -2,8 +2,9 @@
 
 Counterpart of ``mxnet_tpu/ops/nn.py`` for the ops the transformer's
 mixed decode step and training symbol and the LeNet and ResNet symbols
-use, with the same weight layouts (NCHW data, (num_filter, C / groups,
-kh, kw) convolution weights).  The projections, the FFN and the
+use, with the same layouts (NCHW data with (num_filter, C / groups, kh,
+kw) convolution weights, or NHWC data with (num_filter, kh, kw,
+C / groups) weights).  The projections, the FFN and the
 convolutions are plain PyTorch calls (``torch.matmul``,
 ``F.conv2d``: the JAX package left them to XLA, in no Pallas kernel);
 LayerNorm, the causal training attention and the two paged attentions
@@ -33,6 +34,19 @@ def _tuple(v, n):
 
 def _channel_last(layout):
     return layout is not None and str(layout).endswith("C")
+
+
+def _channel_last_call(fn, *tensors, **attrs):
+    """``fn`` (a channels-first op) on channel-last tensors, by views:
+    each tensor's last axis moved to axis 1, which for contiguous NHWC
+    data or OHWI weights is PyTorch's channels_last layout, with no
+    copy; the convolution and pooling kernels take that layout as it
+    is and return it, and the result is moved back, again a view.  The
+    JAX package's design has no relayout copy anywhere in the step, so
+    nothing here makes a tensor contiguous."""
+    out = fn(*[t if t is None or t.dim() == 1 else t.movedim(-1, 1)
+               for t in tensors], **attrs)
+    return out.movedim(1, -1)
 
 
 def _linear(x, weight, bias=None):
@@ -81,15 +95,18 @@ _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
 def convolution(data, weight, bias=None, *, kernel, num_filter, stride=(),
                 dilate=(), pad=(), num_group=1, no_bias=False, cudnn_tune=None,
                 cudnn_off=False, workspace=1024, layout=None):
-    """1-, 2- or 3-D convolution over channels-first data (ref
-    src/operator/nn/convolution.cc), with groups, dilation and symmetric
-    padding; the bias, when there is one, is added per output channel.
-    ``layout='NHWC'`` (channel-last data and weights) comes with a later
-    slice."""
+    """1-, 2- or 3-D convolution (ref src/operator/nn/convolution.cc),
+    with groups, dilation and symmetric padding; the bias, when there is
+    one, is added per output channel.  Channels-first data takes
+    (num_filter, C / groups, *kernel) weights; a channel-last ``layout``
+    (NWC, NHWC, NDHWC) takes channel-last data and (num_filter, *kernel,
+    C / groups) weights, as the JAX package's ``_conv_dnums`` pairs
+    them."""
     if _channel_last(layout):
-        raise MXNetError("Convolution(layout=%r): channel-last training "
-                         "comes with a later slice of the PyTorch port"
-                         % (layout,))
+        return _channel_last_call(convolution, data, weight, bias,
+                                  kernel=kernel, num_filter=num_filter,
+                                  stride=stride, dilate=dilate, pad=pad,
+                                  num_group=num_group, no_bias=no_bias)
     nd = len(kernel)
     if nd not in _CONV or data.dim() != nd + 2:
         raise MXNetError("Convolution: a %d-D kernel over %d-D data is not "
@@ -205,8 +222,9 @@ _AVG_POOL = {2: F.avg_pool2d, 3: F.avg_pool3d}
 def pooling(data, *, kernel=(), pool_type="max", global_pool=False,
             stride=(), pad=(), pooling_convention="valid", cudnn_off=False,
             count_include_pad=True, p_value=2, layout=None):
-    """Max, average or sum pooling over 2-D or 3-D channels-first data
-    (ref src/operator/nn/pooling.cc).  ``pooling_convention='full'``
+    """Max, average or sum pooling over 2-D or 3-D data, channels first
+    or, with a channel-last ``layout``, channel last (ref
+    src/operator/nn/pooling.cc).  ``pooling_convention='full'``
     rounds the output size up, padding the far edge as needed.  The
     padding is explicit (``-inf`` for max, zeros otherwise), so every
     window is a whole kernel: ``avg`` divides by the kernel size, or,
@@ -215,8 +233,11 @@ def pooling(data, *, kernel=(), pool_type="max", global_pool=False,
     row-major order, as XLA's select-and-scatter gives it (ties are
     common: ReLU outputs tie at 0)."""
     if _channel_last(layout):
-        raise MXNetError("Pooling(layout=%r): channel-last training comes "
-                         "with a later slice of the PyTorch port" % (layout,))
+        return _channel_last_call(
+            pooling, data, kernel=kernel, pool_type=pool_type,
+            global_pool=global_pool, stride=stride, pad=pad,
+            pooling_convention=pooling_convention,
+            count_include_pad=count_include_pad)
     nd = data.dim() - 2
     if global_pool:
         red = tuple(range(2, 2 + nd))

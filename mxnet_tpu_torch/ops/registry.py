@@ -9,10 +9,14 @@ package's ``current_op_context().is_train``).  ``mutate_inputs`` names
 the inputs an op updates, each with the output that carries its new
 value (BatchNorm's moving statistics, the reference's FMutateInputs):
 the symbol lists those variables as auxiliary states and the executor
-writes the outputs back into them after a train forward.  Shape
-inference uses
-the explicit rules in ``shape_rules.py`` (the JAX package traced the
-function with ``jax.eval_shape`` instead).
+writes the outputs back into them after a train forward.
+``unused_inputs(attrs)`` names the inputs an op does not take under
+those attributes (``_FusedBNReluConv``'s residual without
+``with_residual``): the symbol functions leave them out where they
+would otherwise create a variable, and create every other missing
+input, optional ones included.  Shape inference uses the explicit rules
+in ``shape_rules.py`` (the JAX package traced the function with
+``jax.eval_shape`` instead).
 """
 from __future__ import annotations
 
@@ -29,12 +33,13 @@ class OpDef:
     """One registered operator."""
 
     def __init__(self, name, fn, num_outputs=1, num_visible_outputs=None,
-                 mutate_inputs=()):
+                 mutate_inputs=(), unused_inputs=None):
         self.name = name
         self.fn = fn
         self._num_outputs = num_outputs
         self._num_visible = num_visible_outputs
         self.mutate_inputs = tuple(mutate_inputs)
+        self.unused_inputs = unused_inputs
         sig = inspect.signature(fn)
         self.input_names = [p.name for p in sig.parameters.values()
                             if p.kind is p.POSITIONAL_OR_KEYWORD]
@@ -74,10 +79,11 @@ class OpDef:
 
 
 def register(name, aliases=(), num_outputs=1, num_visible_outputs=None,
-             mutate_inputs=()):
+             mutate_inputs=(), unused_inputs=None):
     """Decorator: register ``fn`` under ``name`` (and ``aliases``)."""
     def deco(fn):
-        op = OpDef(name, fn, num_outputs, num_visible_outputs, mutate_inputs)
+        op = OpDef(name, fn, num_outputs, num_visible_outputs, mutate_inputs,
+                   unused_inputs)
         for n in (name,) + tuple(aliases):
             if n in _OP_REGISTRY:
                 raise MXNetError("operator %s registered twice" % n)

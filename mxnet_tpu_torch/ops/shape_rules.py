@@ -68,22 +68,40 @@ def _ints(v, n, empty):
     return (int(v),) * n
 
 
+def _channel_last(a):
+    return a.get("layout") is not None and str(a["layout"]).endswith("C")
+
+
+def _split(x, a):
+    """(channels, spatial dims) of a data shape in the op's layout."""
+    return (x[-1], tuple(x[1:-1])) if _channel_last(a) else \
+        (x[1], tuple(x[2:]))
+
+
+def _join(n, c, sp, a):
+    return (n,) + sp + (c,) if _channel_last(a) else (n, c) + sp
+
+
 def _conv_params(ins, a):
-    x = ins["data"]
-    w = (a["num_filter"], x[1] // int(a["num_group"])) + \
-        tuple(int(k) for k in a["kernel"])
+    """OIHW weights for channels-first data, OHWI for channel-last."""
+    c, _ = _split(ins["data"], a)
+    kernel = tuple(int(k) for k in a["kernel"])
+    cg = c // int(a["num_group"])
+    w = (a["num_filter"],) + kernel + (cg,) if _channel_last(a) else \
+        (a["num_filter"], cg) + kernel
     return {"weight": w, "bias": (a["num_filter"],)}
 
 
 def _conv_out(ins, a):
     x = ins["data"]
+    _, xs = _split(x, a)
     nd = len(a["kernel"])
     k = _ints(a["kernel"], nd, 1)
     s, d = _ints(a["stride"], nd, 1), _ints(a["dilate"], nd, 1)
     p = _ints(a["pad"], nd, 0)
-    sp = tuple((x[2 + i] + 2 * p[i] - d[i] * (k[i] - 1) - 1) // s[i] + 1
+    sp = tuple((xs[i] + 2 * p[i] - d[i] * (k[i] - 1) - 1) // s[i] + 1
                for i in range(nd))
-    return [(x[0], a["num_filter"]) + sp]
+    return [_join(x[0], a["num_filter"], sp, a)]
 
 
 def _bn_params(ins, a):
@@ -99,17 +117,39 @@ def _bn_out(ins, a):
 
 def _pool_out(ins, a):
     x = ins["data"]
-    nd = len(x) - 2
+    c, xs = _split(x, a)
+    nd = len(xs)
     if a["global_pool"]:
-        return [x[:2] + (1,) * nd]
+        return [_join(x[0], c, (1,) * nd, a)]
     k = _ints(a["kernel"], nd, 1)
     s, p = _ints(a["stride"], nd, 1), _ints(a["pad"], nd, 0)
     sp = []
     for i in range(nd):
-        span = x[2 + i] + 2 * p[i] - k[i]
+        span = xs[i] + 2 * p[i] - k[i]
         sp.append((-(-span // s[i]) if a["pooling_convention"] == "full"
                    else span // s[i]) + 1)
-    return [x[:2] + tuple(sp)]
+    return [_join(x[0], c, tuple(sp), a)]
+
+
+def _fused_params(ins, a):
+    """data (..., K) and num_filter O give the BatchNorm vectors (K,),
+    the channel-last 1x1 weight (O, 1, ..., 1, K) and, with
+    ``with_residual``, the residual (..., O)."""
+    x = ins["data"]
+    k, o = x[-1], int(a["num_filter"])
+    out = {"gamma": (k,), "beta": (k,), "moving_mean": (k,),
+           "moving_var": (k,), "weight": (o,) + (1,) * (len(x) - 2) + (k,)}
+    if a["with_residual"]:
+        out["residual"] = tuple(x[:-1]) + (o,)
+    return out
+
+
+def _fused_out(ins, a):
+    x = ins["data"]
+    o = tuple(x[:-1]) + (int(a["num_filter"]),)
+    if a["with_residual"] and ins.get("residual") is not None:
+        o = tuple(torch.broadcast_shapes(o, ins["residual"]))
+    return [o, (x[-1],), (x[-1],)]
 
 
 def _flatten_out(ins, a):
@@ -124,6 +164,7 @@ PARAM_SHAPES = {
     "FullyConnected": _fc_params,
     "Convolution": _conv_params,
     "BatchNorm": _bn_params,
+    "_FusedBNReluConv": _fused_params,
     "LayerNorm": lambda ins, a: {"gamma": (ins["data"][-1],),
                                  "beta": (ins["data"][-1],)},
     "Embedding": lambda ins, a: {"weight": (a["input_dim"],
@@ -140,6 +181,7 @@ OUT_SHAPES = {
     "FullyConnected": _fc_out,
     "Convolution": _conv_out,
     "BatchNorm": _bn_out,
+    "_FusedBNReluConv": _fused_out,
     "Pooling": _pool_out,
     "Activation": _same,
     "Flatten": _flatten_out,

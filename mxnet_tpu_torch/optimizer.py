@@ -1,16 +1,17 @@
 """Optimizers.
 
 Counterpart of ``mxnet_tpu/optimizer.py``, reduced to what the training
-slice uses: the ``Optimizer`` base (``lr``, ``wd``, ``rescale_grad``,
+slices use: the ``Optimizer`` base (``lr``, ``wd``, ``rescale_grad``,
 ``clip_gradient``, per-parameter ``lr_mult``/``wd_mult`` from
 ``param_idx2name`` and the symbol's ``__lr_mult__``/``__wd_mult__``
 attributes, wd 0 for parameters not named ``*_weight``/``*_gamma``, an
-``lr_scheduler`` hook), ``SGD`` (momentum), ``Adam``, ``Updater``,
+``lr_scheduler`` hook), ``SGD`` (momentum), ``Signum``, ``Adam``,
+``AdaGrad``, ``RMSProp`` (plain and centered), ``Updater``,
 ``get_updater``, ``create`` and ``register``.  Each update is the
 in-place operator of ``ops/optimizer_ops.py``.  ``bucketable`` tells
-the kvstore's bucketed path which optimizers it may apply (SGD and Adam:
-the optimizers of the port that have a fused signature in the JAX
-package); the JAX package's single-program update has no counterpart
+the kvstore's bucketed path which optimizers it may apply (SGD, Adam,
+AdaGrad and RMSProp: the optimizers of the port that have a fused
+signature in the JAX package); the JAX package's single-program update has no counterpart
 yet: the fit step is the eager pair (ROADMAP).
 """
 from __future__ import annotations
@@ -19,10 +20,13 @@ import math
 
 from .base import MXNetError
 from .ndarray.ndarray import zeros
-from .ops.optimizer_ops import adam_update, sgd_mom_update, sgd_update
+from .ops.optimizer_ops import (adagrad_update, adam_update,
+                                rmsprop_update, rmspropalex_update,
+                                sgd_mom_update, sgd_update, signsgd_update,
+                                signum_update)
 
-__all__ = ["Optimizer", "SGD", "Adam", "Updater", "get_updater", "create",
-           "register"]
+__all__ = ["Optimizer", "SGD", "Signum", "Adam", "AdaGrad", "RMSProp",
+           "Updater", "get_updater", "create", "register"]
 
 _OPT_REGISTRY = {}
 
@@ -185,6 +189,95 @@ class Adam(Optimizer):
         adam_update(weight._data, grad._data, mean._data, var._data, lr=lr,
                     wd=wd, beta1=self.beta1, beta2=self.beta2,
                     epsilon=self.epsilon, **self._common_kwargs())
+
+
+@register
+class Signum(Optimizer):
+    """Signum, momentum SGD stepping by the sign of the momentum
+    (reference optimizer.py Signum); with ``momentum=0``, signSGD."""
+
+    def __init__(self, learning_rate=0.01, momentum=0.9, wd_lh=0.0,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.momentum = momentum
+        self.wd_lh = wd_lh
+
+    def create_state(self, index, weight):
+        if self.momentum == 0.0:
+            return None
+        return zeros(weight.shape, weight.context)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        if state is not None:
+            signum_update(weight._data, grad._data, state._data, lr=lr,
+                          wd=wd, momentum=self.momentum, wd_lh=self.wd_lh,
+                          **self._common_kwargs())
+        else:
+            signsgd_update(weight._data, grad._data, lr=lr, wd=wd,
+                           **self._common_kwargs())
+
+
+@register
+class AdaGrad(Optimizer):
+    """AdaGrad (reference optimizer.py AdaGrad); ``eps`` is kept as
+    ``float_stable_eps``."""
+
+    def __init__(self, eps=1e-7, **kwargs):
+        super().__init__(**kwargs)
+        self.float_stable_eps = eps
+
+    bucketable = True
+
+    def create_state(self, index, weight):
+        return zeros(weight.shape, weight.context)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        adagrad_update(weight._data, grad._data, state._data, lr=lr, wd=wd,
+                       epsilon=self.float_stable_eps, **self._common_kwargs())
+
+
+@register
+class RMSProp(Optimizer):
+    """RMSProp (reference optimizer.py RMSProp): Tieleman and Hinton's,
+    or Graves' centered form with ``centered=True``; ``clip_weights``
+    bounds the plain form's weights."""
+
+    def __init__(self, learning_rate=0.001, gamma1=0.9, gamma2=0.9,
+                 epsilon=1e-8, centered=False, clip_weights=None, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.gamma1 = gamma1
+        self.gamma2 = gamma2
+        self.centered = centered
+        self.epsilon = epsilon
+        self.clip_weights = clip_weights
+
+    bucketable = True
+
+    def create_state(self, index, weight):
+        if self.centered:
+            return tuple(zeros(weight.shape, weight.context)
+                         for _ in range(3))
+        return zeros(weight.shape, weight.context)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        kw = self._common_kwargs()
+        if self.clip_weights:
+            kw["clip_weights"] = self.clip_weights
+        if self.centered:
+            n, g, delta = state
+            rmspropalex_update(weight._data, grad._data, n._data, g._data,
+                               delta._data, lr=lr, wd=wd, gamma1=self.gamma1,
+                               gamma2=self.gamma2, epsilon=self.epsilon, **kw)
+        else:
+            rmsprop_update(weight._data, grad._data, state._data, lr=lr,
+                           wd=wd, gamma1=self.gamma1, epsilon=self.epsilon,
+                           **kw)
 
 
 class Updater:

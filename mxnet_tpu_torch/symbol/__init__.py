@@ -26,14 +26,17 @@ def _make_sym_func(opdef, fname):
         kw_inputs = {k: kwargs.pop(k) for k in list(kwargs)
                      if k in opdef.input_names}
         nm = NAMES.get(name, opdef.name.lower().replace("_", ""))
+        unused = opdef.unused_inputs(kwargs) if opdef.unused_inputs \
+            else None
         inputs = []
         for i, in_name in enumerate(opdef.input_names):
             if i < len(args):
                 s = args[i]
             elif in_name in kw_inputs:
                 s = kw_inputs[in_name]
-            elif in_name in opdef.optional_inputs and not (
-                    in_name == "bias" and not kwargs.get("no_bias")):
+            elif in_name in unused if unused is not None else (
+                    in_name in opdef.optional_inputs and not (
+                        in_name == "bias" and not kwargs.get("no_bias"))):
                 continue          # optional inputs are trailing ones
             else:
                 s = Variable("%s_%s" % (nm, in_name))

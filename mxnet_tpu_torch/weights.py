@@ -5,7 +5,10 @@ a device, in both directions.
 shapes, and ``convert_symbol_params`` copies numpy weights and moving
 statistics onto a device after checking them against those shapes: the
 same numpy arrays then bind in both packages (the vision models, whose
-BatchNorm statistics are auxiliary states).  The transformer's helpers
+BatchNorm statistics are auxiliary states).  A channel-last symbol's
+convolution weights are OHWI and are carried as they are; a symbol
+after ``symbol.fuse.fuse_conv_bn`` has the unfused one's parameters and
+auxiliary states, so the same arrays bind in either.  The transformer's helpers
 follow.
 
 Both packages use MXNet's parameter names and layouts (FullyConnected

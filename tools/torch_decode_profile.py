@@ -5,6 +5,8 @@ goes on the GPU.
     python3 tools/torch_decode_profile.py            # decode steps
     python3 tools/torch_decode_profile.py --train    # one Module.fit step
     python3 tools/torch_decode_profile.py --resnet   # one 2-bit ResNet step
+    python3 tools/torch_decode_profile.py --resnet --layout NHWC --fuse
+                                          # one TrainStep step
 
 Builds the PyTorch port's DecodeEngine at chip_smoke.py's full-width
 configuration (same seeded weights and geometry), then drives its bound
@@ -37,6 +39,21 @@ the optimizer, the rest), the device launches and host syncs per step,
 and the device's idle share.  The groups come from ``record_function``
 ranges this tool wraps around the ops, the bucket dispatch, the
 optimizer and the pull in its own process.
+
+With ``--resnet --layout NCHW|NHWC`` (and ``--fuse`` for the
+BN -> ReLU -> Conv1x1 fusion pass) it binds chip_smoke.py's
+ResNet-50 through ``parallel.TrainStep`` (same seeded weights, OHWI
+for NHWC, batch 128, SGD with momentum and wd), runs two warm-up steps
+and prints one JSON line with the wall time of a step (median of 5),
+the device time per step by group over 3 profiled steps (cuDNN
+convolutions forward and backward, without cuDNN's layout transposes;
+the fused kernel; the fused op's backward matmuls and elementwise
+passes; the rest of the fused op's forward: batch statistics, scale
+and shift; BatchNorm forward and backward; relayout copies, the kernels
+that change a tensor's memory layout, cuDNN's own transposes
+included; device-to-device memcpy; the rest), the relayout kernels by
+name, the device launches and host syncs per step and the device's
+idle share.
 
 Needs one CUDA device; exits non-zero without one.
 """
@@ -151,13 +168,72 @@ def _labelled(fn, label):
     return wrapped
 
 
+def _measure(torch, step, once, n=3):
+    """``step()`` (which synchronizes) twice to warm up and five times
+    timed; the synchronizing calls of one ``once()``, each as the Python
+    line that made it; a profile of ``n`` steps.  Returns ``(wall ms
+    list, sync sites, profile)``."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        step()
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        step()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            once()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    syncs = ["%s:%d" % (os.path.relpath(w.filename, ROOT), w.lineno)
+             for w in caught if "called a synchronizing" in str(w.message)]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
+    return walls, syncs, prof
+
+
+def _range_ms(torch, prof, n):
+    """Device ms per step of each ``op:``/``kv:`` range and of
+    ``aten::convolution_backward``: host-side ranges and ops carry the
+    device time of the kernels launched inside them, except a kernel
+    launched through ctypes, which is in no range."""
+    ranges = {}
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CPU and (
+                ev.key.startswith(_RANGES)
+                or ev.key == "aten::convolution_backward"):
+            ranges[ev.key] = ranges.get(ev.key, 0.0) + getattr(
+                ev, "device_time_total", getattr(ev, "cuda_time_total", 0)) \
+                / 1e3 / n
+    return ranges
+
+
+def _kernel_ms(torch, prof, n, match):
+    """``{kernel name: device ms per step}`` of the kernels whose
+    lower-cased name contains one of ``match``."""
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA \
+                and not _is_range(ev) \
+                and any(m in ev.key.lower() for m in match):
+            out[ev.key[:120]] = out.get(ev.key[:120], 0.0) + getattr(
+                ev, "self_device_time_total",
+                getattr(ev, "self_cuda_time_total", 0)) / 1e3 / n
+    return out
+
+
 def profile_resnet(torch, cs, mx):
     from mxnet_tpu_torch import kvstore, kvstore_fused, optimizer
     from mxnet_tpu_torch.models import resnet
     from mxnet_tpu_torch.ops import nn as ops_nn
     from mxnet_tpu_torch.ops.registry import get_op
     from mxnet_tpu_torch.weights import convert_symbol_params
-    from torch.profiler import ProfilerActivity, profile
     for name in ("BatchNorm", "Convolution"):
         op = get_op(name)
         op.fn = _labelled(op.fn, "op:" + name)
@@ -194,50 +270,21 @@ def profile_resnet(torch, cs, mx):
         mod.fit_step(batch)
         torch.cuda.synchronize()
 
-    for _ in range(2):
-        step()
-    walls = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        step()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    b0 = kv._engine.stats["buckets"]
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            mod.fit_step(batch)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    # each synchronizing call as the Python line that made it
-    syncs = ["%s:%d" % (os.path.relpath(w.filename, ROOT), w.lineno)
-             for w in caught if "called a synchronizing" in str(w.message)]
-    buckets = kv._engine.stats["buckets"] - b0
+    buckets = []
+
+    def once():
+        b0 = kv._engine.stats["buckets"]
+        mod.fit_step(batch)
+        buckets.append(kv._engine.stats["buckets"] - b0)
+
     n = 3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            step()
+    walls, syncs, prof = _measure(torch, step, once, n)
     total, kernels = device_ms_by_group(torch, prof, n)
     device_ms = sum(total.values())
-    # host-side ranges and ops carry the device time of the kernels
-    # launched inside them
-    ranges, quant = {}, 0.0
-    for ev in prof.key_averages():
-        if ev.device_type == torch.autograd.DeviceType.CPU and (
-                ev.key.startswith(_RANGES)
-                or ev.key == "aten::convolution_backward"):
-            ranges[ev.key] = ranges.get(ev.key, 0.0) + getattr(
-                ev, "device_time_total", getattr(ev, "cuda_time_total", 0)) \
-                / 1e3 / n
-        if "two_bit_quantize" in ev.key and \
-                ev.device_type == torch.autograd.DeviceType.CUDA:
-            quant += getattr(ev, "self_device_time_total",
-                             getattr(ev, "self_cuda_time_total", 0)) / 1e3 / n
-    # the quantize kernel, launched through ctypes, is not attributed to
-    # the bucket range that launches it: the range holds the cat, the
-    # sums and the optimizer
+    ranges = _range_ms(torch, prof, n)
+    quant = sum(_kernel_ms(torch, prof, n, ("two_bit_quantize",)).values())
+    # the quantize kernel is in no range: the bucket range holds the cat,
+    # the sums and the optimizer
     bucket = ranges.get("kv:bucket", 0.0)
     opt_ms = ranges.get("kv:optimizer", 0.0)
     groups = {
@@ -259,7 +306,96 @@ def profile_resnet(torch, cs, mx):
         "device_ms_by_group": {k: round(v, 4) for k, v in
                                sorted(groups.items(), key=lambda kv: -kv[1])},
         "device_launches_per_step": kernels / n,
-        "buckets_per_step": buckets,
+        "buckets_per_step": buckets[0],
+        "host_syncs_per_step": len(syncs),
+        "sync_sites": sorted(set(syncs))}), flush=True)
+
+
+_RELAYOUT = ("nchwtonhwc", "nhwctonchw", "transpose", "direct_copy",
+             "copy_kernel")
+
+
+def profile_trainstep(torch, cs, mx, layout, fuse):
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.ops import fused as ops_fused
+    from mxnet_tpu_torch.ops import nn as ops_nn
+    from mxnet_tpu_torch.ops.registry import get_op
+    from mxnet_tpu_torch.parallel import TrainStep
+    from mxnet_tpu_torch.symbol.fuse import count_fused, fuse_conv_bn
+    for name in ("BatchNorm", "Convolution", "_FusedBNReluConv"):
+        op = get_op(name)
+        op.fn = _labelled(op.fn, "op:" + name)
+    for fn, label in ((ops_nn._BatchNormTrainFn, "op:BatchNorm_backward"),
+                      (ops_fused._FusedScaleReluMatmulFn,
+                       "op:fused_backward")):
+        fn.backward = staticmethod(_labelled(fn.backward, label))
+    ops_fused.fused_scale_relu_matmul_fwd = _labelled(
+        ops_fused.fused_scale_relu_matmul_fwd, "op:fused_kernel_call")
+
+    cfg, train = cs.RESNET, cs.NHWC_TRAIN
+    B = train["batch"]
+    sym = resnet.get_symbol(layout=layout, **cfg)
+    np_args, np_aux = cs.seeded_resnet_params(resnet.get_symbol(**cfg), B,
+                                              cfg["image_shape"])
+    conv = cs._nhwc if layout == "NHWC" else (lambda a: a)
+    if fuse:
+        sym = fuse_conv_bn(sym)
+    x, y = cs._image_batches(cfg["image_shape"], B, cs.SEED + 14,
+                             cfg["num_classes"])
+    dev = torch.device("cuda", 0)
+    batch = {"data": torch.from_numpy(conv(x)).to(dev),
+             "softmax_label": torch.from_numpy(y).to(dev)}
+    ts = TrainStep(sym, mx.optimizer.SGD(
+        learning_rate=train["lr"], momentum=train["momentum"],
+        wd=train["wd"], rescale_grad=1.0 / B),
+        data_shapes={"data": tuple(batch["data"].shape)},
+        label_shapes={"softmax_label": (B,)}, ctx=mx.gpu(0))
+    ts.init_params(mx.init.Xavier(), arg_params={
+        n: conv(a) for n, a in np_args.items()}, aux_params=np_aux)
+
+    def step():
+        ts.step(batch)
+        torch.cuda.synchronize()
+
+    n = 3
+    walls, syncs, prof = _measure(torch, step, lambda: ts.step(batch), n)
+    total, kernels = device_ms_by_group(torch, prof, n)
+    device_ms = sum(total.values())
+    ranges = _range_ms(torch, prof, n)
+    relayout = _kernel_ms(torch, prof, n, _RELAYOUT)
+    fused_kernel = sum(_kernel_ms(torch, prof, n,
+                                  ("fused_scale_relu_matmul",)).values())
+    memcpy = sum(_kernel_ms(torch, prof, n, ("memcpy dtod",)).values())
+    # cuDNN's own layout transposes run inside the convolution ranges; the
+    # fused op's range holds whatever of the kernel its own range
+    # (op:fused_kernel_call) was credited with, and the rest of its
+    # forward: statistics, scale and shift
+    cudnn_relayout = sum(v for k, v in relayout.items()
+                         if "nchwtonhwc" in k.lower()
+                         or "nhwctonchw" in k.lower())
+    groups = {
+        "convolution": ranges.get("op:Convolution", 0.0)
+        + ranges.get("aten::convolution_backward", 0.0) - cudnn_relayout,
+        "fused_kernel": fused_kernel,
+        "fused_backward": ranges.get("op:fused_backward", 0.0),
+        "fused_op_rest": ranges.get("op:_FusedBNReluConv", 0.0)
+        - ranges.get("op:fused_kernel_call", 0.0),
+        "batchnorm": ranges.get("op:BatchNorm", 0.0)
+        + ranges.get("op:BatchNorm_backward", 0.0),
+        "relayout_copies": sum(relayout.values()),
+        "memcpy_dtod": memcpy}
+    groups["elementwise/other"] = device_ms - sum(groups.values())
+    wall = statistics.median(walls)
+    print(json.dumps({
+        "phase": "profile", "step": "resnet50_trainstep", "config": cfg,
+        "layout": layout, "fused_sites": count_fused(sym), "batch": B,
+        "wall_ms_p50": wall, "wall_ms": walls, "device_ms": device_ms,
+        "device_idle_share": 1 - device_ms / wall,
+        "device_ms_by_group": {k: round(v, 4) for k, v in
+                               sorted(groups.items(), key=lambda kv: -kv[1])},
+        "relayout_kernels": {k: round(v, 4) for k, v in relayout.items()},
+        "ranges_ms": {k: round(v, 4) for k, v in ranges.items()},
+        "device_launches_per_step": kernels / n,
         "host_syncs_per_step": len(syncs),
         "sync_sites": sorted(set(syncs))}), flush=True)
 
@@ -279,7 +415,13 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cs.phase_device(torch)
-    if "--resnet" in sys.argv[1:]:
+    args = sys.argv[1:]
+    if "--resnet" in args and ("--layout" in args or "--fuse" in args):
+        layout = args[args.index("--layout") + 1] if "--layout" in args \
+            else "NHWC"
+        profile_trainstep(torch, cs, mx, layout, "--fuse" in args)
+        return 0
+    if "--resnet" in args:
         profile_resnet(torch, cs, mx)
         return 0
     if "--train" in sys.argv[1:]:
