@@ -98,7 +98,38 @@ Phases, each printed as one JSON line:
    every moving statistic (1e-4 of its largest CPU value) and the whole
    gradient's relative L2 error (0.1: at random initialisation the
    gradient moves by percents under rounding-level changes, so a CPU run
-   on the input scaled by 1 + 2^-22 is printed beside it).
+   on the input scaled by 1 + 2^-22 is printed beside it);
+16. prefill (with the kernel phases of 3): the one-shot prefill kernel
+   against its plain version on all S output rows (rtol 1e-4 / atol
+   1e-5) and on the cache bytes (exact, the bytes it must leave alone
+   included) at the served shape (B 8, S 1024, 16 heads of 128, block
+   16, 512 blocks, lengths 0 to 1024 over a scrambled table whose
+   padding entries are out-of-range ids), at S = 1000 with a table wider
+   than S needs, and with bf16 caches; two runs bit-identical; timed as
+   in 3 beside ``scaled_dot_product_attention(is_causal=True)`` on
+   (B, H, S, D) views of the same q/k/v (the attention without the
+   scatter);
+17. serve_prefill (after 5): the full-width model's decode-step and
+   prefill symbols bound as a pair with ``shared_exec`` (one copy of the
+   weights and caches): the 8 prompts of 4 prefilled in one forward
+   (exactly 12 prefill and 25 LayerNorm launches), then 31 decode-step
+   forwards (12 decode and 25 LayerNorm launches each), no plain
+   version; the greedy streams equal the mixed-step engine's on the
+   same prompts under 5's margin rule; prefill ms, decode step p50 and
+   peak memory printed;
+18. serve_spec: ``DecodeEngine(spec_k=4)`` at full width, an n-gram arm
+   (8 prompts with repeating tails, 32 new tokens each: streams equal
+   the mixed-step engine's under the margin rule, drafts proposed, and
+   every step launches the chunk kernel 24 times, LayerNorm 50 and the
+   decode kernel never) and a draft arm (the target's own weights as
+   the draft model, 4 requests of 16 tokens: accept rate at least 0.9,
+   12 flash-forward launches per proposed token); tokens per launch,
+   accept rate, step p50 and tokens/s printed;
+19. prefill_agreement: the pair at 2 layers (prefill length 256) on the
+   card and on the CPU from the same numpy weights over 3 prompts:
+   prefill logits (rtol 1e-4 / atol 1e-4), the prefilled cache rows
+   (rtol 1e-4 / atol 1e-5), and 8-token decode streams under the margin
+   rule with their logits within the same bound.
 
 Then the kernels' JSON line, and last ``{"ok": true, "device": ...}``.
 Any failed check raises, so the script exits non-zero and prints no
@@ -490,6 +521,26 @@ def phase_serve(torch, mx, np_params):
     return launches, steps
 
 
+def margin_cut(ref_toks, ref_logits, toks, what):
+    """Hold a greedy stream against a reference stream and its
+    per-step logits: they must be equal, except that from a step where
+    the reference's top-2 logit margin is within 1e-4 (plus 1e-4
+    relative) the two may part, and the comparison stops there.
+    Returns ``(steps compared, [step, margin] or None)``."""
+    for t, (a, b) in enumerate(zip(ref_toks, toks)):
+        if a != b:
+            top2 = np.sort(ref_logits[t])[-2:]
+            margin = float(top2[1] - top2[0])
+            check(margin <= 1e-4 + 1e-4 * abs(float(top2[1])),
+                  "%s: greedy tokens differ at step %d at a top-2 margin of "
+                  "%g" % (what, t, margin))
+            return t, [t, margin]
+    n = min(len(ref_toks), len(toks))
+    check(len(toks) == len(ref_toks), "%s: %d tokens against the "
+          "reference's %d" % (what, len(toks), len(ref_toks)))
+    return n, None
+
+
 def phase_agreement(torch, mx):
     from mxnet_tpu_torch.decode import DecodeEngine
     from mxnet_tpu_torch.weights import convert_params
@@ -510,23 +561,422 @@ def phase_agreement(torch, mx):
             eng.stop()
     worst, compared, cut = 0.0, 0, []
     for r, ((gt, gl), (ct, cl)) in enumerate(zip(*runs)):
-        for t, (a, b) in enumerate(zip(gl, cl)):
+        n, at = margin_cut(ct, cl, gt, "agreement: request %d" % r)
+        for t, (a, b) in enumerate(zip(gl[:n + 1], cl[:n + 1])):
             check(np.allclose(a, b, rtol=1e-4, atol=1e-4),
                   "agreement: request %d step %d logits differ (max abs err "
                   "%g)" % (r, t, float(np.abs(a - b).max())))
             worst = max(worst, float(np.abs(a - b).max()))
-            compared += 1
-            if gt[t] != ct[t]:
-                top2 = np.sort(b)[-2:]
-                margin = float(top2[1] - top2[0])
-                check(margin <= 1e-4 + 1e-4 * abs(float(top2[1])),
-                      "agreement: request %d step %d greedy tokens differ "
-                      "at a CPU top-2 margin of %g" % (r, t, margin))
-                cut.append([r, t, margin])
-                break
+        compared += min(n + 1, len(gl))
+        if at:
+            cut.append([r] + at)
     emit({"phase": "agreement", "config": cfg, "requests": len(prompts),
           "steps_compared": compared, "max_abs_logit_err": worst,
           "streams_equal": all(g[0] == c[0] for g, c in zip(*runs)),
+          "cut_at_small_margin": cut})
+
+
+# ----------------------------------------------------------------------
+# one-shot prefill, the decode step and speculative decoding
+# ----------------------------------------------------------------------
+def _prefill_inputs(torch, g, B, S, H, D, nb, bs, M, lengths):
+    """Seeded q/k/v/caches, a scrambled table (each row's real blocks
+    from one permutation, its padding entries out-of-range ids) and
+    the lengths."""
+    q, k, v = (torch.randn(B, S, H, D, generator=g) for _ in range(3))
+    kc = torch.randn(nb, bs, H, D, generator=g)
+    vc = torch.randn(nb, bs, H, D, generator=g)
+    perm = torch.randperm(nb, generator=g).to(torch.int32)
+    table = torch.randint(nb, 4 * nb, (B, M), generator=g,
+                          dtype=torch.int32)
+    used = 0
+    for b, n in enumerate(lengths):
+        nblk = -(-n // bs)
+        table[b, :nblk] = perm[used:used + nblk]
+        used += nblk
+    return q, k, v, kc, vc, table, torch.tensor(lengths, dtype=torch.int32)
+
+
+def phase_prefill(torch, mxk, dev, flush):
+    """The one-shot prefill kernel against its plain version on all S
+    output rows (rtol 1e-4 / atol 1e-5) and on the cache bytes (exact,
+    the rows it must not write included), at the served shape and an
+    odd one (S = 1000, a table wider than S needs), with f32 and bf16
+    caches; two runs bit-identical; timed beside
+    ``scaled_dot_product_attention(is_causal=True)`` on the same q/k/v
+    as (B, H, S, D) views (the attention alone, without the scatter)."""
+    import torch.nn.functional as F
+    B, S, H, D, nb, bs, M = 8, 1024, 16, 128, 512, 16, 64
+    g = torch.Generator(device="cpu").manual_seed(SEED + 9)
+    served = [20, 960, 0, 1024, 513, 77, 300, 641]
+    cases = [((B, S, H, D, nb, bs, M), served, torch.float32),
+             ((3, 1000, H, D, nb, bs, 70), [1000, 0, 457], torch.float32),
+             ((2, 300, H, D, nb, bs, 20), [300, 129], torch.bfloat16)]
+    errs = []
+    for (b_, s_, h_, d_, nb_, bs_, m_), lens, cdt in cases:
+        q, k, v, kc0, vc0, table, L = (
+            t.to(dev) for t in _prefill_inputs(torch, g, b_, s_, h_, d_, nb_,
+                                               bs_, m_, lens))
+        kc0, vc0 = kc0.to(cdt), vc0.to(cdt)
+        sc = 1.0 / d_ ** 0.5
+        runs = []
+        for fn in (mxk.paged_prefill_attend, mxk.paged_prefill_attend,
+                   mxk.paged_prefill_attend_plain):
+            kk, vk = kc0.clone(), vc0.clone()
+            out, ko, vo = fn(q, k, v, kk, vk, table, L, scale=sc)
+            check(ko is kk and vo is vk, "paged_prefill_attend: the caches "
+                  "are not written in place")
+            runs.append((out, kk, vk))
+        torch.cuda.synchronize()
+        (o1, k1, v1), (o2, k2, v2), (ref, kr, vr) = runs
+        what = "paged_prefill_attend (B, S, M = %d, %d, %d, %s caches)" % (
+            b_, s_, m_, str(cdt).split(".")[-1])
+        check(torch.equal(o1, o2) and torch.equal(k1, k2)
+              and torch.equal(v1, v2), what + ": two runs differ")
+        check(close(torch, o1, ref), what + " disagrees with its plain "
+              "version on the S rows (max abs err %g)" % max_err(o1, ref))
+        check(torch.equal(k1, kr) and torch.equal(v1, vr),
+              what + ": caches differ from the plain version's")
+        touched = torch.zeros(nb_ * bs_, dtype=torch.bool)
+        for b, n in enumerate(lens):
+            for j in range(n):
+                touched[int(table[b, j // bs_]) * bs_ + j % bs_] = True
+        touched = touched.to(dev)
+        check(torch.equal(k1.view(nb_ * bs_, -1)[~touched],
+                          kc0.view(nb_ * bs_, -1)[~touched])
+              and torch.equal(v1.view(nb_ * bs_, -1)[~touched],
+                              vc0.view(nb_ * bs_, -1)[~touched]),
+              what + " wrote outside the rows below each length")
+        errs.append(max_err(o1, ref))
+    q, k, v, kc, vc, table, L = (
+        t.to(dev) for t in _prefill_inputs(torch, g, B, S, H, D, nb, bs, M,
+                                           served))
+    sc = 1.0 / D ** 0.5
+    ms = time_ms(torch, lambda: mxk.paged_prefill_attend(
+        q, k, v, kc, vc, table, L, scale=sc), flush)
+    plain_ms = time_ms(torch, lambda: mxk.paged_prefill_attend_plain(
+        q, k, v, kc, vc, table, L, scale=sc), flush, reps=20)
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=True, scale=sc), flush)
+    rows = sum(served)
+    nbytes = 4 * B * S * H * D * 4 + 2 * rows * H * D * 4 + B * (M + 1) * 4
+    flops = 4.0 * B * H * D * S * (S + 1) / 2
+    b_ms, b_by = bound(nbytes, flops)
+    res = {"name": "paged_prefill_attend", "route": "cuda",
+           "source": "mxnet_tpu_torch/csrc/paged_attention.cu",
+           "replaces": "mxnet_tpu/pallas/attention.py:209",
+           "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+    emit({"phase": "kernel", **res, "shapes": {
+        "q": [B, S, H, D], "cache": [nb, bs, H, D], "table": [B, M],
+        "lengths": served}, "checked": [[c[0][0], c[0][1], c[0][6],
+                                          str(c[2])] for c in cases],
+        "library_call": "F.scaled_dot_product_attention(is_causal=True) on "
+                        "(B, H, S, D) views: the attention alone, without "
+                        "the cache scatter"})
+    return res
+
+
+def _serve_prompts(cfg, seed, lengths):
+    rng = np.random.RandomState(seed)
+    return [rng.randint(0, cfg["num_classes"], n).tolist() for n in lengths]
+
+
+def _reference_streams(mx, params, cfg, ctx, prompts, new):
+    """Greedy streams and per-step logits of the mixed-step engine."""
+    from mxnet_tpu_torch.decode import DecodeEngine
+    eng = DecodeEngine(params, cfg, ctx=ctx, **GEOMETRY)
+    try:
+        hs = [eng.submit(p, max_new_tokens=new, collect_logits=True)
+              for p in prompts]
+        return [(h.result(timeout=900), h.logits) for h in hs]
+    finally:
+        eng.stop()
+
+
+def bind_prefill_pair(mx, params, cfg, ctx, batch, prefill_len):
+    """The decode-step and prefill executors, the second bound with
+    ``shared_exec`` so both hold the same weight and cache tensors."""
+    from mxnet_tpu_torch.models import transformer
+    geo = dict(block_size=GEOMETRY["block_size"],
+               num_blocks=GEOMETRY["num_blocks"])
+    M = -(-cfg["seq_len"] // GEOMETRY["block_size"])
+    dexe = transformer.get_decode_step_symbol(**geo, **cfg).simple_bind(
+        ctx=ctx, grad_req="null", data=(batch, 1), positions=(batch, 1),
+        block_table=(batch, M))
+    dexe.copy_params_from(params)
+    pexe = transformer.get_prefill_symbol(
+        prefill_len=prefill_len, **geo, **cfg).simple_bind(
+        ctx=ctx, grad_req="null", shared_exec=dexe, data=(batch, prefill_len),
+        prompt_len=(batch,), block_table=(batch, M))
+    check(all(pexe.arg_dict[n] is dexe.arg_dict[n] for n in dexe.arg_dict
+              if n not in ("data", "positions")),
+          "prefill pair: the executors do not share weights and caches")
+    return dexe, pexe
+
+
+def run_prefill_pair(torch, dexe, pexe, prompts, new, on_card):
+    """Prefill ``prompts`` in one forward, then ``new - 1`` decode-step
+    forwards.  Returns per request (tokens, logits per step), the
+    prefill wall ms, the decode steps' wall ms, the table, and the
+    kernel counts ``(launches, plain calls)`` of the prefill forward and
+    of the decode steps, each set to 0 just before that run."""
+    from mxnet_tpu_torch.kernels import LAUNCHES, PLAIN_CALLS, reset_counts
+    B, S = pexe.arg_dict["data"].shape
+    M = dexe.arg_dict["block_table"].shape[1]
+    bs = GEOMETRY["block_size"]
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    data = np.zeros((B, S), np.float32)
+    table = np.zeros((B, M), np.float32)
+    lens = np.array([len(p) for p in prompts], np.float32)
+    blocks = np.random.RandomState(SEED + 10).permutation(
+        GEOMETRY["num_blocks"])
+    used = 0
+    for b, p in enumerate(prompts):
+        data[b, :len(p)] = p
+        n = -(-(len(p) + new) // bs)
+        table[b, :n] = blocks[used:used + n]
+        used += n
+    sync()
+    reset_counts()
+    t0 = time.perf_counter()
+    outs = pexe.forward(is_train=False, data=data, prompt_len=lens,
+                        block_table=table)
+    tok = outs[1].asnumpy().astype(np.int64)
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    counts = {"prefill": (dict(LAUNCHES), dict(PLAIN_CALLS))}
+    reset_counts()
+    logits = [[row] for row in outs[0].asnumpy()]
+    toks = [[int(t)] for t in tok]
+    step_ms = []
+    for t in range(new - 1):
+        sync()
+        t0 = time.perf_counter()
+        outs = dexe.forward(is_train=False, data=tok.reshape(B, 1),
+                            positions=(lens + t).reshape(B, 1),
+                            block_table=table)
+        tok = outs[1].asnumpy().astype(np.int64)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        for b, row in enumerate(outs[0].asnumpy()):
+            logits[b].append(row)
+            toks[b].append(int(tok[b]))
+    counts["decode"] = (dict(LAUNCHES), dict(PLAIN_CALLS))
+    return list(zip(toks, logits)), prefill_ms, step_ms, table, counts
+
+
+def phase_serve_prefill(torch, mx, np_params, cfg=FULL, ctx=None):
+    """The full-width model's decode-step and prefill symbols bound as a
+    pair with ``shared_exec``: 8 ragged prompts prefilled in one
+    forward, then 31 decode-step forwards over the shared caches.  Each
+    prefill forward launches the prefill kernel 12 times and LayerNorm
+    25, each decode step the decode kernel 12 and LayerNorm 25; no plain
+    version runs; the greedy streams equal the mixed-step engine's on
+    the same prompts under the margin rule.  Returns the prefill
+    forward's launch counts."""
+    from mxnet_tpu_torch.weights import convert_params
+    ctx = ctx or mx.gpu(0)
+    on_card = ctx.device_type == "gpu"
+    L = cfg["num_layers"]
+    new = 32
+    lengths = [700, 20, 350, 90, 520, 45, 260, 610]
+    prompts = _serve_prompts(cfg, SEED, lengths)
+    params = convert_params(np_params, ctx, cfg)
+    ref = _reference_streams(mx, params, cfg, ctx, prompts, new)
+    dexe, pexe = bind_prefill_pair(mx, params, cfg, ctx, len(prompts),
+                                   cfg["seq_len"])
+    del params
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    got, prefill_ms, step_ms, _, counts = run_prefill_pair(
+        torch, dexe, pexe, prompts, new, on_card)
+    (pl, pp), (launches, plain) = counts["prefill"], counts["decode"]
+    steps = new - 1
+    check(pl["paged_prefill_attend"] == L and pl["layernorm_fused"] == 2 * L
+          + 1 and pl["paged_decode_attend"] == 0,
+          "serve_prefill: the prefill forward launched %s (want %d prefill, "
+          "%d LayerNorm)" % (pl, L, 2 * L + 1))
+    check(launches["paged_decode_attend"] == L * steps
+          and launches["layernorm_fused"] == (2 * L + 1) * steps
+          and launches["paged_prefill_attend"] == 0,
+          "serve_prefill: %d decode steps launched %s (want %d decode, %d "
+          "LayerNorm each)" % (steps, launches, L, 2 * L + 1))
+    check(not any(pp.values()) and not any(plain.values()),
+          "serve_prefill: plain versions ran on the main path: %s %s"
+          % (pp, plain))
+    cut = []
+    for r, ((gt, _), (rt, rl)) in enumerate(zip(got, ref)):
+        _, at = margin_cut(rt, rl, gt, "serve_prefill: request %d" % r)
+        if at:
+            cut.append([r] + at)
+    worst = max(float(np.abs(a - b).max()) for (_, gl), (_, rl)
+                in zip(got, ref) for a, b in zip(gl[:1], rl[:1]))
+    emit({"phase": "serve_prefill", "config": cfg, "prompt_lengths": lengths,
+          "prefill_len": cfg["seq_len"], "new_tokens_each": new,
+          "prefill_ms": prefill_ms, "decode_steps": steps,
+          "decode_step_ms_p50": statistics.median(step_ms),
+          "decode_step_ms": step_ms,
+          "prefill_launches": {k: v for k, v in pl.items() if v},
+          "decode_launches_per_step": {k: v / steps for k, v in
+                                       launches.items() if v},
+          "first_token_max_abs_logit_diff_vs_engine": worst,
+          "streams_equal_engine": all(g[0] == r[0] for g, r in zip(got, ref)),
+          "cut_at_small_margin": cut,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9
+          if on_card else None})
+    del dexe, pexe
+    return pl
+
+
+def _repeating_prompts(cfg, seed, n, motif_lens, repeats):
+    """Prompts whose tails repeat an earlier n-gram: a random motif
+    repeated, after a random head, so the n-gram drafter proposes."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for i in range(n):
+        motif = rng.randint(0, cfg["num_classes"],
+                            motif_lens[i % len(motif_lens)]).tolist()
+        head = rng.randint(0, cfg["num_classes"], 16 + 8 * i).tolist()
+        out.append(head + motif * repeats)
+    return out
+
+
+def phase_serve_spec(torch, mx, np_params, cfg=FULL, ctx=None):
+    """``DecodeEngine(spec_k=4)`` at full width.  n-gram arm: 8
+    requests with repeating tails, 32 new tokens each; the streams
+    equal the mixed-step engine's under the margin rule, drafts were
+    proposed, and every step launched the chunk kernel 24 times,
+    LayerNorm 50 and the decode kernel never.  Draft arm: the target's
+    own weights as the draft model on 4 requests of 16 new tokens; the
+    accept rate is at least 0.9 and each proposed token cost 12 flash
+    forward launches.  Returns the n-gram arm's launch counts and
+    steps."""
+    from mxnet_tpu_torch.decode import DecodeEngine
+    from mxnet_tpu_torch.kernels import LAUNCHES, PLAIN_CALLS, reset_counts
+    from mxnet_tpu_torch.weights import convert_params
+    ctx = ctx or mx.gpu(0)
+    L, spec_k, new = cfg["num_layers"], 4, 32
+    prompts = _repeating_prompts(cfg, SEED + 11, 8, (5, 8, 12, 3), 6)
+    params = convert_params(np_params, ctx, cfg)
+    ref = _reference_streams(mx, params, cfg, ctx, prompts, new)
+    arms, counts = {}, {}
+    for arm, n_req, n_new, kw in (
+            ("ngram", 8, new, dict(spec_impl="ngram")),
+            ("draft", 4, 16, dict(spec_impl="draft", draft_params=np_params,
+                                  draft_config=cfg))):
+        eng = DecodeEngine(params, cfg, ctx=ctx, spec_k=spec_k, warmup=True,
+                           **kw, **GEOMETRY)
+        try:
+            reset_counts()
+            t0 = time.perf_counter()
+            hs = [eng.submit(p, max_new_tokens=n_new)
+                  for p in prompts[:n_req]]
+            outs = [h.result(timeout=900) for h in hs]
+            wall = time.perf_counter() - t0
+            launches, plain = dict(LAUNCHES), dict(PLAIN_CALLS)
+            st = eng.stats()
+        finally:
+            eng.stop()
+        cut = []
+        for r, (got, (rt, rl)) in enumerate(zip(outs, ref)):
+            _, at = margin_cut(rt[:n_new], rl, got,
+                               "serve_spec (%s): request %d" % (arm, r))
+            if at:
+                cut.append([r] + at)
+        steps = st["steps"]
+        counts[arm] = (launches, steps)
+        check(st["spec_impl"] == arm and st["spec_proposed"] > 0,
+              "serve_spec (%s): no draft was proposed (%s)" % (arm, st))
+        check(launches["paged_chunk_prefill_attend"] == 2 * L * steps
+              and launches["layernorm_fused"] >= (4 * L + 2) * steps
+              and launches["paged_decode_attend"] == 0,
+              "serve_spec (%s): launches %s over %d steps (want %d chunk, "
+              "%d LayerNorm, 0 decode per step)" % (arm, launches, steps,
+                                                    2 * L, 4 * L + 2))
+        check(not any(plain.values()),
+              "serve_spec (%s): plain versions ran on the main path: %s"
+              % (arm, plain))
+        if arm == "ngram":
+            check(launches["layernorm_fused"] == (4 * L + 2) * steps
+                  and launches["flash_attention_fwd"] == 0,
+                  "serve_spec (ngram): launches %s over %d steps"
+                  % (launches, steps))
+        else:
+            check(st["accept_rate"] >= 0.9,
+                  "serve_spec (draft): accept rate %s < 0.9 with the target "
+                  "as its own draft model" % st["accept_rate"])
+            check(launches["flash_attention_fwd"] == L * st["spec_proposed"],
+                  "serve_spec (draft): %d flash launches for %d proposed "
+                  "tokens (want %d each)" % (launches["flash_attention_fwd"],
+                                             st["spec_proposed"], L))
+        arms[arm] = {
+            "requests": n_req, "new_tokens_each": n_new, "steps": steps,
+            "wall_s": wall, "tokens_per_s": n_req * n_new / wall,
+            "step_ms_p50": st["step_ms_p50"],
+            "tokens_per_launch": st["tokens_per_launch"],
+            "accept_rate": st["accept_rate"],
+            "spec_proposed": st["spec_proposed"],
+            "spec_accepted": st["spec_accepted"],
+            "launches_per_step": {k: v / steps for k, v in launches.items()
+                                  if v},
+            "streams_equal_engine": all(o == r[0][:n_new]
+                                        for o, r in zip(outs, ref)),
+            "cut_at_small_margin": cut}
+    emit({"phase": "serve_spec", "config": cfg, "spec_k": spec_k,
+          "prompt_lengths": [len(p) for p in prompts], **arms})
+    return counts["ngram"]
+
+
+def phase_prefill_agreement(torch, mx, ctxs=None):
+    """The prefill/decode-step pair at 2 layers on the card and on the
+    CPU from the same numpy weights: prefill logits (rtol 1e-4 / atol
+    1e-4), the cache rows the prefill wrote (rtol 1e-4 / atol 1e-5) and
+    the decode streams under the margin rule, with their logits within
+    the same bound up to the cut."""
+    from mxnet_tpu_torch.weights import convert_params
+    cfg = dict(FULL, num_layers=2)
+    ctxs = ctxs or (mx.gpu(0), mx.cpu())
+    np_params = seeded_params(cfg)
+    prompts = _serve_prompts(cfg, SEED + 12, (40, 100, 150))
+    new, S = 8, 256
+    runs = []
+    for ctx in ctxs:
+        dexe, pexe = bind_prefill_pair(mx, convert_params(np_params, ctx,
+                                                          cfg), cfg, ctx,
+                                       len(prompts), S)
+        got, _, _, table, _ = run_prefill_pair(
+            torch, dexe, pexe, prompts, new, ctx.device_type == "gpu")
+        caches = [dexe.arg_dict["layer%d_%s_cache" % (i, kv)].asnumpy()
+                  for i in range(cfg["num_layers"]) for kv in "kv"]
+        runs.append((got, caches))
+        del dexe, pexe
+    (gg, gc), (cg, cc) = runs
+    worst, cut = 0.0, []
+    for r, ((gt, gl), (ct, cl)) in enumerate(zip(gg, cg)):
+        n, at = margin_cut(ct, cl, gt, "prefill_agreement: request %d" % r)
+        for t, (a, b) in enumerate(zip(gl[:n + 1], cl[:n + 1])):
+            check(np.allclose(a, b, rtol=1e-4, atol=1e-4),
+                  "prefill_agreement: request %d step %d logits differ "
+                  "(max abs err %g)" % (r, t, float(np.abs(a - b).max())))
+            worst = max(worst, float(np.abs(a - b).max()))
+        if at:
+            cut.append([r] + at)
+    bs = GEOMETRY["block_size"]
+    rows = [int(table[b, j // bs]) * bs + j % bs
+            for b, p in enumerate(prompts) for j in range(len(p))]
+    cache_err = 0.0
+    for a, b in zip(gc, cc):
+        a, b = a.reshape(-1, a.shape[2] * a.shape[3])[rows], \
+            b.reshape(-1, b.shape[2] * b.shape[3])[rows]
+        check(np.allclose(a, b, rtol=1e-4, atol=1e-5),
+              "prefill_agreement: prefilled cache rows differ (max abs err "
+              "%g)" % float(np.abs(a - b).max()))
+        cache_err = max(cache_err, float(np.abs(a - b).max()))
+    emit({"phase": "prefill_agreement", "config": cfg, "prefill_len": S,
+          "prompt_lengths": [len(p) for p in prompts], "new_tokens": new,
+          "max_abs_logit_err": worst, "max_abs_cache_err": cache_err,
+          "streams_equal": all(g[0] == c[0] for g, c in zip(gg, cg)),
           "cut_at_small_margin": cut})
 
 
@@ -1505,6 +1955,7 @@ def main():
     serve_kernels = [phase_decode(torch, mxk, dev, flush),
                      phase_chunk(torch, mxk, dev, flush),
                      phase_layernorm(torch, mxk, dev, flush)]
+    prefill_kernel = phase_prefill(torch, mxk, dev, flush)
     train_kernels = [phase_layernorm_bwd(torch, mxk, dev, flush)] + \
         phase_flash(torch, mxk, dev, flush)
     quant_kernel = phase_quant(torch, mxk, dev, flush)
@@ -1513,6 +1964,9 @@ def main():
     full = seeded_params(FULL)
     serve_launches, serve_steps = phase_serve(torch, mx, full)
     phase_agreement(torch, mx)
+    prefill_launches = phase_serve_prefill(torch, mx, full)
+    spec_launches, spec_steps = phase_serve_spec(torch, mx, full)
+    phase_prefill_agreement(torch, mx)
     train_launches, train_steps = phase_train(torch, mx, full)
     del full
     phase_train_agreement(torch, mx)
@@ -1522,14 +1976,19 @@ def main():
     nhwc_launches, nhwc_steps = phase_train_resnet_nhwc(torch, mx)
     phase_resnet_nhwc_agreement(torch, mx)
     # launches: the count of each kernel's main-path run (serve for the
-    # serving kernels, the transformer's Module.fit for its training
+    # serving kernels, the one-shot prefill forward of serve_prefill for
+    # the prefill kernel, the transformer's Module.fit for its training
     # kernels, the 2-bit ResNet-50 fit for the quantizer, the fused NHWC
     # ResNet-50 TrainStep arm for the fused kernel); LayerNorm's forward
-    # runs on both of the first two and carries the train count beside it
+    # runs on several and carries the train and spec counts beside it,
+    # the chunk kernel the spec step's
     for k in serve_kernels:
         k["launches"] = serve_launches[k["name"]]
         k["launches_per_step"] = serve_launches[k["name"]] / serve_steps
+        k["spec_launches_per_step"] = spec_launches[k["name"]] / spec_steps
     serve_kernels[2]["train_launches"] = train_launches["layernorm_fused"]
+    prefill_kernel["launches"] = prefill_launches["paged_prefill_attend"]
+    prefill_kernel["launches_per_step"] = prefill_kernel["launches"]
     for k in train_kernels:
         k["launches"] = train_launches[k["name"]]
         k["launches_per_step"] = train_launches[k["name"]] / train_steps
@@ -1541,10 +2000,11 @@ def main():
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{**{key: k[key] for key in keys},
                        **{key: k[key] for key in ("launches_per_step",
-                                                  "train_launches")
+                                                  "train_launches",
+                                                  "spec_launches_per_step")
                           if key in k}}
-                      for k in serve_kernels + train_kernels
-                      + [quant_kernel, fused_kernel]]})
+                      for k in serve_kernels + [prefill_kernel]
+                      + train_kernels + [quant_kernel, fused_kernel]]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

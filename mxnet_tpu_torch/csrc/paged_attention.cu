@@ -2,10 +2,11 @@
 //
 // mx_paged_decode replaces mxnet_tpu/pallas/attention.py
 // paged_decode_attend (_paged_decode_kernel); mx_paged_chunk_prefill
-// replaces paged_chunk_prefill_attend (_paged_chunk_prefill_kernel).
-// Both keep the JAX functions' layouts: caches (num_blocks, block_size,
-// H, D), queries and chunk rows seq-major (.., H, D), block tables and
-// positions int32.
+// replaces paged_chunk_prefill_attend (_paged_chunk_prefill_kernel);
+// mx_paged_prefill replaces paged_prefill_attend
+// (_paged_prefill_kernel).  All keep the JAX functions' layouts:
+// caches (num_blocks, block_size, H, D), queries and chunk rows
+// seq-major (.., H, D), block tables and positions int32.
 //
 // What bounds them on the H100: decode reads the K/V rows of every live
 // context once, sum_c (pos_c + 1) * H * D * 2 * sizeof(cache) bytes,
@@ -34,6 +35,32 @@
 // and right first; wgmma, TMA and split-context parallelism are later
 // work.  Exponentials use expf (no fast-math) so results hold the f32
 // tolerance against the plain PyTorch version.
+//
+// One-shot prefill (mx_paged_prefill): causal attention of a padded
+// prompt batch q/k/v (B, S, H, D) over its own keys, with the scatter
+// of each row's first lengths[b] K/V rows into the cache fused in.  It
+// does 4 * B * H * D * S * (S + 1) / 2 f32 flops (two products over the
+// causal triangle) on about 4 * B * S * H * D * 4 bytes: ~64 flops per
+// byte at S = 1024, D = 128, so it is bound by f32 operations, like
+// the flash forward.  The TPU kernel gave each (row, table block) grid
+// step the row's whole K/V in VMEM; here one thread block of 256
+// threads takes each (query tile of 64 rows, head, row), 2048 blocks at
+// the served shape (8 x 1024 tokens, 16 heads), and walks the key tiles
+// 0..its own in a loop, staging each 64-key tile of its head through
+// shared memory from the seq-major input (a key row is D contiguous
+// values at a stride of H * D, so a warp reads whole 128-byte lines).
+// The online softmax lives in registers: a thread holds a 4 x 4 block
+// of the 64 x 64 score tile and 4 rows x 8 columns of the 64 x D output
+// tile, the flash forward's layout; key tiles above the query tile's
+// last row are never visited.  The keys come from the input, not from
+// the cache, and keys at or past S do not exist (S is any length; no
+// padding is materialised).  Each block scatters its own query rows
+// below min(lengths[b], S) of its own head into cache block
+// table[b, row / bs], row row % bs: writes are disjoint, no block reads
+// the cache or waits for another, and table entries past a row's last
+// real block are never read.  The TPU kernel clamps those grid steps
+// onto the last real block and re-emits its bytes; not writing there
+// leaves the same cache.  No atomics: two runs give the same bits.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -55,6 +82,16 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// max and sum over the 16 threads of a half warp that share a row
+__device__ __forceinline__ float row_max16(float v) {
+  for (int off = 8; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+__device__ __forceinline__ float row_sum16(float v) {
+  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
 }
 
@@ -270,6 +307,171 @@ paged_chunk_prefill_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------
+// one-shot prefill: causal attention over q/k/v (B, S, H, D) plus the
+// scatter of rows < lengths[b] into the cache
+// ---------------------------------------------------------------------
+constexpr int kPTile = 64;                    // query rows and keys per tile
+constexpr int kPThreads = 256;
+constexpr int kPMaxD = 128;
+constexpr int kPDPer = kPMaxD / 16;           // output columns per thread
+constexpr int kPPS = kPTile + 1;              // stride of the score tile
+
+// rows [r0, r0 + kPTile) of one head of a seq-major (S, H, D) input
+// (row stride rs) into a (kPTile, D + 1) f32 shared tile; rows at or
+// past S are zeros
+template <typename T>
+__device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ src, int r0,
+                                          int S, int D, size_t rs) {
+  const int ld = D + 1;
+  for (int idx = threadIdx.x; idx < kPTile * D; idx += kPThreads) {
+    const int r = idx / D, d = idx - r * D;
+    dst[r * ld + d] = (r0 + r < S) ? to_f32(src[(size_t)(r0 + r) * rs + d]) : 0.f;
+  }
+}
+
+template <typename TQ, typename TKV>
+__global__ void __launch_bounds__(kPThreads)
+paged_prefill_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
+                     const TQ* __restrict__ v, TKV* __restrict__ kc,
+                     TKV* __restrict__ vc, const int* __restrict__ table,
+                     const int* __restrict__ lens, TQ* __restrict__ out, int S,
+                     int H, int D, int bs, int M, float scale) {
+  const int qt = (int)gridDim.x - 1 - (int)blockIdx.x;   // longest rows first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const size_t rs = (size_t)H * D;                        // row stride
+  const size_t base = (size_t)b * S * rs + (size_t)h * D;
+  const TQ* qg = q + base;
+  const TQ* kg = k + base;
+  const TQ* vg = v + base;
+  TQ* og = out + base;
+  const int q0 = qt * kPTile;
+
+  // fused scatter: this block's rows below the row's length, this head
+  // only; rows past the table's M * bs rows are never written
+  const int L = max(0, min(min(lens[b], S), M * bs));
+  const int* tb = table + (size_t)b * M;
+  const int nw = min(q0 + kPTile, L) - q0;
+  for (int idx = tid; idx < nw * D; idx += kPThreads) {
+    const int r = q0 + idx / D, d = idx % D;
+    const size_t dst = ((size_t)tb[r / bs] * bs + r % bs) * rs + (size_t)h * D + d;
+    kc[dst] = from_f32<TKV>(to_f32(kg[(size_t)r * rs + d]));
+    vc[dst] = from_f32<TKV>(to_f32(vg[(size_t)r * rs + d]));
+  }
+
+  const int ld = D + 1;
+  extern __shared__ float smem[];
+  float* qs = smem;                                       // kPTile x ld
+  float* kv = qs + kPTile * ld;                           // kPTile x ld: K, then V
+  float* ps = kv + kPTile * ld;                           // kPTile x kPPS
+  load_rows(qs, qg, q0, S, D, rs);
+  float m[4], l[4], acc[4][kPDPer];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < kPDPer; ++c) acc[i][c] = 0.f;
+  }
+
+  for (int kt = 0; kt <= qt; ++kt) {
+    const int k0 = kt * kPTile;
+    __syncthreads();                                      // kv and ps are free
+    load_rows(kv, kg, k0, S, D, rs);
+    __syncthreads();
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      float a[4], bb[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = qs[(ty * 4 + i) * ld + d];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bb[j] = kv[(tx + 16 * j) * ld + d];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], bb[j], s[i][j]);
+    }
+    // online softmax; key k0 <= every row of this tile, so each row
+    // has a real key in every tile it visits and the max is finite
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = q0 + ty * 4 + i;
+      float mx = m[i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = k0 + tx + 16 * j;
+        s[i][j] = (c <= r && c < S) ? s[i][j] * scale : -INFINITY;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      mx = row_max16(mx);
+      const float alpha = expf(m[i] - mx);
+      float ls = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = expf(s[i][j] - mx);
+        ls += s[i][j];
+      }
+      ls = row_sum16(ls);
+      l[i] = l[i] * alpha + ls;
+      m[i] = mx;
+#pragma unroll
+      for (int c = 0; c < kPDPer; ++c) acc[i][c] *= alpha;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) ps[(ty * 4 + i) * kPPS + tx + 16 * j] = s[i][j];
+    }
+    __syncthreads();                                      // K read, P written
+    load_rows(kv, vg, k0, S, D, rs);
+    __syncthreads();
+#pragma unroll 4
+    for (int c = 0; c < kPTile; ++c) {
+      float p[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) p[i] = ps[(ty * 4 + i) * kPPS + c];
+#pragma unroll
+      for (int cc = 0; cc < kPDPer; ++cc) {
+        const int d = tx + 16 * cc;
+        if (d < D) {
+          const float vv = kv[c * ld + d];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[i][cc] = fmaf(p[i], vv, acc[i][cc]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = q0 + ty * 4 + i;
+    if (r >= S) continue;
+    const float inv = 1.f / l[i];
+    TQ* orow = og + (size_t)r * rs;
+#pragma unroll
+    for (int cc = 0; cc < kPDPer; ++cc) {
+      const int d = tx + 16 * cc;
+      if (d < D) orow[d] = from_f32<TQ>(acc[i][cc] * inv);
+    }
+  }
+}
+
+template <typename TQ, typename TKV>
+int launch_prefill(const void* q, const void* k, const void* v, void* kc, void* vc,
+                   const void* table, const void* lens, void* out, int B, int S, int H,
+                   int D, int bs, int M, float scale, size_t smem, cudaStream_t stream) {
+  auto fn = paged_prefill_kernel<TQ, TKV>;
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  fn<<<dim3((S + kPTile - 1) / kPTile, H, B), kPThreads, smem, stream>>>(
+      (const TQ*)q, (const TQ*)k, (const TQ*)v, (TKV*)kc, (TKV*)vc, (const int*)table,
+      (const int*)lens, (TQ*)out, S, H, D, bs, M, scale);
+  return (int)cudaGetLastError();
+}
+
 template <typename TQ, typename TKV>
 int launch_decode(const void* q, const void* kc, const void* vc, const void* table,
                   const void* pos, void* out, int C, int H, int D, int bs, int M,
@@ -339,6 +541,28 @@ int mx_paged_chunk_prefill(const void* q, const void* k, const void* v, void* kc
   if (q_dtype == 1 && kv_dtype == 0)
     return launch_chunk<__nv_bfloat16, float>(q, k, v, kc, vc, table, start, lens, out, B, K, H, D, bs, M, scale, smem, s);
   return launch_chunk<__nv_bfloat16, __nv_bfloat16>(q, k, v, kc, vc, table, start, lens, out, B, K, H, D, bs, M, scale, smem, s);
+}
+
+size_t mx_paged_prefill_smem(int D) {
+  return (2 * (size_t)kPTile * (D + 1) + (size_t)kPTile * kPPS) * sizeof(float);
+}
+
+// q, k, v, out: (B, S, H, D) seq-major, D <= 128; lengths (B,) int32
+int mx_paged_prefill(const void* q, const void* k, const void* v, void* kc, void* vc,
+                     const void* table, const void* lens, void* out, int B, int S, int H,
+                     int D, int bs, int M, float scale, int q_dtype, int kv_dtype,
+                     int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = (cudaStream_t)stream;
+  const size_t smem = mx_paged_prefill_smem(D);
+  if (q_dtype == 0 && kv_dtype == 0)
+    return launch_prefill<float, float>(q, k, v, kc, vc, table, lens, out, B, S, H, D, bs, M, scale, smem, s);
+  if (q_dtype == 0 && kv_dtype == 1)
+    return launch_prefill<float, __nv_bfloat16>(q, k, v, kc, vc, table, lens, out, B, S, H, D, bs, M, scale, smem, s);
+  if (q_dtype == 1 && kv_dtype == 0)
+    return launch_prefill<__nv_bfloat16, float>(q, k, v, kc, vc, table, lens, out, B, S, H, D, bs, M, scale, smem, s);
+  return launch_prefill<__nv_bfloat16, __nv_bfloat16>(q, k, v, kc, vc, table, lens, out, B, S, H, D, bs, M, scale, smem, s);
 }
 
 const char* mx_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

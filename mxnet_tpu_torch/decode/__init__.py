@@ -15,12 +15,21 @@ Quickstart::
     for tok in eng.submit(prompt_ids, max_new_tokens=32):   # streamed
         ...
     eng.stop()
+
+Speculative decoding verifies up to ``spec_k`` draft tokens per slot in
+each forward: ``DecodeEngine(params, cfg, spec_k=4, spec_impl="ngram")``
+(prompt lookup), or ``spec_impl="draft"`` with ``draft_params`` and
+``draft_config`` (a draft transformer); greedy streams stay those of
+the one-token engine.
 """
 from .cache import CacheOOMError, PagedKVCache
 from .engine import DecodeEngine
 from .scheduler import (DeadlineExceededError, QueueFullError, Scheduler,
                         Sequence, StreamHandle)
+from .spec import (DraftModelDrafter, Drafter, DraftWeightsError,
+                   NGramDrafter, choose_spec_impl, make_drafter)
 
 __all__ = ["DecodeEngine", "PagedKVCache", "CacheOOMError", "Scheduler",
            "Sequence", "StreamHandle", "DeadlineExceededError",
-           "QueueFullError"]
+           "QueueFullError", "Drafter", "NGramDrafter", "DraftModelDrafter",
+           "DraftWeightsError", "choose_spec_impl", "make_drafter"]

@@ -1,12 +1,16 @@
-"""DecodeEngine: continuous-batching generation with chunked prefill.
+"""DecodeEngine: continuous-batching generation with chunked prefill
+and optional speculative decoding.
 
-Counterpart of ``mxnet_tpu/decode/engine.py`` on the mixed step.  One
-engine owns (a) a paged KV cache (``cache.PagedKVCache`` + the
-per-layer cache tensors on the device) and (b) ONE bound mixed step,
+Counterpart of ``mxnet_tpu/decode/engine.py``.  One engine owns (a) a
+paged KV cache (``cache.PagedKVCache`` + the per-layer cache tensors on
+the device) and (b) ONE bound step: the mixed step,
 ``models.transformer.get_mixed_step_symbol``, that every iteration
 runs up to K prefill-chunk tokens of one admitted prompt AND one decode
 token for every active slot (Sarathi-Serve-style stall-free
-scheduling).
+scheduling), or, with ``spec_k > 0``, the spec step
+(``get_spec_step_symbol``), which verifies a span of the slot's last
+token plus up to ``spec_k`` draft tokens from ``spec.py``'s drafters
+per slot in the same forward.
 
 Execution discipline:
 
@@ -20,13 +24,18 @@ Execution discipline:
   the logits, for sampling streams) back: that readback is the
   streamed response.
 
-Scheduling policy lives in ``scheduler.py``.  Speculative decoding,
-tracing spans, the hang watchdog and hot weight reload of the JAX
-engine come with later slices.
+Scheduling policy lives in ``scheduler.py``.  Hot weight swaps
+(``swap_params``, ``check_params``) run under the step lock and flush
+the prefix trie.  Tracing spans, the hang watchdog, the flight
+recorder and ``reload`` from a checkpoint file of the JAX engine come
+with later slices.  Unlike the JAX engine, a drafter's exception is not
+swallowed: the draft model runs kernels, and a kernel error fails the
+engine's work like any other.
 """
 from __future__ import annotations
 
 import collections as _collections
+import os
 import threading
 import time
 
@@ -38,6 +47,8 @@ from ..serving.batcher import (DeadlineExceededError, ServerClosedError,
 from ..telemetry import REGISTRY
 from .cache import CacheOOMError, PagedKVCache
 from .scheduler import Scheduler, Sequence
+from .spec import (ACCEPT_RATE, SPEC_ACCEPTED, SPEC_PROPOSED,
+                   TOKENS_PER_LAUNCH, choose_spec_impl, make_drafter)
 
 __all__ = ["DecodeEngine"]
 
@@ -75,6 +86,12 @@ STEP_MS = REGISTRY.histogram(
 TTFT_MS = REGISTRY.histogram(
     "decode_ttft_ms", "time to first token (submit -> first streamed "
     "token, queue wait included)", unit="ms")
+RELOADS = REGISTRY.counter(
+    "decode_reloads", "successful hot weight swaps into a live engine")
+ACCEPT_WINDOW = REGISTRY.gauge(
+    "decode_accept_rate_window", "accepted/proposed draft-token ratio "
+    "over the last MXNET_DECODE_ACCEPT_WINDOW slot-spans (default 256)",
+    unit="ratio")
 
 
 def _shape(v):
@@ -108,22 +125,24 @@ class DecodeEngine:
     chunk_tokens : per-iteration prefill-chunk budget K (pow2-padded)
     ctx : the device; default ``current_context()``, the card
     eos_id : default end-of-sequence token id (None = length-stop only)
-    spec_k : speculative decoding; must be 0 in this slice
+    spec_k : draft tokens verified per slot and iteration (default
+        ``MXNET_DECODE_SPEC_K`` or 0: speculation off)
+    spec_impl : the drafter, ``auto|ngram|draft|off`` (default
+        ``MXNET_DECODE_SPEC_IMPL`` or ``auto``: the draft model when
+        ``draft_params`` is given, else the n-gram drafter)
+    draft_params, draft_config : the draft model's parameters and
+        ``transformer`` kwargs
     prefix_cache : copy-on-write prefix sharing (off by default)
     """
 
     def __init__(self, arg_params, model_config, capacity=8, block_size=16,
                  num_blocks=64, chunk_tokens=None, ctx=None, eos_id=None,
                  max_waiting=256, default_max_new_tokens=64, warmup=False,
-                 start=True, spec_k=0, prefix_cache=False):
+                 start=True, spec_k=None, spec_impl=None, prefix_cache=False,
+                 draft_params=None, draft_config=None):
         from ..context import current_context
         from ..models import transformer
 
-        if spec_k and int(spec_k) > 0:
-            raise MXNetError(
-                "speculative decoding (spec_k=%s) is not in the PyTorch port "
-                "yet: ROADMAP.md lists it under the decode slice's later "
-                "work (the spec step and its drafters)" % spec_k)
         self._cfg = dict(model_config)
         self._cfg.pop("dropout", None)          # inference graphs
         self._ctx = ctx if ctx is not None else current_context()
@@ -136,30 +155,60 @@ class DecodeEngine:
         self._table_width = -(-self._max_context // bs)
         self._chunk_tokens = _chunk_budget(chunk_tokens, self._max_context)
         self._prefix_cache = bool(prefix_cache)
+        self._prefix_flush = False    # set by swap_params, drained by _tick
+
+        # speculative decoding: spec_k > 0 binds the span-verify step
+        # (spec_k + 1 tokens per slot per forward) in place of the mixed
+        # step; the drafter follows choose_spec_impl's contract
+        if spec_k is None:
+            spec_k = int(os.environ.get("MXNET_DECODE_SPEC_K", "0") or 0)
+        self._spec_k = max(int(spec_k), 0)
+        self._spec_impl = None
+        self._drafter = None
+        if self._spec_k > 0:
+            raw = (spec_impl if spec_impl is not None
+                   else os.environ.get("MXNET_DECODE_SPEC_IMPL", "auto"))
+            self._spec_impl = choose_spec_impl(raw, draft_params is not None)
+            if self._spec_impl is None:          # MXNET_DECODE_SPEC_IMPL=off
+                self._spec_k = 0
+            else:
+                self._drafter = make_drafter(
+                    self._spec_impl, draft_params, draft_config,
+                    ctx=self._ctx, forced=(raw == "draft"))
+                self._spec_impl = self._drafter.name
+        self._span = self._spec_k + 1
 
         self.cache = PagedKVCache(num_blocks, bs,
                                   prefix_sharing=self._prefix_cache)
         self._sched = Scheduler(self.capacity, self.cache,
                                 max_waiting=max_waiting)
 
-        msym = transformer.get_mixed_step_symbol(
-            block_size=bs, num_blocks=int(num_blocks), **self._cfg)
-        self._exe = msym.simple_bind(
-            ctx=self._ctx, grad_req="null", data=(self.capacity, 1),
-            positions=(self.capacity, 1),
+        shapes = dict(
+            data=(self.capacity, self._span),
+            positions=(self.capacity, self._span),
             block_table=(self.capacity, self._table_width),
             chunk_data=(1, self._chunk_tokens),
             chunk_positions=(1, self._chunk_tokens),
             chunk_start=(1,), chunk_len=(1,),
             chunk_table=(1, self._table_width))
+        if self._spec_k > 0:
+            msym = transformer.get_spec_step_symbol(
+                block_size=bs, num_blocks=int(num_blocks), **self._cfg)
+            shapes.update(span_start=(self.capacity,),
+                          span_len=(self.capacity,))
+        else:
+            msym = transformer.get_mixed_step_symbol(
+                block_size=bs, num_blocks=int(num_blocks), **self._cfg)
+        self._exe = msym.simple_bind(ctx=self._ctx, grad_req="null",
+                                     **shapes)
         self._cache_names = []
         for i in range(self._num_layers):
             self._cache_names += ["layer%d_k_cache" % i,
                                   "layer%d_v_cache" % i]
-        self.cache.attach_arrays([self._exe.arg_dict[n]
-                                  for n in self._cache_names])
+        self._cache_arrs = [self._exe.arg_dict[n] for n in self._cache_names]
+        self.cache.attach_arrays(self._cache_arrs)
         self._weight_names = [n for n in self._exe.arg_dict
-                              if n not in transformer.MIXED_STEP_INPUTS
+                              if n not in transformer.SPEC_STEP_INPUTS
                               and n not in self._cache_names]
         self._check_params(arg_params)
         self._exe.copy_params_from(
@@ -178,6 +227,17 @@ class DecodeEngine:
         self._n_preemptions = 0
         self._n_admitted = 0
         self._n_cancelled = 0
+        # speculative accounting: slot-iterations against slot-tokens
+        # give tokens_per_launch (1.0 without speculation); proposed
+        # against accepted give the acceptance rate, also over a window
+        # of recent slot-spans
+        self._n_slot_iters = 0
+        self._n_slot_tokens = 0
+        self._n_spec_proposed = 0
+        self._n_spec_accepted = 0
+        self._spec_window = _collections.deque(maxlen=max(16, int(
+            os.environ.get("MXNET_DECODE_ACCEPT_WINDOW", "256") or 256)))
+        self._model_version = None
         # last-4096 windows only: a long-lived server must not keep one
         # float per request or step
         self._ttfts = _collections.deque(maxlen=4096)
@@ -187,7 +247,8 @@ class DecodeEngine:
 
         self._lock = threading.Lock()
         self._cv = threading.Condition(self._lock)
-        self._step_lock = threading.Lock()
+        self._mid_admission = 0       # off the wait queue, not yet placed
+        self._step_lock = threading.Lock()   # excludes a step and a swap
         self._closing = False
         self._abort = False
         self._thread = None
@@ -210,17 +271,37 @@ class DecodeEngine:
 
     def _idle_feeds(self):
         """All-slots-inactive, empty-chunk inputs: positions -1 mask every
-        decode row and ``chunk_len == 0`` makes the chunk a no-op."""
-        K, M = self._chunk_tokens, self._table_width
-        return dict(
-            data=_np.zeros((self.capacity, 1), _np.float32),
-            positions=_np.full((self.capacity, 1), -1.0, _np.float32),
-            block_table=_np.zeros((self.capacity, M), _np.float32),
+        decode row (on the spec step ``span_len == 0`` does, and
+        positions pad at 0) and ``chunk_len == 0`` makes the chunk a
+        no-op."""
+        K, M, C = self._chunk_tokens, self._table_width, self.capacity
+        feeds = dict(
+            data=_np.zeros((C, self._span), _np.float32),
+            positions=_np.full((C, 1), -1.0, _np.float32),
+            block_table=_np.zeros((C, M), _np.float32),
             chunk_data=_np.zeros((1, K), _np.float32),
             chunk_positions=_np.zeros((1, K), _np.float32),
             chunk_start=_np.zeros((1,), _np.float32),
             chunk_len=_np.zeros((1,), _np.float32),
             chunk_table=_np.zeros((1, M), _np.float32))
+        if self._spec_k > 0:
+            feeds.update(positions=_np.zeros((C, self._span), _np.float32),
+                         span_start=_np.zeros((C,), _np.float32),
+                         span_len=_np.zeros((C,), _np.float32))
+        return feeds
+
+    def _chunk_feeds(self, feeds, chunk_seq, chunk_len):
+        """This iteration's prefill chunk into ``feeds``."""
+        if chunk_seq is None:
+            return
+        s0 = chunk_seq.n_prefilled
+        feeds["chunk_data"][0, :chunk_len] = \
+            chunk_seq.tokens[s0:s0 + chunk_len]
+        feeds["chunk_positions"][0, :chunk_len] = \
+            _np.arange(s0, s0 + chunk_len)
+        feeds["chunk_start"][0] = s0
+        feeds["chunk_len"][0] = chunk_len
+        feeds["chunk_table"][0, :len(chunk_seq.blocks)] = chunk_seq.blocks
 
     # ------------------------------------------------------------------
     def start(self):
@@ -241,11 +322,13 @@ class DecodeEngine:
     # ------------------------------------------------------------------
     def submit(self, tokens, max_new_tokens=None, eos_id="default",
                timeout_ms=None, temperature=0.0, seed=None,
-               collect_logits=False):
+               collect_logits=False, speculative=True):
         """Queue one generation; returns a :class:`StreamHandle` (iterate
         it for streamed tokens, or ``.result()`` for the list).  Raises
         ``QueueFullError`` on backpressure and ``MXNetError`` for an
-        inadmissible prompt."""
+        inadmissible prompt.  ``speculative=False`` opts this request
+        out of draft spans on a spec-enabled engine (one verified token
+        per iteration)."""
         tokens = [int(t) for t in tokens]
         if not tokens:
             raise MXNetError("decode: empty prompt")
@@ -273,7 +356,7 @@ class DecodeEngine:
                 else self._default_max_new,
                 eos_id=self._eos if eos_id == "default" else eos_id,
                 deadline=deadline, temperature=temperature, seed=seed,
-                collect_logits=collect_logits)
+                collect_logits=collect_logits, speculative=speculative)
             seq.submit_step = self._n_steps
             self._sched.enqueue(seq)          # may raise QueueFullError
             self._n_admitted += 1
@@ -326,6 +409,13 @@ class DecodeEngine:
 
     def _tick(self):
         """One scheduler iteration; returns False when nothing ran."""
+        with self._step_lock:
+            flush, self._prefix_flush = self._prefix_flush, False
+        if flush:
+            # deferred from swap_params: the trie's rows were computed
+            # under the old weights; flushing here, on the engine
+            # thread, keeps the cache single-owner
+            self.cache.flush_prefixes()
         now = time.monotonic()
         with self._cv:
             expired = self._sched.take_expired_waiting(now)
@@ -359,6 +449,8 @@ class DecodeEngine:
                 if need > self.cache.free_count:
                     break             # FIFO: wait for blocks, no bypass
                 self._sched.waiting.popleft()
+                # visible to drain(): in neither waiting nor slots yet
+                self._mid_admission += 1
                 QUEUE_DEPTH.set(len(self._sched.waiting))
             slot = self._sched.free_slot()
             try:
@@ -368,6 +460,9 @@ class DecodeEngine:
                 # off the wait queue and may not be placed yet, so any
                 # failure here must settle its handle
                 self._finish(seq, error=exc)
+            finally:
+                with self._cv:
+                    self._mid_admission -= 1
         # grow every DECODING sequence's block table BEFORE the step —
         # the step writes cache position seq.pos, and a missing table
         # entry would default to block 0 and corrupt whoever owns it.
@@ -398,7 +493,10 @@ class DecodeEngine:
         active = self._sched.active()
         ACTIVE_SEQS.set(len(active))
         if active:
-            self._step(active, chunk_seq, chunk_len)
+            if self._spec_k > 0:
+                self._step_spec(active, chunk_seq, chunk_len)
+            else:
+                self._step(active, chunk_seq, chunk_len)
             progressed = True
         return progressed
 
@@ -456,16 +554,7 @@ class DecodeEngine:
             feeds["data"][slot, 0] = seq.last_token
             feeds["positions"][slot, 0] = seq.pos
             feeds["block_table"][slot, :len(seq.blocks)] = seq.blocks
-        if chunk_seq is not None:
-            s0 = chunk_seq.n_prefilled
-            feeds["chunk_data"][0, :chunk_len] = \
-                chunk_seq.tokens[s0:s0 + chunk_len]
-            feeds["chunk_positions"][0, :chunk_len] = \
-                _np.arange(s0, s0 + chunk_len)
-            feeds["chunk_start"][0] = s0
-            feeds["chunk_len"][0] = chunk_len
-            feeds["chunk_table"][0, :len(chunk_seq.blocks)] = \
-                chunk_seq.blocks
+        self._chunk_feeds(feeds, chunk_seq, chunk_len)
         with self._step_lock:
             outs = self._exe.forward(is_train=False, **feeds)
         self._n_steps += 1
@@ -483,13 +572,135 @@ class DecodeEngine:
         next_host = outs[1].asnumpy() if decoding else None
         for slot, seq in decoding:
             seq.pos += 1
+            self._n_slot_iters += 1
+            self._n_slot_tokens += 1
             tok = self._pick_token(seq, outs, slot, logits_host, next_host)
             self._emit(seq, tok)
             self._maybe_finish(seq, tok)
+        self._step_done(t0)
+
+    def _step_done(self, t0):
         ms = (time.perf_counter() - t0) * 1e3
         STEP_MS.observe(ms)
         with self._cv:
             self._step_ms.append(ms)
+
+    def _fork_block(self, seq, idx):
+        """Copy-on-write: give ``seq`` a private copy of table entry
+        ``idx`` when that block is shared, by a device row copy per
+        cache tensor.  Full-blocks-only sharing keeps the engine's own
+        writes past every shared row, so this runs only when the cache
+        was shared some other way."""
+        old = seq.blocks[idx]
+        new = self.cache.fork_for_write(old)
+        if new is None:
+            return
+        for nd in self._cache_arrs:
+            nd._data[new].copy_(nd._data[old])
+        seq.blocks[idx] = new
+
+    def _step_spec(self, active, chunk_seq=None, chunk_len=0):
+        """One draft-verify iteration: propose up to ``spec_k`` tokens
+        per decoding slot, verify every span in ONE forward of the spec
+        step, and commit the longest draft prefix that matches the
+        target's own greedy tokens (draft token j commits only when it
+        equals greedy output j-1, so every emitted token is the one the
+        one-token engine would emit).  A rejected tail rolls back by the
+        cursor alone: the next span overwrites those cache rows before
+        any query can attend them."""
+        t0 = time.perf_counter()
+        if chunk_seq is not None and chunk_seq.slot is None:
+            chunk_seq, chunk_len = None, 0   # preempted after selection
+        decoding = [(slot, seq) for slot, seq in active
+                    if seq.n_prefilled >= seq.prefill_target]
+        S = self._span
+        bs = self.cache.block_size
+        vocab = int(self._cfg.get("num_classes", 0))
+        feeds = self._idle_feeds()
+        drafts = {}
+        for slot, seq in decoding:
+            draft = []
+            # the span must fit the context, and tokens past the
+            # stream's length stop are wasted verification
+            budget = min(self._spec_k, self._max_context - seq.pos - 1,
+                         seq.max_new_tokens - seq.n_generated - 1)
+            if budget > 0 and seq.speculative \
+                    and not self._needs_logits(seq):
+                draft = [int(t) for t in
+                         self._drafter.propose(seq.tokens, budget)]
+                draft = [t for t in draft[:budget] if 0 <= t < vocab]
+            # row seq.pos is guaranteed by _tick's _ensure_blocks; the
+            # draft rows trim on cache pressure instead of preempting
+            L = 1 + len(draft)
+            while (seq.pos + L - 1) // bs >= len(seq.blocks):
+                try:
+                    seq.blocks += self.cache.alloc(1)
+                except CacheOOMError:
+                    L = min(1 + len(draft),
+                            max(1, len(seq.blocks) * bs - seq.pos))
+                    draft = draft[:L - 1]
+                    break
+            for bi in range(seq.pos // bs, (seq.pos + L - 1) // bs + 1):
+                if self.cache.ref(seq.blocks[bi]) > 1:
+                    self._fork_block(seq, bi)
+            drafts[slot] = draft
+            feeds["data"][slot, :L] = [seq.last_token] + draft
+            feeds["positions"][slot, :L] = _np.arange(seq.pos, seq.pos + L)
+            feeds["span_start"][slot] = seq.pos
+            feeds["span_len"][slot] = L
+            feeds["block_table"][slot, :len(seq.blocks)] = seq.blocks
+            if draft:
+                self._n_spec_proposed += len(draft)
+                SPEC_PROPOSED.inc(len(draft))
+        self._chunk_feeds(feeds, chunk_seq, chunk_len)
+        with self._step_lock:
+            outs = self._exe.forward(is_train=False, **feeds)
+        self._n_steps += 1
+        self._occ_sum += len(active)
+        self._cache_occ_sum += self.cache.occupancy
+        STEPS.inc()
+        if chunk_seq is not None:
+            self._advance_chunk(chunk_seq, chunk_len, outs)
+        # one logits copy shared by the sampling slots, one greedy-token
+        # copy for the step; span rows are slot * S + j
+        logits_host = None
+        if any(self._needs_logits(s) for _, s in decoding):
+            logits_host = outs[0].asnumpy()
+        next_host = outs[1].asnumpy() if decoding else None
+        for slot, seq in decoding:
+            draft = drafts[slot]
+            self._n_slot_iters += 1
+            accepted = 0
+            for j in range(1 + len(draft)):
+                # row j is the target's choice given span tokens 0..j,
+                # reached only while every earlier draft token matched
+                seq.pos += 1
+                tok = self._pick_token(seq, outs, slot * S + j, logits_host,
+                                       next_host)
+                self._n_slot_tokens += 1
+                accepted += j > 0
+                self._emit(seq, tok)
+                self._maybe_finish(seq, tok)
+                if seq.slot is None:
+                    break                  # finished mid-span
+                if j < len(draft) and draft[j] != tok:
+                    break                  # tail rejected: cursor stays
+            if accepted:
+                self._n_spec_accepted += accepted
+                SPEC_ACCEPTED.inc(accepted)
+            if draft:
+                self._spec_window.append((len(draft), accepted))
+        if self._n_spec_proposed:
+            ACCEPT_RATE.set(self._n_spec_accepted
+                            / float(self._n_spec_proposed))
+            wp = sum(p for p, _ in self._spec_window)
+            if wp:
+                ACCEPT_WINDOW.set(sum(a for _, a in self._spec_window)
+                                  / float(wp))
+        if self._n_slot_iters:
+            TOKENS_PER_LAUNCH.set(self._n_slot_tokens
+                                  / float(self._n_slot_iters))
+        self._step_done(t0)
 
     def _advance_chunk(self, chunk_seq, chunk_len, outs):
         """Account this iteration's prefill chunk; on the LAST chunk,
@@ -580,6 +791,51 @@ class DecodeEngine:
         seq.handle._finish(reason=reason, error=error)
 
     # ------------------------------------------------------------------
+    # weights: hot swap
+    # ------------------------------------------------------------------
+    def check_params(self, arg_params):
+        """Validate a candidate checkpoint against the bound model (every
+        parameter present, each of the bound shape) without touching
+        anything; raises ``MXNetError``."""
+        self._check_params(arg_params)
+
+    def swap_params(self, arg_params, version=None):
+        """Copy new weights into the bound step under the step lock:
+        in-flight sequences continue on them at the next iteration and
+        the KV cache (so every stream) is kept.  ``version`` stamps
+        ``stats()["model_version"]`` with the swap.  Raises
+        ``MXNetError``, touching nothing, when a name or shape does not
+        match.  With prefix sharing, the trie (rows computed under the
+        old weights) is flushed at the engine thread's next tick, or at
+        once when the engine thread is not running."""
+        self._check_params(arg_params)
+        with self._step_lock:
+            self._exe.copy_params_from(
+                {n: arg_params[n] for n in self._weight_names})
+            if version is not None:
+                self._model_version = version
+            self._prefix_flush = self._prefix_cache \
+                and self._thread is not None
+        if self._prefix_cache and self._thread is None:
+            self.cache.flush_prefixes()
+        RELOADS.inc()
+
+    # ------------------------------------------------------------------
+    def drain(self, timeout=None):
+        """Wait until all submitted work has settled; False when
+        ``timeout`` seconds pass first."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while True:
+            with self._cv:
+                idle = (not self._sched.waiting
+                        and not self._sched.has_active()
+                        and not self._mid_admission)
+            if idle:
+                return True
+            if deadline is not None and time.monotonic() > deadline:
+                return False
+            time.sleep(0.005)
+
     def stop(self, drain=True, timeout=None):
         """Stop the engine; ``drain=True`` finishes queued work first,
         ``drain=False`` fails it with ``ServerClosedError``."""
@@ -605,6 +861,8 @@ class DecodeEngine:
             ttft_steps = sorted(self._ttft_steps)
             step_ms = sorted(self._step_ms)
         n = self._n_steps
+        wp = sum(p for p, _ in self._spec_window)
+        wa = sum(a for _, a in self._spec_window)
         return {
             "capacity": self.capacity,
             "queue_depth": depth,
@@ -628,6 +886,16 @@ class DecodeEngine:
             "ttft_p99_ms": _percentile(ttfts, 0.99),
             "ttft_steps_p99": _percentile(ttft_steps, 0.99),
             "device": str(self._ctx),
+            "model_version": self._model_version,
+            "spec_k": self._spec_k,
+            "spec_impl": self._spec_impl,
+            "spec_proposed": self._n_spec_proposed,
+            "spec_accepted": self._n_spec_accepted,
+            "accept_rate": (self._n_spec_accepted / self._n_spec_proposed
+                            if self._n_spec_proposed else None),
+            "accept_rate_window": wa / float(wp) if wp else None,
+            "tokens_per_launch": (self._n_slot_tokens / self._n_slot_iters
+                                  if self._n_slot_iters else None),
             "cache": {
                 "num_blocks": self.cache.num_blocks,
                 "block_size": self.cache.block_size,

@@ -113,7 +113,7 @@ class Sequence:
 
     def __init__(self, rid, prompt, max_new_tokens, eos_id=None,
                  deadline=None, temperature=0.0, seed=None,
-                 collect_logits=False):
+                 collect_logits=False, speculative=True):
         self.rid = rid
         self.tokens = list(int(t) for t in prompt)   # prompt + generated
         self.n_prompt = len(self.tokens)             # original prompt size
@@ -122,6 +122,11 @@ class Sequence:
         self.deadline = deadline
         self.temperature = float(temperature)
         self.seed = seed
+        # False pins this stream to one verified token per iteration on
+        # a spec-enabled engine; sampling and collect_logits streams
+        # never draft either way (greedy acceptance is exact only for
+        # greedy streams)
+        self.speculative = bool(speculative)
         self.handle = StreamHandle(rid)
         if collect_logits:
             self.handle.logits = []

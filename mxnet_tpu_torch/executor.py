@@ -23,7 +23,11 @@ place (the JAX package's executor returns the new states instead).
 Cache arguments (the paged K/V caches) are updated IN PLACE by the ops
 that write them, and the outputs that carry the "new" caches are those
 same tensors.  That is the counterpart of the JAX package's buffer
-donation: no whole-cache copy in or out of a step.
+donation: no whole-cache copy in or out of a step.  An executor bound
+with ``shared_exec`` holds that executor's NDArrays (the same objects)
+for every argument and auxiliary state of the same name and shape, so
+a prefill executor and a decode-step executor share one copy of the
+weights and write into one set of caches.
 """
 from __future__ import annotations
 
@@ -54,7 +58,7 @@ def _normalize_grad_req(grad_req, arg_names):
 
 
 class Executor:
-    def __init__(self, symbol, ctx, grad_req, shapes):
+    def __init__(self, symbol, ctx, grad_req, shapes, shared_exec=None):
         self._symbol = symbol
         self._ctx = ctx if ctx is not None else current_context()
         dev = self._ctx.torch_device
@@ -62,17 +66,28 @@ class Executor:
         self._grad_req = _normalize_grad_req(grad_req, self._arg_names)
         arg_shapes, _, aux_shapes = symbol.infer_shape(**shapes)
         self._aux_names = symbol.list_auxiliary_states()
-        self.aux_dict = {name: NDArray(torch.zeros(shape, dtype=torch.float32,
-                                                   device=dev))
-                         for name, shape in zip(self._aux_names, aux_shapes)}
+
+        arg_pool = shared_exec.arg_dict if shared_exec is not None else {}
+        aux_pool = shared_exec.aux_dict if shared_exec is not None else {}
+
+        def shared(pool, name, shape):
+            nd = pool.get(name)
+            return nd if nd is not None and nd.shape == tuple(shape) \
+                else None
+
+        self.aux_dict = {}
+        for name, shape in zip(self._aux_names, aux_shapes):
+            self.aux_dict[name] = shared(aux_pool, name, shape) or NDArray(
+                torch.zeros(shape, dtype=torch.float32, device=dev))
         self.arg_dict = {}
         self.grad_dict = {}
         for name, shape in zip(self._arg_names, arg_shapes):
-            t = torch.zeros(shape, dtype=torch.float32, device=dev)
+            nd = shared(arg_pool, name, shape) or NDArray(
+                torch.zeros(shape, dtype=torch.float32, device=dev))
             if self._grad_req[name] != "null":
-                t.requires_grad_(True)
-                self.grad_dict[name] = NDArray(torch.zeros_like(t))
-            self.arg_dict[name] = NDArray(t)
+                nd._data.requires_grad_(True)
+                self.grad_dict[name] = NDArray(torch.zeros_like(nd._data))
+            self.arg_dict[name] = nd
         self._nodes = symbol._topo()
         self.outputs = []
         self._heads = None          # the graph-carrying outputs of a train forward

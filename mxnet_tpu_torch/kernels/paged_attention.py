@@ -1,15 +1,16 @@
-"""Paged-KV-cache attention: decode and chunked prefill.
+"""Paged-KV-cache attention: decode, chunked prefill and one-shot
+prefill.
 
 Counterparts of ``mxnet_tpu/pallas/attention.py``
-``paged_decode_attend`` and ``paged_chunk_prefill_attend``, with the
-same signatures and layouts: caches ``(num_blocks, block_size, H, D)``
-addressed through an int32 block table, queries and chunk rows
-seq-major.  The kernels are ``csrc/paged_attention.cu`` (design note in
+``paged_decode_attend``, ``paged_chunk_prefill_attend`` and
+``paged_prefill_attend``, with the same signatures and layouts: caches
+``(num_blocks, block_size, H, D)`` addressed through an int32 block
+table, queries and chunk rows seq-major.  The kernels are ``csrc/paged_attention.cu`` (design note in
 the source).  Beside each wrapper is its plain PyTorch version: the CPU
 path and the kernel's yardstick on the card.
 
-The chunk prefill writes the chunk's K/V rows into the caches IN PLACE
-and returns the same cache tensors: the counterpart of the JAX kernel's
+The two prefills write their K/V rows into the caches IN PLACE and
+return the same cache tensors: the counterpart of the JAX kernels'
 input/output-aliased caches.
 """
 from __future__ import annotations
@@ -24,10 +25,12 @@ from .dispatch import (DTYPE_CODE, FLOAT_TYPES, check_tensor, count_launch,
                        count_plain, on_cpu)
 
 __all__ = ["paged_decode_attend", "paged_decode_attend_plain",
-           "paged_chunk_prefill_attend", "paged_chunk_prefill_attend_plain"]
+           "paged_chunk_prefill_attend", "paged_chunk_prefill_attend_plain",
+           "paged_prefill_attend", "paged_prefill_attend_plain"]
 
 _DECODE = "paged_decode_attend"
 _CHUNK = "paged_chunk_prefill_attend"
+_PREFILL = "paged_prefill_attend"
 _MAX_SMEM = 232448             # bytes of shared memory a block may use
 _INT = (torch.int32,)
 
@@ -44,6 +47,11 @@ def _lib():
         lib.mx_paged_chunk_prefill.restype = i
         lib.mx_paged_chunk_prefill_smem.argtypes = [i]
         lib.mx_paged_chunk_prefill_smem.restype = ctypes.c_size_t
+        lib.mx_paged_prefill.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i,
+                                         i, i, f, i, i, i, p]
+        lib.mx_paged_prefill.restype = i
+        lib.mx_paged_prefill_smem.argtypes = [i]
+        lib.mx_paged_prefill_smem.restype = ctypes.c_size_t
     return lib
 
 
@@ -199,4 +207,89 @@ def paged_chunk_prefill_attend(q, k, v, k_cache, v_cache, block_table, start,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, _CHUNK, err)
     count_launch(_CHUNK)
+    return out, k_cache, v_cache
+
+
+# ----------------------------------------------------------------------
+# one-shot prefill: causal attention over a padded prompt batch, with
+# each row's first lengths[b] K/V rows scattered into the cache
+# ----------------------------------------------------------------------
+def _check_prefill_table(q, k_cache, block_table):
+    """The JAX function's shape contract: the table must address every
+    block a length-S prompt can fill."""
+    S, bs, M = q.shape[1], k_cache.shape[1], block_table.shape[1]
+    if M < -(-S // bs):
+        raise MXNetError("%s: block_table width %d < %d blocks needed for a "
+                         "%d-token prompt at block_size %d"
+                         % (_PREFILL, M, -(-S // bs), S, bs))
+
+
+def paged_prefill_attend_plain(q, k, v, k_cache, v_cache, block_table,
+                               lengths, *, scale):
+    """Plain PyTorch one-shot prefill: every one of the S query rows
+    attends causally to the input keys, and rows ``< lengths[b]`` are
+    scattered into the caches in place (table entries past a row's last
+    real block are never used).  Returns ``(out, k_cache, v_cache)``."""
+    count_plain(_PREFILL)
+    _check_prefill_table(q, k_cache, block_table)
+    B, S, H, D = q.shape
+    nb, bs = k_cache.shape[:2]
+    M = block_table.shape[1]
+    s = torch.einsum("bqhe,bkhe->bhqk", q.float(), k.float()) * scale
+    causal = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+    s = s.masked_fill(~causal, float("-inf"))
+    o = torch.einsum("bhqk,bkhe->bqhe", torch.softmax(s, dim=-1), v.float())
+    j = torch.arange(S, device=q.device)
+    real = j[None, :] < lengths.long().clamp(0, M * bs)[:, None]   # (B, S)
+    base = block_table.long()[:, (j // bs).clamp(0, M - 1)]         # (B, S)
+    widx = (base * bs + j % bs)[real]
+    k_cache.view(nb * bs, H, D)[widx] = k[real].to(k_cache.dtype)
+    v_cache.view(nb * bs, H, D)[widx] = v[real].to(v_cache.dtype)
+    return o.to(q.dtype), k_cache, v_cache
+
+
+def paged_prefill_attend(q, k, v, k_cache, v_cache, block_table, lengths, *,
+                         scale):
+    """One-shot prefill attention: ``q/k/v (B, S, H, D)`` seq-major,
+    every query row attending causally to the row's own keys (any S;
+    keys at or past S do not exist), with the first ``lengths[b]`` K/V
+    rows of each row written into the caches in place at table block
+    ``block_table[b, j // bs]``, row ``j % bs``.  ``lengths[b] <= S`` is
+    the caller's contract; ``lengths[b] == 0`` leaves the caches
+    byte-identical.  Returns ``(out (B, S, H, D), k_cache, v_cache)``.
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    or raise."""
+    if on_cpu(_PREFILL, q, k, v, k_cache, v_cache, block_table, lengths):
+        return paged_prefill_attend_plain(q, k, v, k_cache, v_cache,
+                                          block_table, lengths, scale=scale)
+    check_tensor(_PREFILL, "q", q, dtypes=FLOAT_TYPES, ndim=4)
+    B, S, H, D = q.shape
+    check_tensor(_PREFILL, "k", k, dtypes=(q.dtype,), shape=q.shape)
+    check_tensor(_PREFILL, "v", v, dtypes=(q.dtype,), shape=q.shape)
+    _check_caches(_PREFILL, k_cache, v_cache)
+    nb, bs = k_cache.shape[:2]
+    if tuple(k_cache.shape[2:]) != (H, D):
+        raise MXNetError("%s: caches hold (H, D) = %s, q has %s"
+                         % (_PREFILL, tuple(k_cache.shape[2:]), (H, D)))
+    check_tensor(_PREFILL, "block_table", block_table, dtypes=_INT, ndim=2)
+    if block_table.shape[0] != B:
+        raise MXNetError("%s: block_table has %d rows for %d prompts"
+                         % (_PREFILL, block_table.shape[0], B))
+    _check_prefill_table(q, k_cache, block_table)
+    check_tensor(_PREFILL, "lengths", lengths, dtypes=_INT, shape=(B,))
+    if D > 128:
+        raise MXNetError("%s: the kernel takes head_dim <= 128, got %d"
+                         % (_PREFILL, D))
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out, k_cache, v_cache
+    lib = _lib()
+    err = lib.mx_paged_prefill(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), k_cache.data_ptr(),
+        v_cache.data_ptr(), block_table.data_ptr(), lengths.data_ptr(),
+        out.data_ptr(), B, S, H, D, bs, block_table.shape[1], float(scale),
+        DTYPE_CODE[q.dtype], DTYPE_CODE[k_cache.dtype], q.device.index or 0,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, _PREFILL, err)
+    count_launch(_PREFILL)
     return out, k_cache, v_cache

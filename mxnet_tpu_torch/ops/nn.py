@@ -7,7 +7,7 @@ kw) convolution weights, or NHWC data with (num_filter, kh, kw,
 C / groups) weights).  The projections, the FFN and the
 convolutions are plain PyTorch calls (``torch.matmul``,
 ``F.conv2d``: the JAX package left them to XLA, in no Pallas kernel);
-LayerNorm, the causal training attention and the two paged attentions
+LayerNorm, the causal training attention and the three paged attentions
 go through the hand-written kernels in ``..kernels``, which take the
 plain PyTorch versions only for tensors on the CPU.  Gradients are
 autograd's, with ``torch.autograd.Function``s where the JAX package had
@@ -20,7 +20,7 @@ import torch.nn.functional as F
 
 from ..base import MXNetError
 from ..kernels import (flash_attention, layernorm, paged_chunk_prefill_attend,
-                       paged_decode_attend)
+                       paged_decode_attend, paged_prefill_attend)
 from .registry import register
 
 
@@ -515,6 +515,28 @@ def paged_chunk_prefill_attention(data, qkv_weight, qkv_bias,
         start.reshape(B).to(torch.int32), lengths.reshape(B).to(torch.int32),
         scale=sc)
     return _linear(o.reshape(B, K, d), proj_weight, proj_bias), kc, vc
+
+
+@register("_contrib_PagedPrefillAttention",
+          aliases=("PagedPrefillAttention",), num_outputs=3)
+def paged_prefill_attention(data, qkv_weight, qkv_bias, proj_weight,
+                            proj_bias, k_cache, v_cache, block_table,
+                            lengths, *, num_heads, scale=None):
+    """Prompt-phase attention that also fills the paged KV cache.
+
+    data (B, S, d) is the padded prompt batch, lengths (B,) the real
+    prompt lengths, block_table (B, M) the destination blocks.  The
+    q/k/v projections land straight in the kernel's seq-major (B, S,
+    H, D) layout; the kernel attends every row causally and writes the
+    K/V rows below each length into the caches in place.  Returns
+    (hidden (B, S, d), k_cache, v_cache)."""
+    B, S, d = data.shape
+    H, D, sc = _heads(d, num_heads, scale)
+    q, k, v = _split_qkv(data, qkv_weight, qkv_bias, H)
+    o, kc, vc = paged_prefill_attend(
+        q, k, v, k_cache, v_cache, block_table.to(torch.int32),
+        lengths.reshape(B).to(torch.int32), scale=sc)
+    return _linear(o.reshape(B, S, d), proj_weight, proj_bias), kc, vc
 
 
 @register("_contrib_GatherTimestep", aliases=("GatherTimestep",))

@@ -14,7 +14,9 @@ writes the outputs back into them after a train forward.
 those attributes (``_FusedBNReluConv``'s residual without
 ``with_residual``): the symbol functions leave them out where they
 would otherwise create a variable, and create every other missing
-input, optional ones included.  Shape inference uses the explicit rules
+input, optional ones included.  An op whose signature takes ``*args``
+(``Concat``) takes any number of inputs, named ``arg0``, ``arg1``, ...
+in shape inference, with ``num_args`` set to their count.  Shape inference uses the explicit rules
 in ``shape_rules.py`` (the JAX package traced the function with
 ``jax.eval_shape`` instead).
 """
@@ -43,6 +45,8 @@ class OpDef:
         sig = inspect.signature(fn)
         self.input_names = [p.name for p in sig.parameters.values()
                             if p.kind is p.POSITIONAL_OR_KEYWORD]
+        self.var_inputs = any(p.kind is p.VAR_POSITIONAL
+                              for p in sig.parameters.values())
         self.optional_inputs = {
             p.name for p in sig.parameters.values()
             if p.kind is p.POSITIONAL_OR_KEYWORD and p.default is None}
@@ -52,6 +56,12 @@ class OpDef:
         self.takes_is_train = "is_train" in self.attr_defaults
         self.attr_defaults.pop("is_train", None)
         self.__doc__ = fn.__doc__
+
+    def names_for(self, n_inputs):
+        """The names of a node's ``n_inputs`` inputs."""
+        if self.var_inputs:
+            return ["arg%d" % i for i in range(n_inputs)]
+        return self.input_names
 
     def out_count(self, attrs):
         n = self._num_outputs

@@ -56,6 +56,26 @@ def _reshape_out(ins, a):
     return [infer_magic(ins["data"], tuple(int(s) for s in a["shape"]))]
 
 
+def _broadcast(ins, a):
+    return [tuple(torch.broadcast_shapes(ins["lhs"], ins["rhs"]))]
+
+
+def _slice_axis_out(ins, a):
+    x = list(ins["data"])
+    axis = int(a["axis"]) % len(x)
+    end = x[axis] if a["end"] is None else int(a["end"])
+    x[axis] = end - int(a["begin"])
+    return [tuple(x)]
+
+
+def _concat_out(ins, a):
+    shapes = list(ins.values())
+    out = list(shapes[0])
+    dim = int(a["dim"]) % len(out)
+    out[dim] = sum(s[dim] for s in shapes)
+    return [tuple(out)]
+
+
 def _same(ins, a):
     return [next(iter(ins.values()))]
 
@@ -171,6 +191,7 @@ PARAM_SHAPES = {
                                             a["output_dim"])},
     "_contrib_PagedDecodeAttention": _paged_params,
     "_contrib_PagedChunkPrefillAttention": _paged_params,
+    "_contrib_PagedPrefillAttention": _paged_params,
     "_contrib_FusedCausalSelfAttention": _paged_params,
     "SoftmaxOutput": lambda ins, a: {
         "label": ins["data"][:1] + ins["data"][2:] if a["multi_output"]
@@ -193,6 +214,8 @@ OUT_SHAPES = {
         lambda ins, a: [ins["data"], ins["k_cache"], ins["v_cache"]],
     "_contrib_PagedChunkPrefillAttention":
         lambda ins, a: [ins["data"], ins["k_cache"], ins["v_cache"]],
+    "_contrib_PagedPrefillAttention":
+        lambda ins, a: [ins["data"], ins["k_cache"], ins["v_cache"]],
     "_contrib_FusedCausalSelfAttention": lambda ins, a: [ins["data"]],
     "SoftmaxOutput": lambda ins, a: [ins["data"]],
     "_contrib_GatherTimestep":
@@ -201,10 +224,13 @@ OUT_SHAPES = {
     "Cast": _same,
     "take": _take_out,
     "argmax": _argmax_out,
-    "broadcast_add": lambda ins, a: [tuple(torch.broadcast_shapes(
-        ins["lhs"], ins["rhs"]))],
-    "broadcast_sub": lambda ins, a: [tuple(torch.broadcast_shapes(
-        ins["lhs"], ins["rhs"]))],
+    "broadcast_add": _broadcast,
+    "broadcast_sub": _broadcast,
+    "broadcast_mul": _broadcast,
+    "broadcast_equal": _broadcast,
     "_plus_scalar": _same,
     "_minus_scalar": _same,
+    "_mul_scalar": _same,
+    "slice_axis": _slice_axis_out,
+    "Concat": _concat_out,
 }

@@ -1,7 +1,7 @@
 """Tensor shape/index operators of the serving slice.
 
 Counterpart of ``mxnet_tpu/ops/tensor.py``: ``Reshape`` with MXNet's
-magic values, ``Cast`` and ``take``.
+magic values, ``Cast``, ``take``, ``slice_axis`` and ``Concat``.
 """
 from __future__ import annotations
 
@@ -75,3 +75,18 @@ def take(a, indices, *, axis=0, mode="clip"):
     idx = idx.clamp(0, n - 1) if mode == "clip" else idx % n
     out = torch.index_select(a, axis, idx.reshape(-1))
     return out.reshape(a.shape[:axis] + indices.shape + a.shape[axis + 1:])
+
+
+@register("slice_axis")
+def slice_axis(data, *, axis, begin, end):
+    """``data[..., begin:end, ...]`` along ``axis`` (``end=None``: to
+    the end)."""
+    axis = int(axis) % data.dim()
+    end = data.shape[axis] if end is None else int(end)
+    return data.narrow(axis, int(begin), end - int(begin))
+
+
+@register("Concat", aliases=("concat",))
+def concat(*args, num_args=None, dim=1):
+    """Join the inputs along ``dim``."""
+    return torch.cat(args, dim=int(dim))

@@ -23,9 +23,12 @@ def _invoke_op(opname, sym_inputs, attrs=None, name=None):
 
 def _make_sym_func(opdef, fname):
     def fn(*args, name=None, **kwargs):
+        nm = NAMES.get(name, opdef.name.lower().replace("_", ""))
+        if opdef.var_inputs:
+            kwargs["num_args"] = len(args)
+            return _make_node(opdef, nm, kwargs, [_entry_of(s) for s in args])
         kw_inputs = {k: kwargs.pop(k) for k in list(kwargs)
                      if k in opdef.input_names}
-        nm = NAMES.get(name, opdef.name.lower().replace("_", ""))
         unused = opdef.unused_inputs(kwargs) if opdef.unused_inputs \
             else None
         inputs = []

@@ -3,8 +3,8 @@
 Counterpart of ``mxnet_tpu/symbol/symbol.py``, reduced to what the
 serving and training slices use: ``Variable`` (with ``init=``,
 ``lr_mult`` and ``wd_mult`` stored as the JAX package stores them),
-``Group``, composition through the generated op functions and
-``+``/``-``, ``list_arguments``, ``list_outputs``,
+``Group``, composition through the generated op functions,
+``+``/``-``/``*`` and ``slice_axis``, ``list_arguments``, ``list_outputs``,
 ``list_auxiliary_states`` (the variables an op mutates, such as
 BatchNorm's moving statistics), ``attr_dict``, ``infer_shape`` and
 ``simple_bind``.  JSON serialization, attribute scopes, sharding
@@ -133,7 +133,7 @@ class Symbol:
                     shapes[node.name] = tuple(shp)
                 env[(id(node), 0)] = shapes.get(node.name)
                 continue
-            names = node.op.input_names
+            names = node.op.names_for(len(node.inputs))
             ins = {nm: env[(id(inp), oi)]
                    for (inp, oi), nm in zip(node.inputs, names)}
             if any(s is None for s in ins.values()):
@@ -160,13 +160,18 @@ class Symbol:
                 [env[(id(n), i)] for n, i in self._entries],
                 [shapes[n] for n in auxs])
 
-    def simple_bind(self, ctx=None, grad_req="null", **shapes):
+    def simple_bind(self, ctx=None, grad_req="null", shared_exec=None,
+                    **shapes):
         """Allocate every argument (float32, zeros) on ``ctx`` from the
         inferred shapes and return an Executor.  ``grad_req`` is
         ``'write'``, ``'add'`` or ``'null'``, one value for every
-        argument or a dict per argument (missing names: ``'null'``)."""
+        argument or a dict per argument (missing names: ``'null'``).
+        With ``shared_exec``, each argument and auxiliary state whose
+        name and shape match one of that executor's takes its NDArray,
+        the same object: the two executors then hold one copy of the
+        weights and of the paged caches."""
         from ..executor import Executor
-        return Executor(self, ctx, grad_req, shapes)
+        return Executor(self, ctx, grad_req, shapes, shared_exec)
 
     # ------------------------------------------------------------------
     def _binop(self, other, op, scalar_op):
@@ -182,6 +187,14 @@ class Symbol:
 
     def __sub__(self, o):
         return self._binop(o, "broadcast_sub", "_minus_scalar")
+
+    def __mul__(self, o):
+        return self._binop(o, "broadcast_mul", "_mul_scalar")
+
+    def slice_axis(self, axis, begin, end):
+        from . import _invoke_op
+        return _invoke_op("slice_axis", [self],
+                          {"axis": axis, "begin": begin, "end": end})
 
 
 # sharding annotations: tensor parallelism comes with the multi-GPU slice

@@ -111,9 +111,13 @@ def test_engine_sampling_and_logits_match_jax(pallas, params):
 
 
 def test_engine_rejects_speculative_decoding(params):
-    with pytest.raises(mx.MXNetError, match="ROADMAP"):
-        DecodeEngine(params, CFG, ctx=mx.cpu(), spec_k=2, start=False,
-                     **ENGINE)
+    """Speculative decoding is ported (tests/test_torch_spec.py); what
+    the engine still rejects, as the JAX engine does, is a forced draft
+    model without a draft checkpoint and an unknown drafter."""
+    for impl in ("draft", "medusa"):
+        with pytest.raises(ValueError, match="MXNET_DECODE_SPEC_IMPL"):
+            DecodeEngine(params, CFG, ctx=mx.cpu(), spec_k=2, start=False,
+                         spec_impl=impl, **ENGINE)
 
 
 def test_convert_params_checks_names_and_shapes(params):

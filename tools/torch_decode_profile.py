@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Where the time of one mixed decode step, or of one training step,
-goes on the GPU.
+"""Where the time of one mixed decode step, one speculative step, one
+one-shot prefill, or one training step goes on the GPU.
 
     python3 tools/torch_decode_profile.py            # decode steps
+    python3 tools/torch_decode_profile.py --spec     # spec steps
+    python3 tools/torch_decode_profile.py --prefill  # one-shot prefill
     python3 tools/torch_decode_profile.py --train    # one Module.fit step
     python3 tools/torch_decode_profile.py --resnet   # one 2-bit ResNet step
     python3 tools/torch_decode_profile.py --resnet --layout NHWC --fuse
@@ -21,6 +23,16 @@ mixed step directly from this thread in two forms: a decode-only step
 * the host time to enqueue one step (forward without synchronizing),
   and the calls in one forward that synchronize the host with the
   device (``torch.cuda.set_sync_debug_mode``).
+
+With ``--spec`` it builds chip_smoke.py's full-width engine with
+``spec_k=4`` and drives its bound spec step the same way in two forms:
+8 slots each verifying a 5-token span at position 400, without and with
+the 64-row chunk, printing the same line for each.
+
+With ``--prefill`` it binds chip_smoke.py's prefill/decode-step pair
+(``shared_exec``) at full width and prints the same line for one
+prefill forward of serve_prefill's 8 prompts padded to 1024 tokens
+(wall time median of 5, device time over 3 profiled forwards).
 
 With ``--train`` it instead binds chip_smoke.py's full-width training
 Module (same seeded weights, batch 4 x 1024 tokens, SGD with momentum),
@@ -73,6 +85,7 @@ def group(name):
     n = name.lower()
     for key, label in (("paged_decode", "paged_decode_attend"),
                        ("paged_chunk", "paged_chunk_prefill_attend"),
+                       ("paged_prefill", "paged_prefill_attend"),
                        ("layernorm_fwd", "layernorm_fused"),
                        ("layernorm_bwd", "layernorm_fused_bwd"),
                        ("flash_fwd", "flash_attention_fwd"),
@@ -410,7 +423,6 @@ def main():
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.decode import DecodeEngine
     from mxnet_tpu_torch.weights import convert_params
-    from torch.profiler import ProfilerActivity, profile
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -427,66 +439,116 @@ def main():
     if "--train" in sys.argv[1:]:
         profile_train(torch, cs, mx)
         return 0
+    if "--prefill" in args:
+        profile_prefill(torch, cs, mx)
+        return 0
+    spec_k = 4 if "--spec" in args else 0
     eng = DecodeEngine(convert_params(cs.seeded_params(cs.FULL), mx.gpu(0),
                                       cs.FULL), cs.FULL, ctx=mx.gpu(0),
-                       start=False, warmup=True, **cs.GEOMETRY)
+                       start=False, warmup=True, spec_k=spec_k,
+                       spec_impl="ngram" if spec_k else None, **cs.GEOMETRY)
     rng = np.random.RandomState(cs.SEED)
-    C, K = eng.capacity, eng._chunk_tokens
+    C, K, S = eng.capacity, eng._chunk_tokens, spec_k + 1
     blocks = rng.permutation(eng.cache.num_blocks)
     feeds = eng._idle_feeds()
     for c in range(C):                   # 8 slots at position 400 each
-        feeds["data"][c, 0] = rng.randint(cs.FULL["num_classes"])
-        feeds["positions"][c, 0] = 400
+        feeds["data"][c] = rng.randint(cs.FULL["num_classes"], size=S)
+        feeds["positions"][c] = np.arange(400, 400 + S)
         feeds["block_table"][c, :26] = blocks[c * 26:(c + 1) * 26]
+        if spec_k:                       # a span of S tokens per slot
+            feeds["span_start"][c] = 400
+            feeds["span_len"][c] = S
     mixed = {k: v.copy() for k, v in feeds.items()}
     mixed["chunk_data"][0] = rng.randint(cs.FULL["num_classes"], size=K)
     mixed["chunk_positions"][0] = np.arange(320, 320 + K)
     mixed["chunk_start"][0] = 320
     mixed["chunk_len"][0] = K
     mixed["chunk_table"][0, :24] = blocks[C * 26:C * 26 + 24]
-
-    for kind, f in (("decode_only", feeds), ("mixed", mixed)):
-        def step():
-            outs = eng._exe.forward(is_train=False, **f)
-            outs[1].asnumpy()
-            return outs
-        for _ in range(3):
-            step()
-        walls, enq = [], []
-        for _ in range(20):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            outs = eng._exe.forward(is_train=False, **f)
-            enq.append((time.perf_counter() - t0) * 1e3)
-            outs[1].asnumpy()
-            walls.append((time.perf_counter() - t0) * 1e3)
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                eng._exe.forward(is_train=False, **f)
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        syncs = sorted({str(w.message).splitlines()[0][:80] for w in caught})
-        n = 5
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                step()
-        by_group, kernels = device_ms_by_group(torch, prof, n)
-        device_ms = sum(by_group.values())
-        wall = statistics.median(walls)
-        print(json.dumps({
-            "phase": "profile", "step": kind, "wall_ms_p50": wall,
-            "enqueue_ms_p50": statistics.median(enq),
-            "device_ms": device_ms, "device_idle_share": 1 - device_ms / wall,
-            "device_ms_by_group": {k: round(v, 4) for k, v in
-                                   sorted(by_group.items(),
-                                          key=lambda kv: -kv[1])},
-            "device_launches_per_step": kernels / n,
-            "host_syncs_in_forward": len(caught), "sync_kinds": syncs}),
-            flush=True)
+    kinds = (("spec_only", feeds), ("spec_mixed", mixed)) if spec_k else \
+        (("decode_only", feeds), ("mixed", mixed))
+    for kind, f in kinds:
+        def forward():
+            return eng._exe.forward(is_train=False, **f)
+        profile_forward(torch, kind, forward, reps=20, n=5)
     return 0
+
+
+def profile_forward(torch, kind, forward, reps, n, **extra):
+    """One JSON line for ``forward()`` (a bound executor's forward,
+    whose output 1 is read back to synchronize): wall time median of
+    ``reps``, the host time to enqueue it, the calls in it that sync
+    the host, and the device time by group over ``n`` profiled runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def step():
+        outs = forward()
+        outs[1].asnumpy()
+        return outs
+    for _ in range(3):
+        step()
+    walls, enq = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = forward()
+        enq.append((time.perf_counter() - t0) * 1e3)
+        outs[1].asnumpy()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            forward()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sorted({str(w.message).splitlines()[0][:80] for w in caught})
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
+    by_group, kernels = device_ms_by_group(torch, prof, n)
+    device_ms = sum(by_group.values())
+    wall = statistics.median(walls)
+    print(json.dumps({
+        "phase": "profile", "step": kind, **extra, "wall_ms_p50": wall,
+        "enqueue_ms_p50": statistics.median(enq),
+        "device_ms": device_ms, "device_idle_share": 1 - device_ms / wall,
+        "device_ms_by_group": {k: round(v, 4) for k, v in
+                               sorted(by_group.items(),
+                                      key=lambda kv: -kv[1])},
+        "device_launches_per_step": kernels / n,
+        "host_syncs_in_forward": len(caught), "sync_kinds": syncs}),
+        flush=True)
+
+
+def profile_prefill(torch, cs, mx):
+    from mxnet_tpu_torch.weights import convert_params
+    cfg = cs.FULL
+    lengths = [700, 20, 350, 90, 520, 45, 260, 610]
+    prompts = cs._serve_prompts(cfg, cs.SEED, lengths)
+    dexe, pexe = cs.bind_prefill_pair(
+        mx, convert_params(cs.seeded_params(cfg), mx.gpu(0), cfg), cfg,
+        mx.gpu(0), len(prompts), cfg["seq_len"])
+    S = cfg["seq_len"]
+    M = pexe.arg_dict["block_table"].shape[1]
+    bs = cs.GEOMETRY["block_size"]
+    data = np.zeros((len(prompts), S), np.float32)
+    table = np.zeros((len(prompts), M), np.float32)
+    blocks = np.random.RandomState(cs.SEED + 10).permutation(
+        cs.GEOMETRY["num_blocks"])
+    used = 0
+    for b, p in enumerate(prompts):
+        data[b, :len(p)] = p
+        n = -(-len(p) // bs)
+        table[b, :n] = blocks[used:used + n]
+        used += n
+    lens = np.array(lengths, np.float32)
+
+    def forward():           # rewrites the same cache rows each time
+        return pexe.forward(is_train=False, data=data, prompt_len=lens,
+                            block_table=table)
+    profile_forward(torch, "prefill", forward, reps=5, n=3,
+                    prompt_lengths=lengths, prefill_len=S)
 
 
 if __name__ == "__main__":
