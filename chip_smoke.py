@@ -371,6 +371,44 @@ def phase_chunk(torch, mxk, dev, flush):
               "paged_chunk_prefill_attend (start %d, len %d) wrote outside "
               "[start, start + len)" % (st, L))
         errs.append(max_err(out[:, :L], ref[:, :L]))
+    # the spec step's span stream: C = 8 rows of K = 5, each at its own
+    # cache offset with its own length (0 = an inactive slot) over its
+    # own scrambled table
+    spans = ([37, 700, 0, 1018, 255, 512, 96, 3], [5, 3, 0, 5, 1, 2, 4, 5])
+    C, S5 = len(spans[0]), 5
+    qs, ks, vs = (torch.randn(C, S5, H, D, generator=g).to(dev)
+                  for _ in range(3))
+    stable = torch.randperm(nb, generator=g)[:C * M].reshape(C, M) \
+        .to(torch.int32)
+    sst, sln = (torch.tensor(x, dtype=torch.int32, device=dev)
+                for x in spans)
+    kk, vk = kc0.clone(), vc0.clone()
+    kp, vp = kc0.clone(), vc0.clone()
+    out, _, _ = mxk.paged_chunk_prefill_attend(
+        qs, ks, vs, kk, vk, stable.to(dev), sst, sln, scale=sc)
+    ref, _, _ = mxk.paged_chunk_prefill_attend_plain(
+        qs, ks, vs, kp, vp, stable.to(dev), sst, sln, scale=sc)
+    torch.cuda.synchronize()
+    real = torch.zeros(C, S5, dtype=torch.bool)
+    touched = torch.zeros(nb * bs, dtype=torch.bool)
+    for b, (st, L) in enumerate(zip(*spans)):
+        real[b, :L] = True
+        for ap in range(st, st + L):
+            touched[int(stable[b, ap // bs]) * bs + ap % bs] = True
+    real, touched = real.to(dev), touched.to(dev)
+    check(close(torch, out[real], ref[real]),
+          "paged_chunk_prefill_attend (spec spans, C, K = %d, %d) disagrees "
+          "with its plain version (max abs err %g)"
+          % (C, S5, max_err(out[real], ref[real])))
+    check(torch.equal(kk, kp) and torch.equal(vk, vp),
+          "paged_chunk_prefill_attend (spec spans): caches differ from the "
+          "plain version's")
+    check(all(torch.equal(a.view(nb * bs, -1)[~touched],
+                          a0.view(nb * bs, -1)[~touched])
+              for a, a0 in ((kk, kc0), (vk, vc0))),
+          "paged_chunk_prefill_attend (spec spans) wrote outside each row's "
+          "[span_start, span_start + span_len)")
+    errs.append(max_err(out[real], ref[real]))
     kb, vb = kc0.to(torch.bfloat16), vc0.to(torch.bfloat16)
     kb2, vb2 = kb.clone(), vb.clone()
     out, _, _ = mxk.paged_chunk_prefill_attend(
@@ -399,6 +437,8 @@ def phase_chunk(torch, mxk, dev, flush):
     emit({"phase": "kernel", **res, "shapes": {
         "q": [B, K, H, D], "cache": [nb, bs, H, D], "table": [B, M],
         "start": st, "len": L}, "checked": [[576, 64], [600, 37], [320, 0]],
+        "spec_spans_checked": {"q": [C, S5, H, D], "span_start": spans[0],
+                               "span_len": spans[1]},
         "bf16_cache_max_abs_err": max_err(out[:, :37], ref[:, :37])})
     return res
 
@@ -410,7 +450,10 @@ def phase_layernorm(torch, mxk, dev, flush):
     gamma = (1 + 0.02 * torch.randn(cols, generator=g)).to(dev)
     beta = (0.02 * torch.randn(cols, generator=g)).to(dev)
     per_shape = []
-    for rows in (8, 64):
+    # 8 and 64 rows are the serve step's (the decode and chunk streams),
+    # 40 the spec step's span stream (8 slots x 5), 1024 the draft
+    # model's (1, seq_len) forward, 8192 the one-shot prefill's (8 x 1024)
+    for rows in (8, 64, 40, 1024, 8192):
         x = torch.randn(rows, cols, generator=g).to(dev)
         res = torch.randn(rows, cols, generator=g).to(dev)
         err = 0.0
@@ -437,15 +480,15 @@ def phase_layernorm(torch, mxk, dev, flush):
                  "bound_ms": b_ms, "bound_by": b_by}
         emit({"phase": "kernel", "name": "layernorm_fused", **shape})
         per_shape.append(shape)
-    # the main path calls it 25 times per step at 8 rows and 25 at 64:
-    # the kernels line carries the mean of the two shapes
-    mean = {k: statistics.mean(s[k] for s in per_shape)
+    # the serve path calls it 25 times per step at 8 rows and 25 at 64:
+    # the kernels line carries the mean of those two shapes
+    mean = {k: statistics.mean(s[k] for s in per_shape[:2])
             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
     return {"name": "layernorm_fused", "route": "cuda",
             "source": "mxnet_tpu_torch/csrc/layernorm.cu",
             "replaces": "mxnet_tpu/pallas/layernorm.py:127",
             "max_abs_err": max(s["max_abs_err"] for s in per_shape),
-            "bound_by": per_shape[-1]["bound_by"], **mean}
+            "bound_by": per_shape[1]["bound_by"], **mean}
 
 
 def seeded_params(cfg):
@@ -602,22 +645,30 @@ def phase_prefill(torch, mxk, dev, flush):
     output rows (rtol 1e-4 / atol 1e-5) and on the cache bytes (exact,
     the rows it must not write included), at the served shape and an
     odd one (S = 1000, a table wider than S needs), with f32 and bf16
-    caches; two runs bit-identical; timed beside
+    caches, and with bf16 q/k/v (rtol 2**-7, at least one bf16 ulp of
+    the plain value, / atol 1e-5: each rounds an f32 result to bf16
+    once); two runs bit-identical;
+    timed beside
     ``scaled_dot_product_attention(is_causal=True)`` on the same q/k/v
     as (B, H, S, D) views (the attention alone, without the scatter)."""
     import torch.nn.functional as F
     B, S, H, D, nb, bs, M = 8, 1024, 16, 128, 512, 16, 64
     g = torch.Generator(device="cpu").manual_seed(SEED + 9)
     served = [20, 960, 0, 1024, 513, 77, 300, 641]
-    cases = [((B, S, H, D, nb, bs, M), served, torch.float32),
-             ((3, 1000, H, D, nb, bs, 70), [1000, 0, 457], torch.float32),
-             ((2, 300, H, D, nb, bs, 20), [300, 129], torch.bfloat16)]
+    f32, bf16 = torch.float32, torch.bfloat16
+    # (shape, lengths, q/k/v dtype, cache dtype)
+    cases = [((B, S, H, D, nb, bs, M), served, f32, f32),
+             ((3, 1000, H, D, nb, bs, 70), [1000, 0, 457], f32, f32),
+             ((2, 300, H, D, nb, bs, 20), [300, 129], f32, bf16),
+             ((2, 300, H, D, nb, bs, 20), [300, 129], bf16, bf16)]
     errs = []
-    for (b_, s_, h_, d_, nb_, bs_, m_), lens, cdt in cases:
+    for (b_, s_, h_, d_, nb_, bs_, m_), lens, qdt, cdt in cases:
         q, k, v, kc0, vc0, table, L = (
             t.to(dev) for t in _prefill_inputs(torch, g, b_, s_, h_, d_, nb_,
                                                bs_, m_, lens))
+        q, k, v = q.to(qdt), k.to(qdt), v.to(qdt)
         kc0, vc0 = kc0.to(cdt), vc0.to(cdt)
+        rtol = RTOL if qdt == f32 else 2.0 ** -7
         sc = 1.0 / d_ ** 0.5
         runs = []
         for fn in (mxk.paged_prefill_attend, mxk.paged_prefill_attend,
@@ -629,12 +680,14 @@ def phase_prefill(torch, mxk, dev, flush):
             runs.append((out, kk, vk))
         torch.cuda.synchronize()
         (o1, k1, v1), (o2, k2, v2), (ref, kr, vr) = runs
-        what = "paged_prefill_attend (B, S, M = %d, %d, %d, %s caches)" % (
-            b_, s_, m_, str(cdt).split(".")[-1])
+        what = "paged_prefill_attend (B, S, M = %d, %d, %d, %s q/k/v, %s " \
+            "caches)" % (b_, s_, m_, str(qdt).split(".")[-1],
+                         str(cdt).split(".")[-1])
         check(torch.equal(o1, o2) and torch.equal(k1, k2)
               and torch.equal(v1, v2), what + ": two runs differ")
-        check(close(torch, o1, ref), what + " disagrees with its plain "
-              "version on the S rows (max abs err %g)" % max_err(o1, ref))
+        check(torch.allclose(o1.float(), ref.float(), rtol=rtol, atol=ATOL),
+              what + " disagrees with its plain version on the S rows (max "
+              "abs err %g)" % max_err(o1, ref))
         check(torch.equal(k1, kr) and torch.equal(v1, vr),
               what + ": caches differ from the plain version's")
         touched = torch.zeros(nb_ * bs_, dtype=torch.bool)
@@ -647,7 +700,7 @@ def phase_prefill(torch, mxk, dev, flush):
               and torch.equal(v1.view(nb_ * bs_, -1)[~touched],
                               vc0.view(nb_ * bs_, -1)[~touched]),
               what + " wrote outside the rows below each length")
-        errs.append(max_err(o1, ref))
+        errs.append((str(qdt), max_err(o1, ref)))
     q, k, v, kc, vc, table, L = (
         t.to(dev) for t in _prefill_inputs(torch, g, B, S, H, D, nb, bs, M,
                                            served))
@@ -666,12 +719,15 @@ def phase_prefill(torch, mxk, dev, flush):
     res = {"name": "paged_prefill_attend", "route": "cuda",
            "source": "mxnet_tpu_torch/csrc/paged_attention.cu",
            "replaces": "mxnet_tpu/pallas/attention.py:209",
-           "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+           "max_abs_err": max(e for t, e in errs if t == str(f32)),
+           "ms": ms, "plain_ms": plain_ms,
            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
     emit({"phase": "kernel", **res, "shapes": {
         "q": [B, S, H, D], "cache": [nb, bs, H, D], "table": [B, M],
         "lengths": served}, "checked": [[c[0][0], c[0][1], c[0][6],
-                                          str(c[2])] for c in cases],
+                                          str(c[2]), str(c[3])]
+                                         for c in cases],
+        "bf16_qkv_max_abs_err": max(e for t, e in errs if t == str(bf16)),
         "library_call": "F.scaled_dot_product_attention(is_causal=True) on "
                         "(B, H, S, D) views: the attention alone, without "
                         "the cache scatter"})
@@ -1041,8 +1097,9 @@ def phase_layernorm_bwd(torch, mxk, dev, flush):
 
 
 def phase_flash(torch, mxk, dev, flush):
-    """Causal flash attention at the training shape: each kernel against
-    its plain version on the same inputs (rtol 1e-4 / atol 1e-5), and
+    """Causal flash attention at the training shape, and the forward at
+    the draft model's batch 1: each kernel against its plain version on
+    the same inputs (rtol 1e-4 / atol 1e-5), and
     FlashAttentionFn's output and gradients against autograd through
     the materialised reference.  Returns the three kernel rows."""
     import torch.nn.functional as F
@@ -1070,6 +1127,17 @@ def phase_flash(torch, mxk, dev, flush):
               "plain version (max abs err %g)" % (what, max_err(a, b)))
         errs[what] = max_err(a, b)
     del o_ref, lse_ref, dk_ref, dv_ref, dq_ref
+    # the draft model's forward: batch 1 over the (1, seq_len) history
+    q1, k1, v1 = (torch.randn(1, H, S, D, generator=g).to(dev)
+                  for _ in range(3))
+    for what, a, b in zip(("out_b1", "lse_b1"),
+                          mxk.flash_attention_fwd(q1, k1, v1, scale=sc),
+                          mxk.flash_attention_fwd_plain(q1, k1, v1,
+                                                        scale=sc)):
+        check(close(torch, a, b), "flash attention %s disagrees with its "
+              "plain version (max abs err %g)" % (what, max_err(a, b)))
+        errs[what] = max_err(a, b)
+    del q1, k1, v1
     # the autograd Function end to end against the reference's autograd
     ends = []
     for fn in (mxk.flash_attention, mxk.flash_attention_plain):

@@ -130,7 +130,8 @@ class DraftModelDrafter(Drafter):
     history is left-aligned and zero-padded, trimmed to ``seq_len - K``
     tokens so every write-back stays in range.  The weights are checked
     at construction (:class:`DraftWeightsError`) and copied onto the
-    device once per bound K."""
+    device once: every later K binds with ``shared_exec`` over the
+    first executor's weights."""
 
     name = "draft"
 
@@ -169,8 +170,11 @@ class DraftModelDrafter(Drafter):
             shapes = {"data": (1, self._seq_len), "length": (1,)}
             if "iota" in dsym.list_arguments():   # absent when K == 1
                 shapes["iota"] = (1, self._seq_len)
-            exe = dsym.simple_bind(ctx=self._ctx, grad_req="null", **shapes)
-            exe.copy_params_from(self._params)
+            first = next(iter(self._exes.values()), None)
+            exe = dsym.simple_bind(ctx=self._ctx, grad_req="null",
+                                   shared_exec=first, **shapes)
+            if first is None:
+                exe.copy_params_from(self._params)
             self._exes[k] = exe
         return exe
 

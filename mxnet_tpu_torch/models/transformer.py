@@ -98,33 +98,50 @@ def _decode_trunk_vars(pre):
             sym.Variable(pre + "proj_bias"))
 
 
-def _ffn_shared_vars(pre):
-    """The post-attention sublayer's weights, created once so the mixed
-    step's two streams bind ONE copy of every parameter."""
+def _ffn_vars(pre):
+    """The post-attention sublayer's weight variables, training-graph
+    names; created once per layer, so several streams over them bind
+    ONE copy of every parameter."""
     return {name: sym.Variable(pre + name)
             for name in ("ln2_gamma", "ln2_beta", "ffn_up_weight",
                          "ffn_up_bias", "ffn_down_weight", "ffn_down_bias")}
 
 
-def _decode_ffn(x, pre, d, ffn, shared=None, tag=""):
-    """Pre-LN FFN sublayer (inference form).  ``shared`` holds the
-    weight variables when several streams bind one copy (``tag`` keeps
-    their op names distinct); without it the ops create their own,
-    named after the op as the JAX package's single-stream symbols
-    name them."""
-    w = shared or {}
-    ln2 = sym.LayerNorm(data=x, name=pre + tag + "ln2",
-                        **({"gamma": w["ln2_gamma"], "beta": w["ln2_beta"]}
-                           if w else {}))
-    h = sym.FullyConnected(data=ln2, num_hidden=ffn, flatten=False,
-                           name=pre + tag + "ffn_up",
-                           **({"weight": w["ffn_up_weight"],
-                               "bias": w["ffn_up_bias"]} if w else {}))
+def _decode_ffn(x, pre, d, ffn, w, tag=""):
+    """Pre-LN FFN sublayer (inference form) over the weight variables
+    ``w`` (:func:`_ffn_vars`); ``tag`` keeps the op names of
+    several streams over one copy distinct."""
+    ln2 = sym.LayerNorm(data=x, gamma=w["ln2_gamma"], beta=w["ln2_beta"],
+                        name=pre + tag + "ln2")
+    h = sym.FullyConnected(data=ln2, weight=w["ffn_up_weight"],
+                           bias=w["ffn_up_bias"], num_hidden=ffn,
+                           flatten=False, name=pre + tag + "ffn_up")
     h = sym.LeakyReLU(data=h, act_type="gelu_tanh", name=pre + tag + "gelu")
-    return sym.FullyConnected(data=h, num_hidden=d, flatten=False,
-                              name=pre + tag + "ffn_down",
-                              **({"weight": w["ffn_down_weight"],
-                                  "bias": w["ffn_down_bias"]} if w else {}))
+    return sym.FullyConnected(data=h, weight=w["ffn_down_weight"],
+                              bias=w["ffn_down_bias"], num_hidden=d,
+                              flatten=False, name=pre + tag + "ffn_down")
+
+
+def _single_stream_trunk(x, attention, inputs, num_layers, d, ffn, H, D,
+                         num_blocks, block_size):
+    """The decode step's and the prefill's layer stack over the paged
+    caches: per layer LN -> ``attention`` (a paged attention op fed
+    ``inputs`` after the caches) -> residual -> FFN -> residual, then
+    ``ln_f``.  Returns ``(x, new caches)``."""
+    new_kv = []
+    for i in range(int(num_layers)):
+        pre = "layer%d_" % i
+        ln1 = sym.LayerNorm(data=x, name=pre + "ln1")
+        kc = sym.Variable(pre + "k_cache",
+                          shape=(int(num_blocks), int(block_size), H, D))
+        vc = sym.Variable(pre + "v_cache",
+                          shape=(int(num_blocks), int(block_size), H, D))
+        att = attention(ln1, *_decode_trunk_vars(pre), kc, vc, *inputs,
+                        num_heads=H, name=pre + "attn")
+        x = x + att[0]
+        new_kv += [att[1], att[2]]
+        x = x + _decode_ffn(x, pre, d, ffn, _ffn_vars(pre))
+    return sym.LayerNorm(data=x, name="ln_f"), new_kv
 
 
 def _cast_in(x, dtype, tag=""):
@@ -176,24 +193,10 @@ def get_decode_step_symbol(num_classes=16384, num_layers=12, d_model=2048,
     pos_w = sym.Variable("pos_embed_weight", shape=(1, int(seq_len), d))
     pe = sym.take(sym.Reshape(pos_w, shape=(int(seq_len), d)), positions,
                   name="pos_take")                   # (C, 1, d), clipped
-    x = _cast_in(tok + pe, dtype)
-
-    new_kv = []
-    for i in range(int(num_layers)):
-        pre = "layer%d_" % i
-        ln1 = sym.LayerNorm(data=x, name=pre + "ln1")
-        kc = sym.Variable(pre + "k_cache",
-                          shape=(int(num_blocks), int(block_size), H, D))
-        vc = sym.Variable(pre + "v_cache",
-                          shape=(int(num_blocks), int(block_size), H, D))
-        att = sym.contrib.PagedDecodeAttention(
-            ln1, *_decode_trunk_vars(pre), kc, vc, table, positions,
-            num_heads=H, name=pre + "attn")
-        x = x + att[0]
-        new_kv += [att[1], att[2]]
-        x = x + _decode_ffn(x, pre, d, ffn)
-
-    x = sym.LayerNorm(data=x, name="ln_f")
+    x, new_kv = _single_stream_trunk(
+        _cast_in(tok + pe, dtype), sym.contrib.PagedDecodeAttention,
+        (table, positions), num_layers, d, ffn, H, D, num_blocks,
+        block_size)
     logits = sym.FullyConnected(data=x, num_hidden=vocab, flatten=False,
                                 name="lm_head")      # (C, 1, vocab)
     flat = sym.Reshape(data=_cast_out(logits, dtype), shape=(-1, vocab),
@@ -232,24 +235,10 @@ def get_prefill_symbol(num_classes=16384, num_layers=12, d_model=2048,
                         name="tok_embed")
     pos_w = sym.Variable("pos_embed_weight", shape=(1, int(seq_len), d))
     pe = pos_w.slice_axis(axis=1, begin=0, end=S)
-    x = _cast_in(sym.broadcast_add(tok, pe, name="embed_add"), dtype)
-
-    new_kv = []
-    for i in range(int(num_layers)):
-        pre = "layer%d_" % i
-        ln1 = sym.LayerNorm(data=x, name=pre + "ln1")
-        kc = sym.Variable(pre + "k_cache",
-                          shape=(int(num_blocks), int(block_size), H, D))
-        vc = sym.Variable(pre + "v_cache",
-                          shape=(int(num_blocks), int(block_size), H, D))
-        att = sym.contrib.PagedPrefillAttention(
-            ln1, *_decode_trunk_vars(pre), kc, vc, table, lengths,
-            num_heads=H, name=pre + "attn")
-        x = x + att[0]
-        new_kv += [att[1], att[2]]
-        x = x + _decode_ffn(x, pre, d, ffn)
-
-    x = sym.LayerNorm(data=x, name="ln_f")
+    x, new_kv = _single_stream_trunk(
+        _cast_in(sym.broadcast_add(tok, pe, name="embed_add"), dtype),
+        sym.contrib.PagedPrefillAttention, (table, lengths), num_layers, d,
+        ffn, H, D, num_blocks, block_size)
     last = sym.contrib.GatherTimestep(x, lengths - 1, name="last_token")
     logits = sym.FullyConnected(data=last, num_hidden=vocab, flatten=False,
                                 name="lm_head")      # (B, vocab)
@@ -381,7 +370,7 @@ def _two_stream_step(spans, num_classes, num_layers, d_model, num_heads,
         xc = xc + catt[0]
         new_kv += [catt[1], catt[2]]
 
-        shared = _ffn_shared_vars(pre)
+        shared = _ffn_vars(pre)
         x = x + _decode_ffn(x, pre, d, ffn, shared)
         xc = xc + _decode_ffn(xc, pre, d, ffn, shared, tag="c_")
 
@@ -450,7 +439,7 @@ def get_draft_span_symbol(draft_k, num_classes=16384, num_layers=12,
                        "ln1_g": sym.Variable(pre + "ln1_gamma"),
                        "ln1_b": sym.Variable(pre + "ln1_beta"),
                        "attn": _decode_trunk_vars(pre),
-                       "ffn": _ffn_shared_vars(pre)})
+                       "ffn": _ffn_vars(pre)})
 
     toks = []
     for j in range(K):

@@ -195,6 +195,20 @@ def test_draft_model_proposals_match_jax(np_params, params, k):
     assert pdr.propose([], k) == []
 
 
+def test_draft_span_lengths_share_one_weight_copy(np_params, params):
+    """Every span length the drafter binds holds the first executor's
+    weight NDArrays (one copy on the device), and the proposals at each
+    K still equal JAX's."""
+    jdr = JaxDraftModelDrafter(np_params, CFG)
+    pdr = DraftModelDrafter(params, CFG, ctx=mx.cpu())
+    for k in (3, 1, 2):
+        assert pdr.propose(PROMPTS[0], k) == jdr.propose(PROMPTS[0], k), k
+    first, *rest = pdr._exes.values()
+    assert len(rest) == 2
+    assert all(e.arg_dict[n] is first.arg_dict[n]
+               for e in rest for n in pdr._params)
+
+
 # ----------------------------------------------------------------------
 # drafters and their selection
 # ----------------------------------------------------------------------
