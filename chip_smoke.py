@@ -129,9 +129,48 @@ Phases, each printed as one JSON line:
    card and on the CPU from the same numpy weights over 3 prompts:
    prefill logits (rtol 1e-4 / atol 1e-4), the prefilled cache rows
    (rtol 1e-4 / atol 1e-5), and 8-token decode streams under the margin
-   rule with their logits within the same bound.
+   rule with their logits within the same bound;
+20. flash_bf16, layernorm_bf16, fused_matmul_bf16 (with the kernel
+   phases of 3): the bf16 forms against their plain versions, within one
+   bf16 ulp of the value (2^-7 relative) plus 2^-9 of the array's
+   largest magnitude (f32 statistics and lse at 3's bound): flash
+   forward, dK/dV and dQ at (4, 16, 1024, 128) and the forward at batch
+   1, FlashAttentionFn end to end against autograd through the
+   reference (relative L2 1e-2); LayerNorm forward and backward at
+   4096 x 2048; the fused kernel at ResNet-50's 8 site shapes at batch
+   256 and the odd shape, two runs bit-identical; timed as in 3 beside
+   SDPA, F.layer_norm / native_layer_norm_backward and cuBLAS bf16 on
+   the same bf16 tensors, bounded by bytes over 3.35 TB/s or operations
+   over the dense bf16 tensor-core peak (989 TFLOP/s);
+21. head_dim: every attention kernel (flash x3, prefill, chunk, decode)
+   at head_dim 256 and 512 with d_model kept at 2048, against its plain
+   version (f32 bound of 3, cache bytes exact), timed at 256;
+22. train_bf16 (after 7): bench.py's transformer train mode in bf16,
+   the full-width model through ``parallel.TrainStep`` with SGD momentum
+   0.9 and multi_precision (learning rate 0.01, gradients rescaled by
+   1/(B*S)), 10 steps over two fixed batches of 4 x 1024 tokens: every
+   step launches each flash kernel 12 times and LayerNorm forward and
+   backward 25 times, all in bf16, no plain version; the loss stays
+   finite and every bf16 weight matrix's f32 master moves; step p50 over
+   the last 8, tokens/s, peak memory;
+23. train_resnet_bf16 (after 15): bench.py's flagship, ResNet-50 v2
+   NHWC bf16 at batch 256 through TrainStep with its SGD (0.1, momentum
+   0.9, wd 1e-4, multi_precision), unfused and after ``fuse_conv_bn``:
+   exactly 28 bf16 fused launches per step in the fused arm, none in
+   the other; the loss finite and falling on the repeated batch; step
+   p50, images/s and peak memory per arm;
+24. bf16_agreement: bf16 TrainStep, card against CPU, 2 steps from the
+   same numpy weights: ResNet-18 NCHW at 3x32x32 batch 4, the fused
+   NHWC arm on a small bottleneck ResNet, a 2-layer bf16 transformer;
+   outputs and the f32 masters' moves within relative L2 bounds
+   (phase_bf16_agreement), a perturbed CPU run printed beside;
+25. head_dim_agreement: a 2-layer transformer at head_dim 256 (d_model
+   512, 2 heads), card against CPU: one f32 TrainStep step, then
+   prefill plus 8 decode steps through the decode-step pair.
 
-Then the kernels' JSON line, and last ``{"ok": true, "device": ...}``.
+Then the kernels' JSON line (every kernel with its dtype; the bf16
+forms as rows of their own, the attention kernels with their
+head_dim-256 times), and last ``{"ok": true, "device": ...}``.
 Any failed check raises, so the script exits non-zero and prints no
 result; it also exits non-zero when no CUDA device is present.
 TF32 is off for every matrix product and convolution.
@@ -193,6 +232,18 @@ FUSED_SHAPES = {(401408, 256, 64, False): 2, (401408, 64, 256, True): 3,
                 (25088, 1024, 256, False): 5, (25088, 256, 1024, True): 6,
                 (6272, 2048, 512, False): 2, (6272, 512, 2048, True): 3}
 FUSED_ODD = (1000, 37, 93, True)
+# bf16: the dense tensor-core peak bounds the bf16 forms (NVIDIA data
+# sheet, H100 SXM); a bf16 kernel is held against its plain version at
+# one bf16 ulp of the value plus 2^-9 of the array's largest magnitude
+BF16_FLOPS_PER_S = 989e12
+BF16_RTOL, BF16_ATOL_SHARE = 2.0 ** -7, 2.0 ** -9
+# bench.py's transformer train mode in bf16 (its learning rate and
+# 1/(B*S) rescale) and its flagship, ResNet-50 NHWC bf16 at batch 256
+TRAIN_BF16 = dict(batch=4, lr=0.01, momentum=0.9, steps=10, warmup=2)
+RESNET_BF16 = dict(batch=256, lr=0.1, momentum=0.9, wd=1e-4, steps=10,
+                   warmup=2, sites=28)
+# the attention kernels at head_dims past 128, d_model kept at 2048
+HEAD_DIM = dict(dims=(256, 512), d_model=2048)
 
 
 class SmokeFailure(RuntimeError):
@@ -233,9 +284,11 @@ def time_ms(torch, fn, flush, reps=60, warmup=5):
     return statistics.median(times)
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, peak=F32_FLOPS_PER_S):
+    """The least time for the work, ms: bytes over the memory rate or
+    operations over ``peak`` (f32 CUDA cores by default), the larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -2003,6 +2056,777 @@ def phase_resnet_nhwc_agreement(torch, mx, ctxs=None, cfg=NHWC_AGREE):
               float(np.linalg.norm(pg - cg)) / norm})
 
 
+# ----------------------------------------------------------------------
+# bf16: the kernels' bf16 forms, training, agreement; head_dim tiling
+# ----------------------------------------------------------------------
+def close_bf16(torch, a, b):
+    """bf16 kernel against its plain version: within one bf16 ulp of the
+    value (2^-7 relative) plus 2^-9 of the array's largest magnitude.
+    Each output is an f32 sum rounded to bf16 once; the kernel rounds
+    its bf16 summands (P, dS, the activation) where the plain version
+    does, but from f32 values computed in another order, so a summand
+    may round to its neighbour, which moves a sum by a fraction of the
+    array's scale."""
+    a, b = a.float(), b.float()
+    lim = BF16_RTOL * b.abs() + BF16_ATOL_SHARE * float(b.abs().max())
+    return bool(((a - b).abs() <= lim).all())
+
+
+def _flash_rows(torch, mxk, q, k, v, do, sc, flush, dtype, peak):
+    """Times and bounds of the three flash kernels on (q, k, v, do),
+    beside SDPA forward and its autograd backward."""
+    import torch.nn.functional as F
+    B, H, S, D = q.shape
+    o, lse = mxk.flash_attention_fwd(q, k, v, scale=sc)
+    delta = (do.float() * o.float()).sum(-1)
+    ms_f = time_ms(torch, lambda: mxk.flash_attention_fwd(q, k, v, scale=sc),
+                   flush)
+    ms_dkv = time_ms(torch, lambda: mxk.flash_attention_bwd_dkv(
+        q, k, v, do, lse, delta, scale=sc), flush)
+    ms_dq = time_ms(torch, lambda: mxk.flash_attention_bwd_dq(
+        q, k, v, do, lse, delta, scale=sc), flush)
+    pl_f = time_ms(torch, lambda: mxk.flash_attention_fwd_plain(
+        q, k, v, scale=sc), flush, reps=20)
+    pl_dkv = time_ms(torch, lambda: mxk.flash_attention_bwd_dkv_plain(
+        q, k, v, do, lse, delta, scale=sc), flush, reps=20)
+    pl_dq = time_ms(torch, lambda: mxk.flash_attention_bwd_dq_plain(
+        q, k, v, do, lse, delta, scale=sc), flush, reps=20)
+    lib_f = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, scale=sc), flush)
+    qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+    o_lib = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True,
+                                           scale=sc)
+    lib_b = time_ms(torch, lambda: torch.autograd.grad(
+        o_lib, (qr, kr, vr), do, retain_graph=True), flush)
+    del o_lib, qr, kr, vr
+    tri = 2.0 * B * H * D * S * (S + 1) / 2
+    io = B * H * S * D * q.element_size()
+    rows = []
+    for name, ms, plain_ms, n_prod, nbytes, lib in (
+            ("flash_attention_fwd", ms_f, pl_f, 2, 4 * io + B * H * S * 4,
+             lib_f),
+            ("flash_attention_bwd_dkv", ms_dkv, pl_dkv, 4,
+             6 * io + 2 * B * H * S * 4, lib_b),
+            ("flash_attention_bwd_dq", ms_dq, pl_dq, 3,
+             5 * io + 2 * B * H * S * 4, lib_b)):
+        b_ms, b_by = bound(nbytes, n_prod * tri, peak)
+        rows.append({"name": name, "route": "cuda", "dtype": dtype,
+                     "source": "mxnet_tpu_torch/csrc/flash_attention.cu",
+                     "replaces": "mxnet_tpu/ops/nn.py:744", "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": lib})
+    return rows
+
+
+def phase_flash_bf16(torch, mxk, dev, flush):
+    """The bf16 forms of the three flash kernels at the bf16
+    transformer's shape (4, 16, 1024, 128) and the forward at the draft
+    model's batch 1, each against its plain version (close_bf16; the
+    f32 lse exactly as the f32 phase holds it, rtol 1e-4 / atol 1e-5),
+    FlashAttentionFn end to end against autograd through the
+    materialised reference (relative L2 under 1e-2), and timed beside
+    SDPA on the same bf16 tensors.  The bound is bytes over 3.35 TB/s or
+    operations over the dense bf16 tensor-core peak."""
+    B, H, S, D = 4, 16, 1024, 128
+    sc = 1.0 / D ** 0.5
+    bf = torch.bfloat16
+    g = torch.Generator(device="cpu").manual_seed(SEED + 21)
+    q, k, v, do = (torch.randn(B, H, S, D, generator=g).to(dev).to(bf)
+                   for _ in range(4))
+    o, lse = mxk.flash_attention_fwd(q, k, v, scale=sc)
+    o_ref, lse_ref = mxk.flash_attention_fwd_plain(q, k, v, scale=sc)
+    delta = (do.float() * o_ref.float()).sum(-1)
+    got = (o, lse) + mxk.flash_attention_bwd_dkv(
+        q, k, v, do, lse_ref, delta, scale=sc) + (
+        mxk.flash_attention_bwd_dq(q, k, v, do, lse_ref, delta, scale=sc),)
+    ref = (o_ref, lse_ref) + mxk.flash_attention_bwd_dkv_plain(
+        q, k, v, do, lse_ref, delta, scale=sc) + (
+        mxk.flash_attention_bwd_dq_plain(q, k, v, do, lse_ref, delta,
+                                         scale=sc),)
+    q1, k1, v1 = (torch.randn(1, H, S, D, generator=g).to(dev).to(bf)
+                  for _ in range(3))
+    got += mxk.flash_attention_fwd(q1, k1, v1, scale=sc)
+    ref += mxk.flash_attention_fwd_plain(q1, k1, v1, scale=sc)
+    torch.cuda.synchronize()
+    errs = {}
+    for what, a, b in zip(("out", "lse", "dk", "dv", "dq", "out_b1",
+                           "lse_b1"), got, ref):
+        check(a.dtype == b.dtype, "flash bf16 %s: dtype %s, plain %s"
+              % (what, a.dtype, b.dtype))
+        ok = close(torch, a, b) if what.startswith("lse") \
+            else close_bf16(torch, a, b)
+        check(ok, "flash attention bf16 %s disagrees with its plain version "
+              "(max abs err %g)" % (what, max_err(a, b)))
+        errs[what] = max_err(a, b)
+    del got, ref, o_ref, lse_ref, q1, k1, v1
+    ends = []
+    for fn in (mxk.flash_attention, mxk.flash_attention_plain):
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*ins, scale=sc)
+        ends.append([out.detach()] + list(torch.autograd.grad(out, ins, do)))
+        del out, ins
+    for what, a, b in zip(("out", "dq", "dk", "dv"), *ends):
+        rel = float((a.float() - b.float()).norm() / b.float().norm())
+        check(rel < 1e-2, "FlashAttentionFn bf16 %s: relative L2 %g against "
+              "autograd through the reference" % (what, rel))
+        errs["fn_%s_rel_l2" % what] = rel
+    del ends
+    rows = _flash_rows(torch, mxk, q, k, v, do, sc, flush, "bfloat16",
+                       BF16_FLOPS_PER_S)
+    for r in rows:
+        r["max_abs_err"] = max(v for n, v in errs.items()
+                               if not n.startswith("fn_"))
+    emit({"phase": "flash_bf16", "kernels": rows, "shape": [B, H, S, D],
+          "errors": errs, "tolerance": "one bf16 ulp (2^-7 relative) plus "
+          "2^-9 of the array's largest value; lse rtol 1e-4 / atol 1e-5",
+          "library_call": "F.scaled_dot_product_attention(is_causal=True) on "
+                          "the bf16 tensors, forward and autograd backward"})
+    return rows
+
+
+def phase_layernorm_bf16(torch, mxk, dev, flush):
+    """LayerNorm forward and backward in bf16 (bf16 x, gamma, beta, dy;
+    f32 statistics) at the bf16 transformer's 4096 x 2048 rows, with and
+    without a residual, against the plain versions: outputs close_bf16,
+    statistics rtol 1e-4 / atol 1e-5; timed beside F.layer_norm and
+    aten.native_layer_norm_backward on the same bf16 tensors.  Returns
+    the two kernels-line rows."""
+    import torch.nn.functional as F
+    rows, cols = 4096, 2048
+    bf = torch.bfloat16
+    g = torch.Generator(device="cpu").manual_seed(SEED + 22)
+    x, res, dy = (torch.randn(rows, cols, generator=g).to(dev).to(bf)
+                  for _ in range(3))
+    gamma = (1 + 0.02 * torch.randn(cols, generator=g)).to(dev).to(bf)
+    beta = (0.02 * torch.randn(cols, generator=g)).to(dev).to(bf)
+    errs = {}
+    for r in (None, res):
+        tag = "_res" if r is not None else ""
+        got = mxk.layernorm_fused(x, gamma, beta, residual=r)
+        ref = mxk.layernorm_plain(x, gamma, beta, residual=r)
+        _, mean, rstd = ref
+        got += mxk.layernorm_fused_bwd(x, gamma, mean, rstd, dy, residual=r)
+        ref += mxk.layernorm_bwd_plain(x, gamma, mean, rstd, dy, residual=r)
+        torch.cuda.synchronize()
+        for what, a, b in zip(("out", "mean", "rstd", "dx", "dgamma",
+                               "dbeta"), got, ref):
+            ok = close(torch, a, b) if what in ("mean", "rstd") \
+                else close_bf16(torch, a, b)
+            check(ok, "layernorm bf16 %s%s disagrees with its plain version "
+                  "(max abs err %g)" % (what, tag, max_err(a, b)))
+            errs[what + tag] = max_err(a, b)
+    _, mean, rstd = mxk.layernorm_plain(x, gamma, beta)
+    m2, r2 = mean.reshape(rows, 1), rstd.reshape(rows, 1)
+    out = []
+    for name, src, fn, plain, lib, nbytes, flops in (
+            ("layernorm_fused", "mxnet_tpu/pallas/layernorm.py:127",
+             lambda: mxk.layernorm_fused(x, gamma, beta),
+             lambda: mxk.layernorm_plain(x, gamma, beta),
+             lambda: F.layer_norm(x, (cols,), gamma, beta, 1e-5),
+             2 * rows * cols * 2 + 2 * cols * 2 + 2 * rows * 4,
+             8 * rows * cols),
+            ("layernorm_fused_bwd", "mxnet_tpu/pallas/layernorm.py:158",
+             lambda: mxk.layernorm_fused_bwd(x, gamma, mean, rstd, dy),
+             lambda: mxk.layernorm_bwd_plain(x, gamma, mean, rstd, dy),
+             lambda: torch.ops.aten.native_layer_norm_backward(
+                 dy, x, [cols], m2, r2, gamma, beta, [True, True, True]),
+             3 * rows * cols * 2 + 3 * cols * 2 + 2 * rows * 4,
+             12 * rows * cols)):
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+        out.append({"name": name, "route": "cuda", "dtype": "bfloat16",
+                    "source": "mxnet_tpu_torch/csrc/layernorm.cu",
+                    "replaces": src, "max_abs_err": max(errs.values()),
+                    "ms": time_ms(torch, fn, flush),
+                    "plain_ms": time_ms(torch, plain, flush),
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": time_ms(torch, lib, flush)})
+    emit({"phase": "layernorm_bf16", "rows": rows, "cols": cols,
+          "errors": errs, "kernels": out})
+    return out
+
+
+def phase_fused_matmul_bf16(torch, mxk, dev, flush):
+    """The bf16 fused kernel against its plain version (close_bf16) at
+    the 8 (M, K, N) shapes of ResNet-50's 28 fused sites at batch 256
+    and one odd shape, two runs bit-identical; timed beside torch.matmul
+    / torch.addmm in bf16 on the already activated input.  Returns the
+    kernels-line row, per-launch means over one step's 28 launches."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 23)
+    bf = torch.bfloat16
+    shapes = {(M * 2, K, N, r): n for (M, K, N, r), n in FUSED_SHAPES.items()}
+    rows, errs = [], []
+    for shape in list(shapes) + [FUSED_ODD]:
+        M, K, N, with_res = shape
+        x = torch.randn(M, K, device=dev, generator=g).to(bf)
+        sc = 1 + 0.2 * torch.randn(K, device=dev, generator=g)
+        sh = 0.2 * torch.randn(K, device=dev, generator=g)
+        w = (torch.randn(N, K, device=dev, generator=g) / K ** 0.5).to(bf)
+        res = torch.randn(M, N, device=dev, generator=g).to(bf) \
+            if with_res else None
+        got = mxk.fused_scale_relu_matmul_fwd(x, sc, sh, w, res)
+        again = mxk.fused_scale_relu_matmul_fwd(x, sc, sh, w, res)
+        ref = mxk.fused_scale_relu_matmul_plain(x, sc, sh, w, res)
+        torch.cuda.synchronize()
+        check(got.dtype == bf, "fused_scale_relu_matmul bf16 returned %s"
+              % got.dtype)
+        check(close_bf16(torch, got, ref), "fused_scale_relu_matmul bf16 %s "
+              "disagrees with its plain version (max abs err %g)"
+              % (shape, max_err(got, ref)))
+        check(torch.equal(got, again), "fused_scale_relu_matmul bf16 %s: "
+              "two runs differ" % (shape,))
+        errs.append(max_err(got, ref))
+        del got, again, ref
+        if shape == FUSED_ODD:
+            continue
+        a = torch.relu(x.float() * sc + sh).to(bf)
+        ms = time_ms(torch, lambda: mxk.fused_scale_relu_matmul_fwd(
+            x, sc, sh, w, res), flush)
+        plain_ms = time_ms(torch, lambda: mxk.fused_scale_relu_matmul_plain(
+            x, sc, sh, w, res), flush, reps=20)
+        wt = w.t()
+        lib_ms = time_ms(torch, (lambda: torch.addmm(res, a, wt))
+                         if with_res else (lambda: torch.matmul(a, wt)),
+                         flush)
+        nbytes = 2 * (M * K + N * K + M * N * (2 if with_res else 1)) \
+            + 4 * 2 * K
+        flops = 2 * M * N * K + 3 * M * K + (M * N if with_res else 0)
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+        row = {"M": M, "K": K, "N": N, "residual": with_res,
+               "sites": shapes[shape], "max_abs_err": errs[-1], "ms": ms,
+               "plain_ms": plain_ms, "library_ms": lib_ms,
+               "bound_ms": b_ms, "bound_by": b_by,
+               "tflops": 2 * M * N * K / ms / 1e9}
+        emit({"phase": "kernel", "name": "fused_scale_relu_matmul",
+              "dtype": "bfloat16", **row})
+        rows.append(row)
+        del x, a, res, w
+    sites = sum(shapes.values())
+    per_launch = {k: sum(r[k] * r["sites"] for r in rows) / sites
+                  for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    emit({"phase": "fused_matmul_bf16", "shapes_checked": len(shapes) + 1,
+          "batch": 256, "deterministic": True,
+          "step_ms": per_launch["ms"] * sites,
+          "step_plain_ms": per_launch["plain_ms"] * sites,
+          "step_library_ms": per_launch["library_ms"] * sites,
+          "step_bound_ms": per_launch["bound_ms"] * sites,
+          "library_call": "torch.addmm / torch.matmul in bf16 on "
+                          "relu(x*scale+shift) (the product alone)"})
+    return {"name": "fused_scale_relu_matmul", "route": "cuda",
+            "dtype": "bfloat16",
+            "source": "mxnet_tpu_torch/csrc/fused_matmul.cu",
+            "replaces": "mxnet_tpu/ops/fused.py:91",
+            "max_abs_err": max(errs), "bound_by": "bytes"
+            if all(r["bound_by"] == "bytes" for r in rows)
+            else "operations", **per_launch}
+
+
+def phase_head_dim(torch, mxk, dev, flush):
+    """Every attention kernel at head_dim 256 and 512, d_model 2048 kept
+    (8 and 4 heads): flash forward, dK/dV and dQ at the training shape
+    (4, H, 1024, D), the one-shot prefill at the served (8, 1024, H, D)
+    with ragged lengths, the chunk kernel at one 64-row chunk after 700
+    cached rows, decode at 8 slots with an inactive one; each against
+    its plain version (f32: rtol 1e-4 / atol 1e-5; cache bytes exact,
+    inactive slots exact zeros).  Times at head_dim 256 beside each
+    kernel's bound and plain version (and SDPA for the flash forward,
+    backward and the prefill).  Returns {kernel: timing at 256}."""
+    import torch.nn.functional as F
+    g = torch.Generator(device="cpu").manual_seed(SEED + 24)
+    nb, bs, M = 512, 16, 64
+    timings, errs = {}, {}
+    for D in HEAD_DIM["dims"]:
+        H = HEAD_DIM["d_model"] // D
+        sc = 1.0 / D ** 0.5
+        timed = D == HEAD_DIM["dims"][0]
+
+        def hold(name, a, b, exact=False):
+            ok = torch.equal(a, b) if exact else close(torch, a, b)
+            check(ok, "%s at head_dim %d disagrees with its plain version "
+                  "(max abs err %g)" % (name, D, max_err(a, b)))
+            errs["%s_%d" % (name, D)] = max_err(a, b)
+
+        # flash at the training shape
+        q, k, v, do = (torch.randn(4, H, 1024, D, generator=g).to(dev)
+                       for _ in range(4))
+        o, lse = mxk.flash_attention_fwd(q, k, v, scale=sc)
+        o2, lse2 = mxk.flash_attention_fwd_plain(q, k, v, scale=sc)
+        delta = (do * o2).sum(-1)
+        hold("flash_attention_fwd", o, o2)
+        hold("flash_attention_fwd_lse", lse, lse2)
+        for what, a, b in zip(("dk", "dv"), mxk.flash_attention_bwd_dkv(
+                q, k, v, do, lse2, delta, scale=sc),
+                mxk.flash_attention_bwd_dkv_plain(q, k, v, do, lse2, delta,
+                                                  scale=sc)):
+            hold("flash_attention_bwd_dkv_" + what, a, b)
+        hold("flash_attention_bwd_dq",
+             mxk.flash_attention_bwd_dq(q, k, v, do, lse2, delta, scale=sc),
+             mxk.flash_attention_bwd_dq_plain(q, k, v, do, lse2, delta,
+                                              scale=sc))
+        del o, lse, o2, lse2
+        if timed:
+            for r in _flash_rows(torch, mxk, q, k, v, do, sc, flush,
+                                 "float32", F32_FLOPS_PER_S):
+                timings[r["name"]] = r
+        del q, k, v, do
+        # one-shot prefill at the served shape
+        lengths = [20, 960, 0, 1024, 513, 77, 300, 641]
+        q, k, v, kc, vc, table, lens = (
+            t.to(dev) for t in _prefill_inputs(torch, g, 8, 1024, H, D, nb,
+                                               bs, M, lengths))
+        kc1, vc1, kc2, vc2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+        out, _, _ = mxk.paged_prefill_attend(q, k, v, kc1, vc1, table, lens,
+                                             scale=sc)
+        ref, _, _ = mxk.paged_prefill_attend_plain(q, k, v, kc2, vc2, table,
+                                                   lens, scale=sc)
+        torch.cuda.synchronize()
+        hold("paged_prefill_attend", out, ref)
+        hold("paged_prefill_attend_cache", kc1, kc2, exact=True)
+        hold("paged_prefill_attend_cache_v", vc1, vc2, exact=True)
+        if timed:
+            ms = time_ms(torch, lambda: mxk.paged_prefill_attend(
+                q, k, v, kc1, vc1, table, lens, scale=sc), flush)
+            plain_ms = time_ms(torch, lambda: mxk.paged_prefill_attend_plain(
+                q, k, v, kc2, vc2, table, lens, scale=sc), flush, reps=20)
+            qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+            lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True, scale=sc), flush)
+            tri = 2.0 * 8 * H * D * 1024 * 1025 / 2
+            nbytes = 4 * 8 * 1024 * H * D * 4 + 2 * sum(lengths) * H * D * 4
+            b_ms, b_by = bound(nbytes, 2 * tri)
+            timings["paged_prefill_attend"] = dict(
+                ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                bound_by=b_by)
+        del q, k, v, kc1, vc1, kc2, vc2, out, ref
+        # chunk: one 64-row chunk after 700 cached rows
+        K, st = 64, 700
+        qc, kk, vv = (torch.randn(1, K, H, D, generator=g).to(dev)
+                      for _ in range(3))
+        tb = table[:1].clone()
+        tb[0] = torch.randperm(nb, generator=g)[:M].to(torch.int32).to(dev)
+        stt = torch.tensor([st], dtype=torch.int32, device=dev)
+        ln = torch.tensor([K], dtype=torch.int32, device=dev)
+        kc1, vc1, kc2, vc2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+        out, _, _ = mxk.paged_chunk_prefill_attend(qc, kk, vv, kc1, vc1, tb,
+                                                   stt, ln, scale=sc)
+        ref, _, _ = mxk.paged_chunk_prefill_attend_plain(
+            qc, kk, vv, kc2, vc2, tb, stt, ln, scale=sc)
+        torch.cuda.synchronize()
+        hold("paged_chunk_prefill_attend", out, ref)
+        hold("paged_chunk_prefill_attend_cache", kc1, kc2, exact=True)
+        hold("paged_chunk_prefill_attend_cache_v", vc1, vc2, exact=True)
+        if timed:
+            ms = time_ms(torch, lambda: mxk.paged_chunk_prefill_attend(
+                qc, kk, vv, kc1, vc1, tb, stt, ln, scale=sc), flush)
+            plain_ms = time_ms(torch, lambda: (
+                mxk.paged_chunk_prefill_attend_plain(
+                    qc, kk, vv, kc2, vc2, tb, stt, ln, scale=sc)), flush,
+                reps=20)
+            ctx_rows = st + K
+            nbytes = (ctx_rows * 2 + 4 * K) * H * D * 4
+            b_ms, b_by = bound(nbytes, 4.0 * K * ctx_rows * H * D)
+            timings["paged_chunk_prefill_attend"] = dict(
+                ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                bound_by=b_by)
+        del qc, kk, vv, kc1, vc1, kc2, vc2, out, ref
+        # decode: 8 slots, one inactive
+        C = 8
+        qd = torch.randn(C, H, D, generator=g).to(dev)
+        td = torch.randperm(nb, generator=g)[:C * M].reshape(C, M) \
+            .to(torch.int32).to(dev)
+        pos = torch.randint(20, 732, (C,), generator=g).to(torch.int32)
+        pos[7] = -1
+        pos = pos.to(dev)
+        out = mxk.paged_decode_attend(qd, kc, vc, td, pos, scale=sc)
+        ref = mxk.paged_decode_attend_plain(qd, kc, vc, td, pos, scale=sc)
+        torch.cuda.synchronize()
+        act = pos >= 0
+        hold("paged_decode_attend", out[act], ref[act])
+        check(bool((out[~act] == 0).all()), "paged_decode_attend at head_dim "
+              "%d: inactive slot is not exact zeros" % D)
+        if timed:
+            ms = time_ms(torch, lambda: mxk.paged_decode_attend(
+                qd, kc, vc, td, pos, scale=sc), flush)
+            plain_ms = time_ms(torch, lambda: mxk.paged_decode_attend_plain(
+                qd, kc, vc, td, pos, scale=sc), flush)
+            rows = int((pos[act].long() + 1).sum())
+            nbytes = rows * H * D * 2 * 4 + 2 * C * H * D * 4
+            b_ms, b_by = bound(nbytes, rows * H * D * 4)
+            timings["paged_decode_attend"] = dict(
+                ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                bound_by=b_by)
+        del qd, kc, vc, out, ref
+    emit({"phase": "head_dim", "head_dims": list(HEAD_DIM["dims"]),
+          "d_model": HEAD_DIM["d_model"], "errors": errs,
+          "timed_head_dim": HEAD_DIM["dims"][0],
+          "timings": {n: {k: t[k] for k in ("ms", "plain_ms", "library_ms",
+                                            "bound_ms", "bound_by")}
+                      for n, t in timings.items()}})
+    return timings
+
+
+def phase_train_bf16(torch, mx, np_params, cfg=FULL, ctx=None,
+                     train=TRAIN_BF16):
+    """bench.py's transformer train mode: the full-width model with
+    ``dtype='bfloat16'`` through TrainStep, SGD momentum 0.9 with
+    multi_precision (bench.py's learning rate and 1/(B*S) rescale),
+    10 steps over two fixed batches, the last 8 timed.  Every step
+    launches each flash kernel 12 times in bf16 and LayerNorm forward
+    and backward 25 times; the loss stays finite; every bf16 weight
+    matrix's f32 master moves (the counts of moved masters and of bf16
+    weights that changed are printed).  Returns the launch counts and
+    the step count."""
+    from mxnet_tpu_torch.kernels import (LAUNCHES, LAUNCHES_BY_DTYPE,
+                                         PLAIN_CALLS, reset_counts)
+    from mxnet_tpu_torch.models import transformer
+    from mxnet_tpu_torch.parallel import TrainStep
+    ctx = ctx or mx.gpu(0)
+    on_card = ctx.device_type == "gpu"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    dev = ctx.torch_device
+    B, S, steps = train["batch"], cfg["seq_len"], train["steps"]
+    x, y = _token_batches(cfg, B * 2, SEED + 25)
+    batches = [{"data": torch.from_numpy(x[i * B:(i + 1) * B]).to(dev),
+                "softmax_label": torch.from_numpy(
+                    y[i * B:(i + 1) * B].reshape(-1)).to(dev)}
+               for i in range(2)]
+    t0 = time.perf_counter()
+    sym = transformer.get_symbol(dtype="bfloat16", **cfg)
+    ts = TrainStep(sym, mx.optimizer.SGD(
+        learning_rate=train["lr"], momentum=train["momentum"],
+        multi_precision=True, rescale_grad=1.0 / (B * S)),
+        data_shapes={"data": (B, S)}, label_shapes={"softmax_label": (B * S,)},
+        ctx=ctx)
+    ts.init_params(mx.init.Xavier(), arg_params=np_params)
+    low = [n for n, t in ts.params.items() if t.dtype == torch.bfloat16]
+    check(len(low) == 12 * cfg["num_layers"] + 4, "train_bf16: %d bf16 "
+          "parameters" % len(low))
+    w0 = {n: ts.states[n][-1].clone() for n in low}
+    sync()
+    setup_s = time.perf_counter() - t0
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    losses, stamps = [], [time.perf_counter()]
+    reset_counts()
+    for i in range(steps):
+        batch = batches[i % 2]
+        prob = ts.step(batch)[0]
+        lab = batch["softmax_label"].long()
+        losses.append(float(-torch.log(prob.gather(1, lab[:, None]).clamp(
+            min=1e-30)).mean()))
+        stamps.append(time.perf_counter())
+    sync()
+    launches, plain = dict(LAUNCHES), dict(PLAIN_CALLS)
+    by_dtype = dict(LAUNCHES_BY_DTYPE)
+    check(all(np.isfinite(losses)), "train_bf16: non-finite loss %s"
+          % losses)
+    for name, per in TRAIN_LAUNCHES.items():
+        key = "%s:bfloat16" % name
+        counts = by_dtype if on_card else plain
+        got = by_dtype.get(key, 0) if on_card else plain[name]
+        check(got == per * steps, "train_bf16: %s launched %d times in bf16 "
+              "over %d steps (want %d per step; by type %s)"
+              % (name, got, steps, per, counts))
+    if on_card:
+        check(not any(plain.values()), "train_bf16: plain versions ran on "
+              "the main path: %s" % plain)
+    # bench.py's 1/(B*S) rescale on top of the loss's own batch
+    # normalisation makes every update small: the weight matrices'
+    # masters (|w| ~ 0.02) move while their bf16 copies mostly cannot,
+    # and the LayerNorm scales near 1 may move by less than an f32 ulp
+    moved = {n: float((ts.states[n][-1] - w0[n]).abs().max()) for n in low}
+    bf16_moved = sum(int((ts.params[n] != w0[n].to(torch.bfloat16)).any())
+                     for n in low)
+    check(all(moved[n] > 0 for n in low if n.endswith("_weight")),
+          "train_bf16: weight masters that did not move: %s"
+          % [n for n in low if n.endswith("_weight") and not moved[n] > 0])
+    step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    p50 = statistics.median(step_ms[train["warmup"]:])
+    emit({"phase": "train_bf16", "config": dict(cfg, dtype="bfloat16"),
+          "train": train, "setup_s": setup_s, "steps": steps,
+          "step_ms": step_ms, "step_ms_p50": p50,
+          "tokens_per_s": B * S / (p50 / 1e3), "loss": losses,
+          "launches_per_step": {k: launches[k] / steps
+                                for k in TRAIN_LAUNCHES},
+          "launches_by_dtype": by_dtype, "plain_calls": plain,
+          "bf16_params": len(low),
+          "masters_moved": sum(m > 0 for m in moved.values()),
+          "bf16_weights_changed": bf16_moved,
+          "masters_moved_max_abs": max(moved.values()),
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9
+          if on_card else None})
+    del ts, batches
+    return launches, steps
+
+
+def phase_train_resnet_bf16(torch, mx, ctx=None, cfg=RESNET,
+                            train=RESNET_BF16):
+    """bench.py's flagship: ResNet-50 v2 NHWC in bf16 at batch 256
+    through TrainStep with bench.py's SGD (learning rate 0.1, momentum
+    0.9, wd 1e-4, multi_precision, rescale 1/batch) from the seeded
+    weights, in two arms: unfused, and after fuse_conv_bn (28 sites,
+    exactly 28 bf16 fused launches per step; the unfused arm none).
+    10 steps over two fixed batches; the loss stays finite and falls on
+    the repeated batch; step p50, images/s and peak memory per arm.
+    Returns the fused arm's launch counts and step count."""
+    from mxnet_tpu_torch.kernels import (LAUNCHES, LAUNCHES_BY_DTYPE,
+                                         PLAIN_CALLS, reset_counts)
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.parallel import TrainStep
+    from mxnet_tpu_torch.symbol.fuse import count_fused, fuse_conv_bn
+    ctx = ctx or mx.gpu(0)
+    on_card = ctx.device_type == "gpu"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    dev = ctx.torch_device
+    B, steps, name = train["batch"], train["steps"], "fused_scale_relu_matmul"
+    np_args, np_aux = seeded_resnet_params(resnet.get_symbol(**cfg), B,
+                                           cfg["image_shape"])
+    np_args = {n: _nhwc(a) for n, a in np_args.items()}
+    x, y = _image_batches(cfg["image_shape"], B * 2, SEED + 26,
+                          cfg["num_classes"])
+    x = _nhwc(x)
+    batches = [{"data": torch.from_numpy(x[i * B:(i + 1) * B]).to(dev),
+                "softmax_label": torch.from_numpy(y[i * B:(i + 1) * B])
+                .to(dev)} for i in range(2)]
+    arms, result = {}, None
+    for arm, fuse in (("nhwc_bf16", False), ("nhwc_bf16_fused", True)):
+        t0 = time.perf_counter()
+        sym = resnet.get_symbol(layout="NHWC", dtype="bfloat16", **cfg)
+        if fuse:
+            sym = fuse_conv_bn(sym)
+            check(count_fused(sym) == train["sites"], "train_resnet_bf16: "
+                  "%d fused sites" % count_fused(sym))
+        ts = TrainStep(sym, mx.optimizer.SGD(
+            learning_rate=train["lr"], momentum=train["momentum"],
+            wd=train["wd"], multi_precision=True, rescale_grad=1.0 / B),
+            data_shapes={"data": x[:B].shape},
+            label_shapes={"softmax_label": (B,)}, ctx=ctx)
+        ts.init_params(mx.init.Xavier(), arg_params=np_args,
+                       aux_params=np_aux)
+        check(ts.params["conv0_weight"].dtype == torch.bfloat16,
+              "train_resnet_bf16: conv0_weight is %s"
+              % ts.params["conv0_weight"].dtype)
+        sync()
+        setup_s = time.perf_counter() - t0
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        losses, stamps = [], [time.perf_counter()]
+        reset_counts()
+        for i in range(steps):
+            batch = batches[i % 2]
+            prob = ts.step(batch)[0]
+            lab = batch["softmax_label"].long()
+            losses.append(float(-torch.log(prob.gather(
+                1, lab[:, None]).clamp(min=1e-30)).mean()))
+            stamps.append(time.perf_counter())
+        sync()
+        launches, plain = dict(LAUNCHES), dict(PLAIN_CALLS)
+        by_dtype = dict(LAUNCHES_BY_DTYPE)
+        check(all(np.isfinite(losses)), "train_resnet_bf16 %s: non-finite "
+              "loss %s" % (arm, losses))
+        check(losses[-2] < losses[0], "train_resnet_bf16 %s: the loss on the "
+              "repeated batch did not fall (%g -> %g)"
+              % (arm, losses[0], losses[-2]))
+        want = train["sites"] * steps if fuse else 0
+        got = by_dtype.get(name + ":bfloat16", 0) if on_card \
+            else plain[name]
+        check(got == want, "train_resnet_bf16 %s: %d bf16 %s launches over "
+              "%d steps, want %d" % (arm, got, name, steps, want))
+        if on_card:
+            check(not any(plain.values()), "train_resnet_bf16 %s: plain "
+                  "versions ran on the main path: %s" % (arm, plain))
+        step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+        p50 = statistics.median(step_ms[train["warmup"]:])
+        arms[arm] = {"fused_sites": train["sites"] if fuse else 0,
+                     "setup_s": setup_s, "step_ms": step_ms,
+                     "step_ms_p50": p50, "images_per_s": B / (p50 / 1e3),
+                     "loss": losses, "launches_by_dtype": by_dtype,
+                     "kernel_launches_per_step": launches[name] / steps,
+                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9
+                     if on_card else None}
+        if fuse:
+            result = (launches, steps)
+        del ts
+    emit({"phase": "train_resnet_bf16", "config": dict(cfg, layout="NHWC",
+                                                       dtype="bfloat16"),
+          "train": train, **arms})
+    del batches
+    return result
+
+
+def _rel_l2(a, b):
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def _bf16_trainstep(torch, mx, sym, ctx, args, auxs, batch, opt, steps=2):
+    """``steps`` TrainStep steps; returns the last output (f32 numpy)
+    and the f32 masters' moves from ``args``, concatenated."""
+    from mxnet_tpu_torch.parallel import TrainStep
+    shapes = {n: tuple(v.shape) for n, v in batch.items()}
+    ts = TrainStep(sym, mx.optimizer.SGD(**opt), ctx=ctx,
+                   data_shapes={"data": shapes["data"]},
+                   label_shapes={"softmax_label": shapes["softmax_label"]})
+    ts.init_params(mx.init.Xavier(), arg_params=args, aux_params=auxs)
+    for _ in range(steps):
+        out = ts.step(batch)[0]
+    low = [n for n, t in ts.params.items() if t.dtype == torch.bfloat16]
+    check(low, "bf16_agreement: no bf16 parameter")
+    start = {n: torch.from_numpy(args[n]).to(torch.bfloat16).float().numpy()
+             for n in low}
+    moved = np.concatenate([(ts.states[n][-1].cpu().numpy() - start[n])
+                            .ravel() for n in low])
+    return out.float().cpu().numpy(), moved
+
+
+def phase_bf16_agreement(torch, mx, ctxs=None):
+    """bf16 TrainStep with multi-precision SGD, card against CPU from the
+    same numpy weights, 2 steps: ResNet-18 NCHW (3x32x32, batch 4, 4
+    classes: tests/test_trainer.py's bf16 configuration), the fused
+    NHWC arm on tests/test_torch_bf16.py's small bottleneck ResNet at
+    the same size (5 fused sites; ResNet-18 has none to fuse), and a
+    2-layer bf16 transformer (d_model 512, 8 heads, vocab 4096, seq 256,
+    batch 2).  The last step's outputs are held at relative L2 2e-2
+    (ResNets) and 3e-2 (transformer); the f32 masters' moves from their
+    bf16 start at 0.75 (ResNets: 2.5 times the 0.29 to 0.33 that a CPU
+    run on the input scaled by 1 + 2^-12 lands from the CPU run, which
+    is printed beside) and 5e-2 (transformer).  A random-init BatchNorm
+    ResNet's gradient moves by tens of percents under bf16-level
+    changes (tests/test_torch_bf16.py; a deeper ResNet-50 at
+    this size moves its masters by more than their norm, which is why
+    the fused arm is the small net)."""
+    from mxnet_tpu_torch.models import resnet, transformer
+    from mxnet_tpu_torch.symbol.fuse import count_fused, fuse_conv_bn
+    ctxs = ctxs or (mx.gpu(0), mx.cpu())
+    rng = np.random.RandomState(SEED + 27)
+    res = {}
+    x = rng.uniform(0, 1, (4, 3, 32, 32)).astype(np.float32)
+    y = rng.randint(0, 4, 4).astype(np.float32)
+    opt = dict(learning_rate=0.05, momentum=0.9, wd=1e-4,
+               multi_precision=True, rescale_grad=0.25)
+    r18 = dict(num_classes=4, num_layers=18, image_shape=(3, 32, 32))
+    neck = dict(units=[2, 1, 1], num_stages=3, filter_list=[8, 32, 64, 128],
+                num_classes=4, image_shape=(3, 32, 32), bottle_neck=True)
+    args18, auxs18 = seeded_resnet_params(resnet.get_symbol(**r18), 4,
+                                          (3, 32, 32))
+    argsn, auxsn = seeded_resnet_params(resnet.resnet(**neck), 4,
+                                        (3, 32, 32))
+    fused = lambda: fuse_conv_bn(resnet.resnet(layout="NHWC",
+                                               dtype="bfloat16", **neck))
+    check(count_fused(fused()) == 5, "bf16_agreement: fused sites")
+    cases = [("resnet18_nchw", lambda: resnet.get_symbol(dtype="bfloat16",
+                                                         **r18),
+              args18, auxs18, x, y, opt, (2e-2, 0.75)),
+             ("bottleneck_nhwc_fused", fused,
+              {n: _nhwc(a) for n, a in argsn.items()}, auxsn, _nhwc(x), y,
+              opt, (2e-2, 0.75))]
+    lm = dict(num_classes=4096, num_layers=2, d_model=512, num_heads=8,
+              ffn_dim=2048, seq_len=256)
+    tx, ty = _token_batches(lm, 2, SEED + 28)
+    lm_args = seeded_params(lm)
+    cases.append(("transformer_2layer", lambda: transformer.get_symbol(
+        dtype="bfloat16", **lm), lm_args, {}, tx, ty.reshape(-1),
+        dict(learning_rate=0.1, momentum=0.9, multi_precision=True,
+             rescale_grad=1.0 / 512), (3e-2, 5e-2)))
+    for arm, make, args, auxs, data, lab, o, (out_l2, master_l2) in cases:
+        runs = []
+        for ctx, scale in ((ctxs[0], 1.0), (ctxs[1], 1.0),
+                           (ctxs[1], 1.0 + 2.0 ** -12)):
+            feed = data * np.float32(scale) if arm != "transformer_2layer" \
+                else data
+            runs.append(_bf16_trainstep(torch, mx, make(), ctx, args, auxs,
+                                        {"data": feed, "softmax_label": lab},
+                                        o))
+        (go, gm), (co, cm), (_, pm) = runs
+        out_err, master_err = _rel_l2(go, co), _rel_l2(gm, cm)
+        check(np.isfinite(go).all(), "bf16_agreement %s: non-finite output"
+              % arm)
+        check(out_err < out_l2, "bf16_agreement %s: outputs differ by %g "
+              "(relative L2) between the card and the CPU" % (arm, out_err))
+        check(master_err < master_l2, "bf16_agreement %s: the f32 masters' "
+              "moves differ by %g (relative L2)" % (arm, master_err))
+        res[arm] = {"out_rel_l2": out_err, "out_bound": out_l2,
+                    "master_moves_rel_l2": master_err,
+                    "master_bound": master_l2,
+                    "cpu_vs_perturbed_cpu_master_rel_l2": _rel_l2(pm, cm)}
+    emit({"phase": "bf16_agreement", "steps": 2, **res})
+
+
+def phase_head_dim_agreement(torch, mx, ctxs=None):
+    """A 2-layer transformer at head_dim 256 (d_model 512, 2 heads, ffn
+    2048, vocab 4096, seq 256), card against CPU from the same numpy
+    weights: one f32 TrainStep step (train_agreement's SGD, learning rate
+    0.05 and momentum 0.9; outputs within 1e-4 of their largest CPU
+    value, every parameter's move within 1e-3 of its largest CPU move,
+    as train_agreement holds them), then prefill
+    plus 8 decode steps through the decode-step
+    pair (prefill logits rtol/atol 1e-4, greedy streams under the
+    margin rule)."""
+    from mxnet_tpu_torch.models import transformer
+    from mxnet_tpu_torch.parallel import TrainStep
+    from mxnet_tpu_torch.weights import convert_params
+    cfg = dict(num_classes=4096, num_layers=2, d_model=512, num_heads=2,
+               ffn_dim=2048, seq_len=256)
+    ctxs = ctxs or (mx.gpu(0), mx.cpu())
+    np_params = seeded_params(cfg)
+    B, S = 2, cfg["seq_len"]
+    x, y = _token_batches(cfg, B, SEED + 29)
+    runs = []
+    for ctx in ctxs:
+        ts = TrainStep(transformer.get_symbol(**cfg), mx.optimizer.SGD(
+            learning_rate=TRAIN["lr"], momentum=TRAIN["momentum"]),
+            data_shapes={"data": (B, S)},
+            label_shapes={"softmax_label": (B * S,)}, ctx=ctx)
+        ts.init_params(mx.init.Xavier(), arg_params=np_params)
+        out = ts.step({"data": x, "softmax_label": y.reshape(-1)})[0]
+        runs.append((out.cpu().numpy(), {n: t.cpu().numpy() - np_params[n]
+                                          for n, t in ts.params.items()}))
+        del ts
+    (go, gp), (co, cp) = runs
+    check(np.allclose(go, co, rtol=0, atol=1e-4 * float(np.abs(co).max())),
+          "head_dim_agreement: step outputs differ by %g"
+          % float(np.abs(go - co).max()))
+    worst = 0.0
+    for n, ref in cp.items():
+        scale = float(np.abs(ref).max())
+        err = float(np.abs(gp[n] - ref).max())
+        check(err <= 1e-3 * scale, "head_dim_agreement: %s moved by %g "
+              "more or less than on the CPU (largest CPU move %g)"
+              % (n, err, scale))
+        worst = max(worst, err / scale if scale else 0.0)
+    prompts = _serve_prompts(cfg, SEED + 30, (40, 100, 150))
+    new = 8
+    streams = []
+    for ctx in ctxs:
+        dexe, pexe = bind_prefill_pair(mx, convert_params(np_params, ctx,
+                                                          cfg), cfg, ctx,
+                                       len(prompts), S)
+        got, _, _, _, counts = run_prefill_pair(
+            torch, dexe, pexe, prompts, new, ctx.device_type == "gpu")
+        streams.append((got, counts))
+        del dexe, pexe
+    (gg, gcount), (cg, _) = streams
+    if ctxs[0].device_type == "gpu":
+        check(gcount["prefill"][0]["paged_prefill_attend"] == 2
+              and gcount["decode"][0]["paged_decode_attend"] == 2 * (new - 1),
+              "head_dim_agreement: kernel launches %s" % gcount)
+    logit_err, cut = 0.0, []
+    for r, ((gt, gl), (ct, cl)) in enumerate(zip(gg, cg)):
+        n, at = margin_cut(ct, cl, gt, "head_dim_agreement: request %d" % r)
+        check(np.allclose(gl[0], cl[0], rtol=1e-4, atol=1e-4),
+              "head_dim_agreement: request %d prefill logits differ by %g"
+              % (r, float(np.abs(gl[0] - cl[0]).max())))
+        logit_err = max(logit_err, float(np.abs(gl[0] - cl[0]).max()))
+        if at:
+            cut.append([r] + at)
+    emit({"phase": "head_dim_agreement", "config": cfg, "head_dim": 256,
+          "train_worst_rel_err": worst,
+          "train_out_max_abs_err": float(np.abs(go - co).max()),
+          "prefill_logit_max_abs_err": logit_err,
+          "streams_equal": all(g[0] == c[0] for g, c in zip(gg, cg)),
+          "cut_at_small_margin": cut})
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2028,6 +2852,10 @@ def main():
         phase_flash(torch, mxk, dev, flush)
     quant_kernel = phase_quant(torch, mxk, dev, flush)
     fused_kernel = phase_fused_matmul(torch, mxk, dev, flush)
+    bf16_kernels = phase_flash_bf16(torch, mxk, dev, flush) + \
+        phase_layernorm_bf16(torch, mxk, dev, flush) + \
+        [phase_fused_matmul_bf16(torch, mxk, dev, flush)]
+    head_dim_times = phase_head_dim(torch, mxk, dev, flush)
     del flush
     full = seeded_params(FULL)
     serve_launches, serve_steps = phase_serve(torch, mx, full)
@@ -2036,6 +2864,7 @@ def main():
     spec_launches, spec_steps = phase_serve_spec(torch, mx, full)
     phase_prefill_agreement(torch, mx)
     train_launches, train_steps = phase_train(torch, mx, full)
+    bf16_launches, bf16_steps = phase_train_bf16(torch, mx, full)
     del full
     phase_train_agreement(torch, mx)
     phase_kvstore(torch, mx)
@@ -2043,6 +2872,9 @@ def main():
     phase_resnet_agreement(torch, mx)
     nhwc_launches, nhwc_steps = phase_train_resnet_nhwc(torch, mx)
     phase_resnet_nhwc_agreement(torch, mx)
+    rbf16_launches, rbf16_steps = phase_train_resnet_bf16(torch, mx)
+    phase_bf16_agreement(torch, mx)
+    phase_head_dim_agreement(torch, mx)
     # launches: the count of each kernel's main-path run (serve for the
     # serving kernels, the one-shot prefill forward of serve_prefill for
     # the prefill kernel, the transformer's Module.fit for its training
@@ -2064,15 +2896,31 @@ def main():
     quant_kernel["launches_per_step"] = quant_kernel["launches"] / resnet_steps
     fused_kernel["launches"] = nhwc_launches[fused_kernel["name"]]
     fused_kernel["launches_per_step"] = fused_kernel["launches"] / nhwc_steps
+    # the bf16 forms: launches of the bf16 transformer's TrainStep run
+    # (flash, LayerNorm) and of the fused bf16 ResNet-50 arm
+    for k in bf16_kernels:
+        counts, steps = (rbf16_launches, rbf16_steps) \
+            if k["name"] == "fused_scale_relu_matmul" \
+            else (bf16_launches, bf16_steps)
+        k["launches"] = counts[k["name"]]
+        k["launches_per_step"] = counts[k["name"]] / steps
+    f32_kernels = serve_kernels + [prefill_kernel] + train_kernels + \
+        [quant_kernel, fused_kernel]
+    for k in f32_kernels:
+        k.setdefault("dtype", "float32")
+        if k["name"] in head_dim_times:
+            k["head_dim_256"] = {key: head_dim_times[k["name"]][key]
+                                 for key in ("ms", "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms")}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "dtype")
     emit({"kernels": [{**{key: k[key] for key in keys},
                        **{key: k[key] for key in ("launches_per_step",
                                                   "train_launches",
-                                                  "spec_launches_per_step")
+                                                  "spec_launches_per_step",
+                                                  "head_dim_256")
                           if key in k}}
-                      for k in serve_kernels + [prefill_kernel]
-                      + train_kernels + [quant_kernel, fused_kernel]]})
+                      for k in f32_kernels + bf16_kernels]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -2,15 +2,17 @@
 
 Counterpart of ``mxnet_tpu/base.py``.  The backend here is PyTorch, so
 the base layer carries only the error type, the anonymous-name counter
-the symbol layer uses, and the numeric type tuples.
+the symbol layer uses, the numeric type tuples and the dtype names.
 """
 from __future__ import annotations
 
 import threading
 
 import numpy as _np
+import torch
 
-__all__ = ["MXNetError", "numeric_types", "NameManager"]
+__all__ = ["MXNetError", "numeric_types", "NameManager", "torch_dtype",
+           "check_float_dtype", "numpy_to_tensor", "LOW_PRECISION"]
 
 
 class MXNetError(RuntimeError):
@@ -39,3 +41,59 @@ class NameManager:
 
 
 NAMES = NameManager()
+
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16, "float64": torch.float64,
+           "int32": torch.int32, "int64": torch.int64, "uint8": torch.uint8,
+           "int8": torch.int8}
+FLOAT16_LATER = ("float16 is not in the PyTorch port yet (ROADMAP A.1, "
+                 "float16); bfloat16 and float32 are")
+
+
+def torch_dtype(dtype):
+    """A torch dtype from a torch dtype, a name (``'bfloat16'``), a numpy
+    dtype or a numpy scalar type (the JAX package's ``np.dtype``
+    values, ``ml_dtypes``' bfloat16 included, by name)."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    if isinstance(dtype, str):
+        name = dtype
+    elif isinstance(dtype, _np.dtype):
+        name = dtype.name
+    elif isinstance(dtype, type) and issubclass(dtype, _np.generic):
+        name = _np.dtype(dtype).name
+    else:
+        name = str(dtype)
+    try:
+        return _DTYPES[name]
+    except KeyError:
+        raise MXNetError("unknown dtype %r" % (dtype,)) from None
+
+
+def check_float_dtype(dtype, where):
+    """``dtype`` as a torch dtype, raising for float16 (a later item of
+    the port) and for non-float types."""
+    dt = torch_dtype(dtype)
+    if dt == torch.float16:
+        raise MXNetError("%s: %s" % (where, FLOAT16_LATER))
+    if dt not in (torch.float32, torch.bfloat16):
+        raise MXNetError("%s: %s is not a floating type the port trains "
+                         "in (float32, bfloat16)" % (where, dt))
+    return dt
+
+
+LOW_PRECISION = (torch.bfloat16, torch.float16)
+
+
+def numpy_to_tensor(a):
+    """A CPU tensor over numpy ``a``: bfloat16 arrays (``ml_dtypes``', as
+    the JAX package's bf16 arrays come to numpy) are carried bit for bit
+    as ``torch.bfloat16``; other types as ``torch.from_numpy`` takes
+    them."""
+    a = _np.array(a, copy=not (isinstance(a, _np.ndarray)
+                               and a.flags.writeable
+                               and a.flags.c_contiguous))
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(_np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)

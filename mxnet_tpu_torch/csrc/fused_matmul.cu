@@ -1,5 +1,5 @@
 // Fused BatchNorm-apply, ReLU and 1x1 convolution for Hopper (sm_90a),
-// plain C interface.
+// in f32 or bf16, plain C interface.
 //
 // mx_fused_scale_relu_matmul replaces mxnet_tpu/ops/fused.py _pallas_fwd
 // (fused_scale_relu_matmul, the kernel of the _FusedBNReluConv op that
@@ -8,45 +8,54 @@
 //
 //   Y[M, N] = relu(X[M, K] * scale[K] + shift[K]) @ W[N, K]^T  (+ R[M, N])
 //
-// in f32, W being the OHWI convolution weight viewed (N, K) row-major, so
-// the caller passes the weight as it is stored, with no transpose copy.
+// X, W, R and Y of one element type T (float or __nv_bfloat16), scale
+// and shift f32; W is the OHWI convolution weight viewed (N, K)
+// row-major, so the caller passes the weight as it is stored, with no
+// transpose copy.
 //
 // The prologue is the point: each X element is scaled, shifted and ReLU'd
 // on its way from the register file into shared memory, so the activation
 // never exists in device memory (the unfused graph writes it once and the
-// convolution reads it again).  The product x * scale and the sum + shift
-// are rounded separately (__fmul_rn, __fadd_rn), as the plain version
-// computes them, so the kernel's activation is the plain version's bit for
-// bit; NaN passes the ReLU as torch.relu passes it.  The residual is added
-// in the epilogue.
+// convolution reads it again).  The affine and the ReLU are computed in
+// f32 and the activation is rounded to T before the product, the TPU
+// kernel's rounding point (z.astype(w.dtype)); the product accumulates in
+// f32, the residual is added in f32 in the epilogue and the sum is rounded
+// to T once.  The product x * scale and the sum + shift are rounded
+// separately (__fmul_rn, __fadd_rn), as the plain version computes them,
+// so the kernel's activation is the plain version's bit for bit; NaN
+// passes the ReLU as torch.relu passes it.
 //
-// What bounds it on the H100: 2*M*N*K f32 operations against 4*(M*K + N*K
-// + M*N (+ M*N)) bytes.  ResNet-50's sites at batch 128 are 13.2 GFLOP
-// each, 0.197 ms at 67 TFLOP/s; the widest-M site (64 -> 256 with the
-// residual, M = 401,408) moves 925 MB, 0.276 ms at 3.35 TB/s, so the
-// stage-1 sites are bound by bytes and the others by operations.
+// What bounds it on the H100: 2*M*N*K operations against sizeof(T) *
+// (M*K + N*K + M*N (+ M*N)) bytes.  In f32 on the CUDA cores (67
+// TFLOP/s) the stage-1 sites of ResNet-50 are bound by bytes and the
+// others by operations.  In bf16 the bound is the tensor cores' 989
+// TFLOP/s, against which every site is bound by bytes; this kernel still
+// multiplies on the CUDA cores in f32 (a tensor-core redesign is later
+// work), so its bf16 form runs at about its f32 form's time.
 //
 // Design.  The TPU kernel keeps all of W resident in VMEM and walks row
 // tiles of X; W reaches 4 MB here (2048 x 512), far over the 227 KB of
 // shared memory a block may use, so K is tiled too: a register-tiled
-// CUDA-core SGEMM.  A block computes a 128 x BN tile of Y (BN = 128, or 64
+// CUDA-core GEMM.  A block computes a 128 x BN tile of Y (BN = 128, or 64
 // when N <= 64 so a narrow output wastes no work), 8 x 8 outputs per
 // thread (256 threads, two blocks per SM, or 128), over K in steps of 8.
-// Shared memory is double-buffered: while the block multiplies step k out
-// of one buffer, each thread holds step k + 1's loads in registers and
-// writes them, with the prologue applied, into the other buffer; one
-// barrier per step.  The
+// Shared memory is double-buffered, in f32: while the block multiplies
+// step k out of one buffer, each thread holds step k + 1's loads in
+// registers and writes them, with the prologue applied, into the other
+// buffer; one barrier per step.  The
 // tiles are stored k-major (As[k][m], Bs[k][n]) with 4 floats of padding
 // per row, so both the transposing stores and the 16-byte fragment loads
-// of the inner product are free of bank conflicts.  Loads are 16 bytes
-// wide when K % 4 == 0 and the operands are 16-byte aligned, the epilogue
-// likewise when N % 4 == 0; otherwise every element is loaded or stored on
+// of the inner product are free of bank conflicts.  Loads take four
+// elements at once (16 bytes of f32, 8 of bf16) when K % 4 == 0 and the
+// operands are aligned to that width, the epilogue likewise when
+// N % 4 == 0; otherwise every element is loaded or stored on
 // its own.  Every edge is checked: any M, K and N are taken, nothing is
 // padded, and out-of-range elements enter the tiles as zeros after the
 // prologue.  f32 FMA throughout (no TF32), and each output is one thread's
 // sum over k in order, with no split over K: two runs give the same bits.
 // Block tiles walk N fastest, so the blocks sharing an X row tile run
 // together and read it from L2.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
@@ -68,91 +77,134 @@ struct Tile {
   static constexpr int kMinBlocks = BN == 128 ? 2 : 1;
 };
 
-__device__ __forceinline__ float affine_relu(float x, float s, float h) {
-  const float z = __fadd_rn(__fmul_rn(x, s), h);
-  return z < 0.0f ? 0.0f : z;
+template <typename T> __device__ __forceinline__ float to_f32(T v);
+template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
 }
 
-// Four consecutive floats of row `row` (< rows) at column `col` of a
-// row-major (rows, K) matrix, zeros past either edge.
-template <bool VEC>
-__device__ __forceinline__ void load4(const float* __restrict__ p, int64_t row,
+// relu(x * s + h) in f32, rounded to T (the activation enters the
+// product in T)
+template <typename T>
+__device__ __forceinline__ float affine_relu(float x, float s, float h) {
+  const float z = __fadd_rn(__fmul_rn(x, s), h);
+  return to_f32<T>(from_f32<T>(z < 0.0f ? 0.0f : z));
+}
+
+// four consecutive elements of T in one aligned load
+template <typename T> struct Vec4;
+template <> struct Vec4<float> {
+  using type = float4;
+  static __device__ __forceinline__ void unpack(const float4& t, float (&v)[4]) {
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  }
+  static __device__ __forceinline__ float4 pack(const float (&v)[4]) {
+    return make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+template <> struct Vec4<__nv_bfloat16> {
+  using type = uint2;
+  static __device__ __forceinline__ void unpack(const uint2& t, float (&v)[4]) {
+    const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&t.x);
+    const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&t.y);
+    v[0] = __low2float(a); v[1] = __high2float(a);
+    v[2] = __low2float(b); v[3] = __high2float(b);
+  }
+  static __device__ __forceinline__ uint2 pack(const float (&v)[4]) {
+    const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
+    const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
+    uint2 t;
+    t.x = *reinterpret_cast<const unsigned*>(&a);
+    t.y = *reinterpret_cast<const unsigned*>(&b);
+    return t;
+  }
+};
+
+// Four consecutive elements of row `row` (< rows) at column `col` of a
+// row-major (rows, K) matrix, widened to f32, zeros past either edge.
+template <typename T, bool VEC>
+__device__ __forceinline__ void load4(const T* __restrict__ p, int64_t row,
                                       int64_t rows, int col, int K,
                                       float (&v)[4]) {
   if (VEC) {
     if (row < rows && col < K) {
-      const float4 t = __ldg(reinterpret_cast<const float4*>(p + row * K + col));
-      v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+      using V = typename Vec4<T>::type;
+      Vec4<T>::unpack(__ldg(reinterpret_cast<const V*>(p + row * K + col)), v);
     } else {
       v[0] = v[1] = v[2] = v[3] = 0.0f;
     }
   } else {
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      v[j] = (row < rows && col + j < K) ? __ldg(p + row * K + col + j) : 0.0f;
+      v[j] = (row < rows && col + j < K) ? to_f32<T>(p[row * K + col + j]) : 0.0f;
   }
 }
 
 template <bool VEC>
 __device__ __forceinline__ void load_vec4(const float* __restrict__ p, int col,
                                           int K, float (&v)[4]) {
-  load4<VEC>(p, 0, 1, col, K, v);
+  load4<float, VEC>(p, 0, 1, col, K, v);
 }
 
-template <int BN, bool VEC_K, bool VEC_N>
+template <typename T, int BN, bool VEC_K, bool VEC_N>
 __global__ void __launch_bounds__(Tile<BN>::kThreads, Tile<BN>::kMinBlocks)
-fused_scale_relu_matmul_kernel(const float* __restrict__ x,
+fused_scale_relu_matmul_kernel(const T* __restrict__ x,
                                const float* __restrict__ scale,
                                const float* __restrict__ shift,
-                               const float* __restrict__ w,
-                               const float* __restrict__ res,
-                               float* __restrict__ y, int64_t M, int K, int N,
+                               const T* __restrict__ w,
+                               const T* __restrict__ res,
+                               T* __restrict__ y, int64_t M, int K, int N,
                                int tiles_n) {
-  using T = Tile<BN>;
+  using Tl = Tile<BN>;
   __shared__ __align__(16) float As[2][kBK][kBM + kPad];
   __shared__ __align__(16) float Bs[2][kBK][BN + kPad];
 
   const int tid = threadIdx.x;
-  const int tx = tid % T::kTx, ty = tid / T::kTx;
+  const int tx = tid % Tl::kTx, ty = tid / Tl::kTx;
   const int64_t m0 = (int64_t)(blockIdx.x / tiles_n) * kBM;
   const int n0 = (int)(blockIdx.x % tiles_n) * BN;
 
   // A slot s covers X[m0 + s / kSlots, k0 + (s % kSlots) * 4 .. + 3];
   // B slot s covers W[n0 + s / kSlots, k0 + (s % kSlots) * 4 .. + 3]
   constexpr int kSlots = kBK / 4;
-  float xa[T::kALoads][4], sa[T::kALoads][4], ha[T::kALoads][4];
-  float wb[T::kBLoads][4];
+  float xa[Tl::kALoads][4], sa[Tl::kALoads][4], ha[Tl::kALoads][4];
+  float wb[Tl::kBLoads][4];
 
   auto load_step = [&](int k0) {
 #pragma unroll
-    for (int i = 0; i < T::kALoads; ++i) {
-      const int s = tid + i * T::kThreads;
+    for (int i = 0; i < Tl::kALoads; ++i) {
+      const int s = tid + i * Tl::kThreads;
       const int col = k0 + (s % kSlots) * 4;
-      load4<VEC_K>(x, m0 + s / kSlots, M, col, K, xa[i]);
+      load4<T, VEC_K>(x, m0 + s / kSlots, M, col, K, xa[i]);
       load_vec4<VEC_K>(scale, col, K, sa[i]);
       load_vec4<VEC_K>(shift, col, K, ha[i]);
     }
 #pragma unroll
-    for (int i = 0; i < T::kBLoads; ++i) {
-      const int s = tid + i * T::kThreads;
-      load4<VEC_K>(w, n0 + s / kSlots, N, k0 + (s % kSlots) * 4, K, wb[i]);
+    for (int i = 0; i < Tl::kBLoads; ++i) {
+      const int s = tid + i * Tl::kThreads;
+      load4<T, VEC_K>(w, n0 + s / kSlots, N, k0 + (s % kSlots) * 4, K, wb[i]);
     }
   };
   auto store_step = [&](int buf, int k0) {
 #pragma unroll
-    for (int i = 0; i < T::kALoads; ++i) {
-      const int s = tid + i * T::kThreads;
+    for (int i = 0; i < Tl::kALoads; ++i) {
+      const int s = tid + i * Tl::kThreads;
       const int r = s / kSlots, c = (s % kSlots) * 4;
       const bool row_ok = m0 + r < M;
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         As[buf][c + j][r] = (row_ok && k0 + c + j < K)
-                                ? affine_relu(xa[i][j], sa[i][j], ha[i][j])
+                                ? affine_relu<T>(xa[i][j], sa[i][j], ha[i][j])
                                 : 0.0f;
     }
 #pragma unroll
-    for (int i = 0; i < T::kBLoads; ++i) {
-      const int s = tid + i * T::kThreads;
+    for (int i = 0; i < Tl::kBLoads; ++i) {
+      const int s = tid + i * Tl::kThreads;
       const int r = s / kSlots, c = (s % kSlots) * 4;
 #pragma unroll
       for (int j = 0; j < 4; ++j) Bs[buf][c + j][r] = wb[i][j];
@@ -203,40 +255,44 @@ fused_scale_relu_matmul_kernel(const float* __restrict__ x,
 #pragma unroll
     for (int g = 0; g < 2; ++g) {
       const int n = n0 + g * (BN / 2) + tx * 4;
-      float* out = y + m * N + n;
-      const float* rp = res ? res + m * N + n : nullptr;
+      T* out = y + m * N + n;
+      const T* rp = res ? res + m * N + n : nullptr;
       if (VEC_N) {
         if (n >= N) continue;
-        float4 v = make_float4(acc[i][g * 4], acc[i][g * 4 + 1],
-                               acc[i][g * 4 + 2], acc[i][g * 4 + 3]);
+        using V = typename Vec4<T>::type;
+        float v[4] = {acc[i][g * 4], acc[i][g * 4 + 1], acc[i][g * 4 + 2],
+                      acc[i][g * 4 + 3]};
         if (rp) {
-          const float4 r = __ldg(reinterpret_cast<const float4*>(rp));
-          v.x += r.x; v.y += r.y; v.z += r.z; v.w += r.w;
+          float r[4];
+          Vec4<T>::unpack(__ldg(reinterpret_cast<const V*>(rp)), r);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) v[j] += r[j];
         }
-        *reinterpret_cast<float4*>(out) = v;
+        *reinterpret_cast<V*>(out) = Vec4<T>::pack(v);
       } else {
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           if (n + j >= N) break;
-          out[j] = rp ? acc[i][g * 4 + j] + __ldg(rp + j) : acc[i][g * 4 + j];
+          out[j] = from_f32<T>(rp ? acc[i][g * 4 + j] + to_f32<T>(rp[j])
+                                  : acc[i][g * 4 + j]);
         }
       }
     }
   }
 }
 
-bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+bool aligned(const void* p, int bytes) { return ((uintptr_t)p & (bytes - 1)) == 0; }
 
-template <int BN>
-cudaError_t launch(const float* x, const float* scale, const float* shift,
-                   const float* w, const float* res, float* y, int64_t M,
+template <typename T, int BN>
+cudaError_t launch(const T* x, const float* scale, const float* shift,
+                   const T* w, const T* res, T* y, int64_t M,
                    int K, int N, bool vk, bool vn, cudaStream_t stream) {
   const int tiles_n = (N + BN - 1) / BN;
   const int64_t blocks = (M + kBM - 1) / kBM * tiles_n;
   if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
   const dim3 grid((unsigned)blocks), block(Tile<BN>::kThreads);
-#define MX_LAUNCH(VK, VN)                                                  \
-  fused_scale_relu_matmul_kernel<BN, VK, VN><<<grid, block, 0, stream>>>( \
+#define MX_LAUNCH(VK, VN)                                                     \
+  fused_scale_relu_matmul_kernel<T, BN, VK, VN><<<grid, block, 0, stream>>>( \
       x, scale, shift, w, res, y, M, K, N, tiles_n)
   if (vk && vn) MX_LAUNCH(true, true);
   else if (vk) MX_LAUNCH(true, false);
@@ -246,31 +302,43 @@ cudaError_t launch(const float* x, const float* scale, const float* shift,
   return cudaGetLastError();
 }
 
+template <typename T>
+int run(const void* xv, const float* scale, const float* shift, const void* wv,
+        const void* rv, void* yv, int64_t M, int64_t K, int64_t N, cudaStream_t s) {
+  const T* x = (const T*)xv;
+  const T* w = (const T*)wv;
+  const T* res = (const T*)rv;
+  T* y = (T*)yv;
+  const int vb = 4 * (int)sizeof(T);     // bytes of a four-element load
+  const bool vk = K % 4 == 0 && aligned(x, vb) && aligned(scale, 16) &&
+                  aligned(shift, 16) && aligned(w, vb);
+  const bool vn = N % 4 == 0 && aligned(y, vb) && (!res || aligned(res, vb));
+  if (N <= 64)
+    return (int)launch<T, 64>(x, scale, shift, w, res, y, M, (int)K, (int)N, vk, vn, s);
+  return (int)launch<T, 128>(x, scale, shift, w, res, y, M, (int)K, (int)N, vk, vn, s);
+}
+
 }  // namespace
 
 extern "C" {
 
-// x (M, K), scale and shift (K,), w (N, K), res (M, N) or NULL, y (M, N):
-// contiguous f32, y overlapping none of the others.  Returns the CUDA
+// x (M, K), scale and shift (K,) f32, w (N, K), res (M, N) or NULL, y
+// (M, N): contiguous, x, w, res and y of one type (dtype 0 = float32,
+// 1 = bfloat16), y overlapping none of the others.  Returns the CUDA
 // error of the launch (0 when M or N is 0: nothing to compute).
-int mx_fused_scale_relu_matmul(const float* x, const float* scale,
-                               const float* shift, const float* w,
-                               const float* res, float* y, int64_t M,
-                               int64_t K, int64_t N, int device,
+int mx_fused_scale_relu_matmul(const void* x, const float* scale,
+                               const float* shift, const void* w,
+                               const void* res, void* y, int64_t M,
+                               int64_t K, int64_t N, int dtype, int device,
                                void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (M <= 0 || N <= 0) return 0;
   if (K < 0 || K > INT_MAX || N > INT_MAX) return (int)cudaErrorInvalidValue;
-  const bool vk = K % 4 == 0 && aligned16(x) && aligned16(scale) &&
-                  aligned16(shift) && aligned16(w);
-  const bool vn = N % 4 == 0 && aligned16(y) && (!res || aligned16(res));
   cudaStream_t s = (cudaStream_t)stream;
-  if (N <= 64)
-    return (int)launch<64>(x, scale, shift, w, res, y, M, (int)K, (int)N, vk,
-                           vn, s);
-  return (int)launch<128>(x, scale, shift, w, res, y, M, (int)K, (int)N, vk,
-                          vn, s);
+  if (dtype == 1)
+    return run<__nv_bfloat16>(x, scale, shift, w, res, y, M, K, N, s);
+  return run<float>(x, scale, shift, w, res, y, M, K, N, s);
 }
 
 const char* mx_cuda_error_string(int err) {

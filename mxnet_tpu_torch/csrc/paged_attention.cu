@@ -61,6 +61,18 @@
 // real block are never read.  The TPU kernel clamps those grid steps
 // onto the last real block and re-emits its bytes; not writing there
 // leaves the same cache.  No atomics: two runs give the same bits.
+//
+// Head_dim is tiled in all three, so the reference's head_dims run (it
+// has no head_dim limit).  Decode gives each (slot, head) pair one
+// block per 256 output columns; each block computes the whole q . k.
+// The chunk prefill keeps its 8 query rows and their accumulators
+// resident (64 bytes of shared memory per unit of head_dim, so the
+// limit is head_dim 3100) and passes the key and value tiles through in
+// chunks of 128 columns.  The one-shot prefill tiles head_dim as the
+// flash kernels do: chunks of 128 columns staged in turn for the scores,
+// one block per chunk of output columns (which recomputes the scores),
+// 82.7 KB of shared memory at any head_dim; each block scatters its own
+// chunk of the K/V rows.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -99,7 +111,8 @@ __device__ __forceinline__ float row_sum16(float v) {
 // decode: one query per slot against cache rows [0, pos[c]]
 // ---------------------------------------------------------------------
 constexpr int kDecodeThreads = 128;          // 4 warps
-constexpr int kDecodeAcc = 2;                // D <= kDecodeThreads * kDecodeAcc
+constexpr int kDecodeAcc = 2;                // output columns per thread
+constexpr int kDecodeCols = kDecodeThreads * kDecodeAcc;   // per block
 
 template <typename TQ, typename TKV>
 __global__ void __launch_bounds__(kDecodeThreads)
@@ -108,6 +121,7 @@ paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kc,
                     const int* __restrict__ pos, TQ* __restrict__ out, int H,
                     int D, int bs, int M, float scale) {
   const int h = blockIdx.x, c = blockIdx.y;
+  const int d0 = blockIdx.z * kDecodeCols;     // this block's output columns
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   constexpr int nwarps = kDecodeThreads / 32;
   extern __shared__ float smem[];
@@ -117,7 +131,8 @@ paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kc,
   const int p = pos[c];
   TQ* o = out + ((size_t)c * H + h) * D;
   if (p < 0) {               // inactive slot: exact zeros, nothing read
-    for (int d = tid; d < D; d += kDecodeThreads) o[d] = from_f32<TQ>(0.f);
+    for (int d = d0 + tid; d < min(D, d0 + kDecodeCols); d += kDecodeThreads)
+      o[d] = from_f32<TQ>(0.f);
     return;
   }
   const TQ* qv = q + ((size_t)c * H + h) * D;
@@ -158,7 +173,7 @@ paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kc,
     m_run = mx;
 #pragma unroll
     for (int i = 0; i < kDecodeAcc; ++i) {
-      const int d = tid + i * kDecodeThreads;
+      const int d = d0 + tid + i * kDecodeThreads;
       if (d < D) {
         float a = acc[i] * alpha;
         for (int r = 0; r < rows; ++r) a += ps[r] * to_f32(vb[(size_t)r * row_stride + d]);
@@ -170,7 +185,7 @@ paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kc,
   const float inv = 1.f / (l_run > 0.f ? l_run : 1.f);
 #pragma unroll
   for (int i = 0; i < kDecodeAcc; ++i) {
-    const int d = tid + i * kDecodeThreads;
+    const int d = d0 + tid + i * kDecodeThreads;
     if (d < D) o[d] = from_f32<TQ>(acc[i] * inv);
   }
 }
@@ -181,6 +196,7 @@ paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kc,
 constexpr int kChunkThreads = 256;
 constexpr int kTileKeys = 32;
 constexpr int kQueryRows = 8;                 // chunk rows per thread block
+constexpr int kChunkD = 128;                  // head_dim columns per staged tile
 
 template <typename TQ, typename TKV>
 __global__ void __launch_bounds__(kChunkThreads)
@@ -222,13 +238,16 @@ paged_chunk_prefill_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
     vc[row * rs + (size_t)h * D + d] = from_f32<TKV>(to_f32(vb[(size_t)j * rs + d]));
   }
 
+  // head_dim is staged in chunks of kChunkD columns: the query rows and
+  // accumulators of the block (2 * kQueryRows * D floats) stay resident,
+  // the key and value tiles pass through in chunks
   extern __shared__ float smem[];
-  const int KS = D + 1;                          // padded key-tile stride
+  constexpr int KS = kChunkD + 1;                // padded key-tile stride
   float* qs = smem;                              // kQueryRows * D
   float* acc = qs + (size_t)kQueryRows * D;      // kQueryRows * D
   float* ks = acc + (size_t)kQueryRows * D;      // kTileKeys * KS
-  float* vs = ks + (size_t)kTileKeys * KS;       // kTileKeys * D
-  float* ss = vs + (size_t)kTileKeys * D;        // kQueryRows * kTileKeys
+  float* vs = ks + (size_t)kTileKeys * KS;       // kTileKeys * kChunkD
+  float* ss = vs + (size_t)kTileKeys * kChunkD;  // kQueryRows * kTileKeys
   float* m_s = ss + (size_t)kQueryRows * kTileKeys;
   float* l_s = m_s + kQueryRows;
   float* a_s = l_s + kQueryRows;
@@ -243,36 +262,52 @@ paged_chunk_prefill_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
     l_s[r] = 0.f;
   }
 
+  // columns [c0, c0 + w) of key (or value) rows [kt, kt + kTileKeys):
+  // earlier context is read back through the table, in-chunk keys come
+  // from the chunk input rounded to the cache type, keys past nk are 0
   const int nk = st + ie;                        // keys [0, start + ie)
-  for (int kt = 0; kt < nk; kt += kTileKeys) {
-    __syncthreads();     // previous tile fully consumed (and init done)
-    for (int idx = tid; idx < kTileKeys * D; idx += kChunkThreads) {
-      const int j = idx / D, d = idx % D;
+  // (kv: the value tile too, from the same rows, into vs)
+  auto stage = [&](float* dst, int ld, const TKV* cache, const TQ* chunk, int kt,
+                   int c0, int w, bool kv) {
+    for (int idx = tid; idx < kTileKeys * w; idx += kChunkThreads) {
+      const int j = idx / w, d = idx % w;
       const int kp = kt + j;
-      float kval = 0.f, vval = 0.f;
-      if (kp < st) {     // earlier context: read back through the table
-        const size_t row = (size_t)tb[kp / bs] * bs + kp % bs;
-        kval = to_f32(kc[row * rs + (size_t)h * D + d]);
-        vval = to_f32(vc[row * rs + (size_t)h * D + d]);
-      } else if (kp < nk) {   // in-chunk key, rounded to the cache type
-        kval = to_f32(from_f32<TKV>(to_f32(kb[(size_t)(kp - st) * rs + d])));
-        vval = to_f32(from_f32<TKV>(to_f32(vb[(size_t)(kp - st) * rs + d])));
+      float val = 0.f, vval = 0.f;
+      if (kp < st) {
+        const size_t off = ((size_t)tb[kp / bs] * bs + kp % bs) * rs + (size_t)h * D + c0 + d;
+        val = to_f32(cache[off]);
+        if (kv) vval = to_f32(vc[off]);
+      } else if (kp < nk) {
+        const size_t off = (size_t)(kp - st) * rs + c0 + d;
+        val = to_f32(from_f32<TKV>(to_f32(chunk[off])));
+        if (kv) vval = to_f32(from_f32<TKV>(to_f32(vb[off])));
       }
-      ks[j * KS + d] = kval;
-      vs[j * D + d] = vval;
+      dst[j * ld + d] = val;
+      if (kv) vs[j * kChunkD + d] = vval;
     }
-    __syncthreads();
-    for (int idx = tid; idx < nq * kTileKeys; idx += kChunkThreads) {
-      const int r = idx / kTileKeys, j = idx % kTileKeys;
-      const int kp = kt + j;
-      float s = -1e30f;  // finite fill, as the TPU kernel: never a NaN
-      if (kp < nk && kp <= st + i0 + r) {
-        const float* qr = qs + (size_t)r * D;
+  };
+
+  // with one chunk (D <= kChunkD) the key and value tiles are staged
+  // together, once per key tile, as an untiled kernel would
+  const bool one_chunk = D <= kChunkD;
+  for (int kt = 0; kt < nk; kt += kTileKeys) {
+    for (int c0 = 0; c0 < D; c0 += kChunkD) {
+      const int w = min(kChunkD, D - c0);
+      const bool last = c0 + kChunkD >= D;
+      __syncthreads();   // previous tile (or chunk) consumed
+      stage(ks, KS, kc, kb, kt, c0, w, one_chunk);
+      __syncthreads();
+      for (int idx = tid; idx < nq * kTileKeys; idx += kChunkThreads) {
+        const int r = idx / kTileKeys, j = idx % kTileKeys;
+        const float* qr = qs + (size_t)r * D + c0;
         const float* kr = ks + j * KS;
-        s = 0.f;
-        for (int d = 0; d < D; ++d) s += qr[d] * kr[d];
+        float s = c0 == 0 ? 0.f : ss[idx];
+        for (int d = 0; d < w; ++d) s += qr[d] * kr[d];
+        // finite fill, as the TPU kernel: never a NaN
+        const int kp = kt + j;
+        if (last && !(kp < nk && kp <= st + i0 + r)) s = -1e30f;
+        ss[idx] = s;
       }
-      ss[idx] = s;
     }
     __syncthreads();
     for (int r = tid; r < nq; r += kChunkThreads) {
@@ -290,16 +325,24 @@ paged_chunk_prefill_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
       m_s[r] = mx;
       a_s[r] = alpha;
     }
-    __syncthreads();
-    for (int idx = tid; idx < nq * D; idx += kChunkThreads) {
-      const int r = idx / D, d = idx % D;
-      const float* pr = ss + (size_t)r * kTileKeys;
-      float a = acc[idx] * a_s[r];
-      for (int j = 0; j < kTileKeys; ++j) a += pr[j] * vs[j * D + d];
-      acc[idx] = a;
+    for (int c0 = 0; c0 < D; c0 += kChunkD) {
+      const int w = min(kChunkD, D - c0);
+      __syncthreads();   // probabilities written, previous value chunk consumed
+      if (!one_chunk) {
+        stage(vs, kChunkD, vc, vb, kt, c0, w, false);
+        __syncthreads();
+      }
+      for (int idx = tid; idx < nq * w; idx += kChunkThreads) {
+        const int r = idx / w, d = idx % w;
+        const float* pr = ss + (size_t)r * kTileKeys;
+        float* ar = acc + (size_t)r * D + c0 + d;
+        float a = *ar * a_s[r];
+        for (int j = 0; j < kTileKeys; ++j) a += pr[j] * vs[j * kChunkD + d];
+        *ar = a;
+      }
     }
+    __syncthreads();   // ss and the accumulators free for the next tile
   }
-  __syncthreads();
   for (int idx = tid; idx < nq * D; idx += kChunkThreads) {
     const int r = idx / D, d = idx % D;
     const float l = l_s[r];
@@ -313,20 +356,20 @@ paged_chunk_prefill_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
 // ---------------------------------------------------------------------
 constexpr int kPTile = 64;                    // query rows and keys per tile
 constexpr int kPThreads = 256;
-constexpr int kPMaxD = 128;
-constexpr int kPDPer = kPMaxD / 16;           // output columns per thread
+constexpr int kPDC = 128;                     // head_dim columns per chunk
+constexpr int kPDPer = kPDC / 16;             // output columns per thread
+constexpr int kPLd = kPDC + 1;                // stride of a staged chunk tile
 constexpr int kPPS = kPTile + 1;              // stride of the score tile
 
-// rows [r0, r0 + kPTile) of one head of a seq-major (S, H, D) input
-// (row stride rs) into a (kPTile, D + 1) f32 shared tile; rows at or
-// past S are zeros
+// rows [r0, r0 + kPTile), columns [c0, c0 + w) of one head of a
+// seq-major (S, H, D) input (row stride rs) into a (kPTile, kPLd) f32
+// shared tile; rows at or past S are zeros
 template <typename T>
 __device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ src, int r0,
-                                          int S, int D, size_t rs) {
-  const int ld = D + 1;
-  for (int idx = threadIdx.x; idx < kPTile * D; idx += kPThreads) {
-    const int r = idx / D, d = idx - r * D;
-    dst[r * ld + d] = (r0 + r < S) ? to_f32(src[(size_t)(r0 + r) * rs + d]) : 0.f;
+                                          int S, int c0, int w, size_t rs) {
+  for (int idx = threadIdx.x; idx < kPTile * w; idx += kPThreads) {
+    const int r = idx / w, d = idx - r * w;
+    dst[r * kPLd + d] = (r0 + r < S) ? to_f32(src[(size_t)(r0 + r) * rs + c0 + d]) : 0.f;
   }
 }
 
@@ -337,7 +380,11 @@ paged_prefill_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
                      TKV* __restrict__ vc, const int* __restrict__ table,
                      const int* __restrict__ lens, TQ* __restrict__ out, int S,
                      int H, int D, int bs, int M, float scale) {
-  const int qt = (int)gridDim.x - 1 - (int)blockIdx.x;   // longest rows first
+  // blockIdx.x walks (query tile, longest first) x (chunk of head_dim)
+  const int nch = (D + kPDC - 1) / kPDC;
+  const int nqt = (S + kPTile - 1) / kPTile;
+  const int qt = nqt - 1 - (int)blockIdx.x / nch;
+  const int oc0 = ((int)blockIdx.x % nch) * kPDC, ow = min(kPDC, D - oc0);
   const int h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const size_t rs = (size_t)H * D;                        // row stride
@@ -349,23 +396,23 @@ paged_prefill_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
   const int q0 = qt * kPTile;
 
   // fused scatter: this block's rows below the row's length, this head
-  // only; rows past the table's M * bs rows are never written
+  // and this chunk of head_dim only; rows past the table's M * bs rows
+  // are never written
   const int L = max(0, min(min(lens[b], S), M * bs));
   const int* tb = table + (size_t)b * M;
   const int nw = min(q0 + kPTile, L) - q0;
-  for (int idx = tid; idx < nw * D; idx += kPThreads) {
-    const int r = q0 + idx / D, d = idx % D;
+  for (int idx = tid; idx < nw * ow; idx += kPThreads) {
+    const int r = q0 + idx / ow, d = oc0 + idx % ow;
     const size_t dst = ((size_t)tb[r / bs] * bs + r % bs) * rs + (size_t)h * D + d;
     kc[dst] = from_f32<TKV>(to_f32(kg[(size_t)r * rs + d]));
     vc[dst] = from_f32<TKV>(to_f32(vg[(size_t)r * rs + d]));
   }
 
-  const int ld = D + 1;
   extern __shared__ float smem[];
-  float* qs = smem;                                       // kPTile x ld
-  float* kv = qs + kPTile * ld;                           // kPTile x ld: K, then V
-  float* ps = kv + kPTile * ld;                           // kPTile x kPPS
-  load_rows(qs, qg, q0, S, D, rs);
+  float* qs = smem;                                       // kPTile x kPLd
+  float* kv = qs + kPTile * kPLd;                         // kPTile x kPLd: K, then V
+  float* ps = kv + kPTile * kPLd;                         // kPTile x kPPS
+  if (nch == 1) load_rows(qs, qg, q0, S, 0, D, rs);       // resident
   float m[4], l[4], acc[4][kPDPer];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -377,25 +424,29 @@ paged_prefill_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
 
   for (int kt = 0; kt <= qt; ++kt) {
     const int k0 = kt * kPTile;
-    __syncthreads();                                      // kv and ps are free
-    load_rows(kv, kg, k0, S, D, rs);
-    __syncthreads();
     float s[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    for (int c0 = 0; c0 < D; c0 += kPDC) {
+      const int w = min(kPDC, D - c0);
+      __syncthreads();                                    // qs, kv and ps are free
+      if (nch > 1) load_rows(qs, qg, q0, S, c0, w, rs);
+      load_rows(kv, kg, k0, S, c0, w, rs);
+      __syncthreads();
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float a[4], bb[4];
+      for (int d = 0; d < w; ++d) {
+        float a[4], bb[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = qs[(ty * 4 + i) * ld + d];
+        for (int i = 0; i < 4; ++i) a[i] = qs[(ty * 4 + i) * kPLd + d];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) bb[j] = kv[(tx + 16 * j) * ld + d];
+        for (int j = 0; j < 4; ++j) bb[j] = kv[(tx + 16 * j) * kPLd + d];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], bb[j], s[i][j]);
+          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], bb[j], s[i][j]);
+      }
     }
     // online softmax; key k0 <= every row of this tile, so each row
     // has a real key in every tile it visits and the max is finite
@@ -426,7 +477,7 @@ paged_prefill_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
       for (int j = 0; j < 4; ++j) ps[(ty * 4 + i) * kPPS + tx + 16 * j] = s[i][j];
     }
     __syncthreads();                                      // K read, P written
-    load_rows(kv, vg, k0, S, D, rs);
+    load_rows(kv, vg, k0, S, oc0, ow, rs);
     __syncthreads();
 #pragma unroll 4
     for (int c = 0; c < kPTile; ++c) {
@@ -436,8 +487,8 @@ paged_prefill_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
 #pragma unroll
       for (int cc = 0; cc < kPDPer; ++cc) {
         const int d = tx + 16 * cc;
-        if (d < D) {
-          const float vv = kv[c * ld + d];
+        if (d < ow) {
+          const float vv = kv[c * kPLd + d];
 #pragma unroll
           for (int i = 0; i < 4; ++i) acc[i][cc] = fmaf(p[i], vv, acc[i][cc]);
         }
@@ -449,11 +500,11 @@ paged_prefill_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
     const int r = q0 + ty * 4 + i;
     if (r >= S) continue;
     const float inv = 1.f / l[i];
-    TQ* orow = og + (size_t)r * rs;
+    TQ* orow = og + (size_t)r * rs + oc0;
 #pragma unroll
     for (int cc = 0; cc < kPDPer; ++cc) {
       const int d = tx + 16 * cc;
-      if (d < D) orow[d] = from_f32<TQ>(acc[i][cc] * inv);
+      if (d < ow) orow[d] = from_f32<TQ>(acc[i][cc] * inv);
     }
   }
 }
@@ -466,7 +517,8 @@ int launch_prefill(const void* q, const void* k, const void* v, void* kc, void* 
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  fn<<<dim3((S + kPTile - 1) / kPTile, H, B), kPThreads, smem, stream>>>(
+  const int blocks_x = (S + kPTile - 1) / kPTile * ((D + kPDC - 1) / kPDC);
+  fn<<<dim3(blocks_x, H, B), kPThreads, smem, stream>>>(
       (const TQ*)q, (const TQ*)k, (const TQ*)v, (TKV*)kc, (TKV*)vc, (const int*)table,
       (const int*)lens, (TQ*)out, S, H, D, bs, M, scale);
   return (int)cudaGetLastError();
@@ -477,7 +529,8 @@ int launch_decode(const void* q, const void* kc, const void* vc, const void* tab
                   const void* pos, void* out, int C, int H, int D, int bs, int M,
                   float scale, cudaStream_t stream) {
   const size_t smem = (size_t)(D + bs) * sizeof(float);
-  paged_decode_kernel<TQ, TKV><<<dim3(H, C), kDecodeThreads, smem, stream>>>(
+  const dim3 grid(H, C, (D + kDecodeCols - 1) / kDecodeCols);
+  paged_decode_kernel<TQ, TKV><<<grid, kDecodeThreads, smem, stream>>>(
       (const TQ*)q, (const TKV*)kc, (const TKV*)vc, (const int*)table,
       (const int*)pos, (TQ*)out, H, D, bs, M, scale);
   return (int)cudaGetLastError();
@@ -520,8 +573,8 @@ int mx_paged_decode(const void* q, const void* kc, const void* vc, const void* t
 }
 
 size_t mx_paged_chunk_prefill_smem(int D) {
-  return ((size_t)2 * kQueryRows * D + (size_t)kTileKeys * (D + 1) +
-          (size_t)kTileKeys * D + (size_t)kQueryRows * kTileKeys +
+  return ((size_t)2 * kQueryRows * D + (size_t)kTileKeys * (kChunkD + 1) +
+          (size_t)kTileKeys * kChunkD + (size_t)kQueryRows * kTileKeys +
           3 * (size_t)kQueryRows) * sizeof(float);
 }
 
@@ -544,10 +597,10 @@ int mx_paged_chunk_prefill(const void* q, const void* k, const void* v, void* kc
 }
 
 size_t mx_paged_prefill_smem(int D) {
-  return (2 * (size_t)kPTile * (D + 1) + (size_t)kPTile * kPPS) * sizeof(float);
+  return (2 * (size_t)kPTile * kPLd + (size_t)kPTile * kPPS) * sizeof(float);
 }
 
-// q, k, v, out: (B, S, H, D) seq-major, D <= 128; lengths (B,) int32
+// q, k, v, out: (B, S, H, D) seq-major, any D; lengths (B,) int32
 int mx_paged_prefill(const void* q, const void* k, const void* v, void* kc, void* vc,
                      const void* table, const void* lens, void* out, int B, int S, int H,
                      int D, int bs, int M, float scale, int q_dtype, int kv_dtype,

@@ -14,8 +14,12 @@ place.  ``forward(is_train=True)`` records the graph with autograd;
 replaces it, ``'add'`` accumulates).  A loss head such as SoftmaxOutput
 ignores its seed, as in MXNet.  Inference forwards record nothing.
 
+Every argument and auxiliary state is allocated in the type the
+symbol infers for it (``Symbol.infer_shape_type``: float32 unless
+``type_dict`` or the same-type rule says otherwise, so bf16 data makes
+the weights it meets bf16), and each gradient in its argument's type.
 Auxiliary states (BatchNorm's moving statistics) live in ``aux_dict``,
-f32 zeros at bind, and take no gradient.  Ops that declare ``is_train``
+zeros at bind, and take no gradient.  Ops that declare ``is_train``
 are handed the forward's flag; after a train forward, each output an op
 declares in ``mutate_inputs`` is copied into its auxiliary state in
 place (the JAX package's executor returns the new states instead).
@@ -34,7 +38,7 @@ from __future__ import annotations
 import numpy as _np
 import torch
 
-from .base import MXNetError
+from .base import FLOAT16_LATER, MXNetError, numpy_to_tensor
 from .context import current_context
 from .ndarray.ndarray import NDArray
 
@@ -58,32 +62,36 @@ def _normalize_grad_req(grad_req, arg_names):
 
 
 class Executor:
-    def __init__(self, symbol, ctx, grad_req, shapes, shared_exec=None):
+    def __init__(self, symbol, ctx, grad_req, shapes, shared_exec=None,
+                 type_dict=None):
         self._symbol = symbol
         self._ctx = ctx if ctx is not None else current_context()
         dev = self._ctx.torch_device
         self._arg_names = symbol.list_arguments()
         self._grad_req = _normalize_grad_req(grad_req, self._arg_names)
-        arg_shapes, _, aux_shapes = symbol.infer_shape(**shapes)
+        arg_shapes, arg_types, aux_shapes, aux_types = \
+            symbol.infer_shape_type(shapes, type_dict)
+        if torch.float16 in arg_types + aux_types:
+            raise MXNetError("simple_bind: %s" % FLOAT16_LATER)
         self._aux_names = symbol.list_auxiliary_states()
 
         arg_pool = shared_exec.arg_dict if shared_exec is not None else {}
         aux_pool = shared_exec.aux_dict if shared_exec is not None else {}
 
-        def shared(pool, name, shape):
+        def shared(pool, name, shape, dtype):
             nd = pool.get(name)
             return nd if nd is not None and nd.shape == tuple(shape) \
-                else None
+                and nd._data.dtype == dtype else None
 
         self.aux_dict = {}
-        for name, shape in zip(self._aux_names, aux_shapes):
-            self.aux_dict[name] = shared(aux_pool, name, shape) or NDArray(
-                torch.zeros(shape, dtype=torch.float32, device=dev))
+        for name, shape, dt in zip(self._aux_names, aux_shapes, aux_types):
+            self.aux_dict[name] = shared(aux_pool, name, shape, dt) or \
+                NDArray(torch.zeros(shape, dtype=dt, device=dev))
         self.arg_dict = {}
         self.grad_dict = {}
-        for name, shape in zip(self._arg_names, arg_shapes):
-            nd = shared(arg_pool, name, shape) or NDArray(
-                torch.zeros(shape, dtype=torch.float32, device=dev))
+        for name, shape, dt in zip(self._arg_names, arg_shapes, arg_types):
+            nd = shared(arg_pool, name, shape, dt) or NDArray(
+                torch.zeros(shape, dtype=dt, device=dev))
             if self._grad_req[name] != "null":
                 nd._data.requires_grad_(True)
                 self.grad_dict[name] = NDArray(torch.zeros_like(nd._data))
@@ -217,7 +225,7 @@ def _as_tensor(value, shape, name):
     if isinstance(value, NDArray):
         value = value._data
     if not isinstance(value, torch.Tensor):
-        value = torch.from_numpy(_np.ascontiguousarray(value))
+        value = numpy_to_tensor(_np.asarray(value))
     if tuple(value.shape) != tuple(shape):
         raise MXNetError("%s: shape %s does not match the bound %s"
                          % (name, tuple(value.shape), tuple(shape)))

@@ -2,7 +2,7 @@
 (counterpart of ``mxnet_tpu/pallas``).  The device of the inputs picks
 the path: CPU tensors take the plain version, CUDA tensors the kernel
 (``dispatch.py``)."""
-from .dispatch import LAUNCHES, PLAIN_CALLS, reset_counts
+from .dispatch import LAUNCHES, LAUNCHES_BY_DTYPE, PLAIN_CALLS, reset_counts
 from .flash_attention import (FlashAttentionFn, flash_attention,
                               flash_attention_bwd_dkv,
                               flash_attention_bwd_dkv_plain,
@@ -20,7 +20,8 @@ from .paged_attention import (paged_chunk_prefill_attend,
                               paged_prefill_attend, paged_prefill_attend_plain)
 from .quant import two_bit_quantize_fused, two_bit_quantize_plain
 
-__all__ = ["LAUNCHES", "PLAIN_CALLS", "reset_counts", "layernorm_fused",
+__all__ = ["LAUNCHES", "LAUNCHES_BY_DTYPE", "PLAIN_CALLS", "reset_counts",
+           "layernorm_fused",
            "layernorm_plain", "layernorm_fused_bwd", "layernorm_bwd_plain",
            "LayerNormFn", "layernorm", "flash_attention",
            "flash_attention_plain", "FlashAttentionFn", "flash_attention_fwd",

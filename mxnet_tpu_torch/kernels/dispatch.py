@@ -10,7 +10,9 @@ contract: the device of the inputs decides.
 
 ``LAUNCHES[name]`` counts the wrapper's kernel launches and
 ``PLAIN_CALLS[name]`` the calls of the plain version, as plain ints, so
-a run can show which path its work went through.
+a run can show which path its work went through.  A wrapper whose
+kernel has several element types also counts each launch under
+``LAUNCHES_BY_DTYPE["name:dtype"]`` (``"flash_attention_fwd:bfloat16"``).
 """
 from __future__ import annotations
 
@@ -20,8 +22,8 @@ import torch
 
 from ..base import MXNetError
 
-__all__ = ["KERNELS", "LAUNCHES", "PLAIN_CALLS", "on_cpu", "count_launch",
-           "count_plain", "reset_counts"]
+__all__ = ["KERNELS", "LAUNCHES", "LAUNCHES_BY_DTYPE", "PLAIN_CALLS",
+           "on_cpu", "count_launch", "count_plain", "reset_counts"]
 
 KERNELS = ("paged_decode_attend", "paged_chunk_prefill_attend",
            "paged_prefill_attend", "layernorm_fused", "layernorm_fused_bwd",
@@ -30,6 +32,7 @@ KERNELS = ("paged_decode_attend", "paged_chunk_prefill_attend",
            "fused_scale_relu_matmul")
 LAUNCHES = {k: 0 for k in KERNELS}
 PLAIN_CALLS = {k: 0 for k in KERNELS}
+LAUNCHES_BY_DTYPE = {}
 _lock = threading.Lock()
 
 
@@ -51,9 +54,12 @@ def on_cpu(kernel, *tensors):
                      % (kernel, dev))
 
 
-def count_launch(kernel):
+def count_launch(kernel, dtype=None):
     with _lock:
         LAUNCHES[kernel] += 1
+        if dtype is not None:
+            key = "%s:%s" % (kernel, str(dtype).replace("torch.", ""))
+            LAUNCHES_BY_DTYPE[key] = LAUNCHES_BY_DTYPE.get(key, 0) + 1
 
 
 def count_plain(kernel):
@@ -66,6 +72,7 @@ def reset_counts():
         for k in KERNELS:
             LAUNCHES[k] = 0
             PLAIN_CALLS[k] = 0
+        LAUNCHES_BY_DTYPE.clear()
 
 
 def check_tensor(kernel, name, t, *, dtypes, ndim=None, shape=None):

@@ -4,11 +4,16 @@ Counterpart of ``mxnet_tpu/ops/nn.py`` ``_flash_attention``, which calls
 jax's library Pallas kernel on the TPU (a forward kernel and two
 backward kernels, dK/dV and dQ).  The port's kernels are
 ``csrc/flash_attention.cu`` (design note in the source): causal, with
-``scale``, on contiguous head-major ``(B, H, S, D)`` f32, ``D <= 128``,
-any ``S``.  The forward also writes each row's log-sum-exp, and the
-backward recomputes the probabilities from it; no ``S x S`` tensor is
-stored.  ``Dr = rowsum(dO * O)`` is computed in plain PyTorch between
-the forward and the backward kernels, as jax's own backward does.
+``scale``, on contiguous head-major ``(B, H, S, D)`` f32 or bf16, any
+``S`` and any ``D`` (the kernels tile head_dim in chunks of 128).  The
+forward also writes each row's log-sum-exp (f32), and the backward
+recomputes the probabilities from it; no ``S x S`` tensor is stored.
+In bf16 the kernels follow the TPU kernel's rounding points: products
+accumulate in f32, and the probabilities (and ``dS``) are rounded to
+the input type before the products that consume them; the plain
+versions round at the same points.  ``Dr = rowsum(dO * O)`` is
+computed in plain PyTorch between the forward and the backward
+kernels, as jax's own backward does.
 
 Beside each wrapper is its plain PyTorch version: the CPU path and the
 kernel's yardstick on the card.  :func:`flash_attention_plain` is the
@@ -23,9 +28,9 @@ import ctypes
 
 import torch
 
-from ..base import MXNetError
 from . import _build
-from .dispatch import check_tensor, count_launch, count_plain, on_cpu
+from .dispatch import (DTYPE_CODE, FLOAT_TYPES, check_tensor, count_launch,
+                       count_plain, on_cpu)
 
 __all__ = ["flash_attention", "flash_attention_plain", "FlashAttentionFn",
            "flash_attention_fwd", "flash_attention_fwd_plain",
@@ -35,7 +40,6 @@ __all__ = ["flash_attention", "flash_attention_plain", "FlashAttentionFn",
 _FWD = "flash_attention_fwd"
 _DKV = "flash_attention_bwd_dkv"
 _DQ = "flash_attention_bwd_dq"
-_MAX_D = 128
 _F32 = (torch.float32,)
 
 
@@ -43,33 +47,37 @@ def _lib():
     lib = _build.load("flash_attention")
     if lib.mx_flash_fwd.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.mx_flash_fwd.argtypes = [p, p, p, p, p, i, i, i, f, i, p]
+        lib.mx_flash_fwd.argtypes = [p, p, p, p, p, i, i, i, f, i, i, p]
         lib.mx_flash_fwd.restype = i
         lib.mx_flash_bwd_dkv.argtypes = [p, p, p, p, p, p, p, p, i, i, i, f, i,
-                                         p]
+                                         i, p]
         lib.mx_flash_bwd_dkv.restype = i
-        lib.mx_flash_bwd_dq.argtypes = [p, p, p, p, p, p, p, i, i, i, f, i, p]
+        lib.mx_flash_bwd_dq.argtypes = [p, p, p, p, p, p, p, i, i, i, f, i, i,
+                                        p]
         lib.mx_flash_bwd_dq.restype = i
     return lib
 
 
 def _check_qkv(kernel, q, k, v):
-    check_tensor(kernel, "q", q, dtypes=_F32, ndim=4)
+    check_tensor(kernel, "q", q, dtypes=FLOAT_TYPES, ndim=4)
     for name, t in (("k", k), ("v", v)):
-        check_tensor(kernel, name, t, dtypes=_F32, shape=q.shape)
-    if q.shape[-1] > _MAX_D:
-        raise MXNetError("%s: head_dim %d exceeds the kernel's %d"
-                         % (kernel, q.shape[-1], _MAX_D))
+        check_tensor(kernel, name, t, dtypes=(q.dtype,), shape=q.shape)
 
 
 def _check_grads(kernel, q, dout, lse, delta):
-    check_tensor(kernel, "dout", dout, dtypes=_F32, shape=q.shape)
+    check_tensor(kernel, "dout", dout, dtypes=(q.dtype,), shape=q.shape)
     for name, t in (("lse", lse), ("delta", delta)):
         check_tensor(kernel, name, t, dtypes=_F32, shape=q.shape[:-1])
 
 
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _rounded(t, dtype):
+    """f32 ``t`` rounded to ``dtype`` and widened back (a no-op for
+    f32): the rounding of a value that enters a product in ``dtype``."""
+    return t.to(dtype).float()
 
 
 def _causal_scores(q, k, scale):
@@ -85,8 +93,9 @@ def _causal_scores(q, k, scale):
 # ----------------------------------------------------------------------
 def flash_attention_plain(q, k, v, *, scale):
     """Causal softmax(Q K^T * scale) V by the materialised masked
-    softmax (``ops/nn.py``'s XLA path).  Differentiable by autograd."""
-    p = torch.softmax(_causal_scores(q, k, scale), dim=-1)
+    softmax (``ops/nn.py``'s XLA path, which rounds the probabilities
+    to the input type before PV).  Differentiable by autograd."""
+    p = _rounded(torch.softmax(_causal_scores(q, k, scale), dim=-1), v.dtype)
     return torch.matmul(p, v.float()).to(q.dtype)
 
 
@@ -99,7 +108,7 @@ def flash_attention_fwd_plain(q, k, v, *, scale):
     count_plain(_FWD)
     s = _causal_scores(q, k, scale)
     lse = torch.logsumexp(s, dim=-1)
-    p = torch.exp(s - lse.unsqueeze(-1))
+    p = _rounded(torch.exp(s - lse.unsqueeze(-1)), v.dtype)
     return torch.matmul(p, v.float()).to(q.dtype), lse
 
 
@@ -118,9 +127,10 @@ def flash_attention_fwd(q, k, v, *, scale):
     lib = _lib()
     err = lib.mx_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                            out.data_ptr(), lse.data_ptr(), B * H, S, D,
-                           float(scale), q.device.index or 0, _stream(q))
+                           float(scale), DTYPE_CODE[q.dtype],
+                           q.device.index or 0, _stream(q))
     _build.check(lib, _FWD, err)
-    count_launch(_FWD)
+    count_launch(_FWD, q.dtype)
     return out, lse
 
 
@@ -128,9 +138,12 @@ def flash_attention_fwd(q, k, v, *, scale):
 # backward
 # ----------------------------------------------------------------------
 def _plain_probs_and_ds(q, k, v, dout, lse, delta, scale):
+    """P and ``dS = P * (dO V^T - delta) * scale``, each rounded to the
+    input type (the kernels' rounding points), as f32."""
     p = torch.exp(_causal_scores(q, k, scale) - lse.unsqueeze(-1))
     dp = torch.matmul(dout.float(), v.float().transpose(-1, -2))
-    return p, p * (dp - delta.unsqueeze(-1))
+    ds = p * (dp - delta.unsqueeze(-1)) * scale
+    return _rounded(p, q.dtype), _rounded(ds, q.dtype)
 
 
 def flash_attention_bwd_dkv_plain(q, k, v, dout, lse, delta, *, scale):
@@ -138,7 +151,7 @@ def flash_attention_bwd_dkv_plain(q, k, v, dout, lse, delta, *, scale):
     count_plain(_DKV)
     p, ds = _plain_probs_and_ds(q, k, v, dout, lse, delta, scale)
     dv = torch.matmul(p.transpose(-1, -2), dout.float())
-    dk = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -146,7 +159,7 @@ def flash_attention_bwd_dq_plain(q, k, v, dout, lse, delta, *, scale):
     """Plain version of the dQ kernel."""
     count_plain(_DQ)
     _, ds = _plain_probs_and_ds(q, k, v, dout, lse, delta, scale)
-    return (torch.matmul(ds, k.float()) * scale).to(q.dtype)
+    return torch.matmul(ds, k.float()).to(q.dtype)
 
 
 def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, *, scale):
@@ -167,9 +180,10 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, *, scale):
                                dout.data_ptr(), lse.data_ptr(),
                                delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                                B * H, S, D, float(scale),
-                               q.device.index or 0, _stream(q))
+                               DTYPE_CODE[q.dtype], q.device.index or 0,
+                               _stream(q))
     _build.check(lib, _DKV, err)
-    count_launch(_DKV)
+    count_launch(_DKV, q.dtype)
     return dk, dv
 
 
@@ -190,9 +204,10 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, *, scale):
     err = lib.mx_flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                               dout.data_ptr(), lse.data_ptr(),
                               delta.data_ptr(), dq.data_ptr(), B * H, S, D,
-                              float(scale), q.device.index or 0, _stream(q))
+                              float(scale), DTYPE_CODE[q.dtype],
+                              q.device.index or 0, _stream(q))
     _build.check(lib, _DQ, err)
-    count_launch(_DQ)
+    count_launch(_DQ, q.dtype)
     return dq
 
 

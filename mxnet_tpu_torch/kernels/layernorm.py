@@ -93,7 +93,7 @@ def layernorm_fused(x, gamma, beta, *, residual=None, eps=1e-5):
         DTYPE_CODE[gamma.dtype], x.device.index or 0,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, _KERNEL, err)
-    count_launch(_KERNEL)
+    count_launch(_KERNEL, x.dtype)
     return out, mean, rstd
 
 
@@ -160,7 +160,7 @@ def layernorm_fused_bwd(x, gamma, mean, rstd, dy, *, residual=None):
         rows, cols, per_block, DTYPE_CODE[x.dtype], DTYPE_CODE[gamma.dtype],
         x.device.index or 0, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, _BWD, err)
-    count_launch(_BWD)
+    count_launch(_BWD, x.dtype)
     return dx, dgamma, dbeta
 
 

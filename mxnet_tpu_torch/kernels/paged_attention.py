@@ -32,6 +32,10 @@ _DECODE = "paged_decode_attend"
 _CHUNK = "paged_chunk_prefill_attend"
 _PREFILL = "paged_prefill_attend"
 _MAX_SMEM = 232448             # bytes of shared memory a block may use
+# the decode kernel's shared memory is (head_dim + block_size) floats
+# under the default 48 KB; the chunk kernel's grows by 64 bytes per unit
+# of head_dim (head_dim <= 3100); the one-shot prefill has no limit
+_DECODE_MAX_D = 8192
 _INT = (torch.int32,)
 
 
@@ -109,9 +113,10 @@ def paged_decode_attend(q, k_cache, v_cache, block_table, positions, *,
         raise MXNetError("%s: block_table has %d rows for %d slots"
                          % (_DECODE, block_table.shape[0], C))
     check_tensor(_DECODE, "positions", positions, dtypes=_INT, shape=(C,))
-    if bs > 128 or D > 256:
+    if bs > 128 or D > _DECODE_MAX_D:
         raise MXNetError("%s: the kernel takes block_size <= 128 and "
-                         "head_dim <= 256, got %d and %d" % (_DECODE, bs, D))
+                         "head_dim <= %d, got %d and %d"
+                         % (_DECODE, _DECODE_MAX_D, bs, D))
     out = torch.empty_like(q)
     if C == 0 or H == 0:
         return out
@@ -194,7 +199,8 @@ def paged_chunk_prefill_attend(q, k, v, k_cache, v_cache, block_table, start,
     smem = lib.mx_paged_chunk_prefill_smem(D)
     if smem > _MAX_SMEM:
         raise MXNetError("%s: head_dim %d needs %d bytes of shared memory, "
-                         "more than a block has" % (_CHUNK, D, smem))
+                         "more than a block has (the kernel takes head_dim "
+                         "<= 3100)" % (_CHUNK, D, smem))
     out = torch.empty_like(q)
     if B == 0 or H == 0:
         return out, k_cache, v_cache
@@ -277,9 +283,6 @@ def paged_prefill_attend(q, k, v, k_cache, v_cache, block_table, lengths, *,
                          % (_PREFILL, block_table.shape[0], B))
     _check_prefill_table(q, k_cache, block_table)
     check_tensor(_PREFILL, "lengths", lengths, dtypes=_INT, shape=(B,))
-    if D > 128:
-        raise MXNetError("%s: the kernel takes head_dim <= 128, got %d"
-                         % (_PREFILL, D))
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out, k_cache, v_cache

@@ -3,8 +3,11 @@
 Counterpart of ``mxnet_tpu/models/resnet.py`` (reference
 example/image-classification/symbols/resnet.py, v2 "Identity Mappings
 in Deep Residual Networks", and resnet-v1.py), with the same names and
-shapes, so one numpy weight set binds in both packages.  f32 only:
-``dtype='bfloat16'``/``'float16'`` comes with the bf16 slice and raises.
+shapes, so one numpy weight set binds in both packages.
+``dtype='bfloat16'`` casts the data to bf16 before the first BatchNorm
+and the logits back to f32 before the softmax, as the JAX package's
+does, so the weights infer bf16 and BatchNorm keeps its statistics in
+f32; ``'float16'`` is a later item and raises.
 ``layout='NHWC'`` builds the whole trunk channel-last (data, OHWI
 weights, pooling, BatchNorm axis 3), with no relayout copy in the step
 (``ops/nn.py``); ``image_shape`` stays channels-first and the data
@@ -17,7 +20,7 @@ the bottleneck block.  CIFAR shapes (image height <= 28) use the
 from functools import partial
 
 from .. import symbol as sym
-from ..base import MXNetError
+from ..base import FLOAT16_LATER, MXNetError
 
 BN_MOM = 0.9
 EPS = 2e-5
@@ -108,12 +111,15 @@ def residual_unit_v1(data, num_filter, stride, dim_match, name,
 
 
 def resnet(units, num_stages, filter_list, num_classes, image_shape,
-           bottle_neck=True, workspace=256, version=2, layout="NCHW"):
+           bottle_neck=True, workspace=256, dtype="float32", version=2,
+           layout="NCHW"):
     unit_fn = residual_unit_v2 if version == 2 else residual_unit_v1
     conv = partial(sym.Convolution, layout=layout, workspace=workspace)
     bn = partial(_bn, layout=layout)
     (_nchannel, height, _width) = image_shape
     data = sym.Variable(name="data")
+    if dtype == "bfloat16":
+        data = sym.Cast(data=data, dtype=dtype, name="cast_data")
     data = bn(data, "bn_data", fix_gamma=True)
     if height <= 32:  # cifar
         body = conv(data=data, num_filter=filter_list[0], kernel=(3, 3),
@@ -145,6 +151,8 @@ def resnet(units, num_stages, filter_list, num_classes, image_shape,
                         pool_type="avg", name="pool1", layout=layout)
     flat = sym.Flatten(data=pool1)
     fc1 = sym.FullyConnected(data=flat, num_hidden=num_classes, name="fc1")
+    if dtype == "bfloat16":
+        fc1 = sym.Cast(data=fc1, dtype="float32", name="cast_out")
     return sym.SoftmaxOutput(data=fc1, name="softmax")
 
 
@@ -154,9 +162,11 @@ def get_symbol(num_classes=1000, num_layers=50, image_shape=(3, 224, 224),
     """``image_shape`` is channels-first (C, H, W), as the reference CLI
     gives it (a tuple or a "3,224,224" string); with ``layout='NHWC'``
     the bound data variable is fed (N, H, W, C) batches."""
-    if dtype != "float32":
-        raise MXNetError("resnet dtype=%r comes with the bf16 slice of the "
-                         "PyTorch port" % (dtype,))
+    if dtype == "float16":
+        raise MXNetError("resnet: %s" % FLOAT16_LATER)
+    if dtype not in ("float32", "bfloat16"):
+        raise MXNetError("resnet dtype=%r: use 'float32' or 'bfloat16'"
+                         % (dtype,))
     if layout not in ("NCHW", "NHWC"):
         raise MXNetError("resnet layout=%r: use 'NCHW' or 'NHWC'"
                          % (layout,))
@@ -196,4 +206,4 @@ def get_symbol(num_classes=1000, num_layers=50, image_shape=(3, 224, 224),
     return resnet(units=units, num_stages=num_stages, filter_list=filter_list,
                   num_classes=num_classes, image_shape=image_shape,
                   bottle_neck=bottle_neck, workspace=conv_workspace,
-                  version=version, layout=layout)
+                  dtype=dtype, version=version, layout=layout)

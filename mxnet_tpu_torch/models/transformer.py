@@ -8,14 +8,16 @@ Counterpart of ``mxnet_tpu/models/transformer.py`` ``get_symbol``,
 names, so the JAX package's parameters bind unchanged in both
 directions (``weights.convert_params`` / ``weights.export_params``) and
 a model trained by the port serves in the port's ``DecodeEngine``.
-MoE layers, tensor parallelism, bf16 and dropout come with later
-slices.
+The training symbol takes ``dtype='bfloat16'`` as the JAX package's
+does (the embeddings cast to bf16, the logits back to f32; the weights
+the trunk meets infer bf16).  MoE layers, tensor parallelism, the bf16
+serving symbols, float16 and dropout come with later slices.
 """
 from __future__ import annotations
 
 from .. import initializer as _init
 from .. import symbol as sym
-from ..base import MXNetError
+from ..base import FLOAT16_LATER, MXNetError
 
 # the mixed step's per-iteration inputs; every other argument is a
 # parameter or a cache
@@ -35,18 +37,21 @@ def get_symbol(num_classes=16384, num_layers=12, d_model=2048, num_heads=16,
     residual), the final LN and the LM head, ending in SoftmaxOutput
     (``normalization='batch'``) over the (B * seq_len, vocab) logits
     with ``softmax_label`` (B * seq_len,) next-token targets.
-    ``num_classes`` is the vocabulary size."""
+    ``num_classes`` is the vocabulary size.  With ``dtype='bfloat16'``
+    the embedding sum is cast to bf16 before the first layer and the
+    logits back to f32 before the softmax."""
     later = []
     if moe_experts:
         later.append("MoE layers (moe_experts=%s): the MoE slice" % moe_experts)
     if tensor_parallel:
         later.append("tensor_parallel=%r: the multi-GPU slice"
                      % (tensor_parallel,))
-    if dtype != "float32":
-        later.append("dtype=%r: the bf16 training slice" % (dtype,))
+    if dtype == "float16":
+        later.append(FLOAT16_LATER)
+    elif dtype not in ("float32", "bfloat16"):
+        later.append("dtype=%r" % (dtype,))
     if float(dropout) > 0:
-        later.append("dropout=%s: the Dropout op comes with the vision "
-                     "training slice" % dropout)
+        later.append("dropout=%s: the Dropout op (ROADMAP A.5)" % dropout)
     if later:
         raise MXNetError("transformer.get_symbol: %s; not in the PyTorch "
                          "port yet (ROADMAP)" % "; ".join(later))
@@ -58,7 +63,7 @@ def get_symbol(num_classes=16384, num_layers=12, d_model=2048, num_heads=16,
     tok = sym.Embedding(data, input_dim=vocab, output_dim=d,
                         name="tok_embed")
     pos = sym.Variable("pos_embed_weight", shape=(1, int(seq_len), d))
-    x = sym.broadcast_add(tok, pos, name="embed_add")
+    x = _cast_in(sym.broadcast_add(tok, pos, name="embed_add"), dtype)
 
     for i in range(int(num_layers)):
         pre = "layer%d_" % i
@@ -86,7 +91,8 @@ def get_symbol(num_classes=16384, num_layers=12, d_model=2048, num_heads=16,
     x = sym.LayerNorm(data=x, name="ln_f")
     logits = sym.FullyConnected(data=x, num_hidden=vocab, flatten=False,
                                 name="lm_head")
-    flat = sym.Reshape(data=logits, shape=(-1, vocab), name="logits_2d")
+    flat = sym.Reshape(data=_cast_out(logits, dtype), shape=(-1, vocab),
+                       name="logits_2d")
     return sym.SoftmaxOutput(data=flat, name="softmax",
                              normalization="batch")
 
@@ -158,8 +164,13 @@ def _cast_out(logits, dtype, tag=""):
     return logits
 
 
-def _serving_only(fn_name, moe_experts, tensor_parallel=None):
+def _serving_only(fn_name, moe_experts, tensor_parallel=None,
+                  dtype="float32"):
     """The serving symbols' options that come with later slices."""
+    if dtype != "float32":
+        raise MXNetError("%s: dtype=%r: the bf16 serving symbols are not in "
+                         "the PyTorch port yet (ROADMAP A.1, bf16 serving)"
+                         % (fn_name, dtype))
     if moe_experts:
         raise MXNetError("%s: MoE layers (moe_experts=%s) are not in the "
                          "PyTorch port yet" % (fn_name, moe_experts))
@@ -178,7 +189,7 @@ def get_decode_step_symbol(num_classes=16384, num_layers=12, d_model=2048,
     per-layer ``layer%d_k_cache`` / ``layer%d_v_cache`` paged caches
     (num_blocks, block_size, H, D), written in place.  Outputs:
     ``[logits (C, vocab), greedy next token (C,), caches...]``."""
-    _serving_only("get_decode_step_symbol", moe_experts)
+    _serving_only("get_decode_step_symbol", moe_experts, dtype=dtype)
     vocab = int(num_classes)
     d = int(d_model)
     ffn = int(ffn_dim) if ffn_dim else 4 * d
@@ -217,7 +228,7 @@ def get_prefill_symbol(num_classes=16384, num_layers=12, d_model=2048,
     (B, vocab), greedy next token (B,), caches...]``.  Bound beside the
     decode step with ``simple_bind(shared_exec=...)``, the two share
     the weights and the caches."""
-    _serving_only("get_prefill_symbol", moe_experts)
+    _serving_only("get_prefill_symbol", moe_experts, dtype=dtype)
     vocab = int(num_classes)
     d = int(d_model)
     ffn = int(ffn_dim) if ffn_dim else 4 * d
@@ -265,7 +276,8 @@ def get_mixed_step_symbol(num_classes=16384, num_layers=12, d_model=2048,
     Outputs: ``[decode logits (C, vocab), decode greedy token (C,),
     chunk last-token logits (1, vocab), chunk greedy token (1,), new
     caches...]``."""
-    _serving_only("get_mixed_step_symbol", moe_experts, tensor_parallel)
+    _serving_only("get_mixed_step_symbol", moe_experts, tensor_parallel,
+                  dtype)
     return _two_stream_step(False, num_classes, num_layers, d_model,
                             num_heads, ffn_dim, seq_len, dtype, block_size,
                             num_blocks)
@@ -294,7 +306,8 @@ def get_spec_step_symbol(num_classes=16384, num_layers=12, d_model=2048,
     Outputs: ``[span logits (C*S, vocab), span greedy tokens (C*S,),
     chunk last-token logits (1, vocab), chunk greedy token (1,), new
     caches...]``; row ``r*S + j`` is slot r, span offset j."""
-    _serving_only("get_spec_step_symbol", moe_experts, tensor_parallel)
+    _serving_only("get_spec_step_symbol", moe_experts, tensor_parallel,
+                  dtype)
     return _two_stream_step(True, num_classes, num_layers, d_model,
                             num_heads, ffn_dim, seq_len, dtype, block_size,
                             num_blocks)
@@ -412,7 +425,7 @@ def get_draft_span_symbol(draft_k, num_classes=16384, num_layers=12,
     conditions on token j without leaving the device.  Output: the (K,)
     proposed token ids.  The causal mask keeps the padded tail out of
     every row that is read."""
-    _serving_only("get_draft_span_symbol", moe_experts)
+    _serving_only("get_draft_span_symbol", moe_experts, dtype=dtype)
     vocab = int(num_classes)
     d = int(d_model)
     ffn = int(ffn_dim) if ffn_dim else 4 * d

@@ -3,8 +3,9 @@
 Counterpart of ``mxnet_tpu/ndarray/ndarray.py``, reduced to what the
 serving and training slices use: construction from numpy or a tensor
 onto a context (``array``, ``zeros``), ``shape``/``context``,
-``asnumpy``, ``copy``, ``copyto``, whole-array assignment
-(``arr[:] = value``, as the initializers write) and ``_set_data``.
+``asnumpy``, ``copy``, ``copyto``, ``dtype`` and ``astype``,
+whole-array assignment (``arr[:] = value``, as the initializers write)
+and ``_set_data``.
 Imperative operators and autograd come with the imperative slice.
 """
 from __future__ import annotations
@@ -12,7 +13,7 @@ from __future__ import annotations
 import numpy as _np
 import torch
 
-from ..base import MXNetError
+from ..base import MXNetError, numpy_to_tensor, torch_dtype
 from ..context import Context, context_of, current_context
 
 __all__ = ["NDArray", "array", "zeros"]
@@ -43,6 +44,16 @@ class NDArray:
     def context(self) -> Context:
         return context_of(self._data.device)
 
+    @property
+    def dtype(self):
+        """The element type, a torch dtype."""
+        return self._data.dtype
+
+    def astype(self, dtype):
+        """A new NDArray holding a copy in ``dtype`` (a name, numpy or
+        torch dtype), on the same device."""
+        return NDArray(self._data.detach().to(torch_dtype(dtype), copy=True))
+
     def __setitem__(self, key, value):
         """Whole-array assignment only (``arr[:] = value``): a scalar,
         numpy array, tensor or NDArray of the same shape, written in
@@ -57,7 +68,7 @@ class NDArray:
                 self._data.fill_(value)
                 return
             if not isinstance(value, torch.Tensor):
-                value = torch.from_numpy(_np.ascontiguousarray(value))
+                value = numpy_to_tensor(_np.asarray(value))
             if tuple(value.shape) != self.shape:
                 raise MXNetError("assignment of shape %s into %s"
                                  % (tuple(value.shape), self.shape))

@@ -3,7 +3,8 @@
 Counterpart of ``mxnet_tpu/ops/optimizer_ops.py`` (``sgd_update``,
 ``sgd_mom_update``, ``adam_update``, ``signsgd_update``,
 ``signum_update``, ``rmsprop_update``, ``rmspropalex_update``,
-``adagrad_update``; reference src/operator/optimizer_op.cc), with the
+``adagrad_update``, and the multi-precision ``mp_sgd_update`` and
+``mp_sgd_mom_update``; reference src/operator/optimizer_op.cc), with the
 same arithmetic: the gradient is rescaled, clipped when ``clip_gradient
 >= 0``, and has ``wd * weight`` added, in that order (signsgd and
 adagrad apply ``wd`` in their own step instead).  The JAX package returns new arrays; the
@@ -16,7 +17,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["sgd_update", "sgd_mom_update", "adam_update", "signsgd_update",
+__all__ = ["sgd_update", "sgd_mom_update", "mp_sgd_update",
+           "mp_sgd_mom_update", "adam_update", "signsgd_update",
            "signum_update", "rmsprop_update", "rmspropalex_update",
            "adagrad_update"]
 
@@ -45,6 +47,29 @@ def sgd_mom_update(weight, grad, mom, *, lr, momentum=0.0, wd=0.0,
     g = _apply_common(grad, weight, rescale_grad, clip_gradient, wd)
     mom.copy_(momentum * mom.float() - lr * g)
     weight.copy_(weight.float() + mom)
+
+
+@torch.no_grad()
+def mp_sgd_update(weight, grad, weight32, *, lr, wd=0.0, rescale_grad=1.0,
+                  clip_gradient=-1.0):
+    """Multi-precision SGD: the f32 master ``weight32 -= lr * g`` (the
+    gradient and weight decay taken against the master), then the
+    low-precision ``weight`` is the master rounded to its type."""
+    g = _apply_common(grad, weight32, rescale_grad, clip_gradient, wd)
+    weight32.copy_(weight32 - lr * g)
+    weight.copy_(weight32)
+
+
+@torch.no_grad()
+def mp_sgd_mom_update(weight, grad, mom, weight32, *, lr, momentum=0.0,
+                      wd=0.0, rescale_grad=1.0, clip_gradient=-1.0):
+    """Multi-precision momentum SGD: ``mom = momentum * mom - lr * g``
+    and ``weight32 += mom`` in f32, then ``weight`` is the master
+    rounded to its type."""
+    g = _apply_common(grad, weight32, rescale_grad, clip_gradient, wd)
+    mom.copy_(momentum * mom - lr * g)
+    weight32.copy_(weight32 + mom)
+    weight.copy_(weight32)
 
 
 @torch.no_grad()

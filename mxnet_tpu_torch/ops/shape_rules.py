@@ -1,11 +1,11 @@
-"""Shape rules for the ported operators.
+"""Shape and type rules for the ported operators.
 
 ``PARAM_SHAPES[op](ins, attrs)`` fills in the shapes of parameter
 inputs from the data shapes (the counterpart of
 ``mxnet_tpu/ops/shape_rules.py``); ``OUT_SHAPES[op](ins, attrs)`` gives
-the output shapes (the JAX package traced the op with
-``jax.eval_shape`` for these).  ``ins`` maps input name -> shape tuple,
-or None while unknown.
+the output shapes and :func:`out_dtype` the output type (the JAX
+package traced the op with ``jax.eval_shape`` for both).  ``ins`` maps
+input name -> shape tuple, or None while unknown.
 """
 from __future__ import annotations
 
@@ -13,7 +13,7 @@ import torch
 
 from .tensor import infer_magic
 
-__all__ = ["PARAM_SHAPES", "OUT_SHAPES"]
+__all__ = ["PARAM_SHAPES", "OUT_SHAPES", "out_dtype"]
 
 
 def _fc_params(ins, a):
@@ -234,3 +234,37 @@ OUT_SHAPES = {
     "slice_axis": _slice_axis_out,
     "Concat": _concat_out,
 }
+
+
+# ops whose output takes the type of their data input (normalizations
+# and loss heads keep the data's type whatever their parameters' are);
+# every other op promotes its floating inputs, as jnp's arithmetic does
+_DATA_TYPED = {"BatchNorm", "LayerNorm", "_FusedBNReluConv", "SoftmaxOutput",
+               "_contrib_FusedCausalSelfAttention", "Pooling", "Activation",
+               "Flatten", "LeakyReLU", "Reshape", "slice_axis",
+               "_contrib_GatherTimestep"}
+
+
+def out_dtype(op, in_dtypes, attrs):
+    """The type of ``op``'s (visible) outputs from its inputs' types
+    (``in_dtypes``, in input order): ``Cast`` gives its ``dtype``
+    attribute, ``Embedding`` its weight's type, ``argmax`` float32 (the
+    reference returns indices as floats), the normalizations, pooling,
+    activations and loss heads their data's type, and the rest the
+    promotion of their floating inputs."""
+    from ..base import torch_dtype
+    if op == "Cast":
+        return torch_dtype(attrs["dtype"])
+    if op == "Embedding":
+        return in_dtypes[1]
+    if op == "argmax":
+        return torch.float32
+    if op in _DATA_TYPED or not in_dtypes:
+        return in_dtypes[0] if in_dtypes else torch.float32
+    floats = [d for d in in_dtypes if d.is_floating_point]
+    if not floats:
+        return in_dtypes[0]
+    out = floats[0]
+    for d in floats[1:]:
+        out = torch.promote_types(out, d)
+    return out

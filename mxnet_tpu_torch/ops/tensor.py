@@ -7,11 +7,8 @@ from __future__ import annotations
 
 import torch
 
+from ..base import torch_dtype
 from .registry import register
-
-_DTYPES = {"float32": torch.float32, "float16": torch.float16,
-           "bfloat16": torch.bfloat16, "int32": torch.int32,
-           "int64": torch.int64}
 
 
 def infer_magic(ishape, shape):
@@ -62,7 +59,7 @@ def reshape(data, *, shape=()):
 
 @register("Cast", aliases=("cast",))
 def cast(data, *, dtype):
-    return data.to(_DTYPES[str(dtype)])
+    return data.to(torch_dtype(dtype))
 
 
 @register("take")

@@ -13,12 +13,24 @@ the kvstore's bucketed path which optimizers it may apply (SGD, Adam,
 AdaGrad and RMSProp: the optimizers of the port that have a fused
 signature in the JAX package); the JAX package's single-program update has no counterpart
 yet: the fit step is the eager pair (ROADMAP).
+
+``multi_precision=True`` keeps an f32 master copy of every bf16 (or
+float16) weight: ``create_state_multi_precision`` returns ``(inner
+state, weight32)`` and ``update_multi_precision`` updates the master in
+f32 and writes it back rounded to the weight's type, as the JAX
+package's do; ``parallel.TrainStep`` applies the same update through
+``mp_sgd_update``/``mp_sgd_mom_update``.  The ``Updater`` that
+``Module`` and the kvstore apply raises for a low-precision weight
+under ``multi_precision`` (bf16 there is a later item, ROADMAP A.1),
+rather than update it in its own precision.
 """
 from __future__ import annotations
 
 import math
 
-from .base import MXNetError
+import torch
+
+from .base import FLOAT16_LATER, LOW_PRECISION, MXNetError
 from .ndarray.ndarray import zeros
 from .ops.optimizer_ops import (adagrad_update, adam_update,
                                 rmsprop_update, rmspropalex_update,
@@ -54,13 +66,11 @@ class Optimizer:
                  clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
                  sym=None, begin_num_update=0, multi_precision=False,
                  param_dict=None):
-        if multi_precision:
-            raise MXNetError("multi_precision comes with the bf16 training "
-                             "slice of the PyTorch port")
         if param_dict:
             raise MXNetError("param_dict (Gluon parameters) comes with the "
                              "Gluon slice of the PyTorch port")
         self.rescale_grad = rescale_grad
+        self.multi_precision = bool(multi_precision)
         self.lr = learning_rate
         self.lr_scheduler = lr_scheduler
         if lr_scheduler is not None:
@@ -78,6 +88,34 @@ class Optimizer:
 
     def create_state(self, index, weight):
         return None
+
+    def keeps_master(self, weight):
+        """Whether ``weight`` (an NDArray or tensor) is updated through
+        an f32 master copy: a bf16 weight under ``multi_precision``.
+        Raises for float16."""
+        if weight.dtype == torch.float16:
+            raise MXNetError("optimizer: %s" % FLOAT16_LATER)
+        return self.multi_precision and weight.dtype in LOW_PRECISION
+
+    def create_state_multi_precision(self, index, weight):
+        """``(create_state(weight32), weight32)`` with ``weight32`` an f32
+        copy of a low-precision ``weight`` under ``multi_precision``;
+        otherwise ``create_state(weight)``."""
+        if self.keeps_master(weight):
+            weight32 = weight.astype("float32")
+            return self.create_state(index, weight32), weight32
+        return self.create_state(index, weight)
+
+    def update_multi_precision(self, index, weight, grad, state):
+        """:meth:`update` on the f32 master with the gradient in f32,
+        then the master rounded into ``weight`` in place; a plain
+        :meth:`update` when no master is kept."""
+        if self.keeps_master(weight):
+            inner, weight32 = state
+            self.update(index, weight32, grad.astype("float32"), inner)
+            weight._data.detach().copy_(weight32._data)
+        else:
+            self.update(index, weight, grad, state)
 
     # whether the kvstore's bucketed path may apply this optimizer per
     # key (kvstore_fused.py); False keeps a store's pushes on the eager
@@ -289,6 +327,14 @@ class Updater:
         self.states = {}
 
     def __call__(self, index, grad, weight):
+        if self.optimizer.keeps_master(weight):
+            raise MXNetError(
+                "Updater: parameter %r is %s under multi_precision: bf16 "
+                "training through Module and the kvstore is not in the "
+                "PyTorch port yet (ROADMAP A.1, bf16 Module.fit and "
+                "kvstore); parallel.TrainStep trains it"
+                % (self.optimizer.idx2name.get(index, index),
+                   str(weight.dtype).replace("torch.", "")))
         if index not in self.states:
             self.states[index] = self.optimizer.create_state(index, weight)
         self.optimizer.update(index, weight, grad, self.states[index])

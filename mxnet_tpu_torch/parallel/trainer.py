@@ -16,8 +16,18 @@ decay still moves it).  The learning rate comes from the scheduler at
 folded into it with one global step count, since every parameter
 updates every step.
 
+bf16: the symbol is bound in the types it infers (a model whose data
+is cast to bf16 has bf16 weights, gradients and, as the JAX package
+infers them, BatchNorm statistics), and ``dtype='bfloat16'`` makes the
+data inputs bf16 as well.  Each batch is cast to its input's type as it
+is copied in.  SGD with ``multi_precision`` keeps an f32 master copy of
+every low-precision weight in its state (``(mom, weight32)`` or
+``(weight32,)``) and updates through ``mp_sgd_mom_update`` /
+``mp_sgd_update``, the JAX package's ``use_mp`` branch; the other
+optimizers update low-precision weights in their own type, as there.
+Initializers draw in f32 and the draw is cast to the parameter's type.
 Meshes (data and tensor parallelism) come with the multi-GPU slice and
-``dtype='bfloat16'`` with the bf16 slice; both raise.
+raise, as does float16.
 """
 from __future__ import annotations
 
@@ -27,7 +37,7 @@ import torch
 
 from .. import initializer as _init
 from .. import optimizer as _opt
-from ..base import MXNetError
+from ..base import MXNetError, check_float_dtype
 from ..ndarray.ndarray import NDArray
 from ..ops import optimizer_ops as _oo
 
@@ -57,7 +67,14 @@ def _update(optimizer, name, weight, grad, state, lr):
               clip_gradient=(optimizer.clip_gradient
                              if optimizer.clip_gradient is not None else -1.0))
     if isinstance(optimizer, _opt.SGD):
-        if optimizer.momentum:
+        if optimizer.keeps_master(weight):
+            if optimizer.momentum:
+                _oo.mp_sgd_mom_update(weight, grad, *state, lr=lr,
+                                      momentum=optimizer.momentum, wd=wd,
+                                      **kw)
+            else:
+                _oo.mp_sgd_update(weight, grad, *state, lr=lr, wd=wd, **kw)
+        elif optimizer.momentum:
             _oo.sgd_mom_update(weight, grad, *state, lr=lr,
                                momentum=optimizer.momentum, wd=wd, **kw)
         else:
@@ -93,9 +110,14 @@ def _update(optimizer, name, weight, grad, state, lr):
 
 def _init_state(optimizer, weight):
     """The f32 state tensors of one parameter (the JAX package's
-    ``_init_state``: Signum keeps its momentum even at momentum 0)."""
+    ``_init_state``: Signum keeps its momentum even at momentum 0; SGD
+    with ``multi_precision`` keeps an f32 copy of a low-precision weight
+    after its momentum)."""
     if isinstance(optimizer, _opt.SGD):
         count = 1 if optimizer.momentum else 0
+        if optimizer.keeps_master(weight):
+            return tuple(torch.zeros_like(weight, dtype=torch.float32)
+                         for _ in range(count)) + (weight.float().clone(),)
     elif isinstance(optimizer, _opt.Adam):
         count = 2
     elif isinstance(optimizer, _opt.RMSProp):
@@ -154,9 +176,7 @@ class TrainStep:
         if mesh is not None:
             raise MXNetError("TrainStep(mesh=...) comes with the multi-GPU "
                              "slice of the PyTorch port")
-        if dtype != "float32":
-            raise MXNetError("TrainStep(dtype=%r) comes with the bf16 slice "
-                             "of the PyTorch port" % (dtype,))
+        dt = check_float_dtype(dtype, "TrainStep(dtype=%r)" % (dtype,))
         self._symbol = symbol
         self._optimizer = optimizer
         input_shapes = dict(data_shapes)
@@ -164,9 +184,11 @@ class TrainStep:
         self._param_names = [n for n in symbol.list_arguments()
                              if n not in input_shapes]
         self._aux_names = symbol.list_auxiliary_states()
+        type_dict = {n: dt for n in data_shapes} \
+            if dt != torch.float32 else None
         self._exe = symbol.simple_bind(
             ctx, grad_req={n: "write" for n in self._param_names},
-            **input_shapes)
+            type_dict=type_dict, **input_shapes)
         self.states = None           # name -> tuple of f32 tensors
         self._nstep = 0
 
@@ -194,7 +216,9 @@ class TrainStep:
         name it, else by ``initializer`` with the variable's attributes.
         With ``device_init`` (the default) a standard initializer draws
         on the device from its generator (``_device_init_rule``);
-        anything else fills a host array that is copied over."""
+        anything else fills a host f32 array that is copied over.
+        Either way the values are drawn in f32 and cast to the
+        parameter's type as they are written."""
         attrs = self._symbol.attr_dict()
         for names, bound, given in (
                 (self._param_names, self._exe.arg_dict, arg_params or {}),

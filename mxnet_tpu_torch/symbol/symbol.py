@@ -6,14 +6,18 @@ serving and training slices use: ``Variable`` (with ``init=``,
 ``Group``, composition through the generated op functions,
 ``+``/``-``/``*`` and ``slice_axis``, ``list_arguments``, ``list_outputs``,
 ``list_auxiliary_states`` (the variables an op mutates, such as
-BatchNorm's moving statistics), ``attr_dict``, ``infer_shape`` and
-``simple_bind``.  JSON serialization, attribute scopes, sharding
-annotations and control flow come with later slices.
+BatchNorm's moving statistics), ``attr_dict``, ``infer_shape``,
+``infer_type``, ``infer_shape_type`` and ``simple_bind``.  Types are
+torch dtypes here (the JAX package gives numpy dtypes); given types may
+be names, numpy or torch dtypes.  JSON serialization, attribute scopes,
+sharding annotations and control flow come with later slices.
 """
 from __future__ import annotations
 
-from ..base import NAMES, MXNetError, numeric_types
-from ..ops.shape_rules import OUT_SHAPES, PARAM_SHAPES
+import torch
+
+from ..base import NAMES, MXNetError, numeric_types, torch_dtype
+from ..ops.shape_rules import OUT_SHAPES, PARAM_SHAPES, out_dtype
 
 __all__ = ["Symbol", "Variable", "Group"]
 
@@ -160,10 +164,69 @@ class Symbol:
                 [env[(id(n), i)] for n, i in self._entries],
                 [shapes[n] for n in auxs])
 
+    def _infer_types(self, known):
+        """Forward propagation of types (the JAX package's ``_infer``,
+        with the ops' type rules in place of ``jax.eval_shape``).
+        Variables whose type is not given are provisionally float32 and
+        take the type of the first input of their first consumer whose
+        type is known and floating (the reference's same-type rule, so
+        bf16 data makes the weights it meets bf16); integer inputs never
+        anchor, so an Embedding's weight keeps its own type.  Returns
+        ``{variable name: dtype}`` and ``{(id(node), idx): dtype}``."""
+        dtypes = {k: torch_dtype(v) for k, v in known.items()}
+        env, pending = {}, set()
+        for node in self._topo():
+            if node.is_var:
+                dt = dtypes.get(node.name)
+                if dt is None and "__dtype__" in node.str_attrs:
+                    dt = torch_dtype(node.str_attrs["__dtype__"])
+                if dt is None:
+                    pending.add(id(node))
+                env[(id(node), 0)] = dt or torch.float32
+                continue
+            anchor = next((env[(id(inp), oi)] for inp, oi in node.inputs
+                           if not (inp.is_var and id(inp) in pending)
+                           and env[(id(inp), oi)].is_floating_point), None)
+            if anchor is not None:
+                for inp, _ in node.inputs:
+                    if inp.is_var and id(inp) in pending:
+                        env[(id(inp), 0)] = dtypes[inp.name] = anchor
+                        pending.discard(id(inp))
+            dt = out_dtype(node.op.name,
+                           [env[(id(inp), oi)] for inp, oi in node.inputs],
+                           node.attrs)
+            for i in range(node.op.out_count(node.attrs)):
+                env[(id(node), i)] = dt
+        for node in self._topo():
+            if node.is_var:
+                dtypes.setdefault(node.name, env[(id(node), 0)])
+        return dtypes, env
+
+    def infer_type(self, *args, **kwargs):
+        """``(arg_types, out_types, aux_types)`` from the given input
+        types (positional in ``list_arguments`` order, or by name)."""
+        known = {n: t for n, t in zip(self.list_arguments(), args)
+                 if t is not None}
+        known.update(kwargs)
+        dtypes, env = self._infer_types(known)
+        return ([dtypes[n] for n in self.list_arguments()],
+                [env[(id(n), i)] for n, i in self._entries],
+                [dtypes[n] for n in self.list_auxiliary_states()])
+
+    def infer_shape_type(self, shape_kwargs, type_kwargs=None):
+        """Shapes and types together: ``(arg_shapes, arg_types,
+        aux_shapes, aux_types)``."""
+        arg_shapes, _, aux_shapes = self.infer_shape(**shape_kwargs)
+        dtypes, _ = self._infer_types(type_kwargs or {})
+        return (arg_shapes, [dtypes[n] for n in self.list_arguments()],
+                aux_shapes, [dtypes[n] for n in self.list_auxiliary_states()])
+
     def simple_bind(self, ctx=None, grad_req="null", shared_exec=None,
-                    **shapes):
-        """Allocate every argument (float32, zeros) on ``ctx`` from the
-        inferred shapes and return an Executor.  ``grad_req`` is
+                    type_dict=None, **shapes):
+        """Allocate every argument (zeros, in its inferred type: float32
+        unless ``type_dict`` or the same-type rule says otherwise) on
+        ``ctx`` from the inferred shapes and return an Executor.
+        Gradients take their argument's type.  ``grad_req`` is
         ``'write'``, ``'add'`` or ``'null'``, one value for every
         argument or a dict per argument (missing names: ``'null'``).
         With ``shared_exec``, each argument and auxiliary state whose
@@ -171,7 +234,7 @@ class Symbol:
         the same object: the two executors then hold one copy of the
         weights and of the paged caches."""
         from ..executor import Executor
-        return Executor(self, ctx, grad_req, shapes, shared_exec)
+        return Executor(self, ctx, grad_req, shapes, shared_exec, type_dict)
 
     # ------------------------------------------------------------------
     def _binop(self, other, op, scalar_op):

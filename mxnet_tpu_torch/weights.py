@@ -20,13 +20,19 @@ is copied as float32 onto the context; extra names such as optimizer
 state are ignored), and ``export_params`` turns the port's parameters
 back into numpy under the same names: a model trained by the port loads
 into the JAX package and into the port's ``DecodeEngine``.
+
+bf16: a bfloat16 numpy array (``ml_dtypes``', as the JAX package's bf16
+parameters come to numpy) is carried bit for bit as a
+``torch.bfloat16`` tensor; every other array as float32.
+``export_params`` gives float32 numpy, which holds a bf16 value exactly,
+so a bf16 parameter cast back to bfloat16 in the JAX package has the
+bits it had on the port.
 """
 from __future__ import annotations
 
 import numpy as _np
-import torch
 
-from .base import MXNetError
+from .base import MXNetError, numpy_to_tensor
 from .ndarray.ndarray import NDArray
 
 __all__ = ["convert_params", "convert_symbol_params", "export_params",
@@ -45,7 +51,8 @@ def symbol_shapes(symbol, **input_shapes):
 
 
 def convert_symbol_params(np_args, np_aux, ctx, symbol, **input_shapes):
-    """``(arg_params, aux_params)`` as float32 NDArrays on ``ctx``, from
+    """``(arg_params, aux_params)`` as NDArrays on ``ctx`` (float32, or
+    bfloat16 for bfloat16 arrays), from
     name -> numpy dicts (or anything with ``asnumpy()``), checked against
     :func:`symbol_shapes`; extra names are ignored."""
     arg_shapes, aux_shapes = symbol_shapes(symbol, **input_shapes)
@@ -55,8 +62,8 @@ def convert_symbol_params(np_args, np_aux, ctx, symbol, **input_shapes):
 
 def _checked_copy(np_params, expected, ctx, what):
     """Every name of ``expected`` copied from ``np_params`` onto ``ctx``
-    as float32; raises ``MXNetError`` naming every missing or misshapen
-    one."""
+    as float32 (bfloat16 arrays bit for bit as bfloat16); raises
+    ``MXNetError`` naming every missing or misshapen one."""
     missing = sorted(n for n in expected if n not in np_params)
     if missing:
         raise MXNetError("convert: missing %s %s" % (what, missing))
@@ -64,8 +71,9 @@ def _checked_copy(np_params, expected, ctx, what):
     bad = []
     for name, shape in expected.items():
         v = np_params[name]
-        arr = _np.asarray(v.asnumpy() if hasattr(v, "asnumpy") else v,
-                          dtype=_np.float32)
+        arr = _np.asarray(v.asnumpy() if hasattr(v, "asnumpy") else v)
+        if arr.dtype.name != "bfloat16":
+            arr = arr.astype(_np.float32, copy=False)
         if arr.shape != tuple(shape):
             bad.append("%s %s (expected %s)" % (name, arr.shape,
                                                  tuple(shape)))
@@ -73,7 +81,7 @@ def _checked_copy(np_params, expected, ctx, what):
     if bad:
         raise MXNetError("convert: misshapen %s: %s" % (what, "; ".join(bad)))
     dev = ctx.torch_device
-    return {n: NDArray(torch.from_numpy(_np.ascontiguousarray(a)).to(dev))
+    return {n: NDArray(numpy_to_tensor(a).to(dev))
             for n, a in arrays.items()}
 
 
@@ -107,7 +115,8 @@ def convert_params(np_params, ctx, model_config):
 def export_params(params):
     """``{name: float32 numpy array}`` from the port's parameters or
     auxiliary states (a dict of NDArrays or tensors on any device, such
-    as either half of ``Module.get_params()``)."""
+    as either half of ``Module.get_params()``); bf16 values are exact in
+    float32."""
     out = {}
     for name, v in params.items():
         t = v._data if isinstance(v, NDArray) else v

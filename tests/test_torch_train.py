@@ -134,7 +134,7 @@ def test_param_shapes_serve_the_training_symbol():
 
 @pytest.mark.parametrize("bad,match", [
     (dict(moe_experts=4), "MoE"), (dict(tensor_parallel="mp"), "multi-GPU"),
-    (dict(dtype="bfloat16"), "bf16"), (dict(dropout=0.1), "Dropout")])
+    (dict(dtype="float16"), "float16"), (dict(dropout=0.1), "Dropout")])
 def test_get_symbol_raises_for_later_slices(bad, match):
     with pytest.raises(mx.MXNetError, match=match):
         transformer.get_symbol(**CFG, **bad)

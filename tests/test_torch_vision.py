@@ -358,7 +358,7 @@ def test_compressed_update_matches_jax():
 
 def test_module_rejects_later_slices():
     """Several contexts, the distributed, 'tpu' and 'nccl' stores and
-    bf16 each raise, naming their slice; channel-last (NHWC) training,
+    float16 each raise, naming their slice; channel-last (NHWC) training,
     which the channel-last slice brought, binds and runs forward."""
     sym = resnet.get_symbol(num_classes=10, num_layers=8,
                             image_shape=(3, 28, 28))
@@ -370,9 +370,10 @@ def test_module_rejects_later_slices():
         with pytest.raises(mx.MXNetError, match="multi-GPU"):
             mod.fit(mx.io.NDArrayIter(x, y, batch_size=B), num_epoch=1,
                     kvstore=kv, force_init=True)
-    with pytest.raises(mx.MXNetError, match="bf16"):
+    with pytest.raises(mx.MXNetError, match="float16 is not in the "
+                       "PyTorch port yet"):
         resnet.get_symbol(num_classes=10, num_layers=8,
-                          image_shape=(3, 28, 28), dtype="bfloat16")
+                          image_shape=(3, 28, 28), dtype="float16")
     nhwc = mx.sym.SoftmaxOutput(mx.sym.FullyConnected(mx.sym.Flatten(
         mx.sym.Convolution(mx.sym.Variable("data"), kernel=(3, 3),
                            num_filter=4, layout="NHWC")), num_hidden=10),

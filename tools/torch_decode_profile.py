@@ -9,6 +9,9 @@ one-shot prefill, or one training step goes on the GPU.
     python3 tools/torch_decode_profile.py --resnet   # one 2-bit ResNet step
     python3 tools/torch_decode_profile.py --resnet --layout NHWC --fuse
                                           # one TrainStep step
+    python3 tools/torch_decode_profile.py --train --dtype bfloat16
+    python3 tools/torch_decode_profile.py --resnet --layout NHWC \
+        [--fuse] --dtype bfloat16         # bf16 TrainStep steps
 
 Builds the PyTorch port's DecodeEngine at chip_smoke.py's full-width
 configuration (same seeded weights and geometry), then drives its bound
@@ -59,13 +62,22 @@ for NHWC, batch 128, SGD with momentum and wd), runs two warm-up steps
 and prints one JSON line with the wall time of a step (median of 5),
 the device time per step by group over 3 profiled steps (cuDNN
 convolutions forward and backward, without cuDNN's layout transposes;
-the fused kernel; the fused op's backward matmuls and elementwise
-passes; the rest of the fused op's forward: batch statistics, scale
-and shift; BatchNorm forward and backward; relayout copies, the kernels
-that change a tensor's memory layout, cuDNN's own transposes
-included; device-to-device memcpy; the rest), the relayout kernels by
-name, the device launches and host syncs per step and the device's
-idle share.
+those transposes; the fused kernel; the fused op's backward matmuls and
+elementwise passes; the rest of the fused op's forward: batch
+statistics, scale and shift; BatchNorm forward and backward;
+device-to-device memcpy; the rest), the copy kernels (relayouts and
+dtype casts, which also run inside the BatchNorm and fused ranges) by
+name beside the groups, the device launches and host syncs per step
+and the device's idle share.
+
+With ``--dtype bfloat16`` the two TrainStep profiles run chip_smoke.py's
+bf16 configurations instead: ``--train`` the full-width transformer
+with ``dtype='bfloat16'`` through ``parallel.TrainStep`` (its
+train_bf16 phase: batch 4 x 1024, SGD momentum with multi_precision),
+``--resnet --layout NHWC [--fuse]`` bench.py's flagship, ResNet-50 NHWC
+bf16 at batch 256 (its train_resnet_bf16 phase).  The transformer's
+line adds the multi-precision update's device time (``optimizer``, a
+range around each parameter's update) to the kernel groups.
 
 Needs one CUDA device; exits non-zero without one.
 """
@@ -93,6 +105,7 @@ def group(name):
                        ("flash_bwd_dq", "flash_attention_bwd_dq"),
                        ("gemm", "matmul"), ("gemv", "matmul"),
                        ("sm90", "matmul"), ("cutlass", "matmul"),
+                       ("nvjet", "matmul"),
                        ("memcpy", "copies"), ("memset", "copies"),
                        ("index", "indexing"), ("gather", "indexing"),
                        ("scatter", "indexing")):
@@ -169,6 +182,52 @@ def profile_train(torch, cs, mx):
                                sorted(by_group.items(),
                                       key=lambda kv: -kv[1])},
         "device_launches_per_step": kernels / n}), flush=True)
+
+
+def profile_train_bf16(torch, cs, mx):
+    """One bf16 TrainStep step of the full-width transformer
+    (chip_smoke.py's train_bf16 configuration)."""
+    from mxnet_tpu_torch.models import transformer
+    from mxnet_tpu_torch.parallel import TrainStep, trainer
+    trainer._update = _labelled(trainer._update, "op:optimizer")
+    cfg, train = cs.FULL, cs.TRAIN_BF16
+    B, S = train["batch"], cfg["seq_len"]
+    ts = TrainStep(transformer.get_symbol(dtype="bfloat16", **cfg),
+                   mx.optimizer.SGD(learning_rate=train["lr"],
+                                    momentum=train["momentum"],
+                                    multi_precision=True,
+                                    rescale_grad=1.0 / (B * S)),
+                   data_shapes={"data": (B, S)},
+                   label_shapes={"softmax_label": (B * S,)}, ctx=mx.gpu(0))
+    ts.init_params(mx.init.Xavier(), arg_params=cs.seeded_params(cfg))
+    x, y = cs._token_batches(cfg, B, cs.SEED + 25)
+    dev = torch.device("cuda", 0)
+    batch = {"data": torch.from_numpy(x).to(dev),
+             "softmax_label": torch.from_numpy(y.reshape(-1)).to(dev)}
+
+    def step():
+        ts.step(batch)
+        torch.cuda.synchronize()
+
+    n = 3
+    walls, syncs, prof = _measure(torch, step, lambda: ts.step(batch), n)
+    by_group, kernels = device_ms_by_group(torch, prof, n)
+    device_ms = sum(by_group.values())
+    by_group["optimizer (inside the groups above)"] = _range_ms(
+        torch, prof, n).get("op:optimizer", 0.0)
+    wall = statistics.median(walls)
+    print(json.dumps({
+        "phase": "profile", "step": "train_bf16",
+        "config": dict(cfg, dtype="bfloat16"), "batch": B,
+        "wall_ms_p50": wall, "wall_ms": walls, "device_ms": device_ms,
+        "device_idle_share": 1 - device_ms / wall,
+        "device_ms_by_group": {k: round(v, 4) for k, v in
+                               sorted(by_group.items(),
+                                      key=lambda kv: -kv[1])},
+        "device_launches_per_step": kernels / n,
+        "host_syncs_per_step": len(syncs),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}),
+        flush=True)
 
 
 def _labelled(fn, label):
@@ -328,7 +387,7 @@ _RELAYOUT = ("nchwtonhwc", "nhwctonchw", "transpose", "direct_copy",
              "copy_kernel")
 
 
-def profile_trainstep(torch, cs, mx, layout, fuse):
+def profile_trainstep(torch, cs, mx, layout, fuse, dtype="float32"):
     from mxnet_tpu_torch.models import resnet
     from mxnet_tpu_torch.ops import fused as ops_fused
     from mxnet_tpu_torch.ops import nn as ops_nn
@@ -345,9 +404,10 @@ def profile_trainstep(torch, cs, mx, layout, fuse):
     ops_fused.fused_scale_relu_matmul_fwd = _labelled(
         ops_fused.fused_scale_relu_matmul_fwd, "op:fused_kernel_call")
 
-    cfg, train = cs.RESNET, cs.NHWC_TRAIN
+    bf16 = dtype == "bfloat16"
+    cfg, train = cs.RESNET, cs.RESNET_BF16 if bf16 else cs.NHWC_TRAIN
     B = train["batch"]
-    sym = resnet.get_symbol(layout=layout, **cfg)
+    sym = resnet.get_symbol(layout=layout, dtype=dtype, **cfg)
     np_args, np_aux = cs.seeded_resnet_params(resnet.get_symbol(**cfg), B,
                                               cfg["image_shape"])
     conv = cs._nhwc if layout == "NHWC" else (lambda a: a)
@@ -360,7 +420,7 @@ def profile_trainstep(torch, cs, mx, layout, fuse):
              "softmax_label": torch.from_numpy(y).to(dev)}
     ts = TrainStep(sym, mx.optimizer.SGD(
         learning_rate=train["lr"], momentum=train["momentum"],
-        wd=train["wd"], rescale_grad=1.0 / B),
+        wd=train["wd"], multi_precision=bf16, rescale_grad=1.0 / B),
         data_shapes={"data": tuple(batch["data"].shape)},
         label_shapes={"softmax_label": (B,)}, ctx=mx.gpu(0))
     ts.init_params(mx.init.Xavier(), arg_params={
@@ -386,31 +446,39 @@ def profile_trainstep(torch, cs, mx, layout, fuse):
     cudnn_relayout = sum(v for k, v in relayout.items()
                          if "nchwtonhwc" in k.lower()
                          or "nhwctonchw" in k.lower())
+    # disjoint groups: the copy kernels (relayouts, and in bf16 the
+    # dtype casts of BatchNorm's and the fused op's f32 arithmetic) also
+    # run inside the BatchNorm and fused ranges, so they are printed
+    # beside the groups (copy_kernels_ms), not as one of them
     groups = {
         "convolution": ranges.get("op:Convolution", 0.0)
         + ranges.get("aten::convolution_backward", 0.0) - cudnn_relayout,
+        "cudnn_transposes": cudnn_relayout,
         "fused_kernel": fused_kernel,
         "fused_backward": ranges.get("op:fused_backward", 0.0),
         "fused_op_rest": ranges.get("op:_FusedBNReluConv", 0.0)
         - ranges.get("op:fused_kernel_call", 0.0),
         "batchnorm": ranges.get("op:BatchNorm", 0.0)
         + ranges.get("op:BatchNorm_backward", 0.0),
-        "relayout_copies": sum(relayout.values()),
         "memcpy_dtod": memcpy}
     groups["elementwise/other"] = device_ms - sum(groups.values())
     wall = statistics.median(walls)
     print(json.dumps({
         "phase": "profile", "step": "resnet50_trainstep", "config": cfg,
-        "layout": layout, "fused_sites": count_fused(sym), "batch": B,
+        "layout": layout, "dtype": dtype, "fused_sites": count_fused(sym),
+        "batch": B,
         "wall_ms_p50": wall, "wall_ms": walls, "device_ms": device_ms,
         "device_idle_share": 1 - device_ms / wall,
         "device_ms_by_group": {k: round(v, 4) for k, v in
                                sorted(groups.items(), key=lambda kv: -kv[1])},
-        "relayout_kernels": {k: round(v, 4) for k, v in relayout.items()},
+        "copy_kernels_ms": round(sum(relayout.values()), 4),
+        "copy_kernels": {k: round(v, 4) for k, v in relayout.items()},
         "ranges_ms": {k: round(v, 4) for k, v in ranges.items()},
         "device_launches_per_step": kernels / n,
         "host_syncs_per_step": len(syncs),
-        "sync_sites": sorted(set(syncs))}), flush=True)
+        "sync_sites": sorted(set(syncs)),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}),
+        flush=True)
 
 
 def main():
@@ -428,16 +496,25 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     cs.phase_device(torch)
     args = sys.argv[1:]
-    if "--resnet" in args and ("--layout" in args or "--fuse" in args):
+    dtype = args[args.index("--dtype") + 1] if "--dtype" in args \
+        else "float32"
+    if dtype not in ("float32", "bfloat16"):
+        print("--dtype takes float32 or bfloat16", file=sys.stderr)
+        return 2
+    if "--resnet" in args and ("--layout" in args or "--fuse" in args
+                               or dtype == "bfloat16"):
         layout = args[args.index("--layout") + 1] if "--layout" in args \
             else "NHWC"
-        profile_trainstep(torch, cs, mx, layout, "--fuse" in args)
+        profile_trainstep(torch, cs, mx, layout, "--fuse" in args, dtype)
         return 0
     if "--resnet" in args:
         profile_resnet(torch, cs, mx)
         return 0
-    if "--train" in sys.argv[1:]:
-        profile_train(torch, cs, mx)
+    if "--train" in args:
+        if dtype == "bfloat16":
+            profile_train_bf16(torch, cs, mx)
+        else:
+            profile_train(torch, cs, mx)
         return 0
     if "--prefill" in args:
         profile_prefill(torch, cs, mx)
