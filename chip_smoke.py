@@ -168,6 +168,37 @@ Phases, each printed as one JSON line:
    512, 2 heads), card against CPU: one f32 TrainStep step, then
    prefill plus 8 decode steps through the decode-step pair.
 
+26. rtc (with the kernel phases of 3): ``mx.rtc.CudaModule`` compiles
+   three user kernels with NVRTC for sm_90a (compile ms printed) and
+   each is launched once through ``get_kernel(...).launch`` (the counted
+   run): MXNet's ``axpy`` on 2^26 f32 at rtol 1e-4 / atol 1e-5 and
+   ``row_sum`` (dynamic shared memory, one block per row of an (8192,
+   4096) f32 matrix) within 1e-4 of each row's sum of magnitudes plus
+   1e-5, and the template ``axpy<double>`` through ``exports``
+   (compiled with ``--fmad=false``) bit-equal to its plain version; a
+   compile error must raise with NVRTC's log, a CPU context, a wrong
+   dtype and an unknown kernel must raise; times as in 3 beside
+   ``add_`` and ``sum``, and the host microseconds per launch;
+27. gluon_resnet (after 11): model-zoo ResNet-50 v2 (3x224x224, 1000
+   classes, Xavier from ``mx.random.seed``) trained through Gluon at
+   batch 128 with ``SoftmaxCrossEntropyLoss`` and ``Trainer(..., 'sgd',
+   lr 0.1, momentum 0.9, wd 1e-4, kvstore='device')`` for 10 steps over
+   two fixed batches in three arms: imperative, hybridized, and
+   hybridized with 2-bit compression (threshold 0.5: one quantizer
+   launch per dispatched bucket); each step is ``autograd.record()`` ->
+   forward -> loss -> ``backward()`` -> ``trainer.step(128)`` and one
+   loss readback; the loss must fall on the repeated batch in every arm,
+   the arms' first losses agree within 1e-3 and no plain version runs;
+   step p50 over the last 8, images/s and peak memory are printed beside
+   11's ``Module.fit`` p50 from the same run;
+28. gluon_agreement: Gluon ResNet-18 v2 at 3x32x32, batch 4, card
+   against CPU from the same numpy weights, one Trainer step,
+   imperative and hybridized: outputs within 1e-3 and parameter moves
+   within 0.1 relative L2 (ROADMAP C's bound for BatchNorm nets); an
+   ``nn.LayerNorm`` block (64 x 1024) forward and backward, eager and
+   hybridized, within 3's bound, launching the LayerNorm kernels once
+   each on the card.
+
 Then the kernels' JSON line (every kernel with its dtype; the bf16
 forms as rows of their own, the attention kernels with their
 head_dim-256 times), and last ``{"ok": true, "device": ...}``.
@@ -189,6 +220,7 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
+F64_FLOPS_PER_S = 34e12            # H100 SXM f64 outside the tensor cores
 SEED = 20261016
 FULL = dict(num_classes=16384, num_layers=12, d_model=2048, num_heads=16,
             ffn_dim=8192, seq_len=1024)
@@ -244,6 +276,55 @@ RESNET_BF16 = dict(batch=256, lr=0.1, momentum=0.9, wd=1e-4, steps=10,
                    warmup=2, sites=28)
 # the attention kernels at head_dims past 128, d_model kept at 2048
 HEAD_DIM = dict(dims=(256, 512), d_model=2048)
+
+
+# mx.rtc: MXNet's own rtc example (axpy) on 2^26 f32, a row sum with
+# dynamic shared memory over an (8192, 4096) f32 matrix, and a template
+# axpy<double> on 2^20 doubles through ``exports`` (compiled without FMA
+# contraction, so it equals the plain version exactly)
+RTC = dict(n=1 << 26, rows=8192, cols=4096, n_double=1 << 20, alpha=2.5,
+           block=256, grid=132 * 8, rtol=1e-4, atol=1e-5, launch_reps=200)
+RTC_AXPY = r"""
+extern "C" __global__ void axpy(const float *x, float *y, float alpha,
+                                int n) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x)
+    y[i] += alpha * x[i];
+}
+"""
+RTC_ROW_SUM = r"""
+extern "C" __global__ void row_sum(const float *x, float *out, int cols) {
+  extern __shared__ float partial[];
+  const float *row = x + (long long)blockIdx.x * cols;
+  float acc = 0.0f;
+  for (int j = threadIdx.x; j < cols; j += blockDim.x) acc += row[j];
+  partial[threadIdx.x] = acc;
+  __syncthreads();
+  for (int s = blockDim.x / 2; s > 0; s >>= 1) {
+    if (threadIdx.x < s) partial[threadIdx.x] += partial[threadIdx.x + s];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) out[blockIdx.x] = partial[0];
+}
+"""
+RTC_AXPY_T = r"""
+template <typename T>
+__global__ void axpy(const T *x, T *y, T alpha, int n) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x)
+    y[i] += alpha * x[i];
+}
+"""
+# Gluon: model-zoo ResNet-50 v2 trained at full width (f32, NCHW,
+# 3x224x224, batch 128; SGD 0.1, momentum 0.9, wd 1e-4 through
+# kvstore='device') over two fixed batches, and ResNet-18 v2 card
+# against CPU (outputs at 1e-3 relative L2, parameter moves at the 0.1
+# of ROADMAP C for BatchNorm nets)
+GLUON = dict(classes=1000, image=(3, 224, 224), batch=128, batches=2,
+             steps=10, warmup=2, lr=0.1, momentum=0.9, wd=1e-4,
+             threshold=0.5, loss_rtol=1e-3)
+GLUON_AGREE = dict(classes=10, image=(3, 32, 32), batch=4, out_l2=1e-3,
+                   move_l2=0.1, ln_shape=(64, 1024))
 
 
 class SmokeFailure(RuntimeError):
@@ -1589,7 +1670,7 @@ def _image_batches(image, n, seed, classes):
 def phase_train_resnet(torch, mx, ctx=None, cfg=RESNET, train=RESNET_TRAIN):
     """ResNet-50 through Module.fit with mx.kv.create('device'), a dense
     arm and a 2-bit arm from the same seeded weights.  Returns the 2-bit
-    arm's launch counts."""
+    arm's launch counts, its step count and the dense arm's step p50."""
     from mxnet_tpu_torch.kernels import LAUNCHES, PLAIN_CALLS, reset_counts
     from mxnet_tpu_torch.models import resnet
     from mxnet_tpu_torch.weights import convert_symbol_params
@@ -1689,7 +1770,8 @@ def phase_train_resnet(torch, mx, ctx=None, cfg=RESNET, train=RESNET_TRAIN):
         del mod, kv, args, auxs
     emit({"phase": "train_resnet", "config": cfg, "train": train,
           "dense": arms["dense"], "2bit": arms["2bit"]})
-    return arms["launches"], train["batches"] * train["epochs"]
+    return arms["launches"], train["batches"] * train["epochs"], \
+        arms["dense"]["step_ms_p50"]
 
 
 def phase_resnet_agreement(torch, mx, ctxs=None, cfg=RESNET_AGREE):
@@ -2827,6 +2909,359 @@ def phase_head_dim_agreement(torch, mx, ctxs=None):
           "cut_at_small_margin": cut})
 
 
+# ----------------------------------------------------------------------
+# mx.rtc (row 9) and Gluon
+# ----------------------------------------------------------------------
+def rtc_axpy_plain(x, y, alpha):
+    """The plain PyTorch version of the axpy kernels: y + alpha * x."""
+    return y + alpha * x
+
+
+def rtc_row_sum_plain(x):
+    """The plain PyTorch version of row_sum."""
+    return x.sum(dim=1)
+
+
+def _host_launch_us(torch, launch, reps):
+    """Host microseconds per launch call, the device drained first."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        launch()
+    host = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return host
+
+
+def phase_rtc(torch, mx, dev, flush):
+    """mx.rtc.CudaModule: compile the three user kernels with NVRTC,
+    launch each once through the user API (the counted run), hold each
+    against its plain version, time it, and check that a compile error
+    raises with NVRTC's log and a CPU context raises."""
+    from mxnet_tpu_torch import rtc
+    g = torch.Generator(device="cpu").manual_seed(SEED + 31)
+    n, R, C, nd_ = RTC["n"], RTC["rows"], RTC["cols"], RTC["n_double"]
+    a = RTC["alpha"]
+    x = torch.randn(n, generator=g).to(dev)
+    y0 = torch.randn(n, generator=g).to(dev)
+    m = torch.randn(R, C, generator=g).to(dev)
+    xd = torch.randn(nd_, generator=g, dtype=torch.float64).to(dev)
+    yd0 = torch.randn(nd_, generator=g, dtype=torch.float64).to(dev)
+    compile_ms = {}
+    mods = {}
+    for name, src, opts, exports in (
+            ("axpy", RTC_AXPY, (), ()),
+            ("row_sum", RTC_ROW_SUM, (), ()),
+            ("axpy<double>", RTC_AXPY_T, ("--fmad=false",),
+             ("axpy<double>",))):
+        t0 = time.perf_counter()
+        mods[name] = rtc.CudaModule(src, options=opts, exports=exports,
+                                    ctx=mx.gpu(0))
+        compile_ms[name] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    rtc.CudaModule(RTC_AXPY, ctx=mx.gpu(0))
+    cached_ms = (time.perf_counter() - t0) * 1e3
+    kernels = {
+        "axpy": mods["axpy"].get_kernel(
+            "axpy", "const float *x, float *y, float alpha, int n"),
+        "row_sum": mods["row_sum"].get_kernel(
+            "row_sum", "const float *x, float *out, int cols"),
+        "axpy<double>": mods["axpy<double>"].get_kernel(
+            "axpy<double>", "const double *x, double *y, double alpha, "
+            "int n")}
+    nd = mx.nd
+    X, M, XD = nd.NDArray(x), nd.NDArray(m), nd.NDArray(xd)
+    Y, YD = nd.NDArray(y0.clone()), nd.NDArray(yd0.clone())
+    OUT = nd.NDArray(torch.empty(R, device=dev))
+    grid, block = (RTC["grid"], 1, 1), (RTC["block"], 1, 1)
+    calls = {
+        "axpy": lambda: kernels["axpy"].launch([X, Y, a, n], mx.gpu(0),
+                                               grid, block),
+        "row_sum": lambda: kernels["row_sum"].launch(
+            [M, OUT, C], mx.gpu(0), (R, 1, 1), block,
+            RTC["block"] * 4),
+        "axpy<double>": lambda: kernels["axpy<double>"].launch(
+            [XD, YD, a, nd_], mx.gpu(0), grid, block)}
+    # the counted run: each kernel once through the user API
+    rtc.LAUNCHES.clear()
+    for name in calls:
+        calls[name]()
+    torch.cuda.synchronize()
+    launches = dict(rtc.LAUNCHES)
+    check(launches == {k: 1 for k in calls}, "rtc: launches %s" % launches)
+    got = {"axpy": Y._data, "row_sum": OUT._data, "axpy<double>": YD._data}
+    ref = {"axpy": rtc_axpy_plain(x, y0, a), "row_sum": rtc_row_sum_plain(m),
+           "axpy<double>": rtc_axpy_plain(xd, yd0, a)}
+    errs = {k: max_err(got[k], ref[k]) for k in got}
+    check(close(torch, got["axpy"], ref["axpy"]), "rtc: axpy differs from "
+          "its plain version by %g" % errs["axpy"])
+    # a sum in another order: rtol of the row's sum of magnitudes (a row
+    # of N(0, 1) can sum to nearly 0, where a plain rtol means nothing)
+    scale = m.abs().sum(dim=1)
+    check(bool(((got["row_sum"] - ref["row_sum"]).abs()
+                <= RTOL * scale + ATOL).all()),
+          "rtc: row_sum differs from its plain version by %g"
+          % errs["row_sum"])
+    check(bool(torch.equal(got["axpy<double>"], ref["axpy<double>"])),
+          "rtc: axpy<double> is not bit-equal to its plain version (max "
+          "error %g)" % errs["axpy<double>"])
+    # errors: a compile error carries NVRTC's log; a CPU context, a wrong
+    # dtype and an unknown kernel raise
+    for what, fn, needle in (
+            ("compile error", lambda: rtc.CudaModule(
+                'extern "C" __global__ void bad(float *y) '
+                '{ y[0] = undefined_symbol; }', ctx=mx.gpu(0)),
+             "undefined_symbol"),
+            ("cpu ctx", lambda: kernels["axpy"].launch(
+                [X, Y, a, n], mx.cpu(), grid, block), "GPU"),
+            ("dtype", lambda: kernels["axpy"].launch(
+                [XD, Y, a, n], mx.gpu(0), grid, block), "float64"),
+            ("unknown kernel", lambda: mods["axpy"].get_kernel(
+                "nope", "int n"), "nope")):
+        try:
+            fn()
+        except mx.MXNetError as e:
+            check(needle in str(e), "rtc: the %s error does not name %r: %s"
+                  % (what, needle, e))
+        else:
+            raise SmokeFailure("rtc: %s did not raise" % what)
+    # times: each kernel's launch (y reset is outside the bracket; axpy
+    # stays right whatever y holds), plain version, library call
+    Yt, YDt = nd.NDArray(y0.clone()), nd.NDArray(yd0.clone())
+    timed = {
+        "axpy": (lambda: kernels["axpy"].launch([X, Yt, a, n], mx.gpu(0),
+                                                grid, block),
+                 lambda: rtc_axpy_plain(x, y0, a),
+                 lambda: Yt._data.add_(x, alpha=a),
+                 bound(3 * 4 * n, 2 * n)),
+        "row_sum": (calls["row_sum"], lambda: rtc_row_sum_plain(m),
+                    lambda: m.sum(dim=1), bound(4 * R * C + 4 * R, R * C)),
+        "axpy<double>": (
+            lambda: kernels["axpy<double>"].launch(
+                [XD, YDt, a, nd_], mx.gpu(0), grid, block),
+            lambda: rtc_axpy_plain(xd, yd0, a),
+            lambda: YDt._data.add_(xd, alpha=a),
+            bound(3 * 8 * nd_, 2 * nd_, F64_FLOPS_PER_S))}
+    rows = []
+    for name, (kern, plain, lib, (b, by)) in timed.items():
+        rows.append({
+            "name": "rtc:" + name, "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/rtc.cu",
+            "replaces": "mxnet_tpu/rtc.py:54", "max_abs_err": errs[name],
+            "ms": time_ms(torch, kern, flush),
+            "plain_ms": time_ms(torch, plain, flush),
+            "bound_ms": b, "bound_by": by,
+            "library_ms": time_ms(torch, lib, flush),
+            "dtype": "float64" if "double" in name else "float32",
+            "compile_ms": compile_ms[name],
+            "host_launch_us": _host_launch_us(torch, kern,
+                                              RTC["launch_reps"]),
+            "launches": launches[name]})
+    emit({"phase": "rtc", "config": RTC, "cached_module_ms": cached_ms,
+          "kernels": rows})
+    return rows
+
+
+def _gluon_resnet50(mx, classes):
+    from mxnet_tpu_torch.base import NameManager
+    with NameManager():
+        return mx.gluon.model_zoo.vision.resnet50_v2(classes=classes)
+
+
+def phase_gluon_resnet(torch, mx, ctx=None, cfg=GLUON, fit_p50=None):
+    """Model-zoo ResNet-50 v2 trained through Gluon at full width in
+    three arms (imperative, hybridized, hybridized with 2-bit
+    compression), each from the same Xavier draw (mx.random.seed) over
+    two fixed batches.  Returns the 2-bit arm's launch counts and steps."""
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.kernels import LAUNCHES, PLAIN_CALLS, reset_counts
+    ctx = ctx or mx.gpu(0)
+    on_card = ctx.device_type == "gpu"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    B, steps = cfg["batch"], cfg["steps"]
+    x, y = _image_batches(cfg["image"], B * cfg["batches"], SEED + 23,
+                          cfg["classes"])
+    data = [(mx.nd.array(x[i * B:(i + 1) * B], ctx=ctx),
+             mx.nd.array(y[i * B:(i + 1) * B], ctx=ctx))
+            for i in range(cfg["batches"])]
+    counts = LAUNCHES if on_card else PLAIN_CALLS
+    arms = {}
+    for arm, hybrid, comp in (
+            ("imperative", False, None), ("hybridized", True, None),
+            ("hybridized_2bit", True, {"type": "2bit",
+                                       "threshold": cfg["threshold"]})):
+        t0 = time.perf_counter()
+        mx.random.seed(SEED)
+        net = _gluon_resnet50(mx, cfg["classes"])
+        net.initialize(mx.init.Xavier(), ctx=ctx)
+        if hybrid:
+            net.hybridize()
+        loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+        trainer = gluon.Trainer(
+            net.collect_params(), "sgd",
+            {"learning_rate": cfg["lr"], "momentum": cfg["momentum"],
+             "wd": cfg["wd"]}, kvstore="device", compression_params=comp)
+        sync()
+        setup_s = time.perf_counter() - t0
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        losses, step_ms, quant, buckets = [], [], [], []
+        for i in range(steps):
+            d, lab = data[i % cfg["batches"]]
+            t0 = time.perf_counter()
+            with autograd.record():
+                loss = loss_fn(net(d), lab)
+            loss.backward()
+            trainer.step(B)
+            losses.append(float(loss.mean().asscalar()))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            quant.append(counts["two_bit_quantize_fused"])
+            buckets.append(trainer._kvstore._engine.stats["buckets"])
+        sync()
+        launches, plain = dict(LAUNCHES), dict(PLAIN_CALLS)
+        step_quant = np.diff([0] + quant).tolist()
+        step_buckets = np.diff([0] + buckets).tolist()
+        check(all(np.isfinite(losses)), "gluon_resnet %s: non-finite loss "
+              "%s" % (arm, losses))
+        last_same = losses[steps - cfg["batches"]]
+        check(last_same < losses[0], "gluon_resnet %s: the loss on the "
+              "repeated batch did not fall (%g -> %g)"
+              % (arm, losses[0], last_same))
+        if comp is None:
+            check(quant[-1] == 0, "gluon_resnet %s: the quantizer ran %d "
+                  "times" % (arm, quant[-1]))
+        else:
+            check(step_quant == step_buckets and step_quant[-1] > 0,
+                  "gluon_resnet 2bit: quantize launches per step %s, "
+                  "buckets per step %s" % (step_quant, step_buckets))
+            arms["launches"] = launches
+        if on_card:
+            check(not any(plain.values()), "gluon_resnet %s: plain versions "
+                  "ran on the main path: %s" % (arm, plain))
+        p50 = statistics.median(sorted(step_ms[cfg["warmup"]:]))
+        arms[arm] = {"setup_s": setup_s, "step_ms": step_ms,
+                     "step_ms_p50": p50, "images_per_s": B / (p50 / 1e3),
+                     "loss_first": losses[0], "loss_last": losses[-1],
+                     "loss": losses, "launches": {
+                         k: v for k, v in launches.items() if v},
+                     "quantize_launches_per_step": step_quant,
+                     "buckets_per_step": step_buckets,
+                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9
+                     if on_card else None}
+        del net, trainer, loss
+    first = [arms[a]["loss"][0] for a in ("imperative", "hybridized",
+                                          "hybridized_2bit")]
+    check(max(first) - min(first) <= cfg["loss_rtol"] * abs(first[0]),
+          "gluon_resnet: first-step losses of the arms differ: %s" % first)
+    emit({"phase": "gluon_resnet", "config": cfg,
+          "module_fit_step_ms_p50": fit_p50,
+          **{a: arms[a] for a in ("imperative", "hybridized",
+                                  "hybridized_2bit")}})
+    return arms["launches"], steps
+
+
+def _gluon_step(mx, net, x, y, hybrid):
+    """One recorded step of ``net`` (SGD through kvstore='device');
+    returns the output and each parameter's move, as numpy."""
+    from mxnet_tpu_torch import autograd, gluon
+    if hybrid:
+        net.hybridize()
+    params = net.collect_params()
+    before = {k: p.data().asnumpy() for k, p in params.items()}
+    trainer = gluon.Trainer(params, "sgd", {"learning_rate": GLUON["lr"],
+                                            "momentum": GLUON["momentum"],
+                                            "wd": GLUON["wd"]},
+                            kvstore="device")
+    with autograd.record():
+        out = net(x)
+        loss = gluon.loss.SoftmaxCrossEntropyLoss()(out, y)
+    loss.backward()
+    trainer.step(x.shape[0])
+    moved = np.concatenate([(p.data().asnumpy() - before[k]).ravel()
+                            for k, p in params.items()])
+    return out.asnumpy(), moved
+
+
+def phase_gluon_agreement(torch, mx, ctxs=None, cfg=GLUON_AGREE):
+    """Gluon on the card against the CPU from the same numpy weights:
+    ResNet-18 v2 one step, imperative and hybridized (outputs and
+    parameter moves within relative-L2 bounds), and an nn.LayerNorm
+    block forward and backward (row 3's kernels on the Gluon path)."""
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.base import NameManager
+    from mxnet_tpu_torch.kernels import LAUNCHES, reset_counts
+    from mxnet_tpu_torch.weights import gluon_params_from_numpy
+    ctxs = ctxs or (mx.gpu(0), mx.cpu())
+    B = cfg["batch"]
+    x, y = _image_batches(cfg["image"], B, SEED + 29, cfg["classes"])
+    arrays = None
+    result = {}
+    for hybrid in (False, True):
+        runs = []
+        for ctx in ctxs:
+            with NameManager():
+                net = gluon.model_zoo.vision.resnet18_v2(
+                    classes=cfg["classes"])
+            net.initialize(mx.init.Xavier(), ctx=ctx)
+            xs = mx.nd.array(x, ctx=ctx)
+            if arrays is None:
+                mx.random.seed(SEED)
+                net(xs)                       # finishes deferred init
+                arrays = {k: p.data().asnumpy()
+                          for k, p in net.collect_params().items()}
+            gluon_params_from_numpy(net, arrays)
+            runs.append(_gluon_step(mx, net, xs, mx.nd.array(y, ctx=ctx),
+                                    hybrid))
+        (go, gm), (co, cm) = runs
+        out_l2, move_l2 = _rel_l2(go, co), _rel_l2(gm, cm)
+        arm = "hybridized" if hybrid else "imperative"
+        check(out_l2 <= cfg["out_l2"], "gluon_agreement %s: outputs differ "
+              "by %g relative L2" % (arm, out_l2))
+        check(move_l2 <= cfg["move_l2"], "gluon_agreement %s: parameter "
+              "moves differ by %g relative L2" % (arm, move_l2))
+        result[arm] = {"out_rel_l2": out_l2, "move_rel_l2": move_l2}
+    # nn.LayerNorm: the LayerNorm kernels forward and backward
+    rows, width = cfg["ln_shape"]
+    rng = np.random.RandomState(SEED + 37)
+    xa = rng.standard_normal((rows, width)).astype(np.float32)
+    gamma = 1 + 0.1 * rng.standard_normal(width).astype(np.float32)
+    beta = 0.1 * rng.standard_normal(width).astype(np.float32)
+    dy = rng.standard_normal((rows, width)).astype(np.float32)
+    for hybrid in (False, True):
+        got = []
+        for ctx in ctxs:
+            with NameManager():
+                ln = gluon.nn.LayerNorm(in_channels=width)
+            ln.initialize(ctx=ctx)
+            gluon_params_from_numpy(ln, {"layernorm0_gamma": gamma,
+                                         "layernorm0_beta": beta})
+            if hybrid:
+                ln.hybridize()
+            xs = mx.nd.array(xa, ctx=ctx)
+            xs.attach_grad()
+            reset_counts()
+            with autograd.record():
+                out = ln(xs)
+            out.backward(mx.nd.array(dy, ctx=ctx))
+            got.append([out.asnumpy(), xs.grad.asnumpy(),
+                        ln.gamma.grad().asnumpy(), ln.beta.grad().asnumpy()])
+            if ctx.device_type == "gpu":
+                check(LAUNCHES["layernorm_fused"] == 1
+                      and LAUNCHES["layernorm_fused_bwd"] == 1,
+                      "gluon_agreement: nn.LayerNorm launched %s"
+                      % {k: v for k, v in LAUNCHES.items() if v})
+        for a, b, what in zip(got[0], got[1], ("out", "dx", "dgamma",
+                                               "dbeta")):
+            check(np.allclose(a, b, rtol=RTOL, atol=ATOL * max(
+                1.0, float(np.abs(b).max()))), "gluon_agreement: "
+                "nn.LayerNorm %s differs by %g" % (what,
+                                                    float(np.abs(a - b).max())))
+    emit({"phase": "gluon_agreement", "config": cfg, **result,
+          "layernorm": "agrees"})
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2856,6 +3291,7 @@ def main():
         phase_layernorm_bf16(torch, mxk, dev, flush) + \
         [phase_fused_matmul_bf16(torch, mxk, dev, flush)]
     head_dim_times = phase_head_dim(torch, mxk, dev, flush)
+    rtc_kernels = phase_rtc(torch, mx, dev, flush)
     del flush
     full = seeded_params(FULL)
     serve_launches, serve_steps = phase_serve(torch, mx, full)
@@ -2868,7 +3304,10 @@ def main():
     del full
     phase_train_agreement(torch, mx)
     phase_kvstore(torch, mx)
-    resnet_launches, resnet_steps = phase_train_resnet(torch, mx)
+    resnet_launches, resnet_steps, fit_p50 = phase_train_resnet(torch, mx)
+    gluon_launches, gluon_steps = phase_gluon_resnet(torch, mx,
+                                                     fit_p50=fit_p50)
+    phase_gluon_agreement(torch, mx)
     phase_resnet_agreement(torch, mx)
     nhwc_launches, nhwc_steps = phase_train_resnet_nhwc(torch, mx)
     phase_resnet_nhwc_agreement(torch, mx)
@@ -2894,6 +3333,8 @@ def main():
         k["launches_per_step"] = train_launches[k["name"]] / train_steps
     quant_kernel["launches"] = resnet_launches[quant_kernel["name"]]
     quant_kernel["launches_per_step"] = quant_kernel["launches"] / resnet_steps
+    quant_kernel["gluon_launches_per_step"] = \
+        gluon_launches[quant_kernel["name"]] / gluon_steps
     fused_kernel["launches"] = nhwc_launches[fused_kernel["name"]]
     fused_kernel["launches_per_step"] = fused_kernel["launches"] / nhwc_steps
     # the bf16 forms: launches of the bf16 transformer's TrainStep run
@@ -2918,9 +3359,12 @@ def main():
                        **{key: k[key] for key in ("launches_per_step",
                                                   "train_launches",
                                                   "spec_launches_per_step",
-                                                  "head_dim_256")
+                                                  "gluon_launches_per_step",
+                                                  "head_dim_256",
+                                                  "compile_ms",
+                                                  "host_launch_us")
                           if key in k}}
-                      for k in f32_kernels + bf16_kernels]})
+                      for k in f32_kernels + bf16_kernels + rtc_kernels]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

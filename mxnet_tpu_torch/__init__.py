@@ -11,16 +11,20 @@ decode attention, the chunked-prefill attention, LayerNorm (forward and
 backward), causal flash attention (forward and backward), the 2-bit
 quantizer and the fused BN-apply/ReLU/1x1 convolution run in
 hand-written CUDA kernels (``csrc/``), built for ``sm_90a`` on first
-use.
+use.  The imperative front end (``mx.nd`` ops, ``autograd``) and Gluon
+(blocks, layers, losses, ``Trainer``, the model-zoo ResNets) train
+eagerly or hybridized; ``mx.rtc.CudaModule`` compiles users' CUDA
+kernels with NVRTC and launches them on NDArrays.
 
 Entry points run on the card (``gpu(0)``, i.e. ``cuda:0``) unless the
 caller passes ``ctx=mx.cpu()``; with no GPU and no CPU request they
 raise.  On CPU tensors every kernel takes its plain PyTorch version.
 """
-from . import base, context, kernels, ndarray, ops, symbol  # noqa: F401
+from . import autograd, base, context, kernels, ndarray, ops, symbol  # noqa
 from . import decode, models, weights  # noqa: F401
 from . import (callback, initializer, io, kvstore, lr_scheduler,  # noqa: F401
                metric, model, module, optimizer, parallel, random)
+from . import gluon, rtc  # noqa: F401
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu
 from .module import Module
@@ -35,4 +39,4 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context", "nd",
            "sym", "ndarray", "symbol", "decode", "models", "weights",
            "kernels", "callback", "init", "initializer", "io", "kv",
            "kvstore", "lr_scheduler", "metric", "model", "module", "mod",
-           "Module", "optimizer", "parallel", "random"]
+           "Module", "optimizer", "parallel", "random", "autograd", "gluon", "rtc"]

@@ -11,8 +11,9 @@ import threading
 import numpy as _np
 import torch
 
-__all__ = ["MXNetError", "numeric_types", "NameManager", "torch_dtype",
-           "check_float_dtype", "numpy_to_tensor", "LOW_PRECISION"]
+__all__ = ["MXNetError", "numeric_types", "integer_types", "NameManager",
+           "current_name_manager", "torch_dtype", "check_float_dtype",
+           "numpy_to_tensor", "LOW_PRECISION"]
 
 
 class MXNetError(RuntimeError):
@@ -20,15 +21,32 @@ class MXNetError(RuntimeError):
 
 
 numeric_types = (float, int, _np.generic)
+integer_types = (int, _np.integer)
 
 
 class NameManager:
-    """Unique names for anonymous symbols: ``{op_name_lower}{counter}``,
-    as the reference's python/mxnet/name.py hands them out."""
+    """Unique names for anonymous symbols and Gluon blocks:
+    ``{hint_lower}{counter}``, as the reference's python/mxnet/name.py
+    hands them out.  ``with NameManager():`` opens a fresh counter scope
+    on this thread (what the JAX package's ``base.NameManager`` does), so
+    a block built inside it gets the names it would get first in a
+    process (``resnetv20_...``)."""
+
+    _scopes = threading.local()
 
     def __init__(self):
         self._counter = {}
         self._lock = threading.Lock()
+
+    def __enter__(self):
+        stack = getattr(NameManager._scopes, "stack", None)
+        if stack is None:
+            stack = NameManager._scopes.stack = []
+        stack.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        NameManager._scopes.stack.pop()
 
     def get(self, name, hint):
         if name:
@@ -41,6 +59,13 @@ class NameManager:
 
 
 NAMES = NameManager()
+
+
+def current_name_manager():
+    """The innermost ``with NameManager():`` scope of this thread, else
+    the process-wide ``NAMES``."""
+    stack = getattr(NameManager._scopes, "stack", None)
+    return stack[-1] if stack else NAMES
 
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,

@@ -24,6 +24,16 @@ are handed the forward's flag; after a train forward, each output an op
 declares in ``mutate_inputs`` is copied into its auxiliary state in
 place (the JAX package's executor returns the new states instead).
 
+Memory: the graph walk (:func:`run_graph`, over a :class:`GraphPlan`
+made once at bind) drops each intermediate from its environment right
+after the last node that reads it, unless it is a head, as the JAX
+package's compiled program frees a buffer at its last use.  Without
+that, an inference forward would hold every intermediate until it ends
+(a full-width prefill of 8 x 1024 tokens held ~16 GB).  In a recorded
+forward autograd keeps what the backward needs, whatever the walk
+drops.  The hybridized Gluon path runs its traced graph through the
+same walk.
+
 Cache arguments (the paged K/V caches) are updated IN PLACE by the ops
 that write them, and the outputs that carry the "new" caches are those
 same tensors.  That is the counterpart of the JAX package's buffer
@@ -42,7 +52,7 @@ from .base import FLOAT16_LATER, MXNetError, numpy_to_tensor
 from .context import current_context
 from .ndarray.ndarray import NDArray
 
-__all__ = ["Executor"]
+__all__ = ["Executor", "GraphPlan", "run_graph"]
 
 _GRAD_REQS = ("write", "add", "null")
 
@@ -59,6 +69,56 @@ def _normalize_grad_req(grad_req, arg_names):
         raise MXNetError("grad_req must be one of %s, got %s"
                          % (_GRAD_REQS, bad))
     return req
+
+
+class GraphPlan:
+    """A symbol's nodes in topological order, its heads, and after each
+    node the environment entries (``(id(node), output)``) that no later
+    node reads and that are not heads: the walk drops them there."""
+
+    def __init__(self, symbol):
+        self.nodes = symbol._topo()
+        self.heads = list(symbol._entries)
+        head_keys = {(id(n), i) for n, i in self.heads}
+        last = {}
+        for pos, node in enumerate(self.nodes):
+            for inp, i in node.inputs:
+                last[(id(inp), i)] = pos
+        self.drop_after = [[] for _ in self.nodes]
+        for pos, node in enumerate(self.nodes):
+            n_out = 1 if node.is_var else node.op.out_count(node.attrs)
+            for i in range(n_out):
+                key = (id(node), i)
+                if key not in head_keys:
+                    self.drop_after[last.get(key, pos)].append(key)
+
+
+def run_graph(plan, values, is_train):
+    """Run ``plan``'s nodes on ``values`` (variable name -> tensor), each
+    op on the current stream, dropping every entry after its last
+    reader.  Ops that declare ``is_train`` get the flag.  Returns the
+    head tensors and, for a train walk, ``{variable name: new value}``
+    of the variables the ops mutate (``OpDef.mutate_inputs``)."""
+    env, new_aux = {}, {}
+    for pos, node in enumerate(plan.nodes):
+        if node.is_var:
+            env[(id(node), 0)] = values[node.name]
+        else:
+            kw = dict(node.attrs, is_train=is_train) \
+                if node.op.takes_is_train else node.attrs
+            out = node.op.fn(*[env[(id(n), i)] for n, i in node.inputs],
+                             **kw)
+            outs = out if isinstance(out, tuple) else (out,)
+            for i, t in enumerate(outs):
+                env[(id(node), i)] = t
+            if is_train:
+                for (inp, _), nm in zip(node.inputs, node.op.input_names):
+                    for mut, idx in node.op.mutate_inputs:
+                        if nm == mut and inp.is_var:
+                            new_aux[inp.name] = outs[idx]
+        for key in plan.drop_after[pos]:
+            del env[key]
+    return [env[(id(n), i)] for n, i in plan.heads], new_aux
 
 
 class Executor:
@@ -85,18 +145,20 @@ class Executor:
 
         self.aux_dict = {}
         for name, shape, dt in zip(self._aux_names, aux_shapes, aux_types):
-            self.aux_dict[name] = shared(aux_pool, name, shape, dt) or \
+            nd = shared(aux_pool, name, shape, dt)
+            self.aux_dict[name] = nd if nd is not None else \
                 NDArray(torch.zeros(shape, dtype=dt, device=dev))
         self.arg_dict = {}
         self.grad_dict = {}
         for name, shape, dt in zip(self._arg_names, arg_shapes, arg_types):
-            nd = shared(arg_pool, name, shape, dt) or NDArray(
-                torch.zeros(shape, dtype=dt, device=dev))
+            nd = shared(arg_pool, name, shape, dt)
+            if nd is None:
+                nd = NDArray(torch.zeros(shape, dtype=dt, device=dev))
             if self._grad_req[name] != "null":
                 nd._data.requires_grad_(True)
                 self.grad_dict[name] = NDArray(torch.zeros_like(nd._data))
             self.arg_dict[name] = nd
-        self._nodes = symbol._topo()
+        self._plan = GraphPlan(symbol)
         self.outputs = []
         self._heads = None          # the graph-carrying outputs of a train forward
 
@@ -145,34 +207,14 @@ class Executor:
         self._heads = None
         is_train = bool(is_train)
         record = is_train and bool(self.grad_dict)
-        new_aux = {}
+        values = {n: nd._data for n, nd in self.aux_dict.items()}
+        values.update((n, nd._data) for n, nd in self.arg_dict.items())
         with torch.set_grad_enabled(record):
-            env = {}
-            for node in self._nodes:
-                if node.is_var:
-                    src = self.arg_dict.get(node.name)
-                    if src is None:
-                        src = self.aux_dict[node.name]
-                    env[(id(node), 0)] = src._data
-                    continue
-                kw = dict(node.attrs, is_train=is_train) \
-                    if node.op.takes_is_train else node.attrs
-                out = node.op.fn(*[env[(id(n), i)] for n, i in node.inputs],
-                                 **kw)
-                outs = out if isinstance(out, tuple) else (out,)
-                for i, t in enumerate(outs):
-                    env[(id(node), i)] = t
-                if is_train:
-                    for (inp, _), nm in zip(node.inputs,
-                                            node.op.input_names):
-                        for mut, idx in node.op.mutate_inputs:
-                            if nm == mut and inp.is_var \
-                                    and inp.name in self.aux_dict:
-                                new_aux[inp.name] = outs[idx]
-            heads = [env[(id(n), i)] for n, i in self._symbol._entries]
+            heads, new_aux = run_graph(self._plan, values, is_train)
         with torch.no_grad():
             for name, t in new_aux.items():
-                self.aux_dict[name]._data.copy_(t)
+                if name in self.aux_dict:
+                    self.aux_dict[name]._data.copy_(t)
         if record:
             self._heads = heads
         self.outputs = [NDArray(t.detach()) for t in heads]

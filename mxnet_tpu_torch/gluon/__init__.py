@@ -1,0 +1,17 @@
+"""Gluon: the imperative and hybridizable neural-network API.
+
+Counterpart of ``mxnet_tpu/gluon`` (reference python/mxnet/gluon):
+Block, HybridBlock, Parameter, ParameterDict, Constant, Trainer, and the
+``nn``, ``loss``, ``data``, ``model_zoo`` and ``utils`` modules.
+``rnn`` and ``contrib`` are still to port (ROADMAP A.6); ``SymbolBlock``
+and parameter files come with serialization (A.7).
+"""
+from . import data, loss, model_zoo, nn, utils
+from .block import Block, HybridBlock, SymbolBlock
+from .parameter import (Constant, DeferredInitializationError, Parameter,
+                        ParameterDict)
+from .trainer import Trainer
+
+__all__ = ["Block", "HybridBlock", "SymbolBlock", "Parameter", "Constant",
+           "ParameterDict", "DeferredInitializationError", "Trainer",
+           "data", "loss", "model_zoo", "nn", "utils"]

@@ -30,9 +30,11 @@ __all__ = ["SOURCES", "build_all", "load", "check"]
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("paged_attention", "layernorm", "flash_attention", "quant",
-           "fused_matmul")
+           "fused_matmul", "rtc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+# libraries a source links beyond the CUDA runtime
+LINK_LIBS = {"rtc": ("nvrtc", "cuda")}
 
 _lock = threading.Lock()
 _libs = {}
@@ -49,23 +51,43 @@ def _nvcc():
                      "use and need the CUDA toolkit")
 
 
+def cuda_lib_dir():
+    """The toolkit's library directory, beside the ``nvcc`` in use."""
+    root = Path(_nvcc()).resolve().parent.parent
+    return root / "lib64" if (root / "lib64").exists() else root / "lib"
+
+
+def _flags(name):
+    libs = LINK_LIBS.get(name, ())
+    if not libs:
+        return NVCC_FLAGS
+    lib_dir = cuda_lib_dir()
+    return NVCC_FLAGS + ("-L%s" % lib_dir, "-L%s" % (lib_dir / "stubs"),
+                         "-Xlinker", "-rpath=%s" % lib_dir) + \
+        tuple("-l" + lib for lib in libs)
+
+
 def _target(name):
     src = CSRC / (name + ".cu")
+    flags = _flags(name)
     digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return src, BUILD_DIR / ("lib%s-%s.so" % (name, digest[:12]))
+                            + " ".join(flags).encode()).hexdigest()
+    return src, flags, BUILD_DIR / ("lib%s-%s.so" % (name, digest[:12]))
 
 
 def _start(name):
     """Start nvcc for one source; returns (process, tmp, out) or None
     when the library is already built."""
-    src, out = _target(name)
+    src, flags, out = _target(name)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(out.name + ".tmp%d" % os.getpid())
     log = open(out.with_suffix(".log"), "w")
-    proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+    # the source comes before the link flags, so the libraries resolve
+    # its symbols
+    proc = subprocess.Popen([_nvcc(), *flags[:len(NVCC_FLAGS)], "-o",
+                             str(tmp), str(src), *flags[len(NVCC_FLAGS):]],
                             stdout=log, stderr=subprocess.STDOUT)
     log.close()
     return proc, tmp, out
@@ -102,7 +124,7 @@ def load(name):
             job = _start(name)
             if job is not None:
                 _finish(name, job)
-            lib = _libs[name] = ctypes.CDLL(str(_target(name)[1]))
+            lib = _libs[name] = ctypes.CDLL(str(_target(name)[2]))
         return lib
 
 

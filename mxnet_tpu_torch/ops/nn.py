@@ -79,6 +79,18 @@ def layer_norm(data, gamma, beta, *, axis=-1, eps=1e-5,
                      eps=float(eps))
 
 
+@register("InstanceNorm")
+def instance_norm(data, gamma, beta, *, eps=1e-3):
+    """Normalize each sample and channel over its spatial axes (ref
+    src/operator/instance_norm.cc; the biased variance)."""
+    red = tuple(range(2, data.dim()))
+    mean = data.mean(dim=red, keepdim=True)
+    var = (data - mean).square().mean(dim=red, keepdim=True)
+    out = (data - mean) * torch.rsqrt(var + float(eps))
+    bshape = (1, -1) + (1,) * (data.dim() - 2)
+    return out * gamma.reshape(bshape) + beta.reshape(bshape)
+
+
 @register("Flatten", aliases=("flatten",))
 def flatten(data):
     """(N, ...) -> (N, prod(...)) (ref src/operator/tensor/matrix_op.cc)."""
@@ -222,7 +234,7 @@ _AVG_POOL = {2: F.avg_pool2d, 3: F.avg_pool3d}
 def pooling(data, *, kernel=(), pool_type="max", global_pool=False,
             stride=(), pad=(), pooling_convention="valid", cudnn_off=False,
             count_include_pad=True, p_value=2, layout=None):
-    """Max, average or sum pooling over 2-D or 3-D data, channels first
+    """Max, average or sum pooling over 1-, 2- or 3-D data, channels first
     or, with a channel-last ``layout``, channel last (ref
     src/operator/nn/pooling.cc).  ``pooling_convention='full'``
     rounds the output size up, padding the far edge as needed.  The
@@ -239,6 +251,14 @@ def pooling(data, *, kernel=(), pool_type="max", global_pool=False,
             pooling_convention=pooling_convention,
             count_include_pad=count_include_pad)
     nd = data.dim() - 2
+    if nd == 1 and not global_pool:
+        # 1-D as 2-D over a unit height
+        return pooling(
+            data.unsqueeze(2), kernel=(1,) + _tuple(kernel, 1),
+            pool_type=pool_type, stride=(1,) + _tuple(stride, 1),
+            pad=(0,) + _tuple(pad or 0, 1),
+            pooling_convention=pooling_convention,
+            count_include_pad=count_include_pad).squeeze(2)
     if global_pool:
         red = tuple(range(2, 2 + nd))
         if pool_type == "max":

@@ -80,6 +80,10 @@ def _same(ins, a):
     return [next(iter(ins.values()))]
 
 
+def _broadcast_all(ins, a):
+    return [tuple(torch.broadcast_shapes(*ins.values()))]
+
+
 def _ints(v, n, empty):
     """An int or int sequence as an ``n``-tuple; ``()`` gives ``empty``."""
     if isinstance(v, (tuple, list)):
@@ -180,6 +184,159 @@ def _flatten_out(ins, a):
     return [(x[0], n)]
 
 
+def _reduce_out(ins, a):
+    from .elemwise import reduce_axes
+    x = ins["data"]
+    dims = reduce_axes(len(x), a["axis"], a.get("exclude", False))
+    if a["keepdims"]:
+        return [tuple(1 if i in dims else s for i, s in enumerate(x))]
+    return [tuple(s for i, s in enumerate(x) if i not in dims)]
+
+
+def _transpose_out(ins, a):
+    x = ins["data"]
+    axes = tuple(int(i) for i in a["axes"]) if a["axes"] else \
+        tuple(range(len(x) - 1, -1, -1))
+    return [tuple(x[i] for i in axes)]
+
+
+def _expand_dims_out(ins, a):
+    x = list(ins["data"])
+    x.insert(int(a["axis"]) % (len(x) + 1), 1)
+    return [tuple(x)]
+
+
+def _squeeze_out(ins, a):
+    x = ins["data"]
+    if a["axis"] is None:
+        return [tuple(s for s in x if s != 1)]
+    axes = (a["axis"],) if isinstance(a["axis"], int) else a["axis"]
+    drop = {int(i) % len(x) for i in axes}
+    return [tuple(s for i, s in enumerate(x) if i not in drop)]
+
+
+def _swapaxes_out(ins, a):
+    x = list(ins["data"])
+    i, j = int(a["dim1"]), int(a["dim2"])
+    x[i], x[j] = x[j], x[i]
+    return [tuple(x)]
+
+
+def _stack_out(ins, a):
+    shapes = list(ins.values())
+    out = list(shapes[0])
+    out.insert(int(a["axis"]) % (len(out) + 1), len(shapes))
+    return [tuple(out)]
+
+
+def _pick_out(ins, a):
+    x = list(ins["data"])
+    ax = int(a["axis"]) % len(x)
+    if a["keepdims"]:
+        x[ax] = 1
+    else:
+        del x[ax]
+    return [tuple(x)]
+
+
+def _pad_out(ins, a):
+    pw = a["pad_width"]
+    return [tuple(s + int(pw[2 * i]) + int(pw[2 * i + 1])
+                  for i, s in enumerate(ins["data"]))]
+
+
+def _where_out(ins, a):
+    return [tuple(torch.broadcast_shapes(ins["condition"], ins["x"],
+                                         ins["y"]))]
+
+
+def _random_out(ins, a):
+    return [tuple(a["shape"])]
+
+
+def _broadcast_to_out(ins, a):
+    x = ins["data"]
+    return [tuple(int(t) if int(t) != 0 else x[i]
+                  for i, t in enumerate(a["shape"]))]
+
+
+def _broadcast_axis_out(ins, a):
+    x = list(ins["data"])
+    axes = (a["axis"],) if isinstance(a["axis"], int) else a["axis"]
+    sizes = (a["size"],) if isinstance(a["size"], int) else a["size"]
+    for ax, n in zip(axes, sizes):
+        x[ax] = n
+    return [tuple(x)]
+
+
+def _tile_out(ins, a):
+    x = ins["data"]
+    reps = (a["reps"],) if isinstance(a["reps"], int) else tuple(a["reps"])
+    n = max(len(x), len(reps))
+    x = (1,) * (n - len(x)) + tuple(x)
+    reps = (1,) * (n - len(reps)) + reps
+    return [tuple(s * r for s, r in zip(x, reps))]
+
+
+def _repeat_out(ins, a):
+    x = list(ins["data"])
+    if a["axis"] is None:
+        n = 1
+        for s in x:
+            n *= s
+        return [(n * int(a["repeats"]),)]
+    x[int(a["axis"])] *= int(a["repeats"])
+    return [tuple(x)]
+
+
+def _one_hot_out(ins, a):
+    return [tuple(ins["indices"]) + (int(a["depth"]),)]
+
+
+def _split_out(ins, a):
+    x = list(ins["data"])
+    ax = int(a["axis"]) % len(x)
+    n = int(a["num_outputs"])
+    x[ax] //= n
+    if a["squeeze_axis"]:
+        del x[ax]
+    return [tuple(x)] * n
+
+
+def _slice_out(ins, a):
+    x = ins["data"]
+    step = tuple(a["step"]) if a["step"] else (None,) * len(a["begin"])
+    out = list(x)
+    for i, (b, e, st) in enumerate(zip(a["begin"], a["end"], step)):
+        out[i] = len(range(*slice(b, e, st).indices(x[i])))
+    return [tuple(out)]
+
+
+def _slice_like_out(ins, a):
+    x, like = list(ins["data"]), ins["shape_like"]
+    for ax in (tuple(a["axes"]) if a["axes"] else range(len(like))):
+        x[ax] = like[ax]
+    return [tuple(x)]
+
+
+def _dot_out(ins, a):
+    x, y = list(ins["lhs"]), list(ins["rhs"])
+    if a["transpose_a"]:
+        x = x[::-1] if len(x) == 2 else x[1:] + x[:1]
+    if a["transpose_b"]:
+        y = y[::-1] if len(y) == 2 else y[-1:] + y[:-1]
+    return [tuple(x[:-1] + y[1:])]
+
+
+def _batch_dot_out(ins, a):
+    x, y = list(ins["lhs"]), list(ins["rhs"])
+    if a["transpose_a"]:
+        x[-1], x[-2] = x[-2], x[-1]
+    if a["transpose_b"]:
+        y[-1], y[-2] = y[-2], y[-1]
+    return [tuple(x[:-1]) + (y[-1],)]
+
+
 PARAM_SHAPES = {
     "FullyConnected": _fc_params,
     "Convolution": _conv_params,
@@ -233,7 +390,65 @@ OUT_SHAPES = {
     "_mul_scalar": _same,
     "slice_axis": _slice_axis_out,
     "Concat": _concat_out,
+    "InstanceNorm": lambda ins, a: [ins["data"]],
+    "transpose": _transpose_out,
+    "expand_dims": _expand_dims_out,
+    "squeeze": _squeeze_out,
+    "SwapAxis": _swapaxes_out,
+    "stack": _stack_out,
+    "pick": _pick_out,
+    "Pad": _pad_out,
+    "where": _where_out,
+    "reshape_like": lambda ins, a: [ins["rhs"]],
+    "broadcast_like": lambda ins, a: [ins["rhs"]],
+    "log_softmax": _same,
+    "softmax": _same,
+    "softmin": _same,
+    "clip": _same,
+    "BlockGrad": _same,
+    "make_loss": _same,
+    "add_n": _broadcast_all,
+    "_random_uniform": _random_out,
+    "_random_normal": _random_out,
+    "_random_randint": _random_out,
+    "argmin": _argmax_out,
+    "norm": _reduce_out,
+    "smooth_l1": _same,
+    "reverse": _same,
+    "broadcast_to": _broadcast_to_out,
+    "broadcast_axis": _broadcast_axis_out,
+    "tile": _tile_out,
+    "repeat": _repeat_out,
+    "one_hot": _one_hot_out,
+    "SliceChannel": _split_out,
+    "slice": _slice_out,
+    "slice_like": _slice_like_out,
+    "batch_take": lambda ins, a: [ins["a"][:1]],
+    "dot": _dot_out,
+    "batch_dot": _batch_dot_out,
 }
+for _op in ("broadcast_div", "broadcast_mod", "broadcast_power",
+            "broadcast_maximum", "broadcast_minimum", "broadcast_hypot",
+            "broadcast_not_equal", "broadcast_greater",
+            "broadcast_greater_equal", "broadcast_lesser",
+            "broadcast_lesser_equal"):
+    OUT_SHAPES[_op] = _broadcast
+for _op in ("_div_scalar", "_mod_scalar", "_power_scalar",
+            "_maximum_scalar", "_minimum_scalar", "_equal_scalar",
+            "_not_equal_scalar", "_greater_scalar", "_greater_equal_scalar",
+            "_lesser_scalar", "_lesser_equal_scalar"):
+    OUT_SHAPES[_op] = _same
+for _op in ("sum", "mean", "prod", "max", "min", "nansum"):
+    OUT_SHAPES[_op] = _reduce_out
+
+
+def _register_unary():
+    from .elemwise import _UNARY
+    for op in tuple(_UNARY) + ("identity",):
+        OUT_SHAPES[op] = _same
+
+
+_register_unary()
 
 
 # ops whose output takes the type of their data input (normalizations
@@ -248,16 +463,18 @@ _DATA_TYPED = {"BatchNorm", "LayerNorm", "_FusedBNReluConv", "SoftmaxOutput",
 def out_dtype(op, in_dtypes, attrs):
     """The type of ``op``'s (visible) outputs from its inputs' types
     (``in_dtypes``, in input order): ``Cast`` gives its ``dtype``
-    attribute, ``Embedding`` its weight's type, ``argmax`` float32 (the
-    reference returns indices as floats), the normalizations, pooling,
+    attribute (as do ``one_hot`` and the random ops), ``Embedding`` its
+    weight's type, ``argmax``/``argmin`` float32 (the reference returns
+    indices as floats), the normalizations, pooling,
     activations and loss heads their data's type, and the rest the
     promotion of their floating inputs."""
     from ..base import torch_dtype
-    if op == "Cast":
+    if op in ("Cast", "one_hot", "_random_uniform", "_random_normal",
+              "_random_randint"):
         return torch_dtype(attrs["dtype"])
     if op == "Embedding":
         return in_dtypes[1]
-    if op == "argmax":
+    if op in ("argmax", "argmin"):
         return torch.float32
     if op in _DATA_TYPED or not in_dtypes:
         return in_dtypes[0] if in_dtypes else torch.float32

@@ -2,10 +2,10 @@
 
 Counterpart of ``mxnet_tpu/optimizer.py``, reduced to what the training
 slices use: the ``Optimizer`` base (``lr``, ``wd``, ``rescale_grad``,
-``clip_gradient``, per-parameter ``lr_mult``/``wd_mult`` from
-``param_idx2name`` and the symbol's ``__lr_mult__``/``__wd_mult__``
-attributes, wd 0 for parameters not named ``*_weight``/``*_gamma``, an
-``lr_scheduler`` hook), ``SGD`` (momentum), ``Signum``, ``Adam``,
+``clip_gradient``, per-parameter ``lr_mult``/``wd_mult`` from a Gluon
+Trainer's ``param_dict`` or from ``param_idx2name`` and the symbol's
+``__lr_mult__``/``__wd_mult__`` attributes, wd 0 for parameters not
+named ``*_weight``/``*_gamma``, an ``lr_scheduler`` hook), ``SGD`` (momentum), ``Signum``, ``Adam``,
 ``AdaGrad``, ``RMSProp`` (plain and centered), ``Updater``,
 ``get_updater``, ``create`` and ``register``.  Each update is the
 in-place operator of ``ops/optimizer_ops.py``.  ``bucketable`` tells
@@ -66,9 +66,7 @@ class Optimizer:
                  clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
                  sym=None, begin_num_update=0, multi_precision=False,
                  param_dict=None):
-        if param_dict:
-            raise MXNetError("param_dict (Gluon parameters) comes with the "
-                             "Gluon slice of the PyTorch port")
+        self.param_dict = dict(param_dict or {})
         self.rescale_grad = rescale_grad
         self.multi_precision = bool(multi_precision)
         self.lr = learning_rate
@@ -157,14 +155,28 @@ class Optimizer:
         self.num_update = max(self._index_update_count[index],
                               self.num_update)
 
+    def set_learning_rate(self, lr):
+        """Set the learning rate (not with an ``lr_scheduler``)."""
+        if self.lr_scheduler is not None:
+            raise MXNetError("cannot set the learning rate directly when "
+                             "an lr_scheduler is set")
+        self.lr = lr
+
+    def _mult(self, index, mults, attr):
+        """A Gluon Parameter's own ``lr_mult``/``wd_mult`` (``param_dict``,
+        keyed as the updater's index), else the per-name table."""
+        name = self.idx2name.get(index, index)
+        if name in self.param_dict:
+            return getattr(self.param_dict[name], attr)
+        return mults.get(name, 1.0)
+
     def _get_lr(self, index):
         lr = self.lr_scheduler(self.num_update) \
             if self.lr_scheduler is not None else self.lr
-        return lr * self.lr_mult.get(self.idx2name.get(index, index), 1.0)
+        return lr * self._mult(index, self.lr_mult, "lr_mult")
 
     def _get_wd(self, index):
-        return self.wd * self.wd_mult.get(self.idx2name.get(index, index),
-                                          1.0)
+        return self.wd * self._mult(index, self.wd_mult, "wd_mult")
 
     def _common_kwargs(self):
         kw = {"rescale_grad": self.rescale_grad}

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import types
 
-from ..base import NAMES
+from ..base import current_name_manager
 from ..ops import registry as _reg
 from .symbol import Group, Symbol, Variable, _entry_of, _make_node
 
@@ -23,7 +23,8 @@ def _invoke_op(opname, sym_inputs, attrs=None, name=None):
 
 def _make_sym_func(opdef, fname):
     def fn(*args, name=None, **kwargs):
-        nm = NAMES.get(name, opdef.name.lower().replace("_", ""))
+        nm = current_name_manager().get(
+            name, opdef.name.lower().replace("_", ""))
         if opdef.var_inputs:
             kwargs["num_args"] = len(args)
             return _make_node(opdef, nm, kwargs, [_entry_of(s) for s in args])
@@ -33,6 +34,9 @@ def _make_sym_func(opdef, fname):
             else None
         inputs = []
         for i, in_name in enumerate(opdef.input_names):
+            if i < len(args) and args[i] is None \
+                    and in_name in opdef.optional_inputs:
+                continue          # an absent optional input (bias=None)
             if i < len(args):
                 s = args[i]
             elif in_name in kw_inputs:

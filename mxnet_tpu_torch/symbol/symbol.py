@@ -3,8 +3,9 @@
 Counterpart of ``mxnet_tpu/symbol/symbol.py``, reduced to what the
 serving and training slices use: ``Variable`` (with ``init=``,
 ``lr_mult`` and ``wd_mult`` stored as the JAX package stores them),
-``Group``, composition through the generated op functions,
-``+``/``-``/``*`` and ``slice_axis``, ``list_arguments``, ``list_outputs``,
+``Group``, composition through the generated op functions, the
+arithmetic and comparison operators (scalar operands on either side),
+``reshape`` and ``slice_axis``, ``list_arguments``, ``list_outputs``,
 ``list_auxiliary_states`` (the variables an op mutates, such as
 BatchNorm's moving statistics), ``attr_dict``, ``infer_shape``,
 ``infer_type``, ``infer_shape_type`` and ``simple_bind``.  Types are
@@ -16,7 +17,8 @@ from __future__ import annotations
 
 import torch
 
-from ..base import NAMES, MXNetError, numeric_types, torch_dtype
+from ..base import (MXNetError, current_name_manager, numeric_types,
+                    torch_dtype)
 from ..ops.shape_rules import OUT_SHAPES, PARAM_SHAPES, out_dtype
 
 __all__ = ["Symbol", "Variable", "Group"]
@@ -237,22 +239,44 @@ class Symbol:
         return Executor(self, ctx, grad_req, shapes, shared_exec, type_dict)
 
     # ------------------------------------------------------------------
-    def _binop(self, other, op, scalar_op):
+    def _binop(self, other, op, scalar_op, reverse=False):
         from . import _invoke_op
         if isinstance(other, Symbol):
-            return _invoke_op(op, [self, other])
+            return _invoke_op(op, [other, self] if reverse else [self, other])
         if isinstance(other, numeric_types):
-            return _invoke_op(scalar_op, [self], {"scalar": float(other)})
+            attrs = {"scalar": float(other)}
+            if reverse:
+                attrs["reverse"] = True
+            return _invoke_op(scalar_op, [self], attrs)
         return NotImplemented
 
-    def __add__(self, o):
-        return self._binop(o, "broadcast_add", "_plus_scalar")
+    def __add__(self, o): return self._binop(o, "broadcast_add", "_plus_scalar")
+    def __radd__(self, o): return self._binop(o, "broadcast_add", "_plus_scalar", True)
+    def __sub__(self, o): return self._binop(o, "broadcast_sub", "_minus_scalar")
+    def __rsub__(self, o): return self._binop(o, "broadcast_sub", "_minus_scalar", True)
+    def __mul__(self, o): return self._binop(o, "broadcast_mul", "_mul_scalar")
+    def __rmul__(self, o): return self._binop(o, "broadcast_mul", "_mul_scalar", True)
+    def __truediv__(self, o): return self._binop(o, "broadcast_div", "_div_scalar")
+    def __rtruediv__(self, o): return self._binop(o, "broadcast_div", "_div_scalar", True)
+    def __pow__(self, o): return self._binop(o, "broadcast_power", "_power_scalar")
+    def __neg__(self): return self._binop(-1.0, None, "_mul_scalar")
+    def __gt__(self, o): return self._binop(o, "broadcast_greater", "_greater_scalar")
+    def __ge__(self, o): return self._binop(o, "broadcast_greater_equal", "_greater_equal_scalar")
+    def __lt__(self, o): return self._binop(o, "broadcast_lesser", "_lesser_scalar")
+    def __le__(self, o): return self._binop(o, "broadcast_lesser_equal", "_lesser_equal_scalar")
 
-    def __sub__(self, o):
-        return self._binop(o, "broadcast_sub", "_minus_scalar")
+    def __eq__(self, o):
+        """Elementwise equality as a graph node (reference Symbol)."""
+        return self._binop(o, "broadcast_equal", "_equal_scalar")
 
-    def __mul__(self, o):
-        return self._binop(o, "broadcast_mul", "_mul_scalar")
+    def __ne__(self, o):
+        return self._binop(o, "broadcast_not_equal", "_not_equal_scalar")
+
+    __hash__ = object.__hash__
+
+    def reshape(self, shape):
+        from . import _invoke_op
+        return _invoke_op("Reshape", [self], {"shape": tuple(shape)})
 
     def slice_axis(self, axis, begin, end):
         from . import _invoke_op
@@ -312,8 +336,8 @@ def Group(symbols):
 
 def _make_node(opdef, name, attrs, inputs):
     attrs = opdef.normalize_attrs(attrs)
-    node = _Node(opdef, NAMES.get(name, opdef.name.replace("_", "")),
-                 attrs, inputs)
+    nm = current_name_manager().get(name, opdef.name.replace("_", ""))
+    node = _Node(opdef, nm, attrs, inputs)
     vis = opdef.visible_out_count(attrs)
     return Symbol([(node, i) for i in range(vis)])
 

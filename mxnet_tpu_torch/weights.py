@@ -13,7 +13,10 @@ follow.
 
 Both packages use MXNet's parameter names and layouts (FullyConnected
 weights ``(num_hidden, in_dim)``, the packed qkv ``(3d, d)``), and the
-training symbol (``transformer.get_symbol``) binds the same parameter
+Gluon nets carry over by name too (``gluon_params_from_numpy``: a JAX
+Gluon net's ``collect_params()`` as numpy, into the port's net of the
+same construction).  The transformer's training symbol
+(``transformer.get_symbol``) binds the same parameter
 set as the mixed decode step.  So ``convert_params`` is a checked copy
 (every parameter must be present with the shape the symbol infers; each
 is copied as float32 onto the context; extra names such as optimizer
@@ -36,7 +39,7 @@ from .base import MXNetError, numpy_to_tensor
 from .ndarray.ndarray import NDArray
 
 __all__ = ["convert_params", "convert_symbol_params", "export_params",
-           "param_shapes", "symbol_shapes"]
+           "gluon_params_from_numpy", "param_shapes", "symbol_shapes"]
 
 
 def symbol_shapes(symbol, **input_shapes):
@@ -122,3 +125,32 @@ def export_params(params):
         t = v._data if isinstance(v, NDArray) else v
         out[name] = t.detach().float().cpu().numpy()
     return out
+
+
+def gluon_params_from_numpy(net, arrays, ctx=None):
+    """Copy ``arrays`` (parameter name -> numpy array, or anything with
+    ``asnumpy()``; a JAX Gluon net's ``collect_params()`` as numpy) into
+    the Gluon ``net``'s parameters of the same names, in place, in each
+    parameter's type.  A parameter still waiting for its deferred
+    initialization takes the array's shape and is initialized first
+    (on its ``initialize`` context, or ``ctx``).  Every parameter of
+    ``net`` must be present with its shape; extra names raise."""
+    params = net.collect_params()
+    arrays = {k: _np.asarray(v.asnumpy() if hasattr(v, "asnumpy") else v)
+              for k, v in arrays.items()}
+    missing = sorted(set(params.keys()) - set(arrays))
+    extra = sorted(set(arrays) - set(params.keys()))
+    if missing or extra:
+        raise MXNetError("gluon_params_from_numpy: missing %s, unknown %s"
+                         % (missing, extra))
+    for name, p in params.items():
+        a = arrays[name]
+        if p._data is None:
+            if not p._deferred_init:
+                p.shape = a.shape
+                p.initialize(ctx=ctx)
+        elif tuple(a.shape) != p._data.shape:
+            raise MXNetError("gluon_params_from_numpy: %s has shape %s, "
+                             "the net's %s" % (name, tuple(a.shape),
+                                               p._data.shape))
+        p.set_data(numpy_to_tensor(a))

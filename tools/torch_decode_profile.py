@@ -7,6 +7,8 @@ one-shot prefill, or one training step goes on the GPU.
     python3 tools/torch_decode_profile.py --prefill  # one-shot prefill
     python3 tools/torch_decode_profile.py --train    # one Module.fit step
     python3 tools/torch_decode_profile.py --resnet   # one 2-bit ResNet step
+    python3 tools/torch_decode_profile.py --gluon [--hybridize]
+                                          # one 2-bit Gluon ResNet step
     python3 tools/torch_decode_profile.py --resnet --layout NHWC --fuse
                                           # one TrainStep step
     python3 tools/torch_decode_profile.py --train --dtype bfloat16
@@ -54,6 +56,11 @@ the optimizer, the rest), the device launches and host syncs per step,
 and the device's idle share.  The groups come from ``record_function``
 ranges this tool wraps around the ops, the bucket dispatch, the
 optimizer and the pull in its own process.
+
+With ``--gluon`` (``--hybridize`` for the traced graph) it prints the
+same line for chip_smoke.py's gluon_resnet 2-bit arm: model-zoo
+ResNet-50 v2 through Gluon, its batch already on the card, a step
+ending in the loss readback.
 
 With ``--resnet --layout NCHW|NHWC`` (and ``--fuse`` for the
 BN -> ReLU -> Conv1x1 fusion pass) it binds chip_smoke.py's
@@ -300,12 +307,12 @@ def _kernel_ms(torch, prof, n, match):
     return out
 
 
-def profile_resnet(torch, cs, mx):
+def _label_resnet_ranges():
+    """Profiler ranges around the ResNet step's op groups, the bucket
+    dispatch, the optimizer and the pull (for ``_report_resnet``)."""
     from mxnet_tpu_torch import kvstore, kvstore_fused, optimizer
-    from mxnet_tpu_torch.models import resnet
     from mxnet_tpu_torch.ops import nn as ops_nn
     from mxnet_tpu_torch.ops.registry import get_op
-    from mxnet_tpu_torch.weights import convert_symbol_params
     for name in ("BatchNorm", "Convolution"):
         op = get_op(name)
         op.fn = _labelled(op.fn, "op:" + name)
@@ -318,6 +325,54 @@ def profile_resnet(torch, cs, mx):
                                            "kv:optimizer")
     kvstore.KVStore.pull = _labelled(kvstore.KVStore.pull, "kv:pull")
 
+
+def _report_resnet(torch, name, step, once, kv, extra):
+    """Time and profile a 2-bit ResNet-50 step (``step`` synchronizes,
+    ``once`` does not) and print its JSON line."""
+    buckets = []
+
+    def counted():
+        b0 = kv._engine.stats["buckets"]
+        once()
+        buckets.append(kv._engine.stats["buckets"] - b0)
+
+    n = 3
+    walls, syncs, prof = _measure(torch, step, counted, n)
+    total, kernels = device_ms_by_group(torch, prof, n)
+    device_ms = sum(total.values())
+    ranges = _range_ms(torch, prof, n)
+    quant = sum(_kernel_ms(torch, prof, n, ("two_bit_quantize",)).values())
+    # the quantize kernel is in no range: the bucket range holds the cat,
+    # the sums and the optimizer
+    bucket = ranges.get("kv:bucket", 0.0)
+    opt_ms = ranges.get("kv:optimizer", 0.0)
+    groups = {
+        "convolution": ranges.get("op:Convolution", 0.0)
+        + ranges.get("aten::convolution_backward", 0.0),
+        "batchnorm": ranges.get("op:BatchNorm", 0.0)
+        + ranges.get("op:BatchNorm_backward", 0.0),
+        "quantize": quant,
+        "bucket_cat_and_sums": bucket - opt_ms,
+        "optimizer": opt_ms,
+        "pull_copies": ranges.get("kv:pull", 0.0)}
+    groups["elementwise/other"] = device_ms - sum(groups.values())
+    wall = statistics.median(walls)
+    print(json.dumps({
+        "phase": "profile", "step": name, **extra, "wall_ms_p50": wall,
+        "wall_ms": walls, "device_ms": device_ms,
+        "device_idle_share": 1 - device_ms / wall,
+        "device_ms_by_group": {k: round(v, 4) for k, v in
+                               sorted(groups.items(), key=lambda kv: -kv[1])},
+        "device_launches_per_step": kernels / n,
+        "buckets_per_step": buckets[0],
+        "host_syncs_per_step": len(syncs),
+        "sync_sites": sorted(set(syncs))}), flush=True)
+
+
+def profile_resnet(torch, cs, mx):
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.weights import convert_symbol_params
+    _label_resnet_ranges()
     cfg, train = cs.RESNET, cs.RESNET_TRAIN
     B = train["batch"]
     shapes = dict(data=(B,) + tuple(cfg["image_shape"]), softmax_label=(B,))
@@ -342,45 +397,51 @@ def profile_resnet(torch, cs, mx):
         mod.fit_step(batch)
         torch.cuda.synchronize()
 
-    buckets = []
+    _report_resnet(torch, "resnet50_2bit", step,
+                   lambda: mod.fit_step(batch), kv,
+                   {"config": cfg, "batch": B,
+                    "threshold": train["threshold"]})
+
+
+def profile_gluon(torch, cs, mx, hybrid):
+    """chip_smoke.py's gluon_resnet 2-bit arm: model-zoo ResNet-50 v2
+    through Gluon (its Xavier draw, batch 128 already on the card), one
+    step = record, forward, loss, backward, Trainer.step; ``step`` adds
+    the loss readback."""
+    from mxnet_tpu_torch import autograd, gluon
+    _label_resnet_ranges()
+    cfg = cs.GLUON
+    B = cfg["batch"]
+    mx.random.seed(cs.SEED)
+    net = cs._gluon_resnet50(mx, cfg["classes"])
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    if hybrid:
+        net.hybridize()
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = gluon.Trainer(
+        net.collect_params(), "sgd",
+        {"learning_rate": cfg["lr"], "momentum": cfg["momentum"],
+         "wd": cfg["wd"]}, kvstore="device",
+        compression_params={"type": "2bit", "threshold": cfg["threshold"]})
+    x, y = cs._image_batches(cfg["image"], B, cs.SEED + 23, cfg["classes"])
+    data = mx.nd.array(x, ctx=mx.gpu(0))
+    label = mx.nd.array(y, ctx=mx.gpu(0))
 
     def once():
-        b0 = kv._engine.stats["buckets"]
-        mod.fit_step(batch)
-        buckets.append(kv._engine.stats["buckets"] - b0)
+        with autograd.record():
+            loss = loss_fn(net(data), label)
+        loss.backward()
+        trainer.step(B)
+        return loss
 
-    n = 3
-    walls, syncs, prof = _measure(torch, step, once, n)
-    total, kernels = device_ms_by_group(torch, prof, n)
-    device_ms = sum(total.values())
-    ranges = _range_ms(torch, prof, n)
-    quant = sum(_kernel_ms(torch, prof, n, ("two_bit_quantize",)).values())
-    # the quantize kernel is in no range: the bucket range holds the cat,
-    # the sums and the optimizer
-    bucket = ranges.get("kv:bucket", 0.0)
-    opt_ms = ranges.get("kv:optimizer", 0.0)
-    groups = {
-        "convolution": ranges.get("op:Convolution", 0.0)
-        + ranges.get("aten::convolution_backward", 0.0),
-        "batchnorm": ranges.get("op:BatchNorm", 0.0)
-        + ranges.get("op:BatchNorm_backward", 0.0),
-        "quantize": quant,
-        "bucket_cat_and_sums": bucket - opt_ms,
-        "optimizer": opt_ms,
-        "pull_copies": ranges.get("kv:pull", 0.0)}
-    groups["elementwise/other"] = device_ms - sum(groups.values())
-    wall = statistics.median(walls)
-    print(json.dumps({
-        "phase": "profile", "step": "resnet50_2bit", "config": cfg,
-        "batch": B, "threshold": train["threshold"], "wall_ms_p50": wall,
-        "wall_ms": walls, "device_ms": device_ms,
-        "device_idle_share": 1 - device_ms / wall,
-        "device_ms_by_group": {k: round(v, 4) for k, v in
-                               sorted(groups.items(), key=lambda kv: -kv[1])},
-        "device_launches_per_step": kernels / n,
-        "buckets_per_step": buckets[0],
-        "host_syncs_per_step": len(syncs),
-        "sync_sites": sorted(set(syncs))}), flush=True)
+    def step():
+        float(once().mean().asscalar())
+
+    once()                                  # finishes deferred init
+    _report_resnet(torch, "gluon_resnet50_v2_2bit"
+                   + ("_hybridized" if hybrid else "_imperative"), step,
+                   once, trainer._kvstore,
+                   {"config": cfg, "batch": B, "threshold": cfg["threshold"]})
 
 
 _RELAYOUT = ("nchwtonhwc", "nhwctonchw", "transpose", "direct_copy",
@@ -509,6 +570,9 @@ def main():
         return 0
     if "--resnet" in args:
         profile_resnet(torch, cs, mx)
+        return 0
+    if "--gluon" in args:
+        profile_gluon(torch, cs, mx, "--hybridize" in args)
         return 0
     if "--train" in args:
         if dtype == "bfloat16":
