@@ -35,7 +35,8 @@ Phases, each printed as one JSON line:
    beside ``native_layer_norm_backward`` and
    ``scaled_dot_product_attention`` (forward, and its backward) as the
    library yardsticks;
-7. train: the same full-width model trained through ``Module.fit``
+7. train: the same full-width model trained through ``Module.fit``'s
+   eager pair (``MXNET_FIT_FUSED=0``; 31 drives the fused step)
    (SGD, momentum 0.9, learning rate 0.05, perplexity metric) over two
    fixed batches of 4 x 1024 random tokens for 5 epochs: the loss must
    be finite and fall on the repeated batch, every step must launch
@@ -59,7 +60,8 @@ Phases, each printed as one JSON line:
    pulled values and residuals are bit-identical, card against CPU and
    bucketed against eager; with SGD they agree within rtol/atol 5e-7;
 11. train_resnet: ResNet-50 v2 (3x224x224, 1000 classes, seeded weights
-   and BatchNorm statistics) through ``Module.fit`` with
+   and BatchNorm statistics) through ``Module.fit``'s eager pair
+   (``MXNET_FIT_FUSED=0``) with
    ``mx.kv.create('device')``, batch 128, two fixed synthetic batches
    for 5 epochs (SGD, learning rate 0.05, momentum 0.9, wd 1e-4,
    accuracy metric), a dense arm (the loss must be finite and fall on
@@ -197,7 +199,40 @@ Phases, each printed as one JSON line:
    within 0.1 relative L2 (ROADMAP C's bound for BatchNorm nets); an
    ``nn.LayerNorm`` block (64 x 1024) forward and backward, eager and
    hybridized, within 3's bound, launching the LayerNorm kernels once
-   each on the card.
+   each on the card;
+29. fused_band4d (with the kernel phases of 3): row 10's kernel against
+   its plain version (bf16 at 20's bound, f32 at 3's), two runs
+   bit-identical, at the fused-sandwich microbenchmark's two bands
+   (batch 256, 28 x 28, 128 -> 512 on the channel-last view of cuDNN's
+   output and 512 -> 128 on a contiguous tensor), at 64 x 56 x 56 (64 ->
+   256, the TPU kernel's th = 16 rows), in f32, on an NHWC view of an
+   NCHW tensor, on a channel slice and at an odd shape; the two bands
+   timed as in 3 beside ``torch.matmul`` in bf16 on the activated input
+   and row 7's kernel on the 2-D view, bounded by bytes over 3.35 TB/s
+   or operations over the bf16 tensor-core peak;
+30. sandwich (after 26): ``tools/torch_fused_sandwich_bench.py``'s
+   three arms (plain: elementwise ops and ``torch.matmul``; pal2d: row
+   7's kernel on the 2-D view; pal4d: row 10's kernel) at its shapes:
+   pal2d and pal4d outputs bit-equal, plain within 1e-2 relative L2;
+   ms per iteration from CUDA graphs of 2 and 62 iterations (best of 3
+   replays each); every band launch of the captured loops counted (2
+   per iteration), no plain version;
+31. fit_fused (after 22): ``Module.fit`` at full width through the
+   single-launch fused step (two warm-up steps, one capture, then one
+   graph replay per step) against its eager pair, each for 10 steps
+   over two fixed batches, cuDNN's deterministic algorithms in both:
+   ResNet-50 v2 at batch 128 through ``mx.kv.create('device')`` dense
+   and 2-bit (threshold 0.5; SGD 0.1, momentum 0.9, wd 1e-4, accuracy)
+   and the transformer at 4 x 1024 tokens (SGD 0.05, momentum 0.9,
+   perplexity).  Each fused arm captures once, runs every step fused,
+   makes no host sync in a steady step (``set_sync_debug_mode``
+   warnings inside ``fit_step`` and ``update_metric``), launches one
+   graph per steady step (``torch.profiler``'s runtime calls over 2
+   more steps), records the quantizer once per bucket (2-bit) or the
+   LayerNorm and flash kernels (transformer) in its graph, ends with
+   weights within 1e-3 relative L2 of the eager arm's move and its
+   metric within 1e-5; step p50s, peak memory and the launch counts are
+   printed.
 
 Then the kernels' JSON line (every kernel with its dtype; the bf16
 forms as rows of their own, the attention kernels with their
@@ -206,6 +241,7 @@ Any failed check raises, so the script exits non-zero and prints no
 result; it also exits non-zero when no CUDA device is present.
 TF32 is off for every matrix product and convolution.
 """
+import contextlib
 import json
 import math
 import os
@@ -327,6 +363,29 @@ GLUON_AGREE = dict(classes=10, image=(3, 32, 32), batch=4, out_l2=1e-3,
                    move_l2=0.1, ln_shape=(64, 1024))
 
 
+# row 10, fused_band4d, beside the sandwich's two bands (bf16): a shape
+# whose rows pick the TPU kernel's th = 16 band, an f32 shape, and an
+# odd shape that takes the kernel's element-by-element paths
+BAND4D = dict(th_shape=(64, 56, 56, 64, 256), f32_shape=(64, 28, 28, 128, 512),
+              odd_shape=(3, 7, 9, 37, 93))
+# the sandwich's arms agree: pal2d and pal4d run one tiling and one sum
+# order (bit-equal); the plain arm's cuBLAS bf16 product rounds its f32
+# sums once more per band (relative L2 bound)
+SANDWICH = dict(plain_l2=1e-2)
+# Module.fit fused against eager at full width, 10 steps each over two
+# fixed batches: ResNet-50 v2 at batch 128 through kvstore='device',
+# dense and 2-bit at 0.5, SGD 0.1 / 0.9 / wd 1e-4, metric acc; the
+# transformer at 4 x 1024 tokens, SGD 0.05 / 0.9, metric perplexity.
+# Both arms run cuDNN's deterministic algorithms, so the fused and
+# eager steps compute the same sums and their weights are compared at
+# move_l2 (the difference over the eager arm's move, relative L2).
+FIT_FUSED = dict(resnet=dict(batch=128, lr=0.1, momentum=0.9, wd=1e-4,
+                             threshold=0.5, batches=2, epochs=5),
+                 transformer=dict(batch=4, lr=0.05, momentum=0.9, batches=2,
+                                  epochs=5),
+                 move_l2=1e-3, profiled_steps=2)
+
+
 class SmokeFailure(RuntimeError):
     pass
 
@@ -338,6 +397,21 @@ def check(cond, msg):
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+@contextlib.contextmanager
+def fit_fused_off():
+    """Modules made inside keep the eager pair (``MXNET_FIT_FUSED=0``):
+    the phases written before the fused fit step check that path."""
+    old = os.environ.get("MXNET_FIT_FUSED")
+    os.environ["MXNET_FIT_FUSED"] = "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("MXNET_FIT_FUSED")
+        else:
+            os.environ["MXNET_FIT_FUSED"] = old
 
 
 # ----------------------------------------------------------------------
@@ -1384,7 +1458,8 @@ def phase_train(torch, mx, np_params, cfg=FULL, ctx=None):
     B, S = TRAIN["batch"], cfg["seq_len"]
     x, y = _token_batches(cfg, B * TRAIN["batches"], SEED + 6)
     t0 = time.perf_counter()
-    mod = mx.Module(transformer.get_symbol(**cfg), context=ctx)
+    with fit_fused_off():
+        mod = mx.Module(transformer.get_symbol(**cfg), context=ctx)
     mod.bind(data_shapes=[("data", (B, S))],
              label_shapes=[("softmax_label", (B * S,))])
     mod.set_params(convert_params(np_params, ctx, cfg), {})
@@ -1690,8 +1765,9 @@ def phase_train_resnet(torch, mx, ctx=None, cfg=RESNET, train=RESNET_TRAIN):
         args, auxs = convert_symbol_params(
             np_args, np_aux, ctx, sym, data=(B,) + tuple(cfg["image_shape"]),
             softmax_label=(B,))
-        mod = mx.Module(resnet.get_symbol(**cfg), context=ctx,
-                        compression_params=comp)
+        with fit_fused_off():
+            mod = mx.Module(resnet.get_symbol(**cfg), context=ctx,
+                            compression_params=comp)
         kv = mx.kv.create("device")
         sync()
         setup_s = time.perf_counter() - t0
@@ -3262,6 +3338,396 @@ def phase_gluon_agreement(torch, mx, ctxs=None, cfg=GLUON_AGREE):
           "layernorm": "agrees"})
 
 
+# ----------------------------------------------------------------------
+# Row 10: fused_band4d, and the fused-sandwich microbenchmark
+# ----------------------------------------------------------------------
+def _band_case(torch, g, dev, B, H, W, K, N, dtype):
+    x = torch.randn(B, H, W, K, device=dev, generator=g).to(dtype)
+    s = 1 + 0.2 * torch.randn(K, device=dev, generator=g)
+    t = 0.2 * torch.randn(K, device=dev, generator=g)
+    w = (torch.randn(K, N, device=dev, generator=g) / K ** 0.5).to(dtype)
+    return x, s, t, w
+
+
+def phase_fused_band4d(torch, mxk, dev, flush):
+    """fused_band4d against its plain version (bf16: close_bf16; f32:
+    rtol 1e-4 / atol 1e-5), two runs bit-identical, at the sandwich's
+    two bands (the up band's input the channel-last view of cuDNN's
+    output, the down band's a contiguous (B, H, W, K) tensor), at a shape
+    whose rows pick the TPU kernel's th = 16, in f32, on an NHWC view of
+    an NCHW tensor (channel stride H*W), on a channel slice of a wider
+    tensor and at an odd shape.  The two bands are timed beside the
+    plain version, torch.matmul in bf16 on the already activated input
+    and row 7's kernel on the 2-D view.  Returns the kernels-line row,
+    per-launch means over the sandwich's two bands."""
+    from mxnet_tpu_torch.tools import fused_sandwich as fs
+    g = torch.Generator(device=dev).manual_seed(SEED + 31)
+    bf = torch.bfloat16
+    cases = [(name, x, s, t, w) for name, x, s, t, w
+             in fs.band_shapes(fs.inputs(dev))]
+    for key, dtype in (("th_shape", bf), ("f32_shape", torch.float32),
+                       ("odd_shape", bf)):
+        cases.append((key, *_band_case(torch, g, dev, *BAND4D[key], dtype)))
+    x, s, t, w = _band_case(torch, g, dev, *BAND4D["f32_shape"], bf)
+    nchw_view = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    wide = torch.zeros(*x.shape[:3], x.shape[3] + 8, dtype=bf, device=dev)
+    wide[..., :x.shape[3]] = x
+    cases += [("nchw_view", nchw_view, s, t, w),
+              ("channel_slice", wide[..., :x.shape[3]], s, t, w)]
+    rows, errs = [], []
+    for name, x, s, t, w in cases:
+        got = mxk.fused_band4d(x, s, t, w)
+        again = mxk.fused_band4d(x, s, t, w)
+        ref = mxk.fused_band4d_plain(x, s, t, w)
+        torch.cuda.synchronize()
+        ok = close_bf16(torch, got, ref) if x.dtype == bf \
+            else close(torch, got, ref)
+        check(got.dtype == x.dtype and tuple(got.shape)
+              == tuple(x.shape[:3]) + (w.shape[1],),
+              "fused_band4d %s returned %s %s" % (name, got.dtype,
+                                                 tuple(got.shape)))
+        check(ok, "fused_band4d %s disagrees with its plain version (max abs "
+              "err %g)" % (name, max_err(got, ref)))
+        check(torch.equal(got, again), "fused_band4d %s: two runs differ"
+              % name)
+        errs.append(max_err(got, ref))
+        row = {"case": name, "shape": list(x.shape) + [w.shape[1]],
+               "dtype": str(x.dtype).replace("torch.", ""),
+               "x_strides": list(x.stride()),
+               "x_contiguous": x.is_contiguous(), "max_abs_err": errs[-1]}
+        if name in ("up", "down"):
+            B, H, W, K = x.shape
+            N = w.shape[1]
+            M = B * H * W
+            a = torch.relu(x.float() * s + t).to(bf)
+            w_nk = w.t().contiguous()
+            row.update(
+                ms=time_ms(torch, lambda: mxk.fused_band4d(x, s, t, w), flush),
+                plain_ms=time_ms(torch, lambda: mxk.fused_band4d_plain(
+                    x, s, t, w), flush, reps=20),
+                library_ms=time_ms(torch, lambda: torch.matmul(a, w), flush),
+                pal2d_ms=time_ms(torch, lambda: mxk.fused_scale_relu_matmul_fwd(
+                    x.reshape(-1, K), s, t, w_nk), flush))
+            nbytes = 2 * (M * K + K * N + M * N) + 4 * 2 * K
+            row["bound_ms"], row["bound_by"] = bound(
+                nbytes, 2 * M * K * N + 3 * M * K, BF16_FLOPS_PER_S)
+            row["tflops"] = 2 * M * K * N / row["ms"] / 1e9
+            rows.append(row)
+        emit({"phase": "kernel", "name": "fused_band4d", **row})
+        del got, again, ref
+    per_launch = {k: sum(r[k] for r in rows) / len(rows)
+                  for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                            "pal2d_ms")}
+    emit({"phase": "fused_band4d", "cases_checked": len(cases),
+          "library_call": "torch.matmul in bf16 on relu(x*scale+shift) "
+                          "(the product alone)", **per_launch})
+    return {"name": "fused_band4d", "route": "cuda", "dtype": "bfloat16",
+            "source": "mxnet_tpu_torch/csrc/fused_band4d.cu",
+            "replaces": "tools/fused_sandwich_bench.py:61",
+            "max_abs_err": max(errs),
+            "bound_by": "bytes" if all(r["bound_by"] == "bytes"
+                                       for r in rows) else "operations",
+            **{k: per_launch[k] for k in ("ms", "plain_ms", "library_ms",
+                                          "bound_ms")}}
+
+
+def phase_sandwich(torch, mx):
+    """The fused-sandwich microbenchmark (``tools/
+    torch_fused_sandwich_bench.py``) at its shapes: the three arms'
+    outputs agree (pal2d and pal4d bit for bit, plain within SANDWICH's
+    relative L2), then each arm's ms per iteration from captured loops.
+    Returns the kernel launches of the timed run (the main path of row
+    10) and the iterations it captured per arm."""
+    from mxnet_tpu_torch.kernels import LAUNCHES, PLAIN_CALLS, reset_counts
+    from mxnet_tpu_torch.tools import fused_sandwich as fs
+    dev = torch.device("cuda", 0)
+    args = fs.inputs(dev)
+    with torch.no_grad():
+        outs = {name: fs.make_net(band)(*fs.arm_args(name, args))
+                for name, band in fs.ARMS.items()}
+        torch.cuda.synchronize()
+        check(torch.equal(outs["pal2d"], outs["pal4d"]),
+              "sandwich: pal2d and pal4d outputs differ (max abs %g)"
+              % max_err(outs["pal2d"], outs["pal4d"]))
+        plain_l2 = float((outs["plain"].float() - outs["pal4d"].float())
+                         .norm() / outs["pal4d"].float().norm())
+        check(plain_l2 <= SANDWICH["plain_l2"] and bool(
+            torch.isfinite(outs["pal4d"].float()).all()),
+              "sandwich: plain and pal4d outputs differ by %g relative L2"
+              % plain_l2)
+        del outs
+        torch.cuda.empty_cache()
+        reset_counts()
+        arms = {}
+        for name, band in fs.ARMS.items():
+            arms[name] = fs.bench(fs.make_net(band), fs.arm_args(name, args))
+            torch.cuda.empty_cache()
+        launches, plain = dict(LAUNCHES), dict(PLAIN_CALLS)
+    # each of the two captures ran one warm-up iteration, then recorded
+    # its loop: two band launches per iteration
+    iters = 2 + fs.N0 + fs.N0 + fs.ITERS
+    for kernel in ("fused_band4d", "fused_scale_relu_matmul"):
+        check(launches[kernel] == 2 * iters,
+              "sandwich: %s launched %d times for %d iterations"
+              % (kernel, launches[kernel], iters))
+    check(not any(plain.values()), "sandwich: plain versions ran: %s"
+          % plain)
+    emit({"phase": "sandwich", "shape": fs.SHAPE, "iters": fs.ITERS,
+          "n0": fs.N0, "reps": fs.REPS, "plain_vs_pal4d_rel_l2": plain_l2,
+          "pal2d_pal4d_bit_equal": True,
+          "ms_per_iter": {k: v["ms_per_iter"] for k, v in arms.items()},
+          "arms": arms, "launches": {k: launches[k] for k in
+                                     ("fused_band4d",
+                                      "fused_scale_relu_matmul")}})
+    return launches, iters
+
+
+# ----------------------------------------------------------------------
+# Module.fit's single-launch fused step against the eager pair
+# ----------------------------------------------------------------------
+_RUNTIME_CALLS = ("cudaGraphLaunch", "cudaLaunchKernel", "cudaLaunchKernelExC",
+                  "cuLaunchKernel", "cuLaunchKernelEx", "cudaMemcpyAsync",
+                  "cudaMemsetAsync")
+
+
+def _fit_arm(torch, mx, make, it, fit_kw, fused, steps):
+    """Module.fit of one arm: step times, peak memory, kernel launches
+    of the run, host syncs in each step (``torch.cuda.set_sync_debug_mode``
+    warnings inside fit_step and update_metric), the final weights and
+    metric, then ``profiled_steps`` more fit_steps under torch.profiler
+    (runtime launch calls per step)."""
+    import gc
+    import warnings
+    from mxnet_tpu_torch.kernels import LAUNCHES, PLAIN_CALLS, reset_counts
+    from torch.profiler import ProfilerActivity, profile
+    gc.collect()                    # an earlier arm's graph and its pool
+    if fused:
+        mod = make()
+    else:
+        with fit_fused_off():
+            mod = make()
+    metric = mx.metric.create(fit_kw["eval_metric"])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    stamps, syncs = [], []
+
+    def watched(fn):
+        # the step's own calls only: the loop's epoch-end metric log is
+        # a read the fit loop makes once per epoch
+        def run(*args, **kw):
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                return fn(*args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return run
+
+    mod.fit_step = watched(mod.fit_step)
+    mod.update_metric = watched(mod.update_metric)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+
+        def per_step(param):
+            syncs.append(sum("synchroniz" in str(w.message) for w in caught))
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+        reset_counts()
+        stamps.append(time.perf_counter())
+        syncs.append(0)
+        mod.fit(it, eval_metric=metric, batch_end_callback=per_step,
+                **{k: v for k, v in fit_kw.items() if k != "eval_metric"})
+    torch.cuda.synchronize()
+    launches, plain = dict(LAUNCHES), dict(PLAIN_CALLS)
+    check(len(stamps) == steps + 1, "fit_fused: %d steps ran" % (len(stamps)
+                                                                 - 1))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    weights = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+    value = metric.get()[1]
+    fused_fit = mod._fused_fit
+    fused_steps = fused_fit.launches if fused_fit is not None else 0
+    it.reset()
+    batch = next(iter(it))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(FIT_FUSED["profiled_steps"]):
+            mod.fit_step(batch, metric)
+            mod.update_metric(metric, batch.label)
+        torch.cuda.synchronize()
+    calls = {}
+    for ev in prof.events():
+        if ev.name in _RUNTIME_CALLS:
+            calls[ev.name] = calls.get(ev.name, 0) \
+                + 1 / FIT_FUSED["profiled_steps"]
+    step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    step_syncs = np.diff(syncs).tolist()
+    info = {"fused": fused_fit is not None, "step_ms": step_ms,
+            "peak_mem_gb": peak, "metric": value,
+            "host_syncs_per_step": step_syncs,
+            "runtime_calls_per_step": calls,
+            "plain_calls": {k: v for k, v in plain.items() if v},
+            "launches": {k: v for k, v in launches.items() if v}}
+    if fused_fit is not None:
+        first = 1 + 2                      # warm-up steps, then the capture
+        info.update(captures=fused_fit.captures,
+                    fused_steps=fused_steps,
+                    captured_launches=fused_fit.captured_launches(),
+                    step_ms_p50=statistics.median(step_ms[first:]))
+    else:
+        info["step_ms_p50"] = statistics.median(step_ms[2:])
+    check(not info["plain_calls"], "fit_fused: plain versions ran: %s"
+          % info["plain_calls"])
+    del mod
+    return info, weights
+
+
+def _compare_arms(name, fused, eager, initial, tol):
+    """Relative L2 of the fused-minus-eager weights over the eager
+    arm's move from the initial weights; fails past ``tol``."""
+    diff = math.sqrt(sum(float(np.square(fused[k].astype(np.float64)
+                                         - eager[k]).sum()) for k in eager))
+    move = math.sqrt(sum(float(np.square(eager[k].astype(np.float64)
+                                         - initial[k]).sum())
+                         for k in eager))
+    rel = diff / move
+    worst = max(float(np.abs(fused[k] - eager[k]).max()) for k in eager)
+    equal = all(np.array_equal(fused[k], eager[k]) for k in eager)
+    check(move > 0 and rel <= tol, "fit_fused %s: fused and eager weights "
+          "differ by %g of the move (bound %g)" % (name, rel, tol))
+    return {"move_rel_l2": rel, "max_abs_diff": worst, "bit_equal": equal,
+            "move_l2": move}
+
+
+def phase_fit_fused(torch, mx, np_params, cfg=FULL):
+    """Module.fit at full width, fused (the single-launch step: one CUDA
+    graph replay per step after two warm-up steps and one capture)
+    against eager (``MXNET_FIT_FUSED=0``): ResNet-50 v2 dense and 2-bit,
+    the transformer.  Each fused arm must capture once, run every step
+    fused, make no host sync in its steady steps, launch one graph per
+    steady step, and record in its graph the quantizer once per bucket
+    (2-bit) or the transformer's LayerNorm and flash kernels; its
+    weights after the run within FIT_FUSED's move_l2 of the eager arm's
+    and its metric within 1e-5 of the eager arm's.  Returns the fused
+    arms' launch counts and captured launches."""
+    from mxnet_tpu_torch.models import resnet, transformer
+    from mxnet_tpu_torch.weights import convert_params, convert_symbol_params
+    ctx = mx.gpu(0)
+    rc = FIT_FUSED["resnet"]
+    B = rc["batch"]
+    shapes = dict(data=(B,) + tuple(RESNET["image_shape"]),
+                  softmax_label=(B,))
+    sym = resnet.get_symbol(**RESNET)
+    np_args, np_aux = seeded_resnet_params(sym, B, RESNET["image_shape"])
+    x, y = _image_batches(RESNET["image_shape"], B * rc["batches"],
+                          SEED + 11, RESNET["num_classes"])
+
+    def resnet_arm(thr, fused):
+        comp = None if thr is None else {"type": "2bit", "threshold": thr}
+        args, auxs = convert_symbol_params(np_args, np_aux, ctx, sym,
+                                           **shapes)
+        kv = mx.kv.create("device")
+        info, w = _fit_arm(
+            torch, mx, lambda: mx.Module(resnet.get_symbol(**RESNET),
+                                         context=ctx, compression_params=comp),
+            mx.io.NDArrayIter(x, y, batch_size=B),
+            dict(num_epoch=rc["epochs"], kvstore=kv, optimizer="sgd",
+                 optimizer_params={"learning_rate": rc["lr"],
+                                   "momentum": rc["momentum"],
+                                   "wd": rc["wd"]},
+                 arg_params=args, aux_params=auxs, eval_metric="acc"),
+            fused, rc["batches"] * rc["epochs"])
+        if thr is not None and not fused:
+            info["kv_buckets_per_step"] = kv._engine.stats["buckets"] \
+                / (len(info["step_ms"]) + FIT_FUSED["profiled_steps"])
+        return info, w
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out, ret = {}, {}
+    try:
+        for arm, thr in (("dense", None), ("2bit", rc["threshold"])):
+            res = {"fused": resnet_arm(thr, True),
+                   "eager": resnet_arm(thr, False)}
+            out["resnet_" + arm] = _fused_arms(
+                "resnet_" + arm, res, np_args,
+                "two_bit_quantize_fused" if thr is not None else None)
+            if thr is not None:
+                ret["resnet_2bit"] = res["fused"][0]
+                captured = (res["fused"][0]["captured_launches"]
+                            or [{}])[0].get("two_bit_quantize_fused", 0)
+                check(captured == res["eager"][0]["kv_buckets_per_step"],
+                      "fit_fused resnet_2bit: %d quantizer launches captured, "
+                      "%g buckets per eager step" % (
+                          captured, res["eager"][0]["kv_buckets_per_step"]))
+        tc = FIT_FUSED["transformer"]
+        Bt, S = tc["batch"], cfg["seq_len"]
+        tokens, targets = _token_batches(cfg, Bt * tc["batches"], SEED + 6)
+        res = {}
+        for fused in (True, False):
+            def make():
+                mod = mx.Module(transformer.get_symbol(**cfg), context=ctx)
+                mod.bind(data_shapes=[("data", (Bt, S))],
+                         label_shapes=[("softmax_label", (Bt * S,))])
+                mod.set_params(convert_params(np_params, ctx, cfg), {})
+                return mod
+            res["fused" if fused else "eager"] = _fit_arm(
+                torch, mx, make,
+                FlatLabels(mx, mx.io.NDArrayIter(tokens, targets,
+                                                 batch_size=Bt)),
+                dict(num_epoch=tc["epochs"], optimizer="sgd",
+                     optimizer_params={"learning_rate": tc["lr"],
+                                       "momentum": tc["momentum"]},
+                     eval_metric="perplexity"),
+                fused, tc["batches"] * tc["epochs"])
+        out["transformer"] = _fused_arms("transformer", res, np_params,
+                                         "flash_attention_fwd")
+        ret["transformer"] = res["fused"][0]
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    # the step time with cuDNN's default algorithms, beside train_resnet's
+    # eager 2-bit arm of the same run
+    info, _ = resnet_arm(rc["threshold"], True)
+    out["resnet_2bit_fused_default_algorithms"] = {
+        k: info[k] for k in ("step_ms", "step_ms_p50", "peak_mem_gb",
+                             "captures", "host_syncs_per_step")}
+    emit({"phase": "fit_fused", "config": {"resnet": RESNET,
+                                           "transformer": cfg},
+          "train": FIT_FUSED, **out})
+    return ret
+
+
+def _fused_arms(name, res, initial, kernel):
+    """Checks of one fused arm against its eager twin; the phase line's
+    entry for the pair."""
+    (fi, fw), (ei, ew) = res["fused"], res["eager"]
+    steps = len(fi["step_ms"])
+    check(fi["fused"] and not ei["fused"], "fit_fused %s: fused %s, eager "
+          "%s" % (name, fi["fused"], ei["fused"]))
+    check(fi["captures"] == 1 and fi["fused_steps"] == steps,
+          "fit_fused %s: %d captures, %d of %d steps fused"
+          % (name, fi["captures"], fi["fused_steps"], steps))
+    steady = fi["host_syncs_per_step"][3:]
+    check(not any(steady), "fit_fused %s: host syncs in steady steps %s"
+          % (name, steady))
+    graphs = fi["runtime_calls_per_step"].get("cudaGraphLaunch")
+    check(graphs is None or graphs == 1,
+          "fit_fused %s: %s graph launches per steady step" % (name, graphs))
+    captured = fi["captured_launches"][0] if fi["captured_launches"] \
+        else {}
+    if kernel is not None:
+        check(captured.get(kernel, 0) > 0 and fi["launches"].get(kernel, 0)
+              > 0, "fit_fused %s: %s not in the captured step %s"
+              % (name, kernel, captured))
+    check(math.isfinite(fi["metric"]) and abs(fi["metric"] - ei["metric"])
+          <= 1e-5 * max(1.0, abs(ei["metric"])),
+          "fit_fused %s: metric %g fused, %g eager" % (name, fi["metric"],
+                                                      ei["metric"]))
+    return {"fused": fi, "eager": ei,
+            "weights": _compare_arms(name, fw, ew, initial,
+                                     FIT_FUSED["move_l2"])}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3290,9 +3756,11 @@ def main():
     bf16_kernels = phase_flash_bf16(torch, mxk, dev, flush) + \
         phase_layernorm_bf16(torch, mxk, dev, flush) + \
         [phase_fused_matmul_bf16(torch, mxk, dev, flush)]
+    band4d_kernel = phase_fused_band4d(torch, mxk, dev, flush)
     head_dim_times = phase_head_dim(torch, mxk, dev, flush)
     rtc_kernels = phase_rtc(torch, mx, dev, flush)
     del flush
+    sandwich_launches, sandwich_iters = phase_sandwich(torch, mx)
     full = seeded_params(FULL)
     serve_launches, serve_steps = phase_serve(torch, mx, full)
     phase_agreement(torch, mx)
@@ -3301,6 +3769,7 @@ def main():
     phase_prefill_agreement(torch, mx)
     train_launches, train_steps = phase_train(torch, mx, full)
     bf16_launches, bf16_steps = phase_train_bf16(torch, mx, full)
+    fit_fused = phase_fit_fused(torch, mx, full)
     del full
     phase_train_agreement(torch, mx)
     phase_kvstore(torch, mx)
@@ -3328,11 +3797,34 @@ def main():
     serve_kernels[2]["train_launches"] = train_launches["layernorm_fused"]
     prefill_kernel["launches"] = prefill_launches["paged_prefill_attend"]
     prefill_kernel["launches_per_step"] = prefill_kernel["launches"]
+    # Module.fit's main path is the fused step (fit_fused): its launches
+    # are the two warm-up steps' and the capture's, and the graph
+    # replays what the capture recorded (captured_per_step); the eager
+    # pair's per-step counts stay beside them (launches_per_step)
+    fused_tf, fused_rn = fit_fused["transformer"], fit_fused["resnet_2bit"]
+    for arm, names in ((fused_tf, [k["name"] for k in train_kernels]
+                        + ["layernorm_fused"]),
+                       (fused_rn, [quant_kernel["name"]])):
+        for name in names:
+            check(arm["launches"].get(name, 0) > 0
+                  and arm["captured_launches"][0].get(name, 0) > 0,
+                  "fit_fused: %s was not launched on the fused path" % name)
     for k in train_kernels:
-        k["launches"] = train_launches[k["name"]]
+        k["launches"] = fused_tf["launches"][k["name"]]
+        k["captured_per_step"] = fused_tf["captured_launches"][0][k["name"]]
         k["launches_per_step"] = train_launches[k["name"]] / train_steps
-    quant_kernel["launches"] = resnet_launches[quant_kernel["name"]]
-    quant_kernel["launches_per_step"] = quant_kernel["launches"] / resnet_steps
+    serve_kernels[2]["fit_fused_captured_per_step"] = \
+        fused_tf["captured_launches"][0]["layernorm_fused"]
+    quant_kernel["launches"] = fused_rn["launches"][quant_kernel["name"]]
+    quant_kernel["captured_per_step"] = \
+        fused_rn["captured_launches"][0][quant_kernel["name"]]
+    quant_kernel["launches_per_step"] = \
+        resnet_launches[quant_kernel["name"]] / resnet_steps
+    band4d_kernel["launches"] = sandwich_launches["fused_band4d"]
+    check(band4d_kernel["launches"] > 0, "sandwich: fused_band4d was not "
+          "launched")
+    band4d_kernel["launches_per_iteration"] = \
+        band4d_kernel["launches"] / sandwich_iters
     quant_kernel["gluon_launches_per_step"] = \
         gluon_launches[quant_kernel["name"]] / gluon_steps
     fused_kernel["launches"] = nhwc_launches[fused_kernel["name"]]
@@ -3357,6 +3849,9 @@ def main():
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "dtype")
     emit({"kernels": [{**{key: k[key] for key in keys},
                        **{key: k[key] for key in ("launches_per_step",
+                                                  "captured_per_step",
+                                                  "launches_per_iteration",
+                                                  "fit_fused_captured_per_step",
                                                   "train_launches",
                                                   "spec_launches_per_step",
                                                   "gluon_launches_per_step",
@@ -3364,7 +3859,8 @@ def main():
                                                   "compile_ms",
                                                   "host_launch_us")
                           if key in k}}
-                      for k in f32_kernels + bf16_kernels + rtc_kernels]})
+                      for k in f32_kernels + bf16_kernels + rtc_kernels
+                      + [band4d_kernel]]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

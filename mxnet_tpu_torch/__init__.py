@@ -9,9 +9,11 @@ channel-last ResNet through ``parallel.TrainStep``, optionally after
 the BN -> ReLU -> Conv1x1 fusion pass (``symbol.fuse``).  The paged
 decode attention, the chunked-prefill attention, LayerNorm (forward and
 backward), causal flash attention (forward and backward), the 2-bit
-quantizer and the fused BN-apply/ReLU/1x1 convolution run in
-hand-written CUDA kernels (``csrc/``), built for ``sm_90a`` on first
-use.  The imperative front end (``mx.nd`` ops, ``autograd``) and Gluon
+quantizer and the fused BN-apply/ReLU/1x1 convolution (over a 2-D view,
+and over a strided 4-D channel-last tensor) run in hand-written CUDA
+kernels (``csrc/``), built for ``sm_90a`` on first use.  ``Module.fit``
+runs each step of an eligible configuration as one CUDA graph replay
+(``module/fused_fit.py``).  The imperative front end (``mx.nd`` ops, ``autograd``) and Gluon
 (blocks, layers, losses, ``Trainer``, the model-zoo ResNets) train
 eagerly or hybridized; ``mx.rtc.CudaModule`` compiles users' CUDA
 kernels with NVRTC and launches them on NDArrays.

@@ -10,6 +10,7 @@ from .flash_attention import (FlashAttentionFn, flash_attention,
                               flash_attention_bwd_dq_plain,
                               flash_attention_fwd, flash_attention_fwd_plain,
                               flash_attention_plain)
+from .fused_band4d import fused_band4d, fused_band4d_plain
 from .fused_matmul import (fused_scale_relu_matmul_fwd,
                            fused_scale_relu_matmul_plain)
 from .layernorm import (LayerNormFn, layernorm, layernorm_bwd_plain,
@@ -32,4 +33,5 @@ __all__ = ["LAUNCHES", "LAUNCHES_BY_DTYPE", "PLAIN_CALLS", "reset_counts",
            "paged_chunk_prefill_attend_plain", "paged_prefill_attend",
            "paged_prefill_attend_plain", "two_bit_quantize_fused",
            "two_bit_quantize_plain", "fused_scale_relu_matmul_fwd",
-           "fused_scale_relu_matmul_plain"]
+           "fused_scale_relu_matmul_plain", "fused_band4d",
+           "fused_band4d_plain"]

@@ -30,7 +30,7 @@ __all__ = ["SOURCES", "build_all", "load", "check"]
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("paged_attention", "layernorm", "flash_attention", "quant",
-           "fused_matmul", "rtc")
+           "fused_matmul", "fused_band4d", "rtc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 # libraries a source links beyond the CUDA runtime

@@ -29,7 +29,7 @@ KERNELS = ("paged_decode_attend", "paged_chunk_prefill_attend",
            "paged_prefill_attend", "layernorm_fused", "layernorm_fused_bwd",
            "flash_attention_fwd", "flash_attention_bwd_dkv",
            "flash_attention_bwd_dq", "two_bit_quantize_fused",
-           "fused_scale_relu_matmul")
+           "fused_scale_relu_matmul", "fused_band4d")
 LAUNCHES = {k: 0 for k in KERNELS}
 PLAIN_CALLS = {k: 0 for k in KERNELS}
 LAUNCHES_BY_DTYPE = {}

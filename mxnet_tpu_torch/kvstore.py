@@ -9,8 +9,8 @@ optimizer to the stored weight (``set_optimizer``) or stores the
 reduced value; a pull copies the stored value out.
 
 Dense f32 pushes take the bucketed path (``kvstore_fused.py``) unless
-``MXNET_KVSTORE_FUSED=0``; custom updaters and optimizers that are not
-``bucketable`` take the eager per-key path, with the same results.
+``MXNET_KVSTORE_FUSED=0``; custom updaters and optimizers without a
+fused signature take the eager per-key path, with the same results.
 The distributed, ``'tpu'`` and ``'nccl'`` stores come with the
 multi-GPU slice; row-sparse push and pull with the sparse slice.
 """
@@ -41,7 +41,7 @@ def create(name="local"):
         return KVStore(name)
     if name.startswith("dist") or name in ("nccl", "tpu", "tpu_device"):
         raise MXNetError("kvstore %r comes with the multi-GPU slice of the "
-                         "PyTorch port" % name)
+                         "PyTorch port (ROADMAP A.8)" % name)
     raise MXNetError("unknown kvstore type '%s'" % name)
 
 

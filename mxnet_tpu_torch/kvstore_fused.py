@@ -20,16 +20,21 @@ The JAX package runs the same op sequence as one compiled program per
 bucket (SGD apply: ``fused_sgd_apply``, the op sequence of
 ``ops/optimizer_ops.py``), so the two packages agree bit for bit on the
 compressor and to the last ulp on the update.  PyTorch runs eagerly:
-there is no program cache and nothing to retrace.  Capturing the
-buckets in a CUDA graph comes with the fused fit step.
+there is no program cache and nothing to retrace.  ``Module``'s
+single-launch fit step (``module/fused_fit.py``) packs its gradients
+into the same buckets (:func:`push_plan`) and quantizes each inside its CUDA
+graph against flat residuals it keeps; the residuals move between the
+two paths through the store's per-(key, stream) dict
+(:meth:`FusedBucketEngine.spill_residuals` and the fit step's reseed).
 
 Pushes carry ``priority=``; buckets form and dispatch in descending
 priority, then arrival.  Once a bucket's worth of bytes is pending, the
 full buckets go out at once (the streaming flush) and the partial tail
 waits for the end of the push or the next sync point.
 
-Custom updaters and optimizers that are not ``bucketable`` take the
-eager per-key path (``KVStore._push_one``) with the same semantics.
+Custom updaters and optimizers without a fused signature
+(``Optimizer._fused_bucket_sig``) take the eager per-key path
+(``KVStore._push_one``) with the same semantics.
 """
 from __future__ import annotations
 
@@ -40,7 +45,8 @@ import torch
 from .kernels import two_bit_quantize_fused
 from .ndarray.ndarray import NDArray
 
-__all__ = ["FusedBucketEngine", "bucket_byte_cap", "two_bit_quantize"]
+__all__ = ["FusedBucketEngine", "bucket_byte_cap", "pack", "plan_flush",
+           "push_plan", "two_bit_quantize"]
 
 _DEFAULT_BUCKET_BYTES = 4 << 20
 
@@ -60,6 +66,58 @@ def bucket_byte_cap():
     bucket, like the reference's big-array bypass."""
     return int(os.environ.get("MXNET_KVSTORE_BIGARRAY_BOUND",
                               _DEFAULT_BUCKET_BYTES))
+
+
+def pack(items, cap):
+    """Greedy size-capped packing of ``items`` (objects with ``nbytes``
+    and ``n_dev``) in the order given: a new bucket starts when the cap
+    would overflow or the stream count changes; an oversized value gets
+    its own bucket.  (Every bucketed value is f32, so, unlike the JAX
+    package's, no bucket splits on a dtype change.)"""
+    buckets, cur, cur_bytes = [], [], 0
+    for it in items:
+        if cur and (cur_bytes + it.nbytes > cap
+                    or it.n_dev != cur[0].n_dev):
+            buckets.append(cur)
+            cur, cur_bytes = [], 0
+        cur.append(it)
+        cur_bytes += it.nbytes
+        if cur_bytes >= cap:
+            buckets.append(cur)
+            cur, cur_bytes = [], 0
+    if cur:
+        buckets.append(cur)
+    return buckets
+
+
+def plan_flush(items, cap, keep_partial):
+    """``(buckets, kept)``: the buckets one flush of ``items`` (objects
+    with ``nbytes``, ``n_dev``, ``priority`` and ``seq``) dispatches,
+    packed in (priority desc, arrival) order, and the items that stay
+    pending: with ``keep_partial`` (the streaming path), a trailing
+    bucket still below the cap."""
+    buckets = pack(sorted(items, key=lambda it: (-it.priority, it.seq)), cap)
+    if keep_partial and buckets \
+            and sum(it.nbytes for it in buckets[-1]) < cap:
+        return buckets[:-1], buckets[-1]
+    return buckets, []
+
+
+def push_plan(items, cap):
+    """The buckets one batched push of ``items`` (in push order) forms
+    on the streaming path: a flush that keeps its partial tail each time
+    a cap's worth is pending, then a full flush at the push's end.
+    ``Module``'s fused fit step packs its gradients this way, so its
+    buckets are the eager push's."""
+    buckets, pending, nbytes = [], [], 0
+    for it in items:
+        pending.append(it)
+        nbytes += it.nbytes
+        if nbytes >= cap:
+            done, pending = plan_flush(pending, cap, True)
+            buckets += done
+            nbytes = sum(p.nbytes for p in pending)
+    return buckets + plan_flush(pending, cap, False)[0]
 
 
 class _Pending:
@@ -111,13 +169,14 @@ class FusedBucketEngine:
     # -- eligibility ----------------------------------------------------
     def _updater_mode(self):
         """None with no updater (the reduced value is stored), True for
-        an ``Updater`` whose optimizer is ``bucketable``, or False when
-        updates must stay on the eager path."""
+        an ``Updater`` whose optimizer has a fused bucket signature, or
+        False when updates must stay on the eager path."""
         from .optimizer import Updater
         updater = self._kv._updater
         if updater is None:
             return None
-        return isinstance(updater, Updater) and updater.optimizer.bucketable
+        return isinstance(updater, Updater) \
+            and updater.optimizer._fused_bucket_sig() is not None
 
     def ineligible_reason(self, key, vlist, mode):
         """None when the push may take the bucketed path, else a short
@@ -168,29 +227,6 @@ class FusedBucketEngine:
         if self._pending_bytes >= bucket_byte_cap():
             self.flush(keep_partial=True)
 
-    # -- planning -------------------------------------------------------
-    def _pack(self, items):
-        """Greedy size-capped packing in (priority desc, arrival) order;
-        a new bucket starts when the cap would overflow or the stream
-        count changes; an oversized value gets its own bucket.  (Every
-        bucketed value is f32, so, unlike the JAX package's, no bucket
-        splits on a dtype change.)"""
-        cap = bucket_byte_cap()
-        buckets, cur, cur_bytes = [], [], 0
-        for it in items:
-            if cur and (cur_bytes + it.nbytes > cap
-                        or it.n_dev != cur[0].n_dev):
-                buckets.append(cur)
-                cur, cur_bytes = [], 0
-            cur.append(it)
-            cur_bytes += it.nbytes
-            if cur_bytes >= cap:
-                buckets.append(cur)
-                cur, cur_bytes = [], 0
-        if cur:
-            buckets.append(cur)
-        return buckets
-
     # -- flush ----------------------------------------------------------
     def flush(self, keep_partial=False):
         """Dispatch the pending pushes as buckets (priority desc, then
@@ -198,21 +234,17 @@ class FusedBucketEngine:
         bucket still below the byte cap stays pending."""
         if not self._pending:
             return
-        items = sorted(self._pending, key=lambda it: (-it.priority, it.seq))
+        buckets, tail = plan_flush(self._pending, bucket_byte_cap(),
+                                   keep_partial)
         self._pending = []
         self._pending_keys.clear()
         self._pending_bytes = 0
-        buckets = self._pack(items)
-        if keep_partial and buckets:
-            tail = buckets[-1]
-            if sum(it.nbytes for it in tail) < bucket_byte_cap():
-                buckets = buckets[:-1]
-                for it in tail:
-                    self._pending.append(it)
-                    self._pending_keys.add(it.key)
-                    self._pending_bytes += it.nbytes
-            if not buckets:
-                return
+        for it in tail:
+            self._pending.append(it)
+            self._pending_keys.add(it.key)
+            self._pending_bytes += it.nbytes
+        if not buckets:
+            return
         self.last_flush_buckets = [[it.key for it in b] for b in buckets]
         mode = self._updater_mode()
         for bucket in buckets:

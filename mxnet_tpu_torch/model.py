@@ -36,7 +36,7 @@ def _create_kvstore(kvstore, num_device):
         if "dist" in kvstore or kvstore.startswith("tpu") \
                 or kvstore == "nccl":
             raise MXNetError("kvstore %r comes with the multi-GPU slice of "
-                             "the PyTorch port" % kvstore)
+                             "the PyTorch port (ROADMAP A.8)" % kvstore)
         if num_device != 1:
             raise MXNetError("kvstore %r over %d devices comes with the "
                              "multi-GPU slice of the PyTorch port"

@@ -2,16 +2,21 @@
 
 Counterpart of ``mxnet_tpu/module/base_module.py`` (reference
 ``python/mxnet/module/base_module.py``: ``fit`` :399, ``score`` :168),
-with the same signatures and log lines.  The port runs eagerly: a fit
-step is ``forward_backward`` then ``update`` (the JAX package's eager
-pair; its single-launch fused step has no counterpart yet), and the
-metric reads each batch back at the step's end.  ``fit`` arguments that
-belong to later slices (``monitor``, step checkpointing, sparse row
-pulls) raise instead of being ignored.
+with the same signatures and log lines.  A fit step is ``fit_step``:
+here the eager pair, ``forward_backward`` then ``update``; ``Module``
+runs eligible configurations as its single-launch fused step, whose
+metric accumulates on the device, so the loop's ``update_metric`` is a
+no-op for those batches (``metric.consume_device_batch``).
+``MXNET_FIT_SYNC_EVERY=n`` waits for the device every ``n`` batches
+(0, the default, never: the host runs ahead of the card as far as the
+steps' input staging lets it).  ``fit`` arguments that belong to later
+slices (``monitor``, step checkpointing, sparse row pulls) raise
+instead of being ignored.
 """
 from __future__ import annotations
 
 import logging
+import os
 import time
 
 from .. import metric as metric_mod
@@ -53,9 +58,15 @@ class BaseModule:
 
     def fit_step(self, data_batch, eval_metric=None):
         """One training step, the eager pair: forward and backward, then
-        the optimizer update."""
+        the optimizer update.  Returns False: the metric is not updated
+        (a subclass that folds it into the step returns True)."""
         self.forward_backward(data_batch)
         self.update()
+        return False
+
+    def _fit_sync(self):
+        """Wait for the device's in-flight work (``MXNET_FIT_SYNC_EVERY``);
+        nothing to wait for here."""
 
     def set_params(self, arg_params, aux_params, allow_missing=False,
                    force_init=True, allow_extra=False):
@@ -94,16 +105,21 @@ class BaseModule:
         val_metric = validation_metric or train_metric
         on_batch = _callbacks(batch_end_callback)
         on_epoch = _callbacks(epoch_end_callback)
+        sync_every = int(os.environ.get("MXNET_FIT_SYNC_EVERY", "0") or 0)
         for epoch in range(begin_epoch, num_epoch):
             t0 = time.time()
             train_metric.reset()
             for nbatch, batch in enumerate(train_data):
+                # a fused step already folded the batch into the metric's
+                # device accumulator: update_metric then consumes it
                 self.fit_step(batch, train_metric)
                 self.update_metric(train_metric, batch.label)
                 for cb in on_batch:
                     cb(BatchEndParam(epoch=epoch, nbatch=nbatch,
                                      eval_metric=train_metric,
                                      locals=None))
+                if sync_every and (nbatch + 1) % sync_every == 0:
+                    self._fit_sync()
             for name, val in train_metric.get_name_value():
                 self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
             self.logger.info("Epoch[%d] Time cost=%.3f", epoch,

@@ -11,6 +11,7 @@ from __future__ import annotations
 from ..base import MXNetError
 from ..context import cpu
 from ..io.io import DataDesc
+from ..metric import consume_device_batch
 from ..ndarray.ndarray import array
 
 __all__ = ["DataParallelExecutorGroup"]
@@ -89,6 +90,10 @@ class DataParallelExecutorGroup:
             aux_params[name] = array(self._exec.aux_dict[name], ctx=cpu())
 
     def update_metric(self, eval_metric, labels):
+        if consume_device_batch(eval_metric):
+            # the fused step folded this batch into the metric's device
+            # accumulator
+            return
         eval_metric.update_dict(
             dict(zip(self.label_names, labels or [])),
             dict(zip(self.symbol.list_outputs(), self._exec.outputs)))

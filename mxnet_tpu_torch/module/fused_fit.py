@@ -1,0 +1,488 @@
+"""Single-launch fit step: one captured CUDA graph per batch shape.
+
+Counterpart of ``mxnet_tpu/module/fused_fit.py``.  The eager ``Module``
+step is a forward and backward walk, then per-bucket kvstore work and
+per-key optimizer ops, each a few eager launches, with a blocking
+metric read every batch.  ``FusedFitStep`` runs the whole step as one
+body:
+
+    forward + backward (the executor's graph walk, torch autograd)
+      -> 2-bit quantize per bucket against flat error-feedback
+         residuals it keeps (optional; the ``two_bit_quantize_fused``
+         kernel)
+      -> the fused optimizer update (``Optimizer._fused_fit_sig``,
+         ``fused_update.py``), written into the live weights and states
+      -> the metric's device accumulation (``EvalMetric.device_fn``)
+
+On the card each batch shape's body is captured once as one CUDA graph
+(after ``_WARMUP`` eager steps on a side stream, as PyTorch requires),
+and every later step copies the batch into the graph's static feeds
+and replays it: one graph launch and the batch copy, no host sync.  On
+the CPU the same body runs eagerly every step (the device decides, as
+for the kernels).  ``TRACE_COUNT`` counts the programs built, one per
+distinct key (batch shapes, optimizer signature, metric signature,
+compression threshold, per-key weight-decay pattern, state nesting):
+a ragged final batch builds once more, a steady state never.
+
+lr, wd and ``rescale_grad`` live in one static device buffer that the
+host rewrites before each step through pinned staging
+(``Optimizer._fused_runtime`` advances the update counts as the eager
+updates would), so an ``lr_scheduler`` never captures again.  Inputs
+reach the card through two pinned slots per input, so the host waits
+only for the copy two steps back, never for the step in flight.
+
+The weights, optimizer states and auxiliary states the graph reads and
+writes are the module's own tensors (the executor's arguments, the
+kvstore's stored weights, the ``Updater``'s states), updated in place,
+so ``get_params``, ``Updater.get_states``/``set_states`` and the eager
+path see exactly what the fused step left.  The error-feedback
+residuals move between the two paths through the kvstore's
+per-(key, stream) dict: the fused step seeds its flat residuals from
+it (after the bucketed engine spills its own) and spills them back
+(``_release``) before any eager update.
+
+Eligible: no store or the single-process ``KVStore`` (``'local'``,
+``'device'``), with or without 2-bit compression; no monitor; f32
+parameters with ``grad_req='write'``; an optimizer with a fused
+signature and the module's own ``Updater``.  Everything else keeps the
+eager pair.  ``Module.bind`` already refuses ``inputs_need_grad``;
+bf16 parameters (and the JAX package's ``DynamicLossScaler``) wait for
+ROADMAP A.1, a mesh or several processes for A.8 (such a ``Module`` or
+store raises at construction), the in-launch numerics sentinels for
+A.9 (``MXNET_SENTINEL_NUMERICS`` other than 0 raises here).
+``MXNET_FIT_FUSED=0`` keeps every step eager.
+
+The random streams are not registered with the graph: a step that
+draws random numbers (an op of ``ops/random_ops.py``) raises at its
+first capture instead of replaying one draw forever.
+"""
+from __future__ import annotations
+
+import os
+from types import SimpleNamespace
+
+import numpy as _np
+import torch
+
+from .. import fused_update as _fused
+from .. import random as _random
+from ..base import MXNetError
+from ..executor import run_graph
+from ..kernels import LAUNCHES
+from ..kvstore import KVStore, _updater_key
+from ..kvstore_fused import bucket_byte_cap, push_plan, two_bit_quantize
+from ..ndarray.ndarray import NDArray
+from ..optimizer import Updater
+
+__all__ = ["FusedFitStep", "TRACE_COUNT"]
+
+# programs built (captured on the card, eager bodies on the CPU); one
+# per distinct key
+TRACE_COUNT = 0
+
+# eager steps of a new program before its capture, on a side stream
+_WARMUP = 2
+
+
+def _metric_closure(metric, label_names, output_names):
+    """``(metric_fn, sig)`` folding ``metric``'s device reduction into
+    the step with ``update_dict``'s selection of outputs and labels;
+    ``(None, None)`` when the metric accumulates on the host."""
+    fn = metric.device_fn() if metric is not None else None
+    if fn is None:
+        return None, None
+    out_sel = tuple(metric.output_names) if metric.output_names else None
+    lab_sel = tuple(metric.label_names) if metric.label_names else None
+    label_names, output_names = tuple(label_names), tuple(output_names)
+
+    def metric_fn(inputs, outs):
+        pred_d = dict(zip(output_names, outs))
+        preds = ([pred_d[n] for n in out_sel if n in pred_d]
+                 if out_sel is not None else list(outs))
+        names = lab_sel if lab_sel is not None else label_names
+        return fn([inputs[n] for n in names if n in inputs], preds)
+
+    sig = (type(metric).__name__, metric.device_sig(), out_sel, lab_sel,
+           label_names, output_names)
+    return metric_fn, sig
+
+
+class _Staging:
+    """Copies into one device tensor from two pinned host slots in
+    turn: the host fills a slot only after the copy made from it two
+    steps back has run (its event), so it never waits for the step in
+    flight.  On the CPU a plain copy."""
+
+    def __init__(self, target):
+        self.target = target
+        self._slots = []
+        if target.device.type == "cuda":
+            self._slots = [(torch.empty(target.shape, dtype=target.dtype,
+                                        pin_memory=True), torch.cuda.Event())
+                           for _ in range(2)]
+        self._turn = 0
+
+    def put(self, value):
+        if not self._slots or value.device.type != "cpu":
+            self.target.copy_(value)
+            return
+        slot, done = self._slots[self._turn]
+        self._turn ^= 1
+        done.synchronize()
+        slot.copy_(value)
+        self.target.copy_(slot, non_blocking=True)
+        done.record()
+
+
+class _Program:
+    """One key's step body with its static feeds; on the card, warmed
+    up eagerly, then captured once and replayed."""
+
+    def __init__(self, body, feeds, device):
+        global TRACE_COUNT
+        TRACE_COUNT += 1
+        self.body = body
+        self.feeds = feeds
+        self.staging = {n: _Staging(t) for n, t in feeds.items()}
+        self.device = device
+        self.graph = None
+        self.outs = None
+        self.warm = 0
+        self.captured = {}          # kernel launches recorded in the graph
+
+    def run(self):
+        if self.device.type != "cuda":
+            return self.body()
+        if self.graph is not None:
+            self.graph.replay()
+            return self.outs
+        cur = torch.cuda.current_stream(self.device)
+        if self.warm < _WARMUP:
+            gen = _random.generator(self.device)
+            drawn = gen.get_state()
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                outs = self.body()
+            cur.wait_stream(side)
+            if not torch.equal(gen.get_state(), drawn):
+                raise MXNetError(
+                    "fused fit step: the step draws random numbers, whose "
+                    "stream a captured graph would replay unchanged; "
+                    "MXNET_FIT_FUSED=0 keeps such a model eager")
+            self.warm += 1
+            return outs
+        before = dict(LAUNCHES)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.outs = self.body()
+        self.captured = {k: v - before[k] for k, v in LAUNCHES.items()
+                         if v != before[k]}
+        self.graph.replay()
+        return self.outs
+
+
+class FusedFitStep:
+    """Per-Module driver of the single-launch fit step."""
+
+    _METRIC_UNSET = object()
+
+    def __init__(self, module, updater, kv, threshold):
+        self._mod = module
+        self._updater = updater
+        self._kv = kv                   # None or the single-process store
+        self._threshold = threshold     # 2-bit threshold, or None
+        exe = module._exec_group._exec
+        self._device = exe.arg_dict[module._exec_group.param_names[0]] \
+            ._data.device
+        self._order = None              # trainable names, argument order
+        self._ukeys = None              # the Updater's keys for them
+        self._buckets = None            # [[(name, offset, size, shape)]]
+        self._res_flat = None           # one flat f32 residual per bucket
+        self._res_live = False          # residuals seeded from the store
+        self._scalars = None            # lr (n), wd (n), rescale (1)
+        self._scalar_stage = None
+        self._acc = None                # the metric's device (sum, num)
+        self._acc_owner = None          # the metric whose _dev_* they are
+        self._metric_ref = FusedFitStep._METRIC_UNSET
+        self._metric_fn = self._msig = None
+        self._programs = {}
+        self._bound = None              # the tensors the programs capture
+        self.launches = 0               # steps run fused
+        self.captures = 0
+
+    # -- construction ---------------------------------------------------
+    @staticmethod
+    def build(module):
+        """A FusedFitStep when ``module``'s configuration is eligible,
+        else None (the fit loop keeps the eager pair)."""
+        def no(reason):
+            module.logger.debug("fused fit step disabled: %s", reason)
+            return None
+
+        if os.environ.get("MXNET_SENTINEL_NUMERICS", "0") != "0":
+            raise MXNetError("fused fit step: the in-launch numerics "
+                             "sentinels (MXNET_SENTINEL_NUMERICS) are not in "
+                             "the PyTorch port yet (ROADMAP A.9)")
+        if not module._fused_fit_enabled:
+            return no("MXNET_FIT_FUSED=0")
+        optimizer = module._optimizer
+        sig = optimizer._fused_fit_sig()
+        if sig is None or not _fused.supported(sig):
+            return no("optimizer %s has no fused signature"
+                      % type(optimizer).__name__)
+        kv = module._kvstore
+        if kv is not None and type(kv) is not KVStore:
+            return no("kvstore %s" % type(kv).__name__)
+        updater = kv._updater if kv is not None else module._updater
+        if not isinstance(updater, Updater) \
+                or updater.optimizer is not optimizer:
+            return no("custom updater")
+        threshold = None
+        if kv is not None and kv._compression is not None:
+            threshold = float(kv._compression.threshold)
+        group = module._exec_group
+        exe = group._exec
+        trainable = [n for n in group.param_names
+                     if exe._grad_req.get(n, "null") != "null"]
+        if not trainable:
+            return no("no trainable parameters")
+        for name in trainable:
+            if exe._grad_req[name] != "write":
+                return no("grad_req %r on %s" % (exe._grad_req[name], name))
+            if exe.arg_dict[name]._data.dtype != torch.float32:
+                return no("%s parameter %s (bf16 Module training is "
+                          "ROADMAP A.1)" % (exe.arg_dict[name]._data.dtype,
+                                            name))
+        return FusedFitStep(module, updater, kv, threshold)
+
+    # -- residuals (shared with the bucketed engine) --------------------
+    def _plan(self, exe):
+        """The trainable names and updater keys, and the 2-bit buckets:
+        those the eager push forms (backward order, priority -index,
+        the kvstore's byte cap, its streaming flush)."""
+        group = self._mod._exec_group
+        pos = {n: i for i, n in enumerate(group.param_names)}
+        self._order = [n for n in group.param_names
+                       if exe._grad_req.get(n, "null") != "null"]
+        # the keys the eager path uses, so states load across the paths
+        self._ukeys = [_updater_key(n) if self._kv is not None else pos[n]
+                       for n in self._order]
+        if self._threshold is None:
+            return
+        items = [SimpleNamespace(name=n, n_dev=1, priority=-pos[n], seq=i,
+                                 nbytes=exe.arg_dict[n]._data.numel() * 4)
+                 for i, n in enumerate(reversed(self._order))]
+        self._buckets, self._res_flat = [], []
+        for bucket in push_plan(items, bucket_byte_cap()):
+            layout, off = [], 0
+            for it in bucket:
+                shape = tuple(exe.arg_dict[it.name].shape)
+                size = exe.arg_dict[it.name]._data.numel()
+                layout.append((it.name, off, size, shape))
+                off += size
+            self._buckets.append(layout)
+            self._res_flat.append(torch.zeros(off, dtype=torch.float32,
+                                              device=self._device))
+
+    def _seed_residuals(self, exe):
+        """Take the store's residuals into the flat buffers (the
+        bucketed engine's first spilled back to the per-key dict)."""
+        if self._res_live:
+            return
+        kv = self._kv
+        kv._sync_engine()
+        with torch.no_grad():
+            for layout, flat in zip(self._buckets, self._res_flat):
+                for name, off, size, shape in layout:
+                    r = kv._get_residual((name, 0), exe.arg_dict[name]._data)
+                    flat[off:off + size].copy_(r._data.reshape(-1))
+                    kv._compression_residuals.pop((name, 0), None)
+        self._res_live = True
+
+    def _release(self):
+        """Spill the flat residuals back to the store's per-(key,
+        stream) dict, so the eager path (and the bucketed engine's
+        reseed) resumes with the exact accumulated error feedback."""
+        if self._res_live:
+            for layout, flat in zip(self._buckets, self._res_flat):
+                for name, off, size, shape in layout:
+                    self._kv._compression_residuals[(name, 0)] = NDArray(
+                        flat[off:off + size].view(shape).clone())
+            self._res_live = False
+
+    # -- the step body --------------------------------------------------
+    def _make_body(self, feeds, targets, states, tpls, use_wd, upd):
+        mod = self._mod
+        exe = mod._exec_group._exec
+        order, threshold = self._order, self._threshold
+        n = len(order)
+        scalars, (acc_sum, acc_num) = self._scalars, self._acc
+        metric_fn = self._metric_fn
+        leaves = [exe.arg_dict[name]._data for name in order]
+
+        def body():
+            values = {k: nd._data for k, nd in exe.aux_dict.items()}
+            values.update((k, nd._data) for k, nd in exe.arg_dict.items())
+            values.update(feeds)
+            with torch.enable_grad():
+                heads, new_aux = run_graph(exe._plan, values, True)
+                outs = [h for h in heads if h.requires_grad]
+                grads = torch.autograd.grad(
+                    outs, leaves, [torch.ones_like(h) for h in outs],
+                    allow_unused=True) if outs else [None] * n
+            with torch.no_grad():
+                for name, t in new_aux.items():
+                    if name in exe.aux_dict:
+                        exe.aux_dict[name]._data.copy_(t)
+                g32 = {name: (torch.zeros_like(w) if g is None else g.float())
+                       for name, w, g in zip(order, leaves, grads)}
+                if threshold is not None:
+                    for layout, res in zip(self._buckets, self._res_flat):
+                        parts = [g32[name].reshape(-1)
+                                 for name, _, _, _ in layout]
+                        flat = parts[0] if len(parts) == 1 \
+                            else torch.cat(parts)
+                        q, new_res = two_bit_quantize(res, flat, threshold)
+                        res.copy_(new_res)
+                        for name, off, size, shape in layout:
+                            g32[name] = q[off:off + size].view(shape)
+                rescale = scalars[2 * n]
+                for i, name in enumerate(order):
+                    w = targets[i][0]
+                    st = _fused.unflatten(tpls[i], states[i])
+                    new_w, new_st = _fused.apply_one(
+                        upd, w, g32[name], st, False, scalars[i],
+                        scalars[n + i], rescale, use_wd[i])
+                    for t in targets[i]:
+                        t.copy_(new_w)
+                    for leaf, new in zip(states[i],
+                                         _fused.flatten_state(new_st)[0]):
+                        leaf.copy_(new)
+                detached = [h.detach() for h in heads]
+                if metric_fn is not None:
+                    bsum, bnum = metric_fn(feeds, detached)
+                    acc_sum.add_(bsum)
+                    acc_num.add_(bnum)
+            return detached
+        return body
+
+    # -- the step -------------------------------------------------------
+    def step(self, data_batch, eval_metric=None):
+        """One fused training step.  Returns False, with the residuals
+        spilled first, when this batch cannot take the fused path (the
+        eager pair then runs it)."""
+        mod = self._mod
+        if getattr(mod, "_monitor_installed", False):
+            self._release()
+            return False
+        live = mod._kvstore._updater if mod._kvstore is not None \
+            else mod._updater
+        mode = mod._optimizer._fused_fit_sig()
+        if live is not self._updater or mode is None \
+                or not _fused.supported(mode):
+            self._release()
+            return False
+        group = mod._exec_group
+        exe = group._exec
+        data = list(getattr(data_batch, "data", None) or [])
+        labels = list(getattr(data_batch, "label", None) or [])
+        if len(data) != len(group.data_names) \
+                or len(labels) < len(group.label_names):
+            self._release()
+            return False
+        inputs = {}
+        for name, v in list(zip(group.data_names, data)) \
+                + list(zip(group.label_names, labels)):
+            t = v._data if isinstance(v, NDArray) else torch.as_tensor(
+                _np.asarray(v))
+            inputs[name] = t.to(exe.arg_dict[name]._data.dtype)
+        if self._order is None:
+            self._plan(exe)
+            self._scalars = torch.zeros(2 * len(self._order) + 1,
+                                        dtype=torch.float32,
+                                        device=self._device)
+            self._scalar_stage = _Staging(self._scalars)
+            self._acc = tuple(torch.zeros((), dtype=torch.float32,
+                                          device=self._device)
+                              for _ in range(2))
+        if self._kv is not None:
+            self._kv._flush_pending()
+        order, ukeys = self._order, self._ukeys
+        updater, optimizer = self._updater, mod._optimizer
+        # the tensors the programs read and write: a change (a rebind,
+        # new state arrays) makes every captured program stale
+        targets, states, tpls = [], [], []
+        for name, uk in zip(order, ukeys):
+            arg = exe.arg_dict[name]
+            weight = self._kv._store[name] if self._kv is not None else arg
+            targets.append([weight._data] + ([arg._data] if weight is not arg
+                                              else []))
+            st = updater.state(uk, weight)
+            leaves, tpl = _fused.flatten_state(st)
+            states.append([leaf._data for leaf in leaves])
+            tpls.append(tpl)
+        aux = [nd._data for nd in exe.aux_dict.values()]
+        bound = tuple(id(t) for ts in targets + states + [aux] for t in ts)
+        if bound != self._bound:
+            self._programs.clear()
+            self._bound = bound
+        lr, wd = optimizer._fused_runtime(ukeys)
+        use_wd = tuple(bool(v) for v in wd != 0.0)
+        if self._threshold is not None:
+            self._seed_residuals(exe)
+        if eval_metric is not self._metric_ref:
+            self._metric_fn, self._msig = _metric_closure(
+                eval_metric, group.label_names, mod._symbol.list_outputs())
+            self._metric_ref = eval_metric
+        shapes = tuple((n, tuple(t.shape)) for n, t in inputs.items())
+        key = (shapes, mode, self._threshold, tuple(tpls), use_wd,
+               self._msig)
+        prog = self._programs.get(key)
+        if prog is None:
+            feeds = {}
+            for name, t in inputs.items():
+                arg = exe.arg_dict[name]._data
+                feeds[name] = arg if tuple(t.shape) == tuple(arg.shape) \
+                    else torch.empty(t.shape, dtype=arg.dtype,
+                                     device=arg.device)
+            prog = self._programs[key] = _Program(
+                self._make_body(feeds, targets, states, tpls, use_wd,
+                                _fused.build(mode)), feeds, self._device)
+        host = _np.concatenate([lr, wd, _np.float32(
+            [optimizer.rescale_grad])]).astype(_np.float32)
+        self._scalar_stage.put(torch.from_numpy(host))
+        for name, t in inputs.items():
+            prog.staging[name].put(t)
+        acc_sum, acc_num = self._acc
+        if self._metric_fn is not None:
+            owner = self._acc_owner
+            if owner is not None and owner is not eval_metric \
+                    and owner._dev_sum is acc_sum:
+                # the accumulator moves to another metric: the last one
+                # keeps its values
+                owner._dev_sum, owner._dev_num = acc_sum.clone(), \
+                    acc_num.clone()
+            if eval_metric._dev_sum is None:
+                acc_sum.zero_()
+                acc_num.zero_()
+            elif eval_metric._dev_sum is not acc_sum:
+                acc_sum.copy_(eval_metric._dev_sum)
+                acc_num.copy_(eval_metric._dev_num)
+            self._acc_owner = eval_metric
+        was_captured = prog.graph is not None
+        outs = prog.run()
+        self.captures += prog.graph is not None and not was_captured
+        exe.outputs = [NDArray(o) for o in outs]
+        exe._heads = None
+        if self._metric_fn is not None:
+            eval_metric._dev_sum, eval_metric._dev_num = acc_sum, acc_num
+            eval_metric._device_consumed = True
+        self.launches += 1
+        return True
+
+    def captured_launches(self):
+        """Kernel launches recorded in each captured graph, by kernel
+        (one dict per capture)."""
+        return [p.captured for p in self._programs.values()
+                if p.graph is not None]

@@ -12,12 +12,20 @@ every gradient in one batched call in backward order and pulls the
 updated weights back (``update_on_kvstore``); ``compression_params``
 (``{'type': '2bit', 'threshold': t}``) is handed to that store.  With
 one device the strings ``'local'`` and ``'device'`` give no store, so
-nothing is compressed (the JAX package's rule).  Several contexts,
-checkpoint files and the fused fit step come with later slices.
+nothing is compressed (the JAX package's rule).
+
+``fit_step`` runs eligible configurations as the single-launch fused
+step (``module/fused_fit.py``: one CUDA graph replay per step on the
+card) and returns True; ``MXNET_FIT_FUSED=0`` keeps the eager pair
+(forward and backward, then ``update``).  Several contexts and
+checkpoint files come with later slices.
 """
 from __future__ import annotations
 
 import logging
+import os
+
+import torch
 
 from .. import optimizer as opt
 from ..base import MXNetError
@@ -44,8 +52,9 @@ class Module(BaseModule):
         contexts = [context] if isinstance(context, Context) \
             else list(context)
         if len(contexts) != 1:
-            raise MXNetError("a Module over %d contexts comes with the "
-                             "multi-GPU slice of the PyTorch port"
+            raise MXNetError("a Module over %d contexts (and its fused fit "
+                             "step over a mesh) comes with the multi-GPU "
+                             "slice of the PyTorch port (ROADMAP A.8)"
                              % len(contexts))
         contexts[0].torch_device            # raises when the card is missing
         self._context = contexts
@@ -70,6 +79,12 @@ class Module(BaseModule):
         self._exec_group = None
         self._data_shapes = None
         self._label_shapes = None
+        # MXNET_FIT_FUSED=0 keeps every step on the eager pair
+        self._fused_fit_enabled = os.environ.get("MXNET_FIT_FUSED",
+                                                 "1") != "0"
+        self._fused_fit = None
+        self._fused_fit_tried = False
+        self._monitor_installed = False
 
     @property
     def data_names(self):
@@ -155,6 +170,7 @@ class Module(BaseModule):
             raise MXNetError("bind(inputs_need_grad=True) comes with a "
                              "later slice of the PyTorch port")
         if force_rebind:
+            self._drop_fused_fit()
             self.binded = False
             self.params_initialized = False
             self._exec_group = None
@@ -200,6 +216,7 @@ class Module(BaseModule):
                 "Optimizer created manually outside Module but rescale_grad "
                 "is not normalized to 1.0/batch_size (%s vs. %s). Is this "
                 "intended?", optimizer.rescale_grad, rescale_grad)
+        self._drop_fused_fit()
         self._optimizer = optimizer
         self._kvstore = kv
         self._update_on_kvstore = update_on_kvstore
@@ -243,6 +260,10 @@ class Module(BaseModule):
         one (reference module.py:643)."""
         if not self.optimizer_initialized:
             raise MXNetError("update() requires init_optimizer()")
+        if self._fused_fit is not None:
+            # an eager update between fused steps sees the exact
+            # accumulated error-feedback residuals
+            self._fused_fit._release()
         group = self._exec_group
         if self._update_on_kvstore:
             _update_params_on_kvstore(group.param_arrays, group.grad_arrays,
@@ -254,6 +275,65 @@ class Module(BaseModule):
                            kvstore=self._kvstore,
                            param_names=group.param_names,
                            push_order=group.push_order)
+
+    def fit_step(self, data_batch, eval_metric=None):
+        """One training step: eligible configurations run forward,
+        backward, 2-bit compression, the update and the metric's device
+        accumulation as the single-launch fused step and return True;
+        everything else takes the eager pair and returns False."""
+        fused = self._get_fused_fit()
+        if fused is not None and fused.step(data_batch, eval_metric):
+            return True
+        return super().fit_step(data_batch, eval_metric)
+
+    def _get_fused_fit(self):
+        if not self._fused_fit_tried:
+            self._fused_fit_tried = True
+            if self.binded and self.params_initialized \
+                    and self.optimizer_initialized:
+                from .fused_fit import FusedFitStep
+                self._fused_fit = FusedFitStep.build(self)
+        return self._fused_fit
+
+    def _drop_fused_fit(self):
+        """Forget the fused step (its eligibility is checked again at
+        the next ``fit_step``), its residuals spilled to the store."""
+        if self._fused_fit is not None:
+            self._fused_fit._release()
+        self._fused_fit = None
+        self._fused_fit_tried = False
+
+    def _fit_sync(self):
+        """Wait until the steps enqueued so far have run
+        (``MXNET_FIT_SYNC_EVERY``)."""
+        if self.binded:
+            exe = self._exec_group._exec
+            dev = exe.arg_dict[self._param_names[0]]._data.device \
+                if self._param_names else None
+            if dev is not None and dev.type == "cuda":
+                torch.cuda.current_stream(dev).synchronize()
+
+    def save_optimizer_states(self, fname):
+        """Write the updater's states (``Updater.get_states``) to
+        ``fname``."""
+        if not self.optimizer_initialized:
+            raise MXNetError("save_optimizer_states() requires "
+                             "init_optimizer()")
+        updater = self._kvstore._updater if self._update_on_kvstore \
+            else self._updater
+        with open(fname, "wb") as f:
+            f.write(updater.get_states())
+
+    def load_optimizer_states(self, fname):
+        """Load states written by :meth:`save_optimizer_states` into the
+        updater (``Updater.set_states``)."""
+        if not self.optimizer_initialized:
+            raise MXNetError("load_optimizer_states() requires "
+                             "init_optimizer()")
+        updater = self._kvstore._updater if self._update_on_kvstore \
+            else self._updater
+        with open(fname, "rb") as f:
+            updater.set_states(f.read())
 
     def get_outputs(self, merge_multi_context=True):
         outs = self._exec_group.get_outputs()

@@ -8,11 +8,17 @@ Trainer's ``param_dict`` or from ``param_idx2name`` and the symbol's
 named ``*_weight``/``*_gamma``, an ``lr_scheduler`` hook), ``SGD`` (momentum), ``Signum``, ``Adam``,
 ``AdaGrad``, ``RMSProp`` (plain and centered), ``Updater``,
 ``get_updater``, ``create`` and ``register``.  Each update is the
-in-place operator of ``ops/optimizer_ops.py``.  ``bucketable`` tells
-the kvstore's bucketed path which optimizers it may apply (SGD, Adam,
-AdaGrad and RMSProp: the optimizers of the port that have a fused
-signature in the JAX package); the JAX package's single-program update has no counterpart
-yet: the fit step is the eager pair (ROADMAP).
+in-place operator of ``ops/optimizer_ops.py``.
+
+The fused-update protocol (the JAX package's ``_fused_sig``,
+``_fused_bucket_sig``, ``_fused_fit_sig``): an optimizer that describes
+its update as a ``(kind, *hyperparameters)`` tuple naming a kind of
+``fused_update.py`` may be applied by the kvstore's bucketed path and
+by ``Module``'s single-launch fit step (``module/fused_fit.py``), which
+applies the kind's pure update with lr, wd and ``rescale_grad`` as
+runtime values (``_fused_runtime``).  SGD (with momentum), Adam,
+AdaGrad and RMSProp (plain and centered) describe theirs; Signum
+returns None and stays on the eager per-key path.
 
 ``multi_precision=True`` keeps an f32 master copy of every bf16 (or
 float16) weight: ``create_state_multi_precision`` returns ``(inner
@@ -27,11 +33,13 @@ rather than update it in its own precision.
 from __future__ import annotations
 
 import math
+import pickle
 
+import numpy as _np
 import torch
 
-from .base import FLOAT16_LATER, LOW_PRECISION, MXNetError
-from .ndarray.ndarray import zeros
+from .base import FLOAT16_LATER, LOW_PRECISION, MXNetError, numpy_to_tensor
+from .ndarray.ndarray import NDArray, zeros
 from .ops.optimizer_ops import (adagrad_update, adam_update,
                                 rmsprop_update, rmspropalex_update,
                                 sgd_mom_update, sgd_update, signsgd_update,
@@ -115,13 +123,49 @@ class Optimizer:
         else:
             self.update(index, weight, grad, state)
 
-    # whether the kvstore's bucketed path may apply this optimizer per
-    # key (kvstore_fused.py); False keeps a store's pushes on the eager
-    # per-key path (the JAX package's optimizers without _fused_sig)
-    bucketable = False
-
     def update(self, index, weight, grad, state):
         raise NotImplementedError
+
+    # -- the fused-update protocol (fused_update.py) ----------------------
+    def _fused_sig(self):
+        """Hashable ``(kind, *hyperparameters)`` tuple fully determining
+        the pure per-key update (a kind of ``fused_update.py``), or None
+        to stay on the eager per-key path.  The tuple keys the fit
+        step's captured programs, so a changed hyperparameter in it
+        captures once more; lr, wd and ``rescale_grad`` are runtime
+        values and never in it."""
+        return None
+
+    def _fused_bucket_sig(self):
+        """Signature that lets the kvstore's bucketed path apply this
+        optimizer (``kvstore_fused.py``); the shared one by default."""
+        return self._fused_sig()
+
+    def _fused_fit_sig(self):
+        """Signature that lets ``Module``'s single-launch fit step apply
+        this optimizer (``module/fused_fit.py``); the bucket one by
+        default."""
+        return self._fused_bucket_sig()
+
+    def _fused_lr(self, index):
+        """The runtime lr of key ``index`` in a fused step; kinds that
+        fold a time-dependent correction into the step size (Adam)
+        override it.  ``_update_count`` has run for the key."""
+        return self._get_lr(index)
+
+    def _fused_runtime(self, ukeys):
+        """Advance the update counts of ``ukeys`` in order, as the eager
+        per-key updates would, and return the f32 ``(lr, wd)`` vectors
+        of one fused step."""
+        for uk in ukeys:
+            self._update_count(uk)
+        lr = _np.asarray([self._fused_lr(uk) for uk in ukeys], _np.float32)
+        wd = _np.asarray([self._get_wd(uk) for uk in ukeys], _np.float32)
+        return lr, wd
+
+    @staticmethod
+    def _clip_sig(clip):
+        return None if clip is None else float(clip)
 
     def set_lr_mult(self, args_lr_mult):
         """``__lr_mult__`` attributes of the symbol, then overrides."""
@@ -193,12 +237,14 @@ class SGD(Optimizer):
         super().__init__(**kwargs)
         self.momentum = momentum
 
-    bucketable = True
-
     def create_state(self, index, weight):
         if self.momentum == 0.0:
             return None
         return zeros(weight.shape, weight.context)
+
+    def _fused_sig(self):
+        return ("sgd", float(self.momentum),
+                self._clip_sig(self.clip_gradient))
 
     def update(self, index, weight, grad, state):
         self._update_count(index)
@@ -224,11 +270,18 @@ class Adam(Optimizer):
         self.beta2 = beta2
         self.epsilon = epsilon
 
-    bucketable = True
-
     def create_state(self, index, weight):
         return (zeros(weight.shape, weight.context),
                 zeros(weight.shape, weight.context))
+
+    def _fused_sig(self):
+        return ("adam", float(self.beta1), float(self.beta2),
+                float(self.epsilon), self._clip_sig(self.clip_gradient))
+
+    def _fused_lr(self, index):
+        t = self._index_update_count[index]
+        return self._get_lr(index) * (
+            math.sqrt(1.0 - self.beta2 ** t) / (1.0 - self.beta1 ** t))
 
     def update(self, index, weight, grad, state):
         self._update_count(index)
@@ -278,10 +331,12 @@ class AdaGrad(Optimizer):
         super().__init__(**kwargs)
         self.float_stable_eps = eps
 
-    bucketable = True
-
     def create_state(self, index, weight):
         return zeros(weight.shape, weight.context)
+
+    def _fused_sig(self):
+        return ("adagrad", float(self.float_stable_eps),
+                self._clip_sig(self.clip_gradient))
 
     def update(self, index, weight, grad, state):
         self._update_count(index)
@@ -305,13 +360,20 @@ class RMSProp(Optimizer):
         self.epsilon = epsilon
         self.clip_weights = clip_weights
 
-    bucketable = True
-
     def create_state(self, index, weight):
         if self.centered:
             return tuple(zeros(weight.shape, weight.context)
                          for _ in range(3))
         return zeros(weight.shape, weight.context)
+
+    def _fused_sig(self):
+        clip = self._clip_sig(self.clip_gradient)
+        # clip_weights rides only when truthy, as the eager kwargs do
+        cw = float(self.clip_weights) if self.clip_weights else None
+        if self.centered:
+            return ("rmspropalex", float(self.gamma1), float(self.gamma2),
+                    float(self.epsilon), clip, cw)
+        return ("rmsprop", float(self.gamma1), float(self.epsilon), clip, cw)
 
     def update(self, index, weight, grad, state):
         self._update_count(index)
@@ -347,9 +409,72 @@ class Updater:
                 "kvstore); parallel.TrainStep trains it"
                 % (self.optimizer.idx2name.get(index, index),
                    str(weight.dtype).replace("torch.", "")))
+        self.optimizer.update(index, weight, grad, self.state(index, weight))
+
+    def state(self, index, weight):
+        """Key ``index``'s state, created for ``weight`` on first use; a
+        state that :meth:`set_states` loaded on the host moves to
+        ``weight``'s device here, once."""
+        st = self.states.get(index)
         if index not in self.states:
-            self.states[index] = self.optimizer.create_state(index, weight)
-        self.optimizer.update(index, weight, grad, self.states[index])
+            st = self.states[index] = self.optimizer.create_state(index,
+                                                                   weight)
+        elif any(leaf._data.device != weight._data.device
+                 for leaf in _leaves(st)):
+            st = self.states[index] = _map_state(
+                lambda leaf: NDArray(leaf._data.to(weight._data.device)), st)
+        return st
+
+    def get_states(self, dump_optimizer=False):
+        """The per-key states as bytes (a pickle of numpy arrays nested
+        as the states are), with the optimizer when ``dump_optimizer``
+        (reference optimizer.py ``Updater.get_states``).  The fused fit
+        step keeps its state in these same arrays, so the states of
+        either path load into the other."""
+        states = {k: _map_state(lambda leaf: leaf.asnumpy(), v)
+                  for k, v in self.states.items()}
+        return pickle.dumps((states, self.optimizer) if dump_optimizer
+                            else states)
+
+    def set_states(self, states):
+        """Load :meth:`get_states`' bytes.  A key that already has a
+        state of the same nesting and shapes gets the values copied into
+        its arrays (a captured fit step keeps reading them); any other
+        key's state becomes host arrays, moved to its weight's device at
+        first use."""
+        loaded = pickle.loads(states)
+        if isinstance(loaded, tuple):
+            loaded, self.optimizer = loaded
+        for k, v in loaded.items():
+            old = self.states.get(k)
+            new_leaves = _leaves(v)
+            old_leaves = _leaves(old)
+            if old is not None and len(old_leaves) == len(new_leaves) \
+                    and all(tuple(o.shape) == n.shape
+                            for o, n in zip(old_leaves, new_leaves)):
+                for o, n in zip(old_leaves, new_leaves):
+                    o[:] = n
+            else:
+                self.states[k] = _map_state(
+                    lambda a: NDArray(numpy_to_tensor(a)), v)
+
+
+def _leaves(state):
+    """The array leaves of a state (None, an array, or nested tuples),
+    in order."""
+    if state is None:
+        return []
+    if isinstance(state, tuple):
+        return [leaf for s in state for leaf in _leaves(s)]
+    return [state]
+
+
+def _map_state(fn, state):
+    if state is None:
+        return None
+    if isinstance(state, tuple):
+        return tuple(_map_state(fn, s) for s in state)
+    return fn(state)
 
 
 def get_updater(optimizer):

@@ -125,6 +125,20 @@ def test_prefill_outputs_unchanged_and_nothing_outlives_its_reader():
 
 
 def test_train_outputs_and_gradients_unchanged():
+    """Both walks run at one intra-op thread, so the CPU's matrix
+    products and reductions split their sums the same way in each: the
+    comparison is bit for bit, and a thread count that changed between
+    the two walks (other processes loading the cores) would move the
+    last bits of a sum without any difference between the walks."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        _check_train_walks()
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _check_train_walks():
     sym = transformer.get_symbol(**CFG)
     shapes = dict(data=(2, CFG["seq_len"]), softmax_label=(2 * CFG["seq_len"],))
     exe = sym.simple_bind(ctx=mx.cpu(), grad_req="write", **shapes)

@@ -5,8 +5,9 @@ one-shot prefill, or one training step goes on the GPU.
     python3 tools/torch_decode_profile.py            # decode steps
     python3 tools/torch_decode_profile.py --spec     # spec steps
     python3 tools/torch_decode_profile.py --prefill  # one-shot prefill
-    python3 tools/torch_decode_profile.py --train    # one Module.fit step
-    python3 tools/torch_decode_profile.py --resnet   # one 2-bit ResNet step
+    python3 tools/torch_decode_profile.py --train    # one eager Module step
+    python3 tools/torch_decode_profile.py --resnet   # one eager 2-bit
+                                                     # ResNet step
     python3 tools/torch_decode_profile.py --gluon [--hybridize]
                                           # one 2-bit Gluon ResNet step
     python3 tools/torch_decode_profile.py --resnet --layout NHWC --fuse
@@ -153,6 +154,7 @@ def profile_train(torch, cs, mx):
     cfg, B = cs.FULL, cs.TRAIN["batch"]
     S = cfg["seq_len"]
     mod = mx.Module(transformer.get_symbol(**cfg), context=mx.gpu(0))
+    mod._fused_fit_enabled = False      # this profile reads the eager pair
     mod.bind(data_shapes=[("data", (B, S))],
              label_shapes=[("softmax_label", (B * S,))])
     mod.set_params(convert_params(cs.seeded_params(cfg), mx.gpu(0), cfg), {})
@@ -380,6 +382,7 @@ def profile_resnet(torch, cs, mx):
     np_args, np_aux = cs.seeded_resnet_params(sym, B, cfg["image_shape"])
     mod = mx.Module(sym, context=mx.gpu(0), compression_params={
         "type": "2bit", "threshold": train["threshold"]})
+    mod._fused_fit_enabled = False      # this profile reads the eager pair
     mod.bind(data_shapes=[("data", shapes["data"])],
              label_shapes=[("softmax_label", (B,))])
     mod.set_params(*convert_symbol_params(np_args, np_aux, mx.gpu(0), sym,
