@@ -136,9 +136,12 @@ Phases, each printed as one JSON line:
    phases of 3): the bf16 forms against their plain versions, within one
    bf16 ulp of the value (2^-7 relative) plus 2^-9 of the array's
    largest magnitude (f32 statistics and lse at 3's bound): flash
-   forward, dK/dV and dQ at (4, 16, 1024, 128) and the forward at batch
-   1, FlashAttentionFn end to end against autograd through the
-   reference (relative L2 1e-2); LayerNorm forward and backward at
+   forward, dK/dV and dQ (tensor cores; their ptxas register, stack and
+   spill lines printed first) at (4, 16, 1024, 128) and at the edges of
+   their tiling (S 17 and 1000, D 80 and 36, batch 1, head_dim 256 and
+   512), FlashAttentionFn end to end against autograd through the
+   reference (relative L2 1e-2), each kernel's achieved TFLOP/s;
+   LayerNorm forward and backward at
    4096 x 2048; the fused kernel at ResNet-50's 8 site shapes at batch
    256 and the odd shape, two runs bit-identical; timed as in 3 beside
    SDPA, F.layer_norm / native_layer_norm_backward and cuBLAS bf16 on
@@ -305,6 +308,22 @@ FUSED_ODD = (1000, 37, 93, True)
 # one bf16 ulp of the value plus 2^-9 of the array's largest magnitude
 BF16_FLOPS_PER_S = 989e12
 BF16_RTOL, BF16_ATOL_SHARE = 2.0 ** -7, 2.0 ** -9
+# the bf16 flash kernels (tensor cores) at the edges of their tiling:
+# 64-row blocks and 32-row dK/dV steps (S 17 and 1000), 16-column mma
+# steps and element-by-element copies (D 80 and 36, the latter not a
+# multiple of 8), batch 1, and the 128-column head_dim chunks (256 and
+# 512 at d_model 2048); (B, H, S, D)
+FLASH_BF16_EDGES = ((2, 4, 17, 128), (2, 4, 1000, 128), (2, 4, 1024, 80),
+                    (2, 4, 1000, 36), (1, 16, 1024, 128), (4, 8, 1024, 256),
+                    (4, 4, 1024, 512))
+# the bf16 flash kernels' entry functions in csrc/flash_attention.cu
+# (templates: the mangled name follows) and their numbers in
+# mx_flash_bf16_smem
+FLASH_BF16_ENTRIES = {"flash_attention_fwd": ("flash_fwd_bf16_kernel", 0),
+                      "flash_attention_bwd_dkv": ("flash_bwd_dkv_bf16_kernel",
+                                                  1),
+                      "flash_attention_bwd_dq": ("flash_bwd_dq_bf16_kernel",
+                                                 2)}
 # bench.py's transformer train mode in bf16 (its learning rate and
 # 1/(B*S) rescale) and its flagship, ResNet-50 NHWC bf16 at batch 256
 TRAIN_BF16 = dict(batch=4, lr=0.01, momentum=0.9, steps=10, warmup=2)
@@ -2272,25 +2291,43 @@ def _flash_rows(torch, mxk, q, k, v, do, sc, flush, dtype, peak):
                      "source": "mxnet_tpu_torch/csrc/flash_attention.cu",
                      "replaces": "mxnet_tpu/ops/nn.py:744", "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": b_ms,
-                     "bound_by": b_by, "library_ms": lib})
+                     "bound_by": b_by, "library_ms": lib,
+                     "tflops": n_prod * tri / ms / 1e9})
     return rows
 
 
-def phase_flash_bf16(torch, mxk, dev, flush):
-    """The bf16 forms of the three flash kernels at the bf16
-    transformer's shape (4, 16, 1024, 128) and the forward at the draft
-    model's batch 1, each against its plain version (close_bf16; the
-    f32 lse exactly as the f32 phase holds it, rtol 1e-4 / atol 1e-5),
-    FlashAttentionFn end to end against autograd through the
-    materialised reference (relative L2 under 1e-2), and timed beside
-    SDPA on the same bf16 tensors.  The bound is bytes over 3.35 TB/s or
-    operations over the dense bf16 tensor-core peak."""
-    B, H, S, D = 4, 16, 1024, 128
-    sc = 1.0 / D ** 0.5
-    bf = torch.bfloat16
-    g = torch.Generator(device="cpu").manual_seed(SEED + 21)
-    q, k, v, do = (torch.randn(B, H, S, D, generator=g).to(dev).to(bf)
-                   for _ in range(4))
+def _ptxas(source, entries):
+    """ptxas's stack/spill and register lines (``-Xptxas=-v``) for the
+    entry functions named in ``entries`` ({key: substring of the mangled
+    name}) in csrc/<source>.cu's build log."""
+    import re
+    from mxnet_tpu_torch.kernels import _build
+    lines = _build.log_path(source).read_text().splitlines()
+    found = {}
+    for i, line in enumerate(lines):
+        key = next((k for k, sub in entries.items()
+                    if "Compiling entry function" in line and sub in line),
+                   None)
+        if key is None:
+            continue
+        spill = next(x for x in lines[i + 1:i + 4] if "spill" in x)
+        used = next(x for x in lines[i + 1:i + 4] if "registers" in x)
+        num = lambda pat, text: int(re.search(pat, text).group(1))
+        found[key] = {"lines": [spill.strip(),
+                                used.split(" : ", 1)[-1].strip()],
+                      "registers": num(r"Used (\d+) registers", used),
+                      "stack_bytes": num(r"(\d+) bytes stack frame", spill),
+                      "spill_stores": num(r"(\d+) bytes spill stores", spill),
+                      "spill_loads": num(r"(\d+) bytes spill loads", spill)}
+    check(set(found) == set(entries), "ptxas log of %s.cu: entry functions "
+          "%s not found" % (source, sorted(set(entries) - set(found))))
+    return found
+
+
+def _flash_bf16_pairs(torch, mxk, q, k, v, do, sc):
+    """(what, kernel result, plain result) for the forward's output and
+    lse, dK/dV and dQ on one set of bf16 inputs; the backward kernels
+    take the plain forward's lse and Dr, as their plain versions do."""
     o, lse = mxk.flash_attention_fwd(q, k, v, scale=sc)
     o_ref, lse_ref = mxk.flash_attention_fwd_plain(q, k, v, scale=sc)
     delta = (do.float() * o_ref.float()).sum(-1)
@@ -2301,22 +2338,68 @@ def phase_flash_bf16(torch, mxk, dev, flush):
         q, k, v, do, lse_ref, delta, scale=sc) + (
         mxk.flash_attention_bwd_dq_plain(q, k, v, do, lse_ref, delta,
                                          scale=sc),)
-    q1, k1, v1 = (torch.randn(1, H, S, D, generator=g).to(dev).to(bf)
-                  for _ in range(3))
-    got += mxk.flash_attention_fwd(q1, k1, v1, scale=sc)
-    ref += mxk.flash_attention_fwd_plain(q1, k1, v1, scale=sc)
     torch.cuda.synchronize()
+    return list(zip(("out", "lse", "dk", "dv", "dq"), got, ref))
+
+
+def phase_flash_bf16(torch, mxk, dev, flush):
+    """The bf16 forms of the three flash kernels (tensor cores) at the
+    bf16 transformer's shape (4, 16, 1024, 128) and at the edges of
+    their tiling (FLASH_BF16_EDGES: S 17 and 1000, D 80 and 36, batch 1,
+    head_dim 256 and 512), each against its plain version (close_bf16;
+    the f32 lse exactly as the f32 phase holds it, rtol 1e-4 / atol
+    1e-5), FlashAttentionFn end to end against autograd through the
+    materialised reference (relative L2 under 1e-2), and timed beside
+    SDPA on the same bf16 tensors, with each kernel's achieved TFLOP/s.
+    The bound is bytes over 3.35 TB/s or operations over the dense bf16
+    tensor-core peak.  First prints ptxas's register, stack and spill
+    lines for the three kernels and their dynamic shared memory at
+    D = 128."""
+    import ctypes
+    from mxnet_tpu_torch.kernels import _build
+    # each kernel has two forms: compile-time step counts when every
+    # head_dim chunk is full (D % 128 == 0), a branch per step otherwise
+    forms = {"full": "ILb1", "ragged": "ILb0"}
+    ptx = _ptxas("flash_attention", {
+        "%s:%s" % (n, form): entry + tag
+        for n, (entry, _) in FLASH_BF16_ENTRIES.items()
+        for form, tag in forms.items()})
+    lib = _build.load("flash_attention")
+    lib.mx_flash_bf16_smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.mx_flash_bf16_smem.restype = ctypes.c_int
+    for key in sorted(ptx):
+        name, form = key.split(":")
+        entry, which = FLASH_BF16_ENTRIES[name]
+        ptx[key]["dynamic_smem_bytes_d128"] = lib.mx_flash_bf16_smem(which, 128)
+        print("ptxas %s (%s form): %s; %d bytes of dynamic shared memory at "
+              "D = 128" % (entry, form, "; ".join(ptx[key]["lines"]),
+                           ptx[key]["dynamic_smem_bytes_d128"]), flush=True)
+    emit({"phase": "flash_bf16_ptxas", "kernels": ptx})
+    B, H, S, D = 4, 16, 1024, 128
+    sc = 1.0 / D ** 0.5
+    bf = torch.bfloat16
+    g = torch.Generator(device="cpu").manual_seed(SEED + 21)
+    q, k, v, do = (torch.randn(B, H, S, D, generator=g).to(dev).to(bf)
+                   for _ in range(4))
     errs = {}
-    for what, a, b in zip(("out", "lse", "dk", "dv", "dq", "out_b1",
-                           "lse_b1"), got, ref):
-        check(a.dtype == b.dtype, "flash bf16 %s: dtype %s, plain %s"
-              % (what, a.dtype, b.dtype))
-        ok = close(torch, a, b) if what.startswith("lse") \
-            else close_bf16(torch, a, b)
-        check(ok, "flash attention bf16 %s disagrees with its plain version "
-              "(max abs err %g)" % (what, max_err(a, b)))
-        errs[what] = max_err(a, b)
-    del got, ref, o_ref, lse_ref, q1, k1, v1
+
+    def hold(pairs, tag=""):
+        for what, a, b in pairs:
+            check(a.dtype == b.dtype, "flash bf16 %s%s: dtype %s, plain %s"
+                  % (what, tag, a.dtype, b.dtype))
+            ok = close(torch, a, b) if what == "lse" \
+                else close_bf16(torch, a, b)
+            check(ok, "flash attention bf16 %s%s disagrees with its plain "
+                  "version (max abs err %g)" % (what, tag, max_err(a, b)))
+            errs[what + tag] = max_err(a, b)
+
+    hold(_flash_bf16_pairs(torch, mxk, q, k, v, do, sc))
+    for shape in FLASH_BF16_EDGES:
+        ins = [torch.randn(*shape, generator=g).to(dev).to(bf)
+               for _ in range(4)]
+        hold(_flash_bf16_pairs(torch, mxk, *ins, 1.0 / shape[-1] ** 0.5),
+             "_" + "x".join(map(str, shape)))
+        del ins
     ends = []
     for fn in (mxk.flash_attention, mxk.flash_attention_plain):
         ins = [t.clone().requires_grad_() for t in (q, k, v)]
@@ -2335,6 +2418,7 @@ def phase_flash_bf16(torch, mxk, dev, flush):
         r["max_abs_err"] = max(v for n, v in errs.items()
                                if not n.startswith("fn_"))
     emit({"phase": "flash_bf16", "kernels": rows, "shape": [B, H, S, D],
+          "edge_shapes": [list(e) for e in FLASH_BF16_EDGES],
           "errors": errs, "tolerance": "one bf16 ulp (2^-7 relative) plus "
           "2^-9 of the array's largest value; lse rtol 1e-4 / atol 1e-5",
           "library_call": "F.scaled_dot_product_attention(is_causal=True) on "

@@ -1,14 +1,14 @@
 // Causal flash attention for Hopper (sm_90a), forward and backward, in
-// f32 or bf16, any head_dim, plain C interface.
+// f32 or bf16, any S and any head_dim, plain C interface.
 //
-// Replaces mxnet_tpu/ops/nn.py _flash_attention, which calls jax's
-// library Pallas kernel for the TPU (jax.experimental.pallas.ops.tpu.
-// flash_attention) on bf16 or f32 inputs: its forward kernel, and the
-// two backward kernels that compute dK/dV and dQ.  Inputs are
-// contiguous head-major (B, H, S, D) of one element type T (float or
-// __nv_bfloat16), any S and any D; the kernels mask the ragged last tile
-// themselves, so the TPU's head_dim % 128 and seq % 512 gates do not
-// carry over.  The log-sum-exp L and Dr = rowsum(dO * O) are f32.
+// Replaces mxnet_tpu/ops/nn.py:744 _flash_attention, which calls jax's
+// library Pallas kernel for the TPU (jax/experimental/pallas/ops/tpu/
+// flash_attention.py, with its own VJP): the forward pallas_call (:758)
+// and the two backward ones, dK/dV (:1121) and dQ (:1456).  Inputs are
+// contiguous head-major (B, H, S, D) of one element type (float or
+// __nv_bfloat16), any S and any D; the kernels mask the ragged last
+// tile themselves, so the TPU's head_dim % 128 and seq % 512 gates do
+// not carry over.  The log-sum-exp L and Dr = rowsum(dO * O) are f32.
 //
 //   mx_flash_fwd:     O = softmax(Q K^T * scale, causal) V, and the
 //                     per-row log-sum-exp L.
@@ -17,54 +17,81 @@
 //                     where Dr = rowsum(dO * O) comes in precomputed.
 //   mx_flash_bwd_dq:  dQ = (P * (dO V^T - Dr) * scale) K.
 //
-// Numerics follow the TPU kernel: T is read from device memory by the
-// kernel itself and widened to f32 in shared memory; every product
-// accumulates in f32; P (and dS) are rounded to T before the products
-// that consume them (p.astype(v.dtype), ds.astype(q.dtype) in the jax
-// kernel), while the softmax sum l uses the unrounded P; outputs are
-// rounded to T once, at the end.  For T = float the roundings are the
-// identity.
+// Numerics follow the TPU kernel: every product sums in f32; P (the
+// exponentials exp(s - m) of the forward, exp(s - L) of the backward)
+// and dS are rounded to the input type before the products that consume
+// them (p.astype(v.dtype), ds.astype(q.dtype) in the jax kernel), while
+// the softmax sum l adds the unrounded P in f32; outputs are rounded
+// once, at the end.  In f32 the roundings are the identity.  The kernels
+// stay two for the backward, as on the TPU: no atomics, so every result
+// is deterministic.
 //
-// What bounds them on the H100: a causal forward does about
-// 2 * B * H * S^2 * D flops (two matrix products over the lower
-// triangle) on S * D * 4 * sizeof(T) bytes per head: at S = 1024,
-// D = 128 that is ~64 flops per byte in f32 and ~128 in bf16, so all
-// three are bound by operations.  These kernels run the products as f32
-// FMAs on the CUDA cores (67 TFLOP/s), in bf16 too: a bf16 tensor-core
-// redesign (mma/wgmma, TMA) is later work, and until then the bf16 forms
-// run at about the f32 forms' time while their bound drops to the bf16
-// tensor-core rate.
+// What bounds them on the H100.  One causal product over the lower
+// triangle is B*H*S*(S+1)/2*D multiply-adds; the forward does two, dK/dV
+// four and dQ three, over 4, 6 and 5 arrays of (B, H, S, D).  At the
+// bf16 training shape (4, 16, 1024, 128), on the tensor cores' dense
+// 989 TFLOP/s and 3.35 TB/s, the forward is bound by bytes (20.1 us of
+// memory against 17.4 us of products), dK/dV and dQ by operations (34.8
+// and 26.1 us against 30.2 and 25.2 us of memory).  In f32 all three are
+// bound by operations on the CUDA cores (67 TFLOP/s), 4-10x over their
+// bytes.
 //
-// Design: one thread block of 256 threads per (batch * head, tile of 64
-// query rows, chunk of 128 output columns) for the forward and dQ, and
-// per (batch * head, tile of 64 keys, chunk of 128 output columns) for
-// dK/dV.  The TPU kernel walked its key (or query) blocks in a
-// sequential grid dimension and carried the running softmax and the
-// accumulators in VMEM scratch between grid steps; here a loop inside
-// the block takes the place of that dimension, and the carry lives in
-// registers, so nothing crosses between blocks: no atomics, and no S x S
-// tensor in device memory.  The loops stop at the causal diagonal
-// (forward and dQ walk key tiles 0..i, dK/dV walks query tiles j..end).
+// bf16 design (mma.sync, FlashAttention-2's shape).  Every product is
+// mma.sync.m16n8k16 with bf16 operands and f32 sums.  Tiles stay bf16 in
+// shared memory, rows padded by 8 elements (a 272-byte stride puts the 8
+// rows an ldmatrix reads on 8 distinct groups of 4 banks); ldmatrix
+// feeds the operands, .trans for those read along the other axis (V in
+// P V, dO and Q in the backward's P^T dO and dS^T Q, K in dS K).  The
+// accumulator fragment of two adjacent n8 score tiles is, converted to
+// bf16, the A fragment of an m16k16 product, so P and dS go from the
+// score product to the next one in registers and never touch shared
+// memory.  A block of 128 threads (4 warps) takes 64 query rows (forward,
+// dQ; a warp owns 16 rows and walks key tiles of 64 up to the diagonal)
+// or 64 keys (dK/dV; a warp owns 16 keys and walks query tiles of 32 from
+// the diagonal: the dK and dV accumulators take 128 registers, so the
+// score tile is kept at 16 x 32).  Copies are 16-byte cp.async into a
+// ring of two stages: a block's work is a sequence of stages (one per key or
+// query tile, or per 128-column chunk of head_dim when D > 128), and the
+// next stage's copy is issued before the current stage's products, so
+// each copy overlaps one stage of tensor-core work, behind one
+// __syncthreads per stage.  The forward's stages alternate K and V
+// tiles, so V's copy overlaps Q K^T and the next K's copy overlaps P V.
+// Causal loops stop at the diagonal, and only the diagonal tiles (and a
+// ragged last tile) mask.  Ragged S: rows past S are zero-filled by the
+// copy (cp.async with a source size of 0), and scores past S are -inf (P
+// = 0).  Head_dim: chunks of 128 columns, so shared memory does not grow
+// with D; the grid's third dimension walks the output chunks and the
+// score products sum over every chunk, each staged in turn (at D <= 128
+// the resident operand is staged once).  A ragged chunk is zero-padded
+// in shared memory to a multiple of 16 columns, so the padding adds
+// nothing to a product; when D % 8 != 0 (or a pointer is not 16-byte
+// aligned) rows are not 16-byte aligned and the same kernel copies
+// element by element.  When every chunk is full (D % 128 == 0) the
+// kernels are instantiated with compile-time step counts, so the product
+// loops carry no branch and ptxas issues each step's ldmatrix loads
+// ahead of its mma (the ragged form, with a branch per step, ran 20-50%
+// slower at D = 128).  Exponentials are ex2.approx of scores pre-scaled
+// by scale * log2(e).  Query tiles run longest first: the grid's x is
+// batch * head and y the tile, so the first wave holds the longest tiles
+// of every head (tile-major order ran 11-16% slower).  The per-kernel
+// sizes below were tuned on an H100 (tools/torch_flash_tune.py times the
+// variants): 8 warps a block, 32-row steps and rings of 3 or 4 stages
+// were no faster; the forward holds 3 blocks an SM (at 4 blocks ptxas
+// caps it at 128 registers and spills).
 //
-// Head_dim is tiled.  Shared memory holds tiles of 64 rows by 128
-// columns of head_dim, f32, with a row stride of 129 floats (the 16
-// threads reading 16 rows at one column hit 16 banks), so a block's
-// shared memory does not grow with D (82.7 KB forward, 166 KB dK/dV,
-// 149 KB dQ).  The scores Q K^T and dO V^T are sums over all of D: they
-// are accumulated chunk by chunk, each chunk of the operands staged in
-// turn.  The output accumulators are registers for one chunk of 128
-// columns (4 rows x 8 columns a thread), and the grid's third dimension
-// walks the chunks: a block recomputes the scores for its chunk, so at
-// D = 256 the score products run twice, which costs a third more
-// operations in all and keeps the register tile of D <= 128.  When D <=
-// 128 the resident operand (Q in the forward and dQ, K and V in dK/dV)
-// is staged once, as before the tiling.  A thread computes a 4 x 4
-// block of the 64 x 64 score tile (rows ty * 4 + i, columns tx + 16 * j;
-// the 16 threads sharing a row reduce its max and sum with shuffles
-// inside a half warp).  Query tiles run longest first, so the blocks
-// with the most key tiles start in the first wave.  Exponentials use
-// expf and logf (no fast math), so the f32 results hold the f32
-// tolerance against the plain PyTorch version.
+// f32 design (the CUDA cores): tensor cores would mean
+// TF32, whose 10-bit mantissa cannot hold the f32 forms to the plain
+// version's rtol 2e-5, so the products stay f32 FMAs.  One thread block
+// of 256 threads per (batch * head, tile of 64 query rows or keys, chunk
+// of 128 output columns); the TPU kernel's sequential grid carry becomes
+// a loop inside the block, with the running softmax and the
+// accumulators in registers.  Shared memory holds tiles of 64 rows by
+// 128 columns, f32, with a row stride of 129 floats (82.7 KB forward,
+// 166 KB dK/dV, 149 KB dQ); a thread computes a 4 x 4 block of the 64 x
+// 64 score tile (rows ty * 4 + i, columns tx + 16 * j; the 16 threads
+// sharing a row reduce its max and sum with shuffles inside a half
+// warp).  Exponentials use expf and logf (no fast math), so the f32
+// results hold the f32 tolerance against the plain PyTorch version.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -81,16 +108,11 @@ constexpr int kPS = kTile + 1;               // stride of a 64 x 64 tile in smem
 
 template <typename T> __device__ __forceinline__ float to_f32(T v);
 template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 // v rounded to T and widened back: the rounding of a value that enters
-// a product in T
+// a product in T (the CUDA-core kernels below run T = float only, where
+// it is the identity; the bf16 forms are the tensor-core kernels in tc)
 template <typename T> __device__ __forceinline__ float rnd(float v) {
   return to_f32<T>(from_f32<T>(v));
 }
@@ -480,6 +502,572 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+
+// ---------------------------------------------------------------------
+// bf16: tensor cores (mma.sync m16n8k16, f32 sums)
+// ---------------------------------------------------------------------
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+// Per kernel: warps a block (each owns 16 query rows, or 16 keys in
+// dK/dV), blocks an SM should hold (a register budget for ptxas), rows of
+// the tile a stage walks (keys, or query rows in dK/dV) and stages of the
+// cp.async ring.
+constexpr int kFwdWarps = 4, kFwdMinBlocks = 3, kFwdStep = 64, kFwdStages = 2;
+constexpr int kDkvWarps = 4, kDkvMinBlocks = 1, kDkvStep = 32, kDkvStages = 2;
+constexpr int kDqWarps = 4, kDqMinBlocks = 1, kDqStep = 64, kDqStages = 2;
+constexpr int kLds = kDC + 8;                // smem row stride, elements (272 bytes)
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared; zeros when !ok (source size 0)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// wait until at most N groups of this thread's copies are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// c (16 x 8, f32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col)
+__device__ __forceinline__ void mma(float c[4], const uint32_t a[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x (ex2.approx.ftz: relative error ~2^-22, results below 2^-126
+// flush to 0, far under a bf16 P's resolution and the sum l's)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// two f32 rounded to bf16, lo in the low half (the lower column)
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Stage rows [r0, r0 + R), columns [c0, c0 + w) of a (S, D) matrix into
+// an (R, kLds) bf16 tile, zero rows past S and columns [w, w rounded up
+// to 16).  vec: 16-byte cp.async (D % 8 == 0 and the base aligned, so w
+// is a multiple of 8); else element by element, made visible by the
+// __syncthreads that starts the stage which reads the tile.
+template <int R, int TH>
+__device__ __forceinline__ void stage_tile(bf16* dst, const bf16* __restrict__ src, int r0,
+                                           int S, int D, int c0, int w, bool vec) {
+  const int wp = (w + 15) & ~15;
+  const int l16 = threadIdx.x & 15;
+  if (vec) {
+    const int c = l16 * 8;
+    if (c >= wp) return;
+    for (int r = threadIdx.x >> 4; r < R; r += TH / 16) {
+      const bool ok = r0 + r < S && c < w;
+      cp_async16(dst + r * kLds + c, ok ? src + (size_t)(r0 + r) * D + c0 + c : src, ok);
+    }
+  } else {
+    for (int r = threadIdx.x >> 4; r < R; r += TH / 16) {
+      const bool row_ok = r0 + r < S;
+      for (int c = l16; c < wp; c += 16)
+        dst[r * kLds + c] = (row_ok && c < w) ? src[(size_t)(r0 + r) * D + c0 + c]
+                                              : __float2bfloat16_rn(0.f);
+    }
+  }
+}
+
+// acc[NT] (16 x 8 NT) += A B^T: A the 16 rows [a_row0, +16) of a_tile,
+// B the tile b (NT * 8 rows, the n index), both over columns
+// [0, 16 nk) (the k index)
+template <int NT>
+__device__ __forceinline__ void mma_nk(float acc[][4], const bf16* a_tile, int a_row0,
+                                       const bf16* b, int nk) {
+  const int lane = threadIdx.x & 31;
+  const bf16* ap = a_tile + (a_row0 + (lane & 15)) * kLds + (lane >> 4) * 8;
+  const bf16* bp = b + ((lane & 7) + ((lane >> 4) << 3)) * kLds + ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int kk = 0; kk < kDC / 16; ++kk) {
+    if (kk < nk) {
+      uint32_t a[4];
+      ldsm_x4(a, ap + kk * 16);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t f[4];
+        ldsm_x4(f, bp + np * 16 * kLds + kk * 16);
+        mma(acc[2 * np], a, f[0], f[1]);
+        mma(acc[2 * np + 1], a, f[2], f[3]);
+      }
+    }
+  }
+}
+
+// acc[16] (16 x 128) += P B: P the 16 x 16 KT accumulator fragments
+// p[2 KT] of an earlier product, rounded to bf16 here; B the tile b
+// (16 KT rows, the k index) over columns [0, 16 ndp) (the n index)
+template <int KT>
+__device__ __forceinline__ void mma_kn(float acc[16][4], const float p[][4], const bf16* b,
+                                       int ndp) {
+  const int lane = threadIdx.x & 31;
+  const bf16* bp = b + ((lane & 7) + (((lane >> 3) & 1) << 3)) * kLds + ((lane >> 4) << 3);
+#pragma unroll
+  for (int kk = 0; kk < KT; ++kk) {
+    const uint32_t a[4] = {pack(p[2 * kk][0], p[2 * kk][1]), pack(p[2 * kk][2], p[2 * kk][3]),
+                           pack(p[2 * kk + 1][0], p[2 * kk + 1][1]),
+                           pack(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+#pragma unroll
+    for (int dp = 0; dp < kDC / 16; ++dp) {
+      if (dp < ndp) {
+        uint32_t f[4];
+        ldsm_x4_trans(f, bp + kk * 16 * kLds + dp * 16);
+        mma(acc[2 * dp], a, f[0], f[1]);
+        mma(acc[2 * dp + 1], a, f[2], f[3]);
+      }
+    }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float a[][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a[i][e] = 0.f;
+}
+
+// rows g and g + 8 of a warp's 16 x 128 accumulator, rounded to bf16:
+// rows [row0, row0 + 16) of the (S, D) output, columns [c0, c0 + w)
+__device__ __forceinline__ void store_rows(bf16* __restrict__ out, const float acc[16][4],
+                                           int row0, int S, int D, int c0, int w,
+                                           const float mul[2]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + g + 8 * h;
+    if (r >= S) continue;
+    bf16* orow = out + (size_t)r * D + c0;
+#pragma unroll
+    for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = nt * 8 + 2 * t + e;
+        if (c < w) orow[c] = __float2bfloat16_rn(acc[nt][2 * h + e] * mul[h]);
+      }
+  }
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// 16-column steps over a chunk of width w: all 8 when every chunk is
+// full (D % 128 == 0, a compile-time count, so the product loops carry
+// no branch and ptxas can batch their ldmatrix), else w rounded up
+template <bool kFull>
+__device__ __forceinline__ int ksteps(int w) {
+  return kFull ? kDC / 16 : (w + 15) >> 4;
+}
+
+// -------------------------------- forward ----------------------------
+// Stages per key tile: one per head_dim chunk of Q K^T (K chunk; Q chunk
+// too when D > 128, else Q is resident), then one of P V (V's output
+// chunk).  Shared memory: a ring of K/V tiles, then Q (1 tile, or a ring
+// when D > 128).
+template <bool kFull>
+__global__ void __launch_bounds__(32 * kFwdWarps, kFwdMinBlocks)
+flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, bf16* __restrict__ o,
+                      float* __restrict__ lse, int S, int D, float scale, int vec) {
+  constexpr int R = 16 * kFwdWarps, TH = 32 * kFwdWarps, KT = kFwdStep, NS = kFwdStages;
+  constexpr int kQSlot = R * kLds, kKSlot = KT * kLds;
+  const int nq = (S + R - 1) / R;
+  const int qt = nq - 1 - (int)blockIdx.y;          // longest rows first
+  const size_t bh = blockIdx.x;
+  const int nch = (D + kDC - 1) / kDC;
+  const int oc0 = blockIdx.z * kDC, ow = min(kDC, D - oc0);
+  const bf16* qg = q + bh * S * D;
+  const bf16* kg = k + bh * S * D;
+  const bf16* vg = v + bh * S * D;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  bf16* qs = ring + NS * kKSlot;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int q0 = qt * R;
+  const int nkt = min((q0 + R + KT - 1) / KT, (S + KT - 1) / KT);  // to the diagonal
+  const int per = nch + 1, nst = nkt * per;
+  const float sl2 = scale * kLog2e;
+
+  auto issue = [&](int st) {
+    const int kt = st / per, j = st - kt * per, buf = st % NS;
+    if (j < nch) {
+      const int c0 = j * kDC, w = min(kDC, D - c0);
+      if (nch > 1) stage_tile<R, TH>(qs + buf * kQSlot, qg, q0, S, D, c0, w, vec);
+      stage_tile<KT, TH>(ring + buf * kKSlot, kg, kt * KT, S, D, c0, w, vec);
+    } else {
+      stage_tile<KT, TH>(ring + buf * kKSlot, vg, kt * KT, S, D, oc0, ow, vec);
+    }
+  };
+  if (nch == 1) stage_tile<R, TH>(qs, qg, q0, S, D, 0, D, vec);
+#pragma unroll
+  for (int i = 0; i < NS - 1; ++i) {
+    if (i < nst) issue(i);
+    cp_async_commit();
+  }
+
+  float s[KT / 8][4], acc[kDC / 8][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};   // rows g, g + 8
+  zero<kDC / 8>(acc);
+  for (int st = 0; st < nst; ++st) {
+    cp_async_wait<NS - 2>();
+    __syncthreads();                                // stage st landed, st - 1 done
+    if (st + NS - 1 < nst) issue(st + NS - 1);
+    cp_async_commit();
+    const int kt = st / per, j = st - kt * per, buf = st % NS;
+    const bf16* tile = ring + buf * kKSlot;
+    if (j < nch) {                                  // S += Q_j K_j^T
+      if (j == 0) zero<KT / 8>(s);
+      const int w = min(kDC, D - j * kDC);
+      mma_nk<KT / 8>(s, qs + (nch > 1 ? buf : 0) * kQSlot, warp * 16, tile, ksteps<kFull>(w));
+      continue;
+    }
+    // online softmax in log2 units; on the tiles that cross the diagonal
+    // keys past the row (and past S) are -inf.  Every row has a valid
+    // key in the first tile, so m is finite from then on.
+    const int k0 = kt * KT;
+    const bool diag = k0 + KT > q0 + 1;
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int nt = 0; nt < KT / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = q0 + warp * 16 + g + (e >> 1) * 8;
+        const int c = k0 + nt * 8 + 2 * t + (e & 1);
+        float x = s[nt][e] * sl2;
+        if (diag && (c > r || c >= S)) x = -INFINITY;
+        s[nt][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = quad_max(mx[h]);
+      alpha[h] = exp2_ftz(m[h] - mx[h]);
+      m[h] = mx[h];
+      l[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int nt = 0; nt < KT / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2_ftz(s[nt][e] - m[e >> 1]);
+        l[e >> 1] += p;                             // unrounded
+        s[nt][e] = p;
+      }
+#pragma unroll
+    for (int nt = 0; nt < kDC / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][e] *= alpha[e >> 1];
+    mma_kn<KT / 16>(acc, s, tile, ksteps<kFull>(ow));  // O += bf16(P) V
+  }
+  cp_async_wait<0>();
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] = quad_sum(l[h]);
+    inv[h] = 1.f / l[h];
+  }
+  const int row0 = q0 + warp * 16;
+  store_rows(o + bh * S * D, acc, row0, S, D, oc0, ow, inv);
+  if (blockIdx.z == 0 && t == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row0 + g + 8 * h;
+      if (r < S) lse[bh * S + r] = m[h] * kLn2 + logf(l[h]);
+    }
+  }
+}
+
+// -------------------------------- dK/dV ------------------------------
+// A warp owns 16 keys; the block walks query tiles of QT rows from the
+// diagonal.  Stages per query tile: one per head_dim chunk of S^T = K
+// Q^T and dP^T = V dO^T (Q and dO chunks; K and V chunks too when D >
+// 128, else K and V are resident), and when D > 128 one more for the
+// output chunk of Q and dO.  The stage that forms P^T and dS^T also
+// stages L and Dr of its rows.  Shared memory: rings of Q and dO tiles,
+// of L and of Dr, then K and V (1 tile each, or rings).
+template <bool kFull>
+__global__ void __launch_bounds__(32 * kDkvWarps, kDkvMinBlocks)
+flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int D,
+                          float scale, int vec) {
+  constexpr int R = 16 * kDkvWarps, TH = 32 * kDkvWarps, QT = kDkvStep, NS = kDkvStages;
+  constexpr int kKSlot = R * kLds, kQSlot = QT * kLds;
+  const int kt = blockIdx.y;                        // most query tiles first
+  const size_t bh = blockIdx.x;
+  const int nch = (D + kDC - 1) / kDC;
+  const int oc0 = blockIdx.z * kDC, ow = min(kDC, D - oc0);
+  const bf16* qg = q + bh * S * D;
+  const bf16* kg = k + bh * S * D;
+  const bf16* vg = v + bh * S * D;
+  const bf16* dog = dout + bh * S * D;
+  const float* lg = lse + bh * S;
+  const float* dg = delta + bh * S;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem);         // NS Q tiles
+  bf16* dos = qs + NS * kQSlot;                     // NS dO tiles
+  float* ls = reinterpret_cast<float*>(dos + NS * kQSlot);  // NS x QT
+  float* drs = ls + NS * QT;                        // NS x QT
+  bf16* ks = reinterpret_cast<bf16*>(drs + NS * QT);
+  bf16* vs = ks + (nch > 1 ? NS : 1) * kKSlot;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int k0 = kt * R;
+  const int first = k0 / QT, nqt = (S + QT - 1) / QT;
+  const int per = nch == 1 ? 1 : nch + 1, nst = (nqt - first) * per;
+  const float sl2 = scale * kLog2e;
+
+  auto issue = [&](int st) {
+    const int qi = first + st / per, j = st % per, buf = st % NS, q0 = qi * QT;
+    if (j < nch) {
+      const int c0 = j * kDC, w = min(kDC, D - c0);
+      if (nch > 1) {
+        stage_tile<R, TH>(ks + buf * kKSlot, kg, k0, S, D, c0, w, vec);
+        stage_tile<R, TH>(vs + buf * kKSlot, vg, k0, S, D, c0, w, vec);
+      }
+      stage_tile<QT, TH>(qs + buf * kQSlot, qg, q0, S, D, c0, w, vec);
+      stage_tile<QT, TH>(dos + buf * kQSlot, dog, q0, S, D, c0, w, vec);
+    } else {
+      stage_tile<QT, TH>(qs + buf * kQSlot, qg, q0, S, D, oc0, ow, vec);
+      stage_tile<QT, TH>(dos + buf * kQSlot, dog, q0, S, D, oc0, ow, vec);
+    }
+    if (j == per - 1) {
+      const int i = threadIdx.x % QT, r = q0 + i;
+      if (threadIdx.x < QT)
+        cp_async4(ls + buf * QT + i, r < S ? lg + r : lg, r < S);
+      else if (threadIdx.x < 2 * QT)
+        cp_async4(drs + buf * QT + i, r < S ? dg + r : dg, r < S);
+    }
+  };
+  if (nch == 1) {
+    stage_tile<R, TH>(ks, kg, k0, S, D, 0, D, vec);
+    stage_tile<R, TH>(vs, vg, k0, S, D, 0, D, vec);
+  }
+#pragma unroll
+  for (int i = 0; i < NS - 1; ++i) {
+    if (i < nst) issue(i);
+    cp_async_commit();
+  }
+
+  float sT[QT / 8][4], dpT[QT / 8][4], adk[kDC / 8][4], adv[kDC / 8][4];
+  zero<kDC / 8>(adk);
+  zero<kDC / 8>(adv);
+  for (int st = 0; st < nst; ++st) {
+    cp_async_wait<NS - 2>();
+    __syncthreads();
+    if (st + NS - 1 < nst) issue(st + NS - 1);
+    cp_async_commit();
+    const int qi = first + st / per, j = st % per, buf = st % NS, q0 = qi * QT;
+    const bf16* qt_ = qs + buf * kQSlot;
+    const bf16* dot_ = dos + buf * kQSlot;
+    if (j < nch) {                                  // S^T, dP^T over chunk j
+      if (j == 0) {
+        zero<QT / 8>(sT);
+        zero<QT / 8>(dpT);
+      }
+      const int w = min(kDC, D - j * kDC), nk = ksteps<kFull>(w);
+      const int rb = nch > 1 ? buf : 0;
+      mma_nk<QT / 8>(sT, ks + rb * kKSlot, warp * 16, qt_, nk);
+      mma_nk<QT / 8>(dpT, vs + rb * kKSlot, warp * 16, dot_, nk);
+      if (nch > 1) continue;
+    }
+    // P^T = exp(S^T scale - L), dS^T = P^T (dP^T - Dr) scale; masked on
+    // the tiles that cross the diagonal or pass S
+    const bool masked = q0 < k0 + R || q0 + QT > S;
+    const float* lb = ls + buf * QT;
+    const float* db = drs + buf * QT;
+#pragma unroll
+    for (int nt = 0; nt < QT / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + warp * 16 + g + (e >> 1) * 8;
+        const int qc = nt * 8 + 2 * t + (e & 1), r = q0 + qc;
+        const bool ok = !masked || (key <= r && r < S);
+        const float p = ok ? exp2_ftz(sT[nt][e] * sl2 - lb[qc] * kLog2e) : 0.f;
+        dpT[nt][e] = p * (dpT[nt][e] - db[qc]) * scale;
+        sT[nt][e] = p;
+      }
+    const int ndp = ksteps<kFull>(ow);
+    mma_kn<QT / 16>(adv, sT, dot_, ndp);            // dV += bf16(P^T) dO
+    mma_kn<QT / 16>(adk, dpT, qt_, ndp);            // dK += bf16(dS^T) Q
+  }
+  cp_async_wait<0>();
+  const float one[2] = {1.f, 1.f};
+  store_rows(dk + bh * S * D, adk, k0 + warp * 16, S, D, oc0, ow, one);
+  store_rows(dv + bh * S * D, adv, k0 + warp * 16, S, D, oc0, ow, one);
+}
+
+// -------------------------------- dQ ---------------------------------
+// A warp owns 16 query rows; the block walks key tiles of KT to the
+// diagonal.  Stages per key tile: one per head_dim chunk of S = Q K^T
+// and dP = dO V^T (K and V chunks; Q and dO chunks too when D > 128,
+// else Q and dO are resident), and when D > 128 one more for K's output
+// chunk.  Shared memory: rings of K and V tiles, then Q and dO (1 tile
+// each, or rings).
+template <bool kFull>
+__global__ void __launch_bounds__(32 * kDqWarps, kDqMinBlocks)
+flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         bf16* __restrict__ dq, int S, int D, float scale, int vec) {
+  constexpr int R = 16 * kDqWarps, TH = 32 * kDqWarps, KT = kDqStep, NS = kDqStages;
+  constexpr int kQSlot = R * kLds, kKSlot = KT * kLds;
+  const int nq = (S + R - 1) / R;
+  const int qt = nq - 1 - (int)blockIdx.y;          // longest rows first
+  const size_t bh = blockIdx.x;
+  const int nch = (D + kDC - 1) / kDC;
+  const int oc0 = blockIdx.z * kDC, ow = min(kDC, D - oc0);
+  const bf16* qg = q + bh * S * D;
+  const bf16* kg = k + bh * S * D;
+  const bf16* vg = v + bh * S * D;
+  const bf16* dog = dout + bh * S * D;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ks = reinterpret_cast<bf16*>(smem);         // NS key tiles
+  bf16* vs = ks + NS * kKSlot;                      // NS key tiles
+  bf16* qs = vs + NS * kKSlot;
+  bf16* dos = qs + (nch > 1 ? NS : 1) * kQSlot;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int q0 = qt * R;
+  const int nkt = min((q0 + R + KT - 1) / KT, (S + KT - 1) / KT);  // to the diagonal
+  const int per = nch == 1 ? 1 : nch + 1, nst = nkt * per;
+  const float sl2 = scale * kLog2e;
+
+  auto issue = [&](int st) {
+    const int kt = st / per, j = st % per, buf = st % NS;
+    if (j < nch) {
+      const int c0 = j * kDC, w = min(kDC, D - c0);
+      if (nch > 1) {
+        stage_tile<R, TH>(qs + buf * kQSlot, qg, q0, S, D, c0, w, vec);
+        stage_tile<R, TH>(dos + buf * kQSlot, dog, q0, S, D, c0, w, vec);
+      }
+      stage_tile<KT, TH>(ks + buf * kKSlot, kg, kt * KT, S, D, c0, w, vec);
+      stage_tile<KT, TH>(vs + buf * kKSlot, vg, kt * KT, S, D, c0, w, vec);
+    } else {
+      stage_tile<KT, TH>(ks + buf * kKSlot, kg, kt * KT, S, D, oc0, ow, vec);
+    }
+  };
+  if (nch == 1) {
+    stage_tile<R, TH>(qs, qg, q0, S, D, 0, D, vec);
+    stage_tile<R, TH>(dos, dog, q0, S, D, 0, D, vec);
+  }
+#pragma unroll
+  for (int i = 0; i < NS - 1; ++i) {
+    if (i < nst) issue(i);
+    cp_async_commit();
+  }
+
+  float lr[2], dr[2];                               // rows g, g + 8 (log2 units)
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = q0 + warp * 16 + g + 8 * h;
+    lr[h] = r < S ? lse[bh * S + r] * kLog2e : 0.f;
+    dr[h] = r < S ? delta[bh * S + r] : 0.f;
+  }
+  float s[KT / 8][4], dp[KT / 8][4], acc[kDC / 8][4];
+  zero<kDC / 8>(acc);
+  for (int st = 0; st < nst; ++st) {
+    cp_async_wait<NS - 2>();
+    __syncthreads();
+    if (st + NS - 1 < nst) issue(st + NS - 1);
+    cp_async_commit();
+    const int kt = st / per, j = st % per, buf = st % NS;
+    if (j < nch) {                                  // S, dP over chunk j
+      if (j == 0) {
+        zero<KT / 8>(s);
+        zero<KT / 8>(dp);
+      }
+      const int w = min(kDC, D - j * kDC), nk = ksteps<kFull>(w);
+      const int rb = nch > 1 ? buf : 0;
+      mma_nk<KT / 8>(s, qs + rb * kQSlot, warp * 16, ks + buf * kKSlot, nk);
+      mma_nk<KT / 8>(dp, dos + rb * kQSlot, warp * 16, vs + buf * kKSlot, nk);
+      if (nch > 1) continue;
+    }
+    // dS = P (dP - Dr) scale, P = exp(S scale - L); keys past the row
+    // (and past S) masked on the tiles that cross the diagonal
+    const int k0 = kt * KT;
+    const bool diag = k0 + KT > q0 + 1;
+#pragma unroll
+    for (int nt = 0; nt < KT / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = q0 + warp * 16 + g + (e >> 1) * 8;
+        const int c = k0 + nt * 8 + 2 * t + (e & 1);
+        const bool ok = !diag || (c <= r && c < S);
+        const float p = ok ? exp2_ftz(s[nt][e] * sl2 - lr[e >> 1]) : 0.f;
+        dp[nt][e] = p * (dp[nt][e] - dr[e >> 1]) * scale;
+      }
+    mma_kn<KT / 16>(acc, dp, ks + buf * kKSlot, ksteps<kFull>(ow));  // dQ += bf16(dS) K
+  }
+  cp_async_wait<0>();
+  const float one[2] = {1.f, 1.f};
+  store_rows(dq + bh * S * D, acc, q0 + warp * 16, S, D, oc0, ow, one);
+}
+
+size_t fwd_smem(int D) {
+  return sizeof(bf16) * kLds *
+         (kFwdStages * kFwdStep + 16 * kFwdWarps * (D > kDC ? kFwdStages : 1));
+}
+size_t dkv_smem(int D) {
+  return sizeof(bf16) * kLds *
+             (2 * kDkvStages * kDkvStep + 16 * kDkvWarps * 2 * (D > kDC ? kDkvStages : 1)) +
+         sizeof(float) * 2 * kDkvStages * kDkvStep;
+}
+size_t dq_smem(int D) {
+  return sizeof(bf16) * kLds *
+         (2 * kDqStages * kDqStep + 16 * kDqWarps * 2 * (D > kDC ? kDqStages : 1));
+}
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+// x: batch * head, y: tiles of 16 * warps rows (or keys), z: head_dim chunks
+dim3 grid_of(int BH, int S, int D, int warps) {
+  return dim3(BH, (S + 16 * warps - 1) / (16 * warps), (D + kDC - 1) / kDC);
+}
+
+}  // namespace tc
+
 constexpr size_t kFwdSmem = sizeof(float) * (2 * kTile * kLd + kTile * kPS);
 constexpr size_t kDkvSmem = sizeof(float) * (4 * kTile * kLd + 2 * kTile * kPS + 2 * kTile);
 constexpr size_t kDqSmem = sizeof(float) * (4 * kTile * kLd + kTile * kPS);
@@ -529,6 +1117,56 @@ int dq(const void* q, const void* k, const void* v, const void* dout, const void
   return (int)cudaGetLastError();
 }
 
+
+int fwd_bf16(const void* q, const void* k, const void* v, void* o, void* lse, int BH, int S,
+             int D, float scale, int device, void* stream) {
+  const size_t smem = tc::fwd_smem(D);
+  const auto kernel = D % kDC == 0 ? tc::flash_fwd_bf16_kernel<true>
+                                   : tc::flash_fwd_bf16_kernel<false>;
+  cudaError_t err = prepare(kernel, smem, device);
+  if (err != cudaSuccess) return (int)err;
+  const int vec = D % 8 == 0 && tc::aligned16(q) && tc::aligned16(k) && tc::aligned16(v);
+  kernel<<<tc::grid_of(BH, S, D, tc::kFwdWarps), 32 * tc::kFwdWarps, smem,
+           (cudaStream_t)stream>>>(
+      (const tc::bf16*)q, (const tc::bf16*)k, (const tc::bf16*)v, (tc::bf16*)o, (float*)lse,
+      S, D, scale, vec);
+  return (int)cudaGetLastError();
+}
+
+int dkv_bf16(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+             const void* delta, void* dk, void* dv, int BH, int S, int D, float scale,
+             int device, void* stream) {
+  const size_t smem = tc::dkv_smem(D);
+  const auto kernel = D % kDC == 0 ? tc::flash_bwd_dkv_bf16_kernel<true>
+                                   : tc::flash_bwd_dkv_bf16_kernel<false>;
+  cudaError_t err = prepare(kernel, smem, device);
+  if (err != cudaSuccess) return (int)err;
+  const int vec = D % 8 == 0 && tc::aligned16(q) && tc::aligned16(k) && tc::aligned16(v) &&
+                  tc::aligned16(dout);
+  kernel<<<tc::grid_of(BH, S, D, tc::kDkvWarps), 32 * tc::kDkvWarps, smem,
+           (cudaStream_t)stream>>>(
+      (const tc::bf16*)q, (const tc::bf16*)k, (const tc::bf16*)v, (const tc::bf16*)dout,
+      (const float*)lse, (const float*)delta, (tc::bf16*)dk, (tc::bf16*)dv, S, D, scale, vec);
+  return (int)cudaGetLastError();
+}
+
+int dq_bf16(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+            const void* delta, void* dqp, int BH, int S, int D, float scale, int device,
+            void* stream) {
+  const size_t smem = tc::dq_smem(D);
+  const auto kernel = D % kDC == 0 ? tc::flash_bwd_dq_bf16_kernel<true>
+                                   : tc::flash_bwd_dq_bf16_kernel<false>;
+  cudaError_t err = prepare(kernel, smem, device);
+  if (err != cudaSuccess) return (int)err;
+  const int vec = D % 8 == 0 && tc::aligned16(q) && tc::aligned16(k) && tc::aligned16(v) &&
+                  tc::aligned16(dout);
+  kernel<<<tc::grid_of(BH, S, D, tc::kDqWarps), 32 * tc::kDqWarps, smem,
+           (cudaStream_t)stream>>>(
+      (const tc::bf16*)q, (const tc::bf16*)k, (const tc::bf16*)v, (const tc::bf16*)dout,
+      (const float*)lse, (const float*)delta, (tc::bf16*)dqp, S, D, scale, vec);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -538,7 +1176,7 @@ extern "C" {
 // q, k, v, o: (BH, S, D) contiguous; lse: (BH, S)
 int mx_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int BH,
                  int S, int D, float scale, int dtype, int device, void* stream) {
-  return dtype == 1 ? fwd<__nv_bfloat16>(q, k, v, o, lse, BH, S, D, scale, device, stream)
+  return dtype == 1 ? fwd_bf16(q, k, v, o, lse, BH, S, D, scale, device, stream)
                     : fwd<float>(q, k, v, o, lse, BH, S, D, scale, device, stream);
 }
 
@@ -546,8 +1184,8 @@ int mx_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse
 int mx_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                      const void* lse, const void* delta, void* dk, void* dv, int BH, int S,
                      int D, float scale, int dtype, int device, void* stream) {
-  return dtype == 1 ? dkv<__nv_bfloat16>(q, k, v, dout, lse, delta, dk, dv, BH, S, D, scale,
-                                         device, stream)
+  return dtype == 1 ? dkv_bf16(q, k, v, dout, lse, delta, dk, dv, BH, S, D, scale, device,
+                               stream)
                     : dkv<float>(q, k, v, dout, lse, delta, dk, dv, BH, S, D, scale, device,
                                  stream);
 }
@@ -555,10 +1193,16 @@ int mx_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* do
 int mx_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                     const void* lse, const void* delta, void* dqp, int BH, int S, int D,
                     float scale, int dtype, int device, void* stream) {
-  return dtype == 1 ? dq<__nv_bfloat16>(q, k, v, dout, lse, delta, dqp, BH, S, D, scale,
-                                        device, stream)
+  return dtype == 1 ? dq_bf16(q, k, v, dout, lse, delta, dqp, BH, S, D, scale, device,
+                              stream)
                     : dq<float>(q, k, v, dout, lse, delta, dqp, BH, S, D, scale, device,
                                 stream);
+}
+
+// dynamic shared memory of a bf16 kernel at head_dim D, bytes: which 0 =
+// forward, 1 = dK/dV, 2 = dQ
+int mx_flash_bf16_smem(int which, int D) {
+  return (int)(which == 0 ? tc::fwd_smem(D) : which == 1 ? tc::dkv_smem(D) : tc::dq_smem(D));
 }
 
 const char* mx_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -25,7 +25,7 @@ from pathlib import Path
 
 from ..base import MXNetError
 
-__all__ = ["SOURCES", "build_all", "load", "check"]
+__all__ = ["SOURCES", "build_all", "load", "check", "log_path"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -73,6 +73,12 @@ def _target(name):
     digest = hashlib.sha256(src.read_bytes()
                             + " ".join(flags).encode()).hexdigest()
     return src, flags, BUILD_DIR / ("lib%s-%s.so" % (name, digest[:12]))
+
+
+def log_path(name):
+    """The nvcc log of ``csrc/<name>.cu``'s current build (``ptxas``'s
+    registers, stack and spills for each kernel: ``-Xptxas=-v``)."""
+    return _target(name)[2].with_suffix(".log")
 
 
 def _start(name):

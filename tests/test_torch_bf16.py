@@ -18,7 +18,9 @@ packages.  What is held, and at which bound:
   array's largest value and the relative L2 error under 1e-2 (the
   reference rounds the scores to bf16 before the softmax, the port
   keeps them in f32 as the flash kernel does; measured relative L2
-  0.0016 to 0.0038, largest error 1 to 2 bf16 ulps);
+  0.0016 to 0.0038, largest error 1 to 2 bf16 ulps), also at small
+  forms of the edges of the card's tiling (S 17, 130 and 1, D 36 and
+  80; at S = 1 dq and dk are exact zeros on both sides);
 * the plain bf16 fused BN-apply/ReLU/1x1 product against the
   reference's ``fused_scale_relu_matmul`` Pallas kernel in interpret
   mode, at the reference's own bf16 bound, 5e-2
@@ -240,7 +242,9 @@ def _jax_causal_attention(q, k, v, scale):
     return o.reshape(B, S, H, D).transpose(0, 2, 1, 3)
 
 
-@pytest.mark.parametrize("B,H,S,D", [(2, 2, 40, 64), (1, 2, 70, 32)])
+@pytest.mark.parametrize("B,H,S,D", [(2, 2, 40, 64), (1, 2, 70, 32),
+                                     (1, 2, 17, 36), (1, 1, 130, 80),
+                                     (2, 2, 1, 16)])
 def test_flash_attention_bf16_matches_jax(B, H, S, D):
     rng = np.random.RandomState(S)
     q, k, v, do = ((rng.randn(B, H, S, D) * 0.5).astype(np.float32)
@@ -262,7 +266,10 @@ def test_flash_attention_bf16_matches_jax(B, H, S, D):
         np.testing.assert_allclose(a, r, rtol=0,
                                    atol=2.0 ** -6 * float(np.abs(r).max()),
                                    err_msg=what)
-        assert _rel_l2(a, r) < 1e-2, what
+        # at S = 1 dq and dk are exact zeros (a softmax over one score
+        # has no gradient), which the atol-0 bound above demands
+        if np.abs(r).any():
+            assert _rel_l2(a, r) < 1e-2, what
     assert PLAIN_CALLS["flash_attention_fwd"] == 1
     assert PLAIN_CALLS["flash_attention_bwd_dq"] == 1
 

@@ -241,14 +241,16 @@ def _jax_causal_attention(q, k, v, scale):
 
 
 @pytest.mark.parametrize("B,H,S,D", [(2, 2, 16, 8), (1, 3, 23, 16),
-                                     (2, 1, 65, 4)])
+                                     (2, 1, 65, 4), (1, 2, 17, 36),
+                                     (1, 1, 130, 80), (2, 2, 1, 16)])
 def test_flash_attention_matches_jax(B, H, S, D):
     """Forward and dq/dk/dv of the port's causal attention against
     jax.vjp of the JAX package's XLA path, for both the reference
     (flash_attention_plain, autograd's backward) and FlashAttentionFn,
     whose forward and two backward wrappers take their plain versions
-    on CPU tensors; odd S and S past one 64-row tile.  rtol 2e-5 /
-    atol 1e-6, the reference's own bound."""
+    on CPU tensors; odd S, S past one 64-row tile, and small forms of the
+    edges of the card's tiling (S 17, 130 and 1; D 36, not a multiple of
+    8, and 80).  rtol 2e-5 / atol 1e-6, the reference's own bound."""
     rng = np.random.RandomState(B * 100 + S)
     q, k, v, do = (_rand(rng, B, H, S, D) for _ in range(4))
     sc = 1.0 / np.sqrt(D)
@@ -288,3 +290,14 @@ def test_unsupported_or_mixed_devices_raise():
     with pytest.raises(MXNetError, match="share one device"):
         layernorm_fused(torch.ones(2, 8), torch.ones(8, device="meta"),
                         torch.zeros(8))
+
+
+def test_build_log_is_named_for_the_current_source():
+    """``_build.log_path`` names the nvcc log beside the library that the
+    current source and flags build (``chip_smoke.py`` reads the bf16
+    flash kernels' ``ptxas`` lines from it)."""
+    from mxnet_tpu_torch.kernels import _build
+    lib = _build._target("flash_attention")[2]
+    log = _build.log_path("flash_attention")
+    assert log.suffix == ".log" and log.with_suffix(".so") == lib
+    assert _build.log_path("quant") != log
