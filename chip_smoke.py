@@ -142,8 +142,13 @@ Phases, each printed as one JSON line:
    512), FlashAttentionFn end to end against autograd through the
    reference (relative L2 1e-2), each kernel's achieved TFLOP/s;
    LayerNorm forward and backward at
-   4096 x 2048; the fused kernel at ResNet-50's 8 site shapes at batch
-   256 and the odd shape, two runs bit-identical; timed as in 3 beside
+   4096 x 2048; the fused kernel (tensor cores: the mma.sync GEMM of
+   fused_gemm_bf16.cuh; its instances' ptxas lines and shared memory
+   printed first, no spills allowed, the CUDA-core kernel f32 only) at
+   ResNet-50's 8 site shapes at batch 256, the odd shape and the edges of
+   its tiling (M off the row tile, K 72, N 64 and 36, x 2 bytes off
+   alignment), two runs bit-identical, each site's TFLOP/s and GB/s;
+   timed as in 3 beside
    SDPA, F.layer_norm / native_layer_norm_backward and cuBLAS bf16 on
    the same bf16 tensors, bounded by bytes over 3.35 TB/s or operations
    over the dense bf16 tensor-core peak (989 TFLOP/s);
@@ -209,7 +214,8 @@ Phases, each printed as one JSON line:
    (batch 256, 28 x 28, 128 -> 512 on the channel-last view of cuDNN's
    output and 512 -> 128 on a contiguous tensor), at 64 x 56 x 56 (64 ->
    256, the TPU kernel's th = 16 rows), in f32, on an NHWC view of an
-   NCHW tensor, on a channel slice and at an odd shape; the two bands
+   NCHW tensor, on a channel slice, at an odd shape and at the bf16
+   GEMM's edges (BAND4D_EDGES; ptxas lines as in 20); the two bands
    timed as in 3 beside ``torch.matmul`` in bf16 on the activated input
    and row 7's kernel on the 2-D view, bounded by bytes over 3.35 TB/s
    or operations over the bf16 tensor-core peak;
@@ -303,6 +309,18 @@ FUSED_SHAPES = {(401408, 256, 64, False): 2, (401408, 64, 256, True): 3,
                 (25088, 1024, 256, False): 5, (25088, 256, 1024, True): 6,
                 (6272, 2048, 512, False): 2, (6272, 512, 2048, True): 3}
 FUSED_ODD = (1000, 37, 93, True)
+# the bf16 fused kernels (tensor cores, fused_gemm_bf16.cuh) at the edges
+# of their tiling: M not a multiple of the 128-row tile, K a multiple of 8
+# but not of the 32-column K step, N = 64 and N not a multiple of 8, and
+# x a contiguous view whose data pointer is 2 bytes off 16-byte
+# alignment; (M, K, N, residual, x's element offset)
+FUSED_BF16_EDGES = ((12544 + 37, 512, 2048, True, 0),
+                    (12544 + 37, 2048, 512, False, 0),
+                    (1000, 72, 64, False, 0), (1000, 72, 36, True, 0),
+                    (4096, 256, 128, True, 1))
+# the bf16 GEMM's tile widths (128 rows each); each is instantiated with
+# X staged by cp.async and element by element (_fused_gemm_ptxas)
+FUSED_GEMM_TILES = (128, 64)
 # bf16: the dense tensor-core peak bounds the bf16 forms (NVIDIA data
 # sheet, H100 SXM); a bf16 kernel is held against its plain version at
 # one bf16 ulp of the value plus 2^-9 of the array's largest magnitude
@@ -387,6 +405,11 @@ GLUON_AGREE = dict(classes=10, image=(3, 32, 32), batch=4, out_l2=1e-3,
 # odd shape that takes the kernel's element-by-element paths
 BAND4D = dict(th_shape=(64, 56, 56, 64, 256), f32_shape=(64, 28, 28, 128, 512),
               odd_shape=(3, 7, 9, 37, 93))
+# and the bf16 kernel's tiling edges: M = 53824 not a multiple of the
+# 128-row tile, K 72 (not a multiple of the K step) with N 64, and N 60
+# (not a multiple of 8: W and Y element by element)
+BAND4D_EDGES = dict(ragged_m=(64, 29, 29, 64, 256), k72_n64=(3, 13, 17, 72, 64),
+                    n60=(2, 9, 11, 64, 60))
 # the sandwich's arms agree: pal2d and pal4d run one tiling and one sum
 # order (bit-equal); the plain arm's cuBLAS bf16 product rounds its f32
 # sums once more per band (relative L2 bound)
@@ -2324,6 +2347,38 @@ def _ptxas(source, entries):
     return found
 
 
+def _fused_gemm_ptxas(source, old_entry):
+    """The bf16 GEMM's instances in csrc/<source>.cu's build: ptxas's
+    registers, stack and spills (none allowed) and each tile's dynamic
+    shared memory, printed; and the old CUDA-core kernel ``old_entry``
+    instantiated for f32 only."""
+    import ctypes
+    from mxnet_tpu_torch.kernels import _build
+    w_kn = int(source == "fused_band4d")
+    entries = {"128x%d:%s" % (bn, "cp_async" if vec else "elementwise"):
+               "fused_gemm_bf16_kernelILi%dELb%dELb%dE" % (bn, w_kn, vec)
+               for bn in FUSED_GEMM_TILES for vec in (1, 0)}
+    ptx = _ptxas(source, entries)
+    lib = _build.load(source)
+    lib.mx_fused_gemm_bf16_smem.argtypes = [ctypes.c_int]
+    lib.mx_fused_gemm_bf16_smem.restype = ctypes.c_int
+    for key in sorted(ptx):
+        bn = int(key.split(":")[0].split("x")[1])
+        ptx[key]["dynamic_smem_bytes"] = lib.mx_fused_gemm_bf16_smem(bn)
+        print("ptxas %s fused_gemm_bf16_kernel %s: %s; %d bytes of dynamic "
+              "shared memory" % (source, key, "; ".join(ptx[key]["lines"]),
+                                 ptx[key]["dynamic_smem_bytes"]), flush=True)
+        check(ptx[key]["spill_stores"] == 0 and ptx[key]["spill_loads"] == 0,
+              "%s: the bf16 GEMM %s spills: %s"
+              % (source, key, ptx[key]["lines"][0]))
+    old = [line for line in _build.log_path(source).read_text().splitlines()
+           if "Compiling entry function" in line and old_entry in line]
+    check(old and not any("bfloat16" in line for line in old),
+          "%s: the CUDA-core %s is instantiated %s" % (
+              source, old_entry, "for bf16" if old else "for no type"))
+    return ptx
+
+
 def _flash_bf16_pairs(torch, mxk, q, k, v, do, sc):
     """(what, kernel result, plain result) for the forward's output and
     lse, dK/dV and dQ on one set of bf16 inputs; the backward kernels
@@ -2488,18 +2543,25 @@ def phase_layernorm_bf16(torch, mxk, dev, flush):
 
 
 def phase_fused_matmul_bf16(torch, mxk, dev, flush):
-    """The bf16 fused kernel against its plain version (close_bf16) at
-    the 8 (M, K, N) shapes of ResNet-50's 28 fused sites at batch 256
-    and one odd shape, two runs bit-identical; timed beside torch.matmul
-    / torch.addmm in bf16 on the already activated input.  Returns the
-    kernels-line row, per-launch means over one step's 28 launches."""
+    """The bf16 fused kernel (tensor cores, fused_gemm_bf16.cuh) against
+    its plain version (close_bf16) at the 8 (M, K, N) shapes of
+    ResNet-50's 28 fused sites at batch 256, one odd shape and the edges
+    of its tiling (FUSED_BF16_EDGES), two runs bit-identical; timed
+    beside torch.matmul / torch.addmm in bf16 on the already activated
+    input, with each shape's TFLOP/s and GB/s.  First prints ptxas's
+    lines and the dynamic shared memory of the GEMM's instances.
+    Returns the kernels-line row, per-launch means over one step's 28
+    launches."""
+    ptx = _fused_gemm_ptxas("fused_matmul", "fused_scale_relu_matmul_kernel")
     g = torch.Generator(device=dev).manual_seed(SEED + 23)
     bf = torch.bfloat16
     shapes = {(M * 2, K, N, r): n for (M, K, N, r), n in FUSED_SHAPES.items()}
     rows, errs = [], []
-    for shape in list(shapes) + [FUSED_ODD]:
-        M, K, N, with_res = shape
-        x = torch.randn(M, K, device=dev, generator=g).to(bf)
+    for shape in list(shapes) + [FUSED_ODD] + list(FUSED_BF16_EDGES):
+        M, K, N, with_res = shape[:4]
+        off = shape[4] if len(shape) > 4 else 0
+        x = torch.randn(M * K + off, device=dev, generator=g).to(bf)[off:] \
+            .view(M, K)
         sc = 1 + 0.2 * torch.randn(K, device=dev, generator=g)
         sh = 0.2 * torch.randn(K, device=dev, generator=g)
         w = (torch.randn(N, K, device=dev, generator=g) / K ** 0.5).to(bf)
@@ -2518,7 +2580,7 @@ def phase_fused_matmul_bf16(torch, mxk, dev, flush):
               "two runs differ" % (shape,))
         errs.append(max_err(got, ref))
         del got, again, ref
-        if shape == FUSED_ODD:
+        if shape not in shapes:
             continue
         a = torch.relu(x.float() * sc + sh).to(bf)
         ms = time_ms(torch, lambda: mxk.fused_scale_relu_matmul_fwd(
@@ -2537,7 +2599,8 @@ def phase_fused_matmul_bf16(torch, mxk, dev, flush):
                "sites": shapes[shape], "max_abs_err": errs[-1], "ms": ms,
                "plain_ms": plain_ms, "library_ms": lib_ms,
                "bound_ms": b_ms, "bound_by": b_by,
-               "tflops": 2 * M * N * K / ms / 1e9}
+               "tflops": 2 * M * N * K / ms / 1e9,
+               "gbps": nbytes / ms / 1e6}
         emit({"phase": "kernel", "name": "fused_scale_relu_matmul",
               "dtype": "bfloat16", **row})
         rows.append(row)
@@ -2545,8 +2608,10 @@ def phase_fused_matmul_bf16(torch, mxk, dev, flush):
     sites = sum(shapes.values())
     per_launch = {k: sum(r[k] * r["sites"] for r in rows) / sites
                   for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    emit({"phase": "fused_matmul_bf16", "shapes_checked": len(shapes) + 1,
-          "batch": 256, "deterministic": True,
+    emit({"phase": "fused_matmul_bf16",
+          "shapes_checked": len(shapes) + 1 + len(FUSED_BF16_EDGES),
+          "edge_shapes": [list(e) for e in FUSED_BF16_EDGES],
+          "batch": 256, "deterministic": True, "ptxas": ptx,
           "step_ms": per_launch["ms"] * sites,
           "step_plain_ms": per_launch["plain_ms"] * sites,
           "step_library_ms": per_launch["library_ms"] * sites,
@@ -2555,7 +2620,7 @@ def phase_fused_matmul_bf16(torch, mxk, dev, flush):
                           "relu(x*scale+shift) (the product alone)"})
     return {"name": "fused_scale_relu_matmul", "route": "cuda",
             "dtype": "bfloat16",
-            "source": "mxnet_tpu_torch/csrc/fused_matmul.cu",
+            "source": "mxnet_tpu_torch/csrc/fused_gemm_bf16.cuh",
             "replaces": "mxnet_tpu/ops/fused.py:91",
             "max_abs_err": max(errs), "bound_by": "bytes"
             if all(r["bound_by"] == "bytes" for r in rows)
@@ -3443,8 +3508,13 @@ def phase_fused_band4d(torch, mxk, dev, flush):
     tensor and at an odd shape.  The two bands are timed beside the
     plain version, torch.matmul in bf16 on the already activated input
     and row 7's kernel on the 2-D view.  Returns the kernels-line row,
-    per-launch means over the sandwich's two bands."""
+    per-launch means over the sandwich's two bands.  The bf16 kernel
+    (tensor cores, fused_gemm_bf16.cuh) is also held at the edges of its
+    tiling (BAND4D_EDGES), the bands' TFLOP/s and GB/s printed, and
+    ptxas's lines and the dynamic shared memory of the GEMM's instances
+    printed first."""
     from mxnet_tpu_torch.tools import fused_sandwich as fs
+    ptx = _fused_gemm_ptxas("fused_band4d", "fused_band4d_kernel")
     g = torch.Generator(device=dev).manual_seed(SEED + 31)
     bf = torch.bfloat16
     cases = [(name, x, s, t, w) for name, x, s, t, w
@@ -3452,6 +3522,8 @@ def phase_fused_band4d(torch, mxk, dev, flush):
     for key, dtype in (("th_shape", bf), ("f32_shape", torch.float32),
                        ("odd_shape", bf)):
         cases.append((key, *_band_case(torch, g, dev, *BAND4D[key], dtype)))
+    for key, shape in BAND4D_EDGES.items():
+        cases.append((key, *_band_case(torch, g, dev, *shape, bf)))
     x, s, t, w = _band_case(torch, g, dev, *BAND4D["f32_shape"], bf)
     nchw_view = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
     wide = torch.zeros(*x.shape[:3], x.shape[3] + 8, dtype=bf, device=dev)
@@ -3496,6 +3568,7 @@ def phase_fused_band4d(torch, mxk, dev, flush):
             row["bound_ms"], row["bound_by"] = bound(
                 nbytes, 2 * M * K * N + 3 * M * K, BF16_FLOPS_PER_S)
             row["tflops"] = 2 * M * K * N / row["ms"] / 1e9
+            row["gbps"] = nbytes / row["ms"] / 1e6
             rows.append(row)
         emit({"phase": "kernel", "name": "fused_band4d", **row})
         del got, again, ref
@@ -3503,10 +3576,11 @@ def phase_fused_band4d(torch, mxk, dev, flush):
                   for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                             "pal2d_ms")}
     emit({"phase": "fused_band4d", "cases_checked": len(cases),
+          "ptxas": ptx,
           "library_call": "torch.matmul in bf16 on relu(x*scale+shift) "
                           "(the product alone)", **per_launch})
     return {"name": "fused_band4d", "route": "cuda", "dtype": "bfloat16",
-            "source": "mxnet_tpu_torch/csrc/fused_band4d.cu",
+            "source": "mxnet_tpu_torch/csrc/fused_gemm_bf16.cuh",
             "replaces": "tools/fused_sandwich_bench.py:61",
             "max_abs_err": max(errs),
             "bound_by": "bytes" if all(r["bound_by"] == "bytes"

@@ -97,6 +97,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tc_mma.cuh"
+
 namespace {
 
 constexpr int kTile = 64;                    // query rows and keys per tile
@@ -502,13 +504,13 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+}  // namespace
 
 // ---------------------------------------------------------------------
-// bf16: tensor cores (mma.sync m16n8k16, f32 sums)
+// bf16: tensor cores (mma.sync m16n8k16, f32 sums; helpers in tc_mma.cuh)
 // ---------------------------------------------------------------------
 namespace tc {
 
-using bf16 = __nv_bfloat16;
 // Per kernel: warps a block (each owns 16 query rows, or 16 keys in
 // dK/dV), blocks an SM should hold (a register budget for ptxas), rows of
 // the tile a stage walks (keys, or query rows in dK/dV) and stages of the
@@ -520,61 +522,12 @@ constexpr int kLds = kDC + 8;                // smem row stride, elements (272 b
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes global -> shared; zeros when !ok (source size 0)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(ok ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-// wait until at most N groups of this thread's copies are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// c (16 x 8, f32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col)
-__device__ __forceinline__ void mma(float c[4], const uint32_t a[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // 2^x (ex2.approx.ftz: relative error ~2^-22, results below 2^-126
 // flush to 0, far under a bf16 P's resolution and the sum l's)
 __device__ __forceinline__ float exp2_ftz(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
-}
-
-// two f32 rounded to bf16, lo in the low half (the lower column)
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // Stage rows [r0, r0 + R), columns [c0, c0 + w) of a (S, D) matrix into
@@ -1059,14 +1012,14 @@ size_t dq_smem(int D) {
          (2 * kDqStages * kDqStep + 16 * kDqWarps * 2 * (D > kDC ? kDqStages : 1));
 }
 
-bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
-
 // x: batch * head, y: tiles of 16 * warps rows (or keys), z: head_dim chunks
 dim3 grid_of(int BH, int S, int D, int warps) {
   return dim3(BH, (S + 16 * warps - 1) / (16 * warps), (D + kDC - 1) / kDC);
 }
 
 }  // namespace tc
+
+namespace {
 
 constexpr size_t kFwdSmem = sizeof(float) * (2 * kTile * kLd + kTile * kPS);
 constexpr size_t kDkvSmem = sizeof(float) * (4 * kTile * kLd + 2 * kTile * kPS + 2 * kTile);

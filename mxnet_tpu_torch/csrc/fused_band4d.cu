@@ -8,49 +8,53 @@
 //
 //   Y[b, h, w, N] = relu(X[b, h, w, K] * scale[K] + shift[K]) @ W[K, N]
 //
-// X and W of one element type T (float or __nv_bfloat16), scale and shift
-// f32, Y contiguous (B, H, W, N) in T.  W is (K, N) row-major, as the TPU
-// kernel takes it (row 7's kernel, fused_matmul.cu, takes the OHWI weight
-// as (N, K)).  X is read through its own four strides: a channels_last
-// view of cuDNN's output and a contiguous (B, H, W, K) tensor are both
-// taken as they are, with no copy on the host side.  The activation is
-// computed in f32 and rounded to T before the product (the TPU kernel's
-// z.astype(w.dtype)); the product accumulates in f32 and the output is
-// rounded to T once.  The product x * scale and the sum + shift are
-// rounded separately (__fmul_rn, __fadd_rn), as the plain version computes
-// them; NaN passes the ReLU as torch.relu passes it.
+// X and W of one element type (f32 or bf16), scale and shift f32, Y
+// contiguous (B, H, W, N).  W is (K, N) row-major, as the TPU kernel
+// takes it (row 7's kernel, fused_matmul.cu, takes the OHWI weight as
+// (N, K)).  X is read through its own four strides: a channels_last view
+// of cuDNN's output and a contiguous (B, H, W, K) tensor are both taken
+// as they are, with no copy on the host side.  The activation is
+// computed in f32 (x * scale and + shift rounded separately, __fmul_rn
+// and __fadd_rn, as the plain version computes them; NaN passes the
+// ReLU as torch.relu passes it) and rounded to the element type before
+// the product (the TPU kernel's z.astype(w.dtype)); the product
+// accumulates in f32 and the output is rounded once.
 //
-// What bounds it on the H100: 2*M*K*N operations (M = B*H*W) against
-// sizeof(T) * (M*K + K*N + M*N) bytes.  At the sandwich's bf16 shapes
-// (M = 200704, K*N = 65536) the tensor cores' 989 TFLOP/s would leave it
-// bound by bytes (about 257 MB, 0.077 ms at 3.35 TB/s); this kernel
-// multiplies on the CUDA cores in f32, whose 67 TFLOP/s put its floor
-// near 0.39 ms (a tensor-core redesign is later work).
+// bf16 runs on the tensor cores: the mma.sync GEMM of
+// fused_gemm_bf16.cuh (design and bound there; at the sandwich's shapes,
+// M = 200704 and K*N = 65536, the band is bound by bytes, about 257 MB,
+// 0.077 ms at 3.35 TB/s), shared with fused_matmul.cu, with W read by
+// ldmatrix.trans from its (K, N) tiles.  X takes 16-byte cp.async copies
+// when its channel stride is 1 and every row is 16-byte aligned, else it
+// is staged element by element through its strides.  The rest of this
+// file is the f32 form, on the CUDA cores.
 //
-// Design.  The TPU kernel's block is (1, th, W, K): one band of image
+// f32 design.  The TPU kernel's block is (1, th, W, K): one band of image
 // rows, 28 rows of M at the sandwich's shape, which is far too few rows
 // for a CUDA tile, and it keeps all of W resident (128 KB in bf16, which
 // does not share an SM well).  Here M is flattened over (b, h, w) and
 // tiled 128 rows at a time, whatever the image boundaries, and K is tiled
 // too: a register-tiled CUDA-core GEMM, the same tiling as
-// fused_matmul.cu.  A block computes a 128 x BN tile of Y (BN = 128, or
-// 64 when N <= 64), 8 x 8 outputs per thread, over K in steps of 8, with
-// double-buffered f32 shared memory.  Each thread's rows of X are fixed
-// for the whole K loop, so their (b, h, w) offsets are computed once.  X
-// is scaled, shifted and ReLU'd on its way from registers into shared
-// memory, so the activation never exists in device memory.  Loads of X
-// take four channels at once when its channel stride is 1 and its other
-// strides and pointer allow; loads of W and stores of Y four columns at
-// once when N % 4 == 0 and the pointers allow; otherwise element by
-// element.  Every edge is checked: any B, H, W, K and N are taken and
-// nothing is padded.  Each output is one thread's f32 sum over k in order,
-// with no split over K: two runs give the same bits.  Block tiles walk N
-// fastest, so the blocks sharing a tile of X rows run together and read it
-// from L2.
+// fused_matmul.cu's f32 form.  A block computes a 128 x BN tile of Y
+// (BN = 128, or 64 when N <= 64), 8 x 8 outputs per thread, over K in
+// steps of 8, with double-buffered f32 shared memory.  Each thread's rows
+// of X are fixed for the whole K loop, so their (b, h, w) offsets are
+// computed once.  X is scaled, shifted and ReLU'd on its way from
+// registers into shared memory, so the activation never exists in device
+// memory.  Loads of X take four channels at once when its channel stride
+// is 1 and its other strides and pointer allow; loads of W and stores of
+// Y four columns at once when N % 4 == 0 and the pointers allow;
+// otherwise element by element.  Every edge is checked: any B, H, W, K
+// and N are taken and nothing is padded.  Each output is one thread's f32
+// sum over k in order, with no split over K: two runs give the same bits.
+// Block tiles walk N fastest, so the blocks sharing a tile of X rows run
+// together and read it from L2.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
+
+#include "fused_gemm_bf16.cuh"
 
 namespace {
 
@@ -69,14 +73,8 @@ struct Tile {
 
 template <typename T> __device__ __forceinline__ float to_f32(T v);
 template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 // relu(x * s + h) in f32, rounded to T (the activation enters the
 // product in T)
@@ -95,23 +93,6 @@ template <> struct Vec4<float> {
   }
   static __device__ __forceinline__ float4 pack(const float (&v)[4]) {
     return make_float4(v[0], v[1], v[2], v[3]);
-  }
-};
-template <> struct Vec4<__nv_bfloat16> {
-  using type = uint2;
-  static __device__ __forceinline__ void unpack(const uint2& t, float (&v)[4]) {
-    const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&t.x);
-    const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&t.y);
-    v[0] = __low2float(a); v[1] = __high2float(a);
-    v[2] = __low2float(b); v[3] = __high2float(b);
-  }
-  static __device__ __forceinline__ uint2 pack(const float (&v)[4]) {
-    const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
-    const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
-    uint2 t;
-    t.x = *reinterpret_cast<const unsigned*>(&a);
-    t.y = *reinterpret_cast<const unsigned*>(&b);
-    return t;
   }
 };
 
@@ -365,11 +346,23 @@ int mx_fused_band4d(const void* x, const float* scale, const float* shift,
   if (B <= 0 || H <= 0 || W <= 0 || N <= 0) return 0;
   if (K < 0 || K > INT_MAX || N > INT_MAX) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 1)
-    return run<__nv_bfloat16>(x, scale, shift, w, y, B, H, W, K, N, sb, sh,
-                              sw, sk, s);
+  if (dtype == 1) {
+    using fused_gemm::bf16;
+    fused_gemm::Args a{(const bf16*)x, scale, shift, (const bf16*)w, nullptr, (bf16*)y,
+                       B * H * W, H * W, W, sb, sh, sw, sk, (int)K, (int)N,
+                       N % 8 == 0 && tc::aligned16(w), N % 8 == 0 && tc::aligned16(y), 0};
+    // rows 16-byte aligned: the stride of every dimension longer than 1
+    // a multiple of 8 elements
+    const bool vec_x = sk == 1 && K % 8 == 0 && (B == 1 || sb % 8 == 0) &&
+                       (H == 1 || sh % 8 == 0) && (W == 1 || sw % 8 == 0) &&
+                       tc::aligned16(x) && tc::aligned16(scale) && tc::aligned16(shift);
+    return fused_gemm::run<true>(a, vec_x, s);
+  }
   return run<float>(x, scale, shift, w, y, B, H, W, K, N, sb, sh, sw, sk, s);
 }
+
+// dynamic shared memory of the bf16 kernel's tile with bn columns, bytes
+int mx_fused_gemm_bf16_smem(int bn) { return fused_gemm::smem_bytes<true>(bn); }
 
 const char* mx_cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

@@ -8,32 +8,32 @@
 //
 //   Y[M, N] = relu(X[M, K] * scale[K] + shift[K]) @ W[N, K]^T  (+ R[M, N])
 //
-// X, W, R and Y of one element type T (float or __nv_bfloat16), scale
-// and shift f32; W is the OHWI convolution weight viewed (N, K)
-// row-major, so the caller passes the weight as it is stored, with no
-// transpose copy.
+// X, W, R and Y of one element type (f32 or bf16), scale and shift f32;
+// W is the OHWI convolution weight viewed (N, K) row-major, so the
+// caller passes the weight as it is stored, with no transpose copy.
+//
+// bf16 runs on the tensor cores: the mma.sync GEMM of
+// fused_gemm_bf16.cuh (design and bound there), shared with
+// fused_band4d.cu, with X as a contiguous (M, K) matrix and W (N, K).
+// The rest of this file is the f32 form, on the CUDA cores (f32 parity
+// at rtol 2e-5 rules out TF32).
 //
 // The prologue is the point: each X element is scaled, shifted and ReLU'd
 // on its way from the register file into shared memory, so the activation
 // never exists in device memory (the unfused graph writes it once and the
 // convolution reads it again).  The affine and the ReLU are computed in
-// f32 and the activation is rounded to T before the product, the TPU
-// kernel's rounding point (z.astype(w.dtype)); the product accumulates in
-// f32, the residual is added in f32 in the epilogue and the sum is rounded
-// to T once.  The product x * scale and the sum + shift are rounded
-// separately (__fmul_rn, __fadd_rn), as the plain version computes them,
-// so the kernel's activation is the plain version's bit for bit; NaN
-// passes the ReLU as torch.relu passes it.
+// f32; the product accumulates in f32, the residual is added in f32 in
+// the epilogue and the sum is rounded once.  The product x * scale and
+// the sum + shift are rounded separately (__fmul_rn, __fadd_rn), as the
+// plain version computes them, so the kernel's activation is the plain
+// version's bit for bit; NaN passes the ReLU as torch.relu passes it.
 //
-// What bounds it on the H100: 2*M*N*K operations against sizeof(T) *
-// (M*K + N*K + M*N (+ M*N)) bytes.  In f32 on the CUDA cores (67
-// TFLOP/s) the stage-1 sites of ResNet-50 are bound by bytes and the
-// others by operations.  In bf16 the bound is the tensor cores' 989
-// TFLOP/s, against which every site is bound by bytes; this kernel still
-// multiplies on the CUDA cores in f32 (a tensor-core redesign is later
-// work), so its bf16 form runs at about its f32 form's time.
+// What bounds the f32 form on the H100: 2*M*N*K operations on the CUDA
+// cores (67 TFLOP/s) against 4 * (M*K + N*K + M*N (+ M*N)) bytes: the
+// stage-1 sites of ResNet-50 are bound by bytes and the others by
+// operations.
 //
-// Design.  The TPU kernel keeps all of W resident in VMEM and walks row
+// f32 design.  The TPU kernel keeps all of W resident in VMEM and walks row
 // tiles of X; W reaches 4 MB here (2048 x 512), far over the 227 KB of
 // shared memory a block may use, so K is tiled too: a register-tiled
 // CUDA-core GEMM.  A block computes a 128 x BN tile of Y (BN = 128, or 64
@@ -46,19 +46,20 @@
 // tiles are stored k-major (As[k][m], Bs[k][n]) with 4 floats of padding
 // per row, so both the transposing stores and the 16-byte fragment loads
 // of the inner product are free of bank conflicts.  Loads take four
-// elements at once (16 bytes of f32, 8 of bf16) when K % 4 == 0 and the
-// operands are aligned to that width, the epilogue likewise when
-// N % 4 == 0; otherwise every element is loaded or stored on
-// its own.  Every edge is checked: any M, K and N are taken, nothing is
-// padded, and out-of-range elements enter the tiles as zeros after the
-// prologue.  f32 FMA throughout (no TF32), and each output is one thread's
-// sum over k in order, with no split over K: two runs give the same bits.
-// Block tiles walk N fastest, so the blocks sharing an X row tile run
-// together and read it from L2.
+// elements at once when K % 4 == 0 and the operands are aligned to 16
+// bytes, the epilogue likewise when N % 4 == 0; otherwise every element
+// is loaded or stored on its own.  Every edge is checked: any M, K and N
+// are taken, nothing is padded, and out-of-range elements enter the
+// tiles as zeros after the prologue.  f32 FMA throughout (no TF32), and
+// each output is one thread's sum over k in order, with no split over K:
+// two runs give the same bits.  Block tiles walk N fastest, so the blocks
+// sharing an X row tile run together and read it from L2.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
+
+#include "fused_gemm_bf16.cuh"
 
 namespace {
 
@@ -79,14 +80,8 @@ struct Tile {
 
 template <typename T> __device__ __forceinline__ float to_f32(T v);
 template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 // relu(x * s + h) in f32, rounded to T (the activation enters the
 // product in T)
@@ -105,23 +100,6 @@ template <> struct Vec4<float> {
   }
   static __device__ __forceinline__ float4 pack(const float (&v)[4]) {
     return make_float4(v[0], v[1], v[2], v[3]);
-  }
-};
-template <> struct Vec4<__nv_bfloat16> {
-  using type = uint2;
-  static __device__ __forceinline__ void unpack(const uint2& t, float (&v)[4]) {
-    const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&t.x);
-    const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&t.y);
-    v[0] = __low2float(a); v[1] = __high2float(a);
-    v[2] = __low2float(b); v[3] = __high2float(b);
-  }
-  static __device__ __forceinline__ uint2 pack(const float (&v)[4]) {
-    const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
-    const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
-    uint2 t;
-    t.x = *reinterpret_cast<const unsigned*>(&a);
-    t.y = *reinterpret_cast<const unsigned*>(&b);
-    return t;
   }
 };
 
@@ -336,10 +314,22 @@ int mx_fused_scale_relu_matmul(const void* x, const float* scale,
   if (M <= 0 || N <= 0) return 0;
   if (K < 0 || K > INT_MAX || N > INT_MAX) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 1)
-    return run<__nv_bfloat16>(x, scale, shift, w, res, y, M, K, N, s);
+  if (dtype == 1) {
+    // X as one image row of M pixels: row m at element m * K
+    using fused_gemm::bf16;
+    fused_gemm::Args a{(const bf16*)x, scale, shift, (const bf16*)w, (const bf16*)res,
+                       (bf16*)y, M, M, M, 0, 0, K, 1, (int)K, (int)N,
+                       K % 8 == 0 && tc::aligned16(w),
+                       N % 8 == 0 && tc::aligned16(y) && (!res || tc::aligned16(res)), 0};
+    const bool vec_x = K % 8 == 0 && tc::aligned16(x) && tc::aligned16(scale) &&
+                       tc::aligned16(shift);
+    return fused_gemm::run<false>(a, vec_x, s);
+  }
   return run<float>(x, scale, shift, w, res, y, M, K, N, s);
 }
+
+// dynamic shared memory of the bf16 kernel's tile with bn columns, bytes
+int mx_fused_gemm_bf16_smem(int bn) { return fused_gemm::smem_bytes<false>(bn); }
 
 const char* mx_cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

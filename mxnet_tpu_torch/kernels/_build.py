@@ -3,9 +3,9 @@
 Each ``mxnet_tpu_torch/csrc/<name>.cu`` has a plain C interface and is
 compiled on first use by ``nvcc`` for Hopper (``sm_90a``) into a shared
 library under ``build/kernels/`` at the repository root, then loaded
-with ``ctypes``.  The library name carries a hash of the source and the
-flags, so an edited source is rebuilt and a stale library is never
-loaded.  Sources that include no PyTorch header compile in seconds;
+with ``ctypes``.  The library name carries a hash of the source, of
+every shared header ``csrc/*.cuh`` and of the flags, so an edited source
+or header is rebuilt and a stale library is never loaded.  Sources that include no PyTorch header compile in seconds;
 ``torch.utils.cpp_extension.load`` would take minutes for the same
 file.
 
@@ -70,9 +70,12 @@ def _flags(name):
 def _target(name):
     src = CSRC / (name + ".cu")
     flags = _flags(name)
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(flags).encode()).hexdigest()
-    return src, flags, BUILD_DIR / ("lib%s-%s.so" % (name, digest[:12]))
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(flags).encode())
+    return src, flags, BUILD_DIR / ("lib%s-%s.so"
+                                    % (name, digest.hexdigest()[:12]))
 
 
 def log_path(name):

@@ -3,11 +3,12 @@ ReLU and 1x1 convolution of channel-last ResNets.
 
 Counterpart of ``mxnet_tpu/ops/fused.py`` ``_pallas_fwd`` (the Pallas
 kernel of ``fused_scale_relu_matmul``).  The kernel is
-``csrc/fused_matmul.cu`` (design notes in the source): a register-tiled
-CUDA-core GEMM whose prologue applies the per-channel affine and the
-ReLU to each tile of ``x`` on its way into shared memory, so the
-activation never exists in device memory, and whose epilogue adds the
-residual.  ``x``, ``w``, ``res`` and the output share one type, f32 or
+``csrc/fused_matmul.cu`` (design notes in the source): a GEMM whose
+prologue applies the per-channel affine and the ReLU to each tile of
+``x`` in shared memory, so the activation never exists in device
+memory, and whose epilogue adds the residual; in f32 register-tiled on
+the CUDA cores, in bf16 on the tensor cores (``mma.sync``, the GEMM of
+``csrc/fused_gemm_bf16.cuh`` that row 10's ``fused_band4d`` shares).  ``x``, ``w``, ``res`` and the output share one type, f32 or
 bf16; ``scale`` and ``shift`` are f32.  In bf16 the kernel follows the
 TPU kernel's rounding points: the activation is computed in f32 and
 rounded to bf16 before the product, the product and the residual add

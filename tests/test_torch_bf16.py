@@ -274,14 +274,19 @@ def test_flash_attention_bf16_matches_jax(B, H, S, D):
     assert PLAIN_CALLS["flash_attention_bwd_dq"] == 1
 
 
-@pytest.mark.parametrize("with_res", [False, True])
-def test_fused_matmul_bf16_matches_pallas(monkeypatch, with_res):
+@pytest.mark.parametrize("with_res,shape", [
+    (False, (256, 64, 96)), (True, (256, 64, 96)),
+    (False, (384, 72, 36)), (True, (384, 72, 36))],
+    ids=["False", "True", "False-384x72x36", "True-384x72x36"])
+def test_fused_matmul_bf16_matches_pallas(monkeypatch, with_res, shape):
     """The plain bf16 form against the reference's Pallas kernel
     (interpret mode; M a multiple of 128 so the kernel, not the jnp
-    path, runs: its launch counter rises)."""
+    path, runs: its launch counter rises), at a shape of whole tiles and
+    at the card kernel's edges: K a multiple of 8 but not of its K step
+    (32), N not a multiple of 8."""
     monkeypatch.setenv("MXTPU_FUSED_PALLAS", "interpret")
     rng = np.random.RandomState(3 + with_res)
-    M, K, N = 256, 64, 96
+    M, K, N = shape
     x = rng.randn(M, K).astype(np.float32)
     scale = (1 + 0.2 * rng.randn(K)).astype(np.float32)
     shift = (0.2 * rng.randn(K)).astype(np.float32)

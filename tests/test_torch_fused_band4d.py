@@ -69,7 +69,8 @@ def _th(h, w):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape,K,N,th", [((1, 16, 8), 24, 40, 16),
                                           ((2, 8, 16), 32, 16, 8),
-                                          ((2, 28, 28), 16, 36, 1)])
+                                          ((2, 28, 28), 16, 36, 1),
+                                          ((1, 8, 16), 72, 64, 8)])
 def test_plain_matches_pal4d_band(fsb, shape, K, N, th, dtype):
     assert _th(shape[1], shape[2]) == th
     x, s, t, w = _band_inputs(shape, K, N, seed=K * N)

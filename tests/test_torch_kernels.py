@@ -301,3 +301,26 @@ def test_build_log_is_named_for_the_current_source():
     log = _build.log_path("flash_attention")
     assert log.suffix == ".log" and log.with_suffix(".so") == lib
     assert _build.log_path("quant") != log
+
+
+@pytest.mark.parametrize("header", ["tc_mma.cuh", "fused_gemm_bf16.cuh"])
+def test_build_target_follows_the_shared_headers(tmp_path, monkeypatch,
+                                                 header):
+    """An edit to a shared header renames the library of every source
+    that includes it (and its nvcc log), so no stale build is loaded;
+    the original bytes name the original library again."""
+    import shutil
+    from mxnet_tpu_torch.kernels import _build
+    users = ("fused_matmul", "fused_band4d", "flash_attention")
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = {n: _build._target(n)[2] for n in users}
+    logs = {n: _build.log_path(n) for n in users}
+    (csrc / header).write_bytes((csrc / header).read_bytes() + b"\n")
+    after = {n: _build._target(n)[2] for n in users}
+    assert all(after[n] != before[n] and after[n].name.startswith(
+        "lib%s-" % n) for n in users)
+    assert all(_build.log_path(n) != logs[n] for n in users)
+    (csrc / header).write_bytes((csrc / header).read_bytes()[:-1])
+    assert {n: _build._target(n)[2] for n in users} == before

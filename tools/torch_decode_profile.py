@@ -465,8 +465,6 @@ def profile_trainstep(torch, cs, mx, layout, fuse, dtype="float32"):
                       (ops_fused._FusedScaleReluMatmulFn,
                        "op:fused_backward")):
         fn.backward = staticmethod(_labelled(fn.backward, label))
-    ops_fused.fused_scale_relu_matmul_fwd = _labelled(
-        ops_fused.fused_scale_relu_matmul_fwd, "op:fused_kernel_call")
 
     bf16 = dtype == "bfloat16"
     cfg, train = cs.RESNET, cs.RESNET_BF16 if bf16 else cs.NHWC_TRAIN
@@ -500,13 +498,13 @@ def profile_trainstep(torch, cs, mx, layout, fuse, dtype="float32"):
     device_ms = sum(total.values())
     ranges = _range_ms(torch, prof, n)
     relayout = _kernel_ms(torch, prof, n, _RELAYOUT)
-    fused_kernel = sum(_kernel_ms(torch, prof, n,
-                                  ("fused_scale_relu_matmul",)).values())
+    # row 7's kernel: the CUDA-core f32 form, or the bf16 tensor-core GEMM
+    fused_kernel = sum(_kernel_ms(torch, prof, n, (
+        "fused_scale_relu_matmul", "fused_gemm_bf16")).values())
     memcpy = sum(_kernel_ms(torch, prof, n, ("memcpy dtod",)).values())
     # cuDNN's own layout transposes run inside the convolution ranges; the
-    # fused op's range holds whatever of the kernel its own range
-    # (op:fused_kernel_call) was credited with, and the rest of its
-    # forward: statistics, scale and shift
+    # fused op's range holds its kernel and the rest of its forward:
+    # statistics, scale and shift
     cudnn_relayout = sum(v for k, v in relayout.items()
                          if "nchwtonhwc" in k.lower()
                          or "nhwctonchw" in k.lower())
@@ -520,8 +518,7 @@ def profile_trainstep(torch, cs, mx, layout, fuse, dtype="float32"):
         "cudnn_transposes": cudnn_relayout,
         "fused_kernel": fused_kernel,
         "fused_backward": ranges.get("op:fused_backward", 0.0),
-        "fused_op_rest": ranges.get("op:_FusedBNReluConv", 0.0)
-        - ranges.get("op:fused_kernel_call", 0.0),
+        "fused_op_rest": ranges.get("op:_FusedBNReluConv", 0.0) - fused_kernel,
         "batchnorm": ranges.get("op:BatchNorm", 0.0)
         + ranges.get("op:BatchNorm_backward", 0.0),
         "memcpy_dtod": memcpy}
