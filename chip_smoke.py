@@ -15,7 +15,10 @@ Phases, each printed as one JSON line:
    one exists, the single PyTorch call computing the same function
    (median of 60 launches after warm-up, L2 flushed before each), and
    the least time the card could take (bytes over 3.35 TB/s or f32
-   operations over 67 TFLOP/s, whichever is larger);
+   operations over 67 TFLOP/s, whichever is larger; for the f32
+   attention kernels, which run split TF32 on the tensor cores,
+   operations over 494.7 / 3 TFLOP/s, the CUDA-core bound printed
+   beside);
 4. serve: the transformer LM at full width (L12, d2048, h16, vocab
    16384, ffn 8192, seq 1024; random N(0, 0.02) weights from a numpy
    seed) through ``DecodeEngine``: 8 ragged requests fill the 8 slots
@@ -31,7 +34,9 @@ Phases, each printed as one JSON line:
 6. layernorm_bwd, flash_fwd, flash_bwd: the training kernels at the
    training shapes (LayerNorm backward on 4096 x 2048, with and without
    a residual, two runs bit-identical; causal flash attention on
-   (4, 16, 1024, 128)), each against its plain version, timed as in 3,
+   (4, 16, 1024, 128), (2, 4, 1000, 36) and (1, 2, 200, 30), after the
+   f32 kernels' ptxas lines (no spills) and the name of the kernel SDPA
+   launches in f32), each against its plain version, timed as in 3,
    beside ``native_layer_norm_backward`` and
    ``scaled_dot_product_attention`` (forward, and its backward) as the
    library yardsticks;
@@ -107,7 +112,8 @@ Phases, each printed as one JSON line:
    included) at the served shape (B 8, S 1024, 16 heads of 128, block
    16, 512 blocks, lengths 0 to 1024 over a scrambled table whose
    padding entries are out-of-range ids), at S = 1000 with a table wider
-   than S needs, and with bf16 caches; two runs bit-identical; timed as
+   than S needs, and with bf16 caches; two runs bit-identical (the
+   kernel's instances' ptxas lines first, no spills); timed as
    in 3 beside ``scaled_dot_product_attention(is_causal=True)`` on
    (B, H, S, D) views of the same q/k/v (the attention without the
    scatter);
@@ -266,6 +272,12 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
 F64_FLOPS_PER_S = 34e12            # H100 SXM f64 outside the tensor cores
+# the f32 attention kernels (flash, prefill) run split TF32 on the tensor
+# cores: three dense TF32 products (494.7 TFLOP/s, H100 SXM data sheet)
+# per f32-accurate product bound them; the CUDA-core bound is printed
+# beside it
+TF32_FLOPS_PER_S = 494.7e12
+SPLIT_TF32_FLOPS_PER_S = TF32_FLOPS_PER_S / 3
 SEED = 20261016
 FULL = dict(num_classes=16384, num_layers=12, d_model=2048, num_heads=16,
             ffn_dim=8192, seq_len=1024)
@@ -349,6 +361,16 @@ RESNET_BF16 = dict(batch=256, lr=0.1, momentum=0.9, wd=1e-4, steps=10,
                    warmup=2, sites=28)
 # the attention kernels at head_dims past 128, d_model kept at 2048
 HEAD_DIM = dict(dims=(256, 512), d_model=2048)
+# the f32 flash kernels (split TF32, attention_f32.cuh) beside the
+# training shape: a ragged S with D % 4 == 0 (16-byte copies) and a
+# D % 4 != 0 shape (element-by-element copies); (B, H, S, D)
+FLASH_F32_EDGES = ((2, 4, 1000, 36), (1, 2, 200, 30))
+# their entry functions in csrc/flash_attention.cu and their numbers in
+# mx_flash_f32_smem
+FLASH_F32_ENTRIES = {
+    "flash_attention_fwd": ("flash_fwd_f32_kernel", 0),
+    "flash_attention_bwd_dkv": ("flash_bwd_dkv_f32_kernel", 1),
+    "flash_attention_bwd_dq": ("flash_bwd_dq_f32_kernel", 2)}
 
 
 # mx.rtc: MXNet's own rtc example (axpy) on 2^26 f32, a row sum with
@@ -900,8 +922,20 @@ def phase_prefill(torch, mxk, dev, flush):
     once); two runs bit-identical;
     timed beside
     ``scaled_dot_product_attention(is_causal=True)`` on the same q/k/v
-    as (B, H, S, D) views (the attention alone, without the scatter)."""
+    as (B, H, S, D) views (the attention alone, without the scatter),
+    bounded by bytes or by operations at the split-TF32 peak (the
+    CUDA-core bound beside).  First prints ptxas's lines of the kernel's
+    instances (q/k/v and cache types, head_dim forms; no spills
+    allowed)."""
+    import ctypes
     import torch.nn.functional as F
+    from mxnet_tpu_torch.kernels import _build
+    lib = _build.load("paged_attention")
+    lib.mx_paged_prefill_smem.argtypes = [ctypes.c_int]
+    lib.mx_paged_prefill_smem.restype = ctypes.c_size_t
+    ptx = _f32_attention_ptxas("paged_attention",
+                               r"paged_prefill_kernelI\w+?Lb[01]E",
+                               lambda key: lib.mx_paged_prefill_smem(128))
     B, S, H, D, nb, bs, M = 8, 1024, 16, 128, 512, 16, 64
     g = torch.Generator(device="cpu").manual_seed(SEED + 9)
     served = [20, 960, 0, 1024, 513, 77, 300, 641]
@@ -965,19 +999,24 @@ def phase_prefill(torch, mxk, dev, flush):
     rows = sum(served)
     nbytes = 4 * B * S * H * D * 4 + 2 * rows * H * D * 4 + B * (M + 1) * 4
     flops = 4.0 * B * H * D * S * (S + 1) / 2
-    b_ms, b_by = bound(nbytes, flops)
+    b_ms, b_by = bound(nbytes, flops, SPLIT_TF32_FLOPS_PER_S)
     res = {"name": "paged_prefill_attend", "route": "cuda",
            "source": "mxnet_tpu_torch/csrc/paged_attention.cu",
            "replaces": "mxnet_tpu/pallas/attention.py:209",
            "max_abs_err": max(e for t, e in errs if t == str(f32)),
            "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+           "bound_peak": "split TF32, %g TFLOP/s"
+                         % (SPLIT_TF32_FLOPS_PER_S / 1e12),
+           "bound_cuda_cores_ms": bound(nbytes, flops)[0],
+           "tflops": flops / ms / 1e9}
     emit({"phase": "kernel", **res, "shapes": {
         "q": [B, S, H, D], "cache": [nb, bs, H, D], "table": [B, M],
         "lengths": served}, "checked": [[c[0][0], c[0][1], c[0][6],
                                           str(c[2]), str(c[3])]
                                          for c in cases],
         "bf16_qkv_max_abs_err": max(e for t, e in errs if t == str(bf16)),
+        "ptxas": ptx,
         "library_call": "F.scaled_dot_product_attention(is_causal=True) on "
                         "(B, H, S, D) views: the attention alone, without "
                         "the cache scatter"})
@@ -1346,47 +1385,89 @@ def phase_layernorm_bwd(torch, mxk, dev, flush):
     return out
 
 
+def _f32_attention_ptxas(source, pattern, smem_fn):
+    """ptxas's registers, stack and spills (none allowed) of every entry
+    function of csrc/<source>.cu whose mangled name matches the regex
+    ``pattern`` (keyed by the match: kernel and template arguments),
+    printed with its dynamic shared memory at D = 128 (``smem_fn(key)``)."""
+    import re
+    from mxnet_tpu_torch.kernels import _build
+    keys = [re.search(pattern, line).group(0)
+            for line in _build.log_path(source).read_text().splitlines()
+            if "Compiling entry function" in line and re.search(pattern, line)]
+    check(keys, "ptxas log of %s.cu: no entry function matches %s"
+          % (source, pattern))
+    ptx = _ptxas(source, {key: key for key in keys})
+    for key in sorted(ptx):
+        ptx[key]["dynamic_smem_bytes_d128"] = smem_fn(key)
+        print("ptxas %s: %s; %d bytes of dynamic shared memory at D = 128"
+              % (key, "; ".join(ptx[key]["lines"]),
+                 ptx[key]["dynamic_smem_bytes_d128"]), flush=True)
+        check(ptx[key]["spill_stores"] == 0 and ptx[key]["spill_loads"] == 0,
+              "%s: the f32 attention kernel %s spills: %s"
+              % (source, key, ptx[key]["lines"][0]))
+    return ptx
+
+
+def _library_kernels(torch, fn):
+    """Names of the device kernels one call of ``fn`` launches (one
+    torch.profiler pass): the library yardstick's route."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages()
+                   if str(getattr(e, "device_type", "")).endswith("CUDA")})
+
+
 def phase_flash(torch, mxk, dev, flush):
-    """Causal flash attention at the training shape, and the forward at
-    the draft model's batch 1: each kernel against its plain version on
-    the same inputs (rtol 1e-4 / atol 1e-5), and
-    FlashAttentionFn's output and gradients against autograd through
-    the materialised reference.  Returns the three kernel rows."""
+    """Causal flash attention in f32 (split TF32 on the tensor cores,
+    attention_f32.cuh) at the training shape, at the edges of
+    FLASH_F32_EDGES (ragged S, D % 4 != 0), and the forward at the draft
+    model's batch 1: each kernel against its plain version on the same
+    inputs (rtol 1e-4 / atol 1e-5), and FlashAttentionFn's output and
+    gradients against autograd through the materialised reference.
+    First prints ptxas's register, stack and spill lines of the three
+    kernels (no spills allowed) and their shared memory, and the kernel
+    SDPA launches in f32 (its route).  Timed beside SDPA, bounded by
+    bytes or by operations at the split-TF32 peak (the CUDA-core bound
+    printed beside).  Returns the three kernel rows."""
+    import ctypes
     import torch.nn.functional as F
+    from mxnet_tpu_torch.kernels import _build
+    lib = _build.load("flash_attention")
+    lib.mx_flash_f32_smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.mx_flash_f32_smem.restype = ctypes.c_int
+    which = {entry: w for entry, w in FLASH_F32_ENTRIES.values()}
+    ptx = _f32_attention_ptxas(
+        "flash_attention", r"flash_\w+_f32_kernelI\w+?E(?=E)",
+        lambda key: lib.mx_flash_f32_smem(which[key.split("I")[0]], 128))
     B, H, S, D = 4, 16, 1024, 128
     sc = 1.0 / D ** 0.5
     g = torch.Generator(device="cpu").manual_seed(SEED + 5)
     q, k, v, do = (torch.randn(B, H, S, D, generator=g).to(dev)
                    for _ in range(4))
-    o, lse = mxk.flash_attention_fwd(q, k, v, scale=sc)
-    o_ref, lse_ref = mxk.flash_attention_fwd_plain(q, k, v, scale=sc)
-    delta = (do * o_ref).sum(-1)
-    dk, dv = mxk.flash_attention_bwd_dkv(q, k, v, do, lse_ref, delta,
-                                         scale=sc)
-    dk_ref, dv_ref = mxk.flash_attention_bwd_dkv_plain(q, k, v, do, lse_ref,
-                                                       delta, scale=sc)
-    dq = mxk.flash_attention_bwd_dq(q, k, v, do, lse_ref, delta, scale=sc)
-    dq_ref = mxk.flash_attention_bwd_dq_plain(q, k, v, do, lse_ref, delta,
-                                              scale=sc)
-    torch.cuda.synchronize()
     errs = {}
-    for what, a, b in (("out", o, o_ref), ("lse", lse, lse_ref),
-                       ("dk", dk, dk_ref), ("dv", dv, dv_ref),
-                       ("dq", dq, dq_ref)):
-        check(close(torch, a, b), "flash attention %s disagrees with its "
-              "plain version (max abs err %g)" % (what, max_err(a, b)))
-        errs[what] = max_err(a, b)
-    del o_ref, lse_ref, dk_ref, dv_ref, dq_ref
+
+    def hold(pairs, tag=""):
+        for what, a, b in pairs:
+            check(close(torch, a, b), "flash attention %s%s disagrees with "
+                  "its plain version (max abs err %g)"
+                  % (what, tag, max_err(a, b)))
+            errs[what + tag] = max_err(a, b)
+
+    hold(_flash_pairs(torch, mxk, q, k, v, do, sc))
+    for shape in FLASH_F32_EDGES:
+        ins = [torch.randn(*shape, generator=g).to(dev) for _ in range(4)]
+        hold(_flash_pairs(torch, mxk, *ins, 1.0 / shape[-1] ** 0.5),
+             "_" + "x".join(map(str, shape)))
+        del ins
     # the draft model's forward: batch 1 over the (1, seq_len) history
     q1, k1, v1 = (torch.randn(1, H, S, D, generator=g).to(dev)
                   for _ in range(3))
-    for what, a, b in zip(("out_b1", "lse_b1"),
-                          mxk.flash_attention_fwd(q1, k1, v1, scale=sc),
-                          mxk.flash_attention_fwd_plain(q1, k1, v1,
-                                                        scale=sc)):
-        check(close(torch, a, b), "flash attention %s disagrees with its "
-              "plain version (max abs err %g)" % (what, max_err(a, b)))
-        errs[what] = max_err(a, b)
+    hold(zip(("out_b1", "lse_b1"),
+             mxk.flash_attention_fwd(q1, k1, v1, scale=sc),
+             mxk.flash_attention_fwd_plain(q1, k1, v1, scale=sc)))
     del q1, k1, v1
     # the autograd Function end to end against the reference's autograd
     ends = []
@@ -1401,47 +1482,20 @@ def phase_flash(torch, mxk, dev, flush):
               % (what, max_err(a, b)))
         errs["fn_" + what] = max_err(a, b)
     del ends
-
-    ms_f = time_ms(torch, lambda: mxk.flash_attention_fwd(q, k, v, scale=sc),
-                   flush)
-    ms_dkv = time_ms(torch, lambda: mxk.flash_attention_bwd_dkv(
-        q, k, v, do, lse, delta, scale=sc), flush)
-    ms_dq = time_ms(torch, lambda: mxk.flash_attention_bwd_dq(
-        q, k, v, do, lse, delta, scale=sc), flush)
-    pl_f = time_ms(torch, lambda: mxk.flash_attention_fwd_plain(
-        q, k, v, scale=sc), flush, reps=20)
-    pl_dkv = time_ms(torch, lambda: mxk.flash_attention_bwd_dkv_plain(
-        q, k, v, do, lse, delta, scale=sc), flush, reps=20)
-    pl_dq = time_ms(torch, lambda: mxk.flash_attention_bwd_dq_plain(
-        q, k, v, do, lse, delta, scale=sc), flush, reps=20)
-    lib_f = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, scale=sc), flush)
-    qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
-    o_lib = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True,
-                                           scale=sc)
-    lib_b = time_ms(torch, lambda: torch.autograd.grad(
-        o_lib, (qr, kr, vr), do, retain_graph=True), flush)
-    del o_lib, qr, kr, vr
-    # one causal product over the lower triangle, diagonal included
-    tri = 2.0 * B * H * D * S * (S + 1) / 2
-    io = B * H * S * D * 4
-    rows = []
-    for name, ms, plain_ms, n_prod, nbytes, lib in (
-            ("flash_attention_fwd", ms_f, pl_f, 2, 4 * io + B * H * S * 4,
-             lib_f),
-            ("flash_attention_bwd_dkv", ms_dkv, pl_dkv, 4,
-             6 * io + 2 * B * H * S * 4, lib_b),
-            ("flash_attention_bwd_dq", ms_dq, pl_dq, 3,
-             5 * io + 2 * B * H * S * 4, lib_b)):
-        b_ms, b_by = bound(nbytes, n_prod * tri)
-        rows.append({"name": name, "route": "cuda",
-                     "source": "mxnet_tpu_torch/csrc/flash_attention.cu",
-                     "replaces": "mxnet_tpu/ops/nn.py:744",
-                     "max_abs_err": max(errs.values()), "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": b_ms,
-                     "bound_by": b_by, "library_ms": lib})
+    sdpa = _library_kernels(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, scale=sc))
+    rows = _flash_rows(torch, mxk, q, k, v, do, sc, flush, "float32",
+                       SPLIT_TF32_FLOPS_PER_S)
+    for r in rows:
+        r["max_abs_err"] = max(errs.values())
+        r["bound_peak"] = "split TF32, %g TFLOP/s" % (
+            SPLIT_TF32_FLOPS_PER_S / 1e12)
+        r["bound_cuda_cores_ms"] = bound(r["bytes"], r["flops"])[0]
+        r["ptxas"] = {key: ptx[key] for key in ptx
+                      if key.startswith(FLASH_F32_ENTRIES[r["name"]][0] + "I")}
     emit({"phase": "flash_fwd", **rows[0], "shape": [B, H, S, D],
-          "scale": sc, "errors": errs,
+          "edge_shapes": [list(e) for e in FLASH_F32_EDGES],
+          "scale": sc, "errors": errs, "library_kernels": sdpa,
           "library_call": "F.scaled_dot_product_attention(is_causal=True)"})
     emit({"phase": "flash_bwd", "kernels": rows[1:], "shape": [B, H, S, D],
           "library_call": "autograd backward of F.scaled_dot_product_attention"
@@ -2315,7 +2369,8 @@ def _flash_rows(torch, mxk, q, k, v, do, sc, flush, dtype, peak):
                      "replaces": "mxnet_tpu/ops/nn.py:744", "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": lib,
-                     "tflops": n_prod * tri / ms / 1e9})
+                     "tflops": n_prod * tri / ms / 1e9,
+                     "bytes": nbytes, "flops": n_prod * tri})
     return rows
 
 
@@ -2379,9 +2434,9 @@ def _fused_gemm_ptxas(source, old_entry):
     return ptx
 
 
-def _flash_bf16_pairs(torch, mxk, q, k, v, do, sc):
+def _flash_pairs(torch, mxk, q, k, v, do, sc):
     """(what, kernel result, plain result) for the forward's output and
-    lse, dK/dV and dQ on one set of bf16 inputs; the backward kernels
+    lse, dK/dV and dQ on one set of inputs (f32 or bf16); the backward kernels
     take the plain forward's lse and Dr, as their plain versions do."""
     o, lse = mxk.flash_attention_fwd(q, k, v, scale=sc)
     o_ref, lse_ref = mxk.flash_attention_fwd_plain(q, k, v, scale=sc)
@@ -2448,11 +2503,11 @@ def phase_flash_bf16(torch, mxk, dev, flush):
                   "version (max abs err %g)" % (what, tag, max_err(a, b)))
             errs[what + tag] = max_err(a, b)
 
-    hold(_flash_bf16_pairs(torch, mxk, q, k, v, do, sc))
+    hold(_flash_pairs(torch, mxk, q, k, v, do, sc))
     for shape in FLASH_BF16_EDGES:
         ins = [torch.randn(*shape, generator=g).to(dev).to(bf)
                for _ in range(4)]
-        hold(_flash_bf16_pairs(torch, mxk, *ins, 1.0 / shape[-1] ** 0.5),
+        hold(_flash_pairs(torch, mxk, *ins, 1.0 / shape[-1] ** 0.5),
              "_" + "x".join(map(str, shape)))
         del ins
     ends = []
@@ -2672,7 +2727,7 @@ def phase_head_dim(torch, mxk, dev, flush):
         del o, lse, o2, lse2
         if timed:
             for r in _flash_rows(torch, mxk, q, k, v, do, sc, flush,
-                                 "float32", F32_FLOPS_PER_S):
+                                 "float32", SPLIT_TF32_FLOPS_PER_S):
                 timings[r["name"]] = r
         del q, k, v, do
         # one-shot prefill at the served shape
@@ -2699,7 +2754,7 @@ def phase_head_dim(torch, mxk, dev, flush):
                 qh, kh, vh, is_causal=True, scale=sc), flush)
             tri = 2.0 * 8 * H * D * 1024 * 1025 / 2
             nbytes = 4 * 8 * 1024 * H * D * 4 + 2 * sum(lengths) * H * D * 4
-            b_ms, b_by = bound(nbytes, 2 * tri)
+            b_ms, b_by = bound(nbytes, 2 * tri, SPLIT_TF32_FLOPS_PER_S)
             timings["paged_prefill_attend"] = dict(
                 ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                 bound_by=b_by)

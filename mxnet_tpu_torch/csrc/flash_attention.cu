@@ -33,8 +33,8 @@
 // 989 TFLOP/s and 3.35 TB/s, the forward is bound by bytes (20.1 us of
 // memory against 17.4 us of products), dK/dV and dQ by operations (34.8
 // and 26.1 us against 30.2 and 25.2 us of memory).  In f32 all three are
-// bound by operations on the CUDA cores (67 TFLOP/s), 4-10x over their
-// bytes.
+// bound by operations, on the CUDA cores (67 TFLOP/s) and in split TF32
+// on the tensor cores alike (attention_f32.cuh).
 //
 // bf16 design (mma.sync, FlashAttention-2's shape).  Every product is
 // mma.sync.m16n8k16 with bf16 operands and f32 sums.  Tiles stay bf16 in
@@ -79,431 +79,21 @@
 // were no faster; the forward holds 3 blocks an SM (at 4 blocks ptxas
 // caps it at 128 registers and spills).
 //
-// f32 design (the CUDA cores): tensor cores would mean
-// TF32, whose 10-bit mantissa cannot hold the f32 forms to the plain
-// version's rtol 2e-5, so the products stay f32 FMAs.  One thread block
-// of 256 threads per (batch * head, tile of 64 query rows or keys, chunk
-// of 128 output columns); the TPU kernel's sequential grid carry becomes
-// a loop inside the block, with the running softmax and the
-// accumulators in registers.  Shared memory holds tiles of 64 rows by
-// 128 columns, f32, with a row stride of 129 floats (82.7 KB forward,
-// 166 KB dK/dV, 149 KB dQ); a thread computes a 4 x 4 block of the 64 x
-// 64 score tile (rows ty * 4 + i, columns tx + 16 * j; the 16 threads
-// sharing a row reduce its max and sum with shuffles inside a half
-// warp).  Exponentials use expf and logf (no fast math), so the f32
-// results hold the f32 tolerance against the plain PyTorch version.
+// f32 design (tensor cores, split TF32): the f32 kernels are built from
+// attention_f32.cuh (design note there), the bf16 kernels' shape with
+// every product in 3xTF32 (three mma.sync m16n8k8 of hi/lo halves), f32
+// tiles in shared memory and expf / logf, so they hold the f32
+// tolerance against the plain version.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_f32.cuh"
 #include "tc_mma.cuh"
 
 namespace {
-
-constexpr int kTile = 64;                    // query rows and keys per tile
-constexpr int kThreads = 256;
 constexpr int kDC = 128;                     // head_dim columns per chunk
-constexpr int kDPer = kDC / 16;              // output columns per thread
-constexpr int kLd = kDC + 1;                 // stride of a staged chunk tile
-constexpr int kPS = kTile + 1;               // stride of a 64 x 64 tile in smem
-
-template <typename T> __device__ __forceinline__ float to_f32(T v);
-template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-// v rounded to T and widened back: the rounding of a value that enters
-// a product in T (the CUDA-core kernels below run T = float only, where
-// it is the identity; the bf16 forms are the tensor-core kernels in tc)
-template <typename T> __device__ __forceinline__ float rnd(float v) {
-  return to_f32<T>(from_f32<T>(v));
-}
-
-// copy rows [r0, r0 + kTile), columns [c0, c0 + w) of a (S, D) matrix
-// into a (kTile, kLd) f32 shared tile; zeros past row S
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int r0,
-                                          int S, int D, int c0, int w) {
-  const int n = kTile * w;
-  for (int idx = threadIdx.x; idx < n; idx += kThreads) {
-    const int r = idx / w, d = idx - r * w;
-    dst[r * kLd + d] =
-        (r0 + r < S) ? to_f32(src[(size_t)(r0 + r) * D + c0 + d]) : 0.f;
-  }
-}
-
-__device__ __forceinline__ int chunk_width(int D, int c0) { return min(kDC, D - c0); }
-
-// sum and max over the 16 threads of a half warp that share a row
-__device__ __forceinline__ float row_max16(float v) {
-  for (int off = 8; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-__device__ __forceinline__ float row_sum16(float v) {
-  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// s[i][j] += sum over the w staged columns of a[row ty*4+i] * b[row tx+16j]
-__device__ __forceinline__ void dot_tile(const float* as, const float* bs, int w, int ty,
-                                         int tx, float s[4][4]) {
-#pragma unroll 4
-  for (int d = 0; d < w; ++d) {
-    float a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = as[(ty * 4 + i) * kLd + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = bs[(tx + 16 * j) * kLd + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
-  }
-}
-
-// ---------------------------------------------------------------------
-// forward
-// ---------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, float* __restrict__ lse, int S, int D, float scale) {
-  const int nq = (S + kTile - 1) / kTile;
-  const int qt = nq - 1 - (int)blockIdx.x;          // longest rows first
-  const size_t bh = blockIdx.y;
-  const int nch = (D + kDC - 1) / kDC;
-  const int oc0 = blockIdx.z * kDC, ow = chunk_width(D, oc0);
-  const T* qg = q + bh * S * D;
-  const T* kg = k + bh * S * D;
-  const T* vg = v + bh * S * D;
-  extern __shared__ float sm[];
-  float* qs = sm;                                   // kTile x kLd
-  float* kv = qs + kTile * kLd;                     // kTile x kLd: K, then V
-  float* ps = kv + kTile * kLd;                     // kTile x kPS
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int q0 = qt * kTile;
-
-  if (nch == 1) load_tile(qs, qg, q0, S, D, 0, D);  // resident
-  float m[4], l[4], acc[4][kDPer];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kDPer; ++c) acc[i][c] = 0.f;
-  }
-
-  for (int kt = 0; kt <= qt; ++kt) {
-    const int k0 = kt * kTile;
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int c0 = 0; c0 < D; c0 += kDC) {
-      const int w = chunk_width(D, c0);
-      __syncthreads();                              // qs, kv and ps are free
-      if (nch > 1) load_tile(qs, qg, q0, S, D, c0, w);
-      load_tile(kv, kg, k0, S, D, c0, w);
-      __syncthreads();
-      dot_tile(qs, kv, w, ty, tx, s);
-    }
-    // online softmax; every row has a valid key in every tile it visits
-    // (key k0 <= its row), so the running max is finite after the first
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = q0 + ty * 4 + i;
-      float mx = m[i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = k0 + tx + 16 * j;
-        s[i][j] = (c <= r && c < S) ? s[i][j] * scale : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      mx = row_max16(mx);
-      const float alpha = expf(m[i] - mx);
-      float ls = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - mx);
-        ls += s[i][j];
-      }
-      ls = row_sum16(ls);
-      l[i] = l[i] * alpha + ls;
-      m[i] = mx;
-#pragma unroll
-      for (int c = 0; c < kDPer; ++c) acc[i][c] *= alpha;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) ps[(ty * 4 + i) * kPS + tx + 16 * j] = rnd<T>(s[i][j]);
-    }
-    __syncthreads();                                // K read, P written
-    load_tile(kv, vg, k0, S, D, oc0, ow);
-    __syncthreads();
-#pragma unroll 4
-    for (int c = 0; c < kTile; ++c) {
-      float p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = ps[(ty * 4 + i) * kPS + c];
-#pragma unroll
-      for (int cc = 0; cc < kDPer; ++cc) {
-        const int d = tx + 16 * cc;
-        if (d < ow) {
-          const float vv = kv[c * kLd + d];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][cc] = fmaf(p[i], vv, acc[i][cc]);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty * 4 + i;
-    if (r >= S) continue;
-    const float inv = 1.f / l[i];
-    T* orow = o + (bh * S + r) * D + oc0;
-#pragma unroll
-    for (int cc = 0; cc < kDPer; ++cc) {
-      const int d = tx + 16 * cc;
-      if (d < ow) orow[d] = from_f32<T>(acc[i][cc] * inv);
-    }
-    if (tx == 0 && blockIdx.z == 0) lse[bh * S + r] = m[i] + logf(l[i]);
-  }
-}
-
-// ---------------------------------------------------------------------
-// backward: both kernels recompute the score tile and dO V^T chunk by
-// chunk of D; rows ty * 4 + i are query rows, columns tx + 16 * j keys
-// ---------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     T* __restrict__ dk, T* __restrict__ dv, int S, int D, float scale) {
-  const int nt = (S + kTile - 1) / kTile;
-  const int kt = blockIdx.x;                        // most query tiles first
-  const size_t bh = blockIdx.y;
-  const int nch = (D + kDC - 1) / kDC;
-  const int oc0 = blockIdx.z * kDC, ow = chunk_width(D, oc0);
-  const T* qg = q + bh * S * D;
-  const T* kg = k + bh * S * D;
-  const T* vg = v + bh * S * D;
-  const T* dog = dout + bh * S * D;
-  const float* lg = lse + bh * S;
-  const float* dg = delta + bh * S;
-  extern __shared__ float sm[];
-  float* ks = sm;                                   // kTile x kLd each
-  float* vs = ks + kTile * kLd;
-  float* qs = vs + kTile * kLd;
-  float* dos = qs + kTile * kLd;
-  float* ps = dos + kTile * kLd;                    // kTile x kPS each
-  float* dss = ps + kTile * kPS;
-  float* ls = dss + kTile * kPS;                    // kTile
-  float* dls = ls + kTile;                          // kTile
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int k0 = kt * kTile;
-
-  if (nch == 1) {                                   // resident
-    load_tile(ks, kg, k0, S, D, 0, D);
-    load_tile(vs, vg, k0, S, D, 0, D);
-  }
-  float adk[4][kDPer], adv[4][kDPer];             // keys ty * 4 + i
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < kDPer; ++c) {
-      adk[i][c] = 0.f;
-      adv[i][c] = 0.f;
-    }
-
-  for (int qt = kt; qt < nt; ++qt) {
-    const int q0 = qt * kTile;
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = 0.f;
-        dp[i][j] = 0.f;
-      }
-    for (int c0 = 0; c0 < D; c0 += kDC) {
-      const int w = chunk_width(D, c0);
-      __syncthreads();                              // every tile is free
-      if (nch > 1) {
-        load_tile(ks, kg, k0, S, D, c0, w);
-        load_tile(vs, vg, k0, S, D, c0, w);
-      }
-      load_tile(qs, qg, q0, S, D, c0, w);
-      load_tile(dos, dog, q0, S, D, c0, w);
-      if (c0 == 0 && tid < kTile) {
-        ls[tid] = (q0 + tid < S) ? lg[q0 + tid] : 0.f;
-        dls[tid] = (q0 + tid < S) ? dg[q0 + tid] : 0.f;
-      }
-      __syncthreads();
-      dot_tile(qs, ks, w, ty, tx, s);
-      dot_tile(dos, vs, w, ty, tx, dp);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int rl = ty * 4 + i, r = q0 + rl;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int cl = tx + 16 * j, c = k0 + cl;
-        const float p = (c <= r && r < S) ? expf(s[i][j] * scale - ls[rl]) : 0.f;
-        ps[rl * kPS + cl] = rnd<T>(p);
-        dss[rl * kPS + cl] = rnd<T>(p * (dp[i][j] - dls[rl]) * scale);
-      }
-    }
-    if (nch > 1) {                                  // this block's columns
-      __syncthreads();
-      load_tile(qs, qg, q0, S, D, oc0, ow);
-      load_tile(dos, dog, q0, S, D, oc0, ow);
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int r = 0; r < kTile; ++r) {
-      float p[4], ds[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        p[i] = ps[r * kPS + ty * 4 + i];
-        ds[i] = dss[r * kPS + ty * 4 + i];
-      }
-#pragma unroll
-      for (int cc = 0; cc < kDPer; ++cc) {
-        const int d = tx + 16 * cc;
-        if (d < ow) {
-          const float g = dos[r * kLd + d], x = qs[r * kLd + d];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            adv[i][cc] = fmaf(p[i], g, adv[i][cc]);
-            adk[i][cc] = fmaf(ds[i], x, adk[i][cc]);
-          }
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = k0 + ty * 4 + i;
-    if (c >= S) continue;
-    T* dkr = dk + (bh * S + c) * D + oc0;
-    T* dvr = dv + (bh * S + c) * D + oc0;
-#pragma unroll
-    for (int cc = 0; cc < kDPer; ++cc) {
-      const int d = tx + 16 * cc;
-      if (d < ow) {
-        dkr[d] = from_f32<T>(adk[i][cc]);
-        dvr[d] = from_f32<T>(adv[i][cc]);
-      }
-    }
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    T* __restrict__ dq, int S, int D, float scale) {
-  const int nq = (S + kTile - 1) / kTile;
-  const int qt = nq - 1 - (int)blockIdx.x;          // longest rows first
-  const size_t bh = blockIdx.y;
-  const int nch = (D + kDC - 1) / kDC;
-  const int oc0 = blockIdx.z * kDC, ow = chunk_width(D, oc0);
-  const T* qg = q + bh * S * D;
-  const T* dog = dout + bh * S * D;
-  const T* kg = k + bh * S * D;
-  const T* vg = v + bh * S * D;
-  extern __shared__ float sm[];
-  float* qs = sm;                                   // kTile x kLd each
-  float* dos = qs + kTile * kLd;
-  float* ks = dos + kTile * kLd;
-  float* vs = ks + kTile * kLd;
-  float* dss = vs + kTile * kLd;                    // kTile x kPS
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int q0 = qt * kTile;
-
-  if (nch == 1) {                                   // resident
-    load_tile(qs, qg, q0, S, D, 0, D);
-    load_tile(dos, dog, q0, S, D, 0, D);
-  }
-  float lr[4], dr[4], acc[4][kDPer];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty * 4 + i;
-    lr[i] = r < S ? lse[bh * S + r] : 0.f;
-    dr[i] = r < S ? delta[bh * S + r] : 0.f;
-#pragma unroll
-    for (int c = 0; c < kDPer; ++c) acc[i][c] = 0.f;
-  }
-
-  for (int kt = 0; kt <= qt; ++kt) {
-    const int k0 = kt * kTile;
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = 0.f;
-        dp[i][j] = 0.f;
-      }
-    for (int c0 = 0; c0 < D; c0 += kDC) {
-      const int w = chunk_width(D, c0);
-      __syncthreads();                              // every tile is free
-      if (nch > 1) {
-        load_tile(qs, qg, q0, S, D, c0, w);
-        load_tile(dos, dog, q0, S, D, c0, w);
-      }
-      load_tile(ks, kg, k0, S, D, c0, w);
-      load_tile(vs, vg, k0, S, D, c0, w);
-      __syncthreads();
-      dot_tile(qs, ks, w, ty, tx, s);
-      dot_tile(dos, vs, w, ty, tx, dp);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int rl = ty * 4 + i, r = q0 + rl;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int cl = tx + 16 * j, c = k0 + cl;
-        const float p = (c <= r && r < S) ? expf(s[i][j] * scale - lr[i]) : 0.f;
-        dss[rl * kPS + cl] = rnd<T>(p * (dp[i][j] - dr[i]) * scale);
-      }
-    }
-    if (nch > 1) {                                  // this block's columns
-      __syncthreads();
-      load_tile(ks, kg, k0, S, D, oc0, ow);
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int c = 0; c < kTile; ++c) {
-      float ds[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) ds[i] = dss[(ty * 4 + i) * kPS + c];
-#pragma unroll
-      for (int cc = 0; cc < kDPer; ++cc) {
-        const int d = tx + 16 * cc;
-        if (d < ow) {
-          const float kk = ks[c * kLd + d];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][cc] = fmaf(ds[i], kk, acc[i][cc]);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty * 4 + i;
-    if (r >= S) continue;
-    T* dqr = dq + (bh * S + r) * D + oc0;
-#pragma unroll
-    for (int cc = 0; cc < kDPer; ++cc) {
-      const int d = tx + 16 * cc;
-      if (d < ow) dqr[d] = from_f32<T>(acc[i][cc]);
-    }
-  }
-}
-
 }  // namespace
 
 // ---------------------------------------------------------------------
@@ -1019,11 +609,275 @@ dim3 grid_of(int BH, int S, int D, int warps) {
 
 }  // namespace tc
 
-namespace {
+// ---------------------------------------------------------------------
+// f32: tensor cores in split TF32 (attention_f32.cuh)
+// ---------------------------------------------------------------------
+namespace attn32 {
 
-constexpr size_t kFwdSmem = sizeof(float) * (2 * kTile * kLd + kTile * kPS);
-constexpr size_t kDkvSmem = sizeof(float) * (4 * kTile * kLd + 2 * kTile * kPS + 2 * kTile);
-constexpr size_t kDqSmem = sizeof(float) * (4 * kTile * kLd + kTile * kPS);
+// -------------------------------- forward ----------------------------
+template <bool kFull>
+__global__ void __launch_bounds__(32 * kFwdWarps, kFwdMinBlocks)
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     float* __restrict__ lse, int S, int D, float scale, int vec) {
+  const int nq = (S + 16 * kFwdWarps - 1) / (16 * kFwdWarps);
+  const int qt = nq - 1 - (int)blockIdx.y;          // longest rows first
+  const size_t bh = blockIdx.x, off = bh * S * D;
+  extern __shared__ __align__(16) unsigned char smem[];
+  forward<kFull>(q + off, k + off, v + off, o + off, blockIdx.z == 0 ? lse + bh * S : nullptr,
+                 S, D, (size_t)D, qt, (int)blockIdx.z * kDC, scale, vec,
+                 reinterpret_cast<float*>(smem));
+}
+
+// -------------------------------- dK/dV ------------------------------
+// A warp owns 16 keys; the block walks query tiles of QT rows from the
+// diagonal.  Stages per query tile: one per head_dim chunk of S^T = K
+// Q^T and dP^T = V dO^T (Q and dO chunks; K and V chunks too when D >
+// 128, else K and V are resident), and when D > 128 one more for the
+// output chunk of Q and dO.  The stage that forms P^T and dS^T also
+// stages L and Dr of its rows.  Q and dO (B operands of every product
+// here) are split as they land; K and V (A operands) at each fragment
+// load.  Shared memory: rings of split Q and dO tiles, of L and of Dr,
+// then K and V (1 tile each, or rings).
+template <bool kFull, int kWarps>
+__global__ void __launch_bounds__(32 * kWarps, 1)
+flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         float* __restrict__ dk, float* __restrict__ dv, int S, int D,
+                         float scale, int vec) {
+  constexpr int R = 16 * kWarps, TH = 32 * kWarps, QT = kDkvStep, NS = kDkvStages;
+  constexpr int kKSlot = R * kLd, kQSlot = QT * kLd;   // ring slots: 2 kQSlot
+  const int kt = blockIdx.y;                        // most query tiles first
+  const size_t bh = blockIdx.x;
+  const int nch = (D + kDC - 1) / kDC;
+  const int oc0 = blockIdx.z * kDC, ow = min(kDC, D - oc0);
+  const float* qg = q + bh * S * D;
+  const float* kg = k + bh * S * D;
+  const float* vg = v + bh * S * D;
+  const float* dog = dout + bh * S * D;
+  const float* lg = lse + bh * S;
+  const float* dg = delta + bh * S;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem);       // NS split Q tiles
+  float* dos = qs + NS * 2 * kQSlot;                // NS split dO tiles
+  float* ls = dos + NS * 2 * kQSlot;                // NS x QT
+  float* drs = ls + NS * QT;                        // NS x QT
+  float* ks = drs + NS * QT;
+  float* vs = ks + (nch > 1 ? NS : 1) * kKSlot;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int k0 = kt * R;
+  const int first = k0 / QT, nqt = (S + QT - 1) / QT;
+  const int per = nch == 1 ? 1 : nch + 1, nst = (nqt - first) * per;
+
+  auto issue = [&](int st) {
+    const int qi = first + st / per, j = st % per, buf = st % NS, q0 = qi * QT;
+    const int c0 = j < nch ? j * kDC : oc0, w = min(kDC, D - c0);
+    if (j < nch && nch > 1) {
+      stage_tile<R, TH>(ks + buf * kKSlot, kg, k0, S, (size_t)D, c0, w, vec);
+      stage_tile<R, TH>(vs + buf * kKSlot, vg, k0, S, (size_t)D, c0, w, vec);
+    }
+    stage_tile<QT, TH>(qs + buf * 2 * kQSlot, qg, q0, S, (size_t)D, c0, w, vec);
+    stage_tile<QT, TH>(dos + buf * 2 * kQSlot, dog, q0, S, (size_t)D, c0, w, vec);
+    if (j == per - 1) {
+      const int i = threadIdx.x % QT, r = q0 + i;
+      if (threadIdx.x < QT)
+        tc::cp_async4(ls + buf * QT + i, r < S ? lg + r : lg, r < S);
+      else if (threadIdx.x < 2 * QT)
+        tc::cp_async4(drs + buf * QT + i, r < S ? dg + r : dg, r < S);
+    }
+  };
+  if (nch == 1) {
+    stage_tile<R, TH>(ks, kg, k0, S, (size_t)D, 0, D, vec);
+    stage_tile<R, TH>(vs, vg, k0, S, (size_t)D, 0, D, vec);
+  }
+#pragma unroll
+  for (int i = 0; i < NS - 1; ++i) {
+    if (i < nst) issue(i);
+    tc::cp_async_commit();
+  }
+
+  float sT[QT / 8][4], dpT[QT / 8][4], adk[kDC / 8][4], adv[kDC / 8][4];
+  zero<kDC / 8>(adk);
+  zero<kDC / 8>(adv);
+  for (int st = 0; st < nst; ++st) {
+    const int qi = first + st / per, j = st % per, buf = st % NS, q0 = qi * QT;
+    float* qt_ = qs + buf * 2 * kQSlot;
+    float* dot_ = dos + buf * 2 * kQSlot;
+    tc::cp_async_wait<NS - 2>();
+    const int wj = min(kDC, D - (j < nch ? j * kDC : oc0));
+    split_tile<QT, TH>(qt_, qt_ + kQSlot, wj, vec);
+    split_tile<QT, TH>(dot_, dot_ + kQSlot, wj, vec);
+    __syncthreads();
+    if (st + NS - 1 < nst) issue(st + NS - 1);
+    tc::cp_async_commit();
+    if (j < nch) {                                  // S^T, dP^T over chunk j
+      if (j == 0) {
+        zero<QT / 8>(sT);
+        zero<QT / 8>(dpT);
+      }
+      const int nk = ksteps<kFull>(wj);
+      const int rb = nch > 1 ? buf : 0;
+      mma_nk<QT / 8>(sT, ks + rb * kKSlot, warp * 16, qt_, qt_ + kQSlot, nk);
+      mma_nk<QT / 8>(dpT, vs + rb * kKSlot, warp * 16, dot_, dot_ + kQSlot, nk);
+      if (nch > 1) continue;
+    }
+    // P^T = exp(S^T scale - L), dS^T = P^T (dP^T - Dr) scale; masked on
+    // the tiles that cross the diagonal or pass S
+    const bool masked = q0 < k0 + R || q0 + QT > S;
+    const float* lb = ls + buf * QT;
+    const float* db = drs + buf * QT;
+#pragma unroll
+    for (int nt = 0; nt < QT / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + warp * 16 + g + (e >> 1) * 8;
+        const int qc = nt * 8 + 2 * t + (e & 1), r = q0 + qc;
+        const bool ok = !masked || (key <= r && r < S);
+        const float p = ok ? expf(sT[nt][e] * scale - lb[qc]) : 0.f;
+        dpT[nt][e] = p * (dpT[nt][e] - db[qc]) * scale;
+        sT[nt][e] = p;
+      }
+    const int ndp = ksteps<kFull>(ow);
+    mma_kn<QT / 8>(adv, sT, dot_, dot_ + kQSlot, ndp);   // dV += P^T dO
+    mma_kn<QT / 8>(adk, dpT, qt_, qt_ + kQSlot, ndp);    // dK += dS^T Q
+  }
+  tc::cp_async_wait<0>();
+  const float one[2] = {1.f, 1.f};
+  store_rows(dk + bh * S * D, adk, k0 + warp * 16, S, (size_t)D, oc0, ow, one);
+  store_rows(dv + bh * S * D, adv, k0 + warp * 16, S, (size_t)D, oc0, ow, one);
+}
+
+// -------------------------------- dQ ---------------------------------
+// A warp owns 16 query rows; the block walks key tiles of KT to the
+// diagonal.  Stages per key tile: one per head_dim chunk of S = Q K^T
+// and dP = dO V^T (K and V chunks; Q and dO chunks too when D > 128,
+// else Q and dO are resident), and when D > 128 one more for K's output
+// chunk.  K and V (B operands) are split as they land, Q and dO at each
+// fragment load.  Shared memory: rings of split K and V tiles, then Q
+// and dO (1 tile each, or rings).
+template <bool kFull, int kWarps>
+__global__ void __launch_bounds__(32 * kWarps, 1)
+flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const float* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        float* __restrict__ dq, int S, int D, float scale, int vec) {
+  constexpr int R = 16 * kWarps, TH = 32 * kWarps, KT = kDqStep, NS = kDqStages;
+  constexpr int kQSlot = R * kLd, kKSlot = KT * kLd;   // ring slots: 2 kKSlot
+  const int nq = (S + R - 1) / R;
+  const int qt = nq - 1 - (int)blockIdx.y;          // longest rows first
+  const size_t bh = blockIdx.x;
+  const int nch = (D + kDC - 1) / kDC;
+  const int oc0 = blockIdx.z * kDC, ow = min(kDC, D - oc0);
+  const float* qg = q + bh * S * D;
+  const float* kg = k + bh * S * D;
+  const float* vg = v + bh * S * D;
+  const float* dog = dout + bh * S * D;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ks = reinterpret_cast<float*>(smem);       // NS split key tiles
+  float* vs = ks + NS * 2 * kKSlot;                 // NS split key tiles
+  float* qs = vs + NS * 2 * kKSlot;
+  float* dos = qs + (nch > 1 ? NS : 1) * kQSlot;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int q0 = qt * R;
+  const int nkt = min((q0 + R + KT - 1) / KT, (S + KT - 1) / KT);  // to the diagonal
+  const int per = nch == 1 ? 1 : nch + 1, nst = nkt * per;
+
+  auto issue = [&](int st) {
+    const int kt = st / per, j = st % per, buf = st % NS;
+    if (j < nch) {
+      const int c0 = j * kDC, w = min(kDC, D - c0);
+      if (nch > 1) {
+        stage_tile<R, TH>(qs + buf * kQSlot, qg, q0, S, (size_t)D, c0, w, vec);
+        stage_tile<R, TH>(dos + buf * kQSlot, dog, q0, S, (size_t)D, c0, w, vec);
+      }
+      stage_tile<KT, TH>(ks + buf * 2 * kKSlot, kg, kt * KT, S, (size_t)D, c0, w, vec);
+      stage_tile<KT, TH>(vs + buf * 2 * kKSlot, vg, kt * KT, S, (size_t)D, c0, w, vec);
+    } else {
+      stage_tile<KT, TH>(ks + buf * 2 * kKSlot, kg, kt * KT, S, (size_t)D, oc0, ow, vec);
+    }
+  };
+  if (nch == 1) {
+    stage_tile<R, TH>(qs, qg, q0, S, (size_t)D, 0, D, vec);
+    stage_tile<R, TH>(dos, dog, q0, S, (size_t)D, 0, D, vec);
+  }
+#pragma unroll
+  for (int i = 0; i < NS - 1; ++i) {
+    if (i < nst) issue(i);
+    tc::cp_async_commit();
+  }
+
+  float lr[2], dr[2];                               // rows g, g + 8
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = q0 + warp * 16 + g + 8 * h;
+    lr[h] = r < S ? lse[bh * S + r] : 0.f;
+    dr[h] = r < S ? delta[bh * S + r] : 0.f;
+  }
+  float s[KT / 8][4], dp[KT / 8][4], acc[kDC / 8][4];
+  zero<kDC / 8>(acc);
+  for (int st = 0; st < nst; ++st) {
+    const int kt = st / per, j = st % per, buf = st % NS;
+    float* kt_ = ks + buf * 2 * kKSlot;
+    float* vt_ = vs + buf * 2 * kKSlot;
+    tc::cp_async_wait<NS - 2>();
+    const int wj = j < nch ? min(kDC, D - j * kDC) : ow;
+    split_tile<KT, TH>(kt_, kt_ + kKSlot, wj, vec);
+    if (j < nch) split_tile<KT, TH>(vt_, vt_ + kKSlot, wj, vec);
+    __syncthreads();
+    if (st + NS - 1 < nst) issue(st + NS - 1);
+    tc::cp_async_commit();
+    if (j < nch) {                                  // S, dP over chunk j
+      if (j == 0) {
+        zero<KT / 8>(s);
+        zero<KT / 8>(dp);
+      }
+      const int nk = ksteps<kFull>(wj);
+      const int rb = nch > 1 ? buf : 0;
+      mma_nk<KT / 8>(s, qs + rb * kQSlot, warp * 16, kt_, kt_ + kKSlot, nk);
+      mma_nk<KT / 8>(dp, dos + rb * kQSlot, warp * 16, vt_, vt_ + kKSlot, nk);
+      if (nch > 1) continue;
+    }
+    // dS = P (dP - Dr) scale, P = exp(S scale - L); keys past the row
+    // (and past S) masked on the tiles that cross the diagonal
+    const int k0 = kt * KT;
+    const bool diag = k0 + KT > q0 + 1;
+#pragma unroll
+    for (int nt = 0; nt < KT / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = q0 + warp * 16 + g + (e >> 1) * 8;
+        const int c = k0 + nt * 8 + 2 * t + (e & 1);
+        const bool ok = !diag || (c <= r && c < S);
+        const float p = ok ? expf(s[nt][e] * scale - lr[e >> 1]) : 0.f;
+        dp[nt][e] = p * (dp[nt][e] - dr[e >> 1]) * scale;
+      }
+    mma_kn<KT / 8>(acc, dp, kt_, kt_ + kKSlot, ksteps<kFull>(ow));  // dQ += dS K
+  }
+  tc::cp_async_wait<0>();
+  const float one[2] = {1.f, 1.f};
+  store_rows(dq + bh * S * D, acc, q0 + warp * 16, S, (size_t)D, oc0, ow, one);
+}
+
+// warps of the dK/dV and dQ blocks at head_dim D
+inline int dkv_warps(int D) { return D > kDC ? kDkvWideWarps : kDkvWarps; }
+inline int dq_warps(int D) { return D > kDC ? kDqWideWarps : kDqWarps; }
+
+size_t dkv_smem(int D) {
+  const int rows = 16 * dkv_warps(D);
+  return sizeof(float) * kLd *
+             (2 * kDkvStages * 2 * kDkvStep + rows * 2 * (D > kDC ? kDkvStages : 1)) +
+         sizeof(float) * 2 * kDkvStages * kDkvStep;
+}
+size_t dq_smem(int D) {
+  const int rows = 16 * dq_warps(D);
+  return sizeof(float) * kLd *
+         (2 * kDqStages * 2 * kDqStep + rows * 2 * (D > kDC ? kDqStages : 1));
+}
+
+}  // namespace attn32
+
+namespace {
 
 template <typename F>
 cudaError_t prepare(F fn, size_t smem, int device) {
@@ -1032,41 +886,67 @@ cudaError_t prepare(F fn, size_t smem, int device) {
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-dim3 grid_of(int BH, int S, int D) {
-  return dim3((S + kTile - 1) / kTile, BH, (D + kDC - 1) / kDC);
-}
-
-template <typename T>
-int fwd(const void* q, const void* k, const void* v, void* o, void* lse, int BH, int S,
-        int D, float scale, int device, void* stream) {
-  cudaError_t err = prepare(flash_fwd_kernel<T>, kFwdSmem, device);
+int fwd_f32(const void* q, const void* k, const void* v, void* o, void* lse, int BH, int S,
+            int D, float scale, int device, void* stream) {
+  const size_t smem = attn32::fwd_smem(D);
+  const auto kernel = D % kDC == 0 ? attn32::flash_fwd_f32_kernel<true>
+                                   : attn32::flash_fwd_f32_kernel<false>;
+  cudaError_t err = prepare(kernel, smem, device);
   if (err != cudaSuccess) return (int)err;
-  flash_fwd_kernel<T><<<grid_of(BH, S, D), kThreads, kFwdSmem, (cudaStream_t)stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse, S, D, scale);
+  const int vec = D % 4 == 0 && tc::aligned16(q) && tc::aligned16(k) && tc::aligned16(v);
+  kernel<<<attn32::grid_of(BH, S, D, attn32::kFwdWarps), 32 * attn32::kFwdWarps, smem,
+           (cudaStream_t)stream>>>((const float*)q, (const float*)k, (const float*)v,
+                                   (float*)o, (float*)lse, S, D, scale, vec);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-        const void* delta, void* dk, void* dv, int BH, int S, int D, float scale,
-        int device, void* stream) {
-  cudaError_t err = prepare(flash_bwd_dkv_kernel<T>, kDkvSmem, device);
+// the f32 backward kernel for head_dim D: compile-time step counts when
+// D % 128 == 0, kWideWarps warps when D > 128
+template <typename F>
+F pick(int D, F full_narrow, F ragged_narrow, F full_wide, F ragged_wide) {
+  return D > kDC ? (D % kDC == 0 ? full_wide : ragged_wide)
+                 : (D % kDC == 0 ? full_narrow : ragged_narrow);
+}
+
+int dkv_f32(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+            const void* delta, void* dk, void* dv, int BH, int S, int D, float scale,
+            int device, void* stream) {
+  using attn32::flash_bwd_dkv_f32_kernel;
+  constexpr int N = attn32::kDkvWarps, W = attn32::kDkvWideWarps;
+  const size_t smem = attn32::dkv_smem(D);
+  const auto kernel = pick(D, flash_bwd_dkv_f32_kernel<true, N>,
+                           flash_bwd_dkv_f32_kernel<false, N>,
+                           flash_bwd_dkv_f32_kernel<true, W>,
+                           flash_bwd_dkv_f32_kernel<false, W>);
+  cudaError_t err = prepare(kernel, smem, device);
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dkv_kernel<T><<<grid_of(BH, S, D), kThreads, kDkvSmem, (cudaStream_t)stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
-      (const float*)delta, (T*)dk, (T*)dv, S, D, scale);
+  const int vec = D % 4 == 0 && tc::aligned16(q) && tc::aligned16(k) && tc::aligned16(v) &&
+                  tc::aligned16(dout);
+  const int warps = attn32::dkv_warps(D);
+  kernel<<<attn32::grid_of(BH, S, D, warps), 32 * warps, smem, (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+      (const float*)lse, (const float*)delta, (float*)dk, (float*)dv, S, D, scale, vec);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-       const void* delta, void* dqp, int BH, int S, int D, float scale, int device,
-       void* stream) {
-  cudaError_t err = prepare(flash_bwd_dq_kernel<T>, kDqSmem, device);
+int dq_f32(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+           const void* delta, void* dqp, int BH, int S, int D, float scale, int device,
+           void* stream) {
+  using attn32::flash_bwd_dq_f32_kernel;
+  constexpr int N = attn32::kDqWarps, W = attn32::kDqWideWarps;
+  const size_t smem = attn32::dq_smem(D);
+  const auto kernel = pick(D, flash_bwd_dq_f32_kernel<true, N>,
+                           flash_bwd_dq_f32_kernel<false, N>,
+                           flash_bwd_dq_f32_kernel<true, W>,
+                           flash_bwd_dq_f32_kernel<false, W>);
+  cudaError_t err = prepare(kernel, smem, device);
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq_kernel<T><<<grid_of(BH, S, D), kThreads, kDqSmem, (cudaStream_t)stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
-      (const float*)delta, (T*)dqp, S, D, scale);
+  const int vec = D % 4 == 0 && tc::aligned16(q) && tc::aligned16(k) && tc::aligned16(v) &&
+                  tc::aligned16(dout);
+  const int warps = attn32::dq_warps(D);
+  kernel<<<attn32::grid_of(BH, S, D, warps), 32 * warps, smem, (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+      (const float*)lse, (const float*)delta, (float*)dqp, S, D, scale, vec);
   return (int)cudaGetLastError();
 }
 
@@ -1130,7 +1010,7 @@ extern "C" {
 int mx_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int BH,
                  int S, int D, float scale, int dtype, int device, void* stream) {
   return dtype == 1 ? fwd_bf16(q, k, v, o, lse, BH, S, D, scale, device, stream)
-                    : fwd<float>(q, k, v, o, lse, BH, S, D, scale, device, stream);
+                    : fwd_f32(q, k, v, o, lse, BH, S, D, scale, device, stream);
 }
 
 // delta = rowsum(dO * O): (BH, S)
@@ -1139,8 +1019,8 @@ int mx_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* do
                      int D, float scale, int dtype, int device, void* stream) {
   return dtype == 1 ? dkv_bf16(q, k, v, dout, lse, delta, dk, dv, BH, S, D, scale, device,
                                stream)
-                    : dkv<float>(q, k, v, dout, lse, delta, dk, dv, BH, S, D, scale, device,
-                                 stream);
+                    : dkv_f32(q, k, v, dout, lse, delta, dk, dv, BH, S, D, scale, device,
+                              stream);
 }
 
 int mx_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
@@ -1148,14 +1028,21 @@ int mx_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dou
                     float scale, int dtype, int device, void* stream) {
   return dtype == 1 ? dq_bf16(q, k, v, dout, lse, delta, dqp, BH, S, D, scale, device,
                               stream)
-                    : dq<float>(q, k, v, dout, lse, delta, dqp, BH, S, D, scale, device,
-                                stream);
+                    : dq_f32(q, k, v, dout, lse, delta, dqp, BH, S, D, scale, device,
+                             stream);
 }
 
 // dynamic shared memory of a bf16 kernel at head_dim D, bytes: which 0 =
 // forward, 1 = dK/dV, 2 = dQ
 int mx_flash_bf16_smem(int which, int D) {
   return (int)(which == 0 ? tc::fwd_smem(D) : which == 1 ? tc::dkv_smem(D) : tc::dq_smem(D));
+}
+
+// dynamic shared memory of an f32 kernel at head_dim D, bytes (as above)
+int mx_flash_f32_smem(int which, int D) {
+  return (int)(which == 0   ? attn32::fwd_smem(D)
+               : which == 1 ? attn32::dkv_smem(D)
+                            : attn32::dq_smem(D));
 }
 
 const char* mx_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

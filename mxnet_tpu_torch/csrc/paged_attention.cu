@@ -41,26 +41,24 @@
 // of each row's first lengths[b] K/V rows into the cache fused in.  It
 // does 4 * B * H * D * S * (S + 1) / 2 f32 flops (two products over the
 // causal triangle) on about 4 * B * S * H * D * 4 bytes: ~64 flops per
-// byte at S = 1024, D = 128, so it is bound by f32 operations, like
-// the flash forward.  The TPU kernel gave each (row, table block) grid
-// step the row's whole K/V in VMEM; here one thread block of 256
-// threads takes each (query tile of 64 rows, head, row), 2048 blocks at
-// the served shape (8 x 1024 tokens, 16 heads), and walks the key tiles
-// 0..its own in a loop, staging each 64-key tile of its head through
-// shared memory from the seq-major input (a key row is D contiguous
-// values at a stride of H * D, so a warp reads whole 128-byte lines).
-// The online softmax lives in registers: a thread holds a 4 x 4 block
-// of the 64 x 64 score tile and 4 rows x 8 columns of the 64 x D output
-// tile, the flash forward's layout; key tiles above the query tile's
-// last row are never visited.  The keys come from the input, not from
-// the cache, and keys at or past S do not exist (S is any length; no
-// padding is materialised).  Each block scatters its own query rows
-// below min(lengths[b], S) of its own head into cache block
+// byte at S = 1024, D = 128, so it is bound by operations, like the
+// flash forward, whose tensor-core design (attention_f32.cuh: split-TF32
+// mma.sync, a cp.async ring, P in registers) it runs over the seq-major
+// input, rows H * D elements apart.  The TPU kernel gave each (row,
+// table block) grid step the row's whole K/V in VMEM; here one block of
+// 4 warps takes each (head and row, query tile of 64 rows, chunk of 128
+// output columns), longest tiles first, and walks the key tiles up to
+// its diagonal.  The keys come from the input, not from the cache, and
+// keys at or past S do not exist (S is any length; no padding is
+// materialised).  Each block first scatters its own query rows below
+// min(lengths[b], S) of its own head and chunk into cache block
 // table[b, row / bs], row row % bs: writes are disjoint, no block reads
 // the cache or waits for another, and table entries past a row's last
 // real block are never read.  The TPU kernel clamps those grid steps
 // onto the last real block and re-emits its bytes; not writing there
 // leaves the same cache.  No atomics: two runs give the same bits.
+// bf16 q/k/v are widened to f32 as they are staged (element by element;
+// a bf16 value's tf32 split has lo = 0) and the output rounded once.
 //
 // Head_dim is tiled in all three, so the reference's head_dims run (it
 // has no head_dim limit).  Decode gives each (slot, head) pair one
@@ -70,13 +68,14 @@
 // limit is head_dim 3100) and passes the key and value tiles through in
 // chunks of 128 columns.  The one-shot prefill tiles head_dim as the
 // flash kernels do: chunks of 128 columns staged in turn for the scores,
-// one block per chunk of output columns (which recomputes the scores),
-// 82.7 KB of shared memory at any head_dim; each block scatters its own
-// chunk of the K/V rows.
+// one block per chunk of output columns (which recomputes the scores);
+// each block scatters its own chunk of the K/V rows.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "attention_f32.cuh"
 
 namespace {
 
@@ -94,16 +93,6 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// max and sum over the 16 threads of a half warp that share a row
-__device__ __forceinline__ float row_max16(float v) {
-  for (int off = 8; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-__device__ __forceinline__ float row_sum16(float v) {
-  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
 }
 
@@ -354,173 +343,57 @@ paged_chunk_prefill_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
 // one-shot prefill: causal attention over q/k/v (B, S, H, D) plus the
 // scatter of rows < lengths[b] into the cache
 // ---------------------------------------------------------------------
-constexpr int kPTile = 64;                    // query rows and keys per tile
-constexpr int kPThreads = 256;
-constexpr int kPDC = 128;                     // head_dim columns per chunk
-constexpr int kPDPer = kPDC / 16;             // output columns per thread
-constexpr int kPLd = kPDC + 1;                // stride of a staged chunk tile
-constexpr int kPPS = kPTile + 1;              // stride of the score tile
-
-// rows [r0, r0 + kPTile), columns [c0, c0 + w) of one head of a
-// seq-major (S, H, D) input (row stride rs) into a (kPTile, kPLd) f32
-// shared tile; rows at or past S are zeros
-template <typename T>
-__device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ src, int r0,
-                                          int S, int c0, int w, size_t rs) {
-  for (int idx = threadIdx.x; idx < kPTile * w; idx += kPThreads) {
-    const int r = idx / w, d = idx - r * w;
-    dst[r * kPLd + d] = (r0 + r < S) ? to_f32(src[(size_t)(r0 + r) * rs + c0 + d]) : 0.f;
-  }
-}
-
-template <typename TQ, typename TKV>
-__global__ void __launch_bounds__(kPThreads)
+template <typename TQ, typename TKV, bool kFull>
+__global__ void __launch_bounds__(32 * attn32::kFwdWarps, attn32::kFwdMinBlocks)
 paged_prefill_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
                      const TQ* __restrict__ v, TKV* __restrict__ kc,
                      TKV* __restrict__ vc, const int* __restrict__ table,
                      const int* __restrict__ lens, TQ* __restrict__ out, int S,
-                     int H, int D, int bs, int M, float scale) {
-  // blockIdx.x walks (query tile, longest first) x (chunk of head_dim)
-  const int nch = (D + kPDC - 1) / kPDC;
-  const int nqt = (S + kPTile - 1) / kPTile;
-  const int qt = nqt - 1 - (int)blockIdx.x / nch;
-  const int oc0 = ((int)blockIdx.x % nch) * kPDC, ow = min(kPDC, D - oc0);
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+                     int H, int D, int bs, int M, float scale, int vec) {
+  constexpr int R = 16 * attn32::kFwdWarps, TH = 32 * attn32::kFwdWarps;
+  const int b = (int)blockIdx.x / H, h = (int)blockIdx.x % H;
+  const int qt = (S + R - 1) / R - 1 - (int)blockIdx.y;    // longest rows first
+  const int oc0 = blockIdx.z * attn32::kDC, ow = min(attn32::kDC, D - oc0);
   const size_t rs = (size_t)H * D;                        // row stride
   const size_t base = (size_t)b * S * rs + (size_t)h * D;
-  const TQ* qg = q + base;
   const TQ* kg = k + base;
   const TQ* vg = v + base;
-  TQ* og = out + base;
-  const int q0 = qt * kPTile;
+  const int q0 = qt * R;
 
   // fused scatter: this block's rows below the row's length, this head
-  // and this chunk of head_dim only; rows past the table's M * bs rows
-  // are never written
+  // and this chunk of head_dim only, a warp a row; rows past the table's
+  // M * bs rows are never written
   const int L = max(0, min(min(lens[b], S), M * bs));
   const int* tb = table + (size_t)b * M;
-  const int nw = min(q0 + kPTile, L) - q0;
-  for (int idx = tid; idx < nw * ow; idx += kPThreads) {
-    const int r = q0 + idx / ow, d = oc0 + idx % ow;
-    const size_t dst = ((size_t)tb[r / bs] * bs + r % bs) * rs + (size_t)h * D + d;
-    kc[dst] = from_f32<TKV>(to_f32(kg[(size_t)r * rs + d]));
-    vc[dst] = from_f32<TKV>(to_f32(vg[(size_t)r * rs + d]));
+  for (int r = q0 + (threadIdx.x >> 5); r < min(q0 + R, L); r += TH / 32) {
+    const size_t dst = ((size_t)tb[r / bs] * bs + r % bs) * rs + (size_t)h * D;
+    for (int d = oc0 + (threadIdx.x & 31); d < oc0 + ow; d += 32) {
+      kc[dst + d] = from_f32<TKV>(to_f32(kg[(size_t)r * rs + d]));
+      vc[dst + d] = from_f32<TKV>(to_f32(vg[(size_t)r * rs + d]));
+    }
   }
 
   extern __shared__ float smem[];
-  float* qs = smem;                                       // kPTile x kPLd
-  float* kv = qs + kPTile * kPLd;                         // kPTile x kPLd: K, then V
-  float* ps = kv + kPTile * kPLd;                         // kPTile x kPPS
-  if (nch == 1) load_rows(qs, qg, q0, S, 0, D, rs);       // resident
-  float m[4], l[4], acc[4][kPDPer];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kPDPer; ++c) acc[i][c] = 0.f;
-  }
-
-  for (int kt = 0; kt <= qt; ++kt) {
-    const int k0 = kt * kPTile;
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int c0 = 0; c0 < D; c0 += kPDC) {
-      const int w = min(kPDC, D - c0);
-      __syncthreads();                                    // qs, kv and ps are free
-      if (nch > 1) load_rows(qs, qg, q0, S, c0, w, rs);
-      load_rows(kv, kg, k0, S, c0, w, rs);
-      __syncthreads();
-#pragma unroll 4
-      for (int d = 0; d < w; ++d) {
-        float a[4], bb[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = qs[(ty * 4 + i) * kPLd + d];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bb[j] = kv[(tx + 16 * j) * kPLd + d];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], bb[j], s[i][j]);
-      }
-    }
-    // online softmax; key k0 <= every row of this tile, so each row
-    // has a real key in every tile it visits and the max is finite
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = q0 + ty * 4 + i;
-      float mx = m[i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = k0 + tx + 16 * j;
-        s[i][j] = (c <= r && c < S) ? s[i][j] * scale : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      mx = row_max16(mx);
-      const float alpha = expf(m[i] - mx);
-      float ls = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - mx);
-        ls += s[i][j];
-      }
-      ls = row_sum16(ls);
-      l[i] = l[i] * alpha + ls;
-      m[i] = mx;
-#pragma unroll
-      for (int c = 0; c < kPDPer; ++c) acc[i][c] *= alpha;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) ps[(ty * 4 + i) * kPPS + tx + 16 * j] = s[i][j];
-    }
-    __syncthreads();                                      // K read, P written
-    load_rows(kv, vg, k0, S, oc0, ow, rs);
-    __syncthreads();
-#pragma unroll 4
-    for (int c = 0; c < kPTile; ++c) {
-      float p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = ps[(ty * 4 + i) * kPPS + c];
-#pragma unroll
-      for (int cc = 0; cc < kPDPer; ++cc) {
-        const int d = tx + 16 * cc;
-        if (d < ow) {
-          const float vv = kv[c * kPLd + d];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][cc] = fmaf(p[i], vv, acc[i][cc]);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty * 4 + i;
-    if (r >= S) continue;
-    const float inv = 1.f / l[i];
-    TQ* orow = og + (size_t)r * rs + oc0;
-#pragma unroll
-    for (int cc = 0; cc < kPDPer; ++cc) {
-      const int d = tx + 16 * cc;
-      if (d < ow) orow[d] = from_f32<TQ>(acc[i][cc] * inv);
-    }
-  }
+  attn32::forward<kFull>(q + base, kg, vg, out + base, nullptr, S, D, rs, qt, oc0, scale,
+                         vec, smem);
 }
 
 template <typename TQ, typename TKV>
 int launch_prefill(const void* q, const void* k, const void* v, void* kc, void* vc,
                    const void* table, const void* lens, void* out, int B, int S, int H,
                    int D, int bs, int M, float scale, size_t smem, cudaStream_t stream) {
-  auto fn = paged_prefill_kernel<TQ, TKV>;
+  const auto fn = D % attn32::kDC == 0 ? paged_prefill_kernel<TQ, TKV, true>
+                                       : paged_prefill_kernel<TQ, TKV, false>;
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int blocks_x = (S + kPTile - 1) / kPTile * ((D + kPDC - 1) / kPDC);
-  fn<<<dim3(blocks_x, H, B), kPThreads, smem, stream>>>(
-      (const TQ*)q, (const TQ*)k, (const TQ*)v, (TKV*)kc, (TKV*)vc, (const int*)table,
-      (const int*)lens, (TQ*)out, S, H, D, bs, M, scale);
+  // 16-byte copies for f32 rows of D % 4 == 0 (the row stride H * D is
+  // then a multiple of 4 too); bf16 inputs are widened element by element
+  const int vec = sizeof(TQ) == 4 && D % 4 == 0 && tc::aligned16(q) && tc::aligned16(k) &&
+                  tc::aligned16(v);
+  fn<<<attn32::grid_of(B * H, S, D, attn32::kFwdWarps), 32 * attn32::kFwdWarps, smem,
+       stream>>>((const TQ*)q, (const TQ*)k, (const TQ*)v, (TKV*)kc, (TKV*)vc,
+                 (const int*)table, (const int*)lens, (TQ*)out, S, H, D, bs, M, scale, vec);
   return (int)cudaGetLastError();
 }
 
@@ -596,9 +469,7 @@ int mx_paged_chunk_prefill(const void* q, const void* k, const void* v, void* kc
   return launch_chunk<__nv_bfloat16, __nv_bfloat16>(q, k, v, kc, vc, table, start, lens, out, B, K, H, D, bs, M, scale, smem, s);
 }
 
-size_t mx_paged_prefill_smem(int D) {
-  return (2 * (size_t)kPTile * kPLd + (size_t)kPTile * kPPS) * sizeof(float);
-}
+size_t mx_paged_prefill_smem(int D) { return attn32::fwd_smem(D); }
 
 // q, k, v, out: (B, S, H, D) seq-major, any D; lengths (B,) int32
 int mx_paged_prefill(const void* q, const void* k, const void* v, void* kc, void* vc,

@@ -1,7 +1,9 @@
 // Tensor-core building blocks for Hopper (sm_90a), shared by the bf16
-// kernels of flash_attention.cu and fused_gemm_bf16.cuh: cp.async copies
-// into shared memory, ldmatrix fragment loads and the mma.sync m16n8k16
-// product with bf16 operands and f32 sums.
+// kernels of flash_attention.cu and fused_gemm_bf16.cuh and the f32
+// attention kernels of attention_f32.cuh: cp.async copies into shared
+// memory, ldmatrix fragment loads, the mma.sync m16n8k16 product with
+// bf16 operands and f32 sums, and the m16n8k8 product with tf32
+// operands and f32 sums.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16): lane = 4 g + t.
 // A (16 x 16, row-major) comes from ldsm_x4 over rows (lane & 15) and
@@ -9,6 +11,15 @@
 // an (n, k) tile or ldsm_x4_trans of a (k, n) tile, two n8 tiles per
 // load; the f32 accumulator c[0], c[1] holds row g, columns 2t and
 // 2t + 1, and c[2], c[3] the same columns of row g + 8.
+//
+// Fragment layouts (PTX ISA, mma.m16n8k8 with .tf32): A (16 x 8) a[0]
+// row g, column t; a[1] row g + 8, column t; a[2], a[3] the same rows at
+// column t + 4; B (8 x 8, k x n) b0 row t, b1 row t + 4, both column g;
+// the accumulator as for m16n8k16.  A tf32 operand is a 32-bit register
+// of which the tensor cores read the top 19 bits.  ldsm_x4 on f32 data reads four 8 x 4
+// float matrices and gives lane (g, t) row g, column t of each: the A
+// fragment of a row-major (16, 8) tile, or the B fragments of two n8
+// tiles of an (n, k) tile.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -52,11 +63,27 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const bf16* p) {
                : "r"(smem_addr(p)));
 }
 
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const float* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
 // c (16 x 8, f32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col)
 __device__ __forceinline__ void mma(float c[4], const uint32_t a[4], uint32_t b0,
                                     uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c (16 x 8, f32) += a (16 x 8, tf32, row) * b (8 x 8, tf32, col)
+__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));

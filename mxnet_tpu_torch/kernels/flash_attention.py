@@ -3,7 +3,8 @@
 Counterpart of ``mxnet_tpu/ops/nn.py`` ``_flash_attention``, which calls
 jax's library Pallas kernel on the TPU (a forward kernel and two
 backward kernels, dK/dV and dQ).  The port's kernels are
-``csrc/flash_attention.cu`` (design note in the source): causal, with
+``csrc/flash_attention.cu`` (design note in the source; the f32 forms
+run split TF32 on the tensor cores, ``csrc/attention_f32.cuh``): causal, with
 ``scale``, on contiguous head-major ``(B, H, S, D)`` f32 or bf16, any
 ``S`` and any ``D`` (the kernels tile head_dim in chunks of 128).  The
 forward also writes each row's log-sum-exp (f32), and the backward

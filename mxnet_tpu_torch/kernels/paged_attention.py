@@ -5,8 +5,9 @@ Counterparts of ``mxnet_tpu/pallas/attention.py``
 ``paged_decode_attend``, ``paged_chunk_prefill_attend`` and
 ``paged_prefill_attend``, with the same signatures and layouts: caches
 ``(num_blocks, block_size, H, D)`` addressed through an int32 block
-table, queries and chunk rows seq-major.  The kernels are ``csrc/paged_attention.cu`` (design note in
-the source).  Beside each wrapper is its plain PyTorch version: the CPU
+table, queries and chunk rows seq-major.  The kernels are
+``csrc/paged_attention.cu`` (design note in the source; the one-shot
+prefill runs the f32 flash forward of ``csrc/attention_f32.cuh``).  Beside each wrapper is its plain PyTorch version: the CPU
 path and the kernel's yardstick on the card.
 
 The two prefills write their K/V rows into the caches IN PLACE and

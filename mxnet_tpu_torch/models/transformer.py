@@ -42,19 +42,19 @@ def get_symbol(num_classes=16384, num_layers=12, d_model=2048, num_heads=16,
     logits back to f32 before the softmax."""
     later = []
     if moe_experts:
-        later.append("MoE layers (moe_experts=%s): the MoE slice" % moe_experts)
+        later.append("MoE layers (moe_experts=%s, ROADMAP A.8)" % moe_experts)
     if tensor_parallel:
-        later.append("tensor_parallel=%r: the multi-GPU slice"
+        later.append("tensor_parallel=%r (multi-GPU, ROADMAP A.8)"
                      % (tensor_parallel,))
     if dtype == "float16":
         later.append(FLOAT16_LATER)
     elif dtype not in ("float32", "bfloat16"):
-        later.append("dtype=%r" % (dtype,))
+        later.append("dtype=%r (ROADMAP A.1)" % (dtype,))
     if float(dropout) > 0:
         later.append("dropout=%s: the Dropout op (ROADMAP A.5)" % dropout)
     if later:
         raise MXNetError("transformer.get_symbol: %s; not in the PyTorch "
-                         "port yet (ROADMAP)" % "; ".join(later))
+                         "port yet" % "; ".join(later))
     vocab = int(num_classes)
     d = int(d_model)
     ffn = int(ffn_dim) if ffn_dim else 4 * d

@@ -84,13 +84,16 @@ class BaseModule:
             monitor=None, sparse_row_id_fn=None, checkpoint_every=None,
             checkpoint_prefix=None):
         """Train for ``num_epoch`` epochs (reference base_module.py:399)."""
-        later = [name for name, value in (
-            ("monitor", monitor), ("sparse_row_id_fn", sparse_row_id_fn),
-            ("checkpoint_every", checkpoint_every),
-            ("checkpoint_prefix", checkpoint_prefix)) if value is not None]
+        later = ["%s=... (ROADMAP %s)" % (name, item)
+                 for name, value, item in (
+                     ("monitor", monitor, "A.9"),
+                     ("sparse_row_id_fn", sparse_row_id_fn, "A.6"),
+                     ("checkpoint_every", checkpoint_every, "A.7"),
+                     ("checkpoint_prefix", checkpoint_prefix, "A.7"))
+                 if value is not None]
         if later:
-            raise MXNetError("fit(%s=...) comes with a later slice of the "
-                             "PyTorch port (ROADMAP)" % ", ".join(later))
+            raise MXNetError("fit(%s) comes with a later slice of the "
+                             "PyTorch port" % ", ".join(later))
         if num_epoch is None:
             raise MXNetError("please specify number of epochs")
         self.bind(data_shapes=train_data.provide_data,

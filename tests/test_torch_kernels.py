@@ -9,6 +9,8 @@ f32 bound (rtol 2e-5, atol 1e-6).  The geometries are those of
 tests/test_pallas.py.  The CUDA kernels themselves are held against the
 same plain versions on the card by chip_smoke.py.
 """
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -303,7 +305,16 @@ def test_build_log_is_named_for_the_current_source():
     assert _build.log_path("quant") != log
 
 
-@pytest.mark.parametrize("header", ["tc_mma.cuh", "fused_gemm_bf16.cuh"])
+# each shared header and the sources that include it
+_HEADER_USERS = {
+    "tc_mma.cuh": ("fused_matmul", "fused_band4d", "flash_attention",
+                   "paged_attention"),
+    "fused_gemm_bf16.cuh": ("fused_matmul", "fused_band4d"),
+    "attention_f32.cuh": ("flash_attention", "paged_attention")}
+
+
+@pytest.mark.parametrize("header", ["tc_mma.cuh", "fused_gemm_bf16.cuh",
+                                    "attention_f32.cuh"])
 def test_build_target_follows_the_shared_headers(tmp_path, monkeypatch,
                                                  header):
     """An edit to a shared header renames the library of every source
@@ -311,7 +322,14 @@ def test_build_target_follows_the_shared_headers(tmp_path, monkeypatch,
     the original bytes name the original library again."""
     import shutil
     from mxnet_tpu_torch.kernels import _build
-    users = ("fused_matmul", "fused_band4d", "flash_attention")
+    users = _HEADER_USERS[header]
+
+    def includes(path):                       # directly or through a header
+        return any(inc == header or includes(_build.CSRC / inc)
+                   for inc in re.findall(r'#include "([^"]+)"',
+                                         path.read_text()))
+
+    assert all(includes(_build.CSRC / (n + ".cu")) for n in users)
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)

@@ -380,6 +380,30 @@ def test_module_without_context_raises_without_gpu(monkeypatch):
     mx.Module(transformer.get_symbol(**CFG), context=mx.cpu())
 
 
+@pytest.mark.parametrize("bad,item", [
+    (dict(moe_experts=4), "A.8"), (dict(tensor_parallel="mp"), "A.8"),
+    (dict(dtype="float16"), "A.1"), (dict(dtype="int8"), "A.1"),
+    (dict(dropout=0.1), "A.5")])
+def test_get_symbol_errors_name_their_roadmap_item(bad, item):
+    with pytest.raises(mx.MXNetError) as err:
+        transformer.get_symbol(**CFG, **bad)
+    assert "ROADMAP %s" % item in str(err.value)
+    assert "(ROADMAP)" not in str(err.value)
+
+
+@pytest.mark.parametrize("arg,item", [
+    ("monitor", "A.9"), ("sparse_row_id_fn", "A.6"),
+    ("checkpoint_every", "A.7"), ("checkpoint_prefix", "A.7")])
+def test_fit_errors_name_their_roadmap_item(arg, item):
+    mod = mx.Module(transformer.get_symbol(**CFG), context=mx.cpu())
+    it = mx.io.NDArrayIter(*_tokens(np.random.RandomState(2), B),
+                           batch_size=B)
+    with pytest.raises(mx.MXNetError) as err:
+        mod.fit(it, num_epoch=1, **{arg: object()})
+    assert "%s=... (ROADMAP %s)" % (arg, item) in str(err.value)
+    assert "(ROADMAP)" not in str(err.value)
+
+
 def test_module_rejects_later_slices(params):
     """Several contexts, monitors and the multi-GPU stores raise.
     Gradient compression is in the port now: the Module hands its
