@@ -16,9 +16,16 @@ Phases, each printed as one JSON line:
    (median of 60 launches after warm-up, L2 flushed before each), and
    the least time the card could take (bytes over 3.35 TB/s or f32
    operations over 67 TFLOP/s, whichever is larger; for the f32
-   attention kernels, which run split TF32 on the tensor cores,
-   operations over 494.7 / 3 TFLOP/s, the CUDA-core bound printed
-   beside);
+   attention kernels and the f32 fused GEMM, which run split TF32 on the
+   tensor cores, operations over 494.7 / 3 TFLOP/s, the CUDA-core bound
+   printed beside); the chunked prefill (split TF32 over key ranges, then
+   an ordered combine; its instances' ptxas lines first, no spills) is
+   checked at the mixed step's chunk, ragged and empty chunks, the spec
+   step's 8 x 5-row spans and bf16 caches (padded rows zeros, caches
+   equal to the plain version's, nothing written outside [start, start +
+   len), two runs bit-identical) and timed at the mixed chunk and the
+   spec spans beside SDPA on the gathered context; decode is timed beside
+   SDPA over each slot's gathered context;
 4. serve: the transformer LM at full width (L12, d2048, h16, vocab
    16384, ffn 8192, seq 1024; random N(0, 0.02) weights from a numpy
    seed) through ``DecodeEngine``: 8 ragged requests fill the 8 slots
@@ -82,12 +89,15 @@ Phases, each printed as one JSON line:
    and one 2-bit update at the median |g|: q equal wherever the CPU's
    |g| lies farther than 1e-4 t from t, the elements inside that band
    counted and under 1e-4 of all;
-13. fused_matmul: the fused BN-apply/ReLU/1x1-convolution kernel against
-   its plain version (rtol 1e-4 / atol 1e-5) at the 8 (M, K, N) shapes of
-   ResNet-50's 28 fused sites at batch 128 and one odd shape, two runs
-   bit-identical; timed as in 3 beside ``torch.addmm``/``torch.matmul``
-   on the already activated input (the product alone: a yardstick that
-   skips the activation pass the kernel fuses);
+13. fused_matmul: the fused BN-apply/ReLU/1x1-convolution kernel in f32
+   (split TF32 on the tensor cores, fused_gemm_f32.cuh; its instances'
+   ptxas lines and shared memory first, no spills, no CUDA-core kernel
+   left) against its plain version (rtol 1e-4 / atol 1e-5) at the 8 (M,
+   K, N) shapes of ResNet-50's 28 fused sites at batch 128 and one odd
+   shape, two runs bit-identical; timed as in 3 beside
+   ``torch.addmm``/``torch.matmul`` on the already activated input (the
+   product alone: a yardstick that skips the activation pass the kernel
+   fuses), each site's TFLOP/s and GB/s;
 14. train_resnet_nhwc: ResNet-50 v2 through ``parallel.TrainStep`` from
    the same numpy weights (OIHW transposed to OHWI for the channel-last
    arms) in three arms, NCHW, NHWC, and NHWC after ``fuse_conv_bn``:
@@ -588,6 +598,13 @@ def phase_decode(torch, mxk, dev, flush):
         q, kc, vc, table, pos, scale=sc), flush)
     plain_ms = time_ms(torch, lambda: mxk.paged_decode_attend_plain(
         q, kc, vc, table, pos, scale=sc), flush)
+    # the library yardstick: SDPA, one query a slot over its context
+    # gathered contiguous (C, H, ctx, D) beforehand, keys past each
+    # slot's position masked
+    ctx = int(pos_live.max()) + 1
+    lib_call = _sdpa_on_context(torch, q[:, :, None], kc, vc, table,
+                                pos_live.tolist(), [1] * C, ctx, sc)
+    lib_ms = time_ms(torch, lib_call, flush)
     rows = int((pos_live.long() + 1).sum())
     nbytes = rows * H * D * 2 * 4 + 2 * C * H * D * 4 + C * (M + 1) * 4
     b_ms, b_by = bound(nbytes, rows * H * D * 4)
@@ -595,16 +612,95 @@ def phase_decode(torch, mxk, dev, flush):
            "source": "mxnet_tpu_torch/csrc/paged_attention.cu",
            "replaces": "mxnet_tpu/pallas/attention.py:116",
            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
     emit({"phase": "kernel", **res, "shapes": {
         "q": [C, H, D], "cache": [nb, bs, H, D], "table": [C, M],
         "positions": pos_live.tolist()}, "context_rows": rows,
-        "bf16_cache_max_abs_err": max_err(out, ref)})
+        "bf16_cache_max_abs_err": max_err(out, ref),
+        "library_call": "F.scaled_dot_product_attention on (C, H, 1, D) "
+                        "queries over the context gathered contiguous, "
+                        "(C, H, %d, D), keys past each position masked"
+                        % ctx})
     return res
 
 
+def _sdpa_on_context(torch, q, kc, vc, table, starts, lens, ctx, sc):
+    """A call of ``scaled_dot_product_attention`` computing what the
+    paged kernels compute, on K/V gathered contiguous beforehand: q (B,
+    H, S, D) rows at positions starts[b] + i; keys [0, ctx) of each
+    row's table, key j visible to row i when j <= starts[b] + i (rows at
+    or past lens[b] see their causal prefix too: padding, don't-care).
+    The gather is outside the call."""
+    import torch.nn.functional as F
+    nb, bs, H, D = kc.shape
+    j = torch.arange(ctx, device=kc.device)
+    ridx = table.long()[:, j // bs] * bs + j % bs                # (B, ctx)
+    kh, vh = (c.view(nb * bs, H, D)[ridx].transpose(1, 2).contiguous()
+              for c in (kc, vc))
+    S = q.shape[2]
+    apos = (torch.tensor(starts, device=kc.device)[:, None]
+            + torch.arange(S, device=kc.device)[None, :])        # (B, S)
+    mask = (j[None, None, :] <= apos[:, :, None])[:, None]       # (B, 1, S, ctx)
+    qh = q.contiguous()
+    return lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                                  scale=sc)
+
+
+def _chunk_bound(H, D, M, K, starts, lens):
+    """Bytes and operations the chunked prefill must move and do: the
+    cached context read once (K and V), the chunk's q/k/v read and its
+    real K/V rows written into the cache, the (B, K) output written, the
+    table, start and length read; 4 H D flops per (query, visible key)."""
+    B = len(starts)
+    nbytes = sum(st * H * D * 2 * 4 + 3 * L * H * D * 4 + L * H * D * 2 * 4
+                 for st, L in zip(starts, lens)) \
+        + B * K * H * D * 4 + B * M * 4 + 2 * B * 4
+    flops = sum(st + i + 1 for st, L in zip(starts, lens)
+                for i in range(L)) * H * D * 4
+    return nbytes, flops
+
+
 def phase_chunk(torch, mxk, dev, flush):
+    """The chunked prefill (split TF32 on the tensor cores over key
+    ranges, then an ordered combine) against its plain version: outputs
+    of the real rows at rtol 1e-4 / atol 1e-5, padded rows exact zeros,
+    the caches equal to the plain version's and nothing written outside
+    [start, start + len), two runs bit-identical; at the mixed step's
+    64-row chunk (start 576, len 64; 600, 37; 320, 0), the spec step's 8
+    x 5-row spans and with bf16 caches.  Both served shapes timed beside
+    SDPA on the context gathered contiguous (B, H, start + len, D) with
+    the offset-causal mask (the attention alone), bounded by bytes or by
+    operations at the split-TF32 peak (the CUDA-core bound beside).
+    First prints ptxas's lines of the kernel's instances (warps, head_dim
+    form, q/k/v and cache types; no spills allowed) and its combine.  The
+    spans are also timed over short contexts, as serve_spec's prompts
+    give them."""
+    import ctypes
+    from mxnet_tpu_torch.kernels import _build
+    lib = _build.load("paged_attention")
+    lib.mx_paged_chunk_prefill_smem.argtypes = [ctypes.c_int] * 4
+    lib.mx_paged_chunk_prefill_smem.restype = ctypes.c_size_t
     B, K, H, D, nb, bs, M = 1, 64, 16, 128, 512, 16, 64
+    served_range = mxk.paged_attention.chunk_plan(B, K, H, D, M * bs)[
+        "key_range"]
+    ptx = _f32_attention_ptxas(
+        "paged_attention", r"paged_chunk_kernelILi\d+ELb[01]E"
+        r"(?:f|13__nv_bfloat16)(?:f|13__nv_bfloat16)",
+        lambda key: lib.mx_paged_chunk_prefill_smem(
+            int(key.split("ILi")[1].split("E")[0]), 128, served_range, bs))
+    import re
+    combine = sorted({re.search(r"paged_chunk_combine_kernelI\w+?E(?=Ev)", line)
+                      .group(0) for line in _build.log_path("paged_attention")
+                      .read_text().splitlines()
+                      if "Compiling entry function" in line
+                      and "paged_chunk_combine_kernel" in line})
+    check(len(combine) == 4, "paged_attention: %d chunk combine instances, "
+          "not 4 (q and cache types)" % len(combine))
+    ptx.update(_ptxas("paged_attention", {key: key for key in combine}))
+    for key in combine:
+        print("ptxas %s: %s" % (key, "; ".join(ptx[key]["lines"])), flush=True)
+        check(ptx[key]["spill_stores"] == 0 and ptx[key]["spill_loads"] == 0,
+              "paged_attention: the chunk combine %s spills" % key)
     g = torch.Generator(device="cpu").manual_seed(SEED + 1)
     q, k, v = (torch.randn(B, K, H, D, generator=g).to(dev)
                for _ in range(3))
@@ -615,34 +711,49 @@ def phase_chunk(torch, mxk, dev, flush):
     sc = 1.0 / D ** 0.5
 
     def i32(x):
-        return torch.tensor([x], dtype=torch.int32, device=dev)
+        return torch.tensor(x, dtype=torch.int32, device=dev)
+
+    def run_case(what, q, k, v, kc0, vc0, table, starts, lens):
+        """Kernel twice and plain once on clones of the caches; the
+        checks; returns the max abs error over the real rows."""
+        Bc, Kc = q.shape[:2]
+        runs = []
+        for fn in (mxk.paged_chunk_prefill_attend,
+                   mxk.paged_chunk_prefill_attend,
+                   mxk.paged_chunk_prefill_attend_plain):
+            kk, vk = kc0.clone(), vc0.clone()
+            out, _, _ = fn(q, k, v, kk, vk, table, i32(starts), i32(lens),
+                           scale=sc)
+            runs.append((out, kk, vk))
+        torch.cuda.synchronize()
+        (o1, k1, v1), (o2, k2, v2), (ref, kr, vr) = runs
+        real = torch.zeros(Bc, Kc, dtype=torch.bool)
+        touched = torch.zeros(nb * bs, dtype=torch.bool)
+        for b, (st, L) in enumerate(zip(starts, lens)):
+            real[b, :L] = True
+            for ap in range(st, st + L):
+                touched[int(table[b, ap // bs]) * bs + ap % bs] = True
+        real, touched = real.to(dev), touched.to(dev)
+        check(torch.equal(o1, o2) and torch.equal(k1, k2)
+              and torch.equal(v1, v2), what + ": two runs differ")
+        check(close(torch, o1[real], ref[real]), what + " disagrees with its "
+              "plain version (max abs err %g)" % max_err(o1[real], ref[real]))
+        check(bool((o1[~real] == 0).all()), what + ": padded rows are not "
+              "zeros")
+        check(torch.equal(k1, kr) and torch.equal(v1, vr),
+              what + ": caches differ from the plain version's")
+        check(all(torch.equal(a.view(nb * bs, -1)[~touched],
+                              a0.view(nb * bs, -1)[~touched])
+                  for a, a0 in ((k1, kc0), (v1, vc0))),
+              what + " wrote outside each row's [start, start + len)")
+        return max_err(o1[real], ref[real])
 
     errs = []
     # a block-aligned full chunk (the served case), a ragged chunk that
     # straddles block boundaries, and the no-op len == 0
     for st, L in ((576, 64), (600, 37), (320, 0)):
-        kk, vk = kc0.clone(), vc0.clone()
-        kp, vp = kc0.clone(), vc0.clone()
-        out, _, _ = mxk.paged_chunk_prefill_attend(
-            q, k, v, kk, vk, table, i32(st), i32(L), scale=sc)
-        ref, _, _ = mxk.paged_chunk_prefill_attend_plain(
-            q, k, v, kp, vp, table, i32(st), i32(L), scale=sc)
-        torch.cuda.synchronize()
-        check(close(torch, out[:, :L], ref[:, :L]),
-              "paged_chunk_prefill_attend (start %d, len %d) disagrees "
-              "with its plain version (max abs err %g)"
-              % (st, L, max_err(out[:, :L], ref[:, :L])))
-        check(torch.equal(kk, kp) and torch.equal(vk, vp),
-              "paged_chunk_prefill_attend (start %d, len %d): caches "
-              "differ from the plain version's" % (st, L))
-        touched = torch.zeros(nb * bs, dtype=torch.bool, device=dev)
-        for ap in range(st, st + L):
-            touched[int(table[0, ap // bs]) * bs + ap % bs] = True
-        kf, k0 = kk.view(nb * bs, -1), kc0.view(nb * bs, -1)
-        check(torch.equal(kf[~touched], k0[~touched]),
-              "paged_chunk_prefill_attend (start %d, len %d) wrote outside "
-              "[start, start + len)" % (st, L))
-        errs.append(max_err(out[:, :L], ref[:, :L]))
+        errs.append(run_case("paged_chunk_prefill_attend (start %d, len %d)"
+                             % (st, L), q, k, v, kc0, vc0, table, [st], [L]))
     # the spec step's span stream: C = 8 rows of K = 5, each at its own
     # cache offset with its own length (0 = an inactive slot) over its
     # own scrambled table
@@ -651,67 +762,65 @@ def phase_chunk(torch, mxk, dev, flush):
     qs, ks, vs = (torch.randn(C, S5, H, D, generator=g).to(dev)
                   for _ in range(3))
     stable = torch.randperm(nb, generator=g)[:C * M].reshape(C, M) \
-        .to(torch.int32)
-    sst, sln = (torch.tensor(x, dtype=torch.int32, device=dev)
-                for x in spans)
-    kk, vk = kc0.clone(), vc0.clone()
-    kp, vp = kc0.clone(), vc0.clone()
-    out, _, _ = mxk.paged_chunk_prefill_attend(
-        qs, ks, vs, kk, vk, stable.to(dev), sst, sln, scale=sc)
-    ref, _, _ = mxk.paged_chunk_prefill_attend_plain(
-        qs, ks, vs, kp, vp, stable.to(dev), sst, sln, scale=sc)
-    torch.cuda.synchronize()
-    real = torch.zeros(C, S5, dtype=torch.bool)
-    touched = torch.zeros(nb * bs, dtype=torch.bool)
-    for b, (st, L) in enumerate(zip(*spans)):
-        real[b, :L] = True
-        for ap in range(st, st + L):
-            touched[int(stable[b, ap // bs]) * bs + ap % bs] = True
-    real, touched = real.to(dev), touched.to(dev)
-    check(close(torch, out[real], ref[real]),
-          "paged_chunk_prefill_attend (spec spans, C, K = %d, %d) disagrees "
-          "with its plain version (max abs err %g)"
-          % (C, S5, max_err(out[real], ref[real])))
-    check(torch.equal(kk, kp) and torch.equal(vk, vp),
-          "paged_chunk_prefill_attend (spec spans): caches differ from the "
-          "plain version's")
-    check(all(torch.equal(a.view(nb * bs, -1)[~touched],
-                          a0.view(nb * bs, -1)[~touched])
-              for a, a0 in ((kk, kc0), (vk, vc0))),
-          "paged_chunk_prefill_attend (spec spans) wrote outside each row's "
-          "[span_start, span_start + span_len)")
-    errs.append(max_err(out[real], ref[real]))
-    kb, vb = kc0.to(torch.bfloat16), vc0.to(torch.bfloat16)
-    kb2, vb2 = kb.clone(), vb.clone()
-    out, _, _ = mxk.paged_chunk_prefill_attend(
-        q, k, v, kb, vb, table, i32(600), i32(37), scale=sc)
-    ref, _, _ = mxk.paged_chunk_prefill_attend_plain(
-        q, k, v, kb2, vb2, table, i32(600), i32(37), scale=sc)
-    check(close(torch, out[:, :37], ref[:, :37]) and torch.equal(kb, kb2),
-          "paged_chunk_prefill_attend (bf16 caches) disagrees with its "
-          "plain version")
-    st, L = 576, 64
-    kk, vk = kc0.clone(), vc0.clone()
-    s_t, l_t = i32(st), i32(L)
-    ms = time_ms(torch, lambda: mxk.paged_chunk_prefill_attend(
-        q, k, v, kk, vk, table, s_t, l_t, scale=sc), flush)
-    plain_ms = time_ms(torch, lambda: mxk.paged_chunk_prefill_attend_plain(
-        q, k, v, kk, vk, table, s_t, l_t, scale=sc), flush)
-    nbytes = (st * H * D * 2 * 4 + 3 * L * H * D * 4 + L * H * D * 2 * 4
-              + K * H * D * 4 + M * 4 + 8)
-    flops = sum(st + i + 1 for i in range(L)) * H * D * 4
-    b_ms, b_by = bound(nbytes, flops)
+        .to(torch.int32).to(dev)
+    errs.append(run_case("paged_chunk_prefill_attend (spec spans, C, K = %d, "
+                         "%d)" % (C, S5), qs, ks, vs, kc0, vc0, stable,
+                         *spans))
+    bf16_err = run_case("paged_chunk_prefill_attend (bf16 caches)", q, k, v,
+                        kc0.to(torch.bfloat16), vc0.to(torch.bfloat16),
+                        table, [600], [37])
+    # times: the mixed step's chunk, the spec step's spans above, and
+    # full spans over the short contexts of serve_spec's prompts
+    timed = {}
+    for name, args, starts, lens in (
+            ("mixed", (q, k, v, table), [576], [64]),
+            ("spec_spans", (qs, ks, vs, stable), *spans),
+            ("spec_spans_short", (qs, ks, vs, stable),
+             [60, 90, 130, 70, 100, 120, 140, 80], [S5] * C)):
+        qq, kk_, vv_, tb = args
+        kk, vk = kc0.clone(), vc0.clone()
+        s_t, l_t = i32(starts), i32(lens)
+        ms = time_ms(torch, lambda: mxk.paged_chunk_prefill_attend(
+            qq, kk_, vv_, kk, vk, tb, s_t, l_t, scale=sc), flush)
+        plain_ms = time_ms(torch, lambda: mxk.paged_chunk_prefill_attend_plain(
+            qq, kk_, vv_, kk, vk, tb, s_t, l_t, scale=sc), flush)
+        # the cache now holds the chunk rows: SDPA attends over them
+        ctx = max(st + L for st, L in zip(starts, lens))
+        lib_ms = time_ms(torch, _sdpa_on_context(
+            torch, qq.transpose(1, 2), kk, vk, tb, starts, lens, ctx, sc),
+            flush)
+        nbytes, flops = _chunk_bound(H, D, M, qq.shape[1], starts, lens)
+        b_ms, b_by = bound(nbytes, flops, SPLIT_TF32_FLOPS_PER_S)
+        timed[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                       "bound_ms": b_ms, "bound_by": b_by,
+                       "bound_cuda_cores_ms": bound(nbytes, flops)[0],
+                       "bytes": nbytes, "flops": flops,
+                       "plan": mxk.paged_attention.chunk_plan(
+                           qq.shape[0], qq.shape[1], H, D, M * bs)}
+    mixed = timed["mixed"]
     res = {"name": "paged_chunk_prefill_attend", "route": "cuda",
            "source": "mxnet_tpu_torch/csrc/paged_attention.cu",
            "replaces": "mxnet_tpu/pallas/attention.py:360",
-           "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+           "max_abs_err": max(errs), "ms": mixed["ms"],
+           "plain_ms": mixed["plain_ms"], "bound_ms": mixed["bound_ms"],
+           "bound_by": mixed["bound_by"], "library_ms": mixed["library_ms"],
+           "bound_peak": "split TF32, %g TFLOP/s"
+                         % (SPLIT_TF32_FLOPS_PER_S / 1e12),
+           "bound_cuda_cores_ms": mixed["bound_cuda_cores_ms"],
+           **{case: {key: timed[case][key] for key in
+                     ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                      "bound_cuda_cores_ms")}
+              for case in ("spec_spans", "spec_spans_short")}}
     emit({"phase": "kernel", **res, "shapes": {
         "q": [B, K, H, D], "cache": [nb, bs, H, D], "table": [B, M],
-        "start": st, "len": L}, "checked": [[576, 64], [600, 37], [320, 0]],
+        "start": 576, "len": 64}, "checked": [[576, 64], [600, 37], [320, 0]],
         "spec_spans_checked": {"q": [C, S5, H, D], "span_start": spans[0],
                                "span_len": spans[1]},
-        "bf16_cache_max_abs_err": max_err(out[:, :37], ref[:, :37])})
+        "timed": timed, "bf16_cache_max_abs_err": bf16_err, "ptxas": ptx,
+        "library_call": "F.scaled_dot_product_attention on the context "
+                        "gathered contiguous, (B, H, start + len, D), with "
+                        "the offset-causal boolean mask: the attention "
+                        "alone, without the cache scatter"})
     return res
 
 
@@ -2041,11 +2150,48 @@ def phase_resnet_agreement(torch, mx, ctxs=None, cfg=RESNET_AGREE):
 # ----------------------------------------------------------------------
 # channel-last ResNet-50 through TrainStep, with the fused kernel
 # ----------------------------------------------------------------------
+def _fused_gemm_f32_ptxas():
+    """The f32 GEMM's instances (split TF32, fused_gemm_f32.cuh) in
+    fused_matmul.cu's build: ptxas's registers, stack and spills (none
+    allowed) and each tile's dynamic shared memory, printed; and no
+    CUDA-core kernel left in the library."""
+    import ctypes
+    from mxnet_tpu_torch.kernels import _build
+    entries = {"128x%d:%s" % (bn, "cp_async" if vec else "elementwise"):
+               "fused_gemm_f32_kernelILi%dELb%dE" % (bn, vec)
+               for bn in FUSED_GEMM_TILES for vec in (1, 0)}
+    ptx = _ptxas("fused_matmul", entries)
+    lib = _build.load("fused_matmul")
+    lib.mx_fused_gemm_f32_smem.argtypes = [ctypes.c_int]
+    lib.mx_fused_gemm_f32_smem.restype = ctypes.c_int
+    for key in sorted(ptx):
+        bn = int(key.split(":")[0].split("x")[1])
+        ptx[key]["dynamic_smem_bytes"] = lib.mx_fused_gemm_f32_smem(bn)
+        print("ptxas fused_matmul fused_gemm_f32_kernel %s: %s; %d bytes of "
+              "dynamic shared memory" % (key, "; ".join(ptx[key]["lines"]),
+                                         ptx[key]["dynamic_smem_bytes"]),
+              flush=True)
+        check(ptx[key]["spill_stores"] == 0 and ptx[key]["spill_loads"] == 0,
+              "fused_matmul: the f32 GEMM %s spills: %s"
+              % (key, ptx[key]["lines"][0]))
+    old = [line for line in _build.log_path("fused_matmul").read_text()
+           .splitlines() if "Compiling entry function" in line
+           and "fused_scale_relu_matmul_kernel" in line]
+    check(not old, "fused_matmul: the CUDA-core kernel is still built: %s"
+          % old[:1])
+    return ptx
+
+
 def phase_fused_matmul(torch, mxk, dev, flush):
-    """fused_scale_relu_matmul against its plain version at every shape
-    of FUSED_SHAPES and FUSED_ODD, two runs bit-identical; times at the
-    ResNet-50 shapes.  Returns the kernels-line row: times per launch
-    averaged over one step's 28 launches."""
+    """fused_scale_relu_matmul in f32 (split TF32 on the tensor cores,
+    fused_gemm_f32.cuh; its instances' ptxas lines and shared memory
+    printed first, no spills allowed) against its plain version at every
+    shape of FUSED_SHAPES and FUSED_ODD, two runs bit-identical; times at
+    the ResNet-50 shapes with each shape's TFLOP/s and GB/s, bounded by
+    bytes or by operations at the split-TF32 peak (the CUDA-core bound
+    beside).  Returns the kernels-line row: times per launch averaged
+    over one step's 28 launches."""
+    ptx = _fused_gemm_f32_ptxas()
     g = torch.Generator(device=dev).manual_seed(SEED + 13)
     rows, errs = [], []
     for shape in list(FUSED_SHAPES) + [FUSED_ODD]:
@@ -2082,32 +2228,38 @@ def phase_fused_matmul(torch, mxk, dev, flush):
         # the product's 2MNK, the prologue's 3 per x element, the add
         nbytes = 4 * (M * K + N * K + 2 * K + M * N * (2 if with_res else 1))
         flops = 2 * M * N * K + 3 * M * K + (M * N if with_res else 0)
-        b_ms, b_by = bound(nbytes, flops)
+        b_ms, b_by = bound(nbytes, flops, SPLIT_TF32_FLOPS_PER_S)
         row = {"M": M, "K": K, "N": N, "residual": with_res,
                "sites": FUSED_SHAPES[shape], "max_abs_err": errs[-1],
                "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                "bound_ms": b_ms, "bound_by": b_by,
-               "tflops": 2 * M * N * K / ms / 1e9}
+               "bound_cuda_cores_ms": bound(nbytes, flops)[0],
+               "tflops": 2 * M * N * K / ms / 1e9,
+               "gbps": nbytes / ms / 1e6}
         emit({"phase": "kernel", "name": "fused_scale_relu_matmul", **row})
         rows.append(row)
         del x, a, res, w
     sites = sum(FUSED_SHAPES.values())
     per_launch = {k: sum(r[k] * r["sites"] for r in rows) / sites
-                  for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                  for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                            "bound_cuda_cores_ms")}
     # the step's bound is by operations when the sites bound by
     # operations make up most of it
     ops_ms = sum(r["sites"] * r["bound_ms"] for r in rows
                  if r["bound_by"] == "operations")
     emit({"phase": "fused_matmul", "shapes_checked": len(FUSED_SHAPES) + 1,
-          "odd_shape": list(FUSED_ODD), "deterministic": True,
+          "odd_shape": list(FUSED_ODD), "deterministic": True, "ptxas": ptx,
           "step_ms": per_launch["ms"] * sites,
           "step_plain_ms": per_launch["plain_ms"] * sites,
           "step_library_ms": per_launch["library_ms"] * sites,
           "step_bound_ms": per_launch["bound_ms"] * sites,
+          "step_bound_cuda_cores_ms": per_launch["bound_cuda_cores_ms"] * sites,
+          "bound_peak": "split TF32, %g TFLOP/s"
+                        % (SPLIT_TF32_FLOPS_PER_S / 1e12),
           "library_call": "torch.addmm / torch.matmul on relu(x*scale+shift)"
                           " (the product alone)"})
     return {"name": "fused_scale_relu_matmul", "route": "cuda",
-            "source": "mxnet_tpu_torch/csrc/fused_matmul.cu",
+            "source": "mxnet_tpu_torch/csrc/fused_gemm_f32.cuh",
             "replaces": "mxnet_tpu/ops/fused.py:91",
             "max_abs_err": max(errs),
             "bound_by": "operations" if ops_ms * 2 >= per_launch["bound_ms"]
@@ -2405,8 +2557,8 @@ def _ptxas(source, entries):
 def _fused_gemm_ptxas(source, old_entry):
     """The bf16 GEMM's instances in csrc/<source>.cu's build: ptxas's
     registers, stack and spills (none allowed) and each tile's dynamic
-    shared memory, printed; and the old CUDA-core kernel ``old_entry``
-    instantiated for f32 only."""
+    shared memory, printed; and, when ``old_entry`` names one, the old
+    CUDA-core kernel instantiated for f32 only."""
     import ctypes
     from mxnet_tpu_torch.kernels import _build
     w_kn = int(source == "fused_band4d")
@@ -2426,11 +2578,13 @@ def _fused_gemm_ptxas(source, old_entry):
         check(ptx[key]["spill_stores"] == 0 and ptx[key]["spill_loads"] == 0,
               "%s: the bf16 GEMM %s spills: %s"
               % (source, key, ptx[key]["lines"][0]))
-    old = [line for line in _build.log_path(source).read_text().splitlines()
-           if "Compiling entry function" in line and old_entry in line]
-    check(old and not any("bfloat16" in line for line in old),
-          "%s: the CUDA-core %s is instantiated %s" % (
-              source, old_entry, "for bf16" if old else "for no type"))
+    if old_entry is not None:
+        old = [line for line in _build.log_path(source).read_text()
+               .splitlines()
+               if "Compiling entry function" in line and old_entry in line]
+        check(old and not any("bfloat16" in line for line in old),
+              "%s: the CUDA-core %s is instantiated %s" % (
+                  source, old_entry, "for bf16" if old else "for no type"))
     return ptx
 
 
@@ -2607,7 +2761,7 @@ def phase_fused_matmul_bf16(torch, mxk, dev, flush):
     lines and the dynamic shared memory of the GEMM's instances.
     Returns the kernels-line row, per-launch means over one step's 28
     launches."""
-    ptx = _fused_gemm_ptxas("fused_matmul", "fused_scale_relu_matmul_kernel")
+    ptx = _fused_gemm_ptxas("fused_matmul", None)
     g = torch.Generator(device=dev).manual_seed(SEED + 23)
     bf = torch.bfloat16
     shapes = {(M * 2, K, N, r): n for (M, K, N, r), n in FUSED_SHAPES.items()}
@@ -2783,9 +2937,8 @@ def phase_head_dim(torch, mxk, dev, flush):
                 mxk.paged_chunk_prefill_attend_plain(
                     qc, kk, vv, kc2, vc2, tb, stt, ln, scale=sc)), flush,
                 reps=20)
-            ctx_rows = st + K
-            nbytes = (ctx_rows * 2 + 4 * K) * H * D * 4
-            b_ms, b_by = bound(nbytes, 4.0 * K * ctx_rows * H * D)
+            nbytes, flops = _chunk_bound(H, D, M, K, [st], [K])
+            b_ms, b_by = bound(nbytes, flops, SPLIT_TF32_FLOPS_PER_S)
             timings["paged_chunk_prefill_attend"] = dict(
                 ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
                 bound_by=b_by)

@@ -1,25 +1,22 @@
 // f32 causal attention on Hopper's tensor cores (sm_90a), the pieces
-// shared by the four f32 attention kernels: the flash forward, dK/dV and
-// dQ of flash_attention.cu (TPU kernel row 8, mxnet_tpu/ops/nn.py:744
-// _flash_attention) and the one-shot prefill of paged_attention.cu (row
-// 5, mxnet_tpu/pallas/attention.py:209 paged_prefill_attend), whose
-// forward is the flash forward over a seq-major (B, S, H, D) input.
+// shared by the f32 attention kernels: the flash forward, dK/dV and dQ of
+// flash_attention.cu (TPU kernel row 8, mxnet_tpu/ops/nn.py:744
+// _flash_attention), and the one-shot and chunked prefills of
+// paged_attention.cu (rows 5 and 2, mxnet_tpu/pallas/attention.py:209
+// paged_prefill_attend and :360 paged_chunk_prefill_attend), whose
+// forwards are the flash forward over seq-major (B, S, H, D) rows, the
+// chunked prefill's keys gathered through the block table.
 //
-// Split TF32 ("3xTF32").  One TF32 product keeps 10 mantissa bits of
-// each operand, about 2^-11 relative: too coarse for the f32 forms'
-// tolerance (rtol 1e-4 / atol 1e-5 against the plain f32 version; a
-// 128-term score sum is off by ~5e-4).  Each operand x is split into hi
-// = tf32(x) and lo = x - hi (split(): lo reaches the tensor cores
-// truncated to tf32, so x = hi + lo to 2^-21 relative), and every product
-// step issues three mma.sync m16n8k8: lo * hi', hi * lo', hi * hi'.  The
-// dropped lo * lo' and lo's truncation leave a few 2^-22 relative per
-// product, against an f32 FMA's 2^-24; this is the arithmetic of
-// PyTorch's memory-efficient SDPA in f32 (CUTLASS's OpMultiplyAddFastF32
-// on sm80 and later), the kernels' yardstick.  The global TF32 flags are
-// not involved: cuBLAS stays in full f32.  The tensor cores' own f32
-// accumulation does not round to nearest, so no mma chain runs long:
-// products sum a few k steps into a fresh fragment, then add it to the
-// accumulator in f32 (mma_nk, mma_kn).
+// Split TF32 ("3xTF32", tc_mma.cuh: split, mma3).  One TF32 product
+// would leave the f32 forms' tolerance (rtol 1e-4 / atol 1e-5 against the
+// plain f32 version; a 128-term score sum is off by ~5e-4), so every
+// product step issues three mma.sync m16n8k8 on the hi and lo halves of
+// its operands; this is the arithmetic of PyTorch's memory-efficient SDPA
+// in f32 (CUTLASS's OpMultiplyAddFastF32 on sm80 and later), the kernels'
+// yardstick.  The global TF32 flags are not involved: cuBLAS stays in
+// full f32.  The tensor cores' own f32 accumulation does not round to
+// nearest, so no mma chain runs long: products sum a few k steps into a
+// fresh fragment, then add it to the accumulator in f32 (mma_nk, mma_kn).
 //
 // What bounds them on the H100.  One causal product over the lower
 // triangle is B*H*S*(S+1)/2*D multiply-adds; the forward does two, dK/dV
@@ -104,29 +101,10 @@ template <> __device__ __forceinline__ bf16 from_f32<bf16>(float v) {
   return __float2bfloat16(v);
 }
 
-// x = hi + lo.  hi is x rounded to tf32, to nearest with ties away
-// (cvt.rna's rounding, here by an integer add of half the 13 dropped
-// bits' weight and a mask: two full-rate instructions where cvt runs on
-// the quarter-rate conversion pipe); lo = x - hi is exact and passed
-// whole, as the tensor cores read a tf32 operand's top 19 bits and drop
-// the rest (CUTLASS's OpMultiplyAddFastF32 relies on the same), so lo
-// enters truncated: 2^-21 of x at most.  x is finite here.
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_rna(x);
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// c += a b in 3xTF32: the two cross terms, then hi * hi
-__device__ __forceinline__ void mma3(float c[4], const uint32_t ah[4], const uint32_t al[4],
-                                     uint32_t bh0, uint32_t bh1, uint32_t bl0,
-                                     uint32_t bl1) {
-  tc::mma_tf32(c, al, bh0, bh1);
-  tc::mma_tf32(c, ah, bl0, bl1);
-  tc::mma_tf32(c, ah, bh0, bh1);
-}
+using tc::mma3;
+using tc::split;
+using tc::split_f;
+using tc::tf32_rna;
 
 template <int N>
 __device__ __forceinline__ void zero(float a[][4]) {
@@ -179,12 +157,6 @@ __device__ __forceinline__ void stage_tile(float* dst, const T* __restrict__ src
             (row_ok && c < w) ? to_f32(src[(size_t)(r0 + r) * rs + c0 + c]) : 0.f;
     }
   }
-}
-
-// hi and lo of x (split) as f32 values
-__device__ __forceinline__ void split_f(float x, float& hi, float& lo) {
-  hi = __uint_as_float(tf32_rna(x));
-  lo = x - hi;
 }
 
 // Rewrite as hi the elements of an (R, kLd) tile that this thread staged

@@ -34,8 +34,9 @@
 // for a CUDA tile, and it keeps all of W resident (128 KB in bf16, which
 // does not share an SM well).  Here M is flattened over (b, h, w) and
 // tiled 128 rows at a time, whatever the image boundaries, and K is tiled
-// too: a register-tiled CUDA-core GEMM, the same tiling as
-// fused_matmul.cu's f32 form.  A block computes a 128 x BN tile of Y
+// too: a register-tiled CUDA-core GEMM (row 7's f32 form runs split TF32
+// on the tensor cores, fused_gemm_f32.cuh; this one has not moved yet).
+// A block computes a 128 x BN tile of Y
 // (BN = 128, or 64 when N <= 64), 8 x 8 outputs per thread, over K in
 // steps of 8, with double-buffered f32 shared memory.  Each thread's rows
 // of X are fixed for the whole K loop, so their (b, h, w) offsets are

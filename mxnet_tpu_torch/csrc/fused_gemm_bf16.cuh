@@ -160,11 +160,6 @@ __device__ __forceinline__ float affine_relu(float x, float s, float h) {
   return z < 0.0f ? 0.0f : z;
 }
 
-// bytes (a multiple of 16) at a 16-byte aligned global address into L2
-__device__ __forceinline__ void prefetch_l2(const void* p, int bytes) {
-  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(p), "r"(bytes) : "memory");
-}
-
 template <int BN, bool W_KN, bool VEC_X>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 fused_gemm_bf16_kernel(const Args p) {
@@ -207,7 +202,7 @@ fused_gemm_bf16_kernel(const Args p) {
 #pragma unroll
     for (int i = 0; i < C::kAPer; ++i)
       if (ar0 + i * kRowStep < rows)
-        prefetch_l2(p.res + (m0 + ar0 + i * kRowStep) * N + n0, bytes);
+        tc::prefetch_l2(p.res + (m0 + ar0 + i * kRowStep) * N + n0, bytes);
   }
   auto issue = [&](int st) {
     bf16* As = ring + (st % kStages) * C::kStageElems;

@@ -12,29 +12,56 @@
 // context once, sum_c (pos_c + 1) * H * D * 2 * sizeof(cache) bytes,
 // and does 2 flops per element read: far below the 295 flops/byte the
 // card needs before compute limits, so it is bound by memory bytes.
-// The chunk prefill reads the cached context once and writes its chunk
-// rows; every context element then meets up to K = 64 queries, 2 flops
-// each, on the f32 CUDA cores (no tensor cores here), so it is bound by
-// f32 operations rather than bytes.
-//
-// Design: the TPU grid was (slot, table block), walked in order on one
+// Decode: the TPU grid was (slot, table block), walked in order on one
 // core with the softmax state carried in scratch from step to step.
 // Here blocks run in parallel, so each (slot, head) pair is one thread
 // block that loops over its own table entries and keeps the online
 // softmax in registers and shared memory: C * H blocks (128 at the
 // served shape).  K/V rows of one head are D contiguous values at a
 // stride of H * D, so a warp reads each row as coalesced 128-byte
-// lines.  The chunk prefill gives each (row, head, group of 8 chunk
-// rows) one block: H * B * K / 8 blocks (128 at the served shape).  A
-// block writes only its own chunk rows' slice of its head into the
-// cache, reads cache rows only below `start` (which no block writes)
-// and takes the in-chunk keys from the chunk input itself, so every
-// block's writes are disjoint from every block's reads and from the
-// other blocks' writes, and no block waits for another.  The blocks of
-// one head each re-read the context (from L2 after the first).  Simple
-// and right first; wgmma, TMA and split-context parallelism are later
-// work.  Exponentials use expf (no fast-math) so results hold the f32
+// lines.  Exponentials use expf (no fast-math) so results hold the f32
 // tolerance against the plain PyTorch version.
+//
+// Chunked prefill (mx_paged_chunk_prefill): a chunk of K rows per batch
+// row at absolute positions [start, start + len), each attending
+// causally to the whole context so far (the cache below start, the
+// chunk's own keys above), with the scatter of the chunk's real rows into
+// the cache fused in.  It reads the cached context once and the chunk
+// rows, 4 * H * D * (2 start + 4 len) bytes for f32, and does 4 H D
+// flops per (query, key) pair: at the mixed step's 64-row chunk after 576
+// cached rows it is bound by bytes once its products run on the tensor
+// cores (about 12.6 MB, 0.0038 ms at 3.35 TB/s, against 0.0019 ms of
+// split-TF32 products; on the CUDA cores its 319 MFLOP took 0.0048), and
+// at the spec step's 5-row spans over long contexts even more so.  The
+// query rows are few and the context is long, so the work is split over
+// the keys: the keys [0, M bs) of a row fall into fixed ranges of KR keys
+// (a multiple of 32; the wrapper's plan, a function of the static shapes
+// alone), and one block takes each (query tile of 16 kW rows, key range,
+// row and head, 128 output columns).  It runs the f32 flash forward of
+// attention_f32.cuh over the range's keys gathered through the block
+// table: a key tile of 32 rows is two table blocks at block size 16, each
+// block's slice of a head bs rows of D contiguous floats, H D apart, so
+// the tile stages by 16-byte cp.async copies; each warp takes 16 query
+// rows (the mixed step's 64-row chunk makes 4 warps, a spec span of 5
+// rows one warp, its rows at or past len masked); scores and P V run in
+// split TF32 (three mma.sync m16n8k8 a product step), P kept in
+// registers, K split once as it lands, V at each load.  The range's
+// unnormalised accumulators and each row's running max and sum go to a
+// workspace the wrapper allocates, and a second kernel combines a row's
+// ranges in order (the port's two-stage deterministic cross-block sum: no
+// atomics, two runs give the same bits) and writes the chunk's rows into
+// the cache, a block a (row, head), after every read of it.  The grid and the workspace
+// depend only on static shapes (B, K, H, D, M bs), never on start or len,
+// which live on the device: reading them would be a hidden host sync, and
+// the launch stays capturable in a CUDA graph.  Blocks past a row's
+// context, or with no real row, exit at once.  The semantics are the TPU
+// kernel's: in-chunk keys come from the chunk input rounded to the cache
+// type; cache rows are read only below start, and only by the first
+// launch; the scatter of each real row is written by exactly one block of
+// the second (its row and head), disjoint from every read; padded rows are
+// zeros; len == 0 reads no table entry and leaves the cache untouched;
+// masked scores take the finite fill -1e30, never NaN; keys clamp at the
+// table's M bs rows; bf16 caches are widened and split (their lo is 0).
 //
 // One-shot prefill (mx_paged_prefill): causal attention of a padded
 // prompt batch q/k/v (B, S, H, D) over its own keys, with the scatter
@@ -63,13 +90,11 @@
 // Head_dim is tiled in all three, so the reference's head_dims run (it
 // has no head_dim limit).  Decode gives each (slot, head) pair one
 // block per 256 output columns; each block computes the whole q . k.
-// The chunk prefill keeps its 8 query rows and their accumulators
-// resident (64 bytes of shared memory per unit of head_dim, so the
-// limit is head_dim 3100) and passes the key and value tiles through in
-// chunks of 128 columns.  The one-shot prefill tiles head_dim as the
-// flash kernels do: chunks of 128 columns staged in turn for the scores,
-// one block per chunk of output columns (which recomputes the scores);
-// each block scatters its own chunk of the K/V rows.
+// The chunk prefill and the one-shot prefill tile head_dim as the flash
+// kernels do: chunks of 128 columns staged in turn for the scores, one
+// block per chunk of output columns (which recomputes the scores); each
+// block scatters its own chunk of the K/V rows.  Neither has a head_dim
+// limit.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -182,161 +207,271 @@ paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kc,
 // ---------------------------------------------------------------------
 // chunked prefill: a K-row chunk at [start, start + len) over the cache
 // ---------------------------------------------------------------------
-constexpr int kChunkThreads = 256;
-constexpr int kTileKeys = 32;
-constexpr int kQueryRows = 8;                 // chunk rows per thread block
-constexpr int kChunkD = 128;                  // head_dim columns per staged tile
+// keys a stage, stages of the ring (tools/torch_flash_tune.py --chunk
+// times variants of these)
+constexpr int kChunkStep = 32, kChunkStages = 2;
+constexpr int kCombineThreads = 128;
 
-template <typename TQ, typename TKV>
-__global__ void __launch_bounds__(kChunkThreads)
-paged_chunk_prefill_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
-                           const TQ* __restrict__ v, TKV* __restrict__ kc,
-                           TKV* __restrict__ vc, const int* __restrict__ table,
-                           const int* __restrict__ start,
-                           const int* __restrict__ lens, TQ* __restrict__ out,
-                           int K, int H, int D, int bs, int M, float scale) {
-  const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  // this block's chunk rows [i0, i1); the real ones are [i0, ie)
-  const int i0 = blockIdx.z * kQueryRows, i1 = min(i0 + kQueryRows, K);
+// Stage key (or value) rows [k0, k0 + R) of one head, columns [c0, c0 +
+// w), into an (R, kLd) f32 tile: keys below st from the cache through the
+// table (tbs: the block's table entries from entry e0 on, in shared
+// memory; cache rows rs elements apart, the head at hd), keys in [st,
+// kend) from the chunk input rounded to the cache type, zeros from kend
+// on and in columns [w, w rounded up to 8).  Each thread stages the
+// elements attn32::stage_tile<R, TH> gives it, so attn32::split_tile
+// splits them.
+// vec: 16-byte cp.async (f32 input and cache, D % 4 == 0, 16-byte aligned
+// bases); else element by element, made visible by the __syncthreads
+// that starts the stage which reads the tile.
+template <int R, int TH, typename TQ, typename TKV>
+__device__ __forceinline__ void stage_keys(float* dst, const TKV* __restrict__ cache,
+                                           const TQ* __restrict__ chunk,
+                                           const int* tbs, int e0, int k0, int st, int kend,
+                                           int bs, size_t rs, size_t hd, int c0, int w,
+                                           bool vec) {
+  const int wp = (w + 7) & ~7;
+  const int l32 = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < R; r += TH / 32) {
+    const int kp = k0 + r;
+    const bool ok = kp < kend, in_cache = kp < st;
+    // column c0 of the key's row: the cache's (head offset included) or
+    // the chunk's (whose base carries the head)
+    const size_t off = !ok ? 0
+                       : in_cache ? ((size_t)tbs[kp / bs - e0] * bs + kp % bs) * rs + hd + c0
+                                  : (size_t)(kp - st) * rs + c0;
+    if constexpr (sizeof(TQ) == 4 && sizeof(TKV) == 4) {
+      if (vec) {
+        const int c = l32 * 4;
+        if (c < wp) {
+          const bool cok = ok && c < w;
+          const void* src = in_cache ? (const void*)(cache + off + c)
+                                     : (const void*)(chunk + off + c);
+          tc::cp_async16(dst + r * attn32::kLd + c, cok ? src : (const void*)chunk, cok);
+        }
+        continue;
+      }
+    }
+    for (int c = l32; c < wp; c += 32) {
+      float val = 0.f;
+      if (ok && c < w)
+        val = in_cache ? to_f32(cache[off + c]) : to_f32(from_f32<TKV>(to_f32(chunk[off + c])));
+      dst[r * attn32::kLd + c] = val;
+    }
+  }
+}
+
+// First stage: one block per (query tile of 16 kW chunk rows, range of KR
+// keys; the grid's x, ranges fastest), (row, head) (y) and 128 output
+// columns (z).  It attends its tile's rows to its range's keys in split
+// TF32 on the tensor cores, the online softmax of attn32::forward with
+// scores past a row's position masked to the finite -1e30, and writes
+// the range's unnormalised accumulators to part (B H, nr, K, D) and each
+// row's running max and sum to ml (B H, nr, K, 2).  The
+// range's table entries are read once into shared memory, so a stage's
+// copies wait on no table read.  A block with no real row or no key
+// exits at once.
+template <int kW, bool kFull, typename TQ, typename TKV>
+__global__ void __launch_bounds__(32 * kW)
+paged_chunk_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k, const TQ* __restrict__ v,
+                   const TKV* __restrict__ kc, const TKV* __restrict__ vc,
+                   const int* __restrict__ table,
+                   const int* __restrict__ start, const int* __restrict__ lens,
+                   float* __restrict__ part, float* __restrict__ ml, int K, int H, int D,
+                   int bs, int M, int KR, int nr, float scale, int vec, int vecq) {
+  using attn32::kDC;
+  using attn32::kLd;
+  constexpr int R = 16 * kW, TH = 32 * kW, KT = kChunkStep, NS = kChunkStages;
+  constexpr int kQSlot = R * kLd, kKSlot = KT * kLd;    // a ring slot: 2 kKSlot
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int rg = (int)blockIdx.x % nr, q0 = (int)blockIdx.x / nr * R;
+  const int oc0 = blockIdx.z * kDC, ow = min(kDC, D - oc0);
   const int st = start[b];
   // rows past K, or past the table's M * bs rows, are never touched
   const int L = max(0, min(min(lens[b], K), M * bs - st));
-  const int ie = min(i1, L), nq = ie - i0;
-  const size_t rs = (size_t)H * D;               // row stride
-  const TQ* qb = q + (size_t)b * K * rs + (size_t)h * D;
-  const TQ* kb = k + (size_t)b * K * rs + (size_t)h * D;
-  const TQ* vb = v + (size_t)b * K * rs + (size_t)h * D;
-  TQ* ob = out + (size_t)b * K * rs + (size_t)h * D;
+  const int ie = min(q0 + R, L);                 // the tile's real rows [q0, ie)
+  const int k0 = rg * KR;
+  if (q0 >= ie || k0 >= st + ie) return;
+  const int k1 = min(k0 + KR, st + ie);          // this block's keys [k0, k1)
+  const size_t rs = (size_t)H * D, hd = (size_t)h * D;   // row stride, head offset
+  const size_t cb = (size_t)b * K * rs + hd;
+  const TQ* qb = q + cb;
+  const TQ* kb = k + cb;
+  const TQ* vb = v + cb;
   const int* tb = table + (size_t)b * M;
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
 
-  // padded rows (>= L) are don't-care: written as zeros
-  const int iz = max(i0, L);
-  for (int idx = tid; idx < (i1 - iz) * D; idx += kChunkThreads) {
-    const int i = iz + idx / D, d = idx % D;
-    ob[(size_t)i * rs + d] = from_f32<TQ>(0.f);
-  }
-  if (nq <= 0) return;   // len == 0: no table entry read, cache untouched
-
-  // scatter this head's slice of this block's real rows into their cache
-  // rows (table entries past the last real row are never dereferenced)
-  for (int idx = tid; idx < nq * D; idx += kChunkThreads) {
-    const int j = i0 + idx / D, d = idx % D;
-    const int ap = st + j;
-    const size_t row = (size_t)tb[ap / bs] * bs + ap % bs;
-    kc[row * rs + (size_t)h * D + d] = from_f32<TKV>(to_f32(kb[(size_t)j * rs + d]));
-    vc[row * rs + (size_t)h * D + d] = from_f32<TKV>(to_f32(vb[(size_t)j * rs + d]));
-  }
-
-  // head_dim is staged in chunks of kChunkD columns: the query rows and
-  // accumulators of the block (2 * kQueryRows * D floats) stay resident,
-  // the key and value tiles pass through in chunks
   extern __shared__ float smem[];
-  constexpr int KS = kChunkD + 1;                // padded key-tile stride
-  float* qs = smem;                              // kQueryRows * D
-  float* acc = qs + (size_t)kQueryRows * D;      // kQueryRows * D
-  float* ks = acc + (size_t)kQueryRows * D;      // kTileKeys * KS
-  float* vs = ks + (size_t)kTileKeys * KS;       // kTileKeys * kChunkD
-  float* ss = vs + (size_t)kTileKeys * kChunkD;  // kQueryRows * kTileKeys
-  float* m_s = ss + (size_t)kQueryRows * kTileKeys;
-  float* l_s = m_s + kQueryRows;
-  float* a_s = l_s + kQueryRows;
-
-  for (int idx = tid; idx < nq * D; idx += kChunkThreads) {
-    const int r = idx / D, d = idx % D;
-    qs[idx] = to_f32(qb[(size_t)(i0 + r) * rs + d]) * scale;
-    acc[idx] = 0.f;
-  }
-  for (int r = tid; r < nq; r += kChunkThreads) {
-    m_s[r] = -INFINITY;
-    l_s[r] = 0.f;
-  }
-
-  // columns [c0, c0 + w) of key (or value) rows [kt, kt + kTileKeys):
-  // earlier context is read back through the table, in-chunk keys come
-  // from the chunk input rounded to the cache type, keys past nk are 0
-  const int nk = st + ie;                        // keys [0, start + ie)
-  // (kv: the value tile too, from the same rows, into vs)
-  auto stage = [&](float* dst, int ld, const TKV* cache, const TQ* chunk, int kt,
-                   int c0, int w, bool kv) {
-    for (int idx = tid; idx < kTileKeys * w; idx += kChunkThreads) {
-      const int j = idx / w, d = idx % w;
-      const int kp = kt + j;
-      float val = 0.f, vval = 0.f;
-      if (kp < st) {
-        const size_t off = ((size_t)tb[kp / bs] * bs + kp % bs) * rs + (size_t)h * D + c0 + d;
-        val = to_f32(cache[off]);
-        if (kv) vval = to_f32(vc[off]);
-      } else if (kp < nk) {
-        const size_t off = (size_t)(kp - st) * rs + c0 + d;
-        val = to_f32(from_f32<TKV>(to_f32(chunk[off])));
-        if (kv) vval = to_f32(from_f32<TKV>(to_f32(vb[off])));
-      }
-      dst[j * ld + d] = val;
-      if (kv) vs[j * kChunkD + d] = vval;
+  const int nch = (D + kDC - 1) / kDC;
+  float* ring = smem;
+  float* qs = ring + NS * 2 * kKSlot;
+  // the table entries of the range's cached keys [k0, min(k1, st))
+  int* tbs = reinterpret_cast<int*>(qs + (nch > 1 ? NS : 1) * kQSlot);
+  const int e0 = k0 / bs, ne = k0 < st ? (min(k1, st) - 1) / bs - e0 + 1 : 0;
+  for (int e = threadIdx.x; e < ne; e += TH) tbs[e] = tb[e0 + e];
+  const int nkt = (k1 - k0 + KT - 1) / KT;
+  const int per = nch + 1, nst = nkt * per;
+  // stages per key tile: one per head_dim chunk of Q K^T (K's chunk, and
+  // Q's when D > 128, else Q is resident), then one of P V
+  auto issue = [&](int i) {
+    const int kt = i / per, j = i - kt * per, buf = i % NS;
+    float* tile = ring + buf * 2 * kKSlot;
+    if (j < nch) {
+      const int c0 = j * kDC, w = min(kDC, D - c0);
+      if (nch > 1) attn32::stage_tile<R, TH>(qs + buf * kQSlot, qb, q0, K, rs, c0, w, vecq);
+      stage_keys<KT, TH>(tile, kc, kb, tbs, e0, k0 + kt * KT, st, k1, bs, rs, hd, c0, w, vec);
+    } else {
+      stage_keys<KT, TH>(tile, vc, vb, tbs, e0, k0 + kt * KT, st, k1, bs, rs, hd, oc0, ow, vec);
     }
   };
+  if (nch == 1) attn32::stage_tile<R, TH>(qs, qb, q0, K, rs, 0, D, vecq);
+  __syncthreads();                                  // the table entries landed
+#pragma unroll
+  for (int i = 0; i < NS - 1; ++i) {
+    if (i < nst) issue(i);
+    tc::cp_async_commit();
+  }
 
-  // with one chunk (D <= kChunkD) the key and value tiles are staged
-  // together, once per key tile, as an untiled kernel would
-  const bool one_chunk = D <= kChunkD;
-  for (int kt = 0; kt < nk; kt += kTileKeys) {
-    for (int c0 = 0; c0 < D; c0 += kChunkD) {
-      const int w = min(kChunkD, D - c0);
-      const bool last = c0 + kChunkD >= D;
-      __syncthreads();   // previous tile (or chunk) consumed
-      stage(ks, KS, kc, kb, kt, c0, w, one_chunk);
-      __syncthreads();
-      for (int idx = tid; idx < nq * kTileKeys; idx += kChunkThreads) {
-        const int r = idx / kTileKeys, j = idx % kTileKeys;
-        const float* qr = qs + (size_t)r * D + c0;
-        const float* kr = ks + j * KS;
-        float s = c0 == 0 ? 0.f : ss[idx];
-        for (int d = 0; d < w; ++d) s += qr[d] * kr[d];
-        // finite fill, as the TPU kernel: never a NaN
-        const int kp = kt + j;
-        if (last && !(kp < nk && kp <= st + i0 + r)) s = -1e30f;
-        ss[idx] = s;
-      }
+  float sc[KT / 8][4], acc[kDC / 8][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};   // rows g, g + 8
+  attn32::zero<kDC / 8>(acc);
+  for (int i = 0; i < nst; ++i) {
+    const int kt = i / per, j = i - kt * per, buf = i % NS;
+    float* tile = ring + buf * 2 * kKSlot;
+    tc::cp_async_wait<NS - 2>();
+    if (j < nch) attn32::split_tile<KT, TH>(tile, tile + kKSlot, min(kDC, D - j * kDC), vec);
+    __syncthreads();                                // stage i landed, i - 1 done
+    if (i + NS - 1 < nst) issue(i + NS - 1);
+    tc::cp_async_commit();
+    if (j < nch) {                                  // S += Q_j K_j^T
+      if (j == 0) attn32::zero<KT / 8>(sc);
+      attn32::mma_nk<KT / 8>(sc, qs + (nch > 1 ? buf : 0) * kQSlot, warp * 16, tile,
+                             tile + kKSlot, attn32::ksteps<kFull>(min(kDC, D - j * kDC)));
+      continue;
     }
-    __syncthreads();
-    for (int r = tid; r < nq; r += kChunkThreads) {
-      float* sr = ss + (size_t)r * kTileKeys;
-      float mx = m_s[r];
-      for (int j = 0; j < kTileKeys; ++j) mx = fmaxf(mx, sr[j]);
-      const float alpha = expf(m_s[r] - mx);
-      float sum = 0.f;
-      for (int j = 0; j < kTileKeys; ++j) {
-        const float pj = expf(sr[j] - mx);
-        sr[j] = pj;
-        sum += pj;
+    // online softmax; keys past the row's position take the finite
+    // fill, as the TPU kernel's, never a NaN (a tile never crosses the
+    // range's end, KR being a multiple of KT, and keys past the context
+    // are past every real row's position)
+    const int kb0 = k0 + kt * KT;
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int nt = 0; nt < KT / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = q0 + warp * 16 + g + (e >> 1) * 8;
+        const int c = kb0 + nt * 8 + 2 * t + (e & 1);
+        float x = sc[nt][e] * scale;
+        if (c > st + r) x = -1e30f;
+        sc[nt][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
-      l_s[r] = l_s[r] * alpha + sum;
-      m_s[r] = mx;
-      a_s[r] = alpha;
+    float alpha[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      mx[hh] = attn32::quad_max(mx[hh]);
+      alpha[hh] = expf(m[hh] - mx[hh]);
+      m[hh] = mx[hh];
+      l[hh] *= alpha[hh];
     }
-    for (int c0 = 0; c0 < D; c0 += kChunkD) {
-      const int w = min(kChunkD, D - c0);
-      __syncthreads();   // probabilities written, previous value chunk consumed
-      if (!one_chunk) {
-        stage(vs, kChunkD, vc, vb, kt, c0, w, false);
-        __syncthreads();
+#pragma unroll
+    for (int nt = 0; nt < KT / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(sc[nt][e] - m[e >> 1]);
+        l[e >> 1] += p;
+        sc[nt][e] = p;
       }
-      for (int idx = tid; idx < nq * w; idx += kChunkThreads) {
-        const int r = idx / w, d = idx % w;
-        const float* pr = ss + (size_t)r * kTileKeys;
-        float* ar = acc + (size_t)r * D + c0 + d;
-        float a = *ar * a_s[r];
-        for (int j = 0; j < kTileKeys; ++j) a += pr[j] * vs[j * kChunkD + d];
-        *ar = a;
-      }
-    }
-    __syncthreads();   // ss and the accumulators free for the next tile
+#pragma unroll
+    for (int nt = 0; nt < kDC / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][e] *= alpha[e >> 1];
+    attn32::mma_kn<KT / 8, true>(acc, sc, tile, nullptr, attn32::ksteps<kFull>(ow));  // O += P V
   }
-  for (int idx = tid; idx < nq * D; idx += kChunkThreads) {
-    const int r = idx / D, d = idx % D;
-    const float l = l_s[r];
-    ob[(size_t)(i0 + r) * rs + d] = from_f32<TQ>(acc[idx] / (l > 0.f ? l : 1.f));
+  tc::cp_async_wait<0>();
+  // the range's partial results, rows past K left out
+  const int row0 = q0 + warp * 16;
+  const size_t pr = ((size_t)bh * nr + rg) * K;  // row 0 of this range
+  const float one[2] = {1.f, 1.f};
+  attn32::store_rows(part + pr * D, acc, row0, K, (size_t)D, oc0, ow, one);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) l[hh] = attn32::quad_sum(l[hh]);
+  if (blockIdx.z == 0 && t == 0) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = row0 + g + 8 * hh;
+      if (r < K) {
+        ml[(pr + r) * 2] = m[hh];
+        ml[(pr + r) * 2 + 1] = l[hh];
+      }
+    }
   }
+}
+
+// Second stage: one block per (chunk row i, (row, head)) combines the
+// row's ranges in order, those holding one of its keys ((st + i) / KR +
+// 1 of them), into the output, and writes the row's K/V slice of this
+// head into the cache: the fused scatter, each real row's slice by
+// exactly one block, after every read of the cache (the first stage's,
+// earlier on the stream).  Rows at or past the row's length are written
+// as zeros and scatter nothing; table entries past the last real row
+// are never read.
+template <typename TQ, typename TKV>
+__global__ void __launch_bounds__(kCombineThreads)
+paged_chunk_combine_kernel(const float* __restrict__ part, const float* __restrict__ ml,
+                           const TQ* __restrict__ k, const TQ* __restrict__ v,
+                           TKV* __restrict__ kc, TKV* __restrict__ vc,
+                           const int* __restrict__ table, const int* __restrict__ start,
+                           const int* __restrict__ lens, TQ* __restrict__ out, int K, int H,
+                           int D, int bs, int M, int KR, int nr) {
+  extern __shared__ float wts[];                 // a weight, then a sum, per range
+  const int i = blockIdx.x, bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int st = start[b];
+  const int L = max(0, min(min(lens[b], K), M * bs - st));
+  TQ* o = out + ((size_t)b * K + i) * H * D + (size_t)h * D;
+  if (i >= L) {                                 // padding: don't-care, written as zeros
+    for (int d = threadIdx.x; d < D; d += kCombineThreads) o[d] = from_f32<TQ>(0.f);
+    return;
+  }
+  const size_t rs = (size_t)H * D, src = ((size_t)b * K + i) * rs + (size_t)h * D;
+  const int ap = st + i;
+  const size_t dst = ((size_t)table[(size_t)b * M + ap / bs] * bs + ap % bs) * rs + (size_t)h * D;
+  for (int d = threadIdx.x; d < D; d += kCombineThreads) {
+    kc[dst + d] = from_f32<TKV>(to_f32(k[src + d]));
+    vc[dst + d] = from_f32<TKV>(to_f32(v[src + d]));
+  }
+  const int n = (st + i) / KR + 1;
+  const size_t r0 = (size_t)bh * nr * K + i;    // row i of range 0; range j at r0 + j K
+  // the ranges' maxima and sums, read in parallel, then each range's
+  // weight exp(m_j - max)
+  float* sums = wts + nr;
+  for (int j = threadIdx.x; j < n; j += kCombineThreads) {
+    wts[j] = ml[(r0 + (size_t)j * K) * 2];
+    sums[j] = ml[(r0 + (size_t)j * K) * 2 + 1];
+  }
+  __syncthreads();
+  float mx = -INFINITY;
+  for (int j = 0; j < n; ++j) mx = fmaxf(mx, wts[j]);
+  __syncthreads();                              // every thread has the max
+  for (int j = threadIdx.x; j < n; j += kCombineThreads) wts[j] = expf(wts[j] - mx);
+  __syncthreads();
+  float lsum = 0.f;
+  for (int j = 0; j < n; ++j) lsum += sums[j] * wts[j];
+  const float inv = 1.f / lsum;
+  for (int d = threadIdx.x; d < D; d += kCombineThreads) {
+    float a = 0.f;
+#pragma unroll 4
+    for (int j = 0; j < n; ++j) a += part[(r0 + (size_t)j * K) * D + d] * wts[j];
+    o[d] = from_f32<TQ>(a * inv);
+  }
+}
+
+// dynamic shared memory of the first stage, bytes: a ring of split K/V
+// tiles (hi, then lo), the query tile (a ring when D > 128), then the
+// range's table entries (at most KR / bs + 2)
+size_t chunk_smem(int warps, int D, int KR, int bs) {
+  return sizeof(float) * attn32::kLd *
+             (kChunkStages * 2 * kChunkStep + 16 * warps * (D > attn32::kDC ? kChunkStages : 1)) +
+         sizeof(int) * (KR / bs + 2);
 }
 
 // ---------------------------------------------------------------------
@@ -412,16 +547,34 @@ int launch_decode(const void* q, const void* kc, const void* vc, const void* tab
 template <typename TQ, typename TKV>
 int launch_chunk(const void* q, const void* k, const void* v, void* kc, void* vc,
                  const void* table, const void* start, const void* lens, void* out,
-                 int B, int K, int H, int D, int bs, int M, float scale,
-                 size_t smem, cudaStream_t stream) {
-  auto fn = paged_chunk_prefill_kernel<TQ, TKV>;
+                 float* part, float* ml, int B, int K, int H, int D, int bs, int M, int KR,
+                 int warps, float scale, cudaStream_t stream) {
+  const bool full = D % attn32::kDC == 0;
+  const auto fn = warps == 1 ? (full ? paged_chunk_kernel<1, true, TQ, TKV>
+                                     : paged_chunk_kernel<1, false, TQ, TKV>)
+                             : (full ? paged_chunk_kernel<4, true, TQ, TKV>
+                                     : paged_chunk_kernel<4, false, TQ, TKV>);
+  const size_t smem = chunk_smem(warps, D, KR, bs);
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  fn<<<dim3(H, B, (K + kQueryRows - 1) / kQueryRows), kChunkThreads, smem, stream>>>(
-      (const TQ*)q, (const TQ*)k, (const TQ*)v, (TKV*)kc, (TKV*)vc,
-      (const int*)table, (const int*)start, (const int*)lens, (TQ*)out, K, H, D,
-      bs, M, scale);
+  // 16-byte copies for f32 rows of D % 4 == 0 (the row stride H * D is
+  // then a multiple of 4 too); bf16 rows, and chunk keys rounded to a
+  // bf16 cache, element by element
+  const int vec = sizeof(TQ) == 4 && sizeof(TKV) == 4 && D % 4 == 0 && tc::aligned16(k) &&
+                  tc::aligned16(v) && tc::aligned16(kc) && tc::aligned16(vc);
+  const int vecq = sizeof(TQ) == 4 && D % 4 == 0 && tc::aligned16(q);
+  const int nr = (M * bs + KR - 1) / KR, qt = (K + 16 * warps - 1) / (16 * warps);
+  fn<<<dim3(nr * qt, B * H, (D + attn32::kDC - 1) / attn32::kDC), 32 * warps, smem,
+       stream>>>((const TQ*)q, (const TQ*)k, (const TQ*)v, (const TKV*)kc, (const TKV*)vc,
+                 (const int*)table, (const int*)start, (const int*)lens, part, ml, K, H, D,
+                 bs, M, KR, nr, scale, vec, vecq);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  paged_chunk_combine_kernel<TQ, TKV><<<dim3(K, B * H), kCombineThreads,
+                                        2 * sizeof(float) * nr, stream>>>(
+      part, ml, (const TQ*)k, (const TQ*)v, (TKV*)kc, (TKV*)vc, (const int*)table,
+      (const int*)start, (const int*)lens, (TQ*)out, K, H, D, bs, M, KR, nr);
   return (int)cudaGetLastError();
 }
 
@@ -445,28 +598,32 @@ int mx_paged_decode(const void* q, const void* kc, const void* vc, const void* t
   return launch_decode<__nv_bfloat16, __nv_bfloat16>(q, kc, vc, table, pos, out, C, H, D, bs, M, scale, s);
 }
 
-size_t mx_paged_chunk_prefill_smem(int D) {
-  return ((size_t)2 * kQueryRows * D + (size_t)kTileKeys * (kChunkD + 1) +
-          (size_t)kTileKeys * kChunkD + (size_t)kQueryRows * kTileKeys +
-          3 * (size_t)kQueryRows) * sizeof(float);
+size_t mx_paged_chunk_prefill_smem(int warps, int D, int key_range, int bs) {
+  return chunk_smem(warps, D, key_range, bs);
 }
 
+// q, k, v, out: (B, K, H, D) seq-major; start, lens (B,) int32; part
+// (B H, nr, K, D) and ml (B H, nr, K, 2) f32 workspaces, nr = ceil(M bs
+// / key_range); key_range a multiple of 32; warps 1 or 4
 int mx_paged_chunk_prefill(const void* q, const void* k, const void* v, void* kc,
                            void* vc, const void* table, const void* start,
-                           const void* lens, void* out, int B, int K, int H, int D,
-                           int bs, int M, float scale, int q_dtype, int kv_dtype,
-                           int device, void* stream) {
+                           const void* lens, void* out, void* part, void* ml, int B, int K,
+                           int H, int D, int bs, int M, int key_range, int warps, float scale,
+                           int q_dtype, int kv_dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  if (key_range <= 0 || key_range % kChunkStep != 0 || (warps != 1 && warps != 4))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const size_t smem = mx_paged_chunk_prefill_smem(D);
+  float* pf = (float*)part;
+  float* mf = (float*)ml;
   if (q_dtype == 0 && kv_dtype == 0)
-    return launch_chunk<float, float>(q, k, v, kc, vc, table, start, lens, out, B, K, H, D, bs, M, scale, smem, s);
+    return launch_chunk<float, float>(q, k, v, kc, vc, table, start, lens, out, pf, mf, B, K, H, D, bs, M, key_range, warps, scale, s);
   if (q_dtype == 0 && kv_dtype == 1)
-    return launch_chunk<float, __nv_bfloat16>(q, k, v, kc, vc, table, start, lens, out, B, K, H, D, bs, M, scale, smem, s);
+    return launch_chunk<float, __nv_bfloat16>(q, k, v, kc, vc, table, start, lens, out, pf, mf, B, K, H, D, bs, M, key_range, warps, scale, s);
   if (q_dtype == 1 && kv_dtype == 0)
-    return launch_chunk<__nv_bfloat16, float>(q, k, v, kc, vc, table, start, lens, out, B, K, H, D, bs, M, scale, smem, s);
-  return launch_chunk<__nv_bfloat16, __nv_bfloat16>(q, k, v, kc, vc, table, start, lens, out, B, K, H, D, bs, M, scale, smem, s);
+    return launch_chunk<__nv_bfloat16, float>(q, k, v, kc, vc, table, start, lens, out, pf, mf, B, K, H, D, bs, M, key_range, warps, scale, s);
+  return launch_chunk<__nv_bfloat16, __nv_bfloat16>(q, k, v, kc, vc, table, start, lens, out, pf, mf, B, K, H, D, bs, M, key_range, warps, scale, s);
 }
 
 size_t mx_paged_prefill_smem(int D) { return attn32::fwd_smem(D); }

@@ -1,9 +1,9 @@
 // Tensor-core building blocks for Hopper (sm_90a), shared by the bf16
 // kernels of flash_attention.cu and fused_gemm_bf16.cuh and the f32
-// attention kernels of attention_f32.cuh: cp.async copies into shared
-// memory, ldmatrix fragment loads, the mma.sync m16n8k16 product with
-// bf16 operands and f32 sums, and the m16n8k8 product with tf32
-// operands and f32 sums.
+// kernels of attention_f32.cuh, paged_attention.cu and fused_gemm_f32.cuh:
+// cp.async copies into shared memory, ldmatrix fragment loads, the
+// mma.sync m16n8k16 product with bf16 operands and f32 sums, the m16n8k8
+// product with tf32 operands and f32 sums, and split TF32 (3xTF32) on it.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16): lane = 4 g + t.
 // A (16 x 16, row-major) comes from ldsm_x4 over rows (lane & 15) and
@@ -93,6 +93,51 @@ __device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], uint32
 __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Split TF32 ("3xTF32").  One TF32 product keeps 10 mantissa bits of each
+// operand, about 2^-11 relative: too coarse for the f32 kernels'
+// tolerance (rtol 1e-4 / atol 1e-5 against their plain f32 versions).
+// Each operand x is split into hi = tf32(x) and lo = x - hi, and every
+// product step issues three m16n8k8 products, lo * hi', hi * lo' and
+// hi * hi' (mma3); the dropped lo * lo' and lo's truncation leave a few
+// 2^-22 relative per product, against an f32 FMA's 2^-24.  This is the
+// arithmetic of CUTLASS's OpMultiplyAddFastF32 (PyTorch's f32 SDPA
+// kernel).  The tensor cores' own f32 accumulation does not round to
+// nearest, so no mma chain runs long: the kernels sum a few k steps into
+// a fresh fragment, then add it to their accumulator in f32.
+//
+// hi is x rounded to tf32, to nearest with ties away (cvt.rna's rounding,
+// here by an integer add of half the 13 dropped bits' weight and a mask:
+// two full-rate instructions where cvt runs on the quarter-rate
+// conversion pipe); lo = x - hi is exact and passed whole, as the tensor
+// cores read a tf32 operand's top 19 bits and drop the rest, so lo enters
+// truncated: 2^-21 of x at most.  x is finite here.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+// hi and lo of x (split) as f32 values
+__device__ __forceinline__ void split_f(float x, float& hi, float& lo) {
+  hi = __uint_as_float(tf32_rna(x));
+  lo = x - hi;
+}
+
+// c += a b in 3xTF32: the two cross terms, then hi * hi
+__device__ __forceinline__ void mma3(float c[4], const uint32_t ah[4], const uint32_t al[4],
+                                     uint32_t bh0, uint32_t bh1, uint32_t bl0,
+                                     uint32_t bl1) {
+  mma_tf32(c, al, bh0, bh1);
+  mma_tf32(c, ah, bl0, bl1);
+  mma_tf32(c, ah, bh0, bh1);
+}
+
+// bytes (a multiple of 16) at a 16-byte aligned global address into L2
+__device__ __forceinline__ void prefetch_l2(const void* p, int bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(p), "r"(bytes) : "memory");
 }
 
 inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }

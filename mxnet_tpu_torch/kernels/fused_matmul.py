@@ -3,12 +3,16 @@ ReLU and 1x1 convolution of channel-last ResNets.
 
 Counterpart of ``mxnet_tpu/ops/fused.py`` ``_pallas_fwd`` (the Pallas
 kernel of ``fused_scale_relu_matmul``).  The kernel is
-``csrc/fused_matmul.cu`` (design notes in the source): a GEMM whose
+``csrc/fused_matmul.cu`` (design notes in the sources): a GEMM whose
 prologue applies the per-channel affine and the ReLU to each tile of
 ``x`` in shared memory, so the activation never exists in device
-memory, and whose epilogue adds the residual; in f32 register-tiled on
-the CUDA cores, in bf16 on the tensor cores (``mma.sync``, the GEMM of
-``csrc/fused_gemm_bf16.cuh`` that row 10's ``fused_band4d`` shares).  ``x``, ``w``, ``res`` and the output share one type, f32 or
+memory, and whose epilogue adds the residual; both types on the tensor
+cores with ``mma.sync``: bf16 through the GEMM of
+``csrc/fused_gemm_bf16.cuh`` that row 10's ``fused_band4d`` shares, f32
+through ``csrc/fused_gemm_f32.cuh`` in split TF32 (three TF32 products
+on the hi and lo halves of each operand, summed in f32: within
+rtol 1e-4 / atol 1e-5 of the plain f32 version, where one TF32 product
+is not).  ``x``, ``w``, ``res`` and the output share one type, f32 or
 bf16; ``scale`` and ``shift`` are f32.  In bf16 the kernel follows the
 TPU kernel's rounding points: the activation is computed in f32 and
 rounded to bf16 before the product, the product and the residual add

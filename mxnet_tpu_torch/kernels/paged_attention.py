@@ -7,8 +7,11 @@ Counterparts of ``mxnet_tpu/pallas/attention.py``
 ``(num_blocks, block_size, H, D)`` addressed through an int32 block
 table, queries and chunk rows seq-major.  The kernels are
 ``csrc/paged_attention.cu`` (design note in the source; the one-shot
-prefill runs the f32 flash forward of ``csrc/attention_f32.cuh``).  Beside each wrapper is its plain PyTorch version: the CPU
-path and the kernel's yardstick on the card.
+and chunked prefills run the f32 flash forward of
+``csrc/attention_f32.cuh``, split TF32 on the tensor cores, the chunked
+one over key ranges of the context that a second launch combines).
+Beside each wrapper is its plain PyTorch version: the CPU path and the
+kernel's yardstick on the card.
 
 The two prefills write their K/V rows into the caches IN PLACE and
 return the same cache tensors: the counterpart of the JAX kernels'
@@ -27,30 +30,43 @@ from .dispatch import (DTYPE_CODE, FLOAT_TYPES, check_tensor, count_launch,
 
 __all__ = ["paged_decode_attend", "paged_decode_attend_plain",
            "paged_chunk_prefill_attend", "paged_chunk_prefill_attend_plain",
+           "chunk_plan",
            "paged_prefill_attend", "paged_prefill_attend_plain"]
 
 _DECODE = "paged_decode_attend"
 _CHUNK = "paged_chunk_prefill_attend"
 _PREFILL = "paged_prefill_attend"
-_MAX_SMEM = 232448             # bytes of shared memory a block may use
 # the decode kernel's shared memory is (head_dim + block_size) floats
-# under the default 48 KB; the chunk kernel's grows by 64 bytes per unit
-# of head_dim (head_dim <= 3100); the one-shot prefill has no limit
+# under the default 48 KB; the chunk and one-shot prefills have no limit
 _DECODE_MAX_D = 8192
 _INT = (torch.int32,)
+# the chunk kernel's launch plan (chunk_plan): an H100's streaming
+# multiprocessors, the key ranges it picks from (multiples of the
+# kernel's 32-key stage), and the warps it aims to keep busy an SM for
+# four-warp and one-warp blocks (a one-warp block walks its key tiles
+# alone, so it wants shorter ranges: tools/torch_flash_tune.py --chunk)
+_SMS = 132
+_KEY_RANGES = (1024, 512, 256, 128, 64)
+_WARPS_PER_SM = {4: 4, 1: 8}
 
 
 def _lib():
-    lib = _build.load("paged_attention")
+    return _bind(_build.load("paged_attention"))
+
+
+def _bind(lib):
+    """Set the argument types of a loaded ``paged_attention`` library
+    (once); returns it."""
     if lib.mx_paged_decode.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.mx_paged_decode.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f,
                                         i, i, i, p]
         lib.mx_paged_decode.restype = i
-        lib.mx_paged_chunk_prefill.argtypes = [p, p, p, p, p, p, p, p, p, i,
-                                               i, i, i, i, i, f, i, i, i, p]
+        lib.mx_paged_chunk_prefill.argtypes = [p, p, p, p, p, p, p, p, p, p,
+                                               p, i, i, i, i, i, i, i, i, f,
+                                               i, i, i, p]
         lib.mx_paged_chunk_prefill.restype = i
-        lib.mx_paged_chunk_prefill_smem.argtypes = [i]
+        lib.mx_paged_chunk_prefill_smem.argtypes = [i, i, i, i]
         lib.mx_paged_chunk_prefill_smem.restype = ctypes.c_size_t
         lib.mx_paged_prefill.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i,
                                          i, i, f, i, i, i, p]
@@ -166,6 +182,27 @@ def paged_chunk_prefill_attend_plain(q, k, v, k_cache, v_cache, block_table,
     return o.to(q.dtype), k_cache, v_cache
 
 
+def chunk_plan(B, K, H, D, ctx):
+    """The chunk kernel's launch plan, a function of the static shapes
+    alone (never of ``start`` or ``lengths``, which live on the device):
+    ``warps`` a block (one for spans of up to 16 rows, four for longer
+    chunks: 16 query rows a warp), ``key_range`` (the keys a block
+    takes: the largest of ``_KEY_RANGES`` whose blocks over the ``ctx =
+    M * block_size`` keys a row's table addresses still give
+    ``_WARPS_PER_SM[warps]`` warps an SM), ``ranges`` (``ceil(ctx /
+    key_range)``, the workspace's range axis) and ``blocks`` (the first
+    kernel's grid: query tiles x ranges x rows x heads x 128-column
+    chunks of head_dim)."""
+    warps = 1 if K <= 16 else 4
+    tiles = -(-K // (16 * warps))
+    for key_range in _KEY_RANGES:
+        ranges = -(-ctx // key_range)
+        if B * H * tiles * ranges * warps >= _WARPS_PER_SM[warps] * _SMS:
+            break
+    return {"warps": warps, "key_range": key_range, "ranges": ranges,
+            "blocks": tiles * ranges * B * H * -(-D // 128)}
+
+
 def paged_chunk_prefill_attend(q, k, v, k_cache, v_cache, block_table, start,
                                lengths, *, scale):
     """Chunked prefill attention over an EXISTING cache: chunk rows
@@ -173,9 +210,11 @@ def paged_chunk_prefill_attend(q, k, v, k_cache, v_cache, block_table, start,
     start[b] + lengths[b])``; each attends causally to the whole context
     so far.  The chunk's real K/V rows are written into the caches in
     place; rows past ``lengths[b]`` are padding (never written, outputs
-    don't-care) and ``lengths[b] == 0`` leaves the caches byte-identical.
+    zeros) and ``lengths[b] == 0`` leaves the caches byte-identical.
     Returns ``(out (B, K, H, D), k_cache, v_cache)``.  CPU tensors take
-    the plain version; CUDA tensors launch the kernel or raise."""
+    the plain version; CUDA tensors launch the kernel or raise.  The
+    kernel splits each row's keys into ranges (:func:`chunk_plan`) and
+    combines them in a second launch, from workspaces allocated here."""
     if on_cpu(_CHUNK, q, k, v, k_cache, v_cache, block_table, start,
               lengths):
         return paged_chunk_prefill_attend_plain(
@@ -196,21 +235,28 @@ def paged_chunk_prefill_attend(q, k, v, k_cache, v_cache, block_table, start,
                          % (_CHUNK, block_table.shape[0], B))
     check_tensor(_CHUNK, "start", start, dtypes=_INT, shape=(B,))
     check_tensor(_CHUNK, "lengths", lengths, dtypes=_INT, shape=(B,))
-    lib = _lib()
-    smem = lib.mx_paged_chunk_prefill_smem(D)
-    if smem > _MAX_SMEM:
-        raise MXNetError("%s: head_dim %d needs %d bytes of shared memory, "
-                         "more than a block has (the kernel takes head_dim "
-                         "<= 3100)" % (_CHUNK, D, smem))
+    M = block_table.shape[1]
+    if B * H > 65535:
+        raise MXNetError("%s: the kernel takes batch * heads <= 65535, got "
+                         "%d" % (_CHUNK, B * H))
     out = torch.empty_like(q)
-    if B == 0 or H == 0:
+    if out.numel() == 0:
         return out, k_cache, v_cache
+    if M * bs == 0:             # no cache row: every row is padding
+        return out.zero_(), k_cache, v_cache
+    plan = chunk_plan(B, K, H, D, M * bs)
+    # one workspace: each range's partial sums (rows x D), then each
+    # row's running max and sum (rows x 2)
+    rows = B * H * plan["ranges"] * K
+    ws = torch.empty(rows * (D + 2), dtype=torch.float32, device=q.device)
+    lib = _lib()
     err = lib.mx_paged_chunk_prefill(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(), block_table.data_ptr(), start.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), B, K, H, D, bs,
-        block_table.shape[1], float(scale), DTYPE_CODE[q.dtype],
-        DTYPE_CODE[k_cache.dtype], q.device.index or 0,
+        lengths.data_ptr(), out.data_ptr(), ws.data_ptr(),
+        ws.data_ptr() + rows * D * 4,
+        B, K, H, D, bs, M, plan["key_range"], plan["warps"], float(scale),
+        DTYPE_CODE[q.dtype], DTYPE_CODE[k_cache.dtype], q.device.index or 0,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, _CHUNK, err)
     count_launch(_CHUNK)

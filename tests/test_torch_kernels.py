@@ -310,11 +310,13 @@ _HEADER_USERS = {
     "tc_mma.cuh": ("fused_matmul", "fused_band4d", "flash_attention",
                    "paged_attention"),
     "fused_gemm_bf16.cuh": ("fused_matmul", "fused_band4d"),
-    "attention_f32.cuh": ("flash_attention", "paged_attention")}
+    "attention_f32.cuh": ("flash_attention", "paged_attention"),
+    "fused_gemm_f32.cuh": ("fused_matmul",)}
 
 
 @pytest.mark.parametrize("header", ["tc_mma.cuh", "fused_gemm_bf16.cuh",
-                                    "attention_f32.cuh"])
+                                    "attention_f32.cuh",
+                                    "fused_gemm_f32.cuh"])
 def test_build_target_follows_the_shared_headers(tmp_path, monkeypatch,
                                                  header):
     """An edit to a shared header renames the library of every source

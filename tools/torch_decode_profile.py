@@ -111,6 +111,7 @@ def group(name):
                        ("flash_fwd", "flash_attention_fwd"),
                        ("flash_bwd_dkv", "flash_attention_bwd_dkv"),
                        ("flash_bwd_dq", "flash_attention_bwd_dq"),
+                       ("fused_gemm", "fused_scale_relu_matmul"),
                        ("gemm", "matmul"), ("gemv", "matmul"),
                        ("sm90", "matmul"), ("cutlass", "matmul"),
                        ("nvjet", "matmul"),
@@ -498,9 +499,9 @@ def profile_trainstep(torch, cs, mx, layout, fuse, dtype="float32"):
     device_ms = sum(total.values())
     ranges = _range_ms(torch, prof, n)
     relayout = _kernel_ms(torch, prof, n, _RELAYOUT)
-    # row 7's kernel: the CUDA-core f32 form, or the bf16 tensor-core GEMM
+    # row 7's kernel: the f32 (split TF32) or bf16 tensor-core GEMM
     fused_kernel = sum(_kernel_ms(torch, prof, n, (
-        "fused_scale_relu_matmul", "fused_gemm_bf16")).values())
+        "fused_gemm_f32", "fused_gemm_bf16")).values())
     memcpy = sum(_kernel_ms(torch, prof, n, ("memcpy dtod",)).values())
     # cuDNN's own layout transposes run inside the convolution ranges; the
     # fused op's range holds its kernel and the rest of its forward:

@@ -2,6 +2,7 @@
 """Time variants of the flash-attention kernels on one GPU.
 
     python3 tools/torch_flash_tune.py [--dtype float32|bfloat16] [--only V ...]
+    python3 tools/torch_flash_tune.py --chunk [--only V ...]
 
 Each variant is ``mxnet_tpu_torch/csrc/flash_attention.cu`` and
 ``attention_f32.cuh`` with a few text substitutions of their tuning
@@ -24,8 +25,22 @@ variant: its ``ptxas`` registers and spill bytes per kernel and the
 mean of its two times per kernel, then the card's name and power limit.
 Needs a CUDA device; the variants go through the port's wrappers with
 the wrapper's library swapped for the variant's.
+
+``--chunk`` tunes row 2's chunked prefill instead
+(``csrc/paged_attention.cu``): its ``CHUNK_VARIANTS`` (ring depth, and
+``CHUNK_DIAGNOSE`` variants that leave out the combine or the attention)
+are built the same way, each held against the plain version at the
+mixed step's chunk and the spec step's spans (``chip_smoke``'s shapes,
+f32, rtol 1e-4 / atol 1e-5, caches exact), spans over the short
+contexts of ``chip_smoke``'s serve_spec phase and an empty chunk, and
+timed there, each alone (``chip_smoke.time_ms``) and over 100 calls
+launched back to back ("pipelined", as a serving step runs them); the tuned
+library is also run at every key range of ``CHUNK_RANGES`` (the launch
+plan's ``key_range``, patched: no rebuild), so the plan's choice can be
+read against the others.
 """
 import argparse
+import contextlib
 import ctypes
 import importlib
 import json
@@ -37,7 +52,8 @@ from unittest import mock
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(HERE, "mxnet_tpu_torch", "csrc")
-FILES = ("flash_attention.cu", "attention_f32.cuh")
+FILES = ("flash_attention.cu", "attention_f32.cuh", "tc_mma.cuh")
+CHUNK_FILES = ("paged_attention.cu", "attention_f32.cuh", "tc_mma.cuh")
 OUT = os.path.join(HERE, "build", "flash_tune")
 TUNED = dict(fwd="kFwdWarps = 4, kFwdMinBlocks = 3, kFwdStep = 64, kFwdStages = 2",
              dkv="kDkvWarps = 4, kDkvMinBlocks = 1, kDkvStep = 32, kDkvStages = 2",
@@ -140,9 +156,70 @@ DIAGNOSE = {
     "no_a_split": [("for (int i = 0; i < 4; ++i) split(__uint_as_float(a[i]), ah[i], al[i]);",
                     "for (int i = 0; i < 4; ++i) ah[i] = a[i], al[i] = 0u;")],
     # one TF32 product a step (the two cross terms dropped)
-    "one_product": [("  tc::mma_tf32(c, al, bh0, bh1);\n  tc::mma_tf32(c, ah, bl0, bl1);\n",
+    "one_product": [("  mma_tf32(c, al, bh0, bh1);\n  mma_tf32(c, ah, bl0, bl1);\n",
                      "")],
 }
+# row 2's chunked prefill (paged_attention.cu)
+CHUNK_VARIANTS = {
+    "tuned": [],
+    "ring_of_3": [("kChunkStages = 2;", "kChunkStages = 3;")],
+    "16_key_stages": [("kChunkStep = 32,", "kChunkStep = 16,")],
+    # mma_nk issues each term across its n8 tiles before the next term
+    # (independent mma back to back; the same sums in the same order)
+    "interleaved_nk": [(
+        "#pragma unroll\n          for (int np = 0; np < NT / 2; ++np) {\n"
+        "            uint32_t fh[4], fl[4];\n"
+        "            tc::ldsm_x4(fh, b + bo + np * 16 * kLd + kk * 8);\n"
+        "            tc::ldsm_x4(fl, b_lo + bo + np * 16 * kLd + kk * 8);\n"
+        "            mma3(c[2 * np], ah, al, fh[0], fh[1], fl[0], fl[1]);\n"
+        "            mma3(c[2 * np + 1], ah, al, fh[2], fh[3], fl[2], fl[3]);\n"
+        "          }",
+        "uint32_t fh[NT / 2][4], fl[NT / 2][4];\n#pragma unroll\n"
+        "          for (int np = 0; np < NT / 2; ++np) {\n"
+        "            tc::ldsm_x4(fh[np], b + bo + np * 16 * kLd + kk * 8);\n"
+        "            tc::ldsm_x4(fl[np], b_lo + bo + np * 16 * kLd + kk * 8);\n"
+        "          }\n#pragma unroll\n          for (int np = 0; np < NT / 2; ++np) {\n"
+        "            tc::mma_tf32(c[2 * np], al, fh[np][0], fh[np][1]);\n"
+        "            tc::mma_tf32(c[2 * np + 1], al, fh[np][2], fh[np][3]);\n          }\n"
+        "#pragma unroll\n          for (int np = 0; np < NT / 2; ++np) {\n"
+        "            tc::mma_tf32(c[2 * np], ah, fl[np][0], fl[np][1]);\n"
+        "            tc::mma_tf32(c[2 * np + 1], ah, fl[np][2], fl[np][3]);\n          }\n"
+        "#pragma unroll\n          for (int np = 0; np < NT / 2; ++np) {\n"
+        "            tc::mma_tf32(c[2 * np], ah, fh[np][0], fh[np][1]);\n"
+        "            tc::mma_tf32(c[2 * np + 1], ah, fh[np][2], fh[np][3]);\n          }")],
+    # the shared-memory attribute set once per kernel, not at every launch
+    "smem_once": [("  cudaError_t err = cudaFuncSetAttribute(\n"
+                   "      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);\n"
+                   "  if (err != cudaSuccess) return (int)err;",
+                   "  static const void* allowed[16];\n  static int nallowed = 0;\n"
+                   "  bool known = false;\n"
+                   "  for (int i = 0; i < nallowed; ++i) known |= allowed[i] == (const void*)fn;\n"
+                   "  cudaError_t err = cudaSuccess;\n  if (!known) {\n"
+                   "    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, "
+                   "232448);\n    if (err != cudaSuccess) return (int)err;\n"
+                   "    if (nallowed < 16) allowed[nallowed++] = (const void*)fn;\n  }", "all")],
+}
+CHUNK_DIAGNOSE = {
+    # the first kernel alone (the combine and its scatter not launched)
+    "no_combine": [("  paged_chunk_combine_kernel<TQ, TKV><<<",
+                    "  if (K < 0) paged_chunk_combine_kernel<TQ, TKV><<<")],
+    # the first kernel stops before its attention (launch, table, first copies)
+    "no_attention": [("  float sc[KT / 8][4], acc[kDC / 8][4];",
+                      "  if (K > 0) return;\n  float sc[KT / 8][4], acc[kDC / 8][4];")],
+    # the first kernel returns at entry (launch alone, then the combine)
+    "empty_first": [("  constexpr int R = 16 * kW, TH = 32 * kW, KT = kChunkStep, NS = kChunkStages;",
+                     "  if (K > 0) return;\n"
+                     "  constexpr int R = 16 * kW, TH = 32 * kW, KT = kChunkStep, NS = kChunkStages;")],
+    # the products left out (copies, split, softmax and stores kept)
+    "no_products": [("      attn32::mma_nk<KT / 8>(sc,", "      if (K < 0) attn32::mma_nk<KT / 8>(sc,"),
+                    ("    attn32::mma_kn<KT / 8, true>(acc,", "    if (K < 0) attn32::mma_kn<KT / 8, true>(acc,")],
+    # the split pass over each landed K tile left out
+    "no_split_pass": [("    if (j < nch) attn32::split_tile<KT, TH>(tile,",
+                       "    if (K < 0) attn32::split_tile<KT, TH>(tile,")],
+    # nothing launched: the wrapper's host work alone
+    "no_launch": [("  float* pf = (float*)part;\n", "  if (K > 0) return 0;\n  float* pf = (float*)part;\n")],
+}
+CHUNK_RANGES = (32, 64, 128, 256, 512)
 ENTRIES = {"bfloat16": {"flash_attention_fwd": "flash_fwd_bf16_kernelILb1",
                         "flash_attention_bwd_dkv": "flash_bwd_dkv_bf16_kernelILb1",
                         "flash_attention_bwd_dq": "flash_bwd_dq_bf16_kernelILb1"},
@@ -152,31 +229,32 @@ ENTRIES = {"bfloat16": {"flash_attention_fwd": "flash_fwd_bf16_kernelILb1",
 CHECK_SHAPES = ((4, 16, 1024, 128), (2, 4, 1000, 36))
 
 
-def build(variants, dtype):
+def build(variants, dtype, files=FILES):
     """Start one nvcc per variant, then wait for all; returns {name:
     (library path, nvcc output)}."""
     from mxnet_tpu_torch.kernels import _build
     texts = {}
-    for name in FILES:
+    for name in files:
         with open(os.path.join(CSRC, name)) as f:
             texts[name] = f.read()
     procs = {}
+    names = tuple(files)
     for name, subs in variants.items():
-        files = dict(texts)
+        texts_v = dict(texts)
         for old, new, *every in subs:
-            where = [n for n in FILES if old in files[n]]
+            where = [n for n in names if old in texts_v[n]]
             if len(where) != 1:
                 raise SystemExit("variant %s: %r in %d of the sources, not 1"
                                  % (name, old, len(where)))
-            files[where[0]] = files[where[0]].replace(old, new, -1 if every else 1)
+            texts_v[where[0]] = texts_v[where[0]].replace(old, new, -1 if every else 1)
         out = os.path.join(OUT, dtype, name)
         os.makedirs(out, exist_ok=True)
-        for fname, text in files.items():
+        for fname, text in texts_v.items():
             with open(os.path.join(out, fname), "w") as f:
                 f.write(text)
         procs[name] = subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-I", CSRC, "-o",
-             os.path.join(out, "lib.so"), os.path.join(out, FILES[0])],
+             os.path.join(out, "lib.so"), os.path.join(out, names[0])],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     built = {}
     for name, proc in procs.items():
@@ -216,9 +294,129 @@ def load(path):
     return lib
 
 
+def chunk_ptxas(log):
+    """{instance: {registers, spill_stores, spill_loads}} of the chunk
+    kernel's f32 instances (1 and 4 warps, D % 128 == 0 or not)."""
+    lines = log.splitlines()
+    found = {}
+    for i, line in enumerate(lines):
+        m = re.search(r"paged_chunk_kernelILi\d+ELb[01]Eff", line)
+        if "Compiling entry function" in line and m:
+            block = " ".join(lines[i + 1:i + 4])
+            found[m.group(0)] = {
+                "registers": int(re.search(r"Used (\d+) registers", block).group(1)),
+                "spill_stores": int(re.search(r"(\d+) bytes spill stores", block).group(1)),
+                "spill_loads": int(re.search(r"(\d+) bytes spill loads", block).group(1))}
+    return found
+
+
+def main_chunk(args, torch, cs):
+    """Row 2's variants and key ranges at the two served shapes."""
+    pa = importlib.import_module("mxnet_tpu_torch.kernels.paged_attention")
+    variants = dict(CHUNK_VARIANTS, **CHUNK_DIAGNOSE)
+    if args.only:
+        unknown = set(args.only) - set(variants)
+        if unknown:
+            raise SystemExit("unknown variants: %s" % sorted(unknown))
+        variants = {n: v for n, v in variants.items() if n == "tuned" or n in args.only}
+    built = build(variants, "chunk", CHUNK_FILES)
+    libs = {name: pa._bind(ctypes.CDLL(path)) for name, (path, _) in built.items()}
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device="cpu").manual_seed(cs.SEED + 33)
+    H, D, nb, bs, M = 16, 128, 512, 16, 64
+    kc = torch.randn(nb, bs, H, D, generator=g).to(dev)
+    vc = torch.randn(nb, bs, H, D, generator=g).to(dev)
+    cases = {}
+    for case, B, K, starts, lens in (
+            ("mixed", 1, 64, [576], [64]),
+            ("spec_spans", 8, 5, [37, 700, 0, 1018, 255, 512, 96, 3],
+             [5, 3, 0, 5, 1, 2, 4, 5]),
+            # the serve_spec phase's contexts: short prompts, full spans
+            ("spec_short", 8, 5, [60, 90, 130, 70, 100, 120, 140, 80], [5] * 8),
+            ("chunk_empty", 1, 64, [0], [0])):
+        q, k, v = (torch.randn(B, K, H, D, generator=g).to(dev) for _ in range(3))
+        table = torch.randperm(nb, generator=g)[:B * M].reshape(B, M).to(torch.int32).to(dev)
+        st, ln = (torch.tensor(x, dtype=torch.int32, device=dev) for x in (starts, lens))
+        real = (torch.arange(K, device=dev)[None, :] < ln[:, None].long())
+        cases[case] = (q, k, v, table, st, ln, real)
+    sc = 1.0 / D ** 0.5
+    plan = pa.chunk_plan
+
+    @contextlib.contextmanager
+    def arm(name, key_range):
+        """The wrapper on the variant's library, at a forced key range or
+        the plan's (patched once around an arm's calls, not per call)"""
+        def fixed(*a):
+            p = plan(*a)
+            if key_range is None:
+                return p
+            return dict(p, key_range=key_range, ranges=-(-a[4] // key_range))
+        with mock.patch.object(pa, "_lib", lambda: libs[name]), \
+                mock.patch.object(pa, "chunk_plan", fixed):
+            yield
+
+    def runs():
+        out = []
+        for case, (q, k, v, table, st, ln, real) in cases.items():
+            kk, vk = kc.clone(), vc.clone()
+
+            def fn(q=q, k=k, v=v, table=table, st=st, ln=ln, kk=kk, vk=vk):
+                return pa.paged_chunk_prefill_attend(q, k, v, kk, vk, table, st, ln, scale=sc)
+            out.append((case, fn, (q, k, v, table, st, ln, real, kk, vk)))
+        return out
+
+    arms = [(name, None) for name in libs] + [("tuned", kr) for kr in CHUNK_RANGES]
+    bad = {}
+    for name, kr in arms:
+        for case, fn, (q, k, v, table, st, ln, real, kk, vk) in runs():
+            with arm(name, kr):
+                out, _, _ = fn()
+            kp, vp = kc.clone(), vc.clone()
+            ref, _, _ = pa.paged_chunk_prefill_attend_plain(q, k, v, kp, vp, table, st, ln,
+                                                            scale=sc)
+            torch.cuda.synchronize()
+            if not (cs.close(torch, out[real], ref[real]) and torch.equal(kk, kp)):
+                bad.setdefault((name, kr), []).append(
+                    "%s: max abs err %g" % (case, cs.max_err(out[real], ref[real])))
+    flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
+
+    def pipelined_ms(fn, n=100):
+        """Device ms a call over n calls launched back to back (as a
+        serving step launches them): CUDA events around the run."""
+        for _ in range(5):
+            fn()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / n
+
+    times = {a: {} for a in arms}
+    for a in arms + arms[::-1]:
+        with arm(*a):
+            for case, fn, _ in runs():
+                times[a].setdefault(case, []).append(cs.time_ms(torch, fn, flush))
+                times[a].setdefault(case + ":pipelined", []).append(pipelined_ms(fn))
+    for name, kr in arms:
+        ms = {c: sum(t) / len(t) for c, t in times[name, kr].items()}
+        print(json.dumps({"variant": name, "key_range": kr if kr else "plan",
+                          "plan": {c: plan(cases[c][0].shape[0], cases[c][0].shape[1], H, D,
+                                           M * bs) for c in cases},
+                          "diagnostic": name in CHUNK_DIAGNOSE,
+                          "ptxas": chunk_ptxas(built[name][1]),
+                          "agrees": (name, kr) not in bad,
+                          "disagreements": bad.get((name, kr), []), "ms": ms}), flush=True)
+    cs.phase_device(torch)
+    return 1 if {n for n, _ in bad} - set(CHUNK_DIAGNOSE) else 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32")
+    ap.add_argument("--chunk", action="store_true",
+                    help="tune row 2's chunked prefill instead")
     ap.add_argument("--only", nargs="+", metavar="VARIANT",
                     help="these variants (and tuned) only")
     args = ap.parse_args(argv)
@@ -228,6 +426,8 @@ def main(argv=None):
         return 2
     sys.path.insert(0, HERE)
     import chip_smoke as cs
+    if args.chunk:
+        return main_chunk(args, torch, cs)
     fa = importlib.import_module("mxnet_tpu_torch.kernels.flash_attention")
     dev = torch.device("cuda", 0)
     dt = getattr(torch, args.dtype)

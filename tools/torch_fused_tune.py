@@ -1,28 +1,40 @@
 #!/usr/bin/env python3
-"""Time variants of the bf16 fused GEMM (rows 7 and 10) on one GPU.
+"""Time variants of the fused GEMMs (rows 7 and 10) on one GPU.
 
-    python3 tools/torch_fused_tune.py [--diagnose]
+    python3 tools/torch_fused_tune.py [--dtype bfloat16|float32] [--diagnose]
+    python3 tools/torch_fused_tune.py --dtype float32 [--diagnose] --only V ...
 
-Each variant is ``mxnet_tpu_torch/csrc/fused_gemm_bf16.cuh`` with a few
-text substitutions of its tuning constants or its tile rule
-(``VARIANTS``), written with copies of ``fused_matmul.cu`` and
-``fused_band4d.cu`` into ``build/fused_tune/<variant>/`` and built by
-``nvcc`` with the port's flags (``tc_mma.cuh`` from ``csrc/``), all
-builds started together.  Every variant is held against the plain
-versions (``chip_smoke.close_bf16``) at ResNet-50's 8 fused-site shapes
-at batch 256 (``chip_smoke.FUSED_SHAPES``, M doubled), the fused
-sandwich's two bands and the edge shapes of ``chip_smoke``, its row-7
-and row-10 outputs on the same band bit for bit; then each shape is
-timed with ``chip_smoke.time_ms`` (median of 60 launches, L2 flushed),
-the variants in turns and then in reverse order.  Prints one JSON line
-per variant: the ``ptxas`` registers and spill bytes of its 128 x 128
-instances, the mean of its two times per shape, the 28-launch step sum
-and the bands' mean; then the card's name and power limit.  Needs a
-CUDA device; the variants go through the port's wrappers with each
-wrapper's library swapped for the variant's.  ``--diagnose`` adds the
-``DIAGNOSTICS`` variants, which leave out the products, the prologue,
-W's copies or Y's stores: wrong by design (reported, not failed), they
-show what each part of the work costs.
+bf16 (the default): each variant is
+``mxnet_tpu_torch/csrc/fused_gemm_bf16.cuh`` with a few text
+substitutions of its tuning constants or its tile rule (``VARIANTS``),
+written with copies of ``fused_matmul.cu`` and ``fused_band4d.cu`` into
+``build/fused_tune/<variant>/`` and built by ``nvcc`` with the port's
+flags (``tc_mma.cuh`` from ``csrc/``), all builds started together.
+Every variant is held against the plain versions
+(``chip_smoke.close_bf16``) at ResNet-50's 8 fused-site shapes at batch
+256 (``chip_smoke.FUSED_SHAPES``, M doubled), the fused sandwich's two
+bands and the edge shapes of ``chip_smoke``, its row-7 and row-10
+outputs on the same band bit for bit; then each shape is timed with
+``chip_smoke.time_ms`` (median of 60 launches, L2 flushed), the variants
+in turns and then in reverse order.  Prints one JSON line per variant:
+the ``ptxas`` registers and spill bytes of its 128 x 128 instances, the
+mean of its two times per shape, the 28-launch step sum and the bands'
+mean; then the card's name and power limit.
+
+float32: the variants are of ``csrc/fused_gemm_f32.cuh``, row 7's f32
+GEMM in split TF32 (``F32_VARIANTS``: K step, ring stages, blocks an SM,
+the k8 steps an mma chain sums), built with a copy of ``fused_matmul.cu``
+into ``build/fused_tune/float32/<variant>/``, held against the plain
+version at the card's f32 tolerance (``chip_smoke.close``, two runs
+bit-identical) at ResNet-50's 8 site shapes at batch 128, ``FUSED_ODD``
+and ``F32_EDGES``, and timed at the 8 sites.
+
+Needs a CUDA device; the variants go through the port's wrappers with
+each wrapper's library swapped for the variant's.  ``--diagnose`` adds
+the ``DIAGNOSTICS`` (bf16) or ``F32_DIAGNOSTICS`` variants, which leave
+out a part of the work (the products, the prologue, W's copies, Y's
+stores; in f32 the split pass, the cross products): wrong by design
+(reported, not failed), they show what each part costs.
 """
 import ctypes
 import importlib
@@ -40,6 +52,14 @@ HEADER = "fused_gemm_bf16.cuh"
 ENTRIES = ("fused_matmul", "fused_band4d")
 OUT = os.path.join(HERE, "build", "fused_tune")
 TUNED = "kStep = 64, kStages = 3, kWarps = 8, kMinBlocks = 2"
+# the f32 GEMM's constants line in fused_gemm_f32.cuh
+HEADER_F32 = "fused_gemm_f32.cuh"
+TUNED_F32 = "kStep = 32, kStages = 2, kMinBlocks = 1, kGroup = 4"
+# f32 shapes past chip_smoke's: M off the row tile at K = 2048 and 512,
+# N 36 (not a multiple of 4: Y element by element), x 4 bytes off
+# 16-byte alignment; (M, K, N, residual, x's element offset)
+F32_EDGES = ((6272 + 37, 512, 2048, True, 0), (6272 + 37, 2048, 512, False, 0),
+             (1000, 72, 36, True, 0), (4096, 256, 128, True, 1))
 
 
 def _consts(step, stages, warps, min_blocks):
@@ -67,6 +87,39 @@ VARIANTS = {
 }
 
 
+def _consts_f32(step, stages, min_blocks, group):
+    return (TUNED_F32, "kStep = %d, kStages = %d, kMinBlocks = %d, kGroup = %d"
+            % (step, stages, min_blocks, group))
+
+
+_WARPS8 = ("constexpr int kWarps = 16, kBM = 128;", "constexpr int kWarps = 8, kBM = 128;")
+F32_VARIANTS = {
+    "tuned": [],
+    "ring_of_3": [_consts_f32(32, 3, 1, 4)],
+    "group_2": [_consts_f32(32, 2, 1, 2)],
+    # 128 x 128 tiles whenever N > 64, however few
+    "wide_tiles": [("  if (a.N <= 64 || (a.M + kBM - 1) / kBM * ((a.N + 127) / 128) < 2 * kSMs)\n",
+                    "  if (a.N <= 64)\n")],
+    # 8-warp blocks (64 x 32 warp tiles): one an SM, and two an SM with
+    # 16-column stages, a ring of 2 and chains of one k8 step (spills)
+    "eight_warps": [_WARPS8],
+    "eight_warps_step16": [_WARPS8, _consts_f32(16, 3, 1, 2)],
+    "eight_warps_two_blocks": [_WARPS8, _consts_f32(16, 2, 2, 1)],
+}
+_MMA3 = ("            tc::mma3(c, ah[kk], al[kk], bh[nt][kk][0], bh[nt][kk][1], "
+         "bl[nt][kk][0],\n                     bl[nt][kk][1]);")
+F32_DIAGNOSTICS = {
+    # one TF32 product a step (the two cross terms dropped)
+    "one_product": [(_MMA3, "            tc::mma_tf32(c, ah[kk], bh[nt][kk][0], "
+                     "bh[nt][kk][1]);")],
+    # the split and the prologue of the landed tiles left out
+    "no_split_pass": [("    if (st + 1 < nst) transform(st + 1, sv);",
+                       "    (void)sv;")],
+    # mma.sync left out (ldmatrix kept)
+    "no_products": [(_MMA3, "            c[0] += __uint_as_float(ah[kk][0] ^ bh[nt][kk][0]);")],
+}
+
+
 _MMA = "for (int nt = 0; nt < C::kNT; ++nt) tc::mma(acc[mt][nt], a, b[nt][0], b[nt][1]);"
 # --diagnose: variants that leave a part of the work out, so their
 # outputs are wrong by design; each one's time says what that part costs
@@ -82,24 +135,27 @@ DIAGNOSTICS = {
 }
 
 
-def build(names):
+def build(names, f32=False):
     """Start one nvcc per (variant, entry source), then wait for all;
     returns {name: {source: (library path, nvcc output)}}."""
     from mxnet_tpu_torch.kernels import _build
-    with open(os.path.join(CSRC, HEADER)) as f:
+    header_name = HEADER_F32 if f32 else HEADER
+    table = {**F32_VARIANTS, **F32_DIAGNOSTICS} if f32 else {**VARIANTS, **DIAGNOSTICS}
+    entries = ("fused_matmul",) if f32 else ENTRIES
+    with open(os.path.join(CSRC, header_name)) as f:
         header = f.read()
     procs = {}
     for name in names:
         text = header
-        for old, new in {**VARIANTS, **DIAGNOSTICS}[name]:
+        for old, new in table[name]:
             if old not in text:
                 raise SystemExit("variant %s: %r not in the header" % (name, old))
             text = text.replace(old, new)
-        vdir = os.path.join(OUT, name)
+        vdir = os.path.join(OUT, "float32", name) if f32 else os.path.join(OUT, name)
         os.makedirs(vdir, exist_ok=True)
-        with open(os.path.join(vdir, HEADER), "w") as f:
+        with open(os.path.join(vdir, header_name), "w") as f:
             f.write(text)
-        for src in ENTRIES:
+        for src in entries:
             path = os.path.join(vdir, src + ".cu")
             shutil.copyfile(os.path.join(CSRC, src + ".cu"), path)
             procs[name, src] = subprocess.Popen(
@@ -112,18 +168,23 @@ def build(names):
         if proc.returncode:
             raise SystemExit("nvcc failed for variant %s (%s.cu):\n%s"
                              % (name, src, log[-3000:]))
-        built.setdefault(name, {})[src] = (
-            os.path.join(OUT, name, src + ".so"), log)
+        built.setdefault(name, {})[src] = (path_of(name, src, f32), log)
     return built
 
 
-def ptxas(log, w_kn):
+def path_of(name, src, f32):
+    vdir = os.path.join(OUT, "float32", name) if f32 else os.path.join(OUT, name)
+    return os.path.join(vdir, src + ".so")
+
+
+def ptxas(log, w_kn, f32=False):
     """Registers and spill bytes of the 128 x 128 instances (X by
     cp.async and element by element)."""
     lines = log.splitlines()
     found = {}
     for vec in (1, 0):
-        entry = "fused_gemm_bf16_kernelILi128ELb%dELb%dE" % (w_kn, vec)
+        entry = "fused_gemm_f32_kernelILi128ELb%dE" % vec if f32 else \
+            "fused_gemm_bf16_kernelILi128ELb%dELb%dE" % (w_kn, vec)
         for i, line in enumerate(lines):
             if "Compiling entry function" in line and entry in line:
                 block = " ".join(lines[i + 1:i + 4])
@@ -139,10 +200,84 @@ def load(paths):
     fm = ctypes.CDLL(paths["fused_matmul"])
     fm.mx_fused_scale_relu_matmul.argtypes = [p, p, p, p, p, p, i64, i64, i64, i, i, p]
     fm.mx_fused_scale_relu_matmul.restype = i
+    if paths["fused_band4d"] is None:
+        return {"fused_matmul": fm}
     fb = ctypes.CDLL(paths["fused_band4d"])
     fb.mx_fused_band4d.argtypes = [p, p, p, p, p] + [i64] * 9 + [i, i, p]
     fb.mx_fused_band4d.restype = i
     return {"fused_matmul": fm, "fused_band4d": fb}
+
+
+def main_f32(torch, cs, fm, diagnose, only=None):
+    """The f32 GEMM's variants: checked at the sites, FUSED_ODD and
+    F32_EDGES, timed at the 8 sites of a batch-128 step.  ``only``:
+    these variants (and tuned), given last on the command line."""
+    dev = torch.device("cuda", 0)
+    names = list(F32_VARIANTS) + (list(F32_DIAGNOSTICS) if diagnose else [])
+    if only:
+        unknown = set(only) - set(names)
+        if unknown:
+            raise SystemExit("unknown variants: %s" % sorted(unknown))
+        names = [n for n in names if n == "tuned" or n in only]
+    built = build(names, f32=True)
+    libs = {name: load({"fused_matmul": v["fused_matmul"][0], "fused_band4d": None})
+            for name, v in built.items()}
+    g = torch.Generator(device=dev).manual_seed(cs.SEED + 43)
+
+    def site(M, K, N, res, off=0):
+        x = torch.randn(M * K + off, device=dev, generator=g)[off:].view(M, K)
+        sc = 1 + 0.2 * torch.randn(K, device=dev, generator=g)
+        sh = 0.2 * torch.randn(K, device=dev, generator=g)
+        w = torch.randn(N, K, device=dev, generator=g) / K ** 0.5
+        r = torch.randn(M, N, device=dev, generator=g) if res else None
+        return x, sc, sh, w, r
+
+    timed, checks = [], []
+    for shape in cs.FUSED_SHAPES:
+        args = site(*shape)
+        timed.append(("site_%dx%dx%d" % shape[:3],
+                      lambda args=args: fm.fused_scale_relu_matmul_fwd(*args)))
+        checks.append(("site_%dx%dx%d" % shape[:3], args))
+    for shape in [cs.FUSED_ODD] + list(F32_EDGES):
+        checks.append(("edge_%dx%dx%d" % shape[:3], site(*shape)))
+    bad, failed = {}, {}
+    for name, lib in libs.items():
+        with mock.patch.object(fm, "_lib", lambda lib=lib: lib["fused_matmul"]):
+            for what, args in checks:
+                try:
+                    got = fm.fused_scale_relu_matmul_fwd(*args)
+                    again = fm.fused_scale_relu_matmul_fwd(*args)
+                except Exception as e:     # a variant the card refuses: reported
+                    failed[name] = "%s: %s" % (what, e)
+                    break
+                ref = fm.fused_scale_relu_matmul_plain(*args)
+                torch.cuda.synchronize()
+                if not (cs.close(torch, got, ref) and torch.equal(got, again)):
+                    bad.setdefault(name, []).append(
+                        "%s: max abs err %g" % (what, cs.max_err(got, ref)))
+                del got, ref, again
+    for name, why in failed.items():
+        print(json.dumps({"variant": name, "dtype": "float32", "launch_failed": why}),
+              flush=True)
+        bad.setdefault(name, []).append(why)
+        del libs[name]
+    flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
+    times = {name: {} for name in libs}
+    for name in list(libs) + list(libs)[::-1]:
+        with mock.patch.object(fm, "_lib", lambda lib=libs[name]: lib["fused_matmul"]):
+            for what, fn in timed:
+                times[name].setdefault(what, []).append(cs.time_ms(torch, fn, flush))
+    for name in libs:
+        ms = {k: sum(v) / len(v) for k, v in times[name].items()}
+        step = sum(ms["site_%dx%dx%d" % s[:3]] * n for s, n in cs.FUSED_SHAPES.items())
+        print(json.dumps({
+            "variant": name, "dtype": "float32", "diagnostic": name in F32_DIAGNOSTICS,
+            "ptxas": ptxas(built[name]["fused_matmul"][1], 0, f32=True),
+            "agrees": name not in bad, "disagreements": bad.get(name, []),
+            "step_ms_28_launches": step, "mean_ms": step / sum(cs.FUSED_SHAPES.values()),
+            "ms": ms}), flush=True)
+    cs.phase_device(torch)
+    return 1 if set(bad) - set(F32_DIAGNOSTICS) else 0
 
 
 def main():
@@ -157,6 +292,9 @@ def main():
             "fused_band4d": importlib.import_module("mxnet_tpu_torch.kernels.fused_band4d")}
     fm, fb = mods["fused_matmul"], mods["fused_band4d"]
     torch.backends.cuda.matmul.allow_tf32 = False
+    if "--dtype" in sys.argv and sys.argv[sys.argv.index("--dtype") + 1] == "float32":
+        only = sys.argv[sys.argv.index("--only") + 1:] if "--only" in sys.argv else None
+        return main_f32(torch, cs, fm, "--diagnose" in sys.argv, only)
     dev = torch.device("cuda", 0)
     bf = torch.bfloat16
     names = list(VARIANTS) + (list(DIAGNOSTICS) if "--diagnose" in sys.argv else [])
