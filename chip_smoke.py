@@ -24,8 +24,14 @@ Phases, each printed as one JSON line:
    step's 8 x 5-row spans and bf16 caches (padded rows zeros, caches
    equal to the plain version's, nothing written outside [start, start +
    len), two runs bit-identical) and timed at the mixed chunk and the
-   spec spans beside SDPA on the gathered context; decode is timed beside
-   SDPA over each slot's gathered context;
+   spec spans beside SDPA on the gathered context; decode (each slot's
+   keys split evenly over the blocks of a thread block cluster; its
+   instances' ptxas lines first, no spills) is checked in all four (q,
+   cache) type pairs over long contexts (positions 20-731) and serve's
+   short ones (20-145), with an inactive slot and a position past the
+   table, and over one slot, two runs bit-identical, and timed alone
+   and 200 calls back to back beside SDPA over each slot's gathered
+   context;
 4. serve: the transformer LM at full width (L12, d2048, h16, vocab
    16384, ffn 8192, seq 1024; random N(0, 0.02) weights from a numpy
    seed) through ``DecodeEngine``: 8 ragged requests fill the 8 slots
@@ -39,8 +45,9 @@ Phases, each printed as one JSON line:
    atol 1e-4 and equal greedy streams (a stream is compared only up to
    a step where the CPU's top-2 logit margin is inside that tolerance);
 6. layernorm_bwd, flash_fwd, flash_bwd: the training kernels at the
-   training shapes (LayerNorm backward on 4096 x 2048, with and without
-   a residual, two runs bit-identical; causal flash attention on
+   training shapes (LayerNorm backward on 4096 x 2048 and at the widths
+   of LN_BWD_EDGES, with and without a residual, two runs bit-identical,
+   its instances' ptxas lines, no spills; causal flash attention on
    (4, 16, 1024, 128), (2, 4, 1000, 36) and (1, 2, 200, 30), after the
    f32 kernels' ptxas lines (no spills) and the name of the kernel SDPA
    launches in f32), each against its plain version, timed as in 3,
@@ -158,7 +165,8 @@ Phases, each printed as one JSON line:
    512), FlashAttentionFn end to end against autograd through the
    reference (relative L2 1e-2), each kernel's achieved TFLOP/s;
    LayerNorm forward and backward at
-   4096 x 2048; the fused kernel (tensor cores: the mma.sync GEMM of
+   4096 x 2048 (the backward also at LN_BWD_EDGES, two runs
+   bit-identical); the fused kernel (tensor cores: the mma.sync GEMM of
    fused_gemm_bf16.cuh; its instances' ptxas lines and shared memory
    printed first, no spills allowed, the CUDA-core kernel f32 only) at
    ResNet-50's 8 site shapes at batch 256, the odd shape and the edges of
@@ -170,7 +178,8 @@ Phases, each printed as one JSON line:
    over the dense bf16 tensor-core peak (989 TFLOP/s);
 21. head_dim: every attention kernel (flash x3, prefill, chunk, decode)
    at head_dim 256 and 512 with d_model kept at 2048, against its plain
-   version (f32 bound of 3, cache bytes exact), timed at 256;
+   version (f32 bound of 3, cache bytes exact), timed at 256; decode
+   also at the ragged head_dims 72, 30 and (bf16 caches) 36;
 22. train_bf16 (after 7): bench.py's transformer train mode in bf16,
    the full-width model through ``parallel.TrainStep`` with SGD momentum
    0.9 and multi_precision (learning rate 0.01, gradients rescaled by
@@ -234,7 +243,10 @@ Phases, each printed as one JSON line:
    GEMM's edges (BAND4D_EDGES; ptxas lines as in 20); the two bands
    timed as in 3 beside ``torch.matmul`` in bf16 on the activated input
    and row 7's kernel on the 2-D view, bounded by bytes over 3.35 TB/s
-   or operations over the bf16 tensor-core peak;
+   or operations over the bf16 tensor-core peak; then the f32 form (on
+   no main path) at the two bands in f32, against its plain version at
+   3's bound, timed beside torch.matmul in f32 (TF32 off) on the
+   activated input, bounded at the CUDA-core and the split-TF32 peaks;
 30. sandwich (after 26): ``tools/torch_fused_sandwich_bench.py``'s
    three arms (plain: elementwise ops and ``torch.matmul``; pal2d: row
    7's kernel on the 2-D view; pal4d: row 10's kernel) at its shapes:
@@ -369,8 +381,17 @@ FLASH_BF16_ENTRIES = {"flash_attention_fwd": ("flash_fwd_bf16_kernel", 0),
 TRAIN_BF16 = dict(batch=4, lr=0.01, momentum=0.9, steps=10, warmup=2)
 RESNET_BF16 = dict(batch=256, lr=0.1, momentum=0.9, wd=1e-4, steps=10,
                    warmup=2, sites=28)
+# LayerNorm backward beside the training shape, (rows, cols): one warp a
+# row (f32 256, bf16 512), two and four (a ragged row end), a width off
+# the 16-byte vector (element by element), eight warps in bf16 and the
+# looped form in f32 (4096), the looped form in both (6000) and the
+# widest row the wrapper takes
+LN_BWD_EDGES = ((256, 256), (256, 512), (128, 1000), (64, 2046), (64, 4096),
+                (64, 6000), (64, 14528))
 # the attention kernels at head_dims past 128, d_model kept at 2048
-HEAD_DIM = dict(dims=(256, 512), d_model=2048)
+HEAD_DIM = dict(dims=(256, 512), d_model=2048,
+                decode_ragged=((72, "float32"), (30, "float32"),
+                               (36, "bfloat16")))
 # the f32 flash kernels (split TF32, attention_f32.cuh) beside the
 # training shape: a ragged S with D % 4 == 0 (16-byte copies) and a
 # D % 4 != 0 shape (element-by-element copies); (B, H, S, D)
@@ -561,7 +582,84 @@ def phase_build():
           "ptxas": ptxas})
 
 
+def _instances_ptxas(source, pattern, what, smem_fn=None):
+    """ptxas's registers, stack and spills (none allowed) of every entry
+    function of csrc/<source>.cu whose mangled name matches the regex
+    ``pattern`` (keyed by the match: kernel and template arguments),
+    printed, with its dynamic shared memory at D = 128 when ``smem_fn``
+    gives it (``smem_fn(key)``)."""
+    import re
+    from mxnet_tpu_torch.kernels import _build
+    keys = sorted({re.search(pattern, line).group(0)
+                   for line in _build.log_path(source).read_text().splitlines()
+                   if "Compiling entry function" in line
+                   and re.search(pattern, line)})
+    check(keys, "ptxas log of %s.cu: no entry function matches %s"
+          % (source, pattern))
+    ptx = _ptxas(source, {key: key for key in keys})
+    for key in keys:
+        line = "ptxas %s: %s" % (key, "; ".join(ptx[key]["lines"]))
+        if smem_fn is not None:
+            ptx[key]["dynamic_smem_bytes_d128"] = smem_fn(key)
+            line += "; %d bytes of dynamic shared memory at D = 128" \
+                % ptx[key]["dynamic_smem_bytes_d128"]
+        print(line, flush=True)
+        check(ptx[key]["spill_stores"] == 0 and ptx[key]["spill_loads"] == 0,
+              "%s: %s %s spills: %s"
+              % (source, what, key, ptx[key]["lines"][0]))
+    return ptx
+
+
+def pipelined_ms(torch, fn, n=200, warmup=5):
+    """Device ms a call over ``n`` calls launched back to back, as a
+    serving step launches them (CUDA events around the run; no flush)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def _decode_bytes(positions, H, D, M, bs, q_size, kv_size):
+    """Bytes decode must move: the K/V rows of each live slot's context
+    (positions past the table attend the table's M bs rows), q read and
+    the output written, the table and the positions read."""
+    rows = sum(min(p + 1, M * bs) for p in positions if p >= 0)
+    C = len(positions)
+    return (rows * H * D * 2 * kv_size + 2 * C * H * D * q_size
+            + C * (M + 1) * 4), rows
+
+
 def phase_decode(torch, mxk, dev, flush):
+    """Paged decode (each slot's keys split evenly over the blocks of a
+    thread block cluster, ``decode_plan``) against its plain version:
+    f32 outputs at rtol 1e-4 / atol 1e-5, bf16 outputs (bf16 q: one
+    rounding of an f32 result computed in another order) within
+    close_bf16, inactive slots exact zeros, two runs bit-identical; at
+    the served shape (8 slots, 16 heads of 128, block 16, 64 table
+    blocks) over long contexts (positions 20-731), serve's short ones
+    (20-145), an inactive slot and a position past the table, for all
+    four (q, cache) type pairs, and over one slot (8 ranges a cluster).
+    Timed alone (L2 flushed) and 200 calls back to back at the long and
+    the short contexts, beside SDPA over each slot's context gathered
+    contiguous.  First prints ptxas's lines of the kernel's instances
+    (no spills allowed)."""
+    import ctypes
+    from mxnet_tpu_torch.kernels import _build
+    lib = _build.load("paged_attention")
+    lib.mx_paged_decode_smem.argtypes = [ctypes.c_int] * 5
+    lib.mx_paged_decode_smem.restype = ctypes.c_size_t
+    ptx = _instances_ptxas("paged_attention",
+                           r"paged_decode_kernelI\w+?E(?=Ev)",
+                           "the decode kernel")
+    check(len(ptx) == 8, "paged_attention: %d decode instances, not 8 (4 "
+          "type pairs x 2 load forms)" % len(ptx))
     C, H, D, nb, bs, M = 8, 16, 128, 512, 16, 64
     g = torch.Generator(device="cpu").manual_seed(SEED)
     q = torch.randn(C, H, D, generator=g).to(dev)
@@ -570,57 +668,87 @@ def phase_decode(torch, mxk, dev, flush):
     table = torch.randperm(nb, generator=g)[:C * M].reshape(C, M) \
         .to(torch.int32).to(dev)
     pos_live = torch.randint(20, 732, (C,), generator=g).to(torch.int32)
+    pos_short = torch.randint(20, 146, (C,), generator=g).to(torch.int32)
     pos_mixed = pos_live.clone()
     pos_mixed[7] = -1
+    pos_mixed[2] = M * bs + 5000          # past the table: all M bs rows
     sc = 1.0 / D ** 0.5
-    errs = []
-    for pos in (pos_live.to(dev), pos_mixed.to(dev)):
+    bf = torch.bfloat16
+    plan = mxk.paged_attention.decode_plan(C, H, D, bs, M)
+    errs = {}
+
+    def hold(what, q, kc, vc, table, pos):
         out = mxk.paged_decode_attend(q, kc, vc, table, pos, scale=sc)
+        again = mxk.paged_decode_attend(q, kc, vc, table, pos, scale=sc)
         ref = mxk.paged_decode_attend_plain(q, kc, vc, table, pos, scale=sc)
         torch.cuda.synchronize()
         act = pos >= 0
-        check(close(torch, out[act], ref[act]),
-              "paged_decode_attend disagrees with its plain version "
-              "(max abs err %g)" % max_err(out[act], ref[act]))
+        check(torch.equal(out, again), "paged_decode_attend %s: two runs "
+              "differ" % what)
+        ok = close(torch, out[act], ref[act]) if q.dtype == torch.float32 \
+            else close_bf16(torch, out[act], ref[act])
+        check(ok, "paged_decode_attend %s disagrees with its plain version "
+              "(max abs err %g)" % (what, max_err(out[act], ref[act])))
         check(bool((out[~act] == 0).all()),
-              "paged_decode_attend: inactive slot is not exact zeros")
-        errs.append(max_err(out[act], ref[act]))
-    kb, vb = kc.to(torch.bfloat16), vc.to(torch.bfloat16)
-    out = mxk.paged_decode_attend(q, kb, vb, table, pos_live.to(dev),
-                                  scale=sc)
-    ref = mxk.paged_decode_attend_plain(q, kb, vb, table, pos_live.to(dev),
-                                        scale=sc)
-    check(close(torch, out, ref), "paged_decode_attend (bf16 caches) "
-          "disagrees with its plain version (max abs err %g)"
-          % max_err(out, ref))
-    pos = pos_live.to(dev)
-    ms = time_ms(torch, lambda: mxk.paged_decode_attend(
-        q, kc, vc, table, pos, scale=sc), flush)
-    plain_ms = time_ms(torch, lambda: mxk.paged_decode_attend_plain(
-        q, kc, vc, table, pos, scale=sc), flush)
-    # the library yardstick: SDPA, one query a slot over its context
-    # gathered contiguous (C, H, ctx, D) beforehand, keys past each
-    # slot's position masked
-    ctx = int(pos_live.max()) + 1
-    lib_call = _sdpa_on_context(torch, q[:, :, None], kc, vc, table,
-                                pos_live.tolist(), [1] * C, ctx, sc)
-    lib_ms = time_ms(torch, lib_call, flush)
-    rows = int((pos_live.long() + 1).sum())
-    nbytes = rows * H * D * 2 * 4 + 2 * C * H * D * 4 + C * (M + 1) * 4
-    b_ms, b_by = bound(nbytes, rows * H * D * 4)
+              "paged_decode_attend %s: inactive slot is not exact zeros"
+              % what)
+        errs[what] = max_err(out[act], ref[act])
+
+    for qt, ct in ((torch.float32, torch.float32), (torch.float32, bf),
+                   (bf, torch.float32), (bf, bf)):
+        tag = "q %s, cache %s" % (str(qt)[6:], str(ct)[6:])
+        qq, kk, vv = q.to(qt), kc.to(ct), vc.to(ct)
+        for name, pos in (("long", pos_live), ("short", pos_short),
+                          ("inactive and past the table", pos_mixed)):
+            hold("%s, %s" % (tag, name), qq, kk, vv, table, pos.to(dev))
+    # one slot: the plan's most ranges (8) a cluster
+    one = mxk.paged_attention.decode_plan(1, H, D, bs, M)
+    check(one["ranges"] == 8, "decode_plan: one slot takes %d ranges, not 8"
+          % one["ranges"])
+    hold("one slot", q[:1], kc, vc, table[:1], pos_mixed[2:3].to(dev))
+    hold("one slot, short", q[:1], kc, vc, table[:1], pos_short[:1].to(dev))
+    timed = {}
+    for name, pos_c in (("long", pos_live), ("short", pos_short)):
+        pos = pos_c.to(dev)
+        fn = lambda: mxk.paged_decode_attend(q, kc, vc, table, pos, scale=sc)
+        ctx = int(pos_c.max()) + 1
+        lib_call = _sdpa_on_context(torch, q[:, :, None], kc, vc, table,
+                                    pos_c.tolist(), [1] * C, ctx, sc)
+        nbytes, rows = _decode_bytes(pos_c.tolist(), H, D, M, bs, 4, 4)
+        b_ms, b_by = bound(nbytes, rows * H * D * 4)
+        timed[name] = {
+            "ms": time_ms(torch, fn, flush),
+            "back_to_back_ms": pipelined_ms(torch, fn),
+            "plain_ms": time_ms(torch, lambda: mxk.paged_decode_attend_plain(
+                q, kc, vc, table, pos, scale=sc), flush),
+            "library_ms": time_ms(torch, lib_call, flush),
+            "library_back_to_back_ms": pipelined_ms(torch, lib_call),
+            "bound_ms": b_ms, "bound_by": b_by, "context_rows": rows,
+            "positions": pos_c.tolist()}
+        timed[name]["gbps"] = nbytes / timed[name]["ms"] / 1e6
+    long = timed["long"]
     res = {"name": "paged_decode_attend", "route": "cuda",
            "source": "mxnet_tpu_torch/csrc/paged_attention.cu",
            "replaces": "mxnet_tpu/pallas/attention.py:116",
-           "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+           "max_abs_err": max(errs.values()),
+           **{k: long[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms", "back_to_back_ms")},
+           "short_contexts": {k: timed["short"][k] for k in (
+               "ms", "back_to_back_ms", "plain_ms", "library_ms",
+               "bound_ms")}}
     emit({"phase": "kernel", **res, "shapes": {
-        "q": [C, H, D], "cache": [nb, bs, H, D], "table": [C, M],
-        "positions": pos_live.tolist()}, "context_rows": rows,
-        "bf16_cache_max_abs_err": max_err(out, ref),
+        "q": [C, H, D], "cache": [nb, bs, H, D], "table": [C, M]},
+        "plan": plan, "one_slot_plan": one, "timed": timed, "errors": errs,
+        "ptxas": ptx,
+        "dynamic_smem_bytes": {
+            "f32_cache": lib.mx_paged_decode_smem(D, M * bs, bs,
+                                                  plan["ranges"], 0),
+            "bf16_cache": lib.mx_paged_decode_smem(D, M * bs, bs,
+                                                   plan["ranges"], 1)},
         "library_call": "F.scaled_dot_product_attention on (C, H, 1, D) "
                         "queries over the context gathered contiguous, "
-                        "(C, H, %d, D), keys past each position masked"
-                        % ctx})
+                        "(C, H, max position + 1, D), keys past each "
+                        "position masked"})
     return res
 
 
@@ -683,9 +811,10 @@ def phase_chunk(torch, mxk, dev, flush):
     B, K, H, D, nb, bs, M = 1, 64, 16, 128, 512, 16, 64
     served_range = mxk.paged_attention.chunk_plan(B, K, H, D, M * bs)[
         "key_range"]
-    ptx = _f32_attention_ptxas(
+    ptx = _instances_ptxas(
         "paged_attention", r"paged_chunk_kernelILi\d+ELb[01]E"
         r"(?:f|13__nv_bfloat16)(?:f|13__nv_bfloat16)",
+        "the f32 attention kernel",
         lambda key: lib.mx_paged_chunk_prefill_smem(
             int(key.split("ILi")[1].split("E")[0]), 128, served_range, bs))
     import re
@@ -1042,9 +1171,10 @@ def phase_prefill(torch, mxk, dev, flush):
     lib = _build.load("paged_attention")
     lib.mx_paged_prefill_smem.argtypes = [ctypes.c_int]
     lib.mx_paged_prefill_smem.restype = ctypes.c_size_t
-    ptx = _f32_attention_ptxas("paged_attention",
-                               r"paged_prefill_kernelI\w+?Lb[01]E",
-                               lambda key: lib.mx_paged_prefill_smem(128))
+    ptx = _instances_ptxas("paged_attention",
+                           r"paged_prefill_kernelI\w+?Lb[01]E",
+                           "the f32 attention kernel",
+                           lambda key: lib.mx_paged_prefill_smem(128))
     B, S, H, D, nb, bs, M = 8, 1024, 16, 128, 512, 16, 64
     g = torch.Generator(device="cpu").manual_seed(SEED + 9)
     served = [20, 960, 0, 1024, 513, 77, 300, 641]
@@ -1437,42 +1567,65 @@ def phase_prefill_agreement(torch, mx, ctxs=None):
 # ----------------------------------------------------------------------
 # training kernels
 # ----------------------------------------------------------------------
-def phase_layernorm_bwd(torch, mxk, dev, flush):
-    """LayerNorm backward at the training shape.  dx is held at rtol
-    1e-4 / atol 1e-5.  dgamma and dbeta are sums over 4096 rows whose
-    partial sums reach ~64 in magnitude, taken in another order than the
-    plain version's: their rounding error is of order 1e-5 whatever the
-    size of the result, so they are held at rtol 1e-4 / atol 2e-4, and
-    whether the strict bound held too is printed."""
-    rows, cols = 4096, 2048
-    g = torch.Generator(device="cpu").manual_seed(SEED + 4)
-    x = torch.randn(rows, cols, generator=g).to(dev)
-    res = torch.randn(rows, cols, generator=g).to(dev)
-    dy = torch.randn(rows, cols, generator=g).to(dev)
-    gamma = (1 + 0.02 * torch.randn(cols, generator=g)).to(dev)
-    beta = (0.02 * torch.randn(cols, generator=g)).to(dev)
-    errs, strict = {}, True
+def _ln_bwd_hold(torch, mxk, dev, g, rows, cols, dtype, errs):
+    """LayerNorm backward on seeded (rows, cols) inputs in ``dtype``, with
+    and without a residual: two runs bit-identical, against the plain
+    version (f32: dx at rtol 1e-4 / atol 1e-5, dgamma and dbeta at atol
+    2e-4, see phase_layernorm_bwd; bf16: close_bf16).  Records each max
+    abs error in ``errs``; returns whether the strict f32 bound held."""
+    x, res, dy = (torch.randn(rows, cols, generator=g).to(dev).to(dtype)
+                  for _ in range(3))
+    gamma = (1 + 0.02 * torch.randn(cols, generator=g)).to(dev).to(dtype)
+    beta = (0.02 * torch.randn(cols, generator=g)).to(dev).to(dtype)
+    strict = True
     for r in (None, res):
+        tag = "%d x %d%s" % (rows, cols, ", residual" if r is not None else "")
         _, mean, rstd = mxk.layernorm_plain(x, gamma, beta, residual=r)
         got = mxk.layernorm_fused_bwd(x, gamma, mean, rstd, dy, residual=r)
         again = mxk.layernorm_fused_bwd(x, gamma, mean, rstd, dy, residual=r)
         ref = mxk.layernorm_bwd_plain(x, gamma, mean, rstd, dy, residual=r)
         torch.cuda.synchronize()
         check(all(torch.equal(a, b) for a, b in zip(got, again)),
-              "layernorm_fused_bwd (residual %s): two runs differ"
-              % (r is not None))
+              "layernorm_fused_bwd %s (%s): two runs differ" % (dtype, tag))
         for a, b, what in zip(got, ref, ("dx", "dgamma", "dbeta")):
-            atol = ATOL if what == "dx" else 2e-4
-            check(bool(torch.allclose(a, b, rtol=RTOL, atol=atol)),
-                  "layernorm_fused_bwd %s (residual %s) disagrees with its "
+            if dtype == torch.float32:
+                ok = bool(torch.allclose(a, b, rtol=RTOL, atol=ATOL
+                                         if what == "dx" else 2e-4))
+                strict = strict and close(torch, a, b)
+            else:
+                ok = close_bf16(torch, a, b)
+            check(ok, "layernorm_fused_bwd %s %s (%s) disagrees with its "
                   "plain version (max abs err %g)"
-                  % (what, r is not None, max_err(a, b)))
-            strict = strict and close(torch, a, b)
-            errs["%s%s" % (what, "_res" if r is not None else "")] = \
-                max_err(a, b)
+                  % (dtype, what, tag, max_err(a, b)))
+            errs["%s %s" % (what, tag)] = max_err(a, b)
+    return strict
+
+
+def phase_layernorm_bwd(torch, mxk, dev, flush):
+    """LayerNorm backward at the training shape.  dx is held at rtol
+    1e-4 / atol 1e-5.  dgamma and dbeta are sums over 4096 rows whose
+    partial sums reach ~64 in magnitude, taken in another order than the
+    plain version's: their rounding error is of order 1e-5 whatever the
+    size of the result, so they are held at rtol 1e-4 / atol 2e-4, and
+    whether the strict bound held too is printed.  Also held, with and
+    without a residual and two runs bit-identical, at the widths of
+    LN_BWD_EDGES (one to eight warps a row, a ragged row end, a width off
+    the 16-byte vector, the looped form, the widest row the wrapper
+    takes)."""
+    rows, cols = 4096, 2048
+    g = torch.Generator(device="cpu").manual_seed(SEED + 4)
+    errs = {}
+    strict = _ln_bwd_hold(torch, mxk, dev, g, rows, cols, torch.float32, errs)
+    for r_e, c_e in LN_BWD_EDGES:
+        strict = _ln_bwd_hold(torch, mxk, dev, g, r_e, c_e, torch.float32,
+                              errs) and strict
+    x = torch.randn(rows, cols, generator=g).to(dev)
+    dy = torch.randn(rows, cols, generator=g).to(dev)
+    gamma = (1 + 0.02 * torch.randn(cols, generator=g)).to(dev)
+    beta = (0.02 * torch.randn(cols, generator=g)).to(dev)
     _, mean, rstd = mxk.layernorm_plain(x, gamma, beta)
-    ms = time_ms(torch, lambda: mxk.layernorm_fused_bwd(x, gamma, mean, rstd,
-                                                        dy), flush)
+    fn = lambda: mxk.layernorm_fused_bwd(x, gamma, mean, rstd, dy)
+    ms = time_ms(torch, fn, flush)
     plain_ms = time_ms(torch, lambda: mxk.layernorm_bwd_plain(
         x, gamma, mean, rstd, dy), flush)
     m2, r2 = mean.reshape(rows, 1), rstd.reshape(rows, 1)
@@ -1488,34 +1641,15 @@ def phase_layernorm_bwd(torch, mxk, dev, flush):
            "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain_ms,
            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
     emit({"phase": "kernel", **out, "rows": rows, "cols": cols,
+          "back_to_back_ms": pipelined_ms(torch, fn),
+          "share_of_bound": b_ms / ms, "gbps": nbytes / ms / 1e6,
+          "ptxas": _instances_ptxas("layernorm",
+                                    r"layernorm_bwd_\w+?_kernelI\w+?E(?=Ev)",
+                                    "the LayerNorm backward"),
           "errors": errs, "strict_tolerance_held": strict,
-          "deterministic": True,
+          "deterministic": True, "edges": [list(e) for e in LN_BWD_EDGES],
           "library_call": "aten.native_layer_norm_backward"})
     return out
-
-
-def _f32_attention_ptxas(source, pattern, smem_fn):
-    """ptxas's registers, stack and spills (none allowed) of every entry
-    function of csrc/<source>.cu whose mangled name matches the regex
-    ``pattern`` (keyed by the match: kernel and template arguments),
-    printed with its dynamic shared memory at D = 128 (``smem_fn(key)``)."""
-    import re
-    from mxnet_tpu_torch.kernels import _build
-    keys = [re.search(pattern, line).group(0)
-            for line in _build.log_path(source).read_text().splitlines()
-            if "Compiling entry function" in line and re.search(pattern, line)]
-    check(keys, "ptxas log of %s.cu: no entry function matches %s"
-          % (source, pattern))
-    ptx = _ptxas(source, {key: key for key in keys})
-    for key in sorted(ptx):
-        ptx[key]["dynamic_smem_bytes_d128"] = smem_fn(key)
-        print("ptxas %s: %s; %d bytes of dynamic shared memory at D = 128"
-              % (key, "; ".join(ptx[key]["lines"]),
-                 ptx[key]["dynamic_smem_bytes_d128"]), flush=True)
-        check(ptx[key]["spill_stores"] == 0 and ptx[key]["spill_loads"] == 0,
-              "%s: the f32 attention kernel %s spills: %s"
-              % (source, key, ptx[key]["lines"][0]))
-    return ptx
 
 
 def _library_kernels(torch, fn):
@@ -1548,8 +1682,9 @@ def phase_flash(torch, mxk, dev, flush):
     lib.mx_flash_f32_smem.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.mx_flash_f32_smem.restype = ctypes.c_int
     which = {entry: w for entry, w in FLASH_F32_ENTRIES.values()}
-    ptx = _f32_attention_ptxas(
+    ptx = _instances_ptxas(
         "flash_attention", r"flash_\w+_f32_kernelI\w+?E(?=E)",
+        "the f32 attention kernel",
         lambda key: lib.mx_flash_f32_smem(which[key.split("I")[0]], 128))
     B, H, S, D = 4, 16, 1024, 128
     sc = 1.0 / D ** 0.5
@@ -2694,7 +2829,8 @@ def phase_layernorm_bf16(torch, mxk, dev, flush):
     """LayerNorm forward and backward in bf16 (bf16 x, gamma, beta, dy;
     f32 statistics) at the bf16 transformer's 4096 x 2048 rows, with and
     without a residual, against the plain versions: outputs close_bf16,
-    statistics rtol 1e-4 / atol 1e-5; timed beside F.layer_norm and
+    statistics rtol 1e-4 / atol 1e-5; the backward also at the widths of
+    LN_BWD_EDGES, two runs bit-identical; timed beside F.layer_norm and
     aten.native_layer_norm_backward on the same bf16 tensors.  Returns
     the two kernels-line rows."""
     import torch.nn.functional as F
@@ -2721,6 +2857,10 @@ def phase_layernorm_bf16(torch, mxk, dev, flush):
             check(ok, "layernorm bf16 %s%s disagrees with its plain version "
                   "(max abs err %g)" % (what, tag, max_err(a, b)))
             errs[what + tag] = max_err(a, b)
+    # the backward again, two runs bit-identical, at 4096 x 2048 and the
+    # widths of LN_BWD_EDGES, with and without a residual
+    for r_e, c_e in ((rows, cols),) + LN_BWD_EDGES:
+        _ln_bwd_hold(torch, mxk, dev, g, r_e, c_e, bf, errs)
     _, mean, rstd = mxk.layernorm_plain(x, gamma, beta)
     m2, r2 = mean.reshape(rows, 1), rstd.reshape(rows, 1)
     out = []
@@ -2746,8 +2886,12 @@ def phase_layernorm_bf16(torch, mxk, dev, flush):
                     "plain_ms": time_ms(torch, plain, flush),
                     "bound_ms": b_ms, "bound_by": b_by,
                     "library_ms": time_ms(torch, lib, flush)})
+    out[1]["back_to_back_ms"] = pipelined_ms(
+        torch, lambda: mxk.layernorm_fused_bwd(x, gamma, mean, rstd, dy))
+    out[1]["share_of_bound"] = out[1]["bound_ms"] / out[1]["ms"]
     emit({"phase": "layernorm_bf16", "rows": rows, "cols": cols,
-          "errors": errs, "kernels": out})
+          "errors": errs, "edges": [list(e) for e in LN_BWD_EDGES],
+          "kernels": out})
     return out
 
 
@@ -2970,6 +3114,32 @@ def phase_head_dim(torch, mxk, dev, flush):
                 ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
                 bound_by=b_by)
         del qd, kc, vc, out, ref
+    # decode at ragged head_dims: 72 (16-byte loads, lanes past D idle),
+    # 30 and, with bf16 caches, 36 (element by element), 16 heads
+    for D, cname in HEAD_DIM["decode_ragged"]:
+        H, C, sc, cdt = 16, 8, 1.0 / D ** 0.5, getattr(torch, cname)
+        qd = torch.randn(C, H, D, generator=g).to(dev)
+        kc, vc = (torch.randn(nb, bs, H, D, generator=g).to(dev).to(cdt)
+                  for _ in range(2))
+        td = torch.randperm(nb, generator=g)[:C * M].reshape(C, M) \
+            .to(torch.int32).to(dev)
+        pos = torch.randint(20, 732, (C,), generator=g).to(torch.int32)
+        pos[7] = -1
+        pos = pos.to(dev)
+        out = mxk.paged_decode_attend(qd, kc, vc, td, pos, scale=sc)
+        again = mxk.paged_decode_attend(qd, kc, vc, td, pos, scale=sc)
+        ref = mxk.paged_decode_attend_plain(qd, kc, vc, td, pos, scale=sc)
+        torch.cuda.synchronize()
+        act = pos >= 0
+        tag = "paged_decode_attend (%s cache) at head_dim %d" % (cname, D)
+        check(torch.equal(out, again), tag + ": two runs differ")
+        check(close(torch, out[act], ref[act]), "%s disagrees with its plain "
+              "version (max abs err %g)" % (tag, max_err(out[act], ref[act])))
+        check(bool((out[~act] == 0).all()), tag + ": inactive slot is not "
+              "exact zeros")
+        errs["paged_decode_attend_%s_%d" % (cname, D)] = \
+            max_err(out[act], ref[act])
+        del qd, kc, vc, out, again, ref
     emit({"phase": "head_dim", "head_dims": list(HEAD_DIM["dims"]),
           "d_model": HEAD_DIM["d_model"], "errors": errs,
           "timed_head_dim": HEAD_DIM["dims"][0],
@@ -3783,6 +3953,40 @@ def phase_fused_band4d(torch, mxk, dev, flush):
     per_launch = {k: sum(r[k] for r in rows) / len(rows)
                   for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                             "pal2d_ms")}
+    # the f32 form (CUDA cores; on no main path) at the sandwich's two
+    # band shapes in f32, beside torch.matmul in f32 (TF32 off) on the
+    # activated input, bounded at the CUDA-core and the split-TF32 peaks
+    f32_bands = {}
+    for name, x, s, t, w in cases[:2]:
+        x32, w32 = x.float(), w.float()
+        got = mxk.fused_band4d(x32, s, t, w32)
+        ref = mxk.fused_band4d_plain(x32, s, t, w32)
+        torch.cuda.synchronize()
+        check(close(torch, got, ref), "fused_band4d f32 %s disagrees with its "
+              "plain version (max abs err %g)" % (name, max_err(got, ref)))
+        B, H, W, K = x32.shape
+        N, M = w32.shape[1], B * H * W
+        a = torch.relu(x32 * s + t)
+        nbytes = 4 * (M * K + K * N + M * N) + 4 * 2 * K
+        flops = 2 * M * K * N + 3 * M * K
+        ms = time_ms(torch, lambda: mxk.fused_band4d(x32, s, t, w32), flush)
+        f32_bands[name] = {
+            "shape": [B, H, W, K, N], "max_abs_err": max_err(got, ref),
+            "ms": ms,
+            "plain_ms": time_ms(torch, lambda: mxk.fused_band4d_plain(
+                x32, s, t, w32), flush, reps=20),
+            "library_ms": time_ms(torch, lambda: torch.matmul(a, w32), flush),
+            "bound_cuda_cores_ms": bound(nbytes, flops)[0],
+            "bound_split_tf32_ms": bound(nbytes, flops,
+                                         SPLIT_TF32_FLOPS_PER_S)[0],
+            "tflops": flops / ms / 1e9}
+        del x32, w32, got, ref, a
+    emit({"phase": "fused_band4d_f32", "bands": f32_bands,
+          **{k: sum(b[k] for b in f32_bands.values()) / len(f32_bands)
+             for k in ("ms", "plain_ms", "library_ms", "bound_cuda_cores_ms",
+                       "bound_split_tf32_ms")},
+          "library_call": "torch.matmul in f32, TF32 off, on "
+                          "relu(x*scale+shift) (the product alone)"})
     emit({"phase": "fused_band4d", "cases_checked": len(cases),
           "ptxas": ptx,
           "library_call": "torch.matmul in bf16 on relu(x*scale+shift) "

@@ -31,15 +31,26 @@
 // the blocks run in parallel, so that carry does not exist, and atomics
 // would add in a different order on every run.  Instead the reduction
 // has two deterministic stages.  Stage 1: each block takes a fixed range
-// of rows, one row at a time; every thread owns the same columns for
-// every row, keeps its x_hat and dy * gamma in shared memory between the
-// two passes over the row, and adds its columns' dy * x_hat and dy into
-// the block's own partial sums; the two row means are one block
-// reduction.  The block then writes its partial sums to a scratch buffer
-// the wrapper allocates.  Stage 2: a second kernel sums the partials
-// column by column in a fixed order (eight fixed slices per column, then
-// the eight slice sums in order).  Two runs on the same inputs give the
-// same bits.
+// of rows, and a group of warps takes one row at a time, as many rows at
+// once as the block has groups: each thread holds 16 values of a bf16
+// row (two 16-byte vectors) or 8 of an f32 row (two), read and written by
+// 16-byte accesses, so a 2048-column row takes 4 warps in bf16 and 8 in
+// f32.  Loads are straight-line code (no branch between them) and each
+// group loads its next row as soon as it has read the current one, so
+// loads stay in flight through the row means and the stores.  x_hat and
+// dy * gamma stay in registers between the two row means, which are warp
+// shuffles plus, for a group of several warps, one exchange at a barrier
+// of the group alone; each thread owns the same columns in every row, so
+// its dgamma and dbeta partials stay in registers too.  The block sums
+// its groups' partials in group order and writes them to a scratch
+// buffer the wrapper allocates.  Wider rows (past 2048 columns in f32,
+// 4096 in bf16) take a looped form: one row at a time a block, two
+// passes (the second reads the row again), partials in shared memory.
+// Stage 2: a second kernel sums the partials column by column in a fixed
+// order (32 fixed slices per column, then the 32 slice sums in order).
+// Two runs on the same inputs give the same bits.  Ragged widths (cols
+// not a multiple of the vector) and misaligned rows go element by
+// element.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -130,92 +141,306 @@ int launch(const void* x, const void* res, const void* gamma, const void* beta,
 // ---------------------------------------------------------------------
 // backward
 // ---------------------------------------------------------------------
-constexpr int kBwdThreads = 256;
+constexpr int kBwdThreads = 256;             // 8 warps
 constexpr int kReduceCols = 32;              // columns per stage-2 block
-constexpr int kReduceSlices = 8;             // partial-sum slices per column
+constexpr int kReduceSlices = 32;            // partial-sum slices per column
+
+// values of a row a thread keeps in registers: two 16-byte vectors of
+// bf16; else 8 (16 f32 spill with the next row's loads in flight:
+// tools/torch_layernorm_tune.py)
+template <typename T, bool kVec> __host__ __device__ constexpr int bwd_vals() {
+  return kVec && sizeof(T) == 2 ? 16 : 8;
+}
+
+// 16 bytes of T: N values
+template <typename T> struct Vec16 { static constexpr int N = 16 / sizeof(T); };
+
+// columns [c, c + N) of a row, raw, in straight-line code (no branch, so
+// a thread's loads of several vectors issue back to back): kVec, one
+// 16-byte load (cols % N == 0 and 16-byte aligned rows, so a vector
+// never crosses cols; zeros past cols); else element by element, the
+// columns past cols reading column 0 and set to zero
+template <bool kVec, typename T>
+__device__ __forceinline__ uint4 load_raw(const T* __restrict__ row, int c, int cols) {
+  constexpr int N = Vec16<T>::N;
+  if constexpr (kVec) {
+    const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+    return c < cols ? __ldg(reinterpret_cast<const uint4*>(row + c)) : z;
+  } else {
+    uint4 u;
+    T* v = reinterpret_cast<T*>(&u);
+#pragma unroll
+    for (int e = 0; e < N; ++e) {
+      const T a = row[c + e < cols ? c + e : 0];
+      v[e] = c + e < cols ? a : from_f32<T>(0.f);
+    }
+    return u;
+  }
+}
+
+// the N values of a raw vector as f32
+template <typename T>
+__device__ __forceinline__ void widen(float* d, const uint4& u) {
+  const T* v = reinterpret_cast<const T*>(&u);
+#pragma unroll
+  for (int e = 0; e < Vec16<T>::N; ++e) d[e] = to_f32(v[e]);
+}
+
+template <bool kVec, typename T>
+__device__ __forceinline__ void load_vec(float* d, const T* __restrict__ row, int c, int cols) {
+  widen<T>(d, load_raw<kVec>(row, c, cols));
+}
+
+template <bool kVec, typename T>
+__device__ __forceinline__ void store_vec(T* __restrict__ row, const float* d, int c, int cols) {
+  constexpr int N = Vec16<T>::N;
+  if constexpr (kVec) {
+    if (c < cols) {
+      uint4 u;
+      T* v = reinterpret_cast<T*>(&u);
+#pragma unroll
+      for (int e = 0; e < N; ++e) v[e] = from_f32<T>(d[e]);
+      *reinterpret_cast<uint4*>(row + c) = u;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < N; ++e)
+      if (c + e < cols) row[c + e] = from_f32<T>(d[e]);
+  }
+}
+
+// the sum of a over the warp, the same bits in every lane
+__device__ __forceinline__ float warp_sum(float a) {
+  for (int off = 16; off > 0; off >>= 1) a += __shfl_xor_sync(0xffffffffu, a, off);
+  return a;
+}
 
 // the two sums over the block, returned to every thread
 __device__ void block_sum2(float& a, float& b, float* red) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int off = 16; off > 0; off >>= 1) {
-    a += __shfl_xor_sync(0xffffffffu, a, off);
-    b += __shfl_xor_sync(0xffffffffu, b, off);
-  }
+  a = warp_sum(a);
+  b = warp_sum(b);
   if (lane == 0) {
     red[warp] = a;
     red[kBwdThreads / 32 + warp] = b;
   }
   __syncthreads();
-  if (warp == 0) {
-    float ta = lane < kBwdThreads / 32 ? red[lane] : 0.f;
-    float tb = lane < kBwdThreads / 32 ? red[kBwdThreads / 32 + lane] : 0.f;
-    for (int off = 16; off > 0; off >>= 1) {
-      ta += __shfl_xor_sync(0xffffffffu, ta, off);
-      tb += __shfl_xor_sync(0xffffffffu, tb, off);
-    }
-    if (lane == 0) {
-      red[0] = ta;
-      red[1] = tb;
-    }
+  a = 0.f;
+  b = 0.f;
+  for (int w = 0; w < kBwdThreads / 32; ++w) {
+    a += red[w];
+    b += red[kBwdThreads / 32 + w];
   }
-  __syncthreads();
-  a = red[0];
-  b = red[1];
   __syncthreads();
 }
 
-// stage 1: rows [blockIdx.x * rows_per_block, ...) -> dx and this block's
-// partial dgamma / dbeta (part[0][blockIdx.x][:], part[1][blockIdx.x][:])
-template <typename T, typename G>
-__global__ void __launch_bounds__(kBwdThreads)
+inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+// Stage 1, rows of up to 32 GW VALS columns.  A row belongs to a group
+// of GW warps (at 2048 columns 4 in bf16, 8 in f32), each thread owning
+// the N-column vectors t, t + 32 GW, ... of it (VALS values):
+// its x (+ residual) and dy arrive by 16-byte loads, x_hat and dy * gamma
+// stay in registers between the two row means, which are warp shuffles
+// (and, when GW > 1, one exchange between the group's warps at a named
+// barrier of the group alone), and dx leaves by 16-byte stores.  The
+// block's 256 / (32 GW) groups take rows [blockIdx.x * rows_per_block,
+// ...) in turn, and each group loads its next row, raw, as soon as it
+// has read the current one, so its loads fly during the row means and
+// the stores.  Each thread keeps its columns' dgamma and dbeta partials
+// in registers over all its rows (gamma comes from L1 each row); at the
+// end the block sums its groups' partials in group order into
+// part[0][blockIdx.x][:] and part[1][blockIdx.x][:].
+template <typename T, typename G, int GW, bool kVec>
+__global__ void __launch_bounds__(kBwdThreads, 2)
 layernorm_bwd_rows_kernel(const T* __restrict__ x, const T* __restrict__ res,
                           const G* __restrict__ gamma, const float* __restrict__ mean,
                           const float* __restrict__ rstd, const T* __restrict__ dy,
-                          T* __restrict__ dx, float* __restrict__ part, int rows,
-                          int cols, int rows_per_block) {
-  extern __shared__ float sm[];
-  float* xh = sm;                // cols: x_hat of the current row
-  float* gd = xh + cols;         // cols: dy * gamma of the current row
-  float* adg = gd + cols;        // cols: the block's dgamma partial
-  float* adb = adg + cols;       // cols: the block's dbeta partial
-  __shared__ float red[2 * kBwdThreads / 32];
-  // every shared slot below is read and written by the thread that owns
-  // its column only, so no barrier is needed between the passes
-  for (int c = threadIdx.x; c < cols; c += kBwdThreads) {
-    adg[c] = 0.f;
-    adb[c] = 0.f;
-  }
+                          T* __restrict__ dx, float* __restrict__ part, int rows, int cols,
+                          int rows_per_block) {
+  constexpr int VALS = bwd_vals<T, kVec>(), N = Vec16<T>::N, NV = VALS / N;
+  constexpr int GT = 32 * GW, NG = kBwdThreads / GT;  // threads a row, rows at a time
+  constexpr int CW = GT * VALS;                       // the widest row
+  __shared__ float red[2][NG][GW][2];    // the row sums between a group's warps, by row parity
+  extern __shared__ float psum[];        // the groups' partials: NG x (dgamma CW, dbeta CW)
+  const int grp = threadIdx.x / GT, t = threadIdx.x % GT;
+  const int wg = t >> 5, lane = t & 31;
+  float dg[NV][N], db[NV][N];
+#pragma unroll
+  for (int j = 0; j < NV; ++j)
+#pragma unroll
+    for (int e = 0; e < N; ++e) {
+      dg[j][e] = 0.f;
+      db[j][e] = 0.f;
+    }
   const float inv_cols = 1.f / (float)cols;
-  const int r0 = blockIdx.x * rows_per_block;
-  const int r1 = min(r0 + rows_per_block, rows);
-  for (int r = r0; r < r1; ++r) {
+  const int r1 = min((blockIdx.x + 1) * rows_per_block, rows);
+  int r = blockIdx.x * rows_per_block + grp;
+  // the raw vectors of row r: x, the residual, dy
+  uint4 xr[NV], rr[NV], dr[NV];
+  auto fetch = [&](int row) {
+    const size_t base = (size_t)row * cols;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int c = (t + j * GT) * N;
+      xr[j] = load_raw<kVec>(x + base, c, cols);
+      dr[j] = load_raw<kVec>(dy + base, c, cols);
+      if (res != nullptr) rr[j] = load_raw<kVec>(res + base, c, cols);
+    }
+  };
+  if (r < r1) fetch(r);
+  for (int it = 0; r < r1; r += NG, ++it) {
     const size_t base = (size_t)r * cols;
     const float mu = mean[r], rs = rstd[r];
+    float xh[NV][N], g[NV][N];
     float s1 = 0.f, s2 = 0.f;
-    for (int c = threadIdx.x; c < cols; c += kBwdThreads) {
-      float v = to_f32(x[base + c]);
-      if (res != nullptr) v += to_f32(res[base + c]);
-      const float xhat = (v - mu) * rs;
-      const float d = to_f32(dy[base + c]);
-      const float g = d * to_f32(gamma[c]);
-      xh[c] = xhat;
-      gd[c] = g;
-      adg[c] += d * xhat;
-      adb[c] += d;
-      s1 += g;
-      s2 += g * xhat;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      // columns past cols load as zeros: dy = 0 there, so they add nothing
+      const int c = (t + j * GT) * N;
+      float xv[N], dv[N];
+      widen<T>(xv, xr[j]);
+      widen<T>(dv, dr[j]);
+      if (res != nullptr) {
+        float rv[N];
+        widen<T>(rv, rr[j]);
+#pragma unroll
+        for (int e = 0; e < N; ++e) xv[e] += rv[e];
+      }
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+        xh[j][e] = (xv[e] - mu) * rs;
+        g[j][e] = dv[e] * to_f32(__ldg(gamma + (c + e < cols ? c + e : 0)));
+        dg[j][e] += dv[e] * xh[j][e];
+        db[j][e] += dv[e];
+        s1 += g[j][e];
+        s2 += g[j][e] * xh[j][e];
+      }
     }
-    block_sum2(s1, s2, red);
+    if (r + NG < r1) fetch(r + NG);      // the next row's loads fly from here
+    s1 = warp_sum(s1);
+    s2 = warp_sum(s2);
+    if constexpr (GW > 1) {
+      float(&slot)[GW][2] = red[it & 1][grp];
+      if (lane == 0) {
+        slot[wg][0] = s1;
+        slot[wg][1] = s2;
+      }
+      asm volatile("bar.sync %0, %1;" ::"r"(1 + grp), "r"(GT) : "memory");
+      s1 = 0.f;
+      s2 = 0.f;
+#pragma unroll
+      for (int w = 0; w < GW; ++w) {
+        s1 += slot[w][0];
+        s2 += slot[w][1];
+      }
+    }
     const float m1 = s1 * inv_cols, m2 = s2 * inv_cols;
-    for (int c = threadIdx.x; c < cols; c += kBwdThreads)
-      dx[base + c] = from_f32<T>(rs * (gd[c] - m1 - xh[c] * m2));
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      float d[N];
+#pragma unroll
+      for (int e = 0; e < N; ++e) d[e] = rs * (g[j][e] - m1 - xh[j][e] * m2);
+      store_vec<kVec>(dx + base, d, (t + j * GT) * N, cols);
+    }
   }
+  // the block's partials: its groups' in group order
+  float* pg = psum + (size_t)grp * 2 * CW;
+#pragma unroll
+  for (int j = 0; j < NV; ++j)
+#pragma unroll
+    for (int e = 0; e < N; ++e) {
+      const int c = (t + j * GT) * N + e;
+      pg[c] = dg[j][e];
+      pg[CW + c] = db[j][e];
+    }
+  __syncthreads();
   float* pdg = part + (size_t)blockIdx.x * cols;
   float* pdb = part + ((size_t)gridDim.x + blockIdx.x) * cols;
   for (int c = threadIdx.x; c < cols; c += kBwdThreads) {
-    pdg[c] = adg[c];
-    pdb[c] = adb[c];
+    float a = 0.f, b = 0.f;
+#pragma unroll
+    for (int k = 0; k < NG; ++k) {
+      a += psum[(size_t)k * 2 * CW + c];
+      b += psum[(size_t)k * 2 * CW + CW + c];
+    }
+    pdg[c] = a;
+    pdb[c] = b;
   }
+}
+
+// Stage 1 for rows wider than the register form's 32 * 8 * VALS
+// columns (2048 in f32, 4096 in bf16): the block takes one row at a time, in two passes over it
+// (the second reads x, the residual and dy again, from L2), with the
+// dgamma and dbeta partials in shared memory (each thread owns the same
+// columns in every row, so no barrier guards them) and the row means a
+// block reduction.
+template <typename T, typename G, bool kVec>
+__global__ void __launch_bounds__(kBwdThreads)
+layernorm_bwd_wide_kernel(const T* __restrict__ x, const T* __restrict__ res,
+                          const G* __restrict__ gamma, const float* __restrict__ mean,
+                          const float* __restrict__ rstd, const T* __restrict__ dy,
+                          T* __restrict__ dx, float* __restrict__ part, int rows, int cols,
+                          int rows_per_block) {
+  constexpr int N = Vec16<T>::N;
+  extern __shared__ float psum[];        // dgamma, then dbeta partials: 2 cols
+  __shared__ float red[2 * kBwdThreads / 32];
+  for (int c = threadIdx.x; c < 2 * cols; c += kBwdThreads) psum[c] = 0.f;
+  __syncthreads();
+  const float inv_cols = 1.f / (float)cols;
+  const int r1 = min((blockIdx.x + 1) * rows_per_block, rows);
+  // x_hat and dy * gamma of columns [c, c + N), and dy
+  auto row_vals = [&](size_t base, int c, float mu, float rs, float* xh, float* g, float* dv) {
+    float xv[N];
+    load_vec<kVec>(xv, x + base, c, cols);
+    load_vec<kVec>(dv, dy + base, c, cols);
+    if (res != nullptr) {
+      float rv[N];
+      load_vec<kVec>(rv, res + base, c, cols);
+#pragma unroll
+      for (int e = 0; e < N; ++e) xv[e] += rv[e];
+    }
+#pragma unroll
+    for (int e = 0; e < N; ++e) {
+      xh[e] = (xv[e] - mu) * rs;
+      g[e] = dv[e] * to_f32(gamma[c + e < cols ? c + e : 0]);
+    }
+  };
+  for (int r = blockIdx.x * rows_per_block; r < r1; ++r) {
+    const size_t base = (size_t)r * cols;
+    const float mu = mean[r], rs = rstd[r];
+    float s1 = 0.f, s2 = 0.f;
+    for (int c = threadIdx.x * N; c < cols; c += kBwdThreads * N) {
+      float xh[N], g[N], dv[N];
+      row_vals(base, c, mu, rs, xh, g, dv);
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+        if (c + e < cols) {
+          psum[c + e] += dv[e] * xh[e];
+          psum[cols + c + e] += dv[e];
+        }
+        s1 += g[e];
+        s2 += g[e] * xh[e];
+      }
+    }
+    block_sum2(s1, s2, red);
+    const float m1 = s1 * inv_cols, m2 = s2 * inv_cols;
+    for (int c = threadIdx.x * N; c < cols; c += kBwdThreads * N) {
+      float xh[N], g[N], dv[N], d[N];
+      row_vals(base, c, mu, rs, xh, g, dv);
+#pragma unroll
+      for (int e = 0; e < N; ++e) d[e] = rs * (g[e] - m1 - xh[e] * m2);
+      store_vec<kVec>(dx + base, d, c, cols);
+    }
+  }
+  float* pdg = part + (size_t)blockIdx.x * cols;
+  float* pdb = part + ((size_t)gridDim.x + blockIdx.x) * cols;
+  for (int c = threadIdx.x * N; c < cols; c += kBwdThreads * N)
+#pragma unroll
+    for (int e = 0; e < N; ++e)
+      if (c + e < cols) {
+        pdg[c + e] = psum[c + e];
+        pdb[c + e] = psum[cols + c + e];
+      }
 }
 
 // stage 2: dgamma[c] and dbeta[c] = the sums of the nblk partials, in a
@@ -252,22 +477,64 @@ layernorm_bwd_reduce_kernel(const float* __restrict__ part, int nblk, int cols,
   }
 }
 
+template <typename T, typename G, int GW, bool kVec>
+int launch_rows(const void* x, const void* res, const void* gamma, const void* mean,
+                const void* rstd, const void* dy, void* dx, void* part, int rows, int cols,
+                int rows_per_block, int nblk, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * 2 * kBwdThreads * bwd_vals<T, kVec>();
+  const auto fn = layernorm_bwd_rows_kernel<T, G, GW, kVec>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  fn<<<nblk, kBwdThreads, smem, stream>>>((const T*)x, (const T*)res, (const G*)gamma,
+                                         (const float*)mean, (const float*)rstd, (const T*)dy,
+                                         (T*)dx, (float*)part, rows, cols, rows_per_block);
+  return (int)cudaGetLastError();
+}
+
+// stage 1 in the register form with the fewest warps a row whose
+// registers hold it, or the looped form; returns the launch's error
+template <typename T, typename G, bool kVec>
+int launch_stage1(const void* x, const void* res, const void* gamma, const void* mean,
+                  const void* rstd, const void* dy, void* dx, void* part, int rows, int cols,
+                  int rows_per_block, int nblk, cudaStream_t stream) {
+  constexpr int V = bwd_vals<T, kVec>();
+  const int w = (cols + 32 * V - 1) / (32 * V);
+  if (w <= 1)
+    return launch_rows<T, G, 1, kVec>(x, res, gamma, mean, rstd, dy, dx, part, rows, cols, rows_per_block, nblk, stream);
+  if (w <= 2)
+    return launch_rows<T, G, 2, kVec>(x, res, gamma, mean, rstd, dy, dx, part, rows, cols, rows_per_block, nblk, stream);
+  if (w <= 4)
+    return launch_rows<T, G, 4, kVec>(x, res, gamma, mean, rstd, dy, dx, part, rows, cols, rows_per_block, nblk, stream);
+  if (w <= 8)
+    return launch_rows<T, G, 8, kVec>(x, res, gamma, mean, rstd, dy, dx, part, rows, cols, rows_per_block, nblk, stream);
+  const size_t smem = (size_t)2 * cols * sizeof(float);
+  const auto fn = layernorm_bwd_wide_kernel<T, G, kVec>;
+  cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  fn<<<nblk, kBwdThreads, smem, stream>>>((const T*)x, (const T*)res, (const G*)gamma,
+                                         (const float*)mean, (const float*)rstd, (const T*)dy,
+                                         (T*)dx, (float*)part, rows, cols, rows_per_block);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, typename G>
 int launch_bwd(const void* x, const void* res, const void* gamma, const void* mean,
                const void* rstd, const void* dy, void* dx, void* dgamma, void* dbeta,
                void* part, int rows, int cols, int rows_per_block, cudaStream_t stream) {
-  const size_t smem = (size_t)4 * cols * sizeof(float);
+  constexpr int N = Vec16<T>::N;
   const int nblk = (rows + rows_per_block - 1) / rows_per_block;
-  auto fn = layernorm_bwd_rows_kernel<T, G>;
-  cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  fn<<<nblk, kBwdThreads, smem, stream>>>((const T*)x, (const T*)res, (const G*)gamma,
-                                         (const float*)mean, (const float*)rstd,
-                                         (const T*)dy, (T*)dx, (float*)part, rows, cols,
-                                         rows_per_block);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  // 16-byte loads and stores when every row starts 16-byte aligned
+  const bool vec = cols % N == 0 && aligned16(x) && aligned16(dy) && aligned16(dx) &&
+                   (res == nullptr || aligned16(res));
+  const int err = vec ? launch_stage1<T, G, true>(x, res, gamma, mean, rstd, dy, dx, part, rows,
+                                                  cols, rows_per_block, nblk, stream)
+                      : launch_stage1<T, G, false>(x, res, gamma, mean, rstd, dy, dx, part, rows,
+                                                   cols, rows_per_block, nblk, stream);
+  if (err != 0) return err;
   const int ncb = (cols + kReduceCols - 1) / kReduceCols;
   layernorm_bwd_reduce_kernel<G><<<ncb, kReduceCols * kReduceSlices, 0, stream>>>(
       (const float*)part, nblk, cols, (G*)dgamma, (G*)dbeta);

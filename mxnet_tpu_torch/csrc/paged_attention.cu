@@ -11,16 +11,33 @@
 // What bounds them on the H100: decode reads the K/V rows of every live
 // context once, sum_c (pos_c + 1) * H * D * 2 * sizeof(cache) bytes,
 // and does 2 flops per element read: far below the 295 flops/byte the
-// card needs before compute limits, so it is bound by memory bytes.
+// card needs before compute limits, so it is bound by memory bytes, and
+// only the bytes in flight matter (one query row a head: the tensor cores
+// would not help).
 // Decode: the TPU grid was (slot, table block), walked in order on one
 // core with the softmax state carried in scratch from step to step.
-// Here blocks run in parallel, so each (slot, head) pair is one thread
-// block that loops over its own table entries and keeps the online
-// softmax in registers and shared memory: C * H blocks (128 at the
-// served shape).  K/V rows of one head are D contiguous values at a
-// stride of H * D, so a warp reads each row as coalesced 128-byte
-// lines.  Exponentials use expf (no fast-math) so results hold the f32
-// tolerance against the plain PyTorch version.
+// Here each slot's keys are split over a fixed number of ranges nr (the
+// wrapper's plan, a function of the static shapes alone, never of the
+// positions, which live on the device), evenly: each range takes about
+// (pos + 1) / nr keys, worked out on the device from the position, so
+// the blocks of a slot finish together whatever its length.  One block
+// of 4 warps takes each (range, chunk of 32 N output columns, head,
+// slot): 512 blocks at the served shape (4 ranges), not 128.  A warp takes
+// 4 keys a step, its lanes reading each K and V row 16 bytes a lane (N =
+// 4 f32 or 8 bf16 values: a row of 128 f32 is one load instruction of
+// the warp), V's 4 loads issued with K's; scores are reduced by
+// shuffles, the online softmax runs in registers from the finite -1e30
+// (no barrier a table block), and the 4 warps combine in order in
+// shared memory.  The ranges of a (slot, head) form one thread block
+// cluster (at most 8 ranges, the portable size), and after
+// cluster.sync() its rank 0 reads the others' partials through
+// distributed shared memory in range order and writes the output: one
+// launch, no workspace (a second, combine launch from a workspace ran
+// slower in every case measured, and took more host time a call: PERF.md
+// §6, PR 13).  No atomics: two runs
+// give the same bits.  Exponentials use expf (no fast-math) so results
+// hold the f32 tolerance against the plain PyTorch version; the output
+// is rounded once to q's type.
 //
 // Chunked prefill (mx_paged_chunk_prefill): a chunk of K rows per batch
 // row at absolute positions [start, start + len), each attending
@@ -88,17 +105,18 @@
 // a bf16 value's tf32 split has lo = 0) and the output rounded once.
 //
 // Head_dim is tiled in all three, so the reference's head_dims run (it
-// has no head_dim limit).  Decode gives each (slot, head) pair one
-// block per 256 output columns; each block computes the whole q . k.
-// The chunk prefill and the one-shot prefill tile head_dim as the flash
-// kernels do: chunks of 128 columns staged in turn for the scores, one
-// block per chunk of output columns (which recomputes the scores); each
-// block scatters its own chunk of the K/V rows.  Neither has a head_dim
-// limit.
+// has no head_dim limit).  Decode gives each range one block per 32 N
+// output columns; each block computes the whole q . k.  The chunk
+// prefill and the one-shot prefill tile head_dim as the flash kernels
+// do: chunks of 128 columns staged in turn for the scores, one block per
+// chunk of output columns (which recomputes the scores); each block
+// scatters its own chunk of the K/V rows.  Neither has a head_dim limit.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <cooperative_groups.h>
 
 #include "attention_f32.cuh"
 
@@ -122,86 +140,236 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // ---------------------------------------------------------------------
-// decode: one query per slot against cache rows [0, pos[c]]
+// decode: one query per slot against cache rows [0, pos[c]], the keys
+// split over ranges
 // ---------------------------------------------------------------------
-constexpr int kDecodeThreads = 128;          // 4 warps
-constexpr int kDecodeAcc = 2;                // output columns per thread
-constexpr int kDecodeCols = kDecodeThreads * kDecodeAcc;   // per block
+constexpr int kDecWarps = 4;                 // warps a block
+constexpr int kDecKeys = 4;                  // keys a warp takes a step
+constexpr int kDecThreads = 32 * kDecWarps;
+constexpr int kDecStep = kDecWarps * kDecKeys;   // keys a block takes a step
+constexpr int kDecCluster = 8;               // most ranges a cluster combines (portable size)
 
-template <typename TQ, typename TKV>
-__global__ void __launch_bounds__(kDecodeThreads)
+// 16 bytes of T widened to f32: N values
+template <typename T> struct Vec16;
+template <> struct Vec16<float> {
+  static constexpr int N = 4;
+  __device__ __forceinline__ static void widen(const uint4& u, float* d) {
+    d[0] = __uint_as_float(u.x);
+    d[1] = __uint_as_float(u.y);
+    d[2] = __uint_as_float(u.z);
+    d[3] = __uint_as_float(u.w);
+  }
+};
+template <> struct Vec16<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ __forceinline__ static void widen(const uint4& u, float* d) {
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {      // the low half is the lower column
+      d[2 * i] = __uint_as_float(w[i] << 16);
+      d[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+};
+
+// columns [c, c + N) of a row widened to f32, straight-line code (no
+// branch, so a warp's loads of several rows issue back to back): kVec,
+// one 16-byte load (D % N == 0 and 16-byte aligned rows, so a vector
+// never crosses D); else element by element, the columns past D reading
+// column 0 and set to zero
+template <bool kVec, typename T>
+__device__ __forceinline__ void load_cols(float* d, const T* __restrict__ row, int c, int D) {
+  constexpr int N = Vec16<T>::N;
+  if constexpr (kVec) {
+    Vec16<T>::widen(__ldg(reinterpret_cast<const uint4*>(row + c)), d);
+  } else {
+#pragma unroll
+    for (int e = 0; e < N; ++e) {
+      const float v = to_f32(row[c + e < D ? c + e : 0]);
+      d[e] = c + e < D ? v : 0.f;
+    }
+  }
+}
+
+// One block per (key range: x, ranges fastest, then column chunk; head:
+// y; slot: z); the nr ranges of a (column chunk, head, slot) form one
+// thread block cluster.  Each warp takes the range's keys kDecKeys at a
+// time, in turn with the other warps: its lanes read each key's K and V
+// row 16 bytes a lane (a row of 128 f32 is one load instruction of the
+// warp), V's loads issued with K's in straight-line code, the scores
+// reduced by shuffles, an online softmax in registers from the finite
+// -1e30 (an empty range never makes a NaN).  The four warps' results
+// are combined in warp order in shared memory into the block's partial:
+// its running max, its sum and the W = 32 N accumulators of its column
+// chunk (N values a 16-byte load holds).  The scores read the whole of
+// head_dim (q scaled, in shared memory); a block accumulates its chunk
+// of V's columns only.  After cluster.sync() rank 0 combines the
+// partials of the ranges holding a key, in range order (every thread
+// the same max and sum, the columns spread over the block), and writes
+// the output; a second cluster.sync() keeps the ranks' shared memory
+// alive until it has read them.  Blocks whose range starts past the
+// slot's position read nothing and only take part in the two barriers;
+// an inactive slot's blocks all exit at once, rank 0 writing zeros.
+template <typename TQ, typename TKV, bool kVec>
+__global__ void __launch_bounds__(kDecThreads)
 paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kc,
                     const TKV* __restrict__ vc, const int* __restrict__ table,
-                    const int* __restrict__ pos, TQ* __restrict__ out, int H,
-                    int D, int bs, int M, float scale) {
-  const int h = blockIdx.x, c = blockIdx.y;
-  const int d0 = blockIdx.z * kDecodeCols;     // this block's output columns
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  constexpr int nwarps = kDecodeThreads / 32;
-  extern __shared__ float smem[];
-  float* qs = smem;          // D scaled query values
-  float* ps = qs + D;        // bs scores, then probabilities
-
+                    const int* __restrict__ pos, TQ* __restrict__ out, int D, int bs, int M,
+                    int nr, float scale) {
+  constexpr int N = Vec16<TKV>::N, W = 32 * N;
+  const int rg = (int)blockIdx.x % nr, oc = (int)blockIdx.x / nr * W;
+  const int h = blockIdx.y, H = gridDim.y, c = blockIdx.z;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const size_t ch = (size_t)c * H + h;
   const int p = pos[c];
-  TQ* o = out + ((size_t)c * H + h) * D;
-  if (p < 0) {               // inactive slot: exact zeros, nothing read
-    for (int d = d0 + tid; d < min(D, d0 + kDecodeCols); d += kDecodeThreads)
-      o[d] = from_f32<TQ>(0.f);
+  if (p < 0) {                 // inactive slot: exact zeros, nothing read
+    if (rg == 0)
+      for (int d = threadIdx.x; d < min(W, D - oc); d += kDecThreads)
+        out[ch * D + oc + d] = from_f32<TQ>(0.f);
     return;
   }
-  const TQ* qv = q + ((size_t)c * H + h) * D;
-  for (int d = tid; d < D; d += kDecodeThreads) qs[d] = to_f32(qv[d]) * scale;
+  // keys [0, kend): a position past the table attends the table's M
+  // blocks, as the TPU kernel's (C, M) grid does.  They split evenly over
+  // the nr ranges, in whole warp steps (per keys a range, at most
+  // decode_range_keys)
+  const int kend = min(p + 1, M * bs);
+  const int per = ((kend + nr - 1) / nr + kDecKeys - 1) / kDecKeys * kDecKeys;
+  const int k0 = rg * per, k1 = min(k0 + per, kend);
+  extern __shared__ float smem[];
+  float* qs = smem;                              // D scaled query values
+  float* wml = qs + ((D + 3) & ~3);              // the warps' maxima, then sums
+  float* wacc = wml + 2 * kDecWarps;             // the warps' accumulators, W each
+  float* bp = wacc + kDecWarps * W;              // the block's max, sum, W accumulators
+  int* tbs = reinterpret_cast<int*>(bp + 4 + W); // the range's table entries
+  const int e0 = k0 / bs;
+  if (k0 < k1) {
+    const TQ* qv = q + ch * D;
+    for (int d = threadIdx.x; d < D; d += kDecThreads) qs[d] = to_f32(qv[d]) * scale;
+    const int ne = (k1 - 1) / bs - e0 + 1;       // entries past the context never read
+    for (int e = threadIdx.x; e < ne; e += kDecThreads) tbs[e] = table[(size_t)c * M + e0 + e];
+  }
   __syncthreads();
 
-  const size_t row_stride = (size_t)H * D;
-  float m_run = -INFINITY, l_run = 0.f;
-  float acc[kDecodeAcc];
+  const size_t rs = (size_t)H * D, hd = (size_t)h * D;   // row stride, head offset
+  const int nvec = (D + N - 1) / N;              // N-column vectors in a row
+  // this lane's vector of V (lanes past the row read its first vector)
+  const int ov = oc / N + lane < nvec ? oc / N + lane : 0;
+  float m = -1e30f, l = 0.f, acc[N];
 #pragma unroll
-  for (int i = 0; i < kDecodeAcc; ++i) acc[i] = 0.f;
-
-  // blocks past pos are skipped; a pos beyond the table attends the
-  // table's M blocks, as the TPU kernel's (C, M) grid does
-  const int nblk = min(p / bs + 1, M);
-  for (int m = 0; m < nblk; ++m) {
-    const int blk = table[(size_t)c * M + m];
-    const int rows = min(bs, p + 1 - m * bs);
-    const TKV* kb = kc + (size_t)blk * bs * row_stride + (size_t)h * D;
-    const TKV* vb = vc + (size_t)blk * bs * row_stride + (size_t)h * D;
-    for (int r = warp; r < rows; r += nwarps) {
-      const TKV* kr = kb + (size_t)r * row_stride;
-      float s = 0.f;
-      for (int d = lane; d < D; d += 32) s += qs[d] * to_f32(kr[d]);
-      s = warp_sum(s);
-      if (lane == 0) ps[r] = s;
+  for (int e = 0; e < N; ++e) acc[e] = 0.f;
+  for (int t0 = k0 + warp * kDecKeys; t0 < k1; t0 += kDecStep) {
+    // the step's rows; a key past the range reads the range's last key
+    // and is masked (its value set to zero, its score to the fill)
+    size_t off[kDecKeys];
+#pragma unroll
+    for (int i = 0; i < kDecKeys; ++i) {
+      const int kp = min(t0 + i, k1 - 1);
+      off[i] = ((size_t)tbs[kp / bs - e0] * bs + kp % bs) * rs + hd;
     }
-    __syncthreads();
-    float mx = m_run;
-    for (int r = 0; r < rows; ++r) mx = fmaxf(mx, ps[r]);
-    __syncthreads();         // every thread has read the raw scores
-    if (tid < rows) ps[tid] = expf(ps[tid] - mx);
-    __syncthreads();
-    const float alpha = expf(m_run - mx);
-    float lsum = 0.f;
-    for (int r = 0; r < rows; ++r) lsum += ps[r];
-    l_run = l_run * alpha + lsum;
-    m_run = mx;
+    float vv[kDecKeys][N];                       // V first: its loads fly with K's
 #pragma unroll
-    for (int i = 0; i < kDecodeAcc; ++i) {
-      const int d = d0 + tid + i * kDecodeThreads;
-      if (d < D) {
-        float a = acc[i] * alpha;
-        for (int r = 0; r < rows; ++r) a += ps[r] * to_f32(vb[(size_t)r * row_stride + d]);
-        acc[i] = a;
+    for (int i = 0; i < kDecKeys; ++i) load_cols<kVec>(vv[i], vc + off[i], ov * N, D);
+    float s[kDecKeys];
+#pragma unroll
+    for (int i = 0; i < kDecKeys; ++i) s[i] = 0.f;
+    for (int cv = lane; cv < nvec; cv += 32) {   // one pass when D <= W
+      float qq[N];
+#pragma unroll
+      for (int e = 0; e < N; ++e) qq[e] = cv * N + e < D ? qs[cv * N + e] : 0.f;
+#pragma unroll
+      for (int i = 0; i < kDecKeys; ++i) {
+        float kk[N];
+        load_cols<kVec>(kk, kc + off[i], cv * N, D);
+#pragma unroll
+        for (int e = 0; e < N; ++e) s[i] += qq[e] * kk[e];
       }
     }
-    __syncthreads();         // probabilities consumed before the next block
-  }
-  const float inv = 1.f / (l_run > 0.f ? l_run : 1.f);
+    float mx = m;
 #pragma unroll
-  for (int i = 0; i < kDecodeAcc; ++i) {
-    const int d = d0 + tid + i * kDecodeThreads;
-    if (d < D) o[d] = from_f32<TQ>(acc[i] * inv);
+    for (int i = 0; i < kDecKeys; ++i) {
+      s[i] = warp_sum(s[i]);                     // the same bits in every lane
+      if (t0 + i >= k1) s[i] = -1e30f;
+      mx = fmaxf(mx, s[i]);
+    }
+    const float alpha = expf(m - mx);
+    l *= alpha;
+#pragma unroll
+    for (int e = 0; e < N; ++e) acc[e] *= alpha;
+    const bool live = oc / N + lane < nvec;      // lanes past the row add nothing
+#pragma unroll
+    for (int i = 0; i < kDecKeys; ++i) {
+      const float pr = expf(s[i] - mx);          // 0 for a masked key
+      l += pr;
+#pragma unroll
+      for (int e = 0; e < N; ++e) acc[e] += live && t0 + i < k1 ? pr * vv[i][e] : 0.f;
+    }
+    m = mx;
   }
+  // the block's partial: the warps' results combined in warp order
+  if (lane == 0) {
+    wml[warp] = m;
+    wml[kDecWarps + warp] = l;
+  }
+#pragma unroll
+  for (int e = 0; e < N; ++e) wacc[warp * W + lane * N + e] = acc[e];
+  __syncthreads();
+  float bm = -1e30f, wt[kDecWarps];
+#pragma unroll
+  for (int w = 0; w < kDecWarps; ++w) bm = fmaxf(bm, wml[w]);
+  float bl = 0.f;
+#pragma unroll
+  for (int w = 0; w < kDecWarps; ++w) {
+    wt[w] = expf(wml[w] - bm);
+    bl += wml[kDecWarps + w] * wt[w];
+  }
+  if (threadIdx.x == 0) {
+    bp[0] = bm;
+    bp[1] = bl;
+  }
+  for (int j = threadIdx.x; j < W; j += kDecThreads) {
+    float a = 0.f;
+#pragma unroll
+    for (int w = 0; w < kDecWarps; ++w) a += wacc[w * W + j] * wt[w];
+    bp[2 + j] = a;
+  }
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  cluster.sync();                                // every rank's partial is written
+  if (rg == 0) {
+    // the ranges holding a key (range 0 always does, so the sum is
+    // positive), in range order
+    const int n = (kend - 1) / per + 1;
+    float gm = -1e30f;
+    for (int j = 0; j < n; ++j) gm = fmaxf(gm, cluster.map_shared_rank(bp, j)[0]);
+    float lsum = 0.f;
+    for (int j = 0; j < n; ++j) {
+      const float* r = cluster.map_shared_rank(bp, j);
+      lsum += r[1] * expf(r[0] - gm);
+    }
+    const float inv = 1.f / lsum;
+    for (int d = threadIdx.x; d < min(W, D - oc); d += kDecThreads) {
+      float a = 0.f;
+      for (int j = 0; j < n; ++j) {
+        const float* r = cluster.map_shared_rank(bp, j);
+        a += r[2 + d] * expf(r[0] - gm);
+      }
+      out[ch * D + oc + d] = from_f32<TQ>(a * inv);
+    }
+  }
+  cluster.sync();                                // rank 0 has read them all
+}
+
+// the most keys a range takes: the table's M bs keys split over nr
+// ranges in whole warp steps
+int decode_range_keys(int ctx, int nr) {
+  return ((ctx + nr - 1) / nr + kDecKeys - 1) / kDecKeys * kDecKeys;
+}
+
+// dynamic shared memory of the decode kernel, bytes: q, the warps' and
+// the block's partials, the range's table entries (at most keys / bs + 2)
+size_t decode_smem(int D, int keys, int bs, int N) {
+  const int W = 32 * N;
+  return sizeof(float) * (((D + 3) & ~3) + 2 * kDecWarps + kDecWarps * W + 4 + W) +
+         sizeof(int) * (keys / bs + 2);
 }
 
 // ---------------------------------------------------------------------
@@ -534,13 +702,34 @@ int launch_prefill(const void* q, const void* k, const void* v, void* kc, void* 
 
 template <typename TQ, typename TKV>
 int launch_decode(const void* q, const void* kc, const void* vc, const void* table,
-                  const void* pos, void* out, int C, int H, int D, int bs, int M,
+                  const void* pos, void* out, int C, int H, int D, int bs, int M, int nr,
                   float scale, cudaStream_t stream) {
-  const size_t smem = (size_t)(D + bs) * sizeof(float);
-  const dim3 grid(H, C, (D + kDecodeCols - 1) / kDecodeCols);
-  paged_decode_kernel<TQ, TKV><<<grid, kDecodeThreads, smem, stream>>>(
-      (const TQ*)q, (const TKV*)kc, (const TKV*)vc, (const int*)table,
-      (const int*)pos, (TQ*)out, H, D, bs, M, scale);
+  constexpr int N = Vec16<TKV>::N;
+  const int nz = (D + 32 * N - 1) / (32 * N);
+  const size_t smem = decode_smem(D, decode_range_keys(M * bs, nr), bs, N);
+  // 16-byte loads of K/V rows when every row starts 16-byte aligned
+  const bool vec = D % N == 0 && tc::aligned16(kc) && tc::aligned16(vc);
+  const auto fn = vec ? paged_decode_kernel<TQ, TKV, true> : paged_decode_kernel<TQ, TKV, false>;
+  cudaError_t err = cudaSuccess;
+  if (smem > 48 * 1024) {      // past the default only at head_dims of thousands
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nr * nz, H, C);
+  cfg.blockDim = dim3(kDecThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = nr;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, fn, (const TQ*)q, (const TKV*)kc, (const TKV*)vc,
+                           (const int*)table, (const int*)pos, (TQ*)out, D, bs, M, nr, scale);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -582,20 +771,26 @@ int launch_chunk(const void* q, const void* k, const void* v, void* kc, void* vc
 
 extern "C" {
 
-// dtype codes: 0 = float32, 1 = bfloat16
+// dtype codes: 0 = float32, 1 = bfloat16.  ranges: the thread block
+// cluster's size, 1 to 8; each slot's keys split evenly over them
 int mx_paged_decode(const void* q, const void* kc, const void* vc, const void* table,
-                    const void* pos, void* out, int C, int H, int D, int bs, int M,
+                    const void* pos, void* out, int C, int H, int D, int bs, int M, int ranges,
                     float scale, int q_dtype, int kv_dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  if (ranges < 1 || ranges > kDecCluster) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (q_dtype == 0 && kv_dtype == 0)
-    return launch_decode<float, float>(q, kc, vc, table, pos, out, C, H, D, bs, M, scale, s);
+    return launch_decode<float, float>(q, kc, vc, table, pos, out, C, H, D, bs, M, ranges, scale, s);
   if (q_dtype == 0 && kv_dtype == 1)
-    return launch_decode<float, __nv_bfloat16>(q, kc, vc, table, pos, out, C, H, D, bs, M, scale, s);
+    return launch_decode<float, __nv_bfloat16>(q, kc, vc, table, pos, out, C, H, D, bs, M, ranges, scale, s);
   if (q_dtype == 1 && kv_dtype == 0)
-    return launch_decode<__nv_bfloat16, float>(q, kc, vc, table, pos, out, C, H, D, bs, M, scale, s);
-  return launch_decode<__nv_bfloat16, __nv_bfloat16>(q, kc, vc, table, pos, out, C, H, D, bs, M, scale, s);
+    return launch_decode<__nv_bfloat16, float>(q, kc, vc, table, pos, out, C, H, D, bs, M, ranges, scale, s);
+  return launch_decode<__nv_bfloat16, __nv_bfloat16>(q, kc, vc, table, pos, out, C, H, D, bs, M, ranges, scale, s);
+}
+
+size_t mx_paged_decode_smem(int D, int ctx, int bs, int ranges, int kv_dtype) {
+  return decode_smem(D, decode_range_keys(ctx, ranges), bs, kv_dtype == 0 ? 4 : 8);
 }
 
 size_t mx_paged_chunk_prefill_smem(int warps, int D, int key_range, int bs) {

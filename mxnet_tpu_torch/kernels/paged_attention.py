@@ -6,10 +6,12 @@ Counterparts of ``mxnet_tpu/pallas/attention.py``
 ``paged_prefill_attend``, with the same signatures and layouts: caches
 ``(num_blocks, block_size, H, D)`` addressed through an int32 block
 table, queries and chunk rows seq-major.  The kernels are
-``csrc/paged_attention.cu`` (design note in the source; the one-shot
-and chunked prefills run the f32 flash forward of
-``csrc/attention_f32.cuh``, split TF32 on the tensor cores, the chunked
-one over key ranges of the context that a second launch combines).
+``csrc/paged_attention.cu`` (design note in the source; decode splits
+each slot's keys over the blocks of a thread block cluster, whose rank
+0 combines them; the one-shot and chunked prefills run the f32 flash
+forward of ``csrc/attention_f32.cuh``, split TF32 on the tensor cores,
+the chunked one over key ranges of the context that a second launch
+combines).
 Beside each wrapper is its plain PyTorch version: the CPU path and the
 kernel's yardstick on the card.
 
@@ -20,6 +22,7 @@ input/output-aliased caches.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -30,14 +33,14 @@ from .dispatch import (DTYPE_CODE, FLOAT_TYPES, check_tensor, count_launch,
 
 __all__ = ["paged_decode_attend", "paged_decode_attend_plain",
            "paged_chunk_prefill_attend", "paged_chunk_prefill_attend_plain",
-           "chunk_plan",
+           "chunk_plan", "decode_plan",
            "paged_prefill_attend", "paged_prefill_attend_plain"]
 
 _DECODE = "paged_decode_attend"
 _CHUNK = "paged_chunk_prefill_attend"
 _PREFILL = "paged_prefill_attend"
-# the decode kernel's shared memory is (head_dim + block_size) floats
-# under the default 48 KB; the chunk and one-shot prefills have no limit
+# the decode kernel takes head_dim up to 8192 and block_size up to 128;
+# the chunk and one-shot prefills have no head_dim limit
 _DECODE_MAX_D = 8192
 _INT = (torch.int32,)
 # the chunk kernel's launch plan (chunk_plan): an H100's streaming
@@ -48,6 +51,11 @@ _INT = (torch.int32,)
 _SMS = 132
 _KEY_RANGES = (1024, 512, 256, 128, 64)
 _WARPS_PER_SM = {4: 4, 1: 8}
+# the decode kernel's plan (decode_plan): a slot's ranges form one thread
+# block cluster, at most 8 (the portable cluster size); the blocks an SM
+# it aims for (tools/torch_flash_tune.py --decode)
+_DECODE_CLUSTER = 8
+_DECODE_BLOCKS_PER_SM = 3
 
 
 def _lib():
@@ -59,9 +67,11 @@ def _bind(lib):
     (once); returns it."""
     if lib.mx_paged_decode.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.mx_paged_decode.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f,
-                                        i, i, i, p]
+        lib.mx_paged_decode.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
+                                        f, i, i, i, p]
         lib.mx_paged_decode.restype = i
+        lib.mx_paged_decode_smem.argtypes = [i, i, i, i, i]
+        lib.mx_paged_decode_smem.restype = ctypes.c_size_t
         lib.mx_paged_chunk_prefill.argtypes = [p, p, p, p, p, p, p, p, p, p,
                                                p, i, i, i, i, i, i, i, i, f,
                                                i, i, i, p]
@@ -106,6 +116,22 @@ def paged_decode_attend_plain(q, k_cache, v_cache, block_table, positions,
     return o.to(q.dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def decode_plan(C, H, D, bs, M):
+    """The decode kernel's launch plan, a function of the static shapes
+    alone (never of ``positions``, which live on the device): each slot's
+    keys split evenly over ``ranges`` blocks of 4 warps (a thread block
+    cluster, whose rank 0 combines them), the fewest of 1, 2, 4, 8 whose
+    ``blocks = C * H * ranges`` give every SM ``_DECODE_BLOCKS_PER_SM``
+    blocks, else 8 (the split itself is worked out on the device from
+    the position).  ``blocks`` counts one column chunk of head_dim."""
+    ranges = 1
+    while ranges < _DECODE_CLUSTER and \
+            C * H * ranges < _DECODE_BLOCKS_PER_SM * _SMS:
+        ranges *= 2
+    return {"ranges": ranges, "blocks": C * H * ranges}
+
+
 def paged_decode_attend(q, k_cache, v_cache, block_table, positions, *,
                         scale):
     """Paged decode attention: ``q (C, H, D)`` against cache rows
@@ -114,7 +140,8 @@ def paged_decode_attend(q, k_cache, v_cache, block_table, positions, *,
     token's K/V (the scatter is in ops/nn.py).  Returns ``(C, H, D)`` in
     ``q.dtype``; inactive slots (``positions < 0``) return zeros.  CPU
     tensors take the plain version; CUDA tensors launch the kernel or
-    raise."""
+    raise.  The kernel splits each slot's keys over the ranges of
+    :func:`decode_plan` and combines them in a thread block cluster."""
     if on_cpu(_DECODE, q, k_cache, v_cache, block_table, positions):
         return paged_decode_attend_plain(q, k_cache, v_cache, block_table,
                                          positions, scale=scale)
@@ -134,15 +161,21 @@ def paged_decode_attend(q, k_cache, v_cache, block_table, positions, *,
         raise MXNetError("%s: the kernel takes block_size <= 128 and "
                          "head_dim <= %d, got %d and %d"
                          % (_DECODE, _DECODE_MAX_D, bs, D))
+    if C > 65535 or H > 65535:
+        raise MXNetError("%s: the kernel takes at most 65535 slots and "
+                         "heads, got %d and %d" % (_DECODE, C, H))
     out = torch.empty_like(q)
-    if C == 0 or H == 0:
+    if out.numel() == 0:
         return out
+    M = block_table.shape[1]
+    if M * bs == 0:             # no cache row: every slot attends nothing
+        return out.zero_()
     lib = _lib()
     err = lib.mx_paged_decode(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         block_table.data_ptr(), positions.data_ptr(), out.data_ptr(), C, H,
-        D, bs, block_table.shape[1], float(scale), DTYPE_CODE[q.dtype],
-        DTYPE_CODE[k_cache.dtype], q.device.index or 0,
+        D, bs, M, decode_plan(C, H, D, bs, M)["ranges"], float(scale),
+        DTYPE_CODE[q.dtype], DTYPE_CODE[k_cache.dtype], q.device.index or 0,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, _DECODE, err)
     count_launch(_DECODE)

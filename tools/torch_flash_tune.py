@@ -3,6 +3,7 @@
 
     python3 tools/torch_flash_tune.py [--dtype float32|bfloat16] [--only V ...]
     python3 tools/torch_flash_tune.py --chunk [--only V ...]
+    python3 tools/torch_flash_tune.py --decode [--only V ...]
 
 Each variant is ``mxnet_tpu_torch/csrc/flash_attention.cu`` and
 ``attention_f32.cuh`` with a few text substitutions of their tuning
@@ -38,6 +39,20 @@ launched back to back ("pipelined", as a serving step runs them); the tuned
 library is also run at every key range of ``CHUNK_RANGES`` (the launch
 plan's ``key_range``, patched: no rebuild), so the plan's choice can be
 read against the others.
+
+``--decode`` tunes row 1's paged decode (``csrc/paged_attention.cu``):
+its ``DECODE_VARIANTS`` (keys a warp takes a step, warps a block) and
+``DECODE_DIAGNOSE`` variants (return at entry; no key step) are built
+the same way and run through the plan (``decode_plan``); the tuned
+library is also run at every cluster size of ``DECODE_RANGES`` (the
+plan's ``ranges``, patched: no rebuild).  Each arm is held against the
+plain version (f32, rtol 1e-4 / atol 1e-5) and timed at
+``chip_smoke``'s served shape over long contexts (positions 20-731) and
+serve's short ones (20-145), and over one slot: alone
+(``chip_smoke.time_ms``), alone after a flush that reads instead of
+writing (``:clean``: no dirty L2 lines to write back first), and over
+200 calls back to back (``chip_smoke.pipelined_ms``), in turns and then
+in reverse order.
 """
 import argparse
 import contextlib
@@ -220,6 +235,24 @@ CHUNK_DIAGNOSE = {
     "no_launch": [("  float* pf = (float*)part;\n", "  if (K > 0) return 0;\n  float* pf = (float*)part;\n")],
 }
 CHUNK_RANGES = (32, 64, 128, 256, 512)
+# row 1's paged decode (paged_attention.cu)
+DECODE_VARIANTS = {
+    "tuned": [],
+    "2_keys": [("constexpr int kDecKeys = 4;", "constexpr int kDecKeys = 2;")],
+    "8_keys": [("constexpr int kDecKeys = 4;", "constexpr int kDecKeys = 8;")],
+    "8_warps": [("constexpr int kDecWarps = 4;", "constexpr int kDecWarps = 8;")],
+    "2_warps": [("constexpr int kDecWarps = 4;", "constexpr int kDecWarps = 2;")],
+}
+DECODE_DIAGNOSE = {
+    # the kernel returns at entry (the cluster launch alone)
+    "return_at_entry": [("  const int rg = (int)blockIdx.x % nr, oc = (int)blockIdx.x / nr * W;",
+                         "  if (D > 0) return;\n"
+                         "  const int rg = (int)blockIdx.x % nr, oc = (int)blockIdx.x / nr * W;")],
+    # no key tile: staging, the warps' and the ranges' combines only
+    "no_tiles": [("t0 < k1; t0 += kDecStep) {", "t0 < k1 && D < 0; t0 += kDecStep) {")],
+}
+# the cluster sizes (ranges a slot) the tuned library runs at
+DECODE_RANGES = (1, 2, 4, 8)
 ENTRIES = {"bfloat16": {"flash_attention_fwd": "flash_fwd_bf16_kernelILb1",
                         "flash_attention_bwd_dkv": "flash_bwd_dkv_bf16_kernelILb1",
                         "flash_attention_bwd_dq": "flash_bwd_dq_bf16_kernelILb1"},
@@ -412,11 +445,117 @@ def main_chunk(args, torch, cs):
     return 1 if {n for n, _ in bad} - set(CHUNK_DIAGNOSE) else 0
 
 
+def main_decode(args, torch, cs):
+    """Row 1's variants, combine forms and key ranges at the served
+    shapes."""
+    pa = importlib.import_module("mxnet_tpu_torch.kernels.paged_attention")
+    variants = dict(DECODE_VARIANTS, **DECODE_DIAGNOSE)
+    if args.only:
+        unknown = set(args.only) - set(variants)
+        if unknown:
+            raise SystemExit("unknown variants: %s" % sorted(unknown))
+        variants = {n: v for n, v in variants.items() if n == "tuned" or n in args.only}
+    built = build(variants, "decode", CHUNK_FILES)
+    libs = {name: pa._bind(ctypes.CDLL(path)) for name, (path, _) in built.items()}
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device="cpu").manual_seed(cs.SEED + 34)
+    C, H, D, nb, bs, M = 8, 16, 128, 512, 16, 64
+    q = torch.randn(C, H, D, generator=g).to(dev)
+    kc = torch.randn(nb, bs, H, D, generator=g).to(dev)
+    vc = torch.randn(nb, bs, H, D, generator=g).to(dev)
+    table = torch.randperm(nb, generator=g)[:C * M].reshape(C, M).to(torch.int32).to(dev)
+    cases = {
+        "long": (q, table, torch.randint(20, 732, (C,), generator=g)),
+        "short": (q, table, torch.randint(20, 146, (C,), generator=g)),
+        "one_slot": (q[:1], table[:1], torch.randint(600, 732, (1,), generator=g))}
+    cases = {c: (qq, tb, p.to(torch.int32).to(dev)) for c, (qq, tb, p) in cases.items()}
+    sc = 1.0 / D ** 0.5
+    plan = pa.decode_plan
+
+    @contextlib.contextmanager
+    def arm(name, ranges):
+        """The wrapper on the variant's library, at a forced cluster size
+        or the plan's"""
+        def fixed(*a):
+            p = plan(*a)
+            return p if ranges is None else dict(p, ranges=ranges)
+        with mock.patch.object(pa, "_lib", lambda: libs[name]), \
+                mock.patch.object(pa, "decode_plan", fixed):
+            yield
+
+    arms = [(name, None) for name in libs] + [("tuned", r) for r in DECODE_RANGES]
+    bad = {}
+    for a in arms:
+        for case, (qq, tb, pos) in cases.items():
+            with arm(*a):
+                out = pa.paged_decode_attend(qq, kc, vc, tb, pos, scale=sc)
+            ref = pa.paged_decode_attend_plain(qq, kc, vc, tb, pos, scale=sc)
+            torch.cuda.synchronize()
+            if not cs.close(torch, out, ref):
+                bad.setdefault(a, []).append("%s: max abs err %g"
+                                             % (case, cs.max_err(out, ref)))
+    flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
+    clean = ReadFlush(flush)
+    times = {a: {} for a in arms}
+    for a in arms + arms[::-1]:
+        with arm(*a):
+            for case, (qq, tb, pos) in cases.items():
+                def fn(qq=qq, tb=tb, pos=pos):
+                    return pa.paged_decode_attend(qq, kc, vc, tb, pos, scale=sc)
+                times[a].setdefault(case, []).append(cs.time_ms(torch, fn, flush))
+                times[a].setdefault(case + ":clean", []).append(cs.time_ms(torch, fn, clean))
+                times[a].setdefault(case + ":back_to_back", []).append(
+                    cs.pipelined_ms(torch, fn))
+    for a in arms:
+        name, ranges = a
+        ms = {c: sum(t) / len(t) for c, t in times[a].items()}
+        print(json.dumps({"variant": name, "ranges": ranges or "plan",
+                          "plan": {c: plan(v[0].shape[0], H, D, bs, M)
+                                   for c, v in cases.items()},
+                          "diagnostic": name in DECODE_DIAGNOSE,
+                          "ptxas": decode_ptxas(built[name][1]),
+                          "agrees": a not in bad, "disagreements": bad.get(a, []),
+                          "ms": ms}), flush=True)
+    cs.phase_device(torch)
+    return 1 if {n for n, _ in bad} - set(DECODE_DIAGNOSE) else 0
+
+
+class ReadFlush:
+    """A flush for ``chip_smoke.time_ms`` that reads its buffer (its
+    ``zero_`` sums it): the L2 is left full of clean lines, where the
+    usual flush (writing zeros) leaves dirty lines that a kernel's reads
+    must first write back."""
+
+    def __init__(self, buf):
+        self.buf = buf
+
+    def zero_(self):
+        self.buf.sum()
+
+
+def decode_ptxas(log):
+    """{instance: {registers, spill_stores, spill_loads}} of the decode
+    kernel's f32 instances (both load forms)."""
+    lines = log.splitlines()
+    found = {}
+    for i, line in enumerate(lines):
+        m = re.search(r"paged_decode_kernelIffLb[01]E", line)
+        if "Compiling entry function" in line and m:
+            block = " ".join(lines[i + 1:i + 4])
+            found[m.group(0)] = {
+                "registers": int(re.search(r"Used (\d+) registers", block).group(1)),
+                "spill_stores": int(re.search(r"(\d+) bytes spill stores", block).group(1)),
+                "spill_loads": int(re.search(r"(\d+) bytes spill loads", block).group(1))}
+    return found
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32")
     ap.add_argument("--chunk", action="store_true",
                     help="tune row 2's chunked prefill instead")
+    ap.add_argument("--decode", action="store_true",
+                    help="tune row 1's paged decode instead")
     ap.add_argument("--only", nargs="+", metavar="VARIANT",
                     help="these variants (and tuned) only")
     args = ap.parse_args(argv)
@@ -428,6 +567,8 @@ def main(argv=None):
     import chip_smoke as cs
     if args.chunk:
         return main_chunk(args, torch, cs)
+    if args.decode:
+        return main_decode(args, torch, cs)
     fa = importlib.import_module("mxnet_tpu_torch.kernels.flash_attention")
     dev = torch.device("cuda", 0)
     dt = getattr(torch, args.dtype)
