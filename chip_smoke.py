@@ -31,7 +31,13 @@ Phases, each printed as one JSON line:
    short ones (20-145), with an inactive slot and a position past the
    table, and over one slot, two runs bit-identical, and timed alone
    and 200 calls back to back beside SDPA over each slot's gathered
-   context;
+   context; the LayerNorm forward (a group of warps a row, the row in
+   registers; its instances' ptxas lines first, no spills) at the rows
+   of every path that runs it (8, 40, 64, 1024, 4096 and 8192 of 2048
+   columns), at the widths of LN_FWD_EDGES (ragged, looped, the widest
+   row the wrapper took before) and on misaligned rows, two runs
+   bit-identical, timed alone after a flush that writes and one that
+   reads, and 200 calls back to back, beside ``F.layer_norm``;
 4. serve: the transformer LM at full width (L12, d2048, h16, vocab
    16384, ffn 8192, seq 1024; random N(0, 0.02) weights from a numpy
    seed) through ``DecodeEngine``: 8 ragged requests fill the 8 slots
@@ -165,8 +171,8 @@ Phases, each printed as one JSON line:
    512), FlashAttentionFn end to end against autograd through the
    reference (relative L2 1e-2), each kernel's achieved TFLOP/s;
    LayerNorm forward and backward at
-   4096 x 2048 (the backward also at LN_BWD_EDGES, two runs
-   bit-identical); the fused kernel (tensor cores: the mma.sync GEMM of
+   4096 x 2048 (the forward also at LN_FWD_EDGES and misaligned rows,
+   the backward at LN_BWD_EDGES, two runs bit-identical); the fused kernel (tensor cores: the mma.sync GEMM of
    fused_gemm_bf16.cuh; its instances' ptxas lines and shared memory
    printed first, no spills allowed, the CUDA-core kernel f32 only) at
    ResNet-50's 8 site shapes at batch 256, the odd shape and the edges of
@@ -237,23 +243,23 @@ Phases, each printed as one JSON line:
    its plain version (bf16 at 20's bound, f32 at 3's), two runs
    bit-identical, at the fused-sandwich microbenchmark's two bands
    (batch 256, 28 x 28, 128 -> 512 on the channel-last view of cuDNN's
-   output and 512 -> 128 on a contiguous tensor), at 64 x 56 x 56 (64 ->
-   256, the TPU kernel's th = 16 rows), in f32, on an NHWC view of an
-   NCHW tensor, on a channel slice, at an odd shape and at the bf16
-   GEMM's edges (BAND4D_EDGES; ptxas lines as in 20); the two bands
-   timed as in 3 beside ``torch.matmul`` in bf16 on the activated input
+   output and 512 -> 128 on a contiguous tensor) in both types, at 64 x
+   56 x 56 (64 -> 256, the TPU kernel's th = 16 rows), on an NHWC view
+   of an NCHW tensor, on a channel slice, at an odd shape, at the bf16
+   GEMM's edges (BAND4D_EDGES) and in f32 at a ragged M; the f32 form
+   (split TF32, fused_gemm_f32.cuh with W (K, N)) bit-equal to row 7's
+   f32 kernel on the 2-D view; both GEMMs' ptxas lines as in 20; the
+   bands timed as in 3 beside ``torch.matmul`` on the activated input
    and row 7's kernel on the 2-D view, bounded by bytes over 3.35 TB/s
-   or operations over the bf16 tensor-core peak; then the f32 form (on
-   no main path) at the two bands in f32, against its plain version at
-   3's bound, timed beside torch.matmul in f32 (TF32 off) on the
-   activated input, bounded at the CUDA-core and the split-TF32 peaks;
+   or operations over the bf16 tensor-core peak (bf16) or the split-TF32
+   peak (f32, the CUDA-core bound beside);
 30. sandwich (after 26): ``tools/torch_fused_sandwich_bench.py``'s
    three arms (plain: elementwise ops and ``torch.matmul``; pal2d: row
-   7's kernel on the 2-D view; pal4d: row 10's kernel) at its shapes:
-   pal2d and pal4d outputs bit-equal, plain within 1e-2 relative L2;
-   ms per iteration from CUDA graphs of 2 and 62 iterations (best of 3
-   replays each); every band launch of the captured loops counted (2
-   per iteration), no plain version;
+   7's kernel on the 2-D view; pal4d: row 10's kernel) at its shapes, in
+   bf16 and then in f32 (TF32 off): pal2d and pal4d outputs bit-equal,
+   plain within 1e-2 relative L2; ms per iteration from CUDA graphs of 2
+   and 62 iterations (best of 3 replays each); every band launch of the
+   captured loops counted (2 per iteration, per type), no plain version;
 31. fit_fused (after 22): ``Module.fit`` at full width through the
    single-launch fused step (two warm-up steps, one capture, then one
    graph replay per step) against its eager pair, each for 10 steps
@@ -388,6 +394,14 @@ RESNET_BF16 = dict(batch=256, lr=0.1, momentum=0.9, wd=1e-4, steps=10,
 # widest row the wrapper takes
 LN_BWD_EDGES = ((256, 256), (256, 512), (128, 1000), (64, 2046), (64, 4096),
                 (64, 6000), (64, 14528))
+# LayerNorm forward beside the served and training shapes, (rows, cols):
+# one to four warps a row, a width off the 16-byte vector, the looped
+# form past 2048 f32 (4096 bf16) columns, the widest row the wrapper took
+# with a shared-memory row buffer (58112), tiny rows
+LN_FWD_EDGES = ((256, 256), (256, 512), (128, 1000), (64, 2046), (64, 4096),
+                (64, 6000), (16, 14528), (4, 58112), (5, 100), (3, 1))
+# the forward's instances in csrc/layernorm.cu's ptxas log
+LN_FWD_PATTERN = r"layernorm_fwd_\w+?_kernelI\w+?E(?=Ev)"
 # the attention kernels at head_dims past 128, d_model kept at 2048
 HEAD_DIM = dict(dims=(256, 512), d_model=2048,
                 decode_ragged=((72, "float32"), (30, "float32"),
@@ -532,6 +546,19 @@ def time_ms(torch, fn, flush, reps=60, warmup=5):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+class ReadFlush:
+    """A flush for ``time_ms`` that reads its buffer (its ``zero_`` sums
+    it): the L2 is left full of clean lines, where the usual flush
+    (writing zeros) leaves dirty lines that a kernel's first reads must
+    write back."""
+
+    def __init__(self, buf):
+        self.buf = buf
+
+    def zero_(self):
+        self.buf.sum()
 
 
 def bound(nbytes, flops, peak=F32_FLOPS_PER_S):
@@ -953,43 +980,97 @@ def phase_chunk(torch, mxk, dev, flush):
     return res
 
 
+def _ln_fwd_hold(torch, mxk, x, gamma, beta, res, tag, errs):
+    """LayerNorm forward on (x, gamma, beta), with and without ``res``:
+    two runs bit-identical, against the plain version (out at rtol 1e-4 /
+    atol 1e-5 in f32, close_bf16 in bf16; the f32 statistics at rtol 1e-4
+    / atol 1e-5).  Records each max abs error in ``errs``."""
+    for r in (None, res):
+        what_r = tag + (", residual" if r is not None else "")
+        got = mxk.layernorm_fused(x, gamma, beta, residual=r)
+        again = mxk.layernorm_fused(x, gamma, beta, residual=r)
+        ref = mxk.layernorm_plain(x, gamma, beta, residual=r)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              "layernorm_fused %s: two runs differ" % what_r)
+        for a, b, what in zip(got, ref, ("out", "mean", "rstd")):
+            ok = close_bf16(torch, a, b) if what == "out" and \
+                x.dtype == torch.bfloat16 else close(torch, a, b)
+            check(ok, "layernorm_fused %s (%s) disagrees with its plain "
+                  "version (max abs err %g)" % (what, what_r, max_err(a, b)))
+            errs["%s %s" % (what, what_r)] = max_err(a, b)
+
+
+def _ln_fwd_edges(torch, mxk, dev, g, dtype, errs):
+    """The forward at the widths of LN_FWD_EDGES and on rows one element
+    off 16-byte alignment (element by element), as _ln_fwd_hold holds
+    it."""
+    for rows, cols in LN_FWD_EDGES:
+        x, res = (torch.randn(rows, cols, generator=g).to(dev).to(dtype)
+                  for _ in range(2))
+        gamma = (1 + 0.02 * torch.randn(cols, generator=g)).to(dev).to(dtype)
+        beta = (0.02 * torch.randn(cols, generator=g)).to(dev).to(dtype)
+        _ln_fwd_hold(torch, mxk, x, gamma, beta, res,
+                     "%s %d x %d" % (str(dtype)[6:], rows, cols), errs)
+    rows, cols = 64, 2048
+    flat = torch.randn(2 * rows * cols + 2, generator=g).to(dev).to(dtype)
+    x = flat[1:rows * cols + 1].view(rows, cols)
+    res = flat[rows * cols + 2:].view(rows, cols)
+    gamma = (1 + 0.02 * torch.randn(cols, generator=g)).to(dev).to(dtype)
+    beta = (0.02 * torch.randn(cols, generator=g)).to(dev).to(dtype)
+    _ln_fwd_hold(torch, mxk, x, gamma, beta, res, "%s misaligned %d x %d"
+                 % (str(dtype)[6:], rows, cols), errs)
+
+
 def phase_layernorm(torch, mxk, dev, flush):
+    """LayerNorm forward in f32 (a group of warps a row, the row in
+    registers; its instances' ptxas lines first, no spills) at the rows
+    of every path that runs it, 2048 columns, with and without a
+    residual, two runs bit-identical, and at the widths of LN_FWD_EDGES
+    and on misaligned rows; timed alone (L2 flushed by writing, and by
+    reading) and 200 calls back to back beside F.layer_norm."""
     import torch.nn.functional as F
+    ptx = _instances_ptxas("layernorm", LN_FWD_PATTERN,
+                           "the LayerNorm forward")
+    clean = ReadFlush(flush)
     cols = 2048
     g = torch.Generator(device="cpu").manual_seed(SEED + 2)
     gamma = (1 + 0.02 * torch.randn(cols, generator=g)).to(dev)
     beta = (0.02 * torch.randn(cols, generator=g)).to(dev)
     per_shape = []
+    errs = {}
     # 8 and 64 rows are the serve step's (the decode and chunk streams),
     # 40 the spec step's span stream (8 slots x 5), 1024 the draft
-    # model's (1, seq_len) forward, 8192 the one-shot prefill's (8 x 1024)
-    for rows in (8, 64, 40, 1024, 8192):
+    # model's (1, seq_len) forward, 4096 Module.fit's (4 x 1024), 8192
+    # the one-shot prefill's (8 x 1024)
+    for rows in (8, 64, 40, 1024, 4096, 8192):
         x = torch.randn(rows, cols, generator=g).to(dev)
         res = torch.randn(rows, cols, generator=g).to(dev)
-        err = 0.0
-        for r in (None, res):
-            got = mxk.layernorm_fused(x, gamma, beta, residual=r)
-            ref = mxk.layernorm_plain(x, gamma, beta, residual=r)
-            torch.cuda.synchronize()
-            for a, b, what in zip(got, ref, ("out", "mean", "rstd")):
-                check(close(torch, a, b), "layernorm_fused %s (rows %d, "
-                      "residual %s) disagrees with its plain version (max "
-                      "abs err %g)" % (what, rows, r is not None,
-                                       max_err(a, b)))
-                err = max(err, max_err(a, b))
-        ms = time_ms(torch, lambda: mxk.layernorm_fused(x, gamma, beta),
-                     flush)
+        before = len(errs)
+        _ln_fwd_hold(torch, mxk, x, gamma, beta, res,
+                     "float32 %d x %d" % (rows, cols), errs)
+        err = max(list(errs.values())[before:])
+        fn = lambda: mxk.layernorm_fused(x, gamma, beta)
+        lib = lambda: F.layer_norm(x, (cols,), gamma, beta, 1e-5)
+        ms = time_ms(torch, fn, flush)
         plain_ms = time_ms(torch, lambda: mxk.layernorm_plain(x, gamma, beta),
                            flush)
-        lib_ms = time_ms(torch, lambda: F.layer_norm(x, (cols,), gamma, beta,
-                                                     1e-5), flush)
+        lib_ms = time_ms(torch, lib, flush)
         nbytes = 2 * rows * cols * 4 + 2 * cols * 4 + 2 * rows * 4
         b_ms, b_by = bound(nbytes, 8 * rows * cols)
         shape = {"rows": rows, "cols": cols, "max_abs_err": err, "ms": ms,
                  "plain_ms": plain_ms, "library_ms": lib_ms,
-                 "bound_ms": b_ms, "bound_by": b_by}
+                 "bound_ms": b_ms, "bound_by": b_by,
+                 "read_flush_ms": time_ms(torch, fn, clean),
+                 "library_read_flush_ms": time_ms(torch, lib, clean),
+                 "back_to_back_ms": pipelined_ms(torch, fn),
+                 "library_back_to_back_ms": pipelined_ms(torch, lib),
+                 "share_of_bound": b_ms / ms}
         emit({"phase": "kernel", "name": "layernorm_fused", **shape})
         per_shape.append(shape)
+    _ln_fwd_edges(torch, mxk, dev, g, torch.float32, errs)
+    emit({"phase": "layernorm", "ptxas": ptx, "errors": errs,
+          "edges": [list(e) for e in LN_FWD_EDGES], "deterministic": True})
     # the serve path calls it 25 times per step at 8 rows and 25 at 64:
     # the kernels line carries the mean of those two shapes
     mean = {k: statistics.mean(s[k] for s in per_shape[:2])
@@ -997,7 +1078,7 @@ def phase_layernorm(torch, mxk, dev, flush):
     return {"name": "layernorm_fused", "route": "cuda",
             "source": "mxnet_tpu_torch/csrc/layernorm.cu",
             "replaces": "mxnet_tpu/pallas/layernorm.py:127",
-            "max_abs_err": max(s["max_abs_err"] for s in per_shape),
+            "max_abs_err": max(errs.values()),
             "bound_by": per_shape[1]["bound_by"], **mean}
 
 
@@ -2285,35 +2366,38 @@ def phase_resnet_agreement(torch, mx, ctxs=None, cfg=RESNET_AGREE):
 # ----------------------------------------------------------------------
 # channel-last ResNet-50 through TrainStep, with the fused kernel
 # ----------------------------------------------------------------------
-def _fused_gemm_f32_ptxas():
+def _fused_gemm_f32_ptxas(source="fused_matmul"):
     """The f32 GEMM's instances (split TF32, fused_gemm_f32.cuh) in
-    fused_matmul.cu's build: ptxas's registers, stack and spills (none
-    allowed) and each tile's dynamic shared memory, printed; and no
-    CUDA-core kernel left in the library."""
+    csrc/<source>.cu's build (W (N, K) in fused_matmul, (K, N) in
+    fused_band4d): ptxas's registers, stack and spills (none allowed) and
+    each tile's dynamic shared memory, printed; and no CUDA-core kernel
+    left in the library."""
     import ctypes
     from mxnet_tpu_torch.kernels import _build
+    w_kn = int(source == "fused_band4d")
     entries = {"128x%d:%s" % (bn, "cp_async" if vec else "elementwise"):
-               "fused_gemm_f32_kernelILi%dELb%dE" % (bn, vec)
+               "fused_gemm_f32_kernelILi%dELb%dELb%dE" % (bn, w_kn, vec)
                for bn in FUSED_GEMM_TILES for vec in (1, 0)}
-    ptx = _ptxas("fused_matmul", entries)
-    lib = _build.load("fused_matmul")
+    ptx = _ptxas(source, entries)
+    lib = _build.load(source)
     lib.mx_fused_gemm_f32_smem.argtypes = [ctypes.c_int]
     lib.mx_fused_gemm_f32_smem.restype = ctypes.c_int
     for key in sorted(ptx):
         bn = int(key.split(":")[0].split("x")[1])
         ptx[key]["dynamic_smem_bytes"] = lib.mx_fused_gemm_f32_smem(bn)
-        print("ptxas fused_matmul fused_gemm_f32_kernel %s: %s; %d bytes of "
-              "dynamic shared memory" % (key, "; ".join(ptx[key]["lines"]),
-                                         ptx[key]["dynamic_smem_bytes"]),
-              flush=True)
+        print("ptxas %s fused_gemm_f32_kernel %s: %s; %d bytes of dynamic "
+              "shared memory" % (source, key, "; ".join(ptx[key]["lines"]),
+                                 ptx[key]["dynamic_smem_bytes"]), flush=True)
         check(ptx[key]["spill_stores"] == 0 and ptx[key]["spill_loads"] == 0,
-              "fused_matmul: the f32 GEMM %s spills: %s"
-              % (key, ptx[key]["lines"][0]))
-    old = [line for line in _build.log_path("fused_matmul").read_text()
+              "%s: the f32 GEMM %s spills: %s"
+              % (source, key, ptx[key]["lines"][0]))
+    old_entry = "fused_scale_relu_matmul_kernel" if source == "fused_matmul" \
+        else "fused_band4d_kernel"
+    old = [line for line in _build.log_path(source).read_text()
            .splitlines() if "Compiling entry function" in line
-           and "fused_scale_relu_matmul_kernel" in line]
-    check(not old, "fused_matmul: the CUDA-core kernel is still built: %s"
-          % old[:1])
+           and old_entry in line]
+    check(not old, "%s: the CUDA-core kernel is still built: %s"
+          % (source, old[:1]))
     return ptx
 
 
@@ -2689,11 +2773,10 @@ def _ptxas(source, entries):
     return found
 
 
-def _fused_gemm_ptxas(source, old_entry):
+def _fused_gemm_ptxas(source):
     """The bf16 GEMM's instances in csrc/<source>.cu's build: ptxas's
     registers, stack and spills (none allowed) and each tile's dynamic
-    shared memory, printed; and, when ``old_entry`` names one, the old
-    CUDA-core kernel instantiated for f32 only."""
+    shared memory, printed."""
     import ctypes
     from mxnet_tpu_torch.kernels import _build
     w_kn = int(source == "fused_band4d")
@@ -2713,13 +2796,6 @@ def _fused_gemm_ptxas(source, old_entry):
         check(ptx[key]["spill_stores"] == 0 and ptx[key]["spill_loads"] == 0,
               "%s: the bf16 GEMM %s spills: %s"
               % (source, key, ptx[key]["lines"][0]))
-    if old_entry is not None:
-        old = [line for line in _build.log_path(source).read_text()
-               .splitlines()
-               if "Compiling entry function" in line and old_entry in line]
-        check(old and not any("bfloat16" in line for line in old),
-              "%s: the CUDA-core %s is instantiated %s" % (
-                  source, old_entry, "for bf16" if old else "for no type"))
     return ptx
 
 
@@ -2829,10 +2905,13 @@ def phase_layernorm_bf16(torch, mxk, dev, flush):
     """LayerNorm forward and backward in bf16 (bf16 x, gamma, beta, dy;
     f32 statistics) at the bf16 transformer's 4096 x 2048 rows, with and
     without a residual, against the plain versions: outputs close_bf16,
-    statistics rtol 1e-4 / atol 1e-5; the backward also at the widths of
-    LN_BWD_EDGES, two runs bit-identical; timed beside F.layer_norm and
-    aten.native_layer_norm_backward on the same bf16 tensors.  Returns
-    the two kernels-line rows."""
+    statistics rtol 1e-4 / atol 1e-5; the forward also at the widths of
+    LN_FWD_EDGES and on misaligned rows, the backward at those of
+    LN_BWD_EDGES, two runs bit-identical (the forward's ptxas lines are
+    phase_layernorm's: its instances cover both types); timed beside
+    F.layer_norm and aten.native_layer_norm_backward on the same bf16
+    tensors, the forward also after a flush that reads and 200 calls
+    back to back.  Returns the two kernels-line rows."""
     import torch.nn.functional as F
     rows, cols = 4096, 2048
     bf = torch.bfloat16
@@ -2857,8 +2936,12 @@ def phase_layernorm_bf16(torch, mxk, dev, flush):
             check(ok, "layernorm bf16 %s%s disagrees with its plain version "
                   "(max abs err %g)" % (what, tag, max_err(a, b)))
             errs[what + tag] = max_err(a, b)
-    # the backward again, two runs bit-identical, at 4096 x 2048 and the
-    # widths of LN_BWD_EDGES, with and without a residual
+    # the forward and the backward again, two runs bit-identical, at 4096
+    # x 2048 and at the widths of LN_FWD_EDGES (and misaligned rows) and
+    # LN_BWD_EDGES, with and without a residual
+    _ln_fwd_hold(torch, mxk, x, gamma, beta, res, "bfloat16 %d x %d"
+                 % (rows, cols), errs)
+    _ln_fwd_edges(torch, mxk, dev, g, bf, errs)
     for r_e, c_e in ((rows, cols),) + LN_BWD_EDGES:
         _ln_bwd_hold(torch, mxk, dev, g, r_e, c_e, bf, errs)
     _, mean, rstd = mxk.layernorm_plain(x, gamma, beta)
@@ -2888,10 +2971,18 @@ def phase_layernorm_bf16(torch, mxk, dev, flush):
                     "library_ms": time_ms(torch, lib, flush)})
     out[1]["back_to_back_ms"] = pipelined_ms(
         torch, lambda: mxk.layernorm_fused_bwd(x, gamma, mean, rstd, dy))
-    out[1]["share_of_bound"] = out[1]["bound_ms"] / out[1]["ms"]
+    fwd = lambda: mxk.layernorm_fused(x, gamma, beta)
+    lib = lambda: F.layer_norm(x, (cols,), gamma, beta, 1e-5)
+    clean = ReadFlush(flush)
+    out[0].update(read_flush_ms=time_ms(torch, fwd, clean),
+                  library_read_flush_ms=time_ms(torch, lib, clean),
+                  back_to_back_ms=pipelined_ms(torch, fwd),
+                  library_back_to_back_ms=pipelined_ms(torch, lib))
+    for k in out:
+        k["share_of_bound"] = k["bound_ms"] / k["ms"]
     emit({"phase": "layernorm_bf16", "rows": rows, "cols": cols,
           "errors": errs, "edges": [list(e) for e in LN_BWD_EDGES],
-          "kernels": out})
+          "fwd_edges": [list(e) for e in LN_FWD_EDGES], "kernels": out})
     return out
 
 
@@ -2905,7 +2996,7 @@ def phase_fused_matmul_bf16(torch, mxk, dev, flush):
     lines and the dynamic shared memory of the GEMM's instances.
     Returns the kernels-line row, per-launch means over one step's 28
     launches."""
-    ptx = _fused_gemm_ptxas("fused_matmul", None)
+    ptx = _fused_gemm_ptxas("fused_matmul")
     g = torch.Generator(device=dev).manual_seed(SEED + 23)
     bf = torch.bfloat16
     shapes = {(M * 2, K, N, r): n for (M, K, N, r), n in FUSED_SHAPES.items()}
@@ -3876,40 +3967,86 @@ def _band_case(torch, g, dev, B, H, W, K, N, dtype):
     return x, s, t, w
 
 
+def _band_times(torch, mxk, x, s, t, w, flush):
+    """One band timed as in 3 (f32 or bf16): the kernel, its plain
+    version, torch.matmul on the already activated input (the product
+    alone) and row 7's kernel on the 2-D view; bounded by bytes or by
+    operations at the tensor cores' peak (split TF32 in f32, the CUDA-core
+    bound beside it), with TFLOP/s and GB/s."""
+    B, H, W, K = x.shape
+    N = w.shape[1]
+    M = B * H * W
+    a = torch.relu(x.float() * s + t).to(w.dtype)
+    w_nk = w.t().contiguous()
+    x2 = x.reshape(-1, K).contiguous()
+    row = dict(
+        ms=time_ms(torch, lambda: mxk.fused_band4d(x, s, t, w), flush),
+        plain_ms=time_ms(torch, lambda: mxk.fused_band4d_plain(x, s, t, w),
+                         flush, reps=20),
+        library_ms=time_ms(torch, lambda: torch.matmul(a, w), flush),
+        pal2d_ms=time_ms(torch, lambda: mxk.fused_scale_relu_matmul_fwd(
+            x2, s, t, w_nk), flush))
+    nbytes = x.element_size() * (M * K + K * N + M * N) + 4 * 2 * K
+    flops = 2 * M * K * N + 3 * M * K
+    f32 = x.dtype == torch.float32
+    row["bound_ms"], row["bound_by"] = bound(
+        nbytes, flops, SPLIT_TF32_FLOPS_PER_S if f32 else BF16_FLOPS_PER_S)
+    if f32:
+        row["bound_cuda_cores_ms"] = bound(nbytes, flops)[0]
+    row["tflops"] = 2 * M * K * N / row["ms"] / 1e9
+    row["gbps"] = nbytes / row["ms"] / 1e6
+    return row
+
+
 def phase_fused_band4d(torch, mxk, dev, flush):
     """fused_band4d against its plain version (bf16: close_bf16; f32:
     rtol 1e-4 / atol 1e-5), two runs bit-identical, at the sandwich's
     two bands (the up band's input the channel-last view of cuDNN's
     output, the down band's a contiguous (B, H, W, K) tensor), at a shape
-    whose rows pick the TPU kernel's th = 16, in f32, on an NHWC view of
-    an NCHW tensor (channel stride H*W), on a channel slice of a wider
-    tensor and at an odd shape.  The two bands are timed beside the
-    plain version, torch.matmul in bf16 on the already activated input
-    and row 7's kernel on the 2-D view.  Returns the kernels-line row,
-    per-launch means over the sandwich's two bands.  The bf16 kernel
-    (tensor cores, fused_gemm_bf16.cuh) is also held at the edges of its
-    tiling (BAND4D_EDGES), the bands' TFLOP/s and GB/s printed, and
-    ptxas's lines and the dynamic shared memory of the GEMM's instances
-    printed first."""
+    whose rows pick the TPU kernel's th = 16, on an NHWC view of an NCHW
+    tensor (channel stride H*W), on a channel slice of a wider tensor, at
+    an odd shape and, in bf16, at the edges of the GEMM's tiling
+    (BAND4D_EDGES).  The f32 form (split TF32 on the tensor cores,
+    fused_gemm_f32.cuh with W (K, N)) is held at the sandwich's bands in
+    f32, at the f32 shape, the odd shape, a ragged M, the NHWC view and
+    the channel slice, and bit-equal to row 7's f32 kernel on the 2-D
+    view.  ptxas's lines and the dynamic shared memory of both GEMMs'
+    instances are printed first (no spills).  Both types' bands are timed
+    beside the plain version, torch.matmul on the already activated input
+    and row 7's kernel on the 2-D view, with TFLOP/s and GB/s.  Returns
+    the two kernels-line rows (bf16, f32), per-launch means over the
+    sandwich's two bands."""
     from mxnet_tpu_torch.tools import fused_sandwich as fs
-    ptx = _fused_gemm_ptxas("fused_band4d", "fused_band4d_kernel")
+    ptx = {"bfloat16": _fused_gemm_ptxas("fused_band4d"),
+           "float32": _fused_gemm_f32_ptxas("fused_band4d")}
     g = torch.Generator(device=dev).manual_seed(SEED + 31)
-    bf = torch.bfloat16
+    bf, f32 = torch.bfloat16, torch.float32
     cases = [(name, x, s, t, w) for name, x, s, t, w
              in fs.band_shapes(fs.inputs(dev))]
-    for key, dtype in (("th_shape", bf), ("f32_shape", torch.float32),
-                       ("odd_shape", bf)):
-        cases.append((key, *_band_case(torch, g, dev, *BAND4D[key], dtype)))
+    cases += [(name + "_f32", x, s, t, w) for name, x, s, t, w
+              in fs.band_shapes(fs.inputs(dev, f32))]
+    for key, dtype in (("th_shape", bf), ("f32_shape", f32),
+                       ("odd_shape", bf), ("odd_shape", f32)):
+        cases.append((key + ("_f32" if dtype == f32 and key != "f32_shape"
+                             else ""),
+                      *_band_case(torch, g, dev, *BAND4D[key], dtype)))
     for key, shape in BAND4D_EDGES.items():
         cases.append((key, *_band_case(torch, g, dev, *shape, bf)))
-    x, s, t, w = _band_case(torch, g, dev, *BAND4D["f32_shape"], bf)
-    nchw_view = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
-    wide = torch.zeros(*x.shape[:3], x.shape[3] + 8, dtype=bf, device=dev)
-    wide[..., :x.shape[3]] = x
-    cases += [("nchw_view", nchw_view, s, t, w),
-              ("channel_slice", wide[..., :x.shape[3]], s, t, w)]
-    rows, errs = [], []
+    cases.append(("ragged_m_f32", *_band_case(
+        torch, g, dev, *BAND4D_EDGES["ragged_m"], f32)))
+    for dtype in (bf, f32):
+        x, s, t, w = _band_case(torch, g, dev, *BAND4D["f32_shape"], dtype)
+        nchw_view = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+        wide = torch.zeros(*x.shape[:3], x.shape[3] + 8, dtype=dtype,
+                           device=dev)
+        wide[..., :x.shape[3]] = x
+        tag = "_f32" if dtype == f32 else ""
+        cases += [("nchw_view" + tag, nchw_view, s, t, w),
+                  ("channel_slice" + tag, wide[..., :x.shape[3]], s, t, w)]
+    rows = {"bfloat16": [], "float32": []}
+    errs = {"bfloat16": [], "float32": []}
     for name, x, s, t, w in cases:
+        dt = str(x.dtype).replace("torch.", "")
         got = mxk.fused_band4d(x, s, t, w)
         again = mxk.fused_band4d(x, s, t, w)
         ref = mxk.fused_band4d_plain(x, s, t, w)
@@ -3924,91 +4061,63 @@ def phase_fused_band4d(torch, mxk, dev, flush):
               "err %g)" % (name, max_err(got, ref)))
         check(torch.equal(got, again), "fused_band4d %s: two runs differ"
               % name)
-        errs.append(max_err(got, ref))
+        if x.dtype == f32:
+            # row 7's f32 kernel on the 2-D view: one tiling, one sum order
+            two = mxk.fused_scale_relu_matmul_fwd(
+                x.reshape(-1, x.shape[3]).contiguous(), s, t,
+                w.t().contiguous())
+            check(torch.equal(got.reshape(two.shape), two),
+                  "fused_band4d f32 %s: not bit-equal to row 7 on the 2-D "
+                  "view (max abs %g)" % (name, max_err(got.reshape(two.shape),
+                                                      two)))
+            del two
+        errs[dt].append(max_err(got, ref))
         row = {"case": name, "shape": list(x.shape) + [w.shape[1]],
-               "dtype": str(x.dtype).replace("torch.", ""),
-               "x_strides": list(x.stride()),
-               "x_contiguous": x.is_contiguous(), "max_abs_err": errs[-1]}
-        if name in ("up", "down"):
-            B, H, W, K = x.shape
-            N = w.shape[1]
-            M = B * H * W
-            a = torch.relu(x.float() * s + t).to(bf)
-            w_nk = w.t().contiguous()
-            row.update(
-                ms=time_ms(torch, lambda: mxk.fused_band4d(x, s, t, w), flush),
-                plain_ms=time_ms(torch, lambda: mxk.fused_band4d_plain(
-                    x, s, t, w), flush, reps=20),
-                library_ms=time_ms(torch, lambda: torch.matmul(a, w), flush),
-                pal2d_ms=time_ms(torch, lambda: mxk.fused_scale_relu_matmul_fwd(
-                    x.reshape(-1, K), s, t, w_nk), flush))
-            nbytes = 2 * (M * K + K * N + M * N) + 4 * 2 * K
-            row["bound_ms"], row["bound_by"] = bound(
-                nbytes, 2 * M * K * N + 3 * M * K, BF16_FLOPS_PER_S)
-            row["tflops"] = 2 * M * K * N / row["ms"] / 1e9
-            row["gbps"] = nbytes / row["ms"] / 1e6
-            rows.append(row)
-        emit({"phase": "kernel", "name": "fused_band4d", **row})
+               "dtype": dt, "x_strides": list(x.stride()),
+               "x_contiguous": x.is_contiguous(), "max_abs_err": errs[dt][-1]}
         del got, again, ref
-    per_launch = {k: sum(r[k] for r in rows) / len(rows)
-                  for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                            "pal2d_ms")}
-    # the f32 form (CUDA cores; on no main path) at the sandwich's two
-    # band shapes in f32, beside torch.matmul in f32 (TF32 off) on the
-    # activated input, bounded at the CUDA-core and the split-TF32 peaks
-    f32_bands = {}
-    for name, x, s, t, w in cases[:2]:
-        x32, w32 = x.float(), w.float()
-        got = mxk.fused_band4d(x32, s, t, w32)
-        ref = mxk.fused_band4d_plain(x32, s, t, w32)
-        torch.cuda.synchronize()
-        check(close(torch, got, ref), "fused_band4d f32 %s disagrees with its "
-              "plain version (max abs err %g)" % (name, max_err(got, ref)))
-        B, H, W, K = x32.shape
-        N, M = w32.shape[1], B * H * W
-        a = torch.relu(x32 * s + t)
-        nbytes = 4 * (M * K + K * N + M * N) + 4 * 2 * K
-        flops = 2 * M * K * N + 3 * M * K
-        ms = time_ms(torch, lambda: mxk.fused_band4d(x32, s, t, w32), flush)
-        f32_bands[name] = {
-            "shape": [B, H, W, K, N], "max_abs_err": max_err(got, ref),
-            "ms": ms,
-            "plain_ms": time_ms(torch, lambda: mxk.fused_band4d_plain(
-                x32, s, t, w32), flush, reps=20),
-            "library_ms": time_ms(torch, lambda: torch.matmul(a, w32), flush),
-            "bound_cuda_cores_ms": bound(nbytes, flops)[0],
-            "bound_split_tf32_ms": bound(nbytes, flops,
-                                         SPLIT_TF32_FLOPS_PER_S)[0],
-            "tflops": flops / ms / 1e9}
-        del x32, w32, got, ref, a
-    emit({"phase": "fused_band4d_f32", "bands": f32_bands,
-          **{k: sum(b[k] for b in f32_bands.values()) / len(f32_bands)
-             for k in ("ms", "plain_ms", "library_ms", "bound_cuda_cores_ms",
-                       "bound_split_tf32_ms")},
-          "library_call": "torch.matmul in f32, TF32 off, on "
-                          "relu(x*scale+shift) (the product alone)"})
-    emit({"phase": "fused_band4d", "cases_checked": len(cases),
-          "ptxas": ptx,
-          "library_call": "torch.matmul in bf16 on relu(x*scale+shift) "
-                          "(the product alone)", **per_launch})
-    return {"name": "fused_band4d", "route": "cuda", "dtype": "bfloat16",
-            "source": "mxnet_tpu_torch/csrc/fused_gemm_bf16.cuh",
-            "replaces": "tools/fused_sandwich_bench.py:61",
-            "max_abs_err": max(errs),
-            "bound_by": "bytes" if all(r["bound_by"] == "bytes"
-                                       for r in rows) else "operations",
-            **{k: per_launch[k] for k in ("ms", "plain_ms", "library_ms",
-                                          "bound_ms")}}
+        if name in ("up", "down", "up_f32", "down_f32"):
+            row.update(_band_times(torch, mxk, x, s, t, w, flush))
+            rows[dt].append(row)
+        emit({"phase": "kernel", "name": "fused_band4d", **row})
+    out = []
+    for dt, source, lib_call in (
+            ("bfloat16", "mxnet_tpu_torch/csrc/fused_gemm_bf16.cuh",
+             "torch.matmul in bf16"),
+            ("float32", "mxnet_tpu_torch/csrc/fused_gemm_f32.cuh",
+             "torch.matmul in f32, TF32 off,")):
+        keys = ("ms", "plain_ms", "library_ms", "bound_ms", "pal2d_ms") + \
+            (("bound_cuda_cores_ms",) if dt == "float32" else ())
+        per_launch = {k: sum(r[k] for r in rows[dt]) / len(rows[dt])
+                      for k in keys}
+        emit({"phase": "fused_band4d" + ("_f32" if dt == "float32" else ""),
+              "cases_checked": len(errs[dt]), "ptxas": ptx[dt],
+              "bands": {r["case"]: {k: r[k] for k in keys + ("tflops", "gbps")}
+                        for r in rows[dt]},
+              "library_call": lib_call + " on relu(x*scale+shift) (the "
+                              "product alone)", **per_launch})
+        out.append({"name": "fused_band4d", "route": "cuda", "dtype": dt,
+                    "source": source,
+                    "replaces": "tools/fused_sandwich_bench.py:61",
+                    "max_abs_err": max(errs[dt]),
+                    "bound_by": "bytes" if all(r["bound_by"] == "bytes"
+                                               for r in rows[dt])
+                    else "operations",
+                    **{k: per_launch[k] for k in ("ms", "plain_ms",
+                                                  "library_ms", "bound_ms")}})
+    return out
 
 
 def phase_sandwich(torch, mx):
     """The fused-sandwich microbenchmark (``tools/
-    torch_fused_sandwich_bench.py``) at its shapes: the three arms'
-    outputs agree (pal2d and pal4d bit for bit, plain within SANDWICH's
-    relative L2), then each arm's ms per iteration from captured loops.
-    Returns the kernel launches of the timed run (the main path of row
-    10) and the iterations it captured per arm."""
-    from mxnet_tpu_torch.kernels import LAUNCHES, PLAIN_CALLS, reset_counts
+    torch_fused_sandwich_bench.py``) at its shapes, in bf16 and then in
+    f32: the three arms' outputs agree (pal2d and pal4d bit for bit,
+    plain within SANDWICH's relative L2), then each arm's ms per
+    iteration from captured loops.  Returns the kernel launches of the
+    bf16 timed run (the main path of row 10), the iterations it captured
+    per arm, and the f32 band launches of the f32 timed run."""
+    from mxnet_tpu_torch.kernels import (LAUNCHES, LAUNCHES_BY_DTYPE,
+                                         PLAIN_CALLS, reset_counts)
     from mxnet_tpu_torch.tools import fused_sandwich as fs
     dev = torch.device("cuda", 0)
     args = fs.inputs(dev)
@@ -4042,14 +4151,54 @@ def phase_sandwich(torch, mx):
               % (kernel, launches[kernel], iters))
     check(not any(plain.values()), "sandwich: plain versions ran: %s"
           % plain)
+    # the same sandwich in f32 (TF32 off): row 10's and row 7's f32 forms
+    # on the split-TF32 GEMM
+    args = fs.inputs(dev, torch.float32)
+    with torch.no_grad():
+        outs = {name: fs.make_net(band)(*fs.arm_args(name, args))
+                for name, band in fs.ARMS.items()}
+        torch.cuda.synchronize()
+        check(torch.equal(outs["pal2d"], outs["pal4d"]),
+              "sandwich f32: pal2d and pal4d outputs differ (max abs %g)"
+              % max_err(outs["pal2d"], outs["pal4d"]))
+        plain_l2_f32 = float((outs["plain"] - outs["pal4d"]).norm()
+                             / outs["pal4d"].norm())
+        check(plain_l2_f32 <= SANDWICH["plain_l2"] and bool(
+            torch.isfinite(outs["pal4d"]).all()),
+              "sandwich f32: plain and pal4d outputs differ by %g relative "
+              "L2" % plain_l2_f32)
+        del outs
+        torch.cuda.empty_cache()
+        reset_counts()
+        arms_f32 = {}
+        for name, band in fs.ARMS.items():
+            arms_f32[name] = fs.bench(fs.make_net(band),
+                                      fs.arm_args(name, args))
+            torch.cuda.empty_cache()
+        by_dtype, plain = dict(LAUNCHES_BY_DTYPE), dict(PLAIN_CALLS)
+        del args
+    for kernel in ("fused_band4d", "fused_scale_relu_matmul"):
+        n = by_dtype.get(kernel + ":float32", 0)
+        check(n == 2 * iters, "sandwich f32: %s launched %d times for %d "
+              "iterations" % (kernel, n, iters))
+    check(not any(plain.values()), "sandwich f32: plain versions ran: %s"
+          % plain)
     emit({"phase": "sandwich", "shape": fs.SHAPE, "iters": fs.ITERS,
           "n0": fs.N0, "reps": fs.REPS, "plain_vs_pal4d_rel_l2": plain_l2,
           "pal2d_pal4d_bit_equal": True,
           "ms_per_iter": {k: v["ms_per_iter"] for k, v in arms.items()},
           "arms": arms, "launches": {k: launches[k] for k in
                                      ("fused_band4d",
-                                      "fused_scale_relu_matmul")}})
-    return launches, iters
+                                      "fused_scale_relu_matmul")},
+          "float32": {"plain_vs_pal4d_rel_l2": plain_l2_f32,
+                      "pal2d_pal4d_bit_equal": True,
+                      "ms_per_iter": {k: v["ms_per_iter"]
+                                      for k, v in arms_f32.items()},
+                      "arms": arms_f32,
+                      "launches": {k: by_dtype[k + ":float32"] for k in
+                                   ("fused_band4d",
+                                    "fused_scale_relu_matmul")}}})
+    return launches, iters, by_dtype["fused_band4d:float32"]
 
 
 # ----------------------------------------------------------------------
@@ -4326,11 +4475,12 @@ def main():
     bf16_kernels = phase_flash_bf16(torch, mxk, dev, flush) + \
         phase_layernorm_bf16(torch, mxk, dev, flush) + \
         [phase_fused_matmul_bf16(torch, mxk, dev, flush)]
-    band4d_kernel = phase_fused_band4d(torch, mxk, dev, flush)
+    band4d_kernels = phase_fused_band4d(torch, mxk, dev, flush)
     head_dim_times = phase_head_dim(torch, mxk, dev, flush)
     rtc_kernels = phase_rtc(torch, mx, dev, flush)
     del flush
-    sandwich_launches, sandwich_iters = phase_sandwich(torch, mx)
+    sandwich_launches, sandwich_iters, sandwich_f32_launches = \
+        phase_sandwich(torch, mx)
     full = seeded_params(FULL)
     serve_launches, serve_steps = phase_serve(torch, mx, full)
     phase_agreement(torch, mx)
@@ -4390,11 +4540,13 @@ def main():
         fused_rn["captured_launches"][0][quant_kernel["name"]]
     quant_kernel["launches_per_step"] = \
         resnet_launches[quant_kernel["name"]] / resnet_steps
-    band4d_kernel["launches"] = sandwich_launches["fused_band4d"]
-    check(band4d_kernel["launches"] > 0, "sandwich: fused_band4d was not "
-          "launched")
-    band4d_kernel["launches_per_iteration"] = \
-        band4d_kernel["launches"] / sandwich_iters
+    # row 10: the bf16 and the f32 sandwich's timed runs
+    for k, n in zip(band4d_kernels, (sandwich_launches["fused_band4d"],
+                                     sandwich_f32_launches)):
+        check(n > 0, "sandwich: fused_band4d %s was not launched"
+              % k["dtype"])
+        k["launches"] = n
+        k["launches_per_iteration"] = n / sandwich_iters
     quant_kernel["gluon_launches_per_step"] = \
         gluon_launches[quant_kernel["name"]] / gluon_steps
     fused_kernel["launches"] = nhwc_launches[fused_kernel["name"]]
@@ -4430,7 +4582,7 @@ def main():
                                                   "host_launch_us")
                           if key in k}}
                       for k in f32_kernels + bf16_kernels + rtc_kernels
-                      + [band4d_kernel]]})
+                      + band4d_kernels]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

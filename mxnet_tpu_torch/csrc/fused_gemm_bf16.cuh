@@ -112,19 +112,42 @@ constexpr int kPad = 8;           // bf16 elements of padding per shared-memory 
 constexpr int kCPad = 8;          // f32 of padding per row of the epilogue tile
 constexpr int kCPR = kStep / 8;   // 16-byte chunks per X row of a stage
 
-struct Args {
-  const bf16* x;
+// A launch's operands, in either element type T (this GEMM and the f32
+// one of fused_gemm_f32.cuh): X's row m = (b, h, w) at element offset
+// b sb + h sh + w sw, its channels sk apart
+template <typename T>
+struct GemmArgs {
+  const T* x;
   const float* scale;
   const float* shift;
-  const bf16* w;
-  const bf16* res;      // (M, N) or null
-  bf16* y;
+  const T* w;
+  const T* res;         // (M, N) or null
+  T* y;
   int64_t M, HW, Wd;    // rows; pixels per image and per image row
   int64_t sb, sh, sw, sk;
   int K, N;
   int vec_w, vec_y;
   int tiles_n;          // set by launch_tile
 };
+using Args = GemmArgs<bf16>;
+
+// each of a tile's BM rows' element offset in X from its (b, h, w), in a
+// table in shared memory (rows past M: 0), published by a barrier
+template <int BM, int NT, typename T>
+__device__ __forceinline__ void row_offsets(int64_t* rowoff, const GemmArgs<T>& p, int64_t m0,
+                                            int rows) {
+  for (int r = threadIdx.x; r < BM; r += NT) {
+    const int64_t m = m0 + r;
+    int64_t off = 0;
+    if (r < rows) {
+      const int64_t b = m / p.HW, q = m - b * p.HW;
+      const int64_t h = q / p.Wd, ww = q - h * p.Wd;
+      off = b * p.sb + h * p.sh + ww * p.sw;
+    }
+    rowoff[r] = off;
+  }
+  __syncthreads();
+}
 
 template <int BN, bool W_KN>
 struct Cfg {
@@ -178,17 +201,7 @@ fused_gemm_bf16_kernel(const Args p) {
   // tile's accumulators leave none to spare)
   const int rows = (int)(p.M - m0 < BM ? p.M - m0 : BM);
   int64_t* rowoff = reinterpret_cast<int64_t*>(smem + C::kRowOff);
-  for (int r = tid; r < BM; r += kThreads) {
-    const int64_t m = m0 + r;
-    int64_t off = 0;
-    if (r < rows) {
-      const int64_t b = m / p.HW, q = m - b * p.HW;
-      const int64_t h = q / p.Wd, ww = q - h * p.Wd;
-      off = b * p.sb + h * p.sh + ww * p.sw;
-    }
-    rowoff[r] = off;
-  }
-  __syncthreads();
+  row_offsets<BM, kThreads>(rowoff, p, m0, rows);
   // this thread's X chunks: column ck (8 elements of K) of rows ar0 + i *
   // kRowStep
   constexpr int kRowStep = kThreads / kCPR;

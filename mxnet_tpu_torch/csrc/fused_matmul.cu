@@ -12,8 +12,9 @@
 // W is the OHWI convolution weight viewed (N, K) row-major, so the
 // caller passes the weight as it is stored, with no transpose copy.
 // Both types run on the tensor cores with mma.sync: bf16 through the GEMM
-// of fused_gemm_bf16.cuh (shared with fused_band4d.cu), f32 through its
-// split-TF32 counterpart fused_gemm_f32.cuh (design and bounds there).
+// of fused_gemm_bf16.cuh, f32 through its split-TF32 counterpart
+// fused_gemm_f32.cuh (design and bounds there), both shared with
+// fused_band4d.cu.
 //
 // The prologue is the point: each X element is scaled, shifted and ReLU'd
 // in shared memory on its way to the product, so the activation never
@@ -48,8 +49,8 @@ int mx_fused_scale_relu_matmul(const void* x, const float* scale,
   if (M <= 0 || N <= 0) return 0;
   if (K < 0 || K > INT_MAX || N > INT_MAX) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  // X as one image row of M pixels: row m at element m * K
   if (dtype == 1) {
-    // X as one image row of M pixels: row m at element m * K
     using fused_gemm::bf16;
     fused_gemm::Args a{(const bf16*)x, scale, shift, (const bf16*)w, (const bf16*)res,
                        (bf16*)y, M, M, M, 0, 0, K, 1, (int)K, (int)N,
@@ -60,18 +61,18 @@ int mx_fused_scale_relu_matmul(const void* x, const float* scale,
     return fused_gemm::run<false>(a, vec_x, s);
   }
   fused_gemm::f32::Args a{(const float*)x, scale, shift, (const float*)w, (const float*)res,
-                          (float*)y, M, (int)K, (int)N,
+                          (float*)y, M, M, M, 0, 0, K, 1, (int)K, (int)N,
                           K % 4 == 0 && tc::aligned16(w),
                           N % 4 == 0 && tc::aligned16(y) && (!res || tc::aligned16(res)), 0};
   const bool vec_x = K % 4 == 0 && tc::aligned16(x) && tc::aligned16(scale) &&
                      tc::aligned16(shift);
-  return fused_gemm::f32::run(a, vec_x, s);
+  return fused_gemm::f32::run<false>(a, vec_x, s);
 }
 
 // dynamic shared memory of the bf16 and f32 kernels' tiles with bn
 // columns, bytes
 int mx_fused_gemm_bf16_smem(int bn) { return fused_gemm::smem_bytes<false>(bn); }
-int mx_fused_gemm_f32_smem(int bn) { return fused_gemm::f32::smem_bytes(bn); }
+int mx_fused_gemm_f32_smem(int bn) { return fused_gemm::f32::smem_bytes<false>(bn); }
 
 const char* mx_cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

@@ -19,12 +19,34 @@
 // launch latency bounds it; at the training shape (4096 rows of 2048)
 // the backward moves ~100 MB, about 30 us at 3.35 TB/s.
 //
-// Forward design: one thread block per row.  The row (x plus the
-// residual) is staged once into shared memory, so device memory is read
-// once; the mean and then the variance of the centred values (the
-// two-pass form the TPU kernel uses, not E[x^2] - E[x]^2) are block
-// reductions by warp shuffles, and the normalised row is written in one
-// more pass over shared memory.
+// Forward design: a group of warps takes a row, each thread holding 8
+// values of it (two 16-byte vectors of f32, one of bf16), so a 2048-column
+// row takes 8 warps in either type (the fewest warps, 1, 2, 4 or 8, whose
+// registers hold the row), and a 256-thread block holds as many groups as
+// fit.  The groups take rows in turn over a grid of at most
+// kFwdBlocksPerSM blocks an SM, so the serve steps' 8 to 64 rows get a
+// group each and the training and prefill shapes (4096 and 8192 rows)
+// loop.  x and the residual arrive by 16-byte loads in straight-line
+// code (no branch between them; the residual's presence is a template
+// argument), and each group issues its next row's loads as soon as it has
+// read the current one, so they fly through the two row means and the
+// stores.  The row stays in registers: the mean, then the mean of the
+// centred squares (the two-pass form the TPU kernel uses, not E[x^2] -
+// E[x]^2), each a per-thread sum in order, a butterfly of shuffles and,
+// for a group of several warps, one exchange at a barrier of the group
+// alone, summed in warp order; the normalised row leaves by 16-byte
+// stores.  Each thread owns the same columns in every row, so it loads its
+// gamma and beta once.  No shared memory beyond the exchange slots, so no
+// per-launch attribute call.  Rows wider than 8 warps hold (2048 columns)
+// take a looped form: a block a row, three passes over it (the second and
+// third read it again, from L2), the two sums block reductions in warp
+// order.  Ragged widths (cols not a multiple of the vector) and misaligned
+// rows go element by element through the same forms.  out = ((x + res
+// - mean) * rstd) * gamma + beta with each operation rounded as the plain
+// version rounds it; rstd is the hardware's rsqrt (within 2 ulp of 1 /
+// sqrt: the IEEE division and square root call a slow-path routine whose
+// saved registers spilled), 1 / cols comes from the host.  No atomics: two
+// runs give the same bits.
 //
 // Backward design: the TPU kernel summed dgamma and dbeta across its
 // grid, which runs in order on one core (dg_ref[...] += ...).  On the GPU
@@ -56,6 +78,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tc_mma.cuh"
+
 namespace {
 
 template <typename T> __device__ __forceinline__ float to_f32(T v);
@@ -68,88 +92,6 @@ template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
-}
-
-constexpr int kThreads = 256;
-
-// sum over the block, returned to every thread; `red` holds one slot per
-// warp and is free again when this returns
-__device__ float block_sum(float v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float t = 0.f;
-  if (warp == 0) {
-    t = lane < kThreads / 32 ? red[lane] : 0.f;
-    for (int off = 16; off > 0; off >>= 1) t += __shfl_xor_sync(0xffffffffu, t, off);
-    if (lane == 0) red[0] = t;
-  }
-  __syncthreads();
-  t = red[0];
-  __syncthreads();
-  return t;
-}
-
-template <typename T, typename G>
-__global__ void __launch_bounds__(kThreads)
-layernorm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ res,
-                     const G* __restrict__ gamma, const G* __restrict__ beta,
-                     T* __restrict__ out, float* __restrict__ mean_out,
-                     float* __restrict__ rstd_out, int cols, float eps) {
-  extern __shared__ float xs[];              // the row, cols floats
-  __shared__ float red[kThreads / 32];
-  const size_t base = (size_t)blockIdx.x * cols;
-  const float inv_cols = 1.f / (float)cols;
-  float s = 0.f;
-  for (int c = threadIdx.x; c < cols; c += kThreads) {
-    float v = to_f32(x[base + c]);
-    if (res != nullptr) v += to_f32(res[base + c]);
-    xs[c] = v;
-    s += v;
-  }
-  const float mean = block_sum(s, red) * inv_cols;
-  float s2 = 0.f;
-  for (int c = threadIdx.x; c < cols; c += kThreads) {
-    const float d = xs[c] - mean;
-    s2 += d * d;
-  }
-  const float rstd = 1.f / sqrtf(block_sum(s2, red) * inv_cols + eps);
-  for (int c = threadIdx.x; c < cols; c += kThreads)
-    out[base + c] = from_f32<T>((xs[c] - mean) * rstd * to_f32(gamma[c]) + to_f32(beta[c]));
-  if (threadIdx.x == 0) {
-    mean_out[blockIdx.x] = mean;
-    rstd_out[blockIdx.x] = rstd;
-  }
-}
-
-template <typename T, typename G>
-int launch(const void* x, const void* res, const void* gamma, const void* beta,
-           void* out, void* mean, void* rstd, int rows, int cols, float eps,
-           cudaStream_t stream) {
-  const size_t smem = (size_t)cols * sizeof(float);
-  auto fn = layernorm_fwd_kernel<T, G>;
-  cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  fn<<<rows, kThreads, smem, stream>>>((const T*)x, (const T*)res, (const G*)gamma,
-                                       (const G*)beta, (T*)out, (float*)mean,
-                                       (float*)rstd, cols, eps);
-  return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------
-// backward
-// ---------------------------------------------------------------------
-constexpr int kBwdThreads = 256;             // 8 warps
-constexpr int kReduceCols = 32;              // columns per stage-2 block
-constexpr int kReduceSlices = 32;            // partial-sum slices per column
-
-// values of a row a thread keeps in registers: two 16-byte vectors of
-// bf16; else 8 (16 f32 spill with the next row's loads in flight:
-// tools/torch_layernorm_tune.py)
-template <typename T, bool kVec> __host__ __device__ constexpr int bwd_vals() {
-  return kVec && sizeof(T) == 2 ? 16 : 8;
 }
 
 // 16 bytes of T: N values
@@ -215,6 +157,251 @@ __device__ __forceinline__ float warp_sum(float a) {
   return a;
 }
 
+// ---------------------------------------------------------------------
+// forward
+// ---------------------------------------------------------------------
+// threads a block, blocks an SM the grid holds at most (the groups loop
+// over rows past that); tools/torch_layernorm_tune.py times variants of
+// these
+constexpr int kFwdThreads = 256, kFwdBlocksPerSM = 4;
+
+// values of a row a thread of the forward keeps in registers: 8 (two
+// 16-byte vectors of f32, one of bf16), so a 2048-column row takes 8
+// warps in either type (16 bf16 values a thread, 4 warps a row, ran 7%
+// slower at 4096 x 2048: tools/torch_layernorm_tune.py --fwd)
+constexpr int kFwdVals = 8;
+
+// the sum over the block's NT threads, returned to every thread: each
+// warp's butterfly, then the warps in order; `red` holds one slot a warp
+// and is free again when this returns
+template <int NT>
+__device__ float block_sum(float a, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  a = warp_sum(a);
+  if (lane == 0) red[warp] = a;
+  __syncthreads();
+  a = 0.f;
+  for (int w = 0; w < NT / 32; ++w) a += red[w];
+  __syncthreads();
+  return a;
+}
+
+// (x + res - mean) * rstd * gamma + beta of one value, each operation
+// rounded as the plain version rounds it (no contraction into an FMA)
+__device__ __forceinline__ float ln_out(float v, float mu, float rs, float g, float b) {
+  return __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v, mu), rs), g), b);
+}
+
+// Rows of up to 32 * 8 * VALS columns.  A row belongs to a group of gw
+// warps (1, 2, 4 or 8), each thread owning the N-column vectors t, t +
+// 32 gw, ... of it (VALS values).  The block's groups take rows
+// blockIdx.x * ng + grp, then every gridDim.x * ng rows on; each group
+// loads its next row, raw, as soon as it has read the current one.
+template <typename T, typename G, bool kVec, bool kRes>
+__global__ void __launch_bounds__(kFwdThreads)
+layernorm_fwd_rows_kernel(const T* __restrict__ x, const T* __restrict__ res,
+                          const G* __restrict__ gamma, const G* __restrict__ beta,
+                          T* __restrict__ out, float* __restrict__ mean_out,
+                          float* __restrict__ rstd_out, int rows, int cols, float inv_cols,
+                          float eps, int gw) {
+  constexpr int VALS = kFwdVals, N = Vec16<T>::N, NV = VALS / N;
+  // a group's warp sums, by slot: the row sum, then the centred squares
+  __shared__ float red[2][kFwdThreads / 32];
+  const int gt = 32 * gw, ng = kFwdThreads / gt;
+  const int grp = threadIdx.x / gt, t = threadIdx.x % gt;
+  const int wg = t >> 5, lane = t & 31;
+  // this thread's gamma and beta, and which of its columns lie in the row
+  float ga[NV][N], be[NV][N];
+  bool in[NV][N];
+#pragma unroll
+  for (int j = 0; j < NV; ++j)
+#pragma unroll
+    for (int e = 0; e < N; ++e) {
+      const int c = (t + j * gt) * N + e;
+      in[j][e] = c < cols;
+      ga[j][e] = to_f32(__ldg(gamma + (c < cols ? c : 0)));
+      be[j][e] = to_f32(__ldg(beta + (c < cols ? c : 0)));
+    }
+  // the sum of a over the group, in every lane: the butterfly, then the
+  // group's warps in order through slot `slot` and the group's barrier
+  auto group_sum = [&](float a, int slot) {
+    a = warp_sum(a);
+    if (gw > 1) {
+      float* sl = red[slot] + grp * gw;
+      if (lane == 0) sl[wg] = a;
+      asm volatile("bar.sync %0, %1;" ::"r"(1 + grp), "r"(gt) : "memory");
+      a = 0.f;
+      for (int w = 0; w < gw; ++w) a += sl[w];
+    }
+    return a;
+  };
+  const int stride = gridDim.x * ng;
+  int r = blockIdx.x * ng + grp;
+  // the raw vectors of row r: x and the residual
+  uint4 xr[NV], rr[NV];
+  auto fetch = [&](int row) {
+    const size_t base = (size_t)row * cols;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int c = (t + j * gt) * N;
+      xr[j] = load_raw<kVec>(x + base, c, cols);
+      if constexpr (kRes) rr[j] = load_raw<kVec>(res + base, c, cols);
+    }
+  };
+  if (r < rows) fetch(r);
+  for (; r < rows; r += stride) {
+    const size_t base = (size_t)r * cols;
+    float v[NV][N];
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      // columns past cols load as zeros, so they add nothing
+      widen<T>(v[j], xr[j]);
+      if constexpr (kRes) {
+        float rv[N];
+        widen<T>(rv, rr[j]);
+#pragma unroll
+        for (int e = 0; e < N; ++e) v[j][e] += rv[e];
+      }
+#pragma unroll
+      for (int e = 0; e < N; ++e) s += v[j][e];
+    }
+    if (r + stride < rows) fetch(r + stride);      // the next row's loads fly from here
+    const float mu = group_sum(s, 0) * inv_cols;
+    float q = 0.f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j)
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+        const float d = in[j][e] ? __fsub_rn(v[j][e], mu) : 0.f;
+        q = __fadd_rn(q, __fmul_rn(d, d));
+      }
+    const float rs = rsqrtf(group_sum(q, 1) * inv_cols + eps);
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      float o[N];
+#pragma unroll
+      for (int e = 0; e < N; ++e) o[e] = ln_out(v[j][e], mu, rs, ga[j][e], be[j][e]);
+      store_vec<kVec>(out + base, o, (t + j * gt) * N, cols);
+    }
+    if (t == 0) {
+      mean_out[r] = mu;
+      rstd_out[r] = rs;
+    }
+  }
+}
+
+// Rows wider than the register form's 32 * 8 * VALS columns (2048): a
+// block a row, three passes over it (the second
+// and third read x and the residual again, from L2), the two sums block
+// reductions.
+template <typename T, typename G, bool kVec, bool kRes>
+__global__ void __launch_bounds__(kFwdThreads)
+layernorm_fwd_wide_kernel(const T* __restrict__ x, const T* __restrict__ res,
+                          const G* __restrict__ gamma, const G* __restrict__ beta,
+                          T* __restrict__ out, float* __restrict__ mean_out,
+                          float* __restrict__ rstd_out, int cols, float inv_cols, float eps) {
+  constexpr int N = Vec16<T>::N;
+  __shared__ float red[kFwdThreads / 32];
+  const size_t base = (size_t)blockIdx.x * cols;
+  // x + res at columns [c, c + N), zeros past cols
+  auto vals = [&](int c, float* v) {
+    load_vec<kVec>(v, x + base, c, cols);
+    if constexpr (kRes) {
+      float rv[N];
+      load_vec<kVec>(rv, res + base, c, cols);
+#pragma unroll
+      for (int e = 0; e < N; ++e) v[e] += rv[e];
+    }
+  };
+  float s = 0.f;
+  for (int c = threadIdx.x * N; c < cols; c += kFwdThreads * N) {
+    float v[N];
+    vals(c, v);
+#pragma unroll
+    for (int e = 0; e < N; ++e) s += v[e];
+  }
+  const float mu = block_sum<kFwdThreads>(s, red) * inv_cols;
+  float q = 0.f;
+  for (int c = threadIdx.x * N; c < cols; c += kFwdThreads * N) {
+    float v[N];
+    vals(c, v);
+#pragma unroll
+    for (int e = 0; e < N; ++e) {
+      const float d = c + e < cols ? __fsub_rn(v[e], mu) : 0.f;
+      q = __fadd_rn(q, __fmul_rn(d, d));
+    }
+  }
+  const float rs = rsqrtf(block_sum<kFwdThreads>(q, red) * inv_cols + eps);
+  for (int c = threadIdx.x * N; c < cols; c += kFwdThreads * N) {
+    float v[N], o[N];
+    vals(c, v);
+#pragma unroll
+    for (int e = 0; e < N; ++e) {
+      const int cc = c + e < cols ? c + e : 0;
+      o[e] = ln_out(v[e], mu, rs, to_f32(gamma[cc]), to_f32(beta[cc]));
+    }
+    store_vec<kVec>(out + base, o, c, cols);
+  }
+  if (threadIdx.x == 0) {
+    mean_out[blockIdx.x] = mu;
+    rstd_out[blockIdx.x] = rs;
+  }
+}
+
+// the register form with the fewest warps a row whose registers hold it,
+// or the looped form; returns the launch's error
+template <typename T, typename G, bool kVec, bool kRes>
+int launch_fwd(const void* x, const void* res, const void* gamma, const void* beta, void* out,
+               void* mean, void* rstd, int rows, int cols, float eps, cudaStream_t stream) {
+  constexpr int V = kFwdVals, kMaxWarps = kFwdThreads / 32;
+  const int w = (cols + 32 * V - 1) / (32 * V);
+  const float inv_cols = 1.f / (float)cols;
+  if (w > kMaxWarps) {
+    layernorm_fwd_wide_kernel<T, G, kVec, kRes><<<rows, kFwdThreads, 0, stream>>>(
+        (const T*)x, (const T*)res, (const G*)gamma, (const G*)beta, (T*)out, (float*)mean,
+        (float*)rstd, cols, inv_cols, eps);
+    return (int)cudaGetLastError();
+  }
+  int gw = 1;
+  while (gw < w) gw *= 2;
+  const int ng = kMaxWarps / gw;
+  const int64_t want = ((int64_t)rows + ng - 1) / ng;
+  const int cap = kFwdBlocksPerSM * tc::kSMs;
+  const int nblk = (int)(want < cap ? want : cap);
+  layernorm_fwd_rows_kernel<T, G, kVec, kRes><<<nblk, kFwdThreads, 0, stream>>>(
+      (const T*)x, (const T*)res, (const G*)gamma, (const G*)beta, (T*)out, (float*)mean,
+      (float*)rstd, rows, cols, inv_cols, eps, gw);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, typename G>
+int launch(const void* x, const void* res, const void* gamma, const void* beta, void* out,
+           void* mean, void* rstd, int rows, int cols, float eps, cudaStream_t s) {
+  // 16-byte loads and stores when every row starts 16-byte aligned
+  const bool vec = cols % Vec16<T>::N == 0 && tc::aligned16(x) && tc::aligned16(out) &&
+                   (res == nullptr || tc::aligned16(res));
+  if (res == nullptr)
+    return vec ? launch_fwd<T, G, true, false>(x, res, gamma, beta, out, mean, rstd, rows, cols, eps, s)
+               : launch_fwd<T, G, false, false>(x, res, gamma, beta, out, mean, rstd, rows, cols, eps, s);
+  return vec ? launch_fwd<T, G, true, true>(x, res, gamma, beta, out, mean, rstd, rows, cols, eps, s)
+             : launch_fwd<T, G, false, true>(x, res, gamma, beta, out, mean, rstd, rows, cols, eps, s);
+}
+
+// ---------------------------------------------------------------------
+// backward
+// ---------------------------------------------------------------------
+constexpr int kBwdThreads = 256;             // 8 warps
+constexpr int kReduceCols = 32;              // columns per stage-2 block
+constexpr int kReduceSlices = 32;            // partial-sum slices per column
+
+// values of a row a thread keeps in registers: two 16-byte vectors of
+// bf16; else 8 (16 f32 spill with the next row's loads in flight:
+// tools/torch_layernorm_tune.py)
+template <typename T, bool kVec> __host__ __device__ constexpr int bwd_vals() {
+  return kVec && sizeof(T) == 2 ? 16 : 8;
+}
+
 // the two sums over the block, returned to every thread
 __device__ void block_sum2(float& a, float& b, float* red) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -234,7 +421,6 @@ __device__ void block_sum2(float& a, float& b, float* red) {
   __syncthreads();
 }
 
-inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 // Stage 1, rows of up to 32 GW VALS columns.  A row belongs to a group
 // of GW warps (at 2048 columns 4 in bf16, 8 in f32), each thread owning
@@ -528,8 +714,8 @@ int launch_bwd(const void* x, const void* res, const void* gamma, const void* me
   constexpr int N = Vec16<T>::N;
   const int nblk = (rows + rows_per_block - 1) / rows_per_block;
   // 16-byte loads and stores when every row starts 16-byte aligned
-  const bool vec = cols % N == 0 && aligned16(x) && aligned16(dy) && aligned16(dx) &&
-                   (res == nullptr || aligned16(res));
+  const bool vec = cols % N == 0 && tc::aligned16(x) && tc::aligned16(dy) && tc::aligned16(dx) &&
+                   (res == nullptr || tc::aligned16(res));
   const int err = vec ? launch_stage1<T, G, true>(x, res, gamma, mean, rstd, dy, dx, part, rows,
                                                   cols, rows_per_block, nblk, stream)
                       : launch_stage1<T, G, false>(x, res, gamma, mean, rstd, dy, dx, part, rows,

@@ -3,7 +3,8 @@
 // kernels of attention_f32.cuh, paged_attention.cu and fused_gemm_f32.cuh:
 // cp.async copies into shared memory, ldmatrix fragment loads, the
 // mma.sync m16n8k16 product with bf16 operands and f32 sums, the m16n8k8
-// product with tf32 operands and f32 sums, and split TF32 (3xTF32) on it.
+// product with tf32 operands and f32 sums, and split TF32 (3xTF32) on it;
+// also the card's SM count that grid sizes are taken from.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16): lane = 4 g + t.
 // A (16 x 16, row-major) comes from ldsm_x4 over rows (lane & 15) and
@@ -29,6 +30,10 @@
 namespace tc {
 
 using bf16 = __nv_bfloat16;
+
+// an H100 SXM's streaming multiprocessors, by which the launch rules of
+// fused_gemm_f32.cuh and layernorm.cu size their grids
+constexpr int kSMs = 132;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);

@@ -7,10 +7,10 @@ Pallas kernel ``_kern4d``, the 4-D form of ``mxnet_tpu/ops/fused.py``
 ``_pallas_fwd``).  The kernel is ``csrc/fused_band4d.cu`` (design notes
 in the source): a GEMM over the (b, h, w) rows of ``x``, read through
 ``x``'s own strides, whose prologue applies the per-channel affine and
-the ReLU in shared memory; in f32 register-tiled on the CUDA cores, in
-bf16 on the tensor cores (``mma.sync``, the GEMM of
-``csrc/fused_gemm_bf16.cuh`` that row 7's kernel shares, so both give
-the same bits on the same operands).  ``x``
+the ReLU in shared memory, on the tensor cores (``mma.sync``): in bf16
+the GEMM of ``csrc/fused_gemm_bf16.cuh``, in f32 the split-TF32 GEMM of
+``csrc/fused_gemm_f32.cuh``, each the one row 7's kernel runs, so rows 7
+and 10 give the same bits on the same operands.  ``x``
 (B, H, W, K) and ``w`` (K, N) share one type, f32 or bf16; ``scale``
 and ``shift`` are f32 (K,); the output is a contiguous (B, H, W, N) in
 ``x``'s type.  The activation is computed in f32 and rounded to

@@ -308,10 +308,10 @@ def test_build_log_is_named_for_the_current_source():
 # each shared header and the sources that include it
 _HEADER_USERS = {
     "tc_mma.cuh": ("fused_matmul", "fused_band4d", "flash_attention",
-                   "paged_attention"),
+                   "paged_attention", "layernorm"),
     "fused_gemm_bf16.cuh": ("fused_matmul", "fused_band4d"),
     "attention_f32.cuh": ("flash_attention", "paged_attention"),
-    "fused_gemm_f32.cuh": ("fused_matmul",)}
+    "fused_gemm_f32.cuh": ("fused_matmul", "fused_band4d")}
 
 
 @pytest.mark.parametrize("header", ["tc_mma.cuh", "fused_gemm_bf16.cuh",

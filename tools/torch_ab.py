@@ -1,0 +1,130 @@
+#!/usr/bin/env python3
+"""Two trees of the repository, in turns on one GPU.
+
+    python3 tools/torch_ab.py serve PARENT_DIR CHANGE_DIR [ROUNDS]
+    python3 tools/torch_ab.py kernels PARENT_DIR CHANGE_DIR [ROUNDS]
+
+Runs one workload from each tree in a process of its own, in the order
+parent, change, change, parent, ROUNDS times (default 1), and prints one
+JSON line a run.  Two trees are compared only inside one call, in turns:
+the serving steps are host-bound and their p50s swing by tens of percent
+between runs of one tree.  Each tree builds its own kernels (its
+``build/kernels``).  Needs a CUDA device.
+
+serve: ``chip_smoke.py``'s serve and serve_spec phases of the tree (the
+full-width transformer through the mixed-step engine, then the
+speculative engine's n-gram and draft arms): the serve step p50, wall and
+TTFT p50, and each spec arm's p50s, tokens per launch and accept rate.
+
+kernels: the tree's ``layernorm_fused`` at 2048 columns (f32 at the rows
+of every path that runs it, 8, 40, 64, 1024, 4096 and 8192; bf16 at 8, 64
+and 4096) after ``time_ms``'s flush, after a flush that reads and 200
+calls back to back, and its ``fused_band4d`` in f32 at the fused
+sandwich's two bands beside ``torch.matmul`` (TF32 off) on the activated
+input.  The timing helpers are this tree's ``chip_smoke.py`` for both
+trees, so both are timed alike."""
+import json
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+PRELUDE = r"""
+import json, os, sys
+sys.path.insert(0, os.getcwd())
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+"""
+
+SERVE = PRELUDE + r"""
+import chip_smoke as cs
+import mxnet_tpu_torch as mx
+from mxnet_tpu_torch.kernels import _build
+_build.build_all()
+full = cs.seeded_params(cs.FULL)
+cs.phase_serve(torch, mx, full)
+cs.phase_serve_spec(torch, mx, full)
+"""
+
+KERNELS = PRELUDE + r"""
+import importlib.util
+spec = importlib.util.spec_from_file_location("ab_timing", sys.argv[1])
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
+from mxnet_tpu_torch import kernels as mxk
+from mxnet_tpu_torch.tools import fused_sandwich as fs
+dev = torch.device("cuda", 0)
+flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
+out = {}
+g = torch.Generator(device="cpu").manual_seed(7)
+for dt, rows in [("float32", r) for r in (8, 40, 64, 1024, 4096, 8192)] + \
+        [("bfloat16", r) for r in (8, 64, 4096)]:
+    d = getattr(torch, dt)
+    x = torch.randn(rows, 2048, generator=g).to(dev).to(d)
+    gamma = (1 + 0.02 * torch.randn(2048, generator=g)).to(dev).to(d)
+    beta = (0.02 * torch.randn(2048, generator=g)).to(dev).to(d)
+    fn = lambda: mxk.layernorm_fused(x, gamma, beta)
+    key = "layernorm:%s:%d" % (dt, rows)
+    out[key] = cs.time_ms(torch, fn, flush)
+    out[key + ":read_flush"] = cs.time_ms(torch, fn, cs.ReadFlush(flush))
+    out[key + ":back_to_back"] = cs.pipelined_ms(torch, fn)
+for name, x, s, t, w in fs.band_shapes(fs.inputs(dev, torch.float32)):
+    out["band_f32:" + name] = cs.time_ms(
+        torch, lambda: mxk.fused_band4d(x, s, t, w), flush)
+    a = torch.relu(x * s + t)
+    out["matmul_f32:" + name] = cs.time_ms(torch, lambda: torch.matmul(a, w),
+                                           flush)
+print(json.dumps(out), flush=True)
+"""
+
+
+def serve_result(lines):
+    res = {}
+    for d in lines:
+        if d.get("phase") == "serve":
+            res["serve_step_ms_p50"] = d["step_ms_p50"]
+            res["serve_wall_s"] = d["wall_s"]
+            res["serve_ttft_ms_p50"] = d["ttft_ms_p50"]
+        elif d.get("phase") == "serve_spec":
+            res["serve_spec"] = {
+                arm: {k: v for k, v in d[arm].items()
+                      if "p50" in k or k in ("tokens_per_launch", "accept_rate")}
+                for arm in ("ngram", "draft") if arm in d}
+    return res
+
+
+def kernels_result(lines):
+    res = {}
+    for d in lines:
+        res.update(d)
+    return res
+
+
+MODES = {"serve": (SERVE, serve_result), "kernels": (KERNELS, kernels_result)}
+
+
+def run(tree, mode):
+    code, result = MODES[mode]
+    out = subprocess.run([sys.executable, "-c", code, os.path.join(HERE, "chip_smoke.py")],
+                         cwd=tree, capture_output=True, text=True, timeout=1200)
+    lines = [json.loads(t) for t in out.stdout.splitlines() if t.startswith("{")]
+    res = {"tree": tree, "mode": mode, "rc": out.returncode, **result(lines)}
+    if out.returncode:
+        res["stderr"] = out.stderr[-2000:]
+    print(json.dumps(res), flush=True)
+
+
+def main():
+    if len(sys.argv) < 4 or sys.argv[1] not in MODES:
+        raise SystemExit(__doc__)
+    mode, parent, change = sys.argv[1:4]
+    rounds = int(sys.argv[4]) if len(sys.argv) > 4 else 1
+    for _ in range(rounds):
+        for tree in (parent, change, change, parent):
+            run(tree, mode)
+
+
+if __name__ == "__main__":
+    main()

@@ -495,7 +495,7 @@ def main_decode(args, torch, cs):
                 bad.setdefault(a, []).append("%s: max abs err %g"
                                              % (case, cs.max_err(out, ref)))
     flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
-    clean = ReadFlush(flush)
+    clean = cs.ReadFlush(flush)
     times = {a: {} for a in arms}
     for a in arms + arms[::-1]:
         with arm(*a):
@@ -518,19 +518,6 @@ def main_decode(args, torch, cs):
                           "ms": ms}), flush=True)
     cs.phase_device(torch)
     return 1 if {n for n, _ in bad} - set(DECODE_DIAGNOSE) else 0
-
-
-class ReadFlush:
-    """A flush for ``chip_smoke.time_ms`` that reads its buffer (its
-    ``zero_`` sums it): the L2 is left full of clean lines, where the
-    usual flush (writing zeros) leaves dirty lines that a kernel's reads
-    must first write back."""
-
-    def __init__(self, buf):
-        self.buf = buf
-
-    def zero_(self):
-        self.buf.sum()
 
 
 def decode_ptxas(log):

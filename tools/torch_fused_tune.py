@@ -21,13 +21,16 @@ the ``ptxas`` registers and spill bytes of its 128 x 128 instances, the
 mean of its two times per shape, the 28-launch step sum and the bands'
 mean; then the card's name and power limit.
 
-float32: the variants are of ``csrc/fused_gemm_f32.cuh``, row 7's f32
-GEMM in split TF32 (``F32_VARIANTS``: K step, ring stages, blocks an SM,
-the k8 steps an mma chain sums), built with a copy of ``fused_matmul.cu``
-into ``build/fused_tune/float32/<variant>/``, held against the plain
-version at the card's f32 tolerance (``chip_smoke.close``, two runs
-bit-identical) at ResNet-50's 8 site shapes at batch 128, ``FUSED_ODD``
-and ``F32_EDGES``, and timed at the 8 sites.
+float32: the variants are of ``csrc/fused_gemm_f32.cuh``, the split-TF32
+GEMM of rows 7 and 10 in f32 (``F32_VARIANTS``: K step, ring stages,
+blocks an SM, the k8 steps an mma chain sums, the tile rule and the
+warps' layout), built with copies of ``fused_matmul.cu`` and
+``fused_band4d.cu`` into ``build/fused_tune/float32/<variant>/``, held
+against the plain versions at the card's f32 tolerance
+(``chip_smoke.close``, two runs bit-identical) at ResNet-50's 8 site
+shapes at batch 128, ``FUSED_ODD``, ``F32_EDGES``, the fused sandwich's
+two bands in f32 (row 10 bit-equal to row 7 on the 2-D view) and
+``BAND_F32_EDGES``, and timed at the 8 sites and the two bands.
 
 Needs a CUDA device; the variants go through the port's wrappers with
 each wrapper's library swapped for the variant's.  ``--diagnose`` adds
@@ -60,6 +63,11 @@ TUNED_F32 = "kStep = 32, kStages = 2, kMinBlocks = 1, kGroup = 4"
 # 16-byte alignment; (M, K, N, residual, x's element offset)
 F32_EDGES = ((6272 + 37, 512, 2048, True, 0), (6272 + 37, 2048, 512, False, 0),
              (1000, 72, 36, True, 0), (4096, 256, 128, True, 1))
+# row 10 in f32 past the sandwich's bands: chip_smoke's odd shape and the
+# bf16 GEMM's edges (M off the row tile, K 72 with N 64, N 60); (B, H,
+# W, K, N)
+BAND_F32_EDGES = ((3, 7, 9, 37, 93), (64, 29, 29, 64, 256), (3, 13, 17, 72, 64),
+                  (2, 9, 11, 64, 60))
 
 
 def _consts(step, stages, warps, min_blocks):
@@ -93,30 +101,42 @@ def _consts_f32(step, stages, min_blocks, group):
 
 
 _WARPS8 = ("constexpr int kWarps = 16, kBM = 128;", "constexpr int kWarps = 8, kBM = 128;")
+_TILE_RULE = "  if (a.N <= 64 || (a.M + kBM - 1) / kBM * ((a.N + 127) / 128) < 2 * kSMs)\n"
+# 16 warps as 4 x 4 on a 128 x 128 tile (32 x 32 warp tiles) instead of
+# 2 x 8 (64 x 16)
+_WARPS4X4 = ("kWarpsM = kBM > BN ? kWarps / 2 : 2;", "kWarpsM = kBM > BN ? kWarps / 2 : 4;")
 F32_VARIANTS = {
     "tuned": [],
     "ring_of_3": [_consts_f32(32, 3, 1, 4)],
     "group_2": [_consts_f32(32, 2, 1, 2)],
     # 128 x 128 tiles whenever N > 64, however few
-    "wide_tiles": [("  if (a.N <= 64 || (a.M + kBM - 1) / kBM * ((a.N + 127) / 128) < 2 * kSMs)\n",
-                    "  if (a.N <= 64)\n")],
+    "wide_tiles": [(_TILE_RULE, "  if (a.N <= 64)\n")],
+    # 128 x 64 tiles always
+    "narrow_tiles": [(_TILE_RULE, "  if (true)\n")],
+    "warps_4x4": [_WARPS4X4],
+    "warps_4x4_group_2": [_WARPS4X4, _consts_f32(32, 2, 1, 2)],
+    # two 8-warp blocks an SM on 128 x 64 tiles (32 x 32 warp tiles,
+    # chains of 2 k8 steps): one block's ring fill and epilogue overlap
+    # the other's products
+    "eight_warps_two_blocks_narrow": [_WARPS8, _consts_f32(32, 2, 2, 2),
+                                      (_TILE_RULE, "  if (true)\n")],
     # 8-warp blocks (64 x 32 warp tiles): one an SM, and two an SM with
     # 16-column stages, a ring of 2 and chains of one k8 step (spills)
     "eight_warps": [_WARPS8],
     "eight_warps_step16": [_WARPS8, _consts_f32(16, 3, 1, 2)],
     "eight_warps_two_blocks": [_WARPS8, _consts_f32(16, 2, 2, 1)],
 }
-_MMA3 = ("            tc::mma3(c, ah[kk], al[kk], bh[nt][kk][0], bh[nt][kk][1], "
-         "bl[nt][kk][0],\n                     bl[nt][kk][1]);")
+_MMA3 = ("              tc::mma3(c[nt], ah[kk], al[kk], bh[nt][kk][0], bh[nt][kk][1], "
+         "bl[nt][kk][0],\n                       bl[nt][kk][1]);")
 F32_DIAGNOSTICS = {
     # one TF32 product a step (the two cross terms dropped)
-    "one_product": [(_MMA3, "            tc::mma_tf32(c, ah[kk], bh[nt][kk][0], "
+    "one_product": [(_MMA3, "              tc::mma_tf32(c[nt], ah[kk], bh[nt][kk][0], "
                      "bh[nt][kk][1]);")],
     # the split and the prologue of the landed tiles left out
     "no_split_pass": [("    if (st + 1 < nst) transform(st + 1, sv);",
                        "    (void)sv;")],
     # mma.sync left out (ldmatrix kept)
-    "no_products": [(_MMA3, "            c[0] += __uint_as_float(ah[kk][0] ^ bh[nt][kk][0]);")],
+    "no_products": [(_MMA3, "              c[nt][0] += __uint_as_float(ah[kk][0] ^ bh[nt][kk][0]);")],
 }
 
 
@@ -141,7 +161,7 @@ def build(names, f32=False):
     from mxnet_tpu_torch.kernels import _build
     header_name = HEADER_F32 if f32 else HEADER
     table = {**F32_VARIANTS, **F32_DIAGNOSTICS} if f32 else {**VARIANTS, **DIAGNOSTICS}
-    entries = ("fused_matmul",) if f32 else ENTRIES
+    entries = ENTRIES
     with open(os.path.join(CSRC, header_name)) as f:
         header = f.read()
     procs = {}
@@ -178,20 +198,22 @@ def path_of(name, src, f32):
 
 
 def ptxas(log, w_kn, f32=False):
-    """Registers and spill bytes of the 128 x 128 instances (X by
-    cp.async and element by element)."""
+    """Registers and spill bytes of the instances (128 x 128 and, in f32,
+    128 x 64 tiles; X by cp.async and element by element)."""
     lines = log.splitlines()
     found = {}
-    for vec in (1, 0):
-        entry = "fused_gemm_f32_kernelILi128ELb%dE" % vec if f32 else \
-            "fused_gemm_bf16_kernelILi128ELb%dELb%dE" % (w_kn, vec)
-        for i, line in enumerate(lines):
-            if "Compiling entry function" in line and entry in line:
-                block = " ".join(lines[i + 1:i + 4])
-                found["cp_async" if vec else "elementwise"] = {
-                    "registers": int(re.search(r"Used (\d+) registers", block).group(1)),
-                    "spill_stores": int(re.search(r"(\d+) bytes spill stores", block).group(1)),
-                    "spill_loads": int(re.search(r"(\d+) bytes spill loads", block).group(1))}
+    for bn in (128, 64) if f32 else (128,):
+        for vec in (1, 0):
+            entry = "fused_gemm_%s_kernelILi%dELb%dELb%dE" % (
+                "f32" if f32 else "bf16", bn, w_kn, vec)
+            for i, line in enumerate(lines):
+                if "Compiling entry function" in line and entry in line:
+                    block = " ".join(lines[i + 1:i + 4])
+                    key = "cp_async" if vec else "elementwise"
+                    found[key if bn == 128 else "%s_128x64" % key] = {
+                        "registers": int(re.search(r"Used (\d+) registers", block).group(1)),
+                        "spill_stores": int(re.search(r"(\d+) bytes spill stores", block).group(1)),
+                        "spill_loads": int(re.search(r"(\d+) bytes spill loads", block).group(1))}
     return found
 
 
@@ -208,10 +230,12 @@ def load(paths):
     return {"fused_matmul": fm, "fused_band4d": fb}
 
 
-def main_f32(torch, cs, fm, diagnose, only=None):
-    """The f32 GEMM's variants: checked at the sites, FUSED_ODD and
-    F32_EDGES, timed at the 8 sites of a batch-128 step.  ``only``:
-    these variants (and tuned), given last on the command line."""
+def main_f32(torch, cs, fm, fb, diagnose, only=None):
+    """The f32 GEMM's variants: checked at the sites, FUSED_ODD,
+    F32_EDGES, the bands and BAND_F32_EDGES, timed at the 8 sites of a
+    batch-128 step and the sandwich's two bands in f32.  ``only``: these
+    variants (and tuned), given last on the command line."""
+    from mxnet_tpu_torch.tools import fused_sandwich as fs
     dev = torch.device("cuda", 0)
     names = list(F32_VARIANTS) + (list(F32_DIAGNOSTICS) if diagnose else [])
     if only:
@@ -220,8 +244,7 @@ def main_f32(torch, cs, fm, diagnose, only=None):
             raise SystemExit("unknown variants: %s" % sorted(unknown))
         names = [n for n in names if n == "tuned" or n in only]
     built = build(names, f32=True)
-    libs = {name: load({"fused_matmul": v["fused_matmul"][0], "fused_band4d": None})
-            for name, v in built.items()}
+    libs = {name: load({src: v[src][0] for src in ENTRIES}) for name, v in built.items()}
     g = torch.Generator(device=dev).manual_seed(cs.SEED + 43)
 
     def site(M, K, N, res, off=0):
@@ -232,30 +255,55 @@ def main_f32(torch, cs, fm, diagnose, only=None):
         r = torch.randn(M, N, device=dev, generator=g) if res else None
         return x, sc, sh, w, r
 
+    def row7(*args):
+        return fm.fused_scale_relu_matmul_fwd(*args), fm.fused_scale_relu_matmul_plain(*args)
+
+    def row10(*args):
+        return fb.fused_band4d(*args), fb.fused_band4d_plain(*args)
+
     timed, checks = [], []
     for shape in cs.FUSED_SHAPES:
         args = site(*shape)
         timed.append(("site_%dx%dx%d" % shape[:3],
                       lambda args=args: fm.fused_scale_relu_matmul_fwd(*args)))
-        checks.append(("site_%dx%dx%d" % shape[:3], args))
+        checks.append(("site_%dx%dx%d" % shape[:3], row7, args))
     for shape in [cs.FUSED_ODD] + list(F32_EDGES):
-        checks.append(("edge_%dx%dx%d" % shape[:3], site(*shape)))
+        checks.append(("edge_%dx%dx%d" % shape[:3], row7, site(*shape)))
+    bands = fs.band_shapes(fs.inputs(dev, torch.float32))
+    for name, x, s, t, w in bands:
+        timed.append(("band_" + name, lambda a=(x, s, t, w): fb.fused_band4d(*a)))
+        checks.append(("band_" + name, row10, (x, s, t, w)))
+    for shape in BAND_F32_EDGES:
+        checks.append(("band_edge_%s" % "x".join(map(str, shape)), row10,
+                       cs._band_case(torch, g, dev, *shape, torch.float32)))
+    x, s, t, w = checks[-1][2]
+    checks.append(("band_nchw_view", row10, (x.permute(0, 3, 1, 2).contiguous()
+                                             .permute(0, 2, 3, 1), s, t, w)))
     bad, failed = {}, {}
     for name, lib in libs.items():
-        with mock.patch.object(fm, "_lib", lambda lib=lib: lib["fused_matmul"]):
-            for what, args in checks:
+        with mock.patch.object(fm, "_lib", lambda lib=lib: lib["fused_matmul"]), \
+                mock.patch.object(fb, "_lib", lambda lib=lib: lib["fused_band4d"]):
+            for what, pair, args in checks:
                 try:
-                    got = fm.fused_scale_relu_matmul_fwd(*args)
-                    again = fm.fused_scale_relu_matmul_fwd(*args)
+                    got, ref = pair(*args)
+                    again = pair(*args)[0]
                 except Exception as e:     # a variant the card refuses: reported
                     failed[name] = "%s: %s" % (what, e)
                     break
-                ref = fm.fused_scale_relu_matmul_plain(*args)
                 torch.cuda.synchronize()
                 if not (cs.close(torch, got, ref) and torch.equal(got, again)):
                     bad.setdefault(name, []).append(
                         "%s: max abs err %g" % (what, cs.max_err(got, ref)))
                 del got, ref, again
+            if name not in failed:
+                for bname, x, s, t, w in bands:
+                    k = x.shape[3]
+                    y4 = fb.fused_band4d(x, s, t, w)
+                    y2 = fm.fused_scale_relu_matmul_fwd(x.reshape(-1, k).contiguous(), s, t,
+                                                        w.t().contiguous())
+                    if not torch.equal(y4.reshape(y2.shape), y2):
+                        bad.setdefault(name, []).append("band %s: rows 7 and 10 "
+                                                        "differ" % bname)
     for name, why in failed.items():
         print(json.dumps({"variant": name, "dtype": "float32", "launch_failed": why}),
               flush=True)
@@ -264,7 +312,8 @@ def main_f32(torch, cs, fm, diagnose, only=None):
     flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
     times = {name: {} for name in libs}
     for name in list(libs) + list(libs)[::-1]:
-        with mock.patch.object(fm, "_lib", lambda lib=libs[name]: lib["fused_matmul"]):
+        with mock.patch.object(fm, "_lib", lambda lib=libs[name]: lib["fused_matmul"]), \
+                mock.patch.object(fb, "_lib", lambda lib=libs[name]: lib["fused_band4d"]):
             for what, fn in timed:
                 times[name].setdefault(what, []).append(cs.time_ms(torch, fn, flush))
     for name in libs:
@@ -272,10 +321,11 @@ def main_f32(torch, cs, fm, diagnose, only=None):
         step = sum(ms["site_%dx%dx%d" % s[:3]] * n for s, n in cs.FUSED_SHAPES.items())
         print(json.dumps({
             "variant": name, "dtype": "float32", "diagnostic": name in F32_DIAGNOSTICS,
-            "ptxas": ptxas(built[name]["fused_matmul"][1], 0, f32=True),
+            "ptxas": {src: ptxas(built[name][src][1], int(src == "fused_band4d"), f32=True)
+                      for src in ENTRIES},
             "agrees": name not in bad, "disagreements": bad.get(name, []),
             "step_ms_28_launches": step, "mean_ms": step / sum(cs.FUSED_SHAPES.values()),
-            "ms": ms}), flush=True)
+            "band_mean_ms": (ms["band_up"] + ms["band_down"]) / 2, "ms": ms}), flush=True)
     cs.phase_device(torch)
     return 1 if set(bad) - set(F32_DIAGNOSTICS) else 0
 
@@ -294,7 +344,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     if "--dtype" in sys.argv and sys.argv[sys.argv.index("--dtype") + 1] == "float32":
         only = sys.argv[sys.argv.index("--only") + 1:] if "--only" in sys.argv else None
-        return main_f32(torch, cs, fm, "--diagnose" in sys.argv, only)
+        return main_f32(torch, cs, fm, fb, "--diagnose" in sys.argv, only)
     dev = torch.device("cuda", 0)
     bf = torch.bfloat16
     names = list(VARIANTS) + (list(DIAGNOSTICS) if "--diagnose" in sys.argv else [])

@@ -1,7 +1,22 @@
 #!/usr/bin/env python3
-"""Time variants of the LayerNorm backward (TPU kernel row 4) on one GPU.
+"""Time variants of the LayerNorm kernels (TPU kernel rows 3 and 4) on one GPU.
 
     python3 tools/torch_layernorm_tune.py [--only V ...]
+    python3 tools/torch_layernorm_tune.py --fwd [--only V ...]
+
+``--fwd``: the forward (row 3).  Each variant of ``FWD_VARIANTS`` (the
+blocks an SM the grid holds, threads a block, values a thread, so warps a
+row, the next row's prefetch; ``FWD_DIAGNOSE``'s kernel that returns at
+entry, expected to disagree) is held against ``layernorm_plain``, with
+and without a residual, at ``FWD_SHAPES`` (the serve steps' 8, 40 and 64
+rows, the draft model's 1024, ``Module.fit``'s 4096 and the one-shot
+prefill's 8192, at 2048 columns; bf16 at 8, 64 and 4096) in f32 (rtol
+1e-4 / atol 1e-5) and bf16 (``chip_smoke.close_bf16``, statistics at the
+f32 bound), then timed there alone after the usual flush, after a flush
+that reads, and 200 calls back to back (``chip_smoke.pipelined_ms``), the
+variants in turns and then in reverse order.
+
+Without ``--fwd``: the backward (row 4).
 
 Each variant is ``mxnet_tpu_torch/csrc/layernorm.cu`` with a few text
 substitutions of its constants or code (``VARIANTS``), written into
@@ -66,6 +81,49 @@ DIAGNOSE = {
 }
 BLOCKS = (132, 264, 512)
 SHAPE = (4096, 2048)
+_FWD_CONSTS = "constexpr int kFwdThreads = 256, kFwdBlocksPerSM = 4;"
+_FWD_ROW = "  constexpr int VALS = kFwdVals, N = Vec16<T>::N, NV = VALS / N;"
+
+
+def _fwd_consts(threads, blocks):
+    return (_FWD_CONSTS, "constexpr int kFwdThreads = %d, kFwdBlocksPerSM = %d;"
+            % (threads, blocks))
+
+
+def _fwd_vals(expr):
+    """Values a thread keeps: ``expr`` of T in the kernel and its launch."""
+    return [(_FWD_ROW, _FWD_ROW.replace("kFwdVals", expr)),
+            ("  constexpr int V = kFwdVals,", "  constexpr int V = %s," % expr)]
+
+
+FWD_VARIANTS = {
+    "tuned": [],
+    # blocks an SM the grid holds (rows past that loop in each group)
+    "blocks_2": [_fwd_consts(256, 2)],
+    "blocks_8": [_fwd_consts(256, 8)],
+    "blocks_32": [_fwd_consts(256, 32)],
+    # 512-thread blocks (two 8-warp groups a block at 2048 f32 columns)
+    "threads_512": [_fwd_consts(512, 2)],
+    # the next row's loads issued at the top of its own iteration
+    "no_prefetch": [("  if (r < rows) fetch(r);\n  for (; r < rows; r += stride) {\n",
+                     "  for (; r < rows; r += stride) {\n    fetch(r);\n"),
+                    ("    if (r + stride < rows) fetch(r + stride);      "
+                     "// the next row's loads fly from here\n", "")],
+    # values a thread: 16 in bf16 (4 warps a 2048-column row, two
+    # vectors), 16 in both (4 warps), or 4 in f32 (16 warps, 512-thread
+    # blocks)
+    "vals_16_bf16": _fwd_vals("(sizeof(T) == 2 ? 16 : 8)"),
+    "vals_16": _fwd_vals("16"),
+    "vals_4_threads_512": _fwd_vals("(sizeof(T) == 4 ? 4 : 8)") + [_fwd_consts(512, 2)],
+}
+# the forward's work taken out: the register form returns at entry (the
+# launch and the grid alone); timed and expected to disagree
+FWD_DIAGNOSE = {
+    "empty": [(_FWD_ROW, "  if (cols > 0) return;\n" + _FWD_ROW)],
+}
+# (dtype, rows) at 2048 columns
+FWD_SHAPES = [("float32", r) for r in (8, 40, 64, 1024, 4096, 8192)] + \
+    [("bfloat16", r) for r in (8, 64, 4096)]
 
 
 def _flash_tune():
@@ -92,10 +150,104 @@ def ln_ptxas(log):
     return found
 
 
+def fwd_ptxas(log):
+    """{instance: {registers, spill_stores, spill_loads}} of the forward's
+    kernels."""
+    lines = log.splitlines()
+    found = {}
+    for i, line in enumerate(lines):
+        m = re.search(r"layernorm_fwd_\w+?_kernelI\w+?E(?=Ev)", line)
+        if "Compiling entry function" in line and m:
+            block = " ".join(lines[i + 1:i + 4])
+            found[m.group(0)] = {
+                "registers": int(re.search(r"Used (\d+) registers", block).group(1)),
+                "spill_stores": int(re.search(r"(\d+) bytes spill stores", block).group(1)),
+                "spill_loads": int(re.search(r"(\d+) bytes spill loads", block).group(1))}
+    return found
+
+
+def _load(path):
+    lib = ctypes.CDLL(path)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.mx_layernorm_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.mx_layernorm_bwd.restype = i
+    lib.mx_layernorm_fwd.argtypes = [p, p, p, p, p, p, p, i, i, ctypes.c_float, i, i, i, p]
+    lib.mx_layernorm_fwd.restype = i
+    return lib
+
+
+def main_fwd(torch, cs, ln, only):
+    """The forward's variants at FWD_SHAPES."""
+    import torch.nn.functional as F
+    variants = dict(FWD_VARIANTS, **FWD_DIAGNOSE)
+    if only:
+        unknown = set(only) - set(variants)
+        if unknown:
+            raise SystemExit("unknown variants: %s" % sorted(unknown))
+        variants = {n: v for n, v in variants.items() if n == "tuned" or n in only}
+    tune = _flash_tune()
+    built = tune.build(variants, "layernorm_fwd", FILES)
+    libs = {name: _load(path) for name, (path, _) in built.items()}
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device="cpu").manual_seed(cs.SEED + 37)
+    cols = SHAPE[1]
+    cases = {}
+    for dt, rows in FWD_SHAPES:
+        d = getattr(torch, dt)
+        x, res = (torch.randn(rows, cols, generator=g).to(dev).to(d) for _ in range(2))
+        gamma = (1 + 0.02 * torch.randn(cols, generator=g)).to(dev).to(d)
+        beta = (0.02 * torch.randn(cols, generator=g)).to(dev).to(d)
+        cases["%s:%d" % (dt, rows)] = (x, gamma, beta, res)
+    bad = {}
+    for name, lib in libs.items():
+        with mock.patch.object(ln, "_lib", lambda lib=lib: lib):
+            for case, (x, gamma, beta, res) in cases.items():
+                for r in (None, res):
+                    got = ln.layernorm_fused(x, gamma, beta, residual=r)
+                    again = ln.layernorm_fused(x, gamma, beta, residual=r)
+                    ref = ln.layernorm_plain(x, gamma, beta, residual=r)
+                    torch.cuda.synchronize()
+                    for what, u, v in zip(("out", "mean", "rstd"), got, ref):
+                        ok = (cs.close(torch, u, v) if what != "out" or x.dtype == torch.float32
+                              else cs.close_bf16(torch, u, v))
+                        if not ok:
+                            bad.setdefault(name, []).append("%s%s %s: max abs err %g" % (
+                                case, "" if r is None else " res", what, cs.max_err(u, v)))
+                    if not all(torch.equal(u, v) for u, v in zip(got, again)):
+                        bad.setdefault(name, []).append("%s: two runs differ" % case)
+    flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
+    clean = cs.ReadFlush(flush)
+    times = {name: {} for name in libs}
+    for name in list(libs) + list(libs)[::-1]:
+        with mock.patch.object(ln, "_lib", lambda lib=libs[name]: lib):
+            for case, (x, gamma, beta, _) in cases.items():
+                fn = lambda: ln.layernorm_fused(x, gamma, beta)
+                times[name].setdefault(case, []).append(cs.time_ms(torch, fn, flush))
+                times[name].setdefault(case + ":clean", []).append(cs.time_ms(torch, fn, clean))
+                times[name].setdefault(case + ":back_to_back", []).append(
+                    cs.pipelined_ms(torch, fn))
+    lib_ms = {}
+    for case, (x, gamma, beta, _) in cases.items():
+        fn = lambda: F.layer_norm(x, (cols,), gamma, beta, 1e-5)
+        lib_ms[case] = cs.time_ms(torch, fn, flush)
+        lib_ms[case + ":clean"] = cs.time_ms(torch, fn, clean)
+        lib_ms[case + ":back_to_back"] = cs.pipelined_ms(torch, fn)
+    for name in libs:
+        print(json.dumps({"variant": name, "diagnostic": name in FWD_DIAGNOSE,
+                          "ptxas": fwd_ptxas(built[name][1]),
+                          "agrees": name not in bad, "disagreements": bad.get(name, [])[:4],
+                          "ms": {c: sum(t) / len(t) for c, t in times[name].items()}}),
+              flush=True)
+    print(json.dumps({"library": "F.layer_norm", "ms": lib_ms}), flush=True)
+    cs.phase_device(torch)
+    return 1 if set(bad) - set(FWD_DIAGNOSE) else 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", nargs="+", metavar="VARIANT",
                     help="these variants (and tuned) only")
+    ap.add_argument("--fwd", action="store_true", help="the forward's variants")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -104,6 +256,8 @@ def main(argv=None):
     sys.path.insert(0, HERE)
     import chip_smoke as cs
     ln = importlib.import_module("mxnet_tpu_torch.kernels.layernorm")
+    if args.fwd:
+        return main_fwd(torch, cs, ln, args.only)
     variants = dict(VARIANTS, **DIAGNOSE)
     if args.only:
         unknown = set(args.only) - set(variants)
@@ -112,15 +266,7 @@ def main(argv=None):
         variants = {n: v for n, v in variants.items() if n == "tuned" or n in args.only}
     tune = _flash_tune()
     built = tune.build(variants, "layernorm", FILES)
-    libs = {}
-    for name, (path, _) in built.items():
-        lib = ctypes.CDLL(path)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.mx_layernorm_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
-        lib.mx_layernorm_bwd.restype = i
-        lib.mx_layernorm_fwd.argtypes = [p, p, p, p, p, p, p, i, i, ctypes.c_float, i, i, i, p]
-        lib.mx_layernorm_fwd.restype = i
-        libs[name] = lib
+    libs = {name: _load(path) for name, (path, _) in built.items()}
     dev = torch.device("cuda", 0)
     g = torch.Generator(device="cpu").manual_seed(cs.SEED + 35)
     rows, cols = SHAPE
@@ -163,7 +309,7 @@ def main(argv=None):
             for p in patches:
                 p.stop()
     flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
-    clean = tune.ReadFlush(flush)
+    clean = cs.ReadFlush(flush)
     times = {a: {} for a in arms}
     for a in arms + arms[::-1]:
         patches = arm(*a)
