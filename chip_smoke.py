@@ -24,14 +24,18 @@ Phases, each printed as one JSON line:
    step's 8 x 5-row spans and bf16 caches (padded rows zeros, caches
    equal to the plain version's, nothing written outside [start, start +
    len), two runs bit-identical) and timed at the mixed chunk and the
-   spec spans beside SDPA on the gathered context; decode (each slot's
+   spec spans beside SDPA on the gathered context; its bf16 kernel
+   (bf16 q/k/v over bf16 caches, attention_bf16.cuh; its instances'
+   ptxas lines, no spills) the same way at the same cases and at the
+   head_dims of PAGED_BF16_DIMS, outputs at rtol 2^-7 / atol 1e-5, timed
+   beside SDPA in bf16; decode (each slot's
    keys split evenly over the blocks of a thread block cluster; its
    instances' ptxas lines first, no spills) is checked in all four (q,
    cache) type pairs over long contexts (positions 20-731) and serve's
    short ones (20-145), with an inactive slot and a position past the
    table, and over one slot, two runs bit-identical, and timed alone
    and 200 calls back to back beside SDPA over each slot's gathered
-   context; the LayerNorm forward (a group of warps a row, the row in
+   context, in f32 and in bf16 (q and caches); the LayerNorm forward (a group of warps a row, the row in
    registers; its instances' ptxas lines first, no spills) at the rows
    of every path that runs it (8, 40, 64, 1024, 4096 and 8192 of 2048
    columns), at the widths of LN_FWD_EDGES (ragged, looped, the widest
@@ -135,8 +139,10 @@ Phases, each printed as one JSON line:
    included) at the served shape (B 8, S 1024, 16 heads of 128, block
    16, 512 blocks, lengths 0 to 1024 over a scrambled table whose
    padding entries are out-of-range ids), at S = 1000 with a table wider
-   than S needs, and with bf16 caches; two runs bit-identical (the
-   kernel's instances' ptxas lines first, no spills); timed as
+   than S needs, and with bf16 caches; the bf16 kernel (bf16 q/k/v over
+   bf16 caches, attention_bf16.cuh) at the served shape and the head_dims
+   of PAGED_BF16_DIMS at rtol 2^-7 / atol 1e-5; two runs bit-identical
+   (the instances' ptxas lines first, no spills); timed, f32 and bf16, as
    in 3 beside ``scaled_dot_product_attention(is_causal=True)`` on
    (B, H, S, D) views of the same q/k/v (the attention without the
    scatter);
@@ -275,10 +281,34 @@ Phases, each printed as one JSON line:
    LayerNorm and flash kernels (transformer) in its graph, ends with
    weights within 1e-3 relative L2 of the eager arm's move and its
    metric within 1e-5; step p50s, peak memory and the launch counts are
-   printed.
+   printed;
+32. serve_bf16 (after 19): the LM at full width in bf16
+   (``dtype='bfloat16'``: bf16 weights, LayerNorms and caches, f32
+   embeddings, logits, block tables, positions and lengths) through
+   ``DecodeEngine`` on the mixed step, serve's requests and geometry,
+   with SERVE_BF16_RESERVED blocks held off the free list so the block
+   ids pass 256: every step launches decode and chunk 12 times and
+   LayerNorm 50, all bf16, no plain version; tokens/s, step p50, TTFT
+   p50/max, peak memory; LayerNorm's bf16 form is also timed at its 8
+   and 64 rows in layernorm_bf16 (20);
+33. serve_prefill_bf16: the bf16 prefill/decode-step pair at full width,
+   one 8 x 1024 prefill forward (12 bf16 prefill launches) and 31
+   decode steps (12 bf16 decode launches each), the first token's
+   logits within relative L2 2e-2 of the bf16 engine's; prefill ms,
+   decode step p50, peak memory;
+34. serve_spec_bf16: ``spec_k=4`` in bf16, the n-gram arm (24 bf16
+   chunk launches a step) and a bf16 draft model (12 bf16 flash
+   launches a proposed token, accept rate at least 0.5);
+35. serve_bf16_agreement: the mixed step, the spec step and the
+   prefill/decode-step pair at 2 layers in bf16, card against CPU, each
+   driven with the card engine's greedy tokens forced on both devices:
+   logits rows within relative L2 2e-2, cache rows within one bf16 ulp
+   at the cache's scale; the greedy streams of both devices printed
+   beside.
 
 Then the kernels' JSON line (every kernel with its dtype; the bf16
-forms as rows of their own, the attention kernels with their
+forms as rows of their own, the serving kernels' bf16 instances with
+the bf16 serve phases' launches, the attention kernels with their
 head_dim-256 times), and last ``{"ok": true, "device": ...}``.
 Any failed check raises, so the script exits non-zero and prints no
 result; it also exits non-zero when no CUDA device is present.
@@ -402,6 +432,22 @@ LN_FWD_EDGES = ((256, 256), (256, 512), (128, 1000), (64, 2046), (64, 4096),
                 (64, 6000), (16, 14528), (4, 58112), (5, 100), (3, 1))
 # the forward's instances in csrc/layernorm.cu's ptxas log
 LN_FWD_PATTERN = r"layernorm_fwd_\w+?_kernelI\w+?E(?=Ev)"
+# bf16 serving (ROADMAP A.1): the full-width model with dtype='bfloat16'
+# (bf16 weights, LayerNorms and caches; f32 embeddings, logits, block
+# tables, positions and lengths)
+BF16_SERVE = dict(FULL, dtype="bfloat16")
+# the bf16 instances of the prefills at head_dims past the served 128
+# (d_model 2048) and ragged ones (72: a ragged 128-column chunk with
+# 16-byte copies; 36: element by element)
+PAGED_BF16_DIMS = (256, 512, 72, 36)
+# blocks serve_bf16 takes off the cache's free list before its traffic,
+# so the requests' block ids pass 256 (bf16 holds integers exactly only
+# to 256; the port keeps block tables f32)
+SERVE_BF16_RESERVED = 280
+# card against CPU in bf16 (2 layers): logits under teacher forcing at
+# relative L2 2e-2 (phase_bf16_agreement's bound), caches within one
+# bf16 ulp at each cache's scale (_ulps)
+BF16_AGREE = dict(num_layers=2, new=8, logits_l2=2e-2, cache_ulps=1)
 # the attention kernels at head_dims past 128, d_model kept at 2048
 HEAD_DIM = dict(dims=(256, 512), d_model=2048,
                 decode_ragged=((72, "float32"), (30, "float32"),
@@ -735,34 +781,49 @@ def phase_decode(torch, mxk, dev, flush):
     hold("one slot", q[:1], kc, vc, table[:1], pos_mixed[2:3].to(dev))
     hold("one slot, short", q[:1], kc, vc, table[:1], pos_short[:1].to(dev))
     timed = {}
-    for name, pos_c in (("long", pos_live), ("short", pos_short)):
-        pos = pos_c.to(dev)
-        fn = lambda: mxk.paged_decode_attend(q, kc, vc, table, pos, scale=sc)
-        ctx = int(pos_c.max()) + 1
-        lib_call = _sdpa_on_context(torch, q[:, :, None], kc, vc, table,
-                                    pos_c.tolist(), [1] * C, ctx, sc)
-        nbytes, rows = _decode_bytes(pos_c.tolist(), H, D, M, bs, 4, 4)
-        b_ms, b_by = bound(nbytes, rows * H * D * 4)
-        timed[name] = {
-            "ms": time_ms(torch, fn, flush),
-            "back_to_back_ms": pipelined_ms(torch, fn),
-            "plain_ms": time_ms(torch, lambda: mxk.paged_decode_attend_plain(
-                q, kc, vc, table, pos, scale=sc), flush),
-            "library_ms": time_ms(torch, lib_call, flush),
-            "library_back_to_back_ms": pipelined_ms(torch, lib_call),
-            "bound_ms": b_ms, "bound_by": b_by, "context_rows": rows,
-            "positions": pos_c.tolist()}
-        timed[name]["gbps"] = nbytes / timed[name]["ms"] / 1e6
-    long = timed["long"]
-    res = {"name": "paged_decode_attend", "route": "cuda",
-           "source": "mxnet_tpu_torch/csrc/paged_attention.cu",
-           "replaces": "mxnet_tpu/pallas/attention.py:116",
-           "max_abs_err": max(errs.values()),
-           **{k: long[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                   "library_ms", "back_to_back_ms")},
-           "short_contexts": {k: timed["short"][k] for k in (
-               "ms", "back_to_back_ms", "plain_ms", "library_ms",
-               "bound_ms")}}
+    # f32 and, as the bf16 serve step runs it, bf16 q over bf16 caches
+    for dt in (torch.float32, bf):
+        qq, kk, vv = q.to(dt), kc.to(dt), vc.to(dt)
+        size = 4 if dt == torch.float32 else 2
+        for name, pos_c in (("long", pos_live), ("short", pos_short)):
+            pos = pos_c.to(dev)
+            fn = lambda: mxk.paged_decode_attend(qq, kk, vv, table, pos,
+                                                 scale=sc)
+            ctx = int(pos_c.max()) + 1
+            lib_call = _sdpa_on_context(torch, qq[:, :, None], kk, vv, table,
+                                        pos_c.tolist(), [1] * C, ctx, sc)
+            nbytes, rows = _decode_bytes(pos_c.tolist(), H, D, M, bs, size,
+                                         size)
+            b_ms, b_by = bound(nbytes, rows * H * D * 4)
+            key = name if dt == torch.float32 else "bf16_" + name
+            timed[key] = {
+                "ms": time_ms(torch, fn, flush),
+                "back_to_back_ms": pipelined_ms(torch, fn),
+                "plain_ms": time_ms(torch, lambda: mxk.paged_decode_attend_plain(
+                    qq, kk, vv, table, pos, scale=sc), flush),
+                "library_ms": time_ms(torch, lib_call, flush),
+                "library_back_to_back_ms": pipelined_ms(torch, lib_call),
+                "bound_ms": b_ms, "bound_by": b_by, "context_rows": rows,
+                "positions": pos_c.tolist()}
+            timed[key]["gbps"] = nbytes / timed[key]["ms"] / 1e6
+    rows_out = []
+    for tag, dtype in (("", "float32"), ("bf16_", "bfloat16")):
+        long = timed[tag + "long"]
+        rows_out.append({
+            "name": "paged_decode_attend", "route": "cuda", "dtype": dtype,
+            "source": "mxnet_tpu_torch/csrc/paged_attention.cu",
+            "replaces": "mxnet_tpu/pallas/attention.py:116",
+            "max_abs_err": max(e for w, e in errs.items()
+                               if w.startswith("q %s, cache %s"
+                                               % (dtype, dtype))
+                               or (dtype == "float32"
+                                   and w.startswith("one slot"))),
+            **{k: long[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "back_to_back_ms")},
+            "short_contexts": {k: timed[tag + "short"][k] for k in (
+                "ms", "back_to_back_ms", "plain_ms", "library_ms",
+                "bound_ms")}})
+    res = rows_out[0]
     emit({"phase": "kernel", **res, "shapes": {
         "q": [C, H, D], "cache": [nb, bs, H, D], "table": [C, M]},
         "plan": plan, "one_slot_plan": one, "timed": timed, "errors": errs,
@@ -775,8 +836,8 @@ def phase_decode(torch, mxk, dev, flush):
         "library_call": "F.scaled_dot_product_attention on (C, H, 1, D) "
                         "queries over the context gathered contiguous, "
                         "(C, H, max position + 1, D), keys past each "
-                        "position masked"})
-    return res
+                        "position masked", "bf16": rows_out[1]})
+    return rows_out
 
 
 def _sdpa_on_context(torch, q, kc, vc, table, starts, lens, ctx, sc):
@@ -801,15 +862,16 @@ def _sdpa_on_context(torch, q, kc, vc, table, starts, lens, ctx, sc):
                                                   scale=sc)
 
 
-def _chunk_bound(H, D, M, K, starts, lens):
-    """Bytes and operations the chunked prefill must move and do: the
-    cached context read once (K and V), the chunk's q/k/v read and its
-    real K/V rows written into the cache, the (B, K) output written, the
-    table, start and length read; 4 H D flops per (query, visible key)."""
+def _chunk_bound(H, D, M, K, starts, lens, size=4):
+    """Bytes and operations the chunked prefill must move and do (q/k/v
+    and caches of ``size`` bytes an element): the cached context read
+    once (K and V), the chunk's q/k/v read and its real K/V rows written
+    into the cache, the (B, K) output written, the table, start and
+    length read; 4 H D flops per (query, visible key)."""
     B = len(starts)
-    nbytes = sum(st * H * D * 2 * 4 + 3 * L * H * D * 4 + L * H * D * 2 * 4
+    nbytes = sum((st * 2 + 3 * L + L * 2) * H * D * size
                  for st, L in zip(starts, lens)) \
-        + B * K * H * D * 4 + B * M * 4 + 2 * B * 4
+        + B * K * H * D * size + B * M * 4 + 2 * B * 4
     flops = sum(st + i + 1 for st, L in zip(starts, lens)
                 for i in range(L)) * H * D * 4
     return nbytes, flops
@@ -833,7 +895,7 @@ def phase_chunk(torch, mxk, dev, flush):
     import ctypes
     from mxnet_tpu_torch.kernels import _build
     lib = _build.load("paged_attention")
-    lib.mx_paged_chunk_prefill_smem.argtypes = [ctypes.c_int] * 4
+    lib.mx_paged_chunk_prefill_smem.argtypes = [ctypes.c_int] * 5
     lib.mx_paged_chunk_prefill_smem.restype = ctypes.c_size_t
     B, K, H, D, nb, bs, M = 1, 64, 16, 128, 512, 16, 64
     served_range = mxk.paged_attention.chunk_plan(B, K, H, D, M * bs)[
@@ -843,7 +905,19 @@ def phase_chunk(torch, mxk, dev, flush):
         r"(?:f|13__nv_bfloat16)(?:f|13__nv_bfloat16)",
         "the f32 attention kernel",
         lambda key: lib.mx_paged_chunk_prefill_smem(
-            int(key.split("ILi")[1].split("E")[0]), 128, served_range, bs))
+            int(key.split("ILi")[1].split("E")[0]), 128, served_range, bs,
+            0))
+    check(len(ptx) == 12, "paged_attention: %d split-TF32 chunk instances, "
+          "not 12 (warps x head_dim forms x 3 type pairs; bf16/bf16 runs "
+          "the bf16 kernel)" % len(ptx))
+    ptx_bf16 = _instances_ptxas(
+        "paged_attention", r"paged_chunk_bf16_kernelILi\d+ELb[01]E",
+        "the bf16 attention kernel",
+        lambda key: lib.mx_paged_chunk_prefill_smem(
+            int(key.split("ILi")[1].split("E")[0]), 128, served_range, bs,
+            1))
+    check(len(ptx_bf16) == 4, "paged_attention: %d bf16 chunk instances, not "
+          "4 (warps x head_dim forms)" % len(ptx_bf16))
     import re
     combine = sorted({re.search(r"paged_chunk_combine_kernelI\w+?E(?=Ev)", line)
                       .group(0) for line in _build.log_path("paged_attention")
@@ -873,6 +947,7 @@ def phase_chunk(torch, mxk, dev, flush):
         """Kernel twice and plain once on clones of the caches; the
         checks; returns the max abs error over the real rows."""
         Bc, Kc = q.shape[:2]
+        nb, bs = kc0.shape[:2]
         runs = []
         for fn in (mxk.paged_chunk_prefill_attend,
                    mxk.paged_chunk_prefill_attend,
@@ -892,8 +967,10 @@ def phase_chunk(torch, mxk, dev, flush):
         real, touched = real.to(dev), touched.to(dev)
         check(torch.equal(o1, o2) and torch.equal(k1, k2)
               and torch.equal(v1, v2), what + ": two runs differ")
-        check(close(torch, o1[real], ref[real]), what + " disagrees with its "
-              "plain version (max abs err %g)" % max_err(o1[real], ref[real]))
+        ok = close(torch, o1[real], ref[real]) if q.dtype == torch.float32 \
+            else close_bf16_out(torch, o1[real], ref[real])
+        check(ok, what + " disagrees with its plain version (max abs err %g)"
+              % max_err(o1[real], ref[real]))
         check(bool((o1[~real] == 0).all()), what + ": padded rows are not "
               "zeros")
         check(torch.equal(k1, kr) and torch.equal(v1, vr),
@@ -922,37 +999,72 @@ def phase_chunk(torch, mxk, dev, flush):
     errs.append(run_case("paged_chunk_prefill_attend (spec spans, C, K = %d, "
                          "%d)" % (C, S5), qs, ks, vs, kc0, vc0, stable,
                          *spans))
+    bf = torch.bfloat16
     bf16_err = run_case("paged_chunk_prefill_attend (bf16 caches)", q, k, v,
-                        kc0.to(torch.bfloat16), vc0.to(torch.bfloat16),
-                        table, [600], [37])
+                        kc0.to(bf), vc0.to(bf), table, [600], [37])
+    # the bf16 kernel (bf16 q/k/v over bf16 caches, the bf16 serve and
+    # spec steps): the same cases, then at the head_dims of
+    # PAGED_BF16_DIMS (d_model 2048 past 128, 4 heads below)
+    bf16_errs = {}
+    for st, L in ((576, 64), (600, 37), (320, 0)):
+        bf16_errs["start %d, len %d" % (st, L)] = run_case(
+            "paged_chunk_prefill_attend bf16 (start %d, len %d)" % (st, L),
+            q.to(bf), k.to(bf), v.to(bf), kc0.to(bf), vc0.to(bf), table,
+            [st], [L])
+    bf16_errs["spec spans"] = run_case(
+        "paged_chunk_prefill_attend bf16 (spec spans)", qs.to(bf), ks.to(bf),
+        vs.to(bf), kc0.to(bf), vc0.to(bf), stable, *spans)
+    for d_ in PAGED_BF16_DIMS:
+        h_ = 2048 // d_ if d_ > 128 else 4
+        qd, kd, vd = (torch.randn(2, 40, h_, d_, generator=g).to(dev).to(bf)
+                      for _ in range(3))
+        kcd, vcd = (torch.randn(96, bs, h_, d_, generator=g).to(dev).to(bf)
+                    for _ in range(2))
+        td = torch.randperm(96, generator=g)[:2 * 40].reshape(2, 40) \
+            .to(torch.int32).to(dev)
+        bf16_errs["head_dim %d" % d_] = run_case(
+            "paged_chunk_prefill_attend bf16 (head_dim %d)" % d_, qd, kd, vd,
+            kcd, vcd, td, [300, 7], [40, 23])
     # times: the mixed step's chunk, the spec step's spans above, and
-    # full spans over the short contexts of serve_spec's prompts
+    # full spans over the short contexts of serve_spec's prompts; f32,
+    # then bf16 (its bound at the bf16 tensor-core peak)
     timed = {}
-    for name, args, starts, lens in (
-            ("mixed", (q, k, v, table), [576], [64]),
-            ("spec_spans", (qs, ks, vs, stable), *spans),
-            ("spec_spans_short", (qs, ks, vs, stable),
-             [60, 90, 130, 70, 100, 120, 140, 80], [S5] * C)):
-        qq, kk_, vv_, tb = args
-        kk, vk = kc0.clone(), vc0.clone()
-        s_t, l_t = i32(starts), i32(lens)
-        ms = time_ms(torch, lambda: mxk.paged_chunk_prefill_attend(
-            qq, kk_, vv_, kk, vk, tb, s_t, l_t, scale=sc), flush)
-        plain_ms = time_ms(torch, lambda: mxk.paged_chunk_prefill_attend_plain(
-            qq, kk_, vv_, kk, vk, tb, s_t, l_t, scale=sc), flush)
-        # the cache now holds the chunk rows: SDPA attends over them
-        ctx = max(st + L for st, L in zip(starts, lens))
-        lib_ms = time_ms(torch, _sdpa_on_context(
-            torch, qq.transpose(1, 2), kk, vk, tb, starts, lens, ctx, sc),
-            flush)
-        nbytes, flops = _chunk_bound(H, D, M, qq.shape[1], starts, lens)
-        b_ms, b_by = bound(nbytes, flops, SPLIT_TF32_FLOPS_PER_S)
-        timed[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                       "bound_ms": b_ms, "bound_by": b_by,
-                       "bound_cuda_cores_ms": bound(nbytes, flops)[0],
-                       "bytes": nbytes, "flops": flops,
-                       "plan": mxk.paged_attention.chunk_plan(
-                           qq.shape[0], qq.shape[1], H, D, M * bs)}
+    for dt, peak in ((torch.float32, SPLIT_TF32_FLOPS_PER_S),
+                     (bf, BF16_FLOPS_PER_S)):
+        for name, args, starts, lens in (
+                ("mixed", (q, k, v, table), [576], [64]),
+                ("spec_spans", (qs, ks, vs, stable), *spans),
+                ("spec_spans_short", (qs, ks, vs, stable),
+                 [60, 90, 130, 70, 100, 120, 140, 80], [S5] * C)):
+            qq, kk_, vv_ = (t.to(dt) for t in args[:3])
+            tb = args[3]
+            kk, vk = kc0.to(dt), vc0.to(dt)
+            s_t, l_t = i32(starts), i32(lens)
+            ms = time_ms(torch, lambda: mxk.paged_chunk_prefill_attend(
+                qq, kk_, vv_, kk, vk, tb, s_t, l_t, scale=sc), flush)
+            plain_ms = time_ms(
+                torch, lambda: mxk.paged_chunk_prefill_attend_plain(
+                    qq, kk_, vv_, kk, vk, tb, s_t, l_t, scale=sc), flush)
+            # the cache now holds the chunk rows: SDPA attends over them
+            ctx = max(st + L for st, L in zip(starts, lens))
+            lib_ms = time_ms(torch, _sdpa_on_context(
+                torch, qq.transpose(1, 2), kk, vk, tb, starts, lens, ctx,
+                sc), flush)
+            nbytes, flops = _chunk_bound(H, D, M, qq.shape[1], starts, lens,
+                                         qq.element_size())
+            b_ms, b_by = bound(nbytes, flops, peak)
+            key = name if dt == torch.float32 else "bf16_" + name
+            timed[key] = {"ms": ms, "plain_ms": plain_ms,
+                          "library_ms": lib_ms, "bound_ms": b_ms,
+                          "bound_by": b_by, "bytes": nbytes, "flops": flops,
+                          "plan": mxk.paged_attention.chunk_plan(
+                              qq.shape[0], qq.shape[1], H, D, M * bs)}
+            if dt == torch.float32:
+                timed[key]["bound_cuda_cores_ms"] = bound(nbytes, flops)[0]
+            else:
+                timed[key]["back_to_back_ms"] = pipelined_ms(
+                    torch, lambda: mxk.paged_chunk_prefill_attend(
+                        qq, kk_, vv_, kk, vk, tb, s_t, l_t, scale=sc))
     mixed = timed["mixed"]
     res = {"name": "paged_chunk_prefill_attend", "route": "cuda",
            "source": "mxnet_tpu_torch/csrc/paged_attention.cu",
@@ -972,12 +1084,28 @@ def phase_chunk(torch, mxk, dev, flush):
         "start": 576, "len": 64}, "checked": [[576, 64], [600, 37], [320, 0]],
         "spec_spans_checked": {"q": [C, S5, H, D], "span_start": spans[0],
                                "span_len": spans[1]},
-        "timed": timed, "bf16_cache_max_abs_err": bf16_err, "ptxas": ptx,
+        "timed": timed, "bf16_cache_max_abs_err": bf16_err,
+        "bf16_errors": bf16_errs, "ptxas": ptx, "ptxas_bf16": ptx_bf16,
         "library_call": "F.scaled_dot_product_attention on the context "
                         "gathered contiguous, (B, H, start + len, D), with "
                         "the offset-causal boolean mask: the attention "
                         "alone, without the cache scatter"})
-    return res
+    bmixed = timed["bf16_mixed"]
+    res_bf16 = {"name": "paged_chunk_prefill_attend", "route": "cuda",
+                "dtype": "bfloat16",
+                "source": "mxnet_tpu_torch/csrc/paged_attention.cu "
+                          "(on csrc/attention_bf16.cuh)",
+                "replaces": "mxnet_tpu/pallas/attention.py:360",
+                "max_abs_err": max(bf16_errs.values()),
+                **{k: bmixed[k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms",
+                                          "back_to_back_ms")},
+                "f32_instance_ms": mixed["ms"],
+                **{case: {k: timed["bf16_" + case][k] for k in
+                          ("ms", "plain_ms", "library_ms", "bound_ms",
+                           "bound_by", "back_to_back_ms")}
+                   for case in ("spec_spans", "spec_spans_short")}}
+    return [res, res_bf16]
 
 
 def _ln_fwd_hold(torch, mxk, x, gamma, beta, res, tag, errs):
@@ -1250,12 +1378,21 @@ def phase_prefill(torch, mxk, dev, flush):
     import torch.nn.functional as F
     from mxnet_tpu_torch.kernels import _build
     lib = _build.load("paged_attention")
-    lib.mx_paged_prefill_smem.argtypes = [ctypes.c_int]
+    lib.mx_paged_prefill_smem.argtypes = [ctypes.c_int] * 2
     lib.mx_paged_prefill_smem.restype = ctypes.c_size_t
     ptx = _instances_ptxas("paged_attention",
                            r"paged_prefill_kernelI\w+?Lb[01]E",
                            "the f32 attention kernel",
-                           lambda key: lib.mx_paged_prefill_smem(128))
+                           lambda key: lib.mx_paged_prefill_smem(128, 0))
+    check(len(ptx) == 6, "paged_attention: %d split-TF32 prefill instances, "
+          "not 6 (head_dim forms x 3 type pairs; bf16/bf16 runs the bf16 "
+          "kernel)" % len(ptx))
+    ptx_bf16 = _instances_ptxas("paged_attention",
+                                r"paged_prefill_bf16_kernelILb[01]E",
+                                "the bf16 attention kernel",
+                                lambda key: lib.mx_paged_prefill_smem(128, 1))
+    check(len(ptx_bf16) == 2, "paged_attention: %d bf16 prefill instances, "
+          "not 2 (head_dim forms)" % len(ptx_bf16))
     B, S, H, D, nb, bs, M = 8, 1024, 16, 128, 512, 16, 64
     g = torch.Generator(device="cpu").manual_seed(SEED + 9)
     served = [20, 960, 0, 1024, 513, 77, 300, 641]
@@ -1264,7 +1401,10 @@ def phase_prefill(torch, mxk, dev, flush):
     cases = [((B, S, H, D, nb, bs, M), served, f32, f32),
              ((3, 1000, H, D, nb, bs, 70), [1000, 0, 457], f32, f32),
              ((2, 300, H, D, nb, bs, 20), [300, 129], f32, bf16),
-             ((2, 300, H, D, nb, bs, 20), [300, 129], bf16, bf16)]
+             ((2, 300, H, D, nb, bs, 20), [300, 129], bf16, bf16),
+             ((B, S, H, D, nb, bs, M), served, bf16, bf16)] + \
+        [((2, 300, 2048 // d_ if d_ > 128 else 4, d_, 64, bs, 20),
+          [300, 129], bf16, bf16) for d_ in PAGED_BF16_DIMS]
     errs = []
     for (b_, s_, h_, d_, nb_, bs_, m_), lens, qdt, cdt in cases:
         q, k, v, kc0, vc0, table, L = (
@@ -1304,43 +1444,64 @@ def phase_prefill(torch, mxk, dev, flush):
               and torch.equal(v1.view(nb_ * bs_, -1)[~touched],
                               vc0.view(nb_ * bs_, -1)[~touched]),
               what + " wrote outside the rows below each length")
-        errs.append((str(qdt), max_err(o1, ref)))
-    q, k, v, kc, vc, table, L = (
-        t.to(dev) for t in _prefill_inputs(torch, g, B, S, H, D, nb, bs, M,
-                                           served))
+        errs.append((str(qdt), str(cdt), d_, max_err(o1, ref)))
+    inputs = _prefill_inputs(torch, g, B, S, H, D, nb, bs, M, served)
     sc = 1.0 / D ** 0.5
-    ms = time_ms(torch, lambda: mxk.paged_prefill_attend(
-        q, k, v, kc, vc, table, L, scale=sc), flush)
-    plain_ms = time_ms(torch, lambda: mxk.paged_prefill_attend_plain(
-        q, k, v, kc, vc, table, L, scale=sc), flush, reps=20)
-    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
-    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qh, kh, vh, is_causal=True, scale=sc), flush)
     rows = sum(served)
-    nbytes = 4 * B * S * H * D * 4 + 2 * rows * H * D * 4 + B * (M + 1) * 4
     flops = 4.0 * B * H * D * S * (S + 1) / 2
-    b_ms, b_by = bound(nbytes, flops, SPLIT_TF32_FLOPS_PER_S)
+    timed = {}
+    # f32, then the bf16 kernel on the same values in bf16 (q/k/v and
+    # caches), its bound at the bf16 tensor-core peak
+    for dt, peak in ((f32, SPLIT_TF32_FLOPS_PER_S), (bf16, BF16_FLOPS_PER_S)):
+        q, k, v, kc, vc = (t.to(dev).to(dt) for t in inputs[:5])
+        table, L = (t.to(dev) for t in inputs[5:])
+        size = q.element_size()
+        ms = time_ms(torch, lambda: mxk.paged_prefill_attend(
+            q, k, v, kc, vc, table, L, scale=sc), flush)
+        plain_ms = time_ms(torch, lambda: mxk.paged_prefill_attend_plain(
+            q, k, v, kc, vc, table, L, scale=sc), flush, reps=20)
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True, scale=sc), flush)
+        nbytes = 4 * B * S * H * D * size + 2 * rows * H * D * size \
+            + B * (M + 1) * 4
+        b_ms, b_by = bound(nbytes, flops, peak)
+        timed[str(dt)] = {"ms": ms, "plain_ms": plain_ms,
+                          "library_ms": lib_ms, "bound_ms": b_ms,
+                          "bound_by": b_by, "bytes": nbytes,
+                          "bound_cuda_cores_ms": bound(nbytes, flops)[0],
+                          "tflops": flops / ms / 1e9}
     res = {"name": "paged_prefill_attend", "route": "cuda",
            "source": "mxnet_tpu_torch/csrc/paged_attention.cu",
            "replaces": "mxnet_tpu/pallas/attention.py:209",
-           "max_abs_err": max(e for t, e in errs if t == str(f32)),
-           "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+           "max_abs_err": max(e for t, _, _, e in errs if t == str(f32)),
+           **timed[str(f32)],
            "bound_peak": "split TF32, %g TFLOP/s"
-                         % (SPLIT_TF32_FLOPS_PER_S / 1e12),
-           "bound_cuda_cores_ms": bound(nbytes, flops)[0],
-           "tflops": flops / ms / 1e9}
+                         % (SPLIT_TF32_FLOPS_PER_S / 1e12)}
+    bt = timed[str(bf16)]
+    res_bf16 = {"name": "paged_prefill_attend", "route": "cuda",
+                "dtype": "bfloat16",
+                "source": "mxnet_tpu_torch/csrc/paged_attention.cu "
+                          "(on csrc/attention_bf16.cuh)",
+                "replaces": "mxnet_tpu/pallas/attention.py:209",
+                "max_abs_err": max(e for t, c, _, e in errs
+                                   if t == c == str(bf16)),
+                **{k: bt[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms", "tflops")},
+                "f32_instance_ms": res["ms"],
+                "errors_by_head_dim": {d_: e for t, c, d_, e in errs
+                                       if t == c == str(bf16)}}
     emit({"phase": "kernel", **res, "shapes": {
         "q": [B, S, H, D], "cache": [nb, bs, H, D], "table": [B, M],
         "lengths": served}, "checked": [[c[0][0], c[0][1], c[0][6],
                                           str(c[2]), str(c[3])]
                                          for c in cases],
-        "bf16_qkv_max_abs_err": max(e for t, e in errs if t == str(bf16)),
-        "ptxas": ptx,
+        "timed": timed, "bf16": res_bf16, "ptxas": ptx,
+        "ptxas_bf16": ptx_bf16,
         "library_call": "F.scaled_dot_product_attention(is_causal=True) on "
                         "(B, H, S, D) views: the attention alone, without "
                         "the cache scatter"})
-    return res
+    return [res, res_bf16]
 
 
 def _serve_prompts(cfg, seed, lengths):
@@ -1381,13 +1542,18 @@ def bind_prefill_pair(mx, params, cfg, ctx, batch, prefill_len):
     return dexe, pexe
 
 
-def run_prefill_pair(torch, dexe, pexe, prompts, new, on_card):
+def run_prefill_pair(torch, dexe, pexe, prompts, new, on_card,
+                     forced=None):
     """Prefill ``prompts`` in one forward, then ``new - 1`` decode-step
-    forwards.  Returns per request (tokens, logits per step), the
-    prefill wall ms, the decode steps' wall ms, the table, and the
-    kernel counts ``(launches, plain calls)`` of the prefill forward and
-    of the decode steps, each set to 0 just before that run."""
-    from mxnet_tpu_torch.kernels import LAUNCHES, PLAIN_CALLS, reset_counts
+    forwards, each fed the greedy tokens of the step before, or with
+    ``forced`` (per request, ``new`` token ids) the forced tokens
+    instead (teacher forcing).  Returns per request (tokens, logits per
+    step), the prefill wall ms, the decode steps' wall ms, the table,
+    and the kernel counts ``(launches, plain calls)`` of the prefill
+    forward and of the decode steps, each set to 0 just before that
+    run."""
+    from mxnet_tpu_torch.kernels import (LAUNCHES, LAUNCHES_BY_DTYPE,
+                                         PLAIN_CALLS, reset_counts)
     B, S = pexe.arg_dict["data"].shape
     M = dexe.arg_dict["block_table"].shape[1]
     bs = GEOMETRY["block_size"]
@@ -1410,12 +1576,15 @@ def run_prefill_pair(torch, dexe, pexe, prompts, new, on_card):
                         block_table=table)
     tok = outs[1].asnumpy().astype(np.int64)
     prefill_ms = (time.perf_counter() - t0) * 1e3
-    counts = {"prefill": (dict(LAUNCHES), dict(PLAIN_CALLS))}
+    counts = {"prefill": (dict(LAUNCHES), dict(PLAIN_CALLS),
+                          dict(LAUNCHES_BY_DTYPE))}
     reset_counts()
     logits = [[row] for row in outs[0].asnumpy()]
     toks = [[int(t)] for t in tok]
     step_ms = []
     for t in range(new - 1):
+        if forced is not None:
+            tok = np.array([f[t] for f in forced], np.int64)
         sync()
         t0 = time.perf_counter()
         outs = dexe.forward(is_train=False, data=tok.reshape(B, 1),
@@ -1426,7 +1595,8 @@ def run_prefill_pair(torch, dexe, pexe, prompts, new, on_card):
         for b, row in enumerate(outs[0].asnumpy()):
             logits[b].append(row)
             toks[b].append(int(tok[b]))
-    counts["decode"] = (dict(LAUNCHES), dict(PLAIN_CALLS))
+    counts["decode"] = (dict(LAUNCHES), dict(PLAIN_CALLS),
+                        dict(LAUNCHES_BY_DTYPE))
     return list(zip(toks, logits)), prefill_ms, step_ms, table, counts
 
 
@@ -1456,7 +1626,7 @@ def phase_serve_prefill(torch, mx, np_params, cfg=FULL, ctx=None):
         torch.cuda.reset_peak_memory_stats()
     got, prefill_ms, step_ms, _, counts = run_prefill_pair(
         torch, dexe, pexe, prompts, new, on_card)
-    (pl, pp), (launches, plain) = counts["prefill"], counts["decode"]
+    (pl, pp, _), (launches, plain, _) = counts["prefill"], counts["decode"]
     steps = new - 1
     check(pl["paged_prefill_attend"] == L and pl["layernorm_fused"] == 2 * L
           + 1 and pl["paged_decode_attend"] == 0,
@@ -1643,6 +1813,480 @@ def phase_prefill_agreement(torch, mx, ctxs=None):
           "max_abs_logit_err": worst, "max_abs_cache_err": cache_err,
           "streams_equal": all(g[0] == c[0] for g, c in zip(gg, cg)),
           "cut_at_small_margin": cut})
+
+
+# ----------------------------------------------------------------------
+# bf16 serving (ROADMAP A.1): the engine, the prefill pair and the spec
+# engine at full width in bf16, and each held against the CPU
+# ----------------------------------------------------------------------
+SERVE_KERNELS = ("paged_decode_attend", "paged_chunk_prefill_attend",
+                 "paged_prefill_attend", "layernorm_fused",
+                 "flash_attention_fwd")
+
+
+def _by_dtype(by_dtype):
+    """The serving kernels' launches counted under bfloat16."""
+    return {n: by_dtype.get(n + ":bfloat16", 0) for n in SERVE_KERNELS}
+
+
+def _check_bf16_binding(exe, what):
+    """A bf16 serving executor: weights, LayerNorms and caches bf16, the
+    embeddings f32, the index inputs f32 (bf16 would round them)."""
+    import torch
+    types = {n: nd._data.dtype for n, nd in exe.arg_dict.items()}
+    bad = [n for n, t in types.items()
+           if t != (torch.bfloat16 if n.startswith(("layer", "ln_f",
+                                                    "lm_head"))
+                    else torch.float32)]
+    check(not bad, "%s: unexpected bound types %s"
+          % (what, {n: str(types[n]) for n in bad}))
+
+
+def phase_serve_bf16(torch, mx, np_params, cfg=BF16_SERVE, ctx=None):
+    """The full-width LM in bf16 through ``DecodeEngine`` on the mixed
+    step: serve's 8 requests (20-700 prompt tokens, 32 new tokens each)
+    and the first one submitted again, with SERVE_BF16_RESERVED blocks
+    held off the free list first, so every block id the requests get
+    passes 256 (their chunk starts and positions pass it too).  Every
+    request finishes with its count, the resubmitted one repeats its
+    stream, every step launches the decode and chunk kernels 12 times and
+    LayerNorm 50 times, all on their bf16 instances, and no plain version
+    runs.  Returns the launches and the steps."""
+    from mxnet_tpu_torch.decode import DecodeEngine
+    from mxnet_tpu_torch.kernels import (LAUNCHES, LAUNCHES_BY_DTYPE,
+                                         PLAIN_CALLS, reset_counts)
+    from mxnet_tpu_torch.weights import convert_params
+    ctx = ctx or mx.gpu(0)
+    on_card = ctx.device_type == "gpu"
+    L, new = cfg["num_layers"], 32
+    t0 = time.perf_counter()
+    eng = DecodeEngine(convert_params(np_params, ctx, cfg), cfg, ctx=ctx,
+                       warmup=True, **GEOMETRY)
+    _check_bf16_binding(eng._exe, "serve_bf16")
+    if on_card:
+        torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    held = eng.cache.alloc(SERVE_BF16_RESERVED)
+    check(sorted(held) == list(range(SERVE_BF16_RESERVED)),
+          "serve_bf16: the free list did not hand out the lowest ids first")
+    lengths = [700, 20, 350, 90, 520, 45, 260, 610]
+    prompts = _serve_prompts(cfg, SEED, lengths)
+    try:
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t1 = time.perf_counter()
+        handles = [eng.submit(p, max_new_tokens=new)
+                   for p in prompts + prompts[:1]]
+        outs = [h.result(timeout=900) for h in handles]
+        wall = time.perf_counter() - t1
+        if on_card:
+            torch.cuda.synchronize()
+        launches, plain = dict(LAUNCHES), dict(PLAIN_CALLS)
+        bf16 = _by_dtype(LAUNCHES_BY_DTYPE)
+        st = eng.stats()
+    finally:
+        eng.cache.free(held)
+        eng.stop()
+    check(all(len(o) == new for o in outs),
+          "serve_bf16: a request finished with %s tokens, not %d"
+          % ([len(o) for o in outs], new))
+    check(outs[-1] == outs[0], "serve_bf16: the resubmitted request gave "
+          "another stream")
+    steps = st["steps"]
+    want = {"paged_decode_attend": L * steps,
+            "paged_chunk_prefill_attend": L * steps,
+            "layernorm_fused": (4 * L + 2) * steps}
+    check(all(bf16[n] == w and launches[n] == w for n, w in want.items()),
+          "serve_bf16: bf16 launches %s of %s over %d steps (want %s)"
+          % (bf16, launches, steps, want))
+    check(not any(plain.values()), "serve_bf16: plain versions ran on the "
+          "main path: %s" % plain)
+    ttft = sorted(h.ttft_ms for h in handles)
+    emit({"phase": "serve_bf16", "config": cfg, "geometry": GEOMETRY,
+          "requests": len(handles), "prompt_lengths": lengths + lengths[:1],
+          "new_tokens_each": new, "block_ids_from": SERVE_BF16_RESERVED,
+          "largest_chunk_start": max((n - 1) // GEOMETRY["chunk_tokens"]
+                                     * GEOMETRY["chunk_tokens"]
+                                     for n in lengths),
+          "setup_s": setup_s, "wall_s": wall, "steps": steps,
+          "prefill_chunks": st["prefill_chunks"],
+          "decode_tokens_per_s": len(handles) * new / wall,
+          "step_ms_p50": st["step_ms_p50"],
+          "ttft_ms_p50": ttft[len(ttft) // 2], "ttft_ms_max": ttft[-1],
+          "launches_per_step": {n: launches[n] / steps for n in want},
+          "bf16_launches": bf16, "plain_calls": plain,
+          "matmul_bf16_reduced_precision_reduction":
+              torch.backends.cuda.matmul
+              .allow_bf16_reduced_precision_reduction,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9
+          if on_card else None})
+    return launches, steps
+
+
+def phase_serve_prefill_bf16(torch, mx, np_params, cfg=BF16_SERVE,
+                             ctx=None):
+    """The full-width bf16 decode-step and prefill symbols bound as a
+    pair with ``shared_exec`` (one copy of the bf16 weights and caches):
+    serve's 8 prompts prefilled in one forward of 8 x 1024, then 31
+    decode-step forwards; each prefill forward launches the prefill
+    kernel 12 times and LayerNorm 25, each decode step the decode kernel
+    12 and LayerNorm 25, all bf16, no plain version; the first token's
+    logits within relative L2 2e-2 of the bf16 mixed-step engine's on
+    the same prompts (streams compared and printed).  Returns the
+    prefill forward's launch counts."""
+    from mxnet_tpu_torch.weights import convert_params
+    ctx = ctx or mx.gpu(0)
+    on_card = ctx.device_type == "gpu"
+    L, new = cfg["num_layers"], 32
+    lengths = [700, 20, 350, 90, 520, 45, 260, 610]
+    prompts = _serve_prompts(cfg, SEED, lengths)
+    params = convert_params(np_params, ctx, cfg)
+    ref = _reference_streams(mx, params, cfg, ctx, prompts, new)
+    dexe, pexe = bind_prefill_pair(mx, params, cfg, ctx, len(prompts),
+                                   cfg["seq_len"])
+    del params
+    _check_bf16_binding(dexe, "serve_prefill_bf16 (decode step)")
+    _check_bf16_binding(pexe, "serve_prefill_bf16 (prefill)")
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    got, prefill_ms, step_ms, _, counts = run_prefill_pair(
+        torch, dexe, pexe, prompts, new, on_card)
+    steps = new - 1
+    (pl, pp, pb), (dl, dp, db) = counts["prefill"], counts["decode"]
+    pb, db = _by_dtype(pb), _by_dtype(db)
+    check(pb["paged_prefill_attend"] == pl["paged_prefill_attend"] == L
+          and pb["layernorm_fused"] == pl["layernorm_fused"] == 2 * L + 1
+          and pl["paged_decode_attend"] == 0,
+          "serve_prefill_bf16: the prefill forward launched %s, bf16 %s"
+          % (pl, pb))
+    check(db["paged_decode_attend"] == dl["paged_decode_attend"] == L * steps
+          and db["layernorm_fused"] == dl["layernorm_fused"]
+          == (2 * L + 1) * steps and dl["paged_prefill_attend"] == 0,
+          "serve_prefill_bf16: %d decode steps launched %s, bf16 %s"
+          % (steps, dl, db))
+    check(not any(pp.values()) and not any(dp.values()),
+          "serve_prefill_bf16: plain versions ran on the main path: %s %s"
+          % (pp, dp))
+    first = [_rel_l2(g[1][0], r[1][0]) for g, r in zip(got, ref)]
+    check(max(first) <= BF16_AGREE["logits_l2"],
+          "serve_prefill_bf16: first-token logits off the bf16 engine's by "
+          "relative L2 %s" % first)
+    emit({"phase": "serve_prefill_bf16", "config": cfg,
+          "prompt_lengths": lengths, "prefill_len": cfg["seq_len"],
+          "new_tokens_each": new, "prefill_ms": prefill_ms,
+          "decode_steps": steps,
+          "decode_step_ms_p50": statistics.median(step_ms),
+          "decode_step_ms": step_ms,
+          "prefill_launches": {k: v for k, v in pl.items() if v},
+          "prefill_bf16_launches": pb,
+          "decode_launches_per_step": {k: v / steps for k, v in dl.items()
+                                       if v},
+          "first_token_logits_rel_l2_vs_engine": first,
+          "streams_equal_engine": [g[0] == r[0] for g, r in zip(got, ref)],
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9
+          if on_card else None})
+    del dexe, pexe
+    return pl
+
+
+def phase_serve_spec_bf16(torch, mx, np_params, cfg=BF16_SERVE, ctx=None):
+    """``DecodeEngine(spec_k=4)`` at full width in bf16.  n-gram arm:
+    serve_spec's 8 requests with repeating tails, 32 new tokens each;
+    drafts proposed, every step launches the chunk kernel 24 times and
+    LayerNorm 50, all bf16, the decode kernel never.  Draft arm: the
+    target's own weights as a bf16 draft model on 4 requests of 16 new
+    tokens: each proposed token costs 12 bf16 flash-forward launches and
+    at least half the drafts are accepted (the draft model's flash
+    forward rounds P to one bf16 term, the target's chunk kernel keeps
+    two, so near-tie tokens may part).  Streams against the bf16
+    mixed-step engine are printed.  Returns the n-gram arm's launch
+    counts and steps."""
+    from mxnet_tpu_torch.decode import DecodeEngine
+    from mxnet_tpu_torch.kernels import (LAUNCHES, LAUNCHES_BY_DTYPE,
+                                         PLAIN_CALLS, reset_counts)
+    from mxnet_tpu_torch.weights import convert_params
+    ctx = ctx or mx.gpu(0)
+    L, spec_k, new = cfg["num_layers"], 4, 32
+    prompts = _repeating_prompts(cfg, SEED + 11, 8, (5, 8, 12, 3), 6)
+    params = convert_params(np_params, ctx, cfg)
+    ref = _reference_streams(mx, params, cfg, ctx, prompts, new)
+    arms, counts = {}, {}
+    for arm, n_req, n_new, kw in (
+            ("ngram", 8, new, dict(spec_impl="ngram")),
+            ("draft", 4, 16, dict(spec_impl="draft", draft_params=np_params,
+                                  draft_config=cfg))):
+        eng = DecodeEngine(params, cfg, ctx=ctx, spec_k=spec_k, warmup=True,
+                           **kw, **GEOMETRY)
+        try:
+            _check_bf16_binding(eng._exe, "serve_spec_bf16 (%s)" % arm)
+            reset_counts()
+            t0 = time.perf_counter()
+            hs = [eng.submit(p, max_new_tokens=n_new)
+                  for p in prompts[:n_req]]
+            outs = [h.result(timeout=900) for h in hs]
+            wall = time.perf_counter() - t0
+            launches, plain = dict(LAUNCHES), dict(PLAIN_CALLS)
+            bf16 = _by_dtype(LAUNCHES_BY_DTYPE)
+            st = eng.stats()
+        finally:
+            eng.stop()
+        steps = st["steps"]
+        counts[arm] = (launches, steps)
+        check(st["spec_impl"] == arm and st["spec_proposed"] > 0,
+              "serve_spec_bf16 (%s): no draft was proposed (%s)" % (arm, st))
+        check(bf16["paged_chunk_prefill_attend"]
+              == launches["paged_chunk_prefill_attend"] == 2 * L * steps
+              and bf16["layernorm_fused"] >= (4 * L + 2) * steps
+              and launches["paged_decode_attend"] == 0,
+              "serve_spec_bf16 (%s): launches %s, bf16 %s over %d steps"
+              % (arm, launches, bf16, steps))
+        check(not any(plain.values()),
+              "serve_spec_bf16 (%s): plain versions ran on the main path: %s"
+              % (arm, plain))
+        if arm == "ngram":
+            check(bf16["layernorm_fused"] == launches["layernorm_fused"]
+                  == (4 * L + 2) * steps
+                  and launches["flash_attention_fwd"] == 0,
+                  "serve_spec_bf16 (ngram): launches %s over %d steps"
+                  % (launches, steps))
+        else:
+            check(bf16["flash_attention_fwd"] == launches[
+                "flash_attention_fwd"] == L * st["spec_proposed"],
+                  "serve_spec_bf16 (draft): %d bf16 flash launches for %d "
+                  "proposed tokens" % (bf16["flash_attention_fwd"],
+                                       st["spec_proposed"]))
+            check(st["accept_rate"] >= 0.5,
+                  "serve_spec_bf16 (draft): accept rate %s < 0.5 with the "
+                  "target as its own draft model" % st["accept_rate"])
+        arms[arm] = {
+            "requests": n_req, "new_tokens_each": n_new, "steps": steps,
+            "wall_s": wall, "tokens_per_s": n_req * n_new / wall,
+            "step_ms_p50": st["step_ms_p50"],
+            "tokens_per_launch": st["tokens_per_launch"],
+            "accept_rate": st["accept_rate"],
+            "spec_proposed": st["spec_proposed"],
+            "spec_accepted": st["spec_accepted"],
+            "launches_per_step": {k: v / steps for k, v in launches.items()
+                                  if v},
+            "bf16_launches": bf16,
+            "streams_equal_engine": [o == r[0][:n_new]
+                                     for o, r in zip(outs, ref)]}
+    emit({"phase": "serve_spec_bf16", "config": cfg, "spec_k": spec_k,
+          "prompt_lengths": [len(p) for p in prompts], **arms})
+    return counts["ngram"]
+
+
+def _ulps(a, b):
+    """The largest difference between two bf16 tensors in bf16 ulps at
+    the scale of ``b`` (the ulp of its largest magnitude): later layers'
+    caches see inputs that already differ by a rounding, so elementwise
+    ulps of values near zero would count noise far below the cache's
+    resolution."""
+    a, b = a.float(), b.float()
+    top = float(b.abs().max())
+    ulp = 2.0 ** (math.floor(math.log2(top)) - 7) if top else 2.0 ** -133
+    return float((a - b).abs().max()) / ulp
+
+
+def _bind_step(mx, params, cfg, ctx, spec_k):
+    """The mixed step (``spec_k`` 0) or the spec step bound as the engine
+    binds it, at serve's geometry, with ``params`` copied in."""
+    from mxnet_tpu_torch.models import transformer
+    C, K, bs = (GEOMETRY[k] for k in ("capacity", "chunk_tokens",
+                                      "block_size"))
+    M = -(-cfg["seq_len"] // bs)
+    S = spec_k + 1
+    shapes = dict(data=(C, S), positions=(C, S), block_table=(C, M),
+                  chunk_data=(1, K), chunk_positions=(1, K),
+                  chunk_start=(1,), chunk_len=(1,), chunk_table=(1, M))
+    geo = dict(block_size=bs, num_blocks=GEOMETRY["num_blocks"])
+    if spec_k:
+        shapes.update(span_start=(C,), span_len=(C,))
+        sym = transformer.get_spec_step_symbol(**geo, **cfg)
+    else:
+        sym = transformer.get_mixed_step_symbol(**geo, **cfg)
+    exe = sym.simple_bind(ctx=ctx, grad_req="null", **shapes)
+    exe.copy_params_from({n: v for n, v in params.items()
+                          if n in exe.arg_dict})
+    return exe
+
+
+def _drive_step(exe, prompts, forced, spec_k):
+    """Teacher-forced drive of a bound mixed or spec step: each prompt
+    through the chunk stream, a chunk a forward (the decode rows
+    inactive), then the ``forced`` tokens of every slot together, one a
+    forward on the mixed step or ``spec_k + 1`` a forward as spans on the
+    spec step (every span token a forced one).  The blocks come from a
+    fixed permutation of the cache, so ids pass 256.  Returns per prompt
+    the f32 logits rows (the chunk head's first token, then one row per
+    forced token but the last) and the cache rows written."""
+    C, S = exe.arg_dict["data"].shape
+    K = exe.arg_dict["chunk_data"].shape[1]
+    M = exe.arg_dict["block_table"].shape[1]
+    bs = GEOMETRY["block_size"]
+    new = len(forced[0])
+    blocks = np.random.RandomState(SEED + 13).permutation(
+        GEOMETRY["num_blocks"])
+    table = np.zeros((C, M), np.float32)
+    used = 0
+    for b, p in enumerate(prompts):
+        n = -(-(len(p) + new + S) // bs)
+        table[b, :n] = blocks[used:used + n]
+        used += n
+
+    def idle():
+        f = dict(data=np.zeros((C, S), np.float32),
+                 positions=np.full((C, S), -1.0 if not spec_k else 0.0,
+                                   np.float32),
+                 block_table=table.copy(),
+                 chunk_data=np.zeros((1, K), np.float32),
+                 chunk_positions=np.zeros((1, K), np.float32),
+                 chunk_start=np.zeros((1,), np.float32),
+                 chunk_len=np.zeros((1,), np.float32),
+                 chunk_table=np.zeros((1, M), np.float32))
+        if spec_k:
+            f.update(span_start=np.zeros((C,), np.float32),
+                     span_len=np.zeros((C,), np.float32))
+        return f
+
+    logits = [[] for _ in prompts]
+    for b, p in enumerate(prompts):
+        for s0 in range(0, len(p), K):
+            n = min(K, len(p) - s0)
+            f = idle()
+            f["chunk_data"][0, :n] = p[s0:s0 + n]
+            f["chunk_positions"][0, :n] = np.arange(s0, s0 + n)
+            f["chunk_start"][0], f["chunk_len"][0] = s0, n
+            f["chunk_table"][0] = table[b]
+            outs = exe.forward(is_train=False, **f)
+        logits[b].append(outs[2].asnumpy()[0])
+    for t0 in range(0, new - 1, S):
+        n = min(S, new - 1 - t0)
+        f = idle()
+        for b, p in enumerate(prompts):
+            pos = len(p) + t0
+            f["data"][b, :n] = forced[b][t0:t0 + n]
+            f["positions"][b, :n] = np.arange(pos, pos + n)
+            if spec_k:
+                f["span_start"][b], f["span_len"][b] = pos, n
+        rows = exe.forward(is_train=False, **f)[0].asnumpy()
+        for b in range(len(prompts)):
+            logits[b] += [rows[b * S + j] for j in range(n)]
+    written = [int(table[b, j // bs]) * bs + j % bs
+               for b, p in enumerate(prompts) for j in range(len(p) + new - 1)]
+    return logits, written
+
+
+def _cache_ulps(exes, layers, written):
+    """Per layer, the largest difference in bf16 ulps (``_ulps``) between
+    the card's and the CPU's cache rows ``written`` (K and V)."""
+    out = []
+    for i in range(layers):
+        worst = 0
+        for kv in "kv":
+            a, b = (e.arg_dict["layer%d_%s_cache" % (i, kv)]._data.cpu()
+                    for e in exes)
+            a, b = (t.reshape(-1, t.shape[2] * t.shape[3])[written]
+                    for t in (a, b))
+            worst = max(worst, _ulps(a, b))
+        out.append(worst)
+    return out
+
+
+def phase_serve_bf16_agreement(torch, mx, ctxs=None):
+    """The bf16 serving paths at 2 layers (full width), card against CPU
+    from the same numpy weights: the mixed step, the spec step (spec_k 4)
+    and the prefill/decode-step pair, each driven with the card
+    engine's greedy tokens forced on both sides (teacher forcing): every
+    logits row within relative L2 2e-2 of the CPU's, every cache row
+    written within one bf16 ulp at the cache's scale (``_ulps``).  The
+    card runs each path twice, under PyTorch's default
+    ``allow_bf16_reduced_precision_reduction`` (True, the port's setting)
+    and with it off, since the TPU sums bf16 products in f32.  The
+    greedy streams of the mixed and n-gram spec engines on both devices
+    are printed beside."""
+    from mxnet_tpu_torch.decode import DecodeEngine
+    from mxnet_tpu_torch.weights import convert_params
+    cfg = dict(BF16_SERVE, num_layers=BF16_AGREE["num_layers"])
+    card, cpu = ctxs or (mx.gpu(0), mx.cpu())
+    L, new = cfg["num_layers"], BF16_AGREE["new"]
+    np_params = seeded_params(cfg)
+    prompts = _serve_prompts(cfg, SEED + 12, (40, 100, 150))
+    spec_prompts = _repeating_prompts(cfg, SEED + 14, 3, (5, 8, 3), 6)
+    params = {ctx: convert_params(np_params, ctx, cfg) for ctx in (card, cpu)}
+    streams = {}
+    for arm, ps, kw in (("mixed", prompts, {}),
+                        ("spec", spec_prompts,
+                         dict(spec_k=4, spec_impl="ngram"))):
+        streams[arm] = []
+        for ctx in (card, cpu):
+            eng = DecodeEngine(params[ctx], cfg, ctx=ctx, **kw, **GEOMETRY)
+            try:
+                streams[arm].append(
+                    [eng.generate(p, max_new_tokens=new, timeout=900)
+                     for p in ps])
+            finally:
+                eng.stop()
+
+    def drive(ctx, ps, forced, spec_k):
+        """Logits rows, the executor holding the caches, the cache rows
+        written."""
+        if spec_k is None:
+            dexe, pexe = bind_prefill_pair(mx, params[ctx], cfg, ctx, len(ps),
+                                           256)
+            got, _, _, table, _ = run_prefill_pair(
+                torch, dexe, pexe, ps, new, ctx.device_type == "gpu",
+                forced=forced)
+            bs = GEOMETRY["block_size"]
+            return [g[1] for g in got], dexe, [
+                int(table[b, j // bs]) * bs + j % bs
+                for b, p in enumerate(ps) for j in range(len(p) + new - 1)]
+        exe = _bind_step(mx, params[ctx], cfg, ctx, spec_k)
+        lg, written = _drive_step(exe, ps, forced, spec_k)
+        return lg, exe, written
+
+    matmul = torch.backends.cuda.matmul
+    default = matmul.allow_bf16_reduced_precision_reduction
+    flags = (default, not default) if card.device_type == "gpu" else (default,)
+    res = {}
+    for arm, ps, spec_k in (("mixed", prompts, 0),
+                            ("spec", spec_prompts, 4),
+                            ("prefill_pair", prompts, None)):
+        forced = streams["spec" if arm == "spec" else "mixed"][0]
+        ref, ref_exe, written = drive(cpu, ps, forced, spec_k)
+        res[arm] = {}
+        for flag in flags:
+            matmul.allow_bf16_reduced_precision_reduction = flag
+            try:
+                got, exe, _ = drive(card, ps, forced, spec_k)
+            finally:
+                matmul.allow_bf16_reduced_precision_reduction = default
+            l2 = [_rel_l2(a, b) for ga, ca in zip(got, ref)
+                  for a, b in zip(ga, ca)]
+            ulps = _cache_ulps((exe, ref_exe), L, written)
+            what = "serve_bf16_agreement (%s, reduced-precision reduction " \
+                "%s)" % (arm, flag)
+            check(max(l2) <= BF16_AGREE["logits_l2"],
+                  "%s: logits off the CPU's by relative L2 %g"
+                  % (what, max(l2)))
+            check(max(ulps) <= BF16_AGREE["cache_ulps"],
+                  "%s: cache rows off the CPU's by %s bf16 ulps (per layer)"
+                  % (what, ulps))
+            res[arm]["reduced_precision_reduction_%s" % flag] = {
+                "rows_compared": len(l2), "max_logits_rel_l2": max(l2),
+                "cache_ulps_by_layer": ulps}
+            del exe
+        del ref_exe
+    emit({"phase": "serve_bf16_agreement", "config": cfg,
+          "prompt_lengths": [len(p) for p in prompts],
+          "spec_prompt_lengths": [len(p) for p in spec_prompts],
+          "new_tokens": new, **res,
+          "greedy_streams": {arm: {"card": s[0], "cpu": s[1],
+                                   "equal": s[0] == s[1]}
+                             for arm, s in streams.items()},
+          "port_setting_reduced_precision_reduction": default})
 
 
 # ----------------------------------------------------------------------
@@ -2684,6 +3328,14 @@ def phase_resnet_nhwc_agreement(torch, mx, ctxs=None, cfg=NHWC_AGREE):
 # ----------------------------------------------------------------------
 # bf16: the kernels' bf16 forms, training, agreement; head_dim tiling
 # ----------------------------------------------------------------------
+def close_bf16_out(torch, a, b):
+    """A bf16 attention output against its plain version (phase_prefill's
+    bf16 bound): rtol 2^-7, at least one bf16 ulp of the plain value,
+    atol 1e-5; each rounds an f32 result to bf16 once."""
+    return bool(torch.allclose(a.float(), b.float(), rtol=2.0 ** -7,
+                               atol=ATOL))
+
+
 def close_bf16(torch, a, b):
     """bf16 kernel against its plain version: within one bf16 ulp of the
     value (2^-7 relative) plus 2^-9 of the array's largest magnitude.
@@ -2978,6 +3630,41 @@ def phase_layernorm_bf16(torch, mxk, dev, flush):
                   library_read_flush_ms=time_ms(torch, lib, clean),
                   back_to_back_ms=pipelined_ms(torch, fwd),
                   library_back_to_back_ms=pipelined_ms(torch, lib))
+    # the bf16 serve step's rows of the forward (its 8 decode slots and
+    # its 64-row chunk), with and without a residual, beside F.layer_norm
+    serve = {}
+    for n in (8, 64):
+        xs, rs_ = x[:n].contiguous(), res[:n].contiguous()
+        for r in (None, rs_):
+            got = mxk.layernorm_fused(xs, gamma, beta, residual=r)
+            ref = mxk.layernorm_plain(xs, gamma, beta, residual=r)
+            torch.cuda.synchronize()
+            check(close_bf16(torch, got[0], ref[0])
+                  and all(close(torch, a, b) for a, b in zip(got[1:], ref[1:])),
+                  "layernorm bf16 at %d serve rows%s disagrees with its "
+                  "plain version (max abs err %g)"
+                  % (n, "" if r is None else " with a residual",
+                     max_err(got[0], ref[0])))
+            errs["serve_%d%s" % (n, "" if r is None else "_res")] = \
+                max_err(got[0], ref[0])
+        fn = lambda: mxk.layernorm_fused(xs, gamma, beta)
+        lib = lambda: F.layer_norm(xs, (cols,), gamma, beta, 1e-5)
+        b_ms, b_by = bound(2 * n * cols * 2 + 2 * cols * 2 + 2 * n * 4,
+                           8 * n * cols, BF16_FLOPS_PER_S)
+        serve[n] = {"ms": time_ms(torch, fn, flush),
+                    "plain_ms": time_ms(torch, lambda: mxk.layernorm_plain(
+                        xs, gamma, beta), flush),
+                    "library_ms": time_ms(torch, lib, flush),
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    "back_to_back_ms": pipelined_ms(torch, fn),
+                    "library_back_to_back_ms": pipelined_ms(torch, lib)}
+    out.append({"name": "layernorm_fused", "route": "cuda",
+                "dtype": "bfloat16", "path": "serve_bf16 rows (8, 64 rows)",
+                "source": "mxnet_tpu_torch/csrc/layernorm.cu",
+                "replaces": "mxnet_tpu/pallas/layernorm.py:127",
+                "max_abs_err": max(e for w, e in errs.items()
+                                   if w.startswith("serve_")),
+                **serve[8], "rows_64": serve[64]})
     for k in out:
         k["share_of_bound"] = k["bound_ms"] / k["ms"]
     emit({"phase": "layernorm_bf16", "rows": rows, "cols": cols,
@@ -4464,10 +5151,12 @@ def main():
     phase_build()
     flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32,
                         device=dev)     # 256 MB: well past the 50 MB L2
-    serve_kernels = [phase_decode(torch, mxk, dev, flush),
-                     phase_chunk(torch, mxk, dev, flush),
+    decode_rows = phase_decode(torch, mxk, dev, flush)
+    chunk_rows = phase_chunk(torch, mxk, dev, flush)
+    serve_kernels = [decode_rows[0], chunk_rows[0],
                      phase_layernorm(torch, mxk, dev, flush)]
-    prefill_kernel = phase_prefill(torch, mxk, dev, flush)
+    prefill_kernel, prefill_bf16_kernel = phase_prefill(torch, mxk, dev,
+                                                        flush)
     train_kernels = [phase_layernorm_bwd(torch, mxk, dev, flush)] + \
         phase_flash(torch, mxk, dev, flush)
     quant_kernel = phase_quant(torch, mxk, dev, flush)
@@ -4475,6 +5164,10 @@ def main():
     bf16_kernels = phase_flash_bf16(torch, mxk, dev, flush) + \
         phase_layernorm_bf16(torch, mxk, dev, flush) + \
         [phase_fused_matmul_bf16(torch, mxk, dev, flush)]
+    # the bf16 serve step's kernels: rows 1 and 2 and LayerNorm at its rows
+    serve_bf16_kernels = [decode_rows[1], chunk_rows[1]] + \
+        [k for k in bf16_kernels if "path" in k]
+    bf16_kernels = [k for k in bf16_kernels if "path" not in k]
     band4d_kernels = phase_fused_band4d(torch, mxk, dev, flush)
     head_dim_times = phase_head_dim(torch, mxk, dev, flush)
     rtc_kernels = phase_rtc(torch, mx, dev, flush)
@@ -4487,6 +5180,11 @@ def main():
     prefill_launches = phase_serve_prefill(torch, mx, full)
     spec_launches, spec_steps = phase_serve_spec(torch, mx, full)
     phase_prefill_agreement(torch, mx)
+    serve_bf16_launches, serve_bf16_steps = phase_serve_bf16(torch, mx, full)
+    prefill_bf16_launches = phase_serve_prefill_bf16(torch, mx, full)
+    spec_bf16_launches, spec_bf16_steps = phase_serve_spec_bf16(torch, mx,
+                                                                full)
+    phase_serve_bf16_agreement(torch, mx)
     train_launches, train_steps = phase_train(torch, mx, full)
     bf16_launches, bf16_steps = phase_train_bf16(torch, mx, full)
     fit_fused = phase_fit_fused(torch, mx, full)
@@ -4517,6 +5215,17 @@ def main():
     serve_kernels[2]["train_launches"] = train_launches["layernorm_fused"]
     prefill_kernel["launches"] = prefill_launches["paged_prefill_attend"]
     prefill_kernel["launches_per_step"] = prefill_kernel["launches"]
+    # the bf16 instances: serve_bf16's run (rows 1, 2 and 3), the spec
+    # step's beside it, and serve_prefill_bf16's prefill forward (row 5)
+    for k in serve_bf16_kernels:
+        k["launches"] = serve_bf16_launches[k["name"]]
+        k["launches_per_step"] = k["launches"] / serve_bf16_steps
+        k["spec_launches_per_step"] = \
+            spec_bf16_launches[k["name"]] / spec_bf16_steps
+    prefill_bf16_kernel["launches"] = \
+        prefill_bf16_launches["paged_prefill_attend"]
+    prefill_bf16_kernel["launches_per_step"] = \
+        prefill_bf16_kernel["launches"]
     # Module.fit's main path is the fused step (fit_fused): its launches
     # are the two warm-up steps' and the capture's, and the graph
     # replays what the capture recorded (captured_per_step); the eager
@@ -4579,10 +5288,12 @@ def main():
                                                   "gluon_launches_per_step",
                                                   "head_dim_256",
                                                   "compile_ms",
-                                                  "host_launch_us")
+                                                  "host_launch_us", "path",
+                                                  "f32_instance_ms")
                           if key in k}}
-                      for k in f32_kernels + bf16_kernels + rtc_kernels
-                      + band4d_kernels]})
+                      for k in f32_kernels + bf16_kernels
+                      + serve_bf16_kernels + [prefill_bf16_kernel]
+                      + rtc_kernels + band4d_kernels]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

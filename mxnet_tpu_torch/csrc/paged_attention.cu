@@ -78,7 +78,12 @@
 // the second (its row and head), disjoint from every read; padded rows are
 // zeros; len == 0 reads no table entry and leaves the cache untouched;
 // masked scores take the finite fill -1e30, never NaN; keys clamp at the
-// table's M bs rows; bf16 caches are widened and split (their lo is 0).
+// table's M bs rows; a bf16 cache beside f32 rows is widened and split
+// (its lo is 0).  bf16 q/k/v over bf16 caches, the bf16 serving path, run
+// paged_chunk_bf16_kernel instead: the same ranges, stages, masks and
+// combine on the bf16 tile of attention_bf16.cuh (one bf16 mma for Q K^T
+// and two, P's hi and lo halves, for P V: about a quarter of the split
+// TF32 kernel's tensor-core cycles for the same f32-accurate sums).
 //
 // One-shot prefill (mx_paged_prefill): causal attention of a padded
 // prompt batch q/k/v (B, S, H, D) over its own keys, with the scatter
@@ -101,8 +106,15 @@
 // real block are never read.  The TPU kernel clamps those grid steps
 // onto the last real block and re-emits its bytes; not writing there
 // leaves the same cache.  No atomics: two runs give the same bits.
-// bf16 q/k/v are widened to f32 as they are staged (element by element;
-// a bf16 value's tf32 split has lo = 0) and the output rounded once.
+// bf16 q/k/v over f32 caches are widened to f32 as they are staged
+// (element by element; a bf16 value's tf32 split has lo = 0) and the
+// output rounded once.  bf16 q/k/v over bf16 caches, the bf16 serving
+// path (ROADMAP B.5), run paged_prefill_bf16_kernel: the same blocks and
+// fused scatter (16 bytes a copy) on the bf16 tile of attention_bf16.cuh.
+// In bf16 it moves 2 * B S H D * (4 + 2 lengths / (B S)) bytes, 201 MB at
+// the served 8 x 1024 x 16 x 128 with every row real, and does 34.4
+// GFLOP: 0.060 ms at 3.35 TB/s against 0.035 ms at the dense 989 TFLOP/s,
+// so it is bound by bytes once its products run on the bf16 tensor cores.
 //
 // Head_dim is tiled in all three, so the reference's head_dims run (it
 // has no head_dim limit).  Decode gives each range one block per 32 N
@@ -118,6 +130,7 @@
 
 #include <cooperative_groups.h>
 
+#include "attention_bf16.cuh"
 #include "attention_f32.cuh"
 
 namespace {
@@ -681,6 +694,266 @@ paged_prefill_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
                          vec, smem);
 }
 
+// ---------------------------------------------------------------------
+// bf16 q/k/v with bf16 caches: the one-shot and chunked prefills on the
+// bf16 tile of attention_bf16.cuh (exact Q K^T products, P V in hi and lo
+// halves), the other type pairs keeping the split-TF32 kernels above
+// ---------------------------------------------------------------------
+using bf16 = __nv_bfloat16;
+
+// 16 bytes (8 bf16) at a time from src to dst when vec, else element by
+// element: columns [c0, c0 + w) of one row
+__device__ __forceinline__ void copy_row_bf16(bf16* __restrict__ dst, const bf16* __restrict__ src,
+                                              int w, int lane, int lanes, bool vec) {
+  if (vec) {
+    for (int c = lane * 8; c < w; c += lanes * 8)
+      *reinterpret_cast<uint4*>(dst + c) = *reinterpret_cast<const uint4*>(src + c);
+  } else {
+    for (int c = lane; c < w; c += lanes) dst[c] = src[c];
+  }
+}
+
+// One block: (head and row: x, query tile of 64 rows counting down: y,
+// 128 output columns: z), as paged_prefill_kernel, with the fused scatter
+// of its rows below min(lengths[b], S), 16 bytes a copy when vec
+template <bool kFull>
+__global__ void __launch_bounds__(32 * attn16::kFwdWarps, attn16::kFwdMinBlocks)
+paged_prefill_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, bf16* __restrict__ kc,
+                          bf16* __restrict__ vc, const int* __restrict__ table,
+                          const int* __restrict__ lens, bf16* __restrict__ out, int S, int H,
+                          int D, int bs, int M, float scale, int vec) {
+  constexpr int R = 16 * attn16::kFwdWarps, TH = 32 * attn16::kFwdWarps;
+  const int b = (int)blockIdx.x / H, h = (int)blockIdx.x % H;
+  const int qt = (S + R - 1) / R - 1 - (int)blockIdx.y;    // longest rows first
+  const int oc0 = blockIdx.z * attn16::kDC, ow = min(attn16::kDC, D - oc0);
+  const size_t rs = (size_t)H * D;                        // row stride
+  const size_t base = (size_t)b * S * rs + (size_t)h * D;
+  const int q0 = qt * R;
+  const int L = max(0, min(min(lens[b], S), M * bs));
+  const int* tb = table + (size_t)b * M;
+  // a row's chunk is 16 lanes of 16 bytes at ow = 128: two rows a warp
+  constexpr int kLanes = 16;
+  for (int r = q0 + (int)threadIdx.x / kLanes; r < min(q0 + R, L); r += TH / kLanes) {
+    const size_t src = base + (size_t)r * rs + oc0;
+    const size_t dst = ((size_t)tb[r / bs] * bs + r % bs) * rs + (size_t)h * D + oc0;
+    copy_row_bf16(kc + dst, k + src, ow, threadIdx.x % kLanes, kLanes, vec);
+    copy_row_bf16(vc + dst, v + src, ow, threadIdx.x % kLanes, kLanes, vec);
+  }
+  extern __shared__ __align__(16) unsigned char smem16[];
+  attn16::forward<kFull>(q + base, k + base, v + base, out + base, S, D, rs, qt, oc0, scale,
+                         vec, reinterpret_cast<bf16*>(smem16));
+}
+
+// Stage key (or value) rows [k0, k0 + R) of one head, columns [c0, c0 +
+// w), into an (R, kLds) bf16 tile: keys below st from the cache through
+// the table (tbs, as stage_keys), keys in [st, kend) from the chunk input,
+// zeros from kend on and in columns [w, w rounded up to 16).  vec:
+// 16-byte cp.async (D % 8 == 0, 16-byte aligned bases); else element by
+// element, made visible by the __syncthreads that starts the stage which
+// reads the tile.
+template <int R, int TH>
+__device__ __forceinline__ void stage_keys_bf16(bf16* dst, const bf16* __restrict__ cache,
+                                                const bf16* __restrict__ chunk, const int* tbs,
+                                                int e0, int k0, int st, int kend, int bs,
+                                                size_t rs, size_t hd, int c0, int w, bool vec) {
+  const int wp = (w + 15) & ~15;
+  const int l16 = threadIdx.x & 15;
+  for (int r = threadIdx.x >> 4; r < R; r += TH / 16) {
+    const int kp = k0 + r;
+    const bool ok = kp < kend;
+    const bf16* src = !ok ? chunk
+                      : kp < st ? cache + ((size_t)tbs[kp / bs - e0] * bs + kp % bs) * rs + hd + c0
+                                : chunk + (size_t)(kp - st) * rs + c0;
+    if (vec) {
+      const int c = l16 * 8;
+      if (c < wp) {
+        const bool cok = ok && c < w;
+        tc::cp_async16(dst + r * attn16::kLds + c, cok ? src + c : chunk, cok);
+      }
+    } else {
+      for (int c = l16; c < wp; c += 16)
+        dst[r * attn16::kLds + c] = ok && c < w ? src[c] : __float2bfloat16_rn(0.f);
+    }
+  }
+}
+
+// First stage of the chunked prefill in bf16: the blocks, ranges, stages,
+// masks and workspace of paged_chunk_kernel, on the bf16 tile.  Running
+// maxima go to ml in natural-log units (m ln 2), as the combine reads them.
+template <int kW, bool kFull>
+__global__ void __launch_bounds__(32 * kW)
+paged_chunk_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ kc,
+                        const bf16* __restrict__ vc, const int* __restrict__ table,
+                        const int* __restrict__ start, const int* __restrict__ lens,
+                        float* __restrict__ part, float* __restrict__ ml, int K, int H, int D,
+                        int bs, int M, int KR, int nr, float scale, int vec) {
+  using attn16::kDC;
+  using attn16::kLds;
+  constexpr int R = 16 * kW, TH = 32 * kW, KT = kChunkStep, NS = kChunkStages;
+  constexpr int kQSlot = R * kLds, kKSlot = KT * kLds;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int rg = (int)blockIdx.x % nr, q0 = (int)blockIdx.x / nr * R;
+  const int oc0 = blockIdx.z * kDC, ow = min(kDC, D - oc0);
+  const int st = start[b];
+  // rows past K, or past the table's M * bs rows, are never touched
+  const int L = max(0, min(min(lens[b], K), M * bs - st));
+  const int ie = min(q0 + R, L);                 // the tile's real rows [q0, ie)
+  const int k0 = rg * KR;
+  if (q0 >= ie || k0 >= st + ie) return;
+  const int k1 = min(k0 + KR, st + ie);          // this block's keys [k0, k1)
+  const size_t rs = (size_t)H * D, hd = (size_t)h * D;
+  const size_t cb = (size_t)b * K * rs + hd;
+  const bf16* qb = q + cb;
+  const bf16* kb = k + cb;
+  const bf16* vb = v + cb;
+  const int* tb = table + (size_t)b * M;
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const float sl2 = scale * attn16::kLog2e;
+
+  extern __shared__ __align__(16) unsigned char smem16[];
+  const int nch = (D + kDC - 1) / kDC;
+  bf16* ring = reinterpret_cast<bf16*>(smem16);
+  bf16* qs = ring + NS * kKSlot;
+  int* tbs = reinterpret_cast<int*>(qs + (nch > 1 ? NS : 1) * kQSlot);
+  const int e0 = k0 / bs, ne = k0 < st ? (min(k1, st) - 1) / bs - e0 + 1 : 0;
+  for (int e = threadIdx.x; e < ne; e += TH) tbs[e] = tb[e0 + e];
+  const int nkt = (k1 - k0 + KT - 1) / KT;
+  const int per = nch + 1, nst = nkt * per;
+  auto issue = [&](int i) {
+    const int kt = i / per, j = i - kt * per, buf = i % NS;
+    bf16* tile = ring + buf * kKSlot;
+    if (j < nch) {
+      const int c0 = j * kDC, w = min(kDC, D - c0);
+      if (nch > 1) attn16::stage_tile<R, TH>(qs + buf * kQSlot, qb, q0, K, rs, c0, w, vec);
+      stage_keys_bf16<KT, TH>(tile, kc, kb, tbs, e0, k0 + kt * KT, st, k1, bs, rs, hd, c0, w,
+                              vec);
+    } else {
+      stage_keys_bf16<KT, TH>(tile, vc, vb, tbs, e0, k0 + kt * KT, st, k1, bs, rs, hd, oc0, ow,
+                              vec);
+    }
+  };
+  if (nch == 1) attn16::stage_tile<R, TH>(qs, qb, q0, K, rs, 0, D, vec);
+  __syncthreads();                                  // the table entries landed
+#pragma unroll
+  for (int i = 0; i < NS - 1; ++i) {
+    if (i < nst) issue(i);
+    tc::cp_async_commit();
+  }
+
+  float sc[KT / 8][4], acc[kDC / 8][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};   // rows g, g + 8
+  attn16::zero<kDC / 8>(acc);
+  for (int i = 0; i < nst; ++i) {
+    tc::cp_async_wait<NS - 2>();
+    __syncthreads();                                // stage i landed, i - 1 done
+    if (i + NS - 1 < nst) issue(i + NS - 1);
+    tc::cp_async_commit();
+    const int kt = i / per, j = i - kt * per, buf = i % NS;
+    const bf16* tile = ring + buf * kKSlot;
+    if (j < nch) {                                  // S += Q_j K_j^T
+      if (j == 0) attn16::zero<KT / 8>(sc);
+      attn16::mma_nk<KT / 8>(sc, qs + (nch > 1 ? buf : 0) * kQSlot, warp * 16, tile,
+                             attn16::ksteps<kFull>(min(kDC, D - j * kDC)));
+      continue;
+    }
+    // keys past the row's position take the finite fill, as the TPU
+    // kernel's, never a NaN
+    const int kb0 = k0 + kt * KT;
+#pragma unroll
+    for (int nt = 0; nt < KT / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = q0 + warp * 16 + g + (e >> 1) * 8;
+        const int c = kb0 + nt * 8 + 2 * t + (e & 1);
+        const float x = sc[nt][e] * sl2;
+        sc[nt][e] = c > st + r ? -1e30f : x;
+      }
+    attn16::softmax_step<KT / 8>(sc, m, l, acc);
+    attn16::mma_kn<KT / 16>(acc, sc, tile, attn16::ksteps<kFull>(ow));  // O += (hi + lo) V
+  }
+  tc::cp_async_wait<0>();
+  // the range's partial results, rows past K left out
+  const int row0 = q0 + warp * 16;
+  const size_t pr = ((size_t)bh * nr + rg) * K;  // row 0 of this range
+  const float one[2] = {1.f, 1.f};
+  attn32::store_rows(part + pr * D, acc, row0, K, (size_t)D, oc0, ow, one);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) l[hh] = attn16::quad_sum(l[hh]);
+  if (blockIdx.z == 0 && t == 0) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = row0 + g + 8 * hh;
+      if (r < K) {
+        ml[(pr + r) * 2] = m[hh] * attn16::kLn2;
+        ml[(pr + r) * 2 + 1] = l[hh];
+      }
+    }
+  }
+}
+
+// dynamic shared memory of the bf16 first stage, bytes: a ring of K/V
+// tiles, the query tile (a ring when D > 128), then the range's table
+// entries (at most KR / bs + 2)
+size_t chunk_bf16_smem(int warps, int D, int KR, int bs) {
+  return sizeof(bf16) * attn16::kLds *
+             (kChunkStages * kChunkStep + 16 * warps * (D > attn16::kDC ? kChunkStages : 1)) +
+         sizeof(int) * (KR / bs + 2);
+}
+
+// a kernel's dynamic shared memory past the 48 KB default needs the
+// attribute set before the launch
+template <typename F>
+cudaError_t allow_smem(F fn, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+int launch_prefill_bf16(const void* q, const void* k, const void* v, void* kc, void* vc,
+                        const void* table, const void* lens, void* out, int B, int S, int H,
+                        int D, int bs, int M, float scale, cudaStream_t stream) {
+  const auto fn = D % attn16::kDC == 0 ? paged_prefill_bf16_kernel<true>
+                                       : paged_prefill_bf16_kernel<false>;
+  const size_t smem = attn16::fwd_smem(D);
+  cudaError_t err = allow_smem(fn, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int vec = D % 8 == 0 && tc::aligned16(q) && tc::aligned16(k) && tc::aligned16(v) &&
+                  tc::aligned16(kc) && tc::aligned16(vc);
+  fn<<<attn32::grid_of(B * H, S, D, attn16::kFwdWarps), 32 * attn16::kFwdWarps, smem,
+       stream>>>((const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)kc, (bf16*)vc,
+                 (const int*)table, (const int*)lens, (bf16*)out, S, H, D, bs, M, scale, vec);
+  return (int)cudaGetLastError();
+}
+
+int launch_chunk_bf16(const void* q, const void* k, const void* v, void* kc, void* vc,
+                      const void* table, const void* start, const void* lens, void* out,
+                      float* part, float* ml, int B, int K, int H, int D, int bs, int M, int KR,
+                      int warps, float scale, cudaStream_t stream) {
+  const bool full = D % attn16::kDC == 0;
+  const auto fn = warps == 1 ? (full ? paged_chunk_bf16_kernel<1, true>
+                                     : paged_chunk_bf16_kernel<1, false>)
+                             : (full ? paged_chunk_bf16_kernel<4, true>
+                                     : paged_chunk_bf16_kernel<4, false>);
+  const size_t smem = chunk_bf16_smem(warps, D, KR, bs);
+  cudaError_t err = allow_smem(fn, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int vec = D % 8 == 0 && tc::aligned16(q) && tc::aligned16(k) && tc::aligned16(v) &&
+                  tc::aligned16(kc) && tc::aligned16(vc);
+  const int nr = (M * bs + KR - 1) / KR, qt = (K + 16 * warps - 1) / (16 * warps);
+  fn<<<dim3(nr * qt, B * H, (D + attn16::kDC - 1) / attn16::kDC), 32 * warps, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)kc, (const bf16*)vc,
+      (const int*)table, (const int*)start, (const int*)lens, part, ml, K, H, D, bs, M, KR, nr,
+      scale, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  paged_chunk_combine_kernel<bf16, bf16><<<dim3(K, B * H), kCombineThreads,
+                                           2 * sizeof(float) * nr, stream>>>(
+      part, ml, (const bf16*)k, (const bf16*)v, (bf16*)kc, (bf16*)vc, (const int*)table,
+      (const int*)start, (const int*)lens, (bf16*)out, K, H, D, bs, M, KR, nr);
+  return (int)cudaGetLastError();
+}
+
 template <typename TQ, typename TKV>
 int launch_prefill(const void* q, const void* k, const void* v, void* kc, void* vc,
                    const void* table, const void* lens, void* out, int B, int S, int H,
@@ -793,8 +1066,9 @@ size_t mx_paged_decode_smem(int D, int ctx, int bs, int ranges, int kv_dtype) {
   return decode_smem(D, decode_range_keys(ctx, ranges), bs, kv_dtype == 0 ? 4 : 8);
 }
 
-size_t mx_paged_chunk_prefill_smem(int warps, int D, int key_range, int bs) {
-  return chunk_smem(warps, D, key_range, bs);
+// bf16: 1 for the bf16/bf16 kernel, 0 for the split-TF32 one
+size_t mx_paged_chunk_prefill_smem(int warps, int D, int key_range, int bs, int bf16) {
+  return bf16 ? chunk_bf16_smem(warps, D, key_range, bs) : chunk_smem(warps, D, key_range, bs);
 }
 
 // q, k, v, out: (B, K, H, D) seq-major; start, lens (B,) int32; part
@@ -818,10 +1092,12 @@ int mx_paged_chunk_prefill(const void* q, const void* k, const void* v, void* kc
     return launch_chunk<float, __nv_bfloat16>(q, k, v, kc, vc, table, start, lens, out, pf, mf, B, K, H, D, bs, M, key_range, warps, scale, s);
   if (q_dtype == 1 && kv_dtype == 0)
     return launch_chunk<__nv_bfloat16, float>(q, k, v, kc, vc, table, start, lens, out, pf, mf, B, K, H, D, bs, M, key_range, warps, scale, s);
-  return launch_chunk<__nv_bfloat16, __nv_bfloat16>(q, k, v, kc, vc, table, start, lens, out, pf, mf, B, K, H, D, bs, M, key_range, warps, scale, s);
+  return launch_chunk_bf16(q, k, v, kc, vc, table, start, lens, out, pf, mf, B, K, H, D, bs, M, key_range, warps, scale, s);
 }
 
-size_t mx_paged_prefill_smem(int D) { return attn32::fwd_smem(D); }
+size_t mx_paged_prefill_smem(int D, int bf16) {
+  return bf16 ? attn16::fwd_smem(D) : attn32::fwd_smem(D);
+}
 
 // q, k, v, out: (B, S, H, D) seq-major, any D; lengths (B,) int32
 int mx_paged_prefill(const void* q, const void* k, const void* v, void* kc, void* vc,
@@ -831,14 +1107,14 @@ int mx_paged_prefill(const void* q, const void* k, const void* v, void* kc, void
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
-  const size_t smem = mx_paged_prefill_smem(D);
+  const size_t smem = attn32::fwd_smem(D);
   if (q_dtype == 0 && kv_dtype == 0)
     return launch_prefill<float, float>(q, k, v, kc, vc, table, lens, out, B, S, H, D, bs, M, scale, smem, s);
   if (q_dtype == 0 && kv_dtype == 1)
     return launch_prefill<float, __nv_bfloat16>(q, k, v, kc, vc, table, lens, out, B, S, H, D, bs, M, scale, smem, s);
   if (q_dtype == 1 && kv_dtype == 0)
     return launch_prefill<__nv_bfloat16, float>(q, k, v, kc, vc, table, lens, out, B, S, H, D, bs, M, scale, smem, s);
-  return launch_prefill<__nv_bfloat16, __nv_bfloat16>(q, k, v, kc, vc, table, lens, out, B, S, H, D, bs, M, scale, smem, s);
+  return launch_prefill_bf16(q, k, v, kc, vc, table, lens, out, B, S, H, D, bs, M, scale, s);
 }
 
 const char* mx_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -800,7 +800,9 @@ class DecodeEngine:
         self._check_params(arg_params)
 
     def swap_params(self, arg_params, version=None):
-        """Copy new weights into the bound step under the step lock:
+        """Copy new weights into the bound step under the step lock, each
+        cast to its bound type (f32 parameters into a bf16 engine's bf16
+        arrays, as the JAX engine's swap casts them):
         in-flight sequences continue on them at the next iteration and
         the KV cache (so every stream) is kept.  ``version`` stamps
         ``stats()["model_version"]`` with the swap.  Raises

@@ -39,7 +39,8 @@ that write them, and the outputs that carry the "new" caches are those
 same tensors.  That is the counterpart of the JAX package's buffer
 donation: no whole-cache copy in or out of a step.  An executor bound
 with ``shared_exec`` holds that executor's NDArrays (the same objects)
-for every argument and auxiliary state of the same name and shape, so
+for every argument and auxiliary state of the same name, shape and
+type, so
 a prefill executor and a decode-step executor share one copy of the
 weights and write into one set of caches.
 """
@@ -177,7 +178,9 @@ class Executor:
                          allow_extra_params=False):
         """Copy parameter values (NDArrays, tensors or numpy arrays)
         into the bound arguments and auxiliary states of the same
-        names."""
+        names, each cast to its bound type by ``copy_`` (f32 parameters
+        into a bf16 binding are rounded once, to nearest even, as the
+        JAX package's ``astype``)."""
         for params, bound, kind in ((arg_params, self.arg_dict, "argument"),
                                     (aux_params or {}, self.aux_dict,
                                      "auxiliary state")):
@@ -192,6 +195,9 @@ class Executor:
                     dst._data.copy_(_as_tensor(value, dst.shape, name))
 
     def _feed(self, feeds):
+        """Copy each fed input into its bound tensor, cast to the bound
+        type by ``copy_`` (index inputs bind f32, so block ids and
+        positions stay exact)."""
         for name, value in feeds.items():
             dst = self.arg_dict.get(name)
             if dst is None:

@@ -10,8 +10,11 @@ table, queries and chunk rows seq-major.  The kernels are
 each slot's keys over the blocks of a thread block cluster, whose rank
 0 combines them; the one-shot and chunked prefills run the f32 flash
 forward of ``csrc/attention_f32.cuh``, split TF32 on the tensor cores,
-the chunked one over key ranges of the context that a second launch
-combines).
+or, for bf16 q/k/v over bf16 caches, the bf16 tile of
+``csrc/attention_bf16.cuh`` (exact bf16 Q K^T products, P V in bf16 hi
+and lo halves), the chunked one over key ranges of the context that a
+second launch combines).  Each launch is also counted under its q type
+(``LAUNCHES_BY_DTYPE["paged_prefill_attend:bfloat16"]``).
 Beside each wrapper is its plain PyTorch version: the CPU path and the
 kernel's yardstick on the card.
 
@@ -76,12 +79,12 @@ def _bind(lib):
                                                p, i, i, i, i, i, i, i, i, f,
                                                i, i, i, p]
         lib.mx_paged_chunk_prefill.restype = i
-        lib.mx_paged_chunk_prefill_smem.argtypes = [i, i, i, i]
+        lib.mx_paged_chunk_prefill_smem.argtypes = [i, i, i, i, i]
         lib.mx_paged_chunk_prefill_smem.restype = ctypes.c_size_t
         lib.mx_paged_prefill.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i,
                                          i, i, f, i, i, i, p]
         lib.mx_paged_prefill.restype = i
-        lib.mx_paged_prefill_smem.argtypes = [i]
+        lib.mx_paged_prefill_smem.argtypes = [i, i]
         lib.mx_paged_prefill_smem.restype = ctypes.c_size_t
     return lib
 
@@ -178,7 +181,7 @@ def paged_decode_attend(q, k_cache, v_cache, block_table, positions, *,
         DTYPE_CODE[q.dtype], DTYPE_CODE[k_cache.dtype], q.device.index or 0,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, _DECODE, err)
-    count_launch(_DECODE)
+    count_launch(_DECODE, q.dtype)
     return out
 
 
@@ -292,7 +295,7 @@ def paged_chunk_prefill_attend(q, k, v, k_cache, v_cache, block_table, start,
         DTYPE_CODE[q.dtype], DTYPE_CODE[k_cache.dtype], q.device.index or 0,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, _CHUNK, err)
-    count_launch(_CHUNK)
+    count_launch(_CHUNK, q.dtype)
     return out, k_cache, v_cache
 
 
@@ -374,5 +377,5 @@ def paged_prefill_attend(q, k, v, k_cache, v_cache, block_table, lengths, *,
         DTYPE_CODE[q.dtype], DTYPE_CODE[k_cache.dtype], q.device.index or 0,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, _PREFILL, err)
-    count_launch(_PREFILL)
+    count_launch(_PREFILL, q.dtype)
     return out, k_cache, v_cache

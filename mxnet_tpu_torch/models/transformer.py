@@ -10,8 +10,11 @@ directions (``weights.convert_params`` / ``weights.export_params``) and
 a model trained by the port serves in the port's ``DecodeEngine``.
 The training symbol takes ``dtype='bfloat16'`` as the JAX package's
 does (the embeddings cast to bf16, the logits back to f32; the weights
-the trunk meets infer bf16).  MoE layers, tensor parallelism, the bf16
-serving symbols, float16 and dropout come with later slices.
+the trunk meets infer bf16), and so do the five serving symbols: their
+weights, LayerNorms and paged caches bind bf16, their block tables,
+positions, offsets and lengths float32 (``shape_rules.INDEX_INPUTS``).
+MoE layers, tensor parallelism, float16 and dropout come with later
+slices.
 """
 from __future__ import annotations
 
@@ -166,11 +169,13 @@ def _cast_out(logits, dtype, tag=""):
 
 def _serving_only(fn_name, moe_experts, tensor_parallel=None,
                   dtype="float32"):
-    """The serving symbols' options that come with later slices."""
-    if dtype != "float32":
-        raise MXNetError("%s: dtype=%r: the bf16 serving symbols are not in "
-                         "the PyTorch port yet (ROADMAP A.1, bf16 serving)"
-                         % (fn_name, dtype))
+    """The serving symbols' options that come with later slices (they
+    serve in float32 or bfloat16)."""
+    if dtype == "float16":
+        raise MXNetError("%s: %s" % (fn_name, FLOAT16_LATER))
+    if dtype not in ("float32", "bfloat16"):
+        raise MXNetError("%s: dtype=%r is not in the PyTorch port yet "
+                         "(ROADMAP A.1)" % (fn_name, dtype))
     if moe_experts:
         raise MXNetError("%s: MoE layers (moe_experts=%s) are not in the "
                          "PyTorch port yet" % (fn_name, moe_experts))

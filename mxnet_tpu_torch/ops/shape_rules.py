@@ -3,7 +3,7 @@
 ``PARAM_SHAPES[op](ins, attrs)`` fills in the shapes of parameter
 inputs from the data shapes (the counterpart of
 ``mxnet_tpu/ops/shape_rules.py``); ``OUT_SHAPES[op](ins, attrs)`` gives
-the output shapes and :func:`out_dtype` the output type (the JAX
+the output shapes and :func:`out_dtypes` the output types (the JAX
 package traced the op with ``jax.eval_shape`` for both).  ``ins`` maps
 input name -> shape tuple, or None while unknown.
 """
@@ -13,7 +13,7 @@ import torch
 
 from .tensor import infer_magic
 
-__all__ = ["PARAM_SHAPES", "OUT_SHAPES", "out_dtype"]
+__all__ = ["PARAM_SHAPES", "OUT_SHAPES", "INDEX_INPUTS", "out_dtypes"]
 
 
 def _fc_params(ins, a):
@@ -355,6 +355,20 @@ PARAM_SHAPES = {
         else ins["data"][:-1]},
 }
 
+# inputs that carry indices (block ids, positions, offsets, lengths) as
+# floats: type inference never gives them the type of the op's data, so
+# in a bf16 graph they stay float32, exact to 2^24 (bf16 holds integers
+# exactly only up to 256).  The JAX package's same-type rule makes them
+# bf16 there; the port differs on purpose (ROADMAP C).
+INDEX_INPUTS = {
+    "_contrib_PagedDecodeAttention": ("block_table", "positions"),
+    "_contrib_PagedChunkPrefillAttention": ("block_table", "start",
+                                            "lengths"),
+    "_contrib_PagedPrefillAttention": ("block_table", "lengths"),
+    "take": ("indices",),
+    "_contrib_GatherTimestep": ("index",),
+}
+
 OUT_SHAPES = {
     "FullyConnected": _fc_out,
     "Convolution": _conv_out,
@@ -452,36 +466,47 @@ _register_unary()
 
 
 # ops whose output takes the type of their data input (normalizations
-# and loss heads keep the data's type whatever their parameters' are);
-# every other op promotes its floating inputs, as jnp's arithmetic does
+# and loss heads keep the data's type whatever their parameters' are;
+# the paged attention ops' output takes q's type, as the JAX kernels'
+# outputs take q.dtype); every other op promotes its floating inputs, as
+# jnp's arithmetic does
 _DATA_TYPED = {"BatchNorm", "LayerNorm", "_FusedBNReluConv", "SoftmaxOutput",
                "_contrib_FusedCausalSelfAttention", "Pooling", "Activation",
                "Flatten", "LeakyReLU", "Reshape", "slice_axis",
-               "_contrib_GatherTimestep"}
+               "_contrib_GatherTimestep", "_contrib_PagedDecodeAttention",
+               "_contrib_PagedChunkPrefillAttention",
+               "_contrib_PagedPrefillAttention"}
+# the paged ops' outputs 1 and 2 are their caches (inputs 5 and 6),
+# updated in place: each keeps its cache's own type
+_CACHE_OUTPUTS = {"_contrib_PagedDecodeAttention": (5, 6),
+                  "_contrib_PagedChunkPrefillAttention": (5, 6),
+                  "_contrib_PagedPrefillAttention": (5, 6)}
 
 
-def out_dtype(op, in_dtypes, attrs):
-    """The type of ``op``'s (visible) outputs from its inputs' types
+def out_dtypes(op, in_dtypes, attrs, n_out):
+    """The types of ``op``'s ``n_out`` outputs from its inputs' types
     (``in_dtypes``, in input order): ``Cast`` gives its ``dtype``
     attribute (as do ``one_hot`` and the random ops), ``Embedding`` its
     weight's type, ``argmax``/``argmin`` float32 (the reference returns
-    indices as floats), the normalizations, pooling,
-    activations and loss heads their data's type, and the rest the
-    promotion of their floating inputs."""
+    indices as floats), the normalizations, pooling, activations, loss
+    heads and attention ops their data's type (the paged ops' caches
+    their own), and the rest the promotion of their floating inputs."""
     from ..base import torch_dtype
     if op in ("Cast", "one_hot", "_random_uniform", "_random_normal",
               "_random_randint"):
-        return torch_dtype(attrs["dtype"])
-    if op == "Embedding":
-        return in_dtypes[1]
-    if op in ("argmax", "argmin"):
-        return torch.float32
-    if op in _DATA_TYPED or not in_dtypes:
-        return in_dtypes[0] if in_dtypes else torch.float32
-    floats = [d for d in in_dtypes if d.is_floating_point]
-    if not floats:
-        return in_dtypes[0]
-    out = floats[0]
-    for d in floats[1:]:
-        out = torch.promote_types(out, d)
+        dt = torch_dtype(attrs["dtype"])
+    elif op == "Embedding":
+        dt = in_dtypes[1]
+    elif op in ("argmax", "argmin"):
+        dt = torch.float32
+    elif op in _DATA_TYPED or not in_dtypes:
+        dt = in_dtypes[0] if in_dtypes else torch.float32
+    else:
+        floats = [d for d in in_dtypes if d.is_floating_point]
+        dt = floats[0] if floats else in_dtypes[0]
+        for d in floats[1:]:
+            dt = torch.promote_types(dt, d)
+    out = [dt] * n_out
+    for i, src in enumerate(_CACHE_OUTPUTS.get(op, ()), start=1):
+        out[i] = in_dtypes[src]
     return out

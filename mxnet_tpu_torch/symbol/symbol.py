@@ -19,7 +19,8 @@ import torch
 
 from ..base import (MXNetError, current_name_manager, numeric_types,
                     torch_dtype)
-from ..ops.shape_rules import OUT_SHAPES, PARAM_SHAPES, out_dtype
+from ..ops.shape_rules import (INDEX_INPUTS, OUT_SHAPES, PARAM_SHAPES,
+                                out_dtypes)
 
 __all__ = ["Symbol", "Variable", "Group"]
 
@@ -173,7 +174,11 @@ class Symbol:
         take the type of the first input of their first consumer whose
         type is known and floating (the reference's same-type rule, so
         bf16 data makes the weights it meets bf16); integer inputs never
-        anchor, so an Embedding's weight keeps its own type.  Returns
+        anchor, so an Embedding's weight keeps its own type.  An untyped
+        variable met first in an op's index input (``INDEX_INPUTS``:
+        block tables, positions, offsets, lengths, take's indices) is
+        float32 whatever the anchor: bf16 would round its values above
+        256 (the JAX package lets them take the anchor).  Returns
         ``{variable name: dtype}`` and ``{(id(node), idx): dtype}``."""
         dtypes = {k: torch_dtype(v) for k, v in known.items()}
         env, pending = {}, set()
@@ -189,15 +194,22 @@ class Symbol:
             anchor = next((env[(id(inp), oi)] for inp, oi in node.inputs
                            if not (inp.is_var and id(inp) in pending)
                            and env[(id(inp), oi)].is_floating_point), None)
-            if anchor is not None:
-                for inp, _ in node.inputs:
-                    if inp.is_var and id(inp) in pending:
-                        env[(id(inp), 0)] = dtypes[inp.name] = anchor
-                        pending.discard(id(inp))
-            dt = out_dtype(node.op.name,
-                           [env[(id(inp), oi)] for inp, oi in node.inputs],
-                           node.attrs)
-            for i in range(node.op.out_count(node.attrs)):
+            index = INDEX_INPUTS.get(node.op.name, ())
+            for (inp, _), nm in zip(node.inputs,
+                                    node.op.names_for(len(node.inputs))):
+                if not (inp.is_var and id(inp) in pending):
+                    continue
+                if nm in index:
+                    env[(id(inp), 0)] = dtypes[inp.name] = torch.float32
+                elif anchor is not None:
+                    env[(id(inp), 0)] = dtypes[inp.name] = anchor
+                else:
+                    continue
+                pending.discard(id(inp))
+            outs = out_dtypes(node.op.name,
+                              [env[(id(inp), oi)] for inp, oi in node.inputs],
+                              node.attrs, node.op.out_count(node.attrs))
+            for i, dt in enumerate(outs):
                 env[(id(node), i)] = dt
         for node in self._topo():
             if node.is_var:
@@ -232,7 +244,8 @@ class Symbol:
         ``'write'``, ``'add'`` or ``'null'``, one value for every
         argument or a dict per argument (missing names: ``'null'``).
         With ``shared_exec``, each argument and auxiliary state whose
-        name and shape match one of that executor's takes its NDArray,
+        name, shape and type match one of that executor's takes its
+        NDArray,
         the same object: the two executors then hold one copy of the
         weights and of the paged caches."""
         from ..executor import Executor

@@ -311,11 +311,12 @@ _HEADER_USERS = {
                    "paged_attention", "layernorm"),
     "fused_gemm_bf16.cuh": ("fused_matmul", "fused_band4d"),
     "attention_f32.cuh": ("flash_attention", "paged_attention"),
+    "attention_bf16.cuh": ("paged_attention",),
     "fused_gemm_f32.cuh": ("fused_matmul", "fused_band4d")}
 
 
 @pytest.mark.parametrize("header", ["tc_mma.cuh", "fused_gemm_bf16.cuh",
-                                    "attention_f32.cuh",
+                                    "attention_f32.cuh", "attention_bf16.cuh",
                                     "fused_gemm_f32.cuh"])
 def test_build_target_follows_the_shared_headers(tmp_path, monkeypatch,
                                                  header):

@@ -3,6 +3,7 @@
 
     python3 tools/torch_ab.py serve PARENT_DIR CHANGE_DIR [ROUNDS]
     python3 tools/torch_ab.py kernels PARENT_DIR CHANGE_DIR [ROUNDS]
+    python3 tools/torch_ab.py paged_bf16 PARENT_DIR CHANGE_DIR [ROUNDS]
 
 Runs one workload from each tree in a process of its own, in the order
 parent, change, change, parent, ROUNDS times (default 1), and prints one
@@ -21,8 +22,16 @@ of every path that runs it, 8, 40, 64, 1024, 4096 and 8192; bf16 at 8, 64
 and 4096) after ``time_ms``'s flush, after a flush that reads and 200
 calls back to back, and its ``fused_band4d`` in f32 at the fused
 sandwich's two bands beside ``torch.matmul`` (TF32 off) on the activated
-input.  The timing helpers are this tree's ``chip_smoke.py`` for both
-trees, so both are timed alike."""
+input.
+
+paged_bf16: the tree's one-shot prefill (row 5) and chunked prefill (row
+2) on bf16 q/k/v over bf16 caches, the bf16 serving path: the prefill at
+8 x 1024 (16 heads of 128, ``chip_smoke``'s served lengths), the chunk at
+the mixed step's 64 rows and the spec step's 8 x 5-row spans over long
+and short contexts, alone and 200 calls back to back.
+
+The timing helpers (and the prefill's inputs) are this tree's
+``chip_smoke.py`` for both trees, so both are timed alike."""
 import json
 import os
 import subprocess
@@ -80,6 +89,43 @@ print(json.dumps(out), flush=True)
 """
 
 
+PAGED_BF16 = PRELUDE + r"""
+import importlib.util
+spec = importlib.util.spec_from_file_location("ab_timing", sys.argv[1])
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
+from mxnet_tpu_torch import kernels as mxk
+dev = torch.device("cuda", 0)
+bf = torch.bfloat16
+flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
+g = torch.Generator(device="cpu").manual_seed(cs.SEED + 40)
+H, D, nb, bs, M = 16, 128, 512, 16, 64
+sc = D ** -0.5
+served = [20, 960, 0, 1024, 513, 77, 300, 641]
+q, k, v, kc, vc, table, L = (t.to(dev) for t in cs._prefill_inputs(
+    torch, g, 8, 1024, H, D, nb, bs, M, served))
+q, k, v, kc, vc = (t.to(bf) for t in (q, k, v, kc, vc))
+out = {"prefill": cs.time_ms(torch, lambda: mxk.paged_prefill_attend(
+    q, k, v, kc, vc, table, L, scale=sc), flush)}
+for case, B, K, starts, lens in (
+        ("mixed", 1, 64, [576], [64]),
+        ("spec_spans", 8, 5, [37, 700, 0, 1018, 255, 512, 96, 3],
+         [5, 3, 0, 5, 1, 2, 4, 5]),
+        ("spec_short", 8, 5, [60, 90, 130, 70, 100, 120, 140, 80], [5] * 8)):
+    qc, kk, vv = (torch.randn(B, K, H, D, generator=g).to(dev).to(bf)
+                  for _ in range(3))
+    tb = torch.randperm(nb, generator=g)[:B * M].reshape(B, M) \
+        .to(torch.int32).to(dev)
+    st, ln = (torch.tensor(x, dtype=torch.int32, device=dev)
+              for x in (starts, lens))
+    fn = lambda: mxk.paged_chunk_prefill_attend(qc, kk, vv, kc, vc, tb, st,
+                                                ln, scale=sc)
+    out[case] = cs.time_ms(torch, fn, flush)
+    out[case + ":back_to_back"] = cs.pipelined_ms(torch, fn)
+print(json.dumps(out), flush=True)
+"""
+
+
 def serve_result(lines):
     res = {}
     for d in lines:
@@ -102,7 +148,8 @@ def kernels_result(lines):
     return res
 
 
-MODES = {"serve": (SERVE, serve_result), "kernels": (KERNELS, kernels_result)}
+MODES = {"serve": (SERVE, serve_result), "kernels": (KERNELS, kernels_result),
+         "paged_bf16": (PAGED_BF16, kernels_result)}
 
 
 def run(tree, mode):

@@ -12,6 +12,8 @@ one-shot prefill, or one training step goes on the GPU.
                                           # one 2-bit Gluon ResNet step
     python3 tools/torch_decode_profile.py --resnet --layout NHWC --fuse
                                           # one TrainStep step
+    python3 tools/torch_decode_profile.py [--spec|--prefill] --dtype \
+        bfloat16                          # the bf16 serving steps
     python3 tools/torch_decode_profile.py --train --dtype bfloat16
     python3 tools/torch_decode_profile.py --resnet --layout NHWC \
         [--fuse] --dtype bfloat16         # bf16 TrainStep steps
@@ -78,8 +80,12 @@ dtype casts, which also run inside the BatchNorm and fused ranges) by
 name beside the groups, the device launches and host syncs per step
 and the device's idle share.
 
-With ``--dtype bfloat16`` the two TrainStep profiles run chip_smoke.py's
-bf16 configurations instead: ``--train`` the full-width transformer
+With ``--dtype bfloat16`` the three serving profiles (default,
+``--spec``, ``--prefill``) bind the same model with
+``dtype='bfloat16'`` (chip_smoke.py's serve_bf16, serve_spec_bf16 and
+serve_prefill_bf16 configurations: bf16 weights, LayerNorms and caches,
+f32 embeddings and logits), and the two TrainStep profiles run
+chip_smoke.py's bf16 configurations instead: ``--train`` the full-width transformer
 with ``dtype='bfloat16'`` through ``parallel.TrainStep`` (its
 train_bf16 phase: batch 4 x 1024, SGD momentum with multi_precision),
 ``--resnet --layout NHWC [--fuse]`` bench.py's flagship, ResNet-50 NHWC
@@ -581,12 +587,13 @@ def main():
         else:
             profile_train(torch, cs, mx)
         return 0
+    cfg = dict(cs.FULL, dtype=dtype)
     if "--prefill" in args:
-        profile_prefill(torch, cs, mx)
+        profile_prefill(torch, cs, mx, cfg)
         return 0
     spec_k = 4 if "--spec" in args else 0
     eng = DecodeEngine(convert_params(cs.seeded_params(cs.FULL), mx.gpu(0),
-                                      cs.FULL), cs.FULL, ctx=mx.gpu(0),
+                                      cfg), cfg, ctx=mx.gpu(0),
                        start=False, warmup=True, spec_k=spec_k,
                        spec_impl="ngram" if spec_k else None, **cs.GEOMETRY)
     rng = np.random.RandomState(cs.SEED)
@@ -611,7 +618,7 @@ def main():
     for kind, f in kinds:
         def forward():
             return eng._exe.forward(is_train=False, **f)
-        profile_forward(torch, kind, forward, reps=20, n=5)
+        profile_forward(torch, kind, forward, reps=20, n=5, dtype=dtype)
     return 0
 
 
@@ -663,13 +670,12 @@ def profile_forward(torch, kind, forward, reps, n, **extra):
         flush=True)
 
 
-def profile_prefill(torch, cs, mx):
+def profile_prefill(torch, cs, mx, cfg):
     from mxnet_tpu_torch.weights import convert_params
-    cfg = cs.FULL
     lengths = [700, 20, 350, 90, 520, 45, 260, 610]
     prompts = cs._serve_prompts(cfg, cs.SEED, lengths)
     dexe, pexe = cs.bind_prefill_pair(
-        mx, convert_params(cs.seeded_params(cfg), mx.gpu(0), cfg), cfg,
+        mx, convert_params(cs.seeded_params(cs.FULL), mx.gpu(0), cfg), cfg,
         mx.gpu(0), len(prompts), cfg["seq_len"])
     S = cfg["seq_len"]
     M = pexe.arg_dict["block_table"].shape[1]
@@ -690,7 +696,8 @@ def profile_prefill(torch, cs, mx):
         return pexe.forward(is_train=False, data=data, prompt_len=lens,
                             block_table=table)
     profile_forward(torch, "prefill", forward, reps=5, n=3,
-                    prompt_lengths=lengths, prefill_len=S)
+                    prompt_lengths=lengths, prefill_len=S,
+                    dtype=cfg.get("dtype", "float32"))
 
 
 if __name__ == "__main__":

@@ -4,6 +4,7 @@
     python3 tools/torch_flash_tune.py [--dtype float32|bfloat16] [--only V ...]
     python3 tools/torch_flash_tune.py --chunk [--only V ...]
     python3 tools/torch_flash_tune.py --decode [--only V ...]
+    python3 tools/torch_flash_tune.py --paged-bf16 [--only V ...]
 
 Each variant is ``mxnet_tpu_torch/csrc/flash_attention.cu`` and
 ``attention_f32.cuh`` with a few text substitutions of their tuning
@@ -53,6 +54,19 @@ serve's short ones (20-145), and over one slot: alone
 writing (``:clean``: no dirty L2 lines to write back first), and over
 200 calls back to back (``chip_smoke.pipelined_ms``), in turns and then
 in reverse order.
+
+``--paged-bf16`` tunes the bf16 instances (bf16 q/k/v over bf16 caches)
+of rows 5 and 2, the tile of ``csrc/attention_bf16.cuh``: its
+``PAGED_BF16_VARIANTS`` (blocks an SM, key steps and ring depth of the
+one-shot prefill, and ``one_term_p``, P V on P rounded to one bf16 term,
+FlashAttention's rounding, as a design variant beside the kept hi + lo
+split) are built the same way, each held against the plain versions
+(``chip_smoke.close_bf16_out``, caches exact) and timed at
+``chip_smoke``'s served prefill (8 x 1024, 16 heads of 128), the mixed
+step's chunk and the spec step's spans, alone and back to back, in turns
+and then in reverse order; each line carries the variant's largest
+error against the plain version and its relative L2 error, so the
+one-term P's cost in accuracy reads beside its time.
 """
 import argparse
 import contextlib
@@ -235,6 +249,21 @@ CHUNK_DIAGNOSE = {
     "no_launch": [("  float* pf = (float*)part;\n", "  if (K > 0) return 0;\n  float* pf = (float*)part;\n")],
 }
 CHUNK_RANGES = (32, 64, 128, 256, 512)
+# the bf16 tile of rows 5 and 2 (attention_bf16.cuh, paged_attention.cu)
+PAGED_BF16_FILES = ("paged_attention.cu", "attention_bf16.cuh", "attention_f32.cuh",
+                    "tc_mma.cuh")
+TUNED_BF16 = "kFwdWarps = 4, kFwdMinBlocks = 3, kFwdStep = 64, kFwdStages = 2"
+PAGED_BF16_VARIANTS = {
+    "tuned": [],
+    # P V on bf16(P) alone (one product a step, FlashAttention's
+    # rounding): the design variant the hi + lo split is held against
+    "one_term_p": [("        tc::mma(acc[2 * dp], lo, f[0], f[1]);\n"
+                    "        tc::mma(acc[2 * dp + 1], lo, f[2], f[3]);\n", "")],
+    "fwd_2_blocks": [(TUNED_BF16, TUNED_BF16.replace("MinBlocks = 3", "MinBlocks = 2"))],
+    "fwd_1_block": [(TUNED_BF16, TUNED_BF16.replace("MinBlocks = 3", "MinBlocks = 1"))],
+    "fwd_32_steps": [(TUNED_BF16, TUNED_BF16.replace("Step = 64", "Step = 32"))],
+    "fwd_ring_of_3": [(TUNED_BF16, TUNED_BF16.replace("Stages = 2", "Stages = 3"))],
+}
 # row 1's paged decode (paged_attention.cu)
 DECODE_VARIANTS = {
     "tuned": [],
@@ -536,6 +565,103 @@ def decode_ptxas(log):
     return found
 
 
+def paged_bf16_ptxas(log):
+    """{instance: {registers, spill_stores, spill_loads}} of the bf16
+    prefill and chunk kernels."""
+    lines = log.splitlines()
+    found = {}
+    for i, line in enumerate(lines):
+        m = re.search(r"paged_(?:prefill|chunk)_bf16_kernelI\w+?E(?=E)", line)
+        if "Compiling entry function" in line and m:
+            block = " ".join(lines[i + 1:i + 4])
+            found[m.group(0)] = {
+                "registers": int(re.search(r"Used (\d+) registers", block).group(1)),
+                "spill_stores": int(re.search(r"(\d+) bytes spill stores", block).group(1)),
+                "spill_loads": int(re.search(r"(\d+) bytes spill loads", block).group(1))}
+    return found
+
+
+def main_paged_bf16(args, torch, cs):
+    """The bf16 prefill and chunk kernels' variants at the served
+    shapes."""
+    pa = importlib.import_module("mxnet_tpu_torch.kernels.paged_attention")
+    variants = PAGED_BF16_VARIANTS
+    if args.only:
+        unknown = set(args.only) - set(variants)
+        if unknown:
+            raise SystemExit("unknown variants: %s" % sorted(unknown))
+        variants = {n: v for n, v in variants.items() if n == "tuned" or n in args.only}
+    built = build(variants, "paged_bf16", PAGED_BF16_FILES)
+    libs = {name: pa._bind(ctypes.CDLL(path)) for name, (path, _) in built.items()}
+    dev = torch.device("cuda", 0)
+    bf = torch.bfloat16
+    g = torch.Generator(device="cpu").manual_seed(cs.SEED + 35)
+    H, D, nb, bs, M = 16, 128, 512, 16, 64
+    sc = 1.0 / D ** 0.5
+    served = [20, 960, 0, 1024, 513, 77, 300, 641]
+    q, k, v, kc, vc, table, L = (
+        t.to(dev) for t in cs._prefill_inputs(torch, g, 8, 1024, H, D, nb, bs, M, served))
+    q, k, v, kc, vc = (t.to(bf) for t in (q, k, v, kc, vc))
+    cases = {"prefill": ("prefill", (q, k, v, kc, vc, table, L))}
+    for case, B, K, starts, lens in (
+            ("mixed", 1, 64, [576], [64]),
+            ("spec_spans", 8, 5, [37, 700, 0, 1018, 255, 512, 96, 3],
+             [5, 3, 0, 5, 1, 2, 4, 5])):
+        qc, kk, vv = (torch.randn(B, K, H, D, generator=g).to(dev).to(bf) for _ in range(3))
+        tb = torch.randperm(nb, generator=g)[:B * M].reshape(B, M).to(torch.int32).to(dev)
+        st, ln = (torch.tensor(x, dtype=torch.int32, device=dev) for x in (starts, lens))
+        cases[case] = ("chunk", (qc, kk, vv, kc, vc, tb, st, ln))
+
+    def call(kind, ins, caches, fn_kind=""):
+        fn = getattr(pa, ("paged_prefill_attend" if kind == "prefill"
+                          else "paged_chunk_prefill_attend") + fn_kind)
+        return fn(*ins[:3], *caches, *ins[5:], scale=sc)
+
+    refs = {}
+    for case, (kind, ins) in cases.items():
+        caches = (ins[3].clone(), ins[4].clone())
+        out = call(kind, ins, caches, "_plain")[0]
+        real = torch.ones(out.shape[:2], dtype=torch.bool, device=dev)
+        if kind == "chunk":
+            real = torch.arange(out.shape[1], device=dev)[None, :] < ins[7][:, None].long()
+        refs[case] = (out, caches, real)
+    bad, errs = {}, {}
+    for name, lib in libs.items():
+        with mock.patch.object(pa, "_lib", lambda lib=lib: lib):
+            for case, (kind, ins) in cases.items():
+                ref, rcaches, real = refs[case]
+                caches = (ins[3].clone(), ins[4].clone())
+                out = call(kind, ins, caches)[0]
+                torch.cuda.synchronize()
+                a, b = out[real].float(), ref[real].float()
+                errs.setdefault(name, {})[case] = {
+                    "max_abs_err": cs.max_err(a, b),
+                    "rel_l2": float((a - b).norm() / b.norm())}
+                if not (cs.close_bf16_out(torch, a, b)
+                        and all(torch.equal(x, y) for x, y in zip(caches, rcaches))):
+                    bad.setdefault(name, []).append(case)
+    flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
+    times = {name: {} for name in libs}
+    for name in list(libs) + list(libs)[::-1]:
+        with mock.patch.object(pa, "_lib", lambda lib=libs[name]: lib):
+            for case, (kind, ins) in cases.items():
+                caches = (ins[3].clone(), ins[4].clone())
+
+                def fn(kind=kind, ins=ins, caches=caches):
+                    return call(kind, ins, caches)
+                times[name].setdefault(case, []).append(cs.time_ms(torch, fn, flush))
+                times[name].setdefault(case + ":back_to_back", []).append(
+                    cs.pipelined_ms(torch, fn))
+    for name in libs:
+        print(json.dumps({"variant": name, "ptxas": paged_bf16_ptxas(built[name][1]),
+                          "agrees": name not in bad, "disagreements": bad.get(name, []),
+                          "errors": errs[name],
+                          "ms": {c: sum(t) / len(t) for c, t in times[name].items()}}),
+              flush=True)
+    cs.phase_device(torch)
+    return 1 if set(bad) - {"one_term_p"} else 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32")
@@ -543,6 +669,8 @@ def main(argv=None):
                     help="tune row 2's chunked prefill instead")
     ap.add_argument("--decode", action="store_true",
                     help="tune row 1's paged decode instead")
+    ap.add_argument("--paged-bf16", action="store_true",
+                    help="tune the bf16 prefill and chunk kernels instead")
     ap.add_argument("--only", nargs="+", metavar="VARIANT",
                     help="these variants (and tuned) only")
     args = ap.parse_args(argv)
@@ -556,6 +684,8 @@ def main(argv=None):
         return main_chunk(args, torch, cs)
     if args.decode:
         return main_decode(args, torch, cs)
+    if args.paged_bf16:
+        return main_paged_bf16(args, torch, cs)
     fa = importlib.import_module("mxnet_tpu_torch.kernels.flash_attention")
     dev = torch.device("cuda", 0)
     dt = getattr(torch, args.dtype)
