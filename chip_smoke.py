@@ -304,7 +304,29 @@ Phases, each printed as one JSON line:
    driven with the card engine's greedy tokens forced on both devices:
    logits rows within relative L2 2e-2, cache rows within one bf16 ulp
    at the cache's scale; the greedy streams of both devices printed
-   beside.
+   beside;
+36. fit_bf16 (after 31): bf16 ``Module.fit`` at full width under
+   multi_precision (f32 masters), fused against eager as in 31 (10
+   steps over two fixed batches): the transformer with
+   ``dtype='bfloat16'`` at 4 x 1024 tokens (SGD 0.05, momentum 0.9;
+   its graph records each bf16 flash kernel 12 times and the bf16
+   LayerNorm forward and backward 25 times) and ResNet-50 v2 in bf16 at
+   batch 128 through ``mx.kv.create('device')`` with 2-bit compression
+   (threshold 0.5; its graph records the f32 quantizer once per bucket
+   the eager store dispatches).  Each fused arm captures once, runs
+   every step fused with no host sync and one graph launch in a steady
+   step and no plain version, keeps its loss scaler at 2^15 with no skip
+   (published by ``_fit_sync``); every bf16 weight matrix's f32 master
+   moves in both arms; fused weights within one bf16 ulp (rtol and atol
+   1e-2) of eager's.  The fused transformer graph is replayed 20 times
+   under CUDA events with the scaler and again with
+   ``MXNET_LOSS_SCALE=off`` (the device ms of the finiteness check and
+   select).  The overflow case: a bf16 MLP through a 2-bit store, one
+   batch holding an inf after the capture: that step is a replay with no
+   host sync, weights, stored weights, masters, momenta and residuals
+   stay bit for bit, the scale halves with one skip, and the next finite
+   step moves the weights.  Step p50, tokens/s or images/s and peak
+   memory per arm.
 
 Then the kernels' JSON line (every kernel with its dtype; the bf16
 forms as rows of their own, the serving kernels' bf16 instances with
@@ -539,6 +561,25 @@ FIT_FUSED = dict(resnet=dict(batch=128, lr=0.1, momentum=0.9, wd=1e-4,
                  transformer=dict(batch=4, lr=0.05, momentum=0.9, batches=2,
                                   epochs=5),
                  move_l2=1e-3, profiled_steps=2)
+
+
+# bf16 Module.fit (fit_bf16): the transformer with dtype='bfloat16' at
+# 4 x 1024 tokens, and ResNet-50 v2 in bf16 at batch 128 through
+# kvstore='device' with 2-bit compression at 0.5, both SGD momentum 0.9
+# with multi_precision (f32 masters), fused against eager, 10 steps each
+# over two fixed batches; fused weights within one bf16 ulp (rtol and
+# atol weights_tol) of eager's, metrics within weights_tol; the
+# transformer once more fused with MXNET_LOSS_SCALE=off, and each fused
+# transformer graph replayed `replays` times under CUDA events (the
+# device ms of the scaler's finiteness check and select); the overflow
+# case, a bf16 MLP through a 2-bit store with one batch holding an inf.
+FIT_BF16 = dict(transformer=dict(batch=4, lr=0.05, momentum=0.9, batches=2,
+                                 epochs=5),
+                resnet=dict(batch=128, lr=0.1, momentum=0.9, wd=1e-4,
+                            threshold=0.5, batches=2, epochs=5),
+                weights_tol=1e-2, replays=20,
+                overflow=dict(batch=64, features=256, hidden=512,
+                              classes=16, threshold=0.05, lr=0.05))
 
 
 class SmokeFailure(RuntimeError):
@@ -4896,12 +4937,13 @@ _RUNTIME_CALLS = ("cudaGraphLaunch", "cudaLaunchKernel", "cudaLaunchKernelExC",
                   "cudaMemsetAsync")
 
 
-def _fit_arm(torch, mx, make, it, fit_kw, fused, steps):
+def _fit_arm(torch, mx, make, it, fit_kw, fused, steps, inspect=None):
     """Module.fit of one arm: step times, peak memory, kernel launches
     of the run, host syncs in each step (``torch.cuda.set_sync_debug_mode``
     warnings inside fit_step and update_metric), the final weights and
     metric, then ``profiled_steps`` more fit_steps under torch.profiler
-    (runtime launch calls per step)."""
+    (runtime launch calls per step); ``inspect(mod)``'s result, taken
+    last, under ``info["inspect"]``."""
     import gc
     import warnings
     from mxnet_tpu_torch.kernels import LAUNCHES, PLAIN_CALLS, reset_counts
@@ -4979,11 +5021,14 @@ def _fit_arm(torch, mx, make, it, fit_kw, fused, steps):
         info.update(captures=fused_fit.captures,
                     fused_steps=fused_steps,
                     captured_launches=fused_fit.captured_launches(),
+                    captured_by_dtype=fused_fit.captured_launches(True),
                     step_ms_p50=statistics.median(step_ms[first:]))
     else:
         info["step_ms_p50"] = statistics.median(step_ms[2:])
     check(not info["plain_calls"], "fit_fused: plain versions ran: %s"
           % info["plain_calls"])
+    if inspect is not None:
+        info["inspect"] = inspect(mod)
     del mod
     return info, weights
 
@@ -5103,10 +5148,342 @@ def phase_fit_fused(torch, mx, np_params, cfg=FULL):
     return ret
 
 
-def _fused_arms(name, res, initial, kernel):
+def _graph_replay_ms(torch, mod, n):
+    """Device ms per step of the fused step's captured graph: ``n``
+    replays (more training steps on the last batch) between two CUDA
+    events."""
+    graphs = [p.graph for p in mod._fused_fit._programs.values()
+              if p.graph is not None]
+    check(len(graphs) == 1, "fit_bf16: %d captured graphs" % len(graphs))
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(n):
+        graphs[0].replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def _bf16_inspect(torch, initial, replays=0):
+    """``inspect`` for a bf16 arm: the bf16 weight matrices whose f32
+    master moved from its initial (bf16-rounded) value and those that
+    did not, the loss scaler after ``Module._fit_sync`` publishes it, and
+    with ``replays`` the captured graph's device ms per step."""
+    from mxnet_tpu_torch import fused_update
+
+    def inspect(mod):
+        upd = mod._kvstore._updater if mod._update_on_kvstore \
+            else mod._updater
+        exe = mod._exec_group._exec
+        bf16 = sorted(n for n in mod._param_names if n.endswith("_weight")
+                      and exe.arg_dict[n]._data.dtype == torch.bfloat16)
+        moved, still = [], []
+        for k, st in upd.states.items():
+            name = mod._param_names[k] if isinstance(k, int) else k
+            if name not in bf16:
+                continue
+            w32 = st[1]._data
+            w0 = torch.from_numpy(initial[name]).to(w32.device) \
+                .to(torch.bfloat16).float()
+            (moved if bool((w32 != w0).any()) else still).append(name)
+        out = {"bf16_weight_matrices": len(bf16),
+               "masters_moved": len(moved), "masters_still": still,
+               "masters_missing": sorted(set(bf16) - set(moved)
+                                         - set(still))}
+        if mod._loss_scaler is not None:
+            mod._fit_sync()
+            out.update(loss_scale=mod._loss_scaler.scale,
+                       overflow_skips=mod._loss_scaler.skips,
+                       loss_scale_gauge=fused_update.LOSS_SCALE.value)
+        if replays:
+            out["graph_replay_ms"] = _graph_replay_ms(torch, mod, replays)
+        return out
+    return inspect
+
+
+def _bf16_weights(name, fw, ew, initial, tol):
+    """Fused against eager bf16 weights: each within ``tol`` (rtol and
+    atol: one bf16 ulp) of the eager arm's."""
+    worst = max(float((np.abs(fw[k] - ew[k])
+                       / (tol + tol * np.abs(ew[k]))).max()) for k in ew)
+    diff = math.sqrt(sum(float(np.square(fw[k].astype(np.float64)
+                                         - ew[k]).sum()) for k in ew))
+    move = math.sqrt(sum(float(np.square(ew[k].astype(np.float64)
+                                         - initial[k]).sum()) for k in ew))
+    check(worst <= 1.0, "fit_bf16 %s: fused and eager weights differ past "
+          "rtol/atol %g (worst %g of the bound)" % (name, tol, worst))
+    return {"worst_of_bound": worst, "move_rel_l2": diff / move,
+            "bit_equal": all(np.array_equal(fw[k], ew[k]) for k in ew)}
+
+
+def _bf16_arm_checks(name, res, want_captured, tol):
+    """``_fused_arm_checks`` with the metric at ``tol``, then the bf16
+    run's own: every ``want_captured`` ("name:dtype" -> count) recorded
+    in the graph and launched on the path, the loss scaler published
+    with no skip, every bf16 weight matrix's master moved in both
+    arms."""
+    _fused_arm_checks(name, res, None, tol)
+    (fi, _), (ei, _) = res["fused"], res["eager"]
+    captured = (fi["captured_by_dtype"] or [{}])[0]
+    for key, n in want_captured.items():
+        check(captured.get(key, 0) == n and fi["launches"].get(
+            key.split(":")[0], 0) > 0, "fit_bf16 %s: %s recorded %d times "
+              "in the graph (want %d): %s" % (name, key, captured.get(key, 0),
+                                             n, captured))
+    ins = fi["inspect"]
+    check(ins.get("overflow_skips") == 0 and ins["loss_scale"] == 2.0 ** 15
+          and ins["loss_scale_gauge"] == ins["loss_scale"],
+          "fit_bf16 %s: loss scaler %s" % (name, ins))
+    for arm in (fi, ei):
+        i = arm["inspect"]
+        check(i["masters_moved"] == i["bf16_weight_matrices"] > 0,
+              "fit_bf16 %s: masters that did not move %s, missing %s"
+              % (name, i["masters_still"], i["masters_missing"]))
+
+
+def _overflow_case(torch, mx, ctx):
+    """A bf16 MLP through a 2-bit device store, fused: two warm-up steps,
+    the capture and a replay, then a batch with an inf (NaN gradients):
+    the step is a graph replay with no host sync, leaves weights, stored
+    weights, masters, momenta and residuals bit for bit, backs the scale
+    off to 2^14 with one skip; the next finite step moves the weights."""
+    import warnings
+    from mxnet_tpu_torch import fused_update
+    oc = FIT_BF16["overflow"]
+    B, F, H, C = oc["batch"], oc["features"], oc["hidden"], oc["classes"]
+    sym = mx.sym
+    net = sym.Cast(sym.Variable("data"), dtype="bfloat16")
+    net = sym.Activation(sym.FullyConnected(net, num_hidden=H, name="fc1"),
+                         act_type="relu")
+    net = sym.Cast(sym.FullyConnected(net, num_hidden=C, name="fc2"),
+                   dtype="float32")
+    net = sym.SoftmaxOutput(net, name="softmax")
+    rng = np.random.RandomState(SEED + 40)
+    params = {"fc1_weight": rng.normal(0, 0.05, (H, F)),
+              "fc1_bias": np.zeros(H), "fc2_weight": rng.normal(0, 0.05,
+                                                                (C, H)),
+              "fc2_bias": np.zeros(C)}
+    mod = mx.Module(net, context=ctx, compression_params={
+        "type": "2bit", "threshold": oc["threshold"]})
+    mod.bind(data_shapes=[("data", (B, F))],
+             label_shapes=[("softmax_label", (B,))])
+    mod.init_params(arg_params={k: mx.nd.array(v.astype(np.float32),
+                                               ctx=ctx)
+                                for k, v in params.items()}, aux_params={})
+    kv = mx.kv.create("device")
+    mod.init_optimizer(kvstore=kv, optimizer="sgd", optimizer_params={
+        "learning_rate": oc["lr"], "momentum": 0.9,
+        "multi_precision": True})
+
+    def batch(seed, bad=False):
+        r = np.random.RandomState(seed)
+        x = r.rand(B, F).astype(np.float32)
+        if bad:
+            x[0, 0] = np.inf
+        return mx.io.DataBatch(     # host batches, as an iterator gives
+            data=[mx.nd.array(x, ctx=mx.cpu())],
+            label=[mx.nd.array(r.randint(0, C, B).astype(np.float32),
+                               ctx=mx.cpu())])
+
+    for i in range(4):
+        check(mod.fit_step(batch(i)), "fit_bf16 overflow: step %d not fused"
+              % i)
+    fit, scaler = mod._fused_fit, mod._loss_scaler
+    exe = mod._exec_group._exec
+
+    def snapshot():
+        return ([exe.arg_dict[n]._data.clone() for n in mod._param_names]
+                + [kv._store[n]._data.clone() for n in mod._param_names]
+                + [leaf._data.clone() for st in kv._updater.states.values()
+                   for leaf in fused_update.flatten_state(st)[0]]
+                + [r.clone() for r in fit._res_flat])
+
+    torch.cuda.synchronize()
+    before = snapshot()
+    bad = batch(9, bad=True)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fused = mod.fit_step(bad)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    torch.cuda.synchronize()
+    after = snapshot()
+    equal = len(before) == len(after) and all(
+        torch.equal(a, b) for a, b in zip(before, after))
+    residual_l1 = float(sum(float(r.abs().sum()) for r in fit._res_flat))
+    mod._fit_sync()
+    skipped = {"scale": scaler.scale, "skips": scaler.skips,
+               "skips_counter": fused_update.OVERFLOW_SKIPS.value}
+    check(fused and syncs == 0 and fit.captures == 1 and fit.launches == 5,
+          "fit_bf16 overflow: the bad step fused %s, %d host syncs, %d "
+          "captures, %d fused steps" % (fused, syncs, fit.captures,
+                                        fit.launches))
+    check(equal and residual_l1 > 0, "fit_bf16 overflow: the skipped step "
+          "changed the training state (bit-equal %s, residual L1 %g)"
+          % (equal, residual_l1))
+    check(skipped["skips"] == 1 and skipped["scale"] == 2.0 ** 14,
+          "fit_bf16 overflow: scaler after the bad step %s" % skipped)
+    check(mod.fit_step(batch(10)), "fit_bf16 overflow: finite step not fused")
+    torch.cuda.synchronize()
+    moved = any(not torch.equal(a, b) for a, b in zip(before, snapshot()))
+    mod._fit_sync()
+    check(moved and scaler.skips == 1, "fit_bf16 overflow: the finite step "
+          "after it moved %s, skips %d" % (moved, scaler.skips))
+    return {"bad_step_host_syncs": syncs, "state_bit_equal": equal,
+            "tensors_compared": len(before),
+            "residual_l1_before": residual_l1, "after_bad_step": skipped,
+            "scale_after_finite_step": scaler.scale,
+            "captures": fit.captures, "fused_steps": fit.launches}
+
+
+def phase_fit_bf16(torch, mx, np_params, cfg=FULL):
+    """bf16 ``Module.fit`` at full width, fused against eager
+    (``MXNET_FIT_FUSED=0``), as FIT_BF16 says: the transformer with
+    ``dtype='bfloat16'`` (its graph records each bf16 flash kernel 12
+    times and the bf16 LayerNorm forward and backward 25 times) and
+    ResNet-50 v2 in bf16 through a 2-bit device store (its graph records
+    the f32 quantizer once per bucket the eager store dispatches).  Each
+    fused arm: one capture, every step fused, no host sync and one graph
+    launch in a steady step, no plain version, the loss scaler published
+    with no skip; every bf16 weight matrix's f32 master moves in both
+    arms; fused weights within one bf16 ulp of eager's.  Then the
+    transformer fused with ``MXNET_LOSS_SCALE=off`` (graph replay ms
+    beside the scaler's) and the overflow case.  Returns the fused arms'
+    info."""
+    from mxnet_tpu_torch.models import resnet, transformer
+    from mxnet_tpu_torch.weights import convert_params, convert_symbol_params
+    ctx = mx.gpu(0)
+    tol, replays = FIT_BF16["weights_tol"], FIT_BF16["replays"]
+    out, ret = {}, {}
+    tc = FIT_BF16["transformer"]
+    Bt, S = tc["batch"], cfg["seq_len"]
+    tokens, targets = _token_batches(cfg, Bt * tc["batches"], SEED + 41)
+    fit_t = dict(num_epoch=tc["epochs"], optimizer="sgd",
+                 optimizer_params={"learning_rate": tc["lr"],
+                                   "momentum": tc["momentum"],
+                                   "multi_precision": True},
+                 eval_metric="perplexity")
+
+    def make_lm():
+        mod = mx.Module(transformer.get_symbol(dtype="bfloat16", **cfg),
+                        context=ctx)
+        mod.bind(data_shapes=[("data", (Bt, S))],
+                 label_shapes=[("softmax_label", (Bt * S,))])
+        mod.set_params(convert_params(np_params, ctx, cfg), {})
+        return mod
+
+    def lm_iter():
+        return FlatLabels(mx, mx.io.NDArrayIter(tokens, targets,
+                                                batch_size=Bt))
+
+    res = {}
+    for fused in (True, False):
+        res["fused" if fused else "eager"] = _fit_arm(
+            torch, mx, make_lm, lm_iter(), fit_t, fused,
+            tc["batches"] * tc["epochs"],
+            _bf16_inspect(torch, np_params, replays if fused else 0))
+    _bf16_arm_checks("transformer", res, {
+        "%s:bfloat16" % k: n for k, n in TRAIN_LAUNCHES.items()}, tol)
+    out["transformer"] = {"fused": res["fused"][0], "eager": res["eager"][0],
+                          "weights": _bf16_weights(
+                              "transformer", res["fused"][1],
+                              res["eager"][1], np_params, tol)}
+    ret["transformer"] = res["fused"][0]
+    for arm in ("fused", "eager"):
+        info = res[arm][0]
+        info["tokens_per_s"] = Bt * S / (info["step_ms_p50"] / 1e3)
+    # the same fused step without the scaler: the select's device cost
+    os.environ["MXNET_LOSS_SCALE"] = "off"
+    try:
+        mod = make_lm()
+        mod.fit(lm_iter(), **dict(fit_t, num_epoch=2))
+        check(mod._loss_scaler is None and mod._fused_fit.captures == 1,
+              "fit_bf16: MXNET_LOSS_SCALE=off kept a scaler or captured %d"
+              % mod._fused_fit.captures)
+        off_ms = _graph_replay_ms(torch, mod, replays)
+        del mod
+    finally:
+        del os.environ["MXNET_LOSS_SCALE"]
+    on_ms = res["fused"][0]["inspect"]["graph_replay_ms"]
+    out["loss_scaler_cost"] = {"graph_replay_ms_scaler": on_ms,
+                               "graph_replay_ms_off": off_ms,
+                               "select_ms_per_step": on_ms - off_ms}
+    del res
+    rc = FIT_BF16["resnet"]
+    B = rc["batch"]
+    rcfg = dict(RESNET, dtype="bfloat16")
+    shapes = dict(data=(B,) + tuple(RESNET["image_shape"]),
+                  softmax_label=(B,))
+    sym = resnet.get_symbol(**rcfg)
+    np_args, np_aux = seeded_resnet_params(sym, B, RESNET["image_shape"])
+    x, y = _image_batches(RESNET["image_shape"], B * rc["batches"],
+                          SEED + 42, RESNET["num_classes"])
+    res, kvs = {}, {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for fused in (True, False):
+            args, auxs = convert_symbol_params(np_args, np_aux, ctx, sym,
+                                               **shapes)
+            kv = kvs[fused] = mx.kv.create("device")
+            res["fused" if fused else "eager"] = _fit_arm(
+                torch, mx, lambda: mx.Module(
+                    resnet.get_symbol(**rcfg), context=ctx,
+                    compression_params={"type": "2bit",
+                                        "threshold": rc["threshold"]}),
+                mx.io.NDArrayIter(x, y, batch_size=B),
+                dict(num_epoch=rc["epochs"], kvstore=kv, optimizer="sgd",
+                     optimizer_params={"learning_rate": rc["lr"],
+                                       "momentum": rc["momentum"],
+                                       "wd": rc["wd"],
+                                       "multi_precision": True},
+                     arg_params=args, aux_params=auxs, eval_metric="acc"),
+                fused, rc["batches"] * rc["epochs"],
+                _bf16_inspect(torch, np_args))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    ei = res["eager"][0]
+    buckets = kvs[False]._engine.stats["buckets"] \
+        / (len(ei["step_ms"]) + FIT_FUSED["profiled_steps"])
+    ei["kv_buckets_per_step"] = buckets
+    check(buckets == int(buckets) > 0, "fit_bf16 resnet: %g buckets per "
+          "eager step" % buckets)
+    _bf16_arm_checks("resnet", res, {"two_bit_quantize_fused:float32":
+                                     int(buckets)}, tol)
+    for arm in ("fused", "eager"):
+        info = res[arm][0]
+        info["images_per_s"] = B / (info["step_ms_p50"] / 1e3)
+    out["resnet_2bit"] = {"fused": res["fused"][0], "eager": ei,
+                          "weights": _bf16_weights(
+                              "resnet", res["fused"][1], res["eager"][1],
+                              np_args, tol)}
+    ret["resnet_2bit"] = res["fused"][0]
+    del res, kvs
+    out["overflow"] = _overflow_case(torch, mx, ctx)
+    emit({"phase": "fit_bf16", "config": {"transformer": dict(
+        cfg, dtype="bfloat16"), "resnet": rcfg}, "train": FIT_BF16, **out})
+    return ret
+
+
+def _fused_arms(name, res, initial, kernel, metric_rtol=1e-5):
     """Checks of one fused arm against its eager twin; the phase line's
     entry for the pair."""
-    (fi, fw), (ei, ew) = res["fused"], res["eager"]
+    _fused_arm_checks(name, res, kernel, metric_rtol)
+    return {"fused": res["fused"][0], "eager": res["eager"][0],
+            "weights": _compare_arms(name, res["fused"][1],
+                                     res["eager"][1], initial,
+                                     FIT_FUSED["move_l2"])}
+
+
+def _fused_arm_checks(name, res, kernel, metric_rtol):
+    """The fused arm: one capture, every step fused, no host sync and one
+    graph launch in a steady step, ``kernel`` recorded in its graph; its
+    metric within ``metric_rtol`` of the eager arm's."""
+    fi, ei = res["fused"][0], res["eager"][0]
     steps = len(fi["step_ms"])
     check(fi["fused"] and not ei["fused"], "fit_fused %s: fused %s, eager "
           "%s" % (name, fi["fused"], ei["fused"]))
@@ -5126,12 +5503,9 @@ def _fused_arms(name, res, initial, kernel):
               > 0, "fit_fused %s: %s not in the captured step %s"
               % (name, kernel, captured))
     check(math.isfinite(fi["metric"]) and abs(fi["metric"] - ei["metric"])
-          <= 1e-5 * max(1.0, abs(ei["metric"])),
+          <= metric_rtol * max(1.0, abs(ei["metric"])),
           "fit_fused %s: metric %g fused, %g eager" % (name, fi["metric"],
                                                       ei["metric"]))
-    return {"fused": fi, "eager": ei,
-            "weights": _compare_arms(name, fw, ew, initial,
-                                     FIT_FUSED["move_l2"])}
 
 
 def main():
@@ -5188,6 +5562,7 @@ def main():
     train_launches, train_steps = phase_train(torch, mx, full)
     bf16_launches, bf16_steps = phase_train_bf16(torch, mx, full)
     fit_fused = phase_fit_fused(torch, mx, full)
+    fit_bf16 = phase_fit_bf16(torch, mx, full)
     del full
     phase_train_agreement(torch, mx)
     phase_kvstore(torch, mx)
@@ -5258,6 +5633,10 @@ def main():
         k["launches_per_iteration"] = n / sandwich_iters
     quant_kernel["gluon_launches_per_step"] = \
         gluon_launches[quant_kernel["name"]] / gluon_steps
+    # bf16 Module.fit (fit_bf16): what each fused graph records
+    quant_kernel["fit_bf16_captured_per_step"] = \
+        fit_bf16["resnet_2bit"]["captured_by_dtype"][0][
+            quant_kernel["name"] + ":float32"]
     fused_kernel["launches"] = nhwc_launches[fused_kernel["name"]]
     fused_kernel["launches_per_step"] = fused_kernel["launches"] / nhwc_steps
     # the bf16 forms: launches of the bf16 transformer's TrainStep run
@@ -5268,6 +5647,10 @@ def main():
             else (bf16_launches, bf16_steps)
         k["launches"] = counts[k["name"]]
         k["launches_per_step"] = counts[k["name"]] / steps
+        if k["name"] in TRAIN_LAUNCHES:
+            k["fit_bf16_captured_per_step"] = \
+                fit_bf16["transformer"]["captured_by_dtype"][0][
+                    k["name"] + ":bfloat16"]
     f32_kernels = serve_kernels + [prefill_kernel] + train_kernels + \
         [quant_kernel, fused_kernel]
     for k in f32_kernels:
@@ -5283,6 +5666,7 @@ def main():
                                                   "captured_per_step",
                                                   "launches_per_iteration",
                                                   "fit_fused_captured_per_step",
+                                                  "fit_bf16_captured_per_step",
                                                   "train_launches",
                                                   "spec_launches_per_step",
                                                   "gluon_launches_per_step",

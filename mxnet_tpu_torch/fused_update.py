@@ -25,18 +25,37 @@ use_wd)``:
 * ``use_wd`` is static: the eager ops skip the weight-decay term when
   ``wd`` is 0 (``if wd:``).
 
-Functions take tensors and return new ones; the fit step copies the
-results into the live weights and states in place.  The JAX package's
-kinds for LBSGD, Adamax, Nadam and LAMB wait for those optimizers
-(ROADMAP A.5), its ``DynamicLossScaler`` for low-precision ``Module``
-training (A.1).
+Functions take tensors and return new ones; the fit step and the
+bucketed kvstore copy the results into the live weights and states in
+place.  The JAX package's kinds for LBSGD, Adamax, Nadam and LAMB wait
+for those optimizers (ROADMAP A.5).
+
+This module also keeps :class:`DynamicLossScaler` (counterpart of
+``mxnet_tpu/fused_update.py:395-540``), the loss-scale state of
+low-precision fused training: ``(scale, good steps, skips)`` as three
+0-d tensors on the device that the fit step's graph updates in place;
+the ``loss_scale`` gauge and the ``loss_scale_overflow_skips`` counter
+are published only at sync points (``publish``).
 """
 from __future__ import annotations
 
+import os
+
 import torch
 
+from .base import LOW_PRECISION
+from .telemetry import REGISTRY
+
 __all__ = ["build", "supported", "apply_one", "bulk_apply", "flatten_state",
-           "state_template", "unflatten", "register_kind"]
+           "state_template", "unflatten", "register_kind",
+           "is_low_precision", "DynamicLossScaler", "scaler_config",
+           "LOSS_SCALE", "OVERFLOW_SKIPS"]
+
+
+def is_low_precision(dtype):
+    """Whether ``dtype`` (a torch dtype) gets an f32 master under
+    ``multi_precision`` and a loss scaler in the fused fit step."""
+    return dtype in LOW_PRECISION
 
 
 # ----------------------------------------------------------------------
@@ -232,7 +251,8 @@ def bulk_apply(sig):
     ``fused_update(params, grads, states, runtime_scalars)`` returns
     ``(new_params, new_states)``.  ``runtime_scalars`` carries the
     per-key ``lr`` and ``wd``, the ``rescale`` scalar, the static
-    per-key ``mp`` flags and the static ``use_wd``."""
+    per-key ``mp`` flags and the static ``use_wd`` (one flag, or one per
+    key as the eager ops' ``if wd:`` decides it)."""
     upd = build(sig)
 
     def fused_update(params, grads, states, runtime_scalars):
@@ -240,11 +260,170 @@ def bulk_apply(sig):
         lr, wd, rescale = rt["lr"], rt["wd"], rt["rescale"]
         mp = rt.get("mp") or (False,) * len(params)
         use_wd = rt.get("use_wd", True)
+        if isinstance(use_wd, bool):
+            use_wd = (use_wd,) * len(params)
         new_ps, new_ss = [], []
         for i, (w, g, st) in enumerate(zip(params, grads, states)):
             nw, ns = apply_one(upd, w, g, st, mp[i], lr[i], wd[i], rescale,
-                               use_wd)
+                               use_wd[i])
             new_ps.append(nw)
             new_ss.append(ns)
         return tuple(new_ps), tuple(new_ss)
     return fused_update
+
+
+# ----------------------------------------------------------------------
+# dynamic loss scaling (bf16 training through the fused fit step)
+# ----------------------------------------------------------------------
+LOSS_SCALE = REGISTRY.gauge(
+    "loss_scale",
+    "current dynamic loss scale of the fused fit step (published at sync "
+    "points; the live value is on the device)")
+OVERFLOW_SKIPS = REGISTRY.counter(
+    "loss_scale_overflow_skips",
+    "fused fit steps whose update was skipped because a gradient was "
+    "not finite (the loss scale backs off)")
+
+
+def scaler_config():
+    """The loss-scaling knobs: ``MXNET_LOSS_SCALE`` is ``dynamic`` (the
+    default), ``off``, or a number for a static scale (which still skips
+    a non-finite step, and never changes); ``MXNET_LOSS_SCALE_INIT``
+    (2^15) and ``MXNET_LOSS_SCALE_GROWTH_INTERVAL`` (2000).  None when
+    scaling is off."""
+    mode = os.environ.get("MXNET_LOSS_SCALE", "dynamic").strip().lower()
+    if mode in ("off", "none", "0", ""):
+        return None
+    init = float(os.environ.get("MXNET_LOSS_SCALE_INIT", str(2.0 ** 15)))
+    interval = int(os.environ.get("MXNET_LOSS_SCALE_GROWTH_INTERVAL",
+                                  "2000"))
+    if mode == "dynamic":
+        return {"dynamic": True, "init": init, "interval": interval}
+    return {"dynamic": False, "init": float(mode), "interval": interval}
+
+
+class DynamicLossScaler:
+    """Loss-scale state of low-precision fused training.  The live
+    ``(scale f32, good i32, skips i32)`` triple is three 0-d tensors on
+    the device, updated in place by :meth:`step_fn` inside the fit
+    step's graph; the host copies change only in :meth:`publish` (a
+    host sync, made at sync points only).  The scale grows 2x after
+    ``growth_interval`` finite steps in a row, up to 2^24, and halves
+    (not below 1) on a non-finite step; a static scaler keeps its scale
+    and still counts skips.  As in the JAX package the loss itself is
+    not scaled (the loss heads make their own gradient): the scaler's
+    use is the detection of a non-finite step, which the fit step
+    skips."""
+
+    GROWTH = 2.0
+    BACKOFF = 0.5
+    MAX_SCALE = 2.0 ** 24
+
+    def __init__(self, init_scale=None, growth_interval=None, dynamic=True):
+        cfg = scaler_config() or {"dynamic": True, "init": 2.0 ** 15,
+                                  "interval": 2000}
+        self.dynamic = bool(dynamic if dynamic is not None
+                            else cfg["dynamic"])
+        self._scale = float(init_scale if init_scale is not None
+                            else cfg["init"])
+        self.growth_interval = int(growth_interval
+                                   if growth_interval is not None
+                                   else cfg["interval"])
+        self._good = 0
+        self._skips = 0
+        self._published_skips = 0
+        self._dev = None        # the live (scale, good, skips) tensors
+
+    @classmethod
+    def from_config(cls):
+        """A scaler from :func:`scaler_config`, or None when it is off."""
+        cfg = scaler_config()
+        if cfg is None:
+            return None
+        return cls(init_scale=cfg["init"], growth_interval=cfg["interval"],
+                   dynamic=cfg["dynamic"])
+
+    def trace_sig(self):
+        """What a captured step's arithmetic depends on."""
+        return ("lscale", self.dynamic, self.growth_interval, self.GROWTH,
+                self.BACKOFF, self.MAX_SCALE)
+
+    def device_state(self, device="cpu"):
+        """The live triple, made on ``device`` from the host values at
+        first use."""
+        if self._dev is None:
+            self._dev = (
+                torch.tensor(self._scale, dtype=torch.float32, device=device),
+                torch.tensor(self._good, dtype=torch.int32, device=device),
+                torch.tensor(self._skips, dtype=torch.int32, device=device))
+        return self._dev
+
+    @torch.no_grad()
+    def step_fn(self, finite, state):
+        """One step's bookkeeping, in place on ``state`` (returned):
+        ``finite`` is a 0-d bool tensor (or a bool)."""
+        scale, good, skips = state
+        finite = torch.as_tensor(finite, device=scale.device)
+        skips.add_((~finite).to(skips.dtype))
+        if not self.dynamic:
+            return state
+        new_good = torch.where(finite, good + 1, torch.zeros_like(good))
+        grow = new_good >= self.growth_interval
+        grown = torch.clamp(scale * self.GROWTH, max=self.MAX_SCALE)
+        new_scale = torch.where(finite, torch.where(grow, grown, scale),
+                                torch.clamp(scale * self.BACKOFF, min=1.0))
+        good.copy_(torch.where(grow, torch.zeros_like(new_good), new_good))
+        scale.copy_(new_scale)
+        return state
+
+    def publish(self):
+        """Read the live triple into the host copies and publish the
+        ``loss_scale`` gauge and the new skips to
+        ``loss_scale_overflow_skips``; returns the scale.  A host sync:
+        call it only at sync points."""
+        if self._dev is not None:
+            scale, good, skips = self._dev
+            self._scale = float(scale.item())
+            self._good = int(good.item())
+            self._skips = int(skips.item())
+        LOSS_SCALE.set(self._scale)
+        delta = self._skips - self._published_skips
+        if delta > 0:
+            OVERFLOW_SKIPS.inc(delta)
+        self._published_skips = self._skips
+        return self._scale
+
+    @property
+    def scale(self):
+        return self._scale
+
+    @property
+    def skips(self):
+        return self._skips
+
+    def state_dict(self):
+        self.publish()
+        return {"scale": self._scale, "good": self._good,
+                "skips": self._skips, "dynamic": self.dynamic,
+                "growth_interval": self.growth_interval}
+
+    def load_state_dict(self, d):
+        """Restore :meth:`state_dict`'s values; a live triple takes them
+        in place (a captured step keeps reading the same tensors)."""
+        self._scale = float(d.get("scale", self._scale))
+        self._good = int(d.get("good", 0))
+        self._skips = int(d.get("skips", 0))
+        self.dynamic = bool(d.get("dynamic", self.dynamic))
+        self.growth_interval = int(d.get("growth_interval",
+                                         self.growth_interval))
+        self._published_skips = self._skips
+        if self._dev is not None:
+            for t, v in zip(self._dev, (self._scale, self._good,
+                                        self._skips)):
+                t.fill_(v)
+
+    @classmethod
+    def from_state(cls, d):
+        s = cls()
+        s.load_state_dict(d)
+        return s

@@ -11,9 +11,10 @@ kvstore keys are the parameters' positions, in name order for a
 ParameterDict.  With ``update_on_kvstore`` the store keeps its own copy
 of each weight, applies the optimizer there and the pull copies it back
 into the parameter; without it, the updater runs on the parameter in
-place.  bf16 weights under ``multi_precision`` raise in the port's
-``Updater`` (ROADMAP A.1); optimizer-state files come with serialization
-(ROADMAP A.7).
+place.  bf16 weights (``net.cast('bfloat16')``) under
+``multi_precision`` train through the ``Updater``'s f32 masters on
+either side, as ``Module`` does; optimizer-state files come with
+serialization (ROADMAP A.7).
 """
 from __future__ import annotations
 

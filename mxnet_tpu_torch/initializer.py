@@ -36,8 +36,8 @@ def create(name, **kwargs):
         return name
     key = str(name).lower()
     if key not in _INIT_REGISTRY:
-        raise MXNetError("initializer '%s' is not in the PyTorch port yet"
-                         % name)
+        raise MXNetError("initializer '%s' is not in the PyTorch port yet "
+                         "(ROADMAP A.5, initializers)" % name)
     return _INIT_REGISTRY[key](**kwargs)
 
 

@@ -78,5 +78,5 @@ def two_bit_quantize_fused(residual, grad, threshold):
         new_residual.data_ptr(), n, _f32(threshold), grad.device.index or 0,
         torch.cuda.current_stream(grad.device).cuda_stream)
     _build.check(lib, _KERNEL, err)
-    count_launch(_KERNEL)
+    count_launch(_KERNEL, grad.dtype)
     return q, new_residual

@@ -1,26 +1,31 @@
 """The bucketed kvstore push path.
 
 Counterpart of ``mxnet_tpu/kvstore_fused.py``.  A batched ``push`` packs
-the dense f32 gradients into buckets of at most
-``MXNET_KVSTORE_BIGARRAY_BOUND`` bytes (default 4 MiB, the analog of
-MXNet's big-array bound; a larger value gets a bucket of its own), and
-each bucket runs as one short sequence of eager calls:
+the dense gradients (f32, or bf16 when an optimizer applies them) into
+buckets of at most ``MXNET_KVSTORE_BIGARRAY_BOUND`` bytes (default 4
+MiB, the analog of MXNet's big-array bound; each key counted at its own
+item size, a larger value in a bucket of its own, a new bucket at a
+change of type), and each bucket runs as one short sequence of eager
+calls:
 
     with 2-bit compression: per device stream, ``torch.cat`` of the
-      gradients' flat f32 views, then ONE ``two_bit_quantize_fused``
-      launch against the bucket's persistent flat error-feedback
+      gradients' flat f32 views (the master-gradient view: a bf16
+      gradient is widened once, here), then ONE ``two_bit_quantize_fused``
+      launch against the bucket's persistent flat f32 error-feedback
       residual; the quantized streams summed in device order; the sum
       sliced back per key;
-    without: each key's device streams summed in order;
-    then the optimizer applied per key through the store's ``Updater``
-      (the in-place ops of ``ops/optimizer_ops.py``), or, with no
-      updater, the reduced value stored.
+    without: each key's device streams summed in order, in their type;
+    then the optimizer's fused update (``Optimizer._fused_bucket_sig``,
+      ``fused_update.bulk_apply``, with each key's static
+      multi-precision flag: a bf16 weight under ``multi_precision`` is
+      updated through its f32 master) written into the stored weights
+      and the ``Updater``'s states, or, with no updater, the reduced
+      value stored.
 
 The JAX package runs the same op sequence as one compiled program per
-bucket (SGD apply: ``fused_sgd_apply``, the op sequence of
-``ops/optimizer_ops.py``), so the two packages agree bit for bit on the
-compressor and to the last ulp on the update.  PyTorch runs eagerly:
-there is no program cache and nothing to retrace.  ``Module``'s
+bucket, so the two packages agree bit for bit on the compressor and to
+the last ulp on the update.  PyTorch runs eagerly: there is no program
+cache and nothing to retrace.  ``Module``'s
 single-launch fit step (``module/fused_fit.py``) packs its gradients
 into the same buckets (:func:`push_plan`) and quantizes each inside its CUDA
 graph against flat residuals it keeps; the residuals move between the
@@ -32,9 +37,10 @@ priority, then arrival.  Once a bucket's worth of bytes is pending, the
 full buckets go out at once (the streaming flush) and the partial tail
 waits for the end of the push or the next sync point.
 
-Custom updaters and optimizers without a fused signature
-(``Optimizer._fused_bucket_sig``) take the eager per-key path
-(``KVStore._push_one``) with the same semantics.
+Custom updaters, optimizers without a fused signature, float16 values
+(ROADMAP A.1, float16) and, with no updater, any value other than f32
+take the eager per-key path (``KVStore._push_one``) with the same
+semantics.
 """
 from __future__ import annotations
 
@@ -42,6 +48,7 @@ import os
 
 import torch
 
+from . import fused_update as _fused
 from .kernels import two_bit_quantize_fused
 from .ndarray.ndarray import NDArray
 
@@ -69,15 +76,16 @@ def bucket_byte_cap():
 
 
 def pack(items, cap):
-    """Greedy size-capped packing of ``items`` (objects with ``nbytes``
-    and ``n_dev``) in the order given: a new bucket starts when the cap
-    would overflow or the stream count changes; an oversized value gets
-    its own bucket.  (Every bucketed value is f32, so, unlike the JAX
-    package's, no bucket splits on a dtype change.)"""
+    """Greedy size-capped packing of ``items`` (objects with ``nbytes``,
+    ``n_dev`` and ``dtype``) in the order given: a new bucket starts
+    when the cap would overflow or the stream count or the type changes
+    (``mxnet_tpu/kvstore_fused.py:449``); an oversized value gets its
+    own bucket."""
     buckets, cur, cur_bytes = [], [], 0
     for it in items:
         if cur and (cur_bytes + it.nbytes > cap
-                    or it.n_dev != cur[0].n_dev):
+                    or it.n_dev != cur[0].n_dev
+                    or it.dtype != cur[0].dtype):
             buckets.append(cur)
             cur, cur_bytes = [], 0
         cur.append(it)
@@ -127,7 +135,7 @@ class _Pending:
     not change what the flush applies (MXNet's push-at-call semantics)."""
 
     __slots__ = ("key", "data", "priority", "seq", "size", "shape",
-                 "itemsize")
+                 "itemsize", "dtype")
 
     def __init__(self, key, vlist, priority, seq, snapshot):
         self.key = key
@@ -138,6 +146,7 @@ class _Pending:
         self.shape = tuple(self.data[0].shape)
         self.size = self.data[0].numel()
         self.itemsize = self.data[0].element_size()
+        self.dtype = self.data[0].dtype
 
     @property
     def n_dev(self):
@@ -168,15 +177,17 @@ class FusedBucketEngine:
 
     # -- eligibility ----------------------------------------------------
     def _updater_mode(self):
-        """None with no updater (the reduced value is stored), True for
-        an ``Updater`` whose optimizer has a fused bucket signature, or
-        False when updates must stay on the eager path."""
+        """None with no updater (the reduced value is stored), the fused
+        bucket signature of an ``Updater``'s optimizer, or False when
+        updates must stay on the eager path."""
         from .optimizer import Updater
         updater = self._kv._updater
         if updater is None:
             return None
-        return isinstance(updater, Updater) \
-            and updater.optimizer._fused_bucket_sig() is not None
+        if not isinstance(updater, Updater):
+            return False
+        sig = updater.optimizer._fused_bucket_sig()
+        return sig if sig is not None and _fused.supported(sig) else False
 
     def ineligible_reason(self, key, vlist, mode):
         """None when the push may take the bucketed path, else a short
@@ -192,8 +203,14 @@ class FusedBucketEngine:
         for v in vlist:
             if not isinstance(v, NDArray):
                 return "non_ndarray_value"
-            if v._data.dtype != torch.float32:
-                # bf16 and f16 gradients come with the bf16 slice
+            dtype = v._data.dtype
+            if dtype == torch.float16:
+                return "float16_dtype (ROADMAP A.1, float16)"
+            if dtype != torch.float32 and (
+                    mode is None or not _fused.is_low_precision(dtype)):
+                # a low-precision value is bucketed only under an
+                # optimizer (its f32 master-gradient view); a stored
+                # value keeps its type on the eager path
                 return "non_f32_dtype"
             if v.shape != vlist[0].shape:
                 return "mismatched_device_shapes"
@@ -259,7 +276,6 @@ class FusedBucketEngine:
     def _dispatch(self, bucket, mode):
         """One bucket: compress and reduce the device streams, then apply
         or store per key (``kvstore_fused.py:599`` of the JAX package)."""
-        from .kvstore import _updater_key
         kv = self._kv
         comp = kv._compression
         n_dev = bucket[0].n_dev
@@ -303,9 +319,41 @@ class FusedBucketEngine:
                 kv._store[it.key] = NDArray(
                     out.clone() if out is it.data[0] else out)
         else:
-            for it, g in zip(bucket, reduced):
-                kv._updater(_updater_key(it.key), NDArray(g),
-                            kv._store[it.key])
+            self._apply(bucket, reduced, mode)
+
+    def _apply(self, bucket, reduced, sig):
+        """The optimizer's fused update of one bucket
+        (``fused_update.bulk_apply``), each key with its static
+        multi-precision flag, written into the stored weights and the
+        ``Updater``'s states in place; lr, wd and the update counts as
+        the eager per-key updates would set them."""
+        from .kvstore import _updater_key
+        kv = self._kv
+        updater = kv._updater
+        opt = updater.optimizer
+        ukeys = [_updater_key(it.key) for it in bucket]
+        weights = [kv._store[it.key] for it in bucket]
+        leaves, tpls = [], []
+        for uk, w in zip(ukeys, weights):
+            leaf, tpl = _fused.flatten_state(updater.state(uk, w))
+            leaves.append(leaf)
+            tpls.append(tpl)
+        mp = tuple(opt.multi_precision
+                   and _fused.is_low_precision(w._data.dtype)
+                   for w in weights)
+        lr, wd = opt._fused_runtime(ukeys)
+        with torch.no_grad():
+            new_ws, new_ss = _fused.bulk_apply(sig)(
+                [w._data for w in weights], reduced,
+                [_fused.unflatten(t, [x._data for x in leaf])
+                 for t, leaf in zip(tpls, leaves)],
+                {"lr": lr.tolist(), "wd": wd.tolist(),
+                 "rescale": opt.rescale_grad, "mp": mp,
+                 "use_wd": tuple(bool(v) for v in wd != 0.0)})
+            for w, leaf, nw, ns in zip(weights, leaves, new_ws, new_ss):
+                w._data.copy_(nw)
+                for x, new in zip(leaf, _fused.flatten_state(ns)[0]):
+                    x._data.copy_(new)
 
     # -- flat error-feedback residuals ---------------------------------
     def _flat_residuals(self, keys_tuple, layout, n_dev, bucket):

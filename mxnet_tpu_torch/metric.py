@@ -54,8 +54,8 @@ def create(metric, *args, **kwargs):
         return composite
     key = str(metric).lower()
     if key not in _METRIC_REGISTRY:
-        raise MXNetError("metric '%s' is not in the PyTorch port yet"
-                         % metric)
+        raise MXNetError("metric '%s' is not in the PyTorch port yet "
+                         "(ROADMAP A.5, metrics)" % metric)
     return _METRIC_REGISTRY[key](*args, **kwargs)
 
 

@@ -178,10 +178,11 @@ def _serving_only(fn_name, moe_experts, tensor_parallel=None,
                          "(ROADMAP A.1)" % (fn_name, dtype))
     if moe_experts:
         raise MXNetError("%s: MoE layers (moe_experts=%s) are not in the "
-                         "PyTorch port yet" % (fn_name, moe_experts))
+                         "PyTorch port yet (ROADMAP A.8)"
+                         % (fn_name, moe_experts))
     if tensor_parallel:
         raise MXNetError("%s: tensor-parallel decode is not in the PyTorch "
-                         "port yet" % fn_name)
+                         "port yet (ROADMAP A.8)" % fn_name)
 
 
 def get_decode_step_symbol(num_classes=16384, num_layers=12, d_model=2048,

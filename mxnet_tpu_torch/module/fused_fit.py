@@ -7,12 +7,30 @@ metric read every batch.  ``FusedFitStep`` runs the whole step as one
 body:
 
     forward + backward (the executor's graph walk, torch autograd)
+      -> the gradients' f32 view (a bf16 gradient widened once)
       -> 2-bit quantize per bucket against flat error-feedback
          residuals it keeps (optional; the ``two_bit_quantize_fused``
          kernel)
       -> the fused optimizer update (``Optimizer._fused_fit_sig``,
-         ``fused_update.py``), written into the live weights and states
+         ``fused_update.py``; a bf16 weight under ``multi_precision``
+         through its f32 master), written into the live weights and
+         states
       -> the metric's device accumulation (``EvalMetric.device_fn``)
+
+With bf16 parameters the module keeps a ``DynamicLossScaler``
+(``module._loss_scaler``, from ``MXNET_LOSS_SCALE``; it survives a
+re-bind and ``init_optimizer``), as the JAX package's fused step does
+(``mxnet_tpu/module/fused_fit.py:446-469``): the step checks on the
+device that every gradient's f32 view is finite (its minimum and
+maximum, one reduction each) and, where the JAX program branches with
+``lax.cond``, selects with ``torch.where`` into the live weights,
+masters, optimizer states and residuals (the new values on a finite
+step, the old ones, bit for bit, on a non-finite one), then updates the
+scaler's triple in place.  Inside a CUDA graph that is one more read of
+each committed tensor and of a bool mask, no host sync and no second
+capture (``tools/torch_select_ab.py`` times the alternatives).  The
+loss is not scaled (the JAX package's rule); auxiliary states and the
+metric take every step.
 
 On the card each batch shape's body is captured once as one CUDA graph
 (after ``_WARMUP`` eager steps on a side stream, as PyTorch requires),
@@ -42,15 +60,14 @@ it (after the bucketed engine spills its own) and spills them back
 (``_release``) before any eager update.
 
 Eligible: no store or the single-process ``KVStore`` (``'local'``,
-``'device'``), with or without 2-bit compression; no monitor; f32
-parameters with ``grad_req='write'``; an optimizer with a fused
+``'device'``), with or without 2-bit compression; no monitor; f32 or
+bf16 parameters with ``grad_req='write'``; an optimizer with a fused
 signature and the module's own ``Updater``.  Everything else keeps the
 eager pair.  ``Module.bind`` already refuses ``inputs_need_grad``;
-bf16 parameters (and the JAX package's ``DynamicLossScaler``) wait for
-ROADMAP A.1, a mesh or several processes for A.8 (such a ``Module`` or
-store raises at construction), the in-launch numerics sentinels for
-A.9 (``MXNET_SENTINEL_NUMERICS`` other than 0 raises here).
-``MXNET_FIT_FUSED=0`` keeps every step eager.
+float16 waits for ROADMAP A.1, a mesh or several processes for A.8
+(such a ``Module`` or store raises at construction), the in-launch
+numerics sentinels for A.9 (``MXNET_SENTINEL_NUMERICS`` other than 0
+raises here).  ``MXNET_FIT_FUSED=0`` keeps every step eager.
 
 The random streams are not registered with the graph: a step that
 draws random numbers (an op of ``ops/random_ops.py``) raises at its
@@ -68,7 +85,7 @@ from .. import fused_update as _fused
 from .. import random as _random
 from ..base import MXNetError
 from ..executor import run_graph
-from ..kernels import LAUNCHES
+from ..kernels import LAUNCHES, LAUNCHES_BY_DTYPE
 from ..kvstore import KVStore, _updater_key
 from ..kvstore_fused import bucket_byte_cap, push_plan, two_bit_quantize
 from ..ndarray.ndarray import NDArray
@@ -149,6 +166,7 @@ class _Program:
         self.outs = None
         self.warm = 0
         self.captured = {}          # kernel launches recorded in the graph
+        self.captured_by_dtype = {}     # the same, "name:dtype" keys
 
     def run(self):
         if self.device.type != "cuda":
@@ -172,12 +190,15 @@ class _Program:
                     "MXNET_FIT_FUSED=0 keeps such a model eager")
             self.warm += 1
             return outs
-        before = dict(LAUNCHES)
+        before, before_dt = dict(LAUNCHES), dict(LAUNCHES_BY_DTYPE)
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):
             self.outs = self.body()
         self.captured = {k: v - before[k] for k, v in LAUNCHES.items()
                          if v != before[k]}
+        self.captured_by_dtype = {
+            k: v - before_dt.get(k, 0) for k, v in LAUNCHES_BY_DTYPE.items()
+            if v != before_dt.get(k, 0)}
         self.graph.replay()
         return self.outs
 
@@ -187,11 +208,12 @@ class FusedFitStep:
 
     _METRIC_UNSET = object()
 
-    def __init__(self, module, updater, kv, threshold):
+    def __init__(self, module, updater, kv, threshold, low_precision):
         self._mod = module
         self._updater = updater
         self._kv = kv                   # None or the single-process store
         self._threshold = threshold     # 2-bit threshold, or None
+        self._low_precision = low_precision   # bf16 parameters: a scaler
         exe = module._exec_group._exec
         self._device = exe.arg_dict[module._exec_group.param_names[0]] \
             ._data.device
@@ -247,14 +269,22 @@ class FusedFitStep:
                      if exe._grad_req.get(n, "null") != "null"]
         if not trainable:
             return no("no trainable parameters")
+        low_precision = False
         for name in trainable:
             if exe._grad_req[name] != "write":
                 return no("grad_req %r on %s" % (exe._grad_req[name], name))
-            if exe.arg_dict[name]._data.dtype != torch.float32:
-                return no("%s parameter %s (bf16 Module training is "
-                          "ROADMAP A.1)" % (exe.arg_dict[name]._data.dtype,
-                                            name))
-        return FusedFitStep(module, updater, kv, threshold)
+            dtype = exe.arg_dict[name]._data.dtype
+            if dtype == torch.float16:
+                return no("float16 parameter %s (ROADMAP A.1, float16)"
+                          % name)
+            if dtype not in (torch.float32, torch.bfloat16):
+                return no("%s parameter %s" % (dtype, name))
+            low_precision = low_precision or dtype == torch.bfloat16
+        if low_precision and module._loss_scaler is None:
+            # on the module, so it survives a re-bind and init_optimizer;
+            # None when MXNET_LOSS_SCALE is off
+            module._loss_scaler = _fused.DynamicLossScaler.from_config()
+        return FusedFitStep(module, updater, kv, threshold, low_precision)
 
     # -- residuals (shared with the bucketed engine) --------------------
     def _plan(self, exe):
@@ -270,9 +300,14 @@ class FusedFitStep:
                        for n in self._order]
         if self._threshold is None:
             return
-        items = [SimpleNamespace(name=n, n_dev=1, priority=-pos[n], seq=i,
-                                 nbytes=exe.arg_dict[n]._data.numel() * 4)
-                 for i, n in enumerate(reversed(self._order))]
+        # each key at its own item size and type, as the eager push
+        # packs it
+        items = []
+        for i, n in enumerate(reversed(self._order)):
+            t = exe.arg_dict[n]._data
+            items.append(SimpleNamespace(
+                name=n, n_dev=1, priority=-pos[n], seq=i, dtype=t.dtype,
+                nbytes=t.numel() * t.element_size()))
         self._buckets, self._res_flat = [], []
         for bucket in push_plan(items, bucket_byte_cap()):
             layout, off = [], 0
@@ -312,7 +347,8 @@ class FusedFitStep:
             self._res_live = False
 
     # -- the step body --------------------------------------------------
-    def _make_body(self, feeds, targets, states, tpls, use_wd, upd):
+    def _make_body(self, feeds, targets, states, tpls, mp, use_wd, upd,
+                   scaler):
         mod = self._mod
         exe = mod._exec_group._exec
         order, threshold = self._order, self._threshold
@@ -320,6 +356,16 @@ class FusedFitStep:
         scalars, (acc_sum, acc_num) = self._scalars, self._acc
         metric_fn = self._metric_fn
         leaves = [exe.arg_dict[name]._data for name in order]
+        scaler_state, mask = None, None
+        if scaler is not None:
+            scaler_state = scaler.device_state(self._device)
+            # the step's finiteness spread over a contiguous buffer, so
+            # each select reads contiguous operands (a broadcast 0-d
+            # condition keeps torch.where off its vectorized loads)
+            sizes = [t.numel() for ts in targets + states for t in ts]
+            sizes += [r.numel() for r in self._res_flat or ()]
+            mask = torch.empty(max(sizes), dtype=torch.bool,
+                               device=self._device)
 
         def body():
             values = {k: nd._data for k, nd in exe.aux_dict.items()}
@@ -335,8 +381,32 @@ class FusedFitStep:
                 for name, t in new_aux.items():
                     if name in exe.aux_dict:
                         exe.aux_dict[name]._data.copy_(t)
-                g32 = {name: (torch.zeros_like(w) if g is None else g.float())
+                # the f32 master-gradient view: compression, the update
+                # and the finiteness check read it
+                g32 = {name: (torch.zeros(w.shape, dtype=torch.float32,
+                                          device=w.device)
+                              if g is None else g.float())
                        for name, w, g in zip(order, leaves, grads)}
+                finite = None
+                if scaler is not None:
+                    # a NaN or an infinity reaches a minimum or a
+                    # maximum: isfinite(g).all() from one reduction
+                    # that writes no mask
+                    ext = [v for g in g32.values() if g.numel()
+                           for v in torch.aminmax(g)]
+                    finite = torch.isfinite(torch.stack(ext)).all() \
+                        if ext else torch.ones((), dtype=torch.bool,
+                                               device=self._device)
+                    mask.copy_(finite.expand(mask.shape))
+
+                def commit(dst, new):
+                    if finite is None:
+                        dst.copy_(new)
+                    else:
+                        # a non-finite step keeps every old value
+                        torch.where(mask[:dst.numel()].view(dst.shape),
+                                    new, dst, out=dst)
+
                 if threshold is not None:
                     for layout, res in zip(self._buckets, self._res_flat):
                         parts = [g32[name].reshape(-1)
@@ -344,7 +414,7 @@ class FusedFitStep:
                         flat = parts[0] if len(parts) == 1 \
                             else torch.cat(parts)
                         q, new_res = two_bit_quantize(res, flat, threshold)
-                        res.copy_(new_res)
+                        commit(res, new_res)
                         for name, off, size, shape in layout:
                             g32[name] = q[off:off + size].view(shape)
                 rescale = scalars[2 * n]
@@ -352,13 +422,15 @@ class FusedFitStep:
                     w = targets[i][0]
                     st = _fused.unflatten(tpls[i], states[i])
                     new_w, new_st = _fused.apply_one(
-                        upd, w, g32[name], st, False, scalars[i],
+                        upd, w, g32[name], st, mp[i], scalars[i],
                         scalars[n + i], rescale, use_wd[i])
                     for t in targets[i]:
-                        t.copy_(new_w)
+                        commit(t, new_w)
                     for leaf, new in zip(states[i],
                                          _fused.flatten_state(new_st)[0]):
-                        leaf.copy_(new)
+                        commit(leaf, new)
+                if scaler is not None:
+                    scaler.step_fn(finite, scaler_state)
                 detached = [h.detach() for h in heads]
                 if metric_fn is not None:
                     bsum, bnum = metric_fn(feeds, detached)
@@ -411,8 +483,9 @@ class FusedFitStep:
         order, ukeys = self._order, self._ukeys
         updater, optimizer = self._updater, mod._optimizer
         # the tensors the programs read and write: a change (a rebind,
-        # new state arrays) makes every captured program stale
-        targets, states, tpls = [], [], []
+        # new state arrays, another scaler) makes every captured program
+        # stale
+        targets, states, tpls, mp = [], [], [], []
         for name, uk in zip(order, ukeys):
             arg = exe.arg_dict[name]
             weight = self._kv._store[name] if self._kv is not None else arg
@@ -422,8 +495,17 @@ class FusedFitStep:
             leaves, tpl = _fused.flatten_state(st)
             states.append([leaf._data for leaf in leaves])
             tpls.append(tpl)
+            # an explicit static flag: Adam's (mean, var) has the nesting
+            # of an (inner, weight32) pair
+            mp.append(optimizer.multi_precision
+                      and _fused.is_low_precision(weight._data.dtype))
+        mp = tuple(mp)
+        scaler = mod._loss_scaler if self._low_precision else None
         aux = [nd._data for nd in exe.aux_dict.values()]
-        bound = tuple(id(t) for ts in targets + states + [aux] for t in ts)
+        live = list(scaler.device_state(self._device)) \
+            if scaler is not None else []
+        bound = tuple(id(t) for ts in targets + states + [aux, live]
+                      for t in ts)
         if bound != self._bound:
             self._programs.clear()
             self._bound = bound
@@ -436,8 +518,8 @@ class FusedFitStep:
                 eval_metric, group.label_names, mod._symbol.list_outputs())
             self._metric_ref = eval_metric
         shapes = tuple((n, tuple(t.shape)) for n, t in inputs.items())
-        key = (shapes, mode, self._threshold, tuple(tpls), use_wd,
-               self._msig)
+        key = (shapes, mode, self._threshold, tuple(tpls), mp, use_wd,
+               self._msig, scaler.trace_sig() if scaler is not None else None)
         prog = self._programs.get(key)
         if prog is None:
             feeds = {}
@@ -447,8 +529,9 @@ class FusedFitStep:
                     else torch.empty(t.shape, dtype=arg.dtype,
                                      device=arg.device)
             prog = self._programs[key] = _Program(
-                self._make_body(feeds, targets, states, tpls, use_wd,
-                                _fused.build(mode)), feeds, self._device)
+                self._make_body(feeds, targets, states, tpls, mp, use_wd,
+                                _fused.build(mode), scaler), feeds,
+                self._device)
         host = _np.concatenate([lr, wd, _np.float32(
             [optimizer.rescale_grad])]).astype(_np.float32)
         self._scalar_stage.put(torch.from_numpy(host))
@@ -481,8 +564,8 @@ class FusedFitStep:
         self.launches += 1
         return True
 
-    def captured_launches(self):
+    def captured_launches(self, by_dtype=False):
         """Kernel launches recorded in each captured graph, by kernel
-        (one dict per capture)."""
-        return [p.captured for p in self._programs.values()
-                if p.graph is not None]
+        (``by_dtype``: by ``"name:dtype"``), one dict per capture."""
+        return [p.captured_by_dtype if by_dtype else p.captured
+                for p in self._programs.values() if p.graph is not None]

@@ -85,6 +85,9 @@ class Module(BaseModule):
         self._fused_fit = None
         self._fused_fit_tried = False
         self._monitor_installed = False
+        # the fused step's DynamicLossScaler for bf16 parameters
+        # (module/fused_fit.py), kept across re-binds
+        self._loss_scaler = None
 
     @property
     def data_names(self):
@@ -165,10 +168,11 @@ class Module(BaseModule):
              grad_req="write"):
         if shared_module is not None:
             raise MXNetError("bind(shared_module=...) comes with the "
-                             "bucketing slice of the PyTorch port")
+                             "bucketing slice of the PyTorch port (ROADMAP "
+                             "A.5)")
         if inputs_need_grad:
             raise MXNetError("bind(inputs_need_grad=True) comes with a "
-                             "later slice of the PyTorch port")
+                             "later slice of the PyTorch port (ROADMAP A.5)")
         if force_rebind:
             self._drop_fused_fit()
             self.binded = False
@@ -244,8 +248,8 @@ class Module(BaseModule):
         bound = tuple(d.shape for d in self._data_shapes)
         if arriving != bound:
             raise MXNetError("batch shapes %s differ from the bound %s; "
-                             "re-binding comes with a later slice"
-                             % (arriving, bound))
+                             "re-binding comes with a later slice (ROADMAP "
+                             "A.5, Module.reshape)" % (arriving, bound))
         self._exec_group.forward(data_batch, is_train)
 
     def backward(self, out_grads=None):
@@ -305,13 +309,16 @@ class Module(BaseModule):
 
     def _fit_sync(self):
         """Wait until the steps enqueued so far have run
-        (``MXNET_FIT_SYNC_EVERY``)."""
+        (``MXNET_FIT_SYNC_EVERY``), then publish the loss scaler's
+        ``loss_scale`` and overflow skips (already a sync point)."""
         if self.binded:
             exe = self._exec_group._exec
             dev = exe.arg_dict[self._param_names[0]]._data.device \
                 if self._param_names else None
             if dev is not None and dev.type == "cuda":
                 torch.cuda.current_stream(dev).synchronize()
+        if self._loss_scaler is not None:
+            self._loss_scaler.publish()
 
     def save_optimizer_states(self, fname):
         """Write the updater's states (``Updater.get_states``) to

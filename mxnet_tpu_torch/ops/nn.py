@@ -330,8 +330,8 @@ def leaky_relu(data, gamma=None, *, act_type="leaky", slope=0.25,
         return torch.where(data > 0, data, slope * data)
     if act_type == "gelu_tanh":
         return F.gelu(data, approximate="tanh")
-    raise MXNetError("LeakyReLU act_type=%s is not in the PyTorch port yet"
-                     % act_type)
+    raise MXNetError("LeakyReLU act_type=%s is not in the PyTorch port yet "
+                     "(ROADMAP A.5, ops)" % act_type)
 
 
 @register("Embedding")

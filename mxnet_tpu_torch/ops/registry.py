@@ -106,8 +106,8 @@ def get_op(name):
     try:
         return _OP_REGISTRY[name]
     except KeyError:
-        raise MXNetError("operator %s is not in the PyTorch port yet"
-                         % name) from None
+        raise MXNetError("operator %s is not in the PyTorch port yet "
+                         "(ROADMAP A.6, missing op names)" % name) from None
 
 
 def list_ops():

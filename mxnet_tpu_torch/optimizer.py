@@ -20,15 +20,15 @@ runtime values (``_fused_runtime``).  SGD (with momentum), Adam,
 AdaGrad and RMSProp (plain and centered) describe theirs; Signum
 returns None and stays on the eager per-key path.
 
-``multi_precision=True`` keeps an f32 master copy of every bf16 (or
-float16) weight: ``create_state_multi_precision`` returns ``(inner
-state, weight32)`` and ``update_multi_precision`` updates the master in
-f32 and writes it back rounded to the weight's type, as the JAX
-package's do; ``parallel.TrainStep`` applies the same update through
-``mp_sgd_update``/``mp_sgd_mom_update``.  The ``Updater`` that
-``Module`` and the kvstore apply raises for a low-precision weight
-under ``multi_precision`` (bf16 there is a later item, ROADMAP A.1),
-rather than update it in its own precision.
+``multi_precision=True`` keeps an f32 master copy of every bf16
+weight: ``create_state_multi_precision`` returns ``(inner state,
+weight32)`` and ``update_multi_precision`` updates the master in f32
+and writes it back rounded to the weight's type, as the JAX package's
+do (SGD through ``mp_sgd_update``/``mp_sgd_mom_update``, the ops that
+``parallel.TrainStep`` applies too).  The ``Updater`` that ``Module``,
+the kvstore and Gluon's ``Trainer`` apply creates and updates every
+state through these two, so a bf16 weight trains through its master on
+every path; float16 raises (ROADMAP A.1, float16).
 """
 from __future__ import annotations
 
@@ -41,6 +41,7 @@ import torch
 from .base import FLOAT16_LATER, LOW_PRECISION, MXNetError, numpy_to_tensor
 from .ndarray.ndarray import NDArray, zeros
 from .ops.optimizer_ops import (adagrad_update, adam_update,
+                                mp_sgd_mom_update, mp_sgd_update,
                                 rmsprop_update, rmspropalex_update,
                                 sgd_mom_update, sgd_update, signsgd_update,
                                 signum_update)
@@ -61,8 +62,8 @@ def create(name, **kwargs):
         return name
     key = str(name).lower()
     if key not in _OPT_REGISTRY:
-        raise MXNetError("optimizer '%s' is not in the PyTorch port yet"
-                         % name)
+        raise MXNetError("optimizer '%s' is not in the PyTorch port yet "
+                         "(ROADMAP A.5, optimizers)" % name)
     return _OPT_REGISTRY[key](**kwargs)
 
 
@@ -257,6 +258,24 @@ class SGD(Optimizer):
             sgd_update(weight._data, grad._data, lr=lr, wd=wd,
                        **self._common_kwargs())
 
+    def update_multi_precision(self, index, weight, grad, state):
+        """Through the master with ``mp_sgd_update``/``mp_sgd_mom_update``
+        (reference optimizer.py:337), the ops ``parallel.TrainStep``
+        applies, so every path rounds a master into its weight alike."""
+        if not self.keeps_master(weight):
+            self.update(index, weight, grad, state)
+            return
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        mom, weight32 = state
+        if mom is not None:
+            mp_sgd_mom_update(weight._data, grad._data, mom._data,
+                              weight32._data, lr=lr, wd=wd,
+                              momentum=self.momentum, **self._common_kwargs())
+        else:
+            mp_sgd_update(weight._data, grad._data, weight32._data, lr=lr,
+                          wd=wd, **self._common_kwargs())
+
 
 @register
 class Adam(Optimizer):
@@ -401,24 +420,19 @@ class Updater:
         self.states = {}
 
     def __call__(self, index, grad, weight):
-        if self.optimizer.keeps_master(weight):
-            raise MXNetError(
-                "Updater: parameter %r is %s under multi_precision: bf16 "
-                "training through Module and the kvstore is not in the "
-                "PyTorch port yet (ROADMAP A.1, bf16 Module.fit and "
-                "kvstore); parallel.TrainStep trains it"
-                % (self.optimizer.idx2name.get(index, index),
-                   str(weight.dtype).replace("torch.", "")))
-        self.optimizer.update(index, weight, grad, self.state(index, weight))
+        self.optimizer.update_multi_precision(index, weight, grad,
+                                              self.state(index, weight))
 
     def state(self, index, weight):
-        """Key ``index``'s state, created for ``weight`` on first use; a
-        state that :meth:`set_states` loaded on the host moves to
-        ``weight``'s device here, once."""
+        """Key ``index``'s state, created for ``weight`` on first use
+        (``create_state_multi_precision``: ``(inner, weight32)`` for a
+        bf16 weight under ``multi_precision``); a state that
+        :meth:`set_states` loaded on the host moves to ``weight``'s
+        device here, once."""
         st = self.states.get(index)
         if index not in self.states:
-            st = self.states[index] = self.optimizer.create_state(index,
-                                                                   weight)
+            st = self.states[index] = \
+                self.optimizer.create_state_multi_precision(index, weight)
         elif any(leaf._data.device != weight._data.device
                  for leaf in _leaves(st)):
             st = self.states[index] = _map_state(

@@ -30,6 +30,13 @@ parameters come to numpy) is carried bit for bit as a
 ``export_params`` gives float32 numpy, which holds a bf16 value exactly,
 so a bf16 parameter cast back to bfloat16 in the JAX package has the
 bits it had on the port.
+
+Optimizer states cross the same way: ``export_updater_states`` turns an
+``Updater``'s per-key states (either package's: None, an array, or
+nested tuples such as multi-precision's ``(inner, weight32)``) into the
+same nesting of numpy arrays in their own types, and
+``convert_updater_states`` puts such a nesting on a device, so both
+packages' updaters start from the same masters and moments.
 """
 from __future__ import annotations
 
@@ -39,7 +46,8 @@ from .base import MXNetError, numpy_to_tensor
 from .ndarray.ndarray import NDArray
 
 __all__ = ["convert_params", "convert_symbol_params", "export_params",
-           "gluon_params_from_numpy", "param_shapes", "symbol_shapes"]
+           "gluon_params_from_numpy", "param_shapes", "symbol_shapes",
+           "export_updater_states", "convert_updater_states"]
 
 
 def symbol_shapes(symbol, **input_shapes):
@@ -154,3 +162,31 @@ def gluon_params_from_numpy(net, arrays, ctx=None):
                              "the net's %s" % (name, tuple(a.shape),
                                                p._data.shape))
         p.set_data(numpy_to_tensor(a))
+
+
+def _map_nested(fn, state):
+    if state is None:
+        return None
+    if isinstance(state, tuple):
+        return tuple(_map_nested(fn, x) for x in state)
+    return fn(state)
+
+
+def export_updater_states(states):
+    """``{key: nesting of numpy arrays}`` from an ``Updater``'s
+    ``states`` (either package's NDArrays), each leaf through its
+    ``asnumpy()``: float32 masters and moments as float32, a JAX bf16
+    leaf as ``ml_dtypes``' bfloat16, a port bf16 leaf as the float32
+    that holds it exactly."""
+    return {k: _map_nested(lambda v: _np.asarray(v.asnumpy()), st)
+            for k, st in states.items()}
+
+
+def convert_updater_states(np_states, ctx):
+    """``{key: nesting of NDArrays}`` on ``ctx`` from
+    :func:`export_updater_states`' numpy nesting, every leaf in its own
+    type (bf16 bit for bit): assign it to the port ``Updater``'s
+    ``states`` before its first update."""
+    dev = ctx.torch_device
+    return {k: _map_nested(lambda a: NDArray(numpy_to_tensor(a).to(dev)), st)
+            for k, st in np_states.items()}

@@ -449,13 +449,27 @@ def test_float16_and_module_bf16_multi_precision_raise():
     with pytest.raises(mx.MXNetError, match="float16 is not in the PyTorch "
                        "port yet .ROADMAP A.1"):
         transformer.get_decode_step_symbol(**dict(LM, dtype="float16"))
-    # Module binds the bf16 symbol's weights in bf16, and its updater
-    # refuses to update them under multi_precision
+    # Module binds the bf16 symbol's weights in bf16 and, since bf16
+    # Module.fit is ported, trains them through f32 masters under
+    # multi_precision; a float16 weight still raises in the updater
     mod = mx.Module(resnet.get_symbol(**RESNET18), context=mx.cpu())
     rng = np.random.RandomState(0)
     it = mx.io.NDArrayIter(rng.rand(4, 3, 32, 32).astype(np.float32),
                            np.arange(4).astype(np.float32), batch_size=4)
-    with pytest.raises(mx.MXNetError, match="ROADMAP A.1"):
-        mod.fit(it, num_epoch=1, optimizer="sgd",
-                optimizer_params={"learning_rate": 0.1,
-                                  "multi_precision": True})
+    mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+    mod.init_params(mx.init.Xavier())
+    before = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+    mod.fit(it, num_epoch=1, optimizer="sgd",
+            optimizer_params={"learning_rate": 0.1,
+                              "multi_precision": True})
+    after = mod.get_params()[0]
+    assert all(v._data.dtype == torch.bfloat16 for v in after.values())
+    assert any(not np.array_equal(before[k], v.asnumpy())
+               for k, v in after.items())
+    inner, w32 = mod._updater.states[0]
+    assert inner is None and w32._data.dtype == torch.float32
+    assert mod._fused_fit is not None and mod._fused_fit.launches == 1
+    assert mod._loss_scaler is not None
+    with pytest.raises(mx.MXNetError, match="float16 is not in the PyTorch "
+                       "port yet .ROADMAP A.1"):
+        mod._updater("f16", w, w)

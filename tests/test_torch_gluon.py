@@ -630,8 +630,10 @@ def test_data_loader_and_utils():
 
 
 def test_trainer_bf16_multi_precision_raises_like_the_updater():
-    """bf16 weights under multi_precision are a later item for the
-    Updater the Trainer applies (ROADMAP A.1): the step raises."""
+    """bf16 weights under multi_precision train through the f32 masters
+    of the Updater the Trainer applies (ROADMAP A.1's bf16 half): the
+    master steps in f32 and the weight is the master rounded to bf16; a
+    float16 weight still raises in that Updater, naming A.1."""
     with NameManager():
         net = mx.gluon.nn.Dense(3, in_units=4)
     net.initialize(ctx=mx.cpu())
@@ -642,8 +644,21 @@ def test_trainer_bf16_multi_precision_raises_like_the_updater():
                                 "multi_precision": True})
     x = mx.nd.array(np.ones((2, 4), np.float32), ctx=mx.cpu(),
                     dtype="bfloat16")
+    w0 = net.weight.data().astype("float32").asnumpy()
     with mx.autograd.record():
         loss = net(x).sum()
     loss.backward()
-    with pytest.raises(mx.MXNetError, match="A.1"):
-        trainer.step(2)
+    g = net.weight.grad().astype("float32").asnumpy()
+    trainer.step(2)
+    w = net.weight.data()._data
+    assert w.dtype == torch.bfloat16
+    updater = trainer._kvstore._updater
+    inner, w32 = updater.states[trainer._param2idx[net.weight.name]]
+    want = w0 - np.float32(0.1) * (g * np.float32(0.5))
+    assert inner is None and w32._data.dtype == torch.float32
+    np.testing.assert_array_equal(w32.asnumpy(), want)
+    assert torch.equal(w, torch.from_numpy(want).bfloat16())
+    w16 = mx.nd.array(np.ones(4, np.float32), ctx=mx.cpu()).astype("float16")
+    with pytest.raises(mx.MXNetError, match="float16 is not in the PyTorch "
+                       "port yet .ROADMAP A.1"):
+        updater("f16", w16, w16)
