@@ -328,6 +328,29 @@ Phases, each printed as one JSON line:
    step moves the weights.  Step p50, tokens/s or images/s and peak
    memory per arm.
 
+37. checkpoint (after 36): ``mx.checkpoint`` through the fused bf16
+   ``Module.fit`` (ROADMAP A.7), in a temporary directory removed at
+   the end.  ResNet-50 v2 in bf16 at batch 128 through a 2-bit device
+   store (SGD 0.1, momentum 0.9, wd 1e-4, multi_precision) and the
+   transformer LM at full width cut to 2 layers in bf16 at 4 x 1024
+   tokens (SGD 0.05, momentum 0.9): run A takes 8 steps with
+   ``checkpoint_every`` (2 for ResNet-50, 4 for the LM), run B is a
+   fresh Module restored from tag 4 by ``checkpoint.restore`` that
+   takes steps 5-8 (two warm-up steps, the capture, a replay); weights,
+   f32 masters, momenta, 2-bit residuals and the loss scaler's triple
+   end bit-equal to run A's, each module captures once, each graph
+   records its kernels (the quantizer; bf16 flash and LayerNorm), and a
+   steady step syncs the host only when it checkpoints.  Printed:
+   each save's snapshot block ms (the training thread's wait), save ms,
+   bytes and MB/s, the restore ms, and a capture into pinned and into
+   pageable host memory.  Then ``DecodeEngine(dtype='bfloat16')
+   .reload(prefix)`` serves 8 requests (a second reload while they run)
+   with streams equal to an engine given the same weights by
+   ``swap_params``, the paged decode, chunk and LayerNorm kernels
+   launched; and an f32 ResNet-50's ``model.save_checkpoint`` read back
+   by ``Module.load`` on the card gives a forward bit-equal to the saved
+   module's.
+
 Then the kernels' JSON line (every kernel with its dtype; the bf16
 forms as rows of their own, the serving kernels' bf16 instances with
 the bf16 serve phases' launches, the attention kernels with their
@@ -5508,6 +5531,397 @@ def _fused_arm_checks(name, res, kernel, metric_rtol):
                                                       ei["metric"]))
 
 
+# mx.checkpoint through the fused bf16 Module.fit (phase_checkpoint)
+CHECKPOINT = dict(
+    resnet=dict(batch=128, lr=0.1, momentum=0.9, wd=1e-4, threshold=0.5,
+                batches=2, epochs=4, every=2, tag=4),
+    transformer=dict(num_layers=2, batch=4, lr=0.05, momentum=0.9,
+                     batches=2, epochs=4, every=4, tag=4),
+    serve=dict(new=24, lengths=(700, 20, 350, 90, 520, 45, 260, 610)),
+    legacy=dict(batch=16))
+
+
+def _ckpt_fit(torch, mx, mod, it, fit_kw, steps):
+    """``mod.fit`` of one checkpoint run: per step the host syncs inside
+    ``fit_step``/``update_metric`` and inside the checkpoint tick, the
+    tick's ms, and each save the writer commits (its ms and bytes)."""
+    import warnings
+    from mxnet_tpu_torch.checkpoint import writer as ckw
+    step_syncs, tick_syncs, tick_ms, saves = [], [], [], []
+    write = ckw.write_with_retry
+
+    def timed_write(state, prefix, tag, **kw):
+        t0 = time.perf_counter()
+        man = write(state, prefix, tag, **kw)
+        saves.append({"tag": int(tag), "bytes": int(man["total_bytes"]),
+                      "save_ms": (time.perf_counter() - t0) * 1e3})
+        return man
+
+    def counted(fn, into):
+        def run(*args, **kw):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                    into[-1] += sum("synchroniz" in str(w.message)
+                                    for w in caught)
+        return run
+
+    make = mod._make_checkpointer
+
+    def make_watched(*args):
+        mgr = make(*args)
+        if mgr is not None:
+            tick = counted(mgr.tick, tick_syncs)
+
+            def timed_tick(epoch=None):
+                t0 = time.perf_counter()
+                tick_syncs.append(0)
+                out = tick(epoch=epoch)
+                tick_ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+            mgr.tick = timed_tick
+        return mgr
+
+    def begin_step(fn):
+        def run(*args, **kw):
+            step_syncs.append(0)
+            return fn(*args, **kw)
+        return run
+
+    mod._make_checkpointer = make_watched
+    mod.fit_step = begin_step(counted(mod.fit_step, step_syncs))
+    mod.update_metric = counted(mod.update_metric, step_syncs)
+    ckw.write_with_retry = timed_write
+    try:
+        mod.fit(it, **fit_kw)
+    finally:
+        ckw.write_with_retry = write
+        del mod._make_checkpointer, mod.fit_step, mod.update_metric
+    torch.cuda.synchronize()
+    check(len(step_syncs) == steps, "checkpoint: %d steps ran, not %d"
+          % (len(step_syncs), steps))
+    return {"step_syncs": step_syncs, "tick_syncs": tick_syncs,
+            "tick_ms": tick_ms, "saves": sorted(saves,
+                                                key=lambda s: s["tag"])}
+
+
+def _ckpt_state_equal(torch, name, a, b):
+    """Two ``checkpoint.capture`` states equal bit for bit: parameters,
+    auxiliary states, optimizer states (f32 masters and momenta),
+    residuals and the loss scaler."""
+    def leaves(x):
+        if isinstance(x, tuple):
+            return [y for v in x for y in leaves(v)]
+        return [] if x is None else [x]
+    pairs = [("%s:%s" % (part, k), a[part][k], b[part][k])
+             for part in ("args", "auxs") for k in a[part]]
+    for k, st in a["states"].items():
+        pairs += [("state:%s" % k, x, y)
+                  for x, y in zip(leaves(st), leaves(b["states"][k]))]
+    res_a, res_b = (s["extra"].get("residuals", {}) for s in (a, b))
+    check(sorted(res_a) == sorted(res_b), "checkpoint %s: residual keys "
+          "differ" % name)
+    pairs += [("residual:%s" % (k,), res_a[k], res_b[k]) for k in res_a]
+    bad = [k for k, x, y in pairs if not torch.equal(x, y)]
+    check(not bad, "checkpoint %s: run B differs from run A in %s"
+          % (name, bad[:8]))
+    check(a["extra"].get("loss_scaler") == b["extra"].get("loss_scaler"),
+          "checkpoint %s: loss scaler %s vs %s"
+          % (name, a["extra"].get("loss_scaler"),
+             b["extra"].get("loss_scaler")))
+    masters = sum(1 for st in a["states"].values()
+                  if isinstance(st, tuple) and len(st) == 2
+                  and st[1].dtype == torch.float32)
+    return {"tensors_equal": len(pairs), "f32_masters": masters,
+            "residuals": len(res_a),
+            "loss_scaler": a["extra"].get("loss_scaler")}
+
+
+def _ckpt_resume(torch, mx, name, make, batches, fit_kw, tc, prefix,
+                 want_captured):
+    """Runs A (with ``checkpoint_every``) and B (restored from tag
+    ``tc['tag']``) of one model: the checks and figures of phase 37."""
+    from mxnet_tpu_torch import checkpoint
+    from mxnet_tpu_torch.checkpoint import writer as ckw
+    steps = tc["batches"] * tc["epochs"]
+    every, tag = tc["every"], tc["tag"]
+    restore_ms = checkpoint.snapshot.RESTORE_MS
+    out = {}
+    mods = {}
+    for run in ("A", "B"):
+        mod, kv = make()
+        if run == "A":
+            blocks0 = (ckw.BLOCK_MS.count, ckw.BLOCK_MS.sum)
+            info = _ckpt_fit(torch, mx, mod, batches(), dict(
+                fit_kw, kvstore=kv, num_epoch=tc["epochs"],
+                checkpoint_every=every, checkpoint_prefix=prefix), steps)
+            info["block_ms_histogram_mean"] = \
+                (ckw.BLOCK_MS.sum - blocks0[1]) \
+                / max(ckw.BLOCK_MS.count - blocks0[0], 1)
+            want_tags = list(range(every, steps + 1, every))
+            check([s["tag"] for s in info["saves"]] == want_tags,
+                  "checkpoint %s: saves %s, not tags %s" % (
+                      name, [s["tag"] for s in info["saves"]], want_tags))
+        else:
+            torch.cuda.synchronize()
+            r0 = (restore_ms.count, restore_ms.sum)
+            t0 = time.perf_counter()
+            man = checkpoint.restore(mod, prefix, tag=tag)
+            torch.cuda.synchronize()
+            out["restore_ms"] = (time.perf_counter() - t0) * 1e3
+            check(restore_ms.count == r0[0] + 1 and man["step"] == tag,
+                  "checkpoint %s: restore of tag %d gave step %s"
+                  % (name, tag, man["step"]))
+            out["restore_ms_histogram"] = restore_ms.sum - r0[1]
+            info = _ckpt_fit(torch, mx, mod, batches(), dict(
+                fit_kw, kvstore=kv, num_epoch=tc["epochs"],
+                begin_epoch=tag // tc["batches"]), steps - tag)
+        ff = mod._fused_fit
+        check(ff is not None and ff.captures == 1,
+              "checkpoint %s run %s: %s captures" % (
+                  name, run, None if ff is None else ff.captures))
+        captured = (ff.captured_launches(True) or [{}])[0]
+        missing = [k for k in want_captured if captured.get(k, 0) < 1]
+        check(not missing, "checkpoint %s run %s: the graph records no %s"
+              % (name, run, missing))
+        info["captured_by_dtype"] = captured
+        # steady steps (after the two warm-ups and the capture): the
+        # host syncs only in a checkpointing tick
+        first = (tag if run == "B" else 0) + 4
+        for i, n in enumerate(info["step_syncs"]):
+            step = (tag if run == "B" else 0) + i + 1
+            check(step < first or n == 0, "checkpoint %s run %s: step %d "
+                  "synced the host %d times" % (name, run, step, n))
+        for i, n in enumerate(info["tick_syncs"]):
+            step = i + 1
+            check((n > 0) == (step % every == 0),
+                  "checkpoint %s: the tick of step %d synced %d times"
+                  % (name, step, n))
+        out[run] = info
+        mods[run] = mod
+    states = {}
+    for run, mod in mods.items():
+        states[run] = checkpoint.capture(mod)
+    out["equal"] = _ckpt_state_equal(torch, name, states["A"], states["B"])
+    del states
+    # the snapshot's wait: a capture into pinned and into pageable host
+    # memory of run A's state, each timed twice
+    for pinned in (True, False, True, False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = checkpoint.capture(mods["A"], pinned=pinned)
+        ms = (time.perf_counter() - t0) * 1e3
+        out.setdefault("capture_ms_%s" % ("pinned" if pinned
+                                          else "pageable"), []).append(ms)
+        del st
+    saves = out["A"]["saves"]
+    for s in saves:
+        s["mb_per_s"] = s["bytes"] / 1e6 / (s["save_ms"] / 1e3)
+    blocks = [ms for i, ms in enumerate(out["A"]["tick_ms"])
+              if (i + 1) % every == 0]
+    out["summary"] = {
+        "bytes_per_tag": saves[-1]["bytes"],
+        "block_ms": blocks, "block_ms_max": max(blocks),
+        "save_ms": [s["save_ms"] for s in saves],
+        "mb_per_s": [s["mb_per_s"] for s in saves],
+        "restore_ms": out["restore_ms"],
+        "capture_pinned_ms": out["capture_ms_pinned"],
+        "capture_pageable_ms": out["capture_ms_pageable"]}
+    del mods
+    return out
+
+
+def _ckpt_serve(torch, mx, prefix, np_params, cfg):
+    """``DecodeEngine(dtype='bfloat16').reload(prefix)`` serves 8
+    requests (a second reload of the same tag while they run) with
+    streams equal to an engine given the same weights by
+    ``swap_params``; the paged kernels and LayerNorm launch."""
+    from mxnet_tpu_torch import checkpoint
+    from mxnet_tpu_torch.decode import DecodeEngine
+    from mxnet_tpu_torch.kernels import LAUNCHES, PLAIN_CALLS, reset_counts
+    from mxnet_tpu_torch.weights import convert_params
+    sc = CHECKPOINT["serve"]
+    ctx = mx.gpu(0)
+    prompts = _serve_prompts(cfg, SEED + 7, sc["lengths"])
+    tag = checkpoint.latest(prefix)["tag"]
+    arg_params, _, version = checkpoint.resolve_params(prefix)
+    streams, info = {}, {}
+    for arm in ("reload", "swap"):
+        eng = DecodeEngine(convert_params(np_params, ctx, cfg), cfg, ctx=ctx,
+                           **GEOMETRY)
+        try:
+            if arm == "reload":
+                t0 = time.perf_counter()
+                check(eng.reload(prefix) == tag, "checkpoint serve: reload "
+                      "gave another version")
+                info["reload_ms"] = (time.perf_counter() - t0) * 1e3
+                reset_counts()
+            else:
+                eng.swap_params(arg_params, version=version)
+            handles = [eng.submit(p, max_new_tokens=sc["new"])
+                       for p in prompts]
+            if arm == "reload":
+                # a reload while the engine is serving keeps it serving
+                t0 = time.perf_counter()
+                eng.reload(prefix, tag=tag)
+                info["reload_while_serving_ms"] = \
+                    (time.perf_counter() - t0) * 1e3
+            streams[arm] = [h.result(timeout=900) for h in handles]
+            st = eng.stats()
+            if arm == "reload":
+                torch.cuda.synchronize()
+                info["launches"] = {k: v for k, v in LAUNCHES.items() if v}
+                info["plain_calls"] = {k: v for k, v in PLAIN_CALLS.items()
+                                       if v}
+                info["steps"] = st["steps"]
+                check(st["model_version"] == tag, "checkpoint serve: "
+                      "model_version %s" % st["model_version"])
+        finally:
+            eng.stop()
+    check(all(len(s) == sc["new"] for s in streams["reload"]),
+          "checkpoint serve: a request finished early")
+    check(streams["reload"] == streams["swap"], "checkpoint serve: reload "
+          "and swap_params streams differ")
+    for k in ("paged_decode_attend", "paged_chunk_prefill_attend",
+              "layernorm_fused"):
+        check(info["launches"].get(k, 0) > 0, "checkpoint serve: %s not "
+              "launched" % k)
+    check(not info["plain_calls"], "checkpoint serve: plain versions ran: "
+          "%s" % info["plain_calls"])
+    info["requests"] = len(prompts)
+    return info
+
+
+def _ckpt_legacy(torch, mx, tmp):
+    """An f32 ResNet-50's ``model.save_checkpoint``, then ``Module.load``
+    on the card: the inference forward is bit-equal."""
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.weights import convert_symbol_params
+    B = CHECKPOINT["legacy"]["batch"]
+    image = RESNET["image_shape"]
+    ctx = mx.gpu(0)
+    sym = resnet.get_symbol(**RESNET)
+    np_args, np_aux = seeded_resnet_params(sym, B, image)
+    x, _ = _image_batches(image, B, SEED + 44, RESNET["num_classes"])
+    batch = mx.io.DataBatch(data=[mx.nd.array(x, ctx=ctx)])
+    outs = []
+    prefix = os.path.join(tmp, "legacy")
+    for load in (False, True):
+        if load:
+            mod = mx.Module.load(prefix, 1, context=ctx)
+        else:
+            mod = mx.Module(sym, context=ctx)
+        mod.bind(data_shapes=[("data", (B,) + tuple(image))],
+                 for_training=False)
+        if not load:
+            args, auxs = convert_symbol_params(
+                np_args, np_aux, ctx, sym, data=(B,) + tuple(image),
+                softmax_label=(B,))
+            mod.set_params(args, auxs, allow_extra=True)
+            arg_params, aux_params = mod.get_params()
+            mx.model.save_checkpoint(prefix, 1, sym, arg_params, aux_params)
+        mod.forward(batch, is_train=False)
+        outs.append(mod.get_outputs()[0]._data.clone())
+        del mod
+    check(torch.equal(outs[0], outs[1]), "checkpoint legacy: Module.load's "
+          "forward differs from the saved module's")
+    return {"batch": B, "bit_equal": True,
+            "params_bytes": os.path.getsize(prefix + "-0001.params")}
+
+
+def phase_checkpoint(torch, mx, card=None):
+    """Phase 37: mx.checkpoint on the card (see the module docstring);
+    ``card`` is phase_device's name and power limit, printed beside the
+    figures.  Returns the phase's record."""
+    import shutil
+    import tempfile
+    from mxnet_tpu_torch.models import resnet, transformer
+    from mxnet_tpu_torch.weights import convert_params, convert_symbol_params
+    ctx = mx.gpu(0)
+    tmp = tempfile.mkdtemp(prefix="mx_ckpt_")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    try:
+        rc = CHECKPOINT["resnet"]
+        B = rc["batch"]
+        rcfg = dict(RESNET, dtype="bfloat16")
+        sym = resnet.get_symbol(**rcfg)
+        shapes = dict(data=(B,) + tuple(RESNET["image_shape"]),
+                      softmax_label=(B,))
+        np_args, np_aux = seeded_resnet_params(sym, B,
+                                               RESNET["image_shape"])
+        x, y = _image_batches(RESNET["image_shape"], B * rc["batches"],
+                              SEED + 45, RESNET["num_classes"])
+        opt_params = {"learning_rate": rc["lr"], "momentum": rc["momentum"],
+                      "wd": rc["wd"], "multi_precision": True}
+
+        def make_resnet():
+            mod = mx.Module(resnet.get_symbol(**rcfg), context=ctx,
+                            compression_params={"type": "2bit",
+                                                "threshold": rc["threshold"]})
+            kv = mx.kv.create("device")
+            args, auxs = convert_symbol_params(np_args, np_aux, ctx, sym,
+                                               **shapes)
+            mod.bind(data_shapes=[("data", shapes["data"])],
+                     label_shapes=[("softmax_label", (B,))])
+            mod.init_params(arg_params=args, aux_params=auxs)
+            mod.init_optimizer(kvstore=kv, optimizer="sgd",
+                               optimizer_params=opt_params)
+            return mod, kv
+
+        out["resnet_2bit_bf16"] = _ckpt_resume(
+            torch, mx, "resnet", make_resnet,
+            lambda: mx.io.NDArrayIter(x, y, batch_size=B),
+            dict(optimizer="sgd", optimizer_params=opt_params,
+                 eval_metric="acc"), rc, os.path.join(tmp, "resnet"),
+            ["two_bit_quantize_fused:float32"])
+        del x, y, np_args, np_aux
+
+        tc = CHECKPOINT["transformer"]
+        cfg = dict(FULL, num_layers=tc["num_layers"])
+        np_params = seeded_params(cfg)
+        Bt, S = tc["batch"], cfg["seq_len"]
+        tokens, targets = _token_batches(cfg, Bt * tc["batches"], SEED + 46)
+        lm_params = {"learning_rate": tc["lr"], "momentum": tc["momentum"],
+                     "multi_precision": True}
+
+        def make_lm():
+            mod = mx.Module(transformer.get_symbol(dtype="bfloat16", **cfg),
+                            context=ctx)
+            mod.bind(data_shapes=[("data", (Bt, S))],
+                     label_shapes=[("softmax_label", (Bt * S,))])
+            mod.init_params(arg_params=convert_params(np_params, ctx, cfg),
+                            aux_params={})
+            mod.init_optimizer(kvstore=None, optimizer="sgd",
+                               optimizer_params=lm_params)
+            return mod, None
+
+        lm_prefix = os.path.join(tmp, "lm")
+        out["transformer_bf16"] = _ckpt_resume(
+            torch, mx, "transformer", make_lm,
+            lambda: FlatLabels(mx, mx.io.NDArrayIter(tokens, targets,
+                                                     batch_size=Bt)),
+            dict(optimizer="sgd", optimizer_params=lm_params,
+                 eval_metric="perplexity"), tc, lm_prefix,
+            ["%s:bfloat16" % k for k in TRAIN_LAUNCHES])
+        out["serve"] = _ckpt_serve(torch, mx, lm_prefix, np_params,
+                                   dict(cfg, dtype="bfloat16"))
+        out["legacy"] = _ckpt_legacy(torch, mx, tmp)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "checkpoint", "card": card, "config": CHECKPOINT,
+          "transformer": dict(FULL, num_layers=CHECKPOINT["transformer"][
+              "num_layers"], dtype="bfloat16"),
+          "resnet": dict(RESNET, dtype="bfloat16"), **out})
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5521,7 +5935,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
-    phase_device(torch)
+    card = phase_device(torch)
     phase_build()
     flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32,
                         device=dev)     # 256 MB: well past the 50 MB L2
@@ -5576,6 +5990,7 @@ def main():
     rbf16_launches, rbf16_steps = phase_train_resnet_bf16(torch, mx)
     phase_bf16_agreement(torch, mx)
     phase_head_dim_agreement(torch, mx)
+    phase_checkpoint(torch, mx, card)
     # launches: the count of each kernel's main-path run (serve for the
     # serving kernels, the one-shot prefill forward of serve_prefill for
     # the prefill kernel, the transformer's Module.fit for its training

@@ -16,7 +16,12 @@ runs each step of an eligible configuration as one CUDA graph replay
 (``module/fused_fit.py``).  The imperative front end (``mx.nd`` ops, ``autograd``) and Gluon
 (blocks, layers, losses, ``Trainer``, the model-zoo ResNets) train
 eagerly or hybridized; ``mx.rtc.CudaModule`` compiles users' CUDA
-kernels with NVRTC and launches them on NDArrays.
+kernels with NVRTC and launches them on NDArrays.  ``mx.nd.save``/
+``load``, symbol JSON, ``Module.load``/``save_checkpoint`` and the
+Gluon parameter files write and read the JAX package's files, and
+``mx.checkpoint`` saves the full training state asynchronously (the
+fused step's weights, f32 masters, states, residuals and loss scaler)
+and restores it bit for bit.
 
 Entry points run on the card (``gpu(0)``, i.e. ``cuda:0``) unless the
 caller passes ``ctx=mx.cpu()``; with no GPU and no CPU request they
@@ -26,7 +31,7 @@ from . import autograd, base, context, kernels, ndarray, ops, symbol  # noqa
 from . import decode, models, weights  # noqa: F401
 from . import (callback, initializer, io, kvstore, lr_scheduler,  # noqa: F401
                metric, model, module, optimizer, parallel, random)
-from . import gluon, rtc  # noqa: F401
+from . import checkpoint, gluon, rtc  # noqa: F401
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu
 from .module import Module
@@ -41,4 +46,5 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context", "nd",
            "sym", "ndarray", "symbol", "decode", "models", "weights",
            "kernels", "callback", "init", "initializer", "io", "kv",
            "kvstore", "lr_scheduler", "metric", "model", "module", "mod",
-           "Module", "optimizer", "parallel", "random", "autograd", "gluon", "rtc"]
+           "Module", "optimizer", "parallel", "random", "autograd", "gluon", "rtc",
+           "checkpoint"]

@@ -1,16 +1,17 @@
 """Training callbacks.
 
-Counterpart of ``mxnet_tpu/callback.py``, reduced to ``Speedometer``:
-log throughput and the current train metrics every ``frequent``
-batches, in the reference's log-line format
-(``Epoch[e] Batch [n]\\tSpeed: r samples/sec\\tname=value``).
+Counterpart of ``mxnet_tpu/callback.py``, reduced to ``Speedometer``
+(throughput and the current train metrics every ``frequent`` batches,
+in the reference's log-line format, ``Epoch[e] Batch [n]\\tSpeed: r
+samples/sec\\tname=value``) and the epoch-end checkpoint callbacks
+``do_checkpoint`` and ``module_checkpoint``.
 """
 from __future__ import annotations
 
 import logging
 import time
 
-__all__ = ["Speedometer"]
+__all__ = ["Speedometer", "do_checkpoint", "module_checkpoint"]
 
 
 class Speedometer:
@@ -43,3 +44,83 @@ class Speedometer:
         else:
             logging.info("Iter[%d] Batch [%d]\tSpeed: %.2f samples/sec",
                          param.epoch, param.nbatch, rate)
+
+
+def do_checkpoint(prefix, period=1, async_write=False):
+    """Epoch-end callback saving ``prefix-symbol.json`` and
+    ``prefix-%04d.params`` every ``period`` epochs
+    (``model.save_checkpoint``).  ``async_write=True`` hands the saved
+    parameters to ``mx.checkpoint``'s background writer, which commits
+    the same epoch-numbered files crash-safely with a manifest; call
+    ``.drain()`` on the callback before reading them."""
+    stride = max(int(period), 1)
+    writer = None
+
+    def _on_epoch_end(epoch, sym, arg, aux):
+        nonlocal writer
+        done = epoch + 1
+        if done % stride:
+            return
+        if not async_write:
+            from .model import save_checkpoint
+            save_checkpoint(prefix, done, sym, arg, aux)
+            return
+        from . import checkpoint as _ckpt
+        if writer is None:
+            writer = _ckpt.AsyncCheckpointWriter()
+        writer.submit(_ckpt.capture_params(arg, aux, symbol=sym, epoch=done),
+                      prefix, done)
+
+    def _drain(timeout=None):
+        """Wait for the queued saves (a no-op when writing in place)."""
+        return True if writer is None else writer.drain(timeout)
+
+    def _close(timeout=None):
+        """Drain and stop the writer thread."""
+        return True if writer is None else writer.close(timeout)
+
+    _on_epoch_end.drain = _drain
+    _on_epoch_end.close = _close
+    return _on_epoch_end
+
+
+def module_checkpoint(mod, prefix, period=1, save_optimizer_states=False,
+                      async_write=False):
+    """Epoch-end callback calling ``mod.save_checkpoint`` every
+    ``period`` epochs.  ``async_write=True`` makes it a full
+    ``mx.checkpoint`` snapshot (optimizer state with
+    ``save_optimizer_states``, residuals, random streams, lr position)
+    committed on the background writer under the same epoch-numbered
+    files, which ``Module.load(prefix, epoch)`` reads."""
+    stride = max(int(period), 1)
+    manager = None
+
+    def _on_epoch_end(epoch, sym=None, arg=None, aux=None):
+        nonlocal manager
+        done = epoch + 1
+        if done % stride:
+            return
+        if not async_write:
+            mod.save_checkpoint(prefix, done, save_optimizer_states)
+            return
+        if manager is None:
+            from .checkpoint import CheckpointManager
+            manager = CheckpointManager(
+                prefix, module=mod, keep=0,
+                save_optimizer=save_optimizer_states,
+                install_preemption=False)
+        manager.save(epoch=done, tag=done)
+
+    def _drain(timeout=None):
+        """Wait for the queued saves (a no-op when writing in place)."""
+        return True if manager is None else manager.drain(timeout)
+
+    def _close(timeout=None):
+        """Drain and stop the manager's writer thread."""
+        if manager is not None:
+            manager.close(timeout)
+        return True
+
+    _on_epoch_end.drain = _drain
+    _on_epoch_end.close = _close
+    return _on_epoch_end

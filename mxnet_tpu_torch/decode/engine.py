@@ -26,9 +26,9 @@ Execution discipline:
 
 Scheduling policy lives in ``scheduler.py``.  Hot weight swaps
 (``swap_params``, ``check_params``) run under the step lock and flush
-the prefix trie.  Tracing spans, the hang watchdog, the flight
-recorder and ``reload`` from a checkpoint file of the JAX engine come
-with later slices.  Unlike the JAX engine, a drafter's exception is not
+the prefix trie; ``reload`` swaps in the weights of a checkpoint or a
+``.params`` file of either package.  Tracing spans, the hang watchdog
+and the flight recorder come with later slices.  Unlike the JAX engine, a drafter's exception is not
 swallowed: the draft model runs kernels, and a kernel error fails the
 engine's work like any other.
 """
@@ -821,6 +821,18 @@ class DecodeEngine:
         if self._prefix_cache and self._thread is None:
             self.cache.flush_prefixes()
         RELOADS.inc()
+
+    def reload(self, prefix, tag=None, epoch=None):
+        """Load an ``mx.checkpoint`` checkpoint (``tag``, or the newest
+        intact one) or a ``prefix-%04d.params`` file (``epoch``), either
+        package's, and swap its weights in (:meth:`swap_params`; the
+        engine keeps serving).  Returns the version stamped into
+        ``stats()["model_version"]``: the tag or the epoch."""
+        from ..checkpoint import resolve_params
+        arg_params, _aux, version = resolve_params(
+            prefix, tag, epoch, what="decode reload")
+        self.swap_params(arg_params, version=version)
+        return version
 
     # ------------------------------------------------------------------
     def drain(self, timeout=None):

@@ -3,8 +3,9 @@
 Counterpart of ``mxnet_tpu/gluon`` (reference python/mxnet/gluon):
 Block, HybridBlock, Parameter, ParameterDict, Constant, Trainer, and the
 ``nn``, ``loss``, ``data``, ``model_zoo`` and ``utils`` modules.
-``rnn`` and ``contrib`` are still to port (ROADMAP A.6); ``SymbolBlock``
-and parameter files come with serialization (A.7).
+``SymbolBlock``, the parameter files and ``export`` read and write the
+JAX package's files.  ``rnn`` and ``contrib`` are still to port
+(ROADMAP A.6).
 """
 from . import data, loss, model_zoo, nn, utils
 from .block import Block, HybridBlock, SymbolBlock

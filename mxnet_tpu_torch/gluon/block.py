@@ -20,8 +20,13 @@ one Python dispatch per op and per block.  In a train-mode call
 (``autograd.is_training()``) BatchNorm's new moving statistics are
 written into its running_mean/running_var parameters in both paths.
 
-Parameter files (``save_parameters``, ``load_parameters``), ``export``
-and ``SymbolBlock`` come with serialization (ROADMAP A.7) and raise.
+``save_parameters``/``load_parameters`` write and read the reference's
+NDArray file keyed by the blocks' structural names
+(``features.0.weight``), ``HybridBlock.export`` writes
+``path-symbol.json`` and ``path-%04d.params`` (``arg:``/``aux:`` keys),
+and ``SymbolBlock`` (``SymbolBlock.imports``) runs such a symbol with
+its parameters through the same walk: the JAX package's files in both
+directions.
 """
 from __future__ import annotations
 
@@ -34,8 +39,7 @@ from .. import autograd
 from ..base import MXNetError, NameManager, current_name_manager
 from ..executor import GraphPlan, run_graph
 from ..ndarray.ndarray import NDArray
-from .parameter import (_SERIALIZATION_LATER, DeferredInitializationError,
-                        Parameter, ParameterDict)
+from .parameter import DeferredInitializationError, Parameter, ParameterDict
 
 __all__ = ["Block", "HybridBlock", "SymbolBlock"]
 
@@ -190,15 +194,44 @@ class Block:
         for param in self._reg_params.values():
             param.cast(dtype)
 
+    def _collect_params_with_prefix(self, prefix=""):
+        """``{structural name: Parameter}``: attribute names joined by
+        dots down the children (``features.0.weight``)."""
+        if prefix:
+            prefix += "."
+        ret = {prefix + k: v for k, v in self._reg_params.items()}
+        for name, child in self._children.items():
+            ret.update(child._collect_params_with_prefix(prefix + name))
+        return ret
+
     def save_parameters(self, filename, deduplicate=False):
-        raise MXNetError("Block.save_parameters: parameter files "
-                         + _SERIALIZATION_LATER)
+        """Save the parameters by structural name in the reference's
+        NDArray file."""
+        from ..serialization import save_ndarray_file
+        params = self._collect_params_with_prefix()
+        save_ndarray_file(filename, {k: v.data() for k, v in params.items()})
 
     def load_parameters(self, filename, ctx=None, allow_missing=False,
                         ignore_extra=False, cast_dtype=False,
                         dtype_source="current"):
-        raise MXNetError("Block.load_parameters: parameter files "
-                         + _SERIALIZATION_LATER)
+        """Load a :meth:`save_parameters` file (either package's) into
+        the parameters of the same structural names; one not yet created
+        takes the file's shape, on ``ctx``."""
+        from ..serialization import load_ndarray_file
+        loaded = load_ndarray_file(filename)
+        params = self._collect_params_with_prefix()
+        if not allow_missing:
+            for name in params:
+                if name not in loaded:
+                    raise MXNetError("Parameter '%s' missing in '%s'"
+                                     % (name, filename))
+        for name, v in loaded.items():
+            if name not in params:
+                if not ignore_extra:
+                    raise MXNetError("Parameter '%s' from '%s' not found in "
+                                     "Block" % (name, filename))
+                continue
+            params[name]._load(v, ctx)
 
     save_params = save_parameters
     load_params = load_parameters
@@ -305,36 +338,124 @@ class HybridBlock(Block):
             if not isinstance(a, NDArray):
                 raise MXNetError("%s: a hybridized block takes NDArray "
                                  "inputs, got %s" % (self.name, type(a)))
-        is_train = autograd.is_training()
         key = tuple((a.shape, a.dtype) for a in args)
         cached = self._cached.get(key)
         if cached is None:
             cached = self._cached[key] = self._build_cache(args)
-        values = {n: p._data._data for n, p in cached.params.items()}
-        values.update(zip(cached.input_names, (a._data for a in args)))
-        with torch.set_grad_enabled(autograd.is_recording()):
-            heads, new_aux = run_graph(cached.plan, values, is_train)
-        with torch.no_grad():
-            for name, t in new_aux.items():
-                cached.params[name]._data._data.copy_(t)
-        outs = [NDArray(t) for t in heads]
-        return outs[0] if len(outs) == 1 else outs
+        return _run_cached(cached, args)
 
     def hybrid_forward(self, F, x, *args, **kwargs):
         raise NotImplementedError
 
     def export(self, path, epoch=0):
-        raise MXNetError("HybridBlock.export: symbol and parameter files "
-                         + _SERIALIZATION_LATER)
+        """Write ``path-symbol.json`` (``hybrid_forward`` traced on one
+        input named ``data``) and ``path-%04d.params`` (``arg:`` for
+        parameters with a gradient, ``aux:`` for the others), the files
+        ``SymbolBlock.imports`` and ``Module.load`` read.  Returns the
+        symbol."""
+        from .. import symbol
+        from ..serialization import save_ndarray_file
+        with NameManager():
+            out = self._symbolic_forward(symbol.Variable("data"))
+        if isinstance(out, (list, tuple)):
+            out = symbol.Group(list(out))
+        out.save("%s-symbol.json" % path)
+        arrs = {}
+        for p in self.collect_params().values():
+            arrs[("aux:" if p.grad_req == "null" else "arg:") + p.name] = \
+                p.data()
+        save_ndarray_file("%s-%04d.params" % (path, epoch), arrs)
+        return out
+
+
+def _run_cached(cached, args):
+    """Run a traced graph on NDArray ``args`` with its parameters'
+    tensors as the leaves (recorded when autograd records); a train-mode
+    call writes the new moving statistics into their parameters."""
+    is_train = autograd.is_training()
+    values = {n: p._data._data for n, p in cached.params.items()}
+    values.update(zip(cached.input_names, (a._data for a in args)))
+    with torch.set_grad_enabled(autograd.is_recording()):
+        heads, new_aux = run_graph(cached.plan, values, is_train)
+    with torch.no_grad():
+        for name, t in new_aux.items():
+            cached.params[name]._data._data.copy_(t)
+    outs = [NDArray(t) for t in heads]
+    return outs[0] if len(outs) == 1 else outs
 
 
 class SymbolBlock(HybridBlock):
-    """A Block over a Symbol and its parameters (reference SymbolBlock);
-    it loads exported models, so it comes with serialization."""
+    """A Block over a Symbol and its parameters (reference block.py
+    SymbolBlock): ``inputs`` are the graph's input variables, every other
+    argument and auxiliary state is a Parameter (taken from ``params``
+    where it holds the name; auxiliary states get ``grad_req='null'``),
+    created with the shape of the first input's forward when not yet
+    initialized.  The forward runs the graph through the executor's
+    walk, as a hybridized block does."""
 
     def __init__(self, outputs, inputs, params=None):
-        raise MXNetError("SymbolBlock " + _SERIALIZATION_LATER)
+        super().__init__(prefix="", params=None)
+        from ..symbol import Group, Symbol
+        if isinstance(outputs, (list, tuple)):
+            outputs = Group(list(outputs))
+        if isinstance(inputs, Symbol):
+            inputs = [inputs]
+        self._symbol = outputs
+        self._input_names = [i.list_outputs()[0] for i in inputs]
+        aux_names = set(outputs.list_auxiliary_states())
+        existing = dict(params.items()) if params is not None else {}
+        attrs = outputs.attr_dict()
+        for name in outputs.list_arguments() + sorted(aux_names):
+            if name in self._input_names:
+                continue
+            if name in existing:
+                self._params._params[name] = existing[name]
+                continue
+            a = attrs.get(name, {})
+            self._params._params[name] = Parameter(
+                name, allow_deferred_init=True,
+                grad_req="null" if name in aux_names else "write",
+                lr_mult=float(a.get("__lr_mult__", 1.0)),
+                wd_mult=float(a.get("__wd_mult__", 1.0)))
+        self._graph = None
 
     @staticmethod
     def imports(symbol_file, input_names, param_file=None, ctx=None):
-        raise MXNetError("SymbolBlock.imports " + _SERIALIZATION_LATER)
+        """A SymbolBlock over ``symbol_file`` (``export``'s or the JAX
+        package's) with the parameters of ``param_file`` on ``ctx``."""
+        from ..serialization import load_ndarray_file
+        from ..symbol import Variable, load
+        sym = load(symbol_file)
+        if isinstance(input_names, str):
+            input_names = [input_names]
+        block = SymbolBlock(sym, [Variable(n) for n in input_names])
+        if param_file is not None:
+            params = block._params._params
+            for k, v in load_ndarray_file(param_file).items():
+                name = k.split(":", 1)[-1]
+                if name in params:
+                    params[name].dtype = v.dtype
+                    params[name]._load(v, ctx)
+        return block
+
+    def forward(self, *args):
+        from ..symbol import Symbol
+        if args and isinstance(args[0], Symbol):
+            raise MXNetError("SymbolBlock: composing it into another "
+                             "symbol comes with a later slice of the "
+                             "PyTorch port (ROADMAP A.5)")
+        params = dict(self._params.items())
+        if any(p._data is None for p in params.values()):
+            shapes, _, aux_shapes = self._symbol.infer_shape(
+                **{n: a.shape for n, a in zip(self._input_names, args)})
+            known = dict(zip(self._symbol.list_arguments(), shapes))
+            known.update(zip(self._symbol.list_auxiliary_states(),
+                             aux_shapes))
+            for name, p in params.items():
+                if p._data is None:
+                    p.shape = tuple(known[name])
+                    p._finish_deferred_init()
+        if self._graph is None:
+            self._graph = _CachedGraph(GraphPlan(self._symbol),
+                                       self._input_names, params)
+        return _run_cached(self._graph, args)

@@ -24,10 +24,6 @@ from ..ndarray.ndarray import NDArray, zeros
 __all__ = ["Parameter", "Constant", "ParameterDict",
            "DeferredInitializationError"]
 
-_SERIALIZATION_LATER = ("come with serialization (ROADMAP A.7, "
-                        "checkpoint) in the PyTorch port")
-
-
 class DeferredInitializationError(MXNetError):
     """A parameter was read before its deferred initialization ran."""
 
@@ -209,6 +205,18 @@ class Parameter:
         with torch.no_grad():
             self._data._data.copy_(data)
 
+    def _load(self, value, ctx=None):
+        """Write a loaded value into the data; a parameter without data
+        takes the value's shape (and, when its type was not set, the
+        value's type) and is created on ``ctx`` first."""
+        if self._data is None:
+            self.shape = tuple(value.shape)
+            self.initialize(ctx=ctx if ctx is not None
+                            else (self._deferred_init[1]
+                                  if self._deferred_init else None))
+            self._finish_deferred_init()
+        self.set_data(value)
+
     def cast(self, dtype):
         """Cast the data (and gradient) to ``dtype``."""
         self.dtype = dtype
@@ -348,10 +356,37 @@ class ParameterDict:
             setattr(p, name, value)
 
     def save(self, filename, strip_prefix=""):
-        raise MXNetError("ParameterDict.save: parameter files "
-                         + _SERIALIZATION_LATER)
+        """Save every parameter's data by name (minus ``strip_prefix``)
+        in the reference's NDArray file (``serialization.py``)."""
+        from ..serialization import save_ndarray_file
+        arg = {}
+        for p in self._params.values():
+            name = p.name
+            if strip_prefix and name.startswith(strip_prefix):
+                name = name[len(strip_prefix):]
+            arg[name] = p.data()
+        save_ndarray_file(filename, arg)
 
     def load(self, filename, ctx=None, allow_missing=False,
              ignore_extra=False, restore_prefix=""):
-        raise MXNetError("ParameterDict.load: parameter files "
-                         + _SERIALIZATION_LATER)
+        """Load a file written by :meth:`save` (or ``Block.export``'s
+        ``arg:``/``aux:`` file) into the parameters of the same names;
+        an uninitialized parameter is created on ``ctx`` with the
+        file's shape."""
+        from ..serialization import load_ndarray_file
+        loaded = load_ndarray_file(filename)
+        params = {restore_prefix + k.split(":", 1)[-1]: v
+                  for k, v in loaded.items()}
+        if not allow_missing:
+            for name in self.keys():
+                if name not in params:
+                    raise MXNetError("Parameter '%s' is missing in file "
+                                     "'%s'" % (name, filename))
+        for name, v in params.items():
+            if name not in self._params:
+                if not ignore_extra:
+                    raise MXNetError("Parameter '%s' loaded from file '%s' "
+                                     "is not present in ParameterDict"
+                                     % (name, filename))
+                continue
+            self._params[name]._load(v, ctx)

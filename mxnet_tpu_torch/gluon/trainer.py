@@ -13,15 +13,16 @@ of each weight, applies the optimizer there and the pull copies it back
 into the parameter; without it, the updater runs on the parameter in
 place.  bf16 weights (``net.cast('bfloat16')``) under
 ``multi_precision`` train through the ``Updater``'s f32 masters on
-either side, as ``Module`` does; optimizer-state files come with
-serialization (ROADMAP A.7).
+either side, as ``Module`` does.  ``save_states``/``load_states``
+write and read the updater's states with the optimizer (the
+``dump_optimizer`` form), the JAX package's file.
 """
 from __future__ import annotations
 
 from .. import kvstore as kvs
 from .. import optimizer as opt
 from ..base import MXNetError
-from .parameter import _SERIALIZATION_LATER, Parameter, ParameterDict
+from .parameter import Parameter, ParameterDict
 
 __all__ = ["Trainer"]
 
@@ -187,9 +188,31 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def save_states(self, fname):
-        raise MXNetError("Trainer.save_states: optimizer-state files "
-                         + _SERIALIZATION_LATER)
+        """Write the updater's states and the optimizer to ``fname``
+        (reference trainer.py:312)."""
+        if not self._kv_initialized:
+            self._init_kvstore()
+        if self._update_on_kvstore:
+            self._kvstore.save_optimizer_states(fname, dump_optimizer=True)
+        else:
+            with open(fname, "wb") as fout:
+                fout.write(self._updaters[0].get_states(dump_optimizer=True))
 
     def load_states(self, fname):
-        raise MXNetError("Trainer.load_states: optimizer-state files "
-                         + _SERIALIZATION_LATER)
+        """Load a :meth:`save_states` file (either package's); its
+        optimizer becomes the Trainer's (reference trainer.py:330)."""
+        if not self._kv_initialized:
+            self._init_kvstore()
+        if self._update_on_kvstore:
+            self._kvstore.load_optimizer_states(fname)
+            self._optimizer = self._kvstore._updater.optimizer
+        else:
+            with open(fname, "rb") as f:
+                states = f.read()
+            for upd in self._updaters:
+                upd.set_states(states)
+            self._optimizer = self._updaters[0].optimizer
+            for upd in self._updaters:
+                upd.optimizer = self._optimizer
+        self._optimizer.param_dict = {
+            i: param for i, param in enumerate(self._params)}

@@ -230,6 +230,24 @@ class KVStore:
     def barrier(self):
         self._flush_pending()
 
+    def save_optimizer_states(self, fname, dump_optimizer=False):
+        """Write the updater's states (with the optimizer when
+        ``dump_optimizer``) to ``fname``."""
+        if self._updater is None:
+            raise MXNetError("no updater/optimizer set")
+        self._flush_pending()
+        with open(fname, "wb") as f:
+            f.write(self._updater.get_states(dump_optimizer))
+
+    def load_optimizer_states(self, fname):
+        """Load a :meth:`save_optimizer_states` file (either
+        package's) into the updater."""
+        if self._updater is None:
+            raise MXNetError("no updater/optimizer set")
+        self._flush_pending()
+        with open(fname, "rb") as f:
+            self._updater.set_states(f.read())
+
 
 def _updater_key(k):
     try:

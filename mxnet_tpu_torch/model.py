@@ -7,7 +7,10 @@ the JAX package's rules.  A store object is used as given; with one
 device the strings ``'local'`` and ``'device'`` give no store at all, so
 nothing is compressed: pass ``mx.kv.create('device')`` to train through
 the store.  The distributed, ``'tpu'`` and ``'nccl'`` stores come with
-the multi-GPU slice; checkpoint files with the checkpoint slice.
+the multi-GPU slice.  ``save_checkpoint``, ``load_checkpoint`` and
+``load_params`` (reference model.py:384-430) write and read the
+reference's ``prefix-symbol.json`` and ``prefix-%04d.params`` files,
+the JAX package's files.
 """
 from __future__ import annotations
 
@@ -16,7 +19,8 @@ from collections import namedtuple
 from . import kvstore as kvs
 from .base import MXNetError
 
-__all__ = ["BatchEndParam"]
+__all__ = ["BatchEndParam", "save_checkpoint", "load_checkpoint",
+           "load_params"]
 
 BatchEndParam = namedtuple("BatchEndParams",
                            ["epoch", "nbatch", "eval_metric", "locals"])
@@ -113,3 +117,37 @@ def _update_params(param_arrays, grad_arrays, updater, num_device,
             continue
         for k, (w, g) in enumerate(zip(arg_list, grad_list)):
             updater(i * num_device + k, g, w)
+
+
+def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params):
+    """(reference model.py:384) ``prefix-symbol.json`` (when ``symbol``
+    is given) and ``prefix-%04d.params`` with ``arg:``/``aux:`` keys."""
+    from . import ndarray as nd
+    if symbol is not None:
+        symbol.save("%s-symbol.json" % prefix)
+    save_dict = {("arg:%s" % k): v for k, v in arg_params.items()}
+    save_dict.update({("aux:%s" % k): v for k, v in aux_params.items()})
+    nd.save("%s-%04d.params" % (prefix, epoch), save_dict)
+
+
+def load_checkpoint(prefix, epoch):
+    """(reference model.py:414) ``(symbol, arg_params, aux_params)``,
+    the parameters as NDArrays on the CPU."""
+    from . import symbol as sym
+    symbol = sym.load("%s-symbol.json" % prefix)
+    arg_params, aux_params = load_params(prefix, epoch)
+    return symbol, arg_params, aux_params
+
+
+def load_params(prefix, epoch):
+    """``(arg_params, aux_params)`` of ``prefix-%04d.params``."""
+    from . import ndarray as nd
+    save_dict = nd.load("%s-%04d.params" % (prefix, epoch))
+    arg_params, aux_params = {}, {}
+    for k, v in save_dict.items():
+        tp, name = k.split(":", 1)
+        if tp == "arg":
+            arg_params[name] = v
+        elif tp == "aux":
+            aux_params[name] = v
+    return arg_params, aux_params

@@ -17,8 +17,12 @@ nothing is compressed (the JAX package's rule).
 ``fit_step`` runs eligible configurations as the single-launch fused
 step (``module/fused_fit.py``: one CUDA graph replay per step on the
 card) and returns True; ``MXNET_FIT_FUSED=0`` keeps the eager pair
-(forward and backward, then ``update``).  Several contexts and
-checkpoint files come with later slices.
+(forward and backward, then ``update``).  ``Module.load``,
+``save_checkpoint`` and ``save/load_optimizer_states`` write and read
+the reference's files as the JAX package does: the optimizer states
+are a pickle keyed by parameter name whatever key the live updater
+uses (``pickle_compat.py``), so either package's file loads into
+either path.  Several contexts come with a later slice.
 """
 from __future__ import annotations
 
@@ -32,7 +36,8 @@ from ..base import MXNetError
 from ..context import Context, current_context
 from ..initializer import InitDesc, Uniform
 from ..model import (_create_kvstore, _initialize_kvstore, _update_params,
-                     _update_params_on_kvstore)
+                     _update_params_on_kvstore, load_checkpoint,
+                     save_checkpoint)
 from .base_module import BaseModule
 from .executor_group import DataParallelExecutorGroup, as_descs
 
@@ -88,6 +93,35 @@ class Module(BaseModule):
         # the fused step's DynamicLossScaler for bf16 parameters
         # (module/fused_fit.py), kept across re-binds
         self._loss_scaler = None
+        # Module.load / checkpoint.restore on a module not yet bound:
+        # the parameters set at bind, the states file read at
+        # init_optimizer
+        self._preloaded_params = None
+        self._preload_opt_states = None
+
+    # -- checkpoint files -----------------------------------------------
+    @staticmethod
+    def load(prefix, epoch, load_optimizer_states=False, **kwargs):
+        """A Module over ``prefix-symbol.json`` with the parameters of
+        ``prefix-%04d.params`` (set when it binds) and, with
+        ``load_optimizer_states``, the states of ``prefix-%04d.states``
+        (loaded at ``init_optimizer``)."""
+        sym, args, auxs = load_checkpoint(prefix, epoch)
+        mod = Module(symbol=sym, **kwargs)
+        mod._preloaded_params = (args, auxs)
+        mod.params_initialized = True
+        if load_optimizer_states:
+            mod._preload_opt_states = "%s-%04d.states" % (prefix, epoch)
+        return mod
+
+    def save_checkpoint(self, prefix, epoch, save_optimizer_states=False):
+        """Write ``prefix-symbol.json``, ``prefix-%04d.params`` and, with
+        ``save_optimizer_states``, ``prefix-%04d.states``."""
+        self._symbol.save("%s-symbol.json" % prefix)
+        arg_params, aux_params = self.get_params()
+        save_checkpoint(prefix, epoch, None, arg_params, aux_params)
+        if save_optimizer_states:
+            self.save_optimizer_states("%s-%04d.states" % (prefix, epoch))
 
     @property
     def data_names(self):
@@ -115,6 +149,8 @@ class Module(BaseModule):
         from the device."""
         if not self.params_initialized:
             raise MXNetError("get_params() before init_params()")
+        if self._preloaded_params is not None:
+            return self._preloaded_params
         arg_params, aux_params = {}, {}
         self._exec_group.get_params(arg_params, aux_params)
         return arg_params, aux_params
@@ -190,6 +226,12 @@ class Module(BaseModule):
             fixed_param_names=self._fixed_param_names,
             grad_req=grad_req)
         self.binded = True
+        if self._preloaded_params is not None:
+            args, auxs = self._preloaded_params
+            self._preloaded_params = None
+            self.init_params(initializer=None, arg_params=args,
+                             aux_params=auxs, force_init=True,
+                             allow_extra=True)
 
     # -- optimizer ------------------------------------------------------
     def init_optimizer(self, kvstore="local", optimizer="sgd",
@@ -239,6 +281,9 @@ class Module(BaseModule):
         else:
             self._updater = opt.get_updater(optimizer)
         self.optimizer_initialized = True
+        if self._preload_opt_states is not None:
+            self.load_optimizer_states(self._preload_opt_states)
+            self._preload_opt_states = None
 
     # -- execution ------------------------------------------------------
     def forward(self, data_batch, is_train=None):
@@ -320,27 +365,68 @@ class Module(BaseModule):
         if self._loss_scaler is not None:
             self._loss_scaler.publish()
 
+    def _live_updater(self):
+        """The updater applying the updates: the store's with
+        ``update_on_kvstore``, else the module's own."""
+        return self._kvstore._updater if self._update_on_kvstore \
+            else self._updater
+
+    def _opt_state_key_maps(self):
+        """``(name -> live updater key, either scheme's key -> live
+        key)``: the store's updater keys states by parameter name, the
+        module's own by index (``fused_fit`` uses the same keys), and a
+        states file keyed either way loads into the live scheme."""
+        from ..kvstore import _updater_key
+        names = self._exec_group.param_names
+        if self._update_on_kvstore:
+            name_to_live = {n: _updater_key(n) for n in names}
+        else:
+            name_to_live = {n: i for i, n in enumerate(names)}
+        alias = {}
+        for i, n in enumerate(names):
+            alias[_updater_key(n)] = name_to_live[n]
+            alias[i] = name_to_live[n]
+        return name_to_live, alias
+
     def save_optimizer_states(self, fname):
-        """Write the updater's states (``Updater.get_states``) to
-        ``fname``."""
+        """Write the updater's states to ``fname`` as the name-keyed
+        pickle both packages read."""
+        from .. import pickle_compat
         if not self.optimizer_initialized:
             raise MXNetError("save_optimizer_states() requires "
                              "init_optimizer()")
-        updater = self._kvstore._updater if self._update_on_kvstore \
-            else self._updater
+        if self._kvstore is not None:
+            self._kvstore._flush_pending()   # pending buckets touch state
+        updater = self._live_updater()
+        name_to_live, _ = self._opt_state_key_maps()
+        live_to_name = {lk: n for n, lk in name_to_live.items()}
+        states = {live_to_name.get(k, k): v
+                  for k, v in updater.states.items()}
         with open(fname, "wb") as f:
-            f.write(updater.get_states())
+            pickle_compat.dump(states, f)
 
     def load_optimizer_states(self, fname):
-        """Load states written by :meth:`save_optimizer_states` into the
-        updater (``Updater.set_states``)."""
+        """Load a states file of either package (keyed by name or by
+        either updater's keys; with the optimizer in the
+        ``dump_optimizer`` form, which then becomes the module's) into
+        the updater, in place where a state exists."""
+        from .. import pickle_compat
         if not self.optimizer_initialized:
             raise MXNetError("load_optimizer_states() requires "
                              "init_optimizer()")
-        updater = self._kvstore._updater if self._update_on_kvstore \
-            else self._updater
+        if self._kvstore is not None:
+            self._kvstore._flush_pending()
+        updater = self._live_updater()
         with open(fname, "rb") as f:
-            updater.set_states(f.read())
+            data = pickle_compat.load(f)
+        _, alias = self._opt_state_key_maps()
+        if isinstance(data, tuple) and len(data) == 2:
+            states, optimizer = data
+            updater.set_states(({alias.get(k, k): v
+                                 for k, v in states.items()}, optimizer))
+            self._optimizer = updater.optimizer
+        else:
+            updater.set_states({alias.get(k, k): v for k, v in data.items()})
 
     def get_outputs(self, merge_multi_context=True):
         outs = self._exec_group.get_outputs()

@@ -3,7 +3,8 @@
 Counterpart of ``mxnet_tpu/ndarray``: ``mx.nd.<op>`` for every operator
 in the port's registry, the creation functions, ``mx.nd.random``
 (uniform, normal, randint) and ``mx.nd.contrib`` (the ``_contrib_``
-operators under their short names).
+operators under their short names), and ``save``/``load``/
+``load_frombuffer`` of NDArray files (``serialization.py``).
 """
 import types as _types
 
@@ -63,6 +64,27 @@ contrib = _types.SimpleNamespace(**{
     if n.startswith("_contrib_")})
 
 
+def save(fname, data):
+    """Save an NDArray, a list or a str-keyed dict of NDArrays in the
+    reference's binary format (``serialization.py``; a bfloat16 array
+    makes the file the npz container the JAX package writes)."""
+    from ..serialization import save_ndarray_file
+    save_ndarray_file(fname, data)
+
+
+def load(fname):
+    """The list or dict of NDArrays saved in ``fname`` (either
+    package's file), on the CPU."""
+    from ..serialization import load_ndarray_file
+    return load_ndarray_file(fname)
+
+
+def load_frombuffer(buf):
+    """:func:`load` from the bytes of such a file."""
+    from ..serialization import load_ndarray_bytes
+    return load_ndarray_bytes(buf)
+
+
 def clip(data, a_min, a_max, out=None):
     """Positional bounds (reference ``nd.clip(data, a_min, a_max)``)."""
     return _dispatch.invoke_by_name("clip", [data],
@@ -71,4 +93,4 @@ def clip(data, a_min, a_max, out=None):
 
 __all__ = ["NDArray", "array", "empty", "zeros", "ones", "full", "arange",
            "concatenate", "moveaxis", "onehot_encode", "waitall", "random",
-           "contrib", "clip"]
+           "contrib", "clip", "save", "load", "load_frombuffer"]

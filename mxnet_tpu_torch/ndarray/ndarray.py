@@ -147,6 +147,33 @@ class NDArray:
         return t.cpu().numpy().copy() if t.device.type == "cpu" \
             else t.cpu().numpy()
 
+    def __getstate__(self):
+        """The JAX package's pickled state, ``{"data": numpy, "ctx":
+        "cpu(0)"}`` (host data: a loader places it).  A bfloat16 array
+        is written as ``ml_dtypes``' bfloat16 where that package exists
+        (the JAX package's own form), else as float32 with a ``dtype``
+        entry the port reads back."""
+        t = self._data.detach()
+        if t.dtype == torch.bfloat16:
+            try:
+                import ml_dtypes
+            except ImportError:
+                return {"data": t.float().cpu().numpy(), "ctx": "cpu(0)",
+                        "dtype": "bfloat16"}
+            bits = t.cpu().contiguous().view(torch.int16).numpy()
+            return {"data": bits.view(ml_dtypes.bfloat16), "ctx": "cpu(0)"}
+        return {"data": t.cpu().numpy().copy() if t.device.type == "cpu"
+                else t.cpu().numpy(), "ctx": "cpu(0)"}
+
+    def __setstate__(self, state):
+        """Either package's pickled state, as an array on the CPU."""
+        t = numpy_to_tensor(state["data"])
+        if state.get("dtype"):
+            t = t.to(torch_dtype(state["dtype"]))
+        self._data = t
+        self._grad = None
+        self._grad_req = "null"
+
     def asscalar(self):
         if self.size != 1:
             raise ValueError("The current array is not a scalar")

@@ -33,7 +33,6 @@ every path; float16 raises (ROADMAP A.1, float16).
 from __future__ import annotations
 
 import math
-import pickle
 
 import numpy as _np
 import torch
@@ -95,6 +94,26 @@ class Optimizer:
 
     def create_state(self, index, weight):
         return None
+
+    # -- pickling: the JAX package's attributes (pickle_compat.py) -------
+    def __getstate__(self):
+        """The attributes as the JAX package's optimizer of the same name
+        has them: ``param_dict`` (Gluon Parameters, set anew by whoever
+        loads the optimizer) is left out, ``lazy_update`` (a sparse
+        switch, ROADMAP A.6) takes the JAX default."""
+        state = dict(self.__dict__)
+        state["param_dict"] = {}
+        if isinstance(self, (SGD, Adam)):
+            state.setdefault("lazy_update", True)
+        return state
+
+    def __setstate__(self, state):
+        """Either package's attributes; any the pickle lacks take this
+        class's defaults."""
+        self.__dict__.update(type(self)().__dict__)
+        self.__dict__.update(state)
+        self.__dict__.pop("lazy_update", None)
+        self.param_dict = {}
 
     def keeps_master(self, weight):
         """Whether ``weight`` (an NDArray or tensor) is updated through
@@ -440,37 +459,46 @@ class Updater:
         return st
 
     def get_states(self, dump_optimizer=False):
-        """The per-key states as bytes (a pickle of numpy arrays nested
-        as the states are), with the optimizer when ``dump_optimizer``
-        (reference optimizer.py ``Updater.get_states``).  The fused fit
-        step keeps its state in these same arrays, so the states of
-        either path load into the other."""
-        states = {k: _map_state(lambda leaf: leaf.asnumpy(), v)
-                  for k, v in self.states.items()}
-        return pickle.dumps((states, self.optimizer) if dump_optimizer
-                            else states)
+        """The per-key states as bytes: a pickle of NDArrays nested as the
+        states are (with the optimizer when ``dump_optimizer``), in the
+        JAX package's format (``pickle_compat.py``; reference
+        optimizer.py ``Updater.get_states``).  The fused fit step keeps
+        its state in these same arrays, so the states of either path load
+        into the other."""
+        from . import pickle_compat
+        return pickle_compat.dumps((self.states, self.optimizer)
+                                   if dump_optimizer else self.states)
 
     def set_states(self, states):
-        """Load :meth:`get_states`' bytes.  A key that already has a
-        state of the same nesting and shapes gets the values copied into
-        its arrays (a captured fit step keeps reading them); any other
-        key's state becomes host arrays, moved to its weight's device at
-        first use."""
-        loaded = pickle.loads(states)
-        if isinstance(loaded, tuple):
+        """Load :meth:`get_states`' bytes (either package's), or the
+        unpickled dict.  A key that already has a state of the same
+        nesting and shapes gets the values copied into its arrays (a
+        captured fit step keeps reading them); any other key's state
+        becomes host arrays, moved to its weight's device at first
+        use."""
+        from . import pickle_compat
+        loaded = pickle_compat.loads(states) \
+            if isinstance(states, (bytes, bytearray)) else states
+        if isinstance(loaded, tuple) and len(loaded) == 2:
             loaded, self.optimizer = loaded
         for k, v in loaded.items():
             old = self.states.get(k)
             new_leaves = _leaves(v)
             old_leaves = _leaves(old)
             if old is not None and len(old_leaves) == len(new_leaves) \
-                    and all(tuple(o.shape) == n.shape
+                    and all(o.shape == tuple(n.shape)
                             for o, n in zip(old_leaves, new_leaves)):
-                for o, n in zip(old_leaves, new_leaves):
-                    o[:] = n
+                with torch.no_grad():
+                    for o, n in zip(old_leaves, new_leaves):
+                        o._data.copy_(_host_tensor(n))
             else:
                 self.states[k] = _map_state(
-                    lambda a: NDArray(numpy_to_tensor(a)), v)
+                    lambda a: NDArray(_host_tensor(a)), v)
+
+
+def _host_tensor(a):
+    """The tensor of a loaded state leaf (an NDArray, or numpy)."""
+    return a._data if isinstance(a, NDArray) else numpy_to_tensor(a)
 
 
 def _leaves(state):

@@ -10,6 +10,15 @@ entropy, as the reference's unseeded streams do.
 The streams are not the JAX package's: ``jax.random`` keys and torch
 generators give different numbers from the same seed, so a test that
 needs the same values in both packages makes them with numpy.
+
+``get_state``/``set_state`` snapshot and restore every stream (a
+checkpoint carries them): the seed, each generator's state and the host
+stream's Mersenne state.  The dict has the JAX package's keys
+(``seed``, ``key``, ``host``) plus ``torch``; ``key`` is always None
+here.  Across packages only the host stream carries over (the data
+iterators' shuffle order): a device stream of one package cannot be
+set in the other, so a restore from the other package's checkpoint
+seeds the generators from its seed.
 """
 from __future__ import annotations
 
@@ -18,7 +27,7 @@ import threading
 import numpy as _np
 import torch
 
-__all__ = ["seed", "generator", "host_rng"]
+__all__ = ["seed", "generator", "host_rng", "get_state", "set_state"]
 
 _lock = threading.Lock()
 _STATE = {"seed": None, "gens": {}, "host": None}
@@ -56,3 +65,42 @@ def host_rng() -> _np.random.RandomState:
         if _STATE["host"] is None:
             _STATE["host"] = _np.random.RandomState()
         return _STATE["host"]
+
+
+def get_state():
+    """``{"seed", "key": None, "host", "torch"}``: the seed (None when
+    never seeded), the host stream's ``get_state()`` tuple and each
+    generator made so far as ``{"cuda:0": uint8 numpy}``."""
+    with _lock:
+        host = _STATE["host"]
+        return {"seed": _STATE["seed"], "key": None,
+                "host": None if host is None else host.get_state(),
+                "torch": {"%s:%d" % key: gen.get_state().numpy().copy()
+                          for key, gen in _STATE["gens"].items()}}
+
+
+def set_state(state):
+    """Restore a :func:`get_state` snapshot (or the JAX package's, whose
+    device key is ignored): the seed, the host stream, and each
+    generator it holds; generators it does not hold start from the
+    seed."""
+    s = state.get("seed")
+    host = state.get("host")
+    gens = state.get("torch") or {}
+    with _lock:
+        _STATE["seed"] = None if s is None else int(s)
+        _STATE["gens"] = {}
+        if host is None:
+            _STATE["host"] = None
+        else:
+            rng = _np.random.RandomState()
+            rng.set_state(tuple(host))
+            _STATE["host"] = rng
+    for key, value in gens.items():
+        kind, idx = key.split(":")
+        device = torch.device(kind, int(idx)) if kind != "cpu" \
+            else torch.device("cpu")
+        if device.type == "cuda" and not torch.cuda.is_available():
+            continue
+        generator(device).set_state(
+            torch.from_numpy(_np.asarray(value, dtype=_np.uint8)).clone())

@@ -11,9 +11,10 @@ import types
 
 from ..base import current_name_manager
 from ..ops import registry as _reg
-from .symbol import Group, Symbol, Variable, _entry_of, _make_node
+from .symbol import (Group, Symbol, Variable, _entry_of, _make_node, load,
+                     load_json)
 
-__all__ = ["Symbol", "Variable", "Group", "contrib"]
+__all__ = ["Symbol", "Variable", "Group", "contrib", "load", "load_json"]
 
 
 def _invoke_op(opname, sym_inputs, attrs=None, name=None):
@@ -26,8 +27,10 @@ def _make_sym_func(opdef, fname):
         nm = current_name_manager().get(
             name, opdef.name.lower().replace("_", ""))
         if opdef.var_inputs:
+            given = list(kwargs)        # num_args is the count, not given
             kwargs["num_args"] = len(args)
-            return _make_node(opdef, nm, kwargs, [_entry_of(s) for s in args])
+            return _make_node(opdef, nm, kwargs, [_entry_of(s) for s in args],
+                              given=given)
         kw_inputs = {k: kwargs.pop(k) for k in list(kwargs)
                      if k in opdef.input_names}
         unused = opdef.unused_inputs(kwargs) if opdef.unused_inputs \

@@ -133,7 +133,7 @@ def fuse_conv_bn(symbol, fuse_residual=True):
         ins = [entry(e) for e in list(bn.inputs) + [conv.inputs[1]]]
         if residual is not None:
             ins.append(entry(residual))
-        return _Node(fused_op, conv.name, attrs, ins)
+        return _Node(fused_op, conv.name, attrs, ins, given_attrs=attrs)
 
     def rebuild(node):
         if id(node) not in memo:
@@ -146,7 +146,8 @@ def fuse_conv_bn(symbol, fuse_residual=True):
             else:
                 memo[id(node)] = _Node(node.op, node.name, dict(node.attrs),
                                        [entry(e) for e in node.inputs],
-                                       node.shape, dict(node.str_attrs))
+                                       node.shape, dict(node.str_attrs),
+                                       node.given_attrs)
         return memo[id(node)]
 
     def entry(e):

@@ -10,10 +10,20 @@ arithmetic and comparison operators (scalar operands on either side),
 BatchNorm's moving statistics), ``attr_dict``, ``infer_shape``,
 ``infer_type``, ``infer_shape_type`` and ``simple_bind``.  Types are
 torch dtypes here (the JAX package gives numpy dtypes); given types may
-be names, numpy or torch dtypes.  JSON serialization, attribute scopes,
-sharding annotations and control flow come with later slices.
+be names, numpy or torch dtypes.
+
+``tojson``/``save`` write the reference's symbol.json layout exactly as
+the JAX package writes it (the same nodes, the op attributes the caller
+passed, never the filled-in defaults, as strings, and the variables'
+attributes), so the two packages' files of one model are the same
+string; ``load``/``load_json`` read it, the legacy ``param`` and
+``attr`` keys included.  Attribute scopes, sharding annotations and
+control flow (whose nodes carry subgraphs) come with later slices.
 """
 from __future__ import annotations
+
+import inspect
+import json
 
 import torch
 
@@ -22,19 +32,38 @@ from ..base import (MXNetError, current_name_manager, numeric_types,
 from ..ops.shape_rules import (INDEX_INPUTS, OUT_SHAPES, PARAM_SHAPES,
                                 out_dtypes)
 
-__all__ = ["Symbol", "Variable", "Group"]
+__all__ = ["Symbol", "Variable", "Group", "load", "load_json"]
 
 
 class _Node:
-    __slots__ = ("op", "name", "attrs", "inputs", "shape", "str_attrs")
+    __slots__ = ("op", "name", "attrs", "inputs", "shape", "str_attrs",
+                 "given_attrs")
 
-    def __init__(self, op, name, attrs, inputs, shape=None, str_attrs=None):
+    def __init__(self, op, name, attrs, inputs, shape=None, str_attrs=None,
+                 given_attrs=None):
         self.op = op            # OpDef, or None for a variable
         self.name = name
-        self.attrs = attrs      # typed op attributes
+        self.attrs = attrs      # typed op attributes, defaults filled in
         self.inputs = inputs    # [(node, out_idx)]
         self.shape = shape      # a variable's declared shape
-        self.str_attrs = str_attrs or {}    # a variable's user attributes
+        self.str_attrs = str_attrs or {}    # user attributes
+        # the op attributes the caller passed, in the order passed
+        # (tojson writes only these)
+        self.given_attrs = tuple(given_attrs or ())
+
+    def explicit_attrs(self):
+        """The op attributes the caller passed, ``{name: value}``, in the
+        JAX package's order: those with a default in the op's signature
+        order, then the required ones in the order passed."""
+        if self.is_var:
+            return {}
+        given = set(self.given_attrs)
+        required = [k for k in self.given_attrs
+                    if self.op.attr_defaults.get(k) is inspect.Parameter.empty]
+        out = {k: v for k, v in self.attrs.items()
+               if k in given and k not in required}
+        out.update((k, self.attrs[k]) for k in required)
+        return out
 
     def output_name(self, idx):
         """The reference's output naming: a variable's own name,
@@ -257,10 +286,8 @@ class Symbol:
         if isinstance(other, Symbol):
             return _invoke_op(op, [other, self] if reverse else [self, other])
         if isinstance(other, numeric_types):
-            attrs = {"scalar": float(other)}
-            if reverse:
-                attrs["reverse"] = True
-            return _invoke_op(scalar_op, [self], attrs)
+            return _invoke_op(scalar_op, [self],
+                              {"scalar": float(other), "reverse": reverse})
         return NotImplemented
 
     def __add__(self, o): return self._binop(o, "broadcast_add", "_plus_scalar")
@@ -286,6 +313,34 @@ class Symbol:
         return self._binop(o, "broadcast_not_equal", "_not_equal_scalar")
 
     __hash__ = object.__hash__
+
+    # ------------------------------------------------------------------
+    def tojson(self):
+        """The reference's symbol.json, the JAX package's string."""
+        nodes = self._topo()
+        nid = {id(n): i for i, n in enumerate(nodes)}
+        jnodes, arg_nodes = [], []
+        for i, n in enumerate(nodes):
+            if n.is_var:
+                arg_nodes.append(i)
+            attrs = {k: _attr_to_str(v)
+                     for k, v in n.explicit_attrs().items()}
+            attrs.update(n.str_attrs)
+            jn = {"op": "null" if n.is_var else n.op.name, "name": n.name,
+                  "inputs": [[nid[id(inp)], oi, 0] for inp, oi in n.inputs]}
+            if attrs:
+                jn["attrs"] = attrs
+            jnodes.append(jn)
+        heads = [[nid[id(n)], oi, 0] for n, oi in self._entries]
+        return json.dumps({"nodes": jnodes, "arg_nodes": arg_nodes,
+                           "heads": heads,
+                           "attrs": {"mxnet_version": ["str",
+                                                       "tpu-native-0.1"]}},
+                          indent=2)
+
+    def save(self, fname):
+        with open(fname, "w") as f:
+            f.write(self.tojson())
 
     def reshape(self, shape):
         from . import _invoke_op
@@ -347,10 +402,11 @@ def Group(symbols):
     return Symbol(entries)
 
 
-def _make_node(opdef, name, attrs, inputs):
+def _make_node(opdef, name, attrs, inputs, given=None):
+    given = list(attrs) if given is None else given
     attrs = opdef.normalize_attrs(attrs)
     nm = current_name_manager().get(name, opdef.name.replace("_", ""))
-    node = _Node(opdef, nm, attrs, inputs)
+    node = _Node(opdef, nm, attrs, inputs, given_attrs=given)
     vis = opdef.visible_out_count(attrs)
     return Symbol([(node, i) for i in range(vis)])
 
@@ -360,3 +416,79 @@ def _entry_of(s):
         raise MXNetError("an op input must be a single-output Symbol; "
                          "index a multi-output Symbol first")
     return s._entries[0]
+
+
+def _attr_to_str(v):
+    if isinstance(v, bool):
+        return str(v)
+    if isinstance(v, (tuple, list)):
+        return "(" + ", ".join(str(x) for x in v) + ")"
+    if v is None:
+        return "None"
+    return str(v)
+
+
+def _parse_attr_string(v):
+    """An attribute string of symbol.json as a value: 'True', '(2, 2)',
+    '1e-3', 'relu'."""
+    s = v.strip()
+    low = s.lower()
+    if low in ("true", "false"):
+        return low == "true"
+    if low == "none":
+        return None
+    if s.startswith("(") or s.startswith("["):
+        inner = s[1:-1].strip()
+        if not inner:
+            return ()
+        return tuple(_parse_attr_string(t) for t in inner.split(",")
+                     if t.strip())
+    try:
+        return int(s)
+    except ValueError:
+        pass
+    try:
+        return float(s)
+    except ValueError:
+        return v
+
+
+def load(fname):
+    with open(fname) as f:
+        return load_json(f.read())
+
+
+def load_json(json_str):
+    """A Symbol from symbol.json, the legacy layouts the reference
+    upgrades included (src/nnvm/legacy_json_util.cc): op parameters
+    under ``param`` (before 0.9), user attributes under ``attr``
+    (0.9-1.1) and the merged ``attrs`` (1.2 on)."""
+    from ..ops import registry as _reg
+    data = json.loads(json_str)
+    nodes = []
+    for jn in data["nodes"]:
+        attrs = dict(jn.get("param", {}) or {})
+        attrs.update(jn.get("attr", {}) or {})
+        attrs.update(jn.get("attrs", {}) or {})
+        inputs = [(nodes[i], oi) for i, oi, *_ in jn["inputs"]]
+        if jn["op"] == "null":
+            shape = attrs.get("__shape__")
+            nodes.append(_Node(None, jn["name"], {}, [],
+                               _parse_attr_string(shape) if shape else None,
+                               attrs))
+            continue
+        if jn.get("subgraphs"):
+            raise MXNetError("load_json: node %s (%s) holds subgraphs: "
+                             "control flow comes with a later slice of the "
+                             "PyTorch port (ROADMAP A.6)"
+                             % (jn["name"], jn["op"]))
+        opdef = _reg.get_op(jn["op"])
+        given = [k for k in attrs if k in opdef.attr_defaults]
+        typed = opdef.normalize_attrs(
+            {k: _parse_attr_string(attrs[k]) if isinstance(attrs[k], str)
+             else attrs[k] for k in given})
+        user = {k: v for k, v in attrs.items()
+                if k not in opdef.attr_defaults}
+        nodes.append(_Node(opdef, jn["name"], typed, inputs, None, user,
+                           given_attrs=given))
+    return Symbol([(nodes[h[0]], h[1]) for h in data["heads"]])

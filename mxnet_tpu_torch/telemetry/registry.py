@@ -1,4 +1,5 @@
-"""Process-wide metric registry: the subset the decode engine touches.
+"""Process-wide metric registry: the subset the decode engine and the
+checkpoint writer touch.
 
 Counterpart of ``mxnet_tpu/telemetry/registry.py``: named counters,
 gauges and histograms created once at import and updated on the hot

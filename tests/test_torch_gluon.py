@@ -228,7 +228,7 @@ def test_embedding_matches_jax():
     _compare_block(lambda p: p.gluon.nn.Embedding(10, 4), [idx], n_diff=0)
 
 
-def test_eager_blocks_and_raising_layers():
+def test_eager_blocks_and_raising_layers(tmp_path):
     x = _r(np.random.RandomState(4), 3, 4)
     for pkg in (jmx, mx):
         seq = pkg.gluon.nn.Sequential()
@@ -242,13 +242,20 @@ def test_eager_blocks_and_raising_layers():
                  lambda: mx.gluon.nn.Conv2D(4, 3, layout="NHWC")):
         with pytest.raises(mx.MXNetError):
             make()
+    # parameter files, export and SymbolBlock (ROADMAP A.7) work now
+    x3 = _r(np.random.RandomState(5), 4, 3)
     net = mx.gluon.nn.Dense(2, in_units=3)
-    for call in (lambda: net.save_parameters("x.params"),
-                 lambda: net.load_parameters("x.params"),
-                 lambda: net.export("x"),
-                 lambda: mx.gluon.SymbolBlock(None, None)):
-        with pytest.raises(mx.MXNetError, match="A.7"):
-            call()
+    net.initialize(mx.init.Xavier(), ctx=mx.cpu())
+    want = net(_arr(mx, x3)).asnumpy()
+    net.save_parameters(str(tmp_path / "x.params"))
+    other = mx.gluon.nn.Dense(2, in_units=3)
+    other.load_parameters(str(tmp_path / "x.params"), ctx=mx.cpu())
+    np.testing.assert_array_equal(other(_arr(mx, x3)).asnumpy(), want)
+    net.export(str(tmp_path / "x"))
+    block = mx.gluon.SymbolBlock.imports(
+        str(tmp_path / "x-symbol.json"), ["data"],
+        str(tmp_path / "x-0000.params"), ctx=mx.cpu())
+    np.testing.assert_array_equal(block(_arr(mx, x3)).asnumpy(), want)
 
 
 # ----------------------------------------------------------------------

@@ -9,6 +9,8 @@ packages' decode engines.  The JAX side runs LayerNorm through its
 Pallas kernels in interpret mode; the port's kernels take their plain
 versions on CPU tensors.  Tolerances are stated per test.
 """
+import logging
+
 import numpy as np
 import pytest
 import torch
@@ -393,9 +395,32 @@ def test_get_symbol_errors_name_their_roadmap_item(bad, item):
 
 @pytest.mark.parametrize("arg,item", [
     ("monitor", "A.9"), ("sparse_row_id_fn", "A.6"),
-    ("checkpoint_every", "A.7"), ("checkpoint_prefix", "A.7")])
-def test_fit_errors_name_their_roadmap_item(arg, item):
+    ("checkpoint_every", "writes a tag every n steps"),
+    ("checkpoint_prefix", "alone warns and arms nothing")])
+def test_fit_errors_name_their_roadmap_item(arg, item, tmp_path, caplog):
+    """Arguments of later slices raise naming their ROADMAP item.  The
+    checkpoint arguments (ROADMAP A.7) follow the JAX package's contract
+    (mxnet_tpu/module/base_module.py:239-251): ``checkpoint_every``
+    writes a tag every n steps under the prefix, a prefix alone warns
+    and arms nothing."""
     mod = mx.Module(transformer.get_symbol(**CFG), context=mx.cpu())
+    if arg.startswith("checkpoint"):
+        prefix = str(tmp_path / "run")
+        it = _FlatLabels(mx.io.NDArrayIter(
+            *_tokens(np.random.RandomState(2), 2 * B), batch_size=B), mx,
+            _port_flat)
+        kw = {"checkpoint_prefix": prefix}
+        if arg == "checkpoint_every":
+            kw["checkpoint_every"] = 1
+        with caplog.at_level(logging.WARNING):
+            mod.fit(it, num_epoch=1, optimizer="sgd", **kw)
+        tags = mx.checkpoint.manifest.list_tags(prefix)
+        if arg == "checkpoint_every":
+            assert tags == [1, 2]
+            assert mx.checkpoint.latest(prefix)["step"] == 2
+        else:
+            assert tags == [] and "NOT armed" in caplog.text
+        return
     it = mx.io.NDArrayIter(*_tokens(np.random.RandomState(2), B),
                            batch_size=B)
     with pytest.raises(mx.MXNetError) as err:
