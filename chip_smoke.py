@@ -47,13 +47,27 @@ Phases, each printed as one JSON line:
    seed) through ``DecodeEngine``: 8 ragged requests fill the 8 slots
    and the first one, submitted again, waits for a slot and is admitted
    mid-flight; every request must finish with its token count, the
-   resubmitted one must repeat its stream, every step must have launched
-   each paged kernel 12 times and LayerNorm 50 times, and no plain
-   version may run;
-5. agreement: the same engine at 2 layers on the card and on the CPU
-   (plain versions) over 3 requests: per-step logits within rtol 1e-4 /
-   atol 1e-4 and equal greedy streams (a stream is compared only up to
-   a step where the CPU's top-2 logit margin is inside that tolerance);
+   resubmitted one must repeat its stream.  Since PR 18 each step is one
+   replay of the step captured as a CUDA graph (``serve_arms``: the
+   engine's warm-up and capture inside the counted run): the step graph
+   records each paged kernel 12 times and LayerNorm 50 (one replay a
+   step; the wrappers count only the warm-up walks and the capture), the
+   witnesses hold (``dispatches_per_step`` 1.0, no retrace), no plain
+   version runs; a profiled window of 4 steady steps makes one
+   ``cudaGraphLaunch`` and no kernel launch call a step and syncs the
+   host only at the token readback; an eager arm
+   (``MXNET_DECODE_DONATE=0``) on the same prompts gives the same streams
+   and bit-equal first-step logits (else rtol/atol 1e-4 and the first
+   differing op named); wall, tokens/s, step p50, TTFT, device ms, idle
+   share and peak memory of both arms printed;
+5. agreement: the same engine at 2 layers on the card (captured), on
+   the card eager and on the CPU (plain versions) over 3 requests:
+   per-step logits within rtol 1e-4 / atol 1e-4 and equal greedy streams
+   card against CPU (a stream is compared only up to a step where the
+   CPU's top-2 logit margin is inside that tolerance), bit-equal logits
+   captured against eager; two captured engines stepping at once on two
+   threads, a ``swap_params`` while serving, and two forwards that
+   cannot be captured (a host read, a random draw) raising every time;
 6. layernorm_bwd, flash_fwd, flash_bwd: the training kernels at the
    training shapes (LayerNorm backward on 4096 x 2048 and at the widths
    of LN_BWD_EDGES, with and without a residual, two runs bit-identical,
@@ -153,7 +167,11 @@ Phases, each printed as one JSON line:
    forwards (12 decode and 25 LayerNorm launches each), no plain
    version; the greedy streams equal the mixed-step engine's on the
    same prompts under 5's margin rule; prefill ms, decode step p50 and
-   peak memory printed;
+   peak memory printed.  Two arms (``prefill_arms``): eager, then both
+   executors donating their caches and capturing into one graph pool
+   (each graph records the counts above, a steady decode step is one
+   graph launch, streams and prefill logits equal the eager arm's), peak
+   GB allocated and reserved beside each;
 18. serve_spec: ``DecodeEngine(spec_k=4)`` at full width, an n-gram arm
    (8 prompts with repeating tails, 32 new tokens each: streams equal
    the mixed-step engine's under the margin rule, drafts proposed, and
@@ -161,7 +179,12 @@ Phases, each printed as one JSON line:
    decode kernel never) and a draft arm (the target's own weights as
    the draft model, 4 requests of 16 tokens: accept rate at least 0.9,
    12 flash-forward launches per proposed token); tokens per launch,
-   accept rate, step p50 and tokens/s printed;
+   accept rate, step p50 and tokens/s printed.  Each drafter in two arms
+   (``spec_arms``): eager, then captured (the spec step's graph and one
+   draft graph per span length, all captured by ``warmup()``; the counts
+   above are what the graphs record and replay; one graph launch a step
+   and one a proposal in the steady window; streams and first-step
+   logits equal the eager arm's);
 19. prefill_agreement: the pair at 2 layers (prefill length 256) on the
    card and on the CPU from the same numpy weights over 3 prompts:
    prefill logits (rtol 1e-4 / atol 1e-4), the prefilled cache rows
@@ -287,18 +310,20 @@ Phases, each printed as one JSON line:
    embeddings, logits, block tables, positions and lengths) through
    ``DecodeEngine`` on the mixed step, serve's requests and geometry,
    with SERVE_BF16_RESERVED blocks held off the free list so the block
-   ids pass 256: every step launches decode and chunk 12 times and
-   LayerNorm 50, all bf16, no plain version; tokens/s, step p50, TTFT
-   p50/max, peak memory; LayerNorm's bf16 form is also timed at its 8
-   and 64 rows in layernorm_bf16 (20);
+   ids pass 256: every step's graph records decode and chunk 12 times
+   and LayerNorm 50, all bf16, no plain version, with 4's graph checks
+   and eager arm; tokens/s, step p50, TTFT p50/max, peak memory;
+   LayerNorm's bf16 form is also timed at its 8 and 64 rows in
+   layernorm_bf16 (20);
 33. serve_prefill_bf16: the bf16 prefill/decode-step pair at full width,
    one 8 x 1024 prefill forward (12 bf16 prefill launches) and 31
    decode steps (12 bf16 decode launches each), the first token's
    logits within relative L2 2e-2 of the bf16 engine's; prefill ms,
-   decode step p50, peak memory;
+   decode step p50, peak memory; eager and donated arms as in 17;
 34. serve_spec_bf16: ``spec_k=4`` in bf16, the n-gram arm (24 bf16
    chunk launches a step) and a bf16 draft model (12 bf16 flash
-   launches a proposed token, accept rate at least 0.5);
+   launches a proposed token, accept rate at least 0.5); eager and
+   captured arms as in 18;
 35. serve_bf16_agreement: the mixed step, the spec step and the
    prefill/decode-step pair at 2 layers in bf16, card against CPU, each
    driven with the card engine's greedy tokens forced on both devices:
@@ -619,18 +644,29 @@ def emit(obj):
 
 
 @contextlib.contextmanager
-def fit_fused_off():
-    """Modules made inside keep the eager pair (``MXNET_FIT_FUSED=0``):
-    the phases written before the fused fit step check that path."""
-    old = os.environ.get("MXNET_FIT_FUSED")
-    os.environ["MXNET_FIT_FUSED"] = "0"
+def env_set(name, value):
+    """``os.environ[name] = value`` inside the block."""
+    old = os.environ.get(name)
+    os.environ[name] = value
     try:
         yield
     finally:
         if old is None:
-            os.environ.pop("MXNET_FIT_FUSED")
+            os.environ.pop(name)
         else:
-            os.environ["MXNET_FIT_FUSED"] = old
+            os.environ[name] = old
+
+
+def fit_fused_off():
+    """Modules made inside keep the eager pair (``MXNET_FIT_FUSED=0``):
+    the phases written before the fused fit step check that path."""
+    return env_set("MXNET_FIT_FUSED", "0")
+
+
+def serving_eager():
+    """Engines made inside keep the eager walk (``MXNET_DECODE_DONATE=0``,
+    the JAX engine's copy path): the serve phases' eager arm."""
+    return env_set("MXNET_DECODE_DONATE", "0")
 
 
 # ----------------------------------------------------------------------
@@ -1289,62 +1325,376 @@ def seeded_params(cfg):
     return out
 
 
-def phase_serve(torch, mx, np_params):
-    from mxnet_tpu_torch.decode import DecodeEngine
-    from mxnet_tpu_torch.kernels import LAUNCHES, PLAIN_CALLS, reset_counts
-    from mxnet_tpu_torch.weights import convert_params
-    t0 = time.perf_counter()
-    params = convert_params(np_params, mx.gpu(0), FULL)
-    eng = DecodeEngine(params, FULL, ctx=mx.gpu(0), warmup=True,
-                       **GEOMETRY)
-    del params
+# ----------------------------------------------------------------------
+# the serving step as one captured CUDA graph (ROADMAP A.3): the
+# measurements and checks every serve phase shares
+# ----------------------------------------------------------------------
+SERVE_LENGTHS = [700, 20, 350, 90, 520, 45, 260, 610]
+_KERNEL_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cuLaunchKernelEx")
+# a steady window: one request whose prompt fits one chunk, so its chunk
+# step emits its first token and each later step one more
+WINDOW = dict(prompt=48, new=4)
+
+
+def profiled(torch, run):
+    """``run()`` (returns the steps it took) under ``torch.profiler`` and
+    ``torch.cuda.set_sync_debug_mode('warn')``: per step, the CUDA
+    runtime's launch and copy calls (every thread), the host syncs with
+    the Python line of each, and the device ms (kernels and copies)."""
+    import warnings
+    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
-    rng = np.random.RandomState(SEED)
-    lengths = [700, 20, 350, 90, 520, 45, 260, 610]
-    prompts = [rng.randint(0, FULL["num_classes"], n).tolist()
-               for n in lengths]
-    new = 32
-    try:
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts()
-        t1 = time.perf_counter()
-        # the 8 requests fill the 8 slots; the first one submitted again
-        # waits in the queue and is admitted mid-flight when a slot frees
-        handles = [eng.submit(p, max_new_tokens=new)
-                   for p in prompts + prompts[:1]]
-        outs = [h.result(timeout=900) for h in handles]
-        wall = time.perf_counter() - t1
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                t0 = time.perf_counter()
+                steps = run()
+                wall = time.perf_counter() - t0
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+    sites = sorted({"%s:%d" % (os.path.relpath(w.filename, HERE), w.lineno)
+                    for w in caught if "synchroniz" in str(w.message)})
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    calls = {}
+    for ev in prof.events():
+        if ev.name in _RUNTIME_CALLS:
+            calls[ev.name] = calls.get(ev.name, 0) + 1
+    device_us = sum(getattr(ev, "self_device_time_total",
+                            getattr(ev, "self_cuda_time_total", 0))
+                    for ev in prof.key_averages()
+                    if ev.device_type == torch.autograd.DeviceType.CUDA)
+    return {"steps": steps, "wall_ms_per_step": wall * 1e3 / steps,
+            "runtime_calls_per_step": {k: v / steps
+                                       for k, v in sorted(calls.items())},
+            "host_syncs_per_step": syncs / steps, "sync_sites": sites,
+            "device_ms_per_step": device_us / 1e3 / steps}
+
+
+def engine_window(torch, eng, cfg, seed, exes=()):
+    """``profiled`` over one WINDOW request on a warm, started engine;
+    with ``exes``, also their forwards a step (``dispatches_per_step``:
+    the step's and the draft model's graph replays)."""
+    prompt = _serve_prompts(cfg, seed, (WINDOW["prompt"],))[0]
+    d0 = [e.dispatches for e in exes]
+
+    def run():
+        s0 = eng.stats()["steps"]
+        out = eng.generate(prompt, max_new_tokens=WINDOW["new"], timeout=900)
+        check(len(out) == WINDOW["new"], "window: %d tokens" % len(out))
+        return eng.stats()["steps"] - s0
+    win = profiled(torch, run)
+    if exes:
+        win["dispatches_per_step"] = sum(
+            e.dispatches - d for e, d in zip(exes, d0)) / win["steps"]
+    return win
+
+
+def check_graph_window(what, win, graph_launches=1.0):
+    """A steady step of a captured engine or executor: ``graph_launches``
+    ``cudaGraphLaunch`` calls a step (the step's graph, and a draft
+    model's), no kernel launch call, and host syncs only at the
+    readbacks (``NDArray.asnumpy``), one after each graph launch."""
+    calls = win["runtime_calls_per_step"]
+    check(calls.get("cudaGraphLaunch", 0) == graph_launches
+          and not any(calls.get(k, 0) for k in _KERNEL_CALLS),
+          "%s: a steady step made runtime calls %s (want %s graph launch, "
+          "no kernel launch)" % (what, calls, graph_launches))
+    check(win["host_syncs_per_step"] == graph_launches
+          and all(s.startswith("mxnet_tpu_torch/ndarray/ndarray.py:")
+                  for s in win["sync_sites"]),
+          "%s: host syncs %s a step at %s (want the readbacks only)"
+          % (what, win["host_syncs_per_step"], win["sync_sites"]))
+
+
+def step_replay_ms(torch, exe, lock, n=20):
+    """Device ms of one replay of ``exe``'s captured step: ``n`` replays
+    (the last step again, writing the same cache rows) between two CUDA
+    events, under the engine's step lock."""
+    with lock:
+        graph = exe._program.graph
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         torch.cuda.synchronize()
-        launches, plain = dict(LAUNCHES), dict(PLAIN_CALLS)
-        st = eng.stats()
-    finally:
-        eng.stop()
+        start.record()
+        for _ in range(n):
+            graph.replay()
+        end.record()
+        end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def graph_launches(exes, d0=None):
+    """Device launches of the executors' captured graphs, by kernel:
+    each graph's recorded launches times its forwards (since the counts
+    ``d0``, one per executor)."""
+    out = {}
+    for i, exe in enumerate(exes):
+        n = exe.dispatches - (d0[i] if d0 else 0)
+        for k, v in exe.captured_launches().items():
+            out[k] = out.get(k, 0) + v * n
+    return out
+
+
+def check_captured(what, exes, launches, plain):
+    """Every kernel the wrappers counted since the counts were set to 0
+    came from the executors' warm-up walks and captures (``WARMUP`` + 1
+    times what each graph recorded, each captured once): nothing else
+    ran eagerly; no plain version ran."""
+    from mxnet_tpu_torch.cuda_graph import WARMUP
+    want = {}
+    for exe in exes:
+        check(exe.captures == 1, "%s: %d captures of one executor"
+              % (what, exe.captures))
+        for k, v in exe.captured_launches().items():
+            want[k] = want.get(k, 0) + (WARMUP + 1) * v
+    got = {k: v for k, v in launches.items() if v}
+    check(got == want, "%s: the wrappers launched %s, the warm-ups and "
+          "captures account for %s" % (what, got, want))
+    check(not any(plain.values()), "%s: plain versions ran on the main "
+          "path: %s" % (what, plain))
+
+
+WITNESS_KEYS = ("cache_donation", "steady_state_retraces",
+                "decode_step_dispatches", "steps", "dispatches_per_step")
+
+
+def check_witnesses(what, st):
+    """The JAX engine's witnesses: every step one dispatch, none
+    captured again, the caches donated."""
+    check(st["cache_donation"] is True and st["steady_state_retraces"] == 0
+          and st["decode_step_dispatches"] == st["steps"] > 0
+          and st["dispatches_per_step"] == 1.0,
+          "%s: witnesses %s" % (what, {k: st[k] for k in WITNESS_KEYS}))
+
+
+def first_step_logits(eng, prompts):
+    """Each prompt's first-step logits (the chunk head's row) and first
+    token, one request after another."""
+    out = []
+    for p in prompts:
+        h = eng.submit(p, max_new_tokens=1, collect_logits=True)
+        tok = h.result(timeout=900)
+        out.append((tok, h.logits[0]))
+    return out
+
+
+def probe_feeds(eng, prompt):
+    """The mixed or spec step's inputs with ``prompt``'s first chunk at
+    start 0 in blocks 0.. (the decode rows inactive)."""
+    feeds = eng._idle_feeds()
+    K, bs = eng._chunk_tokens, eng.cache.block_size
+    n = min(K, len(prompt))
+    feeds["chunk_data"][0, :n] = prompt[:n]
+    feeds["chunk_positions"][0, :n] = np.arange(n)
+    feeds["chunk_len"][0] = n
+    feeds["chunk_table"][0, :-(-n // bs)] = np.arange(-(-n // bs))
+    return feeds
+
+
+def first_differing_op(torch, exe, feeds):
+    """The first node, in the walk's order, whose output differs bit for
+    bit between ``exe``'s walk captured as a CUDA graph and the same walk
+    run eagerly, every intermediate kept, on the same feeds and bound
+    tensors (an inference walk rewrites the same cache bytes); None when
+    every output is equal.  On the CPU both sides are eager."""
+    from mxnet_tpu_torch.cuda_graph import WARMUP, Program
+    from mxnet_tpu_torch.executor import GraphPlan, run_graph
+    plan = GraphPlan.__new__(GraphPlan)
+    plan.nodes = exe._plan.nodes
+    plan.heads = [(n, i) for n in plan.nodes if not n.is_var
+                  for i in range(n.op.out_count(n.attrs))]
+    plan.drop_after = [[] for _ in plan.nodes]
+    exe._feed(feeds)
+
+    def walk():
+        values = {n: nd._data for n, nd in exe.aux_dict.items()}
+        values.update((n, nd._data) for n, nd in exe.arg_dict.items())
+        with torch.no_grad():
+            return run_graph(plan, values, False)[0]
+    eager = [t.clone() for t in walk()]
+    if exe._device.type == "cuda":
+        prog = Program(walk, exe._device, "probe", "")
+        for _ in range(WARMUP):
+            prog.warm_up()
+        graph = prog.capture()
+        torch.cuda.synchronize()
+    else:
+        graph = walk()
+    for (node, i), a, b in zip(plan.heads, eager, graph):
+        if not torch.equal(a, b):
+            return "%s[%d]" % (node.name, i)
+    return None
+
+
+def hold_arms(torch, what, eng, got, ref, prompt):
+    """The captured engine's first-step logits against the eager arm's:
+    bit-equal, or else the first op whose bits part is named and the
+    logits held at rtol 1e-4 / atol 1e-4; the first tokens equal."""
+    check([g[0] for g in got] == [r[0] for r in ref],
+          "%s: first tokens differ from the eager arm's" % what)
+    equal = all(np.array_equal(g[1], r[1]) for g, r in zip(got, ref))
+    res = {"first_step_logits_bit_equal": equal,
+           "max_abs_logit_diff": max(float(np.abs(g[1] - r[1]).max())
+                                     for g, r in zip(got, ref))}
+    if not equal:
+        with eng._step_lock:
+            res["first_differing_op"] = first_differing_op(
+                torch, eng._exe, probe_feeds(eng, prompt))
+        check(all(np.allclose(g[1], r[1], rtol=1e-4, atol=1e-4)
+                  for g, r in zip(got, ref)),
+              "%s: first-step logits differ from the eager arm's past "
+              "rtol/atol 1e-4 (first differing op %s)"
+              % (what, res["first_differing_op"]))
+    return res
+
+
+def _serve_requests(torch, eng, prompts, new):
+    """serve's requests on a started engine: ``prompts`` at once and the
+    first one again (it waits for a slot); outputs, wall s, TTFTs and
+    ``stats()``."""
+    t0 = time.perf_counter()
+    handles = [eng.submit(p, max_new_tokens=new)
+               for p in prompts + prompts[:1]]
+    outs = [h.result(timeout=900) for h in handles]
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return outs, wall, sorted(h.ttft_ms for h in handles), eng.stats()
+
+
+def serve_arms(torch, mx, np_params, cfg, what, held=0, binding=None):
+    """serve's requests at full width through two engines on the same
+    prompts: the eager arm (``MXNET_DECODE_DONATE=0``) first, then the
+    main path, the captured engine, with the kernel counts set to 0
+    before it is built (its warm-up and capture are in the counted run).
+    Each arm: wall, tokens/s, step p50, TTFT, peak GB, a profiled steady
+    window and the first-step logits of three prompts; the captured arm
+    also its step graph's replay ms and recorded launches.  ``held``
+    blocks are taken off each engine's free list first; ``binding(exe,
+    what)`` checks each step executor.  The captured arm's checks: the
+    witnesses, ``check_captured``, ``check_graph_window``, streams equal
+    to the eager arm's, first-step logits held by ``hold_arms``.
+    Returns the two arms' results, the prompt lengths and the new tokens
+    a request."""
+    from mxnet_tpu_torch.decode import DecodeEngine
+    from mxnet_tpu_torch.kernels import (LAUNCHES, PLAIN_CALLS,
+                                         reset_counts)
+    from mxnet_tpu_torch.weights import convert_params
+    new = 32
+    lengths = SERVE_LENGTHS
+    prompts = _serve_prompts(cfg, SEED, lengths)
+    arms = {}
+    for arm in ("eager", "graph"):
+        gc_collect(torch)
+        t0 = time.perf_counter()
+        if arm == "graph":
+            reset_counts()
+        params = convert_params(np_params, mx.gpu(0), cfg)
+        with (serving_eager() if arm == "eager"
+              else contextlib.nullcontext()):
+            eng = DecodeEngine(params, cfg, ctx=mx.gpu(0), warmup=True,
+                               **GEOMETRY)
+        del params
+        torch.cuda.synchronize()
+        res = {"setup_s": time.perf_counter() - t0}
+        if binding is not None:
+            binding(eng._exe, what)
+        held_ids = eng.cache.alloc(held) if held else []
+        check(sorted(held_ids) == list(range(held)),
+              "%s: the free list did not hand out the lowest ids first"
+              % what)
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            outs, wall, ttft, st = _serve_requests(torch, eng, prompts, new)
+            res.update(peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+            if arm == "graph":
+                res["launches"] = dict(LAUNCHES)
+                res["plain_calls"] = dict(PLAIN_CALLS)
+                check_captured(what, [eng._exe], LAUNCHES, PLAIN_CALLS)
+                res["recorded"] = eng._exe.captured_launches()
+                res["recorded_by_dtype"] = eng._exe.captured_launches(True)
+                res["step_replay_ms"] = step_replay_ms(torch, eng._exe,
+                                                       eng._step_lock)
+            res["window"] = engine_window(torch, eng, cfg, SEED + 20)
+            logits = first_step_logits(eng, prompts[2:5])
+            if arm == "graph":
+                res.update(hold_arms(torch, what, eng, logits,
+                                     arms["eager"]["logits"], prompts[2]))
+        finally:
+            eng.cache.free(held_ids)
+            eng.stop()
+        steps = st["steps"]
+        res.update(outs=outs, logits=logits, stats=st, wall_s=wall,
+                   steps=steps, prefill_chunks=st["prefill_chunks"],
+                   decode_tokens_per_s=len(outs) * new / wall,
+                   step_ms_p50=st["step_ms_p50"],
+                   ttft_ms_p50=ttft[len(ttft) // 2], ttft_ms_max=ttft[-1],
+                   device_ms_per_step=res["window"]["device_ms_per_step"],
+                   idle_share=1 - res["window"]["device_ms_per_step"]
+                   / st["step_ms_p50"])
+        arms[arm] = res
+        del eng
+    g, e = arms["graph"], arms["eager"]
+    check(g["outs"] == e["outs"], "%s: the captured engine's streams differ "
+          "from the eager arm's" % what)
+    check_witnesses(what, g["stats"])
+    check_graph_window(what, g["window"])
+    return g, e, lengths, new
+
+
+def arm_summary(res, keys=("setup_s", "wall_s", "steps", "decode_tokens_per_s",
+                           "step_ms_p50", "ttft_ms_p50", "ttft_ms_max",
+                           "device_ms_per_step", "idle_share", "peak_mem_gb",
+                           "step_replay_ms", "window",
+                           "first_step_logits_bit_equal",
+                           "max_abs_logit_diff", "first_differing_op")):
+    return {k: res[k] for k in keys if k in res}
+
+
+def gc_collect(torch):
+    """Drop an earlier engine's executors, graphs and pools before the
+    next arm (peak memory per arm)."""
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def phase_serve(torch, mx, np_params):
+    """serve (4): ``serve_arms`` at full width in f32.  The captured
+    engine's step graph records 12 decode, 12 chunk and 50 LayerNorm
+    launches (one replay a step), the wrappers launched nothing beyond
+    its warm-up and capture, every request finishes with its count, the
+    resubmitted one repeats its stream, the streams equal the eager
+    arm's.  Returns the counted run's wrapper launches, the steps, and
+    the launches the step graph records (one step's)."""
+    g, e, lengths, new = serve_arms(torch, mx, np_params, FULL, "serve")
+    outs, steps = g["outs"], g["steps"]
     check(all(len(o) == new for o in outs),
           "serve: a request finished with %s tokens, not %d"
           % ([len(o) for o in outs], new))
     check(outs[-1] == outs[0], "serve: the resubmitted request gave another "
           "stream")
-    steps = st["steps"]
-    check(launches["paged_decode_attend"] == 12 * steps
-          and launches["paged_chunk_prefill_attend"] == 12 * steps
-          and launches["layernorm_fused"] == 50 * steps,
-          "serve: launch counts %s over %d steps (want 12, 12, 50 per "
-          "step)" % (launches, steps))
-    check(not any(plain.values()), "serve: plain versions ran on the main "
-          "path: %s" % plain)
-    ttft = sorted(h.ttft_ms for h in handles)
+    want = {"paged_decode_attend": 12, "paged_chunk_prefill_attend": 12,
+            "layernorm_fused": 50}
+    rec = g["recorded"]
+    check(all(rec.get(k, 0) == w for k, w in want.items()),
+          "serve: the step graph records %s (want %s a step)" % (rec, want))
     emit({"phase": "serve", "config": FULL, "geometry": GEOMETRY,
-          "requests": len(handles), "prompt_lengths": lengths + lengths[:1],
-          "new_tokens_each": new, "setup_s": setup_s, "wall_s": wall,
-          "steps": steps, "prefill_chunks": st["prefill_chunks"],
-          "decode_tokens_per_s": len(handles) * new / wall,
-          "step_ms_p50": st["step_ms_p50"], "ttft_ms_p50": ttft[len(ttft) // 2],
-          "ttft_ms_max": ttft[-1], "launches": launches,
-          "plain_calls": plain, "peak_mem_gb":
-              torch.cuda.max_memory_allocated() / 1e9,
+          "requests": len(outs), "prompt_lengths": lengths + lengths[:1],
+          "new_tokens_each": new, **arm_summary(g),
+          "prefill_chunks": g["prefill_chunks"],
+          "launches": {k: v for k, v in g["launches"].items() if v},
+          "recorded_per_step": rec,
+          "graph_launches": {k: v * steps for k, v in rec.items()},
+          "plain_calls": {k: v for k, v in g["plain_calls"].items() if v},
+          "witnesses": {k: g["stats"][k] for k in WITNESS_KEYS},
+          "eager_arm": arm_summary(e), "streams_equal_eager_arm": True,
           "deterministic_resubmit": True})
-    return launches, steps
+    return g["launches"], steps, rec
 
 
 def margin_cut(ref_toks, ref_logits, toks, what):
@@ -1367,7 +1717,173 @@ def margin_cut(ref_toks, ref_logits, toks, what):
     return n, None
 
 
+def _hold_streams(what, got, ref):
+    """Two card runs of one engine kind, ``[(tokens, logits rows)]`` per
+    request: equal streams, logits bit-equal at every step, or else
+    within rtol 1e-4 / atol 1e-4.  Returns (bit-equal, max abs diff)."""
+    check([g[0] for g in got] == [r[0] for r in ref],
+          "%s: greedy streams differ" % what)
+    worst, equal = 0.0, True
+    for (_, gl), (_, rl) in zip(got, ref):
+        for a, b in zip(gl, rl):
+            equal = equal and np.array_equal(a, b)
+            worst = max(worst, float(np.abs(a - b).max()))
+            check(np.allclose(a, b, rtol=1e-4, atol=1e-4),
+                  "%s: logits differ (max abs err %g)"
+                  % (what, float(np.abs(a - b).max())))
+    return equal, worst
+
+
+def _two_engines(torch, mx, np_params, cfg, prompts, warm):
+    """Two captured engines stepping at once on their own threads.
+    ``warm``: both captured by ``warmup()`` first, and this thread keeps
+    synchronizing the card while they step; else neither is warmed up,
+    so each captures at its first step on its own thread, and this
+    thread only waits (CUDA refuses a device-wide synchronize while any
+    stream captures).  Returns each engine's streams and logits, stats
+    and captures, and the synchronizes made."""
+    from mxnet_tpu_torch.decode import DecodeEngine
+    from mxnet_tpu_torch.weights import convert_params
+    params = convert_params(np_params, mx.gpu(0), cfg)
+    engs = [DecodeEngine(params, cfg, ctx=mx.gpu(0), warmup=warm,
+                         **GEOMETRY) for _ in range(2)]
+    try:
+        hs = [[e.submit(p, max_new_tokens=8, collect_logits=True)
+               for p in prompts] for e in engs]
+        syncs = 0
+        while warm and not all(h.done() for row in hs for h in row):
+            torch.cuda.synchronize()
+            syncs += 1
+            time.sleep(0.001)
+        runs = [[(h.result(timeout=900), h.logits) for h in row]
+                for row in hs]
+        return runs, [e.stats() for e in engs], \
+            [e._exe.captures for e in engs], syncs
+    finally:
+        for e in engs:
+            e.stop()
+
+
+def _swap_while_serving(mx, np_params, new_np, cfg, prompts):
+    """A captured engine serves the prompts on the old weights, then again
+    with ``swap_params`` to ``new_np`` made while those run, then once
+    more (with logits) on the new weights; returns the three runs, the
+    stats and the captures."""
+    from mxnet_tpu_torch.decode import DecodeEngine
+    from mxnet_tpu_torch.weights import convert_params
+    eng = DecodeEngine(convert_params(np_params, mx.gpu(0), cfg), cfg,
+                       ctx=mx.gpu(0), warmup=True, **GEOMETRY)
+    try:
+        old = [eng.generate(p, max_new_tokens=8, timeout=900)
+               for p in prompts]
+        mid = [eng.submit(p, max_new_tokens=8) for p in prompts]
+        eng.swap_params(convert_params(new_np, mx.gpu(0), cfg),
+                        version="swapped")
+        mid = [h.result(timeout=900) for h in mid]
+        hs = [eng.submit(p, max_new_tokens=8, collect_logits=True)
+              for p in prompts]
+        after = [(h.result(timeout=900), h.logits) for h in hs]
+        return old, mid, after, eng.stats(), eng._exe.captures
+    finally:
+        eng.stop()
+
+
+def _capture_cases(torch, mx):
+    """Donated forwards at the edges of capture, on the card.  Two that
+    cannot be captured: one whose walk reads a device value on the host
+    (its FullyConnected wrapped to sum its output into a float) and one
+    whose walk draws random numbers; each forward raises ``MXNetError``
+    naming the symbol and the cause, twice in a row (nothing falls back
+    to the eager walk, and a failed capture leaves the next one able to
+    run), and captures nothing.  One that captures again: a bound weight
+    replaced (``_set_data``) makes the next forward capture once more (a
+    retrace) into the pool the first graph holds, donation turned off
+    runs the eager walk and turned on again replays with no capture;
+    every output equals a fresh executor's.  Returns the messages and
+    the counts."""
+    import copy
+    sym = mx.sym
+    data = sym.Variable("data")
+    x = np.random.RandomState(SEED + 31).standard_normal((4, 16)) \
+        .astype(np.float32)
+    out = {}
+    for case in ("host_read", "random_draw"):
+        net = data + sym.random_uniform(low=0, high=1, shape=(4, 16),
+                                        name="draw") \
+            if case == "random_draw" else data
+        net = sym.FullyConnected(net, num_hidden=8, name="fc_" + case)
+        exe = net.simple_bind(ctx=mx.gpu(0), grad_req="null", data=(4, 16))
+        if case == "host_read":
+            node = [n for n in exe._plan.nodes if not n.is_var][-1]
+            op = copy.copy(node.op)
+            inner = op.fn
+
+            def reading(*args, _inner=inner, **kw):
+                res = _inner(*args, **kw)
+                float(res.sum())
+                return res
+            op.fn = reading
+            node.op = op
+        exe.donate_args(["data"])
+        for attempt in range(2):
+            try:
+                exe.forward(is_train=False, data=x)
+                msg = None
+            except mx.MXNetError as exc:
+                msg = str(exc)
+            cause = "stream is capturing" if case == "host_read" \
+                else "draws random numbers"
+            check(msg is not None and "fc_" + case in msg and cause in msg,
+                  "capture (%s): forward %d gave %r, not an MXNetError "
+                  "naming the symbol and %r" % (case, attempt, msg, cause))
+        check(exe.captures == 0, "capture (%s): %d captures"
+              % (case, exe.captures))
+        out[case] = msg[:300]
+    net = sym.FullyConnected(data, num_hidden=8, name="fc_recapture")
+    exe, ref = (net.simple_bind(ctx=mx.gpu(0), grad_req="null",
+                                data=(4, 16)) for _ in range(2))
+    w = np.random.RandomState(SEED + 32).standard_normal((8, 16)) \
+        .astype(np.float32)
+    for e in (exe, ref):
+        e.copy_params_from({"fc_recapture_weight": w,
+                            "fc_recapture_bias": np.zeros(8, np.float32)})
+    exe.donate_args(["data"])
+    steps = []
+    for step, what in enumerate(("capture", "replace", "off", "on")):
+        if what == "replace":
+            nd = exe.arg_dict["fc_recapture_weight"]
+            nd._set_data(nd._data.clone())
+        exe.donate_args([] if what == "off" else ["data"])
+        xs = x + np.float32(step)
+        got = exe.forward(is_train=False, data=xs)[0].asnumpy()
+        want = ref.forward(is_train=False, data=xs)[0].asnumpy()
+        check(np.array_equal(got, want), "capture (recapture, %s): the "
+              "donated forward differs from a fresh executor's" % what)
+        steps.append([what, exe.captures, exe.retraces])
+    check(steps == [["capture", 1, 0], ["replace", 2, 1], ["off", 2, 1],
+                    ["on", 2, 1]],
+          "capture (recapture): captures and retraces %s" % steps)
+    out["recapture"] = steps
+    torch.cuda.synchronize()
+    return out
+
+
 def phase_agreement(torch, mx):
+    """agreement (5): the engine at 2 layers over 3 requests on the card
+    (captured), on the card with ``MXNET_DECODE_DONATE=0`` (eager) and on
+    the CPU.  Card against CPU: per-step logits within rtol 1e-4 / atol
+    1e-4 and greedy streams under the margin rule.  Captured against
+    eager on the card: equal streams and bit-equal logits at every step
+    (else within rtol/atol 1e-4, with the first op whose bits part named
+    by ``first_differing_op``, which runs either way).  Two captured
+    engines stepping at once on two threads (``_two_engines``: warmed up
+    while this thread synchronizes, and capturing at their first steps):
+    each gives the single engine's streams and logits.  A
+    ``swap_params`` while requests run: the requests served after it
+    equal an eager engine's on the new weights, and nothing is captured
+    again.  ``_capture_cases``: a donated forward that cannot be
+    captured raises, every time; one whose bound weight is replaced
+    captures again."""
     from mxnet_tpu_torch.decode import DecodeEngine
     from mxnet_tpu_torch.weights import convert_params
     cfg = dict(FULL, num_layers=2)
@@ -1375,18 +1891,26 @@ def phase_agreement(torch, mx):
     rng = np.random.RandomState(SEED + 3)
     prompts = [rng.randint(0, cfg["num_classes"], n).tolist()
                for n in (40, 100, 150)]
-    runs = []                        # [card run, CPU run]
-    for ctx in (mx.gpu(0), mx.cpu()):
-        eng = DecodeEngine(convert_params(np_params, ctx, cfg), cfg, ctx=ctx,
-                           **GEOMETRY)
+    runs, probe = {}, None
+    for name, ctx in (("card", mx.gpu(0)), ("card_eager", mx.gpu(0)),
+                      ("cpu", mx.cpu())):
+        with (serving_eager() if name == "card_eager"
+              else contextlib.nullcontext()):
+            eng = DecodeEngine(convert_params(np_params, ctx, cfg), cfg,
+                               ctx=ctx, **GEOMETRY)
         try:
             hs = [eng.submit(p, max_new_tokens=8, collect_logits=True)
                   for p in prompts]
-            runs.append([(h.result(timeout=900), h.logits) for h in hs])
+            runs[name] = [(h.result(timeout=900), h.logits) for h in hs]
+            if name == "card":
+                check_witnesses("agreement", eng.stats())
+                with eng._step_lock:
+                    probe = first_differing_op(torch, eng._exe,
+                                               probe_feeds(eng, prompts[0]))
         finally:
             eng.stop()
     worst, compared, cut = 0.0, 0, []
-    for r, ((gt, gl), (ct, cl)) in enumerate(zip(*runs)):
+    for r, ((gt, gl), (ct, cl)) in enumerate(zip(runs["card"], runs["cpu"])):
         n, at = margin_cut(ct, cl, gt, "agreement: request %d" % r)
         for t, (a, b) in enumerate(zip(gl[:n + 1], cl[:n + 1])):
             check(np.allclose(a, b, rtol=1e-4, atol=1e-4),
@@ -1396,10 +1920,60 @@ def phase_agreement(torch, mx):
         compared += min(n + 1, len(gl))
         if at:
             cut.append([r] + at)
+    arms_equal, arms_diff = _hold_streams(
+        "agreement (captured against eager%s)" % (
+            "" if probe is None else ", first differing op %s" % probe),
+        runs["card"], runs["card_eager"])
+    two_info = {}
+    for warm in (True, False):
+        two, two_st, two_caps, syncs = _two_engines(torch, mx, np_params,
+                                                    cfg, prompts, warm)
+        what = "agreement (two engines, %s)" % (
+            "warmed up" if warm else "capturing on their threads")
+        for i, (got, st) in enumerate(zip(two, two_st)):
+            _hold_streams("%s, engine %d" % (what, i), got, runs["card"])
+            check_witnesses("%s, engine %d" % (what, i), st)
+        check(two_caps == [1, 1], "%s: captures %s" % (what, two_caps))
+        two_info["warmed_up" if warm else "capturing"] = {
+            "streams_equal_single": True, "captures": two_caps,
+            "synchronizes_meanwhile": syncs}
+    rs = np.random.RandomState(SEED + 30)
+    new_np = {n: (v + rs.standard_normal(v.shape).astype(np.float32)
+                  * np.float32(0.01)) for n, v in np_params.items()}
+    old, mid, after, sw_st, sw_caps = _swap_while_serving(
+        mx, np_params, new_np, cfg, prompts)
+    check(old == [r[0] for r in runs["card"]],
+          "agreement (swap): the streams before the swap differ")
+    check(all(len(m) == 8 for m in mid), "agreement (swap): a request "
+          "served across the swap finished early")
+    with serving_eager():
+        eng = DecodeEngine(convert_params(new_np, mx.gpu(0), cfg), cfg,
+                           ctx=mx.gpu(0), **GEOMETRY)
+    try:
+        hs = [eng.submit(p, max_new_tokens=8, collect_logits=True)
+              for p in prompts]
+        swapped_ref = [(h.result(timeout=900), h.logits) for h in hs]
+    finally:
+        eng.stop()
+    swap_equal, _ = _hold_streams("agreement (swap against an eager engine "
+                                  "on the new weights)", after, swapped_ref)
+    check(sw_caps == 1 and sw_st["steady_state_retraces"] == 0
+          and sw_st["model_version"] == "swapped",
+          "agreement (swap): captures %d, stats %s" % (sw_caps, sw_st))
     emit({"phase": "agreement", "config": cfg, "requests": len(prompts),
           "steps_compared": compared, "max_abs_logit_err": worst,
-          "streams_equal": all(g[0] == c[0] for g, c in zip(*runs)),
-          "cut_at_small_margin": cut})
+          "streams_equal": all(g[0] == c[0] for g, c in
+                               zip(runs["card"], runs["cpu"])),
+          "cut_at_small_margin": cut,
+          "captured_vs_eager": {"logits_bit_equal": arms_equal,
+                                "max_abs_logit_diff": arms_diff,
+                                "first_differing_op": probe},
+          "two_engines": two_info,
+          "swap_while_serving": {"streams_equal_eager_new_weights": True,
+                                 "logits_bit_equal": swap_equal,
+                                 "captures": sw_caps,
+                                 "streams_changed": after[0][0] != old[0]},
+          "capture_cases": _capture_cases(torch, mx)})
 
 
 # ----------------------------------------------------------------------
@@ -1607,15 +2181,19 @@ def bind_prefill_pair(mx, params, cfg, ctx, batch, prefill_len):
 
 
 def run_prefill_pair(torch, dexe, pexe, prompts, new, on_card,
-                     forced=None):
+                     forced=None, donate=False):
     """Prefill ``prompts`` in one forward, then ``new - 1`` decode-step
     forwards, each fed the greedy tokens of the step before, or with
     ``forced`` (per request, ``new`` token ids) the forced tokens
-    instead (teacher forcing).  Returns per request (tokens, logits per
-    step), the prefill wall ms, the decode steps' wall ms, the table,
-    and the kernel counts ``(launches, plain calls)`` of the prefill
-    forward and of the decode steps, each set to 0 just before that
-    run."""
+    instead (teacher forcing).  With ``donate`` both executors donate
+    their caches (captured forwards on the card), and each window starts
+    with an untimed forward on its first feeds, which the timed one
+    repeats (the same cache bytes): the prefill's and the decode step's
+    warm-up and capture.  Returns per request (tokens, logits per step),
+    the prefill wall ms, the decode steps' wall ms, the table, and the
+    kernel counts ``(launches, plain calls, launches by dtype)`` of the
+    prefill window and of the decode window, each set to 0 just before
+    that window."""
     from mxnet_tpu_torch.kernels import (LAUNCHES, LAUNCHES_BY_DTYPE,
                                          PLAIN_CALLS, reset_counts)
     B, S = pexe.arg_dict["data"].shape
@@ -1633,11 +2211,18 @@ def run_prefill_pair(torch, dexe, pexe, prompts, new, on_card,
         n = -(-(len(p) + new) // bs)
         table[b, :n] = blocks[used:used + n]
         used += n
+    if donate:
+        caches = [n for n in dexe.arg_dict if n.endswith("_cache")]
+        dexe.donate_args(caches)
+        pexe.donate_args(caches)
+    feeds = dict(data=data, prompt_len=lens, block_table=table)
     sync()
     reset_counts()
+    if donate:
+        pexe.forward(is_train=False, **feeds)
+        sync()
     t0 = time.perf_counter()
-    outs = pexe.forward(is_train=False, data=data, prompt_len=lens,
-                        block_table=table)
+    outs = pexe.forward(is_train=False, **feeds)
     tok = outs[1].asnumpy().astype(np.int64)
     prefill_ms = (time.perf_counter() - t0) * 1e3
     counts = {"prefill": (dict(LAUNCHES), dict(PLAIN_CALLS),
@@ -1645,15 +2230,21 @@ def run_prefill_pair(torch, dexe, pexe, prompts, new, on_card,
     reset_counts()
     logits = [[row] for row in outs[0].asnumpy()]
     toks = [[int(t)] for t in tok]
-    step_ms = []
-    for t in range(new - 1):
+
+    def step_feeds(t, tok):
         if forced is not None:
             tok = np.array([f[t] for f in forced], np.int64)
+        return dict(data=tok.reshape(B, 1),
+                    positions=(lens + t).reshape(B, 1), block_table=table)
+    if donate:
+        dexe.forward(is_train=False, **step_feeds(0, tok))
+        sync()
+    step_ms = []
+    for t in range(new - 1):
+        f = step_feeds(t, tok)
         sync()
         t0 = time.perf_counter()
-        outs = dexe.forward(is_train=False, data=tok.reshape(B, 1),
-                            positions=(lens + t).reshape(B, 1),
-                            block_table=table)
+        outs = dexe.forward(is_train=False, **f)
         tok = outs[1].asnumpy().astype(np.int64)
         step_ms.append((time.perf_counter() - t0) * 1e3)
         for b, row in enumerate(outs[0].asnumpy()):
@@ -1664,34 +2255,132 @@ def run_prefill_pair(torch, dexe, pexe, prompts, new, on_card,
     return list(zip(toks, logits)), prefill_ms, step_ms, table, counts
 
 
+def pair_window(torch, dexe, got, lens, table, steps=4):
+    """``profiled`` over decode steps 0..steps-1 of a pair run again (the
+    same tokens at the same positions: the same cache bytes), each with
+    its token readback."""
+    B = len(got)
+
+    def run():
+        for t in range(steps):
+            tok = np.array([g[0][t] for g in got], np.float32)
+            outs = dexe.forward(is_train=False, data=tok.reshape(B, 1),
+                                positions=(lens + t).reshape(B, 1),
+                                block_table=table)
+            outs[1].asnumpy()
+        return steps
+    return profiled(torch, run)
+
+
+def prefill_arms(torch, mx, np_params, cfg, ctx, what, binding=None):
+    """The decode-step and prefill executors bound as a pair
+    (``shared_exec``), serve's 8 prompts prefilled in one forward and 31
+    decode steps, in two arms: eager, then donated (both executors
+    capture, into one graph pool).  Per arm: prefill ms, decode p50,
+    peak GB allocated and reserved; the donated arm also its recorded
+    launches and a profiled window of 4 decode steps.  The donated
+    arm's streams equal the eager arm's and its prefill logits are
+    bit-equal (else within rtol/atol 1e-4, the first differing op
+    named).  ``binding(exe, name)`` checks each bound executor."""
+    from mxnet_tpu_torch.weights import convert_params
+    on_card = ctx.device_type == "gpu"
+    lengths = SERVE_LENGTHS
+    prompts = _serve_prompts(cfg, SEED, lengths)
+    new = 32
+    lens = np.array(lengths, np.float32)
+    arms = {}
+    for arm in ("eager", "graph"):
+        if on_card:
+            gc_collect(torch)
+        params = convert_params(np_params, ctx, cfg)
+        dexe, pexe = bind_prefill_pair(mx, params, cfg, ctx, len(prompts),
+                                       cfg["seq_len"])
+        del params
+        if binding is not None:
+            binding(dexe, "%s (decode step)" % what)
+            binding(pexe, "%s (prefill)" % what)
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        got, prefill_ms, step_ms, table, counts = run_prefill_pair(
+            torch, dexe, pexe, prompts, new, on_card,
+            donate=arm == "graph")
+        res = {"got": got, "counts": counts, "prefill_ms": prefill_ms,
+               "decode_step_ms_p50": statistics.median(step_ms),
+               "decode_step_ms": step_ms,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9
+               if on_card else None,
+               "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9
+               if on_card else None}
+        if arm == "graph":
+            check(pexe._graph_pool is dexe._graph_pool,
+                  "%s: the pair does not share a graph pool" % what)
+            res["recorded_prefill"] = pexe.captured_launches()
+            res["recorded_decode"] = dexe.captured_launches()
+            res["recorded_prefill_by_dtype"] = pexe.captured_launches(True)
+            res["recorded_decode_by_dtype"] = dexe.captured_launches(True)
+            check_captured("%s (prefill window)" % what, [pexe],
+                           counts["prefill"][0], counts["prefill"][1])
+            check_captured("%s (decode window)" % what, [dexe],
+                           counts["decode"][0], counts["decode"][1])
+            if on_card:
+                res["window"] = pair_window(torch, dexe, got, lens, table)
+                check_graph_window(what, res["window"])
+            res["logits_equal"] = all(
+                np.array_equal(g[1][0], e[1][0])
+                for g, e in zip(got, arms["eager"]["got"]))
+            if not res["logits_equal"]:
+                feeds = dict(data=np.zeros(pexe.arg_dict["data"].shape,
+                                           np.float32),
+                             prompt_len=lens, block_table=table)
+                for b, p in enumerate(prompts):
+                    feeds["data"][b, :len(p)] = p
+                res["first_differing_op"] = first_differing_op(
+                    torch, pexe, feeds)
+            res["max_abs_logit_diff"] = max(
+                float(np.abs(a - b).max()) for g, e in
+                zip(got, arms["eager"]["got"]) for a, b in zip(g[1], e[1]))
+            check([g[0] for g in got] == [e[0] for e in arms["eager"]["got"]],
+                  "%s: the donated pair's streams differ from the eager "
+                  "pair's" % what)
+            check(all(np.allclose(g[1][0], e[1][0], rtol=1e-4, atol=1e-4)
+                      for g, e in zip(got, arms["eager"]["got"])),
+                  "%s: prefill logits differ from the eager pair's (first "
+                  "differing op %s)" % (what, res.get("first_differing_op")))
+        arms[arm] = res
+        del dexe, pexe
+    return arms, lengths, prompts, new
+
+
+def _pair_summary(res):
+    return {k: res[k] for k in ("prefill_ms", "decode_step_ms_p50",
+                                "peak_mem_gb", "peak_reserved_gb", "window",
+                                "logits_equal", "max_abs_logit_diff",
+                                "first_differing_op", "recorded_prefill",
+                                "recorded_decode") if k in res}
+
+
 def phase_serve_prefill(torch, mx, np_params, cfg=FULL, ctx=None):
-    """The full-width model's decode-step and prefill symbols bound as a
-    pair with ``shared_exec``: 8 ragged prompts prefilled in one
-    forward, then 31 decode-step forwards over the shared caches.  Each
-    prefill forward launches the prefill kernel 12 times and LayerNorm
-    25, each decode step the decode kernel 12 and LayerNorm 25; no plain
-    version runs; the greedy streams equal the mixed-step engine's on
-    the same prompts under the margin rule.  Returns the prefill
-    forward's launch counts."""
+    """serve_prefill (17): ``prefill_arms`` at full width in f32.  The
+    eager pair's prefill forward launches the prefill kernel 12 times
+    and LayerNorm 25, each decode step the decode kernel 12 and LayerNorm
+    25; the donated pair's graphs record the same (prefill and decode
+    step), and the wrappers launch nothing beyond their warm-ups and
+    captures; no plain version runs; the greedy streams equal the
+    mixed-step engine's on the same prompts under the margin rule.
+    Returns the donated prefill window's wrapper launches and the
+    launches its graph records."""
     from mxnet_tpu_torch.weights import convert_params
     ctx = ctx or mx.gpu(0)
-    on_card = ctx.device_type == "gpu"
-    L = cfg["num_layers"]
-    new = 32
-    lengths = [700, 20, 350, 90, 520, 45, 260, 610]
-    prompts = _serve_prompts(cfg, SEED, lengths)
-    params = convert_params(np_params, ctx, cfg)
-    ref = _reference_streams(mx, params, cfg, ctx, prompts, new)
-    dexe, pexe = bind_prefill_pair(mx, params, cfg, ctx, len(prompts),
-                                   cfg["seq_len"])
-    del params
-    if on_card:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-    got, prefill_ms, step_ms, _, counts = run_prefill_pair(
-        torch, dexe, pexe, prompts, new, on_card)
-    (pl, pp, _), (launches, plain, _) = counts["prefill"], counts["decode"]
+    L, new = cfg["num_layers"], 32
+    prompts = _serve_prompts(cfg, SEED, SERVE_LENGTHS)
+    ref = _reference_streams(mx, convert_params(np_params, ctx, cfg), cfg,
+                             ctx, prompts, new)
+    arms, lengths, prompts, new = prefill_arms(torch, mx, np_params, cfg,
+                                               ctx, "serve_prefill")
     steps = new - 1
+    (pl, pp, _), (launches, plain, _) = arms["eager"]["counts"]["prefill"], \
+        arms["eager"]["counts"]["decode"]
     check(pl["paged_prefill_attend"] == L and pl["layernorm_fused"] == 2 * L
           + 1 and pl["paged_decode_attend"] == 0,
           "serve_prefill: the prefill forward launched %s (want %d prefill, "
@@ -1704,28 +2393,36 @@ def phase_serve_prefill(torch, mx, np_params, cfg=FULL, ctx=None):
     check(not any(pp.values()) and not any(plain.values()),
           "serve_prefill: plain versions ran on the main path: %s %s"
           % (pp, plain))
+    g = arms["graph"]
+    want_p = {"paged_prefill_attend": L, "layernorm_fused": 2 * L + 1}
+    want_d = {"paged_decode_attend": L, "layernorm_fused": 2 * L + 1}
+    check(g["recorded_prefill"] == want_p and g["recorded_decode"] == want_d,
+          "serve_prefill: the graphs record %s and %s (want %s, %s)"
+          % (g["recorded_prefill"], g["recorded_decode"], want_p, want_d))
     cut = []
-    for r, ((gt, _), (rt, rl)) in enumerate(zip(got, ref)):
+    for r, ((gt, _), (rt, rl)) in enumerate(zip(g["got"], ref)):
         _, at = margin_cut(rt, rl, gt, "serve_prefill: request %d" % r)
         if at:
             cut.append([r] + at)
     worst = max(float(np.abs(a - b).max()) for (_, gl), (_, rl)
-                in zip(got, ref) for a, b in zip(gl[:1], rl[:1]))
+                in zip(g["got"], ref) for a, b in zip(gl[:1], rl[:1]))
     emit({"phase": "serve_prefill", "config": cfg, "prompt_lengths": lengths,
           "prefill_len": cfg["seq_len"], "new_tokens_each": new,
-          "prefill_ms": prefill_ms, "decode_steps": steps,
-          "decode_step_ms_p50": statistics.median(step_ms),
-          "decode_step_ms": step_ms,
-          "prefill_launches": {k: v for k, v in pl.items() if v},
-          "decode_launches_per_step": {k: v / steps for k, v in
-                                       launches.items() if v},
+          **_pair_summary(g), "decode_steps": steps,
+          "decode_step_ms": g["decode_step_ms"],
+          "prefill_launches": {k: v for k, v in
+                               g["counts"]["prefill"][0].items() if v},
+          "decode_launches_per_step": g["recorded_decode"],
+          "eager_arm": {**_pair_summary(arms["eager"]),
+                        "prefill_launches": {k: v for k, v in pl.items()
+                                             if v},
+                        "decode_launches_per_step": {
+                            k: v / steps for k, v in launches.items() if v}},
           "first_token_max_abs_logit_diff_vs_engine": worst,
-          "streams_equal_engine": all(g[0] == r[0] for g, r in zip(got, ref)),
-          "cut_at_small_margin": cut,
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9
-          if on_card else None})
-    del dexe, pexe
-    return pl
+          "streams_equal_engine": all(g_[0] == r[0] for g_, r in
+                                      zip(g["got"], ref)),
+          "cut_at_small_margin": cut})
+    return g["counts"]["prefill"][0], g["recorded_prefill"]
 
 
 def _repeating_prompts(cfg, seed, n, motif_lens, repeats):
@@ -1741,90 +2438,169 @@ def _repeating_prompts(cfg, seed, n, motif_lens, repeats):
     return out
 
 
-def phase_serve_spec(torch, mx, np_params, cfg=FULL, ctx=None):
-    """``DecodeEngine(spec_k=4)`` at full width.  n-gram arm: 8
-    requests with repeating tails, 32 new tokens each; the streams
-    equal the mixed-step engine's under the margin rule, drafts were
-    proposed, and every step launched the chunk kernel 24 times,
-    LayerNorm 50 and the decode kernel never.  Draft arm: the target's
-    own weights as the draft model on 4 requests of 16 new tokens; the
-    accept rate is at least 0.9 and each proposed token cost 12 flash
-    forward launches.  Returns the n-gram arm's launch counts and
-    steps."""
+def spec_arms(torch, mx, np_params, cfg, what, accept_min, bf16=False):
+    """``DecodeEngine(spec_k=4)`` at full width, per drafter (n-gram: 8
+    requests with repeating tails, 32 new tokens each; draft model: the
+    target's own weights on 4 of them, 16 new tokens each) in two arms on
+    the same prompts: eager (``MXNET_DECODE_DONATE=0``) first, then
+    captured, with the counts set to 0 before it is built.  The captured
+    arm: the witnesses; the spec step's graph records the chunk kernel
+    2L times and LayerNorm 4L + 2 (the decode kernel never), each draft
+    span program of K tokens L * K flash forwards, the wrappers launched
+    nothing beyond the warm-ups and captures (every span length captured
+    by ``warmup()``), the draft graphs ran L flash forwards a proposed
+    token, no plain version; a profiled steady window (one graph launch a
+    step and one a proposal, no kernel launch call, one readback each);
+    streams equal the eager arm's, first-step logits bit-equal (else
+    held at 1e-4, the first differing op named).  With ``bf16`` every
+    count above is of bf16 instances.  Returns per drafter the captured
+    arm's results, with the eager arm's under ``"eager_arm"``."""
     from mxnet_tpu_torch.decode import DecodeEngine
-    from mxnet_tpu_torch.kernels import LAUNCHES, PLAIN_CALLS, reset_counts
+    from mxnet_tpu_torch.kernels import (LAUNCHES, PLAIN_CALLS,
+                                         reset_counts)
     from mxnet_tpu_torch.weights import convert_params
-    ctx = ctx or mx.gpu(0)
-    L, spec_k, new = cfg["num_layers"], 4, 32
+    L, spec_k = cfg["num_layers"], 4
     prompts = _repeating_prompts(cfg, SEED + 11, 8, (5, 8, 12, 3), 6)
-    params = convert_params(np_params, ctx, cfg)
-    ref = _reference_streams(mx, params, cfg, ctx, prompts, new)
-    arms, counts = {}, {}
-    for arm, n_req, n_new, kw in (
-            ("ngram", 8, new, dict(spec_impl="ngram")),
+    sfx = ":bfloat16" if bf16 else ""
+    out = {}
+    for drafter, n_req, n_new, kw in (
+            ("ngram", 8, 32, dict(spec_impl="ngram")),
             ("draft", 4, 16, dict(spec_impl="draft", draft_params=np_params,
                                   draft_config=cfg))):
-        eng = DecodeEngine(params, cfg, ctx=ctx, spec_k=spec_k, warmup=True,
-                           **kw, **GEOMETRY)
-        try:
-            reset_counts()
-            t0 = time.perf_counter()
-            hs = [eng.submit(p, max_new_tokens=n_new)
-                  for p in prompts[:n_req]]
-            outs = [h.result(timeout=900) for h in hs]
-            wall = time.perf_counter() - t0
-            launches, plain = dict(LAUNCHES), dict(PLAIN_CALLS)
-            st = eng.stats()
-        finally:
-            eng.stop()
+        tag = "%s (%s)" % (what, drafter)
+        arms = {}
+        for arm in ("eager", "graph"):
+            gc_collect(torch)
+            if arm == "graph":
+                reset_counts()
+            with (serving_eager() if arm == "eager"
+                  else contextlib.nullcontext()):
+                eng = DecodeEngine(convert_params(np_params, mx.gpu(0), cfg),
+                                   cfg, ctx=mx.gpu(0), spec_k=spec_k,
+                                   warmup=True, **kw, **GEOMETRY)
+            res = {}
+            try:
+                if bf16:
+                    _check_bf16_binding(eng._exe, tag)
+                drafts = list(getattr(eng._drafter, "_exes", {}).items())
+                exes = [eng._exe] + [e for _, e in drafts]
+                d0 = [e.dispatches for e in exes]
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                hs = [eng.submit(p, max_new_tokens=n_new)
+                      for p in prompts[:n_req]]
+                outs = [h.result(timeout=900) for h in hs]
+                wall = time.perf_counter() - t0
+                torch.cuda.synchronize()
+                st = eng.stats()
+                res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+                if arm == "graph":
+                    check_captured(tag, exes, LAUNCHES, PLAIN_CALLS)
+                    check_witnesses(tag, st)
+                    rec = eng._exe.captured_launches(True) if bf16 \
+                        else eng._exe.captured_launches()
+                    want = {"paged_chunk_prefill_attend" + sfx: 2 * L,
+                            "layernorm_fused" + sfx: 4 * L + 2}
+                    check(rec == want, "%s: the spec step's graph records "
+                          "%s (want %s)" % (tag, rec, want))
+                    res["recorded_per_step"] = eng._exe.captured_launches()
+                    res["launches"] = dict(LAUNCHES)
+                    for k, e in drafts:
+                        r = e.captured_launches(True) if bf16 \
+                            else e.captured_launches()
+                        check(r.get("flash_attention_fwd" + sfx) == L * k,
+                              "%s: the %d-token span graph records %s"
+                              % (tag, k, r))
+                    if drafts:
+                        flash = graph_launches(exes[1:], d0[1:]).get(
+                            "flash_attention_fwd", 0)
+                        check(flash == L * st["spec_proposed"],
+                              "%s: the draft graphs ran %d flash forwards "
+                              "for %d proposed tokens (want %d each)"
+                              % (tag, flash, st["spec_proposed"], L))
+                        res["draft_flash_launches"] = flash
+                    res["step_replay_ms"] = step_replay_ms(torch, eng._exe,
+                                                           eng._step_lock)
+                res["window"] = engine_window(torch, eng, cfg, SEED + 21,
+                                              exes=exes)
+                logits = first_step_logits(eng, prompts[:3])
+                if arm == "graph":
+                    win = res["window"]
+                    check_graph_window(tag, win, win["dispatches_per_step"])
+                    res.update(hold_arms(torch, tag, eng, logits,
+                                         arms["eager"]["logits"], prompts[0]))
+            finally:
+                eng.stop()
+            check(st["spec_impl"] == drafter and st["spec_proposed"] > 0,
+                  "%s: no draft was proposed (%s)" % (tag, st))
+            if drafter == "draft":
+                check(st["accept_rate"] >= accept_min,
+                      "%s: accept rate %s < %s with the target as its own "
+                      "draft model" % (tag, st["accept_rate"], accept_min))
+            res.update(outs=outs, logits=logits, stats=st, steps=st["steps"],
+                       requests=n_req, new_tokens_each=n_new, wall_s=wall,
+                       tokens_per_s=n_req * n_new / wall,
+                       step_ms_p50=st["step_ms_p50"],
+                       device_ms_per_step=res["window"]["device_ms_per_step"],
+                       idle_share=1 - res["window"]["device_ms_per_step"]
+                       / st["step_ms_p50"],
+                       tokens_per_launch=st["tokens_per_launch"],
+                       accept_rate=st["accept_rate"],
+                       spec_proposed=st["spec_proposed"],
+                       spec_accepted=st["spec_accepted"])
+            arms[arm] = res
+            del eng
+        g, e = arms["graph"], arms["eager"]
+        check(g["outs"] == e["outs"], "%s: the captured engine's streams "
+              "differ from the eager arm's" % tag)
+        g["eager_arm"] = e
+        out[drafter] = g
+    return out, prompts
+
+
+SPEC_KEYS = ("requests", "new_tokens_each", "steps", "wall_s", "tokens_per_s",
+             "step_ms_p50", "device_ms_per_step", "idle_share", "peak_mem_gb",
+             "step_replay_ms", "window", "tokens_per_launch", "accept_rate",
+             "spec_proposed", "spec_accepted", "recorded_per_step",
+             "draft_flash_launches", "first_step_logits_bit_equal",
+             "max_abs_logit_diff", "first_differing_op")
+
+
+def _spec_summary(res):
+    return {**{k: res[k] for k in SPEC_KEYS if k in res},
+            "eager_arm": {k: res["eager_arm"][k] for k in SPEC_KEYS
+                          if k in res["eager_arm"]},
+            "streams_equal_eager_arm": True}
+
+
+def phase_serve_spec(torch, mx, np_params, cfg=FULL, ctx=None):
+    """serve_spec (18): ``spec_arms`` at full width in f32; the streams
+    equal the mixed-step engine's under the margin rule; the draft
+    arm's accept rate is at least 0.9.  Returns the n-gram arm's
+    counted launches, steps and the launches its step graph records."""
+    from mxnet_tpu_torch.weights import convert_params
+    ctx = ctx or mx.gpu(0)
+    new = 32
+    arms, prompts = spec_arms(torch, mx, np_params, cfg, "serve_spec", 0.9)
+    ref = _reference_streams(mx, convert_params(np_params, ctx, cfg), cfg,
+                             ctx, prompts, new)
+    line = {}
+    for arm, res in arms.items():
         cut = []
-        for r, (got, (rt, rl)) in enumerate(zip(outs, ref)):
-            _, at = margin_cut(rt[:n_new], rl, got,
+        for r, (got, (rt, rl)) in enumerate(zip(res["outs"], ref)):
+            _, at = margin_cut(rt[:res["new_tokens_each"]], rl, got,
                                "serve_spec (%s): request %d" % (arm, r))
             if at:
                 cut.append([r] + at)
-        steps = st["steps"]
-        counts[arm] = (launches, steps)
-        check(st["spec_impl"] == arm and st["spec_proposed"] > 0,
-              "serve_spec (%s): no draft was proposed (%s)" % (arm, st))
-        check(launches["paged_chunk_prefill_attend"] == 2 * L * steps
-              and launches["layernorm_fused"] >= (4 * L + 2) * steps
-              and launches["paged_decode_attend"] == 0,
-              "serve_spec (%s): launches %s over %d steps (want %d chunk, "
-              "%d LayerNorm, 0 decode per step)" % (arm, launches, steps,
-                                                    2 * L, 4 * L + 2))
-        check(not any(plain.values()),
-              "serve_spec (%s): plain versions ran on the main path: %s"
-              % (arm, plain))
-        if arm == "ngram":
-            check(launches["layernorm_fused"] == (4 * L + 2) * steps
-                  and launches["flash_attention_fwd"] == 0,
-                  "serve_spec (ngram): launches %s over %d steps"
-                  % (launches, steps))
-        else:
-            check(st["accept_rate"] >= 0.9,
-                  "serve_spec (draft): accept rate %s < 0.9 with the target "
-                  "as its own draft model" % st["accept_rate"])
-            check(launches["flash_attention_fwd"] == L * st["spec_proposed"],
-                  "serve_spec (draft): %d flash launches for %d proposed "
-                  "tokens (want %d each)" % (launches["flash_attention_fwd"],
-                                             st["spec_proposed"], L))
-        arms[arm] = {
-            "requests": n_req, "new_tokens_each": n_new, "steps": steps,
-            "wall_s": wall, "tokens_per_s": n_req * n_new / wall,
-            "step_ms_p50": st["step_ms_p50"],
-            "tokens_per_launch": st["tokens_per_launch"],
-            "accept_rate": st["accept_rate"],
-            "spec_proposed": st["spec_proposed"],
-            "spec_accepted": st["spec_accepted"],
-            "launches_per_step": {k: v / steps for k, v in launches.items()
-                                  if v},
-            "streams_equal_engine": all(o == r[0][:n_new]
-                                        for o, r in zip(outs, ref)),
-            "cut_at_small_margin": cut}
-    emit({"phase": "serve_spec", "config": cfg, "spec_k": spec_k,
-          "prompt_lengths": [len(p) for p in prompts], **arms})
-    return counts["ngram"]
+        line[arm] = {**_spec_summary(res),
+                     "streams_equal_engine": all(
+                         o == r[0][:res["new_tokens_each"]]
+                         for o, r in zip(res["outs"], ref)),
+                     "cut_at_small_margin": cut}
+    emit({"phase": "serve_spec", "config": cfg, "spec_k": 4,
+          "prompt_lengths": [len(p) for p in prompts], **line})
+    ng = arms["ngram"]
+    return ng["launches"], ng["steps"], ng["recorded_per_step"]
 
 
 def phase_prefill_agreement(torch, mx, ctxs=None):
@@ -1907,118 +2683,73 @@ def _check_bf16_binding(exe, what):
 
 
 def phase_serve_bf16(torch, mx, np_params, cfg=BF16_SERVE, ctx=None):
-    """The full-width LM in bf16 through ``DecodeEngine`` on the mixed
-    step: serve's 8 requests (20-700 prompt tokens, 32 new tokens each)
-    and the first one submitted again, with SERVE_BF16_RESERVED blocks
-    held off the free list first, so every block id the requests get
-    passes 256 (their chunk starts and positions pass it too).  Every
-    request finishes with its count, the resubmitted one repeats its
-    stream, every step launches the decode and chunk kernels 12 times and
-    LayerNorm 50 times, all on their bf16 instances, and no plain version
-    runs.  Returns the launches and the steps."""
-    from mxnet_tpu_torch.decode import DecodeEngine
-    from mxnet_tpu_torch.kernels import (LAUNCHES, LAUNCHES_BY_DTYPE,
-                                         PLAIN_CALLS, reset_counts)
-    from mxnet_tpu_torch.weights import convert_params
-    ctx = ctx or mx.gpu(0)
-    on_card = ctx.device_type == "gpu"
-    L, new = cfg["num_layers"], 32
-    t0 = time.perf_counter()
-    eng = DecodeEngine(convert_params(np_params, ctx, cfg), cfg, ctx=ctx,
-                       warmup=True, **GEOMETRY)
-    _check_bf16_binding(eng._exe, "serve_bf16")
-    if on_card:
-        torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
-    held = eng.cache.alloc(SERVE_BF16_RESERVED)
-    check(sorted(held) == list(range(SERVE_BF16_RESERVED)),
-          "serve_bf16: the free list did not hand out the lowest ids first")
-    lengths = [700, 20, 350, 90, 520, 45, 260, 610]
-    prompts = _serve_prompts(cfg, SEED, lengths)
-    try:
-        if on_card:
-            torch.cuda.reset_peak_memory_stats()
-        reset_counts()
-        t1 = time.perf_counter()
-        handles = [eng.submit(p, max_new_tokens=new)
-                   for p in prompts + prompts[:1]]
-        outs = [h.result(timeout=900) for h in handles]
-        wall = time.perf_counter() - t1
-        if on_card:
-            torch.cuda.synchronize()
-        launches, plain = dict(LAUNCHES), dict(PLAIN_CALLS)
-        bf16 = _by_dtype(LAUNCHES_BY_DTYPE)
-        st = eng.stats()
-    finally:
-        eng.cache.free(held)
-        eng.stop()
+    """serve_bf16 (32): ``serve_arms`` for the full-width LM in bf16 on
+    the mixed step, with SERVE_BF16_RESERVED blocks held off the free
+    list first, so every block id the requests get passes 256 (their
+    chunk starts and positions pass it too).  Every request finishes
+    with its count, the resubmitted one repeats its stream, the step
+    graph records the decode and chunk kernels 12 times and LayerNorm
+    50, all on their bf16 instances, and no plain version runs.  Returns
+    the counted run's wrapper launches, the steps and the launches the
+    step graph records."""
+    g, e, lengths, new = serve_arms(torch, mx, np_params, cfg, "serve_bf16",
+                                    held=SERVE_BF16_RESERVED,
+                                    binding=_check_bf16_binding)
+    L, outs, steps = cfg["num_layers"], g["outs"], g["steps"]
     check(all(len(o) == new for o in outs),
           "serve_bf16: a request finished with %s tokens, not %d"
           % ([len(o) for o in outs], new))
     check(outs[-1] == outs[0], "serve_bf16: the resubmitted request gave "
           "another stream")
-    steps = st["steps"]
-    want = {"paged_decode_attend": L * steps,
-            "paged_chunk_prefill_attend": L * steps,
-            "layernorm_fused": (4 * L + 2) * steps}
-    check(all(bf16[n] == w and launches[n] == w for n, w in want.items()),
-          "serve_bf16: bf16 launches %s of %s over %d steps (want %s)"
-          % (bf16, launches, steps, want))
-    check(not any(plain.values()), "serve_bf16: plain versions ran on the "
-          "main path: %s" % plain)
-    ttft = sorted(h.ttft_ms for h in handles)
+    want = {"paged_decode_attend:bfloat16": L,
+            "paged_chunk_prefill_attend:bfloat16": L,
+            "layernorm_fused:bfloat16": 4 * L + 2}
+    check(g["recorded_by_dtype"] == want,
+          "serve_bf16: the step graph records %s (want %s a step)"
+          % (g["recorded_by_dtype"], want))
     emit({"phase": "serve_bf16", "config": cfg, "geometry": GEOMETRY,
-          "requests": len(handles), "prompt_lengths": lengths + lengths[:1],
+          "requests": len(outs), "prompt_lengths": lengths + lengths[:1],
           "new_tokens_each": new, "block_ids_from": SERVE_BF16_RESERVED,
           "largest_chunk_start": max((n - 1) // GEOMETRY["chunk_tokens"]
                                      * GEOMETRY["chunk_tokens"]
                                      for n in lengths),
-          "setup_s": setup_s, "wall_s": wall, "steps": steps,
-          "prefill_chunks": st["prefill_chunks"],
-          "decode_tokens_per_s": len(handles) * new / wall,
-          "step_ms_p50": st["step_ms_p50"],
-          "ttft_ms_p50": ttft[len(ttft) // 2], "ttft_ms_max": ttft[-1],
-          "launches_per_step": {n: launches[n] / steps for n in want},
-          "bf16_launches": bf16, "plain_calls": plain,
+          **arm_summary(g), "prefill_chunks": g["prefill_chunks"],
+          "launches": {k: v for k, v in g["launches"].items() if v},
+          "recorded_per_step": g["recorded"],
+          "bf16_recorded_per_step": g["recorded_by_dtype"],
+          "graph_launches": {k: v * steps for k, v in g["recorded"].items()},
+          "plain_calls": {k: v for k, v in g["plain_calls"].items() if v},
+          "witnesses": {k: g["stats"][k] for k in WITNESS_KEYS},
+          "eager_arm": arm_summary(e), "streams_equal_eager_arm": True,
           "matmul_bf16_reduced_precision_reduction":
               torch.backends.cuda.matmul
-              .allow_bf16_reduced_precision_reduction,
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9
-          if on_card else None})
-    return launches, steps
+              .allow_bf16_reduced_precision_reduction})
+    return g["launches"], steps, g["recorded"]
 
 
 def phase_serve_prefill_bf16(torch, mx, np_params, cfg=BF16_SERVE,
                              ctx=None):
-    """The full-width bf16 decode-step and prefill symbols bound as a
-    pair with ``shared_exec`` (one copy of the bf16 weights and caches):
-    serve's 8 prompts prefilled in one forward of 8 x 1024, then 31
-    decode-step forwards; each prefill forward launches the prefill
+    """serve_prefill_bf16 (33): ``prefill_arms`` at full width in bf16
+    (one copy of the bf16 weights and caches a pair): each prefill
+    forward launches, and the donated prefill graph records, the prefill
     kernel 12 times and LayerNorm 25, each decode step the decode kernel
     12 and LayerNorm 25, all bf16, no plain version; the first token's
     logits within relative L2 2e-2 of the bf16 mixed-step engine's on
     the same prompts (streams compared and printed).  Returns the
-    prefill forward's launch counts."""
+    donated prefill window's wrapper launches and what its graph
+    records."""
     from mxnet_tpu_torch.weights import convert_params
     ctx = ctx or mx.gpu(0)
-    on_card = ctx.device_type == "gpu"
     L, new = cfg["num_layers"], 32
-    lengths = [700, 20, 350, 90, 520, 45, 260, 610]
-    prompts = _serve_prompts(cfg, SEED, lengths)
-    params = convert_params(np_params, ctx, cfg)
-    ref = _reference_streams(mx, params, cfg, ctx, prompts, new)
-    dexe, pexe = bind_prefill_pair(mx, params, cfg, ctx, len(prompts),
-                                   cfg["seq_len"])
-    del params
-    _check_bf16_binding(dexe, "serve_prefill_bf16 (decode step)")
-    _check_bf16_binding(pexe, "serve_prefill_bf16 (prefill)")
-    if on_card:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-    got, prefill_ms, step_ms, _, counts = run_prefill_pair(
-        torch, dexe, pexe, prompts, new, on_card)
+    prompts = _serve_prompts(cfg, SEED, SERVE_LENGTHS)
+    ref = _reference_streams(mx, convert_params(np_params, ctx, cfg), cfg,
+                             ctx, prompts, new)
+    arms, lengths, prompts, new = prefill_arms(
+        torch, mx, np_params, cfg, ctx, "serve_prefill_bf16",
+        binding=_check_bf16_binding)
     steps = new - 1
-    (pl, pp, pb), (dl, dp, db) = counts["prefill"], counts["decode"]
+    e, g = arms["eager"], arms["graph"]
+    (pl, pp, pb), (dl, dp, db) = e["counts"]["prefill"], e["counts"]["decode"]
     pb, db = _by_dtype(pb), _by_dtype(db)
     check(pb["paged_prefill_attend"] == pl["paged_prefill_attend"] == L
           and pb["layernorm_fused"] == pl["layernorm_fused"] == 2 * L + 1
@@ -2033,113 +2764,62 @@ def phase_serve_prefill_bf16(torch, mx, np_params, cfg=BF16_SERVE,
     check(not any(pp.values()) and not any(dp.values()),
           "serve_prefill_bf16: plain versions ran on the main path: %s %s"
           % (pp, dp))
-    first = [_rel_l2(g[1][0], r[1][0]) for g, r in zip(got, ref)]
+    want_p = {"paged_prefill_attend:bfloat16": L,
+              "layernorm_fused:bfloat16": 2 * L + 1}
+    want_d = {"paged_decode_attend:bfloat16": L,
+              "layernorm_fused:bfloat16": 2 * L + 1}
+    check(g["recorded_prefill_by_dtype"] == want_p
+          and g["recorded_decode_by_dtype"] == want_d,
+          "serve_prefill_bf16: the graphs record %s and %s (want %s, %s)"
+          % (g["recorded_prefill_by_dtype"], g["recorded_decode_by_dtype"],
+             want_p, want_d))
+    first = [_rel_l2(a[1][0], r[1][0]) for a, r in zip(g["got"], ref)]
     check(max(first) <= BF16_AGREE["logits_l2"],
           "serve_prefill_bf16: first-token logits off the bf16 engine's by "
           "relative L2 %s" % first)
     emit({"phase": "serve_prefill_bf16", "config": cfg,
           "prompt_lengths": lengths, "prefill_len": cfg["seq_len"],
-          "new_tokens_each": new, "prefill_ms": prefill_ms,
-          "decode_steps": steps,
-          "decode_step_ms_p50": statistics.median(step_ms),
-          "decode_step_ms": step_ms,
-          "prefill_launches": {k: v for k, v in pl.items() if v},
-          "prefill_bf16_launches": pb,
-          "decode_launches_per_step": {k: v / steps for k, v in dl.items()
-                                       if v},
+          "new_tokens_each": new, **_pair_summary(g), "decode_steps": steps,
+          "decode_step_ms": g["decode_step_ms"],
+          "prefill_launches": {k: v for k, v in
+                               g["counts"]["prefill"][0].items() if v},
+          "prefill_bf16_recorded": g["recorded_prefill_by_dtype"],
+          "decode_launches_per_step": g["recorded_decode"],
+          "eager_arm": {**_pair_summary(e),
+                        "prefill_launches": {k: v for k, v in pl.items()
+                                             if v},
+                        "prefill_bf16_launches": pb,
+                        "decode_launches_per_step": {
+                            k: v / steps for k, v in dl.items() if v}},
           "first_token_logits_rel_l2_vs_engine": first,
-          "streams_equal_engine": [g[0] == r[0] for g, r in zip(got, ref)],
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9
-          if on_card else None})
-    del dexe, pexe
-    return pl
+          "streams_equal_engine": [a[0] == r[0] for a, r in
+                                   zip(g["got"], ref)]})
+    return g["counts"]["prefill"][0], g["recorded_prefill"]
 
 
 def phase_serve_spec_bf16(torch, mx, np_params, cfg=BF16_SERVE, ctx=None):
-    """``DecodeEngine(spec_k=4)`` at full width in bf16.  n-gram arm:
-    serve_spec's 8 requests with repeating tails, 32 new tokens each;
-    drafts proposed, every step launches the chunk kernel 24 times and
-    LayerNorm 50, all bf16, the decode kernel never.  Draft arm: the
-    target's own weights as a bf16 draft model on 4 requests of 16 new
-    tokens: each proposed token costs 12 bf16 flash-forward launches and
-    at least half the drafts are accepted (the draft model's flash
-    forward rounds P to one bf16 term, the target's chunk kernel keeps
-    two, so near-tie tokens may part).  Streams against the bf16
-    mixed-step engine are printed.  Returns the n-gram arm's launch
-    counts and steps."""
-    from mxnet_tpu_torch.decode import DecodeEngine
-    from mxnet_tpu_torch.kernels import (LAUNCHES, LAUNCHES_BY_DTYPE,
-                                         PLAIN_CALLS, reset_counts)
+    """serve_spec_bf16 (34): ``spec_arms`` at full width in bf16 (every
+    recorded count of bf16 instances); the draft arm's accept rate at
+    least 0.5 (the draft model's flash forward rounds P to one bf16 term,
+    the target's chunk kernel keeps two, so near-tie tokens may part);
+    streams against the bf16 mixed-step engine printed.  Returns the
+    n-gram arm's counted launches, steps and its step graph's recorded
+    launches."""
     from mxnet_tpu_torch.weights import convert_params
     ctx = ctx or mx.gpu(0)
-    L, spec_k, new = cfg["num_layers"], 4, 32
-    prompts = _repeating_prompts(cfg, SEED + 11, 8, (5, 8, 12, 3), 6)
-    params = convert_params(np_params, ctx, cfg)
-    ref = _reference_streams(mx, params, cfg, ctx, prompts, new)
-    arms, counts = {}, {}
-    for arm, n_req, n_new, kw in (
-            ("ngram", 8, new, dict(spec_impl="ngram")),
-            ("draft", 4, 16, dict(spec_impl="draft", draft_params=np_params,
-                                  draft_config=cfg))):
-        eng = DecodeEngine(params, cfg, ctx=ctx, spec_k=spec_k, warmup=True,
-                           **kw, **GEOMETRY)
-        try:
-            _check_bf16_binding(eng._exe, "serve_spec_bf16 (%s)" % arm)
-            reset_counts()
-            t0 = time.perf_counter()
-            hs = [eng.submit(p, max_new_tokens=n_new)
-                  for p in prompts[:n_req]]
-            outs = [h.result(timeout=900) for h in hs]
-            wall = time.perf_counter() - t0
-            launches, plain = dict(LAUNCHES), dict(PLAIN_CALLS)
-            bf16 = _by_dtype(LAUNCHES_BY_DTYPE)
-            st = eng.stats()
-        finally:
-            eng.stop()
-        steps = st["steps"]
-        counts[arm] = (launches, steps)
-        check(st["spec_impl"] == arm and st["spec_proposed"] > 0,
-              "serve_spec_bf16 (%s): no draft was proposed (%s)" % (arm, st))
-        check(bf16["paged_chunk_prefill_attend"]
-              == launches["paged_chunk_prefill_attend"] == 2 * L * steps
-              and bf16["layernorm_fused"] >= (4 * L + 2) * steps
-              and launches["paged_decode_attend"] == 0,
-              "serve_spec_bf16 (%s): launches %s, bf16 %s over %d steps"
-              % (arm, launches, bf16, steps))
-        check(not any(plain.values()),
-              "serve_spec_bf16 (%s): plain versions ran on the main path: %s"
-              % (arm, plain))
-        if arm == "ngram":
-            check(bf16["layernorm_fused"] == launches["layernorm_fused"]
-                  == (4 * L + 2) * steps
-                  and launches["flash_attention_fwd"] == 0,
-                  "serve_spec_bf16 (ngram): launches %s over %d steps"
-                  % (launches, steps))
-        else:
-            check(bf16["flash_attention_fwd"] == launches[
-                "flash_attention_fwd"] == L * st["spec_proposed"],
-                  "serve_spec_bf16 (draft): %d bf16 flash launches for %d "
-                  "proposed tokens" % (bf16["flash_attention_fwd"],
-                                       st["spec_proposed"]))
-            check(st["accept_rate"] >= 0.5,
-                  "serve_spec_bf16 (draft): accept rate %s < 0.5 with the "
-                  "target as its own draft model" % st["accept_rate"])
-        arms[arm] = {
-            "requests": n_req, "new_tokens_each": n_new, "steps": steps,
-            "wall_s": wall, "tokens_per_s": n_req * n_new / wall,
-            "step_ms_p50": st["step_ms_p50"],
-            "tokens_per_launch": st["tokens_per_launch"],
-            "accept_rate": st["accept_rate"],
-            "spec_proposed": st["spec_proposed"],
-            "spec_accepted": st["spec_accepted"],
-            "launches_per_step": {k: v / steps for k, v in launches.items()
-                                  if v},
-            "bf16_launches": bf16,
-            "streams_equal_engine": [o == r[0][:n_new]
-                                     for o, r in zip(outs, ref)]}
-    emit({"phase": "serve_spec_bf16", "config": cfg, "spec_k": spec_k,
-          "prompt_lengths": [len(p) for p in prompts], **arms})
-    return counts["ngram"]
+    arms, prompts = spec_arms(torch, mx, np_params, cfg, "serve_spec_bf16",
+                              0.5, bf16=True)
+    ref = _reference_streams(mx, convert_params(np_params, ctx, cfg), cfg,
+                             ctx, prompts, 32)
+    emit({"phase": "serve_spec_bf16", "config": cfg, "spec_k": 4,
+          "prompt_lengths": [len(p) for p in prompts],
+          **{arm: {**_spec_summary(res),
+                   "streams_equal_engine": [
+                       o == r[0][:res["new_tokens_each"]]
+                       for o, r in zip(res["outs"], ref)]}
+             for arm, res in arms.items()}})
+    ng = arms["ngram"]
+    return ng["launches"], ng["steps"], ng["recorded_per_step"]
 
 
 def _ulps(a, b):
@@ -5963,15 +6643,16 @@ def main():
     sandwich_launches, sandwich_iters, sandwich_f32_launches = \
         phase_sandwich(torch, mx)
     full = seeded_params(FULL)
-    serve_launches, serve_steps = phase_serve(torch, mx, full)
+    serve_launches, serve_steps, serve_rec = phase_serve(torch, mx, full)
     phase_agreement(torch, mx)
-    prefill_launches = phase_serve_prefill(torch, mx, full)
-    spec_launches, spec_steps = phase_serve_spec(torch, mx, full)
+    prefill_launches, prefill_rec = phase_serve_prefill(torch, mx, full)
+    _, _, spec_rec = phase_serve_spec(torch, mx, full)
     phase_prefill_agreement(torch, mx)
-    serve_bf16_launches, serve_bf16_steps = phase_serve_bf16(torch, mx, full)
-    prefill_bf16_launches = phase_serve_prefill_bf16(torch, mx, full)
-    spec_bf16_launches, spec_bf16_steps = phase_serve_spec_bf16(torch, mx,
-                                                                full)
+    serve_bf16_launches, serve_bf16_steps, serve_bf16_rec = \
+        phase_serve_bf16(torch, mx, full)
+    prefill_bf16_launches, prefill_bf16_rec = \
+        phase_serve_prefill_bf16(torch, mx, full)
+    _, _, spec_bf16_rec = phase_serve_spec_bf16(torch, mx, full)
     phase_serve_bf16_agreement(torch, mx)
     train_launches, train_steps = phase_train(torch, mx, full)
     bf16_launches, bf16_steps = phase_train_bf16(torch, mx, full)
@@ -5998,24 +6679,32 @@ def main():
     # ResNet-50 TrainStep arm for the fused kernel); LayerNorm's forward
     # runs on several and carries the train and spec counts beside it,
     # the chunk kernel the spec step's
+    # the serving steps run as captured graphs (PR 18): a run's wrapper
+    # counts are the engine's warm-up walks and capture, and each step
+    # replays what the step graph recorded (launches_per_step, also
+    # captured_per_step); graph_launches is that times the steps
     for k in serve_kernels:
         k["launches"] = serve_launches[k["name"]]
-        k["launches_per_step"] = serve_launches[k["name"]] / serve_steps
-        k["spec_launches_per_step"] = spec_launches[k["name"]] / spec_steps
+        k["launches_per_step"] = k["captured_per_step"] = \
+            serve_rec[k["name"]]
+        k["graph_launches"] = serve_rec[k["name"]] * serve_steps
+        k["spec_launches_per_step"] = spec_rec.get(k["name"], 0)
     serve_kernels[2]["train_launches"] = train_launches["layernorm_fused"]
     prefill_kernel["launches"] = prefill_launches["paged_prefill_attend"]
-    prefill_kernel["launches_per_step"] = prefill_kernel["launches"]
+    prefill_kernel["launches_per_step"] = prefill_kernel[
+        "captured_per_step"] = prefill_rec["paged_prefill_attend"]
     # the bf16 instances: serve_bf16's run (rows 1, 2 and 3), the spec
     # step's beside it, and serve_prefill_bf16's prefill forward (row 5)
     for k in serve_bf16_kernels:
         k["launches"] = serve_bf16_launches[k["name"]]
-        k["launches_per_step"] = k["launches"] / serve_bf16_steps
-        k["spec_launches_per_step"] = \
-            spec_bf16_launches[k["name"]] / spec_bf16_steps
+        k["launches_per_step"] = k["captured_per_step"] = \
+            serve_bf16_rec[k["name"]]
+        k["graph_launches"] = serve_bf16_rec[k["name"]] * serve_bf16_steps
+        k["spec_launches_per_step"] = spec_bf16_rec.get(k["name"], 0)
     prefill_bf16_kernel["launches"] = \
         prefill_bf16_launches["paged_prefill_attend"]
-    prefill_bf16_kernel["launches_per_step"] = \
-        prefill_bf16_kernel["launches"]
+    prefill_bf16_kernel["launches_per_step"] = prefill_bf16_kernel[
+        "captured_per_step"] = prefill_bf16_rec["paged_prefill_attend"]
     # Module.fit's main path is the fused step (fit_fused): its launches
     # are the two warm-up steps' and the capture's, and the graph
     # replays what the capture recorded (captured_per_step); the eager
@@ -6079,6 +6768,7 @@ def main():
     emit({"kernels": [{**{key: k[key] for key in keys},
                        **{key: k[key] for key in ("launches_per_step",
                                                   "captured_per_step",
+                                                  "graph_launches",
                                                   "launches_per_iteration",
                                                   "fit_fused_captured_per_step",
                                                   "fit_bf16_captured_per_step",

@@ -22,7 +22,19 @@ Execution discipline:
 * the caches are updated in place on the device by the step's ops;
 * the only per-iteration host sync is reading the greedy tokens (or
   the logits, for sampling streams) back: that readback is the
-  streamed response.
+  streamed response;
+* the step donates its caches (``Executor.donate_args``, as the JAX
+  engine does; ``MXNET_DECODE_DONATE=0`` keeps the eager walk, the
+  counterpart of the JAX engine's copy path): on the card each step is
+  one replay of the step captured as a CUDA graph, its feeds staged
+  through pinned memory.  ``warmup()`` captures it up front (and a draft
+  model's span graphs); otherwise the first step does, on the engine
+  thread, and no thread may call ``torch.cuda.synchronize()`` meanwhile
+  (CUDA refuses a device-wide synchronize during any capture,
+  ``cuda_graph.py``).  ``stats()`` carries the JAX engine's witnesses:
+  ``steady_state_retraces`` (graphs captured again after the first),
+  ``decode_step_dispatches`` and ``dispatches_per_step`` (one step
+  forward each), ``cache_donation``.
 
 Scheduling policy lives in ``scheduler.py``.  Hot weight swaps
 (``swap_params``, ``check_params``) run under the step lock and flush
@@ -48,7 +60,8 @@ from ..telemetry import REGISTRY
 from .cache import CacheOOMError, PagedKVCache
 from .scheduler import Scheduler, Sequence
 from .spec import (ACCEPT_RATE, SPEC_ACCEPTED, SPEC_PROPOSED,
-                   TOKENS_PER_LAUNCH, choose_spec_impl, make_drafter)
+                   TOKENS_PER_LAUNCH, DraftModelDrafter, choose_spec_impl,
+                   make_drafter)
 
 __all__ = ["DecodeEngine"]
 
@@ -157,6 +170,11 @@ class DecodeEngine:
         self._prefix_cache = bool(prefix_cache)
         self._prefix_flush = False    # set by swap_params, drained by _tick
 
+        # donated caches (MXNET_DECODE_DONATE, default on, the JAX
+        # engine's knob): the step, and a draft model's span programs,
+        # run as captured graphs on the card; "0" keeps the eager walk
+        self._donate = os.environ.get("MXNET_DECODE_DONATE", "1") \
+            in ("1", "true", "True")
         # speculative decoding: spec_k > 0 binds the span-verify step
         # (spec_k + 1 tokens per slot per forward) in place of the mixed
         # step; the drafter follows choose_spec_impl's contract
@@ -174,7 +192,8 @@ class DecodeEngine:
             else:
                 self._drafter = make_drafter(
                     self._spec_impl, draft_params, draft_config,
-                    ctx=self._ctx, forced=(raw == "draft"))
+                    ctx=self._ctx, forced=(raw == "draft"),
+                    donate=self._donate)
                 self._spec_impl = self._drafter.name
         self._span = self._spec_k + 1
 
@@ -213,9 +232,13 @@ class DecodeEngine:
         self._check_params(arg_params)
         self._exe.copy_params_from(
             {k: v for k, v in arg_params.items() if k in self._weight_names})
+        if self._donate:
+            self._donate = bool(self._exe.donate_args(self._cache_names))
 
         # accounting (instance state; registry series are process-wide)
         self._n_steps = 0
+        self._n_step_dispatches = 0
+        self._steady_retraces = 0
         self._n_prefills = 0
         self._n_prefill_chunks = 0
         self._occ_sum = 0
@@ -312,10 +335,15 @@ class DecodeEngine:
 
     def warmup(self):
         """One idle step: builds the kernels (first use) and touches
-        every op once before serving.  Leaves the caches unchanged."""
+        every op once before serving; with donation on the card it
+        captures the ONE step graph (mixed, or spec), and a draft
+        model's span graphs for every span length up to ``spec_k``, so
+        no capture lands mid-stream.  Leaves the caches unchanged."""
         with self._step_lock:
             outs = self._exe.forward(is_train=False, **self._idle_feeds())
             outs[1].asnumpy()
+            if isinstance(self._drafter, DraftModelDrafter):
+                self._drafter.warmup(self._spec_k)
 
     # ------------------------------------------------------------------
     # client API
@@ -555,12 +583,7 @@ class DecodeEngine:
             feeds["positions"][slot, 0] = seq.pos
             feeds["block_table"][slot, :len(seq.blocks)] = seq.blocks
         self._chunk_feeds(feeds, chunk_seq, chunk_len)
-        with self._step_lock:
-            outs = self._exe.forward(is_train=False, **feeds)
-        self._n_steps += 1
-        self._occ_sum += len(active)
-        self._cache_occ_sum += self.cache.occupancy
-        STEPS.inc()
+        outs = self._dispatch(feeds, n_active=len(active))
         if chunk_seq is not None:
             self._advance_chunk(chunk_seq, chunk_len, outs)
         # ONE host copy of the (capacity, vocab) logits per step, shared
@@ -578,6 +601,24 @@ class DecodeEngine:
             self._emit(seq, tok)
             self._maybe_finish(seq, tok)
         self._step_done(t0)
+
+    def _dispatch(self, feeds, n_active):
+        """The step's forward under the step lock, with the witnesses'
+        accounting: the executor's dispatches (one a forward) and its
+        captures after the first (retraces), read as deltas around
+        this forward.  The outputs are read before the next step, as
+        the donated forward requires."""
+        exe = self._exe
+        with self._step_lock:
+            d0, r0 = exe.dispatches, exe.retraces
+            outs = exe.forward(is_train=False, **feeds)
+            self._n_step_dispatches += exe.dispatches - d0
+            self._steady_retraces += exe.retraces - r0
+        self._n_steps += 1
+        self._occ_sum += n_active
+        self._cache_occ_sum += self.cache.occupancy
+        STEPS.inc()
+        return outs
 
     def _step_done(self, t0):
         ms = (time.perf_counter() - t0) * 1e3
@@ -653,12 +694,7 @@ class DecodeEngine:
                 self._n_spec_proposed += len(draft)
                 SPEC_PROPOSED.inc(len(draft))
         self._chunk_feeds(feeds, chunk_seq, chunk_len)
-        with self._step_lock:
-            outs = self._exe.forward(is_train=False, **feeds)
-        self._n_steps += 1
-        self._occ_sum += len(active)
-        self._cache_occ_sum += self.cache.occupancy
-        STEPS.inc()
+        outs = self._dispatch(feeds, n_active=len(active))
         if chunk_seq is not None:
             self._advance_chunk(chunk_seq, chunk_len, outs)
         # one logits copy shared by the sampling slots, one greedy-token
@@ -892,6 +928,10 @@ class DecodeEngine:
             "preemptions": self._n_preemptions,
             "mean_slot_occupancy": self._occ_sum / n if n else None,
             "mean_cache_occupancy": self._cache_occ_sum / n if n else None,
+            "steady_state_retraces": self._steady_retraces,
+            "decode_step_dispatches": self._n_step_dispatches,
+            "dispatches_per_step": self._n_step_dispatches / n if n
+            else None,
             "prefill_chunks": self._n_prefill_chunks,
             "prefill_chunks_per_iter": self._n_prefill_chunks / n if n
             else None,
@@ -901,6 +941,7 @@ class DecodeEngine:
             "ttft_steps_p99": _percentile(ttft_steps, 0.99),
             "device": str(self._ctx),
             "model_version": self._model_version,
+            "cache_donation": self._donate,
             "spec_k": self._spec_k,
             "spec_impl": self._spec_impl,
             "spec_proposed": self._n_spec_proposed,

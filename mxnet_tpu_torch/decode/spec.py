@@ -131,11 +131,15 @@ class DraftModelDrafter(Drafter):
     tokens so every write-back stays in range.  The weights are checked
     at construction (:class:`DraftWeightsError`) and copied onto the
     device once: every later K binds with ``shared_exec`` over the
-    first executor's weights."""
+    first executor's weights.  With ``donate`` (the engine's
+    ``MXNET_DECODE_DONATE``) each executor donates the history it
+    consumes (``Executor.donate_args``), so on the card a ``propose``
+    is one replay of its K's captured graph; the executors share one
+    graph pool (``shared_exec``), each proposal read back at once."""
 
     name = "draft"
 
-    def __init__(self, arg_params, model_config, ctx=None):
+    def __init__(self, arg_params, model_config, ctx=None, donate=True):
         from ..context import current_context
         from ..models import transformer
         from ..weights import symbol_shapes
@@ -160,6 +164,7 @@ class DraftModelDrafter(Drafter):
                                     "shape: %s" % ", ".join(bad[:4]))
         self._params = {n: arg_params[n] for n in want}
         self._exes = {}                    # span K -> bound executor
+        self._donate = bool(donate)
         self._iota = _np.arange(self._seq_len,
                                 dtype=_np.float32).reshape(1, -1)
 
@@ -175,8 +180,17 @@ class DraftModelDrafter(Drafter):
                                    shared_exec=first, **shapes)
             if first is None:
                 exe.copy_params_from(self._params)
+            if self._donate:
+                exe.donate_args(("data",))
             self._exes[k] = exe
         return exe
+
+    def warmup(self, k_max):
+        """Propose once at every span length ``k_max..1`` (binding, and
+        on the card capturing, each K's program) on a one-token
+        history."""
+        for k in range(min(int(k_max), self._seq_len - 1), 0, -1):
+            self.propose([0], k)
 
     def propose(self, tokens, k):
         k = int(k)
@@ -197,17 +211,18 @@ class DraftModelDrafter(Drafter):
 
 
 def make_drafter(impl, draft_params=None, draft_config=None, ctx=None,
-                 forced=False):
+                 forced=False, donate=True):
     """The resolved drafter.  Under ``auto`` (``forced=False``) a draft
     checkpoint that fails the weight check degrades to the n-gram
     drafter and bumps ``decode_spec_fallbacks``; a forced draft model
-    raises."""
+    raises.  ``donate``: the draft model's forwards are captured."""
     if impl is None:
         return None
     if impl == "ngram":
         return NGramDrafter()
     try:
-        return DraftModelDrafter(draft_params, draft_config, ctx=ctx)
+        return DraftModelDrafter(draft_params, draft_config, ctx=ctx,
+                                 donate=donate)
     except DraftWeightsError:
         if forced:
             raise

@@ -43,6 +43,20 @@ for every argument and auxiliary state of the same name, shape and
 type, so
 a prefill executor and a decode-step executor share one copy of the
 weights and write into one set of caches.
+
+Donated forward (:meth:`Executor.donate_args`, the counterpart of the
+JAX package's compiled, donated inference program): on the card, an
+inference forward of an executor with donated arguments runs as one
+CUDA graph.  The first such forward warms the walk up
+(``cuda_graph.WARMUP`` eager walks on a side stream, each writing the
+same bytes: an inference walk writes only what its inputs determine),
+captures it once and replays it; every later one copies its feeds in
+through pinned staging and replays.  On the CPU the same forward is
+the eager walk: the device decides.  ``dispatches`` counts inference
+forwards (one program each, as the JAX package counts its jitted
+calls), ``captures`` the graphs captured; a capture after the first
+(a bound tensor was replaced) is a retrace.  Executors bound with
+``shared_exec`` capture into one graph memory pool.
 """
 from __future__ import annotations
 
@@ -51,6 +65,7 @@ import torch
 
 from .base import FLOAT16_LATER, MXNetError, numpy_to_tensor
 from .context import current_context
+from .cuda_graph import WARMUP, GraphPool, Program, Staging
 from .ndarray.ndarray import NDArray
 
 __all__ = ["Executor", "GraphPlan", "run_graph"]
@@ -162,6 +177,17 @@ class Executor:
         self._plan = GraphPlan(symbol)
         self.outputs = []
         self._heads = None          # the graph-carrying outputs of a train forward
+        self._device = dev
+        # the donated forward: one graph pool per shared_exec family
+        self._graph_pool = shared_exec._graph_pool \
+            if shared_exec is not None else GraphPool()
+        self._donated_names = ()
+        self._program = None        # the captured forward
+        self._program_bound = None  # the bound tensors it captured
+        self._program_outputs = []  # its static outputs, as NDArrays
+        self._staging = {}
+        self.dispatches = 0         # inference forwards
+        self.captures = 0           # graphs captured
 
     @property
     def grad_arrays(self):
@@ -205,13 +231,110 @@ class Executor:
             with torch.no_grad():
                 dst._data.copy_(_as_tensor(value, dst.shape, name))
 
+    def donate_args(self, names):
+        """Run every later inference forward as one captured CUDA graph
+        (on the card) that updates the named arguments in place: the
+        counterpart of the JAX package's donated forward, whose
+        signature this keeps.  The named arguments are the state a
+        forward writes (the decode engine's K/V caches) or the inputs it
+        consumes; the caller keeps nothing of theirs across a forward.
+
+        CONTRACT: the outputs of a donated forward are the graph's
+        static tensors, valid until the next forward of this executor or
+        of one that shares its graph pool (bound with ``shared_exec``);
+        read or copy them before that.  (The JAX package's donated
+        NDArrays hold deleted buffers instead; the port updates the
+        caches where they live, so they stay valid.)  Copy new values
+        INTO bound tensors (``copy_params_from``): a replaced bound
+        tensor makes the next forward capture again, a retrace.  Train
+        forwards stay eager.  Raises ``MXNetError`` on an unknown name;
+        an empty sequence turns donation off.  Returns True."""
+        names = tuple(names)
+        for n in names:
+            if n not in self.arg_dict:
+                raise MXNetError("donate_args: unknown argument '%s'" % n)
+        # the captured walk does not depend on the names: a graph already
+        # captured serves again when donation comes back on
+        self._donated_names = names
+        return True
+
+    @property
+    def retraces(self):
+        """Captures after the first: each one a bound tensor replaced
+        under a captured forward."""
+        return max(self.captures - 1, 0)
+
+    def captured_launches(self, by_dtype=False):
+        """The kernel launches recorded in the captured forward, by
+        kernel (``by_dtype``: by ``"name:dtype"``); one replay runs
+        exactly these.  Empty before a capture."""
+        prog = self._program
+        if prog is None:
+            return {}
+        return dict(prog.captured_by_dtype if by_dtype else prog.captured)
+
+    def _symbol_label(self):
+        outs = self._symbol.list_outputs()
+        return ", ".join(outs[:3]) + (", ..." if len(outs) > 3 else "")
+
+    def _forward_donated(self, feeds):
+        """Stage ``feeds`` and replay the captured forward, capturing it
+        first when there is none or a bound tensor was replaced."""
+        for name, value in feeds.items():
+            dst = self.arg_dict.get(name)
+            if dst is None:
+                raise MXNetError("forward: unknown input %s" % name)
+            stage = self._staging.get(name)
+            if stage is None or stage.target is not dst._data:
+                stage = self._staging[name] = Staging(dst._data)
+            with torch.no_grad():
+                stage.put(_as_tensor(value, dst.shape, name))
+        self._heads = None
+        bound = tuple(id(nd._data) for nd in self.arg_dict.values()) \
+            + tuple(id(nd._data) for nd in self.aux_dict.values())
+        if self._program is not None and bound == self._program_bound:
+            self._program.replay()
+            self.outputs = list(self._program_outputs)
+            return self.outputs
+        # the old graph, if any, lives until the new one is captured: a
+        # capture into a pool needs a live graph of it (cuda_graph.py)
+
+        # closes over the dicts, not the executor: no reference cycle
+        # holds a dropped executor's tensors and graph
+        args, auxs, plan = self.arg_dict, self.aux_dict, self._plan
+
+        def body():
+            values = {n: nd._data for n, nd in auxs.items()}
+            values.update((n, nd._data) for n, nd in args.items())
+            with torch.no_grad():
+                return run_graph(plan, values, False)[0]
+
+        prog = Program(body, self._device,
+                       "donated forward of (%s)" % self._symbol_label(),
+                       "donate_args(()) keeps the eager walk",
+                       pool=self._graph_pool)
+        for _ in range(WARMUP):
+            prog.warm_up()
+        outs = prog.capture()
+        self.captures += 1
+        self._program, self._program_bound = prog, bound
+        self._program_outputs = [NDArray(t) for t in outs]
+        self.outputs = list(self._program_outputs)
+        return self.outputs
+
     def forward(self, is_train=False, **feeds):
         """Copy ``feeds`` into the bound inputs and run the graph.
         Returns the outputs as NDArrays (also kept in ``outputs``).
-        With ``is_train`` the graph is recorded for :meth:`backward`."""
+        With ``is_train`` the graph is recorded for :meth:`backward`.
+        An inference forward of an executor with donated arguments
+        replays its captured graph on the card (:meth:`donate_args`)."""
+        is_train = bool(is_train)
+        if not is_train:
+            self.dispatches += 1
+            if self._donated_names and self._device.type == "cuda":
+                return self._forward_donated(feeds)
         self._feed(feeds)
         self._heads = None
-        is_train = bool(is_train)
         record = is_train and bool(self.grad_dict)
         values = {n: nd._data for n, nd in self.aux_dict.items()}
         values.update((n, nd._data) for n, nd in self.arg_dict.items())

@@ -13,9 +13,14 @@ contract: the device of the inputs decides.
 a run can show which path its work went through.  A wrapper whose
 kernel has several element types also counts each launch under
 ``LAUNCHES_BY_DTYPE["name:dtype"]`` (``"flash_attention_fwd:bfloat16"``).
+Inside :func:`record_launches` the launches made on a stream being
+captured are also counted into dicts of their own: what a CUDA graph
+records, from any thread (autograd runs a captured backward on a thread
+of its own), whatever other threads launch eagerly meanwhile.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 
 import torch
@@ -23,7 +28,8 @@ import torch
 from ..base import MXNetError
 
 __all__ = ["KERNELS", "LAUNCHES", "LAUNCHES_BY_DTYPE", "PLAIN_CALLS",
-           "on_cpu", "count_launch", "count_plain", "reset_counts"]
+           "on_cpu", "count_launch", "count_plain", "record_launches",
+           "reset_counts"]
 
 KERNELS = ("paged_decode_attend", "paged_chunk_prefill_attend",
            "paged_prefill_attend", "layernorm_fused", "layernorm_fused_bwd",
@@ -34,6 +40,13 @@ LAUNCHES = {k: 0 for k in KERNELS}
 PLAIN_CALLS = {k: 0 for k in KERNELS}
 LAUNCHES_BY_DTYPE = {}
 _lock = threading.Lock()
+# the capture in progress: (by kernel, by "name:dtype"), or None;
+# cuda_graph.py captures one graph at a time
+_recording = {"dicts": None}
+
+
+def _capturing():
+    return torch.cuda.is_current_stream_capturing()
 
 
 def on_cpu(kernel, *tensors):
@@ -55,11 +68,33 @@ def on_cpu(kernel, *tensors):
 
 
 def count_launch(kernel, dtype=None):
+    key = None if dtype is None else \
+        "%s:%s" % (kernel, str(dtype).replace("torch.", ""))
     with _lock:
         LAUNCHES[kernel] += 1
-        if dtype is not None:
-            key = "%s:%s" % (kernel, str(dtype).replace("torch.", ""))
+        if key is not None:
             LAUNCHES_BY_DTYPE[key] = LAUNCHES_BY_DTYPE.get(key, 0) + 1
+        rec = _recording["dicts"]
+        if rec is not None and _capturing():
+            rec[0][kernel] = rec[0].get(kernel, 0) + 1
+            if key is not None:
+                rec[1][key] = rec[1].get(key, 0) + 1
+
+
+@contextlib.contextmanager
+def record_launches():
+    """Count the launches made on a stream being captured while the
+    block runs: yields ``(by kernel, by "name:dtype")``, two dicts that
+    hold only kernels launched.  One recording at a time."""
+    with _lock:
+        if _recording["dicts"] is not None:
+            raise MXNetError("record_launches: a recording is running")
+        _recording["dicts"] = rec = ({}, {})
+    try:
+        yield rec
+    finally:
+        with _lock:
+            _recording["dicts"] = None
 
 
 def count_plain(kernel):

@@ -33,14 +33,16 @@ loss is not scaled (the JAX package's rule); auxiliary states and the
 metric take every step.
 
 On the card each batch shape's body is captured once as one CUDA graph
-(after ``_WARMUP`` eager steps on a side stream, as PyTorch requires),
-and every later step copies the batch into the graph's static feeds
-and replays it: one graph launch and the batch copy, no host sync.  On
-the CPU the same body runs eagerly every step (the device decides, as
-for the kernels).  ``TRACE_COUNT`` counts the programs built, one per
-distinct key (batch shapes, optimizer signature, metric signature,
-compression threshold, per-key weight-decay pattern, state nesting):
-a ragged final batch builds once more, a steady state never.
+(after ``cuda_graph.WARMUP`` eager steps on a side stream, as PyTorch
+requires; ``cuda_graph.py`` holds the capture, shared with the
+executor's donated forward), and every later step copies the batch
+into the graph's static feeds and replays it: one graph launch and the
+batch copy, no host sync.  On the CPU the same body runs eagerly every
+step (the device decides, as for the kernels).  ``TRACE_COUNT`` counts
+the programs built, one per distinct key (batch shapes, optimizer
+signature, metric signature, compression threshold, per-key
+weight-decay pattern, state nesting): a ragged final batch builds once
+more, a steady state never.
 
 lr, wd and ``rescale_grad`` live in one static device buffer that the
 host rewrites before each step through pinned staging
@@ -82,10 +84,9 @@ import numpy as _np
 import torch
 
 from .. import fused_update as _fused
-from .. import random as _random
 from ..base import MXNetError
+from ..cuda_graph import WARMUP, Program, Staging
 from ..executor import run_graph
-from ..kernels import LAUNCHES, LAUNCHES_BY_DTYPE
 from ..kvstore import KVStore, _updater_key
 from ..kvstore_fused import bucket_byte_cap, push_plan, two_bit_quantize
 from ..ndarray.ndarray import NDArray
@@ -96,9 +97,6 @@ __all__ = ["FusedFitStep", "TRACE_COUNT"]
 # programs built (captured on the card, eager bodies on the CPU); one
 # per distinct key
 TRACE_COUNT = 0
-
-# eager steps of a new program before its capture, on a side stream
-_WARMUP = 2
 
 
 def _metric_closure(metric, label_names, output_names):
@@ -124,83 +122,35 @@ def _metric_closure(metric, label_names, output_names):
     return metric_fn, sig
 
 
-class _Staging:
-    """Copies into one device tensor from two pinned host slots in
-    turn: the host fills a slot only after the copy made from it two
-    steps back has run (its event), so it never waits for the step in
-    flight.  On the CPU a plain copy."""
-
-    def __init__(self, target):
-        self.target = target
-        self._slots = []
-        if target.device.type == "cuda":
-            self._slots = [(torch.empty(target.shape, dtype=target.dtype,
-                                        pin_memory=True), torch.cuda.Event())
-                           for _ in range(2)]
-        self._turn = 0
-
-    def put(self, value):
-        if not self._slots or value.device.type != "cpu":
-            self.target.copy_(value)
-            return
-        slot, done = self._slots[self._turn]
-        self._turn ^= 1
-        done.synchronize()
-        slot.copy_(value)
-        self.target.copy_(slot, non_blocking=True)
-        done.record()
-
-
 class _Program:
     """One key's step body with its static feeds; on the card, warmed
-    up eagerly, then captured once and replayed."""
+    up over ``cuda_graph.WARMUP`` eager steps, then captured once and
+    replayed (``cuda_graph.Program``)."""
 
     def __init__(self, body, feeds, device):
         global TRACE_COUNT
         TRACE_COUNT += 1
-        self.body = body
         self.feeds = feeds
-        self.staging = {n: _Staging(t) for n, t in feeds.items()}
+        self.staging = {n: Staging(t) for n, t in feeds.items()}
         self.device = device
-        self.graph = None
-        self.outs = None
+        self.program = Program(body, device, "fused fit step",
+                               "MXNET_FIT_FUSED=0 keeps such a model eager")
         self.warm = 0
-        self.captured = {}          # kernel launches recorded in the graph
-        self.captured_by_dtype = {}     # the same, "name:dtype" keys
+
+    @property
+    def graph(self):
+        return self.program.graph
 
     def run(self):
+        prog = self.program
         if self.device.type != "cuda":
-            return self.body()
-        if self.graph is not None:
-            self.graph.replay()
-            return self.outs
-        cur = torch.cuda.current_stream(self.device)
-        if self.warm < _WARMUP:
-            gen = _random.generator(self.device)
-            drawn = gen.get_state()
-            side = torch.cuda.Stream(self.device)
-            side.wait_stream(cur)
-            with torch.cuda.stream(side):
-                outs = self.body()
-            cur.wait_stream(side)
-            if not torch.equal(gen.get_state(), drawn):
-                raise MXNetError(
-                    "fused fit step: the step draws random numbers, whose "
-                    "stream a captured graph would replay unchanged; "
-                    "MXNET_FIT_FUSED=0 keeps such a model eager")
+            return prog.body()
+        if prog.graph is not None:
+            return prog.replay()
+        if self.warm < WARMUP:
             self.warm += 1
-            return outs
-        before, before_dt = dict(LAUNCHES), dict(LAUNCHES_BY_DTYPE)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self.outs = self.body()
-        self.captured = {k: v - before[k] for k, v in LAUNCHES.items()
-                         if v != before[k]}
-        self.captured_by_dtype = {
-            k: v - before_dt.get(k, 0) for k, v in LAUNCHES_BY_DTYPE.items()
-            if v != before_dt.get(k, 0)}
-        self.graph.replay()
-        return self.outs
+            return prog.warm_up()
+        return prog.capture()
 
 
 class FusedFitStep:
@@ -474,7 +424,7 @@ class FusedFitStep:
             self._scalars = torch.zeros(2 * len(self._order) + 1,
                                         dtype=torch.float32,
                                         device=self._device)
-            self._scalar_stage = _Staging(self._scalars)
+            self._scalar_stage = Staging(self._scalars)
             self._acc = tuple(torch.zeros((), dtype=torch.float32,
                                           device=self._device)
                               for _ in range(2))
@@ -567,5 +517,6 @@ class FusedFitStep:
     def captured_launches(self, by_dtype=False):
         """Kernel launches recorded in each captured graph, by kernel
         (``by_dtype``: by ``"name:dtype"``), one dict per capture."""
-        return [p.captured_by_dtype if by_dtype else p.captured
+        return [p.program.captured_by_dtype if by_dtype
+                else p.program.captured
                 for p in self._programs.values() if p.graph is not None]

@@ -16,6 +16,10 @@ serve: ``chip_smoke.py``'s serve and serve_spec phases of the tree (the
 full-width transformer through the mixed-step engine, then the
 speculative engine's n-gram and draft arms): the serve step p50, wall and
 TTFT p50, and each spec arm's p50s, tokens per launch and accept rate.
+Where the tree's phases run the step as a captured CUDA graph with an
+eager arm beside it (``MXNET_DECODE_DONATE=0``), both arms are printed,
+each with the CUDA runtime's launch calls per steady step
+(``runtime_calls_per_step``, from the phase's profiled window).
 
 kernels: the tree's ``layernorm_fused`` at 2048 columns (f32 at the rows
 of every path that runs it, 8, 40, 64, 1024, 4096 and 8192; bf16 at 8, 64
@@ -126,18 +130,30 @@ print(json.dumps(out), flush=True)
 """
 
 
+def _serve_arm(d):
+    out = {k: d[k] for k in ("step_ms_p50", "wall_s", "ttft_ms_p50",
+                             "decode_tokens_per_s", "tokens_per_s",
+                             "tokens_per_launch", "accept_rate") if k in d}
+    if "window" in d:
+        out["runtime_calls_per_step"] = d["window"]["runtime_calls_per_step"]
+    return out
+
+
 def serve_result(lines):
     res = {}
     for d in lines:
         if d.get("phase") == "serve":
-            res["serve_step_ms_p50"] = d["step_ms_p50"]
-            res["serve_wall_s"] = d["wall_s"]
-            res["serve_ttft_ms_p50"] = d["ttft_ms_p50"]
+            res["serve"] = _serve_arm(d)
+            if "eager_arm" in d:
+                res["serve_eager_arm"] = _serve_arm(d["eager_arm"])
         elif d.get("phase") == "serve_spec":
-            res["serve_spec"] = {
-                arm: {k: v for k, v in d[arm].items()
-                      if "p50" in k or k in ("tokens_per_launch", "accept_rate")}
-                for arm in ("ngram", "draft") if arm in d}
+            res["serve_spec"] = {}
+            for arm in ("ngram", "draft"):
+                if arm in d:
+                    res["serve_spec"][arm] = _serve_arm(d[arm])
+                    if "eager_arm" in d[arm]:
+                        res["serve_spec"][arm + "_eager_arm"] = \
+                            _serve_arm(d[arm]["eager_arm"])
     return res
 
 

@@ -42,6 +42,15 @@ With ``--prefill`` it binds chip_smoke.py's prefill/decode-step pair
 prefill forward of serve_prefill's 8 prompts padded to 1024 tokens
 (wall time median of 5, device time over 3 profiled forwards).
 
+Each serving profile runs in two arms, each line marked ``"arm"``: the
+step as one captured CUDA graph (``graph``: the engine donates its
+caches, as by default, and ``warmup()`` captured the step; the prefill
+executor donates its caches and captures at its first forward) and the
+eager walk (``eager``: what ``MXNET_DECODE_DONATE=0`` gives).  Every
+line carries the CUDA runtime's launch and copy calls per step
+(``runtime_calls_per_step``: ``cudaGraphLaunch``, ``cudaLaunchKernel``,
+...) and the peak device memory.
+
 With ``--train`` it instead binds chip_smoke.py's full-width training
 Module (same seeded weights, batch 4 x 1024 tokens, SGD with momentum),
 runs two warm-up steps (forward, backward, update) and prints one JSON
@@ -615,10 +624,17 @@ def main():
     mixed["chunk_table"][0, :24] = blocks[C * 26:C * 26 + 24]
     kinds = (("spec_only", feeds), ("spec_mixed", mixed)) if spec_k else \
         (("decode_only", feeds), ("mixed", mixed))
-    for kind, f in kinds:
-        def forward():
-            return eng._exe.forward(is_train=False, **f)
-        profile_forward(torch, kind, forward, reps=20, n=5, dtype=dtype)
+    # the graph arm first (the engine donates its caches and warmup()
+    # captured the step), then the eager arm (MXNET_DECODE_DONATE=0's
+    # walk) on the same executor
+    for arm in ("graph", "eager"):
+        if arm == "eager":
+            eng._exe.donate_args(())
+        for kind, f in kinds:
+            def forward():
+                return eng._exe.forward(is_train=False, **f)
+            profile_forward(torch, kind, forward, reps=20, n=5, dtype=dtype,
+                            arm=arm)
     return 0
 
 
@@ -626,7 +642,9 @@ def profile_forward(torch, kind, forward, reps, n, **extra):
     """One JSON line for ``forward()`` (a bound executor's forward,
     whose output 1 is read back to synchronize): wall time median of
     ``reps``, the host time to enqueue it, the calls in it that sync
-    the host, and the device time by group over ``n`` profiled runs."""
+    the host, the device time by group and the CUDA runtime's launch
+    and copy calls per forward over ``n`` profiled runs."""
+    from chip_smoke import _RUNTIME_CALLS
     from torch.profiler import ProfilerActivity, profile
 
     def step():
@@ -658,15 +676,21 @@ def profile_forward(torch, kind, forward, reps, n, **extra):
     by_group, kernels = device_ms_by_group(torch, prof, n)
     device_ms = sum(by_group.values())
     wall = statistics.median(walls)
+    calls = {}
+    for ev in prof.events():
+        if ev.name in _RUNTIME_CALLS:
+            calls[ev.name] = calls.get(ev.name, 0) + 1 / n
     print(json.dumps({
         "phase": "profile", "step": kind, **extra, "wall_ms_p50": wall,
+        "runtime_calls_per_step": calls,
         "enqueue_ms_p50": statistics.median(enq),
         "device_ms": device_ms, "device_idle_share": 1 - device_ms / wall,
         "device_ms_by_group": {k: round(v, 4) for k, v in
                                sorted(by_group.items(),
                                       key=lambda kv: -kv[1])},
         "device_launches_per_step": kernels / n,
-        "host_syncs_in_forward": len(caught), "sync_kinds": syncs}),
+        "host_syncs_in_forward": len(caught), "sync_kinds": syncs,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}),
         flush=True)
 
 
@@ -695,9 +719,17 @@ def profile_prefill(torch, cs, mx, cfg):
     def forward():           # rewrites the same cache rows each time
         return pexe.forward(is_train=False, data=data, prompt_len=lens,
                             block_table=table)
-    profile_forward(torch, "prefill", forward, reps=5, n=3,
-                    prompt_lengths=lengths, prefill_len=S,
-                    dtype=cfg.get("dtype", "float32"))
+    # the eager arm, then the graph arm (the pair donates its caches:
+    # the first forward captures, into the pool both executors share)
+    for arm in ("eager", "graph"):
+        if arm == "graph":
+            pexe.donate_args([n for n in pexe.arg_dict
+                              if n.endswith("_cache")])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        profile_forward(torch, "prefill", forward, reps=5, n=3,
+                        prompt_lengths=lengths, prefill_len=S,
+                        dtype=cfg.get("dtype", "float32"), arm=arm)
 
 
 if __name__ == "__main__":
