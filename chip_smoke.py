@@ -291,7 +291,7 @@ Phases, each printed as one JSON line:
    captured loops counted (2 per iteration, per type), no plain version;
 31. fit_fused (after 22): ``Module.fit`` at full width through the
    single-launch fused step (two warm-up steps, one capture, then one
-   graph replay per step) against its eager pair, each for 10 steps
+   graph replay per step) against its eager pair, each for 6 steps
    over two fixed batches, cuDNN's deterministic algorithms in both:
    ResNet-50 v2 at batch 128 through ``mx.kv.create('device')`` dense
    and 2-bit (threshold 0.5; SGD 0.1, momentum 0.9, wd 1e-4, accuracy)
@@ -328,10 +328,11 @@ Phases, each printed as one JSON line:
    prefill/decode-step pair at 2 layers in bf16, card against CPU, each
    driven with the card engine's greedy tokens forced on both devices:
    logits rows within relative L2 2e-2, cache rows within one bf16 ulp
-   at the cache's scale; the greedy streams of both devices printed
-   beside;
+   at the cache's scale; the card's greedy streams printed beside, and
+   whether the CPU's argmax at each forced position gives the same
+   tokens;
 36. fit_bf16 (after 31): bf16 ``Module.fit`` at full width under
-   multi_precision (f32 masters), fused against eager as in 31 (10
+   multi_precision (f32 masters), fused against eager as in 31 (6
    steps over two fixed batches): the transformer with
    ``dtype='bfloat16'`` at 4 x 1024 tokens (SGD 0.05, momentum 0.9;
    its graph records each bf16 flash kernel 12 times and the bf16
@@ -375,11 +376,44 @@ Phases, each printed as one JSON line:
    launched; and an f32 ResNet-50's ``model.save_checkpoint`` read back
    by ``Module.load`` on the card gives a forward bit-equal to the saved
    module's.
+38. float16 serving's kernels (ROADMAP A.1, float16; with the kernel
+   phases of 3): the f16 forms of rows 1, 2 and 5 inside 3's decode,
+   chunk and prefill phases (f16 q/k/v over f16 caches at the same
+   shapes, cases and head_dims as the bf16 forms, outputs within
+   close_f16: rtol 2^-10, one f16 ulp of the value, atol 1e-5; cache
+   bytes exact, the bytes each must leave alone included; timed beside
+   SDPA in f16, bounded at the dense 16-bit tensor-core peak); then
+   layernorm_f16 (row 3's f16 form at the rows of every f16 path and
+   LN_FWD_EDGES, timed at serve's 8 and 64 rows beside F.layer_norm in
+   f16), flash_f16 (row 8's f16 forward at the draft model's (1, 16,
+   1024, 128) and FLASH_F16_EDGES within close_f16_flash, timed beside
+   SDPA's f16 forward; the backward refuses f16) and dtype_codes (every
+   C entry point returns an error for a code or pairing it has no kernel
+   for, f16 beside another type and f16 where no f16 form exists
+   included; the wrappers of rows 4, 6, 7 and 10 refuse f16 tensors,
+   naming ROADMAP A.1); each kernel's f16 instances' ptxas lines first,
+   no spills;
+39. serve_f16, serve_prefill_f16, serve_spec_f16 (after 35): 32, 33
+   and 34 with ``dtype='float16'``: the engine's cache holds
+   SERVE_F16_BLOCKS blocks with the first SERVE_F16_RESERVED off the
+   free list, so every block id passes 2048 (f16 holds integers exactly
+   only to 2048; the port keeps index inputs f32); every recorded count
+   is of f16 instances, one graph launch a steady step; every step's
+   logits finite (f16 overflows past 65504: an engine collecting every
+   step's logits on the same prompts and geometry, the pair's every
+   step, the spec phase's reference engine); the draft arm's accept rate
+   at least 0.5;
+40. serve_f16_agreement: 35 in f16 (logits at relative L2 2.5e-3, cache
+   rows within one f16 ulp), under PyTorch's default
+   ``allow_fp16_reduced_precision_reduction``; the CPU's greedy tokens
+   under forcing equal the card's on every arm (so the two devices'
+   greedy streams are equal).
 
-Then the kernels' JSON line (every kernel with its dtype; the bf16
-forms as rows of their own, the serving kernels' bf16 instances with
-the bf16 serve phases' launches, the attention kernels with their
-head_dim-256 times), and last ``{"ok": true, "device": ...}``.
+Then the kernels' JSON line (every kernel with its dtype; the bf16 and
+f16 forms as rows of their own, the serving kernels' bf16 and f16
+instances with their serve phases' launches, row 8's f16 forward with
+the f16 draft arm's, the attention kernels with their head_dim-256
+times), and last ``{"ok": true, "device": ...}``.
 Any failed check raises, so the script exits non-zero and prints no
 result; it also exits non-zero when no CUDA device is present.
 TF32 is off for every matrix product and convolution.
@@ -475,12 +509,14 @@ FLASH_BF16_EDGES = ((2, 4, 17, 128), (2, 4, 1000, 128), (2, 4, 1024, 80),
                     (2, 4, 1000, 36), (1, 16, 1024, 128), (4, 8, 1024, 256),
                     (4, 4, 1024, 512))
 # the bf16 flash kernels' entry functions in csrc/flash_attention.cu
-# (templates: the mangled name follows) and their numbers in
-# mx_flash_bf16_smem
-FLASH_BF16_ENTRIES = {"flash_attention_fwd": ("flash_fwd_bf16_kernel", 0),
-                      "flash_attention_bwd_dkv": ("flash_bwd_dkv_bf16_kernel",
+# (templates: the mangled name up to the kFull argument, Lb1 or Lb0,
+# which follows; the forward is the 16-bit template at bf16) and their
+# numbers in mx_flash_bf16_smem
+FLASH_BF16_ENTRIES = {"flash_attention_fwd":
+                      ("flash_fwd16_kernelI13__nv_bfloat16", 0),
+                      "flash_attention_bwd_dkv": ("flash_bwd_dkv_bf16_kernelI",
                                                   1),
-                      "flash_attention_bwd_dq": ("flash_bwd_dq_bf16_kernel",
+                      "flash_attention_bwd_dq": ("flash_bwd_dq_bf16_kernelI",
                                                  2)}
 # bench.py's transformer train mode in bf16 (its learning rate and
 # 1/(B*S) rescale) and its flagship, ResNet-50 NHWC bf16 at batch 256
@@ -518,6 +554,31 @@ SERVE_BF16_RESERVED = 280
 # relative L2 2e-2 (phase_bf16_agreement's bound), caches within one
 # bf16 ulp at each cache's scale (_ulps)
 BF16_AGREE = dict(num_layers=2, new=8, logits_l2=2e-2, cache_ulps=1)
+# float16 serving (ROADMAP A.1, float16): the full-width model with
+# dtype='float16' (f16 weights, LayerNorms and caches; f32 embeddings,
+# logits, block tables, positions and lengths)
+F16_SERVE = dict(FULL, dtype="float16")
+# an f16 kernel against its plain version: one f16 ulp of the value
+# (2^-10 relative) plus atol 1e-5, each side rounding an f32 result to
+# f16 once (rows 1, 2, 3, 5); row 8's forward rounds P to one f16 term
+# relative to its running max where the plain version rounds the
+# normalised P (2^-11 each), which moves a sum by a fraction of the
+# array's scale: also 2^-12 of the array's largest magnitude (bf16's
+# close_bf16, 2^-7 and 2^-9, scaled by f16's 3 more significand bits)
+F16_RTOL, F16_FLASH_ATOL_SHARE = 2.0 ** -10, 2.0 ** -12
+# row 8's f16 forward beside the draft model's (1, 16, 1024, 128): a
+# ragged S, D off the 16-byte copies, head_dim 256; (B, H, S, D)
+FLASH_F16_EDGES = ((2, 4, 17, 128), (2, 4, 1000, 36), (2, 8, 1024, 256))
+# serve_f16's cache: SERVE_F16_BLOCKS blocks, of which the first
+# SERVE_F16_RESERVED are taken off the free list before its traffic, so
+# every block id the requests get passes 2048 (f16 holds integers
+# exactly only to 2048; the port keeps block tables f32)
+SERVE_F16_BLOCKS, SERVE_F16_RESERVED = 2304, 2048
+# card against CPU in f16 (2 layers): logits under teacher forcing at
+# relative L2 2.5e-3 (tests/test_torch_serve_f16.py's bound: bf16's 2e-2
+# over f16's 3 more bits), caches within one f16 ulp at each cache's
+# scale (_ulps with 10 fraction bits)
+F16_AGREE = dict(num_layers=2, new=8, logits_l2=2.5e-3, cache_ulps=1)
 # the attention kernels at head_dims past 128, d_model kept at 2048
 HEAD_DIM = dict(dims=(256, 512), d_model=2048,
                 decode_ragged=((72, "float32"), (30, "float32"),
@@ -597,24 +658,26 @@ BAND4D_EDGES = dict(ragged_m=(64, 29, 29, 64, 256), k72_n64=(3, 13, 17, 72, 64),
 # order (bit-equal); the plain arm's cuBLAS bf16 product rounds its f32
 # sums once more per band (relative L2 bound)
 SANDWICH = dict(plain_l2=1e-2)
-# Module.fit fused against eager at full width, 10 steps each over two
-# fixed batches: ResNet-50 v2 at batch 128 through kvstore='device',
+# Module.fit fused against eager at full width, 6 steps each over two
+# fixed batches (3 steady steps after the two warm-up steps and the
+# capture, 2 profiled after them): ResNet-50 v2 at batch 128 through
+# kvstore='device',
 # dense and 2-bit at 0.5, SGD 0.1 / 0.9 / wd 1e-4, metric acc; the
 # transformer at 4 x 1024 tokens, SGD 0.05 / 0.9, metric perplexity.
 # Both arms run cuDNN's deterministic algorithms, so the fused and
 # eager steps compute the same sums and their weights are compared at
 # move_l2 (the difference over the eager arm's move, relative L2).
 FIT_FUSED = dict(resnet=dict(batch=128, lr=0.1, momentum=0.9, wd=1e-4,
-                             threshold=0.5, batches=2, epochs=5),
+                             threshold=0.5, batches=2, epochs=3),
                  transformer=dict(batch=4, lr=0.05, momentum=0.9, batches=2,
-                                  epochs=5),
+                                  epochs=3),
                  move_l2=1e-3, profiled_steps=2)
 
 
 # bf16 Module.fit (fit_bf16): the transformer with dtype='bfloat16' at
 # 4 x 1024 tokens, and ResNet-50 v2 in bf16 at batch 128 through
 # kvstore='device' with 2-bit compression at 0.5, both SGD momentum 0.9
-# with multi_precision (f32 masters), fused against eager, 10 steps each
+# with multi_precision (f32 masters), fused against eager, 6 steps each
 # over two fixed batches; fused weights within one bf16 ulp (rtol and
 # atol weights_tol) of eager's, metrics within weights_tol; the
 # transformer once more fused with MXNET_LOSS_SCALE=off, and each fused
@@ -622,9 +685,9 @@ FIT_FUSED = dict(resnet=dict(batch=128, lr=0.1, momentum=0.9, wd=1e-4,
 # device ms of the scaler's finiteness check and select); the overflow
 # case, a bf16 MLP through a 2-bit store with one batch holding an inf.
 FIT_BF16 = dict(transformer=dict(batch=4, lr=0.05, momentum=0.9, batches=2,
-                                 epochs=5),
+                                 epochs=3),
                 resnet=dict(batch=128, lr=0.1, momentum=0.9, wd=1e-4,
-                            threshold=0.5, batches=2, epochs=5),
+                            threshold=0.5, batches=2, epochs=3),
                 weights_tol=1e-2, replays=20,
                 overflow=dict(batch=64, features=256, hidden=512,
                               classes=16, threshold=0.05, lr=0.05))
@@ -639,7 +702,14 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
+_START = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's line also carries the seconds since the
+    script started (``elapsed_s``), so a run shows where its time went."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": round(time.perf_counter() - _START, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -814,14 +884,15 @@ def phase_decode(torch, mxk, dev, flush):
     thread block cluster, ``decode_plan``) against its plain version:
     f32 outputs at rtol 1e-4 / atol 1e-5, bf16 outputs (bf16 q: one
     rounding of an f32 result computed in another order) within
-    close_bf16, inactive slots exact zeros, two runs bit-identical; at
-    the served shape (8 slots, 16 heads of 128, block 16, 64 table
-    blocks) over long contexts (positions 20-731), serve's short ones
-    (20-145), an inactive slot and a position past the table, for all
-    four (q, cache) type pairs, and over one slot (8 ranges a cluster).
-    Timed alone (L2 flushed) and 200 calls back to back at the long and
-    the short contexts, beside SDPA over each slot's context gathered
-    contiguous.  First prints ptxas's lines of the kernel's instances
+    close_bf16, f16 outputs (f16 q over f16 caches, the f16 serve step)
+    within close_f16, inactive slots exact zeros, two runs
+    bit-identical; at the served shape (8 slots, 16 heads of 128, block
+    16, 64 table blocks) over long contexts (positions 20-731), serve's
+    short ones (20-145), an inactive slot and a position past the table,
+    for all five (q, cache) type pairs, and over one slot (8 ranges a
+    cluster).  Timed alone (L2 flushed) and 200 calls back to back at
+    the long and the short contexts, beside SDPA over each slot's
+    context gathered contiguous, in f32, bf16 and f16.  First prints ptxas's lines of the kernel's instances
     (no spills allowed)."""
     import ctypes
     from mxnet_tpu_torch.kernels import _build
@@ -831,8 +902,8 @@ def phase_decode(torch, mxk, dev, flush):
     ptx = _instances_ptxas("paged_attention",
                            r"paged_decode_kernelI\w+?E(?=Ev)",
                            "the decode kernel")
-    check(len(ptx) == 8, "paged_attention: %d decode instances, not 8 (4 "
-          "type pairs x 2 load forms)" % len(ptx))
+    check(len(ptx) == 10, "paged_attention: %d decode instances, not 10 "
+          "(5 type pairs x 2 load forms)" % len(ptx))
     C, H, D, nb, bs, M = 8, 16, 128, 512, 16, 64
     g = torch.Generator(device="cpu").manual_seed(SEED)
     q = torch.randn(C, H, D, generator=g).to(dev)
@@ -846,7 +917,7 @@ def phase_decode(torch, mxk, dev, flush):
     pos_mixed[7] = -1
     pos_mixed[2] = M * bs + 5000          # past the table: all M bs rows
     sc = 1.0 / D ** 0.5
-    bf = torch.bfloat16
+    bf, hf = torch.bfloat16, torch.float16
     plan = mxk.paged_attention.decode_plan(C, H, D, bs, M)
     errs = {}
 
@@ -858,8 +929,8 @@ def phase_decode(torch, mxk, dev, flush):
         act = pos >= 0
         check(torch.equal(out, again), "paged_decode_attend %s: two runs "
               "differ" % what)
-        ok = close(torch, out[act], ref[act]) if q.dtype == torch.float32 \
-            else close_bf16(torch, out[act], ref[act])
+        ok = {torch.float32: close, bf: close_bf16, hf: close_f16}[q.dtype](
+            torch, out[act], ref[act])
         check(ok, "paged_decode_attend %s disagrees with its plain version "
               "(max abs err %g)" % (what, max_err(out[act], ref[act])))
         check(bool((out[~act] == 0).all()),
@@ -868,7 +939,7 @@ def phase_decode(torch, mxk, dev, flush):
         errs[what] = max_err(out[act], ref[act])
 
     for qt, ct in ((torch.float32, torch.float32), (torch.float32, bf),
-                   (bf, torch.float32), (bf, bf)):
+                   (bf, torch.float32), (bf, bf), (hf, hf)):
         tag = "q %s, cache %s" % (str(qt)[6:], str(ct)[6:])
         qq, kk, vv = q.to(qt), kc.to(ct), vc.to(ct)
         for name, pos in (("long", pos_live), ("short", pos_short),
@@ -880,9 +951,13 @@ def phase_decode(torch, mxk, dev, flush):
           % one["ranges"])
     hold("one slot", q[:1], kc, vc, table[:1], pos_mixed[2:3].to(dev))
     hold("one slot, short", q[:1], kc, vc, table[:1], pos_short[:1].to(dev))
+    hold("one slot, float16", q[:1].to(hf), kc.to(hf), vc.to(hf), table[:1],
+         pos_mixed[2:3].to(dev))
     timed = {}
-    # f32 and, as the bf16 serve step runs it, bf16 q over bf16 caches
-    for dt in (torch.float32, bf):
+    # f32 and, as the 16-bit serve steps run it, bf16 q over bf16 caches
+    # and f16 over f16
+    prefix = {torch.float32: "", bf: "bf16_", hf: "f16_"}
+    for dt in (torch.float32, bf, hf):
         qq, kk, vv = q.to(dt), kc.to(dt), vc.to(dt)
         size = 4 if dt == torch.float32 else 2
         for name, pos_c in (("long", pos_live), ("short", pos_short)):
@@ -895,7 +970,7 @@ def phase_decode(torch, mxk, dev, flush):
             nbytes, rows = _decode_bytes(pos_c.tolist(), H, D, M, bs, size,
                                          size)
             b_ms, b_by = bound(nbytes, rows * H * D * 4)
-            key = name if dt == torch.float32 else "bf16_" + name
+            key = prefix[dt] + name
             timed[key] = {
                 "ms": time_ms(torch, fn, flush),
                 "back_to_back_ms": pipelined_ms(torch, fn),
@@ -907,7 +982,8 @@ def phase_decode(torch, mxk, dev, flush):
                 "positions": pos_c.tolist()}
             timed[key]["gbps"] = nbytes / timed[key]["ms"] / 1e6
     rows_out = []
-    for tag, dtype in (("", "float32"), ("bf16_", "bfloat16")):
+    for tag, dtype in (("", "float32"), ("bf16_", "bfloat16"),
+                       ("f16_", "float16")):
         long = timed[tag + "long"]
         rows_out.append({
             "name": "paged_decode_attend", "route": "cuda", "dtype": dtype,
@@ -917,7 +993,9 @@ def phase_decode(torch, mxk, dev, flush):
                                if w.startswith("q %s, cache %s"
                                                % (dtype, dtype))
                                or (dtype == "float32"
-                                   and w.startswith("one slot"))),
+                                   and w in ("one slot", "one slot, short"))
+                               or (dtype == "float16"
+                                   and w == "one slot, float16")),
             **{k: long[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                     "library_ms", "back_to_back_ms")},
             "short_contexts": {k: timed[tag + "short"][k] for k in (
@@ -932,11 +1010,14 @@ def phase_decode(torch, mxk, dev, flush):
             "f32_cache": lib.mx_paged_decode_smem(D, M * bs, bs,
                                                   plan["ranges"], 0),
             "bf16_cache": lib.mx_paged_decode_smem(D, M * bs, bs,
-                                                   plan["ranges"], 1)},
+                                                   plan["ranges"], 1),
+            "f16_cache": lib.mx_paged_decode_smem(D, M * bs, bs,
+                                                  plan["ranges"], 2)},
         "library_call": "F.scaled_dot_product_attention on (C, H, 1, D) "
                         "queries over the context gathered contiguous, "
                         "(C, H, max position + 1, D), keys past each "
-                        "position masked", "bf16": rows_out[1]})
+                        "position masked", "bf16": rows_out[1],
+        "f16": rows_out[2]})
     return rows_out
 
 
@@ -991,7 +1072,10 @@ def phase_chunk(torch, mxk, dev, flush):
     First prints ptxas's lines of the kernel's instances (warps, head_dim
     form, q/k/v and cache types; no spills allowed) and its combine.  The
     spans are also timed over short contexts, as serve_spec's prompts
-    give them."""
+    give them.  The 16-bit tile's instances, bf16/bf16 and f16/f16 (the
+    16-bit serve and spec steps), the same way at the same cases and at
+    the head_dims of PAGED_BF16_DIMS, bf16 outputs within
+    close_bf16_out, f16 within close_f16; each type's row returned."""
     import ctypes
     from mxnet_tpu_torch.kernels import _build
     lib = _build.load("paged_attention")
@@ -1011,21 +1095,30 @@ def phase_chunk(torch, mxk, dev, flush):
           "not 12 (warps x head_dim forms x 3 type pairs; bf16/bf16 runs "
           "the bf16 kernel)" % len(ptx))
     ptx_bf16 = _instances_ptxas(
-        "paged_attention", r"paged_chunk_bf16_kernelILi\d+ELb[01]E",
+        "paged_attention",
+        r"paged_chunk16_kernelI13__nv_bfloat16Li\d+ELb[01]E",
         "the bf16 attention kernel",
         lambda key: lib.mx_paged_chunk_prefill_smem(
-            int(key.split("ILi")[1].split("E")[0]), 128, served_range, bs,
+            int(key.split("Li")[1].split("E")[0]), 128, served_range, bs,
             1))
     check(len(ptx_bf16) == 4, "paged_attention: %d bf16 chunk instances, not "
           "4 (warps x head_dim forms)" % len(ptx_bf16))
+    ptx_f16 = _instances_ptxas(
+        "paged_attention", r"paged_chunk16_kernelI6__halfLi\d+ELb[01]E",
+        "the f16 attention kernel",
+        lambda key: lib.mx_paged_chunk_prefill_smem(
+            int(key.split("Li")[1].split("E")[0]), 128, served_range, bs,
+            1))
+    check(len(ptx_f16) == 4, "paged_attention: %d f16 chunk instances, not "
+          "4 (warps x head_dim forms)" % len(ptx_f16))
     import re
     combine = sorted({re.search(r"paged_chunk_combine_kernelI\w+?E(?=Ev)", line)
                       .group(0) for line in _build.log_path("paged_attention")
                       .read_text().splitlines()
                       if "Compiling entry function" in line
                       and "paged_chunk_combine_kernel" in line})
-    check(len(combine) == 4, "paged_attention: %d chunk combine instances, "
-          "not 4 (q and cache types)" % len(combine))
+    check(len(combine) == 5, "paged_attention: %d chunk combine instances, "
+          "not 5 (q and cache types)" % len(combine))
     ptx.update(_ptxas("paged_attention", {key: key for key in combine}))
     for key in combine:
         print("ptxas %s: %s" % (key, "; ".join(ptx[key]["lines"])), flush=True)
@@ -1067,8 +1160,8 @@ def phase_chunk(torch, mxk, dev, flush):
         real, touched = real.to(dev), touched.to(dev)
         check(torch.equal(o1, o2) and torch.equal(k1, k2)
               and torch.equal(v1, v2), what + ": two runs differ")
-        ok = close(torch, o1[real], ref[real]) if q.dtype == torch.float32 \
-            else close_bf16_out(torch, o1[real], ref[real])
+        ok = {torch.float32: close, torch.bfloat16: close_bf16_out,
+              torch.float16: close_f16}[q.dtype](torch, o1[real], ref[real])
         check(ok, what + " disagrees with its plain version (max abs err %g)"
               % max_err(o1[real], ref[real]))
         check(bool((o1[~real] == 0).all()), what + ": padded rows are not "
@@ -1102,35 +1195,43 @@ def phase_chunk(torch, mxk, dev, flush):
     bf = torch.bfloat16
     bf16_err = run_case("paged_chunk_prefill_attend (bf16 caches)", q, k, v,
                         kc0.to(bf), vc0.to(bf), table, [600], [37])
-    # the bf16 kernel (bf16 q/k/v over bf16 caches, the bf16 serve and
-    # spec steps): the same cases, then at the head_dims of
-    # PAGED_BF16_DIMS (d_model 2048 past 128, 4 heads below)
-    bf16_errs = {}
-    for st, L in ((576, 64), (600, 37), (320, 0)):
-        bf16_errs["start %d, len %d" % (st, L)] = run_case(
-            "paged_chunk_prefill_attend bf16 (start %d, len %d)" % (st, L),
-            q.to(bf), k.to(bf), v.to(bf), kc0.to(bf), vc0.to(bf), table,
-            [st], [L])
-    bf16_errs["spec spans"] = run_case(
-        "paged_chunk_prefill_attend bf16 (spec spans)", qs.to(bf), ks.to(bf),
-        vs.to(bf), kc0.to(bf), vc0.to(bf), stable, *spans)
-    for d_ in PAGED_BF16_DIMS:
-        h_ = 2048 // d_ if d_ > 128 else 4
-        qd, kd, vd = (torch.randn(2, 40, h_, d_, generator=g).to(dev).to(bf)
-                      for _ in range(3))
-        kcd, vcd = (torch.randn(96, bs, h_, d_, generator=g).to(dev).to(bf)
-                    for _ in range(2))
-        td = torch.randperm(96, generator=g)[:2 * 40].reshape(2, 40) \
-            .to(torch.int32).to(dev)
-        bf16_errs["head_dim %d" % d_] = run_case(
-            "paged_chunk_prefill_attend bf16 (head_dim %d)" % d_, qd, kd, vd,
-            kcd, vcd, td, [300, 7], [40, 23])
+    # the 16-bit kernel (bf16 q/k/v over bf16 caches, the bf16 serve and
+    # spec steps; f16 over f16, the f16 ones): the same cases, then at the
+    # head_dims of PAGED_BF16_DIMS (d_model 2048 past 128, 4 heads below)
+    errs16 = {}
+    for h16 in (bf, torch.float16):
+        name16 = str(h16)[6:]
+        e16 = errs16[name16] = {}
+        for st, L in ((576, 64), (600, 37), (320, 0)):
+            e16["start %d, len %d" % (st, L)] = run_case(
+                "paged_chunk_prefill_attend %s (start %d, len %d)"
+                % (name16, st, L), q.to(h16), k.to(h16), v.to(h16),
+                kc0.to(h16), vc0.to(h16), table, [st], [L])
+        e16["spec spans"] = run_case(
+            "paged_chunk_prefill_attend %s (spec spans)" % name16,
+            qs.to(h16), ks.to(h16), vs.to(h16), kc0.to(h16), vc0.to(h16),
+            stable, *spans)
+        for d_ in PAGED_BF16_DIMS:
+            h_ = 2048 // d_ if d_ > 128 else 4
+            qd, kd, vd = (torch.randn(2, 40, h_, d_, generator=g).to(dev)
+                          .to(h16) for _ in range(3))
+            kcd, vcd = (torch.randn(96, bs, h_, d_, generator=g).to(dev)
+                        .to(h16) for _ in range(2))
+            td = torch.randperm(96, generator=g)[:2 * 40].reshape(2, 40) \
+                .to(torch.int32).to(dev)
+            e16["head_dim %d" % d_] = run_case(
+                "paged_chunk_prefill_attend %s (head_dim %d)" % (name16, d_),
+                qd, kd, vd, kcd, vcd, td, [300, 7], [40, 23])
+    bf16_errs = errs16["bfloat16"]
     # times: the mixed step's chunk, the spec step's spans above, and
     # full spans over the short contexts of serve_spec's prompts; f32,
-    # then bf16 (its bound at the bf16 tensor-core peak)
+    # then bf16 and f16 (their bound at the dense 16-bit tensor-core peak,
+    # the same for both)
     timed = {}
+    prefix = {torch.float32: "", bf: "bf16_", torch.float16: "f16_"}
     for dt, peak in ((torch.float32, SPLIT_TF32_FLOPS_PER_S),
-                     (bf, BF16_FLOPS_PER_S)):
+                     (bf, BF16_FLOPS_PER_S),
+                     (torch.float16, BF16_FLOPS_PER_S)):
         for name, args, starts, lens in (
                 ("mixed", (q, k, v, table), [576], [64]),
                 ("spec_spans", (qs, ks, vs, stable), *spans),
@@ -1153,7 +1254,7 @@ def phase_chunk(torch, mxk, dev, flush):
             nbytes, flops = _chunk_bound(H, D, M, qq.shape[1], starts, lens,
                                          qq.element_size())
             b_ms, b_by = bound(nbytes, flops, peak)
-            key = name if dt == torch.float32 else "bf16_" + name
+            key = prefix[dt] + name
             timed[key] = {"ms": ms, "plain_ms": plain_ms,
                           "library_ms": lib_ms, "bound_ms": b_ms,
                           "bound_by": b_by, "bytes": nbytes, "flops": flops,
@@ -1185,34 +1286,37 @@ def phase_chunk(torch, mxk, dev, flush):
         "spec_spans_checked": {"q": [C, S5, H, D], "span_start": spans[0],
                                "span_len": spans[1]},
         "timed": timed, "bf16_cache_max_abs_err": bf16_err,
-        "bf16_errors": bf16_errs, "ptxas": ptx, "ptxas_bf16": ptx_bf16,
+        "bf16_errors": bf16_errs, "f16_errors": errs16["float16"],
+        "ptxas": ptx, "ptxas_bf16": ptx_bf16, "ptxas_f16": ptx_f16,
         "library_call": "F.scaled_dot_product_attention on the context "
                         "gathered contiguous, (B, H, start + len, D), with "
                         "the offset-causal boolean mask: the attention "
                         "alone, without the cache scatter"})
-    bmixed = timed["bf16_mixed"]
-    res_bf16 = {"name": "paged_chunk_prefill_attend", "route": "cuda",
-                "dtype": "bfloat16",
-                "source": "mxnet_tpu_torch/csrc/paged_attention.cu "
-                          "(on csrc/attention_bf16.cuh)",
-                "replaces": "mxnet_tpu/pallas/attention.py:360",
-                "max_abs_err": max(bf16_errs.values()),
-                **{k: bmixed[k] for k in ("ms", "plain_ms", "bound_ms",
-                                          "bound_by", "library_ms",
-                                          "back_to_back_ms")},
-                "f32_instance_ms": mixed["ms"],
-                **{case: {k: timed["bf16_" + case][k] for k in
-                          ("ms", "plain_ms", "library_ms", "bound_ms",
-                           "bound_by", "back_to_back_ms")}
-                   for case in ("spec_spans", "spec_spans_short")}}
-    return [res, res_bf16]
+    rows = [res]
+    for tag, dtype in (("bf16_", "bfloat16"), ("f16_", "float16")):
+        rows.append({"name": "paged_chunk_prefill_attend", "route": "cuda",
+                     "dtype": dtype,
+                     "source": "mxnet_tpu_torch/csrc/paged_attention.cu "
+                               "(on csrc/attention_bf16.cuh)",
+                     "replaces": "mxnet_tpu/pallas/attention.py:360",
+                     "max_abs_err": max(errs16[dtype].values()),
+                     **{k: timed[tag + "mixed"][k] for k in (
+                         "ms", "plain_ms", "bound_ms", "bound_by",
+                         "library_ms", "back_to_back_ms")},
+                     "f32_instance_ms": mixed["ms"],
+                     **{case: {k: timed[tag + case][k] for k in
+                               ("ms", "plain_ms", "library_ms", "bound_ms",
+                                "bound_by", "back_to_back_ms")}
+                        for case in ("spec_spans", "spec_spans_short")}})
+    return rows
 
 
 def _ln_fwd_hold(torch, mxk, x, gamma, beta, res, tag, errs):
     """LayerNorm forward on (x, gamma, beta), with and without ``res``:
     two runs bit-identical, against the plain version (out at rtol 1e-4 /
-    atol 1e-5 in f32, close_bf16 in bf16; the f32 statistics at rtol 1e-4
-    / atol 1e-5).  Records each max abs error in ``errs``."""
+    atol 1e-5 in f32, close_bf16 in bf16, close_f16 in f16; the f32
+    statistics at rtol 1e-4 / atol 1e-5).  Records each max abs error in
+    ``errs``."""
     for r in (None, res):
         what_r = tag + (", residual" if r is not None else "")
         got = mxk.layernorm_fused(x, gamma, beta, residual=r)
@@ -1222,8 +1326,8 @@ def _ln_fwd_hold(torch, mxk, x, gamma, beta, res, tag, errs):
         check(all(torch.equal(a, b) for a, b in zip(got, again)),
               "layernorm_fused %s: two runs differ" % what_r)
         for a, b, what in zip(got, ref, ("out", "mean", "rstd")):
-            ok = close_bf16(torch, a, b) if what == "out" and \
-                x.dtype == torch.bfloat16 else close(torch, a, b)
+            ok = {torch.bfloat16: close_bf16, torch.float16: close_f16}.get(
+                x.dtype if what == "out" else None, close)(torch, a, b)
             check(ok, "layernorm_fused %s (%s) disagrees with its plain "
                   "version (max abs err %g)" % (what, what_r, max_err(a, b)))
             errs["%s %s" % (what, what_r)] = max_err(a, b)
@@ -1310,19 +1414,34 @@ def phase_layernorm(torch, mxk, dev, flush):
             "bound_by": per_shape[1]["bound_by"], **mean}
 
 
+# seeded_params' arrays by (name, shape): each phase gets copies, so a
+# later phase's model (a 2-layer model shares its layers with the
+# 12-layer one) is not drawn again
+_SEEDED = {}
+
+
 def seeded_params(cfg):
     """Random weights from a numpy seed, one stream per parameter name
     (so a 2-layer model shares its layers with the 12-layer one):
-    N(0, 0.02), LayerNorm scales 1 + N(0, 0.02)."""
+    N(0, 0.02), LayerNorm scales 1 + N(0, 0.02).  The streams are drawn
+    on 8 threads (numpy's generators release the GIL) and kept, so the
+    same name and shape are drawn once a run; the caller gets copies."""
+    from concurrent.futures import ThreadPoolExecutor
     from mxnet_tpu_torch.weights import param_shapes
-    out = {}
-    for name, shape in param_shapes(cfg).items():
+    shapes = {n: tuple(s) for n, s in param_shapes(cfg).items()}
+
+    def draw(name):
         rng = np.random.default_rng([SEED, zlib.crc32(name.encode())])
-        a = rng.standard_normal(shape, dtype=np.float32) * np.float32(0.02)
+        a = rng.standard_normal(shapes[name], dtype=np.float32) \
+            * np.float32(0.02)
         if name.endswith("_gamma"):
             a += np.float32(1.0)
-        out[name] = a
-    return out
+        return a
+    todo = [n for n, s in shapes.items() if (n, s) not in _SEEDED]
+    with ThreadPoolExecutor(8) as pool:
+        for name, a in zip(todo, pool.map(draw, todo)):
+            _SEEDED[(name, shapes[name])] = a
+    return {n: _SEEDED[(n, s)].copy() for n, s in shapes.items()}
 
 
 # ----------------------------------------------------------------------
@@ -1552,20 +1671,23 @@ def hold_arms(torch, what, eng, got, ref, prompt):
     return res
 
 
-def _serve_requests(torch, eng, prompts, new):
+def _serve_requests(torch, eng, prompts, new, collect=False):
     """serve's requests on a started engine: ``prompts`` at once and the
-    first one again (it waits for a slot); outputs, wall s, TTFTs and
-    ``stats()``."""
+    first one again (it waits for a slot); outputs, wall s, TTFTs,
+    ``stats()`` and, with ``collect``, every step's logits rows of every
+    request (else None)."""
     t0 = time.perf_counter()
-    handles = [eng.submit(p, max_new_tokens=new)
+    handles = [eng.submit(p, max_new_tokens=new, collect_logits=collect)
                for p in prompts + prompts[:1]]
     outs = [h.result(timeout=900) for h in handles]
     wall = time.perf_counter() - t0
     torch.cuda.synchronize()
-    return outs, wall, sorted(h.ttft_ms for h in handles), eng.stats()
+    return outs, wall, sorted(h.ttft_ms for h in handles), eng.stats(), \
+        [row for h in handles for row in h.logits] if collect else None
 
 
-def serve_arms(torch, mx, np_params, cfg, what, held=0, binding=None):
+def serve_arms(torch, mx, np_params, cfg, what, held=0, binding=None,
+               geometry=GEOMETRY, collect=False):
     """serve's requests at full width through two engines on the same
     prompts: the eager arm (``MXNET_DECODE_DONATE=0``) first, then the
     main path, the captured engine, with the kernel counts set to 0
@@ -1573,10 +1695,14 @@ def serve_arms(torch, mx, np_params, cfg, what, held=0, binding=None):
     Each arm: wall, tokens/s, step p50, TTFT, peak GB, a profiled steady
     window and the first-step logits of three prompts; the captured arm
     also its step graph's replay ms and recorded launches.  ``held``
-    blocks are taken off each engine's free list first; ``binding(exe,
-    what)`` checks each step executor.  The captured arm's checks: the
+    blocks are taken off each engine's free list first (of
+    ``geometry["num_blocks"]``); ``binding(exe, what)`` checks each step
+    executor.  The captured arm's checks: the
     witnesses, ``check_captured``, ``check_graph_window``, streams equal
-    to the eager arm's, first-step logits held by ``hold_arms``.
+    to the eager arm's, first-step logits held by ``hold_arms``.  With
+    ``collect`` the eager arm's requests collect every step's logits
+    rows (``step_logits``; that arm's wall then includes their
+    readback).
     Returns the two arms' results, the prompt lengths and the new tokens
     a request."""
     from mxnet_tpu_torch.decode import DecodeEngine
@@ -1596,7 +1722,7 @@ def serve_arms(torch, mx, np_params, cfg, what, held=0, binding=None):
         with (serving_eager() if arm == "eager"
               else contextlib.nullcontext()):
             eng = DecodeEngine(params, cfg, ctx=mx.gpu(0), warmup=True,
-                               **GEOMETRY)
+                               **geometry)
         del params
         torch.cuda.synchronize()
         res = {"setup_s": time.perf_counter() - t0}
@@ -1608,7 +1734,9 @@ def serve_arms(torch, mx, np_params, cfg, what, held=0, binding=None):
               % what)
         try:
             torch.cuda.reset_peak_memory_stats()
-            outs, wall, ttft, st = _serve_requests(torch, eng, prompts, new)
+            outs, wall, ttft, st, rows = _serve_requests(
+                torch, eng, prompts, new, collect and arm == "eager")
+            res["step_logits"] = rows
             res.update(peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
             if arm == "graph":
                 res["launches"] = dict(LAUNCHES)
@@ -2004,7 +2132,10 @@ def phase_prefill(torch, mxk, dev, flush):
     odd one (S = 1000, a table wider than S needs), with f32 and bf16
     caches, and with bf16 q/k/v (rtol 2**-7, at least one bf16 ulp of
     the plain value, / atol 1e-5: each rounds an f32 result to bf16
-    once); two runs bit-identical;
+    once), and f16 q/k/v over f16 caches (rtol 2**-10, close_f16) at the
+    served shape, whose row of length 1024 attends a full 1024-token
+    context, and at the head_dims of PAGED_BF16_DIMS; two runs
+    bit-identical;
     timed beside
     ``scaled_dot_product_attention(is_causal=True)`` on the same q/k/v
     as (B, H, S, D) views (the attention alone, without the scatter),
@@ -2026,15 +2157,21 @@ def phase_prefill(torch, mxk, dev, flush):
           "not 6 (head_dim forms x 3 type pairs; bf16/bf16 runs the bf16 "
           "kernel)" % len(ptx))
     ptx_bf16 = _instances_ptxas("paged_attention",
-                                r"paged_prefill_bf16_kernelILb[01]E",
+                                r"paged_prefill16_kernelI13__nv_bfloat16Lb[01]E",
                                 "the bf16 attention kernel",
                                 lambda key: lib.mx_paged_prefill_smem(128, 1))
     check(len(ptx_bf16) == 2, "paged_attention: %d bf16 prefill instances, "
           "not 2 (head_dim forms)" % len(ptx_bf16))
+    ptx_f16 = _instances_ptxas("paged_attention",
+                               r"paged_prefill16_kernelI6__halfLb[01]E",
+                               "the f16 attention kernel",
+                               lambda key: lib.mx_paged_prefill_smem(128, 1))
+    check(len(ptx_f16) == 2, "paged_attention: %d f16 prefill instances, "
+          "not 2 (head_dim forms)" % len(ptx_f16))
     B, S, H, D, nb, bs, M = 8, 1024, 16, 128, 512, 16, 64
     g = torch.Generator(device="cpu").manual_seed(SEED + 9)
     served = [20, 960, 0, 1024, 513, 77, 300, 641]
-    f32, bf16 = torch.float32, torch.bfloat16
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
     # (shape, lengths, q/k/v dtype, cache dtype)
     cases = [((B, S, H, D, nb, bs, M), served, f32, f32),
              ((3, 1000, H, D, nb, bs, 70), [1000, 0, 457], f32, f32),
@@ -2042,7 +2179,11 @@ def phase_prefill(torch, mxk, dev, flush):
              ((2, 300, H, D, nb, bs, 20), [300, 129], bf16, bf16),
              ((B, S, H, D, nb, bs, M), served, bf16, bf16)] + \
         [((2, 300, 2048 // d_ if d_ > 128 else 4, d_, 64, bs, 20),
-          [300, 129], bf16, bf16) for d_ in PAGED_BF16_DIMS]
+          [300, 129], bf16, bf16) for d_ in PAGED_BF16_DIMS] + \
+        [((B, S, H, D, nb, bs, M), served, f16, f16),
+         ((2, 300, H, D, nb, bs, 20), [300, 129], f16, f16)] + \
+        [((2, 300, 2048 // d_ if d_ > 128 else 4, d_, 64, bs, 20),
+          [300, 129], f16, f16) for d_ in PAGED_BF16_DIMS]
     errs = []
     for (b_, s_, h_, d_, nb_, bs_, m_), lens, qdt, cdt in cases:
         q, k, v, kc0, vc0, table, L = (
@@ -2050,7 +2191,7 @@ def phase_prefill(torch, mxk, dev, flush):
                                                bs_, m_, lens))
         q, k, v = q.to(qdt), k.to(qdt), v.to(qdt)
         kc0, vc0 = kc0.to(cdt), vc0.to(cdt)
-        rtol = RTOL if qdt == f32 else 2.0 ** -7
+        rtol = {f32: RTOL, bf16: 2.0 ** -7, f16: F16_RTOL}[qdt]
         sc = 1.0 / d_ ** 0.5
         runs = []
         for fn in (mxk.paged_prefill_attend, mxk.paged_prefill_attend,
@@ -2088,9 +2229,10 @@ def phase_prefill(torch, mxk, dev, flush):
     rows = sum(served)
     flops = 4.0 * B * H * D * S * (S + 1) / 2
     timed = {}
-    # f32, then the bf16 kernel on the same values in bf16 (q/k/v and
-    # caches), its bound at the bf16 tensor-core peak
-    for dt, peak in ((f32, SPLIT_TF32_FLOPS_PER_S), (bf16, BF16_FLOPS_PER_S)):
+    # f32, then the 16-bit kernel on the same values in bf16 and in f16
+    # (q/k/v and caches), its bound at the dense 16-bit tensor-core peak
+    for dt, peak in ((f32, SPLIT_TF32_FLOPS_PER_S), (bf16, BF16_FLOPS_PER_S),
+                     (f16, BF16_FLOPS_PER_S)):
         q, k, v, kc, vc = (t.to(dev).to(dt) for t in inputs[:5])
         table, L = (t.to(dev) for t in inputs[5:])
         size = q.element_size()
@@ -2116,30 +2258,34 @@ def phase_prefill(torch, mxk, dev, flush):
            **timed[str(f32)],
            "bound_peak": "split TF32, %g TFLOP/s"
                          % (SPLIT_TF32_FLOPS_PER_S / 1e12)}
-    bt = timed[str(bf16)]
-    res_bf16 = {"name": "paged_prefill_attend", "route": "cuda",
-                "dtype": "bfloat16",
-                "source": "mxnet_tpu_torch/csrc/paged_attention.cu "
-                          "(on csrc/attention_bf16.cuh)",
-                "replaces": "mxnet_tpu/pallas/attention.py:209",
-                "max_abs_err": max(e for t, c, _, e in errs
-                                   if t == c == str(bf16)),
-                **{k: bt[k] for k in ("ms", "plain_ms", "bound_ms",
-                                      "bound_by", "library_ms", "tflops")},
-                "f32_instance_ms": res["ms"],
-                "errors_by_head_dim": {d_: e for t, c, d_, e in errs
-                                       if t == c == str(bf16)}}
+    rows16 = []
+    for h16 in (bf16, f16):
+        bt = timed[str(h16)]
+        rows16.append({
+            "name": "paged_prefill_attend", "route": "cuda",
+            "dtype": str(h16)[6:],
+            "source": "mxnet_tpu_torch/csrc/paged_attention.cu "
+                      "(on csrc/attention_bf16.cuh)",
+            "replaces": "mxnet_tpu/pallas/attention.py:209",
+            "max_abs_err": max(e for t, c, _, e in errs
+                               if t == c == str(h16)),
+            **{k: bt[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms", "tflops")},
+            "f32_instance_ms": res["ms"],
+            "errors_by_head_dim": {d_: e for t, c, d_, e in errs
+                                   if t == c == str(h16)}})
+    res_bf16, res_f16 = rows16
     emit({"phase": "kernel", **res, "shapes": {
         "q": [B, S, H, D], "cache": [nb, bs, H, D], "table": [B, M],
         "lengths": served}, "checked": [[c[0][0], c[0][1], c[0][6],
                                           str(c[2]), str(c[3])]
                                          for c in cases],
-        "timed": timed, "bf16": res_bf16, "ptxas": ptx,
-        "ptxas_bf16": ptx_bf16,
+        "timed": timed, "bf16": res_bf16, "f16": res_f16, "ptxas": ptx,
+        "ptxas_bf16": ptx_bf16, "ptxas_f16": ptx_f16,
         "library_call": "F.scaled_dot_product_attention(is_causal=True) on "
                         "(B, H, S, D) views: the attention alone, without "
                         "the cache scatter"})
-    return [res, res_bf16]
+    return [res, res_bf16, res_f16]
 
 
 def _serve_prompts(cfg, seed, lengths):
@@ -2438,7 +2584,7 @@ def _repeating_prompts(cfg, seed, n, motif_lens, repeats):
     return out
 
 
-def spec_arms(torch, mx, np_params, cfg, what, accept_min, bf16=False):
+def spec_arms(torch, mx, np_params, cfg, what, accept_min, dtype=None):
     """``DecodeEngine(spec_k=4)`` at full width, per drafter (n-gram: 8
     requests with repeating tails, 32 new tokens each; draft model: the
     target's own weights on 4 of them, 16 new tokens each) in two arms on
@@ -2452,8 +2598,9 @@ def spec_arms(torch, mx, np_params, cfg, what, accept_min, bf16=False):
     token, no plain version; a profiled steady window (one graph launch a
     step and one a proposal, no kernel launch call, one readback each);
     streams equal the eager arm's, first-step logits bit-equal (else
-    held at 1e-4, the first differing op named).  With ``bf16`` every
-    count above is of bf16 instances.  Returns per drafter the captured
+    held at 1e-4, the first differing op named).  With ``dtype`` (a
+    16-bit type's name) every count above is of that type's instances
+    and the executors bind it (``_check_16bit_binding``).  Returns per drafter the captured
     arm's results, with the eager arm's under ``"eager_arm"``."""
     from mxnet_tpu_torch.decode import DecodeEngine
     from mxnet_tpu_torch.kernels import (LAUNCHES, PLAIN_CALLS,
@@ -2461,7 +2608,7 @@ def spec_arms(torch, mx, np_params, cfg, what, accept_min, bf16=False):
     from mxnet_tpu_torch.weights import convert_params
     L, spec_k = cfg["num_layers"], 4
     prompts = _repeating_prompts(cfg, SEED + 11, 8, (5, 8, 12, 3), 6)
-    sfx = ":bfloat16" if bf16 else ""
+    sfx = ":" + dtype if dtype else ""
     out = {}
     for drafter, n_req, n_new, kw in (
             ("ngram", 8, 32, dict(spec_impl="ngram")),
@@ -2480,8 +2627,8 @@ def spec_arms(torch, mx, np_params, cfg, what, accept_min, bf16=False):
                                    warmup=True, **kw, **GEOMETRY)
             res = {}
             try:
-                if bf16:
-                    _check_bf16_binding(eng._exe, tag)
+                if dtype:
+                    _check_16bit_binding(eng._exe, tag, dtype)
                 drafts = list(getattr(eng._drafter, "_exes", {}).items())
                 exes = [eng._exe] + [e for _, e in drafts]
                 d0 = [e.dispatches for e in exes]
@@ -2497,7 +2644,7 @@ def spec_arms(torch, mx, np_params, cfg, what, accept_min, bf16=False):
                 if arm == "graph":
                     check_captured(tag, exes, LAUNCHES, PLAIN_CALLS)
                     check_witnesses(tag, st)
-                    rec = eng._exe.captured_launches(True) if bf16 \
+                    rec = eng._exe.captured_launches(True) if dtype \
                         else eng._exe.captured_launches()
                     want = {"paged_chunk_prefill_attend" + sfx: 2 * L,
                             "layernorm_fused" + sfx: 4 * L + 2}
@@ -2506,7 +2653,7 @@ def spec_arms(torch, mx, np_params, cfg, what, accept_min, bf16=False):
                     res["recorded_per_step"] = eng._exe.captured_launches()
                     res["launches"] = dict(LAUNCHES)
                     for k, e in drafts:
-                        r = e.captured_launches(True) if bf16 \
+                        r = e.captured_launches(True) if dtype \
                             else e.captured_launches()
                         check(r.get("flash_attention_fwd" + sfx) == L * k,
                               "%s: the %d-token span graph records %s"
@@ -2664,173 +2811,259 @@ SERVE_KERNELS = ("paged_decode_attend", "paged_chunk_prefill_attend",
                  "flash_attention_fwd")
 
 
-def _by_dtype(by_dtype):
-    """The serving kernels' launches counted under bfloat16."""
-    return {n: by_dtype.get(n + ":bfloat16", 0) for n in SERVE_KERNELS}
+def _by_dtype(by_dtype, dtype="bfloat16"):
+    """The serving kernels' launches counted under ``dtype``."""
+    return {n: by_dtype.get(n + ":" + dtype, 0) for n in SERVE_KERNELS}
 
 
-def _check_bf16_binding(exe, what):
-    """A bf16 serving executor: weights, LayerNorms and caches bf16, the
-    embeddings f32, the index inputs f32 (bf16 would round them)."""
+def _check_16bit_binding(exe, what, dtype):
+    """A 16-bit serving executor: weights, LayerNorms and caches in
+    ``dtype`` (a name), the embeddings f32, the index inputs f32 (bf16
+    would round them past 256, f16 past 2048)."""
     import torch
+    half = getattr(torch, dtype)
     types = {n: nd._data.dtype for n, nd in exe.arg_dict.items()}
     bad = [n for n, t in types.items()
-           if t != (torch.bfloat16 if n.startswith(("layer", "ln_f",
-                                                    "lm_head"))
+           if t != (half if n.startswith(("layer", "ln_f", "lm_head"))
                     else torch.float32)]
     check(not bad, "%s: unexpected bound types %s"
           % (what, {n: str(types[n]) for n in bad}))
 
 
-def phase_serve_bf16(torch, mx, np_params, cfg=BF16_SERVE, ctx=None):
-    """serve_bf16 (32): ``serve_arms`` for the full-width LM in bf16 on
-    the mixed step, with SERVE_BF16_RESERVED blocks held off the free
-    list first, so every block id the requests get passes 256 (their
-    chunk starts and positions pass it too).  Every request finishes
-    with its count, the resubmitted one repeats its stream, the step
-    graph records the decode and chunk kernels 12 times and LayerNorm
-    50, all on their bf16 instances, and no plain version runs.  Returns
-    the counted run's wrapper launches, the steps and the launches the
-    step graph records."""
-    g, e, lengths, new = serve_arms(torch, mx, np_params, cfg, "serve_bf16",
-                                    held=SERVE_BF16_RESERVED,
-                                    binding=_check_bf16_binding)
+# the 16-bit serve phases' settings by type: the config, the blocks held
+# off the free list (so block ids pass the largest integer the type holds
+# exactly), the cache's geometry, the short name in phase names and the
+# logits bound
+SERVE16 = {
+    "bfloat16": dict(cfg=BF16_SERVE, held=SERVE_BF16_RESERVED,
+                     geometry=GEOMETRY, short="bf16",
+                     logits_l2=BF16_AGREE["logits_l2"]),
+    "float16": dict(cfg=F16_SERVE, held=SERVE_F16_RESERVED,
+                    geometry=dict(GEOMETRY, num_blocks=SERVE_F16_BLOCKS),
+                    short="f16", logits_l2=F16_AGREE["logits_l2"])}
+
+
+def _binding16(dtype):
+    """``serve_arms``' and ``prefill_arms``' binding check for ``dtype``."""
+    return lambda exe, what: _check_16bit_binding(exe, what, dtype)
+
+
+def _all_finite(rows):
+    """Every logits row finite (f16 overflows past 65504 to inf, which
+    the cast to f32 keeps)."""
+    return all(bool(np.isfinite(r).all()) for r in rows)
+
+
+def _serve16(torch, mx, np_params, dtype):
+    """serve_bf16 (32) and serve_f16 (38): ``serve_arms`` for the
+    full-width LM in ``dtype`` on the mixed step, with SERVE16's blocks
+    held off the free list first, so every block id the requests get
+    passes the largest integer the type holds exactly (their chunk starts
+    and positions pass it too).  Every request finishes with its count,
+    the resubmitted one repeats its stream, the step graph records the
+    decode and chunk kernels 12 times and LayerNorm 50, all on their
+    ``dtype`` instances, and no plain version runs.  In f16 the eager
+    arm collects every step's logits (its streams equal the captured
+    arm's): every row finite.  Returns the counted run's wrapper
+    launches, the steps and the launches the step graph records."""
+    st16 = SERVE16[dtype]
+    cfg, short, geo = st16["cfg"], st16["short"], st16["geometry"]
+    what = "serve_" + short
+    g, e, lengths, new = serve_arms(torch, mx, np_params, cfg, what,
+                                    held=st16["held"],
+                                    binding=_binding16(dtype), geometry=geo,
+                                    collect=dtype == "float16")
     L, outs, steps = cfg["num_layers"], g["outs"], g["steps"]
     check(all(len(o) == new for o in outs),
-          "serve_bf16: a request finished with %s tokens, not %d"
-          % ([len(o) for o in outs], new))
-    check(outs[-1] == outs[0], "serve_bf16: the resubmitted request gave "
-          "another stream")
-    want = {"paged_decode_attend:bfloat16": L,
-            "paged_chunk_prefill_attend:bfloat16": L,
-            "layernorm_fused:bfloat16": 4 * L + 2}
+          "%s: a request finished with %s tokens, not %d"
+          % (what, [len(o) for o in outs], new))
+    check(outs[-1] == outs[0], "%s: the resubmitted request gave another "
+          "stream" % what)
+    want = {"paged_decode_attend:" + dtype: L,
+            "paged_chunk_prefill_attend:" + dtype: L,
+            "layernorm_fused:" + dtype: 4 * L + 2}
     check(g["recorded_by_dtype"] == want,
-          "serve_bf16: the step graph records %s (want %s a step)"
-          % (g["recorded_by_dtype"], want))
-    emit({"phase": "serve_bf16", "config": cfg, "geometry": GEOMETRY,
+          "%s: the step graph records %s (want %s a step)"
+          % (what, g["recorded_by_dtype"], want))
+    line = {}
+    if dtype == "float16":
+        rows = e["step_logits"]
+        check(_all_finite(rows), "%s: a step's logits are not finite" % what)
+        line = {"logits_rows_checked": len(rows), "all_logits_finite": True,
+                "largest_logit": max(float(np.abs(row).max())
+                                     for row in rows)}
+    emit({"phase": what, "config": cfg, "geometry": geo,
           "requests": len(outs), "prompt_lengths": lengths + lengths[:1],
-          "new_tokens_each": new, "block_ids_from": SERVE_BF16_RESERVED,
-          "largest_chunk_start": max((n - 1) // GEOMETRY["chunk_tokens"]
-                                     * GEOMETRY["chunk_tokens"]
+          "new_tokens_each": new, "block_ids_from": st16["held"],
+          "largest_chunk_start": max((n - 1) // geo["chunk_tokens"]
+                                     * geo["chunk_tokens"]
                                      for n in lengths),
           **arm_summary(g), "prefill_chunks": g["prefill_chunks"],
           "launches": {k: v for k, v in g["launches"].items() if v},
           "recorded_per_step": g["recorded"],
-          "bf16_recorded_per_step": g["recorded_by_dtype"],
+          short + "_recorded_per_step": g["recorded_by_dtype"],
           "graph_launches": {k: v * steps for k, v in g["recorded"].items()},
           "plain_calls": {k: v for k, v in g["plain_calls"].items() if v},
           "witnesses": {k: g["stats"][k] for k in WITNESS_KEYS},
           "eager_arm": arm_summary(e), "streams_equal_eager_arm": True,
-          "matmul_bf16_reduced_precision_reduction":
-              torch.backends.cuda.matmul
-              .allow_bf16_reduced_precision_reduction})
+          **line,
+          "matmul_reduced_precision_reduction": getattr(
+              torch.backends.cuda.matmul,
+              "allow_%s_reduced_precision_reduction"
+              % ("bf16" if dtype == "bfloat16" else "fp16"))})
     return g["launches"], steps, g["recorded"]
 
 
-def phase_serve_prefill_bf16(torch, mx, np_params, cfg=BF16_SERVE,
-                             ctx=None):
-    """serve_prefill_bf16 (33): ``prefill_arms`` at full width in bf16
-    (one copy of the bf16 weights and caches a pair): each prefill
-    forward launches, and the donated prefill graph records, the prefill
-    kernel 12 times and LayerNorm 25, each decode step the decode kernel
-    12 and LayerNorm 25, all bf16, no plain version; the first token's
-    logits within relative L2 2e-2 of the bf16 mixed-step engine's on
-    the same prompts (streams compared and printed).  Returns the
-    donated prefill window's wrapper launches and what its graph
-    records."""
+def phase_serve_bf16(torch, mx, np_params):
+    return _serve16(torch, mx, np_params, "bfloat16")
+
+
+def phase_serve_f16(torch, mx, np_params):
+    return _serve16(torch, mx, np_params, "float16")
+
+
+def _serve_prefill16(torch, mx, np_params, dtype, ctx=None):
+    """serve_prefill_bf16 (33) and serve_prefill_f16 (39):
+    ``prefill_arms`` at full width in ``dtype`` (one copy of the 16-bit
+    weights and caches a pair): each prefill forward launches, and the
+    donated prefill graph records, the prefill kernel 12 times and
+    LayerNorm 25, each decode step the decode kernel 12 and LayerNorm 25,
+    all in ``dtype``, no plain version; the first token's logits within
+    SERVE16's relative L2 of the mixed-step engine's in the same type on
+    the same prompts (streams compared and printed); in f16 every logits
+    row of both the pair and the engine finite.  Returns the donated
+    prefill window's wrapper launches and what its graph records."""
     from mxnet_tpu_torch.weights import convert_params
+    st16 = SERVE16[dtype]
+    cfg, short = st16["cfg"], st16["short"]
+    what = "serve_prefill_" + short
     ctx = ctx or mx.gpu(0)
     L, new = cfg["num_layers"], 32
     prompts = _serve_prompts(cfg, SEED, SERVE_LENGTHS)
     ref = _reference_streams(mx, convert_params(np_params, ctx, cfg), cfg,
                              ctx, prompts, new)
     arms, lengths, prompts, new = prefill_arms(
-        torch, mx, np_params, cfg, ctx, "serve_prefill_bf16",
-        binding=_check_bf16_binding)
+        torch, mx, np_params, cfg, ctx, what, binding=_binding16(dtype))
     steps = new - 1
     e, g = arms["eager"], arms["graph"]
     (pl, pp, pb), (dl, dp, db) = e["counts"]["prefill"], e["counts"]["decode"]
-    pb, db = _by_dtype(pb), _by_dtype(db)
+    pb, db = _by_dtype(pb, dtype), _by_dtype(db, dtype)
     check(pb["paged_prefill_attend"] == pl["paged_prefill_attend"] == L
           and pb["layernorm_fused"] == pl["layernorm_fused"] == 2 * L + 1
           and pl["paged_decode_attend"] == 0,
-          "serve_prefill_bf16: the prefill forward launched %s, bf16 %s"
-          % (pl, pb))
+          "%s: the prefill forward launched %s, %s %s" % (what, pl, short, pb))
     check(db["paged_decode_attend"] == dl["paged_decode_attend"] == L * steps
           and db["layernorm_fused"] == dl["layernorm_fused"]
           == (2 * L + 1) * steps and dl["paged_prefill_attend"] == 0,
-          "serve_prefill_bf16: %d decode steps launched %s, bf16 %s"
-          % (steps, dl, db))
+          "%s: %d decode steps launched %s, %s %s"
+          % (what, steps, dl, short, db))
     check(not any(pp.values()) and not any(dp.values()),
-          "serve_prefill_bf16: plain versions ran on the main path: %s %s"
-          % (pp, dp))
-    want_p = {"paged_prefill_attend:bfloat16": L,
-              "layernorm_fused:bfloat16": 2 * L + 1}
-    want_d = {"paged_decode_attend:bfloat16": L,
-              "layernorm_fused:bfloat16": 2 * L + 1}
+          "%s: plain versions ran on the main path: %s %s" % (what, pp, dp))
+    want_p = {"paged_prefill_attend:" + dtype: L,
+              "layernorm_fused:" + dtype: 2 * L + 1}
+    want_d = {"paged_decode_attend:" + dtype: L,
+              "layernorm_fused:" + dtype: 2 * L + 1}
     check(g["recorded_prefill_by_dtype"] == want_p
           and g["recorded_decode_by_dtype"] == want_d,
-          "serve_prefill_bf16: the graphs record %s and %s (want %s, %s)"
-          % (g["recorded_prefill_by_dtype"], g["recorded_decode_by_dtype"],
-             want_p, want_d))
+          "%s: the graphs record %s and %s (want %s, %s)"
+          % (what, g["recorded_prefill_by_dtype"],
+             g["recorded_decode_by_dtype"], want_p, want_d))
     first = [_rel_l2(a[1][0], r[1][0]) for a, r in zip(g["got"], ref)]
-    check(max(first) <= BF16_AGREE["logits_l2"],
-          "serve_prefill_bf16: first-token logits off the bf16 engine's by "
-          "relative L2 %s" % first)
-    emit({"phase": "serve_prefill_bf16", "config": cfg,
+    check(max(first) <= st16["logits_l2"],
+          "%s: first-token logits off the %s engine's by relative L2 %s"
+          % (what, short, first))
+    line = {}
+    if dtype == "float16":
+        check(all(_all_finite(a[1]) for a in g["got"] + e["got"])
+              and all(_all_finite(r[1]) for r in ref),
+              "%s: a step's logits are not finite" % what)
+        line = {"all_logits_finite": True,
+                "logits_rows_checked": sum(len(a[1]) for a in
+                                           g["got"] + e["got"] + ref)}
+    emit({"phase": what, "config": cfg,
           "prompt_lengths": lengths, "prefill_len": cfg["seq_len"],
           "new_tokens_each": new, **_pair_summary(g), "decode_steps": steps,
           "decode_step_ms": g["decode_step_ms"],
           "prefill_launches": {k: v for k, v in
                                g["counts"]["prefill"][0].items() if v},
-          "prefill_bf16_recorded": g["recorded_prefill_by_dtype"],
+          "prefill_%s_recorded" % short: g["recorded_prefill_by_dtype"],
           "decode_launches_per_step": g["recorded_decode"],
           "eager_arm": {**_pair_summary(e),
                         "prefill_launches": {k: v for k, v in pl.items()
                                              if v},
-                        "prefill_bf16_launches": pb,
+                        "prefill_%s_launches" % short: pb,
                         "decode_launches_per_step": {
                             k: v / steps for k, v in dl.items() if v}},
-          "first_token_logits_rel_l2_vs_engine": first,
+          "first_token_logits_rel_l2_vs_engine": first, **line,
           "streams_equal_engine": [a[0] == r[0] for a, r in
                                    zip(g["got"], ref)]})
     return g["counts"]["prefill"][0], g["recorded_prefill"]
 
 
-def phase_serve_spec_bf16(torch, mx, np_params, cfg=BF16_SERVE, ctx=None):
-    """serve_spec_bf16 (34): ``spec_arms`` at full width in bf16 (every
-    recorded count of bf16 instances); the draft arm's accept rate at
-    least 0.5 (the draft model's flash forward rounds P to one bf16 term,
-    the target's chunk kernel keeps two, so near-tie tokens may part);
-    streams against the bf16 mixed-step engine printed.  Returns the
-    n-gram arm's counted launches, steps and its step graph's recorded
-    launches."""
+def phase_serve_prefill_bf16(torch, mx, np_params, ctx=None):
+    return _serve_prefill16(torch, mx, np_params, "bfloat16", ctx)
+
+
+def phase_serve_prefill_f16(torch, mx, np_params, ctx=None):
+    return _serve_prefill16(torch, mx, np_params, "float16", ctx)
+
+
+def _serve_spec16(torch, mx, np_params, dtype, ctx=None):
+    """serve_spec_bf16 (34) and serve_spec_f16 (40): ``spec_arms`` at
+    full width in ``dtype`` (every recorded count of its instances); the
+    draft arm's accept rate at least 0.5 (the draft model's flash forward
+    rounds P to one 16-bit term, the target's chunk kernel keeps two, so
+    near-tie tokens may part); streams against the mixed-step engine in
+    the same type printed; in f16 every logits row of that engine and the
+    arms' first-step logits finite.  Returns the n-gram arm's counted
+    launches, steps and its step graph's recorded launches, and the draft
+    arm's results."""
     from mxnet_tpu_torch.weights import convert_params
+    st16 = SERVE16[dtype]
+    cfg, short = st16["cfg"], st16["short"]
+    what = "serve_spec_" + short
     ctx = ctx or mx.gpu(0)
-    arms, prompts = spec_arms(torch, mx, np_params, cfg, "serve_spec_bf16",
-                              0.5, bf16=True)
+    arms, prompts = spec_arms(torch, mx, np_params, cfg, what, 0.5,
+                              dtype=dtype)
     ref = _reference_streams(mx, convert_params(np_params, ctx, cfg), cfg,
                              ctx, prompts, 32)
-    emit({"phase": "serve_spec_bf16", "config": cfg, "spec_k": 4,
-          "prompt_lengths": [len(p) for p in prompts],
+    line = {}
+    if dtype == "float16":
+        check(all(_all_finite(r[1]) for r in ref)
+              and all(_all_finite([lg for _, lg in r["logits"]])
+                      for res in arms.values()
+                      for r in (res, res["eager_arm"])),
+              "%s: a step's logits are not finite" % what)
+        line = {"all_logits_finite": True}
+    emit({"phase": what, "config": cfg, "spec_k": 4,
+          "prompt_lengths": [len(p) for p in prompts], **line,
           **{arm: {**_spec_summary(res),
                    "streams_equal_engine": [
                        o == r[0][:res["new_tokens_each"]]
                        for o, r in zip(res["outs"], ref)]}
              for arm, res in arms.items()}})
     ng = arms["ngram"]
-    return ng["launches"], ng["steps"], ng["recorded_per_step"]
+    return ng["launches"], ng["steps"], ng["recorded_per_step"], \
+        arms["draft"]
 
 
-def _ulps(a, b):
-    """The largest difference between two bf16 tensors in bf16 ulps at
-    the scale of ``b`` (the ulp of its largest magnitude): later layers'
-    caches see inputs that already differ by a rounding, so elementwise
-    ulps of values near zero would count noise far below the cache's
-    resolution."""
+def phase_serve_spec_bf16(torch, mx, np_params, ctx=None):
+    return _serve_spec16(torch, mx, np_params, "bfloat16", ctx)
+
+
+def phase_serve_spec_f16(torch, mx, np_params, ctx=None):
+    return _serve_spec16(torch, mx, np_params, "float16", ctx)
+
+
+def _ulps(a, b, bits=7):
+    """The largest difference between two 16-bit tensors in ulps at the
+    scale of ``b`` (the ulp of its largest magnitude; ``bits`` fraction
+    bits: 7 for bf16, 10 for f16): later layers' caches see inputs that
+    already differ by a rounding, so elementwise ulps of values near
+    zero would count noise far below the cache's resolution."""
     a, b = a.float(), b.float()
     top = float(b.abs().max())
-    ulp = 2.0 ** (math.floor(math.log2(top)) - 7) if top else 2.0 ** -133
+    ulp = 2.0 ** (math.floor(math.log2(top)) - bits) if top else 2.0 ** -133
     return float((a - b).abs().max()) / ulp
 
 
@@ -2923,9 +3156,10 @@ def _drive_step(exe, prompts, forced, spec_k):
     return logits, written
 
 
-def _cache_ulps(exes, layers, written):
-    """Per layer, the largest difference in bf16 ulps (``_ulps``) between
-    the card's and the CPU's cache rows ``written`` (K and V)."""
+def _cache_ulps(exes, layers, written, bits=7):
+    """Per layer, the largest difference in ulps (``_ulps``: bf16's by
+    default) between the card's and the CPU's cache rows ``written`` (K
+    and V)."""
     out = []
     for i in range(layers):
         worst = 0
@@ -2934,49 +3168,64 @@ def _cache_ulps(exes, layers, written):
                     for e in exes)
             a, b = (t.reshape(-1, t.shape[2] * t.shape[3])[written]
                     for t in (a, b))
-            worst = max(worst, _ulps(a, b))
+            worst = max(worst, _ulps(a, b, bits))
         out.append(worst)
     return out
 
 
 def phase_serve_bf16_agreement(torch, mx, ctxs=None):
-    """The bf16 serving paths at 2 layers (full width), card against CPU
-    from the same numpy weights: the mixed step, the spec step (spec_k 4)
-    and the prefill/decode-step pair, each driven with the card
-    engine's greedy tokens forced on both sides (teacher forcing): every
-    logits row within relative L2 2e-2 of the CPU's, every cache row
-    written within one bf16 ulp at the cache's scale (``_ulps``).  The
-    card runs each path twice, under PyTorch's default
-    ``allow_bf16_reduced_precision_reduction`` (True, the port's setting)
-    and with it off, since the TPU sums bf16 products in f32.  The
-    greedy streams of the mixed and n-gram spec engines on both devices
-    are printed beside."""
+    return _agreement16(torch, mx, "bfloat16", ctxs)
+
+
+def phase_serve_f16_agreement(torch, mx, ctxs=None):
+    return _agreement16(torch, mx, "float16", ctxs)
+
+
+def _agreement16(torch, mx, dtype, ctxs=None):
+    """serve_bf16_agreement (35) and serve_f16_agreement (40): the
+    16-bit serving paths at 2 layers (full width), card against CPU from
+    the same numpy weights: the mixed step, the spec step (spec_k 4) and
+    the prefill/decode-step pair, each driven with the card engine's
+    greedy tokens forced on both sides (teacher forcing): every logits
+    row within relative L2 of the CPU's (bf16 2e-2, BF16_AGREE; f16
+    2.5e-3, F16_AGREE), every cache row written within one ulp of the
+    type at the cache's scale (``_ulps``).  The CPU's own greedy token
+    at each forced position (the argmax of its logits row) is compared
+    with the card's: equal at every position is the CPU's greedy stream
+    equal to the card's (the same prefix gives the same next token), and
+    f16 checks it, for every arm.  bf16 runs each path on the card twice,
+    under PyTorch's default ``allow_bf16_reduced_precision_reduction``
+    (True, the port's setting) and with it off, since the TPU sums bf16
+    products in f32; f16 runs the default only."""
     from mxnet_tpu_torch.decode import DecodeEngine
     from mxnet_tpu_torch.weights import convert_params
-    cfg = dict(BF16_SERVE, num_layers=BF16_AGREE["num_layers"])
+    agree = BF16_AGREE if dtype == "bfloat16" else F16_AGREE
+    short = SERVE16[dtype]["short"]
+    bits = 7 if dtype == "bfloat16" else 10
+    flag_name = "allow_%s_reduced_precision_reduction" \
+        % ("bf16" if dtype == "bfloat16" else "fp16")
+    cfg = dict(SERVE16[dtype]["cfg"], num_layers=agree["num_layers"])
     card, cpu = ctxs or (mx.gpu(0), mx.cpu())
-    L, new = cfg["num_layers"], BF16_AGREE["new"]
+    L, new = cfg["num_layers"], agree["new"]
     np_params = seeded_params(cfg)
     prompts = _serve_prompts(cfg, SEED + 12, (40, 100, 150))
     spec_prompts = _repeating_prompts(cfg, SEED + 14, 3, (5, 8, 3), 6)
     params = {ctx: convert_params(np_params, ctx, cfg) for ctx in (card, cpu)}
+    # the card engines' greedy streams: the tokens every drive forces
     streams = {}
     for arm, ps, kw in (("mixed", prompts, {}),
                         ("spec", spec_prompts,
                          dict(spec_k=4, spec_impl="ngram"))):
-        streams[arm] = []
-        for ctx in (card, cpu):
-            eng = DecodeEngine(params[ctx], cfg, ctx=ctx, **kw, **GEOMETRY)
-            try:
-                streams[arm].append(
-                    [eng.generate(p, max_new_tokens=new, timeout=900)
-                     for p in ps])
-            finally:
-                eng.stop()
+        eng = DecodeEngine(params[card], cfg, ctx=card, **kw, **GEOMETRY)
+        try:
+            streams[arm] = [eng.generate(p, max_new_tokens=new, timeout=900)
+                            for p in ps]
+        finally:
+            eng.stop()
 
     def drive(ctx, ps, forced, spec_k):
-        """Logits rows, the executor holding the caches, the cache rows
-        written."""
+        """Logits rows (row i of a request predicts its token i), the
+        executor holding the caches, the cache rows written."""
         if spec_k is None:
             dexe, pexe = bind_prefill_pair(mx, params[ctx], cfg, ctx, len(ps),
                                            256)
@@ -2992,44 +3241,52 @@ def phase_serve_bf16_agreement(torch, mx, ctxs=None):
         return lg, exe, written
 
     matmul = torch.backends.cuda.matmul
-    default = matmul.allow_bf16_reduced_precision_reduction
-    flags = (default, not default) if card.device_type == "gpu" else (default,)
+    default = getattr(matmul, flag_name)
+    flags = (default, not default) \
+        if card.device_type == "gpu" and dtype == "bfloat16" else (default,)
     res = {}
     for arm, ps, spec_k in (("mixed", prompts, 0),
                             ("spec", spec_prompts, 4),
                             ("prefill_pair", prompts, None)):
-        forced = streams["spec" if arm == "spec" else "mixed"][0]
+        forced = streams["spec" if arm == "spec" else "mixed"]
         ref, ref_exe, written = drive(cpu, ps, forced, spec_k)
-        res[arm] = {}
+        cpu_greedy = [[int(np.argmax(row)) for row in rows] for rows in ref]
+        greedy_equal = cpu_greedy == [f[:len(r)] for f, r in
+                                      zip(forced, cpu_greedy)]
+        res[arm] = {"cpu_greedy_equal_card": greedy_equal}
+        if dtype == "float16":
+            check(greedy_equal, "serve_f16_agreement (%s): the CPU's greedy "
+                  "tokens under forcing %s differ from the card's %s"
+                  % (arm, cpu_greedy, forced))
         for flag in flags:
-            matmul.allow_bf16_reduced_precision_reduction = flag
+            setattr(matmul, flag_name, flag)
             try:
                 got, exe, _ = drive(card, ps, forced, spec_k)
             finally:
-                matmul.allow_bf16_reduced_precision_reduction = default
+                setattr(matmul, flag_name, default)
             l2 = [_rel_l2(a, b) for ga, ca in zip(got, ref)
                   for a, b in zip(ga, ca)]
-            ulps = _cache_ulps((exe, ref_exe), L, written)
-            what = "serve_bf16_agreement (%s, reduced-precision reduction " \
-                "%s)" % (arm, flag)
-            check(max(l2) <= BF16_AGREE["logits_l2"],
+            ulps = _cache_ulps((exe, ref_exe), L, written, bits)
+            what = "serve_%s_agreement (%s, reduced-precision reduction " \
+                "%s)" % (short, arm, flag)
+            check(max(l2) <= agree["logits_l2"],
                   "%s: logits off the CPU's by relative L2 %g"
                   % (what, max(l2)))
-            check(max(ulps) <= BF16_AGREE["cache_ulps"],
-                  "%s: cache rows off the CPU's by %s bf16 ulps (per layer)"
-                  % (what, ulps))
+            check(max(ulps) <= agree["cache_ulps"],
+                  "%s: cache rows off the CPU's by %s %s ulps (per layer)"
+                  % (what, ulps, short))
+            if dtype == "float16":
+                check(all(_all_finite(ga) for ga in got),
+                      "%s: logits not finite" % what)
             res[arm]["reduced_precision_reduction_%s" % flag] = {
                 "rows_compared": len(l2), "max_logits_rel_l2": max(l2),
                 "cache_ulps_by_layer": ulps}
             del exe
         del ref_exe
-    emit({"phase": "serve_bf16_agreement", "config": cfg,
+    emit({"phase": "serve_%s_agreement" % short, "config": cfg,
           "prompt_lengths": [len(p) for p in prompts],
           "spec_prompt_lengths": [len(p) for p in spec_prompts],
-          "new_tokens": new, **res,
-          "greedy_streams": {arm: {"card": s[0], "cpu": s[1],
-                                   "equal": s[0] == s[1]}
-                             for arm, s in streams.items()},
+          "new_tokens": new, **res, "card_greedy_streams": streams,
           "port_setting_reduced_precision_reduction": default})
 
 
@@ -4093,6 +4350,23 @@ def close_bf16(torch, a, b):
     return bool(((a - b).abs() <= lim).all())
 
 
+def close_f16(torch, a, b):
+    """An f16 kernel against its plain version (rows 1, 2, 3 and 5):
+    rtol 2^-10, at least one f16 ulp of the plain value, atol 1e-5; each
+    rounds an f32 result to f16 once."""
+    return bool(torch.allclose(a.float(), b.float(), rtol=F16_RTOL,
+                               atol=ATOL))
+
+
+def close_f16_flash(torch, a, b):
+    """Row 8's f16 forward against its plain version: one f16 ulp of the
+    value plus 2^-12 of the array's largest magnitude (F16_FLASH_ATOL_
+    SHARE: P rounds to f16 at another point than the plain version's)."""
+    a, b = a.float(), b.float()
+    lim = F16_RTOL * b.abs() + F16_FLASH_ATOL_SHARE * float(b.abs().max())
+    return bool(((a - b).abs() <= lim).all())
+
+
 def _flash_rows(torch, mxk, q, k, v, do, sc, flush, dtype, peak):
     """Times and bounds of the three flash kernels on (q, k, v, do),
     beside SDPA forward and its autograd backward."""
@@ -4230,7 +4504,7 @@ def phase_flash_bf16(torch, mxk, dev, flush):
     from mxnet_tpu_torch.kernels import _build
     # each kernel has two forms: compile-time step counts when every
     # head_dim chunk is full (D % 128 == 0), a branch per step otherwise
-    forms = {"full": "ILb1", "ragged": "ILb0"}
+    forms = {"full": "Lb1", "ragged": "Lb0"}
     ptx = _ptxas("flash_attention", {
         "%s:%s" % (n, form): entry + tag
         for n, (entry, _) in FLASH_BF16_ENTRIES.items()
@@ -4415,6 +4689,226 @@ def phase_layernorm_bf16(torch, mxk, dev, flush):
           "errors": errs, "edges": [list(e) for e in LN_BWD_EDGES],
           "fwd_edges": [list(e) for e in LN_FWD_EDGES], "kernels": out})
     return out
+
+
+def phase_layernorm_f16(torch, mxk, dev, flush):
+    """Row 3's f16 form (f16 x, gamma and beta: the f16 serving symbols'
+    LayerNorms) against its plain version, output within close_f16, the
+    f32 statistics at rtol 1e-4 / atol 1e-5, two runs bit-identical, with
+    and without a residual: at the rows of every f16 path (8 and 64, the
+    serve step's decode slots and chunk; 40, the spec step's spans; 1024,
+    the draft model's; 8192, the one-shot prefill's) of 2048 columns, at
+    the widths of LN_FWD_EDGES and on misaligned rows.  Timed at the
+    serve rows beside F.layer_norm on the same f16 tensors (alone, and
+    200 calls back to back).  First prints ptxas's lines of the f16
+    instances (no spills).  Returns the kernels-line row."""
+    import torch.nn.functional as F
+    hf = torch.float16
+    ptx = _instances_ptxas("layernorm",
+                           r"layernorm_fwd_\w+?_kernelI6__half\w+?E(?=Ev)",
+                           "the f16 LayerNorm forward")
+    cols = 2048
+    g = torch.Generator(device="cpu").manual_seed(SEED + 40)
+    gamma = (1 + 0.02 * torch.randn(cols, generator=g)).to(dev).to(hf)
+    beta = (0.02 * torch.randn(cols, generator=g)).to(dev).to(hf)
+    errs = {}
+    serve = {}
+    for rows in (8, 64, 40, 1024, 8192):
+        x, res = (torch.randn(rows, cols, generator=g).to(dev).to(hf)
+                  for _ in range(2))
+        _ln_fwd_hold(torch, mxk, x, gamma, beta, res,
+                     "float16 %d x %d" % (rows, cols), errs)
+        if rows not in (8, 64):
+            continue
+        fn = lambda: mxk.layernorm_fused(x, gamma, beta)
+        lib = lambda: F.layer_norm(x, (cols,), gamma, beta, 1e-5)
+        b_ms, b_by = bound(2 * rows * cols * 2 + 2 * cols * 2 + 2 * rows * 4,
+                           8 * rows * cols, BF16_FLOPS_PER_S)
+        serve[rows] = {"ms": time_ms(torch, fn, flush),
+                       "plain_ms": time_ms(torch, lambda: mxk.layernorm_plain(
+                           x, gamma, beta), flush),
+                       "library_ms": time_ms(torch, lib, flush),
+                       "bound_ms": b_ms, "bound_by": b_by,
+                       "back_to_back_ms": pipelined_ms(torch, fn),
+                       "library_back_to_back_ms": pipelined_ms(torch, lib)}
+    _ln_fwd_edges(torch, mxk, dev, g, hf, errs)
+    row = {"name": "layernorm_fused", "route": "cuda", "dtype": "float16",
+           "path": "serve_f16 rows (8, 64 rows)",
+           "source": "mxnet_tpu_torch/csrc/layernorm.cu",
+           "replaces": "mxnet_tpu/pallas/layernorm.py:127",
+           "max_abs_err": max(errs.values()), **serve[8], "rows_64": serve[64]}
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    emit({"phase": "layernorm_f16", "cols": cols, "errors": errs,
+          "fwd_edges": [list(e) for e in LN_FWD_EDGES], "ptxas": ptx,
+          "tolerance": "out: rtol 2^-10 (one f16 ulp) / atol 1e-5; mean "
+                       "and rstd: rtol 1e-4 / atol 1e-5", "kernel": row})
+    return row
+
+
+def phase_flash_f16(torch, mxk, dev, flush):
+    """Row 8's f16 forward (the draft model's spans in f16 serving; the
+    16-bit forward kernel at f16: P rounded to one f16 term, f32 sums)
+    against its plain version at the draft model's (1, 16, 1024, 128) and
+    at FLASH_F16_EDGES: the output within close_f16_flash, the f32 lse
+    at rtol 1e-4 / atol 1e-5, two runs bit-identical; the backward
+    kernels refuse f16 tensors, naming ROADMAP A.1.  Timed at the draft
+    shape beside SDPA's forward on the same f16 tensors, bounded by
+    bytes or by operations at the dense 16-bit tensor-core peak.  First
+    prints ptxas's lines of its two forms (no spills)."""
+    import ctypes
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.kernels import _build
+    hf = torch.float16
+    forms = {"full": "Lb1", "ragged": "Lb0"}
+    ptx = _ptxas("flash_attention",
+                 {form: "flash_fwd16_kernelI6__half" + tag
+                  for form, tag in forms.items()})
+    lib = _build.load("flash_attention")
+    lib.mx_flash_bf16_smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.mx_flash_bf16_smem.restype = ctypes.c_int
+    for form in sorted(ptx):
+        ptx[form]["dynamic_smem_bytes_d128"] = lib.mx_flash_bf16_smem(0, 128)
+        print("ptxas flash_fwd16_kernel<__half> (%s form): %s; %d bytes of "
+              "dynamic shared memory at D = 128"
+              % (form, "; ".join(ptx[form]["lines"]),
+                 ptx[form]["dynamic_smem_bytes_d128"]), flush=True)
+        check(ptx[form]["spill_stores"] == 0 and
+              ptx[form]["spill_loads"] == 0,
+              "flash_attention: the f16 forward (%s) spills" % form)
+    g = torch.Generator(device="cpu").manual_seed(SEED + 41)
+    errs = {}
+    shape = (1, 16, 1024, 128)
+    for shp in (shape,) + FLASH_F16_EDGES:
+        q, k, v = (torch.randn(*shp, generator=g).to(dev).to(hf)
+                   for _ in range(3))
+        sc = 1.0 / shp[-1] ** 0.5
+        o, lse = mxk.flash_attention_fwd(q, k, v, scale=sc)
+        o2, lse2 = mxk.flash_attention_fwd(q, k, v, scale=sc)
+        o_ref, lse_ref = mxk.flash_attention_fwd_plain(q, k, v, scale=sc)
+        torch.cuda.synchronize()
+        tag = "x".join(map(str, shp))
+        check(torch.equal(o, o2) and torch.equal(lse, lse2),
+              "flash_attention_fwd f16 %s: two runs differ" % tag)
+        check(o.dtype == hf and close_f16_flash(torch, o, o_ref),
+              "flash_attention_fwd f16 %s disagrees with its plain version "
+              "(max abs err %g)" % (tag, max_err(o, o_ref)))
+        check(close(torch, lse, lse_ref), "flash_attention_fwd f16 %s: lse "
+              "disagrees (max abs err %g)" % (tag, max_err(lse, lse_ref)))
+        errs["out " + tag] = max_err(o, o_ref)
+        errs["lse " + tag] = max_err(lse, lse_ref)
+    q, k, v = (torch.randn(*shape, generator=g).to(dev).to(hf)
+               for _ in range(3))
+    sc = 1.0 / shape[-1] ** 0.5
+    o, lse = mxk.flash_attention_fwd(q, k, v, scale=sc)
+    delta = (o.float() * o.float()).sum(-1)
+    for fn in (mxk.flash_attention_bwd_dkv, mxk.flash_attention_bwd_dq):
+        try:
+            fn(q, k, v, o, lse, delta, scale=sc)
+        except MXNetError as e:
+            check("ROADMAP A.1" in str(e), "%s: f16 refused without naming "
+                  "ROADMAP A.1: %s" % (fn.__name__, e))
+        else:
+            raise SmokeFailure("%s took f16 tensors" % fn.__name__)
+    B, H, S, D = shape
+    tri = 2.0 * B * H * D * S * (S + 1) / 2
+    nbytes = 4 * B * H * S * D * 2 + B * H * S * 4
+    b_ms, b_by = bound(nbytes, 2 * tri, BF16_FLOPS_PER_S)
+    ms = time_ms(torch, lambda: mxk.flash_attention_fwd(q, k, v, scale=sc),
+                 flush)
+    row = {"name": "flash_attention_fwd", "route": "cuda", "dtype": "float16",
+           "path": "the f16 draft model's spans",
+           "source": "mxnet_tpu_torch/csrc/flash_attention.cu",
+           "replaces": "mxnet_tpu/ops/nn.py:744",
+           "max_abs_err": max(errs.values()), "ms": ms,
+           "plain_ms": time_ms(torch, lambda: mxk.flash_attention_fwd_plain(
+               q, k, v, scale=sc), flush, reps=20),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+               q, k, v, is_causal=True, scale=sc), flush),
+           "back_to_back_ms": pipelined_ms(
+               torch, lambda: mxk.flash_attention_fwd(q, k, v, scale=sc)),
+           "tflops": 2 * tri / ms / 1e9, "bytes": nbytes, "flops": 2 * tri}
+    emit({"phase": "flash_f16", "shape": list(shape),
+          "edge_shapes": [list(e) for e in FLASH_F16_EDGES], "errors": errs,
+          "ptxas": ptx, "backward_refuses_f16": True,
+          "tolerance": "out: one f16 ulp (2^-10 relative) plus 2^-12 of the "
+                       "array's largest value; lse rtol 1e-4 / atol 1e-5",
+          "library_call": "F.scaled_dot_product_attention(is_causal=True) "
+                          "forward on the f16 tensors", "kernel": row})
+    return row
+
+
+def phase_dtype_codes(torch, mxk, dev):
+    """Every C entry point that takes dtype codes returns an error for a
+    code or a pairing it has no kernel for (f16 beside another type, f16
+    where no f16 form exists, an unknown code), and launches nothing,
+    never another type's kernel; the wrappers refuse f16 tensors bound
+    for a kernel with no f16 form (rows 4, 6, 7, 10 and row 8's
+    backward), naming ROADMAP A.1, before any pointer reaches it."""
+    import importlib
+    from mxnet_tpu_torch.base import MXNetError
+    mods = {n: importlib.import_module("mxnet_tpu_torch.kernels." + n)
+            for n in ("paged_attention", "layernorm", "flash_attention",
+                      "fused_matmul", "fused_band4d")}
+    libs = {n: m._lib() for n, m in mods.items()}
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    nul = [None] * 12
+    pa, ln, fa = (libs[n] for n in ("paged_attention", "layernorm",
+                                    "flash_attention"))
+    calls = {}
+    for qd, kd in ((2, 0), (2, 1), (0, 2), (1, 2), (3, 3), (2, 7)):
+        calls["mx_paged_decode %d/%d" % (qd, kd)] = pa.mx_paged_decode(
+            *nul[:6], 1, 1, 128, 16, 1, 1, 1.0, qd, kd, 0, stream)
+        calls["mx_paged_chunk_prefill %d/%d" % (qd, kd)] = \
+            pa.mx_paged_chunk_prefill(*nul[:11], 1, 1, 1, 128, 16, 1, 32, 1,
+                                      1.0, qd, kd, 0, stream)
+        calls["mx_paged_prefill %d/%d" % (qd, kd)] = pa.mx_paged_prefill(
+            *nul[:8], 1, 16, 1, 128, 16, 1, 1.0, qd, kd, 0, stream)
+        calls["mx_layernorm_fwd %d/%d" % (qd, kd)] = ln.mx_layernorm_fwd(
+            *nul[:7], 1, 128, 1e-5, qd, kd, 0, stream)
+    for code in (2, 3):
+        calls["mx_layernorm_bwd %d" % code] = ln.mx_layernorm_bwd(
+            *nul[:10], 1, 128, 1, code, code, 0, stream)
+        calls["mx_flash_bwd_dkv %d" % code] = fa.mx_flash_bwd_dkv(
+            *nul[:8], 1, 16, 128, 1.0, code, 0, stream)
+        calls["mx_flash_bwd_dq %d" % code] = fa.mx_flash_bwd_dq(
+            *nul[:7], 1, 16, 128, 1.0, code, 0, stream)
+        calls["mx_fused_scale_relu_matmul %d" % code] = \
+            libs["fused_matmul"].mx_fused_scale_relu_matmul(
+                *nul[:6], 1, 8, 8, code, 0, stream)
+        calls["mx_fused_band4d %d" % code] = \
+            libs["fused_band4d"].mx_fused_band4d(
+                *nul[:5], 1, 1, 1, 8, 8, 64, 64, 8, 1, code, 0, stream)
+    calls["mx_flash_fwd 3"] = fa.mx_flash_fwd(*nul[:5], 1, 16, 128, 1.0, 3,
+                                              0, stream)
+    torch.cuda.synchronize()
+    check(all(calls.values()), "C entry points took a code they have no "
+          "kernel for: %s" % {k: v for k, v in calls.items() if not v})
+    hf = torch.float16
+    x = torch.zeros(64, 128, dtype=hf, device=dev)
+    f32 = torch.zeros(64, device=dev)
+    one, zero = torch.ones(128, device=dev), torch.zeros(128, device=dev)
+    refused = {}
+    for name, fn in (
+            ("layernorm_fused_bwd", lambda: mxk.layernorm_fused_bwd(
+                x, x[0], f32, f32, x)),
+            ("fused_scale_relu_matmul", lambda: mxk.fused_scale_relu_matmul_fwd(
+                x, one, zero, x)),
+            ("fused_band4d", lambda: mxk.fused_band4d(
+                x.view(1, 8, 8, 128), one, zero,
+                torch.zeros(128, 64, dtype=hf, device=dev))),
+            ("two_bit_quantize_fused", lambda: mxk.two_bit_quantize_fused(
+                x.view(-1), x.view(-1), 0.5))):
+        try:
+            fn()
+        except MXNetError as e:
+            refused[name] = str(e)
+            check("ROADMAP A.1" in str(e), "%s refused f16 without naming "
+                  "ROADMAP A.1: %s" % (name, e))
+        else:
+            raise SmokeFailure("%s took f16 tensors" % name)
+    emit({"phase": "dtype_codes", "calls": calls, "refused": refused})
 
 
 def phase_fused_matmul_bf16(torch, mxk, dev, flush):
@@ -6623,8 +7117,8 @@ def main():
     chunk_rows = phase_chunk(torch, mxk, dev, flush)
     serve_kernels = [decode_rows[0], chunk_rows[0],
                      phase_layernorm(torch, mxk, dev, flush)]
-    prefill_kernel, prefill_bf16_kernel = phase_prefill(torch, mxk, dev,
-                                                        flush)
+    prefill_kernel, prefill_bf16_kernel, prefill_f16_kernel = \
+        phase_prefill(torch, mxk, dev, flush)
     train_kernels = [phase_layernorm_bwd(torch, mxk, dev, flush)] + \
         phase_flash(torch, mxk, dev, flush)
     quant_kernel = phase_quant(torch, mxk, dev, flush)
@@ -6636,6 +7130,13 @@ def main():
     serve_bf16_kernels = [decode_rows[1], chunk_rows[1]] + \
         [k for k in bf16_kernels if "path" in k]
     bf16_kernels = [k for k in bf16_kernels if "path" not in k]
+    # the f16 serve step's kernels (rows 1, 2 and 3 at its rows), row 5's
+    # f16 form (serve_prefill_f16) and row 8's f16 forward (the draft
+    # spans of serve_spec_f16)
+    serve_f16_kernels = [decode_rows[2], chunk_rows[2],
+                         phase_layernorm_f16(torch, mxk, dev, flush)]
+    flash_f16_kernel = phase_flash_f16(torch, mxk, dev, flush)
+    phase_dtype_codes(torch, mxk, dev)
     band4d_kernels = phase_fused_band4d(torch, mxk, dev, flush)
     head_dim_times = phase_head_dim(torch, mxk, dev, flush)
     rtc_kernels = phase_rtc(torch, mx, dev, flush)
@@ -6652,8 +7153,14 @@ def main():
         phase_serve_bf16(torch, mx, full)
     prefill_bf16_launches, prefill_bf16_rec = \
         phase_serve_prefill_bf16(torch, mx, full)
-    _, _, spec_bf16_rec = phase_serve_spec_bf16(torch, mx, full)
+    _, _, spec_bf16_rec, _ = phase_serve_spec_bf16(torch, mx, full)
     phase_serve_bf16_agreement(torch, mx)
+    serve_f16_launches, serve_f16_steps, serve_f16_rec = \
+        phase_serve_f16(torch, mx, full)
+    prefill_f16_launches, prefill_f16_rec = \
+        phase_serve_prefill_f16(torch, mx, full)
+    _, _, spec_f16_rec, draft_f16 = phase_serve_spec_f16(torch, mx, full)
+    phase_serve_f16_agreement(torch, mx)
     train_launches, train_steps = phase_train(torch, mx, full)
     bf16_launches, bf16_steps = phase_train_bf16(torch, mx, full)
     fit_fused = phase_fit_fused(torch, mx, full)
@@ -6705,6 +7212,28 @@ def main():
         prefill_bf16_launches["paged_prefill_attend"]
     prefill_bf16_kernel["launches_per_step"] = prefill_bf16_kernel[
         "captured_per_step"] = prefill_bf16_rec["paged_prefill_attend"]
+    # the f16 instances: serve_f16's run (rows 1, 2 and 3), the spec
+    # step's beside it, serve_prefill_f16's prefill forward (row 5) and
+    # serve_spec_f16's draft arm (row 8's forward: its warm-up walks and
+    # captures launch it, the draft graphs replay it)
+    for k in serve_f16_kernels:
+        k["launches"] = serve_f16_launches[k["name"]]
+        k["launches_per_step"] = k["captured_per_step"] = \
+            serve_f16_rec[k["name"]]
+        k["graph_launches"] = serve_f16_rec[k["name"]] * serve_f16_steps
+        k["spec_launches_per_step"] = spec_f16_rec.get(k["name"], 0)
+    prefill_f16_kernel["launches"] = \
+        prefill_f16_launches["paged_prefill_attend"]
+    prefill_f16_kernel["launches_per_step"] = prefill_f16_kernel[
+        "captured_per_step"] = prefill_f16_rec["paged_prefill_attend"]
+    flash_f16_kernel["launches"] = draft_f16["launches"].get(
+        "flash_attention_fwd", 0)
+    flash_f16_kernel["graph_launches"] = draft_f16["draft_flash_launches"]
+    flash_f16_kernel["launches_per_proposed_token"] = \
+        draft_f16["draft_flash_launches"] / draft_f16["spec_proposed"]
+    for k in serve_f16_kernels + [prefill_f16_kernel, flash_f16_kernel]:
+        check(k["launches"] > 0, "%s (float16) was not launched on its main "
+              "path" % k["name"])
     # Module.fit's main path is the fused step (fit_fused): its launches
     # are the two warm-up steps' and the capture's, and the graph
     # replays what the capture recorded (captured_per_step); the eager
@@ -6774,6 +7303,7 @@ def main():
                                                   "fit_bf16_captured_per_step",
                                                   "train_launches",
                                                   "spec_launches_per_step",
+                                                  "launches_per_proposed_token",
                                                   "gluon_launches_per_step",
                                                   "head_dim_256",
                                                   "compile_ms",
@@ -6782,6 +7312,8 @@ def main():
                           if key in k}}
                       for k in f32_kernels + bf16_kernels
                       + serve_bf16_kernels + [prefill_bf16_kernel]
+                      + serve_f16_kernels + [prefill_f16_kernel,
+                                             flash_f16_kernel]
                       + rtc_kernels + band4d_kernels]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

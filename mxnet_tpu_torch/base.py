@@ -72,8 +72,11 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16, "float64": torch.float64,
            "int32": torch.int32, "int64": torch.int64, "uint8": torch.uint8,
            "int8": torch.int8}
-FLOAT16_LATER = ("float16 is not in the PyTorch port yet (ROADMAP A.1, "
-                 "float16); bfloat16 and float32 are")
+# float16 serves (the five serving symbols, DecodeEngine); training in
+# it is the next part of ROADMAP A.1
+FLOAT16_TRAINING = ("float16 is not in the PyTorch port yet (ROADMAP A.1, "
+                    "float16 training): float16 serves through the serving "
+                    "symbols and DecodeEngine; bfloat16 and float32 train")
 
 
 def torch_dtype(dtype):
@@ -96,15 +99,18 @@ def torch_dtype(dtype):
         raise MXNetError("unknown dtype %r" % (dtype,)) from None
 
 
-def check_float_dtype(dtype, where):
-    """``dtype`` as a torch dtype, raising for float16 (a later item of
-    the port) and for non-float types."""
+def check_float_dtype(dtype, where, serving=False):
+    """``dtype`` as a torch dtype: float32 or bfloat16 anywhere, float16
+    only at an inference call site (``serving=True``: the serving
+    symbols); raises for float16 in training (ROADMAP A.1, float16
+    training) and for any other type."""
     dt = torch_dtype(dtype)
-    if dt == torch.float16:
-        raise MXNetError("%s: %s" % (where, FLOAT16_LATER))
-    if dt not in (torch.float32, torch.bfloat16):
-        raise MXNetError("%s: %s is not a floating type the port trains "
-                         "in (float32, bfloat16)" % (where, dt))
+    if dt == torch.float16 and not serving:
+        raise MXNetError("%s: %s" % (where, FLOAT16_TRAINING))
+    if dt not in (torch.float32, torch.bfloat16, torch.float16):
+        raise MXNetError("%s: %s is not a type the port computes in yet "
+                         "(ROADMAP A.1): float32 and bfloat16, and float16 "
+                         "for serving" % (where, dt))
     return dt
 
 

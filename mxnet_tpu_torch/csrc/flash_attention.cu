@@ -1,14 +1,15 @@
 // Causal flash attention for Hopper (sm_90a), forward and backward, in
-// f32 or bf16, any S and any head_dim, plain C interface.
+// f32 or bf16, and the forward in f16 (the draft model of f16 serving),
+// any S and any head_dim, plain C interface.
 //
 // Replaces mxnet_tpu/ops/nn.py:744 _flash_attention, which calls jax's
 // library Pallas kernel for the TPU (jax/experimental/pallas/ops/tpu/
 // flash_attention.py, with its own VJP): the forward pallas_call (:758)
 // and the two backward ones, dK/dV (:1121) and dQ (:1456).  Inputs are
-// contiguous head-major (B, H, S, D) of one element type (float or
-// __nv_bfloat16), any S and any D; the kernels mask the ragged last
-// tile themselves, so the TPU's head_dim % 128 and seq % 512 gates do
-// not carry over.  The log-sum-exp L and Dr = rowsum(dO * O) are f32.
+// contiguous head-major (B, H, S, D) of one element type (float,
+// __nv_bfloat16, or __half for the forward), any S and any D; the kernels
+// mask the ragged last tile themselves, so the TPU's head_dim % 128 and
+// seq % 512 gates do not carry over.  The log-sum-exp L and Dr = rowsum(dO * O) are f32.
 //
 //   mx_flash_fwd:     O = softmax(Q K^T * scale, causal) V, and the
 //                     per-row log-sum-exp L.
@@ -79,12 +80,23 @@
 // were no faster; the forward holds 3 blocks an SM (at 4 blocks ptxas
 // caps it at 128 registers and spills).
 //
+// f16 forward: the bf16 forward's kernel, a template over its element
+// type (tc::T16: the .f16 mma opcode, f16 packing and rounding), f32
+// sums.  P enters P V as one f16 term, as the plain version rounds it
+// (kernels/flash_attention.py, _rounded(p, v.dtype)) and as the
+// reference's f16 path does (mxnet_tpu/ops/nn.py:799,
+// softmax(s).astype(qkv.dtype)); P <= 1 rounds to f16 with 11 bits down
+// to 2^-14, and smaller P, subnormal or flushed, weigh under 2^-14 of the
+// row's largest: no scaling.  The backward kernels have no f16 form
+// (ROADMAP A.1, float16 training).
+//
 // f32 design (tensor cores, split TF32): the f32 kernels are built from
 // attention_f32.cuh (design note there), the bf16 kernels' shape with
 // every product in 3xTF32 (three mma.sync m16n8k8 of hi/lo halves), f32
 // tiles in shared memory and expf / logf, so they hold the f32
 // tolerance against the plain version.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -121,13 +133,13 @@ __device__ __forceinline__ float exp2_ftz(float x) {
 }
 
 // Stage rows [r0, r0 + R), columns [c0, c0 + w) of a (S, D) matrix into
-// an (R, kLds) bf16 tile, zero rows past S and columns [w, w rounded up
-// to 16).  vec: 16-byte cp.async (D % 8 == 0 and the base aligned, so w
-// is a multiple of 8); else element by element, made visible by the
-// __syncthreads that starts the stage which reads the tile.
-template <int R, int TH>
-__device__ __forceinline__ void stage_tile(bf16* dst, const bf16* __restrict__ src, int r0,
-                                           int S, int D, int c0, int w, bool vec) {
+// an (R, kLds) tile of T (bf16 or f16), zero rows past S and columns [w, w
+// rounded up to 16).  vec: 16-byte cp.async (D % 8 == 0 and the base
+// aligned, so w is a multiple of 8); else element by element, made
+// visible by the __syncthreads that starts the stage which reads the tile.
+template <int R, int TH, typename T>
+__device__ __forceinline__ void stage_tile(T* dst, const T* __restrict__ src, int r0, int S,
+                                           int D, int c0, int w, bool vec) {
   const int wp = (w + 15) & ~15;
   const int l16 = threadIdx.x & 15;
   if (vec) {
@@ -142,7 +154,7 @@ __device__ __forceinline__ void stage_tile(bf16* dst, const bf16* __restrict__ s
       const bool row_ok = r0 + r < S;
       for (int c = l16; c < wp; c += 16)
         dst[r * kLds + c] = (row_ok && c < w) ? src[(size_t)(r0 + r) * D + c0 + c]
-                                              : __float2bfloat16_rn(0.f);
+                                              : T16<T>::round(0.f);
     }
   }
 }
@@ -150,12 +162,12 @@ __device__ __forceinline__ void stage_tile(bf16* dst, const bf16* __restrict__ s
 // acc[NT] (16 x 8 NT) += A B^T: A the 16 rows [a_row0, +16) of a_tile,
 // B the tile b (NT * 8 rows, the n index), both over columns
 // [0, 16 nk) (the k index)
-template <int NT>
-__device__ __forceinline__ void mma_nk(float acc[][4], const bf16* a_tile, int a_row0,
-                                       const bf16* b, int nk) {
+template <int NT, typename T>
+__device__ __forceinline__ void mma_nk(float acc[][4], const T* a_tile, int a_row0, const T* b,
+                                       int nk) {
   const int lane = threadIdx.x & 31;
-  const bf16* ap = a_tile + (a_row0 + (lane & 15)) * kLds + (lane >> 4) * 8;
-  const bf16* bp = b + ((lane & 7) + ((lane >> 4) << 3)) * kLds + ((lane >> 3) & 1) * 8;
+  const T* ap = a_tile + (a_row0 + (lane & 15)) * kLds + (lane >> 4) * 8;
+  const T* bp = b + ((lane & 7) + ((lane >> 4) << 3)) * kLds + ((lane >> 3) & 1) * 8;
 #pragma unroll
   for (int kk = 0; kk < kDC / 16; ++kk) {
     if (kk < nk) {
@@ -165,33 +177,35 @@ __device__ __forceinline__ void mma_nk(float acc[][4], const bf16* a_tile, int a
       for (int np = 0; np < NT / 2; ++np) {
         uint32_t f[4];
         ldsm_x4(f, bp + np * 16 * kLds + kk * 16);
-        mma(acc[2 * np], a, f[0], f[1]);
-        mma(acc[2 * np + 1], a, f[2], f[3]);
+        T16<T>::mma(acc[2 * np], a, f[0], f[1]);
+        T16<T>::mma(acc[2 * np + 1], a, f[2], f[3]);
       }
     }
   }
 }
 
 // acc[16] (16 x 128) += P B: P the 16 x 16 KT accumulator fragments
-// p[2 KT] of an earlier product, rounded to bf16 here; B the tile b
-// (16 KT rows, the k index) over columns [0, 16 ndp) (the n index)
-template <int KT>
-__device__ __forceinline__ void mma_kn(float acc[16][4], const float p[][4], const bf16* b,
+// p[2 KT] of an earlier product, rounded to T here (one term: the TPU
+// kernel's p.astype(v.dtype)); B the tile b (16 KT rows, the k index) over
+// columns [0, 16 ndp) (the n index)
+template <int KT, typename T>
+__device__ __forceinline__ void mma_kn(float acc[16][4], const float p[][4], const T* b,
                                        int ndp) {
   const int lane = threadIdx.x & 31;
-  const bf16* bp = b + ((lane & 7) + (((lane >> 3) & 1) << 3)) * kLds + ((lane >> 4) << 3);
+  const T* bp = b + ((lane & 7) + (((lane >> 3) & 1) << 3)) * kLds + ((lane >> 4) << 3);
 #pragma unroll
   for (int kk = 0; kk < KT; ++kk) {
-    const uint32_t a[4] = {pack(p[2 * kk][0], p[2 * kk][1]), pack(p[2 * kk][2], p[2 * kk][3]),
-                           pack(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                           pack(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+    const uint32_t a[4] = {T16<T>::pack(p[2 * kk][0], p[2 * kk][1]),
+                           T16<T>::pack(p[2 * kk][2], p[2 * kk][3]),
+                           T16<T>::pack(p[2 * kk + 1][0], p[2 * kk + 1][1]),
+                           T16<T>::pack(p[2 * kk + 1][2], p[2 * kk + 1][3])};
 #pragma unroll
     for (int dp = 0; dp < kDC / 16; ++dp) {
       if (dp < ndp) {
         uint32_t f[4];
         ldsm_x4_trans(f, bp + kk * 16 * kLds + dp * 16);
-        mma(acc[2 * dp], a, f[0], f[1]);
-        mma(acc[2 * dp + 1], a, f[2], f[3]);
+        T16<T>::mma(acc[2 * dp], a, f[0], f[1]);
+        T16<T>::mma(acc[2 * dp + 1], a, f[2], f[3]);
       }
     }
   }
@@ -205,9 +219,10 @@ __device__ __forceinline__ void zero(float a[][4]) {
     for (int e = 0; e < 4; ++e) a[i][e] = 0.f;
 }
 
-// rows g and g + 8 of a warp's 16 x 128 accumulator, rounded to bf16:
+// rows g and g + 8 of a warp's 16 x 128 accumulator, rounded to T:
 // rows [row0, row0 + 16) of the (S, D) output, columns [c0, c0 + w)
-__device__ __forceinline__ void store_rows(bf16* __restrict__ out, const float acc[16][4],
+template <typename T>
+__device__ __forceinline__ void store_rows(T* __restrict__ out, const float acc[16][4],
                                            int row0, int S, int D, int c0, int w,
                                            const float mul[2]) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -215,13 +230,13 @@ __device__ __forceinline__ void store_rows(bf16* __restrict__ out, const float a
   for (int h = 0; h < 2; ++h) {
     const int r = row0 + g + 8 * h;
     if (r >= S) continue;
-    bf16* orow = out + (size_t)r * D + c0;
+    T* orow = out + (size_t)r * D + c0;
 #pragma unroll
     for (int nt = 0; nt < 16; ++nt)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int c = nt * 8 + 2 * t + e;
-        if (c < w) orow[c] = __float2bfloat16_rn(acc[nt][2 * h + e] * mul[h]);
+        if (c < w) orow[c] = T16<T>::round(acc[nt][2 * h + e] * mul[h]);
       }
   }
 }
@@ -247,12 +262,13 @@ __device__ __forceinline__ int ksteps(int w) {
 // Stages per key tile: one per head_dim chunk of Q K^T (K chunk; Q chunk
 // too when D > 128, else Q is resident), then one of P V (V's output
 // chunk).  Shared memory: a ring of K/V tiles, then Q (1 tile, or a ring
-// when D > 128).
-template <bool kFull>
+// when D > 128).  T is bf16 or f16 (the draft model's f16 spans); the
+// backward kernels below are bf16 only.
+template <typename T, bool kFull>
 __global__ void __launch_bounds__(32 * kFwdWarps, kFwdMinBlocks)
-flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ o,
-                      float* __restrict__ lse, int S, int D, float scale, int vec) {
+flash_fwd16_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                   T* __restrict__ o, float* __restrict__ lse, int S, int D, float scale,
+                   int vec) {
   constexpr int R = 16 * kFwdWarps, TH = 32 * kFwdWarps, KT = kFwdStep, NS = kFwdStages;
   constexpr int kQSlot = R * kLds, kKSlot = KT * kLds;
   const int nq = (S + R - 1) / R;
@@ -260,12 +276,12 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const size_t bh = blockIdx.x;
   const int nch = (D + kDC - 1) / kDC;
   const int oc0 = blockIdx.z * kDC, ow = min(kDC, D - oc0);
-  const bf16* qg = q + bh * S * D;
-  const bf16* kg = k + bh * S * D;
-  const bf16* vg = v + bh * S * D;
+  const T* qg = q + bh * S * D;
+  const T* kg = k + bh * S * D;
+  const T* vg = v + bh * S * D;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* ring = reinterpret_cast<bf16*>(smem);
-  bf16* qs = ring + NS * kKSlot;
+  T* ring = reinterpret_cast<T*>(smem);
+  T* qs = ring + NS * kKSlot;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int q0 = qt * R;
   const int nkt = min((q0 + R + KT - 1) / KT, (S + KT - 1) / KT);  // to the diagonal
@@ -298,7 +314,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (st + NS - 1 < nst) issue(st + NS - 1);
     cp_async_commit();
     const int kt = st / per, j = st - kt * per, buf = st % NS;
-    const bf16* tile = ring + buf * kKSlot;
+    const T* tile = ring + buf * kKSlot;
     if (j < nch) {                                  // S += Q_j K_j^T
       if (j == 0) zero<KT / 8>(s);
       const int w = min(kDC, D - j * kDC);
@@ -342,7 +358,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int nt = 0; nt < kDC / 8; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[nt][e] *= alpha[e >> 1];
-    mma_kn<KT / 16>(acc, s, tile, ksteps<kFull>(ow));  // O += bf16(P) V
+    mma_kn<KT / 16>(acc, s, tile, ksteps<kFull>(ow));  // O += T(P) V
   }
   cp_async_wait<0>();
   float inv[2];
@@ -951,18 +967,20 @@ int dq_f32(const void* q, const void* k, const void* v, const void* dout, const 
 }
 
 
-int fwd_bf16(const void* q, const void* k, const void* v, void* o, void* lse, int BH, int S,
-             int D, float scale, int device, void* stream) {
+// the 16-bit forward: T = tc::bf16 (the bf16 path) or tc::f16 (the f16
+// draft spans)
+template <typename T>
+int fwd16(const void* q, const void* k, const void* v, void* o, void* lse, int BH, int S, int D,
+          float scale, int device, void* stream) {
   const size_t smem = tc::fwd_smem(D);
-  const auto kernel = D % kDC == 0 ? tc::flash_fwd_bf16_kernel<true>
-                                   : tc::flash_fwd_bf16_kernel<false>;
+  const auto kernel = D % kDC == 0 ? tc::flash_fwd16_kernel<T, true>
+                                   : tc::flash_fwd16_kernel<T, false>;
   cudaError_t err = prepare(kernel, smem, device);
   if (err != cudaSuccess) return (int)err;
   const int vec = D % 8 == 0 && tc::aligned16(q) && tc::aligned16(k) && tc::aligned16(v);
   kernel<<<tc::grid_of(BH, S, D, tc::kFwdWarps), 32 * tc::kFwdWarps, smem,
-           (cudaStream_t)stream>>>(
-      (const tc::bf16*)q, (const tc::bf16*)k, (const tc::bf16*)v, (tc::bf16*)o, (float*)lse,
-      S, D, scale, vec);
+           (cudaStream_t)stream>>>((const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse, S,
+                                   D, scale, vec);
   return (int)cudaGetLastError();
 }
 
@@ -1004,36 +1022,44 @@ int dq_bf16(const void* q, const void* k, const void* v, const void* dout, const
 
 extern "C" {
 
-// dtype codes: 0 = float32, 1 = bfloat16 (q, k, v, o, dout, dk, dv, dq);
-// lse and delta are f32 always.
+// dtype codes: 0 = float32, 1 = bfloat16 (q, k, v, o, dout, dk, dv, dq),
+// 2 = float16 (the forward only: the backward has no f16 form yet, ROADMAP
+// A.1, float16 training); lse and delta are f32 always.  Any other code
+// returns cudaErrorInvalidValue and launches nothing.
 // q, k, v, o: (BH, S, D) contiguous; lse: (BH, S)
 int mx_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int BH,
                  int S, int D, float scale, int dtype, int device, void* stream) {
-  return dtype == 1 ? fwd_bf16(q, k, v, o, lse, BH, S, D, scale, device, stream)
-                    : fwd_f32(q, k, v, o, lse, BH, S, D, scale, device, stream);
+  switch (dtype) {
+    case 0: return fwd_f32(q, k, v, o, lse, BH, S, D, scale, device, stream);
+    case 1: return fwd16<tc::bf16>(q, k, v, o, lse, BH, S, D, scale, device, stream);
+    case 2: return fwd16<tc::f16>(q, k, v, o, lse, BH, S, D, scale, device, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // delta = rowsum(dO * O): (BH, S)
 int mx_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                      const void* lse, const void* delta, void* dk, void* dv, int BH, int S,
                      int D, float scale, int dtype, int device, void* stream) {
-  return dtype == 1 ? dkv_bf16(q, k, v, dout, lse, delta, dk, dv, BH, S, D, scale, device,
-                               stream)
-                    : dkv_f32(q, k, v, dout, lse, delta, dk, dv, BH, S, D, scale, device,
-                              stream);
+  switch (dtype) {
+    case 0: return dkv_f32(q, k, v, dout, lse, delta, dk, dv, BH, S, D, scale, device, stream);
+    case 1: return dkv_bf16(q, k, v, dout, lse, delta, dk, dv, BH, S, D, scale, device, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 int mx_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                     const void* lse, const void* delta, void* dqp, int BH, int S, int D,
                     float scale, int dtype, int device, void* stream) {
-  return dtype == 1 ? dq_bf16(q, k, v, dout, lse, delta, dqp, BH, S, D, scale, device,
-                              stream)
-                    : dq_f32(q, k, v, dout, lse, delta, dqp, BH, S, D, scale, device,
-                             stream);
+  switch (dtype) {
+    case 0: return dq_f32(q, k, v, dout, lse, delta, dqp, BH, S, D, scale, device, stream);
+    case 1: return dq_bf16(q, k, v, dout, lse, delta, dqp, BH, S, D, scale, device, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // dynamic shared memory of a bf16 kernel at head_dim D, bytes: which 0 =
-// forward, 1 = dK/dV, 2 = dQ
+// forward (f16's too), 1 = dK/dV, 2 = dQ
 int mx_flash_bf16_smem(int which, int D) {
   return (int)(which == 0 ? tc::fwd_smem(D) : which == 1 ? tc::dkv_smem(D) : tc::dq_smem(D));
 }

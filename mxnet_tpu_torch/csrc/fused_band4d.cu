@@ -47,7 +47,8 @@ extern "C" {
 
 // x (B, H, W, K) at element strides (sb, sh, sw, sk), scale and shift
 // (K,) f32, w (K, N) row-major, y (B, H, W, N) contiguous: x, w and y of
-// one type (dtype 0 = float32, 1 = bfloat16), y overlapping none of the
+// one type (dtype 0 = float32, 1 = bfloat16; any other code returns
+// cudaErrorInvalidValue), y overlapping none of the
 // others.  Returns the CUDA error of the launch (0 when there is nothing
 // to compute).
 int mx_fused_band4d(const void* x, const float* scale, const float* shift,
@@ -58,6 +59,9 @@ int mx_fused_band4d(const void* x, const float* scale, const float* shift,
   if (err != cudaSuccess) return (int)err;
   if (B <= 0 || H <= 0 || W <= 0 || N <= 0) return 0;
   if (K < 0 || K > INT_MAX || N > INT_MAX) return (int)cudaErrorInvalidValue;
+  // codes 0 and 1 only: float16 (2) has no form of this kernel yet
+  // (ROADMAP A.1), and an unknown code never runs another type's kernel
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   // 16-byte copies of X: channel stride 1, K a multiple of the vector and
   // every row 16-byte aligned (the stride of every dimension longer than

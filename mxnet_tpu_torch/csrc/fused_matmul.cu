@@ -37,7 +37,8 @@ extern "C" {
 
 // x (M, K), scale and shift (K,) f32, w (N, K), res (M, N) or NULL, y
 // (M, N): contiguous, x, w, res and y of one type (dtype 0 = float32,
-// 1 = bfloat16), y overlapping none of the others.  Returns the CUDA
+// 1 = bfloat16; any other code returns cudaErrorInvalidValue), y
+// overlapping none of the others.  Returns the CUDA
 // error of the launch (0 when M or N is 0: nothing to compute).
 int mx_fused_scale_relu_matmul(const void* x, const float* scale,
                                const float* shift, const void* w,
@@ -48,6 +49,9 @@ int mx_fused_scale_relu_matmul(const void* x, const float* scale,
   if (err != cudaSuccess) return (int)err;
   if (M <= 0 || N <= 0) return 0;
   if (K < 0 || K > INT_MAX || N > INT_MAX) return (int)cudaErrorInvalidValue;
+  // codes 0 and 1 only: float16 (2) has no form of this kernel yet
+  // (ROADMAP A.1), and an unknown code never runs another type's kernel
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   // X as one image row of M pixels: row m at element m * K
   if (dtype == 1) {

@@ -20,8 +20,8 @@
 // the backward moves ~100 MB, about 30 us at 3.35 TB/s.
 //
 // Forward design: a group of warps takes a row, each thread holding 8
-// values of it (two 16-byte vectors of f32, one of bf16), so a 2048-column
-// row takes 8 warps in either type (the fewest warps, 1, 2, 4 or 8, whose
+// values of it (two 16-byte vectors of f32, one of bf16 or f16), so a
+// 2048-column row takes 8 warps in any of the three types (the fewest warps, 1, 2, 4 or 8, whose
 // registers hold the row), and a 256-thread block holds as many groups as
 // fit.  The groups take rows in turn over a grid of at most
 // kFwdBlocksPerSM blocks an SM, so the serve steps' 8 to 64 rows get a
@@ -74,6 +74,7 @@
 // not a multiple of the vector) and misaligned rows go element by
 // element.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -87,11 +88,15 @@ template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; 
 template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+template <> __device__ __forceinline__ float to_f32<__half>(__half v) { return __half2float(v); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
+}
+template <> __device__ __forceinline__ __half from_f32<__half>(float v) {
+  return __float2half_rn(v);
 }
 
 // 16 bytes of T: N values
@@ -166,8 +171,8 @@ __device__ __forceinline__ float warp_sum(float a) {
 constexpr int kFwdThreads = 256, kFwdBlocksPerSM = 4;
 
 // values of a row a thread of the forward keeps in registers: 8 (two
-// 16-byte vectors of f32, one of bf16), so a 2048-column row takes 8
-// warps in either type (16 bf16 values a thread, 4 warps a row, ran 7%
+// 16-byte vectors of f32, one of bf16 or f16), so a 2048-column row takes
+// 8 warps in any of the three types (16 bf16 values a thread, 4 warps a row, ran 7%
 // slower at 4096 x 2048: tools/torch_layernorm_tune.py --fwd)
 constexpr int kFwdVals = 8;
 
@@ -731,7 +736,10 @@ int launch_bwd(const void* x, const void* res, const void* gamma, const void* me
 
 extern "C" {
 
-// dtype codes: 0 = float32, 1 = bfloat16; `res` may be null
+// dtype codes: 0 = float32, 1 = bfloat16, 2 = float16; `res` may be null.
+// x and gamma pair f32 and bf16 in any way, f16 only with f16 (the f16
+// serving path); any other pairing or an unknown code returns
+// cudaErrorInvalidValue and launches nothing
 int mx_layernorm_fwd(const void* x, const void* res, const void* gamma,
                      const void* beta, void* out, void* mean, void* rstd, int rows,
                      int cols, float eps, int x_dtype, int g_dtype, int device,
@@ -745,11 +753,17 @@ int mx_layernorm_fwd(const void* x, const void* res, const void* gamma,
     return launch<float, __nv_bfloat16>(x, res, gamma, beta, out, mean, rstd, rows, cols, eps, s);
   if (x_dtype == 1 && g_dtype == 0)
     return launch<__nv_bfloat16, float>(x, res, gamma, beta, out, mean, rstd, rows, cols, eps, s);
-  return launch<__nv_bfloat16, __nv_bfloat16>(x, res, gamma, beta, out, mean, rstd, rows, cols, eps, s);
+  if (x_dtype == 1 && g_dtype == 1)
+    return launch<__nv_bfloat16, __nv_bfloat16>(x, res, gamma, beta, out, mean, rstd, rows, cols, eps, s);
+  if (x_dtype == 2 && g_dtype == 2)
+    return launch<__half, __half>(x, res, gamma, beta, out, mean, rstd, rows, cols, eps, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // the backward's two stages; `part` is 2 * ceil(rows / rows_per_block) *
-// cols f32 scratch; dgamma and dbeta are written in gamma's dtype
+// cols f32 scratch; dgamma and dbeta are written in gamma's dtype.  Codes
+// 0 and 1 only, as for the forward: the backward has no f16 form yet
+// (ROADMAP A.1, float16 training), so code 2 returns cudaErrorInvalidValue
 int mx_layernorm_bwd(const void* x, const void* res, const void* gamma,
                      const void* mean, const void* rstd, const void* dy, void* dx,
                      void* dgamma, void* dbeta, void* part, int rows, int cols,
@@ -767,9 +781,11 @@ int mx_layernorm_bwd(const void* x, const void* res, const void* gamma,
   if (x_dtype == 1 && g_dtype == 0)
     return launch_bwd<__nv_bfloat16, float>(x, res, gamma, mean, rstd, dy, dx, dgamma,
                                             dbeta, part, rows, cols, rows_per_block, s);
-  return launch_bwd<__nv_bfloat16, __nv_bfloat16>(x, res, gamma, mean, rstd, dy, dx,
-                                                  dgamma, dbeta, part, rows, cols,
-                                                  rows_per_block, s);
+  if (x_dtype == 1 && g_dtype == 1)
+    return launch_bwd<__nv_bfloat16, __nv_bfloat16>(x, res, gamma, mean, rstd, dy, dx,
+                                                    dgamma, dbeta, part, rows, cols,
+                                                    rows_per_block, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* mx_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

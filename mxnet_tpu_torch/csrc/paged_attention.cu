@@ -24,8 +24,8 @@
 // of 4 warps takes each (range, chunk of 32 N output columns, head,
 // slot): 512 blocks at the served shape (4 ranges), not 128.  A warp takes
 // 4 keys a step, its lanes reading each K and V row 16 bytes a lane (N =
-// 4 f32 or 8 bf16 values: a row of 128 f32 is one load instruction of
-// the warp), V's 4 loads issued with K's; scores are reduced by
+// 4 f32 or 8 bf16 or f16 values: a row of 128 f32 is one load instruction
+// of the warp), V's 4 loads issued with K's; scores are reduced by
 // shuffles, the online softmax runs in registers from the finite -1e30
 // (no barrier a table block), and the 4 warps combine in order in
 // shared memory.  The ranges of a (slot, head) form one thread block
@@ -79,11 +79,12 @@
 // zeros; len == 0 reads no table entry and leaves the cache untouched;
 // masked scores take the finite fill -1e30, never NaN; keys clamp at the
 // table's M bs rows; a bf16 cache beside f32 rows is widened and split
-// (its lo is 0).  bf16 q/k/v over bf16 caches, the bf16 serving path, run
-// paged_chunk_bf16_kernel instead: the same ranges, stages, masks and
-// combine on the bf16 tile of attention_bf16.cuh (one bf16 mma for Q K^T
-// and two, P's hi and lo halves, for P V: about a quarter of the split
-// TF32 kernel's tensor-core cycles for the same f32-accurate sums).
+// (its lo is 0).  bf16 q/k/v over bf16 caches, the bf16 serving path, and
+// f16 q/k/v over f16 caches, the f16 one, run paged_chunk16_kernel
+// instead: the same ranges, stages, masks and combine on the 16-bit tile
+// of attention_bf16.cuh (one 16-bit mma for Q K^T and two, P's hi and lo
+// halves, for P V: about a quarter of the split TF32 kernel's tensor-core
+// cycles for the same f32-accurate sums).
 //
 // One-shot prefill (mx_paged_prefill): causal attention of a padded
 // prompt batch q/k/v (B, S, H, D) over its own keys, with the scatter
@@ -109,12 +110,14 @@
 // bf16 q/k/v over f32 caches are widened to f32 as they are staged
 // (element by element; a bf16 value's tf32 split has lo = 0) and the
 // output rounded once.  bf16 q/k/v over bf16 caches, the bf16 serving
-// path (ROADMAP B.5), run paged_prefill_bf16_kernel: the same blocks and
-// fused scatter (16 bytes a copy) on the bf16 tile of attention_bf16.cuh.
-// In bf16 it moves 2 * B S H D * (4 + 2 lengths / (B S)) bytes, 201 MB at
-// the served 8 x 1024 x 16 x 128 with every row real, and does 34.4
-// GFLOP: 0.060 ms at 3.35 TB/s against 0.035 ms at the dense 989 TFLOP/s,
-// so it is bound by bytes once its products run on the bf16 tensor cores.
+// path (ROADMAP B.5), and f16 over f16, the f16 one, run
+// paged_prefill16_kernel: the same blocks and fused scatter (16 bytes a
+// copy) on the 16-bit tile of attention_bf16.cuh.  In bf16 or f16 it
+// moves 2 * B S H D * (4 + 2 lengths / (B S)) bytes, 201 MB at the served
+// 8 x 1024 x 16 x 128 with every row real, and does 34.4 GFLOP: 0.060 ms
+// at 3.35 TB/s against 0.035 ms at the dense 989 TFLOP/s (the same for
+// either type), so it is bound by bytes once its products run on the
+// tensor cores.
 //
 // Head_dim is tiled in all three, so the reference's head_dims run (it
 // has no head_dim limit).  Decode gives each range one block per 32 N
@@ -124,6 +127,7 @@
 // chunk of output columns (which recomputes the scores); each block
 // scatters its own chunk of the K/V rows.  Neither has a head_dim limit.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -140,11 +144,15 @@ template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; 
 template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+template <> __device__ __forceinline__ float to_f32<__half>(__half v) { return __half2float(v); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
+}
+template <> __device__ __forceinline__ __half from_f32<__half>(float v) {
+  return __float2half_rn(v);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -181,6 +189,18 @@ template <> struct Vec16<__nv_bfloat16> {
     for (int i = 0; i < 4; ++i) {      // the low half is the lower column
       d[2 * i] = __uint_as_float(w[i] << 16);
       d[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+};
+template <> struct Vec16<__half> {
+  static constexpr int N = 8;
+  __device__ __forceinline__ static void widen(const uint4& u, float* d) {
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {      // the low half is the lower column
+      const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&w[i]));
+      d[2 * i] = f.x;
+      d[2 * i + 1] = f.y;
     }
   }
 };
@@ -695,16 +715,19 @@ paged_prefill_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------
-// bf16 q/k/v with bf16 caches: the one-shot and chunked prefills on the
-// bf16 tile of attention_bf16.cuh (exact Q K^T products, P V in hi and lo
-// halves), the other type pairs keeping the split-TF32 kernels above
+// 16-bit q/k/v over caches of the same type (bf16/bf16, the bf16 serving
+// path; f16/f16, the f16 one): the one-shot and chunked prefills on the
+// 16-bit tile of attention_bf16.cuh (exact Q K^T products, P V in hi and
+// lo halves, P scaled by 2^12 in f16), the other type pairs keeping the
+// split-TF32 kernels above
 // ---------------------------------------------------------------------
 using bf16 = __nv_bfloat16;
 
-// 16 bytes (8 bf16) at a time from src to dst when vec, else element by
+// 16 bytes (8 values) at a time from src to dst when vec, else element by
 // element: columns [c0, c0 + w) of one row
-__device__ __forceinline__ void copy_row_bf16(bf16* __restrict__ dst, const bf16* __restrict__ src,
-                                              int w, int lane, int lanes, bool vec) {
+template <typename T>
+__device__ __forceinline__ void copy_row16(T* __restrict__ dst, const T* __restrict__ src, int w,
+                                           int lane, int lanes, bool vec) {
   if (vec) {
     for (int c = lane * 8; c < w; c += lanes * 8)
       *reinterpret_cast<uint4*>(dst + c) = *reinterpret_cast<const uint4*>(src + c);
@@ -716,13 +739,13 @@ __device__ __forceinline__ void copy_row_bf16(bf16* __restrict__ dst, const bf16
 // One block: (head and row: x, query tile of 64 rows counting down: y,
 // 128 output columns: z), as paged_prefill_kernel, with the fused scatter
 // of its rows below min(lengths[b], S), 16 bytes a copy when vec
-template <bool kFull>
+template <typename T, bool kFull>
 __global__ void __launch_bounds__(32 * attn16::kFwdWarps, attn16::kFwdMinBlocks)
-paged_prefill_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, bf16* __restrict__ kc,
-                          bf16* __restrict__ vc, const int* __restrict__ table,
-                          const int* __restrict__ lens, bf16* __restrict__ out, int S, int H,
-                          int D, int bs, int M, float scale, int vec) {
+paged_prefill16_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, T* __restrict__ kc, T* __restrict__ vc,
+                       const int* __restrict__ table, const int* __restrict__ lens,
+                       T* __restrict__ out, int S, int H, int D, int bs, int M, float scale,
+                       int vec) {
   constexpr int R = 16 * attn16::kFwdWarps, TH = 32 * attn16::kFwdWarps;
   const int b = (int)blockIdx.x / H, h = (int)blockIdx.x % H;
   const int qt = (S + R - 1) / R - 1 - (int)blockIdx.y;    // longest rows first
@@ -737,34 +760,34 @@ paged_prefill_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   for (int r = q0 + (int)threadIdx.x / kLanes; r < min(q0 + R, L); r += TH / kLanes) {
     const size_t src = base + (size_t)r * rs + oc0;
     const size_t dst = ((size_t)tb[r / bs] * bs + r % bs) * rs + (size_t)h * D + oc0;
-    copy_row_bf16(kc + dst, k + src, ow, threadIdx.x % kLanes, kLanes, vec);
-    copy_row_bf16(vc + dst, v + src, ow, threadIdx.x % kLanes, kLanes, vec);
+    copy_row16(kc + dst, k + src, ow, threadIdx.x % kLanes, kLanes, vec);
+    copy_row16(vc + dst, v + src, ow, threadIdx.x % kLanes, kLanes, vec);
   }
   extern __shared__ __align__(16) unsigned char smem16[];
   attn16::forward<kFull>(q + base, k + base, v + base, out + base, S, D, rs, qt, oc0, scale,
-                         vec, reinterpret_cast<bf16*>(smem16));
+                         vec, reinterpret_cast<T*>(smem16));
 }
 
 // Stage key (or value) rows [k0, k0 + R) of one head, columns [c0, c0 +
-// w), into an (R, kLds) bf16 tile: keys below st from the cache through
+// w), into an (R, kLds) tile of T: keys below st from the cache through
 // the table (tbs, as stage_keys), keys in [st, kend) from the chunk input,
 // zeros from kend on and in columns [w, w rounded up to 16).  vec:
 // 16-byte cp.async (D % 8 == 0, 16-byte aligned bases); else element by
 // element, made visible by the __syncthreads that starts the stage which
 // reads the tile.
-template <int R, int TH>
-__device__ __forceinline__ void stage_keys_bf16(bf16* dst, const bf16* __restrict__ cache,
-                                                const bf16* __restrict__ chunk, const int* tbs,
-                                                int e0, int k0, int st, int kend, int bs,
-                                                size_t rs, size_t hd, int c0, int w, bool vec) {
+template <int R, int TH, typename T>
+__device__ __forceinline__ void stage_keys16(T* dst, const T* __restrict__ cache,
+                                             const T* __restrict__ chunk, const int* tbs, int e0,
+                                             int k0, int st, int kend, int bs, size_t rs,
+                                             size_t hd, int c0, int w, bool vec) {
   const int wp = (w + 15) & ~15;
   const int l16 = threadIdx.x & 15;
   for (int r = threadIdx.x >> 4; r < R; r += TH / 16) {
     const int kp = k0 + r;
     const bool ok = kp < kend;
-    const bf16* src = !ok ? chunk
-                      : kp < st ? cache + ((size_t)tbs[kp / bs - e0] * bs + kp % bs) * rs + hd + c0
-                                : chunk + (size_t)(kp - st) * rs + c0;
+    const T* src = !ok ? chunk
+                   : kp < st ? cache + ((size_t)tbs[kp / bs - e0] * bs + kp % bs) * rs + hd + c0
+                             : chunk + (size_t)(kp - st) * rs + c0;
     if (vec) {
       const int c = l16 * 8;
       if (c < wp) {
@@ -773,22 +796,23 @@ __device__ __forceinline__ void stage_keys_bf16(bf16* dst, const bf16* __restric
       }
     } else {
       for (int c = l16; c < wp; c += 16)
-        dst[r * attn16::kLds + c] = ok && c < w ? src[c] : __float2bfloat16_rn(0.f);
+        dst[r * attn16::kLds + c] = ok && c < w ? src[c] : tc::T16<T>::round(0.f);
     }
   }
 }
 
-// First stage of the chunked prefill in bf16: the blocks, ranges, stages,
-// masks and workspace of paged_chunk_kernel, on the bf16 tile.  Running
-// maxima go to ml in natural-log units (m ln 2), as the combine reads them.
-template <int kW, bool kFull>
+// First stage of the chunked prefill in 16 bits: the blocks, ranges,
+// stages, masks and workspace of paged_chunk_kernel, on the 16-bit tile.
+// Running maxima go to ml in natural-log units (m ln 2), as the combine
+// reads them; the partial sums are scaled back by p_unscale (exact).
+template <typename T, int kW, bool kFull>
 __global__ void __launch_bounds__(32 * kW)
-paged_chunk_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const bf16* __restrict__ kc,
-                        const bf16* __restrict__ vc, const int* __restrict__ table,
-                        const int* __restrict__ start, const int* __restrict__ lens,
-                        float* __restrict__ part, float* __restrict__ ml, int K, int H, int D,
-                        int bs, int M, int KR, int nr, float scale, int vec) {
+paged_chunk16_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     const T* __restrict__ kc, const T* __restrict__ vc,
+                     const int* __restrict__ table, const int* __restrict__ start,
+                     const int* __restrict__ lens, float* __restrict__ part,
+                     float* __restrict__ ml, int K, int H, int D, int bs, int M, int KR, int nr,
+                     float scale, int vec) {
   using attn16::kDC;
   using attn16::kLds;
   constexpr int R = 16 * kW, TH = 32 * kW, KT = kChunkStep, NS = kChunkStages;
@@ -805,17 +829,17 @@ paged_chunk_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int k1 = min(k0 + KR, st + ie);          // this block's keys [k0, k1)
   const size_t rs = (size_t)H * D, hd = (size_t)h * D;
   const size_t cb = (size_t)b * K * rs + hd;
-  const bf16* qb = q + cb;
-  const bf16* kb = k + cb;
-  const bf16* vb = v + cb;
+  const T* qb = q + cb;
+  const T* kb = k + cb;
+  const T* vb = v + cb;
   const int* tb = table + (size_t)b * M;
   const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
   const float sl2 = scale * attn16::kLog2e;
 
   extern __shared__ __align__(16) unsigned char smem16[];
   const int nch = (D + kDC - 1) / kDC;
-  bf16* ring = reinterpret_cast<bf16*>(smem16);
-  bf16* qs = ring + NS * kKSlot;
+  T* ring = reinterpret_cast<T*>(smem16);
+  T* qs = ring + NS * kKSlot;
   int* tbs = reinterpret_cast<int*>(qs + (nch > 1 ? NS : 1) * kQSlot);
   const int e0 = k0 / bs, ne = k0 < st ? (min(k1, st) - 1) / bs - e0 + 1 : 0;
   for (int e = threadIdx.x; e < ne; e += TH) tbs[e] = tb[e0 + e];
@@ -823,15 +847,14 @@ paged_chunk_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int per = nch + 1, nst = nkt * per;
   auto issue = [&](int i) {
     const int kt = i / per, j = i - kt * per, buf = i % NS;
-    bf16* tile = ring + buf * kKSlot;
+    T* tile = ring + buf * kKSlot;
     if (j < nch) {
       const int c0 = j * kDC, w = min(kDC, D - c0);
       if (nch > 1) attn16::stage_tile<R, TH>(qs + buf * kQSlot, qb, q0, K, rs, c0, w, vec);
-      stage_keys_bf16<KT, TH>(tile, kc, kb, tbs, e0, k0 + kt * KT, st, k1, bs, rs, hd, c0, w,
-                              vec);
+      stage_keys16<KT, TH>(tile, kc, kb, tbs, e0, k0 + kt * KT, st, k1, bs, rs, hd, c0, w, vec);
     } else {
-      stage_keys_bf16<KT, TH>(tile, vc, vb, tbs, e0, k0 + kt * KT, st, k1, bs, rs, hd, oc0, ow,
-                              vec);
+      stage_keys16<KT, TH>(tile, vc, vb, tbs, e0, k0 + kt * KT, st, k1, bs, rs, hd, oc0, ow,
+                           vec);
     }
   };
   if (nch == 1) attn16::stage_tile<R, TH>(qs, qb, q0, K, rs, 0, D, vec);
@@ -851,7 +874,7 @@ paged_chunk_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (i + NS - 1 < nst) issue(i + NS - 1);
     tc::cp_async_commit();
     const int kt = i / per, j = i - kt * per, buf = i % NS;
-    const bf16* tile = ring + buf * kKSlot;
+    const T* tile = ring + buf * kKSlot;
     if (j < nch) {                                  // S += Q_j K_j^T
       if (j == 0) attn16::zero<KT / 8>(sc);
       attn16::mma_nk<KT / 8>(sc, qs + (nch > 1 ? buf : 0) * kQSlot, warp * 16, tile,
@@ -877,8 +900,8 @@ paged_chunk_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // the range's partial results, rows past K left out
   const int row0 = q0 + warp * 16;
   const size_t pr = ((size_t)bh * nr + rg) * K;  // row 0 of this range
-  const float one[2] = {1.f, 1.f};
-  attn32::store_rows(part + pr * D, acc, row0, K, (size_t)D, oc0, ow, one);
+  const float unscale[2] = {attn16::p_unscale<T>(), attn16::p_unscale<T>()};
+  attn32::store_rows(part + pr * D, acc, row0, K, (size_t)D, oc0, ow, unscale);
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) l[hh] = attn16::quad_sum(l[hh]);
   if (blockIdx.z == 0 && t == 0) {
@@ -893,10 +916,10 @@ paged_chunk_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// dynamic shared memory of the bf16 first stage, bytes: a ring of K/V
+// dynamic shared memory of the 16-bit first stage, bytes: a ring of K/V
 // tiles, the query tile (a ring when D > 128), then the range's table
-// entries (at most KR / bs + 2)
-size_t chunk_bf16_smem(int warps, int D, int KR, int bs) {
+// entries (at most KR / bs + 2); the same for both types
+size_t chunk16_smem(int warps, int D, int KR, int bs) {
   return sizeof(bf16) * attn16::kLds *
              (kChunkStages * kChunkStep + 16 * warps * (D > attn16::kDC ? kChunkStages : 1)) +
          sizeof(int) * (KR / bs + 2);
@@ -910,47 +933,48 @@ cudaError_t allow_smem(F fn, size_t smem) {
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-int launch_prefill_bf16(const void* q, const void* k, const void* v, void* kc, void* vc,
-                        const void* table, const void* lens, void* out, int B, int S, int H,
-                        int D, int bs, int M, float scale, cudaStream_t stream) {
-  const auto fn = D % attn16::kDC == 0 ? paged_prefill_bf16_kernel<true>
-                                       : paged_prefill_bf16_kernel<false>;
+template <typename T>
+int launch_prefill16(const void* q, const void* k, const void* v, void* kc, void* vc,
+                     const void* table, const void* lens, void* out, int B, int S, int H, int D,
+                     int bs, int M, float scale, cudaStream_t stream) {
+  const auto fn = D % attn16::kDC == 0 ? paged_prefill16_kernel<T, true>
+                                       : paged_prefill16_kernel<T, false>;
   const size_t smem = attn16::fwd_smem(D);
   cudaError_t err = allow_smem(fn, smem);
   if (err != cudaSuccess) return (int)err;
   const int vec = D % 8 == 0 && tc::aligned16(q) && tc::aligned16(k) && tc::aligned16(v) &&
                   tc::aligned16(kc) && tc::aligned16(vc);
   fn<<<attn32::grid_of(B * H, S, D, attn16::kFwdWarps), 32 * attn16::kFwdWarps, smem,
-       stream>>>((const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)kc, (bf16*)vc,
-                 (const int*)table, (const int*)lens, (bf16*)out, S, H, D, bs, M, scale, vec);
+       stream>>>((const T*)q, (const T*)k, (const T*)v, (T*)kc, (T*)vc, (const int*)table,
+                 (const int*)lens, (T*)out, S, H, D, bs, M, scale, vec);
   return (int)cudaGetLastError();
 }
 
-int launch_chunk_bf16(const void* q, const void* k, const void* v, void* kc, void* vc,
-                      const void* table, const void* start, const void* lens, void* out,
-                      float* part, float* ml, int B, int K, int H, int D, int bs, int M, int KR,
-                      int warps, float scale, cudaStream_t stream) {
+template <typename T>
+int launch_chunk16(const void* q, const void* k, const void* v, void* kc, void* vc,
+                   const void* table, const void* start, const void* lens, void* out,
+                   float* part, float* ml, int B, int K, int H, int D, int bs, int M, int KR,
+                   int warps, float scale, cudaStream_t stream) {
   const bool full = D % attn16::kDC == 0;
-  const auto fn = warps == 1 ? (full ? paged_chunk_bf16_kernel<1, true>
-                                     : paged_chunk_bf16_kernel<1, false>)
-                             : (full ? paged_chunk_bf16_kernel<4, true>
-                                     : paged_chunk_bf16_kernel<4, false>);
-  const size_t smem = chunk_bf16_smem(warps, D, KR, bs);
+  const auto fn = warps == 1 ? (full ? paged_chunk16_kernel<T, 1, true>
+                                     : paged_chunk16_kernel<T, 1, false>)
+                             : (full ? paged_chunk16_kernel<T, 4, true>
+                                     : paged_chunk16_kernel<T, 4, false>);
+  const size_t smem = chunk16_smem(warps, D, KR, bs);
   cudaError_t err = allow_smem(fn, smem);
   if (err != cudaSuccess) return (int)err;
   const int vec = D % 8 == 0 && tc::aligned16(q) && tc::aligned16(k) && tc::aligned16(v) &&
                   tc::aligned16(kc) && tc::aligned16(vc);
   const int nr = (M * bs + KR - 1) / KR, qt = (K + 16 * warps - 1) / (16 * warps);
   fn<<<dim3(nr * qt, B * H, (D + attn16::kDC - 1) / attn16::kDC), 32 * warps, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)kc, (const bf16*)vc,
-      (const int*)table, (const int*)start, (const int*)lens, part, ml, K, H, D, bs, M, KR, nr,
-      scale, vec);
+      (const T*)q, (const T*)k, (const T*)v, (const T*)kc, (const T*)vc, (const int*)table,
+      (const int*)start, (const int*)lens, part, ml, K, H, D, bs, M, KR, nr, scale, vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  paged_chunk_combine_kernel<bf16, bf16><<<dim3(K, B * H), kCombineThreads,
-                                           2 * sizeof(float) * nr, stream>>>(
-      part, ml, (const bf16*)k, (const bf16*)v, (bf16*)kc, (bf16*)vc, (const int*)table,
-      (const int*)start, (const int*)lens, (bf16*)out, K, H, D, bs, M, KR, nr);
+  paged_chunk_combine_kernel<T, T><<<dim3(K, B * H), kCombineThreads, 2 * sizeof(float) * nr,
+                                     stream>>>(
+      part, ml, (const T*)k, (const T*)v, (T*)kc, (T*)vc, (const int*)table, (const int*)start,
+      (const int*)lens, (T*)out, K, H, D, bs, M, KR, nr);
   return (int)cudaGetLastError();
 }
 
@@ -1044,8 +1068,13 @@ int launch_chunk(const void* q, const void* k, const void* v, void* kc, void* vc
 
 extern "C" {
 
-// dtype codes: 0 = float32, 1 = bfloat16.  ranges: the thread block
-// cluster's size, 1 to 8; each slot's keys split evenly over them
+// dtype codes: 0 = float32, 1 = bfloat16, 2 = float16.  Every (q, cache)
+// pair has an explicit case: f32 and bf16 in any pairing, f16 only over
+// f16 caches (the f16 serving path); any other pairing or an unknown code
+// returns cudaErrorInvalidValue and launches nothing, never another
+// type's kernel.
+// ranges: the thread block cluster's size, 1 to 8; each slot's keys split
+// evenly over them
 int mx_paged_decode(const void* q, const void* kc, const void* vc, const void* table,
                     const void* pos, void* out, int C, int H, int D, int bs, int M, int ranges,
                     float scale, int q_dtype, int kv_dtype, int device, void* stream) {
@@ -1059,16 +1088,25 @@ int mx_paged_decode(const void* q, const void* kc, const void* vc, const void* t
     return launch_decode<float, __nv_bfloat16>(q, kc, vc, table, pos, out, C, H, D, bs, M, ranges, scale, s);
   if (q_dtype == 1 && kv_dtype == 0)
     return launch_decode<__nv_bfloat16, float>(q, kc, vc, table, pos, out, C, H, D, bs, M, ranges, scale, s);
-  return launch_decode<__nv_bfloat16, __nv_bfloat16>(q, kc, vc, table, pos, out, C, H, D, bs, M, ranges, scale, s);
+  if (q_dtype == 1 && kv_dtype == 1)
+    return launch_decode<__nv_bfloat16, __nv_bfloat16>(q, kc, vc, table, pos, out, C, H, D, bs, M, ranges, scale, s);
+  if (q_dtype == 2 && kv_dtype == 2)
+    return launch_decode<__half, __half>(q, kc, vc, table, pos, out, C, H, D, bs, M, ranges, scale, s);
+  return (int)cudaErrorInvalidValue;
 }
 
+// 0 for a bad dtype code
 size_t mx_paged_decode_smem(int D, int ctx, int bs, int ranges, int kv_dtype) {
+  if (kv_dtype < 0 || kv_dtype > 2) return 0;
   return decode_smem(D, decode_range_keys(ctx, ranges), bs, kv_dtype == 0 ? 4 : 8);
 }
 
-// bf16: 1 for the bf16/bf16 kernel, 0 for the split-TF32 one
-size_t mx_paged_chunk_prefill_smem(int warps, int D, int key_range, int bs, int bf16) {
-  return bf16 ? chunk_bf16_smem(warps, D, key_range, bs) : chunk_smem(warps, D, key_range, bs);
+// kind: 0 for the split-TF32 kernel, 1 for the 16-bit tile (bf16/bf16 and
+// f16/f16 alike); 0 for any other kind
+size_t mx_paged_chunk_prefill_smem(int warps, int D, int key_range, int bs, int kind) {
+  return kind == 0   ? chunk_smem(warps, D, key_range, bs)
+         : kind == 1 ? chunk16_smem(warps, D, key_range, bs)
+                     : 0;
 }
 
 // q, k, v, out: (B, K, H, D) seq-major; start, lens (B,) int32; part
@@ -1092,11 +1130,16 @@ int mx_paged_chunk_prefill(const void* q, const void* k, const void* v, void* kc
     return launch_chunk<float, __nv_bfloat16>(q, k, v, kc, vc, table, start, lens, out, pf, mf, B, K, H, D, bs, M, key_range, warps, scale, s);
   if (q_dtype == 1 && kv_dtype == 0)
     return launch_chunk<__nv_bfloat16, float>(q, k, v, kc, vc, table, start, lens, out, pf, mf, B, K, H, D, bs, M, key_range, warps, scale, s);
-  return launch_chunk_bf16(q, k, v, kc, vc, table, start, lens, out, pf, mf, B, K, H, D, bs, M, key_range, warps, scale, s);
+  if (q_dtype == 1 && kv_dtype == 1)
+    return launch_chunk16<__nv_bfloat16>(q, k, v, kc, vc, table, start, lens, out, pf, mf, B, K, H, D, bs, M, key_range, warps, scale, s);
+  if (q_dtype == 2 && kv_dtype == 2)
+    return launch_chunk16<__half>(q, k, v, kc, vc, table, start, lens, out, pf, mf, B, K, H, D, bs, M, key_range, warps, scale, s);
+  return (int)cudaErrorInvalidValue;
 }
 
-size_t mx_paged_prefill_smem(int D, int bf16) {
-  return bf16 ? attn16::fwd_smem(D) : attn32::fwd_smem(D);
+// kind as for mx_paged_chunk_prefill_smem
+size_t mx_paged_prefill_smem(int D, int kind) {
+  return kind == 0 ? attn32::fwd_smem(D) : kind == 1 ? attn16::fwd_smem(D) : 0;
 }
 
 // q, k, v, out: (B, S, H, D) seq-major, any D; lengths (B,) int32
@@ -1114,7 +1157,11 @@ int mx_paged_prefill(const void* q, const void* k, const void* v, void* kc, void
     return launch_prefill<float, __nv_bfloat16>(q, k, v, kc, vc, table, lens, out, B, S, H, D, bs, M, scale, smem, s);
   if (q_dtype == 1 && kv_dtype == 0)
     return launch_prefill<__nv_bfloat16, float>(q, k, v, kc, vc, table, lens, out, B, S, H, D, bs, M, scale, smem, s);
-  return launch_prefill_bf16(q, k, v, kc, vc, table, lens, out, B, S, H, D, bs, M, scale, s);
+  if (q_dtype == 1 && kv_dtype == 1)
+    return launch_prefill16<__nv_bfloat16>(q, k, v, kc, vc, table, lens, out, B, S, H, D, bs, M, scale, s);
+  if (q_dtype == 2 && kv_dtype == 2)
+    return launch_prefill16<__half>(q, k, v, kc, vc, table, lens, out, B, S, H, D, bs, M, scale, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* mx_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

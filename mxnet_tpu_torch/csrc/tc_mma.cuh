@@ -1,12 +1,14 @@
-// Tensor-core building blocks for Hopper (sm_90a), shared by the bf16
-// kernels of flash_attention.cu and fused_gemm_bf16.cuh and the f32
-// kernels of attention_f32.cuh, paged_attention.cu and fused_gemm_f32.cuh:
-// cp.async copies into shared memory, ldmatrix fragment loads, the
-// mma.sync m16n8k16 product with bf16 operands and f32 sums, the m16n8k8
-// product with tf32 operands and f32 sums, and split TF32 (3xTF32) on it;
-// also the card's SM count that grid sizes are taken from.
+// Tensor-core building blocks for Hopper (sm_90a), shared by the bf16 and
+// f16 kernels of flash_attention.cu and attention_bf16.cuh, the bf16 GEMM
+// of fused_gemm_bf16.cuh and the f32 kernels of attention_f32.cuh,
+// paged_attention.cu and fused_gemm_f32.cuh: cp.async copies into shared
+// memory, ldmatrix fragment loads, the mma.sync m16n8k16 product with bf16
+// or f16 operands and f32 sums (T16, the 16-bit element type's traits), the
+// m16n8k8 product with tf32 operands and f32 sums, and split TF32 (3xTF32)
+// on it; also the card's SM count that grid sizes are taken from.
 //
-// Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16): lane = 4 g + t.
+// Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16 or .f16, the same
+// for both): lane = 4 g + t.
 // A (16 x 16, row-major) comes from ldsm_x4 over rows (lane & 15) and
 // columns (lane >> 4) * 8 of the tile; B (16 x 8, k x n) from ldsm_x4 of
 // an (n, k) tile or ldsm_x4_trans of a (k, n) tile, two n8 tiles per
@@ -24,12 +26,14 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace tc {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
 // an H100 SXM's streaming multiprocessors, by which the launch rules of
 // fused_gemm_f32.cuh and layernorm.cu size their grids
@@ -68,6 +72,17 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const bf16* p) {
                : "r"(smem_addr(p)));
 }
 
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const f16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const f16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
 __device__ __forceinline__ void ldsm_x4(uint32_t r[4], const float* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -79,6 +94,18 @@ __device__ __forceinline__ void mma(float c[4], const uint32_t a[4], uint32_t b0
                                     uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c (16 x 8, f32) += a (16 x 16, f16, row) * b (16 x 8, f16, col); the
+// fragment layouts are the bf16 form's.  The sums stay f32, as the
+// reference's (an f16 accumulator would run faster and round every sum)
+__device__ __forceinline__ void mma_f16(float c[4], const uint32_t a[4], uint32_t b0,
+                                        uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
@@ -99,6 +126,40 @@ __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
+
+// two f32 rounded to f16 (to nearest even), lo in the low half
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The 16-bit element types of the m16n8k16 products, bf16 and f16: the
+// product, two f32 packed into one operand register (rounded to nearest
+// even), that register's two values back as f32, one value rounded.
+// ldmatrix and cp.async move 16-bit values of either type alike.
+template <typename T> struct T16;
+template <> struct T16<bf16> {
+  __device__ __forceinline__ static void mma(float c[4], const uint32_t a[4], uint32_t b0,
+                                             uint32_t b1) {
+    tc::mma(c, a, b0, b1);
+  }
+  __device__ __forceinline__ static uint32_t pack(float lo, float hi) { return tc::pack(lo, hi); }
+  __device__ __forceinline__ static float2 unpack(uint32_t u) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+  }
+  __device__ __forceinline__ static bf16 round(float x) { return __float2bfloat16_rn(x); }
+};
+template <> struct T16<f16> {
+  __device__ __forceinline__ static void mma(float c[4], const uint32_t a[4], uint32_t b0,
+                                             uint32_t b1) {
+    mma_f16(c, a, b0, b1);
+  }
+  __device__ __forceinline__ static uint32_t pack(float lo, float hi) { return pack_f16(lo, hi); }
+  __device__ __forceinline__ static float2 unpack(uint32_t u) {
+    return __half22float2(*reinterpret_cast<const __half2*>(&u));
+  }
+  __device__ __forceinline__ static f16 round(float x) { return __float2half_rn(x); }
+};
 
 // Split TF32 ("3xTF32").  One TF32 product keeps 10 mantissa bits of each
 // operand, about 2^-11 relative: too coarse for the f32 kernels'

@@ -35,6 +35,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 # libraries a source links beyond the CUDA runtime
 LINK_LIBS = {"rtc": ("nvrtc", "cuda")}
+# the two longest compiles split their device code's optimization over
+# the host's cores (nvcc --split-compile, CUDA 12.1+): on an H100 host
+# paged_attention.cu took 54 s and flash_attention.cu 35 s in one thread,
+# 29 s and 21 s split, with every kernel's ptxas register count unchanged;
+# build_all's wall time is the longest of the sources'
+SPLIT_COMPILE = ("paged_attention", "flash_attention")
 
 _lock = threading.Lock()
 _libs = {}
@@ -58,12 +64,15 @@ def cuda_lib_dir():
 
 
 def _flags(name):
+    """nvcc's flags for ``csrc/<name>.cu``: NVCC_FLAGS, then the
+    source's own (placed after the source on the command line)."""
+    extra = ("--split-compile=0",) if name in SPLIT_COMPILE else ()
     libs = LINK_LIBS.get(name, ())
     if not libs:
-        return NVCC_FLAGS
+        return NVCC_FLAGS + extra
     lib_dir = cuda_lib_dir()
-    return NVCC_FLAGS + ("-L%s" % lib_dir, "-L%s" % (lib_dir / "stubs"),
-                         "-Xlinker", "-rpath=%s" % lib_dir) + \
+    return NVCC_FLAGS + extra + ("-L%s" % lib_dir, "-L%s" % (lib_dir / "stubs"),
+                                 "-Xlinker", "-rpath=%s" % lib_dir) + \
         tuple("-l" + lib for lib in libs)
 
 

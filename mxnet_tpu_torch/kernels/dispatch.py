@@ -12,7 +12,13 @@ contract: the device of the inputs decides.
 ``PLAIN_CALLS[name]`` the calls of the plain version, as plain ints, so
 a run can show which path its work went through.  A wrapper whose
 kernel has several element types also counts each launch under
-``LAUNCHES_BY_DTYPE["name:dtype"]`` (``"flash_attention_fwd:bfloat16"``).
+``LAUNCHES_BY_DTYPE["name:dtype"]`` (``"flash_attention_fwd:bfloat16"``,
+``"paged_decode_attend:float16"``).
+
+float16 has kernels only on the serving path (``F16_KERNELS``: rows 1,
+2, 3, 5 and row 8's forward); :func:`check_tensor` refuses a float16
+tensor bound for any other kernel, naming ROADMAP A.1's float16
+training, before a pointer reaches it.
 Inside :func:`record_launches` the launches made on a stream being
 captured are also counted into dicts of their own: what a CUDA graph
 records, from any thread (autograd runs a captured backward on a thread
@@ -27,15 +33,22 @@ import torch
 
 from ..base import MXNetError
 
-__all__ = ["KERNELS", "LAUNCHES", "LAUNCHES_BY_DTYPE", "PLAIN_CALLS",
-           "on_cpu", "count_launch", "count_plain", "record_launches",
-           "reset_counts"]
+__all__ = ["KERNELS", "F16_KERNELS", "LAUNCHES", "LAUNCHES_BY_DTYPE",
+           "PLAIN_CALLS", "on_cpu", "count_launch", "count_plain",
+           "record_launches", "reset_counts", "refuse_f16",
+           "check_same_16bit"]
 
 KERNELS = ("paged_decode_attend", "paged_chunk_prefill_attend",
            "paged_prefill_attend", "layernorm_fused", "layernorm_fused_bwd",
            "flash_attention_fwd", "flash_attention_bwd_dkv",
            "flash_attention_bwd_dq", "two_bit_quantize_fused",
            "fused_scale_relu_matmul", "fused_band4d")
+# the kernels with a float16 form: the serving path's (rows 1, 2, 3, 5
+# and row 8's forward, the draft model's)
+F16_KERNELS = frozenset(("paged_decode_attend", "paged_chunk_prefill_attend",
+                         "paged_prefill_attend", "layernorm_fused",
+                         "flash_attention_fwd"))
+F16_TRAINING = "ROADMAP A.1, float16 training"
 LAUNCHES = {k: 0 for k in KERNELS}
 PLAIN_CALLS = {k: 0 for k in KERNELS}
 LAUNCHES_BY_DTYPE = {}
@@ -110,8 +123,19 @@ def reset_counts():
         LAUNCHES_BY_DTYPE.clear()
 
 
+def refuse_f16(kernel, name, t):
+    """Raises for a float16 tensor ``t`` bound for a kernel outside
+    ``F16_KERNELS``, naming ROADMAP A.1's float16 training."""
+    if t.dtype == torch.float16 and kernel not in F16_KERNELS:
+        raise MXNetError("%s: %s is float16; the kernel has no float16 form "
+                         "yet (%s)" % (kernel, name, F16_TRAINING))
+
+
 def check_tensor(kernel, name, t, *, dtypes, ndim=None, shape=None):
-    """Wrapper-side validation before a pointer reaches a kernel."""
+    """Wrapper-side validation before a pointer reaches a kernel: a
+    float16 tensor for a kernel outside ``F16_KERNELS`` raises, naming
+    ROADMAP A.1's float16 training."""
+    refuse_f16(kernel, name, t)
     if t.dtype not in dtypes:
         raise MXNetError("%s: %s has dtype %s; the kernel takes %s"
                          % (kernel, name, t.dtype,
@@ -126,5 +150,17 @@ def check_tensor(kernel, name, t, *, dtypes, ndim=None, shape=None):
         raise MXNetError("%s: %s must be contiguous" % (kernel, name))
 
 
-FLOAT_TYPES = (torch.float32, torch.bfloat16)
-DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+def check_same_16bit(kernel, a_name, a, b_name, b):
+    """The float16 forms take float16 with float16 only (f32 and bf16
+    pair in any way): raises for a float16 tensor beside one of another
+    type, which no kernel takes."""
+    if (a.dtype == torch.float16) != (b.dtype == torch.float16):
+        raise MXNetError("%s: %s is %s and %s %s; the float16 form takes "
+                         "float16 with float16" % (kernel, a_name, a.dtype,
+                                                   b_name, b.dtype))
+
+
+FLOAT_TYPES = (torch.float32, torch.bfloat16, torch.float16)
+# the C entry points' dtype codes; each has its own case there, and an
+# unknown code returns an error
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}

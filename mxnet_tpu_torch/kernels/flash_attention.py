@@ -5,8 +5,10 @@ jax's library Pallas kernel on the TPU (a forward kernel and two
 backward kernels, dK/dV and dQ).  The port's kernels are
 ``csrc/flash_attention.cu`` (design note in the source; the f32 forms
 run split TF32 on the tensor cores, ``csrc/attention_f32.cuh``): causal, with
-``scale``, on contiguous head-major ``(B, H, S, D)`` f32 or bf16, any
-``S`` and any ``D`` (the kernels tile head_dim in chunks of 128).  The
+``scale``, on contiguous head-major ``(B, H, S, D)`` f32 or bf16 (and
+f16 for the forward, the draft model of float16 serving; the backward
+refuses f16, ROADMAP A.1), any ``S`` and any ``D`` (the kernels tile
+head_dim in chunks of 128).  The
 forward also writes each row's log-sum-exp (f32), and the backward
 recomputes the probabilities from it; no ``S x S`` tensor is stored.
 In bf16 the kernels follow the TPU kernel's rounding points: products

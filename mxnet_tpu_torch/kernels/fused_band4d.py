@@ -32,7 +32,7 @@ import torch
 from ..base import MXNetError
 from . import _build
 from .dispatch import (DTYPE_CODE, FLOAT_TYPES, check_tensor, count_launch,
-                       count_plain, on_cpu)
+                       count_plain, on_cpu, refuse_f16)
 
 __all__ = ["fused_band4d", "fused_band4d_plain"]
 
@@ -60,6 +60,7 @@ def fused_band4d_plain(x, scale, shift, w):
 
 
 def _check(x, scale, shift, w):
+    refuse_f16(_KERNEL, "x", x)
     if x.dtype not in FLOAT_TYPES:
         raise MXNetError("%s: x has dtype %s; the kernel takes %s"
                          % (_KERNEL, x.dtype,

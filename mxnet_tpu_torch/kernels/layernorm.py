@@ -3,13 +3,14 @@
 Counterpart of ``mxnet_tpu/pallas/layernorm.py`` ``layernorm_fused``.
 The kernels are ``csrc/layernorm.cu`` (design notes in the source): the
 forward gives each row to a group of warps that holds it in registers
-(a looped form past 2048 columns in f32, 4096 in bf16), any width; the
-backward computes dx from the saved mean and rstd and reduces
+(a looped form past 2048 columns), any width, in f32, bf16 or (x and
+gamma both) f16; the backward, f32 and bf16 only (float16 training is
+ROADMAP A.1), computes dx from the saved mean and rstd and reduces
 dgamma/dbeta over all rows in two deterministic stages (per-block
 partial sums, then a fixed-order column sum), so two runs give the same
-bits.  ``layernorm_plain`` and
-``layernorm_bwd_plain`` are the same functions in plain PyTorch: the
-CPU path and the kernels' yardsticks on the card.
+bits.  ``layernorm_plain`` and ``layernorm_bwd_plain`` are the same
+functions in plain PyTorch: the CPU path and the kernels' yardsticks on
+the card.
 
 :class:`LayerNormFn` wraps the two in a ``torch.autograd.Function``
 (the counterpart of the JAX package's ``jax.custom_vjp`` pair).  As
@@ -24,8 +25,8 @@ import torch
 
 from ..base import MXNetError
 from . import _build
-from .dispatch import (DTYPE_CODE, FLOAT_TYPES, check_tensor, count_launch,
-                       count_plain, on_cpu)
+from .dispatch import (DTYPE_CODE, FLOAT_TYPES, check_same_16bit,
+                       check_tensor, count_launch, count_plain, on_cpu)
 
 __all__ = ["layernorm_fused", "layernorm_plain", "layernorm_fused_bwd",
            "layernorm_bwd_plain", "LayerNormFn", "layernorm"]
@@ -74,6 +75,7 @@ def layernorm_fused(x, gamma, beta, *, residual=None, eps=1e-5):
     check_tensor(_KERNEL, "x", x, dtypes=FLOAT_TYPES)
     check_tensor(_KERNEL, "gamma", gamma, dtypes=FLOAT_TYPES, shape=(cols,))
     check_tensor(_KERNEL, "beta", beta, dtypes=(gamma.dtype,), shape=(cols,))
+    check_same_16bit(_KERNEL, "x", x, "gamma", gamma)
     if residual is not None:
         check_tensor(_KERNEL, "residual", residual, dtypes=(x.dtype,),
                      shape=x.shape)

@@ -13,8 +13,11 @@ forward of ``csrc/attention_f32.cuh``, split TF32 on the tensor cores,
 or, for bf16 q/k/v over bf16 caches, the bf16 tile of
 ``csrc/attention_bf16.cuh`` (exact bf16 Q K^T products, P V in bf16 hi
 and lo halves), the chunked one over key ranges of the context that a
-second launch combines).  Each launch is also counted under its q type
-(``LAUNCHES_BY_DTYPE["paged_prefill_attend:bfloat16"]``).
+second launch combines).  f16 q/k/v over f16 caches, the float16
+serving path, run the same tile in f16 (P scaled by 2^12 into its
+halves); f16 pairs with f16 only.  Each launch is also counted under its
+q type (``LAUNCHES_BY_DTYPE["paged_prefill_attend:bfloat16"]``,
+``"paged_decode_attend:float16"``).
 Beside each wrapper is its plain PyTorch version: the CPU path and the
 kernel's yardstick on the card.
 
@@ -31,8 +34,8 @@ import torch
 
 from ..base import MXNetError
 from . import _build
-from .dispatch import (DTYPE_CODE, FLOAT_TYPES, check_tensor, count_launch,
-                       count_plain, on_cpu)
+from .dispatch import (DTYPE_CODE, FLOAT_TYPES, check_same_16bit,
+                       check_tensor, count_launch, count_plain, on_cpu)
 
 __all__ = ["paged_decode_attend", "paged_decode_attend_plain",
            "paged_chunk_prefill_attend", "paged_chunk_prefill_attend_plain",
@@ -89,10 +92,11 @@ def _bind(lib):
     return lib
 
 
-def _check_caches(kernel, k_cache, v_cache):
+def _check_caches(kernel, q, k_cache, v_cache):
     check_tensor(kernel, "k_cache", k_cache, dtypes=FLOAT_TYPES, ndim=4)
     check_tensor(kernel, "v_cache", v_cache, dtypes=(k_cache.dtype,),
                  shape=k_cache.shape)
+    check_same_16bit(kernel, "q", q, "the caches", k_cache)
 
 
 # ----------------------------------------------------------------------
@@ -150,7 +154,7 @@ def paged_decode_attend(q, k_cache, v_cache, block_table, positions, *,
                                          positions, scale=scale)
     check_tensor(_DECODE, "q", q, dtypes=FLOAT_TYPES, ndim=3)
     C, H, D = q.shape
-    _check_caches(_DECODE, k_cache, v_cache)
+    _check_caches(_DECODE, q, k_cache, v_cache)
     nb, bs = k_cache.shape[:2]
     if tuple(k_cache.shape[2:]) != (H, D):
         raise MXNetError("%s: caches hold (H, D) = %s, q has %s"
@@ -260,7 +264,7 @@ def paged_chunk_prefill_attend(q, k, v, k_cache, v_cache, block_table, start,
     B, K, H, D = q.shape
     check_tensor(_CHUNK, "k", k, dtypes=(q.dtype,), shape=q.shape)
     check_tensor(_CHUNK, "v", v, dtypes=(q.dtype,), shape=q.shape)
-    _check_caches(_CHUNK, k_cache, v_cache)
+    _check_caches(_CHUNK, q, k_cache, v_cache)
     nb, bs = k_cache.shape[:2]
     if tuple(k_cache.shape[2:]) != (H, D):
         raise MXNetError("%s: caches hold (H, D) = %s, q has %s"
@@ -355,7 +359,7 @@ def paged_prefill_attend(q, k, v, k_cache, v_cache, block_table, lengths, *,
     B, S, H, D = q.shape
     check_tensor(_PREFILL, "k", k, dtypes=(q.dtype,), shape=q.shape)
     check_tensor(_PREFILL, "v", v, dtypes=(q.dtype,), shape=q.shape)
-    _check_caches(_PREFILL, k_cache, v_cache)
+    _check_caches(_PREFILL, q, k_cache, v_cache)
     nb, bs = k_cache.shape[:2]
     if tuple(k_cache.shape[2:]) != (H, D):
         raise MXNetError("%s: caches hold (H, D) = %s, q has %s"

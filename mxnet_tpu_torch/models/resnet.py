@@ -7,7 +7,8 @@ shapes, so one numpy weight set binds in both packages.
 ``dtype='bfloat16'`` casts the data to bf16 before the first BatchNorm
 and the logits back to f32 before the softmax, as the JAX package's
 does, so the weights infer bf16 and BatchNorm keeps its statistics in
-f32; ``'float16'`` is a later item and raises.
+f32; ``'float16'`` raises (float16 training is ROADMAP A.1's next
+part).
 ``layout='NHWC'`` builds the whole trunk channel-last (data, OHWI
 weights, pooling, BatchNorm axis 3), with no relayout copy in the step
 (``ops/nn.py``); ``image_shape`` stays channels-first and the data
@@ -20,7 +21,7 @@ the bottleneck block.  CIFAR shapes (image height <= 28) use the
 from functools import partial
 
 from .. import symbol as sym
-from ..base import FLOAT16_LATER, MXNetError
+from ..base import FLOAT16_TRAINING, MXNetError
 
 BN_MOM = 0.9
 EPS = 2e-5
@@ -163,7 +164,7 @@ def get_symbol(num_classes=1000, num_layers=50, image_shape=(3, 224, 224),
     gives it (a tuple or a "3,224,224" string); with ``layout='NHWC'``
     the bound data variable is fed (N, H, W, C) batches."""
     if dtype == "float16":
-        raise MXNetError("resnet: %s" % FLOAT16_LATER)
+        raise MXNetError("resnet: %s" % FLOAT16_TRAINING)
     if dtype not in ("float32", "bfloat16"):
         raise MXNetError("resnet dtype=%r: use 'float32' or 'bfloat16'"
                          % (dtype,))

@@ -13,14 +13,16 @@ does (the embeddings cast to bf16, the logits back to f32; the weights
 the trunk meets infer bf16), and so do the five serving symbols: their
 weights, LayerNorms and paged caches bind bf16, their block tables,
 positions, offsets and lengths float32 (``shape_rules.INDEX_INPUTS``).
-MoE layers, tensor parallelism, float16 and dropout come with later
-slices.
+The serving symbols take ``dtype='float16'`` the same way (float16
+weights, LayerNorms and caches, float32 index inputs); the training
+symbol in float16 (ROADMAP A.1, float16 training), MoE layers, tensor
+parallelism and dropout come with later slices.
 """
 from __future__ import annotations
 
 from .. import initializer as _init
 from .. import symbol as sym
-from ..base import FLOAT16_LATER, MXNetError
+from ..base import FLOAT16_TRAINING, MXNetError, check_float_dtype
 
 # the mixed step's per-iteration inputs; every other argument is a
 # parameter or a cache
@@ -50,7 +52,7 @@ def get_symbol(num_classes=16384, num_layers=12, d_model=2048, num_heads=16,
         later.append("tensor_parallel=%r (multi-GPU, ROADMAP A.8)"
                      % (tensor_parallel,))
     if dtype == "float16":
-        later.append(FLOAT16_LATER)
+        later.append(FLOAT16_TRAINING)
     elif dtype not in ("float32", "bfloat16"):
         later.append("dtype=%r (ROADMAP A.1)" % (dtype,))
     if float(dropout) > 0:
@@ -170,12 +172,8 @@ def _cast_out(logits, dtype, tag=""):
 def _serving_only(fn_name, moe_experts, tensor_parallel=None,
                   dtype="float32"):
     """The serving symbols' options that come with later slices (they
-    serve in float32 or bfloat16)."""
-    if dtype == "float16":
-        raise MXNetError("%s: %s" % (fn_name, FLOAT16_LATER))
-    if dtype not in ("float32", "bfloat16"):
-        raise MXNetError("%s: dtype=%r is not in the PyTorch port yet "
-                         "(ROADMAP A.1)" % (fn_name, dtype))
+    serve in float32, bfloat16 or float16)."""
+    check_float_dtype(dtype, fn_name, serving=True)
     if moe_experts:
         raise MXNetError("%s: MoE layers (moe_experts=%s) are not in the "
                          "PyTorch port yet (ROADMAP A.8)"

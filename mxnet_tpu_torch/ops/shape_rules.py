@@ -357,9 +357,10 @@ PARAM_SHAPES = {
 
 # inputs that carry indices (block ids, positions, offsets, lengths) as
 # floats: type inference never gives them the type of the op's data, so
-# in a bf16 graph they stay float32, exact to 2^24 (bf16 holds integers
-# exactly only up to 256).  The JAX package's same-type rule makes them
-# bf16 there; the port differs on purpose (ROADMAP C).
+# in a bf16 or f16 graph they stay float32, exact to 2^24 (bf16 holds
+# integers exactly only up to 256, f16 up to 2048).  The JAX package's
+# same-type rule gives them the anchor's type there; the port differs on
+# purpose (ROADMAP C).
 INDEX_INPUTS = {
     "_contrib_PagedDecodeAttention": ("block_table", "positions"),
     "_contrib_PagedChunkPrefillAttention": ("block_table", "start",

@@ -28,7 +28,7 @@ do (SGD through ``mp_sgd_update``/``mp_sgd_mom_update``, the ops that
 ``parallel.TrainStep`` applies too).  The ``Updater`` that ``Module``,
 the kvstore and Gluon's ``Trainer`` apply creates and updates every
 state through these two, so a bf16 weight trains through its master on
-every path; float16 raises (ROADMAP A.1, float16).
+every path; float16 raises (ROADMAP A.1, float16 training).
 """
 from __future__ import annotations
 
@@ -37,7 +37,8 @@ import math
 import numpy as _np
 import torch
 
-from .base import FLOAT16_LATER, LOW_PRECISION, MXNetError, numpy_to_tensor
+from .base import (FLOAT16_TRAINING, LOW_PRECISION, MXNetError,
+                   numpy_to_tensor)
 from .ndarray.ndarray import NDArray, zeros
 from .ops.optimizer_ops import (adagrad_update, adam_update,
                                 mp_sgd_mom_update, mp_sgd_update,
@@ -120,7 +121,7 @@ class Optimizer:
         an f32 master copy: a bf16 weight under ``multi_precision``.
         Raises for float16."""
         if weight.dtype == torch.float16:
-            raise MXNetError("optimizer: %s" % FLOAT16_LATER)
+            raise MXNetError("optimizer: %s" % FLOAT16_TRAINING)
         return self.multi_precision and weight.dtype in LOW_PRECISION
 
     def create_state_multi_precision(self, index, weight):

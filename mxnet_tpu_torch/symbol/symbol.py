@@ -207,8 +207,9 @@ class Symbol:
         variable met first in an op's index input (``INDEX_INPUTS``:
         block tables, positions, offsets, lengths, take's indices) is
         float32 whatever the anchor: bf16 would round its values above
-        256 (the JAX package lets them take the anchor).  Returns
-        ``{variable name: dtype}`` and ``{(id(node), idx): dtype}``."""
+        256, f16 above 2048 (the JAX package lets them take the anchor).
+        Returns ``{variable name: dtype}`` and ``{(id(node), idx):
+        dtype}``."""
         dtypes = {k: torch_dtype(v) for k, v in known.items()}
         env, pending = {}, set()
         for node in self._topo():

@@ -24,9 +24,10 @@ state are ignored), and ``export_params`` turns the port's parameters
 back into numpy under the same names: a model trained by the port loads
 into the JAX package and into the port's ``DecodeEngine``.
 
-bf16: a bfloat16 numpy array (``ml_dtypes``', as the JAX package's bf16
-parameters come to numpy) is carried bit for bit as a
-``torch.bfloat16`` tensor; every other array as float32.
+bf16 and f16: a bfloat16 numpy array (``ml_dtypes``', as the JAX
+package's bf16 parameters come to numpy) is carried bit for bit as a
+``torch.bfloat16`` tensor, a float16 array as a ``torch.float16`` one;
+every other array as float32.
 ``export_params`` gives float32 numpy, which holds a bf16 value exactly,
 so a bf16 parameter cast back to bfloat16 in the JAX package has the
 bits it had on the port.
@@ -63,7 +64,7 @@ def symbol_shapes(symbol, **input_shapes):
 
 def convert_symbol_params(np_args, np_aux, ctx, symbol, **input_shapes):
     """``(arg_params, aux_params)`` as NDArrays on ``ctx`` (float32, or
-    bfloat16 for bfloat16 arrays), from
+    bfloat16 and float16 for arrays of those types), from
     name -> numpy dicts (or anything with ``asnumpy()``), checked against
     :func:`symbol_shapes`; extra names are ignored."""
     arg_shapes, aux_shapes = symbol_shapes(symbol, **input_shapes)
@@ -71,10 +72,15 @@ def convert_symbol_params(np_args, np_aux, ctx, symbol, **input_shapes):
             _checked_copy(np_aux, aux_shapes, ctx, "auxiliary states"))
 
 
+# 16-bit floating arrays kept in their own type by _checked_copy
+_SIXTEEN_BIT = ("bfloat16", "float16")
+
+
 def _checked_copy(np_params, expected, ctx, what):
     """Every name of ``expected`` copied from ``np_params`` onto ``ctx``
-    as float32 (bfloat16 arrays bit for bit as bfloat16); raises
-    ``MXNetError`` naming every missing or misshapen one."""
+    as float32 (bfloat16 and float16 arrays bit for bit in their own
+    type); raises ``MXNetError`` naming every missing or misshapen
+    one."""
     missing = sorted(n for n in expected if n not in np_params)
     if missing:
         raise MXNetError("convert: missing %s %s" % (what, missing))
@@ -83,7 +89,7 @@ def _checked_copy(np_params, expected, ctx, what):
     for name, shape in expected.items():
         v = np_params[name]
         arr = _np.asarray(v.asnumpy() if hasattr(v, "asnumpy") else v)
-        if arr.dtype.name != "bfloat16":
+        if arr.dtype.name not in _SIXTEEN_BIT:
             arr = arr.astype(_np.float32, copy=False)
         if arr.shape != tuple(shape):
             bad.append("%s %s (expected %s)" % (name, arr.shape,
@@ -116,9 +122,10 @@ def param_shapes(model_config):
 def convert_params(np_params, ctx, model_config):
     """Copy ``np_params`` (name -> numpy array, or anything with
     ``asnumpy()``, such as the JAX package's NDArrays) onto ``ctx`` as
-    float32 NDArrays, after checking names and shapes against the mixed
-    decode step of ``model_config``.  Raises ``MXNetError`` naming every
-    missing or misshapen parameter."""
+    float32 NDArrays (bfloat16 and float16 arrays in their own type),
+    after checking names and shapes against the mixed decode step of
+    ``model_config`` (any of its dtypes).  Raises ``MXNetError`` naming
+    every missing or misshapen parameter."""
     return _checked_copy(np_params, param_shapes(model_config), ctx,
                          "parameters")
 
@@ -126,8 +133,8 @@ def convert_params(np_params, ctx, model_config):
 def export_params(params):
     """``{name: float32 numpy array}`` from the port's parameters or
     auxiliary states (a dict of NDArrays or tensors on any device, such
-    as either half of ``Module.get_params()``); bf16 values are exact in
-    float32."""
+    as either half of ``Module.get_params()``); bf16 and f16 values are
+    exact in float32."""
     out = {}
     for name, v in params.items():
         t = v._data if isinstance(v, NDArray) else v

@@ -444,11 +444,6 @@ def test_float16_and_module_bf16_multi_precision_raise():
     with pytest.raises(mx.MXNetError, match="float16 is not in the PyTorch"):
         mx.optimizer.SGD(multi_precision=True).create_state_multi_precision(
             0, w)
-    # bf16 serving is ported (tests/test_torch_serve_bf16.py); float16
-    # serving still raises, naming A.1
-    with pytest.raises(mx.MXNetError, match="float16 is not in the PyTorch "
-                       "port yet .ROADMAP A.1"):
-        transformer.get_decode_step_symbol(**dict(LM, dtype="float16"))
     # Module binds the bf16 symbol's weights in bf16 and, since bf16
     # Module.fit is ported, trains them through f32 masters under
     # multi_precision; a float16 weight still raises in the updater

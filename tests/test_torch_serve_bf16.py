@@ -185,13 +185,10 @@ def test_bound_types_match_jax(which):
 
 @pytest.mark.parametrize("which", sorted(_SYMBOLS))
 def test_float16_serving_raises(which):
-    """float16 (and any other type but f32 and bf16) still raises,
-    naming ROADMAP A.1."""
+    """float16 serving is ported (tests/test_torch_serve_f16.py); any
+    type but f32, bf16 and f16 still raises, naming ROADMAP A.1."""
     build, _ = _SYMBOLS[which]
     kw = dict(block_size=4, num_blocks=16, **CFG)
-    with pytest.raises(mx.MXNetError, match="float16 is not in the PyTorch "
-                       "port yet .ROADMAP A.1"):
-        build(transformer, **dict(kw, dtype="float16"))
     with pytest.raises(mx.MXNetError, match="ROADMAP A.1"):
         build(transformer, **dict(kw, dtype="float64"))
 

@@ -4,6 +4,8 @@
     python3 tools/torch_ab.py serve PARENT_DIR CHANGE_DIR [ROUNDS]
     python3 tools/torch_ab.py kernels PARENT_DIR CHANGE_DIR [ROUNDS]
     python3 tools/torch_ab.py paged_bf16 PARENT_DIR CHANGE_DIR [ROUNDS]
+    python3 tools/torch_ab.py MODE PARENT_DIR CHANGE_DIR [ROUNDS] \
+        --dtype float16
 
 Runs one workload from each tree in a process of its own, in the order
 parent, change, change, parent, ROUNDS times (default 1), and prints one
@@ -34,6 +36,13 @@ paged_bf16: the tree's one-shot prefill (row 5) and chunked prefill (row
 the mixed step's 64 rows and the spec step's 8 x 5-row spans over long
 and short contexts, alone and 200 calls back to back.
 
+``--dtype float16`` (or ``bfloat16``): serve runs the tree's 16-bit
+serve and serve_spec phases in that type (``phase_serve_f16`` and
+``phase_serve_spec_f16``, or the bf16 ones) in place of the f32 ones;
+paged_bf16 times the same kernels on q/k/v and caches of that type (the
+f16 serving path).  A tree without that type's forms fails its runs,
+and the failure is printed.
+
 The timing helpers (and the prefill's inputs) are this tree's
 ``chip_smoke.py`` for both trees, so both are timed alike."""
 import json
@@ -57,8 +66,9 @@ import mxnet_tpu_torch as mx
 from mxnet_tpu_torch.kernels import _build
 _build.build_all()
 full = cs.seeded_params(cs.FULL)
-cs.phase_serve(torch, mx, full)
-cs.phase_serve_spec(torch, mx, full)
+short = {"float32": "", "bfloat16": "_bf16", "float16": "_f16"}[sys.argv[2]]
+getattr(cs, "phase_serve" + short)(torch, mx, full)
+getattr(cs, "phase_serve_spec" + short)(torch, mx, full)
 """
 
 KERNELS = PRELUDE + r"""
@@ -100,7 +110,7 @@ cs = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(cs)
 from mxnet_tpu_torch import kernels as mxk
 dev = torch.device("cuda", 0)
-bf = torch.bfloat16
+bf = getattr(torch, sys.argv[2] if sys.argv[2] != "float32" else "bfloat16")
 flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
 g = torch.Generator(device="cpu").manual_seed(cs.SEED + 40)
 H, D, nb, bs, M = 16, 128, 512, 16, 64
@@ -126,7 +136,7 @@ for case, B, K, starts, lens in (
                                                 ln, scale=sc)
     out[case] = cs.time_ms(torch, fn, flush)
     out[case + ":back_to_back"] = cs.pipelined_ms(torch, fn)
-print(json.dumps(out), flush=True)
+print(json.dumps({"dtype": str(bf)[6:], **out}), flush=True)
 """
 
 
@@ -142,11 +152,12 @@ def _serve_arm(d):
 def serve_result(lines):
     res = {}
     for d in lines:
-        if d.get("phase") == "serve":
+        phase = d.get("phase", "")
+        if phase in ("serve", "serve_bf16", "serve_f16"):
             res["serve"] = _serve_arm(d)
             if "eager_arm" in d:
                 res["serve_eager_arm"] = _serve_arm(d["eager_arm"])
-        elif d.get("phase") == "serve_spec":
+        elif phase in ("serve_spec", "serve_spec_bf16", "serve_spec_f16"):
             res["serve_spec"] = {}
             for arm in ("ngram", "draft"):
                 if arm in d:
@@ -168,25 +179,33 @@ MODES = {"serve": (SERVE, serve_result), "kernels": (KERNELS, kernels_result),
          "paged_bf16": (PAGED_BF16, kernels_result)}
 
 
-def run(tree, mode):
+def run(tree, mode, dtype):
     code, result = MODES[mode]
-    out = subprocess.run([sys.executable, "-c", code, os.path.join(HERE, "chip_smoke.py")],
-                         cwd=tree, capture_output=True, text=True, timeout=1200)
+    out = subprocess.run([sys.executable, "-c", code, os.path.join(HERE, "chip_smoke.py"),
+                          dtype], cwd=tree, capture_output=True, text=True, timeout=1200)
     lines = [json.loads(t) for t in out.stdout.splitlines() if t.startswith("{")]
-    res = {"tree": tree, "mode": mode, "rc": out.returncode, **result(lines)}
+    res = {"tree": tree, "mode": mode, "dtype": dtype, "rc": out.returncode,
+           **result(lines)}
     if out.returncode:
         res["stderr"] = out.stderr[-2000:]
     print(json.dumps(res), flush=True)
 
 
 def main():
-    if len(sys.argv) < 4 or sys.argv[1] not in MODES:
+    args = sys.argv[1:]
+    dtype = "float32"
+    if "--dtype" in args:
+        i = args.index("--dtype")
+        dtype = args[i + 1]
+        del args[i:i + 2]
+    if len(args) < 3 or args[0] not in MODES or \
+            dtype not in ("float32", "bfloat16", "float16"):
         raise SystemExit(__doc__)
-    mode, parent, change = sys.argv[1:4]
-    rounds = int(sys.argv[4]) if len(sys.argv) > 4 else 1
+    mode, parent, change = args[:3]
+    rounds = int(args[3]) if len(args) > 3 else 1
     for _ in range(rounds):
         for tree in (parent, change, change, parent):
-            run(tree, mode)
+            run(tree, mode, dtype)
 
 
 if __name__ == "__main__":

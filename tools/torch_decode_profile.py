@@ -14,6 +14,8 @@ one-shot prefill, or one training step goes on the GPU.
                                           # one TrainStep step
     python3 tools/torch_decode_profile.py [--spec|--prefill] --dtype \
         bfloat16                          # the bf16 serving steps
+    python3 tools/torch_decode_profile.py [--spec|--prefill] --dtype \
+        float16                           # the f16 serving steps
     python3 tools/torch_decode_profile.py --train --dtype bfloat16
     python3 tools/torch_decode_profile.py --resnet --layout NHWC \
         [--fuse] --dtype bfloat16         # bf16 TrainStep steps
@@ -89,11 +91,13 @@ dtype casts, which also run inside the BatchNorm and fused ranges) by
 name beside the groups, the device launches and host syncs per step
 and the device's idle share.
 
-With ``--dtype bfloat16`` the three serving profiles (default,
-``--spec``, ``--prefill``) bind the same model with
-``dtype='bfloat16'`` (chip_smoke.py's serve_bf16, serve_spec_bf16 and
-serve_prefill_bf16 configurations: bf16 weights, LayerNorms and caches,
-f32 embeddings and logits), and the two TrainStep profiles run
+With ``--dtype bfloat16`` (or ``float16``) the three serving profiles
+(default, ``--spec``, ``--prefill``) bind the same model with that
+``dtype`` (chip_smoke.py's serve_bf16, serve_spec_bf16 and
+serve_prefill_bf16 configurations, or their f16 twins: 16-bit weights,
+LayerNorms and caches, f32 embeddings and logits); float16 profiles the
+serving steps only (float16 training is ROADMAP A.1's next part).  With
+``bfloat16`` the two TrainStep profiles run
 chip_smoke.py's bf16 configurations instead: ``--train`` the full-width transformer
 with ``dtype='bfloat16'`` through ``parallel.TrainStep`` (its
 train_bf16 phase: batch 4 x 1024, SGD momentum with multi_precision),
@@ -575,8 +579,13 @@ def main():
     args = sys.argv[1:]
     dtype = args[args.index("--dtype") + 1] if "--dtype" in args \
         else "float32"
-    if dtype not in ("float32", "bfloat16"):
-        print("--dtype takes float32 or bfloat16", file=sys.stderr)
+    if dtype not in ("float32", "bfloat16", "float16"):
+        print("--dtype takes float32, bfloat16 or float16", file=sys.stderr)
+        return 2
+    if dtype == "float16" and any(a in args for a in ("--train", "--resnet",
+                                                      "--gluon")):
+        print("--dtype float16 profiles the serving steps only (float16 "
+              "training is ROADMAP A.1)", file=sys.stderr)
         return 2
     if "--resnet" in args and ("--layout" in args or "--fuse" in args
                                or dtype == "bfloat16"):

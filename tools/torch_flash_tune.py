@@ -282,7 +282,8 @@ DECODE_DIAGNOSE = {
 }
 # the cluster sizes (ranges a slot) the tuned library runs at
 DECODE_RANGES = (1, 2, 4, 8)
-ENTRIES = {"bfloat16": {"flash_attention_fwd": "flash_fwd_bf16_kernelILb1",
+ENTRIES = {"bfloat16": {"flash_attention_fwd":
+                        "flash_fwd16_kernelI13__nv_bfloat16Lb1",
                         "flash_attention_bwd_dkv": "flash_bwd_dkv_bf16_kernelILb1",
                         "flash_attention_bwd_dq": "flash_bwd_dq_bf16_kernelILb1"},
            "float32": {"flash_attention_fwd": "flash_fwd_f32_kernelILb1E",
@@ -571,7 +572,8 @@ def paged_bf16_ptxas(log):
     lines = log.splitlines()
     found = {}
     for i, line in enumerate(lines):
-        m = re.search(r"paged_(?:prefill|chunk)_bf16_kernelI\w+?E(?=E)", line)
+        m = re.search(r"paged_(?:prefill|chunk)16_kernelI13__nv_bfloat16\w+?E(?=E)",
+                      line)
         if "Compiling entry function" in line and m:
             block = " ".join(lines[i + 1:i + 4])
             found[m.group(0)] = {
