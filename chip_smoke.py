@@ -295,7 +295,8 @@ Phases, each printed as one JSON line:
    over two fixed batches, cuDNN's deterministic algorithms in both:
    ResNet-50 v2 at batch 128 through ``mx.kv.create('device')`` dense
    and 2-bit (threshold 0.5; SGD 0.1, momentum 0.9, wd 1e-4, accuracy)
-   and the transformer at 4 x 1024 tokens (SGD 0.05, momentum 0.9,
+   and the transformer (6 layers of FULL's widths) at 4 x 1024 tokens
+   (SGD 0.05, momentum 0.9,
    perplexity).  Each fused arm captures once, runs every step fused,
    makes no host sync in a steady step (``set_sync_debug_mode``
    warnings inside ``fit_step`` and ``update_metric``), launches one
@@ -387,12 +388,13 @@ Phases, each printed as one JSON line:
    LN_FWD_EDGES, timed at serve's 8 and 64 rows beside F.layer_norm in
    f16), flash_f16 (row 8's f16 forward at the draft model's (1, 16,
    1024, 128) and FLASH_F16_EDGES within close_f16_flash, timed beside
-   SDPA's f16 forward; the backward refuses f16) and dtype_codes (every
-   C entry point returns an error for a code or pairing it has no kernel
-   for, f16 beside another type and f16 where no f16 form exists
-   included; the wrappers of rows 4, 6, 7 and 10 refuse f16 tensors,
-   naming ROADMAP A.1); each kernel's f16 instances' ptxas lines first,
-   no spills;
+   SDPA's f16 forward; since float16 training also its dK/dV and dQ, 41)
+   and dtype_codes (every C entry point returns an error for a code or
+   pairing it has no kernel for, f16 beside another type and f16 where
+   no f16 form exists included; the wrappers of rows 7 and 10 refuse f16
+   tensors naming ROADMAP A.1's float16 for rows 7 and 10, row 6's as
+   f32 by design); each kernel's f16 instances' ptxas lines first, no
+   spills;
 39. serve_f16, serve_prefill_f16, serve_spec_f16 (after 35): 32, 33
    and 34 with ``dtype='float16'``: the engine's cache holds
    SERVE_F16_BLOCKS blocks with the first SERVE_F16_RESERVED off the
@@ -408,12 +410,45 @@ Phases, each printed as one JSON line:
    ``allow_fp16_reduced_precision_reduction``; the CPU's greedy tokens
    under forcing equal the card's on every arm (so the two devices'
    greedy streams are equal).
+41. float16 training's kernels (ROADMAP A.1, float16 training; with the
+   kernel phases of 3): layernorm_bwd_f16 (row 4's f16 form at 4096 x
+   2048 and LN_BWD_EDGES, with and without a residual, two runs
+   bit-identical: dx at rtol 2^-10 / atol 1e-5, dgamma and dbeta at
+   rtol 2^-10 / atol 2e-4; timed beside native_layer_norm_backward in
+   f16) and flash_f16's backward (dK/dV and dQ in f16 at (4, 16, 1024,
+   128) and FLASH_BF16_EDGES within close_f16_flash, two runs
+   bit-identical, FlashAttentionFn against autograd through the
+   reference at relative L2 FLASH_F16_FN_L2, the overflow case
+   FLASH_F16_OVERFLOW non-finite exactly where the plain version is;
+   timed beside SDPA's f16 autograd backward); the f16 instances'
+   ptxas lines first, no spills;
+42. train_f16 (after 22): 22 with ``dtype='float16'``: every step
+   launches the f16 flash kernels 12 times and the f16 LayerNorm
+   forward and backward 25 times, no plain version, the loss finite,
+   every f16 weight matrix's f32 master moves;
+43. fit_f16 (after 36): float16 ``Module.fit`` of the full-width
+   transformer as FIT_F16 says: a fused arm (the module's loss scaler;
+   one capture, every step fused, no host sync and one graph launch in
+   a steady step, no plain version, the f16 kernels recorded 12 and 25
+   times in its graph; its scale and skips printed, at least one update
+   applied), an eager arm and a fused arm with ``MXNET_LOSS_SCALE=off``
+   held against the eager one (f16 weights within one f16 ulp); every
+   f16 weight matrix's master moves and every weight stays finite in
+   all three; graph replay ms and tokens/s beside fit_bf16's; 10's
+   kvstore phase also runs f16 values (dense and 2-bit, bucketed and
+   eager on the card against the CPU: residuals bit-identical, masters
+   within KV's bound, weights within one f16 ulp);
+44. f16_train_agreement (after 24): a 2-layer transformer in f16 (seq
+   256, d_model 256) through TrainStep, card against CPU: outputs and the masters' moves
+   within F16_TRAIN_AGREE's relative L2 bounds, f16 weights within one
+   f16 ulp at each array's scale.
 
 Then the kernels' JSON line (every kernel with its dtype; the bf16 and
 f16 forms as rows of their own, the serving kernels' bf16 and f16
 instances with their serve phases' launches, row 8's f16 forward with
-the f16 draft arm's, the attention kernels with their head_dim-256
-times), and last ``{"ok": true, "device": ...}``.
+the f16 draft arm's, row 4 and row 8's backward in f16 with fit_f16's
+fused arm's, the attention kernels with their head_dim-256 times), and
+last ``{"ok": true, "device": ...}``.
 Any failed check raises, so the script exits non-zero and prints no
 result; it also exits non-zero when no CUDA device is present.
 TF32 is off for every matrix product and convolution.
@@ -508,16 +543,17 @@ BF16_RTOL, BF16_ATOL_SHARE = 2.0 ** -7, 2.0 ** -9
 FLASH_BF16_EDGES = ((2, 4, 17, 128), (2, 4, 1000, 128), (2, 4, 1024, 80),
                     (2, 4, 1000, 36), (1, 16, 1024, 128), (4, 8, 1024, 256),
                     (4, 4, 1024, 512))
-# the bf16 flash kernels' entry functions in csrc/flash_attention.cu
-# (templates: the mangled name up to the kFull argument, Lb1 or Lb0,
-# which follows; the forward is the 16-bit template at bf16) and their
+# the 16-bit flash kernels' entry functions in csrc/flash_attention.cu
+# (templates over the element type: the mangled name up to the kFull
+# argument, Lb1 or Lb0, which follows) at bf16 and f16, and their
 # numbers in mx_flash_bf16_smem
-FLASH_BF16_ENTRIES = {"flash_attention_fwd":
-                      ("flash_fwd16_kernelI13__nv_bfloat16", 0),
-                      "flash_attention_bwd_dkv": ("flash_bwd_dkv_bf16_kernelI",
-                                                  1),
-                      "flash_attention_bwd_dq": ("flash_bwd_dq_bf16_kernelI",
-                                                 2)}
+FLASH_16_ENTRIES = {dt: {"flash_attention_fwd": ("flash_fwd16_kernelI" + t, 0),
+                         "flash_attention_bwd_dkv":
+                         ("flash_bwd_dkv16_kernelI" + t, 1),
+                         "flash_attention_bwd_dq":
+                         ("flash_bwd_dq16_kernelI" + t, 2)}
+                    for dt, t in (("bfloat16", "13__nv_bfloat16"),
+                                  ("float16", "6__half"))}
 # bench.py's transformer train mode in bf16 (its learning rate and
 # 1/(B*S) rescale) and its flagship, ResNet-50 NHWC bf16 at batch 256
 TRAIN_BF16 = dict(batch=4, lr=0.01, momentum=0.9, steps=10, warmup=2)
@@ -569,6 +605,17 @@ F16_RTOL, F16_FLASH_ATOL_SHARE = 2.0 ** -10, 2.0 ** -12
 # row 8's f16 forward beside the draft model's (1, 16, 1024, 128): a
 # ragged S, D off the 16-byte copies, head_dim 256; (B, H, S, D)
 FLASH_F16_EDGES = ((2, 4, 17, 128), (2, 4, 1000, 36), (2, 8, 1024, 256))
+# row 8's f16 backward (float16 training, ROADMAP A.1): FlashAttentionFn
+# against autograd through the materialised reference at relative L2
+# bf16's 1e-2 over f16's 3 more bits; the overflow case, (B, H, S, D)
+# with V scaled by v_scale and dO's `rows` by do_scale (clamped inside
+# f16's range), so that dS passes 65504 on those rows' keys
+FLASH_F16_FN_L2 = 1e-2 / 8
+# the shapes row 8's f16 forms are timed at: the forward at the f16
+# draft model's spans, dK/dV and dQ at the f16 training step's
+FLASH_F16_SHAPES = dict(draft=(1, 16, 1024, 128), train=(4, 16, 1024, 128))
+FLASH_F16_OVERFLOW = dict(shape=(1, 2, 256, 64), v_scale=64.0,
+                          do_scale=20000.0, rows=(2, 7, 60, 200))
 # serve_f16's cache: SERVE_F16_BLOCKS blocks, of which the first
 # SERVE_F16_RESERVED are taken off the free list before its traffic, so
 # every block id the requests get passes 2048 (f16 holds integers
@@ -663,14 +710,15 @@ SANDWICH = dict(plain_l2=1e-2)
 # capture, 2 profiled after them): ResNet-50 v2 at batch 128 through
 # kvstore='device',
 # dense and 2-bit at 0.5, SGD 0.1 / 0.9 / wd 1e-4, metric acc; the
-# transformer at 4 x 1024 tokens, SGD 0.05 / 0.9, metric perplexity.
+# transformer at 4 x 1024 tokens, SGD 0.05 / 0.9, metric perplexity, its
+# depth cut to 6 layers for time (widths those of FULL).
 # Both arms run cuDNN's deterministic algorithms, so the fused and
 # eager steps compute the same sums and their weights are compared at
 # move_l2 (the difference over the eager arm's move, relative L2).
 FIT_FUSED = dict(resnet=dict(batch=128, lr=0.1, momentum=0.9, wd=1e-4,
                              threshold=0.5, batches=2, epochs=3),
                  transformer=dict(batch=4, lr=0.05, momentum=0.9, batches=2,
-                                  epochs=3),
+                                  epochs=3, num_layers=6),
                  move_l2=1e-3, profiled_steps=2)
 
 
@@ -691,6 +739,29 @@ FIT_BF16 = dict(transformer=dict(batch=4, lr=0.05, momentum=0.9, batches=2,
                 weights_tol=1e-2, replays=20,
                 overflow=dict(batch=64, features=256, hidden=512,
                               classes=16, threshold=0.05, lr=0.05))
+
+
+# float16 Module.fit (fit_f16, ROADMAP A.1's float16 training): the
+# transformer with dtype='float16' at FIT_BF16's transformer settings
+# (4 x 1024 tokens, SGD 0.05 / 0.9 with multi_precision, 6 steps over two
+# fixed batches) in three arms: fused with the module's loss scaler (the
+# main path; the reference's dynamic scaler, 2^15, is the overflow
+# check's bookkeeping and scales no gradient), eager (no scaler, as in
+# the reference), and fused with MXNET_LOSS_SCALE=off, held against the
+# eager arm: f16 weights within one f16 ulp of the value (rtol 2^-10,
+# atol 2^-24, the smallest subnormal), the masters' moves within
+# FIT_FUSED's move_l2
+FIT_F16 = dict(weights_rtol=2.0 ** -10, weights_atol=2.0 ** -24)
+# f16 TrainStep card against CPU (f16_train_agreement): a 2-layer
+# transformer in f16 at seq 256, batch 2 (bf16_agreement's at half its
+# widths: the CPU's f16 products are slow, 40 s at bf16_agreement's),
+# 2 steps; outputs and the f32 masters' moves within bf16's bounds (3e-2,
+# 5e-2) over f16's 3 more significand bits, f16 weights within one f16
+# ulp at each array's scale
+F16_TRAIN_AGREE = dict(config=dict(num_classes=2048, num_layers=2,
+                                   d_model=256, num_heads=4, ffn_dim=1024,
+                                   seq_len=256),
+                       out_l2=3e-2 / 8, master_l2=5e-2 / 8, steps=2)
 
 
 class SmokeFailure(RuntimeError):
@@ -3297,8 +3368,10 @@ def _ln_bwd_hold(torch, mxk, dev, g, rows, cols, dtype, errs):
     """LayerNorm backward on seeded (rows, cols) inputs in ``dtype``, with
     and without a residual: two runs bit-identical, against the plain
     version (f32: dx at rtol 1e-4 / atol 1e-5, dgamma and dbeta at atol
-    2e-4, see phase_layernorm_bwd; bf16: close_bf16).  Records each max
-    abs error in ``errs``; returns whether the strict f32 bound held."""
+    2e-4, see phase_layernorm_bwd; bf16: close_bf16; f16: rtol 2^-10,
+    one f16 ulp, with the f32 atols, see phase_layernorm_bwd_f16).
+    Records each max abs error in ``errs``; returns whether the strict
+    f32 bound held."""
     x, res, dy = (torch.randn(rows, cols, generator=g).to(dev).to(dtype)
                   for _ in range(3))
     gamma = (1 + 0.02 * torch.randn(cols, generator=g)).to(dev).to(dtype)
@@ -3314,10 +3387,13 @@ def _ln_bwd_hold(torch, mxk, dev, g, rows, cols, dtype, errs):
         check(all(torch.equal(a, b) for a, b in zip(got, again)),
               "layernorm_fused_bwd %s (%s): two runs differ" % (dtype, tag))
         for a, b, what in zip(got, ref, ("dx", "dgamma", "dbeta")):
+            atol = ATOL if what == "dx" else 2e-4
             if dtype == torch.float32:
-                ok = bool(torch.allclose(a, b, rtol=RTOL, atol=ATOL
-                                         if what == "dx" else 2e-4))
+                ok = bool(torch.allclose(a, b, rtol=RTOL, atol=atol))
                 strict = strict and close(torch, a, b)
+            elif dtype == torch.float16:
+                ok = bool(torch.allclose(a.float(), b.float(),
+                                         rtol=F16_RTOL, atol=atol))
             else:
                 ok = close_bf16(torch, a, b)
             check(ok, "layernorm_fused_bwd %s %s (%s) disagrees with its "
@@ -3725,12 +3801,102 @@ def _kv_run(mx, ctx, bucketed, updater):
     return [o.asnumpy() for o in outs], res, stats
 
 
+def _kv_run16(mx, ctx, bucketed, compress):
+    """KV's gradient streams as f16 values (f16 weights, f16 gradient
+    streams) through a device store on ``ctx`` under KV's SGD with
+    multi_precision, 2-bit at KV's threshold when ``compress``: the
+    pulled weights, the f32 masters and the residuals, as numpy, and the
+    engine's stats."""
+    kv = mx.kv.create("device")
+    kv.set_bucketing(bucketed)
+    if compress:
+        kv.set_gradient_compression({"type": "2bit",
+                                     "threshold": KV["threshold"]})
+    kv.set_optimizer(mx.optimizer.SGD(multi_precision=True, **KV["sgd"]))
+    keys = ["p%d" % i for i in range(len(KV["shapes"]))]
+    rng = np.random.RandomState(SEED + 9)
+    for k, s in zip(keys, KV["shapes"]):
+        kv.init(k, mx.nd.array(rng.normal(0, 1, s), ctx=ctx)
+                .astype("float16"))
+    r = np.random.RandomState(SEED + 10)
+    for _ in range(KV["steps"]):
+        grads = [[mx.nd.array(r.normal(0, 0.3, s), ctx=ctx)
+                  .astype("float16") for _ in range(KV["streams"])]
+                 for s in KV["shapes"]]
+        kv.push(keys, grads, priority=[-i for i in range(len(keys))])
+    outs = [mx.nd.zeros(s, ctx=ctx).astype("float16") for s in KV["shapes"]]
+    kv.pull(keys, out=outs)
+    if kv._engine is not None:
+        kv._engine.spill_residuals()
+    masters = {k: kv._updater.states[k][1].asnumpy() for k in keys}
+    res = {k: v.asnumpy() for k, v in kv._compression_residuals.items()}
+    stats = dict(kv._engine.stats) if kv._engine is not None else None
+    return [o.astype("float32").asnumpy() for o in outs], masters, res, \
+        stats
+
+
+def _kvstore_f16(torch, mx):
+    """f16 values through the store (ROADMAP A.1, float16 training),
+    dense and 2-bit: the card's bucketed store (f16 values bucketed under
+    the optimizer through their f32 master-gradient view; the quantizer
+    on that f32 view) against the card's eager store and the CPU's
+    bucketed one: residuals bit-identical, masters within KV's rtol/atol,
+    f16 weights within one f16 ulp (rtol 2^-10, atol 2^-24)."""
+    from mxnet_tpu_torch.kernels import LAUNCHES_BY_DTYPE, reset_counts
+    out = {}
+    for compress in (False, True):
+        tag = "2bit" if compress else "dense"
+        reset_counts()
+        card = _kv_run16(mx, mx.gpu(0), True, compress)
+        quant = dict(LAUNCHES_BY_DTYPE)
+        check(card[3]["flushes"] > 0, "kvstore f16 %s: nothing bucketed %s"
+              % (tag, card[3]))
+        check(not compress or quant.get("two_bit_quantize_fused:float32", 0)
+              == KV["streams"] * card[3]["buckets"], "kvstore f16 2bit: "
+              "quantize launches %s for %d buckets" % (quant,
+                                                       card[3]["buckets"]))
+        worst = {}
+        for label, other in (("eager", _kv_run16(mx, mx.gpu(0), False,
+                                                 compress)),
+                             ("cpu", _kv_run16(mx, mx.cpu(), True,
+                                               compress))):
+            for a, b in zip(card[0], other[0]):
+                check(np.allclose(a, b, rtol=FIT_F16["weights_rtol"],
+                                  atol=FIT_F16["weights_atol"]),
+                      "kvstore f16 %s card vs %s: weights differ by %g"
+                      % (tag, label, float(np.abs(a - b).max())))
+            for k in card[1]:
+                check(np.allclose(card[1][k], other[1][k], rtol=KV["rtol"],
+                                  atol=KV["atol"]), "kvstore f16 %s card "
+                      "vs %s: masters differ by %g" % (
+                          tag, label,
+                          float(np.abs(card[1][k] - other[1][k]).max())))
+            check(sorted(card[2]) == sorted(other[2]) and all(
+                np.array_equal(card[2][k].view(np.int32),
+                               other[2][k].view(np.int32))
+                for k in card[2]), "kvstore f16 %s card vs %s: residuals "
+                "not bit-identical" % (tag, label))
+            worst[label] = {
+                "weights_max_abs_diff": max(float(np.abs(a - b).max())
+                                            for a, b in zip(card[0],
+                                                            other[0])),
+                "masters_max_abs_diff": max(
+                    float(np.abs(card[1][k] - other[1][k]).max())
+                    for k in card[1])}
+        out[tag] = {"buckets": card[3]["buckets"],
+                    "flushes": card[3]["flushes"],
+                    "quantize_launches_by_dtype": quant,
+                    "residuals": len(card[2]), **worst}
+    return out
+
+
 def phase_kvstore(torch, mx):
     """The same numpy gradient streams through a store on the card and
     one on the CPU: with no updater the pulled values and the residuals
     are bit-identical, card against CPU and bucketed against eager on
     the card; with SGD they agree within KV's rtol/atol (FMA contraction
-    in the update)."""
+    in the update).  Then f16 values, dense and 2-bit (``_kvstore_f16``).
+    """
     from mxnet_tpu_torch.kernels import LAUNCHES, reset_counts
     reset_counts()
     card, card_res, stats = _kv_run(mx, mx.gpu(0), True, False)
@@ -3767,7 +3933,8 @@ def phase_kvstore(torch, mx):
           "sgd_residuals_bit_identical": all(
               np.array_equal(sgd_res[k].view(np.int32),
                              sgd_cpu_res[k].view(np.int32))
-              for k in sgd_res)})
+              for k in sgd_res),
+          "float16": _kvstore_f16(torch, mx)})
 
 
 # ----------------------------------------------------------------------
@@ -4487,6 +4654,36 @@ def _flash_pairs(torch, mxk, q, k, v, do, sc):
     return list(zip(("out", "lse", "dk", "dv", "dq"), got, ref))
 
 
+def _flash16_ptxas(torch, dtype):
+    """ptxas's register, stack and spill lines (no spills allowed) of
+    the three 16-bit flash kernels' instances at ``dtype``, each in its
+    two forms (compile-time step counts when every head_dim chunk is
+    full, D % 128 == 0; a branch per step otherwise), printed with their
+    dynamic shared memory at D = 128."""
+    import ctypes
+    from mxnet_tpu_torch.kernels import _build
+    forms = {"full": "Lb1", "ragged": "Lb0"}
+    entries = FLASH_16_ENTRIES[dtype]
+    ptx = _ptxas("flash_attention", {
+        "%s:%s" % (n, form): entry + tag for n, (entry, _) in entries.items()
+        for form, tag in forms.items()})
+    lib = _build.load("flash_attention")
+    lib.mx_flash_bf16_smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.mx_flash_bf16_smem.restype = ctypes.c_int
+    for key in sorted(ptx):
+        name, form = key.split(":")
+        entry, which = entries[name]
+        ptx[key]["dynamic_smem_bytes_d128"] = lib.mx_flash_bf16_smem(which,
+                                                                     128)
+        print("ptxas %s (%s form): %s; %d bytes of dynamic shared memory at "
+              "D = 128" % (entry, form, "; ".join(ptx[key]["lines"]),
+                           ptx[key]["dynamic_smem_bytes_d128"]), flush=True)
+        check(ptx[key]["spill_stores"] == 0 and
+              ptx[key]["spill_loads"] == 0,
+              "flash_attention: the %s %s (%s) spills" % (dtype, name, form))
+    return ptx
+
+
 def phase_flash_bf16(torch, mxk, dev, flush):
     """The bf16 forms of the three flash kernels (tensor cores) at the
     bf16 transformer's shape (4, 16, 1024, 128) and at the edges of
@@ -4500,26 +4697,8 @@ def phase_flash_bf16(torch, mxk, dev, flush):
     tensor-core peak.  First prints ptxas's register, stack and spill
     lines for the three kernels and their dynamic shared memory at
     D = 128."""
-    import ctypes
-    from mxnet_tpu_torch.kernels import _build
-    # each kernel has two forms: compile-time step counts when every
-    # head_dim chunk is full (D % 128 == 0), a branch per step otherwise
-    forms = {"full": "Lb1", "ragged": "Lb0"}
-    ptx = _ptxas("flash_attention", {
-        "%s:%s" % (n, form): entry + tag
-        for n, (entry, _) in FLASH_BF16_ENTRIES.items()
-        for form, tag in forms.items()})
-    lib = _build.load("flash_attention")
-    lib.mx_flash_bf16_smem.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.mx_flash_bf16_smem.restype = ctypes.c_int
-    for key in sorted(ptx):
-        name, form = key.split(":")
-        entry, which = FLASH_BF16_ENTRIES[name]
-        ptx[key]["dynamic_smem_bytes_d128"] = lib.mx_flash_bf16_smem(which, 128)
-        print("ptxas %s (%s form): %s; %d bytes of dynamic shared memory at "
-              "D = 128" % (entry, form, "; ".join(ptx[key]["lines"]),
-                           ptx[key]["dynamic_smem_bytes_d128"]), flush=True)
-    emit({"phase": "flash_bf16_ptxas", "kernels": ptx})
+    emit({"phase": "flash_bf16_ptxas",
+          "kernels": _flash16_ptxas(torch, "bfloat16")})
     B, H, S, D = 4, 16, 1024, 128
     sc = 1.0 / D ** 0.5
     bf = torch.bfloat16
@@ -4745,40 +4924,134 @@ def phase_layernorm_f16(torch, mxk, dev, flush):
     return row
 
 
-def phase_flash_f16(torch, mxk, dev, flush):
-    """Row 8's f16 forward (the draft model's spans in f16 serving; the
-    16-bit forward kernel at f16: P rounded to one f16 term, f32 sums)
-    against its plain version at the draft model's (1, 16, 1024, 128) and
-    at FLASH_F16_EDGES: the output within close_f16_flash, the f32 lse
-    at rtol 1e-4 / atol 1e-5, two runs bit-identical; the backward
-    kernels refuse f16 tensors, naming ROADMAP A.1.  Timed at the draft
-    shape beside SDPA's forward on the same f16 tensors, bounded by
-    bytes or by operations at the dense 16-bit tensor-core peak.  First
-    prints ptxas's lines of its two forms (no spills)."""
-    import ctypes
-    import torch.nn.functional as F
-    from mxnet_tpu_torch.base import MXNetError
-    from mxnet_tpu_torch.kernels import _build
+def phase_layernorm_bwd_f16(torch, mxk, dev, flush):
+    """Row 4's f16 form (f16 x, gamma and dy; f32 statistics: the f16
+    transformer's training LayerNorms) at the training shape 4096 x 2048
+    and at the widths of LN_BWD_EDGES, with and without a residual, two
+    runs bit-identical, against its plain version: dx at rtol 2^-10 (one
+    f16 ulp: each side rounds one f32 value) / atol 1e-5, dgamma and
+    dbeta at rtol 2^-10 / atol 2e-4 (f32 sums over every row in another
+    order, rounded once to f16: phase_layernorm_bwd's f32 atol).  Timed
+    at 4096 x 2048 beside aten.native_layer_norm_backward on the same f16
+    tensors, bounded by bytes, with 200 calls back to back.  First prints
+    ptxas's lines of the f16 instances (no spills).  Returns the
+    kernels-line row."""
     hf = torch.float16
-    forms = {"full": "Lb1", "ragged": "Lb0"}
-    ptx = _ptxas("flash_attention",
-                 {form: "flash_fwd16_kernelI6__half" + tag
-                  for form, tag in forms.items()})
-    lib = _build.load("flash_attention")
-    lib.mx_flash_bf16_smem.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.mx_flash_bf16_smem.restype = ctypes.c_int
-    for form in sorted(ptx):
-        ptx[form]["dynamic_smem_bytes_d128"] = lib.mx_flash_bf16_smem(0, 128)
-        print("ptxas flash_fwd16_kernel<__half> (%s form): %s; %d bytes of "
-              "dynamic shared memory at D = 128"
-              % (form, "; ".join(ptx[form]["lines"]),
-                 ptx[form]["dynamic_smem_bytes_d128"]), flush=True)
-        check(ptx[form]["spill_stores"] == 0 and
-              ptx[form]["spill_loads"] == 0,
-              "flash_attention: the f16 forward (%s) spills" % form)
+    ptx = _instances_ptxas("layernorm",
+                           r"layernorm_bwd_\w+?_kernelI6__half\w*?E(?=Ev)",
+                           "the f16 LayerNorm backward")
+    rows, cols = 4096, 2048
+    g = torch.Generator(device="cpu").manual_seed(SEED + 42)
+    errs = {}
+    for r_e, c_e in ((rows, cols),) + LN_BWD_EDGES:
+        _ln_bwd_hold(torch, mxk, dev, g, r_e, c_e, hf, errs)
+    x, dy = (torch.randn(rows, cols, generator=g).to(dev).to(hf)
+             for _ in range(2))
+    gamma = (1 + 0.02 * torch.randn(cols, generator=g)).to(dev).to(hf)
+    beta = (0.02 * torch.randn(cols, generator=g)).to(dev).to(hf)
+    _, mean, rstd = mxk.layernorm_plain(x, gamma, beta)
+    m2, r2 = mean.reshape(rows, 1), rstd.reshape(rows, 1)
+    fn = lambda: mxk.layernorm_fused_bwd(x, gamma, mean, rstd, dy)
+    nbytes = 3 * rows * cols * 2 + 3 * cols * 2 + 2 * rows * 4
+    b_ms, b_by = bound(nbytes, 12 * rows * cols, BF16_FLOPS_PER_S)
+    ms = time_ms(torch, fn, flush)
+    row = {"name": "layernorm_fused_bwd", "route": "cuda", "dtype": "float16",
+           "path": "fit_f16's training step",
+           "source": "mxnet_tpu_torch/csrc/layernorm.cu",
+           "replaces": "mxnet_tpu/pallas/layernorm.py:158",
+           "max_abs_err": max(errs.values()), "ms": ms,
+           "plain_ms": time_ms(torch, lambda: mxk.layernorm_bwd_plain(
+               x, gamma, mean, rstd, dy), flush),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": time_ms(
+               torch, lambda: torch.ops.aten.native_layer_norm_backward(
+                   dy, x, [cols], m2, r2, gamma, beta, [True, True, True]),
+               flush),
+           "back_to_back_ms": pipelined_ms(torch, fn),
+           "share_of_bound": b_ms / ms, "gbps": nbytes / ms / 1e6}
+    emit({"phase": "layernorm_bwd_f16", "rows": rows, "cols": cols,
+          "errors": errs, "edges": [list(e) for e in LN_BWD_EDGES],
+          "ptxas": ptx, "tolerance": "dx rtol 2^-10 (one f16 ulp) / atol "
+          "1e-5; dgamma, dbeta rtol 2^-10 / atol 2e-4",
+          "library_call": "aten.native_layer_norm_backward (f16)",
+          "kernel": row})
+    return row
+
+
+def _overflow_pairs(torch, mxk, dev, g):
+    """Row 8's f16 backward where dS passes f16's range: (1, 2, 256, 64)
+    inputs whose dO is N(0, 1) but for FLASH_F16_OVERFLOW's rows, scaled
+    so that |dS| = P |dP - Dr| scale passes 65504 over most of their
+    keys; the kernels' (dk, dv, dq) beside the plain versions', from
+    the plain forward's lse and Dr."""
+    hf = torch.float16
+    B, H, S, D = FLASH_F16_OVERFLOW["shape"]
+    q, k, v, do = (torch.randn(B, H, S, D, generator=g) for _ in range(4))
+    v = v * FLASH_F16_OVERFLOW["v_scale"]
+    for r in FLASH_F16_OVERFLOW["rows"]:
+        do[:, :, r] = (do[:, :, r] * FLASH_F16_OVERFLOW["do_scale"]).clamp(
+            -60000, 60000)
+    q, k, v, do = (t.to(dev).to(hf) for t in (q, k, v, do))
+    sc = 1.0 / D ** 0.5
+    o_ref, lse = mxk.flash_attention_fwd_plain(q, k, v, scale=sc)
+    delta = (do.float() * o_ref.float()).sum(-1)
+    got = mxk.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale=sc) + (
+        mxk.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale=sc),)
+    ref = mxk.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                            scale=sc) + (
+        mxk.flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, scale=sc),)
+    torch.cuda.synchronize()
+    return list(zip(("dk", "dv", "dq"), got, ref))
+
+
+def _hold_overflow(torch, what, a, b):
+    """The overflow case's bound: the kernel is non-finite exactly where
+    the plain version is, save for an output whose finite side lies
+    within one f16 ulp of 65504 (each side rounds its f32 sum once, in
+    another order, at the edge of the range), and the finite values
+    agree within close_f16_flash.  Returns the count of non-finite
+    elements."""
+    a, b = a.float(), b.float()
+    fa, fb = torch.isfinite(a), torch.isfinite(b)
+    edge = torch.where(fa, a, b).abs() >= 65504 * (1 - F16_RTOL)
+    check(bool(((fa == fb) | edge).all()), "flash f16 overflow %s: the "
+          "kernel is finite at %d elements where the plain version is not, "
+          "and not at %d where it is" % (what, int((fa & ~fb & ~edge).sum()),
+                                         int((~fa & fb & ~edge).sum())))
+    both = fa & fb
+    check(close_f16_flash(torch, a[both], b[both]), "flash f16 overflow %s: "
+          "finite values disagree (max abs err %g)"
+          % (what, max_err(a[both], b[both])))
+    return int((~fb).sum())
+
+
+def phase_flash_f16(torch, mxk, dev, flush):
+    """Row 8's f16 forms (the 16-bit kernels at f16: P and dS rounded to
+    one f16 term each, dP and every sum f32).  The forward (the draft
+    model's spans in f16 serving and the f16 training step) against its
+    plain version at the draft model's (1, 16, 1024, 128) and at
+    FLASH_F16_EDGES: the output within close_f16_flash, the f32 lse at
+    rtol 1e-4 / atol 1e-5, two runs bit-identical.  dK/dV and dQ (the
+    f16 training step's) with the forward at the training shape (4, 16,
+    1024, 128) and at the bf16 phase's edges (FLASH_BF16_EDGES: ragged S
+    and D, batch 1, head_dim 256 and 512), each output within
+    close_f16_flash (one f16 ulp plus 2^-12 of the array's largest:
+    bf16's bound scaled by f16's 3 more bits), two runs bit-identical;
+    FlashAttentionFn end to end against autograd through the reference
+    within relative L2 FLASH_F16_FN_L2; the overflow case
+    (_overflow_pairs: the kernel non-finite exactly where the plain
+    version is).  Timed: the forward at the draft shape beside SDPA's
+    f16 forward, dK/dV and dQ at the training shape beside SDPA's f16
+    autograd backward, bounded by bytes or by operations at the dense
+    16-bit tensor-core peak.  First prints ptxas's lines of the three
+    f16 kernels' two forms (no spills).  Returns the kernels-line rows:
+    forward, dK/dV, dQ."""
+    import torch.nn.functional as F
+    hf = torch.float16
+    ptx = _flash16_ptxas(torch, "float16")
     g = torch.Generator(device="cpu").manual_seed(SEED + 41)
     errs = {}
-    shape = (1, 16, 1024, 128)
+    shape, train = FLASH_F16_SHAPES["draft"], FLASH_F16_SHAPES["train"]
     for shp in (shape,) + FLASH_F16_EDGES:
         q, k, v = (torch.randn(*shp, generator=g).to(dev).to(hf)
                    for _ in range(3))
@@ -4797,46 +5070,83 @@ def phase_flash_f16(torch, mxk, dev, flush):
               "disagrees (max abs err %g)" % (tag, max_err(lse, lse_ref)))
         errs["out " + tag] = max_err(o, o_ref)
         errs["lse " + tag] = max_err(lse, lse_ref)
-    q, k, v = (torch.randn(*shape, generator=g).to(dev).to(hf)
-               for _ in range(3))
-    sc = 1.0 / shape[-1] ** 0.5
-    o, lse = mxk.flash_attention_fwd(q, k, v, scale=sc)
-    delta = (o.float() * o.float()).sum(-1)
-    for fn in (mxk.flash_attention_bwd_dkv, mxk.flash_attention_bwd_dq):
-        try:
-            fn(q, k, v, o, lse, delta, scale=sc)
-        except MXNetError as e:
-            check("ROADMAP A.1" in str(e), "%s: f16 refused without naming "
-                  "ROADMAP A.1: %s" % (fn.__name__, e))
-        else:
-            raise SmokeFailure("%s took f16 tensors" % fn.__name__)
+    for shp in (train,) + FLASH_BF16_EDGES:
+        ins = [torch.randn(*shp, generator=g).to(dev).to(hf)
+               for _ in range(4)]
+        sc = 1.0 / shp[-1] ** 0.5
+        pairs = _flash_pairs(torch, mxk, *ins, sc)
+        again = _flash_pairs(torch, mxk, *ins, sc)
+        tag = "x".join(map(str, shp))
+        for (what, a, b), (_, a2, _) in zip(pairs, again):
+            check(torch.equal(a, a2), "flash f16 %s %s: two runs differ"
+                  % (what, tag))
+            ok = close(torch, a, b) if what == "lse" \
+                else a.dtype == hf and close_f16_flash(torch, a, b)
+            check(ok, "flash attention f16 %s %s disagrees with its plain "
+                  "version (max abs err %g)" % (what, tag, max_err(a, b)))
+            errs["%s %s" % (what, tag)] = max_err(a, b)
+        del ins, pairs, again
+    q, k, v, do = (torch.randn(*train, generator=g).to(dev).to(hf)
+                   for _ in range(4))
+    sc = 1.0 / train[-1] ** 0.5
+    ends = []
+    for fn in (mxk.flash_attention, mxk.flash_attention_plain):
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*ins, scale=sc)
+        ends.append([out.detach()] + list(torch.autograd.grad(out, ins, do)))
+        del out, ins
+    for what, a, b in zip(("out", "dq", "dk", "dv"), *ends):
+        rel = float((a.float() - b.float()).norm() / b.float().norm())
+        check(rel < FLASH_F16_FN_L2, "FlashAttentionFn f16 %s: relative L2 "
+              "%g against autograd through the reference" % (what, rel))
+        errs["fn_%s_rel_l2" % what] = rel
+    del ends
+    overflow = {}
+    for what, a, b in _overflow_pairs(torch, mxk, dev, g):
+        overflow[what + "_non_finite"] = _hold_overflow(torch, what, a, b)
+    check(overflow["dk_non_finite"] and overflow["dq_non_finite"],
+          "flash f16 overflow: dS did not overflow: %s" % overflow)
     B, H, S, D = shape
     tri = 2.0 * B * H * D * S * (S + 1) / 2
     nbytes = 4 * B * H * S * D * 2 + B * H * S * 4
     b_ms, b_by = bound(nbytes, 2 * tri, BF16_FLOPS_PER_S)
-    ms = time_ms(torch, lambda: mxk.flash_attention_fwd(q, k, v, scale=sc),
-                 flush)
+    qd, kd, vd = (t[:1].contiguous() for t in (q, k, v))
+    fwd = lambda: mxk.flash_attention_fwd(qd, kd, vd, scale=sc)
+    ms = time_ms(torch, fwd, flush)
+    errs_k = max(e for n, e in errs.items() if not n.startswith("fn_"))
     row = {"name": "flash_attention_fwd", "route": "cuda", "dtype": "float16",
            "path": "the f16 draft model's spans",
            "source": "mxnet_tpu_torch/csrc/flash_attention.cu",
            "replaces": "mxnet_tpu/ops/nn.py:744",
-           "max_abs_err": max(errs.values()), "ms": ms,
+           "max_abs_err": errs_k, "ms": ms,
            "plain_ms": time_ms(torch, lambda: mxk.flash_attention_fwd_plain(
-               q, k, v, scale=sc), flush, reps=20),
+               qd, kd, vd, scale=sc), flush, reps=20),
            "bound_ms": b_ms, "bound_by": b_by,
            "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
-               q, k, v, is_causal=True, scale=sc), flush),
-           "back_to_back_ms": pipelined_ms(
-               torch, lambda: mxk.flash_attention_fwd(q, k, v, scale=sc)),
+               qd, kd, vd, is_causal=True, scale=sc), flush),
+           "back_to_back_ms": pipelined_ms(torch, fwd),
            "tflops": 2 * tri / ms / 1e9, "bytes": nbytes, "flops": 2 * tri}
-    emit({"phase": "flash_f16", "shape": list(shape),
-          "edge_shapes": [list(e) for e in FLASH_F16_EDGES], "errors": errs,
-          "ptxas": ptx, "backward_refuses_f16": True,
-          "tolerance": "out: one f16 ulp (2^-10 relative) plus 2^-12 of the "
-                       "array's largest value; lse rtol 1e-4 / atol 1e-5",
+    rows = _flash_rows(torch, mxk, q, k, v, do, sc, flush, "float16",
+                       BF16_FLOPS_PER_S)
+    row["train_shape"] = {key: rows[0][key] for key in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "tflops")}
+    for r in rows[1:]:
+        r["max_abs_err"] = errs_k
+        r["path"] = "fit_f16's training step"
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
+    emit({"phase": "flash_f16", "shape": list(shape), "train_shape":
+          list(train), "edge_shapes": [list(e) for e in FLASH_F16_EDGES],
+          "backward_edge_shapes": [list(e) for e in FLASH_BF16_EDGES],
+          "errors": errs, "overflow": dict(FLASH_F16_OVERFLOW, **overflow),
+          "ptxas": ptx,
+          "tolerance": "out, dk, dv, dq: one f16 ulp (2^-10 relative) plus "
+                       "2^-12 of the array's largest value; lse rtol 1e-4 / "
+                       "atol 1e-5; FlashAttentionFn relative L2 %g"
+                       % FLASH_F16_FN_L2,
           "library_call": "F.scaled_dot_product_attention(is_causal=True) "
-                          "forward on the f16 tensors", "kernel": row})
-    return row
+                          "forward and autograd backward on the f16 tensors",
+          "kernels": [row] + rows[1:]})
+    return [row] + rows[1:]
 
 
 def phase_dtype_codes(torch, mxk, dev):
@@ -4844,8 +5154,9 @@ def phase_dtype_codes(torch, mxk, dev):
     code or a pairing it has no kernel for (f16 beside another type, f16
     where no f16 form exists, an unknown code), and launches nothing,
     never another type's kernel; the wrappers refuse f16 tensors bound
-    for a kernel with no f16 form (rows 4, 6, 7, 10 and row 8's
-    backward), naming ROADMAP A.1, before any pointer reaches it."""
+    for a kernel with no f16 form (rows 7 and 10, naming ROADMAP A.1's
+    float16 for rows 7 and 10) or f32 by design (row 6, naming A.1 too),
+    before any pointer reaches it."""
     import importlib
     from mxnet_tpu_torch.base import MXNetError
     mods = {n: importlib.import_module("mxnet_tpu_torch.kernels." + n)
@@ -4867,13 +5178,14 @@ def phase_dtype_codes(torch, mxk, dev):
             *nul[:8], 1, 16, 1, 128, 16, 1, 1.0, qd, kd, 0, stream)
         calls["mx_layernorm_fwd %d/%d" % (qd, kd)] = ln.mx_layernorm_fwd(
             *nul[:7], 1, 128, 1e-5, qd, kd, 0, stream)
-    for code in (2, 3):
-        calls["mx_layernorm_bwd %d" % code] = ln.mx_layernorm_bwd(
-            *nul[:10], 1, 128, 1, code, code, 0, stream)
+        calls["mx_layernorm_bwd %d/%d" % (qd, kd)] = ln.mx_layernorm_bwd(
+            *nul[:10], 1, 128, 1, qd, kd, 0, stream)
+    for code in (3, 7):
         calls["mx_flash_bwd_dkv %d" % code] = fa.mx_flash_bwd_dkv(
             *nul[:8], 1, 16, 128, 1.0, code, 0, stream)
         calls["mx_flash_bwd_dq %d" % code] = fa.mx_flash_bwd_dq(
             *nul[:7], 1, 16, 128, 1.0, code, 0, stream)
+    for code in (2, 3):
         calls["mx_fused_scale_relu_matmul %d" % code] = \
             libs["fused_matmul"].mx_fused_scale_relu_matmul(
                 *nul[:6], 1, 8, 8, code, 0, stream)
@@ -4887,12 +5199,9 @@ def phase_dtype_codes(torch, mxk, dev):
           "kernel for: %s" % {k: v for k, v in calls.items() if not v})
     hf = torch.float16
     x = torch.zeros(64, 128, dtype=hf, device=dev)
-    f32 = torch.zeros(64, device=dev)
     one, zero = torch.ones(128, device=dev), torch.zeros(128, device=dev)
     refused = {}
     for name, fn in (
-            ("layernorm_fused_bwd", lambda: mxk.layernorm_fused_bwd(
-                x, x[0], f32, f32, x)),
             ("fused_scale_relu_matmul", lambda: mxk.fused_scale_relu_matmul_fwd(
                 x, one, zero, x)),
             ("fused_band4d", lambda: mxk.fused_band4d(
@@ -5167,19 +5476,34 @@ def phase_head_dim(torch, mxk, dev, flush):
 
 def phase_train_bf16(torch, mx, np_params, cfg=FULL, ctx=None,
                      train=TRAIN_BF16):
-    """bench.py's transformer train mode: the full-width model with
-    ``dtype='bfloat16'`` through TrainStep, SGD momentum 0.9 with
-    multi_precision (bench.py's learning rate and 1/(B*S) rescale),
+    """bench.py's transformer train mode in bf16: ``_train16``."""
+    return _train16(torch, mx, np_params, "bfloat16", cfg, ctx, train)
+
+
+def phase_train_f16(torch, mx, np_params, cfg=FULL, ctx=None,
+                    train=TRAIN_BF16):
+    """The same in float16 (ROADMAP A.1, float16 training): ``_train16``
+    with ``dtype='float16'`` at TRAIN_BF16's settings; every step
+    launches the f16 forms of the flash and LayerNorm kernels."""
+    return _train16(torch, mx, np_params, "float16", cfg, ctx, train)
+
+
+def _train16(torch, mx, np_params, dtype, cfg, ctx, train):
+    """bench.py's transformer train mode in a 16-bit ``dtype``: the
+    full-width model with ``dtype`` through TrainStep, SGD momentum 0.9
+    with multi_precision (bench.py's learning rate and 1/(B*S) rescale),
     10 steps over two fixed batches, the last 8 timed.  Every step
-    launches each flash kernel 12 times in bf16 and LayerNorm forward
-    and backward 25 times; the loss stays finite; every bf16 weight
-    matrix's f32 master moves (the counts of moved masters and of bf16
-    weights that changed are printed).  Returns the launch counts and
-    the step count."""
+    launches each flash kernel 12 times in ``dtype`` and LayerNorm
+    forward and backward 25 times; the loss stays finite; every 16-bit
+    weight matrix's f32 master moves (the counts of moved masters and of
+    16-bit weights that changed are printed).  Returns the launch counts
+    and the step count."""
     from mxnet_tpu_torch.kernels import (LAUNCHES, LAUNCHES_BY_DTYPE,
                                          PLAIN_CALLS, reset_counts)
     from mxnet_tpu_torch.models import transformer
     from mxnet_tpu_torch.parallel import TrainStep
+    what = {"bfloat16": "train_bf16", "float16": "train_f16"}[dtype]
+    low_t = getattr(torch, dtype)
     ctx = ctx or mx.gpu(0)
     on_card = ctx.device_type == "gpu"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
@@ -5191,16 +5515,16 @@ def phase_train_bf16(torch, mx, np_params, cfg=FULL, ctx=None,
                     y[i * B:(i + 1) * B].reshape(-1)).to(dev)}
                for i in range(2)]
     t0 = time.perf_counter()
-    sym = transformer.get_symbol(dtype="bfloat16", **cfg)
+    sym = transformer.get_symbol(dtype=dtype, **cfg)
     ts = TrainStep(sym, mx.optimizer.SGD(
         learning_rate=train["lr"], momentum=train["momentum"],
         multi_precision=True, rescale_grad=1.0 / (B * S)),
         data_shapes={"data": (B, S)}, label_shapes={"softmax_label": (B * S,)},
         ctx=ctx)
     ts.init_params(mx.init.Xavier(), arg_params=np_params)
-    low = [n for n, t in ts.params.items() if t.dtype == torch.bfloat16]
-    check(len(low) == 12 * cfg["num_layers"] + 4, "train_bf16: %d bf16 "
-          "parameters" % len(low))
+    low = [n for n, t in ts.params.items() if t.dtype == low_t]
+    check(len(low) == 12 * cfg["num_layers"] + 4, "%s: %d %s "
+          "parameters" % (what, len(low), dtype))
     w0 = {n: ts.states[n][-1].clone() for n in low}
     sync()
     setup_s = time.perf_counter() - t0
@@ -5219,40 +5543,41 @@ def phase_train_bf16(torch, mx, np_params, cfg=FULL, ctx=None,
     sync()
     launches, plain = dict(LAUNCHES), dict(PLAIN_CALLS)
     by_dtype = dict(LAUNCHES_BY_DTYPE)
-    check(all(np.isfinite(losses)), "train_bf16: non-finite loss %s"
-          % losses)
+    check(all(np.isfinite(losses)), "%s: non-finite loss %s"
+          % (what, losses))
     for name, per in TRAIN_LAUNCHES.items():
-        key = "%s:bfloat16" % name
+        key = "%s:%s" % (name, dtype)
         counts = by_dtype if on_card else plain
         got = by_dtype.get(key, 0) if on_card else plain[name]
-        check(got == per * steps, "train_bf16: %s launched %d times in bf16 "
-              "over %d steps (want %d per step; by type %s)"
-              % (name, got, steps, per, counts))
+        check(got == per * steps, "%s: %s launched %d times in %s over %d "
+              "steps (want %d per step; by type %s)"
+              % (what, name, got, dtype, steps, per, counts))
     if on_card:
-        check(not any(plain.values()), "train_bf16: plain versions ran on "
-              "the main path: %s" % plain)
+        check(not any(plain.values()), "%s: plain versions ran on "
+              "the main path: %s" % (what, plain))
     # bench.py's 1/(B*S) rescale on top of the loss's own batch
     # normalisation makes every update small: the weight matrices'
-    # masters (|w| ~ 0.02) move while their bf16 copies mostly cannot,
+    # masters (|w| ~ 0.02) move while their 16-bit copies mostly cannot,
     # and the LayerNorm scales near 1 may move by less than an f32 ulp
     moved = {n: float((ts.states[n][-1] - w0[n]).abs().max()) for n in low}
-    bf16_moved = sum(int((ts.params[n] != w0[n].to(torch.bfloat16)).any())
-                     for n in low)
+    low_moved = sum(int((ts.params[n] != w0[n].to(low_t)).any())
+                    for n in low)
     check(all(moved[n] > 0 for n in low if n.endswith("_weight")),
-          "train_bf16: weight masters that did not move: %s"
-          % [n for n in low if n.endswith("_weight") and not moved[n] > 0])
+          "%s: weight masters that did not move: %s"
+          % (what, [n for n in low if n.endswith("_weight")
+                    and not moved[n] > 0]))
     step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
     p50 = statistics.median(step_ms[train["warmup"]:])
-    emit({"phase": "train_bf16", "config": dict(cfg, dtype="bfloat16"),
+    emit({"phase": what, "config": dict(cfg, dtype=dtype),
           "train": train, "setup_s": setup_s, "steps": steps,
           "step_ms": step_ms, "step_ms_p50": p50,
           "tokens_per_s": B * S / (p50 / 1e3), "loss": losses,
           "launches_per_step": {k: launches[k] / steps
                                 for k in TRAIN_LAUNCHES},
           "launches_by_dtype": by_dtype, "plain_calls": plain,
-          "bf16_params": len(low),
+          "low_params": len(low),
           "masters_moved": sum(m > 0 for m in moved.values()),
-          "bf16_weights_changed": bf16_moved,
+          "low_weights_changed": low_moved,
           "masters_moved_max_abs": max(moved.values()),
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9
           if on_card else None})
@@ -5451,6 +5776,72 @@ def phase_bf16_agreement(torch, mx, ctxs=None):
                     "master_bound": master_l2,
                     "cpu_vs_perturbed_cpu_master_rel_l2": _rel_l2(pm, cm)}
     emit({"phase": "bf16_agreement", "steps": 2, **res})
+
+
+def phase_f16_train_agreement(torch, mx, ctxs=None):
+    """float16 TrainStep with multi-precision SGD, card against CPU from
+    the same numpy weights (ROADMAP A.1, float16 training):
+    F16_TRAIN_AGREE's 2-layer transformer (seq 256, batch 2) with
+    ``dtype='float16'``, its steps.  Held: the last step's outputs within relative L2 out_l2, the
+    f32 masters' moves within master_l2 (bf16_agreement's bounds over
+    f16's 3 more significand bits), each f16 weight within one f16 ulp
+    at its array's scale; the f16 weights' moves' relative L2 printed
+    beside."""
+    from mxnet_tpu_torch.models import transformer
+    from mxnet_tpu_torch.parallel import TrainStep
+    ctxs = ctxs or (mx.gpu(0), mx.cpu())
+    hf = torch.float16
+    lm = F16_TRAIN_AGREE["config"]
+    tx, ty = _token_batches(lm, 2, SEED + 28)
+    args = seeded_params(lm)
+    batch = {"data": tx, "softmax_label": ty.reshape(-1)}
+    opt = dict(learning_rate=0.1, momentum=0.9, multi_precision=True,
+               rescale_grad=1.0 / ty.size)
+    runs = []
+    for ctx in ctxs:
+        ts = TrainStep(transformer.get_symbol(dtype="float16", **lm),
+                       mx.optimizer.SGD(**opt), ctx=ctx,
+                       data_shapes={"data": tx.shape},
+                       label_shapes={"softmax_label": (ty.size,)})
+        ts.init_params(mx.init.Xavier(), arg_params=args)
+        for _ in range(F16_TRAIN_AGREE["steps"]):
+            out = ts.step(batch)[0]
+        low = sorted(n for n, t in ts.params.items() if t.dtype == hf)
+        check(low, "f16_train_agreement: no f16 parameter")
+        runs.append((out.float().cpu().numpy(), low,
+                     {n: ts.params[n].float().cpu().numpy() for n in low},
+                     {n: ts.states[n][-1].cpu().numpy() for n in low}))
+        del ts
+    (go, glow, gw, gm), (co, clow, cw, cm) = runs
+    check(glow == clow, "f16_train_agreement: f16 parameters differ")
+    start = {n: torch.from_numpy(args[n]).to(hf).float().numpy()
+             for n in glow}
+    cat = lambda d, base: np.concatenate([(d[n] - base[n]).ravel()
+                                          for n in glow])
+    out_err = _rel_l2(go, co)
+    master_err = _rel_l2(cat(gm, start), cat(cm, start))
+    weight_err = _rel_l2(cat(gw, start), cat(cw, start))
+    check(np.isfinite(go).all(), "f16_train_agreement: non-finite output")
+    check(out_err < F16_TRAIN_AGREE["out_l2"], "f16_train_agreement: "
+          "outputs differ by %g (relative L2) between the card and the CPU"
+          % out_err)
+    check(master_err < F16_TRAIN_AGREE["master_l2"], "f16_train_agreement: "
+          "the f32 masters' moves differ by %g (relative L2)" % master_err)
+    ulps = {}
+    for n in glow:
+        spacing = float(np.spacing(np.float16(np.abs(cw[n]).max())))
+        ulps[n] = float(np.abs(gw[n] - cw[n]).max()) / spacing
+    check(max(ulps.values()) <= 1.0, "f16_train_agreement: f16 weights "
+          "past one ulp at their scale: %s" % {n: u for n, u in ulps.items()
+                                               if u > 1})
+    emit({"phase": "f16_train_agreement", "config": dict(lm, dtype="float16"),
+          "steps": F16_TRAIN_AGREE["steps"], "out_rel_l2": out_err,
+          "out_bound": F16_TRAIN_AGREE["out_l2"],
+          "master_moves_rel_l2": master_err,
+          "master_bound": F16_TRAIN_AGREE["master_l2"],
+          "f16_weight_moves_rel_l2": weight_err,
+          "f16_weights_worst_ulps_at_scale": max(ulps.values()),
+          "f16_params": len(glow)})
 
 
 def phase_head_dim_agreement(torch, mx, ctxs=None):
@@ -6143,7 +6534,8 @@ def _fit_arm(torch, mx, make, it, fit_kw, fused, steps, inspect=None):
     last, under ``info["inspect"]``."""
     import gc
     import warnings
-    from mxnet_tpu_torch.kernels import LAUNCHES, PLAIN_CALLS, reset_counts
+    from mxnet_tpu_torch.kernels import (LAUNCHES, LAUNCHES_BY_DTYPE,
+                                         PLAIN_CALLS, reset_counts)
     from torch.profiler import ProfilerActivity, profile
     gc.collect()                    # an earlier arm's graph and its pool
     if fused:
@@ -6185,10 +6577,14 @@ def _fit_arm(torch, mx, make, it, fit_kw, fused, steps, inspect=None):
                 **{k: v for k, v in fit_kw.items() if k != "eval_metric"})
     torch.cuda.synchronize()
     launches, plain = dict(LAUNCHES), dict(PLAIN_CALLS)
+    by_dtype = dict(LAUNCHES_BY_DTYPE)
     check(len(stamps) == steps + 1, "fit_fused: %d steps ran" % (len(stamps)
                                                                  - 1))
     peak = torch.cuda.max_memory_allocated() / 1e9
-    weights = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+    # as f32 (exact for every type; numpy's f16 arithmetic is slow and
+    # rounds the comparisons' bounds)
+    weights = {k: v.astype("float32").asnumpy()
+               for k, v in mod.get_params()[0].items()}
     value = metric.get()[1]
     fused_fit = mod._fused_fit
     fused_steps = fused_fit.launches if fused_fit is not None else 0
@@ -6212,7 +6608,8 @@ def _fit_arm(torch, mx, make, it, fit_kw, fused, steps, inspect=None):
             "host_syncs_per_step": step_syncs,
             "runtime_calls_per_step": calls,
             "plain_calls": {k: v for k, v in plain.items() if v},
-            "launches": {k: v for k, v in launches.items() if v}}
+            "launches": {k: v for k, v in launches.items() if v},
+            "launches_by_dtype": by_dtype}
     if fused_fit is not None:
         first = 1 + 2                      # warm-up steps, then the capture
         info.update(captures=fused_fit.captures,
@@ -6251,7 +6648,8 @@ def phase_fit_fused(torch, mx, np_params, cfg=FULL):
     """Module.fit at full width, fused (the single-launch step: one CUDA
     graph replay per step after two warm-up steps and one capture)
     against eager (``MXNET_FIT_FUSED=0``): ResNet-50 v2 dense and 2-bit,
-    the transformer.  Each fused arm must capture once, run every step
+    the transformer (FIT_FUSED's depth; ``np_params`` are FULL's, of
+    which its layers are the first).  Each fused arm must capture once, run every step
     fused, make no host sync in its steady steps, launch one graph per
     steady step, and record in its graph the quantizer once per bucket
     (2-bit) or the transformer's LayerNorm and flash kernels; its
@@ -6309,6 +6707,7 @@ def phase_fit_fused(torch, mx, np_params, cfg=FULL):
                       "%g buckets per eager step" % (
                           captured, res["eager"][0]["kv_buckets_per_step"]))
         tc = FIT_FUSED["transformer"]
+        cfg = dict(cfg, num_layers=tc["num_layers"])
         Bt, S = tc["batch"], cfg["seq_len"]
         tokens, targets = _token_batches(cfg, Bt * tc["batches"], SEED + 6)
         res = {}
@@ -6362,31 +6761,33 @@ def _graph_replay_ms(torch, mod, n):
     return start.elapsed_time(end) / n
 
 
-def _bf16_inspect(torch, initial, replays=0):
-    """``inspect`` for a bf16 arm: the bf16 weight matrices whose f32
-    master moved from its initial (bf16-rounded) value and those that
-    did not, the loss scaler after ``Module._fit_sync`` publishes it, and
-    with ``replays`` the captured graph's device ms per step."""
+def _low_inspect(torch, initial, replays=0, dtype=None):
+    """``inspect`` for a 16-bit arm (``dtype``, bf16 by default): the
+    weight matrices of that type whose f32 master moved from its initial
+    (rounded) value and those that did not, the loss scaler after
+    ``Module._fit_sync`` publishes it, and with ``replays`` the captured
+    graph's device ms per step."""
     from mxnet_tpu_torch import fused_update
+    dtype = dtype or torch.bfloat16
 
     def inspect(mod):
         upd = mod._kvstore._updater if mod._update_on_kvstore \
             else mod._updater
         exe = mod._exec_group._exec
-        bf16 = sorted(n for n in mod._param_names if n.endswith("_weight")
-                      and exe.arg_dict[n]._data.dtype == torch.bfloat16)
+        low = sorted(n for n in mod._param_names if n.endswith("_weight")
+                     and exe.arg_dict[n]._data.dtype == dtype)
         moved, still = [], []
         for k, st in upd.states.items():
             name = mod._param_names[k] if isinstance(k, int) else k
-            if name not in bf16:
+            if name not in low:
                 continue
             w32 = st[1]._data
             w0 = torch.from_numpy(initial[name]).to(w32.device) \
-                .to(torch.bfloat16).float()
+                .to(dtype).float()
             (moved if bool((w32 != w0).any()) else still).append(name)
-        out = {"bf16_weight_matrices": len(bf16),
+        out = {"low_weight_matrices": len(low), "dtype": str(dtype),
                "masters_moved": len(moved), "masters_still": still,
-               "masters_missing": sorted(set(bf16) - set(moved)
+               "masters_missing": sorted(set(low) - set(moved)
                                          - set(still))}
         if mod._loss_scaler is not None:
             mod._fit_sync()
@@ -6399,17 +6800,20 @@ def _bf16_inspect(torch, initial, replays=0):
     return inspect
 
 
-def _bf16_weights(name, fw, ew, initial, tol):
-    """Fused against eager bf16 weights: each within ``tol`` (rtol and
-    atol: one bf16 ulp) of the eager arm's."""
+def _low_weights(name, fw, ew, initial, tol, atol=None):
+    """Fused against eager 16-bit weights: each within rtol ``tol`` and
+    ``atol`` (``tol`` when not given) of the eager arm's (one bf16 ulp:
+    1e-2 both; one f16 ulp: 2^-10 and 2^-24)."""
+    atol = tol if atol is None else atol
     worst = max(float((np.abs(fw[k] - ew[k])
-                       / (tol + tol * np.abs(ew[k]))).max()) for k in ew)
+                       / (atol + tol * np.abs(ew[k]))).max()) for k in ew)
     diff = math.sqrt(sum(float(np.square(fw[k].astype(np.float64)
                                          - ew[k]).sum()) for k in ew))
     move = math.sqrt(sum(float(np.square(ew[k].astype(np.float64)
                                          - initial[k]).sum()) for k in ew))
-    check(worst <= 1.0, "fit_bf16 %s: fused and eager weights differ past "
-          "rtol/atol %g (worst %g of the bound)" % (name, tol, worst))
+    check(worst <= 1.0, "fit %s: fused and eager weights differ past "
+          "rtol %g / atol %g (worst %g of the bound)"
+          % (name, tol, atol, worst))
     return {"worst_of_bound": worst, "move_rel_l2": diff / move,
             "bit_equal": all(np.array_equal(fw[k], ew[k]) for k in ew)}
 
@@ -6434,7 +6838,7 @@ def _bf16_arm_checks(name, res, want_captured, tol):
           "fit_bf16 %s: loss scaler %s" % (name, ins))
     for arm in (fi, ei):
         i = arm["inspect"]
-        check(i["masters_moved"] == i["bf16_weight_matrices"] > 0,
+        check(i["masters_moved"] == i["low_weight_matrices"] > 0,
               "fit_bf16 %s: masters that did not move %s, missing %s"
               % (name, i["masters_still"], i["masters_missing"]))
 
@@ -6582,11 +6986,11 @@ def phase_fit_bf16(torch, mx, np_params, cfg=FULL):
         res["fused" if fused else "eager"] = _fit_arm(
             torch, mx, make_lm, lm_iter(), fit_t, fused,
             tc["batches"] * tc["epochs"],
-            _bf16_inspect(torch, np_params, replays if fused else 0))
+            _low_inspect(torch, np_params, replays if fused else 0))
     _bf16_arm_checks("transformer", res, {
         "%s:bfloat16" % k: n for k, n in TRAIN_LAUNCHES.items()}, tol)
     out["transformer"] = {"fused": res["fused"][0], "eager": res["eager"][0],
-                          "weights": _bf16_weights(
+                          "weights": _low_weights(
                               "transformer", res["fused"][1],
                               res["eager"][1], np_params, tol)}
     ret["transformer"] = res["fused"][0]
@@ -6640,7 +7044,7 @@ def phase_fit_bf16(torch, mx, np_params, cfg=FULL):
                                        "multi_precision": True},
                      arg_params=args, aux_params=auxs, eval_metric="acc"),
                 fused, rc["batches"] * rc["epochs"],
-                _bf16_inspect(torch, np_args))
+                _low_inspect(torch, np_args))
     finally:
         torch.backends.cudnn.deterministic = deterministic
     ei = res["eager"][0]
@@ -6655,7 +7059,7 @@ def phase_fit_bf16(torch, mx, np_params, cfg=FULL):
         info = res[arm][0]
         info["images_per_s"] = B / (info["step_ms_p50"] / 1e3)
     out["resnet_2bit"] = {"fused": res["fused"][0], "eager": ei,
-                          "weights": _bf16_weights(
+                          "weights": _low_weights(
                               "resnet", res["fused"][1], res["eager"][1],
                               np_args, tol)}
     ret["resnet_2bit"] = res["fused"][0]
@@ -6664,6 +7068,104 @@ def phase_fit_bf16(torch, mx, np_params, cfg=FULL):
     emit({"phase": "fit_bf16", "config": {"transformer": dict(
         cfg, dtype="bfloat16"), "resnet": rcfg}, "train": FIT_BF16, **out})
     return ret
+
+
+def phase_fit_f16(torch, mx, np_params, bf16_lm=None, cfg=FULL):
+    """float16 ``Module.fit`` at full width (ROADMAP A.1, float16
+    training): the transformer with ``dtype='float16'`` as FIT_F16 says.
+    The fused arm (the main path) captures once, runs every step fused
+    with no host sync and one graph launch in a steady step and no plain
+    version, records each f16 flash kernel 12 times and the f16
+    LayerNorm forward and backward 25 times in its graph; its scaler's
+    scale and skips are printed (a skip is the reference's semantics,
+    not a failure), at least one update applies and every f16 weight
+    matrix's f32 master moves.  The eager arm and the fused arm with
+    ``MXNET_LOSS_SCALE=off`` (neither skips) move every master and end
+    within FIT_F16's weight bound of each other.  Every arm's weights
+    stay finite.  The fused arm's graph is replayed 20 times under CUDA
+    events; its replay ms and tokens/s stand beside ``bf16_lm``'s
+    (fit_bf16's fused transformer arm, the same run).  Returns the fused
+    arm's info."""
+    from mxnet_tpu_torch.models import transformer
+    from mxnet_tpu_torch.weights import convert_params
+    ctx = mx.gpu(0)
+    hf = torch.float16
+    replays = FIT_BF16["replays"]
+    tc = FIT_BF16["transformer"]
+    Bt, S = tc["batch"], cfg["seq_len"]
+    steps = tc["batches"] * tc["epochs"]
+    tokens, targets = _token_batches(cfg, Bt * tc["batches"], SEED + 41)
+    fit_t = dict(num_epoch=tc["epochs"], optimizer="sgd",
+                 optimizer_params={"learning_rate": tc["lr"],
+                                   "momentum": tc["momentum"],
+                                   "multi_precision": True},
+                 eval_metric="perplexity")
+
+    def make_lm():
+        mod = mx.Module(transformer.get_symbol(dtype="float16", **cfg),
+                        context=ctx)
+        mod.bind(data_shapes=[("data", (Bt, S))],
+                 label_shapes=[("softmax_label", (Bt * S,))])
+        mod.set_params(convert_params(np_params, ctx, cfg), {})
+        return mod
+
+    def arm(fused, reps=0):
+        it = FlatLabels(mx, mx.io.NDArrayIter(tokens, targets,
+                                              batch_size=Bt))
+        return _fit_arm(torch, mx, make_lm, it, fit_t, fused, steps,
+                        _low_inspect(torch, np_params, reps, hf))
+
+    res = {"fused": arm(True, replays), "eager": arm(False)}
+    with env_set("MXNET_LOSS_SCALE", "off"):
+        res["fused_off"] = arm(True)
+    fi, ei, oi = (res[k][0] for k in ("fused", "eager", "fused_off"))
+    # the fused arms' graph checks; the metric only where neither side
+    # of the pair skips (the scaler-on arm may skip a step)
+    _fused_arm_checks("f16 transformer", {"fused": res["fused"],
+                                          "eager": res["eager"]},
+                      None, float("inf"))
+    _fused_arm_checks("f16 transformer (scaler off)",
+                      {"fused": res["fused_off"], "eager": res["eager"]},
+                      None, FIT_F16["weights_rtol"])
+    captured = (fi["captured_by_dtype"] or [{}])[0]
+    for name, n in TRAIN_LAUNCHES.items():
+        key = "%s:float16" % name
+        check(captured.get(key, 0) == n and fi["launches_by_dtype"].get(
+            key, 0) > 0, "fit_f16: %s recorded %d times in the graph (want "
+              "%d): %s" % (key, captured.get(key, 0), n, captured))
+    ins = fi["inspect"]
+    check(oi["inspect"].get("loss_scale") is None
+          and ei["inspect"].get("loss_scale") is None
+          and ins["loss_scale_gauge"] == ins["loss_scale"],
+          "fit_f16: loss scalers %s / %s / %s" % (
+              ins, ei["inspect"], oi["inspect"]))
+    applied = steps + FIT_FUSED["profiled_steps"] - ins["overflow_skips"]
+    check(applied > 0, "fit_f16: the scaler skipped every step: %s" % ins)
+    for label, info in (("fused", fi), ("eager", ei), ("fused_off", oi)):
+        i = info["inspect"]
+        check(i["masters_moved"] == i["low_weight_matrices"] > 0,
+              "fit_f16 %s: masters that did not move %s, missing %s"
+              % (label, i["masters_still"], i["masters_missing"]))
+        check(all(np.isfinite(w).all() for w in res[label][1].values()),
+              "fit_f16 %s: non-finite weights" % label)
+        info["tokens_per_s"] = Bt * S / (info["step_ms_p50"] / 1e3)
+    out = {"fused": fi, "eager": ei, "fused_off": oi,
+           "fused_off_vs_eager": _low_weights(
+               "f16 transformer", res["fused_off"][1], res["eager"][1],
+               np_params, FIT_F16["weights_rtol"], FIT_F16["weights_atol"]),
+           "compared_arm": "MXNET_LOSS_SCALE=off: the eager path has no "
+                           "scaler, and with the scaler off neither arm "
+                           "can skip"}
+    if bf16_lm is not None:
+        out["beside_bf16"] = {
+            "graph_replay_ms": {"float16": ins["graph_replay_ms"],
+                                "bfloat16": bf16_lm["inspect"][
+                                    "graph_replay_ms"]},
+            "tokens_per_s": {"float16": fi["tokens_per_s"],
+                             "bfloat16": bf16_lm.get("tokens_per_s")}}
+    emit({"phase": "fit_f16", "config": dict(cfg, dtype="float16"),
+          "train": dict(FIT_BF16["transformer"], **FIT_F16), **out})
+    return fi
 
 
 def _fused_arms(name, res, initial, kernel, metric_rtol=1e-5):
@@ -7135,7 +7637,12 @@ def main():
     # spans of serve_spec_f16)
     serve_f16_kernels = [decode_rows[2], chunk_rows[2],
                          phase_layernorm_f16(torch, mxk, dev, flush)]
-    flash_f16_kernel = phase_flash_f16(torch, mxk, dev, flush)
+    flash_f16_kernel, *flash_bwd_f16 = phase_flash_f16(torch, mxk, dev,
+                                                        flush)
+    # the f16 training step's kernels (float16 training): row 4 and row
+    # 8's dK/dV and dQ
+    train_f16_kernels = [phase_layernorm_bwd_f16(torch, mxk, dev, flush)] \
+        + flash_bwd_f16
     phase_dtype_codes(torch, mxk, dev)
     band4d_kernels = phase_fused_band4d(torch, mxk, dev, flush)
     head_dim_times = phase_head_dim(torch, mxk, dev, flush)
@@ -7163,8 +7670,10 @@ def main():
     phase_serve_f16_agreement(torch, mx)
     train_launches, train_steps = phase_train(torch, mx, full)
     bf16_launches, bf16_steps = phase_train_bf16(torch, mx, full)
+    f16_launches, f16_steps = phase_train_f16(torch, mx, full)
     fit_fused = phase_fit_fused(torch, mx, full)
     fit_bf16 = phase_fit_bf16(torch, mx, full)
+    fit_f16 = phase_fit_f16(torch, mx, full, fit_bf16["transformer"])
     del full
     phase_train_agreement(torch, mx)
     phase_kvstore(torch, mx)
@@ -7177,6 +7686,7 @@ def main():
     phase_resnet_nhwc_agreement(torch, mx)
     rbf16_launches, rbf16_steps = phase_train_resnet_bf16(torch, mx)
     phase_bf16_agreement(torch, mx)
+    phase_f16_train_agreement(torch, mx)
     phase_head_dim_agreement(torch, mx)
     phase_checkpoint(torch, mx, card)
     # launches: the count of each kernel's main-path run (serve for the
@@ -7231,7 +7741,17 @@ def main():
     flash_f16_kernel["graph_launches"] = draft_f16["draft_flash_launches"]
     flash_f16_kernel["launches_per_proposed_token"] = \
         draft_f16["draft_flash_launches"] / draft_f16["spec_proposed"]
-    for k in serve_f16_kernels + [prefill_f16_kernel, flash_f16_kernel]:
+    # the f16 training kernels: fit_f16's fused arm (Module.fit's main
+    # path: its warm-up steps and capture launch them, the graph replays
+    # what it recorded), train_f16's TrainStep run beside it
+    for k in train_f16_kernels:
+        key = k["name"] + ":float16"
+        k["launches"] = fit_f16["launches_by_dtype"].get(key, 0)
+        k["captured_per_step"] = fit_f16["captured_by_dtype"][0].get(key, 0)
+        k["train_f16_launches_per_step"] = f16_launches[k["name"]] \
+            / f16_steps
+    for k in serve_f16_kernels + [prefill_f16_kernel, flash_f16_kernel] \
+            + train_f16_kernels:
         check(k["launches"] > 0, "%s (float16) was not launched on its main "
               "path" % k["name"])
     # Module.fit's main path is the fused step (fit_fused): its launches
@@ -7301,6 +7821,7 @@ def main():
                                                   "launches_per_iteration",
                                                   "fit_fused_captured_per_step",
                                                   "fit_bf16_captured_per_step",
+                                                  "train_f16_launches_per_step",
                                                   "train_launches",
                                                   "spec_launches_per_step",
                                                   "launches_per_proposed_token",
@@ -7314,7 +7835,7 @@ def main():
                       + serve_bf16_kernels + [prefill_bf16_kernel]
                       + serve_f16_kernels + [prefill_f16_kernel,
                                              flash_f16_kernel]
-                      + rtc_kernels + band4d_kernels]})
+                      + train_f16_kernels + rtc_kernels + band4d_kernels]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -72,11 +72,14 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16, "float64": torch.float64,
            "int32": torch.int32, "int64": torch.int64, "uint8": torch.uint8,
            "int8": torch.int8}
-# float16 serves (the five serving symbols, DecodeEngine); training in
-# it is the next part of ROADMAP A.1
+# float16 serves (the five serving symbols, DecodeEngine) and trains the
+# transformer; ResNet's float16 training and the ops it needs (BatchNorm,
+# Convolution, the fused BN-ReLU-Conv op: rows 7 and 10) are the next
+# part of ROADMAP A.1
 FLOAT16_TRAINING = ("float16 is not in the PyTorch port yet (ROADMAP A.1, "
-                    "float16 training): float16 serves through the serving "
-                    "symbols and DecodeEngine; bfloat16 and float32 train")
+                    "float16 for rows 7 and 10): ResNet and the ops without "
+                    "a float16 form wait for it; the transformer trains and "
+                    "serves in float16")
 
 
 def torch_dtype(dtype):
@@ -99,18 +102,15 @@ def torch_dtype(dtype):
         raise MXNetError("unknown dtype %r" % (dtype,)) from None
 
 
-def check_float_dtype(dtype, where, serving=False):
-    """``dtype`` as a torch dtype: float32 or bfloat16 anywhere, float16
-    only at an inference call site (``serving=True``: the serving
-    symbols); raises for float16 in training (ROADMAP A.1, float16
-    training) and for any other type."""
+def check_float_dtype(dtype, where):
+    """``dtype`` as a torch dtype: float32, bfloat16 or float16; raises
+    for any other type.  Which graphs float16 may bind is the
+    executor's check (``executor.FLOAT16_OPS``)."""
     dt = torch_dtype(dtype)
-    if dt == torch.float16 and not serving:
-        raise MXNetError("%s: %s" % (where, FLOAT16_TRAINING))
     if dt not in (torch.float32, torch.bfloat16, torch.float16):
         raise MXNetError("%s: %s is not a type the port computes in yet "
-                         "(ROADMAP A.1): float32 and bfloat16, and float16 "
-                         "for serving" % (where, dt))
+                         "(ROADMAP A.1): float32, bfloat16 and float16"
+                         % (where, dt))
     return dt
 
 

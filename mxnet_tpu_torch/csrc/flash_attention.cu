@@ -1,13 +1,12 @@
 // Causal flash attention for Hopper (sm_90a), forward and backward, in
-// f32 or bf16, and the forward in f16 (the draft model of f16 serving),
-// any S and any head_dim, plain C interface.
+// f32, bf16 or f16, any S and any head_dim, plain C interface.
 //
 // Replaces mxnet_tpu/ops/nn.py:744 _flash_attention, which calls jax's
 // library Pallas kernel for the TPU (jax/experimental/pallas/ops/tpu/
 // flash_attention.py, with its own VJP): the forward pallas_call (:758)
 // and the two backward ones, dK/dV (:1121) and dQ (:1456).  Inputs are
 // contiguous head-major (B, H, S, D) of one element type (float,
-// __nv_bfloat16, or __half for the forward), any S and any D; the kernels
+// __nv_bfloat16 or __half), any S and any D; the kernels
 // mask the ragged last tile themselves, so the TPU's head_dim % 128 and
 // seq % 512 gates do not carry over.  The log-sum-exp L and Dr = rowsum(dO * O) are f32.
 //
@@ -80,15 +79,20 @@
 // were no faster; the forward holds 3 blocks an SM (at 4 blocks ptxas
 // caps it at 128 registers and spills).
 //
-// f16 forward: the bf16 forward's kernel, a template over its element
-// type (tc::T16: the .f16 mma opcode, f16 packing and rounding), f32
-// sums.  P enters P V as one f16 term, as the plain version rounds it
-// (kernels/flash_attention.py, _rounded(p, v.dtype)) and as the
-// reference's f16 path does (mxnet_tpu/ops/nn.py:799,
-// softmax(s).astype(qkv.dtype)); P <= 1 rounds to f16 with 11 bits down
-// to 2^-14, and smaller P, subnormal or flushed, weigh under 2^-14 of the
-// row's largest: no scaling.  The backward kernels have no f16 form
-// (ROADMAP A.1, float16 training).
+// f16: the bf16 kernels, templates over their element type (tc::T16:
+// the .f16 mma opcode, f16 packing and rounding), f32 sums.  P enters
+// P V and P^T dO, and dS enters dS^T Q and dS K, as one f16 term each,
+// as the plain version rounds them (kernels/flash_attention.py,
+// _rounded) and as the reference's f16 path rounds P
+// (mxnet_tpu/ops/nn.py:799, softmax(s).astype(qkv.dtype)); dP and every
+// sum stay f32 (the reference's f16 autodiff also rounds dP and the
+// scores: the port keeps them f32).  P <= 1 rounds to f16 with 11 bits
+// down to 2^-14, and smaller P, subnormal or flushed, weigh under 2^-14
+// of the row's largest: no scaling.  dS carries the loss scale: where
+// |dS| passes 65504 it rounds to inf (cvt.rn, not a saturating
+// conversion), as in the plain version, so the step's gradients go
+// non-finite and the loss scaler skips it; below 2^-14 dS goes
+// subnormal and below 2^-24 it flushes, at the same points as there.
 //
 // f32 design (tensor cores, split TF32): the f32 kernels are built from
 // attention_f32.cuh (design note there), the bf16 kernels' shape with
@@ -125,7 +129,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 // 2^x (ex2.approx.ftz: relative error ~2^-22, results below 2^-126
-// flush to 0, far under a bf16 P's resolution and the sum l's)
+// flush to 0, far under a 16-bit P's resolution and the sum l's)
 __device__ __forceinline__ float exp2_ftz(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
@@ -262,8 +266,7 @@ __device__ __forceinline__ int ksteps(int w) {
 // Stages per key tile: one per head_dim chunk of Q K^T (K chunk; Q chunk
 // too when D > 128, else Q is resident), then one of P V (V's output
 // chunk).  Shared memory: a ring of K/V tiles, then Q (1 tile, or a ring
-// when D > 128).  T is bf16 or f16 (the draft model's f16 spans); the
-// backward kernels below are bf16 only.
+// when D > 128).  T is bf16 or f16, as in the backward kernels below.
 template <typename T, bool kFull>
 __global__ void __launch_bounds__(32 * kFwdWarps, kFwdMinBlocks)
 flash_fwd16_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -386,32 +389,32 @@ flash_fwd16_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
 // output chunk of Q and dO.  The stage that forms P^T and dS^T also
 // stages L and Dr of its rows.  Shared memory: rings of Q and dO tiles,
 // of L and of Dr, then K and V (1 tile each, or rings).
-template <bool kFull>
+template <typename T, bool kFull>
 __global__ void __launch_bounds__(32 * kDkvWarps, kDkvMinBlocks)
-flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                          const float* __restrict__ lse, const float* __restrict__ delta,
-                          bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int D,
-                          float scale, int vec) {
+flash_bwd_dkv16_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, const T* __restrict__ dout,
+                       const float* __restrict__ lse, const float* __restrict__ delta,
+                       T* __restrict__ dk, T* __restrict__ dv, int S, int D, float scale,
+                       int vec) {
   constexpr int R = 16 * kDkvWarps, TH = 32 * kDkvWarps, QT = kDkvStep, NS = kDkvStages;
   constexpr int kKSlot = R * kLds, kQSlot = QT * kLds;
   const int kt = blockIdx.y;                        // most query tiles first
   const size_t bh = blockIdx.x;
   const int nch = (D + kDC - 1) / kDC;
   const int oc0 = blockIdx.z * kDC, ow = min(kDC, D - oc0);
-  const bf16* qg = q + bh * S * D;
-  const bf16* kg = k + bh * S * D;
-  const bf16* vg = v + bh * S * D;
-  const bf16* dog = dout + bh * S * D;
+  const T* qg = q + bh * S * D;
+  const T* kg = k + bh * S * D;
+  const T* vg = v + bh * S * D;
+  const T* dog = dout + bh * S * D;
   const float* lg = lse + bh * S;
   const float* dg = delta + bh * S;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);         // NS Q tiles
-  bf16* dos = qs + NS * kQSlot;                     // NS dO tiles
+  T* qs = reinterpret_cast<T*>(smem);               // NS Q tiles
+  T* dos = qs + NS * kQSlot;                        // NS dO tiles
   float* ls = reinterpret_cast<float*>(dos + NS * kQSlot);  // NS x QT
   float* drs = ls + NS * QT;                        // NS x QT
-  bf16* ks = reinterpret_cast<bf16*>(drs + NS * QT);
-  bf16* vs = ks + (nch > 1 ? NS : 1) * kKSlot;
+  T* ks = reinterpret_cast<T*>(drs + NS * QT);
+  T* vs = ks + (nch > 1 ? NS : 1) * kKSlot;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int k0 = kt * R;
   const int first = k0 / QT, nqt = (S + QT - 1) / QT;
@@ -459,8 +462,8 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     if (st + NS - 1 < nst) issue(st + NS - 1);
     cp_async_commit();
     const int qi = first + st / per, j = st % per, buf = st % NS, q0 = qi * QT;
-    const bf16* qt_ = qs + buf * kQSlot;
-    const bf16* dot_ = dos + buf * kQSlot;
+    const T* qt_ = qs + buf * kQSlot;
+    const T* dot_ = dos + buf * kQSlot;
     if (j < nch) {                                  // S^T, dP^T over chunk j
       if (j == 0) {
         zero<QT / 8>(sT);
@@ -489,8 +492,8 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
         sT[nt][e] = p;
       }
     const int ndp = ksteps<kFull>(ow);
-    mma_kn<QT / 16>(adv, sT, dot_, ndp);            // dV += bf16(P^T) dO
-    mma_kn<QT / 16>(adk, dpT, qt_, ndp);            // dK += bf16(dS^T) Q
+    mma_kn<QT / 16>(adv, sT, dot_, ndp);            // dV += T(P^T) dO
+    mma_kn<QT / 16>(adk, dpT, qt_, ndp);            // dK += T(dS^T) Q
   }
   cp_async_wait<0>();
   const float one[2] = {1.f, 1.f};
@@ -505,12 +508,12 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 // else Q and dO are resident), and when D > 128 one more for K's output
 // chunk.  Shared memory: rings of K and V tiles, then Q and dO (1 tile
 // each, or rings).
-template <bool kFull>
+template <typename T, bool kFull>
 __global__ void __launch_bounds__(32 * kDqWarps, kDqMinBlocks)
-flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                         const float* __restrict__ lse, const float* __restrict__ delta,
-                         bf16* __restrict__ dq, int S, int D, float scale, int vec) {
+flash_bwd_dq16_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ dout,
+                      const float* __restrict__ lse, const float* __restrict__ delta,
+                      T* __restrict__ dq, int S, int D, float scale, int vec) {
   constexpr int R = 16 * kDqWarps, TH = 32 * kDqWarps, KT = kDqStep, NS = kDqStages;
   constexpr int kQSlot = R * kLds, kKSlot = KT * kLds;
   const int nq = (S + R - 1) / R;
@@ -518,15 +521,15 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const size_t bh = blockIdx.x;
   const int nch = (D + kDC - 1) / kDC;
   const int oc0 = blockIdx.z * kDC, ow = min(kDC, D - oc0);
-  const bf16* qg = q + bh * S * D;
-  const bf16* kg = k + bh * S * D;
-  const bf16* vg = v + bh * S * D;
-  const bf16* dog = dout + bh * S * D;
+  const T* qg = q + bh * S * D;
+  const T* kg = k + bh * S * D;
+  const T* vg = v + bh * S * D;
+  const T* dog = dout + bh * S * D;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* ks = reinterpret_cast<bf16*>(smem);         // NS key tiles
-  bf16* vs = ks + NS * kKSlot;                      // NS key tiles
-  bf16* qs = vs + NS * kKSlot;
-  bf16* dos = qs + (nch > 1 ? NS : 1) * kQSlot;
+  T* ks = reinterpret_cast<T*>(smem);               // NS key tiles
+  T* vs = ks + NS * kKSlot;                         // NS key tiles
+  T* qs = vs + NS * kKSlot;
+  T* dos = qs + (nch > 1 ? NS : 1) * kQSlot;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int q0 = qt * R;
   const int nkt = min((q0 + R + KT - 1) / KT, (S + KT - 1) / KT);  // to the diagonal
@@ -597,7 +600,7 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const float p = ok ? exp2_ftz(s[nt][e] * sl2 - lr[e >> 1]) : 0.f;
         dp[nt][e] = p * (dp[nt][e] - dr[e >> 1]) * scale;
       }
-    mma_kn<KT / 16>(acc, dp, ks + buf * kKSlot, ksteps<kFull>(ow));  // dQ += bf16(dS) K
+    mma_kn<KT / 16>(acc, dp, ks + buf * kKSlot, ksteps<kFull>(ow));  // dQ += T(dS) K
   }
   cp_async_wait<0>();
   const float one[2] = {1.f, 1.f};
@@ -984,37 +987,40 @@ int fwd16(const void* q, const void* k, const void* v, void* o, void* lse, int B
   return (int)cudaGetLastError();
 }
 
-int dkv_bf16(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-             const void* delta, void* dk, void* dv, int BH, int S, int D, float scale,
-             int device, void* stream) {
+// the 16-bit backward: T = tc::bf16 or tc::f16
+template <typename T>
+int dkv16(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+          const void* delta, void* dk, void* dv, int BH, int S, int D, float scale,
+          int device, void* stream) {
   const size_t smem = tc::dkv_smem(D);
-  const auto kernel = D % kDC == 0 ? tc::flash_bwd_dkv_bf16_kernel<true>
-                                   : tc::flash_bwd_dkv_bf16_kernel<false>;
+  const auto kernel = D % kDC == 0 ? tc::flash_bwd_dkv16_kernel<T, true>
+                                   : tc::flash_bwd_dkv16_kernel<T, false>;
   cudaError_t err = prepare(kernel, smem, device);
   if (err != cudaSuccess) return (int)err;
   const int vec = D % 8 == 0 && tc::aligned16(q) && tc::aligned16(k) && tc::aligned16(v) &&
                   tc::aligned16(dout);
   kernel<<<tc::grid_of(BH, S, D, tc::kDkvWarps), 32 * tc::kDkvWarps, smem,
            (cudaStream_t)stream>>>(
-      (const tc::bf16*)q, (const tc::bf16*)k, (const tc::bf16*)v, (const tc::bf16*)dout,
-      (const float*)lse, (const float*)delta, (tc::bf16*)dk, (tc::bf16*)dv, S, D, scale, vec);
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
+      (const float*)delta, (T*)dk, (T*)dv, S, D, scale, vec);
   return (int)cudaGetLastError();
 }
 
-int dq_bf16(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-            const void* delta, void* dqp, int BH, int S, int D, float scale, int device,
-            void* stream) {
+template <typename T>
+int dq16(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+         const void* delta, void* dqp, int BH, int S, int D, float scale, int device,
+         void* stream) {
   const size_t smem = tc::dq_smem(D);
-  const auto kernel = D % kDC == 0 ? tc::flash_bwd_dq_bf16_kernel<true>
-                                   : tc::flash_bwd_dq_bf16_kernel<false>;
+  const auto kernel = D % kDC == 0 ? tc::flash_bwd_dq16_kernel<T, true>
+                                   : tc::flash_bwd_dq16_kernel<T, false>;
   cudaError_t err = prepare(kernel, smem, device);
   if (err != cudaSuccess) return (int)err;
   const int vec = D % 8 == 0 && tc::aligned16(q) && tc::aligned16(k) && tc::aligned16(v) &&
                   tc::aligned16(dout);
   kernel<<<tc::grid_of(BH, S, D, tc::kDqWarps), 32 * tc::kDqWarps, smem,
            (cudaStream_t)stream>>>(
-      (const tc::bf16*)q, (const tc::bf16*)k, (const tc::bf16*)v, (const tc::bf16*)dout,
-      (const float*)lse, (const float*)delta, (tc::bf16*)dqp, S, D, scale, vec);
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
+      (const float*)delta, (T*)dqp, S, D, scale, vec);
   return (int)cudaGetLastError();
 }
 
@@ -1022,9 +1028,8 @@ int dq_bf16(const void* q, const void* k, const void* v, const void* dout, const
 
 extern "C" {
 
-// dtype codes: 0 = float32, 1 = bfloat16 (q, k, v, o, dout, dk, dv, dq),
-// 2 = float16 (the forward only: the backward has no f16 form yet, ROADMAP
-// A.1, float16 training); lse and delta are f32 always.  Any other code
+// dtype codes: 0 = float32, 1 = bfloat16, 2 = float16 (q, k, v, o, dout,
+// dk, dv, dq); lse and delta are f32 always.  Any other code
 // returns cudaErrorInvalidValue and launches nothing.
 // q, k, v, o: (BH, S, D) contiguous; lse: (BH, S)
 int mx_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int BH,
@@ -1043,7 +1048,10 @@ int mx_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* do
                      int D, float scale, int dtype, int device, void* stream) {
   switch (dtype) {
     case 0: return dkv_f32(q, k, v, dout, lse, delta, dk, dv, BH, S, D, scale, device, stream);
-    case 1: return dkv_bf16(q, k, v, dout, lse, delta, dk, dv, BH, S, D, scale, device, stream);
+    case 1:
+      return dkv16<tc::bf16>(q, k, v, dout, lse, delta, dk, dv, BH, S, D, scale, device, stream);
+    case 2:
+      return dkv16<tc::f16>(q, k, v, dout, lse, delta, dk, dv, BH, S, D, scale, device, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1053,13 +1061,14 @@ int mx_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dou
                     float scale, int dtype, int device, void* stream) {
   switch (dtype) {
     case 0: return dq_f32(q, k, v, dout, lse, delta, dqp, BH, S, D, scale, device, stream);
-    case 1: return dq_bf16(q, k, v, dout, lse, delta, dqp, BH, S, D, scale, device, stream);
+    case 1: return dq16<tc::bf16>(q, k, v, dout, lse, delta, dqp, BH, S, D, scale, device, stream);
+    case 2: return dq16<tc::f16>(q, k, v, dout, lse, delta, dqp, BH, S, D, scale, device, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// dynamic shared memory of a bf16 kernel at head_dim D, bytes: which 0 =
-// forward (f16's too), 1 = dK/dV, 2 = dQ
+// dynamic shared memory of a 16-bit kernel (bf16 or f16) at head_dim D,
+// bytes: which 0 = forward, 1 = dK/dV, 2 = dQ
 int mx_flash_bf16_smem(int which, int D) {
   return (int)(which == 0 ? tc::fwd_smem(D) : which == 1 ? tc::dkv_smem(D) : tc::dq_smem(D));
 }

@@ -55,18 +55,19 @@
 // has two deterministic stages.  Stage 1: each block takes a fixed range
 // of rows, and a group of warps takes one row at a time, as many rows at
 // once as the block has groups: each thread holds 16 values of a bf16
-// row (two 16-byte vectors) or 8 of an f32 row (two), read and written by
-// 16-byte accesses, so a 2048-column row takes 4 warps in bf16 and 8 in
-// f32.  Loads are straight-line code (no branch between them) and each
-// group loads its next row as soon as it has read the current one, so
-// loads stay in flight through the row means and the stores.  x_hat and
+// or f16 row (two 16-byte vectors) or 8 of an f32 row (two), read and
+// written by 16-byte accesses, so a 2048-column row takes 4 warps in
+// 16-bit and 8 in f32.  Loads are straight-line code (no branch between
+// them) and each group loads its next row as soon as it has read the
+// current one, so loads stay in flight through the row means and the
+// stores.  x_hat and
 // dy * gamma stay in registers between the two row means, which are warp
 // shuffles plus, for a group of several warps, one exchange at a barrier
 // of the group alone; each thread owns the same columns in every row, so
 // its dgamma and dbeta partials stay in registers too.  The block sums
 // its groups' partials in group order and writes them to a scratch
 // buffer the wrapper allocates.  Wider rows (past 2048 columns in f32,
-// 4096 in bf16) take a looped form: one row at a time a block, two
+// 4096 in 16-bit) take a looped form: one row at a time a block, two
 // passes (the second reads the row again), partials in shared memory.
 // Stage 2: a second kernel sums the partials column by column in a fixed
 // order (32 fixed slices per column, then the 32 slice sums in order).
@@ -401,7 +402,7 @@ constexpr int kReduceCols = 32;              // columns per stage-2 block
 constexpr int kReduceSlices = 32;            // partial-sum slices per column
 
 // values of a row a thread keeps in registers: two 16-byte vectors of
-// bf16; else 8 (16 f32 spill with the next row's loads in flight:
+// bf16 or f16; else 8 (16 f32 spill with the next row's loads in flight:
 // tools/torch_layernorm_tune.py)
 template <typename T, bool kVec> __host__ __device__ constexpr int bwd_vals() {
   return kVec && sizeof(T) == 2 ? 16 : 8;
@@ -428,7 +429,7 @@ __device__ void block_sum2(float& a, float& b, float* red) {
 
 
 // Stage 1, rows of up to 32 GW VALS columns.  A row belongs to a group
-// of GW warps (at 2048 columns 4 in bf16, 8 in f32), each thread owning
+// of GW warps (at 2048 columns 4 in 16-bit, 8 in f32), each thread owning
 // the N-column vectors t, t + 32 GW, ... of it (VALS values):
 // its x (+ residual) and dy arrive by 16-byte loads, x_hat and dy * gamma
 // stay in registers between the two row means, which are warp shuffles
@@ -560,7 +561,7 @@ layernorm_bwd_rows_kernel(const T* __restrict__ x, const T* __restrict__ res,
 }
 
 // Stage 1 for rows wider than the register form's 32 * 8 * VALS
-// columns (2048 in f32, 4096 in bf16): the block takes one row at a time, in two passes over it
+// columns (2048 in f32, 4096 in 16-bit): the block takes one row at a time, in two passes over it
 // (the second reads x, the residual and dy again, from L2), with the
 // dgamma and dbeta partials in shared memory (each thread owns the same
 // columns in every row, so no barrier guards them) and the row means a
@@ -761,9 +762,11 @@ int mx_layernorm_fwd(const void* x, const void* res, const void* gamma,
 }
 
 // the backward's two stages; `part` is 2 * ceil(rows / rows_per_block) *
-// cols f32 scratch; dgamma and dbeta are written in gamma's dtype.  Codes
-// 0 and 1 only, as for the forward: the backward has no f16 form yet
-// (ROADMAP A.1, float16 training), so code 2 returns cudaErrorInvalidValue
+// cols f32 scratch; dgamma and dbeta are written in gamma's dtype, each
+// rounded once from its f32 sum.  Pairings as for the forward: x and
+// gamma f32 and bf16 in any way, f16 only with f16 (the f16 training
+// path); any other pairing or an unknown code returns
+// cudaErrorInvalidValue and launches nothing
 int mx_layernorm_bwd(const void* x, const void* res, const void* gamma,
                      const void* mean, const void* rstd, const void* dy, void* dx,
                      void* dgamma, void* dbeta, void* part, int rows, int cols,
@@ -785,6 +788,9 @@ int mx_layernorm_bwd(const void* x, const void* res, const void* gamma,
     return launch_bwd<__nv_bfloat16, __nv_bfloat16>(x, res, gamma, mean, rstd, dy, dx,
                                                     dgamma, dbeta, part, rows, cols,
                                                     rows_per_block, s);
+  if (x_dtype == 2 && g_dtype == 2)
+    return launch_bwd<__half, __half>(x, res, gamma, mean, rstd, dy, dx, dgamma, dbeta, part,
+                                      rows, cols, rows_per_block, s);
   return (int)cudaErrorInvalidValue;
 }
 

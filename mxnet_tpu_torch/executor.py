@@ -18,9 +18,11 @@ Every argument and auxiliary state is allocated in the type the
 symbol infers for it (``Symbol.infer_shape_type``: float32 unless
 ``type_dict`` or the same-type rule says otherwise, so bf16 data makes
 the weights it meets bf16), and each gradient in its argument's type.
-float16 binds for inference only, over the ops of the serving symbols
-(``FLOAT16_OPS``): a gradient request on a float16 argument, or a
-float16 graph with another op, raises (ROADMAP A.1, float16 training).
+float16 binds, for inference and with gradients, over the ops whose
+float16 forms are ported (``FLOAT16_OPS``: the serving symbols' and the
+transformer's training graph's); a float16 graph with another op
+(BatchNorm, a convolution, the fused BN-ReLU-Conv op) raises, naming
+ROADMAP A.1's float16 for rows 7 and 10.
 Auxiliary states (BatchNorm's moving statistics) live in ``aux_dict``,
 zeros at bind, and take no gradient.  Ops that declare ``is_train``
 are handed the forward's flag; after a train forward, each output an op
@@ -75,30 +77,27 @@ __all__ = ["Executor", "GraphPlan", "run_graph"]
 
 _GRAD_REQS = ("write", "add", "null")
 # the ops a float16 graph may hold: those of the five serving symbols
-# (models/transformer.py), whose float16 forms are ported; any other op
-# in float16 (a convolution, BatchNorm, a loss head) belongs to float16
-# training, ROADMAP A.1's next part
+# and of the transformer's training graph (models/transformer.py), with
+# the loss head and the MLP's activation, whose float16 forward and
+# backward are held against the JAX package; any other op in float16 (a
+# convolution, BatchNorm, the fused BN-ReLU-Conv op of rows 7 and 10)
+# waits for ROADMAP A.1's float16 for rows 7 and 10
 FLOAT16_OPS = frozenset((
-    "Cast", "Concat", "Embedding", "FullyConnected", "LayerNorm",
-    "LeakyReLU", "Reshape", "_contrib_FusedCausalSelfAttention",
-    "_contrib_GatherTimestep", "_contrib_PagedChunkPrefillAttention",
-    "_contrib_PagedDecodeAttention", "_contrib_PagedPrefillAttention",
-    "_minus_scalar", "_plus_scalar", "argmax", "broadcast_add",
-    "broadcast_equal", "broadcast_mul", "broadcast_sub", "slice_axis",
-    "take"))
+    "Activation", "Cast", "Concat", "Embedding", "FullyConnected",
+    "LayerNorm", "LeakyReLU", "Reshape", "SoftmaxOutput",
+    "_contrib_FusedCausalSelfAttention", "_contrib_GatherTimestep",
+    "_contrib_PagedChunkPrefillAttention", "_contrib_PagedDecodeAttention",
+    "_contrib_PagedPrefillAttention", "_minus_scalar", "_plus_scalar",
+    "argmax", "broadcast_add", "broadcast_equal", "broadcast_mul",
+    "broadcast_sub", "slice_axis", "take"))
 
 
-def _check_float16_bind(symbol, arg_names, arg_types, aux_types, grad_req):
-    """float16 binds for inference over FLOAT16_OPS only: raises, naming
-    ROADMAP A.1's float16 training, for a gradient request on a float16
-    argument and for a float16 graph with any other op."""
-    f16 = [n for n, t in zip(arg_names, arg_types) if t == torch.float16]
-    if not f16 and torch.float16 not in aux_types:
+def _check_float16_bind(symbol, arg_types, aux_types):
+    """A float16 graph binds over FLOAT16_OPS only: raises, naming
+    ROADMAP A.1's float16 for rows 7 and 10, for one with any other op
+    (before anything is allocated)."""
+    if torch.float16 not in arg_types and torch.float16 not in aux_types:
         return
-    grads = [n for n in f16 if grad_req[n] != "null"]
-    if grads:
-        raise MXNetError("simple_bind: gradients requested for float16 "
-                         "arguments %s; %s" % (grads[:4], FLOAT16_TRAINING))
     other = sorted({n.op.name for n in symbol._topo()
                     if not n.is_var and n.op.name not in FLOAT16_OPS})
     if other:
@@ -180,8 +179,7 @@ class Executor:
         self._grad_req = _normalize_grad_req(grad_req, self._arg_names)
         arg_shapes, arg_types, aux_shapes, aux_types = \
             symbol.infer_shape_type(shapes, type_dict)
-        _check_float16_bind(symbol, self._arg_names, arg_types, aux_types,
-                            self._grad_req)
+        _check_float16_bind(symbol, arg_types, aux_types)
         self._aux_names = symbol.list_auxiliary_states()
 
         arg_pool = shared_exec.arg_dict if shared_exec is not None else {}

@@ -273,7 +273,7 @@ def bulk_apply(sig):
 
 
 # ----------------------------------------------------------------------
-# dynamic loss scaling (bf16 training through the fused fit step)
+# dynamic loss scaling (16-bit training through the fused fit step)
 # ----------------------------------------------------------------------
 LOSS_SCALE = REGISTRY.gauge(
     "loss_scale",

@@ -11,8 +11,8 @@ kvstore keys are the parameters' positions, in name order for a
 ParameterDict.  With ``update_on_kvstore`` the store keeps its own copy
 of each weight, applies the optimizer there and the pull copies it back
 into the parameter; without it, the updater runs on the parameter in
-place.  bf16 weights (``net.cast('bfloat16')``) under
-``multi_precision`` train through the ``Updater``'s f32 masters on
+place.  bf16 or f16 weights (``net.cast('bfloat16')`` or
+``'float16'``) under ``multi_precision`` train through the ``Updater``'s f32 masters on
 either side, as ``Module`` does.  ``save_states``/``load_states``
 write and read the updater's states with the optimizer (the
 ``dump_optimizer`` form), the JAX package's file.

@@ -15,10 +15,11 @@ kernel has several element types also counts each launch under
 ``LAUNCHES_BY_DTYPE["name:dtype"]`` (``"flash_attention_fwd:bfloat16"``,
 ``"paged_decode_attend:float16"``).
 
-float16 has kernels only on the serving path (``F16_KERNELS``: rows 1,
-2, 3, 5 and row 8's forward); :func:`check_tensor` refuses a float16
-tensor bound for any other kernel, naming ROADMAP A.1's float16
-training, before a pointer reaches it.
+float16 has kernels on the transformer's serving and training paths
+(``F16_KERNELS``: rows 1, 2, 3, 4, 5 and row 8's three);
+:func:`check_tensor` refuses a float16 tensor bound for any other kernel before a pointer
+reaches it: rows 7 and 10 naming ROADMAP A.1's float16 for rows 7 and
+10, row 6 (the 2-bit quantizer) as f32 by design.
 Inside :func:`record_launches` the launches made on a stream being
 captured are also counted into dicts of their own: what a CUDA graph
 records, from any thread (autograd runs a captured backward on a thread
@@ -44,11 +45,19 @@ KERNELS = ("paged_decode_attend", "paged_chunk_prefill_attend",
            "flash_attention_bwd_dq", "two_bit_quantize_fused",
            "fused_scale_relu_matmul", "fused_band4d")
 # the kernels with a float16 form: the serving path's (rows 1, 2, 3, 5
-# and row 8's forward, the draft model's)
+# and row 8's forward, the draft model's) and the transformer's training
+# path's (row 4 and row 8's backward)
 F16_KERNELS = frozenset(("paged_decode_attend", "paged_chunk_prefill_attend",
                          "paged_prefill_attend", "layernorm_fused",
-                         "flash_attention_fwd"))
-F16_TRAINING = "ROADMAP A.1, float16 training"
+                         "layernorm_fused_bwd", "flash_attention_fwd",
+                         "flash_attention_bwd_dkv", "flash_attention_bwd_dq"))
+# why a kernel outside F16_KERNELS refuses float16
+F16_LATER = ("the kernel has no float16 form yet (ROADMAP A.1, float16 "
+             "for rows 7 and 10)")
+F16_REFUSALS = {
+    "two_bit_quantize_fused": "the kernel is f32 by design: 2-bit compression quantizes "
+    "the f32 master-gradient view, which the kvstore makes of 16-bit "
+    "gradients (ROADMAP A.1)"}
 LAUNCHES = {k: 0 for k in KERNELS}
 PLAIN_CALLS = {k: 0 for k in KERNELS}
 LAUNCHES_BY_DTYPE = {}
@@ -125,16 +134,18 @@ def reset_counts():
 
 def refuse_f16(kernel, name, t):
     """Raises for a float16 tensor ``t`` bound for a kernel outside
-    ``F16_KERNELS``, naming ROADMAP A.1's float16 training."""
+    ``F16_KERNELS``, naming the reason (``F16_REFUSALS``, else
+    ``F16_LATER``)."""
     if t.dtype == torch.float16 and kernel not in F16_KERNELS:
-        raise MXNetError("%s: %s is float16; the kernel has no float16 form "
-                         "yet (%s)" % (kernel, name, F16_TRAINING))
+        raise MXNetError("%s: %s is float16; %s"
+                         % (kernel, name, F16_REFUSALS.get(kernel,
+                                                           F16_LATER)))
 
 
 def check_tensor(kernel, name, t, *, dtypes, ndim=None, shape=None):
     """Wrapper-side validation before a pointer reaches a kernel: a
-    float16 tensor for a kernel outside ``F16_KERNELS`` raises, naming
-    ROADMAP A.1's float16 training."""
+    float16 tensor for a kernel outside ``F16_KERNELS`` raises
+    (:func:`refuse_f16`)."""
     refuse_f16(kernel, name, t)
     if t.dtype not in dtypes:
         raise MXNetError("%s: %s has dtype %s; the kernel takes %s"

@@ -4,19 +4,18 @@ Counterpart of ``mxnet_tpu/ops/nn.py`` ``_flash_attention``, which calls
 jax's library Pallas kernel on the TPU (a forward kernel and two
 backward kernels, dK/dV and dQ).  The port's kernels are
 ``csrc/flash_attention.cu`` (design note in the source; the f32 forms
-run split TF32 on the tensor cores, ``csrc/attention_f32.cuh``): causal, with
-``scale``, on contiguous head-major ``(B, H, S, D)`` f32 or bf16 (and
-f16 for the forward, the draft model of float16 serving; the backward
-refuses f16, ROADMAP A.1), any ``S`` and any ``D`` (the kernels tile
-head_dim in chunks of 128).  The
-forward also writes each row's log-sum-exp (f32), and the backward
-recomputes the probabilities from it; no ``S x S`` tensor is stored.
-In bf16 the kernels follow the TPU kernel's rounding points: products
-accumulate in f32, and the probabilities (and ``dS``) are rounded to
-the input type before the products that consume them; the plain
-versions round at the same points.  ``Dr = rowsum(dO * O)`` is
-computed in plain PyTorch between the forward and the backward
-kernels, as jax's own backward does.
+run split TF32 on the tensor cores, ``csrc/attention_f32.cuh``):
+causal, with ``scale``, on contiguous head-major ``(B, H, S, D)`` f32,
+bf16 or f16, any ``S`` and any ``D`` (the kernels tile head_dim in
+chunks of 128).  The forward also writes each row's log-sum-exp (f32),
+and the backward recomputes the probabilities from it; no ``S x S``
+tensor is stored.  In bf16 and f16 the kernels follow the TPU kernel's
+rounding points: products accumulate in f32, and the probabilities
+(and ``dS``) are rounded to the input type before the products that
+consume them; the plain versions round at the same points.  In f16 a
+``dS`` past 65504 rounds to inf in both (the loss scaler skips such a
+step).  ``Dr = rowsum(dO * O)`` is computed in plain PyTorch between the
+forward and the backward kernels, as jax's own backward does.
 
 Beside each wrapper is its plain PyTorch version: the CPU path and the
 kernel's yardstick on the card.  :func:`flash_attention_plain` is the

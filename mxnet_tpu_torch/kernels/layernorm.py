@@ -4,8 +4,7 @@ Counterpart of ``mxnet_tpu/pallas/layernorm.py`` ``layernorm_fused``.
 The kernels are ``csrc/layernorm.cu`` (design notes in the source): the
 forward gives each row to a group of warps that holds it in registers
 (a looped form past 2048 columns), any width, in f32, bf16 or (x and
-gamma both) f16; the backward, f32 and bf16 only (float16 training is
-ROADMAP A.1), computes dx from the saved mean and rstd and reduces
+gamma both) f16; the backward, in the same types, computes dx from the saved mean and rstd and reduces
 dgamma/dbeta over all rows in two deterministic stages (per-block
 partial sums, then a fixed-order column sum), so two runs give the same
 bits.  ``layernorm_plain`` and ``layernorm_bwd_plain`` are the same

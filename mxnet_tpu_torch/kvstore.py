@@ -8,13 +8,13 @@ error feedback (``parallel/compression.py``), then applies the
 optimizer to the stored weight (``set_optimizer``) or stores the
 reduced value; a pull copies the stored value out.
 
-Dense f32 pushes, and bf16 ones under an optimizer, take the bucketed
-path (``kvstore_fused.py``) unless ``MXNET_KVSTORE_FUSED=0``; custom
-updaters and optimizers without a fused signature take the eager
-per-key path, with the same results.  bf16 values reduce in bf16; with
-2-bit compression each stream is widened to f32 first, so residuals
-and the reduced gradient are f32 (the master-gradient view) and a
-stored bf16 weight is updated through its f32 master by the
+Dense f32 pushes, and bf16 or f16 ones under an optimizer, take the
+bucketed path (``kvstore_fused.py``) unless ``MXNET_KVSTORE_FUSED=0``;
+custom updaters and optimizers without a fused signature take the eager
+per-key path, with the same results.  16-bit values reduce in their own
+type; with 2-bit compression each stream is widened to f32 first, so
+residuals and the reduced gradient are f32 (the master-gradient view)
+and a stored 16-bit weight is updated through its f32 master by the
 ``Updater``, as in the JAX package.
 The distributed, ``'tpu'`` and ``'nccl'`` stores come with the
 multi-GPU slice; row-sparse push and pull with the sparse slice.

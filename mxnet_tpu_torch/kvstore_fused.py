@@ -1,15 +1,15 @@
 """The bucketed kvstore push path.
 
 Counterpart of ``mxnet_tpu/kvstore_fused.py``.  A batched ``push`` packs
-the dense gradients (f32, or bf16 when an optimizer applies them) into
-buckets of at most ``MXNET_KVSTORE_BIGARRAY_BOUND`` bytes (default 4
-MiB, the analog of MXNet's big-array bound; each key counted at its own
-item size, a larger value in a bucket of its own, a new bucket at a
-change of type), and each bucket runs as one short sequence of eager
+the dense gradients (f32, or bf16 or f16 when an optimizer applies
+them) into buckets of at most ``MXNET_KVSTORE_BIGARRAY_BOUND`` bytes
+(default 4 MiB, the analog of MXNet's big-array bound; each key counted
+at its own item size, a larger value in a bucket of its own, a new
+bucket at a change of type), and each bucket runs as one short sequence of eager
 calls:
 
     with 2-bit compression: per device stream, ``torch.cat`` of the
-      gradients' flat f32 views (the master-gradient view: a bf16
+      gradients' flat f32 views (the master-gradient view: a 16-bit
       gradient is widened once, here), then ONE ``two_bit_quantize_fused``
       launch against the bucket's persistent flat f32 error-feedback
       residual; the quantized streams summed in device order; the sum
@@ -17,7 +17,7 @@ calls:
     without: each key's device streams summed in order, in their type;
     then the optimizer's fused update (``Optimizer._fused_bucket_sig``,
       ``fused_update.bulk_apply``, with each key's static
-      multi-precision flag: a bf16 weight under ``multi_precision`` is
+      multi-precision flag: a 16-bit weight under ``multi_precision`` is
       updated through its f32 master) written into the stored weights
       and the ``Updater``'s states, or, with no updater, the reduced
       value stored.
@@ -37,9 +37,8 @@ priority, then arrival.  Once a bucket's worth of bytes is pending, the
 full buckets go out at once (the streaming flush) and the partial tail
 waits for the end of the push or the next sync point.
 
-Custom updaters, optimizers without a fused signature, float16 values
-(ROADMAP A.1, float16) and, with no updater, any value other than f32
-take the eager per-key path (``KVStore._push_one``) with the same
+Custom updaters, optimizers without a fused signature and, with no
+updater, any value other than f32 take the eager per-key path (``KVStore._push_one``) with the same
 semantics.
 """
 from __future__ import annotations
@@ -204,8 +203,6 @@ class FusedBucketEngine:
             if not isinstance(v, NDArray):
                 return "non_ndarray_value"
             dtype = v._data.dtype
-            if dtype == torch.float16:
-                return "float16_dtype (ROADMAP A.1, float16)"
             if dtype != torch.float32 and (
                     mode is None or not _fused.is_low_precision(dtype)):
                 # a low-precision value is bucketed only under an

@@ -7,8 +7,8 @@ shapes, so one numpy weight set binds in both packages.
 ``dtype='bfloat16'`` casts the data to bf16 before the first BatchNorm
 and the logits back to f32 before the softmax, as the JAX package's
 does, so the weights infer bf16 and BatchNorm keeps its statistics in
-f32; ``'float16'`` raises (float16 training is ROADMAP A.1's next
-part).
+f32; ``'float16'`` raises (ResNet's float16 training, with float16
+forms of rows 7 and 10, is ROADMAP A.1's next part).
 ``layout='NHWC'`` builds the whole trunk channel-last (data, OHWI
 weights, pooling, BatchNorm axis 3), with no relayout copy in the step
 (``ops/nn.py``); ``image_shape`` stays channels-first and the data

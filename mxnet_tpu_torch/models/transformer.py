@@ -8,21 +8,19 @@ Counterpart of ``mxnet_tpu/models/transformer.py`` ``get_symbol``,
 names, so the JAX package's parameters bind unchanged in both
 directions (``weights.convert_params`` / ``weights.export_params``) and
 a model trained by the port serves in the port's ``DecodeEngine``.
-The training symbol takes ``dtype='bfloat16'`` as the JAX package's
-does (the embeddings cast to bf16, the logits back to f32; the weights
-the trunk meets infer bf16), and so do the five serving symbols: their
-weights, LayerNorms and paged caches bind bf16, their block tables,
-positions, offsets and lengths float32 (``shape_rules.INDEX_INPUTS``).
-The serving symbols take ``dtype='float16'`` the same way (float16
-weights, LayerNorms and caches, float32 index inputs); the training
-symbol in float16 (ROADMAP A.1, float16 training), MoE layers, tensor
-parallelism and dropout come with later slices.
+The training symbol takes ``dtype='bfloat16'`` or ``'float16'`` as the
+JAX package's does (the embeddings cast to the 16-bit type, the logits
+back to f32; the weights the trunk meets infer it), and so do the five
+serving symbols: their weights, LayerNorms and paged caches bind 16-bit,
+their block tables, positions, offsets and lengths float32
+(``shape_rules.INDEX_INPUTS``).  MoE layers, tensor parallelism and
+dropout come with later slices.
 """
 from __future__ import annotations
 
 from .. import initializer as _init
 from .. import symbol as sym
-from ..base import FLOAT16_TRAINING, MXNetError, check_float_dtype
+from ..base import MXNetError, check_float_dtype
 
 # the mixed step's per-iteration inputs; every other argument is a
 # parameter or a cache
@@ -43,17 +41,15 @@ def get_symbol(num_classes=16384, num_layers=12, d_model=2048, num_heads=16,
     (``normalization='batch'``) over the (B * seq_len, vocab) logits
     with ``softmax_label`` (B * seq_len,) next-token targets.
     ``num_classes`` is the vocabulary size.  With ``dtype='bfloat16'``
-    the embedding sum is cast to bf16 before the first layer and the
-    logits back to f32 before the softmax."""
+    or ``'float16'`` the embedding sum is cast to that type before the
+    first layer and the logits back to f32 before the softmax."""
     later = []
     if moe_experts:
         later.append("MoE layers (moe_experts=%s, ROADMAP A.8)" % moe_experts)
     if tensor_parallel:
         later.append("tensor_parallel=%r (multi-GPU, ROADMAP A.8)"
                      % (tensor_parallel,))
-    if dtype == "float16":
-        later.append(FLOAT16_TRAINING)
-    elif dtype not in ("float32", "bfloat16"):
+    if dtype not in ("float32", "bfloat16", "float16"):
         later.append("dtype=%r (ROADMAP A.1)" % (dtype,))
     if float(dropout) > 0:
         later.append("dropout=%s: the Dropout op (ROADMAP A.5)" % dropout)
@@ -173,7 +169,7 @@ def _serving_only(fn_name, moe_experts, tensor_parallel=None,
                   dtype="float32"):
     """The serving symbols' options that come with later slices (they
     serve in float32, bfloat16 or float16)."""
-    check_float_dtype(dtype, fn_name, serving=True)
+    check_float_dtype(dtype, fn_name)
     if moe_experts:
         raise MXNetError("%s: MoE layers (moe_experts=%s) are not in the "
                          "PyTorch port yet (ROADMAP A.8)"

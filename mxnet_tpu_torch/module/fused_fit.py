@@ -7,17 +7,17 @@ metric read every batch.  ``FusedFitStep`` runs the whole step as one
 body:
 
     forward + backward (the executor's graph walk, torch autograd)
-      -> the gradients' f32 view (a bf16 gradient widened once)
+      -> the gradients' f32 view (a 16-bit gradient widened once)
       -> 2-bit quantize per bucket against flat error-feedback
          residuals it keeps (optional; the ``two_bit_quantize_fused``
          kernel)
       -> the fused optimizer update (``Optimizer._fused_fit_sig``,
-         ``fused_update.py``; a bf16 weight under ``multi_precision``
+         ``fused_update.py``; a 16-bit weight under ``multi_precision``
          through its f32 master), written into the live weights and
          states
       -> the metric's device accumulation (``EvalMetric.device_fn``)
 
-With bf16 parameters the module keeps a ``DynamicLossScaler``
+With bf16 or f16 parameters the module keeps a ``DynamicLossScaler``
 (``module._loss_scaler``, from ``MXNET_LOSS_SCALE``; it survives a
 re-bind and ``init_optimizer``), as the JAX package's fused step does
 (``mxnet_tpu/module/fused_fit.py:446-469``): the step checks on the
@@ -63,10 +63,10 @@ it (after the bucketed engine spills its own) and spills them back
 
 Eligible: no store or the single-process ``KVStore`` (``'local'``,
 ``'device'``), with or without 2-bit compression; no monitor; f32 or
-bf16 parameters with ``grad_req='write'``; an optimizer with a fused
+bf16 or f16 parameters with ``grad_req='write'``; an optimizer with a fused
 signature and the module's own ``Updater``.  Everything else keeps the
 eager pair.  ``Module.bind`` already refuses ``inputs_need_grad``;
-float16 waits for ROADMAP A.1, a mesh or several processes for A.8
+a mesh or several processes wait for A.8
 (such a ``Module`` or store raises at construction), the in-launch
 numerics sentinels for A.9 (``MXNET_SENTINEL_NUMERICS`` other than 0
 raises here).  ``MXNET_FIT_FUSED=0`` keeps every step eager.
@@ -163,7 +163,7 @@ class FusedFitStep:
         self._updater = updater
         self._kv = kv                   # None or the single-process store
         self._threshold = threshold     # 2-bit threshold, or None
-        self._low_precision = low_precision   # bf16 parameters: a scaler
+        self._low_precision = low_precision   # 16-bit parameters: a scaler
         exe = module._exec_group._exec
         self._device = exe.arg_dict[module._exec_group.param_names[0]] \
             ._data.device
@@ -224,12 +224,9 @@ class FusedFitStep:
             if exe._grad_req[name] != "write":
                 return no("grad_req %r on %s" % (exe._grad_req[name], name))
             dtype = exe.arg_dict[name]._data.dtype
-            if dtype == torch.float16:
-                return no("float16 parameter %s (ROADMAP A.1, float16)"
-                          % name)
-            if dtype not in (torch.float32, torch.bfloat16):
+            if dtype != torch.float32 and not _fused.is_low_precision(dtype):
                 return no("%s parameter %s" % (dtype, name))
-            low_precision = low_precision or dtype == torch.bfloat16
+            low_precision = low_precision or dtype != torch.float32
         if low_precision and module._loss_scaler is None:
             # on the module, so it survives a re-bind and init_optimizer;
             # None when MXNET_LOSS_SCALE is off

@@ -20,15 +20,16 @@ runtime values (``_fused_runtime``).  SGD (with momentum), Adam,
 AdaGrad and RMSProp (plain and centered) describe theirs; Signum
 returns None and stays on the eager per-key path.
 
-``multi_precision=True`` keeps an f32 master copy of every bf16
-weight: ``create_state_multi_precision`` returns ``(inner state,
+``multi_precision=True`` keeps an f32 master copy of every bf16 or
+f16 weight: ``create_state_multi_precision`` returns ``(inner state,
 weight32)`` and ``update_multi_precision`` updates the master in f32
 and writes it back rounded to the weight's type, as the JAX package's
 do (SGD through ``mp_sgd_update``/``mp_sgd_mom_update``, the ops that
 ``parallel.TrainStep`` applies too).  The ``Updater`` that ``Module``,
 the kvstore and Gluon's ``Trainer`` apply creates and updates every
-state through these two, so a bf16 weight trains through its master on
-every path; float16 raises (ROADMAP A.1, float16 training).
+state through these two, so a 16-bit weight trains through its master
+on every path.  Without ``multi_precision`` a 16-bit weight updates in
+its own type, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -37,7 +38,7 @@ import math
 import numpy as _np
 import torch
 
-from .base import (FLOAT16_TRAINING, LOW_PRECISION, MXNetError,
+from .base import (LOW_PRECISION, MXNetError,
                    numpy_to_tensor)
 from .ndarray.ndarray import NDArray, zeros
 from .ops.optimizer_ops import (adagrad_update, adam_update,
@@ -118,10 +119,8 @@ class Optimizer:
 
     def keeps_master(self, weight):
         """Whether ``weight`` (an NDArray or tensor) is updated through
-        an f32 master copy: a bf16 weight under ``multi_precision``.
-        Raises for float16."""
-        if weight.dtype == torch.float16:
-            raise MXNetError("optimizer: %s" % FLOAT16_TRAINING)
+        an f32 master copy: a bf16 or f16 weight under
+        ``multi_precision``."""
         return self.multi_precision and weight.dtype in LOW_PRECISION
 
     def create_state_multi_precision(self, index, weight):

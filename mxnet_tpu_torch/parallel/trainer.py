@@ -16,18 +16,21 @@ decay still moves it).  The learning rate comes from the scheduler at
 folded into it with one global step count, since every parameter
 updates every step.
 
-bf16: the symbol is bound in the types it infers (a model whose data
-is cast to bf16 has bf16 weights, gradients and, as the JAX package
-infers them, BatchNorm statistics), and ``dtype='bfloat16'`` makes the
-data inputs bf16 as well.  Each batch is cast to its input's type as it
-is copied in.  SGD with ``multi_precision`` keeps an f32 master copy of
-every low-precision weight in its state (``(mom, weight32)`` or
-``(weight32,)``) and updates through ``mp_sgd_mom_update`` /
+16-bit: the symbol is bound in the types it infers (a model whose data
+is cast to bf16 or f16 has weights and gradients of that type and, as
+the JAX package infers them, BatchNorm statistics), and
+``dtype='bfloat16'`` or ``'float16'`` makes the data inputs that type
+as well; a float16 graph with an op that has no float16 form raises at
+the bind, before anything is allocated (``executor.FLOAT16_OPS``).
+Each batch is cast to its input's type as it is copied in.  SGD with
+``multi_precision`` keeps an f32 master copy of every low-precision
+weight in its state (``(mom, weight32)`` or ``(weight32,)``) and
+updates through ``mp_sgd_mom_update`` /
 ``mp_sgd_update``, the JAX package's ``use_mp`` branch; the other
 optimizers update low-precision weights in their own type, as there.
 Initializers draw in f32 and the draw is cast to the parameter's type.
 Meshes (data and tensor parallelism) come with the multi-GPU slice and
-raise, as does float16.
+raise.
 """
 from __future__ import annotations
 

@@ -275,16 +275,19 @@ def test_bucket_boundaries_match_jax(monkeypatch):
 
 
 def test_float16_keeps_its_slug_and_raises():
-    """float16 stays off the bucketed path under its own reason and
-    raises in the Updater, naming A.1."""
+    """float16 no longer has a slug of its own or raises: since float16
+    training (ROADMAP A.1) an f16 value under an optimizer is bucketed
+    like a bf16 one, through its f32 master-gradient view, and updated
+    through an f32 master (tests/test_torch_fit_f16.py)."""
     kv = _kv(mx, True, "sgd", mp=True)
     w = _arr(mx, np.ones(4, np.float32), "float16")
     kv.init("h", w)
     eng = kv._get_engine()
-    assert eng.ineligible_reason("h", [w], eng._updater_mode()) \
-        == "float16_dtype (ROADMAP A.1, float16)"
-    with pytest.raises(mx.MXNetError, match="ROADMAP A.1"):
-        kv.push("h", w)
+    assert eng.ineligible_reason("h", [w], eng._updater_mode()) is None
+    kv.push("h", w)
+    kv._sync_engine()
+    assert eng.stats["flushes"] > 0
+    assert kv._updater.states["h"][1]._data.dtype == torch.float32
 
 
 # ----------------------------------------------------------------------

@@ -640,7 +640,8 @@ def test_trainer_bf16_multi_precision_raises_like_the_updater():
     """bf16 weights under multi_precision train through the f32 masters
     of the Updater the Trainer applies (ROADMAP A.1's bf16 half): the
     master steps in f32 and the weight is the master rounded to bf16; a
-    float16 weight still raises in that Updater, naming A.1."""
+    float16 weight takes an f32 master in that Updater too (float16
+    training, ROADMAP A.1: tests/test_torch_fit_f16.py)."""
     with NameManager():
         net = mx.gluon.nn.Dense(3, in_units=4)
     net.initialize(ctx=mx.cpu())
@@ -666,6 +667,7 @@ def test_trainer_bf16_multi_precision_raises_like_the_updater():
     np.testing.assert_array_equal(w32.asnumpy(), want)
     assert torch.equal(w, torch.from_numpy(want).bfloat16())
     w16 = mx.nd.array(np.ones(4, np.float32), ctx=mx.cpu()).astype("float16")
-    with pytest.raises(mx.MXNetError, match="float16 is not in the PyTorch "
-                       "port yet .ROADMAP A.1"):
-        updater("f16", w16, w16)
+    updater("f16", w16, w16)
+    inner, w32 = updater.states["f16"]
+    assert inner is None and w32._data.dtype == torch.float32
+    assert w16._data.dtype == torch.float16

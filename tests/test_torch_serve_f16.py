@@ -7,8 +7,9 @@ draft model), preemption, the prefill/decode-step pair, the weight swap
 and copy-on-write, at tests/test_decode.py's tiny config.  Both packages
 get the same numpy weights; the JAX side runs its Pallas kernels in
 interpret mode, the port's wrappers take their plain versions on CPU
-tensors.  float16 training still raises (ROADMAP A.1, float16
-training), as do the kernels with no float16 form.
+tensors.  float16 ResNet training still raises (ROADMAP A.1, float16
+for rows 7 and 10), as do the kernels with no float16 form; the
+transformer's float16 training is tests/test_torch_fit_f16.py's.
 
 Bounds:
 - greedy streams equal;
@@ -476,14 +477,8 @@ def test_block_ids_and_chunk_starts_above_2048_are_exact(np_params):
 
 
 # ----------------------------------------------------------------------
-# float16 training and the forms with no f16 kernel still raise
+# float16 ResNet training and the forms with no f16 kernel still raise
 # ----------------------------------------------------------------------
-def _serving_sym_with_grads():
-    build, shapes = _SYMBOLS["mixed_step"]
-    return build(transformer, block_size=4, num_blocks=16, **CFG)\
-        .simple_bind(ctx=mx.cpu(), grad_req="write", **shapes)
-
-
 def _f32_resnet_bound_f16():
     sym = resnet.get_symbol(num_classes=10, num_layers=18,
                             image_shape=(3, 32, 32))
@@ -491,14 +486,7 @@ def _f32_resnet_bound_f16():
                            data=(1, 3, 32, 32), softmax_label=(1,))
 
 
-def _updater_f16():
-    w = mx.nd.array(np.ones(4, np.float32), ctx=mx.cpu()).astype("float16")
-    mx.optimizer.get_updater(mx.optimizer.SGD(multi_precision=True))(0, w, w)
-
-
 _TRAINING = {
-    "transformer_get_symbol": lambda: transformer.get_symbol(
-        **dict(CFG, dtype="float16")),
     "resnet_get_symbol": lambda: resnet.get_symbol(
         num_classes=10, num_layers=18, image_shape=(3, 32, 32),
         dtype="float16"),
@@ -507,20 +495,19 @@ _TRAINING = {
                           image_shape=(3, 32, 32)),
         mx.optimizer.SGD(), dtype="float16", ctx=mx.cpu(),
         data_shapes={"data": (1, 3, 32, 32)}),
-    "simple_bind_with_gradients": _serving_sym_with_grads,
     "simple_bind_training_graph": _f32_resnet_bound_f16,
-    "updater": _updater_f16,
 }
 
 
 @pytest.mark.parametrize("what", sorted(_TRAINING))
 def test_float16_training_raises(what):
-    """float16 training entry points raise, naming ROADMAP A.1: the
-    training symbols, TrainStep, a bind with gradients on f16 arguments
-    or of an f16 graph with ops outside the serving symbols', and the
-    updater on an f16 weight."""
+    """float16 ResNet training raises, naming ROADMAP A.1's float16 for
+    rows 7 and 10: its training symbol, TrainStep on it, and a bind of
+    an f16 graph with ops that have no f16 form (BatchNorm, Convolution,
+    the fused op).  The transformer's float16 training runs
+    (tests/test_torch_fit_f16.py)."""
     with pytest.raises(mx.MXNetError, match="float16 is not in the PyTorch "
-                       "port yet .ROADMAP A.1, float16 training"):
+                       "port yet .ROADMAP A.1, float16 for rows 7 and 10"):
         _TRAINING[what]()
 
 
@@ -535,19 +522,8 @@ def _t16(*shape):
     return torch.zeros(*shape, dtype=F16)
 
 
+# rows 7 and 10 have no f16 form yet; row 6 is f32 by design
 _NO_F16_FORM = {
-    "layernorm_fused_bwd": ("layernorm", lambda m: m.layernorm_fused_bwd(
-        _t16(4, 8), _t16(8), torch.zeros(4), torch.zeros(4), _t16(4, 8))),
-    "flash_attention_bwd_dkv": ("flash_attention",
-                                lambda m: m.flash_attention_bwd_dkv(
-                                    *[_t16(1, 2, 4, 8)] * 4,
-                                    torch.zeros(1, 2, 4),
-                                    torch.zeros(1, 2, 4), scale=1.0)),
-    "flash_attention_bwd_dq": ("flash_attention",
-                               lambda m: m.flash_attention_bwd_dq(
-                                   *[_t16(1, 2, 4, 8)] * 4,
-                                   torch.zeros(1, 2, 4),
-                                   torch.zeros(1, 2, 4), scale=1.0)),
     "fused_scale_relu_matmul": ("fused_matmul",
                                 lambda m: m.fused_scale_relu_matmul_fwd(
                                     _t16(4, 8), torch.ones(8),
@@ -561,16 +537,18 @@ _NO_F16_FORM = {
 
 @pytest.mark.parametrize("kernel", sorted(_NO_F16_FORM))
 def test_kernels_without_f16_form_refuse_it(monkeypatch, kernel):
-    """A float16 tensor that reaches a kernel with no f16 form (row 4,
-    row 8's backward, rows 6, 7 and 10) raises in the wrapper, naming
-    ROADMAP A.1's float16 training, before any pointer reaches the
-    kernel."""
+    """A float16 tensor that reaches a kernel with no f16 form (rows 7
+    and 10, naming ROADMAP A.1's float16 for rows 7 and 10) or that is
+    f32 by design (row 6, the 2-bit quantizer, which reads the f32
+    master-gradient view) raises in the wrapper, before any pointer
+    reaches the kernel."""
     import importlib
     name, call = _NO_F16_FORM[kernel]
     mod = importlib.import_module("mxnet_tpu_torch.kernels." + name)
     _on_card(monkeypatch, mod)
-    with pytest.raises(mx.MXNetError, match=kernel + ".*float16.*ROADMAP "
-                       "A.1, float16 training"):
+    why = "f32 by design.*ROADMAP A.1" if kernel == "two_bit_quantize_fused" \
+        else "ROADMAP A.1, float16 for rows 7 and 10"
+    with pytest.raises(mx.MXNetError, match=kernel + ".*float16.*" + why):
         call(mod)
 
 

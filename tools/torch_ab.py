@@ -4,6 +4,8 @@
     python3 tools/torch_ab.py serve PARENT_DIR CHANGE_DIR [ROUNDS]
     python3 tools/torch_ab.py kernels PARENT_DIR CHANGE_DIR [ROUNDS]
     python3 tools/torch_ab.py paged_bf16 PARENT_DIR CHANGE_DIR [ROUNDS]
+    python3 tools/torch_ab.py train PARENT_DIR CHANGE_DIR [ROUNDS] \
+        --dtype bfloat16|float16
     python3 tools/torch_ab.py MODE PARENT_DIR CHANGE_DIR [ROUNDS] \
         --dtype float16
 
@@ -35,6 +37,10 @@ paged_bf16: the tree's one-shot prefill (row 5) and chunked prefill (row
 8 x 1024 (16 heads of 128, ``chip_smoke``'s served lengths), the chunk at
 the mixed step's 64 rows and the spec step's 8 x 5-row spans over long
 and short contexts, alone and 200 calls back to back.
+
+train: ``chip_smoke.py``'s train_bf16 or train_f16 phase of the tree
+(the full-width transformer through ``parallel.TrainStep`` in that
+type): step p50, tokens/s and peak memory.
 
 ``--dtype float16`` (or ``bfloat16``): serve runs the tree's 16-bit
 serve and serve_spec phases in that type (``phase_serve_f16`` and
@@ -69,6 +75,15 @@ full = cs.seeded_params(cs.FULL)
 short = {"float32": "", "bfloat16": "_bf16", "float16": "_f16"}[sys.argv[2]]
 getattr(cs, "phase_serve" + short)(torch, mx, full)
 getattr(cs, "phase_serve_spec" + short)(torch, mx, full)
+"""
+
+TRAIN = PRELUDE + r"""
+import chip_smoke as cs
+import mxnet_tpu_torch as mx
+from mxnet_tpu_torch.kernels import _build
+_build.build_all()
+short = {"bfloat16": "_bf16", "float16": "_f16"}[sys.argv[2]]
+getattr(cs, "phase_train" + short)(torch, mx, cs.seeded_params(cs.FULL))
 """
 
 KERNELS = PRELUDE + r"""
@@ -168,6 +183,12 @@ def serve_result(lines):
     return res
 
 
+def train_result(lines):
+    return {k: d[k] for d in lines
+            if d.get("phase") in ("train_bf16", "train_f16")
+            for k in ("step_ms_p50", "tokens_per_s", "peak_mem_gb")}
+
+
 def kernels_result(lines):
     res = {}
     for d in lines:
@@ -176,7 +197,8 @@ def kernels_result(lines):
 
 
 MODES = {"serve": (SERVE, serve_result), "kernels": (KERNELS, kernels_result),
-         "paged_bf16": (PAGED_BF16, kernels_result)}
+         "paged_bf16": (PAGED_BF16, kernels_result),
+         "train": (TRAIN, train_result)}
 
 
 def run(tree, mode, dtype):
@@ -199,7 +221,8 @@ def main():
         dtype = args[i + 1]
         del args[i:i + 2]
     if len(args) < 3 or args[0] not in MODES or \
-            dtype not in ("float32", "bfloat16", "float16"):
+            dtype not in ("float32", "bfloat16", "float16") or \
+            (args[0] == "train" and dtype == "float32"):
         raise SystemExit(__doc__)
     mode, parent, change = args[:3]
     rounds = int(args[3]) if len(args) > 3 else 1

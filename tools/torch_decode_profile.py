@@ -17,6 +17,7 @@ one-shot prefill, or one training step goes on the GPU.
     python3 tools/torch_decode_profile.py [--spec|--prefill] --dtype \
         float16                           # the f16 serving steps
     python3 tools/torch_decode_profile.py --train --dtype bfloat16
+    python3 tools/torch_decode_profile.py --train --dtype float16
     python3 tools/torch_decode_profile.py --resnet --layout NHWC \
         [--fuse] --dtype bfloat16         # bf16 TrainStep steps
 
@@ -95,16 +96,16 @@ With ``--dtype bfloat16`` (or ``float16``) the three serving profiles
 (default, ``--spec``, ``--prefill``) bind the same model with that
 ``dtype`` (chip_smoke.py's serve_bf16, serve_spec_bf16 and
 serve_prefill_bf16 configurations, or their f16 twins: 16-bit weights,
-LayerNorms and caches, f32 embeddings and logits); float16 profiles the
-serving steps only (float16 training is ROADMAP A.1's next part).  With
-``bfloat16`` the two TrainStep profiles run
-chip_smoke.py's bf16 configurations instead: ``--train`` the full-width transformer
-with ``dtype='bfloat16'`` through ``parallel.TrainStep`` (its
-train_bf16 phase: batch 4 x 1024, SGD momentum with multi_precision),
-``--resnet --layout NHWC [--fuse]`` bench.py's flagship, ResNet-50 NHWC
-bf16 at batch 256 (its train_resnet_bf16 phase).  The transformer's
-line adds the multi-precision update's device time (``optimizer``, a
-range around each parameter's update) to the kernel groups.
+LayerNorms and caches, f32 embeddings and logits).  With ``bfloat16``
+or ``float16``, ``--train`` profiles the full-width transformer with
+that ``dtype`` through ``parallel.TrainStep`` instead (chip_smoke.py's
+train_bf16 and train_f16 phases: batch 4 x 1024, SGD momentum with
+multi_precision); its line adds the multi-precision update's device
+time (``optimizer``, a range around each parameter's update) to the
+kernel groups.  With ``bfloat16`` ``--resnet --layout NHWC [--fuse]``
+runs bench.py's flagship, ResNet-50 NHWC bf16 at batch 256 (its
+train_resnet_bf16 phase); float16 takes no ResNet profile (ResNet's
+float16 training is ROADMAP A.1's next part).
 
 Needs one CUDA device; exits non-zero without one.
 """
@@ -213,15 +214,15 @@ def profile_train(torch, cs, mx):
         "device_launches_per_step": kernels / n}), flush=True)
 
 
-def profile_train_bf16(torch, cs, mx):
-    """One bf16 TrainStep step of the full-width transformer
-    (chip_smoke.py's train_bf16 configuration)."""
+def profile_train16(torch, cs, mx, dtype):
+    """One 16-bit TrainStep step of the full-width transformer
+    (chip_smoke.py's train_bf16 or train_f16 configuration)."""
     from mxnet_tpu_torch.models import transformer
     from mxnet_tpu_torch.parallel import TrainStep, trainer
     trainer._update = _labelled(trainer._update, "op:optimizer")
     cfg, train = cs.FULL, cs.TRAIN_BF16
     B, S = train["batch"], cfg["seq_len"]
-    ts = TrainStep(transformer.get_symbol(dtype="bfloat16", **cfg),
+    ts = TrainStep(transformer.get_symbol(dtype=dtype, **cfg),
                    mx.optimizer.SGD(learning_rate=train["lr"],
                                     momentum=train["momentum"],
                                     multi_precision=True,
@@ -246,8 +247,9 @@ def profile_train_bf16(torch, cs, mx):
         torch, prof, n).get("op:optimizer", 0.0)
     wall = statistics.median(walls)
     print(json.dumps({
-        "phase": "profile", "step": "train_bf16",
-        "config": dict(cfg, dtype="bfloat16"), "batch": B,
+        "phase": "profile",
+        "step": {"bfloat16": "train_bf16", "float16": "train_f16"}[dtype],
+        "config": dict(cfg, dtype=dtype), "batch": B,
         "wall_ms_p50": wall, "wall_ms": walls, "device_ms": device_ms,
         "device_idle_share": 1 - device_ms / wall,
         "device_ms_by_group": {k: round(v, 4) for k, v in
@@ -582,10 +584,9 @@ def main():
     if dtype not in ("float32", "bfloat16", "float16"):
         print("--dtype takes float32, bfloat16 or float16", file=sys.stderr)
         return 2
-    if dtype == "float16" and any(a in args for a in ("--train", "--resnet",
-                                                      "--gluon")):
-        print("--dtype float16 profiles the serving steps only (float16 "
-              "training is ROADMAP A.1)", file=sys.stderr)
+    if dtype == "float16" and any(a in args for a in ("--resnet", "--gluon")):
+        print("--dtype float16 profiles the serving steps and --train only "
+              "(ResNet's float16 training is ROADMAP A.1)", file=sys.stderr)
         return 2
     if "--resnet" in args and ("--layout" in args or "--fuse" in args
                                or dtype == "bfloat16"):
@@ -600,8 +601,8 @@ def main():
         profile_gluon(torch, cs, mx, "--hybridize" in args)
         return 0
     if "--train" in args:
-        if dtype == "bfloat16":
-            profile_train_bf16(torch, cs, mx)
+        if dtype != "float32":
+            profile_train16(torch, cs, mx, dtype)
         else:
             profile_train(torch, cs, mx)
         return 0

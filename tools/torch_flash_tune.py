@@ -284,8 +284,10 @@ DECODE_DIAGNOSE = {
 DECODE_RANGES = (1, 2, 4, 8)
 ENTRIES = {"bfloat16": {"flash_attention_fwd":
                         "flash_fwd16_kernelI13__nv_bfloat16Lb1",
-                        "flash_attention_bwd_dkv": "flash_bwd_dkv_bf16_kernelILb1",
-                        "flash_attention_bwd_dq": "flash_bwd_dq_bf16_kernelILb1"},
+                        "flash_attention_bwd_dkv":
+                        "flash_bwd_dkv16_kernelI13__nv_bfloat16Lb1",
+                        "flash_attention_bwd_dq":
+                        "flash_bwd_dq16_kernelI13__nv_bfloat16Lb1"},
            "float32": {"flash_attention_fwd": "flash_fwd_f32_kernelILb1E",
                        "flash_attention_bwd_dkv": "flash_bwd_dkv_f32_kernelILb1E",
                        "flash_attention_bwd_dq": "flash_bwd_dq_f32_kernelILb1E"}}
