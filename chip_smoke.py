@@ -390,11 +390,10 @@ Phases, each printed as one JSON line:
    1024, 128) and FLASH_F16_EDGES within close_f16_flash, timed beside
    SDPA's f16 forward; since float16 training also its dK/dV and dQ, 41)
    and dtype_codes (every C entry point returns an error for a code or
-   pairing it has no kernel for, f16 beside another type and f16 where
-   no f16 form exists included; the wrappers of rows 7 and 10 refuse f16
-   tensors naming ROADMAP A.1's float16 for rows 7 and 10, row 6's as
-   f32 by design); each kernel's f16 instances' ptxas lines first, no
-   spills;
+   pairing it has no kernel for, f16 beside another type included;
+   since 45 codes 0, 1 and 2 run rows 7 and 10 and the wrappers refuse
+   a mixed 16-bit pair there, row 6's f16 as f32 by design); each
+   kernel's f16 instances' ptxas lines first, no spills;
 39. serve_f16, serve_prefill_f16, serve_spec_f16 (after 35): 32, 33
    and 34 with ``dtype='float16'``: the engine's cache holds
    SERVE_F16_BLOCKS blocks with the first SERVE_F16_RESERVED off the
@@ -442,12 +441,45 @@ Phases, each printed as one JSON line:
    256, d_model 256) through TrainStep, card against CPU: outputs and the masters' moves
    within F16_TRAIN_AGREE's relative L2 bounds, f16 weights within one
    f16 ulp at each array's scale.
+45. float16 for rows 7 and 10 (ROADMAP A.1; with the kernel phases of
+   3): fused_matmul_f16 (row 7's f16 form, the f16 instances of the
+   16-bit GEMM template fused_gemm_bf16.cuh, at the 28 sites' 8 shapes
+   at batch 256, FUSED_ODD and FUSED_BF16_EDGES, and the overflow and
+   NaN cases of _f16_special with and without a residual, within
+   close_f16_fused, two runs bit-identical; timed beside its bf16 twin
+   on the same values and torch.addmm / torch.matmul in f16) and the
+   fused_band4d phase's f16 form (the sandwich's bands in f16, the th =
+   16, odd and edge shapes, the NHWC view, the channel slice and the
+   special case as a band, bit-equal to row 7 on the 2-D view); the f16
+   instances' ptxas lines first, no spills; the sandwich phase also runs
+   in f16 (pal2d and pal4d bit-equal, 2 band launches an iteration);
+46. train_resnet_f16 (after train_resnet_bf16): bench.py's NHWC
+   ResNet-50 v2 at batch 256 with ``dtype='float16'``, unfused and
+   fused (exactly 28 f16 launches of row 7 a step in the fused arm,
+   none unfused, no plain version; the loss finite and falling; each
+   step's non-finite gradient elements and largest |gradient|; TrainStep
+   has no loss scaler in either package);
+47. fit_f16's ResNet arm (``_fit_resnet16``): fit_bf16's ResNet-50 v2
+   through a 2-bit device store in f16, fused against eager: one
+   capture, one graph launch and no host sync a steady step, the f32
+   quantizer recorded once per bucket, no skip, fused weights within
+   one f16 ulp of eager's, graph replay ms;
+48. gluon_resnet's f16 arms: imperative and hybridized model-zoo
+   ResNet-50 v2 cast to f16 before ``initialize``, a multi-precision
+   Trainer (every weight matrix's f32 master rounds to its weight);
+49. resnet_f16_agreement: card against CPU at RESNET_F16_AGREE's sizes
+   (the fused NHWC ResNet-50 through TrainStep, the CIFAR ResNet-8
+   through Module.fit with a 2-bit device store, resnet18_v1 through
+   Gluon imperative and hybridized), each tensor within twice the CPU's
+   own f16-to-f32 gap (F16Gap, tests/test_torch_resnet_f16.py's check).
 
 Then the kernels' JSON line (every kernel with its dtype; the bf16 and
 f16 forms as rows of their own, the serving kernels' bf16 and f16
 instances with their serve phases' launches, row 8's f16 forward with
 the f16 draft arm's, row 4 and row 8's backward in f16 with fit_f16's
-fused arm's, the attention kernels with their head_dim-256 times), and
+fused arm's, row 7 in f16 with train_resnet_f16's fused arm's, row 10's
+three forms with the sandwich's, the attention kernels with their
+head_dim-256 times), and
 last ``{"ok": true, "device": ...}``.
 Any failed check raises, so the script exits non-zero and prints no
 result; it also exits non-zero when no CUDA device is present.
@@ -530,6 +562,11 @@ FUSED_BF16_EDGES = ((12544 + 37, 512, 2048, True, 0),
 # the bf16 GEMM's tile widths (128 rows each); each is instantiated with
 # X staged by cp.async and element by element (_fused_gemm_ptxas)
 FUSED_GEMM_TILES = (128, 64)
+# the C entry points' dtype codes (kernels/dispatch.py DTYPE_CODE)
+DTYPE_CODES = (("float32", 0), ("bfloat16", 1), ("float16", 2))
+# row 7's f16 overflow and NaN cases (_f16_special), (M, K, N): the
+# vector path, each with and without a residual
+F16_SPECIAL = (4096, 256, 128)
 # bf16: the dense tensor-core peak bounds the bf16 forms (NVIDIA data
 # sheet, H100 SXM); a bf16 kernel is held against its plain version at
 # one bf16 ulp of the value plus 2^-9 of the array's largest magnitude
@@ -686,7 +723,7 @@ __global__ void axpy(const T *x, T *y, T alpha, int n) {
 # of ROADMAP C for BatchNorm nets)
 GLUON = dict(classes=1000, image=(3, 224, 224), batch=128, batches=2,
              steps=10, warmup=2, lr=0.1, momentum=0.9, wd=1e-4,
-             threshold=0.5, loss_rtol=1e-3)
+             threshold=0.5, loss_rtol=1e-3, loss_rtol_f16=1e-3)
 GLUON_AGREE = dict(classes=10, image=(3, 32, 32), batch=4, out_l2=1e-3,
                    move_l2=0.1, ln_shape=(64, 1024))
 
@@ -752,6 +789,19 @@ FIT_BF16 = dict(transformer=dict(batch=4, lr=0.05, momentum=0.9, batches=2,
 # atol 2^-24, the smallest subnormal), the masters' moves within
 # FIT_FUSED's move_l2
 FIT_F16 = dict(weights_rtol=2.0 ** -10, weights_atol=2.0 ** -24)
+# float16 ResNet training card against CPU (resnet_f16_agreement): the
+# fused NHWC ResNet-50 through TrainStep at 32x32, batch 2, one step; the
+# CIFAR ResNet-8 through Module.fit with a 2-bit device store, 2 steps;
+# the model zoo's resnet18_v1 through Gluon at 64x64, batch 4, one step;
+# each held by F16Gap (tests/test_torch_resnet_f16.py's check, the CPU's
+# f16-to-f32 gap in place of the JAX package's)
+RESNET_F16_AGREE = dict(
+    trainstep=dict(net=dict(num_classes=4, num_layers=50,
+                            image_shape=(3, 32, 32)), batch=2, lr=0.05),
+    fit=dict(net=dict(num_classes=10, num_layers=8, image_shape=(3, 28, 28)),
+             batch=4, lr=0.05, threshold=0.05),
+    gluon=dict(classes=10, image=(3, 64, 64), batch=4, lr=0.05),
+    gap_factor=2.0, rel_floor=2.0 ** -9, abs_floor=2.0 ** -8)
 # f16 TrainStep card against CPU (f16_train_agreement): a 2-layer
 # transformer in f16 at seq 256, batch 2 (bf16_agreement's at half its
 # widths: the CPU's f16 products are slow, 40 s at bf16_agreement's),
@@ -4610,15 +4660,21 @@ def _ptxas(source, entries):
     return found
 
 
-def _fused_gemm_ptxas(source):
-    """The bf16 GEMM's instances in csrc/<source>.cu's build: ptxas's
-    registers, stack and spills (none allowed) and each tile's dynamic
-    shared memory, printed."""
+# the 16-bit GEMM's element types as its instances' mangled names spell
+# them (fused_gemm16_kernel<T, BN, W_KN, VEC_X>)
+GEMM16_TYPES = {"bfloat16": "13__nv_bfloat16", "float16": "6__half"}
+
+
+def _fused_gemm_ptxas(source, dtype="bfloat16"):
+    """The 16-bit GEMM's ``dtype`` instances in csrc/<source>.cu's build:
+    ptxas's registers, stack and spills (none allowed) and each tile's
+    dynamic shared memory (the same for both 16-bit types), printed."""
     import ctypes
     from mxnet_tpu_torch.kernels import _build
     w_kn = int(source == "fused_band4d")
     entries = {"128x%d:%s" % (bn, "cp_async" if vec else "elementwise"):
-               "fused_gemm_bf16_kernelILi%dELb%dELb%dE" % (bn, w_kn, vec)
+               "fused_gemm16_kernelI%sLi%dELb%dELb%dE"
+               % (GEMM16_TYPES[dtype], bn, w_kn, vec)
                for bn in FUSED_GEMM_TILES for vec in (1, 0)}
     ptx = _ptxas(source, entries)
     lib = _build.load(source)
@@ -4627,12 +4683,13 @@ def _fused_gemm_ptxas(source):
     for key in sorted(ptx):
         bn = int(key.split(":")[0].split("x")[1])
         ptx[key]["dynamic_smem_bytes"] = lib.mx_fused_gemm_bf16_smem(bn)
-        print("ptxas %s fused_gemm_bf16_kernel %s: %s; %d bytes of dynamic "
-              "shared memory" % (source, key, "; ".join(ptx[key]["lines"]),
+        print("ptxas %s fused_gemm16_kernel<%s> %s: %s; %d bytes of dynamic "
+              "shared memory" % (source, dtype, key,
+                                 "; ".join(ptx[key]["lines"]),
                                  ptx[key]["dynamic_smem_bytes"]), flush=True)
         check(ptx[key]["spill_stores"] == 0 and ptx[key]["spill_loads"] == 0,
-              "%s: the bf16 GEMM %s spills: %s"
-              % (source, key, ptx[key]["lines"][0]))
+              "%s: the %s GEMM %s spills: %s"
+              % (source, dtype, key, ptx[key]["lines"][0]))
     return ptx
 
 
@@ -5151,12 +5208,13 @@ def phase_flash_f16(torch, mxk, dev, flush):
 
 def phase_dtype_codes(torch, mxk, dev):
     """Every C entry point that takes dtype codes returns an error for a
-    code or a pairing it has no kernel for (f16 beside another type, f16
-    where no f16 form exists, an unknown code), and launches nothing,
-    never another type's kernel; the wrappers refuse f16 tensors bound
-    for a kernel with no f16 form (rows 7 and 10, naming ROADMAP A.1's
-    float16 for rows 7 and 10) or f32 by design (row 6, naming A.1 too),
-    before any pointer reaches it."""
+    code or a pairing it has no kernel for (f16 beside another type, an
+    unknown code), and launches nothing, never another type's kernel;
+    codes 0, 1 and 2 (f32, bf16, f16) run rows 7 and 10 through their C
+    entry points, each held against the plain version; the wrappers
+    refuse f16 tensors bound for row 6 (f32 by design, naming ROADMAP
+    A.1) and a mixed pair for rows 7 and 10 (f16 x with bf16 w), before
+    any pointer reaches a kernel."""
     import importlib
     from mxnet_tpu_torch.base import MXNetError
     mods = {n: importlib.import_module("mxnet_tpu_torch.kernels." + n)
@@ -5185,7 +5243,7 @@ def phase_dtype_codes(torch, mxk, dev):
             *nul[:8], 1, 16, 128, 1.0, code, 0, stream)
         calls["mx_flash_bwd_dq %d" % code] = fa.mx_flash_bwd_dq(
             *nul[:7], 1, 16, 128, 1.0, code, 0, stream)
-    for code in (2, 3):
+    for code in (3, 7):
         calls["mx_fused_scale_relu_matmul %d" % code] = \
             libs["fused_matmul"].mx_fused_scale_relu_matmul(
                 *nul[:6], 1, 8, 8, code, 0, stream)
@@ -5197,27 +5255,64 @@ def phase_dtype_codes(torch, mxk, dev):
     torch.cuda.synchronize()
     check(all(calls.values()), "C entry points took a code they have no "
           "kernel for: %s" % {k: v for k, v in calls.items() if not v})
+    # codes 0, 1 and 2 run rows 7 and 10 through their C entry points,
+    # each against its plain version
+    import ctypes
+    g = torch.Generator(device=dev).manual_seed(SEED + 53)
+    ran = {}
+    for name, code in DTYPE_CODES:
+        dtype = getattr(torch, name)
+        x = torch.randn(200, 72, device=dev, generator=g).to(dtype)
+        sc = 1 + 0.2 * torch.randn(72, device=dev, generator=g)
+        sh = 0.2 * torch.randn(72, device=dev, generator=g)
+        w = (torch.randn(40, 72, device=dev, generator=g) / 8).to(dtype)
+        y7 = torch.empty(200, 40, dtype=dtype, device=dev)
+        y10 = torch.empty(200, 40, dtype=dtype, device=dev)
+        wkn = w.t().contiguous()
+        p = lambda t: ctypes.c_void_p(t.data_ptr())
+        err7 = libs["fused_matmul"].mx_fused_scale_relu_matmul(
+            p(x), p(sc), p(sh), p(w), None, p(y7), 200, 72, 40, code, 0,
+            stream)
+        err10 = libs["fused_band4d"].mx_fused_band4d(
+            p(x), p(sc), p(sh), p(wkn), p(y10), 1, 10, 20, 72, 40,
+            72 * 200, 72 * 20, 72, 1, code, 0, stream)
+        torch.cuda.synchronize()
+        ref = mxk.fused_scale_relu_matmul_plain(x, sc, sh, w)
+        near = {torch.float32: lambda a: close(torch, a, ref),
+                torch.bfloat16: lambda a: close_bf16(torch, a, ref),
+                torch.float16: lambda a: close_f16_fused(torch, a, ref)}[
+                    dtype]
+        ran[name] = {"code": code, "row7_err": err7, "row10_err": err10,
+                     "row7_max_abs_err": max_err(y7, ref),
+                     "row10_max_abs_err": max_err(y10, ref)}
+        check(err7 == 0 and err10 == 0 and near(y7) and near(y10),
+              "dtype code %d (%s): rows 7 and 10 %s" % (code, name,
+                                                       ran[name]))
     hf = torch.float16
     x = torch.zeros(64, 128, dtype=hf, device=dev)
     one, zero = torch.ones(128, device=dev), torch.zeros(128, device=dev)
     refused = {}
-    for name, fn in (
-            ("fused_scale_relu_matmul", lambda: mxk.fused_scale_relu_matmul_fwd(
-                x, one, zero, x)),
-            ("fused_band4d", lambda: mxk.fused_band4d(
-                x.view(1, 8, 8, 128), one, zero,
-                torch.zeros(128, 64, dtype=hf, device=dev))),
+    # row 6 is f32 by design; rows 7 and 10 take f16 with f16 only
+    for name, fn, why in (
             ("two_bit_quantize_fused", lambda: mxk.two_bit_quantize_fused(
-                x.view(-1), x.view(-1), 0.5))):
+                x.view(-1), x.view(-1), 0.5), "ROADMAP A.1"),
+            ("fused_scale_relu_matmul f16 x, bf16 w",
+             lambda: mxk.fused_scale_relu_matmul_fwd(
+                 x, one, zero, x.to(torch.bfloat16)), "dtype"),
+            ("fused_band4d f16 x, bf16 w", lambda: mxk.fused_band4d(
+                x.view(1, 8, 8, 128), one, zero,
+                torch.zeros(128, 64, dtype=torch.bfloat16, device=dev)),
+             "dtype")):
         try:
             fn()
         except MXNetError as e:
             refused[name] = str(e)
-            check("ROADMAP A.1" in str(e), "%s refused f16 without naming "
-                  "ROADMAP A.1: %s" % (name, e))
+            check(why in str(e), "%s refused without naming %s: %s"
+                  % (name, why, e))
         else:
-            raise SmokeFailure("%s took f16 tensors" % name)
-    emit({"phase": "dtype_codes", "calls": calls, "refused": refused})
+            raise SmokeFailure("%s was taken" % name)
+    emit({"phase": "dtype_codes", "calls": calls, "ran": ran,
+          "refused": refused})
 
 
 def phase_fused_matmul_bf16(torch, mxk, dev, flush):
@@ -5230,37 +5325,125 @@ def phase_fused_matmul_bf16(torch, mxk, dev, flush):
     lines and the dynamic shared memory of the GEMM's instances.
     Returns the kernels-line row, per-launch means over one step's 28
     launches."""
-    ptx = _fused_gemm_ptxas("fused_matmul")
-    g = torch.Generator(device=dev).manual_seed(SEED + 23)
+    return _fused_matmul16(torch, mxk, dev, flush, torch.bfloat16)
+
+
+def phase_fused_matmul_f16(torch, mxk, dev, flush):
+    """Row 7's f16 form (the f16 instances of fused_gemm_bf16.cuh's
+    template) as phase_fused_matmul_bf16 holds the bf16 one, at
+    close_f16_fused, with the overflow and NaN cases of _f16_special
+    (with and without a residual) beside the shapes; each shape also
+    timed through the bf16 form on the same values (its twin).  Returns
+    the kernels-line row."""
+    return _fused_matmul16(torch, mxk, dev, flush, torch.float16)
+
+
+def close_f16_fused(torch, a, b):
+    """Rows 7 and 10's f16 forms against their plain versions: close_bf16's
+    bound scaled to f16's unit roundoff (one f16 ulp of the value, 2^-10
+    relative, plus 2^-12 of the array's largest finite magnitude) on the
+    finite outputs, and the same non-finite outputs (NaN where NaN, inf
+    of the same sign where inf): an activation or a sum past 65504
+    rounds to inf on both sides, and NaN passes the ReLU."""
+    a, b = a.float(), b.float()
+    fin = torch.isfinite(b)
+    inf = torch.isinf(b)
+    if not (torch.equal(fin, torch.isfinite(a))
+            and torch.equal(torch.isnan(a), torch.isnan(b))
+            and torch.equal(a[inf], b[inf])):
+        return False
+    if not bool(fin.any()):
+        return True
+    af, bf = a[fin], b[fin]
+    lim = F16_RTOL * bf.abs() + F16_FLASH_ATOL_SHARE * float(bf.abs().max())
+    return bool(((af - bf).abs() <= lim).all())
+
+
+def _f16_special(torch, g, dev, M, K, N, with_res):
+    """Inputs of row 7 in f16 that reach f16's range (F16_SPECIAL): the
+    scale of channels 0-7 at 2, so row 3's 60000 there gives activations
+    past 65504 (inf, and NaN where infs of both signs meet in a sum);
+    W's rows 0-3 all 0.5, so row 5's 1000 in every channel sums past
+    65504 in those columns; NaN in row 7 and inf in row 9 of the input;
+    with a residual, row 11's 50 and a residual of 65504 in columns 0-3
+    overflow in the epilogue.  (x, scale, shift, w (N, K), res)."""
+    hf = torch.float16
+    x = torch.randn(M, K, device=dev, generator=g)
+    sc = 1 + 0.2 * torch.randn(K, device=dev, generator=g)
+    sh = 0.2 * torch.randn(K, device=dev, generator=g)
+    w = torch.randn(N, K, device=dev, generator=g) / K ** 0.5
+    sc[:8] = 2.0
+    w[:4] = 0.5
+    x[3, :8] = 60000.0
+    x[5] = 1000.0
+    x[7, 5] = float("nan")
+    x[9, 0] = float("inf")
+    res = None
+    if with_res:
+        res = torch.randn(M, N, device=dev, generator=g)
+        x[11] = 50.0
+        res[11, :4] = 65504.0
+        res = res.to(hf)
+    return x.to(hf), sc, sh, w.to(hf), res
+
+
+def _fused_matmul16(torch, mxk, dev, flush, dtype):
+    """phase_fused_matmul_bf16 and phase_fused_matmul_f16 in ``dtype``."""
+    dt = str(dtype).replace("torch.", "")
+    f16 = dtype == torch.float16
+    ptx = _fused_gemm_ptxas("fused_matmul", dt)
+    g = torch.Generator(device=dev).manual_seed(SEED + (47 if f16 else 23))
     bf = torch.bfloat16
+    near = (lambda a, b: close_f16_fused(torch, a, b)) if f16 \
+        else (lambda a, b: close_bf16(torch, a, b))
     shapes = {(M * 2, K, N, r): n for (M, K, N, r), n in FUSED_SHAPES.items()}
-    rows, errs = [], []
-    for shape in list(shapes) + [FUSED_ODD] + list(FUSED_BF16_EDGES):
+    cases = list(shapes) + [FUSED_ODD] + list(FUSED_BF16_EDGES)
+    if f16:
+        cases += [F16_SPECIAL + (False, "special"),
+                  F16_SPECIAL + (True, "special")]
+    rows, errs, special = [], [], {}
+    for shape in cases:
         M, K, N, with_res = shape[:4]
-        off = shape[4] if len(shape) > 4 else 0
-        x = torch.randn(M * K + off, device=dev, generator=g).to(bf)[off:] \
-            .view(M, K)
-        sc = 1 + 0.2 * torch.randn(K, device=dev, generator=g)
-        sh = 0.2 * torch.randn(K, device=dev, generator=g)
-        w = (torch.randn(N, K, device=dev, generator=g) / K ** 0.5).to(bf)
-        res = torch.randn(M, N, device=dev, generator=g).to(bf) \
-            if with_res else None
+        if shape[4:] == ("special",):
+            x, sc, sh, w, res = _f16_special(torch, g, dev, M, K, N,
+                                             with_res)
+        else:
+            off = shape[4] if len(shape) > 4 else 0
+            x = torch.randn(M * K + off, device=dev, generator=g).to(
+                dtype)[off:].view(M, K)
+            sc = 1 + 0.2 * torch.randn(K, device=dev, generator=g)
+            sh = 0.2 * torch.randn(K, device=dev, generator=g)
+            w = (torch.randn(N, K, device=dev, generator=g)
+                 / K ** 0.5).to(dtype)
+            res = torch.randn(M, N, device=dev, generator=g).to(dtype) \
+                if with_res else None
         got = mxk.fused_scale_relu_matmul_fwd(x, sc, sh, w, res)
         again = mxk.fused_scale_relu_matmul_fwd(x, sc, sh, w, res)
         ref = mxk.fused_scale_relu_matmul_plain(x, sc, sh, w, res)
         torch.cuda.synchronize()
-        check(got.dtype == bf, "fused_scale_relu_matmul bf16 returned %s"
-              % got.dtype)
-        check(close_bf16(torch, got, ref), "fused_scale_relu_matmul bf16 %s "
-              "disagrees with its plain version (max abs err %g)"
-              % (shape, max_err(got, ref)))
-        check(torch.equal(got, again), "fused_scale_relu_matmul bf16 %s: "
-              "two runs differ" % (shape,))
+        check(got.dtype == dtype, "fused_scale_relu_matmul %s returned %s"
+              % (dt, got.dtype))
+        check(near(got, ref), "fused_scale_relu_matmul %s %s disagrees with "
+              "its plain version (max abs err %g)"
+              % (dt, shape, max_err(got, ref)))
+        check(torch.equal(got.view(torch.int16), again.view(torch.int16)),
+              "fused_scale_relu_matmul %s %s: two runs differ" % (dt, shape))
+        if shape[4:] == ("special",):
+            special["residual" if with_res else "no_residual"] = {
+                "nan": int(torch.isnan(ref).sum()),
+                "inf": int(torch.isinf(ref).sum()),
+                "same_non_finite": True}
+            check(special[("residual" if with_res else "no_residual")][
+                "inf"] > 0 and int(torch.isnan(ref).sum()) > 0,
+                  "fused_scale_relu_matmul f16 %s: the case reached no inf "
+                  "or NaN" % (shape,))
+            del got, again, ref
+            continue
         errs.append(max_err(got, ref))
         del got, again, ref
         if shape not in shapes:
             continue
-        a = torch.relu(x.float() * sc + sh).to(bf)
+        a = torch.relu(x.float() * sc + sh).to(dtype)
         ms = time_ms(torch, lambda: mxk.fused_scale_relu_matmul_fwd(
             x, sc, sh, w, res), flush)
         plain_ms = time_ms(torch, lambda: mxk.fused_scale_relu_matmul_plain(
@@ -5279,30 +5462,37 @@ def phase_fused_matmul_bf16(torch, mxk, dev, flush):
                "bound_ms": b_ms, "bound_by": b_by,
                "tflops": 2 * M * N * K / ms / 1e9,
                "gbps": nbytes / ms / 1e6}
+        if f16:
+            # the bf16 form on the same values, in turn with the f16 one
+            xb, wb = x.to(bf), w.to(bf)
+            rb = None if res is None else res.to(bf)
+            row["bf16_twin_ms"] = time_ms(
+                torch, lambda: mxk.fused_scale_relu_matmul_fwd(
+                    xb, sc, sh, wb, rb), flush)
+            del xb, wb, rb
         emit({"phase": "kernel", "name": "fused_scale_relu_matmul",
-              "dtype": "bfloat16", **row})
+              "dtype": dt, **row})
         rows.append(row)
         del x, a, res, w
     sites = sum(shapes.values())
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms") + \
+        (("bf16_twin_ms",) if f16 else ())
     per_launch = {k: sum(r[k] * r["sites"] for r in rows) / sites
-                  for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    emit({"phase": "fused_matmul_bf16",
-          "shapes_checked": len(shapes) + 1 + len(FUSED_BF16_EDGES),
+                  for k in keys}
+    emit({"phase": "fused_matmul_" + ("f16" if f16 else "bf16"),
+          "shapes_checked": len(cases),
           "edge_shapes": [list(e) for e in FUSED_BF16_EDGES],
-          "batch": 256, "deterministic": True, "ptxas": ptx,
-          "step_ms": per_launch["ms"] * sites,
-          "step_plain_ms": per_launch["plain_ms"] * sites,
-          "step_library_ms": per_launch["library_ms"] * sites,
-          "step_bound_ms": per_launch["bound_ms"] * sites,
-          "library_call": "torch.addmm / torch.matmul in bf16 on "
-                          "relu(x*scale+shift) (the product alone)"})
-    return {"name": "fused_scale_relu_matmul", "route": "cuda",
-            "dtype": "bfloat16",
-            "source": "mxnet_tpu_torch/csrc/fused_gemm_bf16.cuh",
-            "replaces": "mxnet_tpu/ops/fused.py:91",
-            "max_abs_err": max(errs), "bound_by": "bytes"
-            if all(r["bound_by"] == "bytes" for r in rows)
-            else "operations", **per_launch}
+          "special": special, "batch": 256, "deterministic": True,
+          "ptxas": ptx, **{"step_" + k: per_launch[k] * sites for k in keys},
+          "library_call": "torch.addmm / torch.matmul in %s on "
+                          "relu(x*scale+shift) (the product alone)" % dt})
+    out = {"name": "fused_scale_relu_matmul", "route": "cuda",
+           "dtype": dt, "source": "mxnet_tpu_torch/csrc/fused_gemm_bf16.cuh",
+           "replaces": "mxnet_tpu/ops/fused.py:91",
+           "max_abs_err": max(errs), "bound_by": "bytes"
+           if all(r["bound_by"] == "bytes" for r in rows)
+           else "operations", **per_launch}
+    return out
 
 
 def phase_head_dim(torch, mxk, dev, flush):
@@ -5595,6 +5785,26 @@ def phase_train_resnet_bf16(torch, mx, ctx=None, cfg=RESNET,
     10 steps over two fixed batches; the loss stays finite and falls on
     the repeated batch; step p50, images/s and peak memory per arm.
     Returns the fused arm's launch counts and step count."""
+    return _train_resnet16(torch, mx, "bfloat16", ctx, cfg, train)
+
+
+def phase_train_resnet_f16(torch, mx, ctx=None, cfg=RESNET,
+                           train=RESNET_BF16):
+    """phase_train_resnet_bf16 in float16 (ROADMAP A.1): the same net,
+    batch, optimizer and arms with dtype='float16', f16 weights and f32
+    masters; the fused arm records exactly 28 f16 launches of row 7 a
+    step, the unfused arm none, and no plain version runs.  TrainStep
+    has no loss scaler in either package (neither scales the loss): a
+    gradient past 65504 would reach the update as inf, so each step's
+    count of non-finite gradient elements and largest finite |gradient|
+    are printed beside the loss, with the count of gradient elements in
+    f16's subnormal range (below 2^-14, not zero).  Returns the fused
+    arm's launch counts and step count."""
+    return _train_resnet16(torch, mx, "float16", ctx, cfg, train)
+
+
+def _train_resnet16(torch, mx, dtype, ctx, cfg, train):
+    """phase_train_resnet_bf16 and phase_train_resnet_f16 in ``dtype``."""
     from mxnet_tpu_torch.kernels import (LAUNCHES, LAUNCHES_BY_DTYPE,
                                          PLAIN_CALLS, reset_counts)
     from mxnet_tpu_torch.models import resnet
@@ -5604,6 +5814,9 @@ def phase_train_resnet_bf16(torch, mx, ctx=None, cfg=RESNET,
     on_card = ctx.device_type == "gpu"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     dev = ctx.torch_device
+    tag = "f16" if dtype == "float16" else "bf16"
+    what = "train_resnet_" + tag
+    low = getattr(torch, dtype)
     B, steps, name = train["batch"], train["steps"], "fused_scale_relu_matmul"
     np_args, np_aux = seeded_resnet_params(resnet.get_symbol(**cfg), B,
                                            cfg["image_shape"])
@@ -5615,13 +5828,13 @@ def phase_train_resnet_bf16(torch, mx, ctx=None, cfg=RESNET,
                 "softmax_label": torch.from_numpy(y[i * B:(i + 1) * B])
                 .to(dev)} for i in range(2)]
     arms, result = {}, None
-    for arm, fuse in (("nhwc_bf16", False), ("nhwc_bf16_fused", True)):
+    for arm, fuse in (("nhwc_" + tag, False), ("nhwc_%s_fused" % tag, True)):
         t0 = time.perf_counter()
-        sym = resnet.get_symbol(layout="NHWC", dtype="bfloat16", **cfg)
+        sym = resnet.get_symbol(layout="NHWC", dtype=dtype, **cfg)
         if fuse:
             sym = fuse_conv_bn(sym)
-            check(count_fused(sym) == train["sites"], "train_resnet_bf16: "
-                  "%d fused sites" % count_fused(sym))
+            check(count_fused(sym) == train["sites"], "%s: %d fused sites"
+                  % (what, count_fused(sym)))
         ts = TrainStep(sym, mx.optimizer.SGD(
             learning_rate=train["lr"], momentum=train["momentum"],
             wd=train["wd"], multi_precision=True, rescale_grad=1.0 / B),
@@ -5629,40 +5842,49 @@ def phase_train_resnet_bf16(torch, mx, ctx=None, cfg=RESNET,
             label_shapes={"softmax_label": (B,)}, ctx=ctx)
         ts.init_params(mx.init.Xavier(), arg_params=np_args,
                        aux_params=np_aux)
-        check(ts.params["conv0_weight"].dtype == torch.bfloat16,
-              "train_resnet_bf16: conv0_weight is %s"
-              % ts.params["conv0_weight"].dtype)
+        check(ts.params["conv0_weight"].dtype == low,
+              "%s: conv0_weight is %s" % (what, ts.params["conv0_weight"]
+                                          .dtype))
         sync()
         setup_s = time.perf_counter() - t0
         if on_card:
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
-        losses, stamps = [], [time.perf_counter()]
+        losses, step_ms, nonfinite, grad_max, subnormal = [], [], [], [], []
         reset_counts()
         for i in range(steps):
             batch = batches[i % 2]
+            t0 = time.perf_counter()
             prob = ts.step(batch)[0]
             lab = batch["softmax_label"].long()
             losses.append(float(-torch.log(prob.gather(
                 1, lab[:, None]).clamp(min=1e-30)).mean()))
-            stamps.append(time.perf_counter())
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if low == torch.float16:          # outside the step's time
+                grads = list(ts.grads.values())
+                nonfinite.append(int(sum(
+                    (~torch.isfinite(g)).sum() for g in grads)))
+                grad_max.append(float(max(
+                    torch.nan_to_num(g.float(), 0.0, 0.0, 0.0).abs().max()
+                    for g in grads)))
+                subnormal.append(int(sum(
+                    ((g != 0) & (g.abs() < 2.0 ** -14)).sum() for g in grads)))
         sync()
         launches, plain = dict(LAUNCHES), dict(PLAIN_CALLS)
         by_dtype = dict(LAUNCHES_BY_DTYPE)
-        check(all(np.isfinite(losses)), "train_resnet_bf16 %s: non-finite "
-              "loss %s" % (arm, losses))
-        check(losses[-2] < losses[0], "train_resnet_bf16 %s: the loss on the "
-              "repeated batch did not fall (%g -> %g)"
-              % (arm, losses[0], losses[-2]))
+        check(all(np.isfinite(losses)), "%s %s: non-finite loss %s"
+              % (what, arm, losses))
+        check(losses[-2] < losses[0], "%s %s: the loss on the repeated "
+              "batch did not fall (%g -> %g)" % (what, arm, losses[0],
+                                                 losses[-2]))
         want = train["sites"] * steps if fuse else 0
-        got = by_dtype.get(name + ":bfloat16", 0) if on_card \
+        got = by_dtype.get("%s:%s" % (name, dtype), 0) if on_card \
             else plain[name]
-        check(got == want, "train_resnet_bf16 %s: %d bf16 %s launches over "
-              "%d steps, want %d" % (arm, got, name, steps, want))
+        check(got == want, "%s %s: %d %s %s launches over %d steps, want %d"
+              % (what, arm, got, dtype, name, steps, want))
         if on_card:
-            check(not any(plain.values()), "train_resnet_bf16 %s: plain "
-                  "versions ran on the main path: %s" % (arm, plain))
-        step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+            check(not any(plain.values()), "%s %s: plain versions ran on the "
+                  "main path: %s" % (what, arm, plain))
         p50 = statistics.median(step_ms[train["warmup"]:])
         arms[arm] = {"fused_sites": train["sites"] if fuse else 0,
                      "setup_s": setup_s, "step_ms": step_ms,
@@ -5671,11 +5893,17 @@ def phase_train_resnet_bf16(torch, mx, ctx=None, cfg=RESNET,
                      "kernel_launches_per_step": launches[name] / steps,
                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9
                      if on_card else None}
+        if low == torch.float16:
+            arms[arm].update(
+                nonfinite_grad_elements=nonfinite, grad_abs_max=grad_max,
+                subnormal_grad_elements=subnormal,
+                grad_elements=sum(g.numel() for g in grads),
+                loss_scaler="none: TrainStep scales no loss and skips no "
+                            "step in either package")
         if fuse:
             result = (launches, steps)
         del ts
-    emit({"phase": "train_resnet_bf16", "config": dict(cfg, layout="NHWC",
-                                                       dtype="bfloat16"),
+    emit({"phase": what, "config": dict(cfg, layout="NHWC", dtype=dtype),
           "train": train, **arms})
     del batches
     return result
@@ -5842,6 +6070,287 @@ def phase_f16_train_agreement(torch, mx, ctxs=None):
           "f16_weight_moves_rel_l2": weight_err,
           "f16_weights_worst_ulps_at_scale": max(ulps.values()),
           "f16_params": len(glow)})
+
+
+class F16Gap:
+    """resnet_f16_agreement's check for a deep BatchNorm net in f16 (the
+    check tests/test_torch_resnet_f16.py holds against the JAX package):
+    each tensor of the card's f16 run within RESNET_F16_AGREE's
+    gap_factor times the CPU's own f16-to-f32 gap of the CPU's f16 run
+    (relative L2), plus rel_floor; outputs and the loss within
+    abs_floor, or gap_factor times the CPU's own f16-to-f32 difference
+    where that is larger.  Records the worst ratio to the gap."""
+
+    def __init__(self, case):
+        self.case, self.n, self.worst = case, 0, [0.0, None]
+
+    def hold(self, got, ref16, ref32, what):
+        cfg = RESNET_F16_AGREE
+        got, ref16, ref32 = (np.asarray(a, np.float64)
+                             for a in (got, ref16, ref32))
+        check(np.isfinite(got).all(), "resnet_f16_agreement %s %s: not "
+              "finite" % (self.case, what))
+        d, gap = _rel_l2_any(got, ref16), _rel_l2_any(ref16, ref32)
+        self.n += 1
+        ratio = d / max(gap, cfg["rel_floor"])
+        if ratio > self.worst[0]:
+            self.worst = [ratio, "%s: %.4g against a gap of %.4g"
+                          % (what, d, gap)]
+        check(d <= cfg["gap_factor"] * gap + cfg["rel_floor"],
+              "resnet_f16_agreement %s %s: %g from the CPU's f16, its own "
+              "f16-to-f32 gap %g" % (self.case, what, d, gap))
+
+    def hold_abs(self, got, ref16, ref32, what):
+        cfg = RESNET_F16_AGREE
+        got, ref16, ref32 = (np.asarray(a, np.float64)
+                             for a in (got, ref16, ref32))
+        err = float(np.abs(got - ref16).max())
+        lim = max(cfg["abs_floor"],
+                  cfg["gap_factor"] * float(np.abs(ref16 - ref32).max()))
+        check(err <= lim, "resnet_f16_agreement %s %s: %g from the CPU's "
+              "f16 (bound %g)" % (self.case, what, err, lim))
+        return err
+
+    def summary(self):
+        return {"tensors_held": self.n, "worst_ratio_to_gap": self.worst[0],
+                "worst": self.worst[1]}
+
+
+def _rel_l2_any(a, b):
+    nb = float(np.linalg.norm(b))
+    return float(np.linalg.norm(a - b)) / nb if nb else \
+        float(np.linalg.norm(a))
+
+
+def _np32(t):
+    """f32 numpy of a tensor or an NDArray."""
+    import torch
+    return t.detach().float().cpu().numpy() if isinstance(t, torch.Tensor) \
+        else t.astype("float32").asnumpy()
+
+
+def _hold_masters(gap, runs, start, label):
+    """Each f16 weight is its f32 master rounded once (in every run);
+    the masters' moves held by ``gap`` (the f32 run's weights' moves as
+    the reference's own)."""
+    card, cpu16, cpu32 = runs
+    for k in sorted(card["masters"]):
+        for run in (card, cpu16):
+            check(np.array_equal(run["weights"][k], run["masters"][k].astype(
+                np.float16).astype(np.float32)), "resnet_f16_agreement %s: "
+                "%s is not its master rounded to f16" % (label, k))
+        s16 = start[k].astype(np.float16).astype(np.float32)
+        gap.hold(card["masters"][k] - s16, cpu16["masters"][k] - s16,
+                 cpu32["weights"][k] - start[k], "master move " + k)
+
+
+def phase_resnet_f16_agreement(torch, mx, ctxs=None):
+    """float16 ResNet training, card against CPU from the same numpy
+    weights and batches, at RESNET_F16_AGREE's small sizes, each path
+    held by F16Gap (the CPU's f16 run against the CPU's f32 run gives
+    the noise): (1) NHWC ResNet-50 after fuse_conv_bn through TrainStep,
+    one step (outputs, loss, every gradient, every moving statistic,
+    the masters' moves; each f16 weight its master rounded once);
+    (2) the CIFAR ResNet-8 through Module.fit with a 2-bit device store,
+    fused, 2 steps (moving statistics; the masters' moves within two
+    steps' quantizer flips element by element, at most 2% of elements
+    flipped); (3) the model zoo's resnet18_v1 cast to f16 through Gluon,
+    one step, imperative and hybridized on the card against the CPU's
+    hybridized f16 and f32 (outputs, loss, every gradient, moving
+    statistics, masters' moves)."""
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.base import NameManager
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.parallel import TrainStep
+    from mxnet_tpu_torch.symbol.fuse import fuse_conv_bn
+    from mxnet_tpu_torch.weights import gluon_params_from_numpy
+    cfg = RESNET_F16_AGREE
+    ctxs = ctxs or (mx.gpu(0), mx.cpu())
+    card, cpu = ctxs
+    out = {}
+    # (1) TrainStep, fused NHWC ResNet-50
+    tc = cfg["trainstep"]
+    net = dict(tc["net"], layout="NHWC")
+    B = tc["batch"]
+    np_args, np_aux = seeded_resnet_params(
+        resnet.get_symbol(**tc["net"]), B, tc["net"]["image_shape"])
+    np_args = {n: _nhwc(a) for n, a in np_args.items()}
+    x, y = _image_batches(tc["net"]["image_shape"], B, SEED + 61,
+                          tc["net"]["num_classes"])
+    batch = {"data": _nhwc(x), "softmax_label": y}
+    runs = []
+    for ctx, dtype in ((card, "float16"), (cpu, "float16"),
+                       (cpu, "float32")):
+        sym = fuse_conv_bn(resnet.get_symbol(dtype=dtype, **net))
+        ts = TrainStep(sym, mx.optimizer.SGD(
+            learning_rate=tc["lr"], momentum=0.9, wd=1e-4,
+            multi_precision=True, rescale_grad=1.0 / B),
+            data_shapes={"data": batch["data"].shape},
+            label_shapes={"softmax_label": (B,)}, ctx=ctx)
+        ts.init_params(mx.init.Xavier(), arg_params=np_args,
+                       aux_params=np_aux)
+        o = _np32(ts.step(batch)[0])
+        runs.append({"outputs": o, "grads": {k: _np32(v) for k, v in
+                                             ts.grads.items()},
+                     "aux": {k: _np32(v) for k, v in ts.auxs.items()},
+                     "weights": {k: _np32(v) for k, v in ts.params.items()},
+                     "masters": {k: _np32(st[-1]) for k, st in
+                                 ts.states.items() if dtype == "float16"
+                                 and isinstance(st, tuple) and len(st) == 2}})
+        del ts
+    gap = F16Gap("trainstep_fused")
+    loss = [-np.log(np.maximum(r["outputs"][np.arange(B), y.astype(int)],
+                               1e-30)).mean() for r in runs]
+    gap.hold(runs[0]["outputs"], runs[1]["outputs"], runs[2]["outputs"],
+             "outputs")
+    out_err = gap.hold_abs(runs[0]["outputs"], runs[1]["outputs"],
+                           runs[2]["outputs"], "outputs")
+    loss_err = gap.hold_abs(loss[0], loss[1], loss[2], "loss")
+    for key in ("grads", "aux"):
+        for k in runs[0][key]:
+            gap.hold(runs[0][key][k], runs[1][key][k], runs[2][key][k],
+                     "%s %s" % (key, k))
+    check(runs[0]["masters"] and sorted(runs[0]["masters"])
+          == sorted(runs[1]["masters"]), "resnet_f16_agreement: masters")
+    _hold_masters(gap, runs, np_args, "trainstep")
+    out["trainstep_fused"] = dict(gap.summary(), outputs_max_abs=out_err,
+                                  loss_abs=loss_err)
+    # (2) Module.fit, 2-bit device store, fused
+    fc = cfg["fit"]
+    B = fc["batch"]
+    sym = resnet.get_symbol(**fc["net"])
+    np_args, np_aux = seeded_resnet_params(sym, B, fc["net"]["image_shape"])
+    xs, ys = _image_batches(fc["net"]["image_shape"], 2 * B, SEED + 62,
+                            fc["net"]["num_classes"])
+    runs = []
+    for ctx, dtype in ((card, "float16"), (cpu, "float16"),
+                       (cpu, "float32")):
+        mod = mx.Module(resnet.get_symbol(dtype=dtype, **fc["net"]),
+                        context=ctx, compression_params={
+                            "type": "2bit", "threshold": fc["threshold"]})
+        mod.bind(data_shapes=[("data", (B,) + xs.shape[1:])],
+                 label_shapes=[("softmax_label", (B,))])
+        mod.init_params(arg_params={k: mx.nd.array(v, ctx=cpu)
+                                    for k, v in np_args.items()},
+                        aux_params={k: mx.nd.array(v, ctx=cpu)
+                                    for k, v in np_aux.items()})
+        mod.init_optimizer(kvstore=mx.kv.create("device"), optimizer="sgd",
+                           optimizer_params={"learning_rate": fc["lr"],
+                                             "momentum": 0.9, "wd": 1e-4,
+                                             "multi_precision": True})
+        for i in range(2):
+            mod.fit_step(mx.io.DataBatch(
+                data=[mx.nd.array(xs[i * B:(i + 1) * B], ctx=cpu)],
+                label=[mx.nd.array(ys[i * B:(i + 1) * B], ctx=cpu)]))
+        upd = mod._kvstore._updater if mod._update_on_kvstore \
+            else mod._updater
+        names = mod._param_names
+        args_p, aux_p = mod.get_params()
+        runs.append({"aux": {k: _np32(v) for k, v in aux_p.items()},
+                     "weights": {k: _np32(v) for k, v in args_p.items()},
+                     "masters": {names[k] if isinstance(k, int) else k:
+                                 _np32(st[1]) for k, st in upd.states.items()
+                                 if dtype == "float16"
+                                 and isinstance(st, tuple) and len(st) == 2},
+                     "fused": mod._fused_fit is not None
+                     and mod._fused_fit.launches == 2})
+        del mod
+    check(runs[0]["fused"], "resnet_f16_agreement: Module.fit on the card "
+          "did not take the fused step")
+    gap = F16Gap("module_fit_2bit")
+    for k in runs[0]["aux"]:
+        gap.hold(runs[0]["aux"][k], runs[1]["aux"][k], runs[2]["aux"][k],
+                 "aux " + k)
+    flip = (2 + 0.9) * fc["lr"] / B * 2 * fc["threshold"]
+    flipped = total = 0
+    for k in sorted(runs[0]["masters"]):
+        d = np.abs(runs[0]["masters"][k] - runs[1]["masters"][k])
+        check(float(d.max()) <= flip * (1 + 1e-3), "resnet_f16_agreement "
+              "Module.fit: %s's master moved %g off the CPU's, past two "
+              "steps' quantizer flips %g" % (k, float(d.max()), flip))
+        flipped += int((d > flip / 16).sum())
+        total += d.size
+        check(np.array_equal(runs[0]["weights"][k], runs[0]["masters"][k]
+                             .astype(np.float16).astype(np.float32)),
+              "resnet_f16_agreement Module.fit: %s is not its master "
+              "rounded to f16" % k)
+    check(total and flipped <= total // 50, "resnet_f16_agreement "
+          "Module.fit: %d of %d master elements flipped" % (flipped, total))
+    out["module_fit_2bit"] = dict(gap.summary(), master_elements=total,
+                                  flipped=flipped)
+    # (3) Gluon resnet18_v1 cast to f16
+    gc_ = cfg["gluon"]
+    B = gc_["batch"]
+    x, y = _image_batches(gc_["image"], B, SEED + 63, gc_["classes"])
+
+    def gluon_run(ctx, dtype, hybrid, values=None):
+        with NameManager():
+            net = gluon.model_zoo.vision.resnet18_v1(classes=gc_["classes"])
+        if dtype == "float16":
+            net.cast("float16")
+        net.initialize(mx.init.Xavier(), ctx=ctx)
+        xs = mx.nd.array(x, ctx=ctx).astype(dtype)
+        net(xs)
+        params = net.collect_params()
+        if values is None:
+            return {k: tuple(p.shape) for k, p in params.items()}
+        gluon_params_from_numpy(net, values)
+        if hybrid:
+            net.hybridize()
+        trainer = gluon.Trainer(params, "sgd", {
+            "learning_rate": gc_["lr"], "momentum": 0.9, "wd": 1e-4,
+            "multi_precision": True}, kvstore="device",
+            update_on_kvstore=False)
+        with autograd.record():
+            o = mx.nd.Cast(net(xs), dtype="float32")
+            loss = gluon.loss.SoftmaxCrossEntropyLoss()(
+                o, mx.nd.array(y, ctx=ctx))
+        loss.backward()
+        grads = {k: _np32(p.grad()) for k, p in params.items()
+                 if p.grad_req != "null"}
+        trainer.step(B)
+        names = [p.name for p in trainer._params]
+        return {"outputs": _np32(o), "loss": float(_np32(loss).mean()),
+                "grads": grads,
+                "aux": {k: _np32(p.data()) for k, p in params.items()
+                        if p.grad_req == "null"},
+                "weights": {k: _np32(p.data()) for k, p in params.items()},
+                "masters": {names[k]: _np32(st[1]) for k, st in
+                            trainer._updaters[0].states.items()
+                            if isinstance(st, tuple) and len(st) == 2}}
+
+    shapes = gluon_run(cpu, "float32", False)
+    rng = np.random.default_rng([SEED, 64])
+    values = {}
+    for k, shp in sorted(shapes.items()):
+        z = rng.standard_normal(shp, dtype=np.float32)
+        values[k] = (1 + 0.1 * z if k.endswith("gamma") else
+                     0.1 * z if k.endswith(("beta", "bias", "running_mean"))
+                     else 1 + 0.1 * np.abs(z) if k.endswith("running_var")
+                     else z * np.float32(np.sqrt(2.0 / np.prod(shp[1:]))))
+    ref16 = gluon_run(cpu, "float16", True, values)
+    ref32 = gluon_run(cpu, "float32", True, values)
+    for hybrid in (False, True):
+        got = gluon_run(card, "float16", hybrid, values)
+        arm = "gluon_" + ("hybridized" if hybrid else "imperative")
+        gap = F16Gap(arm)
+        gap.hold(got["outputs"], ref16["outputs"], ref32["outputs"],
+                 "outputs")
+        out_err = gap.hold_abs(got["outputs"], ref16["outputs"],
+                               ref32["outputs"], "outputs")
+        loss_err = gap.hold_abs(got["loss"], ref16["loss"], ref32["loss"],
+                                "loss")
+        for key in ("grads", "aux"):
+            for k in got[key]:
+                gap.hold(got[key][k], ref16[key][k], ref32[key][k],
+                         "%s %s" % (key, k))
+        check(got["masters"] and sorted(got["masters"])
+              == sorted(got["grads"]), "resnet_f16_agreement %s: masters"
+              % arm)
+        _hold_masters(gap, (got, ref16, ref32), values, arm)
+        out[arm] = dict(gap.summary(), outputs_max_abs=out_err,
+                        loss_abs=loss_err)
+    emit({"phase": "resnet_f16_agreement", "config": cfg, **out})
 
 
 def phase_head_dim_agreement(torch, mx, ctxs=None):
@@ -6080,9 +6589,14 @@ def _gluon_resnet50(mx, classes):
 
 def phase_gluon_resnet(torch, mx, ctx=None, cfg=GLUON, fit_p50=None):
     """Model-zoo ResNet-50 v2 trained through Gluon at full width in
-    three arms (imperative, hybridized, hybridized with 2-bit
+    three f32 arms (imperative, hybridized, hybridized with 2-bit
     compression), each from the same Xavier draw (mx.random.seed) over
-    two fixed batches.  Returns the 2-bit arm's launch counts and steps."""
+    two fixed batches, then two float16 arms (imperative and hybridized:
+    ``net.cast('float16')`` before ``initialize``, f16 batches, the
+    logits cast to f32 for the loss, a Trainer with ``multi_precision``,
+    whose masters every weight matrix's must move; the hybridized graph
+    passes the executor's float16 check).  Returns the 2-bit arm's
+    launch counts and steps."""
     from mxnet_tpu_torch import autograd, gluon
     from mxnet_tpu_torch.kernels import LAUNCHES, PLAIN_CALLS, reset_counts
     ctx = ctx or mx.gpu(0)
@@ -6095,14 +6609,21 @@ def phase_gluon_resnet(torch, mx, ctx=None, cfg=GLUON, fit_p50=None):
              mx.nd.array(y[i * B:(i + 1) * B], ctx=ctx))
             for i in range(cfg["batches"])]
     counts = LAUNCHES if on_card else PLAIN_CALLS
+    data16 = [(d.astype("float16"), lab) for d, lab in data]
     arms = {}
-    for arm, hybrid, comp in (
-            ("imperative", False, None), ("hybridized", True, None),
+    for arm, hybrid, comp, f16 in (
+            ("imperative", False, None, False),
+            ("hybridized", True, None, False),
             ("hybridized_2bit", True, {"type": "2bit",
-                                       "threshold": cfg["threshold"]})):
+                                       "threshold": cfg["threshold"]},
+             False),
+            ("imperative_f16", False, None, True),
+            ("hybridized_f16", True, None, True)):
         t0 = time.perf_counter()
         mx.random.seed(SEED)
         net = _gluon_resnet50(mx, cfg["classes"])
+        if f16:
+            net.cast("float16")
         net.initialize(mx.init.Xavier(), ctx=ctx)
         if hybrid:
             net.hybridize()
@@ -6110,7 +6631,8 @@ def phase_gluon_resnet(torch, mx, ctx=None, cfg=GLUON, fit_p50=None):
         trainer = gluon.Trainer(
             net.collect_params(), "sgd",
             {"learning_rate": cfg["lr"], "momentum": cfg["momentum"],
-             "wd": cfg["wd"]}, kvstore="device", compression_params=comp)
+             "wd": cfg["wd"], "multi_precision": f16}, kvstore="device",
+            compression_params=comp)
         sync()
         setup_s = time.perf_counter() - t0
         if on_card:
@@ -6119,10 +6641,12 @@ def phase_gluon_resnet(torch, mx, ctx=None, cfg=GLUON, fit_p50=None):
         reset_counts()
         losses, step_ms, quant, buckets = [], [], [], []
         for i in range(steps):
-            d, lab = data[i % cfg["batches"]]
+            d, lab = (data16 if f16 else data)[i % cfg["batches"]]
             t0 = time.perf_counter()
             with autograd.record():
-                loss = loss_fn(net(d), lab)
+                out = net(d)
+                loss = loss_fn(mx.nd.Cast(out, dtype="float32") if f16
+                               else out, lab)
             loss.backward()
             trainer.step(B)
             losses.append(float(loss.mean().asscalar()))
@@ -6150,6 +6674,26 @@ def phase_gluon_resnet(torch, mx, ctx=None, cfg=GLUON, fit_p50=None):
         if on_card:
             check(not any(plain.values()), "gluon_resnet %s: plain versions "
                   "ran on the main path: %s" % (arm, plain))
+        masters = None
+        if f16:
+            params = net.collect_params()
+            low = [k for k, p in params.items() if k.endswith("_weight")]
+            check(all(params[k].data()._data.dtype == torch.float16
+                      for k in low), "gluon_resnet %s: weights not f16" % arm)
+            upd = trainer._kvstore._updater if trainer._update_on_kvstore \
+                else trainer._updaters[0]
+            names = [p.name for p in trainer._params]
+            w32 = {names[k]: st[1]._data for k, st in upd.states.items()
+                   if isinstance(st, tuple) and len(st) == 2}
+            masters = sum(1 for k in low if k in w32 and bool(
+                (w32[k].half() != params[k].data()._data).sum() == 0)
+                and bool((w32[k] != w32[k].half().float()).any()))
+            check(sorted(w32) == sorted(k for k, p in params.items()
+                                        if p.grad_req != "null")
+                  and masters == len(low),
+                  "gluon_resnet %s: %d of %d weight matrices have an f32 "
+                  "master that rounds to the weight and moved off f16's "
+                  "grid" % (arm, masters, len(low)))
         p50 = statistics.median(sorted(step_ms[cfg["warmup"]:]))
         arms[arm] = {"setup_s": setup_s, "step_ms": step_ms,
                      "step_ms_p50": p50, "images_per_s": B / (p50 / 1e3),
@@ -6158,17 +6702,23 @@ def phase_gluon_resnet(torch, mx, ctx=None, cfg=GLUON, fit_p50=None):
                          k: v for k, v in launches.items() if v},
                      "quantize_launches_per_step": step_quant,
                      "buckets_per_step": step_buckets,
+                     "f32_masters_of_f16_weights": masters,
                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9
                      if on_card else None}
-        del net, trainer, loss
-    first = [arms[a]["loss"][0] for a in ("imperative", "hybridized",
-                                          "hybridized_2bit")]
-    check(max(first) - min(first) <= cfg["loss_rtol"] * abs(first[0]),
-          "gluon_resnet: first-step losses of the arms differ: %s" % first)
+        del net, trainer, loss, out
+    for names, rtol in ((("imperative", "hybridized", "hybridized_2bit"),
+                         cfg["loss_rtol"]),
+                        (("imperative_f16", "hybridized_f16"),
+                         cfg["loss_rtol_f16"])):
+        first = [arms[a]["loss"][0] for a in names]
+        check(max(first) - min(first) <= rtol * abs(first[0]),
+              "gluon_resnet: first-step losses of the arms differ: %s"
+              % first)
     emit({"phase": "gluon_resnet", "config": cfg,
           "module_fit_step_ms_p50": fit_p50,
           **{a: arms[a] for a in ("imperative", "hybridized",
-                                  "hybridized_2bit")}})
+                                  "hybridized_2bit", "imperative_f16",
+                                  "hybridized_f16")}})
     return arms["launches"], steps
 
 
@@ -6284,7 +6834,7 @@ def _band_case(torch, g, dev, B, H, W, K, N, dtype):
 
 
 def _band_times(torch, mxk, x, s, t, w, flush):
-    """One band timed as in 3 (f32 or bf16): the kernel, its plain
+    """One band timed as in 3 (f32, bf16 or f16): the kernel, its plain
     version, torch.matmul on the already activated input (the product
     alone) and row 7's kernel on the 2-D view; bounded by bytes or by
     operations at the tensor cores' peak (split TF32 in f32, the CUDA-core
@@ -6326,41 +6876,57 @@ def phase_fused_band4d(torch, mxk, dev, flush):
     fused_gemm_f32.cuh with W (K, N)) is held at the sandwich's bands in
     f32, at the f32 shape, the odd shape, a ragged M, the NHWC view and
     the channel slice, and bit-equal to row 7's f32 kernel on the 2-D
-    view.  ptxas's lines and the dynamic shared memory of both GEMMs'
-    instances are printed first (no spills).  Both types' bands are timed
-    beside the plain version, torch.matmul on the already activated input
-    and row 7's kernel on the 2-D view, with TFLOP/s and GB/s.  Returns
-    the two kernels-line rows (bf16, f32), per-launch means over the
-    sandwich's two bands."""
+    view.  The f16 form (the 16-bit GEMM's f16 instances) is held at
+    close_f16_fused at the sandwich's bands in f16, the th = 16 and odd
+    shapes, the tiling edges, the NHWC view, the channel slice and the
+    overflow and NaN case of _f16_special as a (1, 64, 64, K) band, and
+    bit-equal to row 7's f16 kernel on the 2-D view.  ptxas's lines and
+    the dynamic shared memory of both GEMMs' instances are printed first
+    (no spills).  Every type's bands are timed beside the plain version,
+    torch.matmul on the already activated input and row 7's kernel on
+    the 2-D view, with TFLOP/s and GB/s; f16's also beside its bf16 twin
+    on the same values.  Returns the three kernels-line rows (bf16, f32,
+    f16), per-launch means over the sandwich's two bands."""
     from mxnet_tpu_torch.tools import fused_sandwich as fs
     ptx = {"bfloat16": _fused_gemm_ptxas("fused_band4d"),
-           "float32": _fused_gemm_f32_ptxas("fused_band4d")}
+           "float32": _fused_gemm_f32_ptxas("fused_band4d"),
+           "float16": _fused_gemm_ptxas("fused_band4d", "float16")}
     g = torch.Generator(device=dev).manual_seed(SEED + 31)
-    bf, f32 = torch.bfloat16, torch.float32
+    bf, f32, hf = torch.bfloat16, torch.float32, torch.float16
+    tags = {bf: "", f32: "_f32", hf: "_f16"}
     cases = [(name, x, s, t, w) for name, x, s, t, w
              in fs.band_shapes(fs.inputs(dev))]
     cases += [(name + "_f32", x, s, t, w) for name, x, s, t, w
               in fs.band_shapes(fs.inputs(dev, f32))]
+    cases += [(name + "_f16", x, s, t, w) for name, x, s, t, w
+              in fs.band_shapes(fs.inputs(dev, hf))]
     for key, dtype in (("th_shape", bf), ("f32_shape", f32),
-                       ("odd_shape", bf), ("odd_shape", f32)):
-        cases.append((key + ("_f32" if dtype == f32 and key != "f32_shape"
-                             else ""),
+                       ("odd_shape", bf), ("odd_shape", f32),
+                       ("th_shape", hf), ("odd_shape", hf)):
+        cases.append((key + ("" if key == "f32_shape" else tags[dtype]),
                       *_band_case(torch, g, dev, *BAND4D[key], dtype)))
     for key, shape in BAND4D_EDGES.items():
-        cases.append((key, *_band_case(torch, g, dev, *shape, bf)))
+        for dtype in (bf, hf):
+            cases.append((key + tags[dtype],
+                          *_band_case(torch, g, dev, *shape, dtype)))
     cases.append(("ragged_m_f32", *_band_case(
         torch, g, dev, *BAND4D_EDGES["ragged_m"], f32)))
-    for dtype in (bf, f32):
+    for dtype in (bf, f32, hf):
         x, s, t, w = _band_case(torch, g, dev, *BAND4D["f32_shape"], dtype)
         nchw_view = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
         wide = torch.zeros(*x.shape[:3], x.shape[3] + 8, dtype=dtype,
                            device=dev)
         wide[..., :x.shape[3]] = x
-        tag = "_f32" if dtype == f32 else ""
-        cases += [("nchw_view" + tag, nchw_view, s, t, w),
-                  ("channel_slice" + tag, wide[..., :x.shape[3]], s, t, w)]
-    rows = {"bfloat16": [], "float32": []}
-    errs = {"bfloat16": [], "float32": []}
+        cases += [("nchw_view" + tags[dtype], nchw_view, s, t, w),
+                  ("channel_slice" + tags[dtype], wide[..., :x.shape[3]], s,
+                   t, w)]
+    M, K, N = F16_SPECIAL
+    x, s, t, w, _ = _f16_special(torch, g, dev, M, K, N, False)
+    cases.append(("special_f16", x.view(1, 64, M // 64, K), s, t,
+                  w.t().contiguous()))
+    rows = {"bfloat16": [], "float32": [], "float16": []}
+    errs = {"bfloat16": [], "float32": [], "float16": []}
+    special = None
     for name, x, s, t, w in cases:
         dt = str(x.dtype).replace("torch.", "")
         got = mxk.fused_band4d(x, s, t, w)
@@ -6368,6 +6934,7 @@ def phase_fused_band4d(torch, mxk, dev, flush):
         ref = mxk.fused_band4d_plain(x, s, t, w)
         torch.cuda.synchronize()
         ok = close_bf16(torch, got, ref) if x.dtype == bf \
+            else close_f16_fused(torch, got, ref) if x.dtype == hf \
             else close(torch, got, ref)
         check(got.dtype == x.dtype and tuple(got.shape)
               == tuple(x.shape[:3]) + (w.shape[1],),
@@ -6375,25 +6942,41 @@ def phase_fused_band4d(torch, mxk, dev, flush):
                                                  tuple(got.shape)))
         check(ok, "fused_band4d %s disagrees with its plain version (max abs "
               "err %g)" % (name, max_err(got, ref)))
-        check(torch.equal(got, again), "fused_band4d %s: two runs differ"
-              % name)
-        if x.dtype == f32:
-            # row 7's f32 kernel on the 2-D view: one tiling, one sum order
+        bits = torch.int16 if x.dtype != f32 else torch.int32
+        check(torch.equal(got.view(bits), again.view(bits)),
+              "fused_band4d %s: two runs differ" % name)
+        if x.dtype != bf:
+            # row 7's kernel on the 2-D view: one tiling, one sum order
             two = mxk.fused_scale_relu_matmul_fwd(
                 x.reshape(-1, x.shape[3]).contiguous(), s, t,
                 w.t().contiguous())
-            check(torch.equal(got.reshape(two.shape), two),
-                  "fused_band4d f32 %s: not bit-equal to row 7 on the 2-D "
-                  "view (max abs %g)" % (name, max_err(got.reshape(two.shape),
-                                                      two)))
+            check(torch.equal(got.reshape(two.shape).view(bits),
+                              two.view(bits)),
+                  "fused_band4d %s %s: not bit-equal to row 7 on the 2-D "
+                  "view (max abs %g)" % (dt, name, max_err(
+                      got.reshape(two.shape), two)))
             del two
+        if name == "special_f16":
+            special = {"nan": int(torch.isnan(ref).sum()),
+                       "inf": int(torch.isinf(ref).sum()),
+                       "same_non_finite": True}
+            check(special["nan"] > 0 and special["inf"] > 0, "fused_band4d "
+                  "special_f16: the case reached no inf or NaN")
+            del got, again, ref
+            continue
         errs[dt].append(max_err(got, ref))
         row = {"case": name, "shape": list(x.shape) + [w.shape[1]],
                "dtype": dt, "x_strides": list(x.stride()),
                "x_contiguous": x.is_contiguous(), "max_abs_err": errs[dt][-1]}
         del got, again, ref
-        if name in ("up", "down", "up_f32", "down_f32"):
+        if name in ("up", "down", "up_f32", "down_f32", "up_f16",
+                    "down_f16"):
             row.update(_band_times(torch, mxk, x, s, t, w, flush))
+            if x.dtype == hf:
+                xb, wb = x.to(bf), w.to(bf)
+                row["bf16_twin_ms"] = time_ms(
+                    torch, lambda: mxk.fused_band4d(xb, s, t, wb), flush)
+                del xb, wb
             rows[dt].append(row)
         emit({"phase": "kernel", "name": "fused_band4d", **row})
     out = []
@@ -6401,12 +6984,17 @@ def phase_fused_band4d(torch, mxk, dev, flush):
             ("bfloat16", "mxnet_tpu_torch/csrc/fused_gemm_bf16.cuh",
              "torch.matmul in bf16"),
             ("float32", "mxnet_tpu_torch/csrc/fused_gemm_f32.cuh",
-             "torch.matmul in f32, TF32 off,")):
+             "torch.matmul in f32, TF32 off,"),
+            ("float16", "mxnet_tpu_torch/csrc/fused_gemm_bf16.cuh",
+             "torch.matmul in f16")):
         keys = ("ms", "plain_ms", "library_ms", "bound_ms", "pal2d_ms") + \
-            (("bound_cuda_cores_ms",) if dt == "float32" else ())
+            (("bound_cuda_cores_ms",) if dt == "float32" else ()) + \
+            (("bf16_twin_ms",) if dt == "float16" else ())
         per_launch = {k: sum(r[k] for r in rows[dt]) / len(rows[dt])
                       for k in keys}
-        emit({"phase": "fused_band4d" + ("_f32" if dt == "float32" else ""),
+        extra = {"special": special} if dt == "float16" else {}
+        emit({"phase": "fused_band4d" + {"bfloat16": "", "float32": "_f32",
+                                         "float16": "_f16"}[dt], **extra,
               "cases_checked": len(errs[dt]), "ptxas": ptx[dt],
               "bands": {r["case"]: {k: r[k] for k in keys + ("tflops", "gbps")}
                         for r in rows[dt]},
@@ -6424,32 +7012,30 @@ def phase_fused_band4d(torch, mxk, dev, flush):
     return out
 
 
-def phase_sandwich(torch, mx):
-    """The fused-sandwich microbenchmark (``tools/
-    torch_fused_sandwich_bench.py``) at its shapes, in bf16 and then in
-    f32: the three arms' outputs agree (pal2d and pal4d bit for bit,
-    plain within SANDWICH's relative L2), then each arm's ms per
-    iteration from captured loops.  Returns the kernel launches of the
-    bf16 timed run (the main path of row 10), the iterations it captured
-    per arm, and the f32 band launches of the f32 timed run."""
-    from mxnet_tpu_torch.kernels import (LAUNCHES, LAUNCHES_BY_DTYPE,
-                                         PLAIN_CALLS, reset_counts)
-    from mxnet_tpu_torch.tools import fused_sandwich as fs
-    dev = torch.device("cuda", 0)
-    args = fs.inputs(dev)
+def _sandwich_run(torch, fs, dev, dtype):
+    """The sandwich in ``dtype``: the three arms' outputs agree (pal2d and
+    pal4d bit for bit, plain within SANDWICH's relative L2, pal4d
+    finite), then each arm's timed run; every band launch is counted
+    under ``dtype``, 2 an iteration, and no plain version runs.  Returns
+    (arms, plain-vs-pal4d relative L2, the timed runs' launches of the
+    two kernels in ``dtype``)."""
+    from mxnet_tpu_torch.kernels import (LAUNCHES_BY_DTYPE, PLAIN_CALLS,
+                                         reset_counts)
+    dt = str(dtype).replace("torch.", "")
+    args = fs.inputs(dev, dtype)
     with torch.no_grad():
         outs = {name: fs.make_net(band)(*fs.arm_args(name, args))
                 for name, band in fs.ARMS.items()}
         torch.cuda.synchronize()
         check(torch.equal(outs["pal2d"], outs["pal4d"]),
-              "sandwich: pal2d and pal4d outputs differ (max abs %g)"
-              % max_err(outs["pal2d"], outs["pal4d"]))
+              "sandwich %s: pal2d and pal4d outputs differ (max abs %g)"
+              % (dt, max_err(outs["pal2d"], outs["pal4d"])))
         plain_l2 = float((outs["plain"].float() - outs["pal4d"].float())
                          .norm() / outs["pal4d"].float().norm())
         check(plain_l2 <= SANDWICH["plain_l2"] and bool(
             torch.isfinite(outs["pal4d"].float()).all()),
-              "sandwich: plain and pal4d outputs differ by %g relative L2"
-              % plain_l2)
+              "sandwich %s: plain and pal4d outputs differ by %g relative L2"
+              % (dt, plain_l2))
         del outs
         torch.cuda.empty_cache()
         reset_counts()
@@ -6457,64 +7043,42 @@ def phase_sandwich(torch, mx):
         for name, band in fs.ARMS.items():
             arms[name] = fs.bench(fs.make_net(band), fs.arm_args(name, args))
             torch.cuda.empty_cache()
-        launches, plain = dict(LAUNCHES), dict(PLAIN_CALLS)
+        by_dtype, plain = dict(LAUNCHES_BY_DTYPE), dict(PLAIN_CALLS)
+        del args
     # each of the two captures ran one warm-up iteration, then recorded
     # its loop: two band launches per iteration
     iters = 2 + fs.N0 + fs.N0 + fs.ITERS
-    for kernel in ("fused_band4d", "fused_scale_relu_matmul"):
-        check(launches[kernel] == 2 * iters,
-              "sandwich: %s launched %d times for %d iterations"
-              % (kernel, launches[kernel], iters))
-    check(not any(plain.values()), "sandwich: plain versions ran: %s"
-          % plain)
-    # the same sandwich in f32 (TF32 off): row 10's and row 7's f32 forms
-    # on the split-TF32 GEMM
-    args = fs.inputs(dev, torch.float32)
-    with torch.no_grad():
-        outs = {name: fs.make_net(band)(*fs.arm_args(name, args))
-                for name, band in fs.ARMS.items()}
-        torch.cuda.synchronize()
-        check(torch.equal(outs["pal2d"], outs["pal4d"]),
-              "sandwich f32: pal2d and pal4d outputs differ (max abs %g)"
-              % max_err(outs["pal2d"], outs["pal4d"]))
-        plain_l2_f32 = float((outs["plain"] - outs["pal4d"]).norm()
-                             / outs["pal4d"].norm())
-        check(plain_l2_f32 <= SANDWICH["plain_l2"] and bool(
-            torch.isfinite(outs["pal4d"]).all()),
-              "sandwich f32: plain and pal4d outputs differ by %g relative "
-              "L2" % plain_l2_f32)
-        del outs
-        torch.cuda.empty_cache()
-        reset_counts()
-        arms_f32 = {}
-        for name, band in fs.ARMS.items():
-            arms_f32[name] = fs.bench(fs.make_net(band),
-                                      fs.arm_args(name, args))
-            torch.cuda.empty_cache()
-        by_dtype, plain = dict(LAUNCHES_BY_DTYPE), dict(PLAIN_CALLS)
-        del args
-    for kernel in ("fused_band4d", "fused_scale_relu_matmul"):
-        n = by_dtype.get(kernel + ":float32", 0)
-        check(n == 2 * iters, "sandwich f32: %s launched %d times for %d "
-              "iterations" % (kernel, n, iters))
-    check(not any(plain.values()), "sandwich f32: plain versions ran: %s"
-          % plain)
+    launches = {k: by_dtype.get("%s:%s" % (k, dt), 0)
+                for k in ("fused_band4d", "fused_scale_relu_matmul")}
+    for kernel, n in launches.items():
+        check(n == 2 * iters, "sandwich %s: %s launched %d times for %d "
+              "iterations" % (dt, kernel, n, iters))
+    check(not any(plain.values()), "sandwich %s: plain versions ran: %s"
+          % (dt, plain))
+    return arms, plain_l2, launches
+
+
+def phase_sandwich(torch, mx):
+    """The fused-sandwich microbenchmark (``tools/
+    torch_fused_sandwich_bench.py``) at its shapes, in bf16, then in f32
+    (TF32 off) and in f16 (_sandwich_run): each arm's ms per iteration
+    from captured loops.  Returns the iterations each timed run captured
+    per arm and the band launches of the bf16, f32 and f16 timed runs
+    (the main path of row 10's three forms)."""
+    from mxnet_tpu_torch.tools import fused_sandwich as fs
+    dev = torch.device("cuda", 0)
+    runs = {dt: _sandwich_run(torch, fs, dev, t) for dt, t in (
+        ("bfloat16", torch.bfloat16), ("float32", torch.float32),
+        ("float16", torch.float16))}
+    iters = 2 + fs.N0 + fs.N0 + fs.ITERS
+    out = {dt: {"plain_vs_pal4d_rel_l2": l2, "pal2d_pal4d_bit_equal": True,
+                "ms_per_iter": {k: v["ms_per_iter"] for k, v in arms.items()},
+                "arms": arms, "launches": launches}
+           for dt, (arms, l2, launches) in runs.items()}
     emit({"phase": "sandwich", "shape": fs.SHAPE, "iters": fs.ITERS,
-          "n0": fs.N0, "reps": fs.REPS, "plain_vs_pal4d_rel_l2": plain_l2,
-          "pal2d_pal4d_bit_equal": True,
-          "ms_per_iter": {k: v["ms_per_iter"] for k, v in arms.items()},
-          "arms": arms, "launches": {k: launches[k] for k in
-                                     ("fused_band4d",
-                                      "fused_scale_relu_matmul")},
-          "float32": {"plain_vs_pal4d_rel_l2": plain_l2_f32,
-                      "pal2d_pal4d_bit_equal": True,
-                      "ms_per_iter": {k: v["ms_per_iter"]
-                                      for k, v in arms_f32.items()},
-                      "arms": arms_f32,
-                      "launches": {k: by_dtype[k + ":float32"] for k in
-                                   ("fused_band4d",
-                                    "fused_scale_relu_matmul")}}})
-    return launches, iters, by_dtype["fused_band4d:float32"]
+          "n0": fs.N0, "reps": fs.REPS, **out["bfloat16"],
+          "float32": out["float32"], "float16": out["float16"]})
+    return iters, {dt: r[2]["fused_band4d"] for dt, r in runs.items()}
 
 
 # ----------------------------------------------------------------------
@@ -6829,17 +7393,17 @@ def _bf16_arm_checks(name, res, want_captured, tol):
     captured = (fi["captured_by_dtype"] or [{}])[0]
     for key, n in want_captured.items():
         check(captured.get(key, 0) == n and fi["launches"].get(
-            key.split(":")[0], 0) > 0, "fit_bf16 %s: %s recorded %d times "
+            key.split(":")[0], 0) > 0, "fit %s: %s recorded %d times "
               "in the graph (want %d): %s" % (name, key, captured.get(key, 0),
                                              n, captured))
     ins = fi["inspect"]
     check(ins.get("overflow_skips") == 0 and ins["loss_scale"] == 2.0 ** 15
           and ins["loss_scale_gauge"] == ins["loss_scale"],
-          "fit_bf16 %s: loss scaler %s" % (name, ins))
+          "fit %s: loss scaler %s" % (name, ins))
     for arm in (fi, ei):
         i = arm["inspect"]
         check(i["masters_moved"] == i["low_weight_matrices"] > 0,
-              "fit_bf16 %s: masters that did not move %s, missing %s"
+              "fit %s: masters that did not move %s, missing %s"
               % (name, i["masters_still"], i["masters_missing"]))
 
 
@@ -6955,8 +7519,8 @@ def phase_fit_bf16(torch, mx, np_params, cfg=FULL):
     transformer fused with ``MXNET_LOSS_SCALE=off`` (graph replay ms
     beside the scaler's) and the overflow case.  Returns the fused arms'
     info."""
-    from mxnet_tpu_torch.models import resnet, transformer
-    from mxnet_tpu_torch.weights import convert_params, convert_symbol_params
+    from mxnet_tpu_torch.models import transformer
+    from mxnet_tpu_torch.weights import convert_params
     ctx = mx.gpu(0)
     tol, replays = FIT_BF16["weights_tol"], FIT_BF16["replays"]
     out, ret = {}, {}
@@ -7014,9 +7578,28 @@ def phase_fit_bf16(torch, mx, np_params, cfg=FULL):
                                "graph_replay_ms_off": off_ms,
                                "select_ms_per_step": on_ms - off_ms}
     del res
+    out["resnet_2bit"] = _fit_resnet16(torch, mx, "bfloat16", tol)
+    ret["resnet_2bit"] = out["resnet_2bit"]["fused"]
+    out["overflow"] = _overflow_case(torch, mx, ctx)
+    emit({"phase": "fit_bf16", "config": {"transformer": dict(
+        cfg, dtype="bfloat16"), "resnet": dict(RESNET, dtype="bfloat16")},
+          "train": FIT_BF16, **out})
+    return ret
+
+
+def _fit_resnet16(torch, mx, dtype, tol, replays=0):
+    """ResNet-50 v2 in ``dtype`` through ``Module.fit`` with a 2-bit device
+    store as FIT_BF16's resnet says, fused against eager (cuDNN's
+    deterministic algorithms in both), checked by ``_bf16_arm_checks``
+    (the f32 quantizer recorded once per bucket the eager store
+    dispatches a step, no skip) and ``_low_weights`` at ``tol``.  Returns
+    the phase line's entry, the fused arm's info under "fused"."""
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.weights import convert_symbol_params
+    ctx = mx.gpu(0)
     rc = FIT_BF16["resnet"]
     B = rc["batch"]
-    rcfg = dict(RESNET, dtype="bfloat16")
+    rcfg = dict(RESNET, dtype=dtype)
     shapes = dict(data=(B,) + tuple(RESNET["image_shape"]),
                   softmax_label=(B,))
     sym = resnet.get_symbol(**rcfg)
@@ -7044,30 +7627,26 @@ def phase_fit_bf16(torch, mx, np_params, cfg=FULL):
                                        "multi_precision": True},
                      arg_params=args, aux_params=auxs, eval_metric="acc"),
                 fused, rc["batches"] * rc["epochs"],
-                _low_inspect(torch, np_args))
+                _low_inspect(torch, np_args, replays if fused else 0,
+                             getattr(torch, dtype)))
     finally:
         torch.backends.cudnn.deterministic = deterministic
+    name = "resnet" if dtype == "bfloat16" else "f16 resnet"
     ei = res["eager"][0]
     buckets = kvs[False]._engine.stats["buckets"] \
         / (len(ei["step_ms"]) + FIT_FUSED["profiled_steps"])
     ei["kv_buckets_per_step"] = buckets
-    check(buckets == int(buckets) > 0, "fit_bf16 resnet: %g buckets per "
-          "eager step" % buckets)
-    _bf16_arm_checks("resnet", res, {"two_bit_quantize_fused:float32":
-                                     int(buckets)}, tol)
+    check(buckets == int(buckets) > 0, "fit %s: %g buckets per eager step"
+          % (name, buckets))
+    _bf16_arm_checks(name, res, {"two_bit_quantize_fused:float32":
+                                 int(buckets)}, tol)
     for arm in ("fused", "eager"):
         info = res[arm][0]
         info["images_per_s"] = B / (info["step_ms_p50"] / 1e3)
-    out["resnet_2bit"] = {"fused": res["fused"][0], "eager": ei,
-                          "weights": _low_weights(
-                              "resnet", res["fused"][1], res["eager"][1],
-                              np_args, tol)}
-    ret["resnet_2bit"] = res["fused"][0]
-    del res, kvs
-    out["overflow"] = _overflow_case(torch, mx, ctx)
-    emit({"phase": "fit_bf16", "config": {"transformer": dict(
-        cfg, dtype="bfloat16"), "resnet": rcfg}, "train": FIT_BF16, **out})
-    return ret
+    atol = FIT_F16["weights_atol"] if dtype == "float16" else None
+    return {"fused": res["fused"][0], "eager": ei,
+            "weights": _low_weights(name, res["fused"][1], res["eager"][1],
+                                    np_args, tol, atol)}
 
 
 def phase_fit_f16(torch, mx, np_params, bf16_lm=None, cfg=FULL):
@@ -7084,8 +7663,13 @@ def phase_fit_f16(torch, mx, np_params, bf16_lm=None, cfg=FULL):
     within FIT_F16's weight bound of each other.  Every arm's weights
     stay finite.  The fused arm's graph is replayed 20 times under CUDA
     events; its replay ms and tokens/s stand beside ``bf16_lm``'s
-    (fit_bf16's fused transformer arm, the same run).  Returns the fused
-    arm's info."""
+    (fit_bf16's fused transformer arm, the same run).  Then ResNet-50 v2
+    in f16 through a 2-bit device store (``_fit_resnet16``, fit_bf16's
+    ResNet arm in f16): one capture, every step fused, one graph launch
+    and no host sync in a steady step, the f32 quantizer recorded once
+    per bucket, no skip, fused weights within one f16 ulp of eager's,
+    its graph replayed 20 times.  Returns the fused arms' info
+    ("transformer", "resnet_2bit")."""
     from mxnet_tpu_torch.models import transformer
     from mxnet_tpu_torch.weights import convert_params
     ctx = mx.gpu(0)
@@ -7163,9 +7747,16 @@ def phase_fit_f16(torch, mx, np_params, bf16_lm=None, cfg=FULL):
                                     "graph_replay_ms"]},
             "tokens_per_s": {"float16": fi["tokens_per_s"],
                              "bfloat16": bf16_lm.get("tokens_per_s")}}
-    emit({"phase": "fit_f16", "config": dict(cfg, dtype="float16"),
-          "train": dict(FIT_BF16["transformer"], **FIT_F16), **out})
-    return fi
+    # ResNet-50 v2 in f16 through a 2-bit device store (float16 for rows
+    # 7 and 10): the fused graph replays beside the eager pair
+    out["resnet_2bit"] = _fit_resnet16(torch, mx, "float16",
+                                       FIT_F16["weights_rtol"], replays)
+    emit({"phase": "fit_f16", "config": {
+        "transformer": dict(cfg, dtype="float16"),
+        "resnet": dict(RESNET, dtype="float16")},
+          "train": dict(FIT_BF16["transformer"], resnet=FIT_BF16["resnet"],
+                        **FIT_F16), **out})
+    return {"transformer": fi, "resnet_2bit": out["resnet_2bit"]["fused"]}
 
 
 def _fused_arms(name, res, initial, kernel, metric_rtol=1e-5):
@@ -7628,6 +8219,8 @@ def main():
     bf16_kernels = phase_flash_bf16(torch, mxk, dev, flush) + \
         phase_layernorm_bf16(torch, mxk, dev, flush) + \
         [phase_fused_matmul_bf16(torch, mxk, dev, flush)]
+    # row 7's f16 form (float16 for rows 7 and 10)
+    fused_f16_kernel = phase_fused_matmul_f16(torch, mxk, dev, flush)
     # the bf16 serve step's kernels: rows 1 and 2 and LayerNorm at its rows
     serve_bf16_kernels = [decode_rows[1], chunk_rows[1]] + \
         [k for k in bf16_kernels if "path" in k]
@@ -7648,8 +8241,7 @@ def main():
     head_dim_times = phase_head_dim(torch, mxk, dev, flush)
     rtc_kernels = phase_rtc(torch, mx, dev, flush)
     del flush
-    sandwich_launches, sandwich_iters, sandwich_f32_launches = \
-        phase_sandwich(torch, mx)
+    sandwich_iters, sandwich_launches = phase_sandwich(torch, mx)
     full = seeded_params(FULL)
     serve_launches, serve_steps, serve_rec = phase_serve(torch, mx, full)
     phase_agreement(torch, mx)
@@ -7685,8 +8277,10 @@ def main():
     nhwc_launches, nhwc_steps = phase_train_resnet_nhwc(torch, mx)
     phase_resnet_nhwc_agreement(torch, mx)
     rbf16_launches, rbf16_steps = phase_train_resnet_bf16(torch, mx)
+    rf16_launches, rf16_steps = phase_train_resnet_f16(torch, mx)
     phase_bf16_agreement(torch, mx)
     phase_f16_train_agreement(torch, mx)
+    phase_resnet_f16_agreement(torch, mx)
     phase_head_dim_agreement(torch, mx)
     phase_checkpoint(torch, mx, card)
     # launches: the count of each kernel's main-path run (serve for the
@@ -7746,12 +8340,18 @@ def main():
     # what it recorded), train_f16's TrainStep run beside it
     for k in train_f16_kernels:
         key = k["name"] + ":float16"
-        k["launches"] = fit_f16["launches_by_dtype"].get(key, 0)
-        k["captured_per_step"] = fit_f16["captured_by_dtype"][0].get(key, 0)
+        k["launches"] = fit_f16["transformer"]["launches_by_dtype"].get(
+            key, 0)
+        k["captured_per_step"] = fit_f16["transformer"][
+            "captured_by_dtype"][0].get(key, 0)
         k["train_f16_launches_per_step"] = f16_launches[k["name"]] \
             / f16_steps
+    # row 7's f16 form: train_resnet_f16's fused TrainStep arm (28 a step)
+    fused_f16_kernel["launches"] = rf16_launches[fused_f16_kernel["name"]]
+    fused_f16_kernel["launches_per_step"] = \
+        fused_f16_kernel["launches"] / rf16_steps
     for k in serve_f16_kernels + [prefill_f16_kernel, flash_f16_kernel] \
-            + train_f16_kernels:
+            + train_f16_kernels + [fused_f16_kernel]:
         check(k["launches"] > 0, "%s (float16) was not launched on its main "
               "path" % k["name"])
     # Module.fit's main path is the fused step (fit_fused): its launches
@@ -7777,9 +8377,9 @@ def main():
         fused_rn["captured_launches"][0][quant_kernel["name"]]
     quant_kernel["launches_per_step"] = \
         resnet_launches[quant_kernel["name"]] / resnet_steps
-    # row 10: the bf16 and the f32 sandwich's timed runs
-    for k, n in zip(band4d_kernels, (sandwich_launches["fused_band4d"],
-                                     sandwich_f32_launches)):
+    # row 10: the bf16, f32 and f16 sandwich's timed runs
+    for k in band4d_kernels:
+        n = sandwich_launches[k["dtype"]]
         check(n > 0, "sandwich: fused_band4d %s was not launched"
               % k["dtype"])
         k["launches"] = n
@@ -7789,6 +8389,9 @@ def main():
     # bf16 Module.fit (fit_bf16): what each fused graph records
     quant_kernel["fit_bf16_captured_per_step"] = \
         fit_bf16["resnet_2bit"]["captured_by_dtype"][0][
+            quant_kernel["name"] + ":float32"]
+    quant_kernel["fit_f16_captured_per_step"] = \
+        fit_f16["resnet_2bit"]["captured_by_dtype"][0][
             quant_kernel["name"] + ":float32"]
     fused_kernel["launches"] = nhwc_launches[fused_kernel["name"]]
     fused_kernel["launches_per_step"] = fused_kernel["launches"] / nhwc_steps
@@ -7821,6 +8424,7 @@ def main():
                                                   "launches_per_iteration",
                                                   "fit_fused_captured_per_step",
                                                   "fit_bf16_captured_per_step",
+                                                  "fit_f16_captured_per_step",
                                                   "train_f16_launches_per_step",
                                                   "train_launches",
                                                   "spec_launches_per_step",
@@ -7835,7 +8439,8 @@ def main():
                       + serve_bf16_kernels + [prefill_bf16_kernel]
                       + serve_f16_kernels + [prefill_f16_kernel,
                                              flash_f16_kernel]
-                      + train_f16_kernels + rtc_kernels + band4d_kernels]})
+                      + train_f16_kernels + [fused_f16_kernel] + rtc_kernels
+                      + band4d_kernels]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -72,14 +72,14 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16, "float64": torch.float64,
            "int32": torch.int32, "int64": torch.int64, "uint8": torch.uint8,
            "int8": torch.int8}
-# float16 serves (the five serving symbols, DecodeEngine) and trains the
-# transformer; ResNet's float16 training and the ops it needs (BatchNorm,
-# Convolution, the fused BN-ReLU-Conv op: rows 7 and 10) are the next
-# part of ROADMAP A.1
-FLOAT16_TRAINING = ("float16 is not in the PyTorch port yet (ROADMAP A.1, "
-                    "float16 for rows 7 and 10): ResNet and the ops without "
-                    "a float16 form wait for it; the transformer trains and "
-                    "serves in float16")
+# float16 serves and trains the transformer and trains ResNet (ROADMAP
+# A.1): a float16 graph binds over the ops whose float16 forms are held
+# against the JAX package (executor.FLOAT16_OPS); the float16 forms of
+# the other registered ops wait for ROADMAP A.6
+FLOAT16_OPS_LATER = ("no float16 form of these ops is held against the JAX "
+                     "package yet (ROADMAP A.6): float16 graphs bind over "
+                     "the ops of the transformer's and ResNet's serving and "
+                     "training graphs (executor.FLOAT16_OPS)")
 
 
 def torch_dtype(dtype):

@@ -1,10 +1,12 @@
-// The bf16 fused BatchNorm-apply, ReLU and 1x1 convolution on Hopper's
-// tensor cores (sm_90a): one GEMM main loop, shared by the bf16 launches
+// The 16-bit fused BatchNorm-apply, ReLU and 1x1 convolution on Hopper's
+// tensor cores (sm_90a): one GEMM main loop, a template over the element
+// type T (bf16 or f16, through tc::T16<T>: the m16n8k16 product, pack,
+// unpack and rounding of that type), shared by the bf16 and f16 launches
 // of fused_matmul.cu (TPU kernel row 7, mxnet_tpu/ops/fused.py
 // _pallas_fwd) and fused_band4d.cu (row 10, tools/fused_sandwich_bench.py
 // pal4d_band):
 //
-//   Y[M, N] = bf16( f32( bf16(relu(f32(X) * scale + shift)) @ W ) (+ f32(R)) )
+//   Y[M, N] = T( f32( T(relu(f32(X) * scale + shift)) @ W ) (+ f32(R)) )
 //
 // X's rows are read through four strides (b, h, w, k): row 7 passes a
 // contiguous (M, K) matrix as one image row of M pixels, row 10 its 4-D
@@ -14,8 +16,12 @@
 // The TPU kernel's rounding points: the affine in f32 with the multiply
 // and the add rounded separately (__fmul_rn, __fadd_rn, as the plain
 // versions compute them), the ReLU (NaN passes, as torch.relu passes
-// it), the activation rounded to bf16 before the product, the product
-// summed in f32, the residual added in f32, the output rounded once.
+// it), the activation rounded to T (to nearest even) before the product,
+// the product summed in f32 (.f32.bf16.bf16.f32 or .f32.f16.f16.f32),
+// the residual added in f32, the output rounded once.  In f16 an
+// activation or a sum past 65504 rounds to inf, as the plain version's
+// .to(float16) rounds it.  Both instances run the same instructions but
+// the mma opcode and the conversions, so they take the same registers.
 //
 // What bounds it on the H100: 2*M*N*K operations against 2*(M*K + K*N +
 // M*N (+ M*N)) bytes.  At the tensor cores' dense 989 TFLOP/s and 3.35
@@ -33,7 +39,7 @@
 // m16n8 f32 accumulators in registers: 64 a thread, which with the
 // fragments fills the 128 registers that let two blocks share an SM.  K
 // is walked in stages of kStep = 64 columns through a cp.async ring of
-// kStages = 3 stages in shared memory: bf16 tiles with rows padded by 8
+// kStages = 3 stages in shared memory: 16-bit tiles with rows padded by 8
 // elements, so the 8 row addresses of every ldmatrix (and ldmatrix.trans
 // for row 10's (K, N) W) fall on distinct 16-byte bank groups.  Blocks
 // walk N fastest, so the blocks that share a tile of X rows run together
@@ -61,7 +67,7 @@
 // same 8-column chunk of K in every X row it stages.  After the products
 // of stage st, once cp.async.wait_group says its copies of stage st + 1
 // have landed, it rewrites those chunks in place (widen, affine, ReLU,
-// round to bf16) with the chunk's scale and shift, loaded just before
+// round to T) with the chunk's scale and shift, loaded just before
 // that wait; the barrier that starts stage st + 1, which the ring needs
 // anyway, publishes them.  No warp repeats another's prologue, and the
 // prologue is independent of the fragment layout.  Padding is zero
@@ -92,6 +98,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
@@ -101,6 +108,8 @@
 namespace fused_gemm {
 
 using tc::bf16;
+using tc::f16;
+using tc::T16;
 
 // K columns per stage, stages of the ring, warps a block and blocks an
 // SM (a register budget for ptxas; tools/torch_fused_tune.py times
@@ -108,13 +117,13 @@ using tc::bf16;
 constexpr int kStep = 64, kStages = 3, kWarps = 8, kMinBlocks = 2;
 constexpr int kBM = 128;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kPad = 8;           // bf16 elements of padding per shared-memory row
+constexpr int kPad = 8;           // 16-bit elements of padding per shared-memory row
 constexpr int kCPad = 8;          // f32 of padding per row of the epilogue tile
 constexpr int kCPR = kStep / 8;   // 16-byte chunks per X row of a stage
 
-// A launch's operands, in either element type T (this GEMM and the f32
-// one of fused_gemm_f32.cuh): X's row m = (b, h, w) at element offset
-// b sb + h sh + w sw, its channels sk apart
+// A launch's operands, in element type T (bf16 and f16 for this GEMM,
+// float for the one of fused_gemm_f32.cuh): X's row m = (b, h, w) at
+// element offset b sb + h sh + w sw, its channels sk apart
 template <typename T>
 struct GemmArgs {
   const T* x;
@@ -129,7 +138,6 @@ struct GemmArgs {
   int vec_w, vec_y;
   int tiles_n;          // set by launch_tile
 };
-using Args = GemmArgs<bf16>;
 
 // each of a tile's BM rows' element offset in X from its (b, h, w), in a
 // table in shared memory (rows past M: 0), published by a barrier
@@ -166,7 +174,7 @@ struct Cfg {
   // path takes a few more registers, and handling a thread's chunks
   // together there spills the accumulators, so it walks them one by one
   static constexpr int kChunkUnroll = W_KN ? 1 : kAPer > kBPer ? kAPer : kBPer;
-  static constexpr size_t kRing = sizeof(bf16) * kStages * kStageElems;
+  static constexpr size_t kRing = 2 * kStages * kStageElems;   // 16-bit elements
   // the row-offset table sits past both the ring and the epilogue's tile
   static constexpr size_t kRowOff =
       kRing > sizeof(float) * BM * kLdc ? kRing : sizeof(float) * BM * kLdc;
@@ -183,13 +191,14 @@ __device__ __forceinline__ float affine_relu(float x, float s, float h) {
   return z < 0.0f ? 0.0f : z;
 }
 
-template <int BN, bool W_KN, bool VEC_X>
+template <typename T, int BN, bool W_KN, bool VEC_X>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-fused_gemm_bf16_kernel(const Args p) {
+fused_gemm16_kernel(const GemmArgs<T> p) {
   using C = Cfg<BN, W_KN>;
+  using E = T16<T>;
   constexpr int BM = kBM;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* ring = reinterpret_cast<bf16*>(smem);
+  T* ring = reinterpret_cast<T*>(smem);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int wm = warp / C::kWarpsN, wn = warp % C::kWarpsN;
   const int64_t m0 = (int64_t)(blockIdx.x / p.tiles_n) * BM;
@@ -218,8 +227,8 @@ fused_gemm_bf16_kernel(const Args p) {
         tc::prefetch_l2(p.res + (m0 + ar0 + i * kRowStep) * N + n0, bytes);
   }
   auto issue = [&](int st) {
-    bf16* As = ring + (st % kStages) * C::kStageElems;
-    bf16* Bs = As + BM * C::kLda;
+    T* As = ring + (st % kStages) * C::kStageElems;
+    T* Bs = As + BM * C::kLda;
     const int k0 = st * kStep, kc = k0 + ck * 8;
     if (VEC_X) {
 #pragma unroll (C::kChunkUnroll)
@@ -240,13 +249,12 @@ fused_gemm_bf16_kernel(const Args p) {
 #pragma unroll (C::kChunkUnroll)
       for (int i = 0; i < C::kAPer; ++i) {
         const int r = ar0 + i * kRowStep;
-        bf16* dst = As + r * C::kLda + ck * 8;
+        T* dst = As + r * C::kLda + ck * 8;
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const bool ok = r < rows && kc + j < K;
-          dst[j] = __float2bfloat16_rn(
-              ok ? affine_relu(__bfloat162float(p.x[rowoff[r] + (int64_t)(kc + j) * p.sk]),
-                               s[j], h[j])
+          dst[j] = E::round(
+              ok ? affine_relu(E::widen(p.x[rowoff[r] + (int64_t)(kc + j) * p.sk]), s[j], h[j])
                  : 0.0f);
         }
       }
@@ -259,7 +267,7 @@ fused_gemm_bf16_kernel(const Args p) {
       const int r = W_KN ? c / (BN / 8) : c / kCPR;
       const int c8 = (W_KN ? c % (BN / 8) : c % kCPR) * 8;
       const int k = W_KN ? k0 + r : k0 + c8, n = W_KN ? n0 + c8 : n0 + r;
-      bf16* dst = Bs + r * C::kLdb + c8;
+      T* dst = Bs + r * C::kLdb + c8;
       const int64_t at = W_KN ? (int64_t)k * N + n : (int64_t)n * K + k;
       if (p.vec_w) {
         const bool ok = k < K && n < N;
@@ -268,7 +276,7 @@ fused_gemm_bf16_kernel(const Args p) {
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const bool ok = W_KN ? (k < K && n + j < N) : (n < N && k + j < K);
-          dst[j] = ok ? p.w[at + j] : __float2bfloat16_rn(0.0f);
+          dst[j] = ok ? p.w[at + j] : E::round(0.0f);
         }
       }
     }
@@ -288,7 +296,7 @@ fused_gemm_bf16_kernel(const Args p) {
   };
   // the prologue of stage st in place, on the chunks this thread copied
   auto transform = [&](int st, const float4 (&sv)[4]) {
-    bf16* As = ring + (st % kStages) * C::kStageElems;
+    T* As = ring + (st % kStages) * C::kStageElems;
     const bool k_ok = st * kStep + ck * 8 < K;
     const float s[8] = {sv[0].x, sv[0].y, sv[0].z, sv[0].w, sv[1].x, sv[1].y, sv[1].z, sv[1].w};
     const float h[8] = {sv[2].x, sv[2].y, sv[2].z, sv[2].w, sv[3].x, sv[3].y, sv[3].z, sv[3].w};
@@ -302,9 +310,9 @@ fused_gemm_bf16_kernel(const Args p) {
         uint32_t out[4];
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const __nv_bfloat162 e = *reinterpret_cast<const __nv_bfloat162*>(&in[j]);
-          out[j] = tc::pack(affine_relu(__low2float(e), s[2 * j], h[2 * j]),
-                            affine_relu(__high2float(e), s[2 * j + 1], h[2 * j + 1]));
+          const float2 e = E::unpack(in[j]);
+          out[j] = E::pack(affine_relu(e.x, s[2 * j], h[2 * j]),
+                           affine_relu(e.y, s[2 * j + 1], h[2 * j + 1]));
         }
         v = make_uint4(out[0], out[1], out[2], out[3]);
       }
@@ -347,8 +355,8 @@ fused_gemm_bf16_kernel(const Args p) {
   // stage st + 1 have landed and it transforms them (kStages >= 3, so
   // that buffer is neither read nor written in this iteration).
   for (int st = 0; st < nst; ++st) {
-    const bf16* As = ring + (st % kStages) * C::kStageElems;
-    const bf16* Bs = As + BM * C::kLda;
+    const T* As = ring + (st % kStages) * C::kStageElems;
+    const T* Bs = As + BM * C::kLda;
     __syncthreads();
     if (st + kStages - 1 < nst) issue(st + kStages - 1);
     tc::cp_async_commit();
@@ -374,7 +382,7 @@ fused_gemm_bf16_kernel(const Args p) {
         uint32_t a[4];
         tc::ldsm_x4(a, As + (a_row + mt * 16) * C::kLda + kk * 16 + a_col);
 #pragma unroll
-        for (int nt = 0; nt < C::kNT; ++nt) tc::mma(acc[mt][nt], a, b[nt][0], b[nt][1]);
+        for (int nt = 0; nt < C::kNT; ++nt) E::mma(acc[mt][nt], a, b[nt][0], b[nt][1]);
       }
     }
     if (VEC_X && st + 1 < nst) {
@@ -416,14 +424,14 @@ fused_gemm_bf16_kernel(const Args p) {
         const uint32_t rv[4] = {rr.x, rr.y, rr.z, rr.w};
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const __nv_bfloat162 e = *reinterpret_cast<const __nv_bfloat162*>(&rv[j]);
-          v[2 * j] = __fadd_rn(v[2 * j], __low2float(e));
-          v[2 * j + 1] = __fadd_rn(v[2 * j + 1], __high2float(e));
+          const float2 e = E::unpack(rv[j]);
+          v[2 * j] = __fadd_rn(v[2 * j], e.x);
+          v[2 * j + 1] = __fadd_rn(v[2 * j + 1], e.y);
         }
       }
       *reinterpret_cast<uint4*>(p.y + m * N + n) =
-          make_uint4(tc::pack(v[0], v[1]), tc::pack(v[2], v[3]), tc::pack(v[4], v[5]),
-                     tc::pack(v[6], v[7]));
+          make_uint4(E::pack(v[0], v[1]), E::pack(v[2], v[3]), E::pack(v[4], v[5]),
+                     E::pack(v[6], v[7]));
     }
   } else {
     for (int c = tid; c < BM * BN; c += kThreads) {
@@ -432,16 +440,16 @@ fused_gemm_bf16_kernel(const Args p) {
       const int n = n0 + cc;
       if (m >= p.M || n >= N) continue;
       float v = Cs[r * C::kLdc + cc];
-      if (p.res) v = __fadd_rn(v, __bfloat162float(p.res[m * N + n]));
-      p.y[m * N + n] = __float2bfloat16_rn(v);
+      if (p.res) v = __fadd_rn(v, E::widen(p.res[m * N + n]));
+      p.y[m * N + n] = E::round(v);
     }
   }
 }
 
-template <int BN, bool W_KN, bool VEC_X>
-cudaError_t launch_tile(Args a, cudaStream_t stream) {
+template <typename T, int BN, bool W_KN, bool VEC_X>
+cudaError_t launch_tile(GemmArgs<T> a, cudaStream_t stream) {
   using C = Cfg<BN, W_KN>;
-  const auto kernel = fused_gemm_bf16_kernel<BN, W_KN, VEC_X>;
+  const auto kernel = fused_gemm16_kernel<T, BN, W_KN, VEC_X>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::kSmem);
   if (err != cudaSuccess) return err;
@@ -454,15 +462,18 @@ cudaError_t launch_tile(Args a, cudaStream_t stream) {
 
 // One launch: 128 x 128 tiles, or 128 x 64 when N <= 64.  vec_x: X's
 // channel stride is 1, K % 8 == 0, and every row, scale and shift are
-// 16-byte aligned.
-template <bool W_KN>
-int run(const Args& a, bool vec_x, cudaStream_t s) {
+// 16-byte aligned.  T is bf16 or f16.
+template <typename T, bool W_KN>
+int run(const GemmArgs<T>& a, bool vec_x, cudaStream_t s) {
   if (a.N <= 64)
-    return (int)(vec_x ? launch_tile<64, W_KN, true>(a, s) : launch_tile<64, W_KN, false>(a, s));
-  return (int)(vec_x ? launch_tile<128, W_KN, true>(a, s) : launch_tile<128, W_KN, false>(a, s));
+    return (int)(vec_x ? launch_tile<T, 64, W_KN, true>(a, s)
+                       : launch_tile<T, 64, W_KN, false>(a, s));
+  return (int)(vec_x ? launch_tile<T, 128, W_KN, true>(a, s)
+                     : launch_tile<T, 128, W_KN, false>(a, s));
 }
 
-// dynamic shared memory of the tile with bn columns, bytes
+// dynamic shared memory of the tile with bn columns, bytes (the same for
+// both 16-bit types)
 template <bool W_KN>
 int smem_bytes(int bn) {
   return (int)(bn == 64 ? Cfg<64, W_KN>::kSmem : Cfg<128, W_KN>::kSmem);

@@ -1,5 +1,5 @@
 // Fused BatchNorm-apply, ReLU and 1x1 convolution for Hopper (sm_90a),
-// in f32 or bf16, plain C interface.
+// in f32, bf16 or f16, plain C interface.
 //
 // mx_fused_scale_relu_matmul replaces mxnet_tpu/ops/fused.py _pallas_fwd
 // (fused_scale_relu_matmul, the kernel of the _FusedBNReluConv op that
@@ -8,11 +8,12 @@
 //
 //   Y[M, N] = relu(X[M, K] * scale[K] + shift[K]) @ W[N, K]^T  (+ R[M, N])
 //
-// X, W, R and Y of one element type (f32 or bf16), scale and shift f32;
+// X, W, R and Y of one element type (f32, bf16 or f16), scale and shift f32;
 // W is the OHWI convolution weight viewed (N, K) row-major, so the
 // caller passes the weight as it is stored, with no transpose copy.
-// Both types run on the tensor cores with mma.sync: bf16 through the GEMM
-// of fused_gemm_bf16.cuh, f32 through its split-TF32 counterpart
+// Every type runs on the tensor cores with mma.sync: bf16 and f16 through
+// the two instances of the 16-bit GEMM of fused_gemm_bf16.cuh (a template
+// over the element type), f32 through its split-TF32 counterpart
 // fused_gemm_f32.cuh (design and bounds there), both shared with
 // fused_band4d.cu.
 //
@@ -26,6 +27,7 @@
 // in f32 in the epilogue and the sum is rounded once.  No split over K
 // and no atomics: two runs give the same bits.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
@@ -33,12 +35,30 @@
 #include "fused_gemm_bf16.cuh"
 #include "fused_gemm_f32.cuh"
 
+namespace {
+
+// the 16-bit GEMM in element type T, X as one image row of M pixels: row
+// m at element m * K
+template <typename T>
+int run16(const void* x, const float* scale, const float* shift, const void* w,
+          const void* res, void* y, int64_t M, int64_t K, int64_t N, cudaStream_t s) {
+  fused_gemm::GemmArgs<T> a{(const T*)x, scale, shift, (const T*)w, (const T*)res,
+                            (T*)y, M, M, M, 0, 0, K, 1, (int)K, (int)N,
+                            K % 8 == 0 && tc::aligned16(w),
+                            N % 8 == 0 && tc::aligned16(y) && (!res || tc::aligned16(res)), 0};
+  const bool vec_x = K % 8 == 0 && tc::aligned16(x) && tc::aligned16(scale) &&
+                     tc::aligned16(shift);
+  return fused_gemm::run<T, false>(a, vec_x, s);
+}
+
+}  // namespace
+
 extern "C" {
 
 // x (M, K), scale and shift (K,) f32, w (N, K), res (M, N) or NULL, y
 // (M, N): contiguous, x, w, res and y of one type (dtype 0 = float32,
-// 1 = bfloat16; any other code returns cudaErrorInvalidValue), y
-// overlapping none of the others.  Returns the CUDA
+// 1 = bfloat16, 2 = float16; any other code returns
+// cudaErrorInvalidValue), y overlapping none of the others.  Returns the CUDA
 // error of the launch (0 when M or N is 0: nothing to compute).
 int mx_fused_scale_relu_matmul(const void* x, const float* scale,
                                const float* shift, const void* w,
@@ -49,21 +69,15 @@ int mx_fused_scale_relu_matmul(const void* x, const float* scale,
   if (err != cudaSuccess) return (int)err;
   if (M <= 0 || N <= 0) return 0;
   if (K < 0 || K > INT_MAX || N > INT_MAX) return (int)cudaErrorInvalidValue;
-  // codes 0 and 1 only: float16 (2) has no form of this kernel yet
-  // (ROADMAP A.1), and an unknown code never runs another type's kernel
-  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  // X as one image row of M pixels: row m at element m * K
-  if (dtype == 1) {
-    using fused_gemm::bf16;
-    fused_gemm::Args a{(const bf16*)x, scale, shift, (const bf16*)w, (const bf16*)res,
-                       (bf16*)y, M, M, M, 0, 0, K, 1, (int)K, (int)N,
-                       K % 8 == 0 && tc::aligned16(w),
-                       N % 8 == 0 && tc::aligned16(y) && (!res || tc::aligned16(res)), 0};
-    const bool vec_x = K % 8 == 0 && tc::aligned16(x) && tc::aligned16(scale) &&
-                       tc::aligned16(shift);
-    return fused_gemm::run<false>(a, vec_x, s);
+  // one case per code: an unknown code never runs another type's kernel
+  switch (dtype) {
+    case 0: break;
+    case 1: return run16<fused_gemm::bf16>(x, scale, shift, w, res, y, M, K, N, s);
+    case 2: return run16<fused_gemm::f16>(x, scale, shift, w, res, y, M, K, N, s);
+    default: return (int)cudaErrorInvalidValue;
   }
+  // X as one image row of M pixels: row m at element m * K
   fused_gemm::f32::Args a{(const float*)x, scale, shift, (const float*)w, (const float*)res,
                           (float*)y, M, M, M, 0, 0, K, 1, (int)K, (int)N,
                           K % 4 == 0 && tc::aligned16(w),
@@ -73,8 +87,8 @@ int mx_fused_scale_relu_matmul(const void* x, const float* scale,
   return fused_gemm::f32::run<false>(a, vec_x, s);
 }
 
-// dynamic shared memory of the bf16 and f32 kernels' tiles with bn
-// columns, bytes
+// dynamic shared memory of the 16-bit (bf16 and f16 alike) and f32
+// kernels' tiles with bn columns, bytes
 int mx_fused_gemm_bf16_smem(int bn) { return fused_gemm::smem_bytes<false>(bn); }
 int mx_fused_gemm_f32_smem(int bn) { return fused_gemm::f32::smem_bytes<false>(bn); }
 

@@ -1,6 +1,6 @@
 // Tensor-core building blocks for Hopper (sm_90a), shared by the bf16 and
-// f16 kernels of flash_attention.cu and attention_bf16.cuh, the bf16 GEMM
-// of fused_gemm_bf16.cuh and the f32 kernels of attention_f32.cuh,
+// f16 kernels of flash_attention.cu and attention_bf16.cuh, the bf16 and
+// f16 GEMM of fused_gemm_bf16.cuh and the f32 kernels of attention_f32.cuh,
 // paged_attention.cu and fused_gemm_f32.cuh: cp.async copies into shared
 // memory, ldmatrix fragment loads, the mma.sync m16n8k16 product with bf16
 // or f16 operands and f32 sums (T16, the 16-bit element type's traits), the
@@ -135,7 +135,8 @@ __device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
 
 // The 16-bit element types of the m16n8k16 products, bf16 and f16: the
 // product, two f32 packed into one operand register (rounded to nearest
-// even), that register's two values back as f32, one value rounded.
+// even), that register's two values back as f32, one value rounded, one
+// value widened to f32 (exact).
 // ldmatrix and cp.async move 16-bit values of either type alike.
 template <typename T> struct T16;
 template <> struct T16<bf16> {
@@ -148,6 +149,7 @@ template <> struct T16<bf16> {
     return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
   }
   __device__ __forceinline__ static bf16 round(float x) { return __float2bfloat16_rn(x); }
+  __device__ __forceinline__ static float widen(bf16 x) { return __bfloat162float(x); }
 };
 template <> struct T16<f16> {
   __device__ __forceinline__ static void mma(float c[4], const uint32_t a[4], uint32_t b0,
@@ -159,6 +161,7 @@ template <> struct T16<f16> {
     return __half22float2(*reinterpret_cast<const __half2*>(&u));
   }
   __device__ __forceinline__ static f16 round(float x) { return __float2half_rn(x); }
+  __device__ __forceinline__ static float widen(f16 x) { return __half2float(x); }
 };
 
 // Split TF32 ("3xTF32").  One TF32 product keeps 10 mantissa bits of each

@@ -19,10 +19,11 @@ symbol infers for it (``Symbol.infer_shape_type``: float32 unless
 ``type_dict`` or the same-type rule says otherwise, so bf16 data makes
 the weights it meets bf16), and each gradient in its argument's type.
 float16 binds, for inference and with gradients, over the ops whose
-float16 forms are ported (``FLOAT16_OPS``: the serving symbols' and the
-transformer's training graph's); a float16 graph with another op
-(BatchNorm, a convolution, the fused BN-ReLU-Conv op) raises, naming
-ROADMAP A.1's float16 for rows 7 and 10.
+float16 forms are held against the JAX package (``FLOAT16_OPS``: the
+serving symbols', the transformer's training graph's and ResNet's in
+both layouts, fused or not); a float16 graph with another op raises
+before anything is allocated, naming ROADMAP A.6 (hybridized Gluon
+blocks take the same check, ``check_float16_graph``).
 Auxiliary states (BatchNorm's moving statistics) live in ``aux_dict``,
 zeros at bind, and take no gradient.  Ops that declare ``is_train``
 are handed the forward's flag; after a train forward, each output an op
@@ -68,23 +69,25 @@ from __future__ import annotations
 import numpy as _np
 import torch
 
-from .base import FLOAT16_TRAINING, MXNetError, numpy_to_tensor
+from .base import FLOAT16_OPS_LATER, MXNetError, numpy_to_tensor
 from .context import current_context
 from .cuda_graph import WARMUP, GraphPool, Program, Staging
 from .ndarray.ndarray import NDArray
 
-__all__ = ["Executor", "GraphPlan", "run_graph"]
+__all__ = ["Executor", "GraphPlan", "run_graph", "check_float16_graph"]
 
 _GRAD_REQS = ("write", "add", "null")
-# the ops a float16 graph may hold: those of the five serving symbols
-# and of the transformer's training graph (models/transformer.py), with
-# the loss head and the MLP's activation, whose float16 forward and
-# backward are held against the JAX package; any other op in float16 (a
-# convolution, BatchNorm, the fused BN-ReLU-Conv op of rows 7 and 10)
-# waits for ROADMAP A.1's float16 for rows 7 and 10
+# the ops a float16 graph may hold, each with its float16 forward and
+# backward held against the JAX package: those of the five serving
+# symbols and of the transformer's training graph (models/transformer.py,
+# with the loss head and the MLP's activation), and those of ResNet's
+# (models/resnet.py in NCHW and NHWC, with symbol/fuse.py's fused op, the
+# f16 forms of rows 7 and 10; also the model zoo's ResNets); the float16
+# forms of the other ops wait for ROADMAP A.6
 FLOAT16_OPS = frozenset((
-    "Activation", "Cast", "Concat", "Embedding", "FullyConnected",
-    "LayerNorm", "LeakyReLU", "Reshape", "SoftmaxOutput",
+    "Activation", "BatchNorm", "Cast", "Concat", "Convolution", "Embedding",
+    "Flatten", "FullyConnected", "LayerNorm", "LeakyReLU", "Pooling",
+    "Reshape", "SoftmaxOutput", "_FusedBNReluConv",
     "_contrib_FusedCausalSelfAttention", "_contrib_GatherTimestep",
     "_contrib_PagedChunkPrefillAttention", "_contrib_PagedDecodeAttention",
     "_contrib_PagedPrefillAttention", "_minus_scalar", "_plus_scalar",
@@ -92,17 +95,19 @@ FLOAT16_OPS = frozenset((
     "broadcast_sub", "slice_axis", "take"))
 
 
-def _check_float16_bind(symbol, arg_types, aux_types):
-    """A float16 graph binds over FLOAT16_OPS only: raises, naming
-    ROADMAP A.1's float16 for rows 7 and 10, for one with any other op
-    (before anything is allocated)."""
-    if torch.float16 not in arg_types and torch.float16 not in aux_types:
+def check_float16_graph(nodes, types, where):
+    """A float16 graph runs over FLOAT16_OPS only: when ``types`` (its
+    variables' types) hold float16, raises for any node of ``nodes``
+    with another op, naming them and ROADMAP A.6, before anything is
+    allocated or run.  ``simple_bind`` and hybridized Gluon blocks
+    (``gluon/block.py``) call it."""
+    if torch.float16 not in types:
         return
-    other = sorted({n.op.name for n in symbol._topo()
+    other = sorted({n.op.name for n in nodes
                     if not n.is_var and n.op.name not in FLOAT16_OPS})
     if other:
-        raise MXNetError("simple_bind: a float16 graph with %s; %s"
-                         % (", ".join(other), FLOAT16_TRAINING))
+        raise MXNetError("%s: a float16 graph with %s; %s"
+                         % (where, ", ".join(other), FLOAT16_OPS_LATER))
 
 
 def _normalize_grad_req(grad_req, arg_names):
@@ -179,7 +184,8 @@ class Executor:
         self._grad_req = _normalize_grad_req(grad_req, self._arg_names)
         arg_shapes, arg_types, aux_shapes, aux_types = \
             symbol.infer_shape_type(shapes, type_dict)
-        _check_float16_bind(symbol, arg_types, aux_types)
+        check_float16_graph(symbol._topo(), list(arg_types) + list(aux_types),
+                            "simple_bind")
         self._aux_names = symbol.list_auxiliary_states()
 
         arg_pool = shared_exec.arg_dict if shared_exec is not None else {}

@@ -14,7 +14,10 @@ same way) into one graph, and every call runs that graph through the
 executor's walk (``executor.run_graph``: each intermediate dropped
 after its last reader) with the parameters' tensors as the leaves,
 under ``torch.set_grad_enabled(autograd.is_recording())``, so autograd
-records it as it records the eager path.  PyTorch has no compiler to
+records it as it records the eager path.  A graph run with a float16
+input or parameter takes ``simple_bind``'s check
+(``executor.check_float16_graph``): an op outside
+``executor.FLOAT16_OPS`` raises before the walk.  PyTorch has no compiler to
 hand the graph to: the gain over the eager path is one walk instead of
 one Python dispatch per op and per block.  In a train-mode call
 (``autograd.is_training()``) BatchNorm's new moving statistics are
@@ -37,7 +40,7 @@ import torch
 
 from .. import autograd
 from ..base import MXNetError, NameManager, current_name_manager
-from ..executor import GraphPlan, run_graph
+from ..executor import GraphPlan, check_float16_graph, run_graph
 from ..ndarray.ndarray import NDArray
 from .parameter import DeferredInitializationError, Parameter, ParameterDict
 
@@ -250,12 +253,16 @@ class Block:
 
 class _CachedGraph:
     """One traced graph of a hybridized block: the walk's plan, the
-    input variables' names and the parameters it reads."""
+    input variables' names, the parameters it reads and the block's name
+    (errors name it); ``f16_checked`` once a float16 run has passed
+    ``executor.check_float16_graph``."""
 
-    def __init__(self, plan, input_names, params):
+    def __init__(self, plan, input_names, params, name):
         self.plan = plan
         self.input_names = input_names
         self.params = params
+        self.name = name
+        self.f16_checked = False
 
 
 class HybridBlock(Block):
@@ -331,7 +338,7 @@ class HybridBlock(Block):
             raise MXNetError("%s: hybrid_forward created variable(s) %s "
                              "that are neither inputs nor parameters"
                              % (self.name, sorted(stray)))
-        return _CachedGraph(plan, names, params)
+        return _CachedGraph(plan, names, params, self.name)
 
     def _call_cached(self, *args):
         for a in args:
@@ -375,6 +382,11 @@ def _run_cached(cached, args):
     is_train = autograd.is_training()
     values = {n: p._data._data for n, p in cached.params.items()}
     values.update(zip(cached.input_names, (a._data for a in args)))
+    if not cached.f16_checked and any(t.dtype == torch.float16
+                                      for t in values.values()):
+        check_float16_graph(cached.plan.nodes, (torch.float16,),
+                            "hybridized %s" % cached.name)
+        cached.f16_checked = True
     with torch.set_grad_enabled(autograd.is_recording()):
         heads, new_aux = run_graph(cached.plan, values, is_train)
     with torch.no_grad():
@@ -457,5 +469,5 @@ class SymbolBlock(HybridBlock):
                     p._finish_deferred_init()
         if self._graph is None:
             self._graph = _CachedGraph(GraphPlan(self._symbol),
-                                       self._input_names, params)
+                                       self._input_names, params, self.name)
         return _run_cached(self._graph, args)

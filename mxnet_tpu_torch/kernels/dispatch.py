@@ -15,11 +15,10 @@ kernel has several element types also counts each launch under
 ``LAUNCHES_BY_DTYPE["name:dtype"]`` (``"flash_attention_fwd:bfloat16"``,
 ``"paged_decode_attend:float16"``).
 
-float16 has kernels on the transformer's serving and training paths
-(``F16_KERNELS``: rows 1, 2, 3, 4, 5 and row 8's three);
-:func:`check_tensor` refuses a float16 tensor bound for any other kernel before a pointer
-reaches it: rows 7 and 10 naming ROADMAP A.1's float16 for rows 7 and
-10, row 6 (the 2-bit quantizer) as f32 by design.
+float16 has kernels wherever the reference gives one (``F16_KERNELS``:
+rows 1, 2, 3, 4, 5, 7 and 10 and row 8's three); :func:`check_tensor`
+refuses a float16 tensor bound for row 6, the 2-bit quantizer, which is
+f32 by design, before a pointer reaches it.
 Inside :func:`record_launches` the launches made on a stream being
 captured are also counted into dicts of their own: what a CUDA graph
 records, from any thread (autograd runs a captured backward on a thread
@@ -45,15 +44,14 @@ KERNELS = ("paged_decode_attend", "paged_chunk_prefill_attend",
            "flash_attention_bwd_dq", "two_bit_quantize_fused",
            "fused_scale_relu_matmul", "fused_band4d")
 # the kernels with a float16 form: the serving path's (rows 1, 2, 3, 5
-# and row 8's forward, the draft model's) and the transformer's training
-# path's (row 4 and row 8's backward)
+# and row 8's forward, the draft model's), the transformer's training
+# path's (row 4 and row 8's backward) and ResNet's (rows 7 and 10)
 F16_KERNELS = frozenset(("paged_decode_attend", "paged_chunk_prefill_attend",
                          "paged_prefill_attend", "layernorm_fused",
                          "layernorm_fused_bwd", "flash_attention_fwd",
-                         "flash_attention_bwd_dkv", "flash_attention_bwd_dq"))
+                         "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
+                         "fused_scale_relu_matmul", "fused_band4d"))
 # why a kernel outside F16_KERNELS refuses float16
-F16_LATER = ("the kernel has no float16 form yet (ROADMAP A.1, float16 "
-             "for rows 7 and 10)")
 F16_REFUSALS = {
     "two_bit_quantize_fused": "the kernel is f32 by design: 2-bit compression quantizes "
     "the f32 master-gradient view, which the kvstore makes of 16-bit "
@@ -134,12 +132,10 @@ def reset_counts():
 
 def refuse_f16(kernel, name, t):
     """Raises for a float16 tensor ``t`` bound for a kernel outside
-    ``F16_KERNELS``, naming the reason (``F16_REFUSALS``, else
-    ``F16_LATER``)."""
+    ``F16_KERNELS``, naming the reason (``F16_REFUSALS``)."""
     if t.dtype == torch.float16 and kernel not in F16_KERNELS:
         raise MXNetError("%s: %s is float16; %s"
-                         % (kernel, name, F16_REFUSALS.get(kernel,
-                                                           F16_LATER)))
+                         % (kernel, name, F16_REFUSALS[kernel]))
 
 
 def check_tensor(kernel, name, t, *, dtypes, ndim=None, shape=None):

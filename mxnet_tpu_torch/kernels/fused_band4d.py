@@ -8,11 +8,13 @@ Pallas kernel ``_kern4d``, the 4-D form of ``mxnet_tpu/ops/fused.py``
 in the source): a GEMM over the (b, h, w) rows of ``x``, read through
 ``x``'s own strides, whose prologue applies the per-channel affine and
 the ReLU in shared memory, on the tensor cores (``mma.sync``): in bf16
-the GEMM of ``csrc/fused_gemm_bf16.cuh``, in f32 the split-TF32 GEMM of
+and f16 the two instances of the 16-bit GEMM of
+``csrc/fused_gemm_bf16.cuh``, in f32 the split-TF32 GEMM of
 ``csrc/fused_gemm_f32.cuh``, each the one row 7's kernel runs, so rows 7
 and 10 give the same bits on the same operands.  ``x``
-(B, H, W, K) and ``w`` (K, N) share one type, f32 or bf16; ``scale``
-and ``shift`` are f32 (K,); the output is a contiguous (B, H, W, N) in
+(B, H, W, K) and ``w`` (K, N) share one type, f32, bf16 or f16 (a mixed
+pair raises before any pointer reaches the kernel); ``scale`` and
+``shift`` are f32 (K,); the output is a contiguous (B, H, W, N) in
 ``x``'s type.  The activation is computed in f32 and rounded to
 ``w``'s type before the product, the product accumulates in f32 and
 the output is rounded once, the TPU kernel's rounding points.
@@ -32,7 +34,7 @@ import torch
 from ..base import MXNetError
 from . import _build
 from .dispatch import (DTYPE_CODE, FLOAT_TYPES, check_tensor, count_launch,
-                       count_plain, on_cpu, refuse_f16)
+                       count_plain, on_cpu)
 
 __all__ = ["fused_band4d", "fused_band4d_plain"]
 
@@ -60,7 +62,6 @@ def fused_band4d_plain(x, scale, shift, w):
 
 
 def _check(x, scale, shift, w):
-    refuse_f16(_KERNEL, "x", x)
     if x.dtype not in FLOAT_TYPES:
         raise MXNetError("%s: x has dtype %s; the kernel takes %s"
                          % (_KERNEL, x.dtype,
@@ -79,7 +80,7 @@ def _check(x, scale, shift, w):
 
 def fused_band4d(x, scale, shift, w):
     """The band in one launch: the value of :func:`fused_band4d_plain`
-    up to the order of the sums over K.  Takes f32 or bf16 ``x`` (any
+    up to the order of the sums over K.  Takes f32, bf16 or f16 ``x`` (any
     strides) and contiguous ``w`` of the same type, f32 ``scale`` and
     ``shift``, any B, H, W, K and N; CPU tensors take the plain
     version, CUDA tensors launch the kernel or raise."""

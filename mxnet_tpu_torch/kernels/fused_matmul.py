@@ -6,17 +6,21 @@ kernel of ``fused_scale_relu_matmul``).  The kernel is
 ``csrc/fused_matmul.cu`` (design notes in the sources): a GEMM whose
 prologue applies the per-channel affine and the ReLU to each tile of
 ``x`` in shared memory, so the activation never exists in device
-memory, and whose epilogue adds the residual; both types on the tensor
-cores with ``mma.sync``: bf16 through the GEMM of
-``csrc/fused_gemm_bf16.cuh`` that row 10's ``fused_band4d`` shares, f32
-through ``csrc/fused_gemm_f32.cuh`` in split TF32 (three TF32 products
-on the hi and lo halves of each operand, summed in f32: within
-rtol 1e-4 / atol 1e-5 of the plain f32 version, where one TF32 product
-is not).  ``x``, ``w``, ``res`` and the output share one type, f32 or
-bf16; ``scale`` and ``shift`` are f32.  In bf16 the kernel follows the
-TPU kernel's rounding points: the activation is computed in f32 and
-rounded to bf16 before the product, the product and the residual add
-run in f32, and the output is rounded once.
+memory, and whose epilogue adds the residual; every type on the tensor
+cores with ``mma.sync``: bf16 and f16 through the two instances of the
+16-bit GEMM of ``csrc/fused_gemm_bf16.cuh`` (a template over the element
+type) that row 10's ``fused_band4d`` shares, f32 through
+``csrc/fused_gemm_f32.cuh`` in split TF32 (three TF32 products on the
+hi and lo halves of each operand, summed in f32: within rtol 1e-4 /
+atol 1e-5 of the plain f32 version, where one TF32 product is not).
+``x``, ``w``, ``res`` and the output share one type, f32, bf16 or f16
+(a mixed pair, f16 ``x`` with bf16 ``w``, raises before any pointer
+reaches the kernel); ``scale`` and ``shift`` are f32.  In 16 bits the
+kernel follows the TPU kernel's rounding points: the activation is
+computed in f32 and rounded to the 16-bit type before the product, the
+product and the residual add run in f32, and the output is rounded
+once (in f16 a value past 65504 becomes inf there, as in the plain
+version).
 ``w`` is ``(N, K)``: the OHWI convolution weight viewed as it is stored,
 with no transpose.  ``fused_scale_relu_matmul_plain`` is the same
 function in plain PyTorch (the JAX package's ``_jnp_fwd``, with the
@@ -69,7 +73,7 @@ def fused_scale_relu_matmul_plain(x, scale, shift, w, res=None):
 def fused_scale_relu_matmul_fwd(x, scale, shift, w, res=None):
     """The fused forward in one launch: the value of
     :func:`fused_scale_relu_matmul_plain` up to the order of the sums
-    over K.  Takes contiguous f32 or bf16 ``x``/``w``/``res`` (one type)
+    over K.  Takes contiguous f32, bf16 or f16 ``x``/``w``/``res`` (one type)
     and f32 ``scale``/``shift``, any M, K and N; CPU tensors take the
     plain version, CUDA tensors launch the kernel or raise."""
     if on_cpu(_KERNEL, x, scale, shift, w, res):

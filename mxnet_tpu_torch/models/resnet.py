@@ -4,11 +4,10 @@ Counterpart of ``mxnet_tpu/models/resnet.py`` (reference
 example/image-classification/symbols/resnet.py, v2 "Identity Mappings
 in Deep Residual Networks", and resnet-v1.py), with the same names and
 shapes, so one numpy weight set binds in both packages.
-``dtype='bfloat16'`` casts the data to bf16 before the first BatchNorm
-and the logits back to f32 before the softmax, as the JAX package's
-does, so the weights infer bf16 and BatchNorm keeps its statistics in
-f32; ``'float16'`` raises (ResNet's float16 training, with float16
-forms of rows 7 and 10, is ROADMAP A.1's next part).
+``dtype='bfloat16'`` or ``'float16'`` casts the data to that type
+before the first BatchNorm and the logits back to f32 before the
+softmax, as the JAX package's does, so the weights infer the 16-bit
+type and BatchNorm computes its statistics in f32.
 ``layout='NHWC'`` builds the whole trunk channel-last (data, OHWI
 weights, pooling, BatchNorm axis 3), with no relayout copy in the step
 (``ops/nn.py``); ``image_shape`` stays channels-first and the data
@@ -21,7 +20,7 @@ the bottleneck block.  CIFAR shapes (image height <= 28) use the
 from functools import partial
 
 from .. import symbol as sym
-from ..base import FLOAT16_TRAINING, MXNetError
+from ..base import MXNetError
 
 BN_MOM = 0.9
 EPS = 2e-5
@@ -119,7 +118,7 @@ def resnet(units, num_stages, filter_list, num_classes, image_shape,
     bn = partial(_bn, layout=layout)
     (_nchannel, height, _width) = image_shape
     data = sym.Variable(name="data")
-    if dtype == "bfloat16":
+    if dtype in ("float16", "bfloat16"):
         data = sym.Cast(data=data, dtype=dtype, name="cast_data")
     data = bn(data, "bn_data", fix_gamma=True)
     if height <= 32:  # cifar
@@ -152,7 +151,7 @@ def resnet(units, num_stages, filter_list, num_classes, image_shape,
                         pool_type="avg", name="pool1", layout=layout)
     flat = sym.Flatten(data=pool1)
     fc1 = sym.FullyConnected(data=flat, num_hidden=num_classes, name="fc1")
-    if dtype == "bfloat16":
+    if dtype in ("float16", "bfloat16"):
         fc1 = sym.Cast(data=fc1, dtype="float32", name="cast_out")
     return sym.SoftmaxOutput(data=fc1, name="softmax")
 
@@ -163,11 +162,9 @@ def get_symbol(num_classes=1000, num_layers=50, image_shape=(3, 224, 224),
     """``image_shape`` is channels-first (C, H, W), as the reference CLI
     gives it (a tuple or a "3,224,224" string); with ``layout='NHWC'``
     the bound data variable is fed (N, H, W, C) batches."""
-    if dtype == "float16":
-        raise MXNetError("resnet: %s" % FLOAT16_TRAINING)
-    if dtype not in ("float32", "bfloat16"):
-        raise MXNetError("resnet dtype=%r: use 'float32' or 'bfloat16'"
-                         % (dtype,))
+    if dtype not in ("float32", "bfloat16", "float16"):
+        raise MXNetError("resnet dtype=%r: use 'float32', 'bfloat16' or "
+                         "'float16'" % (dtype,))
     if layout not in ("NCHW", "NHWC"):
         raise MXNetError("resnet layout=%r: use 'NCHW' or 'NHWC'"
                          % (layout,))

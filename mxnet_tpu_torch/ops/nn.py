@@ -15,6 +15,8 @@ a custom VJP (LayerNorm, flash attention, SoftmaxOutput, BatchNorm).
 """
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 import torch.nn.functional as F
 
@@ -123,9 +125,19 @@ def convolution(data, weight, bias=None, *, kernel, num_filter, stride=(),
     if nd not in _CONV or data.dim() != nd + 2:
         raise MXNetError("Convolution: a %d-D kernel over %d-D data is not "
                          "in the PyTorch port" % (nd, data.dim()))
-    return _CONV[nd](data, weight, None if no_bias else bias,
-                     stride=_tuple(stride, nd), padding=_tuple(pad or 0, nd),
-                     dilation=_tuple(dilate, nd), groups=int(num_group))
+    conv = partial(_CONV[nd], stride=_tuple(stride, nd),
+                   padding=_tuple(pad or 0, nd), dilation=_tuple(dilate, nd),
+                   groups=int(num_group))
+    bias = None if no_bias else bias
+    if data.dtype == torch.float16 and data.device.type == "cpu":
+        # cuDNN's f16 convolutions sum in f32 and round each result once,
+        # forward and backward; PyTorch's CPU f16 backward adds the
+        # overlapping windows' input gradients in f16 (and takes seconds
+        # at ResNet's sizes), so the CPU computes the same f32 sums
+        # through casts that autograd follows back, rounding once
+        up = [None if t is None else t.float() for t in (data, weight, bias)]
+        return conv(*up).to(torch.float16)
+    return conv(data, weight, bias)
 
 
 # ----------------------------------------------------------------------

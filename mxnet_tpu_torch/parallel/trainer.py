@@ -20,8 +20,9 @@ updates every step.
 is cast to bf16 or f16 has weights and gradients of that type and, as
 the JAX package infers them, BatchNorm statistics), and
 ``dtype='bfloat16'`` or ``'float16'`` makes the data inputs that type
-as well; a float16 graph with an op that has no float16 form raises at
-the bind, before anything is allocated (``executor.FLOAT16_OPS``).
+as well.  A float16 graph binds over ``executor.FLOAT16_OPS`` (the
+transformer's and ResNet's ops, the fused BN-ReLU-Conv op included);
+one with another op raises at the bind, before anything is allocated.
 Each batch is cast to its input's type as it is copied in.  SGD with
 ``multi_precision`` keeps an f32 master copy of every low-precision
 weight in its state (``(mom, weight32)`` or ``(weight32,)``) and

@@ -41,12 +41,12 @@ packages.  What is held, and at which bound:
   scores too).  In both packages the bf16 weight is the master rounded
   to bf16;
 * bf16 parameters carried between the packages bit for bit;
-* float16 ResNet training raises (ROADMAP A.1, float16 for rows 7 and
-  10), while the float16 transformer symbol builds and an f16 weight
-  under ``multi_precision`` takes an f32 master (float16 training:
-  tests/test_torch_fit_f16.py); a bf16 parameter under
-  ``multi_precision`` in ``Module``'s updater trains through its
-  master.
+* the float16 ResNet and transformer symbols build, ``TrainStep`` and
+  ``simple_bind`` take an f16 ResNet graph, and an f16 weight under
+  ``multi_precision`` takes an f32 master (float16 training:
+  tests/test_torch_fit_f16.py, tests/test_torch_resnet_f16.py); a bf16
+  parameter under ``multi_precision`` in ``Module``'s updater trains
+  through its master.
 """
 import numpy as np
 import pytest
@@ -433,19 +433,21 @@ def test_bf16_weights_carry_bit_exact():
 
 
 def test_float16_and_module_bf16_multi_precision_raise():
-    # float16 trains the transformer (tests/test_torch_fit_f16.py); ResNet
-    # and its ops wait for float16 forms of rows 7 and 10
+    # float16 trains the transformer (tests/test_torch_fit_f16.py) and,
+    # with the float16 forms of rows 7 and 10, ResNet
+    # (tests/test_torch_resnet_f16.py): its symbol, TrainStep on it and
+    # an f16 bind of its graph now build
     assert "cast_embed" in transformer.get_symbol(
         **dict(LM, dtype="float16")).tojson()
-    with pytest.raises(mx.MXNetError, match="float16 is not in the PyTorch"):
-        resnet.get_symbol(**dict(RESNET18, dtype="float16"))
+    assert "cast_data" in resnet.get_symbol(
+        **dict(RESNET18, dtype="float16")).tojson()
     sym = resnet.get_symbol(**dict(RESNET18, dtype="float32"))
-    with pytest.raises(mx.MXNetError, match="float16 is not in the PyTorch"):
-        TrainStep(sym, mx.optimizer.SGD(), dtype="float16", ctx=mx.cpu(),
-                  data_shapes={"data": (1, 3, 32, 32)})
-    with pytest.raises(mx.MXNetError, match="float16 is not in the PyTorch"):
-        sym.simple_bind(ctx=mx.cpu(), type_dict={"data": "float16"},
-                        data=(1, 3, 32, 32), softmax_label=(1,))
+    ts = TrainStep(sym, mx.optimizer.SGD(), dtype="float16", ctx=mx.cpu(),
+                   data_shapes={"data": (1, 3, 32, 32)})
+    assert ts._exe.arg_dict["data"]._data.dtype == torch.float16
+    exe = sym.simple_bind(ctx=mx.cpu(), type_dict={"data": "float16"},
+                          data=(1, 3, 32, 32), softmax_label=(1,))
+    assert exe.arg_dict["conv0_weight"]._data.dtype == torch.float16
     w = mx.nd.array(np.ones(4, np.float32), ctx=mx.cpu()).astype("float16")
     mom, w32 = mx.optimizer.SGD(
         momentum=0.9, multi_precision=True).create_state_multi_precision(0, w)

@@ -9,7 +9,11 @@ Pallas kernel on the CPU, at shapes that pick each of its row-band
 heights (th = 16, 8 and 1).  Tolerances: f32 rtol 2e-5 / atol 1e-6
 (the sums over K run in another order); bf16 within one bf16 ulp of
 the larger of the two values (the f32 sums differ in their last bits,
-and one rounding to bf16 may then land on the neighbouring value).
+and one rounding to bf16 may then land on the neighbouring value); f16
+within one f16 ulp at the output array's scale (its largest magnitude):
+a few of the interpreted reference's small f16 outputs land 2 f16 ulps
+of their own value from the exact sum, where the port's plain version
+lands within one.
 """
 import importlib.util
 import os
@@ -59,6 +63,13 @@ def _bf16_ulp(v):
     return np.exp2(np.floor(np.log2(m)) - 7)
 
 
+def _f16_ulp(v):
+    """One f16 ulp at |v| (11 significant bits; 2^-24 among the
+    subnormals)."""
+    m = np.maximum(np.abs(v), np.float32(2.0 ** -14))
+    return np.exp2(np.floor(np.log2(m)) - 10)
+
+
 def _th(h, w):
     for cand in (16, 8, 4, 2):
         if h % cand == 0 and cand * w >= 128:
@@ -66,7 +77,7 @@ def _th(h, w):
     return 1
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("shape,K,N,th", [((1, 16, 8), 24, 40, 16),
                                           ((2, 8, 16), 32, 16, 8),
                                           ((2, 28, 28), 16, 36, 1),
@@ -74,7 +85,7 @@ def _th(h, w):
 def test_plain_matches_pal4d_band(fsb, shape, K, N, th, dtype):
     assert _th(shape[1], shape[2]) == th
     x, s, t, w = _band_inputs(shape, K, N, seed=K * N)
-    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    jdt = getattr(jnp, dtype)
     ref = fsb.pal4d_band(jnp.asarray(x).astype(jdt), jnp.asarray(s),
                          jnp.asarray(t), jnp.asarray(w).astype(jdt))
     ref = np.asarray(ref.astype(jnp.float32))
@@ -88,7 +99,8 @@ def test_plain_matches_pal4d_band(fsb, shape, K, N, th, dtype):
     if dtype == "float32":
         np.testing.assert_allclose(got, ref, rtol=2e-5, atol=1e-6)
     else:
-        ulp = _bf16_ulp(np.maximum(np.abs(got), np.abs(ref)))
+        ulp = _bf16_ulp(np.maximum(np.abs(got), np.abs(ref))) \
+            if dtype == "bfloat16" else _f16_ulp(np.abs(ref).max())
         assert (np.abs(got - ref) <= ulp).all()
         assert (got == ref).mean() > 0.99
 

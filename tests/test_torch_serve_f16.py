@@ -7,9 +7,11 @@ draft model), preemption, the prefill/decode-step pair, the weight swap
 and copy-on-write, at tests/test_decode.py's tiny config.  Both packages
 get the same numpy weights; the JAX side runs its Pallas kernels in
 interpret mode, the port's wrappers take their plain versions on CPU
-tensors.  float16 ResNet training still raises (ROADMAP A.1, float16
-for rows 7 and 10), as do the kernels with no float16 form; the
-transformer's float16 training is tests/test_torch_fit_f16.py's.
+tensors.  The float16 ResNet training calls that raised until ROADMAP
+A.1's float16 for rows 7 and 10 now run (held against the JAX package
+in tests/test_torch_resnet_f16.py), and row 6, f32 by design, refuses
+float16; the transformer's float16 training is
+tests/test_torch_fit_f16.py's.
 
 Bounds:
 - greedy streams equal;
@@ -477,38 +479,65 @@ def test_block_ids_and_chunk_starts_above_2048_are_exact(np_params):
 
 
 # ----------------------------------------------------------------------
-# float16 ResNet training and the forms with no f16 kernel still raise
+# float16 ResNet training runs; row 6 stays f32
 # ----------------------------------------------------------------------
+_RESNET18 = dict(num_classes=10, num_layers=18, image_shape=(3, 32, 32))
+
+
+def _resnet_get_symbol():
+    sym = resnet.get_symbol(dtype="float16", **_RESNET18)
+    _, at, _, xt = sym.infer_shape_type({"data": (1, 3, 32, 32),
+                                        "softmax_label": (1,)})
+    assert "cast_data" in sym.tojson() and F16 in at and F16 in xt
+
+
+def _trainstep():
+    ts = TrainStep(resnet.get_symbol(**_RESNET18),
+                   mx.optimizer.SGD(multi_precision=True), dtype="float16",
+                   ctx=mx.cpu(), data_shapes={"data": (2, 3, 32, 32)},
+                   label_shapes={"softmax_label": (2,)})
+    ts.init_params(mx.init.Xavier())
+    x = np.random.RandomState(0).rand(2, 3, 32, 32).astype(np.float32)
+    out = ts.step({"data": x, "softmax_label": np.array([1.0, 3.0],
+                                                        np.float32)})[0]
+    assert ts.params["conv0_weight"].dtype == F16
+    assert np.isfinite(out.float().numpy()).all()
+
+
 def _f32_resnet_bound_f16():
-    sym = resnet.get_symbol(num_classes=10, num_layers=18,
-                            image_shape=(3, 32, 32))
-    return sym.simple_bind(ctx=mx.cpu(), type_dict={"data": "float16"},
-                           data=(1, 3, 32, 32), softmax_label=(1,))
+    sym = resnet.get_symbol(**_RESNET18)
+    exe = sym.simple_bind(ctx=mx.cpu(), grad_req="write",
+                          type_dict={"data": "float16"},
+                          data=(2, 3, 32, 32), softmax_label=(2,))
+    assert exe.arg_dict["conv0_weight"]._data.dtype == F16
+    assert exe.grad_dict["conv0_weight"]._data.dtype == F16
+    exe.arg_dict["conv0_weight"][:] = mx.nd.array(
+        np.full((64, 3, 3, 3), 0.1, np.float32), ctx=mx.cpu())
+    exe.arg_dict["data"][:] = mx.nd.array(
+        np.random.RandomState(0).rand(2, 3, 32, 32), ctx=mx.cpu())
+    exe.forward(is_train=True)
+    exe.backward()
+    assert torch.isfinite(exe.grad_dict["conv0_weight"]._data).all()
 
 
 _TRAINING = {
-    "resnet_get_symbol": lambda: resnet.get_symbol(
-        num_classes=10, num_layers=18, image_shape=(3, 32, 32),
-        dtype="float16"),
-    "trainstep": lambda: TrainStep(
-        resnet.get_symbol(num_classes=10, num_layers=18,
-                          image_shape=(3, 32, 32)),
-        mx.optimizer.SGD(), dtype="float16", ctx=mx.cpu(),
-        data_shapes={"data": (1, 3, 32, 32)}),
+    "resnet_get_symbol": _resnet_get_symbol,
+    "trainstep": _trainstep,
     "simple_bind_training_graph": _f32_resnet_bound_f16,
 }
 
 
 @pytest.mark.parametrize("what", sorted(_TRAINING))
 def test_float16_training_raises(what):
-    """float16 ResNet training raises, naming ROADMAP A.1's float16 for
-    rows 7 and 10: its training symbol, TrainStep on it, and a bind of
-    an f16 graph with ops that have no f16 form (BatchNorm, Convolution,
-    the fused op).  The transformer's float16 training runs
-    (tests/test_torch_fit_f16.py)."""
-    with pytest.raises(mx.MXNetError, match="float16 is not in the PyTorch "
-                       "port yet .ROADMAP A.1, float16 for rows 7 and 10"):
-        _TRAINING[what]()
+    """The three float16 ResNet training calls that raised until ROADMAP
+    A.1's float16 for rows 7 and 10 now run on the CPU: the training
+    symbol builds and infers f16 weights and statistics, TrainStep on it
+    steps with f16 weights, and a bind of the f32 graph with f16 data
+    allocates f16 arguments and gradients and runs forward and backward
+    (its BatchNorm, Convolution and Pooling are in
+    ``executor.FLOAT16_OPS``).  Float16 ResNet training is held against
+    the JAX package in tests/test_torch_resnet_f16.py."""
+    _TRAINING[what]()
 
 
 def _on_card(monkeypatch, module):
@@ -522,14 +551,15 @@ def _t16(*shape):
     return torch.zeros(*shape, dtype=F16)
 
 
-# rows 7 and 10 have no f16 form yet; row 6 is f32 by design
+# rows 7 and 10 take f16 with f16 only; row 6 is f32 by design
 _NO_F16_FORM = {
     "fused_scale_relu_matmul": ("fused_matmul",
                                 lambda m: m.fused_scale_relu_matmul_fwd(
                                     _t16(4, 8), torch.ones(8),
-                                    torch.zeros(8), _t16(3, 8))),
+                                    torch.zeros(8), _t16(3, 8).bfloat16())),
     "fused_band4d": ("fused_band4d", lambda m: m.fused_band4d(
-        _t16(1, 2, 2, 8), torch.ones(8), torch.zeros(8), _t16(8, 3))),
+        _t16(1, 2, 2, 8), torch.ones(8), torch.zeros(8),
+        _t16(8, 3).bfloat16())),
     "two_bit_quantize_fused": ("quant", lambda m: m.two_bit_quantize_fused(
         _t16(16), _t16(16), threshold=0.5)),
 }
@@ -537,18 +567,30 @@ _NO_F16_FORM = {
 
 @pytest.mark.parametrize("kernel", sorted(_NO_F16_FORM))
 def test_kernels_without_f16_form_refuse_it(monkeypatch, kernel):
-    """A float16 tensor that reaches a kernel with no f16 form (rows 7
-    and 10, naming ROADMAP A.1's float16 for rows 7 and 10) or that is
-    f32 by design (row 6, the 2-bit quantizer, which reads the f32
-    master-gradient view) raises in the wrapper, before any pointer
-    reaches the kernel."""
+    """Row 6 (the 2-bit quantizer, which reads the f32 master-gradient
+    view) is f32 by design and refuses a float16 tensor in the wrapper,
+    before any pointer reaches the kernel, naming ROADMAP A.1.  Rows 7
+    and 10 have f16 forms since ROADMAP A.1's float16 for rows 7 and 10:
+    on the CPU they take f16 (their plain versions), and on the card
+    path they refuse f16 beside bf16, a mixed pair no kernel takes."""
     import importlib
     name, call = _NO_F16_FORM[kernel]
     mod = importlib.import_module("mxnet_tpu_torch.kernels." + name)
+    if kernel == "two_bit_quantize_fused":
+        _on_card(monkeypatch, mod)
+        with pytest.raises(mx.MXNetError, match=kernel + ".*float16.*f32 "
+                           "by design.*ROADMAP A.1"):
+            call(mod)
+        return
+    x, w = (_t16(4, 8), _t16(3, 8)) if kernel == "fused_scale_relu_matmul" \
+        else (_t16(1, 2, 2, 8), _t16(8, 3))
+    fn = mod.fused_scale_relu_matmul_fwd if kernel == \
+        "fused_scale_relu_matmul" else mod.fused_band4d
+    out = fn(x, torch.ones(8), torch.zeros(8), w)
+    assert out.dtype == F16 and not out.any()
     _on_card(monkeypatch, mod)
-    why = "f32 by design.*ROADMAP A.1" if kernel == "two_bit_quantize_fused" \
-        else "ROADMAP A.1, float16 for rows 7 and 10"
-    with pytest.raises(mx.MXNetError, match=kernel + ".*float16.*" + why):
+    with pytest.raises(mx.MXNetError, match=kernel + ": w has dtype "
+                       "torch.bfloat16; the kernel takes torch.float16"):
         call(mod)
 
 

@@ -239,8 +239,8 @@ def test_trainstep_init_and_contract(monkeypatch):
     """``init_params``: given arrays take precedence, the rest draw on
     the device from the seeded generator (reproducibly), a custom
     initializer fills on the host; ``get_params`` returns host copies;
-    no context on a host without a GPU, a mesh, float16 and a step
-    before ``init_params`` raise."""
+    no context on a host without a GPU, a mesh and a step before
+    ``init_params`` raise; ``dtype='float16'`` binds f16 weights."""
     sym, _ = _symbols(True)
     shapes = dict(data_shapes={"data": (B,) + IMAGE},
                   label_shapes={"softmax_label": (B,)})
@@ -279,10 +279,11 @@ def test_trainstep_init_and_contract(monkeypatch):
     with pytest.raises(mx.MXNetError, match="multi-GPU"):
         TrainStep(sym, mx.optimizer.SGD(), mesh=object(), ctx=mx.cpu(),
                   **shapes)
-    with pytest.raises(mx.MXNetError, match="float16 is not in the "
-                       "PyTorch port yet"):
-        TrainStep(sym, mx.optimizer.SGD(), dtype="float16", ctx=mx.cpu(),
-                  **shapes)
+    # float16 binds since ROADMAP A.1's float16 for rows 7 and 10 (held
+    # against the JAX package in tests/test_torch_resnet50_f16.py)
+    f16 = TrainStep(sym, mx.optimizer.SGD(), dtype="float16", ctx=mx.cpu(),
+                    **shapes)
+    assert f16.params[name].dtype == torch.float16
     with pytest.raises(mx.MXNetError, match="init_params"):
         TrainStep(sym, mx.optimizer.SGD(), ctx=mx.cpu(), **shapes).step(
             _batches(1)[0])

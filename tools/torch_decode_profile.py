@@ -20,6 +20,8 @@ one-shot prefill, or one training step goes on the GPU.
     python3 tools/torch_decode_profile.py --train --dtype float16
     python3 tools/torch_decode_profile.py --resnet --layout NHWC \
         [--fuse] --dtype bfloat16         # bf16 TrainStep steps
+    python3 tools/torch_decode_profile.py --resnet --layout NHWC \
+        [--fuse] --dtype float16          # f16 TrainStep steps
 
 Builds the PyTorch port's DecodeEngine at chip_smoke.py's full-width
 configuration (same seeded weights and geometry), then drives its bound
@@ -102,10 +104,10 @@ that ``dtype`` through ``parallel.TrainStep`` instead (chip_smoke.py's
 train_bf16 and train_f16 phases: batch 4 x 1024, SGD momentum with
 multi_precision); its line adds the multi-precision update's device
 time (``optimizer``, a range around each parameter's update) to the
-kernel groups.  With ``bfloat16`` ``--resnet --layout NHWC [--fuse]``
-runs bench.py's flagship, ResNet-50 NHWC bf16 at batch 256 (its
-train_resnet_bf16 phase); float16 takes no ResNet profile (ResNet's
-float16 training is ROADMAP A.1's next part).
+kernel groups.  With ``bfloat16`` or ``float16`` ``--resnet --layout
+NHWC [--fuse]`` runs bench.py's flagship, ResNet-50 NHWC in that type
+at batch 256 (chip_smoke.py's train_resnet_bf16 and train_resnet_f16
+phases); ``--resnet`` alone and ``--gluon`` profile f32 steps only.
 
 Needs one CUDA device; exits non-zero without one.
 """
@@ -488,8 +490,8 @@ def profile_trainstep(torch, cs, mx, layout, fuse, dtype="float32"):
                        "op:fused_backward")):
         fn.backward = staticmethod(_labelled(fn.backward, label))
 
-    bf16 = dtype == "bfloat16"
-    cfg, train = cs.RESNET, cs.RESNET_BF16 if bf16 else cs.NHWC_TRAIN
+    low = dtype in ("bfloat16", "float16")
+    cfg, train = cs.RESNET, cs.RESNET_BF16 if low else cs.NHWC_TRAIN
     B = train["batch"]
     sym = resnet.get_symbol(layout=layout, dtype=dtype, **cfg)
     np_args, np_aux = cs.seeded_resnet_params(resnet.get_symbol(**cfg), B,
@@ -504,7 +506,7 @@ def profile_trainstep(torch, cs, mx, layout, fuse, dtype="float32"):
              "softmax_label": torch.from_numpy(y).to(dev)}
     ts = TrainStep(sym, mx.optimizer.SGD(
         learning_rate=train["lr"], momentum=train["momentum"],
-        wd=train["wd"], multi_precision=bf16, rescale_grad=1.0 / B),
+        wd=train["wd"], multi_precision=low, rescale_grad=1.0 / B),
         data_shapes={"data": tuple(batch["data"].shape)},
         label_shapes={"softmax_label": (B,)}, ctx=mx.gpu(0))
     ts.init_params(mx.init.Xavier(), arg_params={
@@ -520,9 +522,9 @@ def profile_trainstep(torch, cs, mx, layout, fuse, dtype="float32"):
     device_ms = sum(total.values())
     ranges = _range_ms(torch, prof, n)
     relayout = _kernel_ms(torch, prof, n, _RELAYOUT)
-    # row 7's kernel: the f32 (split TF32) or bf16 tensor-core GEMM
+    # row 7's kernel: the f32 (split TF32) or 16-bit tensor-core GEMM
     fused_kernel = sum(_kernel_ms(torch, prof, n, (
-        "fused_gemm_f32", "fused_gemm_bf16")).values())
+        "fused_gemm_f32", "fused_gemm16")).values())
     memcpy = sum(_kernel_ms(torch, prof, n, ("memcpy dtod",)).values())
     # cuDNN's own layout transposes run inside the convolution ranges; the
     # fused op's range holds its kernel and the rest of its forward:
@@ -530,7 +532,7 @@ def profile_trainstep(torch, cs, mx, layout, fuse, dtype="float32"):
     cudnn_relayout = sum(v for k, v in relayout.items()
                          if "nchwtonhwc" in k.lower()
                          or "nhwctonchw" in k.lower())
-    # disjoint groups: the copy kernels (relayouts, and in bf16 the
+    # disjoint groups: the copy kernels (relayouts, and in 16 bits the
     # dtype casts of BatchNorm's and the fused op's f32 arithmetic) also
     # run inside the BatchNorm and fused ranges, so they are printed
     # beside the groups (copy_kernels_ms), not as one of them
@@ -584,12 +586,11 @@ def main():
     if dtype not in ("float32", "bfloat16", "float16"):
         print("--dtype takes float32, bfloat16 or float16", file=sys.stderr)
         return 2
-    if dtype == "float16" and any(a in args for a in ("--resnet", "--gluon")):
-        print("--dtype float16 profiles the serving steps and --train only "
-              "(ResNet's float16 training is ROADMAP A.1)", file=sys.stderr)
+    if dtype == "float16" and "--gluon" in args:
+        print("--gluon profiles f32 steps only", file=sys.stderr)
         return 2
     if "--resnet" in args and ("--layout" in args or "--fuse" in args
-                               or dtype == "bfloat16"):
+                               or dtype != "float32"):
         layout = args[args.index("--layout") + 1] if "--layout" in args \
             else "NHWC"
         profile_trainstep(torch, cs, mx, layout, "--fuse" in args, dtype)

@@ -1,23 +1,27 @@
 #!/usr/bin/env python3
 """Time variants of the fused GEMMs (rows 7 and 10) on one GPU.
 
-    python3 tools/torch_fused_tune.py [--dtype bfloat16|float32] [--diagnose]
+    python3 tools/torch_fused_tune.py [--dtype bfloat16|float16|float32] [--diagnose]
     python3 tools/torch_fused_tune.py --dtype float32 [--diagnose] --only V ...
 
-bf16 (the default): each variant is
-``mxnet_tpu_torch/csrc/fused_gemm_bf16.cuh`` with a few text
+bf16 (the default) and float16: each variant is
+``mxnet_tpu_torch/csrc/fused_gemm_bf16.cuh`` (the 16-bit GEMM, a
+template over the element type; both types' instances are built from
+every variant, the given type's are checked and timed) with a few text
 substitutions of its tuning constants or its tile rule (``VARIANTS``),
 written with copies of ``fused_matmul.cu`` and ``fused_band4d.cu`` into
 ``build/fused_tune/<variant>/`` and built by ``nvcc`` with the port's
 flags (``tc_mma.cuh`` from ``csrc/``), all builds started together.
 Every variant is held against the plain versions
-(``chip_smoke.close_bf16``) at ResNet-50's 8 fused-site shapes at batch
+(``chip_smoke.close_bf16``, in f16 ``chip_smoke.close_f16_fused``) at
+ResNet-50's 8 fused-site shapes at batch
 256 (``chip_smoke.FUSED_SHAPES``, M doubled), the fused sandwich's two
 bands and the edge shapes of ``chip_smoke``, its row-7 and row-10
 outputs on the same band bit for bit; then each shape is timed with
 ``chip_smoke.time_ms`` (median of 60 launches, L2 flushed), the variants
 in turns and then in reverse order.  Prints one JSON line per variant:
-the ``ptxas`` registers and spill bytes of its 128 x 128 instances, the
+the ``ptxas`` registers and spill bytes of its 128 x 128 instances of
+the type, the
 mean of its two times per shape, the 28-launch step sum and the bands'
 mean; then the card's name and power limit.
 
@@ -140,7 +144,7 @@ F32_DIAGNOSTICS = {
 }
 
 
-_MMA = "for (int nt = 0; nt < C::kNT; ++nt) tc::mma(acc[mt][nt], a, b[nt][0], b[nt][1]);"
+_MMA = "for (int nt = 0; nt < C::kNT; ++nt) E::mma(acc[mt][nt], a, b[nt][0], b[nt][1]);"
 # --diagnose: variants that leave a part of the work out, so their
 # outputs are wrong by design; each one's time says what that part costs
 DIAGNOSTICS = {
@@ -175,6 +179,10 @@ def build(names, f32=False):
         os.makedirs(vdir, exist_ok=True)
         with open(os.path.join(vdir, header_name), "w") as f:
             f.write(text)
+        # the f32 header includes the 16-bit one: both from the variant's
+        # directory, so the edited header is the only one compiled
+        other = HEADER if f32 else HEADER_F32
+        shutil.copyfile(os.path.join(CSRC, other), os.path.join(vdir, other))
         for src in entries:
             path = os.path.join(vdir, src + ".cu")
             shutil.copyfile(os.path.join(CSRC, src + ".cu"), path)
@@ -197,15 +205,18 @@ def path_of(name, src, f32):
     return os.path.join(vdir, src + ".so")
 
 
-def ptxas(log, w_kn, f32=False):
+def ptxas(log, w_kn, f32=False, dtype="bfloat16"):
     """Registers and spill bytes of the instances (128 x 128 and, in f32,
-    128 x 64 tiles; X by cp.async and element by element)."""
+    128 x 64 tiles; X by cp.async and element by element; the 16-bit
+    GEMM's of ``dtype``)."""
     lines = log.splitlines()
     found = {}
     for bn in (128, 64) if f32 else (128,):
         for vec in (1, 0):
-            entry = "fused_gemm_%s_kernelILi%dELb%dELb%dE" % (
-                "f32" if f32 else "bf16", bn, w_kn, vec)
+            entry = ("fused_gemm_f32_kernelILi%dELb%dELb%dE" % (bn, w_kn, vec)
+                     if f32 else "fused_gemm16_kernelI%sLi%dELb%dELb%dE" % (
+                         {"bfloat16": "13__nv_bfloat16", "float16": "6__half"}[dtype],
+                         bn, w_kn, vec))
             for i, line in enumerate(lines):
                 if "Compiling entry function" in line and entry in line:
                     block = " ".join(lines[i + 1:i + 4])
@@ -346,7 +357,9 @@ def main():
         only = sys.argv[sys.argv.index("--only") + 1:] if "--only" in sys.argv else None
         return main_f32(torch, cs, fm, fb, "--diagnose" in sys.argv, only)
     dev = torch.device("cuda", 0)
-    bf = torch.bfloat16
+    dtype = sys.argv[sys.argv.index("--dtype") + 1] if "--dtype" in sys.argv else "bfloat16"
+    bf = getattr(torch, dtype)
+    near = cs.close_f16_fused if dtype == "float16" else cs.close_bf16
     names = list(VARIANTS) + (list(DIAGNOSTICS) if "--diagnose" in sys.argv else [])
     built = build(names)
     libs = {name: load({s: v[0] for s, v in srcs.items()}) for name, srcs in built.items()}
@@ -373,7 +386,7 @@ def main():
         args = site(*shape)
         checks.append(("edge_%dx%dx%d" % shape[:3], lambda args=args: (
             fm.fused_scale_relu_matmul_fwd(*args), fm.fused_scale_relu_matmul_plain(*args))))
-    bands = fs.band_shapes(fs.inputs(dev))
+    bands = fs.band_shapes(fs.inputs(dev, bf))
     for name, x, s, t, w in bands:
         timed.append(("band_" + name, lambda a=(x, s, t, w): fb.fused_band4d(*a)))
         checks.append(("band_" + name, lambda a=(x, s, t, w): (
@@ -386,7 +399,7 @@ def main():
                 got, ref = fn()
                 again = fn()[0]
                 torch.cuda.synchronize()
-                if not (cs.close_bf16(torch, got, ref) and torch.equal(got, again)):
+                if not (near(torch, got, ref) and torch.equal(got, again)):
                     bad.setdefault(name, []).append(
                         "%s: max abs err %g" % (what, cs.max_err(got, ref)))
                 del got, ref, again
@@ -410,9 +423,9 @@ def main():
         ms = {k: sum(v) / len(v) for k, v in times[name].items()}
         step = sum(ms["site_%dx%dx%d" % s[:3]] * n for s, n in sites.items())
         print(json.dumps({
-            "variant": name, "diagnostic": name in DIAGNOSTICS,
-            "ptxas": {src: ptxas(built[name][src][1], int(src == "fused_band4d"))
-                      for src in ENTRIES},
+            "variant": name, "dtype": dtype, "diagnostic": name in DIAGNOSTICS,
+            "ptxas": {src: ptxas(built[name][src][1], int(src == "fused_band4d"),
+                                 dtype=dtype) for src in ENTRIES},
             "agrees": name not in bad, "disagreements": bad.get(name, []),
             "step_ms_28_launches": step,
             "band_mean_ms": (ms["band_up"] + ms["band_down"]) / 2, "ms": ms}),
