@@ -471,7 +471,38 @@ Phases, each printed as one JSON line:
    (the fused NHWC ResNet-50 through TrainStep, the CIFAR ResNet-8
    through Module.fit with a 2-bit device store, resnet18_v1 through
    Gluon imperative and hybridized), each tensor within twice the CPU's
-   own f16-to-f32 gap (F16Gap, tests/test_torch_resnet_f16.py's check).
+   own f16-to-f32 gap (F16Gap, tests/test_torch_resnet_f16.py's check);
+50. dropout (the LM trained as its users train it, ROADMAP A.5's first
+   half; with the kernel phases): Dropout's draw on CUDA tensors at the
+   LM's (8, 1024, 2048) bf16 activations, bit for bit the CPU's draw
+   from the same step seed, its keep share within 5 sigma of 1 - p and
+   its values 0 or the reference's 1/(1 - p) rounded to the type, the
+   axes broadcast; the apply against its plain version on the CPU (bit
+   for bit); a captured graph of the op replayed with two staged seeds
+   draws two different masks, each the eager draw of its seed; draw and
+   apply timed; and the kernels at this slice's new shapes against their
+   plain versions: bf16 flash at (8, 16, 1024, 128), bf16 LayerNorm
+   forward and backward at 8192 x 2048;
+51. fit_lm_dropout (after 43): the LM at full width with dropout 0.1 in
+   bf16 with f32 masters through ``Module.fit``'s fused step: LAMB (wd
+   0.01, bias correction) under WarmupScheduler(CosineScheduler),
+   perplexity and top-5 accuracy, ``log_train_metric(1)``; batches of 8,
+   then a batch of 4 (re-binds, captures a second graph), then 8 again
+   (replays the first, no capture): two captures, every step fused,
+   rows 3, 4 and 8 launched in bf16 and recorded in both graphs, no
+   plain version, finite weights; two later replays' staged seeds differ
+   and their masks (the embedding's, recomputed from the seeds) differ,
+   each keep share in bounds; step p50, tokens/s, peak GB, the batch-8
+   graph's replay ms; then ``TrainStep`` over the LM at 6 layers with
+   dropout and Nadam (its fused kind, extras staged each step);
+52. fused_kinds: LBSGD, Adamax, Nadam and LAMB, each kind's update
+   captured as a CUDA graph (its per-step scalars staged before each
+   replay) against the optimizer's eager updates over random weights
+   and gradients, 3 steps; then LBSGD, Nadam and LAMB each through
+   ``Module.fit`` on the LM at full width cut to 2 layers (f32, dropout
+   0.1, 2 x 1024 tokens, 6 steps), the captured graph against the eager
+   pair from the same seeds: weights (and states) within FUSED_KINDS's
+   move_l2.
 
 Then the kernels' JSON line (every kernel with its dtype; the bf16 and
 f16 forms as rows of their own, the serving kernels' bf16 and f16
@@ -812,6 +843,35 @@ F16_TRAIN_AGREE = dict(config=dict(num_classes=2048, num_layers=2,
                                    d_model=256, num_heads=4, ffn_dim=1024,
                                    seq_len=256),
                        out_l2=3e-2 / 8, master_l2=5e-2 / 8, steps=2)
+
+
+# Dropout (phase dropout): the draw and apply at the bf16 LM's activation
+# of one site, (8, 1024, 2048), p 0.1; keep share within `sigmas` binomial
+# standard deviations
+DROPOUT = dict(shape=(8, 1024, 2048), p=0.1, sigmas=5.0)
+# the LM trained as its users train it (fit_lm_dropout): FULL with
+# dropout 0.1 in bf16 with f32 masters, LAMB (wd 0.01, bias correction)
+# under WarmupScheduler(CosineScheduler(max_update = the steps), 2 warm-up
+# steps), batches of `pattern` sequences (8, then 4: a re-bind and a
+# second graph, then 8: the first graph again); TrainStep at 6 layers
+# with Nadam over `trainstep`'s steps
+FIT_DROPOUT = dict(dropout=0.1, pattern=(8,) * 5 + (4,) * 3 + (8,) * 3,
+                   lr=1e-3, wd=0.01, warmup=2, replays=10,
+                   trainstep=dict(num_layers=6, batch=8, steps=4, lr=1e-3,
+                                  wd=0.01))
+# the new fused kinds on the card (fused_kinds): each kind's bulk update
+# captured as a CUDA graph against its optimizer's eager updates over
+# `bulk_shapes` (random weights and gradients, `bulk_steps` steps); then
+# Module.fit, graph against eager, on the LM cut to 2 layers in f32 with
+# dropout, 2 x 1024 tokens, 6 steps, for the kinds in `fit_kinds`
+# (Adamax's first step divides 0 by 0 where a weight's gradient plus its
+# decay is exactly 0, as the reference's formula does; at the LM's sizes
+# a few elements a layer do, and the weights turn NaN in both arms)
+FUSED_KINDS = dict(kinds=("lbsgd", "adamax", "nadam", "lamb"),
+                   fit_kinds=("lbsgd", "nadam", "lamb"), num_layers=2,
+                   batch=2, steps=6, lr=1e-3, wd=0.01, move_l2=1e-3,
+                   bulk_shapes=((2048, 2048), (8192, 2048), (2048,),
+                                (16384, 64)), bulk_steps=3)
 
 
 class SmokeFailure(RuntimeError):
@@ -8100,6 +8160,496 @@ def _ckpt_legacy(torch, mx, tmp):
             "params_bytes": os.path.getsize(prefix + "-0001.params")}
 
 
+def _share_ok(keep, p, sigmas):
+    """(keep share, whether it lies within ``sigmas`` binomial standard
+    deviations of 1 - p)."""
+    n = keep.numel()
+    share = float(keep.double().mean())
+    return share, abs(share - (1 - p)) <= sigmas * (p * (1 - p) / n) ** 0.5
+
+
+def phase_dropout(torch, mx, mxk, dev, flush):
+    """Dropout's draw and apply on the card (DROPOUT), a captured graph
+    of the op replayed with two staged seeds, and the training kernels
+    at the shapes fit_lm_dropout gives them that no earlier phase checks
+    (bf16 flash at batch 8, bf16 LayerNorm forward and backward at 8192
+    rows), each against its plain version."""
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch.cuda_graph import WARMUP, Program
+    from mxnet_tpu_torch.ops.nn import (dropout, dropout_apply, dropout_mask,
+                                        dropout_scale)
+    shape, p, sigmas = DROPOUT["shape"], DROPOUT["p"], DROPOUT["sigmas"]
+    bf = torch.bfloat16
+    out = {}
+    seed = torch.tensor(SEED, dtype=torch.int64)
+    keep = mxrandom.keep_mask(seed.to(dev), 3, shape, 1 - p, dev)
+    keep_cpu = mxrandom.keep_mask(seed, 3, shape, 1 - p, "cpu")
+    check(torch.equal(keep.cpu(), keep_cpu),
+          "dropout: the card's draw differs from the CPU's from one seed")
+    share, ok = _share_ok(keep, p, sigmas)
+    check(ok, "dropout: keep share %g for p %g" % (share, p))
+    g = torch.Generator(device="cpu").manual_seed(SEED + 50)
+    x = torch.randn(*shape, generator=g).to(dev).to(bf)
+    rng = mxrandom.StepRandom(seed.to(dev))
+    mask = dropout_mask(x, p, rng=rng)
+    scale = dropout_scale(p, bf)
+    values = sorted(torch.unique(mask.float()).tolist())
+    check(values == [0.0, scale], "dropout: mask values %s, want 0 and %r"
+          % (values, scale))
+    y = dropout_apply(x, mask)
+    y_cpu = dropout_apply(x.cpu(), mask.cpu())
+    check(torch.equal(y.cpu().view(torch.int16), y_cpu.view(torch.int16)),
+          "dropout: the card's apply differs from the plain version's")
+    axes_mask = dropout_mask(x, p, axes=(1,))
+    check(tuple(axes_mask.shape) == (shape[0], 1, shape[2])
+          and torch.equal(dropout_apply(x, axes_mask) == 0,
+                          (axes_mask == 0).expand(shape)),
+          "dropout: the axes mask does not broadcast")
+    out["keep_share"] = share
+    out["scale"] = scale
+    # a captured graph of the op: each replay reads the seed staged
+    # before it
+    staged = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def body():
+        return list(dropout(x, p=p, is_train=True,
+                            rng=mxrandom.StepRandom(staged)))
+
+    prog = Program(body, dev, "dropout graph", "")
+    for _ in range(WARMUP):
+        prog.warm_up()
+    prog.capture()
+    seeds, masks = [], []
+    for _ in range(2):
+        mxrandom.next_seed(dev, out=staged)
+        seeds.append(int(staged.item()))
+        masks.append(prog.replay()[1].clone())
+    check(seeds[0] != seeds[1] and not torch.equal(masks[0], masks[1]),
+          "dropout: two replays drew one mask (seeds %s)" % seeds)
+    for s_, m in zip(seeds, masks):
+        want = dropout_mask(x, p, rng=mxrandom.StepRandom(torch.tensor(
+            s_, dtype=torch.int64, device=dev)))
+        check(torch.equal(m, want.expand(shape)),
+              "dropout: a replay's mask is not its seed's draw")
+        check(_share_ok(m != 0, p, sigmas)[1],
+              "dropout: a replay's keep share is out of bounds")
+    out["replay_seeds"] = seeds
+    del prog, masks
+    n = x.numel()
+    out["draw_ms"] = time_ms(torch, lambda: dropout_mask(x, p, rng=rng),
+                             flush)
+    out["apply_ms"] = time_ms(torch, lambda: dropout_apply(x, mask), flush)
+    # what one site's draw must write (the bf16 mask) and its apply move
+    # (x and the mask read, the output written), over 3.35 TB/s
+    out["draw_bound_ms"] = bound(2 * n, 0)[0]
+    out["apply_bound_ms"] = bound(6 * n, 0)[0]
+    del x, y, mask, axes_mask, keep
+    # the kernels at fit_lm_dropout's new shapes
+    errs = {}
+    B, H, S, D = 8, 16, 1024, 128
+    q, k, v, do = (torch.randn(B, H, S, D, generator=g).to(dev).to(bf)
+                   for _ in range(4))
+    for what, a, b in _flash_pairs(torch, mxk, q, k, v, do, 1.0 / D ** 0.5):
+        okf = close(torch, a, b) if what == "lse" else close_bf16(torch, a, b)
+        check(okf, "flash attention bf16 %s at (8, 16, 1024, 128) disagrees "
+              "with its plain version (max abs err %g)"
+              % (what, max_err(a, b)))
+        errs["flash " + what] = max_err(a, b)
+    del q, k, v, do
+    rows, cols = 8192, 2048
+    xs, res = (torch.randn(rows, cols, generator=g).to(dev).to(bf)
+               for _ in range(2))
+    gamma = (1 + 0.02 * torch.randn(cols, generator=g)).to(dev).to(bf)
+    beta = (0.02 * torch.randn(cols, generator=g)).to(dev).to(bf)
+    _ln_fwd_hold(torch, mxk, xs, gamma, beta, res, "bf16 8192 x 2048", errs)
+    del xs, res
+    _ln_bwd_hold(torch, mxk, dev, g, rows, cols, bf, errs)
+    out["kernel_errors"] = errs
+    emit({"phase": "dropout", "config": DROPOUT, **out,
+          "tolerance": "draw and apply bit for bit card against CPU; keep "
+                       "share within %g sigma; kernels as their phases"
+                       % sigmas})
+    return out
+
+
+class ListBatches:
+    """Batches of several sizes from a list of (tokens, targets) numpy
+    pairs, the targets flattened to the (B * S,) labels of the LM's
+    softmax; describes the first batch's shapes."""
+
+    def __init__(self, mx, batches):
+        self.mx, self.batches, self.i = mx, batches, 0
+
+    @property
+    def provide_data(self):
+        return [self.mx.io.DataDesc("data", self.batches[0][0].shape)]
+
+    @property
+    def provide_label(self):
+        return [self.mx.io.DataDesc("softmax_label",
+                                    (self.batches[0][1].size,))]
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self.i == len(self.batches):
+            raise StopIteration
+        x, y = self.batches[self.i]
+        self.i += 1
+        gpu = self.mx.gpu(0)
+        return self.mx.io.DataBatch(
+            data=[self.mx.nd.array(x, ctx=gpu)],
+            label=[self.mx.nd.array(y.reshape(-1), ctx=gpu)], pad=0)
+
+    def reset(self):
+        self.i = 0
+
+
+def phase_fit_lm_dropout(torch, mx, np_params, cfg=FULL):
+    """The LM trained as its users train it (FIT_DROPOUT; phase 51).
+    Returns the run's launches and each graph's recorded launches, by
+    ``name:dtype``."""
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch.kernels import (LAUNCHES_BY_DTYPE, PLAIN_CALLS,
+                                         reset_counts)
+    from mxnet_tpu_torch.models import transformer
+    from mxnet_tpu_torch.weights import convert_params
+    fd = FIT_DROPOUT
+    ctx = mx.gpu(0)
+    S = cfg["seq_len"]
+    pattern = fd["pattern"]
+    batches = []
+    for i, b in enumerate(pattern):
+        x, y = _token_batches(cfg, b, SEED + 60 + i)
+        batches.append((x, y))
+    mx.random.seed(SEED)
+    mod = mx.Module(transformer.get_symbol(dtype="bfloat16",
+                                           dropout=fd["dropout"], **cfg),
+                    context=ctx)
+    mod.bind(data_shapes=[("data", (pattern[0], S))],
+             label_shapes=[("softmax_label", (pattern[0] * S,))])
+    mod.set_params(convert_params(np_params, ctx, cfg), {})
+    sched = mx.lr_scheduler.WarmupScheduler(
+        mx.lr_scheduler.CosineScheduler(max_update=len(pattern),
+                                        base_lr=fd["lr"]), fd["warmup"])
+    metric = mx.metric.create(["perplexity", mx.metric.TopKAccuracy(5)])
+    stamps = []
+
+    def per_step(param):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    stamps.append(time.perf_counter())
+    mod.fit(ListBatches(mx, batches), num_epoch=1, optimizer="lamb",
+            optimizer_params={"learning_rate": fd["lr"], "wd": fd["wd"],
+                              "bias_correction": True,
+                              "multi_precision": True,
+                              "lr_scheduler": sched},
+            eval_metric=metric,
+            batch_end_callback=[per_step, mx.callback.log_train_metric(1)])
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in LAUNCHES_BY_DTYPE.items() if v}
+    plain = {k: v for k, v in PLAIN_CALLS.items() if v}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    fused = mod._fused_fit
+    check(fused is not None and fused.launches == len(pattern),
+          "fit_lm_dropout: %s of %d steps ran fused"
+          % (None if fused is None else fused.launches, len(pattern)))
+    check(fused.captures == 2 and len(fused._programs) == 2,
+          "fit_lm_dropout: %d captures, %d programs (one per batch shape "
+          "wanted, none on the shape's return)"
+          % (fused.captures, len(fused._programs)))
+    check(not plain, "fit_lm_dropout: plain versions ran: %s" % plain)
+    captured = fused.captured_launches(True)
+    want = {"%s:bfloat16" % k: n for k, n in TRAIN_LAUNCHES.items()}
+    for name in want:
+        check(launches.get(name, 0) > 0, "fit_lm_dropout: %s was not "
+              "launched" % name)
+        for rec in captured:
+            check(rec.get(name, 0) == want[name], "fit_lm_dropout: a graph "
+                  "records %s %d times, want %d"
+                  % (name, rec.get(name, 0), want[name]))
+    exe = mod._exec_group._exec
+    finite = all(bool(torch.isfinite(exe.arg_dict[n]._data).all())
+                 for n in mod._param_names)
+    check(finite, "fit_lm_dropout: a weight is not finite")
+    values = dict(metric.get_name_value())
+    check(all(math.isfinite(v) for v in values.values()),
+          "fit_lm_dropout: metrics %s" % values)
+    step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    # the steady batch-8 steps: the first graph's replays before and
+    # after the batch of 4 (its warm-up steps and capture left out)
+    first = 1 + 2
+    steady = step_ms[first:pattern.index(4)] \
+        + step_ms[len(pattern) - pattern[::-1].index(4):]
+    p50 = statistics.median(steady)
+    # two more replays of the batch-8 graph: their staged seeds differ,
+    # and so do the embedding's masks drawn from them (site 0)
+    x8, y8 = batches[0]
+    batch = mx.io.DataBatch(data=[mx.nd.array(x8, ctx=ctx)],
+                            label=[mx.nd.array(y8.reshape(-1), ctx=ctx)])
+    seeds, shares = [], []
+    keep = 1 - fd["dropout"]
+    masks = []
+    for _ in range(2):
+        mod.fit_step(batch, metric)
+        seeds.append(int(fused._seed.item()))
+        m = mxrandom.keep_mask(fused._seed, 0, (pattern[0], S,
+                                                cfg["d_model"]), keep, ctx
+                               .torch_device)
+        shares.append(_share_ok(m, fd["dropout"], DROPOUT["sigmas"]))
+        masks.append(m)
+    check(fused.captures == 2, "fit_lm_dropout: a replay captured again")
+    check(seeds[0] != seeds[1] and not torch.equal(masks[0], masks[1]),
+          "fit_lm_dropout: two replays staged one seed %s" % seeds)
+    check(all(ok for _, ok in shares), "fit_lm_dropout: keep shares %s"
+          % shares)
+    del masks
+    graph8 = [p.graph for k, p in fused._programs.items()
+              if p.feeds["data"].shape[0] == pattern[0]][0]
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(fd["replays"]):
+        graph8.replay()
+    end.record()
+    end.synchronize()
+    scaler = mod._loss_scaler
+    if scaler is not None:
+        scaler.publish()
+    skips = scaler.skips if scaler is not None else 0
+    result = {"steps": len(pattern), "step_ms": step_ms,
+              "step_ms_p50": p50,
+              "tokens_per_s": pattern[0] * S / (p50 / 1e3),
+              "graph_replay_ms": start.elapsed_time(end) / fd["replays"],
+              "peak_mem_gb": peak, "captures": fused.captures,
+              "metrics": values, "launches": launches,
+              "captured_per_graph": captured, "replay_seeds": seeds,
+              "keep_shares": [sh for sh, _ in shares],
+              "loss_scale_skips": skips}
+    del mod, exe, graph8
+    gc_collect(torch)
+    result["trainstep"] = _trainstep_dropout(torch, mx, np_params, cfg)
+    emit({"phase": "fit_lm_dropout", "config": dict(
+        cfg, dtype="bfloat16", dropout=fd["dropout"]), "train": fd,
+        **result})
+    return result
+
+
+def _trainstep_dropout(torch, mx, np_params, cfg):
+    """TrainStep over the LM cut to FIT_DROPOUT's trainstep depth, bf16
+    with dropout, Nadam with multi_precision (its fused kind): finite
+    outputs every step, the kernels launched, no plain version; step
+    p50 and launches per step."""
+    from mxnet_tpu_torch.kernels import (LAUNCHES_BY_DTYPE, PLAIN_CALLS,
+                                         reset_counts)
+    from mxnet_tpu_torch.models import transformer
+    tc = FIT_DROPOUT["trainstep"]
+    c = dict(cfg, num_layers=tc["num_layers"])
+    B, S = tc["batch"], c["seq_len"]
+    ctx = mx.gpu(0)
+    opt = mx.optimizer.create("nadam", learning_rate=tc["lr"], wd=tc["wd"],
+                              multi_precision=True, rescale_grad=1.0 / B)
+    ts = mx.parallel.TrainStep(
+        transformer.get_symbol(dtype="bfloat16",
+                               dropout=FIT_DROPOUT["dropout"], **c), opt,
+        data_shapes={"data": (B, S)},
+        label_shapes={"softmax_label": (B * S,)}, ctx=ctx)
+    ts.init_params(mx.init.Xavier(), arg_params={
+        k: v for k, v in np_params.items() if k in ts.params})
+    check(ts._kind is not None and ts._kind[0] == "nadam",
+          "trainstep: Nadam did not take its fused kind")
+    x, y = _token_batches(c, B, SEED + 70)
+    batch = {"data": x, "softmax_label": y.reshape(-1)}
+    reset_counts()
+    stamps = [time.perf_counter()]
+    for _ in range(tc["steps"]):
+        outs = ts.step(batch)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        check(bool(torch.isfinite(outs[0]).all()),
+              "trainstep: a step's output is not finite")
+    launches = {k: v for k, v in LAUNCHES_BY_DTYPE.items() if v}
+    plain = {k: v for k, v in PLAIN_CALLS.items() if v}
+    check(not plain, "trainstep: plain versions ran: %s" % plain)
+    for name in TRAIN_LAUNCHES:
+        check(launches.get(name + ":bfloat16", 0) > 0,
+              "trainstep: %s was not launched in bf16" % name)
+    step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    del ts
+    gc_collect(torch)
+    return {"config": dict(c, dtype="bfloat16"), "optimizer": "nadam",
+            "step_ms": step_ms, "step_ms_p50": statistics.median(
+                step_ms[1:]),
+            "launches_per_step": {k: v / tc["steps"]
+                                  for k, v in launches.items()}}
+
+
+def _kind_graph(torch, mx, kind):
+    """One kind's ``bulk_apply`` captured as a CUDA graph over static
+    weights, states, gradients and runtime scalars (lr, wd, extras
+    staged before each replay), against the optimizer's eager updates of
+    the same numpy weights and gradients (FUSED_KINDS's bulk_shapes and
+    bulk_steps; Adamax without weight decay, so no element's first
+    gradient is 0).  Returns the weights' and states' difference over
+    the eager move (relative L2)."""
+    from mxnet_tpu_torch import fused_update
+    from mxnet_tpu_torch.cuda_graph import WARMUP, Program
+    fk = FUSED_KINDS
+    ctx = mx.gpu(0)
+    dev = ctx.torch_device
+    rng = np.random.RandomState(SEED + 90)
+    shapes = fk["bulk_shapes"]
+    names = ["p%d_weight" % i for i in range(len(shapes))]
+    w0 = [(rng.standard_normal(sh) * 0.02).astype(np.float32)
+          for sh in shapes]
+    grads = [[rng.standard_normal(sh).astype(np.float32) for sh in shapes]
+             for _ in range(fk["bulk_steps"])]
+    kw = dict(learning_rate=fk["lr"], wd=0.0 if kind == "adamax" else
+              fk["wd"], rescale_grad=0.5,
+              param_idx2name=dict(enumerate(names)))
+    eager_opt, graph_opt = (mx.optimizer.create(kind, **kw)
+                            for _ in range(2))
+    upd = mx.optimizer.get_updater(eager_opt)
+    ew = [mx.nd.array(w.copy(), ctx=ctx) for w in w0]
+    for g in grads:
+        for i, gi in enumerate(g):
+            upd(i, mx.nd.array(gi, ctx=ctx), ew[i])
+    n = len(shapes)
+    sig = graph_opt._fused_sig()
+    k = fused_update.build(sig).n_extra
+    weights = [torch.tensor(w, device=dev) for w in w0]
+    gbuf = [torch.empty(sh, device=dev) for sh in shapes]
+    leaves, tpls = [], []
+    for i, w in enumerate(weights):
+        lv, tpl = fused_update.flatten_state(
+            graph_opt.create_state(i, mx.nd.NDArray(w)))
+        leaves.append([x._data for x in lv])
+        tpls.append(tpl)
+    scalars = torch.zeros((2 + k) * n, device=dev)
+    use_wd = tuple(bool(kw["wd"]) for _ in range(n))
+    apply = fused_update.bulk_apply(sig)
+
+    def body():
+        new_w, new_s = apply(
+            weights, gbuf, [fused_update.unflatten(t, lv)
+                            for t, lv in zip(tpls, leaves)],
+            {"lr": scalars[:n], "wd": scalars[n:2 * n],
+             "extra": scalars[2 * n:].view(n, k) if k else None,
+             "rescale": 0.5, "use_wd": use_wd})
+        with torch.no_grad():
+            for w, nw in zip(weights, new_w):
+                w.copy_(nw)
+            for lv, ns in zip(leaves, new_s):
+                for x, v in zip(lv, fused_update.flatten_state(ns)[0]):
+                    x.copy_(v)
+        return weights
+
+    # warm-up runs and the capture's replay update the tensors: their
+    # values are put back before the first counted step
+    saved = [t.clone() for t in weights + sum(leaves, [])]
+    prog = Program(body, dev, "fused kind %s" % kind, "")
+    for _ in range(WARMUP):
+        prog.warm_up()
+    prog.capture()
+    with torch.no_grad():
+        for t, v in zip(weights + sum(leaves, []), saved):
+            t.copy_(v)
+    keys = list(range(n))
+    for g in grads:
+        lr, wd, extra = graph_opt._fused_runtime(keys)
+        host = np.concatenate([lr, wd, extra.reshape(-1)]).astype(np.float32)
+        scalars.copy_(torch.from_numpy(host))
+        for buf, gi in zip(gbuf, g):
+            buf.copy_(torch.from_numpy(gi))
+        prog.replay()
+    torch.cuda.synchronize()
+    diff = sum(float((w - e._data).double().square().sum())
+               for w, e in zip(weights, ew))
+    move = sum(float((e._data.cpu().double() - torch.from_numpy(w).double())
+                     .square().sum()) for e, w in zip(ew, w0))
+    sdiff = sum(float((x - y._data).double().square().sum())
+                for lv, i in zip(leaves, keys)
+                for x, y in zip(lv, fused_update.flatten_state(
+                    upd.states[i])[0]))
+    snorm = sum(float(y._data.double().square().sum()) for i in keys
+                for y in fused_update.flatten_state(upd.states[i])[0])
+    rel, srel = (diff / move) ** 0.5, (sdiff / snorm) ** 0.5
+    check(move > 0 and rel <= fk["move_l2"] and srel <= fk["move_l2"],
+          "fused_kinds %s: the graph's update differs from the eager one by "
+          "%g of the move (states %g)" % (kind, rel, srel))
+    del prog
+    return {"graph_move_rel_l2": rel, "graph_states_rel_l2": srel}
+
+
+def phase_fused_kinds(torch, mx, np_params, cfg=FULL):
+    """LBSGD, Adamax, Nadam and LAMB (FUSED_KINDS): each kind's update
+    as a captured graph against the eager updates (``_kind_graph``);
+    then the fit_kinds through ``Module.fit``, the fused step (one
+    capture, every step fused) against the eager pair from the same
+    seeds, weights within move_l2 of the eager arm's move; each arm's
+    step p50."""
+    from mxnet_tpu_torch.models import transformer
+    from mxnet_tpu_torch.weights import convert_params
+    fk = FUSED_KINDS
+    c = dict(cfg, num_layers=fk["num_layers"])
+    ctx = mx.gpu(0)
+    B, S = fk["batch"], c["seq_len"]
+    tokens, targets = _token_batches(c, B * fk["steps"], SEED + 80)
+    out = {kind: _kind_graph(torch, mx, kind) for kind in fk["kinds"]}
+    for kind in fk["fit_kinds"]:
+        arms = {}
+        for fused in (True, False):
+            mx.random.seed(SEED)
+            with contextlib.ExitStack() as stack:
+                if not fused:
+                    stack.enter_context(fit_fused_off())
+                mod = mx.Module(transformer.get_symbol(
+                    dropout=FIT_DROPOUT["dropout"], **c), context=ctx)
+            mod.bind(data_shapes=[("data", (B, S))],
+                     label_shapes=[("softmax_label", (B * S,))])
+            mod.set_params(convert_params(np_params, ctx, c), {})
+            stamps = []
+
+            def per_step(param):
+                torch.cuda.synchronize()
+                stamps.append(time.perf_counter())
+
+            stamps.append(time.perf_counter())
+            opt = mx.optimizer.create(kind, learning_rate=fk["lr"],
+                                      wd=fk["wd"], rescale_grad=1.0 / B)
+            mod.fit(FlatLabels(mx, mx.io.NDArrayIter(tokens, targets,
+                                                     batch_size=B)),
+                    num_epoch=1, optimizer=opt, eval_metric="perplexity",
+                    batch_end_callback=per_step)
+            ff = mod._fused_fit
+            if fused:
+                check(ff is not None and ff.captures == 1
+                      and ff.launches == fk["steps"],
+                      "fused_kinds %s: not every step ran in one captured "
+                      "graph" % kind)
+            else:
+                check(ff is None, "fused_kinds %s: the eager arm fused"
+                      % kind)
+            step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+            arms[fused] = ({k: v.asnumpy() for k, v in
+                            mod.get_params()[0].items()},
+                           statistics.median(step_ms[3:]))
+            del mod, ff
+            gc_collect(torch)
+        cmp = _compare_arms("fused_kinds " + kind, arms[True][0],
+                            arms[False][0], np_params, fk["move_l2"])
+        out[kind].update(cmp, fused_step_ms_p50=arms[True][1],
+                         eager_step_ms_p50=arms[False][1])
+    emit({"phase": "fused_kinds", "config": c, "train": fk, **out})
+    return out
+
+
 def phase_checkpoint(torch, mx, card=None):
     """Phase 37: mx.checkpoint on the card (see the module docstring);
     ``card`` is phase_device's name and power limit, printed beside the
@@ -8240,6 +8790,7 @@ def main():
     band4d_kernels = phase_fused_band4d(torch, mxk, dev, flush)
     head_dim_times = phase_head_dim(torch, mxk, dev, flush)
     rtc_kernels = phase_rtc(torch, mx, dev, flush)
+    phase_dropout(torch, mx, mxk, dev, flush)
     del flush
     sandwich_iters, sandwich_launches = phase_sandwich(torch, mx)
     full = seeded_params(FULL)
@@ -8266,6 +8817,8 @@ def main():
     fit_fused = phase_fit_fused(torch, mx, full)
     fit_bf16 = phase_fit_bf16(torch, mx, full)
     fit_f16 = phase_fit_f16(torch, mx, full, fit_bf16["transformer"])
+    lm_dropout = phase_fit_lm_dropout(torch, mx, full)
+    phase_fused_kinds(torch, mx, full)
     del full
     phase_train_agreement(torch, mx)
     phase_kvstore(torch, mx)
@@ -8407,6 +8960,12 @@ def main():
             k["fit_bf16_captured_per_step"] = \
                 fit_bf16["transformer"]["captured_by_dtype"][0][
                     k["name"] + ":bfloat16"]
+            # this slice's main path: the dropout LM's fit (warm-up
+            # steps and two captures launch them; each graph records them)
+            key = k["name"] + ":bfloat16"
+            k["fit_lm_dropout_launches"] = lm_dropout["launches"][key]
+            k["fit_lm_dropout_captured_per_step"] = \
+                lm_dropout["captured_per_graph"][0][key]
     f32_kernels = serve_kernels + [prefill_kernel] + train_kernels + \
         [quant_kernel, fused_kernel]
     for k in f32_kernels:
@@ -8425,6 +8984,8 @@ def main():
                                                   "fit_fused_captured_per_step",
                                                   "fit_bf16_captured_per_step",
                                                   "fit_f16_captured_per_step",
+                                                  "fit_lm_dropout_launches",
+                                                  "fit_lm_dropout_captured_per_step",
                                                   "train_f16_launches_per_step",
                                                   "train_launches",
                                                   "spec_launches_per_step",

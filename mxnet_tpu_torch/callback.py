@@ -1,17 +1,27 @@
 """Training callbacks.
 
-Counterpart of ``mxnet_tpu/callback.py``, reduced to ``Speedometer``
-(throughput and the current train metrics every ``frequent`` batches,
-in the reference's log-line format, ``Epoch[e] Batch [n]\\tSpeed: r
-samples/sec\\tname=value``) and the epoch-end checkpoint callbacks
-``do_checkpoint`` and ``module_checkpoint``.
+Counterpart of ``mxnet_tpu/callback.py``: ``Speedometer`` (throughput
+and the current train metrics every ``frequent`` batches, in the
+reference's log-line format, ``Epoch[e] Batch [n]\\tSpeed: r
+samples/sec\\tname=value``), ``ProgressBar``, ``log_train_metric``
+(``Iter[e] Batch[n] Train-name=value`` every ``period`` batches),
+``LogValidationMetricsCallback`` and the epoch-end checkpoint callbacks
+``do_checkpoint`` and ``module_checkpoint``.  A callback that reads a
+metric folds the fused step's device accumulator in (a host sync), so
+its period sets how often the fit loop waits for the card.
 """
 from __future__ import annotations
 
 import logging
 import time
 
-__all__ = ["Speedometer", "do_checkpoint", "module_checkpoint"]
+__all__ = ["Speedometer", "ProgressBar", "do_checkpoint",
+           "module_checkpoint", "log_train_metric",
+           "LogValidationMetricsCallback"]
+
+
+def _metric_pairs(metric):
+    return [] if metric is None else list(metric.get_name_value())
 
 
 class Speedometer:
@@ -34,7 +44,7 @@ class Speedometer:
             / max(now - self._mark, 1e-9)
         self._mark, self._mark_count = now, count
         metric = param.eval_metric
-        pairs = [] if metric is None else metric.get_name_value()
+        pairs = _metric_pairs(metric)
         if pairs:
             if self.auto_reset:
                 metric.reset()
@@ -44,6 +54,21 @@ class Speedometer:
         else:
             logging.info("Iter[%d] Batch [%d]\tSpeed: %.2f samples/sec",
                          param.epoch, param.nbatch, rate)
+
+
+class ProgressBar:
+    """Log ``[===---] pct%`` of the epoch at each batch end (``total``
+    batches an epoch)."""
+
+    def __init__(self, total, length=80):
+        self.total = total
+        self.bar_len = length
+
+    def __call__(self, param):
+        frac = min(max(param.nbatch / float(self.total), 0.0), 1.0)
+        n_fill = round(self.bar_len * frac)
+        bar = "=" * n_fill + "-" * (self.bar_len - n_fill)
+        logging.info("[%s] %s%s\r", bar, -(-int(frac * 1000) // 10), "%")
 
 
 def do_checkpoint(prefix, period=1, async_write=False):
@@ -124,3 +149,28 @@ def module_checkpoint(mod, prefix, period=1, save_optimizer_states=False,
     _on_epoch_end.drain = _drain
     _on_epoch_end.close = _close
     return _on_epoch_end
+
+
+def log_train_metric(period, auto_reset=False):
+    """Batch-end callback logging the train metrics every ``period``
+    batches (``Iter[e] Batch[n] Train-name=value``), resetting the
+    metric after each log with ``auto_reset``."""
+
+    def _on_batch_end(param):
+        if param.nbatch % period:
+            return
+        for name, value in _metric_pairs(param.eval_metric):
+            logging.info("Iter[%d] Batch[%d] Train-%s=%f",
+                         param.epoch, param.nbatch, name, value)
+        if auto_reset and param.eval_metric is not None:
+            param.eval_metric.reset()
+    return _on_batch_end
+
+
+class LogValidationMetricsCallback:
+    """Eval-end callback logging ``Epoch[e] Validation-name=value``."""
+
+    def __call__(self, param):
+        for name, value in _metric_pairs(param.eval_metric):
+            logging.info("Epoch[%d] Validation-%s=%f", param.epoch, name,
+                         value)

@@ -69,6 +69,7 @@ from __future__ import annotations
 import numpy as _np
 import torch
 
+from . import random as _random
 from .base import FLOAT16_OPS_LATER, MXNetError, numpy_to_tensor
 from .context import current_context
 from .cuda_graph import WARMUP, GraphPool, Program, Staging
@@ -82,12 +83,13 @@ _GRAD_REQS = ("write", "add", "null")
 # symbols and of the transformer's training graph (models/transformer.py,
 # with the loss head and the MLP's activation), and those of ResNet's
 # (models/resnet.py in NCHW and NHWC, with symbol/fuse.py's fused op, the
-# f16 forms of rows 7 and 10; also the model zoo's ResNets); the float16
-# forms of the other ops wait for ROADMAP A.6
+# f16 forms of rows 7 and 10; also the model zoo's ResNets), and Dropout
+# (the transformer's, in every type); the float16 forms of the other ops
+# wait for ROADMAP A.6
 FLOAT16_OPS = frozenset((
-    "Activation", "BatchNorm", "Cast", "Concat", "Convolution", "Embedding",
-    "Flatten", "FullyConnected", "LayerNorm", "LeakyReLU", "Pooling",
-    "Reshape", "SoftmaxOutput", "_FusedBNReluConv",
+    "Activation", "BatchNorm", "Cast", "Concat", "Convolution", "Dropout",
+    "Embedding", "Flatten", "FullyConnected", "LayerNorm", "LeakyReLU",
+    "Pooling", "Reshape", "SoftmaxOutput", "_FusedBNReluConv",
     "_contrib_FusedCausalSelfAttention", "_contrib_GatherTimestep",
     "_contrib_PagedChunkPrefillAttention", "_contrib_PagedDecodeAttention",
     "_contrib_PagedPrefillAttention", "_minus_scalar", "_plus_scalar",
@@ -127,10 +129,14 @@ def _normalize_grad_req(grad_req, arg_names):
 class GraphPlan:
     """A symbol's nodes in topological order, its heads, and after each
     node the environment entries (``(id(node), output)``) that no later
-    node reads and that are not heads: the walk drops them there."""
+    node reads and that are not heads: the walk drops them there.
+    ``draws`` says whether an op of the graph draws random numbers (a
+    walk then needs a step seed, ``random.StepRandom``)."""
 
     def __init__(self, symbol):
         self.nodes = symbol._topo()
+        self.draws = any(not n.is_var and n.op.takes_rng
+                         for n in self.nodes)
         self.heads = list(symbol._entries)
         head_keys = {(id(n), i) for n, i in self.heads}
         last = {}
@@ -146,10 +152,11 @@ class GraphPlan:
                     self.drop_after[last.get(key, pos)].append(key)
 
 
-def run_graph(plan, values, is_train):
+def run_graph(plan, values, is_train, rng=None):
     """Run ``plan``'s nodes on ``values`` (variable name -> tensor), each
     op on the current stream, dropping every entry after its last
-    reader.  Ops that declare ``is_train`` get the flag.  Returns the
+    reader.  Ops that declare ``is_train`` get the flag, ops that draw
+    (``rng``) the walk's ``random.StepRandom`` ``rng``.  Returns the
     head tensors and, for a train walk, ``{variable name: new value}``
     of the variables the ops mutate (``OpDef.mutate_inputs``)."""
     env, new_aux = {}, {}
@@ -157,8 +164,13 @@ def run_graph(plan, values, is_train):
         if node.is_var:
             env[(id(node), 0)] = values[node.name]
         else:
-            kw = dict(node.attrs, is_train=is_train) \
-                if node.op.takes_is_train else node.attrs
+            kw = node.attrs
+            if node.op.takes_is_train or node.op.takes_rng:
+                kw = dict(kw)
+                if node.op.takes_is_train:
+                    kw["is_train"] = is_train
+                if node.op.takes_rng:
+                    kw["rng"] = rng
             out = node.op.fn(*[env[(id(n), i)] for n, i in node.inputs],
                              **kw)
             outs = out if isinstance(out, tuple) else (out,)
@@ -203,13 +215,19 @@ class Executor:
                 NDArray(torch.zeros(shape, dtype=dt, device=dev))
         self.arg_dict = {}
         self.grad_dict = {}
+        grad_pool = shared_exec.grad_dict if shared_exec is not None else {}
         for name, shape, dt in zip(self._arg_names, arg_shapes, arg_types):
             nd = shared(arg_pool, name, shape, dt)
+            from_pool = nd is not None
             if nd is None:
                 nd = NDArray(torch.zeros(shape, dtype=dt, device=dev))
             if self._grad_req[name] != "null":
                 nd._data.requires_grad_(True)
-                self.grad_dict[name] = NDArray(torch.zeros_like(nd._data))
+                # a shared argument shares its gradient too (one copy of
+                # each for a Module's executors of several batch shapes)
+                self.grad_dict[name] = grad_pool[name] \
+                    if from_pool and name in grad_pool \
+                    else NDArray(torch.zeros_like(nd._data))
             self.arg_dict[name] = nd
         self._plan = GraphPlan(symbol)
         self.outputs = []
@@ -223,6 +241,9 @@ class Executor:
         self._program_bound = None  # the bound tensors it captured
         self._program_outputs = []  # its static outputs, as NDArrays
         self._staging = {}
+        # the donated forward's step seed (graphs with an op that draws)
+        self._seed = torch.zeros((), dtype=torch.int64, device=dev) \
+            if self._plan.draws else None
         self.dispatches = 0         # inference forwards
         self.captures = 0           # graphs captured
 
@@ -327,6 +348,8 @@ class Executor:
             with torch.no_grad():
                 stage.put(_as_tensor(value, dst.shape, name))
         self._heads = None
+        if self._seed is not None:
+            _random.next_seed(self._device, out=self._seed)
         bound = tuple(id(nd._data) for nd in self.arg_dict.values()) \
             + tuple(id(nd._data) for nd in self.aux_dict.values())
         if self._program is not None and bound == self._program_bound:
@@ -338,13 +361,15 @@ class Executor:
 
         # closes over the dicts, not the executor: no reference cycle
         # holds a dropped executor's tensors and graph
-        args, auxs, plan = self.arg_dict, self.aux_dict, self._plan
+        args, auxs, plan, seed = self.arg_dict, self.aux_dict, self._plan, \
+            self._seed
 
         def body():
             values = {n: nd._data for n, nd in auxs.items()}
             values.update((n, nd._data) for n, nd in args.items())
+            rng = _random.StepRandom(seed) if seed is not None else None
             with torch.no_grad():
-                return run_graph(plan, values, False)[0]
+                return run_graph(plan, values, False, rng)[0]
 
         prog = Program(body, self._device,
                        "donated forward of (%s)" % self._symbol_label(),
@@ -375,8 +400,10 @@ class Executor:
         record = is_train and bool(self.grad_dict)
         values = {n: nd._data for n, nd in self.aux_dict.items()}
         values.update((n, nd._data) for n, nd in self.arg_dict.items())
+        rng = _random.StepRandom(_random.next_seed(self._device)) \
+            if self._plan.draws else None
         with torch.set_grad_enabled(record):
-            heads, new_aux = run_graph(self._plan, values, is_train)
+            heads, new_aux = run_graph(self._plan, values, is_train, rng)
         with torch.no_grad():
             for name, t in new_aux.items():
                 if name in self.aux_dict:

@@ -11,7 +11,7 @@ kvstore applies bucketable optimizers through their eager per-key ops
 is the op sequence of ``ops/optimizer_ops.py``, so fused and eager
 weights agree to the last bit on the same gradients.
 
-Contract for a kind's ``apply(w32, g, inner, lr, wd, rescale,
+Contract for a kind's ``apply(w32, g, inner, lr, wd, rescale, extra,
 use_wd)``:
 
 * ``w32`` is the weight in f32 (the f32 master under multi-precision);
@@ -21,14 +21,19 @@ use_wd)``:
 * ``inner`` is the optimizer state in its nesting (None, a tensor or a
   tuple), and the same nesting comes back;
 * ``lr``, ``wd`` and ``rescale`` are runtime values (0-d tensors in the
-  captured step, so a schedule never captures again);
+  captured step, so a schedule never captures again), and so are the
+  kind's ``n_extra`` per-key ``extra`` scalars (Nadam's schedule
+  products, LAMB's bias corrections: ``Optimizer._fused_extra``, which
+  advances the optimizer's host state in key order as the eager
+  updates would);
 * ``use_wd`` is static: the eager ops skip the weight-decay term when
   ``wd`` is 0 (``if wd:``).
 
 Functions take tensors and return new ones; the fit step and the
 bucketed kvstore copy the results into the live weights and states in
-place.  The JAX package's kinds for LBSGD, Adamax, Nadam and LAMB wait
-for those optimizers (ROADMAP A.5).
+place.  LBSGD's and LAMB's norms are device reductions here (their
+eager updates read them to the host); a step's trust ratio comes from
+the f32 master under multi-precision.
 
 This module also keeps :class:`DynamicLossScaler` (counterpart of
 ``mxnet_tpu/fused_update.py:395-540``), the loss-scale state of
@@ -99,13 +104,15 @@ def unflatten(tpl, leaves):
 # the kind registry
 # ----------------------------------------------------------------------
 class _FusedUpdate:
-    """One kind's pure per-key apply."""
+    """One kind's pure per-key apply and the number of per-key extra
+    runtime scalars it reads."""
 
-    __slots__ = ("kind", "apply")
+    __slots__ = ("kind", "apply", "n_extra")
 
-    def __init__(self, kind, apply):
+    def __init__(self, kind, apply, n_extra=0):
         self.kind = kind
         self.apply = apply
+        self.n_extra = n_extra
 
 
 _KINDS = {}
@@ -152,7 +159,7 @@ def _common(g, w32, wd, rescale, clip, use_wd):
 def _sgd(sig):
     _, momentum, clip = sig
 
-    def apply(w32, g, inner, lr, wd, rescale, use_wd):
+    def apply(w32, g, inner, lr, wd, rescale, extra, use_wd):
         g = _common(g, w32, wd, rescale, clip, use_wd)
         if inner is not None:
             new_mom = momentum * inner.float() - lr * g
@@ -161,13 +168,38 @@ def _sgd(sig):
     return _FusedUpdate("sgd", apply)
 
 
+def _norm(t):
+    return t.square().sum().sqrt()
+
+
+@register_kind("lbsgd")
+def _lbsgd(sig):
+    """SGD with momentum and LARS's layer-wise coefficient, its norms
+    reduced on the device (the eager update reads them to the host)."""
+    _, momentum, clip = sig
+
+    def apply(w32, g, inner, lr, wd, rescale, extra, use_wd):
+        # the eager _get_lars takes the raw (not rescaled) gradient
+        w_norm, g_norm = _norm(w32), _norm(g)
+        lars = torch.where((w_norm > 0) & (g_norm > 0),
+                           w_norm / (g_norm + wd * w_norm + 1e-9) * 0.001,
+                           torch.ones_like(w_norm))
+        lr = lr * lars
+        g = _common(g, w32, wd, rescale, clip, use_wd)
+        if inner is not None:
+            new_mom = momentum * inner.float() - lr * g
+            return w32 + new_mom, new_mom
+        return w32 - lr * g, None
+    return _FusedUpdate("lbsgd", apply)
+
+
 @register_kind("adam")
 def _adam(sig):
     # the bias correction is folded into lr on the host
     # (Adam._fused_lr), as the eager update folds it
     _, beta1, beta2, epsilon, clip = sig
 
-    def apply(w32, g, inner, lr, wd, rescale, use_wd):
+    def apply(w32, g, inner, lr, wd, rescale, extra, use_wd):
         g = _common(g, w32, wd, rescale, clip, use_wd)
         mean, var = inner
         new_mean = beta1 * mean + (1 - beta1) * g
@@ -181,7 +213,7 @@ def _adam(sig):
 def _adagrad(sig):
     _, epsilon, clip = sig
 
-    def apply(w32, g, inner, lr, wd, rescale, use_wd):
+    def apply(w32, g, inner, lr, wd, rescale, extra, use_wd):
         # adagrad_update applies wd inside the step term, not on g
         g = _clip(g * rescale, clip)
         new_h = inner + g.square()
@@ -194,7 +226,7 @@ def _adagrad(sig):
 def _rmsprop(sig):
     _, gamma1, epsilon, clip, clip_weights = sig
 
-    def apply(w32, g, inner, lr, wd, rescale, use_wd):
+    def apply(w32, g, inner, lr, wd, rescale, extra, use_wd):
         g = _common(g, w32, wd, rescale, clip, use_wd)
         new_n = (1 - gamma1) * g.square() + gamma1 * inner
         new_w = w32 - lr * g / torch.sqrt(new_n + epsilon)
@@ -211,7 +243,7 @@ def _rmspropalex(sig):
     # does not apply it
     _, gamma1, gamma2, epsilon, clip, clip_weights = sig
 
-    def apply(w32, gr, inner, lr, wd, rescale, use_wd):
+    def apply(w32, gr, inner, lr, wd, rescale, extra, use_wd):
         gr = _common(gr, w32, wd, rescale, clip, use_wd)
         n, gacc, delta = inner
         new_n = (1 - gamma1) * gr.square() + gamma1 * n
@@ -225,20 +257,82 @@ def _rmspropalex(sig):
     return _FusedUpdate("rmspropalex", apply)
 
 
+@register_kind("adamax")
+def _adamax(sig):
+    # lr arrives divided by (1 - beta1^t) (Adamax._fused_lr)
+    _, beta1, beta2, clip = sig
+
+    def apply(w32, g, inner, lr, wd, rescale, extra, use_wd):
+        # the eager Adamax: rescale, + wd * w (always), then clip
+        g = _clip(g * rescale + wd * w32, clip)
+        m, u = inner
+        new_m = beta1 * m + (1.0 - beta1) * g
+        new_u = torch.maximum(beta2 * u, g.abs())
+        return w32 - lr * new_m / new_u, (new_m, new_u)
+    return _FusedUpdate("adamax", apply)
+
+
+@register_kind("nadam")
+def _nadam(sig):
+    # extra = (momentum_t, momentum_t_1, m_schedule, m_schedule_next,
+    # 1 - beta2^t), from Nadam._fused_extra in key order (the schedule
+    # product is host state that each key's update advances)
+    _, beta1, beta2, epsilon, _schedule_decay, clip = sig
+
+    def apply(w32, g, inner, lr, wd, rescale, extra, use_wd):
+        momentum_t, momentum_t_1, m_schedule, m_schedule_next, bc2 = extra
+        g = _clip(g * rescale + wd * w32, clip)
+        m, v = inner
+        new_m = beta1 * m + (1.0 - beta1) * g
+        new_v = beta2 * v + (1.0 - beta2) * g.square()
+        grad_prime = g / (1.0 - m_schedule)
+        m_prime = new_m / (1.0 - m_schedule_next)
+        v_prime = new_v / bc2
+        m_bar = (1.0 - momentum_t) * grad_prime + momentum_t_1 * m_prime
+        new_w = w32 - lr * m_bar / (v_prime.sqrt() + epsilon)
+        return new_w, (new_m, new_v)
+    return _FusedUpdate("nadam", apply, n_extra=5)
+
+
+@register_kind("lamb")
+def _lamb(sig):
+    # extra = (1 - beta1^t, 1 - beta2^t), read with bias_correction
+    _, beta1, beta2, epsilon, bias_correction, clip = sig
+
+    def apply(w32, g, inner, lr, wd, rescale, extra, use_wd):
+        g = _clip(g * rescale, clip)
+        m, v = inner
+        new_m = beta1 * m + (1.0 - beta1) * g
+        new_v = beta2 * v + (1.0 - beta2) * g.square()
+        if bias_correction:
+            m_hat, v_hat = new_m / extra[0], new_v / extra[1]
+        else:
+            m_hat, v_hat = new_m, new_v
+        r = m_hat / (v_hat.sqrt() + epsilon) + wd * w32
+        w_norm, r_norm = _norm(w32), _norm(r)
+        ratio = torch.where((w_norm > 0) & (r_norm > 0), w_norm / r_norm,
+                            torch.ones_like(w_norm))
+        return w32 - lr * ratio * r, (new_m, new_v)
+    return _FusedUpdate("lamb", apply, n_extra=2)
+
+
 # ----------------------------------------------------------------------
 # the per-key wrapper (multi-precision aware)
 # ----------------------------------------------------------------------
-def apply_one(upd, w, g, state, mp, lr, wd, rescale, use_wd):
+def apply_one(upd, w, g, state, mp, lr, wd, rescale, extra, use_wd):
     """One key's fused update: ``(new_w, new_state)``, every leaf in its
     input's dtype.  ``mp`` (static) says the state is ``(inner,
     weight32)`` and ``w`` the low-precision weight, which comes back as
-    the updated master rounded to its type."""
+    the updated master rounded to its type; ``extra`` is the key's
+    ``upd.n_extra`` runtime scalars (a sequence, empty for most
+    kinds)."""
     g32 = g.float()
     if mp:
         inner, w32 = state
     else:
         inner, w32 = state, w.float()
-    new_w32, new_inner = upd.apply(w32, g32, inner, lr, wd, rescale, use_wd)
+    new_w32, new_inner = upd.apply(w32, g32, inner, lr, wd, rescale, extra,
+                                   use_wd)
     new_state = (new_inner, new_w32) if mp else new_inner
     old_leaves = flatten_state(state)[0]
     new_leaves, tpl = flatten_state(new_state)
@@ -250,7 +344,8 @@ def bulk_apply(sig):
     """The update of ``sig`` over aligned per-key sequences:
     ``fused_update(params, grads, states, runtime_scalars)`` returns
     ``(new_params, new_states)``.  ``runtime_scalars`` carries the
-    per-key ``lr`` and ``wd``, the ``rescale`` scalar, the static
+    per-key ``lr`` and ``wd``, the ``rescale`` scalar, the ``extra``
+    (n_keys, n_extra) matrix of the kinds that read one, the static
     per-key ``mp`` flags and the static ``use_wd`` (one flag, or one per
     key as the eager ops' ``if wd:`` decides it)."""
     upd = build(sig)
@@ -258,6 +353,7 @@ def bulk_apply(sig):
     def fused_update(params, grads, states, runtime_scalars):
         rt = runtime_scalars
         lr, wd, rescale = rt["lr"], rt["wd"], rt["rescale"]
+        extra = rt.get("extra")
         mp = rt.get("mp") or (False,) * len(params)
         use_wd = rt.get("use_wd", True)
         if isinstance(use_wd, bool):
@@ -265,7 +361,7 @@ def bulk_apply(sig):
         new_ps, new_ss = [], []
         for i, (w, g, st) in enumerate(zip(params, grads, states)):
             nw, ns = apply_one(upd, w, g, st, mp[i], lr[i], wd[i], rescale,
-                               use_wd[i])
+                               extra[i] if upd.n_extra else (), use_wd[i])
             new_ps.append(nw)
             new_ss.append(ns)
         return tuple(new_ps), tuple(new_ss)

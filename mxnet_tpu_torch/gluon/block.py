@@ -39,6 +39,7 @@ import threading
 import torch
 
 from .. import autograd
+from .. import random as _random
 from ..base import MXNetError, NameManager, current_name_manager
 from ..executor import GraphPlan, check_float16_graph, run_graph
 from ..ndarray.ndarray import NDArray
@@ -387,8 +388,12 @@ def _run_cached(cached, args):
         check_float16_graph(cached.plan.nodes, (torch.float16,),
                             "hybridized %s" % cached.name)
         cached.f16_checked = True
+    rng = None
+    if cached.plan.draws:
+        dev = next(iter(values.values())).device
+        rng = _random.StepRandom(_random.next_seed(dev))
     with torch.set_grad_enabled(autograd.is_recording()):
-        heads, new_aux = run_graph(cached.plan, values, is_train)
+        heads, new_aux = run_graph(cached.plan, values, is_train, rng)
     with torch.no_grad():
         for name, t in new_aux.items():
             cached.params[name]._data._data.copy_(t)

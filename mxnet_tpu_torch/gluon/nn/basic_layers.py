@@ -7,8 +7,10 @@ signatures and parameter names (``weight``/``bias``, ``gamma``/``beta``,
 ``running_mean``/``running_var``).  Every hybrid layer is one registered
 op, so it runs the same eagerly and in a hybridized graph.
 ``nn.LayerNorm`` reaches the LayerNorm kernels (forward and backward)
-through the ``LayerNorm`` op.  ``Dropout`` needs the Dropout op (ROADMAP
-A.5) and raises.
+through the ``LayerNorm`` op; ``Dropout`` through the ``Dropout`` op,
+which draws only under ``autograd.train_mode()``/``record()`` (the
+imperative call draws a fresh seed each time, a hybridized block a step
+seed each forward).
 """
 from __future__ import annotations
 
@@ -127,11 +129,19 @@ class LeakyReLU(HybridBlock):
 
 
 class Dropout(HybridBlock):
-    """Inverted dropout: needs the Dropout op, a later item."""
+    """Inverted dropout of rate ``rate`` while training (reference
+    basic_layers.py Dropout); ``axes`` share one mask value along them."""
 
     def __init__(self, rate, axes=(), **kwargs):
-        raise MXNetError("nn.Dropout needs the Dropout op, which is not in "
-                         "the PyTorch port yet (ROADMAP A.5)")
+        super().__init__(**kwargs)
+        self._rate = rate
+        self._axes = tuple(axes)
+
+    def hybrid_forward(self, F, x):
+        return F.Dropout(x, p=self._rate, axes=self._axes)
+
+    def __repr__(self):
+        return "Dropout(p = %s, axes=%s)" % (self._rate, self._axes)
 
 
 def _register_affine(layer, scale, center, in_channels, gamma_init,

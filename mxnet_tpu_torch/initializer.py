@@ -1,26 +1,36 @@
 """Weight initializers.
 
-Counterpart of ``mxnet_tpu/initializer.py``, reduced to what the
-training slice uses: ``InitDesc``, the dispatch of
-``Initializer.__call__`` by the variable's ``__init__`` attribute and
-then by name suffix, ``dumps``, and ``Uniform``, ``Normal``, ``Zero``,
-``One``, ``Constant`` and ``Xavier`` (with the JAX package's fan
-computation).  Random values are drawn on the array's own device from
-that device's generator (``random.generator``), so ``mx.random.seed``
-makes them reproducible; they are not the JAX package's numbers.
+Counterpart of ``mxnet_tpu/initializer.py``: ``InitDesc``, the
+dispatch of ``Initializer.__call__`` by the variable's ``__init__``
+attribute and then by name suffix, ``dumps``, and ``Uniform``,
+``Normal``, ``Zero``, ``One``, ``Constant``, ``Xavier`` (with the JAX
+package's fan computation), ``MSRAPrelu``, ``Orthogonal``, ``Bilinear``,
+``Load`` and ``Mixed``.  Random values are drawn on the array's own
+device from that device's generator (``random.generator``), so
+``mx.random.seed`` makes them reproducible; they are not the JAX
+package's numbers (``Orthogonal`` draws there too and takes its SVD on
+the host in float64).  ``LSTMBias`` and ``FusedRNN`` come with the RNN
+slice (ROADMAP A.6).
 """
 from __future__ import annotations
 
 import json
 import math
+import re
 
+import numpy as _np
 import torch
 
 from . import random as _random
 from .base import MXNetError
 
 __all__ = ["Initializer", "Uniform", "Normal", "Zero", "One", "Constant",
-           "Xavier", "InitDesc", "register", "create"]
+           "Xavier", "MSRAPrelu", "Orthogonal", "Bilinear", "Load", "Mixed",
+           "InitDesc", "register", "create"]
+
+# initializers that come with a later slice, by registered name
+_LATER = {"lstmbias": "ROADMAP A.6, with the RNN slice",
+          "fusedrnn": "ROADMAP A.6, with the RNN slice"}
 
 _INIT_REGISTRY = {}
 
@@ -35,9 +45,11 @@ def create(name, **kwargs):
     if isinstance(name, Initializer):
         return name
     key = str(name).lower()
-    if key not in _INIT_REGISTRY:
+    if key in _LATER:
         raise MXNetError("initializer '%s' is not in the PyTorch port yet "
-                         "(ROADMAP A.5, initializers)" % name)
+                         "(%s)" % (name, _LATER[key]))
+    if key not in _INIT_REGISTRY:
+        raise MXNetError("unknown initializer '%s'" % name)
     return _INIT_REGISTRY[key](**kwargs)
 
 
@@ -185,3 +197,101 @@ class Xavier(Initializer):
             _draw(arr, lambda t, g: t.uniform_(-scale, scale, generator=g))
         else:
             _draw(arr, lambda t, g: t.normal_(0.0, scale, generator=g))
+
+
+@register
+class MSRAPrelu(Xavier):
+    """He/MSRA initialization for PReLU nets: Xavier with gaussian draws
+    and magnitude ``2 / (1 + slope^2)``."""
+
+    def __init__(self, factor_type="avg", slope=0.25):
+        Initializer.__init__(self, factor_type=factor_type, slope=slope)
+        self.rnd_type = "gaussian"
+        self.factor_type = factor_type
+        self.magnitude = 2.0 / (1 + slope ** 2)
+
+
+@register
+class Orthogonal(Initializer):
+    """A (scaled) orthogonal matrix over the weight flattened to (out,
+    in): the SVD factor of a uniform or normal draw whose shape is the
+    weight's, times ``scale``."""
+
+    def __init__(self, scale=1.414, rand_type="uniform"):
+        super().__init__(scale=scale, rand_type=rand_type)
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, name, arr):
+        nout = arr.shape[0]
+        nin = math.prod(arr.shape[1:])
+        t = arr._data
+        tmp = torch.empty((nout, nin), dtype=torch.float32, device=t.device)
+        gen = _random.generator(t.device)
+        if self.rand_type == "uniform":
+            tmp.uniform_(-1.0, 1.0, generator=gen)
+        else:
+            tmp.normal_(0.0, 1.0, generator=gen)
+        u, _, v = _np.linalg.svd(tmp.cpu().double().numpy(),
+                                 full_matrices=False)
+        q = u if u.shape == (nout, nin) else v
+        arr[:] = (self.scale * q).reshape(arr.shape).astype(_np.float32)
+
+
+@register
+class Bilinear(Initializer):
+    """The bilinear up-sampling kernel of a 4-D (deconvolution)
+    weight."""
+
+    def _init_weight(self, name, arr):
+        shape = arr.shape
+        size = math.prod(shape)
+        f = math.ceil(shape[3] / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        idx = _np.arange(size)
+        x = idx % shape[3]
+        y = (idx // shape[3]) % shape[2]
+        weight = ((1 - _np.abs(x / f - c)) * (1 - _np.abs(y / f - c)))
+        arr[:] = weight.astype(_np.float32).reshape(shape)
+
+
+@register
+class Load(Initializer):
+    """Values from ``param`` (name, ``arg:name`` or ``aux:name`` ->
+    array), else ``default_init``; raises when neither has one."""
+
+    def __init__(self, param, default_init=None, verbose=False):
+        self.param = param
+        self.default_init = default_init
+        self._kwargs = {}
+
+    def __call__(self, name, arr):
+        name = str(name)
+        for key in (name, "arg:" + name, "aux:" + name):
+            if key in self.param:
+                src = self.param[key]
+                if tuple(src.shape) != tuple(arr.shape):
+                    raise MXNetError("shape mismatch loading %s" % name)
+                arr[:] = src
+                return
+        if self.default_init is None:
+            raise MXNetError("no init value for %s" % name)
+        self.default_init(InitDesc(name), arr)
+
+
+@register
+class Mixed(Initializer):
+    """The initializer of the first pattern (a regular expression
+    matched at the name's start) that matches the name."""
+
+    def __init__(self, patterns, initializers):
+        self.map = list(zip([re.compile(p) for p in patterns],
+                            initializers))
+        self._kwargs = {}
+
+    def __call__(self, name, arr):
+        for pat, init in self.map:
+            if pat.match(str(name)):
+                init(name, arr)
+                return
+        raise MXNetError("no initializer matches %s" % name)

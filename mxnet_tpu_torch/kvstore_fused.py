@@ -18,9 +18,10 @@ calls:
     then the optimizer's fused update (``Optimizer._fused_bucket_sig``,
       ``fused_update.bulk_apply``, with each key's static
       multi-precision flag: a 16-bit weight under ``multi_precision`` is
-      updated through its f32 master) written into the stored weights
-      and the ``Updater``'s states, or, with no updater, the reduced
-      value stored.
+      updated through its f32 master, and the kind's per-key runtime
+      scalars, ``Optimizer._fused_extra``, staged as one device tensor)
+      written into the stored weights and the ``Updater``'s states, or,
+      with no updater, the reduced value stored.
 
 The JAX package runs the same op sequence as one compiled program per
 bucket, so the two packages agree bit for bit on the compressor and to
@@ -338,13 +339,18 @@ class FusedBucketEngine:
         mp = tuple(opt.multi_precision
                    and _fused.is_low_precision(w._data.dtype)
                    for w in weights)
-        lr, wd = opt._fused_runtime(ukeys)
+        lr, wd, extra = opt._fused_runtime(ukeys)
+        dev = weights[0]._data.device
         with torch.no_grad():
             new_ws, new_ss = _fused.bulk_apply(sig)(
                 [w._data for w in weights], reduced,
                 [_fused.unflatten(t, [x._data for x in leaf])
                  for t, leaf in zip(tpls, leaves)],
                 {"lr": lr.tolist(), "wd": wd.tolist(),
+                 # the per-key scalars as one device tensor: its rows
+                 # are 0-d views the kind reads on the device
+                 "extra": torch.from_numpy(extra).to(dev) if extra.size
+                 else None,
                  "rescale": opt.rescale_grad, "mp": mp,
                  "use_wd": tuple(bool(v) for v in wd != 0.0)})
             for w, leaf, nw, ns in zip(weights, leaves, new_ws, new_ss):

@@ -13,8 +13,11 @@ JAX package's does (the embeddings cast to the 16-bit type, the logits
 back to f32; the weights the trunk meets infer it), and so do the five
 serving symbols: their weights, LayerNorms and paged caches bind 16-bit,
 their block tables, positions, offsets and lengths float32
-(``shape_rules.INDEX_INPUTS``).  MoE layers, tensor parallelism and
-dropout come with later slices.
+(``shape_rules.INDEX_INPUTS``).  ``dropout > 0`` adds the reference's
+three Dropout sites to the training graph (``embed_drop`` after the
+embeddings' cast, ``layer%d_drop1`` on the attention's projection and
+``layer%d_drop2`` on the FFN's, before each residual add).  MoE layers
+and tensor parallelism come with later slices.
 """
 from __future__ import annotations
 
@@ -51,20 +54,21 @@ def get_symbol(num_classes=16384, num_layers=12, d_model=2048, num_heads=16,
                      % (tensor_parallel,))
     if dtype not in ("float32", "bfloat16", "float16"):
         later.append("dtype=%r (ROADMAP A.1)" % (dtype,))
-    if float(dropout) > 0:
-        later.append("dropout=%s: the Dropout op (ROADMAP A.5)" % dropout)
     if later:
         raise MXNetError("transformer.get_symbol: %s; not in the PyTorch "
                          "port yet" % "; ".join(later))
     vocab = int(num_classes)
     d = int(d_model)
     ffn = int(ffn_dim) if ffn_dim else 4 * d
+    lp = float(dropout)
 
     data = sym.Variable("data")                      # (B, S) token ids
     tok = sym.Embedding(data, input_dim=vocab, output_dim=d,
                         name="tok_embed")
     pos = sym.Variable("pos_embed_weight", shape=(1, int(seq_len), d))
     x = _cast_in(sym.broadcast_add(tok, pos, name="embed_add"), dtype)
+    if lp > 0:
+        x = sym.Dropout(data=x, p=lp, name="embed_drop")
 
     for i in range(int(num_layers)):
         pre = "layer%d_" % i
@@ -76,6 +80,8 @@ def get_symbol(num_classes=16384, num_layers=12, d_model=2048, num_heads=16,
             sym.Variable(pre + "proj_weight"),
             sym.Variable(pre + "proj_bias", init=_init.Zero()),
             num_heads=int(num_heads), name=pre + "attn")
+        if lp > 0:
+            proj = sym.Dropout(data=proj, p=lp, name=pre + "drop1")
         x = x + proj
         ln2 = sym.LayerNorm(data=x, name=pre + "ln2")
         h = sym.FullyConnected(
@@ -87,6 +93,8 @@ def get_symbol(num_classes=16384, num_layers=12, d_model=2048, num_heads=16,
             data=h, weight=sym.Variable(pre + "ffn_down_weight"),
             bias=sym.Variable(pre + "ffn_down_bias", init=_init.Zero()),
             num_hidden=d, flatten=False, name=pre + "ffn_down")
+        if lp > 0:
+            h = sym.Dropout(data=h, p=lp, name=pre + "drop2")
         x = x + h
 
     x = sym.LayerNorm(data=x, name="ln_f")

@@ -3,8 +3,12 @@
 Counterpart of ``mxnet_tpu/module/executor_group.py``
 ``DataParallelExecutorGroup``, on exactly one context: one executor,
 with gradients for every parameter that is not fixed (data and label
-inputs get none), and the auxiliary states beside them.  Several
-contexts (data parallelism over GPUs) come with the multi-GPU slice.
+inputs get none unless ``inputs_need_grad``, which gives the data
+inputs theirs), and the auxiliary states beside them.  A group made by
+:meth:`reshape` binds new input shapes with ``shared_exec``: it holds
+the first group's parameters, gradients and auxiliary states (the same
+NDArrays) and allocates only its inputs.  Several contexts (data
+parallelism over GPUs) come with the multi-GPU slice.
 """
 from __future__ import annotations
 
@@ -20,7 +24,8 @@ __all__ = ["DataParallelExecutorGroup"]
 class DataParallelExecutorGroup:
     def __init__(self, symbol, contexts, data_shapes, label_shapes,
                  param_names, for_training, fixed_param_names=None,
-                 grad_req="write"):
+                 grad_req="write", inputs_need_grad=False,
+                 shared_group=None):
         if len(contexts) != 1:
             raise MXNetError("a Module over %d contexts comes with the "
                              "multi-GPU slice of the PyTorch port"
@@ -30,6 +35,9 @@ class DataParallelExecutorGroup:
         self.param_names = param_names
         self.aux_names = symbol.list_auxiliary_states()
         self.for_training = for_training
+        self.inputs_need_grad = inputs_need_grad
+        self.fixed_param_names = list(fixed_param_names or [])
+        self._grad_req_arg = grad_req
         self.data_names = [d.name for d in data_shapes]
         self.label_names = [d.name for d in (label_shapes or [])]
         self.data_shapes = data_shapes
@@ -44,9 +52,15 @@ class DataParallelExecutorGroup:
             else:
                 req[name] = grad_req if isinstance(grad_req, str) \
                     else grad_req.get(name, "write")
+        if inputs_need_grad:
+            for name in self.data_names:
+                req[name] = "write"
         shapes = {d.name: d.shape
                   for d in list(data_shapes) + list(label_shapes or [])}
-        self._exec = symbol.simple_bind(contexts[0], req, **shapes)
+        self._exec = symbol.simple_bind(
+            contexts[0], req,
+            shared_exec=shared_group._exec if shared_group else None,
+            **shapes)
         exe = self._exec
         # Module-facing views: one entry per device (one device here)
         self.param_arrays = [[exe.arg_dict[n]] for n in param_names]
@@ -77,6 +91,22 @@ class DataParallelExecutorGroup:
 
     def get_outputs(self):
         return list(self._exec.outputs)
+
+    def get_input_grads(self):
+        """The data inputs' gradients of the last backward (bound with
+        ``inputs_need_grad``)."""
+        return [self._exec.grad_dict.get(n) for n in self.data_names]
+
+    def reshape(self, data_shapes, label_shapes):
+        """A group over new input shapes sharing this one's parameters,
+        gradients and auxiliary states (reference executor_group.py
+        reshape)."""
+        return DataParallelExecutorGroup(
+            self.symbol, self.contexts, data_shapes, label_shapes,
+            self.param_names, self.for_training,
+            fixed_param_names=self.fixed_param_names,
+            grad_req=self._grad_req_arg,
+            inputs_need_grad=self.inputs_need_grad, shared_group=self)
 
     def set_params(self, arg_params, aux_params, allow_extra=False):
         self._exec.copy_params_from(arg_params, aux_params, allow_extra)

@@ -44,12 +44,29 @@ signature, metric signature, compression threshold, per-key
 weight-decay pattern, state nesting): a ragged final batch builds once
 more, a steady state never.
 
-lr, wd and ``rescale_grad`` live in one static device buffer that the
-host rewrites before each step through pinned staging
-(``Optimizer._fused_runtime`` advances the update counts as the eager
-updates would), so an ``lr_scheduler`` never captures again.  Inputs
-reach the card through two pinned slots per input, so the host waits
-only for the copy two steps back, never for the step in flight.
+lr, wd, ``rescale_grad`` and the kind's per-key extra scalars (Nadam's
+schedule products, LAMB's bias corrections) live in one static device
+buffer that the host rewrites before each step through pinned staging
+(``Optimizer._fused_runtime`` advances the update counts and the host
+schedules as the eager updates would), so an ``lr_scheduler`` or a
+changing correction never captures again.  Inputs reach the card
+through two pinned slots per input, so the host waits only for the copy
+two steps back, never for the step in flight.
+
+A graph with Dropout draws from a step seed: a 0-d int64 tensor the
+step refills from the device's generator before each run
+(``random.next_seed``, one launch outside the graph), which the body's
+walk hands to each Dropout site (``random.StepRandom``), as the JAX
+package passes ``exe._next_seed()`` into its program
+(``mxnet_tpu/module/fused_fit.py:760``): every replay draws new masks,
+and ``mx.random.seed`` repeats them.
+
+A batch of another shape (``Module.reshape``) gets a program of its
+own, captured once; the programs of one step share one graph memory
+pool (they replay one at a time, in one stream order), the scalar
+buffer, the step seed, the metric's accumulator and the loss scaler,
+so a second shape adds its graph's own temporaries only where they
+outgrow the first's, and a returning shape replays its graph.
 
 The weights, optimizer states and auxiliary states the graph reads and
 writes are the module's own tensors (the executor's arguments, the
@@ -65,14 +82,14 @@ Eligible: no store or the single-process ``KVStore`` (``'local'``,
 ``'device'``), with or without 2-bit compression; no monitor; f32 or
 bf16 or f16 parameters with ``grad_req='write'``; an optimizer with a fused
 signature and the module's own ``Updater``.  Everything else keeps the
-eager pair.  ``Module.bind`` already refuses ``inputs_need_grad``;
-a mesh or several processes wait for A.8
+eager pair, as do modules bound with ``inputs_need_grad`` (reference
+``fused_fit.py:416-417``); a mesh or several processes wait for A.8
 (such a ``Module`` or store raises at construction), the in-launch
 numerics sentinels for A.9 (``MXNET_SENTINEL_NUMERICS`` other than 0
 raises here).  ``MXNET_FIT_FUSED=0`` keeps every step eager.
 
-The random streams are not registered with the graph: a step that
-draws random numbers (an op of ``ops/random_ops.py``) raises at its
+The generators themselves are not registered with the graph: a step
+that draws from one (an op of ``ops/random_ops.py``) raises at its
 first capture instead of replaying one draw forever.
 """
 from __future__ import annotations
@@ -84,8 +101,9 @@ import numpy as _np
 import torch
 
 from .. import fused_update as _fused
+from .. import random as _random
 from ..base import MXNetError
-from ..cuda_graph import WARMUP, Program, Staging
+from ..cuda_graph import WARMUP, GraphPool, Program, Staging
 from ..executor import run_graph
 from ..kvstore import KVStore, _updater_key
 from ..kvstore_fused import bucket_byte_cap, push_plan, two_bit_quantize
@@ -127,14 +145,15 @@ class _Program:
     up over ``cuda_graph.WARMUP`` eager steps, then captured once and
     replayed (``cuda_graph.Program``)."""
 
-    def __init__(self, body, feeds, device):
+    def __init__(self, body, feeds, device, pool):
         global TRACE_COUNT
         TRACE_COUNT += 1
         self.feeds = feeds
         self.staging = {n: Staging(t) for n, t in feeds.items()}
         self.device = device
         self.program = Program(body, device, "fused fit step",
-                               "MXNET_FIT_FUSED=0 keeps such a model eager")
+                               "MXNET_FIT_FUSED=0 keeps such a model eager",
+                               pool=pool)
         self.warm = 0
 
     @property
@@ -172,8 +191,11 @@ class FusedFitStep:
         self._buckets = None            # [[(name, offset, size, shape)]]
         self._res_flat = None           # one flat f32 residual per bucket
         self._res_live = False          # residuals seeded from the store
-        self._scalars = None            # lr (n), wd (n), rescale (1)
+        # lr (n), wd (n), rescale (1), then the kind's extras (n x k)
+        self._scalars = None
         self._scalar_stage = None
+        self._seed = None               # the step seed (graphs that draw)
+        self._pool = GraphPool()        # one graph pool for every shape
         self._acc = None                # the metric's device (sum, num)
         self._acc_owner = None          # the metric whose _dev_* they are
         self._metric_ref = FusedFitStep._METRIC_UNSET
@@ -198,6 +220,8 @@ class FusedFitStep:
                              "the PyTorch port yet (ROADMAP A.9)")
         if not module._fused_fit_enabled:
             return no("MXNET_FIT_FUSED=0")
+        if module.inputs_need_grad:
+            return no("inputs_need_grad")
         optimizer = module._optimizer
         sig = optimizer._fused_fit_sig()
         if sig is None or not _fused.supported(sig):
@@ -301,6 +325,9 @@ class FusedFitStep:
         order, threshold = self._order, self._threshold
         n = len(order)
         scalars, (acc_sum, acc_num) = self._scalars, self._acc
+        k = upd.n_extra
+        extra = scalars[2 * n + 1:].view(n, k) if k else None
+        seed = self._seed if exe._plan.draws else None
         metric_fn = self._metric_fn
         leaves = [exe.arg_dict[name]._data for name in order]
         scaler_state, mask = None, None
@@ -318,8 +345,9 @@ class FusedFitStep:
             values = {k: nd._data for k, nd in exe.aux_dict.items()}
             values.update((k, nd._data) for k, nd in exe.arg_dict.items())
             values.update(feeds)
+            rng = _random.StepRandom(seed) if seed is not None else None
             with torch.enable_grad():
-                heads, new_aux = run_graph(exe._plan, values, True)
+                heads, new_aux = run_graph(exe._plan, values, True, rng)
                 outs = [h for h in heads if h.requires_grad]
                 grads = torch.autograd.grad(
                     outs, leaves, [torch.ones_like(h) for h in outs],
@@ -370,7 +398,8 @@ class FusedFitStep:
                     st = _fused.unflatten(tpls[i], states[i])
                     new_w, new_st = _fused.apply_one(
                         upd, w, g32[name], st, mp[i], scalars[i],
-                        scalars[n + i], rescale, use_wd[i])
+                        scalars[n + i], rescale,
+                        extra[i] if k else (), use_wd[i])
                     for t in targets[i]:
                         commit(t, new_w)
                     for leaf, new in zip(states[i],
@@ -416,15 +445,24 @@ class FusedFitStep:
             t = v._data if isinstance(v, NDArray) else torch.as_tensor(
                 _np.asarray(v))
             inputs[name] = t.to(exe.arg_dict[name]._data.dtype)
-        if self._order is None:
-            self._plan(exe)
-            self._scalars = torch.zeros(2 * len(self._order) + 1,
-                                        dtype=torch.float32,
-                                        device=self._device)
+        n_extra = _fused.build(mode).n_extra
+        if self._order is None or self._scalars.numel() \
+                != (2 + n_extra) * len(self._order) + 1:
+            if self._order is None:
+                self._plan(exe)
+                self._acc = tuple(torch.zeros((), dtype=torch.float32,
+                                              device=self._device)
+                                  for _ in range(2))
+                self._seed = torch.zeros((), dtype=torch.int64,
+                                         device=self._device)
+            # a kind with another count of extras (an optimizer swapped
+            # in) gets a buffer of its size; its programs are rebuilt
+            self._programs.clear()
+            self._pool = GraphPool()
+            self._scalars = torch.zeros(
+                (2 + n_extra) * len(self._order) + 1, dtype=torch.float32,
+                device=self._device)
             self._scalar_stage = Staging(self._scalars)
-            self._acc = tuple(torch.zeros((), dtype=torch.float32,
-                                          device=self._device)
-                              for _ in range(2))
         if self._kv is not None:
             self._kv._flush_pending()
         order, ukeys = self._order, self._ukeys
@@ -454,9 +492,12 @@ class FusedFitStep:
         bound = tuple(id(t) for ts in targets + states + [aux, live]
                       for t in ts)
         if bound != self._bound:
+            # the graphs die with their programs: a new pool, since a
+            # capture into a pool whose graphs are all gone fails
             self._programs.clear()
+            self._pool = GraphPool()
             self._bound = bound
-        lr, wd = optimizer._fused_runtime(ukeys)
+        lr, wd, extra = optimizer._fused_runtime(ukeys)
         use_wd = tuple(bool(v) for v in wd != 0.0)
         if self._threshold is not None:
             self._seed_residuals(exe)
@@ -478,10 +519,12 @@ class FusedFitStep:
             prog = self._programs[key] = _Program(
                 self._make_body(feeds, targets, states, tpls, mp, use_wd,
                                 _fused.build(mode), scaler), feeds,
-                self._device)
+                self._device, self._pool)
         host = _np.concatenate([lr, wd, _np.float32(
-            [optimizer.rescale_grad])]).astype(_np.float32)
+            [optimizer.rescale_grad]), extra.reshape(-1)]).astype(_np.float32)
         self._scalar_stage.put(torch.from_numpy(host))
+        if exe._plan.draws:
+            _random.next_seed(self._device, out=self._seed)
         for name, t in inputs.items():
             prog.staging[name].put(t)
         acc_sum, acc_num = self._acc

@@ -17,7 +17,17 @@ nothing is compressed (the JAX package's rule).
 ``fit_step`` runs eligible configurations as the single-launch fused
 step (``module/fused_fit.py``: one CUDA graph replay per step on the
 card) and returns True; ``MXNET_FIT_FUSED=0`` keeps the eager pair
-(forward and backward, then ``update``).  ``Module.load``,
+(forward and backward, then ``update``).
+
+A batch whose shapes differ from the bound ones re-binds (``forward``
+and ``fit_step`` call :meth:`reshape`, reference module.py:291, :423):
+the executor group of those shapes, made once and kept, shares the
+first group's parameters, gradients and auxiliary states, so the
+optimizer state, the fused step (one graph a batch shape, none captured
+again when a shape returns) and its loss scaler and metric accumulator
+carry over.  ``bind(inputs_need_grad=True)`` gives the data inputs
+gradients (``get_input_grads``; such a module trains on the eager
+pair); ``shared_module`` waits for the bucketing slice (A.6).  ``Module.load``,
 ``save_checkpoint`` and ``save/load_optimizer_states`` write and read
 the reference's files as the JAX package does: the optimizer states
 are a pickle keyed by parameter name whatever key the live updater
@@ -82,6 +92,10 @@ class Module(BaseModule):
         self._update_on_kvstore = None
         self._updater = None
         self._exec_group = None
+        # executor groups by input shapes (Module.reshape), all sharing
+        # the first one's parameters
+        self._exec_groups = {}
+        self.inputs_need_grad = False
         self._data_shapes = None
         self._label_shapes = None
         # MXNET_FIT_FUSED=0 keeps every step on the eager pair
@@ -142,6 +156,14 @@ class Module(BaseModule):
     @property
     def label_shapes(self):
         return self._label_shapes
+
+    @property
+    def output_shapes(self):
+        """``[(output name, shape)]`` of the bound shapes."""
+        shapes = {d.name: d.shape for d in list(self._data_shapes)
+                  + list(self._label_shapes or [])}
+        return list(zip(self._output_names,
+                        self._symbol.infer_shape(**shapes)[1]))
 
     # -- parameters -----------------------------------------------------
     def get_params(self):
@@ -204,27 +226,31 @@ class Module(BaseModule):
              grad_req="write"):
         if shared_module is not None:
             raise MXNetError("bind(shared_module=...) comes with the "
-                             "bucketing slice of the PyTorch port (ROADMAP "
-                             "A.5)")
-        if inputs_need_grad:
-            raise MXNetError("bind(inputs_need_grad=True) comes with a "
-                             "later slice of the PyTorch port (ROADMAP A.5)")
+                             "bucketing and RNN slice of the PyTorch port "
+                             "(ROADMAP A.6)")
+        if inputs_need_grad and not for_training:
+            raise MXNetError("inputs_need_grad requires for_training")
         if force_rebind:
             self._drop_fused_fit()
             self.binded = False
             self.params_initialized = False
             self._exec_group = None
+            self._exec_groups = {}
         if self.binded:
             self.logger.warning("Already bound, ignoring bind()")
             return
         self.for_training = for_training
+        self.inputs_need_grad = bool(inputs_need_grad)
         self._data_shapes = as_descs(data_shapes)
         self._label_shapes = as_descs(label_shapes)
         self._exec_group = DataParallelExecutorGroup(
             self._symbol, self._context, self._data_shapes,
             self._label_shapes, self._param_names, for_training,
             fixed_param_names=self._fixed_param_names,
-            grad_req=grad_req)
+            grad_req=grad_req, inputs_need_grad=self.inputs_need_grad)
+        self._exec_groups = {self._shape_key(self._data_shapes,
+                                             self._label_shapes):
+                             self._exec_group}
         self.binded = True
         if self._preloaded_params is not None:
             args, auxs = self._preloaded_params
@@ -285,16 +311,50 @@ class Module(BaseModule):
             self.load_optimizer_states(self._preload_opt_states)
             self._preload_opt_states = None
 
+    @staticmethod
+    def _shape_key(data_shapes, label_shapes):
+        return tuple((d.name, tuple(d.shape))
+                     for d in list(data_shapes) + list(label_shapes or []))
+
+    def reshape(self, data_shapes, label_shapes=None):
+        """Re-bind to new input shapes, keeping the parameters, their
+        gradients, the auxiliary states, the optimizer and the fused
+        step: the group of these shapes (made at its first use, then
+        kept) shares the first group's arrays (reference module.py:291)."""
+        if not self.binded:
+            raise MXNetError("reshape() requires bind()")
+        self._data_shapes = as_descs(data_shapes)
+        self._label_shapes = as_descs(label_shapes)
+        key = self._shape_key(self._data_shapes, self._label_shapes)
+        group = self._exec_groups.get(key)
+        if group is None:
+            group = self._exec_groups[key] = self._exec_group.reshape(
+                self._data_shapes, self._label_shapes)
+        self._exec_group = group
+
+    def _reshape_for(self, data_batch):
+        """Re-bind when ``data_batch``'s shapes differ from the bound
+        ones (reference module.py:423-431): the batch's
+        ``provide_data``/``provide_label`` when it has them, else the
+        bound names with the arriving shapes."""
+        arriving = tuple(tuple(a.shape) for a in data_batch.data)
+        if arriving == tuple(d.shape for d in self._data_shapes):
+            return
+        d_descs = getattr(data_batch, "provide_data", None) or \
+            [(d.name, shape) for d, shape in zip(self._data_shapes,
+                                                 arriving)]
+        labels = getattr(data_batch, "label", None)
+        l_descs = getattr(data_batch, "provide_label", None)
+        if not l_descs and labels:
+            l_descs = [(name, tuple(a.shape))
+                       for name, a in zip(self._label_names, labels)]
+        self.reshape(d_descs, l_descs or None)
+
     # -- execution ------------------------------------------------------
     def forward(self, data_batch, is_train=None):
         if not (self.binded and self.params_initialized):
             raise MXNetError("forward() requires bind() and init_params()")
-        arriving = tuple(tuple(a.shape) for a in data_batch.data)
-        bound = tuple(d.shape for d in self._data_shapes)
-        if arriving != bound:
-            raise MXNetError("batch shapes %s differ from the bound %s; "
-                             "re-binding comes with a later slice (ROADMAP "
-                             "A.5, Module.reshape)" % (arriving, bound))
+        self._reshape_for(data_batch)
         self._exec_group.forward(data_batch, is_train)
 
     def backward(self, out_grads=None):
@@ -330,6 +390,7 @@ class Module(BaseModule):
         backward, 2-bit compression, the update and the metric's device
         accumulation as the single-launch fused step and return True;
         everything else takes the eager pair and returns False."""
+        self._reshape_for(data_batch)
         fused = self._get_fused_fit()
         if fused is not None and fused.step(data_batch, eval_metric):
             return True
@@ -431,6 +492,16 @@ class Module(BaseModule):
     def get_outputs(self, merge_multi_context=True):
         outs = self._exec_group.get_outputs()
         return outs if merge_multi_context else [[o] for o in outs]
+
+    def get_input_grads(self, merge_multi_context=True):
+        """The data inputs' gradients of the last backward (a module
+        bound with ``inputs_need_grad=True``)."""
+        if not (self.binded and self.params_initialized
+                and self.inputs_need_grad):
+            raise MXNetError("get_input_grads() requires bind("
+                             "inputs_need_grad=True) and init_params()")
+        grads = self._exec_group.get_input_grads()
+        return grads if merge_multi_context else [[g] for g in grads]
 
     def update_metric(self, eval_metric, labels, pre_sliced=False):
         self._exec_group.update_metric(eval_metric, labels)

@@ -12,6 +12,8 @@ go through the hand-written kernels in ``..kernels``, which take the
 plain PyTorch versions only for tensors on the CPU.  Gradients are
 autograd's, with ``torch.autograd.Function``s where the JAX package had
 a custom VJP (LayerNorm, flash attention, SoftmaxOutput, BatchNorm).
+Dropout is a mask draw (:func:`dropout_mask`, from the walk's step seed,
+``random.keep_mask``) and a mask apply (:func:`dropout_apply`).
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from functools import partial
 import torch
 import torch.nn.functional as F
 
+from .. import random as _random
 from ..base import MXNetError
 from ..kernels import (flash_attention, layernorm, paged_chunk_prefill_attend,
                        paged_decode_attend, paged_prefill_attend)
@@ -344,6 +347,55 @@ def leaky_relu(data, gamma=None, *, act_type="leaky", slope=0.25,
         return F.gelu(data, approximate="tanh")
     raise MXNetError("LeakyReLU act_type=%s is not in the PyTorch port yet "
                      "(ROADMAP A.5, ops)" % act_type)
+
+
+# ----------------------------------------------------------------------
+# Dropout (ref src/operator/nn/dropout-inl.h; mxnet_tpu/ops/nn.py:572)
+# ----------------------------------------------------------------------
+def dropout_scale(p, dtype):
+    """``1 / (1 - p)`` as the reference's mask holds it: 1 divided by
+    ``1 - p`` rounded to ``dtype``, in ``dtype`` (in bf16, 1/0.9 comes
+    out of bf16(0.9), not of 0.9), as a Python float."""
+    one = torch.ones((), dtype=dtype)
+    return float(one / torch.tensor(1.0 - float(p), dtype=dtype))
+
+
+def dropout_mask(data, p, axes=(), rng=None):
+    """The scaled mask of one Dropout draw: ``bernoulli(1 - p)`` in
+    ``data``'s type times :func:`dropout_scale`, values exactly 0 or
+    that scale, of ``data``'s shape with size 1 on ``axes`` (broadcast
+    by the apply).  Drawn from ``rng``'s step seed and next site
+    (``random.StepRandom``), or from a fresh seed of the device's
+    generator when ``rng`` is None (an imperative call)."""
+    axes = tuple(int(a) % data.dim() for a in (axes or ()))
+    shape = tuple(1 if i in axes else s for i, s in enumerate(data.shape))
+    if rng is None:
+        seed, site = _random.next_seed(data.device), 0
+    else:
+        seed, site = rng.next()
+    keep = _random.keep_mask(seed, site, shape, 1.0 - float(p), data.device)
+    return keep.to(data.dtype) * dropout_scale(p, data.dtype)
+
+
+def dropout_apply(data, mask):
+    """``data * mask`` in ``data``'s type (the mask broadcast over its
+    size-1 axes); autograd's backward is ``grad * mask``."""
+    return data * mask
+
+
+@register("Dropout", aliases=("dropout",), num_outputs=2,
+          num_visible_outputs=1)
+def dropout(data, *, p=0.5, mode="training", axes=(), cudnn_off=False,
+            is_train=False, rng=None):
+    """Inverted dropout: outputs ``(data * mask, mask)`` with the mask
+    (invisible) broadcast to ``data``'s shape; the identity with a mask
+    of ones when ``p <= 0`` or when not training and ``mode`` is not
+    ``'always'``.  ``cudnn_off`` is accepted and changes nothing."""
+    p = float(p)
+    if p <= 0.0 or (not is_train and mode != "always"):
+        return data, data.new_ones(()).expand(data.shape)
+    mask = dropout_mask(data, p, axes, rng)
+    return dropout_apply(data, mask), mask.expand(data.shape)
 
 
 @register("Embedding")

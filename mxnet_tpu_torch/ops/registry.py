@@ -5,7 +5,10 @@ function on torch tensors; its signature declares the interface:
 positional-or-keyword parameters are tensor inputs (``=None`` marks one
 optional), keyword-only parameters are attributes, except ``is_train``:
 an op that declares it is handed the executor's train flag (the JAX
-package's ``current_op_context().is_train``).  ``mutate_inputs`` names
+package's ``current_op_context().is_train``), and ``rng``: an op that
+declares it draws random numbers and is handed the walk's
+``random.StepRandom`` (the JAX package's ``next_rng_key()``), or None
+when called alone.  ``mutate_inputs`` names
 the inputs an op updates, each with the output that carries its new
 value (BatchNorm's moving statistics, the reference's FMutateInputs):
 the symbol lists those variables as auxiliary states and the executor
@@ -54,7 +57,9 @@ class OpDef:
                               for p in sig.parameters.values()
                               if p.kind is p.KEYWORD_ONLY}
         self.takes_is_train = "is_train" in self.attr_defaults
+        self.takes_rng = "rng" in self.attr_defaults
         self.attr_defaults.pop("is_train", None)
+        self.attr_defaults.pop("rng", None)
         self.__doc__ = fn.__doc__
 
     def names_for(self, n_inputs):

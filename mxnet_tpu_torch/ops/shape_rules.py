@@ -381,6 +381,7 @@ OUT_SHAPES = {
     "LayerNorm": lambda ins, a: [ins["data"], ins["data"][:-1],
                                  ins["data"][:-1]],
     "LeakyReLU": lambda ins, a: [ins["data"]],
+    "Dropout": lambda ins, a: [ins["data"], ins["data"]],
     "Embedding": lambda ins, a: [ins["data"] + (a["output_dim"],)],
     "_contrib_PagedDecodeAttention":
         lambda ins, a: [ins["data"], ins["k_cache"], ins["v_cache"]],
@@ -473,7 +474,7 @@ _register_unary()
 # jnp's arithmetic does
 _DATA_TYPED = {"BatchNorm", "LayerNorm", "_FusedBNReluConv", "SoftmaxOutput",
                "_contrib_FusedCausalSelfAttention", "Pooling", "Activation",
-               "Flatten", "LeakyReLU", "Reshape", "slice_axis",
+               "Flatten", "LeakyReLU", "Dropout", "Reshape", "slice_axis",
                "_contrib_GatherTimestep", "_contrib_PagedDecodeAttention",
                "_contrib_PagedChunkPrefillAttention",
                "_contrib_PagedPrefillAttention"}

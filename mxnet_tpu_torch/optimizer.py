@@ -1,35 +1,44 @@
 """Optimizers.
 
-Counterpart of ``mxnet_tpu/optimizer.py``, reduced to what the training
-slices use: the ``Optimizer`` base (``lr``, ``wd``, ``rescale_grad``,
-``clip_gradient``, per-parameter ``lr_mult``/``wd_mult`` from a Gluon
-Trainer's ``param_dict`` or from ``param_idx2name`` and the symbol's
-``__lr_mult__``/``__wd_mult__`` attributes, wd 0 for parameters not
-named ``*_weight``/``*_gamma``, an ``lr_scheduler`` hook), ``SGD`` (momentum), ``Signum``, ``Adam``,
-``AdaGrad``, ``RMSProp`` (plain and centered), ``Updater``,
-``get_updater``, ``create`` and ``register``.  Each update is the
-in-place operator of ``ops/optimizer_ops.py``.
+Counterpart of ``mxnet_tpu/optimizer.py``: the ``Optimizer`` base
+(``lr``, ``wd``, ``rescale_grad``, ``clip_gradient``, per-parameter
+``lr_mult``/``wd_mult`` from a Gluon Trainer's ``param_dict`` or from
+``param_idx2name`` and the symbol's ``__lr_mult__``/``__wd_mult__``
+attributes, wd 0 for parameters not named ``*_weight``/``*_gamma``, an
+``lr_scheduler`` hook), the reference's seventeen optimizers (its
+conformance fixture ``Test`` aside): ``SGD`` (momentum), ``Signum``,
+``SignSGD``, ``NAG``, ``SGLD``, ``Adam``, ``AdaGrad``, ``GroupAdaGrad``,
+``RMSProp`` (plain and centered), ``AdaDelta``, ``Ftrl``, ``Adamax``,
+``Nadam``, ``FTML``, ``DCASGD``, ``LBSGD`` and ``LAMB``, and ``Updater``,
+``get_updater``, ``create`` and ``register``.  The first optimizers'
+updates are the in-place operators of ``ops/optimizer_ops.py``; the
+others update in place with the reference's arithmetic, written out
+here (LBSGD and LAMB read their norms to the host, as the reference's
+eager updates do).
 
 The fused-update protocol (the JAX package's ``_fused_sig``,
-``_fused_bucket_sig``, ``_fused_fit_sig``): an optimizer that describes
-its update as a ``(kind, *hyperparameters)`` tuple naming a kind of
-``fused_update.py`` may be applied by the kvstore's bucketed path and
-by ``Module``'s single-launch fit step (``module/fused_fit.py``), which
-applies the kind's pure update with lr, wd and ``rescale_grad`` as
-runtime values (``_fused_runtime``).  SGD (with momentum), Adam,
-AdaGrad and RMSProp (plain and centered) describe theirs; Signum
-returns None and stays on the eager per-key path.
+``_fused_bucket_sig``, ``_fused_fit_sig``, ``_fused_extra``): an
+optimizer that describes its update as a ``(kind, *hyperparameters)``
+tuple naming a kind of ``fused_update.py`` may be applied by the
+kvstore's bucketed path and by ``Module``'s single-launch fit step
+(``module/fused_fit.py``), which applies the kind's pure update with
+lr, wd, ``rescale_grad`` and the kind's extra per-key scalars as runtime
+values (``_fused_runtime``).  SGD (with momentum), Adam, AdaGrad,
+RMSProp (plain and centered), LBSGD, Adamax, Nadam and LAMB describe
+theirs; the others stay on the eager per-key path, each for the reason
+``FUSED_EAGER_WAIVERS`` gives (the reference's list).
 
 ``multi_precision=True`` keeps an f32 master copy of every bf16 or
 f16 weight: ``create_state_multi_precision`` returns ``(inner state,
 weight32)`` and ``update_multi_precision`` updates the master in f32
 and writes it back rounded to the weight's type, as the JAX package's
 do (SGD through ``mp_sgd_update``/``mp_sgd_mom_update``, the ops that
-``parallel.TrainStep`` applies too).  The ``Updater`` that ``Module``,
-the kvstore and Gluon's ``Trainer`` apply creates and updates every
-state through these two, so a 16-bit weight trains through its master
-on every path.  Without ``multi_precision`` a 16-bit weight updates in
-its own type, as in the JAX package.
+``parallel.TrainStep`` applies too; LBSGD's LARS coefficient from the
+master).  The ``Updater`` that ``Module``, the kvstore and Gluon's
+``Trainer`` apply creates and updates every state through these two, so
+a 16-bit weight trains through its master on every path.  Without
+``multi_precision`` a 16-bit weight updates in its own type, as in the
+JAX package.
 """
 from __future__ import annotations
 
@@ -38,6 +47,7 @@ import math
 import numpy as _np
 import torch
 
+from . import random as _random
 from .base import (LOW_PRECISION, MXNetError,
                    numpy_to_tensor)
 from .ndarray.ndarray import NDArray, zeros
@@ -47,10 +57,33 @@ from .ops.optimizer_ops import (adagrad_update, adam_update,
                                 sgd_mom_update, sgd_update, signsgd_update,
                                 signum_update)
 
-__all__ = ["Optimizer", "SGD", "Signum", "Adam", "AdaGrad", "RMSProp",
-           "Updater", "get_updater", "create", "register"]
+__all__ = ["Optimizer", "SGD", "Signum", "SignSGD", "NAG", "SGLD", "Adam",
+           "AdaGrad", "GroupAdaGrad", "RMSProp", "AdaDelta", "Ftrl",
+           "Adamax", "Nadam", "FTML", "DCASGD", "LBSGD", "LAMB", "Updater",
+           "get_updater", "create", "register", "FUSED_EAGER_WAIVERS"]
 
 _OPT_REGISTRY = {}
+
+# the optimizers that stay on the eager per-key path, each with the
+# reference's reason (mxnet_tpu/optimizer.py:35)
+FUSED_EAGER_WAIVERS = {
+    "Signum": "sign-of-momentum update couples wd_lh into the weight "
+              "step; niche optimizer, fuse on demand",
+    "SignSGD": "inherits Signum's eager path",
+    "NAG": "nesterov look-ahead mutates the momentum mid-formula; "
+           "fuse together with Signum if demand appears",
+    "SGLD": "draws fresh Langevin noise every update: not a pure "
+            "function of (weight, grad, state)",
+    "GroupAdaGrad": "embedding-table optimizer; its row-sparse path "
+                    "waits for sparse NDArrays (ROADMAP A.6)",
+    "AdaDelta": "accumulator pair updated through aliased in-place "
+                "views; rarely used at scale",
+    "Ftrl": "piecewise-zero proximal update (sparse-regime optimizer)",
+    "FTML": "t-dependent denominator already runs as one update per "
+            "key",
+    "DCASGD": "delay compensation snapshots the full previous weight: "
+              "async-SGD only, never on the sync hot path",
+}
 
 
 def register(klass):
@@ -62,9 +95,12 @@ def create(name, **kwargs):
     if isinstance(name, Optimizer):
         return name
     key = str(name).lower()
+    if key == "test":
+        raise MXNetError("optimizer 'test' is the reference's conformance "
+                         "fixture, not in the PyTorch port (ROADMAP A.10, "
+                         "test_utils)")
     if key not in _OPT_REGISTRY:
-        raise MXNetError("optimizer '%s' is not in the PyTorch port yet "
-                         "(ROADMAP A.5, optimizers)" % name)
+        raise MXNetError("unknown optimizer '%s'" % name)
     return _OPT_REGISTRY[key](**kwargs)
 
 
@@ -173,15 +209,23 @@ class Optimizer:
         override it.  ``_update_count`` has run for the key."""
         return self._get_lr(index)
 
+    def _fused_extra(self, ukeys):
+        """The (n_keys, n_extra) f32 matrix of per-key runtime scalars
+        beyond lr and wd that the kind reads (Nadam's schedule products,
+        LAMB's bias corrections); host state the eager updates advance
+        is advanced here, in ``ukeys`` order."""
+        return _np.zeros((len(ukeys), 0), dtype=_np.float32)
+
     def _fused_runtime(self, ukeys):
         """Advance the update counts of ``ukeys`` in order, as the eager
-        per-key updates would, and return the f32 ``(lr, wd)`` vectors
-        of one fused step."""
+        per-key updates would, and return the f32 ``(lr, wd, extra)``
+        of one fused step: two vectors and the :meth:`_fused_extra`
+        matrix."""
         for uk in ukeys:
             self._update_count(uk)
         lr = _np.asarray([self._fused_lr(uk) for uk in ukeys], _np.float32)
         wd = _np.asarray([self._get_wd(uk) for uk in ukeys], _np.float32)
-        return lr, wd
+        return lr, wd, self._fused_extra(ukeys)
 
     @staticmethod
     def _clip_sig(clip):
@@ -241,6 +285,11 @@ class Optimizer:
 
     def _get_wd(self, index):
         return self.wd * self._mult(index, self.wd_mult, "wd_mult")
+
+    def _grad(self, grad):
+        """``grad * rescale_grad``, clipped when ``clip_gradient`` is set
+        (the Python-written optimizers' preamble)."""
+        return _clip(grad._data * self.rescale_grad, self.clip_gradient)
 
     def _common_kwargs(self):
         kw = {"rescale_grad": self.rescale_grad}
@@ -361,6 +410,62 @@ class Signum(Optimizer):
 
 
 @register
+class SignSGD(Signum):
+    """Signum with no momentum: steps by the gradient's sign (reference
+    optimizer.py SignSGD)."""
+
+    def __init__(self, **kwargs):
+        kwargs.setdefault("momentum", 0.0)
+        super().__init__(**kwargs)
+
+
+@register
+class NAG(Optimizer):
+    """Nesterov accelerated SGD (reference optimizer.py NAG)."""
+
+    def __init__(self, momentum=0.0, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+
+    def create_state(self, index, weight):
+        if self.momentum == 0.0:
+            return None
+        return zeros(weight.shape, weight.context, dtype=weight.dtype)
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        w = weight._data
+        g = self._grad(grad)
+        if state is not None:
+            mom = state._data
+            mom.mul_(self.momentum)
+            g = g + wd * w
+            mom.add_(g)
+            g = g + self.momentum * mom
+            w.add_(-lr * g)
+        else:
+            w.add_(-lr * (g + wd * w))
+
+
+@register
+class SGLD(Optimizer):
+    """Stochastic gradient Langevin dynamics (reference optimizer.py
+    SGLD): half a gradient step plus N(0, lr) noise drawn from the
+    weight's device generator."""
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        w = weight._data
+        g = self._grad(grad)
+        noise = _sgld_noise(w, lr)
+        w.add_(-lr / 2 * (g + wd * w) + noise)
+
+
+@register
 class AdaGrad(Optimizer):
     """AdaGrad (reference optimizer.py AdaGrad); ``eps`` is kept as
     ``float_stable_eps``."""
@@ -428,6 +533,412 @@ class RMSProp(Optimizer):
             rmsprop_update(weight._data, grad._data, state._data, lr=lr,
                            wd=wd, gamma1=self.gamma1, epsilon=self.epsilon,
                            **kw)
+
+
+@register
+class GroupAdaGrad(Optimizer):
+    """Row-wise AdaGrad (reference contrib GroupAdaGrad): one adaptive
+    cell per row of a 2-D weight, ``history += mean(g^2, axis=1)``;
+    weight decay is not supported and raises."""
+
+    def __init__(self, learning_rate=0.01, eps=1e-5, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        if self.wd != 0.0:
+            raise MXNetError("GroupAdaGrad does not support weight decay "
+                             "(reference contrib.GroupAdaGrad)")
+        self.float_stable_eps = eps
+
+    def create_state(self, index, weight):
+        return zeros((weight.shape[0], 1), weight.context)
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr = self._get_lr(index)
+        if len(weight.shape) != 2:
+            raise MXNetError("group_adagrad_update expects 2-D weights "
+                             "(got %s)" % (weight.shape,))
+        w, h = weight._data, state._data
+        g = grad._data.float() * self.rescale_grad
+        if self.clip_gradient is not None and self.clip_gradient >= 0:
+            g = g.clamp(-self.clip_gradient, self.clip_gradient)
+        h.add_(g.square().mean(dim=1, keepdim=True))
+        w.copy_(w.float() - lr * g / torch.sqrt(h + self.float_stable_eps))
+
+
+@register
+class AdaDelta(Optimizer):
+    """AdaDelta (reference optimizer.py AdaDelta): no learning rate; the
+    step is ``sqrt(acc_delta + eps) / sqrt(acc_g + eps) * g``."""
+
+    def __init__(self, rho=0.9, epsilon=1e-5, **kwargs):
+        super().__init__(**kwargs)
+        self.rho = rho
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        return (zeros(weight.shape, weight.context),
+                zeros(weight.shape, weight.context))
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        wd = self._get_wd(index)
+        w = weight._data
+        g = self._grad(grad) + wd * w
+        acc_g, acc_delta = state[0]._data, state[1]._data
+        rho = self.rho
+        acc_g.copy_(rho * acc_g + (1 - rho) * g * g)
+        delta = (torch.sqrt(acc_delta + self.epsilon)
+                 / torch.sqrt(acc_g + self.epsilon)) * g
+        acc_delta.copy_(rho * acc_delta + (1 - rho) * delta * delta)
+        w.sub_(delta)
+
+
+@register
+class Ftrl(Optimizer):
+    """Follow the regularized leader (reference optimizer.py Ftrl and
+    the ``ftrl_update`` op): ``z`` and ``n`` accumulators, a weight of
+    exactly zero where ``|z| <= lamda1``."""
+
+    def __init__(self, lamda1=0.01, learning_rate=0.1, beta=1.0, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.lamda1 = lamda1
+        self.beta = beta
+
+    def create_state(self, index, weight):
+        return (zeros(weight.shape, weight.context),
+                zeros(weight.shape, weight.context))
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        w = weight._data
+        z, n = state[0]._data, state[1]._data
+        g = grad._data.float() * self.rescale_grad
+        if self.clip_gradient is not None and self.clip_gradient >= 0:
+            g = g.clamp(-self.clip_gradient, self.clip_gradient)
+        new_n = n + g.square()
+        sigma = (torch.sqrt(new_n) - torch.sqrt(n)) / lr
+        new_z = z + g - sigma * w
+        new_w = torch.where(
+            new_z.abs() <= self.lamda1, torch.zeros_like(new_z),
+            -(new_z - torch.sign(new_z) * self.lamda1)
+            / ((self.beta + torch.sqrt(new_n)) / lr + wd))
+        n.copy_(new_n)
+        z.copy_(new_z)
+        w.copy_(new_w)
+
+
+@register
+class Adamax(Optimizer):
+    """Adamax, Adam over the infinity norm (reference optimizer.py
+    Adamax); ``1 - beta1^t`` divides the step size on the host."""
+
+    def __init__(self, learning_rate=0.002, beta1=0.9, beta2=0.999,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+
+    def create_state(self, index, weight):
+        return (zeros(weight.shape, weight.context),
+                zeros(weight.shape, weight.context))
+
+    def _fused_sig(self):
+        return ("adamax", float(self.beta1), float(self.beta2),
+                self._clip_sig(self.clip_gradient))
+
+    def _fused_lr(self, index):
+        t = self._index_update_count[index]
+        return self._get_lr(index) / (1.0 - self.beta1 ** t)
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        t = self._index_update_count[index]
+        lr /= (1.0 - self.beta1 ** t)
+        w = weight._data
+        g = _clip(grad._data.float() * self.rescale_grad + wd * w,
+                  self.clip_gradient)
+        m, u = state[0]._data, state[1]._data
+        m.copy_(self.beta1 * m + (1.0 - self.beta1) * g)
+        u.copy_(torch.maximum(self.beta2 * u, g.abs()))
+        w.sub_(lr * m / u)
+
+
+@register
+class Nadam(Optimizer):
+    """Nesterov Adam (reference optimizer.py Nadam): the momentum
+    schedule's running product ``m_schedule`` is host state that every
+    key's update advances, in update order."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, schedule_decay=0.004, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+        self.schedule_decay = schedule_decay
+        self.m_schedule = 1.0
+
+    def create_state(self, index, weight):
+        return (zeros(weight.shape, weight.context),
+                zeros(weight.shape, weight.context))
+
+    def _fused_sig(self):
+        return ("nadam", float(self.beta1), float(self.beta2),
+                float(self.epsilon), float(self.schedule_decay),
+                self._clip_sig(self.clip_gradient))
+
+    def _schedule(self, t):
+        """Advance ``m_schedule`` for one key's step ``t``; returns
+        ``(momentum_t, momentum_t_1, m_schedule_next)``."""
+        momentum_t = self.beta1 * (
+            1.0 - 0.5 * 0.96 ** (t * self.schedule_decay))
+        momentum_t_1 = self.beta1 * (
+            1.0 - 0.5 * 0.96 ** ((t + 1) * self.schedule_decay))
+        self.m_schedule = self.m_schedule * momentum_t
+        return momentum_t, momentum_t_1, self.m_schedule * momentum_t_1
+
+    def _fused_extra(self, ukeys):
+        out = _np.zeros((len(ukeys), 5), dtype=_np.float32)
+        for i, uk in enumerate(ukeys):
+            t = self._index_update_count[uk]
+            momentum_t, momentum_t_1, m_next = self._schedule(t)
+            out[i] = (momentum_t, momentum_t_1, self.m_schedule, m_next,
+                      1.0 - self.beta2 ** t)
+        return out
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        t = self._index_update_count[index]
+        w = weight._data
+        g = _clip(grad._data.float() * self.rescale_grad + wd * w,
+                  self.clip_gradient)
+        momentum_t, momentum_t_1, m_schedule_next = self._schedule(t)
+        m, v = state[0]._data, state[1]._data
+        m.copy_(self.beta1 * m + (1.0 - self.beta1) * g)
+        v.copy_(self.beta2 * v + (1.0 - self.beta2) * g * g)
+        grad_prime = g / (1.0 - self.m_schedule)
+        m_prime = m / (1.0 - m_schedule_next)
+        v_prime = v / (1.0 - self.beta2 ** t)
+        m_bar = (1.0 - momentum_t) * grad_prime + momentum_t_1 * m_prime
+        w.sub_(lr * m_bar / (torch.sqrt(v_prime) + self.epsilon))
+
+
+@register
+class FTML(Optimizer):
+    """Follow the moving leader (reference optimizer.py FTML and the
+    ``ftml_update`` op; the op adds ``wd * w`` to the gradient before
+    clipping)."""
+
+    def __init__(self, learning_rate=0.0025, beta1=0.6, beta2=0.999,
+                 epsilon=1e-8, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        return tuple(zeros(weight.shape, weight.context) for _ in range(3))
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        w = weight._data
+        d, v, z = (st._data for st in state)
+        g = grad._data.float() * self.rescale_grad + wd * w.float()
+        if self.clip_gradient is not None and self.clip_gradient >= 0:
+            g = g.clamp(-self.clip_gradient, self.clip_gradient)
+        b1, b2 = self.beta1, self.beta2
+        # the op's t-powers are f32 tensor arithmetic, as the reference's
+        f32 = dict(dtype=torch.float32, device=w.device)
+        t = torch.tensor(float(self._index_update_count[index]), **f32)
+        pow1 = torch.pow(torch.tensor(b1, **f32), t)
+        pow2 = torch.pow(torch.tensor(b2, **f32), t)
+        new_v = b2 * v + (1.0 - b2) * g.square()
+        d_new = (1.0 - pow1) / lr * (torch.sqrt(new_v / (1.0 - pow2))
+                                     + self.epsilon)
+        sigma = d_new - b1 * d
+        new_z = b1 * z + (1.0 - b1) * g - sigma * w.float()
+        v.copy_(new_v)
+        d.copy_(d_new)
+        z.copy_(new_z)
+        w.copy_(-new_z / d_new)
+
+
+@register
+class DCASGD(Optimizer):
+    """Delay-compensated asynchronous SGD (reference optimizer.py
+    DCASGD): the state keeps the previous weight."""
+
+    def __init__(self, momentum=0.0, lamda=0.04, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+        self.lamda = lamda
+
+    def create_state(self, index, weight):
+        mom = zeros(weight.shape, weight.context) \
+            if self.momentum != 0.0 else None
+        return (mom, weight.copy())
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        w = weight._data
+        g = self._grad(grad)
+        mom, previous = state
+        prev = previous._data
+        comp = g + wd * w + self.lamda * g * g * (w - prev)
+        if mom is not None:
+            mom._data.copy_(self.momentum * mom._data - lr * comp)
+            step = mom._data
+        else:
+            step = -lr * comp
+        prev.copy_(w)
+        w.add_(step)
+
+
+@register
+class LBSGD(SGD):
+    """Large-batch SGD: SGD with momentum whose step takes LARS's
+    layer-wise coefficient ``||w|| / (||g|| + wd ||w|| + 1e-9) * 0.001``
+    (reference optimizer.py LBSGD; the norms read to the host here, on
+    the device in the fused kind).  Under ``multi_precision`` the norms
+    are the f32 master's and the f32 gradient's."""
+
+    def __init__(self, momentum=0.9, multi_precision=False,
+                 warmup_strategy="linear", warmup_epochs=5, batch_scale=1,
+                 updates_per_epoch=32, begin_epoch=0, num_epochs=60,
+                 **kwargs):
+        super().__init__(momentum=momentum, multi_precision=multi_precision,
+                         **kwargs)
+        self.warmup_strategy = warmup_strategy
+        self.warmup_epochs = warmup_epochs
+        self.batch_scale = batch_scale
+        self.updates_per_epoch = updates_per_epoch
+
+    def _fused_sig(self):
+        return ("lbsgd", float(self.momentum),
+                self._clip_sig(self.clip_gradient))
+
+    @staticmethod
+    def _get_lars(weight, g, wd):
+        w_norm = float(_norm(weight).item())
+        g_norm = float(_norm(g).item())
+        if w_norm > 0 and g_norm > 0:
+            return w_norm / (g_norm + wd * w_norm + 1e-9) * 0.001
+        return 1.0
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        lr = lr * self._get_lars(weight._data, grad._data, wd)
+        if state is not None:
+            sgd_mom_update(weight._data, grad._data, state._data, lr=lr,
+                           wd=wd, momentum=self.momentum,
+                           **self._common_kwargs())
+        else:
+            sgd_update(weight._data, grad._data, lr=lr, wd=wd,
+                       **self._common_kwargs())
+
+    def update_multi_precision(self, index, weight, grad, state):
+        if not self.keeps_master(weight):
+            self.update(index, weight, grad, state)
+            return
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        mom, weight32 = state
+        lr = lr * self._get_lars(weight32._data, grad._data.float(), wd)
+        if mom is not None:
+            mp_sgd_mom_update(weight._data, grad._data, mom._data,
+                              weight32._data, lr=lr, wd=wd,
+                              momentum=self.momentum, **self._common_kwargs())
+        else:
+            mp_sgd_update(weight._data, grad._data, weight32._data, lr=lr,
+                          wd=wd, **self._common_kwargs())
+
+
+@register
+class LAMB(Optimizer):
+    """Layer-wise adaptive moments (You et al., arXiv:1904.00962;
+    reference optimizer.py LAMB): Adam's moments with the step scaled by
+    the trust ratio ``||w|| / ||r||``, its norms read to the host here
+    and reduced on the device in the fused kind; ``1 - beta^t`` reach
+    the fused kind as runtime scalars."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-6, bias_correction=True, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+        self.bias_correction = bias_correction
+
+    def create_state(self, index, weight):
+        return (zeros(weight.shape, weight.context),
+                zeros(weight.shape, weight.context))
+
+    def _fused_sig(self):
+        return ("lamb", float(self.beta1), float(self.beta2),
+                float(self.epsilon), bool(self.bias_correction),
+                self._clip_sig(self.clip_gradient))
+
+    def _fused_extra(self, ukeys):
+        out = _np.zeros((len(ukeys), 2), dtype=_np.float32)
+        for i, uk in enumerate(ukeys):
+            t = self._index_update_count[uk]
+            out[i] = (1.0 - self.beta1 ** t, 1.0 - self.beta2 ** t)
+        return out
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        t = self._index_update_count[index]
+        w = weight._data
+        g = _clip(grad._data.float() * self.rescale_grad, self.clip_gradient)
+        m, v = state[0]._data, state[1]._data
+        m.copy_(self.beta1 * m + (1.0 - self.beta1) * g)
+        v.copy_(self.beta2 * v + (1.0 - self.beta2) * g * g)
+        if self.bias_correction:
+            m_hat = m / (1.0 - self.beta1 ** t)
+            v_hat = v / (1.0 - self.beta2 ** t)
+        else:
+            m_hat, v_hat = m, v
+        r = m_hat / (torch.sqrt(v_hat) + self.epsilon) + wd * w
+        w_norm = float(_norm(w).item())
+        r_norm = float(_norm(r).item())
+        ratio = w_norm / r_norm if (w_norm > 0 and r_norm > 0) else 1.0
+        w.sub_(lr * ratio * r)
+
+
+def _clip(g, clip):
+    """``g`` clipped to +-``clip`` when a bound is set (the reference's
+    ``nd.clip`` in the optimizers written out in Python)."""
+    return g if clip is None else g.clamp(-clip, clip)
+
+
+def _norm(t):
+    """The 2-norm of ``t`` in f32, as a 0-d tensor."""
+    return t.float().square().sum().sqrt()
+
+
+def _sgld_noise(weight, lr):
+    """SGLD's N(0, lr) noise of ``weight``'s shape and type, drawn from
+    its device's generator."""
+    noise = torch.empty(weight.shape, dtype=torch.float32,
+                        device=weight.device)
+    noise.normal_(0.0, math.sqrt(lr), generator=_random.generator(
+        weight.device))
+    return noise.to(weight.dtype)
 
 
 class Updater:

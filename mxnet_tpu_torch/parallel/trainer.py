@@ -14,7 +14,13 @@ is updated all the same, as the JAX package's vjp gives zeros (weight
 decay still moves it).  The learning rate comes from the scheduler at
 ``num_update = max(num_update, step)``; Adam's bias correction is
 folded into it with one global step count, since every parameter
-updates every step.
+updates every step.  The optimizers with a fused kind beyond those five
+(LBSGD, Adamax, Nadam, LAMB; the JAX package's TrainStep refuses them)
+update through that kind (``fused_update.apply_one``), each key's
+count, lr, weight decay and extra runtime scalars advanced in parameter
+order as ``Optimizer._fused_runtime`` does, the extras staged as one
+device tensor.  A graph with Dropout draws each step's masks from a
+fresh step seed (the executor's forward, ``random.next_seed``).
 
 16-bit: the symbol is bound in the types it infers (a model whose data
 is cast to bf16 or f16 has weights and gradients of that type and, as
@@ -39,6 +45,7 @@ import json
 
 import torch
 
+from .. import fused_update as _fused
 from .. import initializer as _init
 from .. import optimizer as _opt
 from ..base import MXNetError, check_float_dtype
@@ -107,16 +114,33 @@ def _update(optimizer, name, weight, grad, state, lr):
         _oo.adagrad_update(weight, grad, *state, lr=lr,
                            epsilon=optimizer.float_stable_eps, wd=wd, **kw)
     else:
-        raise MXNetError("TrainStep supports sgd/signum/adam/rmsprop/adagrad; "
-                         "%r must run through Module.update()"
-                         % type(optimizer).__name__)
+        raise MXNetError("TrainStep supports sgd/signum/adam/rmsprop/adagrad "
+                         "and the optimizers with a fused kind (lbsgd, "
+                         "adamax, nadam, lamb); %r must run through "
+                         "Module.update()" % type(optimizer).__name__)
+
+
+def _fused_kind(optimizer):
+    """The ``fused_update`` signature :class:`TrainStep` applies for an
+    optimizer outside the JAX package's five (LBSGD, Adamax, Nadam,
+    LAMB), or None for those five and for optimizers with no kind."""
+    if type(optimizer) in (_opt.SGD, _opt.Signum, _opt.SignSGD, _opt.Adam,
+                           _opt.RMSProp, _opt.AdaGrad):
+        return None
+    sig = optimizer._fused_sig()
+    return sig if sig is not None and _fused.supported(sig) else None
 
 
 def _init_state(optimizer, weight):
     """The f32 state tensors of one parameter (the JAX package's
     ``_init_state``: Signum keeps its momentum even at momentum 0; SGD
     with ``multi_precision`` keeps an f32 copy of a low-precision weight
-    after its momentum)."""
+    after its momentum).  An optimizer updated through its fused kind
+    keeps its own state nesting (``create_state_multi_precision``)."""
+    if _fused_kind(optimizer) is not None:
+        return _opt._map_state(
+            lambda a: a._data,
+            optimizer.create_state_multi_precision(None, NDArray(weight)))
     if isinstance(optimizer, _opt.SGD):
         count = 1 if optimizer.momentum else 0
         if optimizer.keeps_master(weight):
@@ -195,6 +219,7 @@ class TrainStep:
             type_dict=type_dict, **input_shapes)
         self.states = None           # name -> tuple of f32 tensors
         self._nstep = 0
+        self._kind = _fused_kind(optimizer)
 
     @property
     def params(self):
@@ -251,19 +276,46 @@ class TrainStep:
             raise MXNetError("call init_params() first")
         self._nstep += 1
         opt = self._optimizer
+        outs = self._exe.forward(is_train=True, **batch)
+        self._exe.backward()
+        params, grads = self.params, self.grads
+        if self._kind is not None:
+            self._update_fused(params, grads)
+            return [o._data for o in outs]
         opt.num_update = max(opt.num_update, self._nstep)
         lr = (opt.lr_scheduler(opt.num_update)
               if opt.lr_scheduler is not None else opt.lr)
         if isinstance(opt, _opt.Adam):
             t = self._nstep
             lr *= (1.0 - opt.beta2 ** t) ** 0.5 / (1.0 - opt.beta1 ** t)
-        outs = self._exe.forward(is_train=True, **batch)
-        self._exe.backward()
-        params, grads = self.params, self.grads
         for name in self._param_names:
             _update(opt, name, params[name], grads[name], self.states[name],
                     lr)
         return [o._data for o in outs]
+
+    @torch.no_grad()
+    def _update_fused(self, params, grads):
+        """Every parameter through the optimizer's fused kind, in
+        parameter order: counts, lr (``_fused_lr``, with the kind's
+        bias correction), weight decay by name and the kind's extras."""
+        opt, names = self._optimizer, self._param_names
+        for name in names:
+            opt._update_count(name)
+        upd = _fused.build(self._kind)
+        extra = opt._fused_extra(names)
+        if extra.size:
+            extra = torch.from_numpy(extra).to(params[names[0]].device)
+        for i, name in enumerate(names):
+            w, state = params[name], self.states[name]
+            wd = _wd_for(opt, name)
+            new_w, new_st = _fused.apply_one(
+                upd, w, grads[name], state, opt.keeps_master(w),
+                opt._fused_lr(name), wd, opt.rescale_grad,
+                extra[i] if upd.n_extra else (), bool(wd))
+            w.copy_(new_w)
+            for leaf, new in zip(_fused.flatten_state(state)[0],
+                                 _fused.flatten_state(new_st)[0]):
+                leaf.copy_(new)
 
     def get_params(self):
         """``(args, auxs)``: name -> host NDArray copies (for

@@ -275,9 +275,9 @@ class Symbol:
         argument or a dict per argument (missing names: ``'null'``).
         With ``shared_exec``, each argument and auxiliary state whose
         name, shape and type match one of that executor's takes its
-        NDArray,
-        the same object: the two executors then hold one copy of the
-        weights and of the paged caches."""
+        NDArray, the same object, and such an argument its gradient
+        NDArray: the two executors then hold one copy of the weights,
+        their gradients and the paged caches."""
         from ..executor import Executor
         return Executor(self, ctx, grad_req, shapes, shared_exec, type_dict)
 

@@ -237,7 +237,7 @@ def test_eager_blocks_and_raising_layers(tmp_path):
         seq.initialize()
         got = seq(_arr(pkg, x)).asnumpy()
         np.testing.assert_allclose(got, np.tanh(x) * 3, rtol=1e-6)
-    for make in (lambda: mx.gluon.nn.Dropout(0.5),
+    for make in (lambda: mx.gluon.nn.Conv1DTranspose(4, 3),
                  lambda: mx.gluon.nn.Conv2DTranspose(4, 3),
                  lambda: mx.gluon.nn.Conv2D(4, 3, layout="NHWC")):
         with pytest.raises(mx.MXNetError):

@@ -136,7 +136,7 @@ def test_param_shapes_serve_the_training_symbol():
 
 @pytest.mark.parametrize("bad,match", [
     (dict(moe_experts=4), "MoE"), (dict(tensor_parallel="mp"), "multi-GPU"),
-    (dict(dtype="float64"), "float64"), (dict(dropout=0.1), "Dropout")])
+    (dict(dtype="float64"), "float64")])
 def test_get_symbol_raises_for_later_slices(bad, match):
     with pytest.raises(mx.MXNetError, match=match):
         transformer.get_symbol(**CFG, **bad)
@@ -384,8 +384,7 @@ def test_module_without_context_raises_without_gpu(monkeypatch):
 
 @pytest.mark.parametrize("bad,item", [
     (dict(moe_experts=4), "A.8"), (dict(tensor_parallel="mp"), "A.8"),
-    (dict(dtype="float64"), "A.1"), (dict(dtype="int8"), "A.1"),
-    (dict(dropout=0.1), "A.5")])
+    (dict(dtype="float64"), "A.1"), (dict(dtype="int8"), "A.1")])
 def test_get_symbol_errors_name_their_roadmap_item(bad, item):
     with pytest.raises(mx.MXNetError) as err:
         transformer.get_symbol(**CFG, **bad)
