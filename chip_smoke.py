@@ -503,6 +503,35 @@ Phases, each printed as one JSON line:
    0.1, 2 x 1024 tokens, 6 steps), the captured graph against the eager
    pair from the same seeds: weights (and states) within FUSED_KINDS's
    move_l2.
+53. causal_attention (the rest of the training surface, ROADMAP A.5's
+   second half; with the kernel phases): ``_contrib_CausalSelfAttention``
+   at (8, 1024, 3 x 2048), 16 heads, in f32, bf16 and f16: the op through
+   ``mx.nd`` under autograd launches row 8's forward, dK/dV and dQ once
+   each in its type (no plain version); the kernels on its views against
+   their plain versions (each row's bound); the op end to end against
+   autograd through the plain attention (f32 rtol 1e-4 / atol 1e-5,
+   16-bit CAUSAL's relative L2); its times beside SDPA's; then Module.fit
+   of FullyConnected -> op -> FullyConnected (fused, one capture, row 8
+   recorded once each), card against CPU within CAUSAL's fit_l2 of each
+   weight's move;
+54. deconv_leaky (with the kernel phases): Deconvolution at the DCGAN
+   generator's four shapes at batch 128 and every LeakyReLU act on
+   (128, 256, 32, 32), f32 and bf16, forward and backward, card against
+   CPU; times; rrelu's slopes card against CPU bit for bit from one
+   seed, and two replays of a captured graph drawing two sets;
+55. fit_lm_mirror (after 51): MXNET_BACKWARD_DO_MIRROR=1 on the LM at
+   full width in bf16 with dropout through Module.fit's fused step,
+   against the same run without it: one graph each, the mirrored graph
+   recording rows 3 and 8's forwards twice (LayerNorm forward 50, flash
+   forward 24 a step), weights after the same steps equal (or the
+   largest difference printed), step p50, replay ms and peak memory of
+   both; ResNet-50's moving statistics after mirrored Module.fit steps
+   equal the unmirrored ones;
+56. harness (last): example/torch's train_mnist (mlp, lenet; synthetic
+   digits, one epoch), train_imagenet --benchmark 1 (ResNet-50 at 224,
+   batch 64, 10 batches, NCHW f32 and NHWC bf16) and dcgan, each in a
+   process of its own: exit 0, finite final metrics, the Speedometer's
+   samples/s printed beside the card's name.
 
 Then the kernels' JSON line (every kernel with its dtype; the bf16 and
 f16 forms as rows of their own, the serving kernels' bf16 and f16
@@ -510,7 +539,8 @@ instances with their serve phases' launches, row 8's f16 forward with
 the f16 draft arm's, row 4 and row 8's backward in f16 with fit_f16's
 fused arm's, row 7 in f16 with train_resnet_f16's fused arm's, row 10's
 three forms with the sandwich's, the attention kernels with their
-head_dim-256 times), and
+head_dim-256 times; row 8's rows with causal_attention's launches and
+the bf16 rows of rows 3, 4 and 8 with fit_lm_mirror's), and
 last ``{"ok": true, "device": ...}``.
 Any failed check raises, so the script exits non-zero and prints no
 result; it also exits non-zero when no CUDA device is present.
@@ -872,6 +902,64 @@ FUSED_KINDS = dict(kinds=("lbsgd", "adamax", "nadam", "lamb"),
                    batch=2, steps=6, lr=1e-3, wd=0.01, move_l2=1e-3,
                    bulk_shapes=((2048, 2048), (8192, 2048), (2048,),
                                 (16384, 64)), bulk_steps=3)
+
+# gradient mirroring (fit_lm_mirror): FULL in bf16 with f32 masters and
+# dropout 0.1 through Module.fit's fused step, SGD with momentum, `steps`
+# batches of `batch` x 1024 tokens, once without and once with
+# MXNET_BACKWARD_DO_MIRROR=1 from the same weights, batches and seed;
+# `replays` more replays of each graph timed; then one Module.fit step
+# of ResNet-50 (224 x 224, batch `resnet_batch`, f32) each way, whose
+# BatchNorm moving statistics must be equal (after a second step they
+# would also carry the first step's weight updates, whose convolution
+# weight gradients cuDNN may sum in another order from run to run)
+FIT_MIRROR = dict(dropout=0.1, batch=8, steps=5, lr=0.01, momentum=0.9,
+                  replays=5, resnet_batch=32, resnet_steps=1, lr_resnet=0.01)
+# CausalSelfAttention (causal_attention): (batch, seq, 3 * d_model) at
+# the LM's width and heads, in f32, bf16 and f16, forward and backward;
+# the op end to end against autograd through the plain attention within
+# close (f32) or relative L2 `l2` (16-bit: the op's backward rounds P and
+# dS where autograd does not); then `fit_steps` Module.fit steps of
+# FullyConnected -> op -> FullyConnected at the same width cut to
+# `fit_seq` tokens and `fit_batch` sequences, card against CPU, each
+# weight's difference within `fit_l2` of its move (relative L2)
+CAUSAL = dict(batch=8, seq=1024, d_model=2048, heads=16,
+              l2={"bfloat16": 1e-2, "float16": 1e-2 / 8}, fit_batch=1,
+              fit_seq=256, fit_steps=3, classes=16, fit_lr=0.05,
+              fit_l2=1e-3)
+# Deconvolution and LeakyReLU (deconv_leaky): the DCGAN generator's
+# transposed convolutions (Radford et al. 2016: 4x4x1024 -> 8x8x512 ->
+# 16x16x256 -> 32x32x128 -> 64x64x3, kernel 4, stride 2, pad 1, no bias)
+# at batch 128; every LeakyReLU act on a (128, 256, 32, 32) tensor; f32
+# and bf16, card against CPU on the first `cpu_batch` samples (each
+# sample's output and input gradient depend on that sample only; the
+# weight and gamma gradients are summed over the same samples on both)
+DECONV = dict(batch=128, channels=(1024, 512, 256, 128, 3), size=4,
+              kernel=(4, 4), stride=(2, 2), pad=(1, 1), cpu_batch=8,
+              leaky_shape=(128, 256, 32, 32),
+              acts=("leaky", "prelu", "elu", "selu", "gelu", "rrelu"),
+              f32_rtol=1e-4, f32_atol_share=1e-5)
+# the harnesses (harness): each port script under example/torch/ in a
+# process of its own on the card, with its time limit in seconds; the
+# runs of a wave start together (the small ones share the card; the
+# ResNet-50 arms run alone, so their samples/s are the card's own)
+HARNESS_WAVES = (
+    (("train_mnist mlp", "image-classification/train_mnist.py",
+      ["--network", "mlp", "--num-epochs", "1", "--disp-batches", "7"],
+      180),
+     ("train_mnist lenet", "image-classification/train_mnist.py",
+      ["--network", "lenet", "--num-epochs", "1", "--disp-batches", "7"],
+      180),
+     ("dcgan", "gan/dcgan.py", [], 240)),
+    (("train_imagenet resnet-50 NCHW f32",
+      "image-classification/train_imagenet.py",
+      ["--benchmark", "1", "--batch-size", "64", "--num-examples", "640",
+       "--num-epochs", "1", "--disp-batches", "3"], 300),),
+    (("train_imagenet resnet-50 NHWC bf16",
+      "image-classification/train_imagenet.py",
+      ["--benchmark", "1", "--batch-size", "64", "--num-examples", "640",
+       "--num-epochs", "1", "--disp-batches", "3", "--layout", "NHWC",
+       "--dtype", "bfloat16"], 300),),
+)
 
 
 class SmokeFailure(RuntimeError):
@@ -8739,6 +8827,607 @@ def phase_checkpoint(torch, mx, card=None):
     return out
 
 
+# ----------------------------------------------------------------------
+# the rest of the training surface: gradient mirroring,
+# CausalSelfAttention, Deconvolution and LeakyReLU, the harnesses
+# ----------------------------------------------------------------------
+def _mirror_arm(torch, mx, np_params, cfg, mirror, batches):
+    """One arm of fit_lm_mirror: Module.fit over ``batches`` with
+    MXNET_BACKWARD_DO_MIRROR set to ``mirror``; the run's launches, each
+    graph's records, step times, peak memory, replay ms and the final
+    weights (device copies)."""
+    from mxnet_tpu_torch.kernels import (LAUNCHES_BY_DTYPE, PLAIN_CALLS,
+                                         reset_counts)
+    from mxnet_tpu_torch.models import transformer
+    from mxnet_tpu_torch.weights import convert_params
+    fm = FIT_MIRROR
+    ctx = mx.gpu(0)
+    S = cfg["seq_len"]
+    stamps = []
+
+    def per_step(param):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    with env_set("MXNET_BACKWARD_DO_MIRROR", "1" if mirror else "0"):
+        mx.random.seed(SEED)
+        mod = mx.Module(transformer.get_symbol(
+            dtype="bfloat16", dropout=fm["dropout"], **cfg), context=ctx)
+        mod.bind(data_shapes=[("data", (fm["batch"], S))],
+                 label_shapes=[("softmax_label", (fm["batch"] * S,))])
+        mod.set_params(convert_params(np_params, ctx, cfg), {})
+        gc_collect(torch)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        stamps.append(time.perf_counter())
+        mod.fit(ListBatches(mx, batches), num_epoch=1, optimizer="sgd",
+                optimizer_params={"learning_rate": fm["lr"],
+                                  "momentum": fm["momentum"],
+                                  "multi_precision": True},
+                eval_metric="perplexity", batch_end_callback=per_step)
+        torch.cuda.synchronize()
+    launches = {k: v for k, v in LAUNCHES_BY_DTYPE.items() if v}
+    plain = {k: v for k, v in PLAIN_CALLS.items() if v}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    fused = mod._fused_fit
+    check(fused is not None and fused.launches == len(batches),
+          "fit_lm_mirror: %s of %d steps ran fused" % (
+              None if fused is None else fused.launches, len(batches)))
+    check(fused.captures == 1 and len(fused._programs) == 1,
+          "fit_lm_mirror: %d captures, %d programs (one wanted)"
+          % (fused.captures, len(fused._programs)))
+    check([k[-1] for k in fused._programs] == [mirror],
+          "fit_lm_mirror: the program's mirror key is not %s" % mirror)
+    check(not plain, "fit_lm_mirror: plain versions ran: %s" % plain)
+    exe = mod._exec_group._exec
+    weights = {n: exe.arg_dict[n]._data.detach().clone()
+               for n in mod._param_names}
+    check(all(bool(torch.isfinite(w).all()) for w in weights.values()),
+          "fit_lm_mirror: a weight is not finite")
+    graph = [p.graph for p in fused._programs.values()][0]
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(fm["replays"]):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    # the replays: after the warm-up steps and the capture
+    steady = step_ms[3:]
+    result = {"mirror": mirror, "step_ms": step_ms,
+              "step_ms_p50": statistics.median(steady),
+              "tokens_per_s": fm["batch"] * S
+              / (statistics.median(steady) / 1e3),
+              "graph_replay_ms": start.elapsed_time(end) / fm["replays"],
+              "peak_mem_gb": peak, "launches": launches,
+              "captured_per_step": fused.captured_launches(True)[0]}
+    del mod, exe, graph, fused
+    gc_collect(torch)
+    return result, weights
+
+
+def _resnet_mirror_arm(torch, mx, mirror):
+    """ResNet-50 (224 x 224, f32) through FIT_MIRROR's Module.fit steps
+    with MXNET_BACKWARD_DO_MIRROR set to ``mirror``: the moving
+    statistics and weights after them (device copies)."""
+    from mxnet_tpu_torch.models import resnet
+    fm = FIT_MIRROR
+    ctx = mx.gpu(0)
+    B = fm["resnet_batch"]
+    image = RESNET["image_shape"]
+    sym = resnet.get_symbol(**RESNET)
+    args, auxs = seeded_resnet_params(sym, B, image)
+    x, y = _image_batches(image, B, SEED + 80, RESNET["num_classes"])
+    batches = [(x, y)] * fm["resnet_steps"]
+    with env_set("MXNET_BACKWARD_DO_MIRROR", "1" if mirror else "0"):
+        mx.random.seed(SEED)
+        mod = mx.Module(sym, context=ctx)
+        mod.bind(data_shapes=[("data", (B,) + tuple(image))],
+                 label_shapes=[("softmax_label", (B,))])
+        mod.set_params({k: mx.nd.array(v, ctx=ctx) for k, v in args.items()},
+                       {k: mx.nd.array(v, ctx=ctx) for k, v in auxs.items()})
+        it = ImageBatches(mx, batches)
+        mod.fit(it, num_epoch=1, optimizer="sgd",
+                optimizer_params={"learning_rate": fm["lr_resnet"],
+                                  "momentum": 0.9, "wd": 1e-4,
+                                  "rescale_grad": 1.0 / B},
+                eval_metric="acc")
+        torch.cuda.synchronize()
+    exe = mod._exec_group._exec
+    check(mod._fused_fit is not None
+          and mod._fused_fit.launches == len(batches),
+          "fit_lm_mirror: the ResNet-50 steps did not run fused")
+    out = ({n: a._data.clone() for n, a in exe.aux_dict.items()},
+           {n: exe.arg_dict[n]._data.detach().clone()
+            for n in mod._param_names})
+    del mod, exe
+    gc_collect(torch)
+    return out
+
+
+class ImageBatches:
+    """Batches from a list of (images, labels) numpy pairs, on the card."""
+
+    def __init__(self, mx, batches):
+        self.mx, self.batches, self.i = mx, batches, 0
+
+    @property
+    def provide_data(self):
+        return [self.mx.io.DataDesc("data", self.batches[0][0].shape)]
+
+    @property
+    def provide_label(self):
+        return [self.mx.io.DataDesc("softmax_label",
+                                    self.batches[0][1].shape)]
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self.i == len(self.batches):
+            raise StopIteration
+        x, y = self.batches[self.i]
+        self.i += 1
+        gpu = self.mx.gpu(0)
+        return self.mx.io.DataBatch(data=[self.mx.nd.array(x, ctx=gpu)],
+                                    label=[self.mx.nd.array(y, ctx=gpu)],
+                                    pad=0)
+
+    def reset(self):
+        self.i = 0
+
+
+def _max_diff(torch, a, b):
+    """(largest absolute difference, names that differ) of two dicts of
+    tensors."""
+    worst, names = 0.0, []
+    for n, t in a.items():
+        if not torch.equal(t, b[n]):
+            names.append(n)
+            worst = max(worst, max_err(t, b[n]))
+    return worst, sorted(names)
+
+
+def phase_fit_lm_mirror(torch, mx, np_params, cfg=FULL):
+    """MXNET_BACKWARD_DO_MIRROR=1 on the card (FIT_MIRROR): the LM at full
+    width in bf16 through Module.fit's fused step with and without the
+    recompute, from the same weights, batches and seed: one graph each,
+    rows 3, 4 and 8 launched in bf16, the mirrored graph recording a
+    second forward's launches of rows 3 and 8 (LayerNorm forward 50 and
+    flash forward 24 a step, the backward kernels as before), the
+    weights after the same steps equal (or the largest difference
+    printed with the tensors that differ); step p50, replay ms and peak
+    memory of each; then ResNet-50's moving statistics after mirrored
+    steps equal to the unmirrored ones (BatchNorm moves once a step).
+    Returns the mirrored arm's launches and records."""
+    fm = FIT_MIRROR
+    batches = [_token_batches(cfg, fm["batch"], SEED + 90 + i)
+               for i in range(fm["steps"])]
+    plain, w_plain = _mirror_arm(torch, mx, np_params, cfg, False, batches)
+    mirrored, w_mirror = _mirror_arm(torch, mx, np_params, cfg, True,
+                                     batches)
+    for arm, extra in ((plain, 1), (mirrored, 2)):
+        rec = arm["captured_per_step"]
+        for name, n in TRAIN_LAUNCHES.items():
+            key = name + ":bfloat16"
+            want = n * (extra if name in ("layernorm_fused",
+                                          "flash_attention_fwd") else 1)
+            check(arm["launches"].get(key, 0) > 0, "fit_lm_mirror: %s was "
+                  "not launched (mirror %s)" % (key, arm["mirror"]))
+            check(rec.get(key, 0) == want, "fit_lm_mirror: the graph records "
+                  "%s %d times, want %d (mirror %s)"
+                  % (key, rec.get(key, 0), want, arm["mirror"]))
+    diff, names = _max_diff(torch, w_plain, w_mirror)
+    del w_plain, w_mirror
+    # bf16 weights: equal, or apart by at most an ulp of each tensor's
+    # largest magnitude (a reduction that orders its sums by the run)
+    check(diff <= 2.0 ** -7, "fit_lm_mirror: mirrored weights are %g from "
+          "the unmirrored ones (%s)" % (diff, names[:5]))
+    aux0, args0 = _resnet_mirror_arm(torch, mx, False)
+    aux1, args1 = _resnet_mirror_arm(torch, mx, True)
+    aux_diff, aux_names = _max_diff(torch, aux0, aux1)
+    arg_diff, arg_names = _max_diff(torch, args0, args1)
+    check(aux_diff == 0.0, "fit_lm_mirror: ResNet-50's mirrored moving "
+          "statistics differ by %g (%s)" % (aux_diff, aux_names[:5]))
+    del aux0, aux1, args0, args1
+    gc_collect(torch)
+    emit({"phase": "fit_lm_mirror", "config": dict(cfg, dtype="bfloat16"),
+          "train": fm, "unmirrored": plain, "mirrored": mirrored,
+          "weights_bit_equal": not names, "weights_max_abs_diff": diff,
+          "weights_differing": names,
+          "resnet50_moving_stats_equal": aux_diff == 0.0,
+          "resnet50_weights_max_abs_diff": arg_diff,
+          "resnet50_weights_differing": arg_names,
+          "peak_ratio": mirrored["peak_mem_gb"] / plain["peak_mem_gb"],
+          "step_ratio": mirrored["step_ms_p50"] / plain["step_ms_p50"]})
+    return mirrored
+
+
+def _csa_views(qkv, H):
+    """The op's q, k and v: the thirds of the last axis, head-major."""
+    B, S, d3 = qkv.shape
+    return qkv.view(B, S, 3, H, d3 // 3 // H).permute(2, 0, 3, 1, 4) \
+        .contiguous().unbind(0)
+
+
+def _causal_fit(torch, mx, ctx, x, y, params, steps):
+    """FullyConnected -> CausalSelfAttention -> FullyConnected through
+    Module.fit on ``ctx``: the weights after ``steps`` SGD steps on the
+    same batch."""
+    c = CAUSAL
+    d, H = c["d_model"], c["heads"]
+    data = mx.sym.Variable("data")
+    net = mx.sym.FullyConnected(data, num_hidden=3 * d, flatten=False,
+                                name="qkv")
+    net = mx.sym.contrib.CausalSelfAttention(net, num_heads=H, name="att")
+    net = mx.sym.FullyConnected(net, num_hidden=c["classes"], name="head")
+    net = mx.sym.SoftmaxOutput(net, name="softmax")
+    mod = mx.Module(net, context=ctx)
+    mod.bind(data_shapes=[("data", x.shape)],
+             label_shapes=[("softmax_label", y.shape)])
+    mod.set_params({k: mx.nd.array(v, ctx=ctx) for k, v in params.items()},
+                   {})
+    batches = [(x, y)] * steps
+    it = ImageBatches(mx, batches) if ctx.device_type == "gpu" \
+        else mx.io.NDArrayIter(np.concatenate([x] * steps),
+                               np.concatenate([y] * steps),
+                               batch_size=x.shape[0])
+    mod.fit(it, num_epoch=1, optimizer="sgd",
+            optimizer_params={"learning_rate": c["fit_lr"], "momentum": 0.9},
+            eval_metric="acc")
+    return mod, {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+
+
+def phase_causal_attention(torch, mx, mxk, dev, flush):
+    """``_contrib_CausalSelfAttention`` on the card (CAUSAL): in each type,
+    the op through ``mx.nd`` under autograd, forward and backward, is the
+    main path (row 8's forward, dK/dV and dQ launched once each in the
+    type, no plain version); the three kernels on the op's views against
+    their plain versions (_flash_pairs, each row's own bound); the op end
+    to end against autograd through the plain attention; op times beside
+    SDPA's on the same views; then Module.fit steps of FullyConnected ->
+    op -> FullyConnected, card (fused step, one capture) against CPU.
+    Returns the main path's launches by ``name:dtype``."""
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.kernels import (LAUNCHES_BY_DTYPE, PLAIN_CALLS,
+                                         reset_counts)
+    from mxnet_tpu_torch.kernels.flash_attention import flash_attention_plain
+    from mxnet_tpu_torch.ndarray.ndarray import NDArray
+    from mxnet_tpu_torch.ops.nn import causal_self_attention
+    c = CAUSAL
+    B, S, d, H = c["batch"], c["seq"], c["d_model"], c["heads"]
+    D = d // H
+    sc = 1.0 / D ** 0.5
+    g = torch.Generator(device="cpu").manual_seed(SEED + 70)
+    launches, out = {}, {}
+    seconds = {"start": time.perf_counter()}
+    for dtype in ("float32", "bfloat16", "float16"):
+        dt = getattr(torch, dtype)
+        qkv = (torch.randn(B, S, 3 * d, generator=g) * 0.5).to(dev).to(dt)
+        dy = torch.randn(B, S, d, generator=g).to(dev).to(dt)
+        # the main path: the op as a user calls it
+        x = NDArray(qkv.clone())
+        x.attach_grad()
+        reset_counts()
+        with mx.autograd.record():
+            y = mx.nd.contrib.CausalSelfAttention(x, num_heads=H)
+        y.backward(NDArray(dy))
+        torch.cuda.synchronize()
+        got = {k: v for k, v in LAUNCHES_BY_DTYPE.items() if v}
+        plain = {k: v for k, v in PLAIN_CALLS.items() if v}
+        for name in ("flash_attention_fwd", "flash_attention_bwd_dkv",
+                     "flash_attention_bwd_dq"):
+            key = "%s:%s" % (name, dtype)
+            check(got.get(key, 0) == 1, "causal_attention: %s launched %d "
+                  "times" % (key, got.get(key, 0)))
+        check(not plain, "causal_attention: plain versions ran: %s" % plain)
+        launches.update(got)
+        # the kernels on the op's views against their plain versions
+        errs = {}
+        q, k, v = _csa_views(qkv, H)
+        do = dy.view(B, S, H, D).transpose(1, 2).contiguous()
+        for what, a, b in _flash_pairs(torch, mxk, q, k, v, do, sc):
+            if dtype == "float32" or what == "lse":
+                ok = close(torch, a, b)
+            elif dtype == "bfloat16":
+                ok = close_bf16(torch, a, b)
+            else:
+                ok = close_f16_flash(torch, a, b)
+            check(ok, "causal_attention %s: the kernel's %s disagrees with "
+                  "its plain version (max abs err %g)"
+                  % (dtype, what, max_err(a, b)))
+            errs[what] = max_err(a, b)
+        # the op end to end against autograd through the plain attention
+        ref_in = qkv.clone().requires_grad_()
+        rq, rk, rv = ref_in.view(B, S, 3, H, D).permute(2, 0, 3, 1, 4) \
+            .unbind(0)
+        ref = flash_attention_plain(rq, rk, rv, scale=sc).transpose(1, 2) \
+            .reshape(B, S, d)
+        (ref_g,) = torch.autograd.grad(ref, ref_in, dy)
+        pairs = (("out", y._data.detach(), ref.detach()),
+                 ("d_qkv", x.grad._data, ref_g))
+        for what, a, b in pairs:
+            if dtype == "float32":
+                ok = close(torch, a, b)
+                rel = None
+            else:
+                rel = float((a.float() - b.float()).norm()
+                            / b.float().norm())
+                ok = rel < c["l2"][dtype]
+            check(ok, "causal_attention %s: the op's %s disagrees with "
+                  "autograd through the plain attention (max abs err %g, "
+                  "relative L2 %s)" % (dtype, what, max_err(a, b), rel))
+            errs["op " + what] = max_err(a, b) if rel is None else rel
+        del ref_in, ref, ref_g, x, y
+
+        def op_fwd():
+            return mxk.flash_attention(*_csa_views(qkv, H), scale=sc)
+
+        xin = qkv.clone().requires_grad_()
+
+        def op_fwd_bwd():
+            o = causal_self_attention(xin, num_heads=H)
+            return torch.autograd.grad(o, xin, dy)
+
+        qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+
+        def sdpa_fwd_bwd():
+            o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                               scale=sc)
+            return torch.autograd.grad(o, (qs, ks, vs), do)
+
+        out[dtype] = {
+            "max_errs": errs,
+            "op_fwd_ms": time_ms(torch, op_fwd, flush, reps=20),
+            "op_fwd_bwd_ms": time_ms(torch, op_fwd_bwd, flush, reps=20),
+            "sdpa_fwd_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, scale=sc), flush, reps=20),
+            "sdpa_fwd_bwd_ms": time_ms(torch, sdpa_fwd_bwd, flush, reps=20)}
+        del qkv, dy, q, k, v, do, xin, qs, ks, vs
+        gc_collect(torch)
+    # Module.fit, card against CPU
+    rng = np.random.RandomState(SEED % 2 ** 31)
+    fb, fs = c["fit_batch"], c["fit_seq"]
+    x = (rng.randn(fb, fs, d) * 0.5).astype(np.float32)
+    y = rng.randint(0, c["classes"], (fb,)).astype(np.float32)
+    params = {"qkv_weight": rng.randn(3 * d, d) * d ** -0.5,
+              "qkv_bias": np.zeros(3 * d),
+              "head_weight": rng.randn(c["classes"], fs * d) * 0.02,
+              "head_bias": np.zeros(c["classes"])}
+    params = {k: v.astype(np.float32) for k, v in params.items()}
+    seconds["types"] = time.perf_counter() - seconds.pop("start")
+    t0 = time.perf_counter()
+    reset_counts()
+    mod, card = _causal_fit(torch, mx, mx.gpu(0), x, y, params,
+                            c["fit_steps"])
+    torch.cuda.synchronize()
+    fit_launches = {k: v for k, v in LAUNCHES_BY_DTYPE.items() if v}
+    check(mod._fused_fit is not None and mod._fused_fit.captures == 1,
+          "causal_attention: the fit did not capture its step")
+    captured = mod._fused_fit.captured_launches()[0]
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dkv",
+                 "flash_attention_bwd_dq"):
+        check(fit_launches.get(name + ":float32", 0) > 0
+              and captured.get(name, 0) == 1,
+              "causal_attention: the fit's step does not run %s" % name)
+    del mod
+    seconds["fit_card"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, cpu = _causal_fit(torch, mx, mx.cpu(), x, y, params, c["fit_steps"])
+    seconds["fit_cpu"] = time.perf_counter() - t0
+    fit_l2 = {}
+    for name, w in params.items():
+        move = float(np.linalg.norm(cpu[name] - w))
+        fit_l2[name] = float(np.linalg.norm(card[name] - cpu[name])) / move
+        check(move > 0 and fit_l2[name] < c["fit_l2"], "causal_attention: "
+              "fit's %s is %g of its move from the CPU's"
+              % (name, fit_l2[name]))
+    gc_collect(torch)
+    emit({"phase": "causal_attention", "config": CAUSAL, **out,
+          "launches": launches, "fit_launches": fit_launches,
+          "fit_captured_per_step": captured, "fit_diff_over_move": fit_l2,
+          "seconds": seconds,
+          "tolerance": "kernels as their rows' phases; the op: f32 rtol "
+                       "1e-4 / atol 1e-5, 16-bit relative L2 %s; fit %g of "
+                       "each weight's move" % (c["l2"], c["fit_l2"])})
+    return launches, fit_launches
+
+
+def close_scaled(torch, a, b, rtol, share):
+    """``|a - b| <= rtol * |b| + share * max |b|`` everywhere."""
+    a, b = a.float(), b.float()
+    lim = rtol * b.abs() + share * float(b.abs().max())
+    return bool(((a - b).abs() <= lim).all())
+
+
+def phase_deconv_leaky(torch, mx, dev, flush):
+    """Deconvolution at the DCGAN generator's shapes and every LeakyReLU
+    act (DECONV), f32 and bf16, forward and backward, card (cuDNN's
+    transposed convolutions, eager elementwise passes) against the CPU
+    on the same inputs (f32 within DECONV's rtol and share of the
+    largest magnitude, bf16 within close_bf16); their times on the card;
+    rrelu's slopes drawn on the card equal the CPU's from one seed, and
+    two replays of one captured graph draw two sets."""
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch.cuda_graph import WARMUP, Program
+    from mxnet_tpu_torch.ops.nn import deconvolution, leaky_relu, rrelu_slopes
+    c = DECONV
+    g = torch.Generator(device="cpu").manual_seed(SEED + 75)
+    nb = c["cpu_batch"]
+    attrs = dict(kernel=c["kernel"], stride=c["stride"], pad=c["pad"],
+                 no_bias=True)
+    out = {"deconv": [], "leaky": []}
+
+    def hold(dtype, what, a, b):
+        ok = close_scaled(torch, a, b, c["f32_rtol"], c["f32_atol_share"]) \
+            if dtype == "float32" else close_bf16(torch, a, b)
+        check(ok, "deconv_leaky %s %s: the card disagrees with the CPU "
+              "(max abs err %g)" % (dtype, what, max_err(a, b)))
+        return max_err(a, b)
+
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        size = c["size"]
+        for cin, cout in zip(c["channels"], c["channels"][1:]):
+            x = torch.randn(c["batch"], cin, size, size, generator=g).to(dt)
+            w = (torch.randn(cin, cout, *c["kernel"], generator=g)
+                 * (cin * 4) ** -0.5).to(dt)
+            xd, wd = x.to(dev), w.to(dev)
+            o = deconvolution(xd, wd, num_filter=cout, **attrs)
+            dy = torch.randn(o.shape, generator=g).to(dt)
+            dyd = dy.to(dev)
+            # the card on the first samples against the CPU
+            xs, ws = (t[:nb].clone().requires_grad_() if t is xd
+                      else t.clone().requires_grad_() for t in (xd, wd))
+            os_ = deconvolution(xs, ws, num_filter=cout, **attrs)
+            gx, gw = torch.autograd.grad(os_, (xs, ws), dyd[:nb])
+            xc, wc = x[:nb].clone().requires_grad_(), \
+                w.clone().requires_grad_()
+            oc = deconvolution(xc, wc, num_filter=cout, **attrs)
+            gxc, gwc = torch.autograd.grad(oc, (xc, wc), dy[:nb])
+            tag = "%dx%dx%d->%d" % (size, size, cin, cout)
+            errs = {what: hold(dtype, "%s %s" % (tag, what), a.cpu(), b)
+                    for what, a, b in (("out", o[:nb], oc), ("d_data", gx,
+                                                              gxc),
+                                       ("d_weight", gw, gwc))}
+            xr, wr = xd.clone().requires_grad_(), wd.clone().requires_grad_()
+            orr = deconvolution(xr, wr, num_filter=cout, **attrs)
+            out["deconv"].append({
+                "dtype": dtype, "in": [c["batch"], cin, size, size],
+                "out": list(o.shape), "max_errs": errs,
+                "fwd_ms": time_ms(torch, lambda: deconvolution(
+                    xd, wd, num_filter=cout, **attrs), flush, reps=20),
+                "bwd_ms": time_ms(torch, lambda: torch.autograd.grad(
+                    orr, (xr, wr), dyd, retain_graph=True), flush,
+                    reps=20)})
+            size *= 2
+            del x, w, xd, wd, o, dy, dyd, xs, ws, os_, gx, gw, orr, xr, wr
+        shape = c["leaky_shape"]
+        x = torch.randn(*shape, generator=g).to(dt)
+        dy = torch.randn(*shape, generator=g).to(dt)
+        gamma = torch.rand(shape[1], generator=g).to(dt)
+        xd, dyd, gd = x.to(dev), dy.to(dev), gamma.to(dev)
+        for act in c["acts"]:
+            seed = torch.tensor(SEED + 7, dtype=torch.int64)
+            kw = dict(act_type=act, is_train=act == "rrelu")
+            res = []
+            for xx, yy, gg in ((xd[:nb], dyd[:nb], gd), (x[:nb], dy[:nb],
+                                                         gamma)):
+                xx = xx.clone().requires_grad_()
+                gg = gg.clone().requires_grad_()
+                o = leaky_relu(xx, gg if act == "prelu" else None,
+                               rng=mxrandom.StepRandom(seed.to(xx.device)),
+                               **kw)
+                leaves = (xx, gg) if act == "prelu" else (xx,)
+                res.append((o,) + torch.autograd.grad(o, leaves, yy))
+            errs = {what: hold(dtype, "%s %s" % (act, what), a.cpu(), b)
+                    for what, a, b in zip(("out", "d_data", "d_gamma"),
+                                          *res)}
+            seed_dev = seed.to(dev)
+            fwd = time_ms(torch, lambda: leaky_relu(
+                xd, gd if act == "prelu" else None,
+                rng=mxrandom.StepRandom(seed_dev), **kw), flush, reps=20)
+            out["leaky"].append({"dtype": dtype, "act": act,
+                                 "max_errs": errs, "fwd_ms": fwd})
+        del x, dy, xd, dyd
+        gc_collect(torch)
+    # rrelu: the card's slopes are the CPU's from one seed, and a captured
+    # graph draws anew on each replay
+    shape = c["leaky_shape"]
+    x = torch.randn(*shape, generator=g).to(dev)
+    seed = torch.tensor(SEED + 9, dtype=torch.int64)
+    card = rrelu_slopes(x, 0.125, 0.334, mxrandom.StepRandom(seed.to(dev)))
+    cpu = rrelu_slopes(x[:nb].cpu(), 0.125, 0.334,
+                       mxrandom.StepRandom(seed))
+    check(torch.equal(card[:nb].cpu(), cpu), "deconv_leaky: rrelu's slopes "
+          "on the card differ from the CPU's from one seed")
+    check(float(card.min()) >= 0.125 and float(card.max()) < 0.334,
+          "deconv_leaky: rrelu's slopes leave [0.125, 0.334)")
+    staged = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def body():
+        return [leaky_relu(x, act_type="rrelu", is_train=True,
+                           rng=mxrandom.StepRandom(staged))]
+
+    prog = Program(body, dev, "rrelu graph", "")
+    for _ in range(WARMUP):
+        prog.warm_up()
+    prog.capture()
+    seeds, outs = [], []
+    for _ in range(2):
+        mxrandom.next_seed(dev, out=staged)
+        seeds.append(int(staged.item()))
+        outs.append(prog.replay()[0].clone())
+    check(seeds[0] != seeds[1] and not torch.equal(outs[0], outs[1]),
+          "deconv_leaky: two rrelu replays drew one set of slopes")
+    for s_, o in zip(seeds, outs):
+        want = leaky_relu(x, act_type="rrelu", is_train=True,
+                          rng=mxrandom.StepRandom(torch.tensor(
+                              s_, dtype=torch.int64, device=dev)))
+        check(torch.equal(o, want), "deconv_leaky: a replay's rrelu is not "
+              "its seed's draw")
+    out["rrelu_replay_seeds"] = seeds
+    del prog, outs, x, card
+    gc_collect(torch)
+    emit({"phase": "deconv_leaky", "config": DECONV, **out,
+          "tolerance": "f32 rtol %g + %g of the largest magnitude, bf16 "
+                       "close_bf16; rrelu slopes bit for bit"
+                       % (c["f32_rtol"], c["f32_atol_share"])})
+    return out
+
+
+def phase_harness(torch, card):
+    """Each port harness (HARNESS_WAVES) in a process of its own on the
+    card, a wave's processes at once: exit 0 within its time limit,
+    finite final metrics and weights (the image-classification harness's
+    own check) or the DCGAN's own checks, the Speedometer's samples/s
+    printed beside the card's name."""
+    import re
+    runs = []
+    for wave in HARNESS_WAVES:
+        procs = []
+        for what, script, args, limit in wave:
+            path = os.path.join(HERE, "example", "torch", script)
+            procs.append((what, script, args, limit, time.perf_counter(),
+                          subprocess.Popen(
+                              [sys.executable, path] + args, cwd=HERE,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)))
+        for what, script, args, limit, t0, proc in procs:
+            try:
+                text = proc.communicate(
+                    timeout=max(1.0, limit - (time.perf_counter() - t0)))[0]
+            except subprocess.TimeoutExpired:
+                for p in procs:
+                    p[-1].kill()
+                    p[-1].communicate()
+                check(False, "harness: %s ran past %d s" % (what, limit))
+            check(proc.returncode == 0, "harness: %s exited %d: %s"
+                  % (what, proc.returncode, text[-3000:]))
+            speeds = [float(v) for v in re.findall(
+                r"Speed: ([0-9.]+) samples/sec", text)]
+            if script.startswith("gan"):
+                check("dcgan example OK" in text, "harness: dcgan did not "
+                      "pass its checks")
+                final = [ln for ln in text.splitlines()
+                         if ln.startswith("iter")]
+            else:
+                final = [ln for ln in text.splitlines()
+                         if "final train metrics" in ln]
+                check(final and final[-1].endswith("finite True"),
+                      "harness: %s ended without finite metrics" % what)
+                check(speeds, "harness: %s printed no samples/s" % what)
+            runs.append({"run": what, "args": args, "shared_card":
+                         len(wave) > 1,
+                         "seconds": time.perf_counter() - t0,
+                         "samples_per_s": speeds, "last": final[-1:]})
+            print("harness %s: samples/s %s on %s" % (what, speeds, card),
+                  flush=True)
+    emit({"phase": "harness", "card": card, "runs": runs})
+    return runs
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -8791,6 +9480,9 @@ def main():
     head_dim_times = phase_head_dim(torch, mxk, dev, flush)
     rtc_kernels = phase_rtc(torch, mx, dev, flush)
     phase_dropout(torch, mx, mxk, dev, flush)
+    causal_launches, causal_fit = phase_causal_attention(torch, mx, mxk, dev,
+                                                         flush)
+    phase_deconv_leaky(torch, mx, dev, flush)
     del flush
     sandwich_iters, sandwich_launches = phase_sandwich(torch, mx)
     full = seeded_params(FULL)
@@ -8818,6 +9510,7 @@ def main():
     fit_bf16 = phase_fit_bf16(torch, mx, full)
     fit_f16 = phase_fit_f16(torch, mx, full, fit_bf16["transformer"])
     lm_dropout = phase_fit_lm_dropout(torch, mx, full)
+    lm_mirror = phase_fit_lm_mirror(torch, mx, full)
     phase_fused_kinds(torch, mx, full)
     del full
     phase_train_agreement(torch, mx)
@@ -8836,6 +9529,7 @@ def main():
     phase_resnet_f16_agreement(torch, mx)
     phase_head_dim_agreement(torch, mx)
     phase_checkpoint(torch, mx, card)
+    phase_harness(torch, card)
     # launches: the count of each kernel's main-path run (serve for the
     # serving kernels, the one-shot prefill forward of serve_prefill for
     # the prefill kernel, the transformer's Module.fit for its training
@@ -8966,6 +9660,23 @@ def main():
             k["fit_lm_dropout_launches"] = lm_dropout["launches"][key]
             k["fit_lm_dropout_captured_per_step"] = \
                 lm_dropout["captured_per_graph"][0][key]
+            # MXNET_BACKWARD_DO_MIRROR's graph (fit_lm_mirror's mirrored
+            # arm): rows 3 and 8's forwards twice a step
+            k["fit_lm_mirror_launches"] = lm_mirror["launches"][key]
+            k["fit_lm_mirror_captured_per_step"] = \
+                lm_mirror["captured_per_step"][key]
+    # row 8 under CausalSelfAttention (causal_attention): the op's
+    # forward and backward in each type, and the f32 Module.fit run of
+    # FullyConnected -> op -> FullyConnected
+    for k in train_kernels + bf16_kernels + train_f16_kernels \
+            + [flash_f16_kernel]:
+        key = "%s:%s" % (k["name"], k.get("dtype", "float32"))
+        if k["name"].startswith("flash_attention"):
+            k["causal_attention_launches"] = causal_launches[key]
+            check(k["causal_attention_launches"] > 0, "causal_attention: "
+                  "%s was not launched" % key)
+            if key.endswith(":float32"):
+                k["causal_attention_fit_launches"] = causal_fit[key]
     f32_kernels = serve_kernels + [prefill_kernel] + train_kernels + \
         [quant_kernel, fused_kernel]
     for k in f32_kernels:
@@ -8986,6 +9697,10 @@ def main():
                                                   "fit_f16_captured_per_step",
                                                   "fit_lm_dropout_launches",
                                                   "fit_lm_dropout_captured_per_step",
+                                                  "fit_lm_mirror_launches",
+                                                  "fit_lm_mirror_captured_per_step",
+                                                  "causal_attention_launches",
+                                                  "causal_attention_fit_launches",
                                                   "train_f16_launches_per_step",
                                                   "train_launches",
                                                   "spec_launches_per_step",

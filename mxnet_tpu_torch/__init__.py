@@ -31,7 +31,7 @@ from . import autograd, base, context, kernels, ndarray, ops, symbol  # noqa
 from . import decode, models, weights  # noqa: F401
 from . import (callback, initializer, io, kvstore, lr_scheduler,  # noqa: F401
                metric, model, module, optimizer, parallel, random)
-from . import checkpoint, gluon, rtc  # noqa: F401
+from . import checkpoint, config, gluon, name, rtc  # noqa: F401
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu
 from .module import Module
@@ -47,4 +47,4 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context", "nd",
            "kernels", "callback", "init", "initializer", "io", "kv",
            "kvstore", "lr_scheduler", "metric", "model", "module", "mod",
            "Module", "optimizer", "parallel", "random", "autograd", "gluon", "rtc",
-           "checkpoint"]
+           "checkpoint", "config", "name"]

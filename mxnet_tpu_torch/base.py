@@ -12,7 +12,7 @@ import numpy as _np
 import torch
 
 __all__ = ["MXNetError", "numeric_types", "integer_types", "NameManager",
-           "current_name_manager", "torch_dtype", "check_float_dtype",
+           "Prefix", "current_name_manager", "torch_dtype", "check_float_dtype",
            "numpy_to_tensor", "LOW_PRECISION"]
 
 
@@ -56,6 +56,20 @@ class NameManager:
             idx = self._counter.get(hint, 0)
             self._counter[hint] = idx + 1
         return "%s%d" % (hint, idx)
+
+
+class Prefix(NameManager):
+    """A NameManager that puts ``prefix`` before every name it gives,
+    generated or given (``with mx.name.Prefix("enc_"):`` names a
+    FullyConnected ``enc_fullyconnected0`` and one named ``fc``
+    ``enc_fc``), as the JAX package's ``base.Prefix`` does."""
+
+    def __init__(self, prefix):
+        super().__init__()
+        self._prefix = prefix
+
+    def get(self, name, hint):
+        return self._prefix + super().get(name, hint)
 
 
 NAMES = NameManager()

@@ -30,6 +30,14 @@ are handed the forward's flag; after a train forward, each output an op
 declares in ``mutate_inputs`` is copied into its auxiliary state in
 place (the JAX package's executor returns the new states instead).
 
+Gradient mirroring (``MXNET_BACKWARD_DO_MIRROR=1``, read once at bind,
+the counterpart of the JAX package's ``jax.checkpoint`` of the whole
+forward): a train forward runs without recording and keeps only the
+walk's inputs, its step seed and the state of any generator it samples
+from; ``backward`` runs the forward again, recorded (the same masks,
+slopes and samples), and takes the gradients from it.  The outputs and
+the auxiliary states are the first walk's, written once.
+
 Memory: the graph walk (:func:`run_graph`, over a :class:`GraphPlan`
 made once at bind) drops each intermediate from its environment right
 after the last node that reads it, unless it is a head, as the JAX
@@ -69,13 +77,15 @@ from __future__ import annotations
 import numpy as _np
 import torch
 
+from . import config as _config
 from . import random as _random
 from .base import FLOAT16_OPS_LATER, MXNetError, numpy_to_tensor
 from .context import current_context
 from .cuda_graph import WARMUP, GraphPool, Program, Staging
 from .ndarray.ndarray import NDArray
 
-__all__ = ["Executor", "GraphPlan", "run_graph", "check_float16_graph"]
+__all__ = ["Executor", "GraphPlan", "run_graph", "check_float16_graph",
+           "sampler_state", "recompute_graph"]
 
 _GRAD_REQS = ("write", "add", "null")
 # the ops a float16 graph may hold, each with its float16 forward and
@@ -84,12 +94,15 @@ _GRAD_REQS = ("write", "add", "null")
 # with the loss head and the MLP's activation), and those of ResNet's
 # (models/resnet.py in NCHW and NHWC, with symbol/fuse.py's fused op, the
 # f16 forms of rows 7 and 10; also the model zoo's ResNets), and Dropout
-# (the transformer's, in every type); the float16 forms of the other ops
-# wait for ROADMAP A.6
+# (the transformer's, in every type), and Deconvolution, every LeakyReLU
+# act and CausalSelfAttention (tests/test_torch_deconvolution.py,
+# test_torch_leaky_relu.py, test_torch_causal_attention.py); the float16
+# forms of the other ops wait for ROADMAP A.6
 FLOAT16_OPS = frozenset((
-    "Activation", "BatchNorm", "Cast", "Concat", "Convolution", "Dropout",
-    "Embedding", "Flatten", "FullyConnected", "LayerNorm", "LeakyReLU",
-    "Pooling", "Reshape", "SoftmaxOutput", "_FusedBNReluConv",
+    "Activation", "BatchNorm", "Cast", "Concat", "Convolution",
+    "Deconvolution", "Dropout", "Embedding", "Flatten", "FullyConnected",
+    "LayerNorm", "LeakyReLU", "Pooling", "Reshape", "SoftmaxOutput",
+    "_FusedBNReluConv", "_contrib_CausalSelfAttention",
     "_contrib_FusedCausalSelfAttention", "_contrib_GatherTimestep",
     "_contrib_PagedChunkPrefillAttention", "_contrib_PagedDecodeAttention",
     "_contrib_PagedPrefillAttention", "_minus_scalar", "_plus_scalar",
@@ -131,12 +144,16 @@ class GraphPlan:
     node the environment entries (``(id(node), output)``) that no later
     node reads and that are not heads: the walk drops them there.
     ``draws`` says whether an op of the graph draws random numbers (a
-    walk then needs a step seed, ``random.StepRandom``)."""
+    walk then needs a step seed, ``random.StepRandom``), ``samples``
+    whether one samples from the device's generator (``ops/
+    random_ops.py``: a mirrored recompute replays its state)."""
 
     def __init__(self, symbol):
         self.nodes = symbol._topo()
-        self.draws = any(not n.is_var and n.op.takes_rng
+        self.draws = any(not n.is_var and n.op.draws(n.attrs)
                          for n in self.nodes)
+        self.samples = any(not n.is_var and n.op.name.startswith("_random_")
+                           for n in self.nodes)
         self.heads = list(symbol._entries)
         head_keys = {(id(n), i) for n, i in self.heads}
         last = {}
@@ -184,6 +201,38 @@ def run_graph(plan, values, is_train, rng=None):
         for key in plan.drop_after[pos]:
             del env[key]
     return [env[(id(n), i)] for n, i in plan.heads], new_aux
+
+
+def sampler_state(plan, device):
+    """``(generator, state)`` of ``device``'s generator before a walk of
+    ``plan`` that samples from it, else None: what
+    :func:`recompute_graph` replays."""
+    if not plan.samples:
+        return None
+    gen = _random.generator(device)
+    return gen, gen.get_state()
+
+
+def recompute_graph(plan, values, seed, sampler=None):
+    """The recompute of gradient mirroring (``MXNET_BACKWARD_DO_MIRROR``):
+    ``plan``'s train walk on ``values`` once more, recorded by autograd,
+    from the step seed ``seed`` of the first walk, so every Dropout mask
+    and ``rrelu`` slope replays, and with the generator of ``sampler``
+    (:func:`sampler_state`) set back to where the first walk started and
+    restored after, so no generator advances.  Its new auxiliary values
+    are dropped: the first walk wrote them (BatchNorm's moving
+    statistics move once a step).  Returns the heads."""
+    if sampler is not None:
+        gen, start = sampler
+        now = gen.get_state()
+        gen.set_state(start)
+    try:
+        rng = _random.StepRandom(seed) if seed is not None else None
+        with torch.enable_grad():
+            return run_graph(plan, values, True, rng)[0]
+    finally:
+        if sampler is not None:
+            gen.set_state(now)
 
 
 class Executor:
@@ -246,6 +295,12 @@ class Executor:
             if self._plan.draws else None
         self.dispatches = 0         # inference forwards
         self.captures = 0           # graphs captured
+        # MXNET_BACKWARD_DO_MIRROR at bind: a train forward keeps only
+        # the walk's inputs, seed and sampler state (_recompute), and
+        # backward walks again; a later change of the variable affects
+        # later binds only
+        self._mirror = _config.backward_do_mirror()
+        self._recompute = None
 
     @property
     def grad_arrays(self):
@@ -347,7 +402,7 @@ class Executor:
                 stage = self._staging[name] = Staging(dst._data)
             with torch.no_grad():
                 stage.put(_as_tensor(value, dst.shape, name))
-        self._heads = None
+        self._heads = self._recompute = None
         if self._seed is not None:
             _random.next_seed(self._device, out=self._seed)
         bound = tuple(id(nd._data) for nd in self.arg_dict.values()) \
@@ -396,19 +451,23 @@ class Executor:
             if self._donated_names and self._device.type == "cuda":
                 return self._forward_donated(feeds)
         self._feed(feeds)
-        self._heads = None
+        self._heads = self._recompute = None
         record = is_train and bool(self.grad_dict)
         values = {n: nd._data for n, nd in self.aux_dict.items()}
         values.update((n, nd._data) for n, nd in self.arg_dict.items())
-        rng = _random.StepRandom(_random.next_seed(self._device)) \
-            if self._plan.draws else None
-        with torch.set_grad_enabled(record):
+        seed = _random.next_seed(self._device) if self._plan.draws else None
+        rng = _random.StepRandom(seed) if seed is not None else None
+        mirror = record and self._mirror
+        sampler = sampler_state(self._plan, self._device) if mirror else None
+        with torch.set_grad_enabled(record and not mirror):
             heads, new_aux = run_graph(self._plan, values, is_train, rng)
         with torch.no_grad():
             for name, t in new_aux.items():
                 if name in self.aux_dict:
                     self.aux_dict[name]._data.copy_(t)
-        if record:
+        if mirror:
+            self._recompute = (values, seed, sampler)
+        elif record:
             self._heads = heads
         self.outputs = [NDArray(t.detach()) for t in heads]
         return self.outputs
@@ -419,6 +478,12 @@ class Executor:
         for ones), and every argument's gradient is written into
         ``grad_dict`` according to its ``grad_req``.  The recorded graph
         is freed."""
+        if self._recompute is not None:
+            # mirrored: the forward again, recorded, from the same inputs,
+            # seed and sampler state
+            values, seed, sampler = self._recompute
+            self._recompute = None
+            self._heads = recompute_graph(self._plan, values, seed, sampler)
         if self._heads is None:
             raise MXNetError("backward() needs a forward(is_train=True) "
                              "on an executor bound with gradients")

@@ -458,9 +458,15 @@ class SymbolBlock(HybridBlock):
     def forward(self, *args):
         from ..symbol import Symbol
         if args and isinstance(args[0], Symbol):
-            raise MXNetError("SymbolBlock: composing it into another "
-                             "symbol comes with a later slice of the "
-                             "PyTorch port (ROADMAP A.5)")
+            # the JAX package cannot either: its SymbolBlock.forward reads
+            # a Symbol's shape, and a hybridized block holding one has no
+            # hybrid_forward to trace (mxnet_tpu/gluon/block.py:443-470,
+            # :578-600); the port raises where it fails
+            raise MXNetError("SymbolBlock cannot be composed into another "
+                             "symbol: it runs on NDArrays only, as in the "
+                             "JAX package, where calling it on a Symbol, "
+                             "hybridizing a block that holds it or "
+                             "exporting such a block fails too")
         params = dict(self._params.items())
         if any(p._data is None for p in params.values()):
             shapes, _, aux_shapes = self._symbol.infer_shape(

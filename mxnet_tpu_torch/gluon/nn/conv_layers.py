@@ -5,8 +5,9 @@ python/mxnet/gluon/nn/conv_layers.py): ``Conv1D/2D/3D``, the max,
 average and global pools at 1-3 D, and ``ReflectionPad2D``, with the
 same signatures and ``weight``/``bias`` names.  The classes per rank
 are made from one rank-generic convolution and one pooling core, as in
-the JAX package.  The ``Conv*Transpose`` layers need the Deconvolution
-op (ROADMAP A.5) and raise.
+the JAX package: ``output_padding=None`` makes the forward
+convolution, a tuple the transposed one (``Conv*Transpose``, over the
+Deconvolution op, with ``output_padding`` as its ``adj``).
 """
 from __future__ import annotations
 
@@ -30,12 +31,15 @@ def _per_axis(value, rank):
 
 
 class _Conv(HybridBlock):
-    """Rank-generic convolution: (out, in / groups, *kernel) weights."""
+    """Rank-generic convolution, forward with (out, in / groups, *kernel)
+    weights or, with an ``output_padding`` tuple, transposed
+    (Deconvolution) with (in, out / groups, *kernel) weights."""
 
     def __init__(self, rank, channels, kernel_size, strides=1, padding=0,
                  dilation=1, groups=1, layout=None, activation=None,
                  use_bias=True, weight_initializer=None,
-                 bias_initializer="zeros", in_channels=0, **kwargs):
+                 bias_initializer="zeros", in_channels=0,
+                 output_padding=None, **kwargs):
         super().__init__(**kwargs)
         if layout != _LAYOUTS[rank]:
             raise MXNetError("%s: layout %r; the Gluon convolutions of the "
@@ -43,12 +47,16 @@ class _Conv(HybridBlock):
                                  type(self).__name__, layout,
                                  _LAYOUTS[rank]))
         self._channels = channels
+        self._op_name = "Convolution" if output_padding is None \
+            else "Deconvolution"
         kernel = _per_axis(kernel_size, rank)
         self._kwargs = {
             "kernel": kernel, "stride": _per_axis(strides, rank),
             "dilate": _per_axis(dilation, rank),
             "pad": _per_axis(padding, rank), "num_filter": channels,
             "num_group": groups, "no_bias": not use_bias}
+        if output_padding is not None:
+            self._kwargs["adj"] = _per_axis(output_padding, rank)
         with self.name_scope():
             self.weight = self.params.get(
                 "weight", shape=self._weight_shape(in_channels),
@@ -61,6 +69,8 @@ class _Conv(HybridBlock):
 
     def _weight_shape(self, in_ch):
         g = self._kwargs["num_group"]
+        if self._op_name == "Deconvolution":
+            return (in_ch, self._channels // g) + self._kwargs["kernel"]
         return (self._channels, in_ch // g if in_ch else 0) + \
             self._kwargs["kernel"]
 
@@ -68,9 +78,10 @@ class _Conv(HybridBlock):
         self.weight._shape_from_data(self._weight_shape(x.shape[1]))
 
     def hybrid_forward(self, F, x, weight, bias=None):
+        op = getattr(F, self._op_name)
         kw = dict(self._kwargs, no_bias=bias is None)
-        out = F.Convolution(x, weight, **kw) if bias is None \
-            else F.Convolution(x, weight, bias, **kw)
+        out = op(x, weight, **kw) if bias is None else op(x, weight, bias,
+                                                          **kw)
         return self.act(out) if self.act is not None else out
 
     def __repr__(self):
@@ -91,10 +102,16 @@ def _conv_init(rank):
     return __init__
 
 
-def _transposed_init(name):
-    def __init__(self, *args, **kwargs):
-        raise MXNetError("nn.%s needs the Deconvolution op, which is not in "
-                         "the PyTorch port yet (ROADMAP A.5)" % name)
+def _transposed_init(rank):
+    def __init__(self, channels, kernel_size, strides=1, padding=0,
+                 output_padding=0, dilation=1, groups=1,
+                 layout=_LAYOUTS[rank], activation=None, use_bias=True,
+                 weight_initializer=None, bias_initializer="zeros",
+                 in_channels=0, **kwargs):
+        _Conv.__init__(self, rank, channels, kernel_size, strides, padding,
+                       dilation, groups, layout, activation, use_bias,
+                       weight_initializer, bias_initializer, in_channels,
+                       output_padding, **kwargs)
     return __init__
 
 
@@ -153,9 +170,9 @@ def _register_layer_classes():
                        % (rank, name)})
         tname = name + "Transpose"
         globals()[tname] = type(tname, (_Conv,), {
-            "__init__": _transposed_init(tname), "__module__": __name__,
-            "__doc__": "%d-D transposed convolution: needs the "
-                       "Deconvolution op (ROADMAP A.5)." % rank})
+            "__init__": _transposed_init(rank), "__module__": __name__,
+            "__doc__": "%d-D transposed convolution layer (reference %s)."
+                       % (rank, tname)})
         for kind in ("max", "avg"):
             pname = "%sPool%dD" % (kind.capitalize(), rank)
             globals()[pname] = type(pname, (_Pooling,), {

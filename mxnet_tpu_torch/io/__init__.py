@@ -1,4 +1,4 @@
 """Data iterators (counterpart of ``mxnet_tpu/io``)."""
-from .io import DataBatch, DataDesc, DataIter, NDArrayIter
+from .io import DataBatch, DataDesc, DataIter, MNISTIter, NDArrayIter
 
-__all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter"]
+__all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "MNISTIter"]

@@ -3,8 +3,8 @@
 Counterpart of ``mxnet_tpu/io/io.py``, reduced to what the training
 slice uses: ``DataDesc``, ``DataBatch``, the ``DataIter`` protocol and
 ``NDArrayIter`` (shuffle, ``last_batch_handle`` ``'pad'`` or
-``'discard'``).  Batches are host (CPU) NDArrays; the executor copies
-them onto its device.  The shuffle draws from the port's host numpy
+``'discard'``), and ``MNISTIter`` over MNIST's idx files.  Batches are
+host (CPU) NDArrays; the executor copies them onto its device.  The shuffle draws from the port's host numpy
 stream (``random.host_rng``), so ``mx.random.seed(s)`` gives the order
 the JAX package gives after ``numpy.random.seed(s)``.
 """
@@ -17,7 +17,7 @@ from ..base import MXNetError
 from ..context import cpu
 from ..ndarray.ndarray import NDArray
 
-__all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter"]
+__all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "MNISTIter"]
 
 
 class DataDesc:
@@ -172,3 +172,66 @@ class NDArrayIter(DataIter):
     def getindex(self):
         return self.idx[self.cursor:min(self.cursor + self.batch_size,
                                         self.num_data)]
+
+
+class MNISTIter(DataIter):
+    """Batches of an MNIST idx image file and its label file (reference
+    src/io/iter_mnist.cc; ``mxnet_tpu/io/io.py`` ``MNISTIter``): pixels
+    scaled to [0, 1] in float32, each image ``(1, 28, 28)`` or, with
+    ``flat``, ``(784,)`` (or ``input_shape``), labels as floats, through
+    an ``NDArrayIter`` that drops the last partial batch and, with
+    ``shuffle``, draws its order from the port's host stream, so
+    ``mx.random.seed(s)`` gives the batches the JAX package gives after
+    ``numpy.random.seed(s)``.  ``.gz`` files are read through gzip;
+    ``seed``, ``silent`` and other reference arguments change nothing,
+    as in the JAX package."""
+
+    def __init__(self, image="train-images-idx3-ubyte",
+                 label="train-labels-idx1-ubyte", batch_size=128,
+                 shuffle=True, flat=False, silent=False, seed=None,
+                 input_shape=None, **kwargs):
+        super().__init__(batch_size)
+        imgs = self._read_idx(image).astype(_np.float32) / 255.0
+        labels = self._read_idx(label)
+        if flat:
+            imgs = imgs.reshape(imgs.shape[0], -1)
+        else:
+            imgs = imgs.reshape(imgs.shape[0], 1, imgs.shape[1],
+                                imgs.shape[2])
+        if input_shape is not None:
+            imgs = imgs.reshape((imgs.shape[0],) + tuple(input_shape))
+        self._inner = NDArrayIter(imgs, labels.astype(_np.float32),
+                                  batch_size, shuffle=shuffle,
+                                  last_batch_handle="discard")
+
+    @staticmethod
+    def _read_idx(path):
+        """The array of an idx file: a big-endian magic whose low byte is
+        the rank, the dimensions, then unsigned bytes."""
+        import gzip
+        import os
+        import struct
+        if not os.path.exists(path):
+            raise MXNetError("MNIST file not found: %s" % path)
+        opener = gzip.open if path.endswith(".gz") else open
+        with opener(path, "rb") as f:
+            ndim = struct.unpack(">I", f.read(4))[0] & 0xFF
+            dims = struct.unpack(">" + "I" * ndim, f.read(4 * ndim))
+            return _np.frombuffer(f.read(), dtype=_np.uint8).reshape(dims)
+
+    def next(self):
+        return self._inner.next()
+
+    def reset(self):
+        self._inner.reset()
+
+    def iter_next(self):
+        return self._inner.iter_next()
+
+    @property
+    def provide_data(self):
+        return self._inner.provide_data
+
+    @property
+    def provide_label(self):
+        return self._inner.provide_label

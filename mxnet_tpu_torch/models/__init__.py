@@ -1,13 +1,14 @@
 """Model zoo of the PyTorch port (counterpart of ``mxnet_tpu/models``):
-the transformer LM, LeNet and ResNet.  ``get_symbol(network, ...)``
+the transformer LM, LeNet, ResNet and the examples' MLP.  ``get_symbol(network, ...)``
 mirrors the image-classification harness's factory; the other networks
 of the JAX package's zoo come with later slices."""
 from ..base import MXNetError
-from . import lenet, resnet, transformer
+from . import lenet, mlp, resnet, transformer
 
-__all__ = ["get_symbol", "lenet", "resnet", "transformer"]
+__all__ = ["get_symbol", "lenet", "mlp", "resnet", "transformer"]
 
-_NETWORKS = {"transformer": transformer, "lenet": lenet, "resnet": resnet}
+_NETWORKS = {"transformer": transformer, "lenet": lenet, "resnet": resnet,
+             "mlp": mlp}
 
 
 def get_symbol(network, **kwargs):

@@ -88,6 +88,14 @@ eager pair, as do modules bound with ``inputs_need_grad`` (reference
 numerics sentinels for A.9 (``MXNET_SENTINEL_NUMERICS`` other than 0
 raises here).  ``MXNET_FIT_FUSED=0`` keeps every step eager.
 
+Under ``MXNET_BACKWARD_DO_MIRROR=1`` (read at each step and part of
+the program's key, as in the JAX package) the body runs the forward
+without recording, then once more, recorded, from the same step seed
+(``executor.recompute_graph``: the masks replay, BatchNorm's moving
+statistics come from the first walk only), and takes the gradients
+from the second: one graph per batch shape still, with a second
+forward's launches in it.
+
 The generators themselves are not registered with the graph: a step
 that draws from one (an op of ``ops/random_ops.py``) raises at its
 first capture instead of replaying one draw forever.
@@ -100,11 +108,12 @@ from types import SimpleNamespace
 import numpy as _np
 import torch
 
+from .. import config as _config
 from .. import fused_update as _fused
 from .. import random as _random
 from ..base import MXNetError
 from ..cuda_graph import WARMUP, GraphPool, Program, Staging
-from ..executor import run_graph
+from ..executor import recompute_graph, run_graph, sampler_state
 from ..kvstore import KVStore, _updater_key
 from ..kvstore_fused import bucket_byte_cap, push_plan, two_bit_quantize
 from ..ndarray.ndarray import NDArray
@@ -319,7 +328,7 @@ class FusedFitStep:
 
     # -- the step body --------------------------------------------------
     def _make_body(self, feeds, targets, states, tpls, mp, use_wd, upd,
-                   scaler):
+                   scaler, mirror):
         mod = self._mod
         exe = mod._exec_group._exec
         order, threshold = self._order, self._threshold
@@ -346,9 +355,19 @@ class FusedFitStep:
             values.update((k, nd._data) for k, nd in exe.arg_dict.items())
             values.update(feeds)
             rng = _random.StepRandom(seed) if seed is not None else None
+            if mirror:
+                # MXNET_BACKWARD_DO_MIRROR: the forward unrecorded, then
+                # again, recorded, from the same seed (the masks replay)
+                sampler = sampler_state(exe._plan, self._device)
+                with torch.no_grad():
+                    heads, new_aux = run_graph(exe._plan, values, True, rng)
+                rec = recompute_graph(exe._plan, values, seed, sampler)
+            else:
+                with torch.enable_grad():
+                    heads, new_aux = run_graph(exe._plan, values, True, rng)
+                rec = heads
             with torch.enable_grad():
-                heads, new_aux = run_graph(exe._plan, values, True, rng)
-                outs = [h for h in heads if h.requires_grad]
+                outs = [h for h in rec if h.requires_grad]
                 grads = torch.autograd.grad(
                     outs, leaves, [torch.ones_like(h) for h in outs],
                     allow_unused=True) if outs else [None] * n
@@ -506,8 +525,12 @@ class FusedFitStep:
                 eval_metric, group.label_names, mod._symbol.list_outputs())
             self._metric_ref = eval_metric
         shapes = tuple((n, tuple(t.shape)) for n, t in inputs.items())
+        # read each step and part of the key, as the JAX package's fused
+        # step reads it (mxnet_tpu/module/fused_fit.py:706)
+        mirror = _config.backward_do_mirror()
         key = (shapes, mode, self._threshold, tuple(tpls), mp, use_wd,
-               self._msig, scaler.trace_sig() if scaler is not None else None)
+               self._msig, scaler.trace_sig() if scaler is not None else None,
+               mirror)
         prog = self._programs.get(key)
         if prog is None:
             feeds = {}
@@ -518,7 +541,7 @@ class FusedFitStep:
                                      device=arg.device)
             prog = self._programs[key] = _Program(
                 self._make_body(feeds, targets, states, tpls, mp, use_wd,
-                                _fused.build(mode), scaler), feeds,
+                                _fused.build(mode), scaler, mirror), feeds,
                 self._device, self._pool)
         host = _np.concatenate([lr, wd, _np.float32(
             [optimizer.rescale_grad]), extra.reshape(-1)]).astype(_np.float32)
@@ -547,7 +570,7 @@ class FusedFitStep:
         outs = prog.run()
         self.captures += prog.graph is not None and not was_captured
         exe.outputs = [NDArray(o) for o in outs]
-        exe._heads = None
+        exe._heads = exe._recompute = None
         if self._metric_fn is not None:
             eval_metric._dev_sum, eval_metric._dev_num = acc_sum, acc_num
             eval_metric._device_consumed = True

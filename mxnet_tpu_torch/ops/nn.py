@@ -13,7 +13,10 @@ plain PyTorch versions only for tensors on the CPU.  Gradients are
 autograd's, with ``torch.autograd.Function``s where the JAX package had
 a custom VJP (LayerNorm, flash attention, SoftmaxOutput, BatchNorm).
 Dropout is a mask draw (:func:`dropout_mask`, from the walk's step seed,
-``random.keep_mask``) and a mask apply (:func:`dropout_apply`).
+``random.keep_mask``) and a mask apply (:func:`dropout_apply`);
+LeakyReLU's ``rrelu`` draws its slopes from the same seed
+(:func:`rrelu_slopes`).  Deconvolution is ``F.conv_transpose{1,2,3}d``
+(the JAX package computes it outside Pallas too).
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import random as _random
-from ..base import MXNetError
+from ..base import LOW_PRECISION, MXNetError
 from ..kernels import (flash_attention, layernorm, paged_chunk_prefill_attend,
                        paged_decode_attend, paged_prefill_attend)
 from .registry import register
@@ -141,6 +144,41 @@ def convolution(data, weight, bias=None, *, kernel, num_filter, stride=(),
         up = [None if t is None else t.float() for t in (data, weight, bias)]
         return conv(*up).to(torch.float16)
     return conv(data, weight, bias)
+
+
+_CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+@register("Deconvolution", aliases=("deconvolution",),
+          unused_inputs=lambda a: ("bias",) if a.get("no_bias", True)
+          else ())
+def deconvolution(data, weight, bias=None, *, kernel, num_filter, stride=(),
+                  dilate=(), pad=(), adj=(), target_shape=(), num_group=1,
+                  no_bias=True, cudnn_tune=None, cudnn_off=False,
+                  workspace=512, layout=None):
+    """1-, 2- or 3-D transposed convolution (ref
+    src/operator/nn/deconvolution.cc; the JAX package's
+    ``mxnet_tpu/ops/nn.py`` ``deconvolution``): channels-first data and
+    (C, num_filter / groups, *kernel) weights, the output
+    ``(in - 1) * stride - 2 * pad + dilate * (kernel - 1) + 1 + adj``
+    wide, the bias (when ``no_bias`` is False) added per output channel.
+    ``target_shape`` and ``layout`` are accepted and change nothing, as
+    in the JAX package."""
+    nd = len(kernel)
+    if nd not in _CONV_T or data.dim() != nd + 2:
+        raise MXNetError("Deconvolution: a %d-D kernel over %d-D data is "
+                         "not in the PyTorch port" % (nd, data.dim()))
+    deconv = partial(_CONV_T[nd], stride=_tuple(stride, nd),
+                     padding=_tuple(pad or 0, nd),
+                     output_padding=_tuple(adj or 0, nd),
+                     groups=int(num_group), dilation=_tuple(dilate, nd))
+    bias = None if no_bias else bias
+    if data.dtype == torch.float16 and data.device.type == "cpu":
+        # as Convolution: f32 sums rounded once, as cuDNN gives them
+        up = [None if t is None else t.float() for t in (data, weight, bias)]
+        return deconv(*up).to(torch.float16)
+    return deconv(data, weight, bias)
 
 
 # ----------------------------------------------------------------------
@@ -336,17 +374,81 @@ def activation(data, *, act_type):
     return fn(data)
 
 
-@register("LeakyReLU")
+def _weak(v, dtype):
+    """The Python scalar ``v`` rounded to ``dtype``, as the JAX package's
+    weakly typed constants meet a tensor of that type (in bf16, 1.6733
+    enters a product as 1.671875)."""
+    return float(torch.tensor(float(v), dtype=dtype))
+
+
+# the SELU constants of the reference (Klambauer et al. 2017)
+_SELU_ALPHA, _SELU_LAMBDA = 1.6732632423543772, 1.0507009873554805
+
+
+def rrelu_slopes(data, lower_bound, upper_bound, rng=None):
+    """The slopes of one ``rrelu`` draw in training: one per element of
+    ``data``, uniform on ``[lower_bound, upper_bound)`` in float32
+    (``random.uniform``, counter-based from ``rng``'s step seed and next
+    site, or a fresh seed of the device's generator when ``rng`` is
+    None), rounded to ``data``'s type."""
+    if rng is None:
+        seed, site = _random.next_seed(data.device), 0
+    else:
+        seed, site = rng.next()
+    return _random.uniform(seed, site, data.shape, lower_bound, upper_bound,
+                           data.device).to(data.dtype)
+
+
+def _leaky_unused(attrs):
+    return () if attrs.get("act_type") == "prelu" else ("gamma",)
+
+
+@register("LeakyReLU", unused_inputs=_leaky_unused,
+          draws=lambda a: a.get("act_type") == "rrelu")
 def leaky_relu(data, gamma=None, *, act_type="leaky", slope=0.25,
-               lower_bound=0.125, upper_bound=0.334):
-    """leaky and tanh-approximated GELU (ref src/operator/leaky_relu.cc;
-    ``gelu_tanh`` is the GPT-2 convention the transformer uses)."""
+               lower_bound=0.125, upper_bound=0.334, is_train=False,
+               rng=None):
+    """leaky, prelu, elu, selu, gelu and rrelu (ref
+    src/operator/leaky_relu.cc; ``mxnet_tpu/ops/nn.py`` ``leaky_relu``),
+    and the tanh-approximated GELU (``gelu_tanh``, the GPT-2 convention
+    the transformer uses).  ``prelu`` takes the learned per-channel
+    ``gamma`` (axis 1); ``elu`` is ``slope * expm1(x)`` below 0; ``selu``
+    ``lambda * (x or alpha * expm1(x))``; ``gelu`` the erf form;
+    ``rrelu`` in training multiplies each negative element by its own
+    slope, drawn uniform on ``[lower_bound, upper_bound)`` from the
+    walk's step seed (:func:`rrelu_slopes`: a captured graph draws anew
+    on each replay, and the card and the CPU draw the same slopes), and
+    outside training by ``(lower_bound + upper_bound) / 2``.  Constants
+    meet the data in its own type, as the JAX package's do.  In bf16 and
+    f16, prelu, elu, selu and gelu compute in f32 and round once,
+    forward and backward (autograd follows the casts): the JAX package
+    rounds after each of its steps, and its f16 ``expm1`` is off by an
+    ulp, which the gradient's ``expm1(x) + 1`` magnifies."""
+    dt = data.dtype
+    if dt in LOW_PRECISION and act_type in ("prelu", "elu", "selu", "gelu"):
+        return leaky_relu(data.float(),
+                          None if gamma is None else gamma.float(),
+                          act_type=act_type, slope=slope).to(dt)
     if act_type == "leaky":
         return torch.where(data > 0, data, slope * data)
+    if act_type == "prelu":
+        g = gamma.reshape((1, -1) + (1,) * (data.dim() - 2)) \
+            if gamma.dim() == 1 else gamma
+        return torch.where(data > 0, data, g * data)
+    if act_type == "elu":
+        return torch.where(data > 0, data, _weak(slope, dt) * data.expm1())
+    if act_type == "selu":
+        neg = _weak(_SELU_ALPHA, dt) * data.expm1()
+        return _weak(_SELU_LAMBDA, dt) * torch.where(data > 0, data, neg)
+    if act_type == "gelu":
+        return F.gelu(data, approximate="none")
     if act_type == "gelu_tanh":
         return F.gelu(data, approximate="tanh")
-    raise MXNetError("LeakyReLU act_type=%s is not in the PyTorch port yet "
-                     "(ROADMAP A.5, ops)" % act_type)
+    if act_type == "rrelu":
+        s = rrelu_slopes(data, lower_bound, upper_bound, rng) if is_train \
+            else _weak((lower_bound + upper_bound) / 2.0, dt)
+        return torch.where(data > 0, data, s * data)
+    raise MXNetError("unknown act_type %s" % act_type)
 
 
 # ----------------------------------------------------------------------
@@ -479,8 +581,81 @@ def softmax_output(data, label, *, grad_scale=1.0, ignore_label=-1.0,
 
 
 # ----------------------------------------------------------------------
+# Regression outputs (ref src/operator/regression_output-inl.h): the
+# forward's identity or sigmoid, and ``(out - label) * grad_scale /
+# batch`` (the sign of the difference for MAE) as the backward
+# ----------------------------------------------------------------------
+class _RegressionOutputFn(torch.autograd.Function):
+    """``fwd(data)``; the backward ignores the incoming gradient and
+    returns ``grad(out - label) * grad_scale / batch`` (the label takes
+    none), as the JAX package's custom VJPs do."""
+
+    @staticmethod
+    def forward(ctx, data, label, fwd, grad, grad_scale):
+        out = fwd(data)
+        ctx.save_for_backward(out, label)
+        ctx.grad, ctx.grad_scale = grad, grad_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, _grad):
+        out, label = ctx.saved_tensors
+        g = ctx.grad(out - label.reshape(out.shape)) * ctx.grad_scale \
+            / out.shape[0]
+        return g.to(out.dtype), None, None, None, None
+
+
+def _identity(t):
+    return t
+
+
+@register("LinearRegressionOutput")
+def linear_regression_output(data, label, *, grad_scale=1.0):
+    """The identity, with the squared loss's gradient."""
+    return _RegressionOutputFn.apply(data, label, _identity, _identity,
+                                     float(grad_scale))
+
+
+@register("MAERegressionOutput")
+def mae_regression_output(data, label, *, grad_scale=1.0):
+    """The identity, with the absolute loss's gradient (the sign)."""
+    return _RegressionOutputFn.apply(data, label, _identity, torch.sign,
+                                     float(grad_scale))
+
+
+@register("LogisticRegressionOutput")
+def logistic_regression_output(data, label, *, grad_scale=1.0):
+    """The sigmoid, with the logistic loss's gradient."""
+    return _RegressionOutputFn.apply(data, label, torch.sigmoid, _identity,
+                                     float(grad_scale))
+
+
+# ----------------------------------------------------------------------
 # Causal self-attention of the training symbol
 # ----------------------------------------------------------------------
+@register("_contrib_CausalSelfAttention", aliases=("CausalSelfAttention",))
+def causal_self_attention(qkv, *, num_heads, scale=None):
+    """Causal multi-head self-attention over a packed QKV tensor, (B, S,
+    3 * d) -> (B, S, d) (``mxnet_tpu/ops/nn.py`` ``causal_self_attention``):
+    q, k and v are the thirds of the last axis (``jnp.split``), each
+    (B, S, H, D) viewed head-major, through the flash kernels (row 8's
+    forward, dK/dV and dQ, ``kernels.flash_attention``), with the scale
+    ``1 / sqrt(D)`` unless given.  The kernels keep the scores in f32;
+    the JAX package's path off the TPU rounds them to the input type
+    before its f32 softmax, so 16-bit results differ by that rounding
+    (ROADMAP C)."""
+    B, S, d3 = qkv.shape
+    if d3 % 3:
+        raise MXNetError("CausalSelfAttention: the last axis (%d) is not "
+                         "three equal parts q|k|v" % d3)
+    d = d3 // 3
+    H, D, sc = _heads(d, num_heads, scale)
+    q, k, v = qkv.view(B, S, 3, H, D).permute(2, 0, 3, 1, 4).contiguous() \
+        .unbind(0)
+    o = flash_attention(q, k, v, scale=sc)                  # (B, H, S, D)
+    return o.transpose(1, 2).reshape(B, S, d)
+
+
 @register("_contrib_FusedCausalSelfAttention",
           aliases=("FusedCausalSelfAttention",))
 def fused_causal_self_attention(data, qkv_weight, qkv_bias, proj_weight,

@@ -8,7 +8,9 @@ an op that declares it is handed the executor's train flag (the JAX
 package's ``current_op_context().is_train``), and ``rng``: an op that
 declares it draws random numbers and is handed the walk's
 ``random.StepRandom`` (the JAX package's ``next_rng_key()``), or None
-when called alone.  ``mutate_inputs`` names
+when called alone; ``draws(attrs)``, when given, says whether it draws
+under those attributes (LeakyReLU only as ``rrelu``), so a graph
+without such a node takes no step seed.  ``mutate_inputs`` names
 the inputs an op updates, each with the output that carries its new
 value (BatchNorm's moving statistics, the reference's FMutateInputs):
 the symbol lists those variables as auxiliary states and the executor
@@ -38,13 +40,14 @@ class OpDef:
     """One registered operator."""
 
     def __init__(self, name, fn, num_outputs=1, num_visible_outputs=None,
-                 mutate_inputs=(), unused_inputs=None):
+                 mutate_inputs=(), unused_inputs=None, draws=None):
         self.name = name
         self.fn = fn
         self._num_outputs = num_outputs
         self._num_visible = num_visible_outputs
         self.mutate_inputs = tuple(mutate_inputs)
         self.unused_inputs = unused_inputs
+        self._draws = draws
         sig = inspect.signature(fn)
         self.input_names = [p.name for p in sig.parameters.values()
                             if p.kind is p.POSITIONAL_OR_KEYWORD]
@@ -61,6 +64,12 @@ class OpDef:
         self.attr_defaults.pop("is_train", None)
         self.attr_defaults.pop("rng", None)
         self.__doc__ = fn.__doc__
+
+    def draws(self, attrs):
+        """Whether a node with ``attrs`` draws random numbers (it is then
+        handed the walk's ``random.StepRandom``)."""
+        return self.takes_rng and (self._draws is None
+                                   or bool(self._draws(attrs)))
 
     def names_for(self, n_inputs):
         """The names of a node's ``n_inputs`` inputs."""
@@ -94,11 +103,11 @@ class OpDef:
 
 
 def register(name, aliases=(), num_outputs=1, num_visible_outputs=None,
-             mutate_inputs=(), unused_inputs=None):
+             mutate_inputs=(), unused_inputs=None, draws=None):
     """Decorator: register ``fn`` under ``name`` (and ``aliases``)."""
     def deco(fn):
         op = OpDef(name, fn, num_outputs, num_visible_outputs, mutate_inputs,
-                   unused_inputs)
+                   unused_inputs, draws)
         for n in (name,) + tuple(aliases):
             if n in _OP_REGISTRY:
                 raise MXNetError("operator %s registered twice" % n)

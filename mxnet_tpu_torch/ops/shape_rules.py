@@ -128,6 +128,30 @@ def _conv_out(ins, a):
     return [_join(x[0], a["num_filter"], sp, a)]
 
 
+def _deconv_params(ins, a):
+    """(C, num_filter / groups, *kernel) weights (``mxnet_tpu/ops/
+    shape_rules.py`` ``_deconv_shapes``)."""
+    kernel = tuple(int(k) for k in a["kernel"])
+    nf, g = int(a["num_filter"]), int(a["num_group"])
+    return {"weight": (ins["data"][1], nf // g) + kernel, "bias": (nf,)}
+
+
+def _deconv_out(ins, a):
+    x = ins["data"]
+    nd = len(a["kernel"])
+    k = _ints(a["kernel"], nd, 1)
+    s, d = _ints(a["stride"], nd, 1), _ints(a["dilate"], nd, 1)
+    p, adj = _ints(a["pad"], nd, 0), _ints(a["adj"], nd, 0)
+    sp = tuple((x[2 + i] - 1) * s[i] - 2 * p[i] + d[i] * (k[i] - 1) + 1
+               + adj[i] for i in range(nd))
+    return [(x[0], int(a["num_filter"])) + sp]
+
+
+def _csa_out(ins, a):
+    b, s, d3 = ins["qkv"]
+    return [(b, s, d3 // 3)]
+
+
 def _bn_params(ins, a):
     c = (ins["data"][int(a["axis"]) % len(ins["data"])],)
     return {"gamma": c, "beta": c, "moving_mean": c, "moving_var": c}
@@ -340,6 +364,12 @@ def _batch_dot_out(ins, a):
 PARAM_SHAPES = {
     "FullyConnected": _fc_params,
     "Convolution": _conv_params,
+    "Deconvolution": _deconv_params,
+    "LeakyReLU": lambda ins, a: {"gamma": (ins["data"][1],)}
+    if a["act_type"] == "prelu" else {},
+    "LinearRegressionOutput": lambda ins, a: {"label": ins["data"]},
+    "MAERegressionOutput": lambda ins, a: {"label": ins["data"]},
+    "LogisticRegressionOutput": lambda ins, a: {"label": ins["data"]},
     "BatchNorm": _bn_params,
     "_FusedBNReluConv": _fused_params,
     "LayerNorm": lambda ins, a: {"gamma": (ins["data"][-1],),
@@ -373,6 +403,11 @@ INDEX_INPUTS = {
 OUT_SHAPES = {
     "FullyConnected": _fc_out,
     "Convolution": _conv_out,
+    "Deconvolution": _deconv_out,
+    "_contrib_CausalSelfAttention": _csa_out,
+    "LinearRegressionOutput": _same,
+    "MAERegressionOutput": _same,
+    "LogisticRegressionOutput": _same,
     "BatchNorm": _bn_out,
     "_FusedBNReluConv": _fused_out,
     "Pooling": _pool_out,
@@ -473,7 +508,9 @@ _register_unary()
 # outputs take q.dtype); every other op promotes its floating inputs, as
 # jnp's arithmetic does
 _DATA_TYPED = {"BatchNorm", "LayerNorm", "_FusedBNReluConv", "SoftmaxOutput",
-               "_contrib_FusedCausalSelfAttention", "Pooling", "Activation",
+               "_contrib_FusedCausalSelfAttention",
+               "_contrib_CausalSelfAttention", "LinearRegressionOutput",
+               "MAERegressionOutput", "LogisticRegressionOutput", "Pooling", "Activation",
                "Flatten", "LeakyReLU", "Dropout", "Reshape", "slice_axis",
                "_contrib_GatherTimestep", "_contrib_PagedDecodeAttention",
                "_contrib_PagedChunkPrefillAttention",

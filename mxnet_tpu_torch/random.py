@@ -28,7 +28,7 @@ import numpy as _np
 import torch
 
 __all__ = ["seed", "generator", "host_rng", "get_state", "set_state",
-           "next_seed", "StepRandom", "keep_mask"]
+           "next_seed", "StepRandom", "keep_mask", "uniform"]
 
 _lock = threading.Lock()
 _STATE = {"seed": None, "gens": {}, "host": None}
@@ -169,13 +169,11 @@ def _mix_int(x):
     return x
 
 
-def keep_mask(seed, site, shape, keep, device):
-    """A bool tensor of ``shape`` on ``device``, each element True with
-    probability ``keep`` (to within 2^-32), drawn from the step seed
-    ``seed`` (a 0-d int64 tensor) at draw site ``site``: the element's
-    flat index XOR a key mixed from both, hashed, compared with
-    ``keep * 2^32``.  Integer arithmetic only, so the bits do not depend
-    on the device."""
+def _hashed(seed, site, shape, device):
+    """An int64 tensor of ``shape`` on ``device``, each element a hash in
+    [0, 2^32) of its flat index XOR a key mixed from the step seed
+    ``seed`` (a 0-d int64 tensor) and the draw site ``site``.  Integer
+    arithmetic only, so the bits do not depend on the device."""
     n = 1
     for s in shape:
         n *= int(s)
@@ -183,4 +181,27 @@ def keep_mask(seed, site, shape, keep, device):
                 ^ _mix_int((site * _GOLDEN + 1) & _M32)) & _M32)
     bits = torch.arange(n, dtype=torch.int64, device=device)
     bits.bitwise_xor_(key).bitwise_and_(_M32)
-    return (_mix(bits) < int(keep * 2.0 ** 32)).view(tuple(shape))
+    return _mix(bits).view(tuple(shape))
+
+
+def keep_mask(seed, site, shape, keep, device):
+    """A bool tensor of ``shape`` on ``device``, each element True with
+    probability ``keep`` (to within 2^-32), drawn from the step seed
+    ``seed`` (a 0-d int64 tensor) at draw site ``site``: the element's
+    hash (:func:`_hashed`) compared with ``keep * 2^32``."""
+    return _hashed(seed, site, shape, device) < int(keep * 2.0 ** 32)
+
+
+def uniform(seed, site, shape, low, high, device):
+    """A float32 tensor of ``shape`` on ``device``, uniform on ``[low,
+    high)``, drawn from ``seed`` at ``site`` as :func:`keep_mask` draws:
+    the top 24 bits of each element's hash as ``u`` in [0, 1) (exact in
+    float32), then ``low + (high - low) * u`` in float32, one rounding a
+    step (kept below ``high``), so the card and the CPU give the same
+    values."""
+    u = (_hashed(seed, site, shape, device) >> 8).to(torch.float32)
+    u.mul_(2.0 ** -24)
+    # the last float32 below ``high``: a sum that rounds up to it stays
+    # inside the interval
+    top = float(_np.nextafter(_np.float32(high), _np.float32(low)))
+    return u.mul_(float(high) - float(low)).add_(float(low)).clamp_(max=top)

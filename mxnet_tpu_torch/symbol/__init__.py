@@ -30,7 +30,7 @@ def _make_sym_func(opdef, fname):
             given = list(kwargs)        # num_args is the count, not given
             kwargs["num_args"] = len(args)
             return _make_node(opdef, nm, kwargs, [_entry_of(s) for s in args],
-                              given=given)
+                              given=given, named=True)
         kw_inputs = {k: kwargs.pop(k) for k in list(kwargs)
                      if k in opdef.input_names}
         unused = opdef.unused_inputs(kwargs) if opdef.unused_inputs \
@@ -51,7 +51,7 @@ def _make_sym_func(opdef, fname):
             else:
                 s = Variable("%s_%s" % (nm, in_name))
             inputs.append(_entry_of(s))
-        return _make_node(opdef, nm, kwargs, inputs)
+        return _make_node(opdef, nm, kwargs, inputs, named=True)
 
     fn.__name__ = fn.__qualname__ = fname
     fn.__doc__ = opdef.__doc__

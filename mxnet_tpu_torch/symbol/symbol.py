@@ -403,10 +403,14 @@ def Group(symbols):
     return Symbol(entries)
 
 
-def _make_node(opdef, name, attrs, inputs, given=None):
+def _make_node(opdef, name, attrs, inputs, given=None, named=False):
+    """A node of ``opdef``; ``name`` is given to the current name manager
+    unless ``named`` (a name it gave already: a ``Prefix`` would prefix
+    it twice)."""
     given = list(attrs) if given is None else given
     attrs = opdef.normalize_attrs(attrs)
-    nm = current_name_manager().get(name, opdef.name.replace("_", ""))
+    nm = name if named else current_name_manager().get(
+        name, opdef.name.replace("_", ""))
     node = _Node(opdef, nm, attrs, inputs, given_attrs=given)
     vis = opdef.visible_out_count(attrs)
     return Symbol([(node, i) for i in range(vis)])

@@ -237,11 +237,19 @@ def test_eager_blocks_and_raising_layers(tmp_path):
         seq.initialize()
         got = seq(_arr(pkg, x)).asnumpy()
         np.testing.assert_allclose(got, np.tanh(x) * 3, rtol=1e-6)
-    for make in (lambda: mx.gluon.nn.Conv1DTranspose(4, 3),
-                 lambda: mx.gluon.nn.Conv2DTranspose(4, 3),
-                 lambda: mx.gluon.nn.Conv2D(4, 3, layout="NHWC")):
-        with pytest.raises(mx.MXNetError):
-            make()
+    # the Conv*Transpose layers run now (parity cases in
+    # test_torch_deconvolution.py): the output shape is the JAX layer's
+    for name, shape in (("Conv1DTranspose", (2, 3, 5)),
+                        ("Conv2DTranspose", (2, 3, 5, 5))):
+        outs = []
+        for pkg in (jmx, mx):
+            layer = getattr(pkg.gluon.nn, name)(4, 3, strides=2)
+            layer.initialize(**({} if pkg is jmx else {"ctx": mx.cpu()}))
+            outs.append(layer(_arr(pkg, np.ones(shape, np.float32))).shape)
+        assert tuple(outs[0]) == tuple(outs[1]) == (2, 4) + (11,) * (
+            len(shape) - 2)
+    with pytest.raises(mx.MXNetError):
+        mx.gluon.nn.Conv2D(4, 3, layout="NHWC")
     # parameter files, export and SymbolBlock (ROADMAP A.7) work now
     x3 = _r(np.random.RandomState(5), 4, 3)
     net = mx.gluon.nn.Dense(2, in_units=3)
