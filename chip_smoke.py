@@ -529,9 +529,31 @@ Phases, each printed as one JSON line:
    equal the unmirrored ones;
 56. harness (last): example/torch's train_mnist (mlp, lenet; synthetic
    digits, one epoch), train_imagenet --benchmark 1 (ResNet-50 at 224,
-   batch 64, 10 batches, NCHW f32 and NHWC bf16) and dcgan, each in a
-   process of its own: exit 0, finite final metrics, the Speedometer's
-   samples/s printed beside the card's name.
+   batch 64, 10 batches, NCHW f32 and NHWC bf16), dcgan, and the RNN
+   LMs (rnn/lstm_bucketing.py at its full width with 2-bit compression
+   on a drawn corpus of 6000 sentences, one epoch; rnn/char_lm.py on the
+   committed fixture, which must clear its target perplexity 4.5), each
+   in a process of its own: exit 0, finite final metrics, the
+   Speedometer's samples/s (and the LM's tokens/s) printed beside the
+   card's name;
+57. rnn_op (the RNN LM, BASELINE config 4; with the kernel phases): the
+   fused RNN op (plain PyTorch, ops/rnn.py) at RNN_OP's shapes against
+   torch.nn.LSTM (cuDNN) on the same weights, output and input gradient
+   within rtol 1e-4 / atol 1e-5; forward and forward + backward timed
+   beside cuDNN's (a yardstick only);
+58. lstm_bucketing (after 55): the LM at lstm_bucketing.py's full width
+   (LSTM_LM) through BucketingModule.fit over all six buckets, graph
+   and eager arms, dense and 2-bit: one capture a bucket, every step
+   fused, no host sync and one graph launch a steady step, row 6
+   launched (counts zeroed before the run) and recorded in every 2-bit
+   bucket graph, no plain version; step p50 by bucket, tokens/s (pads
+   left out), device operations a step, peak GB; graph and eager
+   weights within move_l2; row 6 at the LM's residual lengths bit for
+   bit;
+59. rnn_agreement: the LM at RNN_AGREE's widths, card (the fused step,
+   one graph a bucket) against CPU across changes of bucket;
+60. gluon_rnn: gluon.rnn.LSTM(200, num_layers=2) for a few Trainer
+   steps: the loss finite and falling, every parameter moved.
 
 Then the kernels' JSON line (every kernel with its dtype; the bf16 and
 f16 forms as rows of their own, the serving kernels' bf16 and f16
@@ -949,7 +971,11 @@ HARNESS_WAVES = (
      ("train_mnist lenet", "image-classification/train_mnist.py",
       ["--network", "lenet", "--num-epochs", "1", "--disp-batches", "7"],
       180),
-     ("dcgan", "gan/dcgan.py", [], 240)),
+     ("dcgan", "gan/dcgan.py", [], 240),
+     ("lstm_bucketing 2bit", "rnn/lstm_bucketing.py",
+      ["--num-sentences", "6000", "--num-epochs", "1", "--gc-type", "2bit",
+       "--disp-batches", "40"], 300),
+     ("char_lm", "rnn/char_lm.py", [], 300)),
     (("train_imagenet resnet-50 NCHW f32",
       "image-classification/train_imagenet.py",
       ["--benchmark", "1", "--batch-size", "64", "--num-examples", "640",
@@ -961,6 +987,36 @@ HARNESS_WAVES = (
        "--dtype", "bfloat16"], 300),),
 )
 
+
+# the RNN LM (BASELINE config 4, lstm_bucketing): MXNet's
+# example/rnn/bucketing/lstm_bucketing.py at its defaults (2 LSTM layers
+# of 200, 200-wide embeddings, batch 32, buckets 10-60, PTB's 10000
+# words: 10001 classes with the pad; SGD 0.01, wd 1e-5) through
+# BucketingModule.fit with kvstore='device', on a drawn corpus of
+# `per_bucket` batches a bucket (lengths uniform over each bucket's
+# range, Zipf words), uniform(+-0.08) weights from a numpy seed; four
+# arms: graph and eager, dense and 2-bit at `threshold`; each pair's
+# weights within move_l2 of the eager arm's move; `profiled` buckets
+# traced for two steps each
+LSTM_LM = dict(layers=2, hidden=200, embed=200, vocab=10000, batch=32,
+               buckets=(10, 20, 30, 40, 50, 60), per_bucket=6, lr=0.01,
+               wd=1e-5, threshold=0.5, init=0.08, move_l2=1e-3,
+               profiled=(10, 60))
+# the RNN LM card against CPU (rnn_agreement): 2 layers at small widths,
+# buckets 10 and 20 in turns, the fused step on the card, each
+# parameter's move within `rtol` of the CPU's largest move of it
+RNN_AGREE = dict(layers=2, hidden=64, embed=32, vocab=500, batch=8,
+                 buckets=(10, 20), per_bucket=4, lr=0.5, init=0.08,
+                 rtol=1e-3)
+# the fused RNN op at the LM's width (rnn_op): (seq 60, batch 32, 200)
+# through 2 LSTM layers of 200, forward and forward + backward, beside
+# torch.nn.LSTM (cuDNN) at the same shapes as a library yardstick
+RNN_OP = dict(seq=60, batch=32, input=200, hidden=200, layers=2, reps=20,
+              rtol=1e-4, atol=1e-5)
+# gluon.rnn.LSTM(200, num_layers=2) over (35, 32, 200) for a few Trainer
+# steps (gluon_rnn)
+GLUON_RNN = dict(seq=35, batch=32, input=200, hidden=200, layers=2,
+                 steps=6, lr=0.5)
 
 class SmokeFailure(RuntimeError):
     pass
@@ -1729,7 +1785,8 @@ def profiled(torch, run):
     """``run()`` (returns the steps it took) under ``torch.profiler`` and
     ``torch.cuda.set_sync_debug_mode('warn')``: per step, the CUDA
     runtime's launch and copy calls (every thread), the host syncs with
-    the Python line of each, and the device ms (kernels and copies)."""
+    the Python line of each, and the device ms and count of the device
+    operations (kernels and copies)."""
     import warnings
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1752,11 +1809,13 @@ def profiled(torch, run):
     for ev in prof.events():
         if ev.name in _RUNTIME_CALLS:
             calls[ev.name] = calls.get(ev.name, 0) + 1
+    device = [ev for ev in prof.key_averages()
+              if ev.device_type == torch.autograd.DeviceType.CUDA]
     device_us = sum(getattr(ev, "self_device_time_total",
                             getattr(ev, "self_cuda_time_total", 0))
-                    for ev in prof.key_averages()
-                    if ev.device_type == torch.autograd.DeviceType.CUDA)
+                    for ev in device)
     return {"steps": steps, "wall_ms_per_step": wall * 1e3 / steps,
+            "device_ops_per_step": sum(ev.count for ev in device) / steps,
             "runtime_calls_per_step": {k: v / steps
                                        for k, v in sorted(calls.items())},
             "host_syncs_per_step": syncs / steps, "sync_sites": sites,
@@ -9412,6 +9471,12 @@ def phase_harness(torch, card):
                       "pass its checks")
                 final = [ln for ln in text.splitlines()
                          if ln.startswith("iter")]
+            elif script.endswith("char_lm.py"):
+                # exits 0 only below its target perplexity (4.5)
+                check("char_lm OK" in text, "harness: char_lm did not "
+                      "reach its target perplexity")
+                final = [ln for ln in text.splitlines()
+                         if ln.startswith("final train perplexity")]
             else:
                 final = [ln for ln in text.splitlines()
                          if "final train metrics" in ln]
@@ -9419,13 +9484,467 @@ def phase_harness(torch, card):
                       "harness: %s ended without finite metrics" % what)
                 check(speeds, "harness: %s printed no samples/s" % what)
             runs.append({"run": what, "args": args, "shared_card":
-                         len(wave) > 1,
+                         len(wave) > 1, "tokens_per_s": [
+                             float(v) for v in re.findall(
+                                 r"tokens/s ([0-9.]+)", text)],
                          "seconds": time.perf_counter() - t0,
                          "samples_per_s": speeds, "last": final[-1:]})
             print("harness %s: samples/s %s on %s" % (what, speeds, card),
                   flush=True)
     emit({"phase": "harness", "card": card, "runs": runs})
     return runs
+
+
+# ----------------------------------------------------------------------
+# the RNN LM (BASELINE config 4): mx.rnn, BucketingModule, gluon.rnn
+# ----------------------------------------------------------------------
+def _lm_corpus(mx, cfg, seed):
+    """Encoded sentences: ``per_bucket`` batches a bucket, each length
+    uniform over its bucket's range, Zipf words over the vocabulary
+    (``mx.rnn.encode_sentences``, pad 0, words from 1)."""
+    rng = np.random.RandomState(seed)
+    zipf = 1.0 / np.arange(1, cfg["vocab"] + 1)
+    zipf /= zipf.sum()
+    sents, lo = [], 1
+    for b in cfg["buckets"]:
+        n = cfg["per_bucket"] * cfg["batch"]
+        lens = rng.randint(lo + 1, b + 1, n)
+        words = rng.choice(cfg["vocab"], size=(n, b), p=zipf) + 1
+        sents += [[int(w) for w in row[:k]] for row, k in zip(words, lens)]
+        lo = b
+    return mx.rnn.encode_sentences(sents, invalid_label=0, invalid_key="\n",
+                                   start_label=1)[0]
+
+
+def _lm_sym_gen(mx, cfg):
+    """lstm_bucketing.py's symbol: Embedding, a stack of LSTMCells
+    unrolled over the bucket, FullyConnected to the vocabulary plus the
+    pad, SoftmaxOutput ignoring the pad label 0."""
+    V, H = cfg["vocab"] + 1, cfg["hidden"]
+    stack = mx.rnn.SequentialRNNCell()
+    for i in range(cfg["layers"]):
+        stack.add(mx.rnn.LSTMCell(num_hidden=H, prefix="lstm_l%d_" % i))
+
+    def sym_gen(seq_len):
+        embed = mx.sym.Embedding(mx.sym.Variable("data"), input_dim=V,
+                                 output_dim=cfg["embed"], name="embed")
+        stack.reset()
+        out, _ = stack.unroll(seq_len, inputs=embed, layout="NTC",
+                              merge_outputs=True)
+        pred = mx.sym.FullyConnected(mx.sym.Reshape(out, shape=(-1, H)),
+                                     num_hidden=V, name="pred")
+        label = mx.sym.Reshape(mx.sym.Variable("softmax_label"),
+                               shape=(-1,))
+        return (mx.sym.SoftmaxOutput(pred, label, use_ignore=True,
+                                     ignore_label=0, name="softmax"),
+                ("data",), ("softmax_label",))
+    return sym_gen
+
+
+def _lm_params(mx, cfg, seed):
+    """Uniform(+-init) weights and zero biases from a numpy seed, by the
+    default bucket's shapes."""
+    key = max(cfg["buckets"])
+    sym = _lm_sym_gen(mx, cfg)(key)[0]
+    shapes, _, _ = sym.infer_shape(data=(cfg["batch"], key),
+                                   softmax_label=(cfg["batch"], key))
+    rng = np.random.RandomState(seed)
+    return {n: (np.zeros(s, np.float32) if n.endswith("_bias") else
+                rng.uniform(-cfg["init"], cfg["init"], s).astype(np.float32))
+            for n, s in zip(sym.list_arguments(), shapes)
+            if n not in ("data", "softmax_label")}
+
+
+def _bucket_captures(mod):
+    """``{bucket key: graphs captured for its executor}`` of a
+    BucketingModule whose buckets share the default bucket's fused
+    step."""
+    default = mod.buckets[mod._default_bucket_key]
+    fused = default._fused_fit
+    out = {}
+    for key, m in mod.buckets.items():
+        exe = id(m._exec_group._exec)
+        out[key] = 0 if fused is None else sum(
+            1 for k, p in fused._programs.items()
+            if k[0] == exe and p.graph is not None)
+    return out
+
+
+def _bucket_arm(torch, mx, cfg, ctx, encoded, params, comp, fused,
+                seed=SEED + 40, profile=True):
+    """One BucketingModule.fit of the LM over one epoch of ``encoded``
+    (its batches in the order ``seed`` shuffles): per step its bucket,
+    time (to the device's end), non-pad tokens and host syncs inside
+    ``fit_step``/``update_metric``; the run's kernel launches and plain
+    calls (counts zeroed just before), peak memory, final weights and
+    perplexity; then, with ``profile``, two more steps of each bucket
+    of ``profiled`` under torch.profiler."""
+    import contextlib as _cl
+    import gc
+    import random
+    import warnings
+    from mxnet_tpu_torch.kernels import LAUNCHES, PLAIN_CALLS, reset_counts
+    gc.collect()
+    # the shuffle permutes the iterator's current order: seed before the
+    # iterator is made, so every arm meets the batches in one order
+    random.seed(seed)
+    np.random.seed(seed)
+    it = mx.rnn.BucketSentenceIter(encoded, cfg["batch"],
+                                   buckets=list(cfg["buckets"]),
+                                   invalid_label=0)
+    arm_env = _cl.nullcontext() if fused else fit_fused_off()
+    steps = []
+    with arm_env:
+        mod = mx.mod.BucketingModule(
+            _lm_sym_gen(mx, cfg), default_bucket_key=it.default_bucket_key,
+            context=ctx, compression_params=comp)
+        metric = mx.metric.Perplexity(ignore_label=0)
+        fit_step, update_metric = mod.fit_step, mod.update_metric
+
+        def watched_step(batch, eval_metric=None):
+            tokens = int((batch.label[0].asnumpy() != 0).sum())
+            steps.append({"bucket": batch.bucket_key, "tokens": tokens})
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                return fit_step(batch, eval_metric)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+
+        def watched_metric(*args, **kw):
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                return update_metric(*args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+
+        mod.fit_step, mod.update_metric = watched_step, watched_metric
+        args = {k: mx.nd.array(v, ctx=ctx) for k, v in params.items()}
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            marks = [(time.perf_counter(), 0)]
+
+            def per_step(param):
+                torch.cuda.synchronize()
+                marks.append((time.perf_counter(), sum(
+                    "synchroniz" in str(w.message) for w in caught)))
+
+            reset_counts()
+            mod.fit(it, eval_metric=metric, kvstore=mx.kv.create("device"),
+                    optimizer="sgd",
+                    optimizer_params={"learning_rate": cfg["lr"],
+                                      "wd": cfg.get("wd", 0.0)},
+                    arg_params=args, num_epoch=1,
+                    batch_end_callback=per_step)
+            torch.cuda.synchronize()
+        launches = {k: v for k, v in LAUNCHES.items() if v}
+        plain = {k: v for k, v in PLAIN_CALLS.items() if v}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        for step, (a, b) in zip(steps, zip(marks, marks[1:])):
+            step["ms"] = (b[0] - a[0]) * 1e3
+            step["host_syncs"] = b[1] - a[1]
+        weights = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+        ppl = metric.get()[1]
+        default = mod.buckets[it.default_bucket_key]
+        fused_step = default._fused_fit
+        info = {"fused": fused_step is not None, "steps": len(steps),
+                "perplexity": ppl, "peak_mem_gb": peak,
+                "launches": launches, "plain_calls": plain,
+                "captures_per_bucket": _bucket_captures(mod),
+                "fused_steps": fused_step.launches if fused_step else 0}
+        # a bucket's steady steps: those after its warm-up steps and
+        # capture (graph arm), after its first (eager: the bind)
+        first = 3 if fused else 1
+        seen, steady = {}, []
+        for st in steps:
+            seen[st["bucket"]] = seen.get(st["bucket"], 0) + 1
+            if seen[st["bucket"]] > first:
+                steady.append(st)
+        info["step_ms_p50"] = {b: statistics.median(
+            [st["ms"] for st in steady if st["bucket"] == b])
+            for b in cfg["buckets"]}
+        info["tokens_per_s"] = sum(st["tokens"] for st in steady) / (
+            sum(st["ms"] for st in steady) / 1e3)
+        info["host_syncs_steady"] = sorted({st["host_syncs"]
+                                            for st in steady})
+        if fused_step is not None:
+            info["recorded_per_step"] = {
+                key: fused_step.captured_launches(module=m)
+                for key, m in mod.buckets.items()}
+            info["residual_lengths"] = [r.numel() for r in
+                                        fused_step._res_flat or ()]
+        if profile:
+            info["profiled"] = {}
+            it.reset()
+            first_batch = {}
+            for batch in it:
+                first_batch.setdefault(batch.bucket_key, batch)
+            for key in cfg["profiled"]:
+                batch = first_batch[key]
+
+                def run(batch=batch):
+                    for _ in range(2):
+                        fit_step(batch, metric)
+                        update_metric(metric, batch.label)
+                    return 2
+                info["profiled"][key] = profiled(torch, run)
+    return info, weights, mod
+
+
+def _arm_summary(info):
+    keep = ("fused", "steps", "perplexity", "peak_mem_gb", "step_ms_p50",
+            "tokens_per_s", "host_syncs_steady", "captures_per_bucket",
+            "fused_steps", "launches", "plain_calls", "recorded_per_step",
+            "residual_lengths", "profiled")
+    return {k: info[k] for k in keep if k in info}
+
+
+def phase_lstm_bucketing(torch, mx, mxk, cfg=LSTM_LM):
+    """The RNN LM at lstm_bucketing.py's full width through
+    ``BucketingModule.fit`` (LSTM_LM): the graph arm (one captured graph
+    a bucket in the default bucket's fused step) and the eager arm
+    (``MXNET_FIT_FUSED=0``), dense and with 2-bit compression.  Each
+    graph arm: one capture a bucket, every step fused, no host sync in a
+    steady step, no plain version; the 2-bit graph arm launches row 6 in
+    its warm-up steps and captures (the counts zeroed just before the
+    run) and records it in every bucket's graph once per 2-bit bucket
+    (the dispatch counters equal (WARMUP + 1) x the graphs' records).
+    Each pair's weights within move_l2 of the eager arm's move, the
+    perplexity finite and within 1e-4 across the pair.  Then row 6 at
+    the LM's residual lengths against its plain version, bit for bit.
+    Returns the 2-bit graph arm's row 6 counts."""
+    from mxnet_tpu_torch.cuda_graph import WARMUP
+    ctx = mx.gpu(0)
+    encoded = _lm_corpus(mx, cfg, SEED + 41)
+    params = _lm_params(mx, cfg, SEED + 42)
+    nb = len(cfg["buckets"])
+    out, runs = {}, {}
+    for arm, comp, fused in (
+            ("graph_2bit", {"type": "2bit", "threshold": cfg["threshold"]},
+             True),
+            ("eager_2bit", {"type": "2bit", "threshold": cfg["threshold"]},
+             False),
+            ("graph", None, True), ("eager", None, False)):
+        info, weights, mod = _bucket_arm(torch, mx, cfg, ctx, encoded,
+                                         params, comp, fused,
+                                         profile=arm != "eager_2bit")
+        del mod
+        runs[arm] = weights
+        out[arm] = _arm_summary(info)
+        check(info["steps"] == nb * cfg["per_bucket"],
+              "lstm_bucketing %s: %d steps ran" % (arm, info["steps"]))
+        check(math.isfinite(info["perplexity"]), "lstm_bucketing %s: "
+              "perplexity %r" % (arm, info["perplexity"]))
+        check(all(np.isfinite(w).all() for w in weights.values()),
+              "lstm_bucketing %s: non-finite weights" % arm)
+        check(not info["plain_calls"], "lstm_bucketing %s: plain versions "
+              "ran: %s" % (arm, info["plain_calls"]))
+        if fused:
+            check(info["fused"] and info["fused_steps"] == info["steps"],
+                  "lstm_bucketing %s: %d of %d steps fused"
+                  % (arm, info["fused_steps"], info["steps"]))
+            check(set(info["captures_per_bucket"].values()) == {1},
+                  "lstm_bucketing %s: captures per bucket %s"
+                  % (arm, info["captures_per_bucket"]))
+            check(info["host_syncs_steady"] == [0], "lstm_bucketing %s: "
+                  "host syncs in steady steps %s"
+                  % (arm, info["host_syncs_steady"]))
+            for key, prof in info.get("profiled", {}).items():
+                calls = prof["runtime_calls_per_step"]
+                check(calls.get("cudaGraphLaunch", 0) == 1
+                      and not calls.get("cudaLaunchKernel", 0),
+                      "lstm_bucketing %s bucket %d: runtime calls a step %s"
+                      % (arm, key, calls))
+        if comp is not None and fused:
+            rec = [r[0].get("two_bit_quantize_fused", 0)
+                   for r in info["recorded_per_step"].values()]
+            n = info["launches"].get("two_bit_quantize_fused", 0)
+            check(min(rec) > 0 and n == (WARMUP + 1) * sum(rec),
+                  "lstm_bucketing %s: row 6 launched %d times, recorded %s "
+                  "a step by bucket" % (arm, n, rec))
+            out[arm]["row6_launches"] = n
+            out[arm]["row6_recorded_per_step"] = rec
+        elif comp is not None:
+            check(info["launches"].get("two_bit_quantize_fused", 0) > 0,
+                  "lstm_bucketing %s: row 6 never launched" % arm)
+    for fused_arm, eager_arm in (("graph", "eager"),
+                                 ("graph_2bit", "eager_2bit")):
+        out["agree_" + fused_arm] = _compare_arms(
+            "lstm_bucketing " + fused_arm, runs[fused_arm], runs[eager_arm],
+            params, cfg["move_l2"])
+        check(abs(out[fused_arm]["perplexity"] - out[eager_arm][
+            "perplexity"]) <= 1e-4 * out[eager_arm]["perplexity"],
+            "lstm_bucketing %s: perplexity %g, eager %g" % (
+                fused_arm, out[fused_arm]["perplexity"],
+                out[eager_arm]["perplexity"]))
+    # row 6 at this path's shapes: the fused step's residual lengths
+    g = torch.Generator(device="cpu").manual_seed(SEED + 43)
+    lengths = out["graph_2bit"]["residual_lengths"]
+    for n in lengths:
+        r, gr = ((torch.randn(n, generator=g) * 0.5).cuda()
+                 for _ in range(2))
+        got = mxk.two_bit_quantize_fused(r, gr, cfg["threshold"])
+        ref = mxk.two_bit_quantize_plain(r, gr, cfg["threshold"])
+        torch.cuda.synchronize()
+        check(all(torch.equal(_bits(torch, a), _bits(torch, b))
+                  for a, b in zip(got, ref)),
+              "two_bit_quantize_fused differs from its plain version at "
+              "the LM's length %d" % n)
+    emit({"phase": "lstm_bucketing", "config": cfg, **out,
+          "row6_lengths_bit_identical": lengths})
+    return out["graph_2bit"]
+
+
+def phase_rnn_agreement(torch, mx, ctxs=None, cfg=RNN_AGREE):
+    """The 2-layer LM at RNN_AGREE's widths through BucketingModule.fit
+    on the card (the fused step, one graph a bucket) and on the CPU from
+    the same weights and batches, across changes of bucket: each
+    parameter's move within ``rtol`` of the CPU's largest move of it,
+    the perplexities within ``rtol``."""
+    ctxs = ctxs or (mx.gpu(0), mx.cpu())
+    encoded = _lm_corpus(mx, cfg, SEED + 44)
+    params = _lm_params(mx, cfg, SEED + 45)
+    runs = []
+    for ctx in ctxs:
+        info, weights, mod = _bucket_arm(torch, mx, cfg, ctx, encoded,
+                                         params, None, True, profile=False)
+        del mod
+        runs.append((info, weights))
+    (card, cw), (cpu, pw) = runs
+    check(set((card.get("captures_per_bucket") or {0: 1}).values()) == {1},
+          "rnn_agreement: captures per bucket %s"
+          % card.get("captures_per_bucket"))
+    worst = {}
+    for k in pw:
+        move = np.abs(pw[k] - params[k]).max()
+        diff = np.abs(cw[k] - pw[k]).max()
+        worst[k] = float(diff / move) if move else float(diff)
+        check(move > 0 and diff <= cfg["rtol"] * move,
+              "rnn_agreement: %s differs by %g of the CPU's largest move"
+              % (k, worst[k]))
+    check(abs(card["perplexity"] - cpu["perplexity"])
+          <= cfg["rtol"] * cpu["perplexity"], "rnn_agreement: perplexity "
+          "%g on the card, %g on the CPU" % (card["perplexity"],
+                                             cpu["perplexity"]))
+    emit({"phase": "rnn_agreement", "config": cfg,
+          "card_captures_per_bucket": card.get("captures_per_bucket"),
+          "perplexity": {"card": card["perplexity"],
+                         "cpu": cpu["perplexity"]},
+          "worst_move_share": max(worst.values()), "by_param": worst})
+    return worst
+
+
+def phase_rnn_op(torch, mx, dev, flush, cfg=RNN_OP):
+    """The fused RNN op (``ops/rnn.py``, plain PyTorch: one hoisted input
+    product a layer and a time loop of addmm and the cell's arithmetic)
+    at the LM's width: its forward and forward + backward against
+    ``torch.nn.LSTM`` (cuDNN) on the same packed weights (output and
+    input gradient within rtol/atol), and both timed with CUDA events
+    (the library call is a yardstick: nothing on the path calls it)."""
+    from mxnet_tpu_torch.ops.registry import get_op
+    from mxnet_tpu_torch.ops.rnn import rnn_param_size, unpack_params
+    S, Bn, I, H, L = (cfg[k] for k in ("seq", "batch", "input", "hidden",
+                                        "layers"))
+    g = torch.Generator(device="cpu").manual_seed(SEED + 46)
+    size = rnn_param_size(L, I, H, False, "lstm")
+    params = ((torch.rand(size, generator=g) - 0.5) * 0.16).to(dev)
+    x = torch.randn(S, Bn, I, generator=g).to(dev)
+    h0 = torch.zeros(L, 1, H, device=dev)
+    op = get_op("RNN").fn
+    kw = dict(state_size=H, num_layers=L, mode="lstm")
+    lib = torch.nn.LSTM(I, H, num_layers=L).to(dev)
+    ws, bs = unpack_params(params, L, I, H, False, "lstm")
+    with torch.no_grad():
+        for layer in range(L):
+            getattr(lib, "weight_ih_l%d" % layer).copy_(ws[layer][0])
+            getattr(lib, "weight_hh_l%d" % layer).copy_(ws[layer][1])
+            getattr(lib, "bias_ih_l%d" % layer).copy_(bs[layer][0])
+            getattr(lib, "bias_hh_l%d" % layer).copy_(bs[layer][1])
+    xg = x.clone().requires_grad_(True)
+    xl = x.clone().requires_grad_(True)
+    ours = op(xg, params, h0, h0, **kw)
+    theirs = lib(xl)[0]
+    do = torch.randn(ours.shape, generator=g).to(dev)
+    ours.backward(do)
+    theirs.backward(do)
+    torch.cuda.synchronize()
+    for what, a, b in (("output", ours.detach(), theirs.detach()),
+                       ("input gradient", xg.grad, xl.grad)):
+        check(torch.allclose(a, b, rtol=cfg["rtol"], atol=cfg["atol"]),
+              "rnn_op: %s differs from cuDNN's by %g" % (what,
+                                                          max_err(a, b)))
+
+    def fwd():
+        with torch.no_grad():
+            op(x, params, h0, h0, **kw)
+
+    def fwd_bwd():
+        xx = x.detach().requires_grad_(True)
+        op(xx, params.requires_grad_(True), h0, h0, **kw).backward(do)
+
+    def lib_fwd():
+        with torch.no_grad():
+            lib(x)
+
+    def lib_fwd_bwd():
+        xx = x.detach().requires_grad_(True)
+        lib(xx)[0].backward(do)
+
+    times = {name: time_ms(torch, fn, flush, reps=cfg["reps"], warmup=3)
+             for name, fn in (("fwd_ms", fwd), ("fwd_bwd_ms", fwd_bwd),
+                              ("cudnn_fwd_ms", lib_fwd),
+                              ("cudnn_fwd_bwd_ms", lib_fwd_bwd))}
+    params.requires_grad_(False)
+    # the LSTM's operations: 8 H (I + H) multiply-adds a step and layer
+    # (input and recurrent products) forward, twice that backward
+    flops = 2 * S * Bn * 4 * H * (I + H + (L - 1) * (2 * H))
+    emit({"phase": "rnn_op", "config": cfg, **times,
+          "fwd_bound_ms": bound(4 * (x.numel() + size + S * Bn * H),
+                                flops)[0],
+          "max_abs_err_vs_cudnn": max_err(ours.detach(), theirs.detach())})
+    return times
+
+
+def phase_gluon_rnn(torch, mx, cfg=GLUON_RNN):
+    """``gluon.rnn.LSTM(hidden, num_layers)`` on the card for a few
+    Trainer SGD steps on one fixed batch: the loss finite and falling,
+    every parameter moved and finite, the step time."""
+    ctx = mx.gpu(0)
+    net = mx.gluon.rnn.LSTM(cfg["hidden"], num_layers=cfg["layers"])
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    rng = np.random.RandomState(SEED + 47)
+    x = mx.nd.array(rng.randn(cfg["seq"], cfg["batch"],
+                              cfg["input"]).astype(np.float32), ctx=ctx)
+    y = mx.nd.array(np.tanh(rng.randn(cfg["seq"], cfg["batch"],
+                                      cfg["hidden"])).astype(np.float32),
+                    ctx=ctx)
+    net(x)                                   # the deferred shapes
+    before = {k: p.data().asnumpy() for k, p in
+              net.collect_params().items()}
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": cfg["lr"]})
+    losses, ms = [], []
+    for _ in range(cfg["steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mx.autograd.record():
+            loss = ((net(x) - y) ** 2).mean()
+        loss.backward()
+        trainer.step(1)
+        losses.append(float(loss.asnumpy()))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    after = {k: p.data().asnumpy() for k, p in net.collect_params().items()}
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+          "gluon_rnn: losses %s" % losses)
+    check(all(np.isfinite(after[k]).all() and not np.array_equal(
+        after[k], before[k]) for k in before), "gluon_rnn: a parameter "
+        "did not move or is not finite")
+    emit({"phase": "gluon_rnn", "config": cfg, "losses": losses,
+          "step_ms": ms, "step_ms_p50": statistics.median(ms[1:]),
+          "params": sorted(before)})
+    return ms
 
 
 def main():
@@ -9483,6 +10002,7 @@ def main():
     causal_launches, causal_fit = phase_causal_attention(torch, mx, mxk, dev,
                                                          flush)
     phase_deconv_leaky(torch, mx, dev, flush)
+    phase_rnn_op(torch, mx, dev, flush)
     del flush
     sandwich_iters, sandwich_launches = phase_sandwich(torch, mx)
     full = seeded_params(FULL)
@@ -9528,6 +10048,11 @@ def main():
     phase_f16_train_agreement(torch, mx)
     phase_resnet_f16_agreement(torch, mx)
     phase_head_dim_agreement(torch, mx)
+    # the RNN LM (BASELINE config 4): its counts zeroed just before each
+    # arm's run, row 6 recorded in the 2-bit bucket graphs
+    lm_2bit = phase_lstm_bucketing(torch, mx, mxk)
+    phase_rnn_agreement(torch, mx)
+    phase_gluon_rnn(torch, mx)
     phase_checkpoint(torch, mx, card)
     phase_harness(torch, card)
     # launches: the count of each kernel's main-path run (serve for the
@@ -9633,6 +10158,11 @@ def main():
         k["launches_per_iteration"] = n / sandwich_iters
     quant_kernel["gluon_launches_per_step"] = \
         gluon_launches[quant_kernel["name"]] / gluon_steps
+    # the RNN LM's 2-bit graph arm (lstm_bucketing): the warm-up steps'
+    # and captures' launches, and what each bucket's graph records
+    quant_kernel["lstm_bucketing_launches"] = lm_2bit["row6_launches"]
+    quant_kernel["lstm_bucketing_captured_per_step"] = \
+        lm_2bit["row6_recorded_per_step"]
     # bf16 Module.fit (fit_bf16): what each fused graph records
     quant_kernel["fit_bf16_captured_per_step"] = \
         fit_bf16["resnet_2bit"]["captured_by_dtype"][0][
@@ -9706,6 +10236,8 @@ def main():
                                                   "spec_launches_per_step",
                                                   "launches_per_proposed_token",
                                                   "gluon_launches_per_step",
+                                                  "lstm_bucketing_launches",
+                                                  "lstm_bucketing_captured_per_step",
                                                   "head_dim_256",
                                                   "compile_ms",
                                                   "host_launch_us", "path",

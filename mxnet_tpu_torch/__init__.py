@@ -21,7 +21,10 @@ kernels with NVRTC and launches them on NDArrays.  ``mx.nd.save``/
 Gluon parameter files write and read the JAX package's files, and
 ``mx.checkpoint`` saves the full training state asynchronously (the
 fused step's weights, f32 masters, states, residuals and loss scaler)
-and restores it bit for bit.
+and restores it bit for bit.  ``mx.rnn`` (the symbolic cells, the fused
+``RNN`` op, ``BucketSentenceIter``), ``mx.mod.BucketingModule`` (one
+captured fit graph a bucket over one set of weights) and
+``gluon.rnn`` train the RNN language models.
 
 Entry points run on the card (``gpu(0)``, i.e. ``cuda:0``) unless the
 caller passes ``ctx=mx.cpu()``; with no GPU and no CPU request they
@@ -31,7 +34,7 @@ from . import autograd, base, context, kernels, ndarray, ops, symbol  # noqa
 from . import decode, models, weights  # noqa: F401
 from . import (callback, initializer, io, kvstore, lr_scheduler,  # noqa: F401
                metric, model, module, optimizer, parallel, random)
-from . import checkpoint, config, gluon, name, rtc  # noqa: F401
+from . import checkpoint, config, gluon, name, rnn, rtc  # noqa: F401
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu
 from .module import Module
@@ -47,4 +50,4 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context", "nd",
            "kernels", "callback", "init", "initializer", "io", "kv",
            "kvstore", "lr_scheduler", "metric", "model", "module", "mod",
            "Module", "optimizer", "parallel", "random", "autograd", "gluon", "rtc",
-           "checkpoint", "config", "name"]
+           "checkpoint", "config", "name", "rnn"]

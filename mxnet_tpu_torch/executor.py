@@ -173,21 +173,28 @@ def run_graph(plan, values, is_train, rng=None):
     """Run ``plan``'s nodes on ``values`` (variable name -> tensor), each
     op on the current stream, dropping every entry after its last
     reader.  Ops that declare ``is_train`` get the flag, ops that draw
-    (``rng``) the walk's ``random.StepRandom`` ``rng``.  Returns the
+    (``rng``) the walk's ``random.StepRandom`` ``rng``, ops that make a
+    tensor from no input (``device``) the device of ``values``.  Returns the
     head tensors and, for a train walk, ``{variable name: new value}``
     of the variables the ops mutate (``OpDef.mutate_inputs``)."""
     env, new_aux = {}, {}
+    device = None
     for pos, node in enumerate(plan.nodes):
         if node.is_var:
             env[(id(node), 0)] = values[node.name]
         else:
             kw = node.attrs
-            if node.op.takes_is_train or node.op.takes_rng:
+            op = node.op
+            if op.takes_is_train or op.takes_rng or op.takes_device:
                 kw = dict(kw)
-                if node.op.takes_is_train:
+                if op.takes_is_train:
                     kw["is_train"] = is_train
-                if node.op.takes_rng:
+                if op.takes_rng:
                     kw["rng"] = rng
+                if op.takes_device:
+                    if device is None and values:
+                        device = next(iter(values.values())).device
+                    kw["device"] = device
             out = node.op.fn(*[env[(id(n), i)] for n, i in node.inputs],
                              **kw)
             outs = out if isinstance(out, tuple) else (out,)

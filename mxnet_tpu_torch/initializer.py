@@ -9,8 +9,18 @@ package's fan computation), ``MSRAPrelu``, ``Orthogonal``, ``Bilinear``,
 device from that device's generator (``random.generator``), so
 ``mx.random.seed`` makes them reproducible; they are not the JAX
 package's numbers (``Orthogonal`` draws there too and takes its SVD on
-the host in float64).  ``LSTMBias`` and ``FusedRNN`` come with the RNN
-slice (ROADMAP A.6).
+the host in float64).  ``LSTMBias`` (the cell zoo's ``i2h_bias``) and
+``FusedRNN`` (the fused RNN op's packed vector) are the JAX package's
+(``mxnet_tpu/initializer.py:283-330``); ``FusedRNN`` draws its weights
+from numpy's global stream as the JAX package's does, so a seed of that
+stream gives both packages the same vector.  ``FusedRNN`` keeps its
+arguments in ``dumps()`` (the reference's form), so a FusedRNNCell's
+``__init__`` attribute resolves at ``init_params``; the JAX package's
+writes ``["fusedrnn", {}]``, which no initializer there resolves
+(ROADMAP C).  A variable named ``*_parameters`` (a fused RNN op's
+vector with no ``__init__``) takes ``_init_rnn_packed``: the weight
+rule, except Xavier's, which has no fans to read there and draws
+uniform on +-0.07 as the JAX package's does.
 """
 from __future__ import annotations
 
@@ -26,11 +36,7 @@ from .base import MXNetError
 
 __all__ = ["Initializer", "Uniform", "Normal", "Zero", "One", "Constant",
            "Xavier", "MSRAPrelu", "Orthogonal", "Bilinear", "Load", "Mixed",
-           "InitDesc", "register", "create"]
-
-# initializers that come with a later slice, by registered name
-_LATER = {"lstmbias": "ROADMAP A.6, with the RNN slice",
-          "fusedrnn": "ROADMAP A.6, with the RNN slice"}
+           "LSTMBias", "FusedRNN", "InitDesc", "register", "create"]
 
 _INIT_REGISTRY = {}
 
@@ -45,9 +51,6 @@ def create(name, **kwargs):
     if isinstance(name, Initializer):
         return name
     key = str(name).lower()
-    if key in _LATER:
-        raise MXNetError("initializer '%s' is not in the PyTorch port yet "
-                         "(%s)" % (name, _LATER[key]))
     if key not in _INIT_REGISTRY:
         raise MXNetError("unknown initializer '%s'" % name)
     return _INIT_REGISTRY[key](**kwargs)
@@ -102,11 +105,17 @@ class Initializer:
             self._init_zero(desc, arr)
         elif name.endswith(("_moving_var", "_running_var")):
             self._init_one(desc, arr)
+        elif name.endswith("_parameters"):
+            self._init_rnn_packed(desc, arr)
         else:
             self._init_weight(desc, arr)
 
     def _init_weight(self, name, arr):
         raise NotImplementedError
+
+    def _init_rnn_packed(self, name, arr):
+        """A fused RNN op's packed 1-D vector: the weight rule."""
+        self._init_weight(name, arr)
 
     def _init_zero(self, name, arr):
         arr[:] = 0.0
@@ -177,6 +186,11 @@ class Xavier(Initializer):
         self.rnd_type = rnd_type
         self.factor_type = factor_type
         self.magnitude = float(magnitude)
+
+    def _init_rnn_packed(self, name, arr):
+        # no fan structure in the packed vector: small uniform, as the
+        # JAX package's Xavier draws there
+        _draw(arr, lambda t, g: t.uniform_(-0.07, 0.07, generator=g))
 
     def _init_weight(self, name, arr):
         shape = arr.shape
@@ -295,3 +309,62 @@ class Mixed(Initializer):
                 init(name, arr)
                 return
         raise MXNetError("no initializer matches %s" % name)
+
+
+@register
+class LSTMBias(Initializer):
+    """Zeros with the forget gate's quarter (cuDNN order i, f, g, o) set
+    to ``forget_bias`` (Jozefowicz et al. 2015)."""
+
+    def __init__(self, forget_bias=1.0):
+        super().__init__(forget_bias=forget_bias)
+        self.forget_bias = forget_bias
+
+    def __call__(self, desc, arr):
+        # its rule whatever the name (the JAX package's LSTMBias takes
+        # the weight, bias and default rules)
+        self._init_weight(desc, arr)
+
+    def _init_weight(self, name, arr):
+        h = arr.shape[0] // 4
+        a = _np.zeros(arr.shape, dtype=_np.float32)
+        a[h:2 * h] = self.forget_bias
+        arr[:] = a
+
+
+@register
+class FusedRNN(Initializer):
+    """The fused RNN op's packed vector: the weights uniform on +-0.07
+    from numpy's global stream, the biases zero, each LSTM bias block's
+    forget quarter ``forget_bias`` (``mxnet_tpu/initializer.py:302-330``,
+    which also leaves ``init`` unused)."""
+
+    def __init__(self, init, num_hidden, num_layers, mode,
+                 bidirectional=False, forget_bias=1.0):
+        if isinstance(init, Initializer):
+            init = init.dumps()
+        super().__init__(init=init, num_hidden=num_hidden,
+                         num_layers=num_layers, mode=mode,
+                         bidirectional=bidirectional,
+                         forget_bias=forget_bias)
+        self._num_hidden = int(num_hidden)
+        self._num_layers = int(num_layers)
+        self._mode = mode
+        self._bidirectional = bool(bidirectional)
+        self._forget_bias = forget_bias
+
+    def _init_weight(self, name, arr):
+        from .ops.rnn import _NGATES
+        H = self._num_hidden
+        per = _NGATES[self._mode] * H
+        blocks = self._num_layers * (2 if self._bidirectional else 1) * 2
+        total = math.prod(arr.shape)
+        wpart = _np.random.uniform(-0.07, 0.07, total - blocks * per)
+        bpart = _np.zeros(blocks * per, dtype=_np.float32)
+        if self._mode == "lstm":
+            for blk in range(blocks):
+                bpart[blk * per + H:blk * per + 2 * H] = self._forget_bias
+        arr[:] = _np.concatenate([wpart, bpart]).astype(
+            _np.float32).reshape(arr.shape)
+
+    _init_rnn_packed = _init_weight

@@ -1,7 +1,8 @@
 """Data iterators.
 
 Counterpart of ``mxnet_tpu/io/io.py``, reduced to what the training
-slice uses: ``DataDesc``, ``DataBatch``, the ``DataIter`` protocol and
+slice uses: ``DataDesc``, ``DataBatch`` (with the bucketing fields),
+the ``DataIter`` protocol and
 ``NDArrayIter`` (shuffle, ``last_batch_handle`` ``'pad'`` or
 ``'discard'``), and ``MNISTIter`` over MNIST's idx files.  Batches are
 host (CPU) NDArrays; the executor copies them onto its device.  The shuffle draws from the port's host numpy
@@ -45,11 +46,20 @@ class DataDesc:
 
 
 class DataBatch:
-    def __init__(self, data, label=None, pad=None, index=None):
+    """One batch: its data and label arrays, the padding count, and for
+    bucketed iterators (``mx.rnn.BucketSentenceIter``) the bucket key
+    and the batch's own ``provide_data``/``provide_label``, which
+    ``BucketingModule`` binds the bucket with (``mxnet_tpu/io/io.py:76-81``)."""
+
+    def __init__(self, data, label=None, pad=None, index=None,
+                 bucket_key=None, provide_data=None, provide_label=None):
         self.data = data
         self.label = label
         self.pad = pad
         self.index = index
+        self.bucket_key = bucket_key
+        self.provide_data = provide_data
+        self.provide_label = provide_label
 
 
 class DataIter:

@@ -96,6 +96,17 @@ statistics come from the first walk only), and takes the gradients
 from the second: one graph per batch shape still, with a second
 forward's launches in it.
 
+Modules bound over one module's arrays (``bind(shared_module=...)``,
+``BucketingModule``'s buckets) run their steps in that module's
+``FusedFitStep``: ``step(batch, metric, module)`` walks ``module``'s
+executor, and its graph is one more program of the shared step (keyed
+by the executor), in the same graph pool, with the same scalar buffer,
+step seed, metric accumulator and 2-bit residuals, so a step updates
+the one set of weights and optimizer states the same way whatever the
+bucket, and a bucket met again replays its graph.  A module whose
+trainable parameters are not the owner's own arrays (a name whose
+shape differs binds zeros of its own) takes the eager pair.
+
 The generators themselves are not registered with the graph: a step
 that draws from one (an op of ``ops/random_ops.py``) raises at its
 first capture instead of replaying one draw forever.
@@ -209,7 +220,10 @@ class FusedFitStep:
         self._acc_owner = None          # the metric whose _dev_* they are
         self._metric_ref = FusedFitStep._METRIC_UNSET
         self._metric_fn = self._msig = None
+        self._metric_outputs = None
         self._programs = {}
+        self._param_nds = None          # the owner's trainable NDArrays
+        self._shares = {}               # executor -> its params are those
         self._bound = None              # the tensors the programs capture
         self.launches = 0               # steps run fused
         self.captures = 0
@@ -275,6 +289,7 @@ class FusedFitStep:
         pos = {n: i for i, n in enumerate(group.param_names)}
         self._order = [n for n in group.param_names
                        if exe._grad_req.get(n, "null") != "null"]
+        self._param_nds = {n: exe.arg_dict[n] for n in self._order}
         # the keys the eager path uses, so states load across the paths
         self._ukeys = [_updater_key(n) if self._kv is not None else pos[n]
                        for n in self._order]
@@ -327,10 +342,20 @@ class FusedFitStep:
             self._res_live = False
 
     # -- the step body --------------------------------------------------
-    def _make_body(self, feeds, targets, states, tpls, mp, use_wd, upd,
-                   scaler, mirror):
-        mod = self._mod
-        exe = mod._exec_group._exec
+    def _shares_params(self, exe):
+        """Whether ``exe`` (a module bound over the owner's arrays) trains
+        exactly the owner's parameters, each the owner's NDArray with
+        ``grad_req='write'``."""
+        ok = self._shares.get(exe)
+        if ok is None:
+            trainable = {n for n, r in exe._grad_req.items() if r != "null"}
+            ok = self._shares[exe] = trainable == set(self._order) and all(
+                exe.arg_dict.get(n) is nd and exe._grad_req[n] == "write"
+                for n, nd in self._param_nds.items())
+        return ok
+
+    def _make_body(self, exe, feeds, targets, states, tpls, mp, use_wd,
+                   upd, scaler, mirror):
         order, threshold = self._order, self._threshold
         n = len(order)
         scalars, (acc_sum, acc_num) = self._scalars, self._acc
@@ -435,19 +460,22 @@ class FusedFitStep:
         return body
 
     # -- the step -------------------------------------------------------
-    def step(self, data_batch, eval_metric=None):
-        """One fused training step.  Returns False, with the residuals
+    def step(self, data_batch, eval_metric=None, module=None):
+        """One fused training step of ``module`` (the owner, or a module
+        bound over its arrays).  Returns False, with the residuals
         spilled first, when this batch cannot take the fused path (the
         eager pair then runs it)."""
-        mod = self._mod
+        owner = self._mod
+        mod = owner if module is None else module
         if getattr(mod, "_monitor_installed", False):
             self._release()
             return False
-        live = mod._kvstore._updater if mod._kvstore is not None \
-            else mod._updater
-        mode = mod._optimizer._fused_fit_sig()
+        live = owner._kvstore._updater if owner._kvstore is not None \
+            else owner._updater
+        mode = owner._optimizer._fused_fit_sig()
         if live is not self._updater or mode is None \
-                or not _fused.supported(mode):
+                or not _fused.supported(mode) \
+                or mod._optimizer is not owner._optimizer:
             self._release()
             return False
         group = mod._exec_group
@@ -468,7 +496,7 @@ class FusedFitStep:
         if self._order is None or self._scalars.numel() \
                 != (2 + n_extra) * len(self._order) + 1:
             if self._order is None:
-                self._plan(exe)
+                self._plan(owner._exec_group._exec)
                 self._acc = tuple(torch.zeros((), dtype=torch.float32,
                                               device=self._device)
                                   for _ in range(2))
@@ -482,10 +510,13 @@ class FusedFitStep:
                 (2 + n_extra) * len(self._order) + 1, dtype=torch.float32,
                 device=self._device)
             self._scalar_stage = Staging(self._scalars)
+        if mod is not owner and not self._shares_params(exe):
+            self._release()
+            return False
         if self._kv is not None:
             self._kv._flush_pending()
         order, ukeys = self._order, self._ukeys
-        updater, optimizer = self._updater, mod._optimizer
+        updater, optimizer = self._updater, owner._optimizer
         # the tensors the programs read and write: a change (a rebind,
         # new state arrays, another scaler) makes every captured program
         # stale
@@ -504,7 +535,7 @@ class FusedFitStep:
             mp.append(optimizer.multi_precision
                       and _fused.is_low_precision(weight._data.dtype))
         mp = tuple(mp)
-        scaler = mod._loss_scaler if self._low_precision else None
+        scaler = owner._loss_scaler if self._low_precision else None
         aux = [nd._data for nd in exe.aux_dict.values()]
         live = list(scaler.device_state(self._device)) \
             if scaler is not None else []
@@ -520,17 +551,19 @@ class FusedFitStep:
         use_wd = tuple(bool(v) for v in wd != 0.0)
         if self._threshold is not None:
             self._seed_residuals(exe)
-        if eval_metric is not self._metric_ref:
+        outputs = tuple(mod._symbol.list_outputs())
+        if eval_metric is not self._metric_ref \
+                or outputs != self._metric_outputs:
             self._metric_fn, self._msig = _metric_closure(
-                eval_metric, group.label_names, mod._symbol.list_outputs())
-            self._metric_ref = eval_metric
+                eval_metric, group.label_names, outputs)
+            self._metric_ref, self._metric_outputs = eval_metric, outputs
         shapes = tuple((n, tuple(t.shape)) for n, t in inputs.items())
         # read each step and part of the key, as the JAX package's fused
         # step reads it (mxnet_tpu/module/fused_fit.py:706)
         mirror = _config.backward_do_mirror()
-        key = (shapes, mode, self._threshold, tuple(tpls), mp, use_wd,
-               self._msig, scaler.trace_sig() if scaler is not None else None,
-               mirror)
+        key = (id(exe), shapes, mode, self._threshold, tuple(tpls), mp,
+               use_wd, self._msig,
+               scaler.trace_sig() if scaler is not None else None, mirror)
         prog = self._programs.get(key)
         if prog is None:
             feeds = {}
@@ -540,7 +573,7 @@ class FusedFitStep:
                     else torch.empty(t.shape, dtype=arg.dtype,
                                      device=arg.device)
             prog = self._programs[key] = _Program(
-                self._make_body(feeds, targets, states, tpls, mp, use_wd,
+                self._make_body(exe, feeds, targets, states, tpls, mp, use_wd,
                                 _fused.build(mode), scaler, mirror), feeds,
                 self._device, self._pool)
         host = _np.concatenate([lr, wd, _np.float32(
@@ -577,9 +610,12 @@ class FusedFitStep:
         self.launches += 1
         return True
 
-    def captured_launches(self, by_dtype=False):
+    def captured_launches(self, by_dtype=False, module=None):
         """Kernel launches recorded in each captured graph, by kernel
-        (``by_dtype``: by ``"name:dtype"``), one dict per capture."""
+        (``by_dtype``: by ``"name:dtype"``), one dict per capture (of
+        ``module``'s executor only, when given)."""
+        exe = None if module is None else id(module._exec_group._exec)
         return [p.program.captured_by_dtype if by_dtype
                 else p.program.captured
-                for p in self._programs.values() if p.graph is not None]
+                for key, p in self._programs.items()
+                if p.graph is not None and exe in (None, key[0])]

@@ -27,7 +27,15 @@ optimizer state, the fused step (one graph a batch shape, none captured
 again when a shape returns) and its loss scaler and metric accumulator
 carry over.  ``bind(inputs_need_grad=True)`` gives the data inputs
 gradients (``get_input_grads``; such a module trains on the eager
-pair); ``shared_module`` waits for the bucketing slice (A.6).  ``Module.load``,
+pair).  ``bind(shared_module=m)`` binds over ``m``'s arrays: each
+argument and auxiliary state whose name and shape match ``m``'s takes
+``m``'s NDArray (its gradient too), any other its own zeros, as the
+JAX executor does (``mxnet_tpu/executor.py:887-891``); the module then
+counts as initialized, borrows ``m``'s optimizer when ``m`` has one
+(``borrow_optimizer``) and runs its fused steps in ``m``'s
+``FusedFitStep`` (one graph pool, one scalar buffer, one step seed, one
+set of residuals; the graph of each module its own), which is how
+``BucketingModule``'s buckets train.  ``Module.load``,
 ``save_checkpoint`` and ``save/load_optimizer_states`` write and read
 the reference's files as the JAX package does: the optimizer states
 are a pickle keyed by parameter name whatever key the live updater
@@ -112,6 +120,9 @@ class Module(BaseModule):
         # init_optimizer
         self._preloaded_params = None
         self._preload_opt_states = None
+        # bound with shared_module: the module whose arrays and fused
+        # step this one uses
+        self._fit_owner = None
 
     # -- checkpoint files -----------------------------------------------
     @staticmethod
@@ -224,10 +235,11 @@ class Module(BaseModule):
     def bind(self, data_shapes, label_shapes=None, for_training=True,
              inputs_need_grad=False, force_rebind=False, shared_module=None,
              grad_req="write"):
-        if shared_module is not None:
-            raise MXNetError("bind(shared_module=...) comes with the "
-                             "bucketing and RNN slice of the PyTorch port "
-                             "(ROADMAP A.6)")
+        if shared_module is not None and not (
+                isinstance(shared_module, Module) and shared_module.binded
+                and shared_module.params_initialized):
+            raise MXNetError("bind(shared_module=...) takes a bound Module "
+                             "whose parameters are initialized")
         if inputs_need_grad and not for_training:
             raise MXNetError("inputs_need_grad requires for_training")
         if force_rebind:
@@ -247,11 +259,19 @@ class Module(BaseModule):
             self._symbol, self._context, self._data_shapes,
             self._label_shapes, self._param_names, for_training,
             fixed_param_names=self._fixed_param_names,
-            grad_req=grad_req, inputs_need_grad=self.inputs_need_grad)
+            grad_req=grad_req, inputs_need_grad=self.inputs_need_grad,
+            shared_group=shared_module._exec_group
+            if shared_module is not None else None)
         self._exec_groups = {self._shape_key(self._data_shapes,
                                              self._label_shapes):
                              self._exec_group}
         self.binded = True
+        if shared_module is not None:
+            self.params_initialized = True
+            self._fit_owner = shared_module._fit_family()
+            if shared_module.optimizer_initialized:
+                self.borrow_optimizer(shared_module)
+            return
         if self._preloaded_params is not None:
             args, auxs = self._preloaded_params
             self._preloaded_params = None
@@ -311,6 +331,23 @@ class Module(BaseModule):
             self.load_optimizer_states(self._preload_opt_states)
             self._preload_opt_states = None
 
+    def borrow_optimizer(self, shared_module):
+        """Use ``shared_module``'s optimizer, kvstore and updater (the
+        bucketing path, reference module.py borrow_optimizer)."""
+        if not shared_module.optimizer_initialized:
+            raise MXNetError("borrow_optimizer() needs a module whose "
+                             "optimizer is initialized")
+        self._optimizer = shared_module._optimizer
+        self._kvstore = shared_module._kvstore
+        self._update_on_kvstore = shared_module._update_on_kvstore
+        self._updater = shared_module._updater
+        self.optimizer_initialized = True
+
+    def _fit_family(self):
+        """The module whose ``FusedFitStep`` this one's steps run in:
+        the module it was bound over (``shared_module``), else itself."""
+        return self._fit_owner if self._fit_owner is not None else self
+
     @staticmethod
     def _shape_key(data_shapes, label_shapes):
         return tuple((d.name, tuple(d.shape))
@@ -369,10 +406,11 @@ class Module(BaseModule):
         one (reference module.py:643)."""
         if not self.optimizer_initialized:
             raise MXNetError("update() requires init_optimizer()")
-        if self._fused_fit is not None:
+        fused = self._fit_family()._fused_fit
+        if fused is not None:
             # an eager update between fused steps sees the exact
             # accumulated error-feedback residuals
-            self._fused_fit._release()
+            fused._release()
         group = self._exec_group
         if self._update_on_kvstore:
             _update_params_on_kvstore(group.param_arrays, group.grad_arrays,
@@ -392,11 +430,14 @@ class Module(BaseModule):
         everything else takes the eager pair and returns False."""
         self._reshape_for(data_batch)
         fused = self._get_fused_fit()
-        if fused is not None and fused.step(data_batch, eval_metric):
+        if fused is not None and fused.step(data_batch, eval_metric, self):
             return True
         return super().fit_step(data_batch, eval_metric)
 
     def _get_fused_fit(self):
+        if self._fit_owner is not None:
+            return self._fit_owner._get_fused_fit() \
+                if self.optimizer_initialized else None
         if not self._fused_fit_tried:
             self._fused_fit_tried = True
             if self.binded and self.params_initialized \
@@ -423,8 +464,9 @@ class Module(BaseModule):
                 if self._param_names else None
             if dev is not None and dev.type == "cuda":
                 torch.cuda.current_stream(dev).synchronize()
-        if self._loss_scaler is not None:
-            self._loss_scaler.publish()
+        scaler = self._fit_family()._loss_scaler
+        if scaler is not None:
+            scaler.publish()
 
     def _live_updater(self):
         """The updater applying the updates: the store's with

@@ -10,7 +10,9 @@ declares it draws random numbers and is handed the walk's
 ``random.StepRandom`` (the JAX package's ``next_rng_key()``), or None
 when called alone; ``draws(attrs)``, when given, says whether it draws
 under those attributes (LeakyReLU only as ``rrelu``), so a graph
-without such a node takes no step seed.  ``mutate_inputs`` names
+without such a node takes no step seed; and ``device``: an op that
+declares it makes a tensor from no input (``_zeros``) and is handed the
+device of the walk, or None when called alone.  ``mutate_inputs`` names
 the inputs an op updates, each with the output that carries its new
 value (BatchNorm's moving statistics, the reference's FMutateInputs):
 the symbol lists those variables as auxiliary states and the executor
@@ -61,8 +63,9 @@ class OpDef:
                               if p.kind is p.KEYWORD_ONLY}
         self.takes_is_train = "is_train" in self.attr_defaults
         self.takes_rng = "rng" in self.attr_defaults
-        self.attr_defaults.pop("is_train", None)
-        self.attr_defaults.pop("rng", None)
+        self.takes_device = "device" in self.attr_defaults
+        for special in ("is_train", "rng", "device"):
+            self.attr_defaults.pop(special, None)
         self.__doc__ = fn.__doc__
 
     def draws(self, attrs):

@@ -361,7 +361,44 @@ def _batch_dot_out(ins, a):
     return [tuple(x[:-1]) + (y[-1],)]
 
 
+def _rnn_dims(a):
+    ndir = 2 if a["bidirectional"] else 1
+    return int(a["num_layers"]) * ndir, int(a["state_size"]), ndir
+
+
+def _rnn_params(ins, a):
+    """The packed vector's size (``ops/rnn.py`` ``rnn_param_size``) and
+    the full-batch states (``mxnet_tpu/ops/shape_rules.py:163-179``)."""
+    from .rnn import rnn_param_size
+    x = ins["data"]
+    depth, H, ndir = _rnn_dims(a)
+    out = {"parameters": (rnn_param_size(int(a["num_layers"]), x[2], H,
+                                         ndir == 2, a["mode"]),),
+           "state": (depth, x[1], H)}
+    if a["mode"] == "lstm":
+        out["state_cell"] = (depth, x[1], H)
+    return out
+
+
+def _rnn_out(ins, a):
+    x = ins["data"]
+    depth, H, ndir = _rnn_dims(a)
+    outs = [(x[0], x[1], H * ndir)]
+    if a["state_outputs"]:
+        outs.append((depth, x[1], H))
+        if a["mode"] == "lstm":
+            outs.append((depth, x[1], H))
+    return outs
+
+
+def _seq_last_out(ins, a):
+    x = list(ins["data"])
+    del x[int(a["axis"])]
+    return [tuple(x)]
+
+
 PARAM_SHAPES = {
+    "RNN": _rnn_params,
     "FullyConnected": _fc_params,
     "Convolution": _conv_params,
     "Deconvolution": _deconv_params,
@@ -401,6 +438,12 @@ INDEX_INPUTS = {
 }
 
 OUT_SHAPES = {
+    "RNN": _rnn_out,
+    "SequenceMask": lambda ins, a: [ins["data"]],
+    "SequenceLast": _seq_last_out,
+    "SequenceReverse": lambda ins, a: [ins["data"]],
+    "_zeros": _random_out,
+    "_ones": _random_out,
     "FullyConnected": _fc_out,
     "Convolution": _conv_out,
     "Deconvolution": _deconv_out,
@@ -514,7 +557,8 @@ _DATA_TYPED = {"BatchNorm", "LayerNorm", "_FusedBNReluConv", "SoftmaxOutput",
                "Flatten", "LeakyReLU", "Dropout", "Reshape", "slice_axis",
                "_contrib_GatherTimestep", "_contrib_PagedDecodeAttention",
                "_contrib_PagedChunkPrefillAttention",
-               "_contrib_PagedPrefillAttention"}
+               "_contrib_PagedPrefillAttention", "SequenceMask",
+               "SequenceLast", "SequenceReverse"}
 # the paged ops' outputs 1 and 2 are their caches (inputs 5 and 6),
 # updated in place: each keeps its cache's own type
 _CACHE_OUTPUTS = {"_contrib_PagedDecodeAttention": (5, 6),
@@ -532,7 +576,7 @@ def out_dtypes(op, in_dtypes, attrs, n_out):
     their own), and the rest the promotion of their floating inputs."""
     from ..base import torch_dtype
     if op in ("Cast", "one_hot", "_random_uniform", "_random_normal",
-              "_random_randint"):
+              "_random_randint", "_zeros", "_ones"):
         dt = torch_dtype(attrs["dtype"])
     elif op == "Embedding":
         dt = in_dtypes[1]

@@ -64,3 +64,7 @@ for _name in _reg.list_ops():
     globals()[_name] = _fn
     if _name.startswith("_contrib_"):
         setattr(contrib, _name[len("_contrib_"):], _fn)
+
+# the fills under the reference's names (the cell zoo's begin states)
+zeros = globals()["_zeros"]
+ones = globals()["_ones"]

@@ -154,6 +154,18 @@ class Symbol:
     def __getitem__(self, index):
         return Symbol([self._entries[index]])
 
+    @property
+    def name(self):
+        """The node's name for a one-output Symbol, else None."""
+        if len(self._entries) == 1:
+            return self._entries[0][0].name
+        return None
+
+    def _set_attr(self, **kwargs):
+        """Set user (string) attributes on the head node."""
+        self._entries[0][0].str_attrs.update(
+            {k: str(v) for k, v in kwargs.items()})
+
     # ------------------------------------------------------------------
     def infer_shape(self, **known):
         """Propagate shapes from the given input shapes (and variables'

@@ -15,7 +15,11 @@ Both packages use MXNet's parameter names and layouts (FullyConnected
 weights ``(num_hidden, in_dim)``, the packed qkv ``(3d, d)``), and the
 Gluon nets carry over by name too (``gluon_params_from_numpy``: a JAX
 Gluon net's ``collect_params()`` as numpy, into the port's net of the
-same construction).  The transformer's training symbol
+same construction, the RNN cells and fused layers of ``gluon.rnn``
+included).  The ``mx.rnn`` cell zoos carry over by name in the same
+way, and ``convert_symbol_params(from_cells=..., to_cells=...)`` moves
+their weights between the fused op's packed vector and the step cells'
+per-gate arrays (``unpack_weights``/``pack_weights``).  The transformer's training symbol
 (``transformer.get_symbol``) binds the same parameter
 set as the mixed decode step.  So ``convert_params`` is a checked copy
 (every parameter must be present with the shape the symbol infers; each
@@ -62,11 +66,24 @@ def symbol_shapes(symbol, **input_shapes):
                   zip(symbol.list_auxiliary_states(), aux_shapes)}
 
 
-def convert_symbol_params(np_args, np_aux, ctx, symbol, **input_shapes):
+def convert_symbol_params(np_args, np_aux, ctx, symbol, from_cells=(),
+                          to_cells=(), **input_shapes):
     """``(arg_params, aux_params)`` as NDArrays on ``ctx`` (float32, or
     bfloat16 and float16 for arrays of those types), from
     name -> numpy dicts (or anything with ``asnumpy()``), checked against
-    :func:`symbol_shapes`; extra names are ignored."""
+    :func:`symbol_shapes`; extra names are ignored.  RNN weights cross
+    between cell layouts on the way: each of ``from_cells`` (the
+    ``mx.rnn`` cells the arrays were trained with, either package's)
+    unpacks its weights to per-gate arrays, then each of ``to_cells``
+    (``symbol``'s cells) packs them, so a ``FusedRNNCell``'s packed
+    vector loads into its ``unfuse()`` stack and back."""
+    if from_cells or to_cells:
+        np_args = {k: _np.asarray(v.asnumpy() if hasattr(v, "asnumpy")
+                                  else v) for k, v in np_args.items()}
+        for cell in from_cells:
+            np_args = cell.unpack_weights(np_args)
+        for cell in to_cells:
+            np_args = cell.pack_weights(np_args)
     arg_shapes, aux_shapes = symbol_shapes(symbol, **input_shapes)
     return (_checked_copy(np_args, arg_shapes, ctx, "parameters"),
             _checked_copy(np_aux, aux_shapes, ctx, "auxiliary states"))

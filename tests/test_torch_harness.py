@@ -285,3 +285,30 @@ def test_dcgan_step_matches_the_jax_package():
                 np.testing.assert_allclose(got[k].asnumpy(),
                                            want[k].asnumpy(), rtol=2e-5,
                                            atol=1e-6, err_msg=k)
+
+
+RNN = os.path.join(HARNESS, "rnn")
+
+
+@pytest.mark.parametrize("extra", [[], ["--gc-type", "2bit"], ["--fused"]],
+                         ids=["cells", "2bit", "fused"])
+def test_lstm_bucketing_runs_on_the_cpu(extra):
+    """The bucketing LM at a tiny width on a drawn corpus, one epoch:
+    the step cells, with 2-bit compression, and the fused RNN op."""
+    out = _run([os.path.join(RNN, "lstm_bucketing.py"), "--ctx", "cpu",
+                "--num-sentences", "200", "--num-epochs", "1",
+                "--num-hidden", "16", "--num-embed", "8", "--vocab-size",
+                "50", "--batch-size", "8", "--buckets", "5,10,20,40",
+                "--disp-batches", "5"] + extra)
+    assert "samples/sec" in out and "tokens/s" in out
+    assert "vocab 51" in out
+    _final(out)
+
+
+def test_char_lm_runs_on_the_cpu():
+    """The character LM on the committed fixture at a tiny width, one
+    epoch (its perplexity target set out of the way)."""
+    out = _run([os.path.join(RNN, "char_lm.py"), "--ctx", "cpu",
+                "--num-epochs", "1", "--num-hidden", "16",
+                "--target-ppl", "1000"])
+    assert "final train perplexity" in out and "char_lm OK" in out
