@@ -553,7 +553,34 @@ Phases, each printed as one JSON line:
 59. rnn_agreement: the LM at RNN_AGREE's widths, card (the fused step,
    one graph a bucket) against CPU across changes of bucket;
 60. gluon_rnn: gluon.rnn.LSTM(200, num_layers=2) for a few Trainer
-   steps: the loss finite and falling, every parameter moved.
+   steps: the loss finite and falling, every parameter moved;
+61. ssd300 (BASELINE config 5): the published SSD300 over VGG16-reduced
+   (``ssd300_symbol``: 8732 anchors over maps of 38 to 1) through
+   Module.fit's fused step at batch 32, 300 x 300, f32 (SSD_TRAIN), one
+   captured graph with no host sync and one graph launch a steady step,
+   beside the eager arm: step p50, images/s, peak GB, the graph's replay
+   ms and the eager step's device ms split into the VGG body, the heads,
+   MultiBoxTarget, MultiBoxDetection (its NMS loop) and the rest; every
+   output finite, every box's best anchor of its class and negatives
+   min(3 x positives, eligible) in every image; graph against eager
+   weights after 2 and 4 steps (cuDNN's deterministic algorithms), bit
+   for bit after 2;
+62. ssd_agreement: the SSD ops card against CPU on the same tensors at
+   SSD300's anchors and batch 4 (prior bit-equal, target classes and
+   masks equal, detections' ids equal, offsets, scores and boxes at
+   rtol 1e-4 / atol 1e-5, box_nms likewise), the example's SSD one fit
+   step (moves within 1e-3 of the CPU's largest), SSD300 at batch 1
+   (targets that differ printed, gradients within 0.1 by relative L2);
+63. vgg16_fit: models.vgg VGG-16 at 224, batch 128, 1000 classes
+   through the fused fit step in f32 and bf16 (every op of the bf16
+   graph one that earlier slices trained in bf16): step p50, images/s,
+   peak GB;
+64. model_zoo: each Gluon family hybridized at its published input, one
+   train step at batch 2 card against CPU (the same step seed) and
+   images/s of a batch-32 train step in f32; each symbolic family's
+   predict forward at batch 2 card against CPU.
+The harness phase also runs example/torch/ssd/train_ssd.py at its
+defaults (mean IoU above SSD_HARNESS_IOU, its CPU test's bound).
 
 Then the kernels' JSON line (every kernel with its dtype; the bf16 and
 f16 forms as rows of their own, the serving kernels' bf16 and f16
@@ -975,7 +1002,8 @@ HARNESS_WAVES = (
      ("lstm_bucketing 2bit", "rnn/lstm_bucketing.py",
       ["--num-sentences", "6000", "--num-epochs", "1", "--gc-type", "2bit",
        "--disp-batches", "40"], 300),
-     ("char_lm", "rnn/char_lm.py", [], 300)),
+     ("char_lm", "rnn/char_lm.py", [], 300),
+     ("train_ssd", "ssd/train_ssd.py", [], 240)),
     (("train_imagenet resnet-50 NCHW f32",
       "image-classification/train_imagenet.py",
       ["--benchmark", "1", "--batch-size", "64", "--num-examples", "640",
@@ -986,6 +1014,11 @@ HARNESS_WAVES = (
        "--num-epochs", "1", "--disp-batches", "3", "--layout", "NHWC",
        "--dtype", "bfloat16"], 300),),
 )
+
+
+# the SSD harness's mean IoU of each image's top detection must pass
+# this (tests/test_torch_harness.py asserts it on the CPU)
+SSD_HARNESS_IOU = 0.5
 
 
 # the RNN LM (BASELINE config 4, lstm_bucketing): MXNet's
@@ -1017,6 +1050,55 @@ RNN_OP = dict(seq=60, batch=32, input=200, hidden=200, layers=2, reps=20,
 # steps (gluon_rnn)
 GLUON_RNN = dict(seq=35, batch=32, input=200, hidden=200, layers=2,
                  steps=6, lr=0.5)
+# SSD300 over VGG16-reduced (BASELINE config 5; Liu et al., ECCV 2016;
+# MXNet's example/ssd/symbol/symbol_factory.py vgg16_reduced at data
+# shape 300): each source map's anchor sizes and ratios, the steps in
+# pixels over 300, the extra layers (1x1 width, 3x3 width, stride, pad)
+# after relu7, the maps' sizes and the anchors in all
+SSD300 = dict(
+    sizes=((.1, .141), (.2, .272), (.37, .447), (.54, .619), (.71, .79),
+           (.88, .961)),
+    ratios=((1, 2, .5), (1, 2, .5, 3, 1. / 3), (1, 2, .5, 3, 1. / 3),
+            (1, 2, .5, 3, 1. / 3), (1, 2, .5), (1, 2, .5)),
+    steps=(8, 16, 32, 64, 100, 300),
+    extra=((256, 512, 2, 1), (128, 256, 2, 1), (128, 256, 1, 0),
+           (128, 256, 1, 0)),
+    maps=(38, 19, 10, 5, 3, 1), anchors=8732)
+# the SSD300 step (ssd300): Module.fit's fused step at batch 32 over
+# 300 x 300 images in f32, SGD lr 1e-3, momentum 0.9, wd 5e-4,
+# rescale_grad 1 (the losses normalize by their valid counts, as MXNet's
+# example/ssd/train/train_net.py passes it); labels of 1-8 boxes of the
+# 20 classes padded with -1 rows to 8, drawn from the seed; two batches
+# for 7 epochs (3 warm-up steps, 11 timed), then the graph and the eager
+# arm's first 2 and 4 steps under cuDNN's deterministic algorithms
+SSD_TRAIN = dict(batch=32, classes=20, max_boxes=8, nms_topk=400, lr=1e-3,
+                 momentum=0.9, wd=5e-4, batches=2, epochs=7, replays=10)
+# SSD card against CPU (ssd_agreement): the ops at SSD300's anchors and
+# batch 4 (offsets rtol/atol), the example's SSD one fit step (moves
+# within move_rtol of the CPU's largest move), SSD300 at batch 1
+# (gradients within grad_l2 by relative L2, as the ResNet agreement)
+SSD_AGREE = dict(batch=4, loc_rtol=1e-4, loc_atol=1e-5, move_rtol=1e-3,
+                 example_batch=16, example_lr=0.01, grad_l2=0.1)
+# vgg16_fit: models.vgg VGG-16 with its Dropout classifier at
+# train_imagenet.py's defaults (224 x 224, batch 128, 1000 classes)
+# through the fused fit step, f32 and bf16 (f32 masters), SGD
+VGG_FIT = dict(num_layers=16, image=(3, 224, 224), classes=1000, batch=128,
+               lr=0.01, momentum=0.9, wd=1e-4, batches=2, epochs=4)
+# model_zoo: each Gluon family at its published input, hybridized (one
+# SGD train step at batch 2 card against CPU: loss within loss_rtol,
+# weight moves within move_l2 by relative L2; images/s of a batch-32
+# train step, f32), and each symbolic family's predict forward at batch
+# 2, its logits (before the SoftmaxOutput) card against CPU within
+# out_rtol of the largest logit
+ZOO_GLUON = (("vgg16", 224), ("alexnet", 224), ("squeezenet1.1", 224),
+             ("densenet121", 224), ("mobilenet1.0", 224),
+             ("mobilenetv2_1.0", 224), ("inceptionv3", 299))
+ZOO_SYMBOLIC = (("vgg", dict(num_layers=16)), ("alexnet", {}),
+                ("googlenet", {}), ("inception-bn", {}),
+                ("densenet", dict(num_layers=121)), ("mobilenet", {}),
+                ("resnext", dict(num_layers=50)), ("squeezenet", {}))
+ZOO = dict(batch=2, time_batch=32, time_steps=5, lr=0.01, loss_rtol=1e-3,
+           move_l2=0.1, out_rtol=1e-4)
 
 class SmokeFailure(RuntimeError):
     pass
@@ -9471,6 +9553,13 @@ def phase_harness(torch, card):
                       "pass its checks")
                 final = [ln for ln in text.splitlines()
                          if ln.startswith("iter")]
+            elif script.endswith("train_ssd.py"):
+                final = [ln for ln in text.splitlines()
+                         if ln.startswith("mean IoU of top detection")]
+                check(final, "harness: train_ssd printed no mean IoU")
+                iou = float(final[-1].split(":")[1].split(";")[0])
+                check(iou > SSD_HARNESS_IOU, "harness: train_ssd's mean IoU "
+                      "%.3f is not above %.2f" % (iou, SSD_HARNESS_IOU))
             elif script.endswith("char_lm.py"):
                 # exits 0 only below its target perplexity (4.5)
                 check("char_lm OK" in text, "harness: char_lm did not "
@@ -9797,6 +9886,19 @@ def phase_lstm_bucketing(torch, mx, mxk, cfg=LSTM_LM):
     return out["graph_2bit"]
 
 
+def _move_check(what, card, cpu, initial, rtol):
+    """Each parameter's move card against CPU within ``rtol`` of the
+    CPU's largest move of it: that share for each parameter."""
+    worst = {}
+    for k in cpu:
+        scale = float(np.abs(cpu[k] - initial[k]).max())
+        err = float(np.abs(card[k] - cpu[k]).max())
+        worst[k] = err / scale if scale else err
+        check(scale > 0 and err <= rtol * scale, "%s: %s differs by %g of "
+              "the CPU's largest move" % (what, k, worst[k]))
+    return worst
+
+
 def phase_rnn_agreement(torch, mx, ctxs=None, cfg=RNN_AGREE):
     """The 2-layer LM at RNN_AGREE's widths through BucketingModule.fit
     on the card (the fused step, one graph a bucket) and on the CPU from
@@ -9816,14 +9918,7 @@ def phase_rnn_agreement(torch, mx, ctxs=None, cfg=RNN_AGREE):
     check(set((card.get("captures_per_bucket") or {0: 1}).values()) == {1},
           "rnn_agreement: captures per bucket %s"
           % card.get("captures_per_bucket"))
-    worst = {}
-    for k in pw:
-        move = np.abs(pw[k] - params[k]).max()
-        diff = np.abs(cw[k] - pw[k]).max()
-        worst[k] = float(diff / move) if move else float(diff)
-        check(move > 0 and diff <= cfg["rtol"] * move,
-              "rnn_agreement: %s differs by %g of the CPU's largest move"
-              % (k, worst[k]))
+    worst = _move_check("rnn_agreement", cw, pw, params, cfg["rtol"])
     check(abs(card["perplexity"] - cpu["perplexity"])
           <= cfg["rtol"] * cpu["perplexity"], "rnn_agreement: perplexity "
           "%g on the card, %g on the CPU" % (card["perplexity"],
@@ -9947,6 +10042,770 @@ def phase_gluon_rnn(torch, mx, cfg=GLUON_RNN):
     return ms
 
 
+# ----------------------------------------------------------------------
+# SSD (BASELINE config 5) and the vision model zoos
+# ----------------------------------------------------------------------
+def _ssd300_body(mx, data):
+    """VGG16-reduced: conv1_1-conv5_3 (pool3 'full', 75 -> 38), pool5
+    3x3 s1 p1, fc6 a 3x3 convolution with dilation 6 to 1024 channels,
+    fc7 1x1 to 1024; returns (relu4_3, relu7)."""
+    sym = mx.sym
+    net = data
+    for i, (n, nf) in enumerate(((2, 64), (2, 128), (3, 256), (3, 512),
+                                 (3, 512))):
+        for j in range(n):
+            net = sym.Convolution(net, kernel=(3, 3), pad=(1, 1),
+                                  num_filter=nf,
+                                  name="conv%d_%d" % (i + 1, j + 1))
+            net = sym.Activation(net, act_type="relu",
+                                 name="relu%d_%d" % (i + 1, j + 1))
+        if i == 3:
+            relu4_3 = net
+        if i < 4:
+            net = sym.Pooling(net, pool_type="max", kernel=(2, 2),
+                              stride=(2, 2), name="pool%d" % (i + 1),
+                              pooling_convention="full" if i == 2
+                              else "valid")
+    net = sym.Pooling(net, pool_type="max", kernel=(3, 3), stride=(1, 1),
+                      pad=(1, 1), name="pool5")
+    net = sym.Convolution(net, kernel=(3, 3), pad=(6, 6), dilate=(6, 6),
+                          num_filter=1024, name="fc6")
+    net = sym.Activation(net, act_type="relu", name="relu6")
+    net = sym.Convolution(net, kernel=(1, 1), num_filter=1024, name="fc7")
+    return relu4_3, sym.Activation(net, act_type="relu", name="relu7")
+
+
+def _ssd300_head(mx, layers, label, num_classes=20, nms_topk=400):
+    """MXNet's multibox_layer and get_symbol_train over the six source
+    maps ``layers`` (relu4_3, relu7 and the four extra layers' outputs):
+    relu4_3 L2-normalized across channels times a learned (1, 512, 1, 1)
+    scale (init 20, wd_mult 0.1), a 3x3 location and class convolution
+    and the anchors at each map, MultiBoxTarget, SoftmaxOutput and the
+    smooth-L1 MakeLoss; the detections under BlockGrad.  Outputs
+    cls_prob (B, C + 1, A), loc_loss (B, 4A), cls_label (B, A) and the
+    detections (B, A, 6)."""
+    sym = mx.sym
+    names = ["relu4_3", "relu7"] + ["multi_feat_%d_conv_3x3" % k
+                                    for k in range(2, 6)]
+    scale = sym.Variable("relu4_3_scale", shape=(1, 512, 1, 1),
+                         init=mx.init.Constant(20.0),
+                         attr={"__wd_mult__": "0.1"})
+    layers = [sym.broadcast_mul(scale, sym.L2Normalization(
+        layers[0], mode="channel", name="relu4_3_norm"))] + list(layers[1:])
+    locs, clss, anchors = [], [], []
+    for k, (layer, name) in enumerate(zip(layers, names)):
+        sizes, ratios = SSD300["sizes"][k], SSD300["ratios"][k]
+        na = len(sizes) + len(ratios) - 1
+        loc = sym.Convolution(layer, kernel=(3, 3), pad=(1, 1),
+                              num_filter=na * 4, name=name + "_loc_pred_conv")
+        locs.append(sym.Flatten(sym.transpose(loc, axes=(0, 2, 3, 1))))
+        cls = sym.Convolution(layer, kernel=(3, 3), pad=(1, 1),
+                              num_filter=na * (num_classes + 1),
+                              name=name + "_cls_pred_conv")
+        clss.append(sym.Flatten(sym.transpose(cls, axes=(0, 2, 3, 1))))
+        step = SSD300["steps"][k] / 300.0
+        anchors.append(sym.Flatten(sym.MultiBoxPrior(
+            layer, sizes=sizes, ratios=ratios, clip=False,
+            steps=(step, step), name=name + "_anchors")))
+    loc_preds = sym.Concat(*locs, dim=1, name="multibox_loc_pred")
+    cls_preds = sym.transpose(sym.Reshape(
+        sym.Concat(*clss, dim=1), shape=(0, -1, num_classes + 1)),
+        axes=(0, 2, 1), name="multibox_cls_pred")
+    anchor_boxes = sym.Reshape(sym.Concat(*anchors, dim=1),
+                               shape=(0, -1, 4), name="multibox_anchors")
+    tgt = sym.MultiBoxTarget(anchor_boxes, label, cls_preds,
+                             overlap_threshold=.5, ignore_label=-1,
+                             negative_mining_ratio=3,
+                             minimum_negative_samples=0,
+                             negative_mining_thresh=.5,
+                             variances=(0.1, 0.1, 0.2, 0.2),
+                             name="multibox_target")
+    cls_prob = sym.SoftmaxOutput(cls_preds, tgt[2], ignore_label=-1,
+                                 use_ignore=True, grad_scale=1.,
+                                 multi_output=True, normalization="valid",
+                                 name="cls_prob")
+    loc_loss = sym.MakeLoss(sym.smooth_l1(tgt[1] * (loc_preds - tgt[0]),
+                                          scalar=1.0, name="loc_loss_"),
+                            grad_scale=1., normalization="valid",
+                            name="loc_loss")
+    cls_label = sym.MakeLoss(tgt[2], grad_scale=0, name="cls_label")
+    det = sym.MultiBoxDetection(cls_prob, loc_preds, anchor_boxes,
+                                nms_threshold=.45, force_suppress=False,
+                                variances=(0.1, 0.1, 0.2, 0.2),
+                                nms_topk=nms_topk, name="detection")
+    return sym.Group([cls_prob, loc_loss, cls_label, sym.BlockGrad(det)])
+
+
+def ssd300_symbol(mx, num_classes=20, nms_topk=400):
+    """The published SSD300 training symbol over VGG16-reduced (MXNet's
+    example/ssd symbol_builder.get_symbol_train with vgg16_reduced at
+    data shape 300; ``mx`` is either package's module): data (B, 3, 300,
+    300), label (B, M, 5); 8732 anchors over maps of 38, 19, 10, 5, 3
+    and 1."""
+    sym = mx.sym
+    relu4_3, relu7 = _ssd300_body(mx, sym.Variable("data"))
+    layers, net = [relu4_3, relu7], relu7
+    for k, (n1, n3, stride, pad) in enumerate(SSD300["extra"], start=2):
+        name = "multi_feat_%d_conv" % k
+        net = sym.Convolution(net, kernel=(1, 1), num_filter=n1,
+                              name=name + "_1x1_conv")
+        net = sym.Activation(net, act_type="relu", name=name + "_1x1_relu")
+        net = sym.Convolution(net, kernel=(3, 3), pad=(pad, pad),
+                              stride=(stride, stride), num_filter=n3,
+                              name=name + "_3x3_conv")
+        net = sym.Activation(net, act_type="relu", name=name + "_3x3_relu")
+        layers.append(net)
+    return _ssd300_head(mx, layers, sym.Variable("label"), num_classes,
+                        nms_topk)
+
+
+def ssd_labels(rng, batch, classes, max_boxes):
+    """(batch, max_boxes, 5) rows [cls, x1, y1, x2, y2]: 1 to
+    ``max_boxes`` boxes an image of ``classes`` classes, sides 0.1-0.6,
+    then -1 rows."""
+    lab = np.full((batch, max_boxes, 5), -1, np.float32)
+    for b in range(batch):
+        for m in range(rng.randint(1, max_boxes + 1)):
+            w, h = rng.uniform(0.1, 0.6, 2)
+            x0, y0 = rng.uniform(0, 1 - w), rng.uniform(0, 1 - h)
+            lab[b, m] = [rng.randint(classes), x0, y0, x0 + w, y0 + h]
+    return lab
+
+
+def seeded_weights(shapes, seed):
+    """Weights for ``shapes`` (name -> shape, either package's names) from
+    a numpy seed, drawn in sorted name order: He normal weights, zero
+    biases, BatchNorm variances and scales uniform in [0.5, 1.5], shifts
+    and means in [-0.1, 0.1], SSD's L2Normalization scale at its 20."""
+    rng = np.random.RandomState(seed)
+    out = {}
+    for name in sorted(shapes):
+        shp = tuple(shapes[name])
+        if name.endswith("_scale"):
+            a = np.full(shp, 20.0)
+        elif name.endswith(("running_var", "moving_var", "gamma")):
+            a = rng.uniform(0.5, 1.5, shp)
+        elif name.endswith(("beta", "running_mean", "moving_mean")):
+            a = rng.uniform(-0.1, 0.1, shp)
+        elif name.endswith("bias"):
+            a = np.zeros(shp)
+        else:
+            fan_in = int(np.prod(shp[1:])) if len(shp) > 1 else 1
+            a = rng.randn(*shp) * math.sqrt(2.0 / fan_in)
+        out[name] = a.astype(np.float32)
+    return out
+
+
+def ssd300_anchors(torch, dev=None):
+    """SSD300's 8732 anchors (1, 8732, 4) from the port's prior op on
+    ``dev`` (the CPU by default)."""
+    from mxnet_tpu_torch.ops.registry import get_op
+    prior = get_op("MultiBoxPrior").fn
+    return torch.cat([prior(torch.zeros(1, 1, m, m, device=dev),
+                            sizes=SSD300["sizes"][k],
+                            ratios=SSD300["ratios"][k], clip=False,
+                            steps=(SSD300["steps"][k] / 300.0,) * 2)
+                      for k, m in enumerate(SSD300["maps"])], dim=1)
+
+
+def _box_iou(anchors, boxes):
+    """IoU (A, M) in f64 of corner boxes (numpy)."""
+    a, g = anchors.astype(np.float64), boxes.astype(np.float64)
+    ix = np.clip(np.minimum(a[:, None, 2], g[None, :, 2])
+                 - np.maximum(a[:, None, 0], g[None, :, 0]), 0, None)
+    iy = np.clip(np.minimum(a[:, None, 3], g[None, :, 3])
+                 - np.maximum(a[:, None, 1], g[None, :, 1]), 0, None)
+    inter = ix * iy
+    area = lambda b: (b[:, 2] - b[:, 0]) * (b[:, 3] - b[:, 1])  # noqa: E731
+    return inter / (area(a)[:, None] + area(g)[None, :] - inter)
+
+
+def ssd_target_checks(cls_t, labels, anchors, ratio=3, thresh=0.5):
+    """Independent checks of MultiBoxTarget's classes ``cls_t`` (B, A)
+    against the boxes ``labels`` (B, M, 5) over ``anchors`` (A, 4), in
+    numpy f64: each valid box's best anchor carries its class (unless a
+    later box claims the same anchor), and each image's negatives are
+    min(ratio x positives, eligible), eligible the unmatched anchors whose
+    best IoU stays under ``thresh``.  Returns positives and negatives an
+    image and the failures."""
+    pos, neg, bad = [], [], []
+    for b, (row, lab) in enumerate(zip(cls_t, labels)):
+        lab = lab[lab[:, 0] >= 0]
+        iou = _box_iou(anchors, lab[:, 1:5])
+        best = iou.argmax(0)
+        for m, a in enumerate(best):
+            if a in best[m + 1:]:
+                continue
+            if row[a] != lab[m, 0] + 1:
+                bad.append("image %d box %d: anchor %d has class %g, not %g"
+                           % (b, m, a, row[a], lab[m, 0] + 1))
+        p, n = int((row > 0).sum()), int((row == 0).sum())
+        eligible = int(((row <= 0) & (iou.max(1) < thresh)).sum())
+        if n != min(ratio * p, eligible):
+            bad.append("image %d: %d negatives, %d positives, %d eligible"
+                       % (b, n, p, eligible))
+        pos.append(p)
+        neg.append(n)
+    return {"positives": pos, "negatives": neg, "failures": bad[:10]}
+
+
+class _LabelledOp:
+    """A graph node's op run inside ``torch.profiler.record_function``
+    (``ssd:<group>``), every other attribute its own."""
+
+    def __init__(self, torch, op, group):
+        self._op = op
+
+        def fn(*args, **kw):
+            with torch.profiler.record_function("ssd:" + group):
+                return op.fn(*args, **kw)
+        self.fn = fn
+
+    def __getattr__(self, name):
+        return getattr(self._op, name)
+
+
+def _ssd_group(node):
+    import re
+    if node.op.name == "_contrib_MultiBoxTarget":
+        return "target"
+    if node.op.name == "_contrib_MultiBoxDetection":
+        return "detection"
+    if re.match(r"(conv|relu|pool)\d_\d?|fc[67]$|relu[67]$|pool5$"
+                r"|multi_feat_", node.name):
+        return "body"
+    return "heads"
+
+
+def ssd_step_split(torch, mod, step, attr="device_time_total"):
+    """Device ms of one ``step()`` (an eager fit step of ``mod``, the
+    SSD symbol) by group: the VGG body with the extra feature layers,
+    the heads (normalization, predictions, anchors, concatenations, the
+    losses), MultiBoxTarget, MultiBoxDetection (decode, sort and the NMS
+    loop) and the rest (the update, the metric).  Each node's forward
+    runs in a ``record_function`` range; its backward is the autograd
+    function with the forward op's sequence number."""
+    from torch.profiler import ProfilerActivity, profile
+    nodes = [n for n in mod._exec_group._exec._plan.nodes
+             if not n.is_var]
+    ops = {id(n): n.op for n in nodes}
+    for n in nodes:
+        n.op = _LabelledOp(torch, n.op, _ssd_group(n))
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+    finally:
+        for n in nodes:
+            n.op = ops[id(n)]
+    groups = dict.fromkeys(("body", "heads", "target", "detection"), 0.0)
+    seq = {}
+    events = prof.events()
+    for ev in events:
+        if ev.name.startswith("ssd:"):
+            g = ev.name[4:]
+            groups[g] += getattr(ev, attr)
+            stack = list(ev.cpu_children)
+            while stack:
+                c = stack.pop()
+                if getattr(c, "sequence_nr", -1) >= 0:
+                    seq[c.sequence_nr] = g
+                stack.extend(c.cpu_children)
+    for ev in events:
+        if ev.name.startswith("autograd::engine::evaluate_function") \
+                and getattr(ev, "sequence_nr", -1) in seq:
+            groups[seq[ev.sequence_nr]] += getattr(ev, attr)
+    dev = [ev for ev in prof.key_averages()
+           if ev.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(getattr(ev, "self_device_time_total",
+                        getattr(ev, "self_cuda_time_total", 0))
+                for ev in dev) / 1e3
+    out = {k: v / 1e3 for k, v in groups.items()}
+    out["rest"] = total - sum(out.values())
+    out["total"] = total
+    return out
+
+
+def _ssd_inspect(torch, mx, anchors, labels, batch, fused, mod):
+    """``inspect`` of an ssd300 arm (after its profiled steps on the
+    first batch): the outputs finite, the target checks on that batch,
+    and the graph's replay ms (fused) or the eager step split by
+    group."""
+    outs = [o.asnumpy() for o in mod.get_outputs()]
+    info = {"outputs_finite": all(bool(np.isfinite(o).all())
+                                  for o in outs[:3]),
+            **ssd_target_checks(outs[2], labels, anchors)}
+    if fused:
+        info["graph_replay_ms"] = _graph_replay_ms(
+            torch, mod, SSD_TRAIN["replays"])
+    else:
+        metric = mx.metric.Loss(output_names=["loc_loss_output"])
+        info["split_ms"] = ssd_step_split(
+            torch, mod, lambda: mod.fit_step(batch, metric))
+    return info
+
+
+def _ssd_first_steps(torch, mx, make, it, fit_kw, fused, record=(2, 4)):
+    """The weights (numpy) of a fresh arm after each step count of
+    ``record``."""
+    got, seen = {}, [0]
+
+    def cb(param):
+        seen[0] += 1
+        if seen[0] in record:
+            got[seen[0]] = {k: v.asnumpy()
+                            for k, v in mod.get_params()[0].items()}
+
+    if fused:
+        mod = make()
+    else:
+        with fit_fused_off():
+            mod = make()
+    mod.fit(it, batch_end_callback=cb, **fit_kw)
+    torch.cuda.synchronize()
+    del mod
+    return got
+
+
+def phase_ssd300(torch, mx, ctx=None, cfg=SSD_TRAIN):
+    """SSD300 (BASELINE config 5) at full width through ``Module.fit``'s
+    fused step at batch 32 over 300 x 300 f32 images (SSD_TRAIN), one
+    captured graph, beside the eager arm (``MXNET_FIT_FUSED=0``): step
+    p50, images/s, peak GB, runtime launch calls and host syncs a steady
+    step, the graph's replay ms and the eager step's device ms by group
+    (``ssd_step_split``); anchors 8732; on the first batch every output
+    finite, every box's best anchor of its class and negatives min(3 x
+    positives, eligible) in every image (``ssd_target_checks``); then
+    both arms again from the same weights under cuDNN's deterministic
+    algorithms, their weights after 2 and 4 steps compared."""
+    from mxnet_tpu_torch.weights import convert_symbol_params, symbol_shapes
+    ctx = ctx or mx.gpu(0)
+    B, M, C = cfg["batch"], cfg["max_boxes"], cfg["classes"]
+    sym = ssd300_symbol(mx, C, cfg["nms_topk"])
+    shapes = dict(data=(B, 3, 300, 300), label=(B, M, 5))
+    arg_shapes, _ = symbol_shapes(sym, **shapes)
+    np_args = seeded_weights(arg_shapes, SEED + 40)
+    rng = np.random.RandomState(SEED + 41)
+    n = B * cfg["batches"]
+    x = rng.rand(n, 3, 300, 300).astype(np.float32)
+    y = ssd_labels(rng, n, C, M)
+    anchors = ssd300_anchors(torch)[0].numpy()
+    check(anchors.shape[0] == SSD300["anchors"], "ssd300: %d anchors"
+          % anchors.shape[0])
+    check(sym.attr_dict()["relu4_3_scale"]["__wd_mult__"] == "0.1",
+          "ssd300: the scale's wd_mult is lost")
+
+    def make():
+        return mx.Module(ssd300_symbol(mx, C, cfg["nms_topk"]),
+                         data_names=("data",), label_names=("label",),
+                         context=ctx)
+
+    def fit_kw(epochs):
+        args, _ = convert_symbol_params(np_args, {}, ctx, sym, **shapes)
+        return dict(num_epoch=epochs, optimizer="sgd", optimizer_params={
+            "learning_rate": cfg["lr"], "momentum": cfg["momentum"],
+            "wd": cfg["wd"], "rescale_grad": 1.0},
+            arg_params=args, aux_params={},
+            eval_metric=mx.metric.Loss(output_names=["loc_loss_output"]))
+
+    def it():
+        return mx.io.NDArrayIter({"data": x}, {"label": y}, batch_size=B)
+
+    batch = next(iter(it()))
+    steps = cfg["batches"] * cfg["epochs"]
+    arms = {}
+    for fused in (True, False):
+        info, _ = _fit_arm(
+            torch, mx, make, it(), fit_kw(cfg["epochs"]), fused, steps,
+            inspect=lambda mod, f=fused: _ssd_inspect(
+                torch, mx, anchors, y[:B], batch, f, mod))
+        ins = info["inspect"]
+        check(ins["outputs_finite"] and math.isfinite(info["metric"]),
+              "ssd300: a non-finite loss (%s arm)"
+              % ("graph" if fused else "eager"))
+        check(not ins["failures"], "ssd300: target checks failed: %s"
+              % ins["failures"])
+        info["images_per_s"] = B / (info["step_ms_p50"] / 1e3)
+        arms["graph" if fused else "eager"] = info
+    g = arms["graph"]
+    check(g["fused"] and g["captures"] == 1, "ssd300: %s captures"
+          % g.get("captures"))
+    steady = g["host_syncs_per_step"][3:]
+    check(steady and not any(steady), "ssd300: host syncs in steady steps: "
+          "%s" % steady)
+    check(g["runtime_calls_per_step"].get("cudaGraphLaunch", 0) == 1
+          and not any(g["runtime_calls_per_step"].get(k, 0) for k in
+                      ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                       "cuLaunchKernel", "cuLaunchKernelEx")),
+          "ssd300: a steady step made %s" % g["runtime_calls_per_step"])
+    # graph against eager from the same weights, deterministic algorithms
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        one = mx.io.NDArrayIter({"data": x}, {"label": y}, batch_size=B)
+        wg = _ssd_first_steps(torch, mx, make, one, fit_kw(2), True)
+        one.reset()
+        we = _ssd_first_steps(torch, mx, make, one, fit_kw(2), False)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    same = {}
+    for k in sorted(wg):
+        same[k] = _compare_arms("ssd300 after %d steps" % k, wg[k], we[k],
+                                np_args, 1e-4)
+    check(same[2]["bit_equal"], "ssd300: graph and eager weights differ "
+          "after 2 steps (%g of the move)" % same[2]["move_rel_l2"])
+    emit({"phase": "ssd300", "config": {"ssd300": SSD300, "train": cfg},
+          "anchors": int(anchors.shape[0]), "graph": arms["graph"],
+          "eager": arms["eager"], "graph_vs_eager": same})
+    return arms
+
+
+def _example_ssd():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "port_train_ssd", os.path.join(HERE, "example", "torch", "ssd",
+                                       "train_ssd.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_ssd_agreement(torch, mx, ctxs=None, cfg=SSD_AGREE):
+    """SSD card against CPU: (a) the ops on the same tensors at SSD300's
+    anchors and batch 4: the prior bit-equal, the target's classes and
+    masks equal and offsets within loc_rtol/loc_atol, the detections'
+    ids equal and scores and boxes within the same, box_nms likewise;
+    (b) the example's SSD one fit step from the same weights: every
+    weight's move within move_rtol of the CPU's largest move of it; (c)
+    SSD300 at batch 1, one forward and backward: the targets that differ
+    printed (cuDNN's sum order can move a near-tied mining rank), the
+    gradients within grad_l2 by relative L2 over the net."""
+    from mxnet_tpu_torch.ops.registry import get_op
+    from mxnet_tpu_torch.weights import convert_symbol_params, symbol_shapes
+    card, cpu = ctxs or (mx.gpu(0), mx.cpu())
+    cdev, hdev = card.torch_device, cpu.torch_device
+    rng = np.random.RandomState(SEED + 43)
+    B, C = cfg["batch"], SSD_TRAIN["classes"] + 1
+    out = {}
+
+    def both(fn, *arrays):
+        """``fn`` on the CPU tensors of ``arrays`` and on their copies on
+        the card."""
+        h = [torch.from_numpy(np.ascontiguousarray(a)).to(hdev)
+             for a in arrays]
+        return fn(*h), fn(*[t.to(cdev) for t in h])
+
+    def close_loc(a, b):
+        return bool(torch.allclose(b.cpu(), a, rtol=cfg["loc_rtol"],
+                                   atol=cfg["loc_atol"]))
+
+    # (a) the ops
+    ah, ac = ssd300_anchors(torch, hdev), ssd300_anchors(torch, cdev).cpu()
+    check(torch.equal(ah.view(torch.int32), ac.view(torch.int32)),
+          "ssd_agreement: the card's anchors differ from the CPU's")
+    anchors = ah.numpy()
+    A = anchors.shape[1]
+    labels = ssd_labels(rng, B, SSD_TRAIN["classes"], SSD_TRAIN["max_boxes"])
+    logits = (rng.randn(B, C, A) * 2).astype(np.float32)
+    th, tc = both(lambda a, l, c: get_op("MultiBoxTarget").fn(
+        a, l, c, negative_mining_ratio=3, overlap_threshold=.5,
+        negative_mining_thresh=.5), anchors, labels, logits)
+    check(torch.equal(th[2], tc[2].cpu()) and torch.equal(th[1], tc[1].cpu())
+          and close_loc(th[0], tc[0]), "ssd_agreement: MultiBoxTarget "
+          "differs: %d classes" % int((th[2] != tc[2].cpu()).sum()))
+    prob = torch.softmax(torch.from_numpy(logits), 1).numpy()
+    loc = (rng.randn(B, A * 4) * 0.5).astype(np.float32)
+    dh, dc = both(lambda p, l, a: get_op("MultiBoxDetection").fn(
+        p, l, a, nms_threshold=.45, nms_topk=SSD_TRAIN["nms_topk"]),
+        prob, loc, anchors)
+    check(torch.equal(dh[..., 0], dc[..., 0].cpu())
+          and close_loc(dh[..., 1:], dc[..., 1:]),
+          "ssd_agreement: MultiBoxDetection differs: %d ids"
+          % int((dh[..., 0] != dc[..., 0].cpu()).sum()))
+    rows = dh[:, :SSD_TRAIN["nms_topk"]].numpy().copy()
+    rows[..., 0] = rng.randint(0, 3, rows.shape[:2])
+    nh, nc = both(lambda r: get_op("box_nms").fn(
+        r, overlap_thresh=.45, id_index=0, topk=200), rows)
+    check(close_loc(nh, nc), "ssd_agreement: box_nms differs")
+    out["ops"] = {"anchors": A, "positives": int((th[2] > 0).sum()),
+                  "negatives": int((th[2] == 0).sum()),
+                  "kept": int((dh[..., 0] >= 0).sum()),
+                  "nms_kept": int((nh[..., 1] >= 0).sum()),
+                  "loc_target_max_err": max_err(tc[0].cpu(), th[0]),
+                  "detection_max_err": max_err(dc[..., 1:].cpu(),
+                                               dh[..., 1:])}
+
+    # (b) the example's SSD, one fit step
+    ex = _example_ssd()
+    Xe, Ye = ex.make_dataset(cfg["example_batch"], seed=5)
+    esym = ex.ssd_symbol()
+    eshapes = dict(data=Xe.shape, label=Ye.shape)
+    np_e = seeded_weights(symbol_shapes(esym, **eshapes)[0], SEED + 44)
+    moved = {}
+    for name, ctx in (("card", card), ("cpu", cpu)):
+        mod = mx.Module(ex.ssd_symbol(), data_names=("data",),
+                        label_names=("label",), context=ctx)
+        args, _ = convert_symbol_params(np_e, {}, ctx, esym, **eshapes)
+        mod.fit(mx.io.NDArrayIter({"data": Xe}, {"label": Ye},
+                                  batch_size=cfg["example_batch"]),
+                num_epoch=1, optimizer="sgd", arg_params=args,
+                optimizer_params={"learning_rate": cfg["example_lr"],
+                                  "momentum": 0.9},
+                eval_metric=mx.metric.Loss(output_names=["loc_loss_output"]))
+        moved[name] = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+        del mod
+    out["example_move_rel"] = max(_move_check(
+        "ssd_agreement example", moved["card"], moved["cpu"], np_e,
+        cfg["move_rtol"]).values())
+
+    # (c) SSD300 at batch 1
+    sym = ssd300_symbol(mx, SSD_TRAIN["classes"], SSD_TRAIN["nms_topk"])
+    shapes = dict(data=(1, 3, 300, 300), label=(1, SSD_TRAIN["max_boxes"],
+                                                   5))
+    np_s = seeded_weights(symbol_shapes(sym, **shapes)[0], SEED + 40)
+    xs = rng.rand(*shapes["data"]).astype(np.float32)
+    ys = ssd_labels(rng, 1, SSD_TRAIN["classes"], SSD_TRAIN["max_boxes"])
+    runs = {}
+    for name, ctx in (("card", card), ("cpu", cpu)):
+        exe = sym.simple_bind(ctx=ctx, grad_req="write", **shapes)
+        args, _ = convert_symbol_params(np_s, {}, ctx, sym, **shapes)
+        exe.copy_params_from(args)
+        outs = exe.forward(is_train=True, data=mx.nd.array(xs, ctx=ctx),
+                           label=mx.nd.array(ys, ctx=ctx))
+        exe.backward()
+        runs[name] = ([o.asnumpy() for o in outs],
+                      {k: g.asnumpy() for k, g in exe.grad_dict.items()
+                       if k not in ("data", "label")})
+        del exe
+    (oc, gc), (oh, gh) = runs["card"], runs["cpu"]
+    diff = float(math.sqrt(sum(float(np.square(gc[k] - gh[k]).sum())
+                               for k in gh)))
+    norm = float(math.sqrt(sum(float(np.square(gh[k]).sum()) for k in gh)))
+    out["ssd300_batch1"] = {
+        "targets_differ": int((oc[2] != oh[2]).sum()),
+        "positives": int((oh[2] > 0).sum()),
+        "grad_rel_l2": diff / norm,
+        "loc_loss_rel": float(abs(oc[1].sum() - oh[1].sum())
+                              / max(abs(oh[1].sum()), 1e-30))}
+    check(all(np.isfinite(o).all() for o in oc[:3]),
+          "ssd_agreement: a non-finite SSD300 output on the card")
+    check(diff <= cfg["grad_l2"] * norm, "ssd_agreement: SSD300 gradients "
+          "%g apart by relative L2" % (diff / norm))
+    emit({"phase": "ssd_agreement", "config": cfg, **out})
+    return out
+
+
+def _graph_ops(sym):
+    return {n.op.name for n in sym._topo() if not n.is_var}
+
+
+def phase_vgg16_fit(torch, mx, ctx=None, cfg=VGG_FIT):
+    """``models.vgg`` VGG-16 (the classifier with Dropout) at
+    train_imagenet.py's defaults through ``Module.fit``'s fused step in
+    f32 and in bf16 (``dtype='bfloat16'``, SGD with f32 masters), after
+    checking that every op of the bf16 graph is an op of the graphs
+    earlier slices trained in bf16 (ResNet and the dropout LM): step p50,
+    images/s, peak GB, one capture and no host sync a steady step."""
+    from mxnet_tpu_torch.models import resnet, transformer, vgg
+    from mxnet_tpu_torch.weights import convert_symbol_params, symbol_shapes
+    ctx = ctx or mx.gpu(0)
+    held = _graph_ops(resnet.get_symbol(
+        num_classes=10, num_layers=50, image_shape=(3, 64, 64),
+        dtype="bfloat16")) | _graph_ops(transformer.get_symbol(
+            num_classes=16, num_layers=1, d_model=64, num_heads=2,
+            ffn_dim=128, seq_len=16, dropout=0.1, dtype="bfloat16"))
+    missing = _graph_ops(vgg.get_symbol(
+        num_classes=cfg["classes"], num_layers=cfg["num_layers"],
+        dtype="bfloat16")) - held
+    check(not missing, "vgg16_fit: bf16 ops not held before: %s"
+          % sorted(missing))
+    B = cfg["batch"]
+    shapes = dict(data=(B,) + cfg["image"], softmax_label=(B,))
+    sym32 = vgg.get_symbol(num_classes=cfg["classes"],
+                           num_layers=cfg["num_layers"])
+    np_args = seeded_weights(symbol_shapes(sym32, **shapes)[0], SEED + 45)
+    x, y = _image_batches(cfg["image"], B * cfg["batches"], SEED + 46,
+                          cfg["classes"])
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        def make(dtype=dtype):
+            return mx.Module(vgg.get_symbol(
+                num_classes=cfg["classes"], num_layers=cfg["num_layers"],
+                dtype=dtype), context=ctx)
+        args, _ = convert_symbol_params(np_args, {}, ctx, sym32, **shapes)
+        info, _ = _fit_arm(
+            torch, mx, make, mx.io.NDArrayIter(x, y, batch_size=B),
+            dict(num_epoch=cfg["epochs"], optimizer="sgd", optimizer_params={
+                "learning_rate": cfg["lr"], "momentum": cfg["momentum"],
+                "wd": cfg["wd"], "multi_precision": dtype != "float32"},
+                arg_params=args, aux_params={}, eval_metric="acc"),
+            True, cfg["batches"] * cfg["epochs"])
+        check(info["captures"] == 1 and math.isfinite(info["metric"]),
+              "vgg16_fit %s: %s captures, metric %s"
+              % (dtype, info["captures"], info["metric"]))
+        steady = info["host_syncs_per_step"][3:]
+        check(not any(steady), "vgg16_fit %s: host syncs %s"
+              % (dtype, steady))
+        out[dtype] = {k: info[k] for k in (
+            "step_ms", "step_ms_p50", "peak_mem_gb", "metric", "captures",
+            "host_syncs_per_step", "runtime_calls_per_step")}
+        out[dtype]["images_per_s"] = B / (info["step_ms_p50"] / 1e3)
+        print("vgg16_fit %s: step p50 %.2f ms, %.1f images/s, peak %.2f GB"
+              % (dtype, info["step_ms_p50"], out[dtype]["images_per_s"],
+                 info["peak_mem_gb"]), flush=True)
+    emit({"phase": "vgg16_fit", "config": cfg, "held_bf16_ops":
+          sorted(held), **out})
+    return out
+
+
+def _zoo_net(mx, name, ctx, x, arrays=None):
+    from mxnet_tpu_torch.base import NameManager
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.weights import gluon_params_from_numpy
+    with NameManager():
+        net = vision.get_model(name)
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    net(mx.nd.array(x[:1], ctx=ctx))            # deferred shapes
+    if arrays is not None:
+        gluon_params_from_numpy(net, arrays)
+    net.hybridize()
+    return net
+
+
+@contextlib.contextmanager
+def same_step_seed(torch, value):
+    """Every step seed drawn inside is ``value`` (on the device asked
+    for): the card and the CPU then draw the same Dropout masks, which
+    their generators' own seeds would not give."""
+    from mxnet_tpu_torch import random as _random
+    orig = _random.next_seed
+
+    def fixed(device, out=None):
+        out = torch.empty((), dtype=torch.int64, device=device) \
+            if out is None else out
+        return out.fill_(value)
+    _random.next_seed = fixed
+    try:
+        yield
+    finally:
+        _random.next_seed = orig
+
+
+def _zoo_step(mx, net, x, y, ctx, lr, steps=1):
+    """``steps`` SGD steps of a hybridized Gluon net (softmax cross
+    entropy, momentum 0.9): the last loss."""
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": lr, "momentum": 0.9})
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    xd, yd = mx.nd.array(x, ctx=ctx), mx.nd.array(y, ctx=ctx)
+    for _ in range(steps):
+        with mx.autograd.record():
+            loss = loss_fn(net(xd), yd)
+        loss.backward()
+        trainer.step(x.shape[0])
+    return loss
+
+
+def phase_model_zoo(torch, mx, ctxs=None, cfg=ZOO):
+    """The vision zoos on the card: each Gluon family of ZOO_GLUON,
+    hybridized at its published input, one SGD train step at batch 2
+    card against CPU from the same weights and step seed (loss within
+    loss_rtol, weight moves within move_l2 by relative L2 over the net:
+    batch-2 BatchNorm statistics are chaotic, ROADMAP C) and images/s of
+    a train step at batch 32 in f32; each symbolic family of ZOO_SYMBOLIC
+    one predict forward at batch 2, its logits (before the SoftmaxOutput)
+    card against CPU within out_rtol of the largest logit."""
+    from mxnet_tpu_torch import models
+    from mxnet_tpu_torch.base import NameManager
+    card, cpu = ctxs or (mx.gpu(0), mx.cpu())
+    out = {"gluon": {}, "symbolic": {}}
+    for name, size in ZOO_GLUON:
+        rng = np.random.RandomState(SEED + 47)
+        x = rng.rand(cfg["batch"], 3, size, size).astype(np.float32)
+        y = rng.randint(0, 1000, cfg["batch"]).astype(np.float32)
+        probe = _zoo_net(mx, name, cpu, x)
+        arrays = seeded_weights({k: p.data().shape for k, p in
+                              probe.collect_params().items()}, SEED + 48)
+        del probe
+        res = {}
+        for side, ctx in (("card", card), ("cpu", cpu)):
+            net = _zoo_net(mx, name, ctx, x, arrays)
+            with same_step_seed(torch, SEED):
+                loss = _zoo_step(mx, net, x, y, ctx, cfg["lr"])
+            res[side] = (float(loss.asnumpy().mean()),
+                         {k: p.data().asnumpy()
+                          for k, p in net.collect_params().items()})
+            del net
+            gc_collect(torch)
+        (lc, wc), (lh, wh) = res["card"], res["cpu"]
+        diff = math.sqrt(sum(float(np.square(wc[k] - wh[k]).sum())
+                             for k in wh))
+        move = math.sqrt(sum(float(np.square(wh[k] - arrays[k]).sum())
+                             for k in wh))
+        check(abs(lc - lh) <= cfg["loss_rtol"] * abs(lh), "model_zoo %s: "
+              "loss %g on the card, %g on the CPU" % (name, lc, lh))
+        check(move > 0 and diff <= cfg["move_l2"] * move, "model_zoo %s: "
+              "moves %g apart by relative L2" % (name, diff / move))
+        # images/s of a batch-32 train step on the card
+        xb = rng.rand(cfg["time_batch"], 3, size, size).astype(np.float32)
+        yb = rng.randint(0, 1000, cfg["time_batch"]).astype(np.float32)
+        net = _zoo_net(mx, name, card, xb, arrays)
+        torch.cuda.reset_peak_memory_stats()
+        _zoo_step(mx, net, xb, yb, card, cfg["lr"], steps=2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _zoo_step(mx, net, xb, yb, card, cfg["lr"], steps=cfg["time_steps"])
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / cfg["time_steps"]
+        del net
+        gc_collect(torch)
+        out["gluon"][name] = {
+            "input": size, "loss_card": lc, "loss_cpu": lh,
+            "move_rel_l2": diff / move, "step_ms": step_ms,
+            "images_per_s": cfg["time_batch"] / (step_ms / 1e3),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        print("model_zoo %s: %.1f images/s (batch %d, f32)"
+              % (name, out["gluon"][name]["images_per_s"],
+                 cfg["time_batch"]), flush=True)
+    for name, kw in ZOO_SYMBOLIC:
+        with NameManager():
+            net = models.get_symbol(name, num_classes=1000, **kw)
+        # the logits, the entry the SoftmaxOutput reads: its probabilities
+        # saturate to one-hot under seeded weights
+        names = net.get_internals().list_outputs()
+        check(names[-2:] == ["softmax_label", "softmax_output"],
+              "model_zoo %s: outputs end %s" % (name, names[-2:]))
+        sym = net.get_internals()[names[-3]]
+        shapes = dict(data=(cfg["batch"], 3, 224, 224))
+        arg_shapes, _, aux_shapes = sym.infer_shape(**shapes)
+        arrays = seeded_weights(dict(
+            list(zip(sym.list_arguments(), arg_shapes))
+            + list(zip(sym.list_auxiliary_states(), aux_shapes))),
+            SEED + 49)
+        rng = np.random.RandomState(SEED + 50)
+        x = rng.rand(*shapes["data"]).astype(np.float32)
+        res = {}
+        for side, ctx in (("card", card), ("cpu", cpu)):
+            exe = sym.simple_bind(ctx=ctx, **shapes)
+            exe.copy_params_from(
+                {k: mx.nd.array(arrays[k], ctx=ctx) for k in exe.arg_dict
+                 if k not in shapes},
+                {k: mx.nd.array(arrays[k], ctx=ctx) for k in exe.aux_dict})
+            res[side] = exe.forward(is_train=False, data=mx.nd.array(
+                x, ctx=ctx))[0].asnumpy()
+            del exe
+        err = float(np.abs(res["card"] - res["cpu"]).max())
+        scale = float(np.abs(res["cpu"]).max())
+        check(err <= cfg["out_rtol"] * scale, "model_zoo %s: forward "
+              "%g apart (largest %g)" % (name, err, scale))
+        out["symbolic"][name] = {"output": names[-3], "max_abs_err": err,
+                                 "largest": scale}
+    emit({"phase": "model_zoo", "config": cfg, **out})
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -10053,6 +10912,11 @@ def main():
     lm_2bit = phase_lstm_bucketing(torch, mx, mxk)
     phase_rnn_agreement(torch, mx)
     phase_gluon_rnn(torch, mx)
+    # SSD (BASELINE config 5) and the vision model zoos
+    phase_ssd300(torch, mx)
+    phase_ssd_agreement(torch, mx)
+    phase_vgg16_fit(torch, mx)
+    phase_model_zoo(torch, mx)
     phase_checkpoint(torch, mx, card)
     phase_harness(torch, card)
     # launches: the count of each kernel's main-path run (serve for the

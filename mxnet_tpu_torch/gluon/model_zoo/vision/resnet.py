@@ -12,9 +12,9 @@ which is the JAX package's: weights carry between the packages by name.
 """
 from __future__ import annotations
 
-from ....base import MXNetError
 from ...block import HybridBlock
 from ... import nn
+from ..model_store import no_pretrained
 
 __all__ = ["ResNetV1", "ResNetV2", "BasicBlockV1", "BasicBlockV2",
            "BottleneckV1", "BottleneckV2", "get_resnet",
@@ -241,9 +241,7 @@ def get_resnet(version, num_layers, pretrained=False, ctx=None, root=None,
     if version not in (1, 2):
         raise ValueError(f"Invalid resnet version: {version}.")
     if pretrained:
-        raise MXNetError("pretrained=True: the PyTorch port has no store of "
-                         "weights (and no network to fetch them); load "
-                         "numpy weights with weights.gluon_params_from_numpy")
+        no_pretrained(f"resnet{num_layers}_v{version}")
     block_kind, layers, channels = resnet_spec[num_layers]
     net_cls = resnet_net_versions[version - 1]
     block_cls = resnet_block_versions[version - 1][block_kind]

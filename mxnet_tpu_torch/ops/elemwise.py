@@ -185,8 +185,10 @@ class _MakeLossFn(torch.autograd.Function):
     def backward(ctx, _g):
         (x,) = ctx.saved_tensors
         grad_scale, normalization, valid_thresh = ctx.args
-        scale = torch.tensor(grad_scale, dtype=torch.float32,
-                             device=x.device)
+        # made on the device by a fill: a host-to-device copy would stop
+        # a graph capture (the fused fit step's)
+        scale = torch.full((), grad_scale, dtype=torch.float32,
+                           device=x.device)
         if normalization == "batch":
             scale = scale / x.shape[0]
         elif normalization == "valid":

@@ -16,7 +16,9 @@ Dropout is a mask draw (:func:`dropout_mask`, from the walk's step seed,
 ``random.keep_mask``) and a mask apply (:func:`dropout_apply`);
 LeakyReLU's ``rrelu`` draws its slopes from the same seed
 (:func:`rrelu_slopes`).  Deconvolution is ``F.conv_transpose{1,2,3}d``
-(the JAX package computes it outside Pallas too).
+(the JAX package computes it outside Pallas too).  ``L2Normalization``
+and ``LRN`` (SSD's conv4_3 source, AlexNet) are plain passes, as the
+JAX ops are plain jnp.
 """
 from __future__ import annotations
 
@@ -97,6 +99,41 @@ def instance_norm(data, gamma, beta, *, eps=1e-3):
     out = (data - mean) * torch.rsqrt(var + float(eps))
     bshape = (1, -1) + (1,) * (data.dim() - 2)
     return out * gamma.reshape(bshape) + beta.reshape(bshape)
+
+
+@register("L2Normalization")
+def l2_normalization(data, *, eps=1e-10, mode="instance"):
+    """``data`` over its L2 norm, ``eps`` inside the square root (ref
+    src/operator/l2_normalization.cc): across every axis but the batch
+    (``instance``), across the channels at each position (``channel``),
+    or across the positions of each channel (``spatial``)."""
+    if mode == "instance":
+        red = tuple(range(1, data.dim()))
+    elif mode == "channel":
+        red = (1,)
+    elif mode == "spatial":
+        red = tuple(range(2, data.dim()))
+    else:
+        raise MXNetError("L2Normalization: unknown mode %r" % (mode,))
+    return data / torch.sqrt(data.square().sum(dim=red, keepdim=True)
+                             + float(eps))
+
+
+@register("LRN")
+def lrn(data, *, nsize, alpha=1e-4, beta=0.75, knorm=2.0):
+    """Local response normalization across channels (ref
+    src/operator/nn/lrn.cc): ``data * (knorm + alpha * S / nsize) **
+    -beta``, S the sum of squares over a window of ``nsize`` channels
+    centred on each (zeros past the edges)."""
+    nsize = int(nsize)
+    if nsize % 2 != 1:
+        raise MXNetError("LRN: nsize must be odd, got %d" % nsize)
+    half = nsize // 2
+    sq = data.square().reshape(data.shape[0], 1, data.shape[1], -1)
+    summed = F.avg_pool2d(sq, (nsize, 1), stride=1, padding=(half, 0),
+                          divisor_override=1).reshape(data.shape)
+    return data * torch.pow(float(knorm) + float(alpha) * summed / nsize,
+                            -float(beta))
 
 
 @register("Flatten", aliases=("flatten",))

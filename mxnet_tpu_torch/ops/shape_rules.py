@@ -397,6 +397,18 @@ def _seq_last_out(ins, a):
     return [tuple(x)]
 
 
+def _prior_out(ins, a):
+    x = ins["data"]
+    sizes, ratios = (len(v) if isinstance(v, (tuple, list)) else 1
+                     for v in (a["sizes"], a["ratios"]))
+    return [(1, x[2] * x[3] * (sizes + ratios - 1), 4)]
+
+
+def _target_out(ins, a):
+    b, n = ins["label"][0], ins["anchor"][-2]
+    return [(b, n * 4), (b, n * 4), (b, n)]
+
+
 PARAM_SHAPES = {
     "RNN": _rnn_params,
     "FullyConnected": _fc_params,
@@ -438,6 +450,13 @@ INDEX_INPUTS = {
 }
 
 OUT_SHAPES = {
+    "_contrib_MultiBoxPrior": _prior_out,
+    "_contrib_MultiBoxTarget": _target_out,
+    "_contrib_MultiBoxDetection":
+        lambda ins, a: [(ins["cls_prob"][0], ins["cls_prob"][2], 6)],
+    "_contrib_box_nms": lambda ins, a: [ins["data"]],
+    "L2Normalization": lambda ins, a: [ins["data"]],
+    "LRN": lambda ins, a: [ins["data"]],
     "RNN": _rnn_out,
     "SequenceMask": lambda ins, a: [ins["data"]],
     "SequenceLast": _seq_last_out,
@@ -571,7 +590,7 @@ def out_dtypes(op, in_dtypes, attrs, n_out):
     (``in_dtypes``, in input order): ``Cast`` gives its ``dtype``
     attribute (as do ``one_hot`` and the random ops), ``Embedding`` its
     weight's type, ``argmax``/``argmin`` float32 (the reference returns
-    indices as floats), the normalizations, pooling, activations, loss
+    indices as floats), as does ``MultiBoxPrior`` (its anchors), the normalizations, pooling, activations, loss
     heads and attention ops their data's type (the paged ops' caches
     their own), and the rest the promotion of their floating inputs."""
     from ..base import torch_dtype
@@ -580,7 +599,7 @@ def out_dtypes(op, in_dtypes, attrs, n_out):
         dt = torch_dtype(attrs["dtype"])
     elif op == "Embedding":
         dt = in_dtypes[1]
-    elif op in ("argmax", "argmin"):
+    elif op in ("argmax", "argmin", "_contrib_MultiBoxPrior"):
         dt = torch.float32
     elif op in _DATA_TYPED or not in_dtypes:
         dt = in_dtypes[0] if in_dtypes else torch.float32

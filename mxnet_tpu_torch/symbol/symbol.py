@@ -3,7 +3,8 @@
 Counterpart of ``mxnet_tpu/symbol/symbol.py``, reduced to what the
 serving and training slices use: ``Variable`` (with ``init=``,
 ``lr_mult`` and ``wd_mult`` stored as the JAX package stores them),
-``Group``, composition through the generated op functions, the
+``Group``, composition through the generated op functions, indexing
+by position, output name or slice and ``get_internals``, the
 arithmetic and comparison operators (scalar operands on either side),
 ``reshape`` and ``slice_axis``, ``list_arguments``, ``list_outputs``,
 ``list_auxiliary_states`` (the variables an op mutates, such as
@@ -152,7 +153,25 @@ class Symbol:
         return len(self._entries)
 
     def __getitem__(self, index):
+        """One output by position or by name (``list_outputs``), or a
+        slice of them; an unknown name raises ``MXNetError``."""
+        if isinstance(index, str):
+            names = self.list_outputs()
+            if index not in names:
+                raise MXNetError("output '%s' not found; outputs=%s"
+                                 % (index, names))
+            index = names.index(index)
+        if isinstance(index, slice):
+            return Symbol(self._entries[index])
         return Symbol([self._entries[index]])
+
+    def get_internals(self):
+        """Every visible output of every node, variables included, in
+        topological order (``relu4_3_output``, ``conv1_weight``, ...):
+        index it by name to take an inner layer out of a graph."""
+        return Symbol([(node, i) for node in self._topo()
+                       for i in range(1 if node.is_var else
+                                      node.op.visible_out_count(node.attrs))])
 
     @property
     def name(self):

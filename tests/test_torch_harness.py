@@ -175,6 +175,17 @@ def test_train_imagenet_benchmark_runs_on_the_cpu(layout, dtype):
     _final(out)
 
 
+def test_train_imagenet_vgg_runs_on_the_cpu():
+    """``--network vgg`` (models.vgg, the classifier with Dropout) on
+    synthetic data for one batch at a small image shape."""
+    out = _run([os.path.join(IC, "train_imagenet.py"), "--ctx", "cpu",
+                "--network", "vgg", "--num-layers", "11", "--benchmark", "1",
+                "--image-shape", "3,32,32", "--num-classes", "10",
+                "--batch-size", "2", "--num-examples", "2", "--num-epochs",
+                "1", "--disp-batches", "1"])
+    _final(out)
+
+
 def test_train_imagenet_refuses_a_record_file():
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     proc = subprocess.run(
@@ -312,3 +323,18 @@ def test_char_lm_runs_on_the_cpu():
                 "--num-epochs", "1", "--num-hidden", "16",
                 "--target-ppl", "1000"])
     assert "final train perplexity" in out and "char_lm OK" in out
+
+
+def test_ssd_harness_reaches_its_iou():
+    """example/torch/ssd/train_ssd.py for 6 epochs: the mean IoU of each
+    image's top detection passes ``chip_smoke.SSD_HARNESS_IOU`` (the
+    card's harness holds the same bound at its 12)."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    out = _run([os.path.join(HARNESS, "ssd", "train_ssd.py"), "--ctx", "cpu",
+                "--num-epochs", "6"])
+    line = [ln for ln in out.splitlines()
+            if ln.startswith("mean IoU of top detection")][-1]
+    iou = float(line.split(":")[1].split(";")[0])
+    assert iou > chip_smoke.SSD_HARNESS_IOU, line
+    assert "Speed:" in out
